@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port on one CUDA card: build the kernels, hold each
 against its plain version at the serving shapes, then serve command-r-35b
-at full width (depth cut to 4 layers) through the engine.
+at full width (depth cut to 4 layers) through the engine, at the policy's
+defaults and activation-coded.
 
     python3 chip_smoke.py
 
@@ -9,21 +10,32 @@ Phases (any failure exits non-zero; no phase is caught):
   1. device: name, count, `nvidia-smi` name and power limit;
   2. build: nvcc for sm_90a of every source in src/repro_torch/csrc/, with
      the -Xptxas -v register / shared-memory report;
-  3. kernels: K1-K4 against their plain versions at the main path's shapes
+  3. kernels: K1-K6 against their plain versions at the main path's shapes
      (K1/K2 bitwise, K3 within 2e-5, K4 equal tokens, or a score within
-     1e-5 of the largest |logit| where the plain top two are that close),
+     1e-5 of the largest |logit| where the plain top two are that close;
+     K5 pages bitwise and attention within 2e-5 (f32) or one bf16 ulp
+     (bf16) at both span branches; K6 within 16 u sqrt(K) ||a_i . b_j||_2,
+     a limit two planted faults must fail),
      with the device time per launch (CUDA-graph replay timed by CUDA
      events; the per-call time with host overhead is printed beside it),
      the plain version's time, the bound from bytes and FLOPs at the H100
      SXM data-sheet rates, and one PyTorch call as a yardstick where one
      exists;
-  4. correctness on a small input: the tiny config's logits on the card
-     against the port's plain CPU path;
-  5. serving: 8 requests greedy, then 8 sampled (T 0.8, top-k 40), on the
-     full-width config; every kernel's launch count must be > 0 and every
-     page must come back;
+  4. correctness on a small input: the smoke config's logits on the card
+     against the port's plain CPU path, under serve_fused_p16 (fused
+     prefill) and serve_fused_p16_a13;
+  5. serving at the policy's defaults (prefix sharing, fused prefill): 8
+     requests sharing a 64-token system prompt, greedy and sampled (T 0.8,
+     top-k 40), greedy again with sharing off (streams must be equal) and
+     with the decomposed prefill (agreement printed), then one run at
+     max_seq 1280 with an 1100-token prompt so a chunk's span crosses
+     FLASH_CHUNK; 5b. the same 8 requests under serve_fused_p16_a13.  Each
+     main-path run (defaults greedy and sampled, long prompt, a13) counts
+     its launches from 0, and its kernels must launch in it; every page
+     must come back;
   6. profile: torch.profiler over a few decode steps with four slots busy,
-     device time per step by kernel and the device's busy share.
+     at the defaults and under a13, device time per step by kernel and the
+     device's busy share.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -38,12 +50,16 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
 F32_FLOP_PER_S = 67e12          # H100 SXM, f32 outside the tensor cores
+BF16_FLOP_PER_S = 989e12        # H100 SXM, dense bf16 on the tensor cores
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 
-def _bound(bytes_moved: float, flops: float):
+def _bound(bytes_moved: float, flops: float,
+           flop_per_s: float = F32_FLOP_PER_S):
+    """The least time for the work: bytes over the HBM rate or operations
+    over the peak rate of the operands' type, whichever is larger."""
     t_b = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_f = flops / F32_FLOP_PER_S * 1e3
+    t_f = flops / flop_per_s * 1e3
     return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
 
 
@@ -290,20 +306,222 @@ def _k4_decode_sample(dev):
                 shape="B=4 D=8192 V=256000 int16 [V, D], T=0.8 top-k 40")
 
 
+def _k5_case(dev, act, M, starts, reps):
+    """K5 against its plain version at the serving geometry (4 slots, a
+    64-token chunk, 64 / 8 heads of 128, 16-token P(8,2) pages, M pages
+    per slot).  Slots 0 and 1 share their history pages; slot 3 has
+    page_ok all 0.  Returns (max |err|, times, bound, library time)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.core import formats, posit
+    from repro_torch.kernels import prefill_attention as pf
+    fmt = formats.P8_2
+    B, C, Hq, Hkv, Dh, ps = 4, 64, 64, 8, 128, 16
+    P = B * M + 1
+    g = torch.Generator(device=dev).manual_seed(5 + M)
+    kp = posit.pack(torch.randn(P, ps, Hkv * Dh, generator=g, device=dev), fmt)
+    vp = posit.pack(torch.randn(P, ps, Hkv * Dh, generator=g, device=dev), fmt)
+    bt = torch.arange(1, P, device=dev, dtype=torch.int32).reshape(B, M)
+    shared = starts[0] // ps
+    bt[1, :shared] = bt[0, :shared]
+    q = torch.randn(B, C, Hq, Dh, generator=g, device=dev).to(act)
+    k = torch.randn(B, C, Hkv, Dh, generator=g, device=dev).to(act)
+    v = torch.randn(B, C, Hkv, Dh, generator=g, device=dev).to(act)
+    st = torch.tensor(starts, dtype=torch.int32, device=dev)
+    win = torch.tensor([1 << 30], dtype=torch.int32, device=dev)
+    ok = torch.ones(B, M, dtype=torch.int32, device=dev)
+    ok[3] = 0
+    kw = dict(fmt_kv=fmt, compute_dtype=act, flash_chunk=1024, page_ok=ok)
+    kp0, vp0 = kp.clone(), vp.clone()
+    got, _, _ = pf.prefill_attention_paged(q, k, v, kp, vp, bt, st, win, **kw)
+    want, _, _ = pf.prefill_attention_paged_plain(q, k, v, kp0.clone(),
+                                                  vp0.clone(), bt, st, win,
+                                                  **kw)
+    kp2, vp2 = kp0.clone(), vp0.clone()
+    pf.prefill_attention_paged_plain(q, k, v, kp2, vp2, bt, st, win, **kw)
+    _check(_bits_equal(kp[1:], kp2[1:]) and _bits_equal(vp[1:], vp2[1:]),
+           f"K5 page writes bitwise (M={M}, {act})")
+    _check(_bits_equal(kp[bt[3].long()], kp0[bt[3].long()]),
+           "K5 leaves page_ok == 0 pages untouched")
+    _check(bool(torch.isfinite(got.float()).all()), "K5 finite outputs")
+    if act == torch.float32:
+        close = torch.allclose(got, want, rtol=2e-5, atol=2e-5)
+    else:
+        close = torch.allclose(got.float(), want.float(), rtol=2.0 ** -7,
+                               atol=1e-6)
+    _check(bool(close), f"K5 attention within tolerance (M={M}, {act})")
+    err = float((got.float() - want.float()).abs().max())
+    run = lambda: pf.prefill_attention_paged(q, k, v, kp, vp, bt, st, win,  # noqa: E731
+                                             **kw)
+    call_ms = _time_ms(run, reps=reps)
+    ms = _device_ms(run, launches=reps)
+    plain_ms = _time_once_ms(lambda: pf.prefill_attention_paged_plain(
+        q, k, v, kp2, vp2, bt, st, win, **kw))
+    # yardstick: SDPA over history already gathered and decoded, plus the
+    # chunk, with the causal / unwritten-history mask
+    S_h = M * ps
+    hk = posit.decode(kp0[bt.long()], fmt).reshape(B, S_h, Hkv, Dh).to(act)
+    hv = posit.decode(vp0[bt.long()], fmt).reshape(B, S_h, Hkv, Dh).to(act)
+    keys = torch.cat([hk, k], 1).permute(0, 2, 1, 3).repeat_interleave(
+        Hq // Hkv, dim=1)
+    vals = torch.cat([hv, v], 1).permute(0, 2, 1, 3).repeat_interleave(
+        Hq // Hkv, dim=1)
+    kv_pos = torch.cat([torch.where(torch.arange(S_h, device=dev)[None] <
+                                    st[:, None].long(),
+                                    torch.arange(S_h, device=dev)[None], -1),
+                        st[:, None].long() + torch.arange(C, device=dev)], 1)
+    q_pos = st[:, None].long() + torch.arange(C, device=dev)
+    mask = (kv_pos[:, None, :] >= 0) & (q_pos[:, :, None] >= kv_pos[:, None, :])
+    qt = q.permute(0, 2, 1, 3)
+    library_ms = _device_ms(lambda: F.scaled_dot_product_attention(
+        qt, keys, vals, attn_mask=mask[:, None]), launches=reps)
+    # bytes: q, k, v and the output once, the written history rows of K and
+    # V once, the chunk's codes written (slot 3's not); operations: q.k and
+    # p.v over the (query, key) pairs this data attends (causal), at the
+    # peak rate of the activations' type (bf16 tensor cores for bf16).  The
+    # kernel keeps f32 FMA for parity with the plain version; the bound at
+    # the f32 rate is that design's cost and is printed beside it.
+    ab = q.element_size()
+    hist_rows = sum(starts[:1] + starts[2:])   # slot 1 reads slot 0's pages
+    bytes_moved = (B * C * (2 * Hq + 2 * Hkv) * Dh * ab
+                   + 2 * hist_rows * Hkv * Dh + 2 * (B - 1) * C * Hkv * Dh)
+    pairs = sum(C * s + C * (C + 1) // 2 for s in starts)
+    flops = 4.0 * pairs * Hq * Dh
+    rate = BF16_FLOP_PER_S if act == torch.bfloat16 else F32_FLOP_PER_S
+    bound, by = _bound(bytes_moved, flops, rate)
+    f32_fma_ms = _bound(bytes_moved, flops)[0]
+    return err, ms, call_ms, plain_ms, bound, by, library_ms, f32_fma_ms
+
+
+def _k5_prefill(dev):
+    import torch
+    # serving geometry (max_seq 256: one flash pass), in bf16 as the model
+    # runs it and in f32; then a long span (M 128: two whole flash chunks
+    # of history stream before the tail)
+    err16, ms, call_ms, plain_ms, bound, by, library_ms, fma_ms = _k5_case(
+        dev, torch.bfloat16, 16, [64, 64, 130, 190], reps=50)
+    err32 = _k5_case(dev, torch.float32, 16, [64, 64, 130, 190], reps=5)
+    long = _k5_case(dev, torch.bfloat16, 128, [1024, 1024, 1500, 1984],
+                    reps=10)
+    print(f"kernel prefill_attention serving shape: bound_ms at the f32 FMA "
+          f"rate (the parity design's cost) {fma_ms:.4f}")
+    print(f"kernel prefill_attention long span (M 128, starts >= 1024, two "
+          f"streamed flash chunks): ms {long[1]:.4f}, plain_ms {long[3]:.3f}, "
+          f"bound_ms {long[4]:.4f} ({long[5]}), bound_ms at the f32 FMA rate "
+          f"{long[7]:.4f}, library_ms {long[6]:.4f}, max_abs_err "
+          f"{long[0]:.3g}")
+    print(f"kernel prefill_attention f32 activations (serving shape): ms "
+          f"{err32[1]:.4f}, bound_ms {err32[4]:.4f} ({err32[5]}), "
+          f"library_ms {err32[6]:.4f}, max_abs_err {err32[0]:.3g}")
+    return dict(name="prefill_attention",
+                source="src/repro_torch/csrc/prefill_attention.cu",
+                replaces="src/repro/kernels/prefill_attention.py:251",
+                max_abs_err=max(err16, long[0]), ms=ms, call_ms=call_ms,
+                plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                library_ms=library_ms,
+                shape="B=4 C=64 Hq=64 Hkv=8 Dh=128 ps=16 M=16 bf16, int8 "
+                      "P(8,2) pages")
+
+
+# one layer's projections of command-r-35b, (K, N): wq, wk, wv, wo, gate,
+# up, down
+_LAYER_KN = ((8192, 8192), (8192, 1024), (8192, 1024), (8192, 8192),
+             (8192, 22528), (8192, 22528), (22528, 8192))
+
+
+def _k6_matmul(dev):
+    import torch
+    from repro_torch.core import formats, posit
+    from repro_torch.kernels import posit_codec
+    from repro_torch.kernels import posit_matmul as pm
+    fa, fb = formats.P13_2, formats.P16_2
+    g = torch.Generator(device=dev).manual_seed(6)
+    weights = {}
+    for K, N in sorted(set(_LAYER_KN)):
+        weights[(K, N)] = posit_codec.encode(
+            torch.randn(K, N, generator=g, device=dev) / math.sqrt(K), fb)
+    acts = {(M, K): posit_codec.encode(
+        torch.randn(M, K, generator=g, device=dev), fa)
+        for M in (4, 256) for K in {K for K, _ in _LAYER_KN}}
+    err = ratio = 0.0
+    checks = [(4, K, N, None) for K, N in sorted(set(_LAYER_KN))]
+    checks += [(256, *_LAYER_KN[0], None), (256, *_LAYER_KN[1], formats.P16_2)]
+
+    def units(gap, bound):
+        # largest gap in units of u sqrt(K) ||a_i . b_j||_2 (bound / SUM_TOL)
+        return float((gap / (bound / pm.SUM_TOL).clamp(min=1e-30)).max())
+
+    for M, K, N, fo in checks:
+        a, b = acts[(M, K)], weights[(K, N)]
+        got = pm.posit_matmul(a, b, fa, fb)
+        want = pm.posit_matmul_plain(a, b, fa, fb)
+        bound = pm.sum_bound(a, b, fa, fb)
+        gap = (got - want).abs()
+        _check(bool((gap <= bound).all()),
+               f"K6 posit_matmul within {pm.SUM_TOL} u sqrt(K) ||ab|| at "
+               f"M={M} K={K} N={N}")
+        err = max(err, float(gap.max()))
+        ratio = max(ratio, units(gap, bound))
+        if fo is not None:
+            codes = pm.posit_matmul(a, b, fa, fb, fo)
+            _check(_bits_equal(codes, posit.pack(got, fo)),
+                   "K6 fmt_out codes are the rounding of its f32 sums")
+        # planted faults the tolerance must reject: weights rounded to
+        # bf16, and one 32-wide K tile left out
+        A, B = posit.decode(a, fa), posit.decode(b, fb)
+        faults = {"bf16 weights": torch.matmul(A, B.to(torch.bfloat16).float()),
+                  "K tile left out": want - torch.matmul(A[:, :32], B[:32])}
+        seen = []
+        for what, bad in faults.items():
+            bad_gap = (bad - want).abs()
+            _check(bool((bad_gap > bound).any()),
+                   f"K6 tolerance rejects the planted fault '{what}' at "
+                   f"M={M} K={K} N={N}")
+            seen.append(f"{what} {units(bad_gap, bound):.4g}")
+        del A, B, faults
+        print(f"K6 M={M} K={K} N={N} fmt_out={fo}: max |err| "
+              f"{float(gap.max()):.3g}, largest err in u sqrt(K) ||ab|| "
+              f"{units(gap, bound):.4g} (limit {pm.SUM_TOL}; planted: "
+              f"{', '.join(seen)}), ms "
+              f"{_device_ms(lambda: pm.posit_matmul(a, b, fa, fb), launches=5):.4f}")
+    layer = [(acts[(4, K)], weights[(K, N)]) for K, N in _LAYER_KN]
+
+    def run():
+        for a, b in layer:
+            pm.posit_matmul(a, b, fa, fb)
+
+    call_ms = _time_ms(run, reps=5)
+    ms = _device_ms(run, launches=3)
+    plain_ms = _time_once_ms(lambda: [pm.posit_matmul_plain(a, b, fa, fb)
+                                      for a, b in layer])
+    decoded = [(posit.decode(a, fa), posit.decode(b, fb)) for a, b in layer]
+    library_ms = _device_ms(lambda: [torch.matmul(a, b) for a, b in decoded],
+                            launches=3)
+    bytes_moved = sum(4 * K * 2 + K * N * 2 + 4 * N * 4 for K, N in _LAYER_KN)
+    flops = sum(2.0 * 4 * K * N for K, N in _LAYER_KN)
+    bound, by = _bound(bytes_moved, flops)
+    print(f"K6: largest |err| in u sqrt(K) ||ab|| over the checks "
+          f"{ratio:.4g} (limit {pm.SUM_TOL})")
+    return dict(name="posit_matmul", source="src/repro_torch/csrc/posit_matmul.cu",
+                replaces="src/repro/kernels/posit_matmul.py:168",
+                max_abs_err=err, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+                bound_ms=bound, bound_by=by, library_ms=library_ms,
+                shape="M=4, one layer's 7 projections (7 launches), int16 "
+                      "P(13,2) x P(16,2) -> f32")
+
+
 # ---------------------------------------------------------------------------
 # phase 4: small-input agreement with the plain CPU path
 # ---------------------------------------------------------------------------
 
-def _small_reference(dev):
-    import dataclasses
+def _small_reference(dev, policy: str):
     import torch
     from repro_torch import configs
     from repro_torch.core.quant import policy_by_name
     from repro_torch.models import api, packing
     from repro_torch.models.paged import PagedLayout
     cfg = configs.get_smoke("command_r_35b")
-    cfg = cfg.replace(quant=dataclasses.replace(
-        policy_by_name("serve_fused_p16"), fused_prefill=False))
+    cfg = cfg.replace(quant=policy_by_name(policy))
     cpu = torch.device("cpu")
     params = packing.pack_params(
         api.init(torch.Generator().manual_seed(7), cfg, device=cpu), cfg)
@@ -325,7 +543,8 @@ def _small_reference(dev):
     for a, b in zip(out["cuda"], out["cpu"]):
         _check(bool(torch.isfinite(a).all()), "small-input logits finite")
         _check(bool(torch.allclose(a, b, rtol=1e-4, atol=1e-4)),
-               "small-input logits on the card vs the plain CPU path")
+               f"small-input logits on the card vs the plain CPU path "
+               f"({policy})")
         err = max(err, float((a - b).abs().max()))
     return err
 
@@ -334,20 +553,123 @@ def _small_reference(dev):
 # phase 5: serving the main path
 # ---------------------------------------------------------------------------
 
-def _serve(dev):
+def _run_engine(cfg, params, prompts, label: str, **kw):
+    """Serve `prompts` (16 new tokens each) on a fresh 4-slot engine, one
+    step at a time; checks every request and every page, prints the run's
+    numbers, and returns ({rid: tokens}, engine, launches per pure decode
+    step summed over those steps, number of pure decode steps)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.serve import Request, ServingEngine
+    engine = ServingEngine(cfg, params, batch_slots=4, **kw)
+    for rid, p in enumerate(prompts):
+        engine.submit(Request(rid=rid, prompt=p, max_new_tokens=16))
+    torch.cuda.reset_peak_memory_stats()
+    decode_ms = []
+    per_step: dict = {}
+    t0 = time.perf_counter()
+    while engine.queue or (engine.slot_phase != 0).any():
+        chunks = engine.stats["prefill_chunks"]
+        before = dict(ops.launch_counts())
+        torch.cuda.synchronize()
+        s0 = time.perf_counter()
+        if not engine.step():
+            break
+        torch.cuda.synchronize()
+        if engine.stats["prefill_chunks"] == chunks:
+            decode_ms.append((time.perf_counter() - s0) * 1e3)
+            for k, v in ops.launch_counts().items():
+                per_step[k] = per_step.get(k, 0) + v - before[k]
+    wall = time.perf_counter() - t0
+    done = sorted(engine.done, key=lambda r: r.rid)
+    n_tok = sum(len(r.out_tokens) for r in done)
+    _check(len(done) == len(prompts)
+           and all(len(r.out_tokens) == 16 for r in done),
+           f"{label}: every request served 16 tokens")
+    _check(all(0 <= t < cfg.vocab_size for r in done for t in r.out_tokens),
+           f"{label}: tokens in the vocabulary")
+    _check(engine.pages_free == engine.allocator.capacity,
+           f"{label}: every page reclaimed")
+    n_steps = max(len(decode_ms), 1)
+    print(f"{label}: tokens {n_tok}, wall {wall:.3f} s, "
+          f"{n_tok / wall:.2f} tok/s, mean decode step "
+          f"{float(np.mean(decode_ms)):.3f} ms over {len(decode_ms)} "
+          f"steps, peak memory {torch.cuda.max_memory_allocated()} B")
+    print(f"{label}: launches per pure decode step " + json.dumps(
+        {k: v / n_steps for k, v in per_step.items()}))
+    print(f"{label}: stats " + json.dumps(
+        {k: engine.stats[k] for k in ("shared_admissions", "pages_shared",
+                                      "cow_forks", "prefill_chunks",
+                                      "prefill_device_programs",
+                                      "decode_steps")}
+        | {"total_allocs": engine.allocator.total_allocs,
+           "peak_pages": engine.allocator.peak_in_use}))
+    print(f"{label}: execution_summary "
+          f"{json.dumps(engine.execution_summary())}")
+    print(f"{label}: first tokens {done[0].out_tokens[:8]}")
+    return ({r.rid: list(map(int, r.out_tokens)) for r in done}, engine,
+            per_step, len(decode_ms))
+
+
+def _agreement(a: dict, b: dict):
+    """(share of streams identical, share of tokens equal position-wise)."""
+    same = sum(a[r] == b[r] for r in a) / len(a)
+    toks = sum(x == y for r in a for x, y in zip(a[r], b[r]))
+    return same, toks / sum(len(a[r]) for r in a)
+
+
+def _prefill_logit_gap(cfg, params, prompt, dev):
+    """Prefill one request's prompt in the engine's chunks on a fresh cache,
+    fused and decomposed; prints max |logit difference| / max |logit| and
+    the kernel launches of the fused run's first chunk group."""
     import dataclasses
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import api
+    from repro_torch.models.paged import PagedLayout
+    out = []
+    for fused in (True, False):
+        c = cfg.replace(quant=dataclasses.replace(cfg.quant,
+                                                  fused_prefill=fused))
+        layout = PagedLayout.for_slots(4, 256, 16)
+        cache = api.init_cache(c, 4, 256, layout, device=dev)
+        cache["block_table"][0] = torch.arange(1, 17, dtype=torch.int32,
+                                               device=dev)
+        active = torch.tensor([True, False, False, False], device=dev)
+        lo = 0
+        for size in (64, 16, 16, 16, 4, 4, 1, 1, 1):
+            if lo + size > len(prompt):
+                continue
+            toks = torch.zeros(4, size, dtype=torch.int32, device=dev)
+            toks[0] = torch.from_numpy(prompt[lo:lo + size]).to(dev)
+            before = dict(ops.launch_counts())
+            logits, cache = api.prefill_chunk_batched(params, toks, cache,
+                                                      active, c)
+            if fused and lo == 0:
+                print(f"{cfg.quant.activations or 'float'} activations: "
+                      f"launches per {size}-token prefill chunk group "
+                      + json.dumps({k: v - before[k] for k, v in
+                                    ops.launch_counts().items()}))
+            lo += size
+        out.append(logits[0].float())
+    gap = float((out[0] - out[1]).abs().max() / out[1].abs().max())
+    print(f"prefill logits of request 0 ({lo} tokens, "
+          f"{cfg.quant.activations or 'float'} activations), fused vs "
+          f"decomposed: max |diff| / max |logit| = {gap:.3g}")
+    return gap
+
+
+def _serve(dev):
     import numpy as np
     import torch
     from repro_torch import configs
     from repro_torch.core.quant import policy_by_name
     from repro_torch.kernels import ops
     from repro_torch.models import api, packing
-    from repro_torch.serve import Request, ServingEngine
 
     full = configs.get("command_r_35b")
-    cfg = full.replace(n_layers=4, quant=dataclasses.replace(
-        policy_by_name("serve_fused_p16"), fused_prefill=False,
-        prefix_sharing=False))
+    cfg = full.replace(n_layers=4, quant=policy_by_name("serve_fused_p16"))
     print(f"config: d_model {cfg.d_model}, heads {cfg.n_heads}/"
           f"{cfg.n_kv_heads} x {cfg.head_dim}, d_ff {cfg.d_ff}, vocab "
           f"{cfg.vocab_size}, tied {cfg.tie_embeddings}, dtype {cfg.dtype}")
@@ -356,68 +678,83 @@ def _serve(dev):
     t0 = time.perf_counter()
     params = api.init(torch.Generator(device=dev).manual_seed(0), cfg,
                       device=dev)
+    # std-1 embeddings make the tied head's logits O(sqrt(d_model)) and
+    # every greedy or sampled stream one repeated token; at std
+    # 1/sqrt(d_model) the logits are O(1) and the streams vary, so the
+    # stream comparisons below can fail
+    params["embed"].mul_(1.0 / math.sqrt(cfg.d_model))
     params = packing.pack_params(params, cfg)
     torch.cuda.synchronize()
     print(f"init + pack on the card: {time.perf_counter() - t0:.3f} s, "
           f"weights {packing.weight_bytes(params)} B")
     rng = np.random.default_rng(0)
-    prompts = [rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32)
-               for n in rng.integers(24, 121, 8)]
-    summaries = {}
-    ops.reset_launches()
-    for mode, kw in (("greedy", dict(greedy=True)),
-                     ("sampled", dict(greedy=False, temperature=0.8,
-                                      top_k=40))):
-        engine = ServingEngine(cfg, params, batch_slots=4, max_seq=256,
-                               page_size=16, fused_prefill=False,
-                               prefix_sharing=False, base_seed=1, **kw)
-        for rid, p in enumerate(prompts):
-            engine.submit(Request(rid=rid, prompt=p, max_new_tokens=16))
-        torch.cuda.reset_peak_memory_stats()
-        before = dict(ops.launch_counts())
-        decode_ms = []
-        per_step = {k: 0 for k in before}
-        t0 = time.perf_counter()
-        while engine.queue or (engine.slot_phase != 0).any():
-            chunks = engine.stats["prefill_chunks"]
-            step_before = dict(ops.launch_counts())
-            torch.cuda.synchronize()
-            s0 = time.perf_counter()
-            if not engine.step():
-                break
-            torch.cuda.synchronize()
-            if engine.stats["prefill_chunks"] == chunks:
-                decode_ms.append((time.perf_counter() - s0) * 1e3)
-                for k, v in ops.launch_counts().items():
-                    per_step[k] += v - step_before[k]
-        wall = time.perf_counter() - t0
-        done = engine.done
-        n_tok = sum(len(r.out_tokens) for r in done)
-        _check(len(done) == 8 and all(len(r.out_tokens) == 16 for r in done),
-               f"{mode}: every request served 16 tokens")
-        _check(all(0 <= t < cfg.vocab_size for r in done for t in r.out_tokens),
-               f"{mode}: tokens in the vocabulary")
-        _check(engine.pages_free == engine.allocator.capacity,
-               f"{mode}: every page reclaimed")
-        counts = {k: v - before[k] for k, v in ops.launch_counts().items()}
-        summary = engine.execution_summary()
-        print(f"{mode}: tokens {n_tok}, wall {wall:.3f} s, "
-              f"{n_tok / wall:.2f} tok/s, mean decode step "
-              f"{float(np.mean(decode_ms)):.3f} ms over {len(decode_ms)} "
-              f"steps, peak memory {torch.cuda.max_memory_allocated()} B")
-        print(f"{mode}: launches {json.dumps(counts)}")
-        print(f"{mode}: launches per pure decode step " + json.dumps(
-            {k: v / max(len(decode_ms), 1) for k, v in per_step.items()}))
-        print(f"{mode}: pages_free {engine.pages_free} == capacity "
-              f"{engine.allocator.capacity}")
-        print(f"{mode}: execution_summary {json.dumps(summary)}")
-        print(f"{mode}: first tokens {done[0].out_tokens[:8]}")
-        summaries[mode] = counts
-        del engine
-    launches = ops.launch_counts()
-    for name, n in launches.items():
-        _check(n > 0, f"kernel {name} launched on the main path")
-    return launches, cfg, params, prompts
+    system = rng.integers(0, cfg.vocab_size, 64)
+    prompts = [np.concatenate([system, rng.integers(0, cfg.vocab_size, int(n))])
+               .astype(np.int32) for n in rng.integers(8, 57, 8)]
+    base = dict(max_seq=256, page_size=16, base_seed=1)
+
+    # Each main-path run reads its own launch counts: set to 0 just before
+    # it, read just after.  The sharing-off and decomposed runs are
+    # comparisons and are not counted.
+    counts = {}
+
+    def main_path(label, *args, **kw):
+        ops.reset_launches()
+        out = _run_engine(*args, label=label, **kw)
+        counts[label] = ops.launch_counts()
+        print(f"{label}: launches {json.dumps(counts[label])}")
+        return out
+
+    # ---- phase 5: the policy's defaults (prefix sharing, fused prefill)
+    greedy, eng, _, _ = main_path("defaults greedy", cfg, params, prompts,
+                                  greedy=True, **base)
+    summary = eng.execution_summary()
+    _check(eng.prefix_sharing and summary["fused_prefill"],
+           "the engine serves with prefix sharing and fused prefill on")
+    _check(eng.stats["shared_admissions"] > 0, "shared admissions > 0")
+    _check(summary["prefill_device_programs"] == summary["prefill_chunks"],
+           "one prefill program per chunk group")
+    main_path("defaults sampled", cfg, params, prompts, greedy=False,
+              temperature=0.8, top_k=40, **base)
+    unshared = _run_engine(cfg, params, prompts, "sharing off greedy",
+                           greedy=True, prefix_sharing=False, **base)[0]
+    _check(unshared == greedy,
+           "greedy streams with prefix sharing equal to sharing off")
+    decomposed = _run_engine(cfg, params, prompts, "decomposed prefill greedy",
+                             greedy=True, fused_prefill=False, **base)[0]
+    same, toks = _agreement(greedy, decomposed)
+    print(f"greedy streams, fused vs decomposed prefill: {same:.3f} of "
+          f"streams identical, {toks:.4f} of tokens equal")
+    long_prompt = rng.integers(0, cfg.vocab_size, 1100).astype(np.int32)
+    _, eng, _, _ = main_path("long prompt greedy", cfg, params,
+                             prompts + [long_prompt], greedy=True,
+                             max_seq=1280, page_size=16, base_seed=1)
+    summary = eng.execution_summary()
+    _check(summary["prefill_device_programs"] == summary["prefill_chunks"],
+           "long prompt: one prefill program per chunk group")
+    for label in ("defaults greedy", "defaults sampled", "long prompt greedy"):
+        for name in ("posit_decode", "posit_encode", "paged_attention",
+                     "decode_sample", "prefill_attention"):
+            _check(counts[label][name] > 0,
+                   f"kernel {name} launched in the '{label}' run")
+    _prefill_logit_gap(cfg, params, prompts[0], dev)
+
+    # ---- phase 5b: activation-coded (serve_fused_p16_a13)
+    cfg13 = cfg.replace(quant=policy_by_name("serve_fused_p16_a13"))
+    coded, _, per_step, n_steps = main_path("a13 greedy", cfg13, params,
+                                            prompts, greedy=True, **base)
+    per_layer = 7 * cfg.n_layers
+    _check(per_step.get("posit_matmul", 0) == per_layer * n_steps,
+           f"K6 launched {per_layer} times per pure decode step")
+    for name in ("posit_encode", "paged_attention", "decode_sample",
+                 "prefill_attention", "posit_matmul"):
+        _check(counts["a13 greedy"][name] > 0,
+               f"kernel {name} launched in the 'a13 greedy' run")
+    same, toks = _agreement(coded, greedy)
+    print(f"a13 vs float-activation greedy streams: {same:.3f} of streams "
+          f"identical, {toks:.4f} of tokens equal")
+    _prefill_logit_gap(cfg13, params, prompts[0], dev)
+    return counts, cfg, cfg13, params, prompts
 
 
 # ---------------------------------------------------------------------------
@@ -429,10 +766,12 @@ _KERNEL_GROUPS = (("posit_decode", "K1 posit_decode"),
                   ("posit_encode", "K2 posit_encode"),
                   ("paged_attention", "K3 paged_attention"),
                   ("ds_", "K4 decode_sample"),
+                  ("prefill_attention", "K5 prefill_attention"),
+                  ("posit_matmul", "K6 posit_matmul"),
                   ("gemm", "torch.matmul"), ("gemv", "torch.matmul"))
 
 
-def _profile(cfg, params, prompts, steps: int = 4):
+def _profile(cfg, params, prompts, label: str, steps: int = 4):
     """torch.profiler over `steps` greedy decode steps with 4 slots busy:
     device time per step by layer, and the device's busy share of the
     window (host clock, ending in a synchronize)."""
@@ -441,8 +780,7 @@ def _profile(cfg, params, prompts, steps: int = 4):
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serve import Request, ServingEngine
     engine = ServingEngine(cfg, params, batch_slots=4, max_seq=256,
-                           page_size=16, fused_prefill=False,
-                           prefix_sharing=False, greedy=True)
+                           page_size=16, greedy=True)
     for rid, p in enumerate(prompts[:4]):
         engine.submit(Request(rid=rid, prompt=p, max_new_tokens=steps + 3))
     engine.step()   # prefill of all four, then their first decode step
@@ -464,13 +802,14 @@ def _profile(cfg, params, prompts, steps: int = 4):
                      "other torch ops")
         groups[group] = groups.get(group, 0.0) + evt.self_device_time_total
     busy = sum(groups.values())
-    print(f"profile: {steps} decode steps, 4 slots, wall {wall_us / steps / 1e3:.3f}"
+    print(f"profile {label}: {steps} decode steps, 4 slots, wall "
+          f"{wall_us / steps / 1e3:.3f}"
           f" ms/step, device busy {busy / steps / 1e3:.3f} ms/step "
           f"({100 * busy / wall_us:.1f}% of the window)"
-          if busy else "profile: the profiler recorded no device time "
-          "(not measured)")
+          if busy else f"profile {label}: the profiler recorded no device "
+          f"time (not measured)")
     for group, us in sorted(groups.items(), key=lambda kv: -kv[1]):
-        print(f"profile: {group}: {us / steps / 1e3:.3f} ms/step "
+        print(f"profile {label}: {group}: {us / steps / 1e3:.3f} ms/step "
               f"({100 * us / busy:.1f}% of device time)")
 
 
@@ -514,7 +853,8 @@ def main() -> int:
                 print(f"ptxas[{src_name}]: {line.strip()}")
 
     kernels = []
-    for fn in (_k1_decode, _k2_encode, _k3_attention, _k4_decode_sample):
+    for fn in (_k1_decode, _k2_encode, _k3_attention, _k4_decode_sample,
+               _k5_prefill, _k6_matmul):
         rec = fn(dev)
         torch.cuda.empty_cache()
         print(f"kernel {rec['name']} ({rec['shape']}): ms {rec['ms']:.4f} "
@@ -524,16 +864,22 @@ def main() -> int:
               f"{'none' if rec['library_ms'] is None else round(rec['library_ms'], 4)}"
               f", max_abs_err {rec['max_abs_err']:.3g}")
         kernels.append(rec)
-    print(f"small input: max |logit diff| card vs plain CPU "
-          f"{_small_reference(dev):.3g}")
-    ops.reset_launches()
-    launches, cfg, params, prompts = _serve(dev)
-    _profile(cfg, params, prompts)
+    for policy in ("serve_fused_p16", "serve_fused_p16_a13"):
+        print(f"small input ({policy}): max |logit diff| card vs plain CPU "
+              f"{_small_reference(dev, policy):.3g}")
+    counts, cfg, cfg13, params, prompts = _serve(dev)
+    _profile(cfg, params, prompts, "defaults")
+    _profile(cfg13, params, prompts, "a13")
+    # launches: the sum of the main-path runs' own counts (each from 0);
+    # launches_by_path: each run's count
     for rec in kernels:
-        rec["launches"] = launches[rec["name"]]
+        rec["launches_by_path"] = {label: c[rec["name"]]
+                                   for label, c in counts.items()}
+        rec["launches"] = sum(rec["launches_by_path"].values())
         rec["route"] = "cuda"
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    keys = ("name", "route", "source", "replaces", "launches",
+            "launches_by_path", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in kernels]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}))

@@ -7,13 +7,14 @@ format and which GEMM datapath (`execution`) runs every model matmul:
   fake_quant : decode(encode(x)) on both operands, then a plain f32 dot.
   fused      : weights travel as posit *codes* (int8/int16) and are decoded
                exactly by the codec kernel right before the dot
-               (`kernels/ops.matmul_posit_weights`), f32 accumulation.
+               (`kernels/ops.matmul_posit_weights`), f32 accumulation; with
+               `activations` set, both operands travel as codes through
+               the coded GEMM kernel (`kernels/ops.fused_matmul`).
   bit_exact  : the chunked-PDPU datapath; not ported yet (ROADMAP queue 2).
 
 The serving knobs (`kv_page_size`, `prefix_sharing`, `batched_prefill`,
 `fused_prefill`, `fused_decode`) keep the reference's meanings and
-defaults; the port's engine raises `NotImplementedError` for the ones it
-does not implement yet (prefix sharing, fused prefill).
+defaults, and the port's engine implements all of them.
 """
 from __future__ import annotations
 
@@ -88,7 +89,7 @@ class QuantPolicy:
                   one device call per (step, bucket) regardless of how
                   many slots are filling.
     fused_prefill : serving-kernel knob — paged prefill chunks run the
-                  fused prefill program (not ported yet, ROADMAP queue 2):
+                  fused prefill program (kernels/prefill_attention.py):
                   chunk attention + posit KV encode + page scatter in ONE
                   device program instead of three (flash_attention,
                   kv_encode, insert_chunk).  Bit-identical to the

@@ -21,7 +21,8 @@ import torch
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
-SOURCES = ("posit_codec", "paged_attention", "decode_sample")
+SOURCES = ("posit_codec", "paged_attention", "decode_sample",
+           "prefill_attention", "posit_matmul")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -38,6 +39,12 @@ _SIGNATURES = {
     "decode_sample": {
         "decode_sample_tiles": [_I, _I],
         "decode_sample_launch": [_P] * 7 + [_I] * 8 + [_F, _F, _I, _I, _P],
+    },
+    "prefill_attention": {
+        "prefill_attention_launch": [_P] * 10 + [_I] * 13 + [_F, _F, _P],
+    },
+    "posit_matmul": {
+        "posit_matmul_launch": [_P] * 4 + [_I] * 12 + [_P],
     },
 }
 

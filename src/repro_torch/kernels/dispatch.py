@@ -7,13 +7,16 @@
               may be float masters or packed posit codes (decoded).
   fused       float activations x posit-coded weights: packed codes decode
               exactly through the codec kernel and `torch.matmul`
-              accumulates in f32 (`ops.matmul_posit_weights`).  Float
-              masters are encoded first (the reference's STE forward).
+              accumulates in f32 (`ops.matmul_posit_weights`).  With
+              `QuantPolicy.activations` set (activation-coded serving) the
+              activations are encoded (K2) and both code operands go
+              through the coded GEMM kernel (`ops.fused_matmul`, K6).
+              Float masters are encoded first (the reference's STE
+              forward).
   bit_exact   not ported yet (ROADMAP queue 2: the PDPU GEMM kernel).
 
-Activation-coded fused serving (`QuantPolicy.activations` set under the
-fused plan) and the grouped MoE entry point need the coded GEMM kernels,
-which are not ported yet: both raise `NotImplementedError`.
+The grouped MoE entry point needs the grouped GEMM kernel, which is not
+ported yet: it raises `NotImplementedError`.
 """
 from __future__ import annotations
 
@@ -66,10 +69,6 @@ def qdot(x, w, policy: QuantPolicy, prec_dtype=torch.float32, out_dtype=None):
         return out.to(out_dtype)
 
     if plan == "fused":
-        if policy.activations is not None:
-            raise NotImplementedError(
-                "activation-coded fused serving needs the coded posit GEMM "
-                "kernel (posit_matmul), not ported yet: ROADMAP queue 2")
         xf, lead = _as_matrix(x)
         if packed:
             codes = w
@@ -77,7 +76,12 @@ def qdot(x, w, policy: QuantPolicy, prec_dtype=torch.float32, out_dtype=None):
             # float masters: the reference's STE forward encodes the masters
             # and runs the packed datapath
             codes = ops.encode(w.to(torch.float32), policy.weights)
-        out = ops.matmul_posit_weights(xf, codes, policy.weights)
+        if policy.activations is None:
+            out = ops.matmul_posit_weights(xf, codes, policy.weights)
+        else:
+            a_codes = ops.encode(xf.to(torch.float32), policy.activations)
+            out = ops.fused_matmul(a_codes, codes, policy.activations,
+                                   policy.weights, fmt_out=None)
         return out.reshape(lead + (w.shape[-1],)).to(out_dtype)
 
     if plan == "bit_exact":

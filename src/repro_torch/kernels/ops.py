@@ -14,16 +14,20 @@ import torch
 
 from repro_torch.core.formats import PositFormat
 from . import paged_attention as paged_attention_mod
-from . import posit_codec
+from . import posit_codec, posit_matmul
+from . import prefill_attention as prefill_attention_mod
+
+_COUNTERS = (posit_codec.LAUNCHES, paged_attention_mod.LAUNCHES,
+             prefill_attention_mod.LAUNCHES, posit_matmul.LAUNCHES)
 
 
 def launch_counts() -> dict:
     """Kernel launches since the last reset, by kernel name."""
-    return {**posit_codec.LAUNCHES, **paged_attention_mod.LAUNCHES}
+    return {name: n for table in _COUNTERS for name, n in table.items()}
 
 
 def reset_launches():
-    for table in (posit_codec.LAUNCHES, paged_attention_mod.LAUNCHES):
+    for table in _COUNTERS:
         for name in table:
             table[name] = 0
 
@@ -80,6 +84,27 @@ def paged_attention(q, k_pages, v_pages, block_tables, lengths, window,
     return paged_attention_mod.paged_attention(
         q, k_pages, v_pages, block_tables, lengths, window, fmt_kv=fmt_kv,
         softcap_val=softcap_val, page_ok=page_ok, partials=partials)
+
+
+def prefill_attention_paged(q, k, v, k_pages, v_pages, block_tables, starts,
+                            window, fmt_kv: PositFormat | None = None,
+                            compute_dtype=torch.float32,
+                            softcap_val: float = 0.0, flash_chunk: int = 1024,
+                            page_ok=None):
+    """Fused prefill (K5 on CUDA): chunk attention + posit KV encode + page
+    insert in one launch, the pools written in place; on the CPU the
+    decomposed stages op for op.  See kernels/prefill_attention.py."""
+    return prefill_attention_mod.prefill_attention_paged(
+        q, k, v, k_pages, v_pages, block_tables, starts, window,
+        fmt_kv=fmt_kv, compute_dtype=compute_dtype, softcap_val=softcap_val,
+        flash_chunk=flash_chunk, page_ok=page_ok)
+
+
+def fused_matmul(a_codes, b_codes, fmt_a: PositFormat, fmt_b: PositFormat,
+                 fmt_out: PositFormat | None = None):
+    """Coded posit GEMM (K6 on CUDA): in-kernel decode of both operands,
+    f32 accumulation, one encode when fmt_out is set."""
+    return posit_matmul.posit_matmul(a_codes, b_codes, fmt_a, fmt_b, fmt_out)
 
 
 def decode_sample(x, w, noise=None, temperature=None, *, plan: str = "fused",

@@ -1,0 +1,178 @@
+"""Fused prefill attention that writes posit KV pages: the CUDA kernel and
+its plain version.
+
+`prefill_attention_paged` (K5, `csrc/prefill_attention.cu`) replaces
+`repro/kernels/prefill_attention.py:prefill_attention_paged`: one prefill
+chunk of every slot as one launch -- flash attention over [decoded history
+pages | raw chunk | pad], the posit encode of the chunk's K/V and their
+in-place page writes.  On a CUDA tensor the wrapper launches the kernel;
+on a CPU tensor it runs the plain version, the decomposed stages
+(gather -> encode -> insert -> decode -> flash attention) of
+`decomposed_prefill`, which the model's decomposed branch also runs, so on
+the CPU the fused and decomposed branches of the model are bitwise equal.  The sharded-pool arguments of the reference (`hist_pool_k/v`,
+`hist_bt`) are not ported.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.core.formats import PositFormat
+from . import _build
+from .paged_attention import _KINDS
+from .posit_codec import decode_plain, encode_plain
+
+# launches of the kernel since the last reset (kernels/ops.reset_launches)
+LAUNCHES = {"prefill_attention": 0}
+_ACT_KINDS = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def decomposed_prefill(q, k, v, k_pages, v_pages, block_tables, starts,
+                       window, *, encode, decode, softcap_val: float = 0.0,
+                       flash_chunk: int = 1024, page_ok=None):
+    """The decomposed prefill stages, in place: gather every slot's history
+    pages, encode and insert the chunk's K/V (writes to pages with
+    page_ok == 0 land on the trash page 0), then flash attention over
+    [history decoded -> k dtype | raw chunk].  `encode` maps [B, C, F]
+    values to pool entries and `decode` pool entries to the compute dtype:
+    the model's decomposed branch passes its KV codec (K1 / K2 on CUDA),
+    the plain version below the plain codecs."""
+    from repro_torch.models import common, paged  # models import kernels
+
+    B, C, Hq, Dh = q.shape
+    Hkv = k.shape[2]
+    bt = block_tables
+    hist_k, hist_v = paged.gather_slots(k_pages, bt), paged.gather_slots(v_pages, bt)
+    bt_w = bt if page_ok is None else torch.where(page_ok != 0, bt,
+                                                  torch.zeros_like(bt))
+    starts = starts.long()
+    paged.insert_chunk_batched(k_pages, bt_w, starts, encode(k.reshape(B, C, -1)))
+    paged.insert_chunk_batched(v_pages, bt_w, starts, encode(v.reshape(B, C, -1)))
+    S_h = hist_k.shape[1]
+    pos = starts[:, None] + torch.arange(C, device=q.device)[None]
+    hist_pos = torch.arange(S_h, device=q.device)[None].expand(B, S_h)
+    hist_pos = torch.where(hist_pos < starts[:, None], hist_pos,
+                           torch.full_like(hist_pos, -1))
+    kd = decode(hist_k).reshape(B, S_h, Hkv, Dh).to(k.dtype)
+    vd = decode(hist_v).reshape(B, S_h, Hkv, Dh).to(v.dtype)
+    attn = common.flash_attention(
+        q, torch.cat([kd, k], 1), torch.cat([vd, v], 1), pos,
+        torch.cat([hist_pos, pos], 1), causal=True, window=window.long(),
+        chunk_k=flash_chunk, softcap_val=softcap_val)
+    return attn, k_pages, v_pages
+
+
+def prefill_attention_paged_plain(q, k, v, k_pages, v_pages, block_tables,
+                                  starts, window,
+                                  fmt_kv: PositFormat | None = None,
+                                  compute_dtype=torch.float32,
+                                  softcap_val: float = 0.0,
+                                  flash_chunk: int = 1024, page_ok=None):
+    """K5's plain version: the decomposed stages with the plain codecs."""
+
+    def encode(x):
+        return x.to(compute_dtype) if fmt_kv is None else encode_plain(x, fmt_kv)
+
+    def decode(x):
+        if fmt_kv is None:
+            return x
+        return decode_plain(x, fmt_kv).to(compute_dtype)
+
+    return decomposed_prefill(q, k, v, k_pages, v_pages, block_tables, starts,
+                              window, encode=encode, decode=decode,
+                              softcap_val=softcap_val, flash_chunk=flash_chunk,
+                              page_ok=page_ok)
+
+
+def prefill_attention_paged(q, k, v, k_pages, v_pages, block_tables, starts,
+                            window, fmt_kv: PositFormat | None = None,
+                            compute_dtype=torch.float32,
+                            softcap_val: float = 0.0, flash_chunk: int = 1024,
+                            page_ok=None):
+    """Fused prefill: chunk attention + posit KV encode + paged insert.
+
+    q            : [B, C, Hq, Dh] post-rope queries (chunk positions
+                   starts[b] + [0, C)), f32 or bf16.
+    k, v         : [B, C, Hkv, Dh] raw post-rope chunk keys / values (the
+                   kernel encodes them to the pool's code width itself).
+    k/v_pages    : [n_pages, page_size, Hkv*Dh] pools, posit codes (int8 /
+                   int16 with fmt_kv) or floats in compute_dtype; written
+                   in place.
+    block_tables : [B, M] int32 page ids; rows of inactive slots zeroed
+                   (their writes land on the trash page).
+    starts       : [B] int32 chunk start per slot.
+    window       : [1] int32 sliding window (>= max_seq = unbounded).
+    flash_chunk  : flash_attention's key-chunk length to replay; spans past
+                   it need page_size | flash_chunk.
+    page_ok      : optional [B, M] int32 mask; pages with 0 are not
+                   written.
+
+    Returns (attn [B, C, Hq, Dh] in q.dtype, k_pages, v_pages)."""
+    B, C, Hq, Dh = q.shape
+    n_pages, ps, kvd = k_pages.shape
+    Hkv = kvd // Dh
+    if Hkv * Dh != kvd or Hq % Hkv:
+        raise ValueError(f"page feature dim {kvd} incompatible with "
+                         f"q heads {Hq} x head_dim {Dh}")
+    if tuple(k.shape) != (B, C, Hkv, Dh) or tuple(v.shape) != (B, C, Hkv, Dh):
+        raise ValueError(f"chunk k/v shape {tuple(k.shape)} != "
+                         f"{(B, C, Hkv, Dh)}")
+    if v_pages.shape != k_pages.shape:
+        raise ValueError(f"k/v page pools differ: {tuple(k_pages.shape)} vs "
+                         f"{tuple(v_pages.shape)}")
+    M = block_tables.shape[1]
+    # flash_attention's key-chunk length over [history M*ps | chunk C]; a
+    # span holding whole chunks of pure history streams them page by page
+    ck = min(int(flash_chunk), M * ps + C)
+    if (M * ps) // ck and ck % ps:
+        raise ValueError(f"span {M * ps}+{C} needs page_size {ps} to divide "
+                         f"flash_chunk {ck} (see fused_prefill_span_ok)")
+    if q.device.type == "cpu":
+        return prefill_attention_paged_plain(
+            q, k, v, k_pages, v_pages, block_tables, starts, window,
+            fmt_kv=fmt_kv, compute_dtype=compute_dtype,
+            softcap_val=softcap_val, flash_chunk=flash_chunk, page_ok=page_ok)
+    if q.dtype not in _ACT_KINDS or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"prefill_attention takes f32 or bf16 q/k/v of one "
+                        f"dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
+    if k_pages.dtype not in _KINDS:
+        raise TypeError(f"prefill_attention takes int8/int16/f32/bf16 pages, "
+                        f"got {k_pages.dtype}")
+    if fmt_kv is None:
+        if k_pages.dtype != compute_dtype:
+            raise TypeError(f"float pools hold compute_dtype {compute_dtype}, "
+                            f"got {k_pages.dtype}")
+    elif k_pages.is_floating_point() or \
+            fmt_kv.storage_bits != k_pages.element_size() * 8:
+        raise TypeError(f"{fmt_kv} codes live in int{fmt_kv.storage_bits}, "
+                        f"got {k_pages.dtype} pages")
+    if compute_dtype not in _ACT_KINDS:
+        raise TypeError(f"compute_dtype must be f32 or bf16, got {compute_dtype}")
+    for name, t, shape in (("block_tables", block_tables, (B, M)),
+                           ("starts", starts, (B,)),
+                           ("window", window, (1,)),
+                           ("page_ok", page_ok, (B, M))):
+        if t is not None and (t.dtype != torch.int32 or tuple(t.shape) != shape):
+            raise ValueError(f"prefill_attention: {name} must be int32 "
+                             f"{shape}, got {t.dtype} {tuple(t.shape)}")
+    extra = [page_ok] if page_ok is not None else []
+    _build.require_cuda("prefill_attention", q, k, v, k_pages, v_pages,
+                        block_tables, starts, window, *extra)
+    out = torch.empty_like(q)
+    # the kv_decode dtype chain: codes -> f32 -> compute dtype -> k dtype
+    bf16 = torch.bfloat16
+    hist_bf16 = q.dtype == bf16 or (fmt_kv is not None and compute_dtype == bf16)
+    if B and C:
+        lib = _build.library("prefill_attention")
+        _build.check(lib.prefill_attention_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), k_pages.data_ptr(),
+            v_pages.data_ptr(), block_tables.data_ptr(), starts.data_ptr(),
+            window.data_ptr(), None if page_ok is None else page_ok.data_ptr(),
+            out.data_ptr(), B, C, M, ps, Hq, Hkv, Dh, _ACT_KINDS[q.dtype],
+            _KINDS[k_pages.dtype], fmt_kv.n if fmt_kv else 0,
+            fmt_kv.es if fmt_kv else 0, int(hist_bf16), ck,
+            1.0 / math.sqrt(Dh), float(softcap_val), _build.stream_of(q)),
+            "prefill_attention")
+        LAUNCHES["prefill_attention"] += 1
+    return out, k_pages, v_pages

@@ -29,12 +29,24 @@ FLASH_CHUNK = 1024
 
 
 def fused_prefill_span_ok(max_pages: int, page_size: int, chunk: int) -> bool:
-    """True when the reference's fused prefill kernel is bit-exact for this
-    geometry (a page size that divides FLASH_CHUNK, or a span within one
-    flash chunk).  Kept for parity; the port's prefill is decomposed."""
+    """True when the fused prefill kernel replays `flash_attention`'s chunk
+    boundaries for this geometry: a span within one flash chunk, or a page
+    size that divides FLASH_CHUNK (history then streams in FLASH_CHUNK
+    steps).  Callers read FLASH_CHUNK live (tests shrink it)."""
     if max_pages * page_size + chunk <= FLASH_CHUNK:
         return True
     return FLASH_CHUNK % page_size == 0
+
+
+def fused_prefill_applies(quant, max_pages: int, page_size: int,
+                          chunk: int) -> bool:
+    """Whether a prefill chunk of `chunk` tokens over slots of `max_pages`
+    pages runs the fused prefill kernel (one program per layer) rather
+    than the decomposed stages (three): the policy's `fused_prefill` and a
+    span `fused_prefill_span_ok` admits.  The model and the engine's
+    program count both ask here."""
+    return bool(quant.fused_prefill) and fused_prefill_span_ok(
+        max_pages, page_size, chunk)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -115,6 +127,13 @@ def insert_chunk_batched(pages, bt, starts, vals):
                         torch.clamp(pos // ps, 0, bt.shape[1] - 1))
     pages[page, pos % ps] = vals.to(pages.dtype)
     return pages
+
+
+def fork_page(pool, dst: int, src: int):
+    """Copy-on-write fork, in place: duplicate page `src` into page `dst`
+    across the leading (layer) dim.  pool: [L, P, ps, F]."""
+    pool[:, dst] = pool[:, src]
+    return pool
 
 
 def gather_slot(pages, bt_row):

@@ -5,18 +5,21 @@ Parameters are a dict of tensors with layers stacked on a leading dim
 ([L, D, N]); the layer loop is a Python loop over that dim.  Serving runs
 over the paged KV cache: `decode_step` (one token per slot, the
 paged-attention kernel) and `prefill_chunk` / `prefill_chunk_batched`
-(the decomposed chunk prefill: flash attention over decoded history plus
-the raw chunk, then KV encode and page insert).  Page pools are updated
-in place.  The fused prefill kernel of the reference is not ported yet:
-a config with `quant.fused_prefill` on raises.
+(one prefill chunk per slot: where `paged.fused_prefill_applies`, the
+fused prefill kernel does attention + KV encode + page insert in one
+launch; otherwise the decomposed path encodes and inserts the chunk's KV,
+then runs flash attention over decoded history plus the raw chunk).  Page
+pools are updated in place.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.kernels.prefill_attention import decomposed_prefill
 from . import common, paged
 from .config import ModelConfig
 from .module import ParamSpec, tree_map
@@ -71,14 +74,6 @@ def _layer(params, i: int):
 
 def _head(params, cfg: ModelConfig):
     return params["embed"] if cfg.tie_embeddings else params["head"]
-
-
-def _check_prefill(cfg: ModelConfig):
-    if cfg.quant.fused_prefill:
-        raise NotImplementedError(
-            "the fused prefill kernel (prefill_attention_paged) is not ported "
-            "yet (ROADMAP queue 2); serve with fused_prefill=False, which the "
-            "reference pins token-identical")
 
 
 # ---------------------------------------------------------------------------
@@ -141,43 +136,31 @@ def _paged_attn_token(p, x, cfg: ModelConfig, k_l, v_l, bt, length, is_global):
                        cfg.quant)
 
 
-def _history_attn(q, k, v, hist_k, hist_v, starts, pos, cfg: ModelConfig,
-                  is_global: bool):
-    """Flash attention of chunk queries over [decoded history | raw chunk]
-    (the reference's decomposed prefill).  hist_*: [B, S_h, F] codes."""
-    B, S_h, _ = hist_k.shape
-    Hkv, Dh = cfg.n_kv_heads, cfg.head_dim
-    hist_pos = torch.arange(S_h, device=q.device)[None].expand(B, S_h)
-    hist_pos = torch.where(hist_pos < starts[:, None], hist_pos,
-                           torch.full_like(hist_pos, -1))
-    kd = common.kv_decode(cfg, hist_k).reshape(B, S_h, Hkv, Dh).to(k.dtype)
-    vd = common.kv_decode(cfg, hist_v).reshape(B, S_h, Hkv, Dh).to(v.dtype)
-    window = None if cfg.sliding_window is None else _window(cfg, is_global)
-    return common.flash_attention(
-        q, torch.cat([kd, k], 1), torch.cat([vd, v], 1), pos,
-        torch.cat([hist_pos, pos], 1), causal=True, window=window,
-        chunk_k=paged.FLASH_CHUNK, softcap_val=cfg.logit_softcap)
-
-
 def _chunk_attn_batched(p, x, cfg: ModelConfig, k_l, v_l, starts, bt,
                         is_global: bool):
-    """Cross-slot batched prefill-chunk attention (decomposed branch):
-    queries of slot b sit at starts[b] + [0, C) and attend that slot's
-    history plus themselves; intra-chunk attention uses the raw (pre-encode)
-    k/v.  x: [B, C, D]; bt [B, M] with inactive rows zeroed (their writes
-    land on the trash page).  Returns the post-wo output [B, C, D]."""
-    _check_prefill(cfg)
+    """Cross-slot batched prefill-chunk attention: queries of slot b sit at
+    starts[b] + [0, C) and attend that slot's history plus themselves;
+    intra-chunk attention uses the raw (pre-encode) k/v.  x: [B, C, D];
+    starts [B] int32; bt [B, M] with inactive rows zeroed (their writes
+    land on the trash page).  Where `paged.fused_prefill_applies`, one
+    fused prefill launch (ops.prefill_attention_paged) replaces the three
+    stages of `decomposed_prefill`.  Returns the post-wo output [B, C, D]."""
     B, C, _ = x.shape
     Hq, Dh = cfg.n_heads, cfg.head_dim
-    starts = starts.long()
-    pos = starts[:, None] + torch.arange(C, device=x.device)[None]
+    pos = starts.long()[:, None] + torch.arange(C, device=x.device)[None]
     q, k, v = _qkv(p, x, cfg, pos)
-    hist_k, hist_v = paged.gather_slots(k_l, bt), paged.gather_slots(v_l, bt)
-    paged.insert_chunk_batched(k_l, bt, starts,
-                               common.kv_encode(cfg, k.reshape(B, C, -1)))
-    paged.insert_chunk_batched(v_l, bt, starts,
-                               common.kv_encode(cfg, v.reshape(B, C, -1)))
-    attn = _history_attn(q, k, v, hist_k, hist_v, starts, pos, cfg, is_global)
+    window = _window_arr(cfg, is_global, x.device)
+    if paged.fused_prefill_applies(cfg.quant, bt.shape[1], k_l.shape[1], C):
+        attn, _, _ = ops.prefill_attention_paged(
+            q, k, v, k_l, v_l, bt, starts.to(torch.int32), window,
+            fmt_kv=cfg.quant.kv_cache, compute_dtype=cfg.compute_dtype,
+            softcap_val=cfg.logit_softcap, flash_chunk=paged.FLASH_CHUNK)
+    else:
+        attn, _, _ = decomposed_prefill(
+            q, k, v, k_l, v_l, bt, starts, window,
+            encode=functools.partial(common.kv_encode, cfg),
+            decode=functools.partial(common.kv_decode, cfg),
+            softcap_val=cfg.logit_softcap, flash_chunk=paged.FLASH_CHUNK)
     return common.qdot(attn.reshape(B, C, Hq * Dh), p["wo"], cfg.quant,
                        prec_dtype=common.tp_prec(cfg))
 

@@ -7,7 +7,9 @@ The engine is a host-side slot scheduler over the model entry points:
     small bucket table (e.g. 64/16/4/1 tokens), and all slots whose next
     chunk has the same bucket size advance as ONE [batch_slots, chunk]
     pass; rows of other slots are masked (zeroed metadata, writes to the
-    trash page).  `batched_prefill=False` runs one slot at a time.
+    trash page).  `batched_prefill=False` runs one slot at a time.  With
+    `fused_prefill` (the default) each layer's chunk attention, KV encode
+    and page insert are one launch of the fused prefill kernel.
   * `decode_step` — one token for every decoding slot per iteration; with
     `fused_decode` (the default) the head GEMM and the sampler run in the
     fused decode-sample kernel, else the decode pass returns logits and
@@ -18,20 +20,32 @@ Hkv*Dh]` updated in place, with a block table per slot; pages come from a
 host free list (`PageAllocator`, page 0 reserved as trash) and are
 reclaimed at retirement without zeroing (reads mask `pos < length`).
 
+Prefix sharing (the default): a prefix index maps the digest of each
+prompt-token prefix that fills a page to the physical page holding its
+KV.  A request whose prompt shares such a prefix maps the donor's pages
+(refcount + 1) and prefills only the rest; sharing stops at a boundary of
+the request's own chunk decomposition, so shared serving is token-
+identical to unshared serving.  Shared pages are copy-on-write below
+their frozen prefix: a slot about to write there first forks the page
+(`paged.fork_page`).  Admission reserves each request's fork page, so a
+fork never allocates mid-flight; a retiring request's prefix pages that a
+queued request still matches are held by the engine until that request
+admits or leaves.
+
 Sampling: greedy argmax, or temperature / top-k sampling from gumbel
 noise drawn per (base seed, request seed, draw index) — reproducible and
 independent of batch composition.  `noise_fn(seed, draw_index, vocab)`
 replaces the default torch.Generator stream (tests replay the reference's
 `jax.random` stream through it).
 
-Not ported yet (each raises NotImplementedError naming ROADMAP): prefix
-sharing with copy-on-write, the fused prefill kernel, speculative
-decoding, sharded pools (`mesh`), the dense cache (`paged=False`),
-preemption and cancellation.
+Not ported yet (each raises NotImplementedError naming ROADMAP):
+speculative decoding, sharded pools (`mesh`), the dense cache
+(`paged=False`), preemption and cancellation.
 """
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
@@ -41,7 +55,9 @@ from repro_torch import resolve_device, set_float32_parity
 from repro_torch.kernels.paged_attention import sample_logits
 from repro_torch.models import api
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.paged import PagedLayout
+from repro_torch.models import paged as paged_mod
+from repro_torch.models.paged import PagedLayout, fork_page, \
+    fused_prefill_applies, fused_prefill_span_ok
 
 
 def _not_ported(what: str):
@@ -150,15 +166,16 @@ class ServingEngine:
         """batch_slots decode slots over a max_seq position budget per slot,
         serving `params` (float or posit-packed, already on `device`).
 
-        page_size defaults to cfg.quant.kv_page_size and n_pages to full
-        capacity (batch_slots * pages_per_slot + the trash page); a smaller
-        n_pages oversubscribes and admission waits for reclaimed pages.
+        page_size defaults to cfg.quant.kv_page_size (with fused prefill
+        on, lowered to a divisor of paged.FLASH_CHUNK when needed; an
+        explicit size that loses the one-launch prefill raises, see
+        _resolve_page_size) and n_pages to full capacity (batch_slots *
+        pages_per_slot + the trash page); a smaller n_pages oversubscribes
+        and admission waits for reclaimed pages.
         prefill_chunks_per_step=0 completes a prompt's chunks at admission;
         k>0 interleaves at most k chunks per request per step with decode.
         batched_prefill / fused_decode / fused_prefill / prefix_sharing
-        override the QuantPolicy knobs; the port serves
-        prefix_sharing=False, fused_prefill=False (both pinned
-        token-identical to their defaults by the reference).
+        override the QuantPolicy knobs.
         noise_fn(seed, draw_index, vocab) -> [vocab] f32 gumbel row, for
         sampled decoding; the default draws from a torch.Generator seeded
         by (base_seed, seed, draw_index).
@@ -178,15 +195,6 @@ class ServingEngine:
             raise _not_ported("kv_pages-sharded serving (mesh=...)")
         if speculate_k:
             raise _not_ported("speculative decoding (speculate_k)")
-        if q.fused_prefill:
-            raise NotImplementedError(
-                "the fused prefill kernel is not ported yet (ROADMAP queue 2); "
-                "construct with fused_prefill=False")
-        if prefix_sharing if prefix_sharing is not None else q.prefix_sharing:
-            raise NotImplementedError(
-                "prefix sharing with copy-on-write pages is not ported yet "
-                "(ROADMAP queue 1, serving items); construct with "
-                "prefix_sharing=False")
         if cfg.quant.execution == "bit_exact":
             raise _not_ported("the bit_exact execution plan")
         self.device = resolve_device(device)
@@ -203,9 +211,7 @@ class ServingEngine:
         self.prefill_chunks_per_step = int(prefill_chunks_per_step)
         self.prefill_buckets = tuple(sorted(
             {int(b) for b in prefill_buckets if b >= 1} | {1}, reverse=True))
-        ps = int(q.kv_page_size if page_size is None else page_size)
-        if ps < 1:
-            raise ValueError(f"page_size must be >= 1, got {ps}")
+        ps = self._resolve_page_size(page_size, max_seq)
         self.layout = PagedLayout.for_slots(batch_slots, max_seq, ps, n_pages)
         self.cache = api.init_cache(cfg, batch_slots, max_seq, self.layout,
                                     device=self.device)
@@ -213,7 +219,8 @@ class ServingEngine:
         self.n_shards = 1
         self.allocator = PageAllocator(self.layout.n_pages)
         self.max_pages_per_slot = self.cache["block_table"].shape[1]
-        self.prefix_sharing = False
+        self.prefix_sharing = bool(q.prefix_sharing if prefix_sharing is None
+                                   else prefix_sharing)
         self.batched_prefill = bool(q.batched_prefill if batched_prefill is None
                                     else batched_prefill)
         self.fused_decode = bool(q.fused_decode)
@@ -226,16 +233,58 @@ class ServingEngine:
         self.slot_phase = np.full(batch_slots, _FREE, np.int8)
         self.slot_req: List[Optional[Request]] = [None] * batch_slots
         self.slot_pages: List[List[int]] = [[] for _ in range(batch_slots)]
+        self.slot_reserve: List[Optional[int]] = [None] * batch_slots
         self.slot_cursor = np.zeros(batch_slots, np.int64)  # prompt progress
         self.slot_remaining = np.zeros(batch_slots, np.int64)
         self.next_token = np.zeros(batch_slots, np.int32)
         self._slot_seed = [0] * batch_slots
         self._slot_sampled = np.zeros(batch_slots, np.int64)
+        self._slot_registered = np.zeros(batch_slots, np.int64)
         self.queue: List[Request] = []
         self.done: List[Request] = []
-        self.stats = {"prefill_batch_sizes": {}, "prefill_chunks": 0,
-                      "prefill_device_programs": 0, "decode_steps": 0,
-                      "decode_device_programs": 0}
+
+        # prefix index: digest(prompt token prefix) -> page; _page_keys /
+        # _frozen support eviction and copy-on-write decisions; _held are
+        # pages a retiring request left behind because a queued request's
+        # prefix still matches them (the engine owns their last reference
+        # until that request admits or leaves the queue)
+        self.prefix_index: Dict[bytes, int] = {}
+        self._page_keys: Dict[int, set] = {}
+        self._frozen: Dict[int, int] = {}
+        self._held: set = set()
+        self.stats = {"pages_shared": 0, "shared_admissions": 0,
+                      "cow_forks": 0, "prefill_batch_sizes": {},
+                      "prefill_chunks": 0, "prefill_device_programs": 0,
+                      "decode_steps": 0, "decode_device_programs": 0}
+
+    def _resolve_page_size(self, requested: Optional[int],
+                           max_seq: int) -> int:
+        """Page size the paged layout is built with.  With fused prefill on,
+        a page size that neither divides paged.FLASH_CHUNK nor keeps every
+        prefill span inside one flash chunk would put every chunk on the
+        decomposed path: an explicit such size raises, and the policy
+        default (page_size=None) is lowered to the largest FLASH_CHUNK
+        divisor not above cfg.quant.kv_page_size."""
+        q = self.cfg.quant
+        ps = int(q.kv_page_size if requested is None else requested)
+        if ps < 1:
+            raise ValueError(f"page_size must be >= 1, got {ps}")
+        if not q.fused_prefill:
+            return ps
+        chunk = paged_mod.FLASH_CHUNK
+        per = -(-max_seq // ps)
+        if fused_prefill_span_ok(per, ps, max(self.prefill_buckets)):
+            return ps
+        if requested is not None:
+            raise ValueError(
+                f"page_size={ps} cannot tile FLASH_CHUNK={chunk} and the "
+                f"slot span ({per} pages x {ps} + a "
+                f"{max(self.prefill_buckets)}-token chunk) exceeds one "
+                f"flash chunk: every prefill chunk would fall back to the "
+                f"3-program decomposed path.  Pass a divisor of {chunk} (or "
+                f"page_size=None to auto-pick one), or construct with "
+                f"fused_prefill=False to accept the decomposed path")
+        return max(d for d in range(1, ps + 1) if chunk % d == 0)
 
     # ------------------------------------------------------------------
     @classmethod
@@ -298,6 +347,12 @@ class ServingEngine:
     def pages_free(self) -> int:
         return self.allocator.pages_free
 
+    @property
+    def pages_shared_mapped(self) -> int:
+        """Extra block-table references onto live pages beyond the first
+        (how many page loads prefix sharing is deduplicating now)."""
+        return sum(rc - 1 for rc in self.allocator._refs.values())
+
     def execution_summary(self) -> dict:
         """Which datapath this engine serves on, plus its storage terms."""
         q = self.cfg.quant
@@ -308,6 +363,8 @@ class ServingEngine:
             "weights": str(q.weights) if q.weights else None,
             "activations": str(q.activations) if q.activations else None,
             "kv_cache": str(q.kv_cache) if q.kv_cache else None,
+            "activation_coded": q.execution == "fused"
+                                and q.activations is not None,
             "weight_bytes": self.weight_bytes(),
             "kv_cache_bytes": kv["total_bytes"],
             "kv_bytes": kv["kv_bytes"],
@@ -318,12 +375,14 @@ class ServingEngine:
             "pages_free": self.pages_free,
             "prefix_sharing": self.prefix_sharing,
             "batched_prefill": self.batched_prefill,
-            "fused_prefill": False,
+            "fused_prefill": bool(q.fused_prefill),
             "fused_decode": self.fused_decode,
             "prefill_chunks": self.stats["prefill_chunks"],
             "prefill_device_programs": self.stats["prefill_device_programs"],
             "decode_steps": self.stats["decode_steps"],
             "decode_device_programs": self.stats["decode_device_programs"],
+            "pages_shared_mapped": self.pages_shared_mapped,
+            "cow_forks": self.stats["cow_forks"],
         }
 
     # ------------------------------------------------------------------
@@ -363,7 +422,11 @@ class ServingEngine:
                    self.max_pages_per_slot)
 
     def _chunk_sizes(self, n: int):
-        """Exact greedy decomposition of n into bucket sizes (1 included)."""
+        """Exact greedy decomposition of n into bucket sizes (1 included).
+        It has the suffix property -- the tail after any chunk boundary is
+        the greedy decomposition of the remainder -- which makes prefix-
+        shared prefill token-identical to unshared prefill when sharing
+        stops at a boundary."""
         out = []
         for b in self.prefill_buckets:
             while n >= b:
@@ -429,36 +492,293 @@ class ServingEngine:
         return toks.cpu().numpy().astype(np.int32)
 
     # ------------------------------------------------------------------
+    # prefix index: registration, lookup, eviction
+    # ------------------------------------------------------------------
+
+    def _prompt_digests(self, req: Request):
+        """Per-request digest cache: ([digest per full-page boundary],
+        full-prompt digest), each prefix hashed once per request."""
+        ps = self.layout.page_size
+        cached = getattr(req, "_prefix_digests", None)
+        if cached is not None and cached[0] == ps:
+            return cached[1], cached[2]
+        prompt = np.ascontiguousarray(req.prompt, np.int32)
+        h = hashlib.blake2b(digest_size=16)
+        full = []
+        for i in range(len(prompt) // ps):
+            h.update(prompt[i * ps:(i + 1) * ps].tobytes())
+            full.append(h.copy().digest())
+        whole = hashlib.blake2b(prompt.tobytes(), digest_size=16).digest()
+        req._prefix_digests = (ps, full, whole)
+        return full, whole
+
+    def _put_index(self, key: bytes, page: int, frozen: int):
+        """Register a page for the token prefix hashed by `key`; `frozen`
+        is the first position holders may still write (everything below is
+        trusted by sharers and must copy-on-write)."""
+        if key in self.prefix_index:
+            return  # first registration wins; duplicates are identical KV
+        self.prefix_index[key] = page
+        self._page_keys.setdefault(page, set()).add(key)
+        self._frozen[page] = max(self._frozen.get(page, 0), frozen)
+
+    def _evict(self, recycled: List[int]):
+        """Drop index entries whose page went back to the free list."""
+        for p in recycled:
+            for key in self._page_keys.pop(p, ()):
+                self.prefix_index.pop(key, None)
+            self._frozen.pop(p, None)
+
+    def _register_pages(self, slot: int):
+        """Publish the slot's freshly prompt-filled pages to the prefix
+        index (after every prefill chunk, while cursor <= prompt length, so
+        every registered page holds prompt KV only)."""
+        if not self.prefix_sharing:
+            return
+        req = self.slot_req[slot]
+        ps = self.layout.page_size
+        cur = int(self.slot_cursor[slot])
+        full = cur // ps
+        digests, full_digest = self._prompt_digests(req)
+        for i in range(int(self._slot_registered[slot]), full):
+            self._put_index(digests[i], int(self.block_tables[slot, i]),
+                            (i + 1) * ps)
+        self._slot_registered[slot] = full
+        if cur == len(req.prompt) and cur % ps:
+            # the partially-filled tail page: exact-duplicate prompts map
+            # it too and copy-on-write their divergence
+            self._put_index(full_digest,
+                            int(self.block_tables[slot, full]), cur)
+
+    def _tail_shareable(self, n: int) -> bool:
+        """May a request of prompt length n map an exact-duplicate donor's
+        partially-filled tail page?  Position n-1 must be a boundary of its
+        own chunk decomposition (the condition _lookup_prefix enforces)."""
+        ps = self.layout.page_size
+        return n % ps != 0 and (n - 1) in {
+            int(t) for t in np.cumsum(self._chunk_sizes(n))}
+
+    def _index_chain(self, req: Request) -> List[int]:
+        """Pages the index holds for the request's full-page prefixes, in
+        order up to the first miss; at most (n-1) // page_size of them, so
+        at least one prompt token is left to prefill."""
+        digests, _ = self._prompt_digests(req)
+        chain = []
+        for key in digests[:(len(req.prompt) - 1) // self.layout.page_size]:
+            page = self.prefix_index.get(key)
+            if page is None:
+                break
+            chain.append(page)
+        return chain
+
+    def _chain_pages(self, req: Request) -> set:
+        """Pages the index currently offers for this request's prefix
+        (full-page chain plus the exact-duplicate tail page)."""
+        n = len(req.prompt)
+        chain = self._index_chain(req)
+        out = set(chain)
+        if self._tail_shareable(n) and len(chain) == n // self.layout.page_size:
+            page = self.prefix_index.get(self._prompt_digests(req)[1])
+            if page is not None:
+                out.add(page)
+        return out
+
+    def _wanted_by_queue(self) -> set:
+        """Index pages some queued request would map."""
+        wanted = set()
+        for req in self.queue:
+            wanted |= self._chain_pages(req)
+        return wanted
+
+    def _prune_holds(self):
+        """Free held pages no queued request's prefix matches anymore (once
+        the queue drains this releases every hold)."""
+        if not self._held:
+            return
+        wanted = self._wanted_by_queue()
+        for p in list(self._held):
+            if p not in wanted:
+                self._held.discard(p)
+                self._evict(self.allocator.free([p]))
+
+    def _drop_all_holds(self):
+        """Release every held page (when admission cannot proceed and
+        nothing in flight will ever reclaim)."""
+        for p in list(self._held):
+            self._held.discard(p)
+            self._evict(self.allocator.free([p]))
+
+    def _lookup_prefix(self, req: Request):
+        """Longest shareable prompt prefix for `req` from the index:
+        (shared pages, n_shared_tokens, partial).  Sharing stops at a
+        boundary of the request's own chunk decomposition and leaves at
+        least one prompt token to prefill (the engine samples from its
+        logits)."""
+        if not self.prefix_sharing:
+            return [], 0, False
+        n = len(req.prompt)
+        ps = self.layout.page_size
+        bounds = set(int(t) for t in np.cumsum(self._chunk_sizes(n)))
+        chain = self._index_chain(req)
+        best = ([], 0, False)
+        for i in range(len(chain)):
+            if (i + 1) * ps in bounds:
+                best = (chain[:i + 1], (i + 1) * ps, False)
+        if self._tail_shareable(n) and len(chain) == n // ps:
+            page = self.prefix_index.get(self._prompt_digests(req)[1])
+            if page is not None:
+                best = (chain + [page], n - 1, True)
+        return best
+
+    # ------------------------------------------------------------------
+    # copy-on-write
+    # ------------------------------------------------------------------
+
+    def _ensure_writable(self, slot: int, lo: int, hi: int):
+        """Fork any shared page the slot is about to write (positions
+        [lo, hi)) below its frozen prefix.  Writes at or after the frozen
+        position (a donor appending past every sharer's trusted range) stay
+        in place: sharers never read there."""
+        ps = self.layout.page_size
+        for idx in range(lo // ps, (hi - 1) // ps + 1):
+            if idx >= self.max_pages_per_slot:
+                break
+            p = int(self.block_tables[slot, idx])
+            if p == 0 or self.allocator.refcount(p) <= 1:
+                continue
+            if max(lo, idx * ps) >= self._frozen.get(p, 1 << 30):
+                continue
+            self._fork_slot_page(slot, idx, p)
+
+    def _fork_slot_page(self, slot: int, idx: int, src: int):
+        dst = self.slot_reserve[slot]
+        self.slot_reserve[slot] = None
+        if dst is None:
+            got = self.allocator.alloc(1)
+            if got is None:
+                raise RuntimeError(
+                    f"page pool exhausted during copy-on-write fork for "
+                    f"slot {slot}: admission must reserve fork pages up "
+                    f"front")
+            dst = got[0]
+            self.slot_pages[slot].append(dst)
+        fork_page(self.cache["k"], dst, src)
+        fork_page(self.cache["v"], dst, src)
+        self.block_tables[slot, idx] = dst
+        self.slot_pages[slot].remove(src)
+        self._evict(self.allocator.free([src]))
+        self.stats["cow_forks"] += 1
+
+    # ------------------------------------------------------------------
     # admission / retirement
     # ------------------------------------------------------------------
 
+    def _next_admissible(self) -> Optional[int]:
+        """Queue index of the first request to admit.  A request that would
+        share a longer prefix with a still-prefilling slot than the index
+        offers now is deferred (it admits after the donor registers its
+        pages); later distinct requests may jump ahead."""
+        for qi, req in enumerate(self.queue):
+            if self.prefix_sharing and self._should_defer(req):
+                continue
+            return qi
+        return None
+
+    def _should_defer(self, req: Request) -> bool:
+        n = len(req.prompt)
+        ps = self.layout.page_size
+        max_full = (n - 1) // ps
+        if max_full == 0 and n % ps == 0:
+            return False
+        digests, full_digest = self._prompt_digests(req)
+        # tokens the index can hand over now
+        have = len(self._index_chain(req)) * ps
+        tail_ok = self._tail_shareable(n)
+        if (tail_ok and have == (n // ps) * ps
+                and full_digest in self.prefix_index):
+            have = n - 1
+        # tokens a still-prefilling donor will register once it finishes
+        for s in range(self.B):
+            if self.slot_phase[s] != _PREFILL:
+                continue
+            o_digests, o_full = self._prompt_digests(self.slot_req[s])
+            k = 0
+            for i in range(min(max_full, len(o_digests))):
+                if digests[i] == o_digests[i]:
+                    k = (i + 1) * ps
+                else:
+                    break
+            if tail_ok and k == (n // ps) * ps and o_full == full_digest:
+                k = n - 1  # exact duplicate: the tail page will share too
+            if k > have:
+                return True
+        return False
+
     def _admit(self) -> bool:
-        """Move queued requests into free slots, each with its full page
-        demand allocated up front.  Returns True if any was admitted."""
+        """Move queued requests into free slots.  Admission is atomic per
+        request and accounts its full private demand up front: shared
+        prefix pages are mapped by reference and a copy-on-write fork page
+        is reserved, so an admitted request never allocates mid-flight.
+        Returns True if any request was admitted."""
         admitted = False
         for slot in range(self.B):
             if self.slot_phase[slot] != _FREE or not self.queue:
                 continue
-            req = self.queue[0]
-            pages = self.allocator.alloc(self._pages_needed(req))
+            qi = self._next_admissible()
+            if qi is None:
+                break
+            req = self.queue[qi]
+            shared, n_shared, partial = self._lookup_prefix(req)
+            k_full = len(shared) - (1 if partial else 0)
+            pages = self.allocator.alloc(self._pages_needed(req) - k_full)
+            if pages is None and self._held \
+                    and not (self.slot_phase != _FREE).any():
+                # nothing in flight will ever reclaim: held prefix pages
+                # must yield so the head of the queue can run
+                self._drop_all_holds()
+                shared, n_shared, partial = self._lookup_prefix(req)
+                k_full = len(shared) - (1 if partial else 0)
+                pages = self.allocator.alloc(self._pages_needed(req) - k_full)
             if pages is None:
                 return admitted  # wait for reclamation
-            self.queue.pop(0)
-            self.slot_pages[slot] = pages
+            self.allocator.share(shared)
+            reserve = pages.pop() if partial else None
+            row = shared + pages
+            self.slot_pages[slot] = list(row) + (
+                [reserve] if reserve is not None else [])
+            self.slot_reserve[slot] = reserve
             self.block_tables[slot] = 0
-            self.block_tables[slot, :len(pages)] = pages
+            self.block_tables[slot, :len(row)] = row
+            self._slot_registered[slot] = n_shared // self.layout.page_size
+            if shared:
+                self.stats["pages_shared"] += len(shared)
+                self.stats["shared_admissions"] += 1
+            self.queue.pop(qi)
+            self._prune_holds()
             self.slot_req[slot] = req
             self.slot_phase[slot] = _PREFILL
-            self.slot_cursor[slot] = 0
-            self.lengths[slot] = 0
+            self.slot_cursor[slot] = n_shared
+            self.lengths[slot] = n_shared
             self._slot_seed[slot] = req.seed if req.seed is not None else req.rid
             self._slot_sampled[slot] = 0
             admitted = True
         return admitted
 
     def _release(self, slot: int):
-        self.allocator.free(self.slot_pages[slot])
+        pages = self.slot_pages[slot]
+        if self.prefix_sharing and self.queue:
+            # keep prefix pages a queued request still matches alive: the
+            # slot's reference becomes an engine hold, released by
+            # _prune_holds once nothing in the queue wants the page
+            wanted = self._wanted_by_queue()
+            keep = {p for p in pages
+                    if p in wanted and p not in self._held
+                    and self.allocator.refcount(p) == 1}
+            self._held.update(keep)
+            pages = [p for p in pages if p not in keep]
+        self._evict(self.allocator.free(pages))
         self.slot_pages[slot] = []
+        self.slot_reserve[slot] = None
         self.block_tables[slot] = 0
         self.lengths[slot] = 0
         self.slot_phase[slot] = _FREE
@@ -485,24 +805,35 @@ class ServingEngine:
             self.slot_remaining[slot] = req.max_new_tokens - 1
             self.slot_phase[slot] = _DECODE
 
-    def _count_chunk(self, n_slots: int):
+    def _prefill_programs_per_chunk(self, size: int) -> int:
+        """Device programs the attention stage of one prefill chunk issues
+        per layer: 1 when the fused kernel applies (attention + KV encode +
+        page insert in one launch), else 3 (flash attention, KV encode,
+        page insert)."""
+        fused = fused_prefill_applies(self.cfg.quant, self.max_pages_per_slot,
+                                      self.layout.page_size, size)
+        return 1 if fused else 3
+
+    def _count_chunk(self, n_slots: int, size: int):
         sizes = self.stats["prefill_batch_sizes"]
         sizes[n_slots] = sizes.get(n_slots, 0) + 1
         self.stats["prefill_chunks"] += 1
-        # decomposed prefill: flash attention, KV encode, page insert
-        self.stats["prefill_device_programs"] += 3
+        self.stats["prefill_device_programs"] += \
+            self._prefill_programs_per_chunk(size)
 
     def _advance_prefill(self, slot: int):
         """Run one prompt chunk for a prefilling slot (per-slot path)."""
         prompt = np.asarray(self.slot_req[slot].prompt, np.int32)
         lo = int(self.slot_cursor[slot])
         size = self._next_chunk(slot)
+        self._ensure_writable(slot, lo, lo + size)
         tokens = torch.from_numpy(prompt[None, lo:lo + size]).to(self.device)
         logits, _ = api.prefill_chunk(self.params, tokens, self._meta(), slot,
                                       self.cfg)
-        self._count_chunk(1)
+        self._count_chunk(1, size)
         self.slot_cursor[slot] += size
         self.lengths[slot] += size
+        self._register_pages(slot)
         if int(self.slot_cursor[slot]) >= len(prompt):
             tok = int(self._sample(logits[:, -1], [slot])[0])
             self._finish_prompt(slot, tok)
@@ -515,16 +846,18 @@ class ServingEngine:
             lo = int(self.slot_cursor[s])
             tokens[s] = np.asarray(self.slot_req[s].prompt,
                                    np.int32)[lo:lo + size]
+            self._ensure_writable(s, lo, lo + size)
         active = np.zeros(self.B, bool)
         active[slots] = True
         logits, _ = api.prefill_chunk_batched(
             self.params, torch.from_numpy(tokens).to(self.device),
             self._meta(active), torch.from_numpy(active).to(self.device),
             self.cfg)
-        self._count_chunk(len(slots))
+        self._count_chunk(len(slots), size)
         for s in slots:
             self.slot_cursor[s] += size
             self.lengths[s] += size
+            self._register_pages(s)
         done = [s for s in slots if int(self.slot_cursor[s])
                 >= len(self.slot_req[s].prompt)]
         if done:
@@ -578,6 +911,9 @@ class ServingEngine:
         decode_mask = self.slot_phase == _DECODE
         if not decode_mask.any():
             return bool((self.slot_phase == _PREFILL).any())
+        for s in np.nonzero(decode_mask)[0]:
+            pos = int(self.lengths[s])
+            self._ensure_writable(int(s), pos, pos + 1)
         cache_in = self._meta(decode_mask)
         tokens_in = torch.from_numpy(self.next_token.copy()).to(self.device)
         slots = [s for s in range(self.B) if decode_mask[s]]

@@ -6,9 +6,15 @@ Run on a machine with an H100 with `pytest -m gpu tests/test_torch_gpu.py`.
 
 Tolerances: the codec kernels are bit-exact (compared as bit patterns);
 attention sums in another order than the plain version (f32), held to
-rtol = atol = 2e-5; the decode-sample kernel's tokens equal the plain
-tokens except where the plain top-two sampling scores lie within 1e-4 of
-each other, where the kernel's choice must score within 1e-4 of the best.
+rtol = atol = 2e-5 (f32 outputs) or one bf16 ulp (bf16 outputs); the
+fused prefill kernel's page writes are bitwise (page 0, the trash page,
+excluded); the decode-sample kernel's tokens equal the plain tokens
+except where the plain top-two sampling scores lie within 1e-4 of each
+other, where the kernel's choice must score within 1e-4 of the best; the
+coded GEMM is within 16 u sqrt(K) sqrt(sum_k (a_ik b_kj)^2) of its plain
+version (exact products of random sign, another summation order;
+`posit_matmul.sum_bound`), a limit that weights rounded to bf16 or one K
+tile left out must fail.
 """
 import pytest
 import torch
@@ -18,6 +24,8 @@ from repro_torch.core import posit
 from repro_torch.kernels import ops
 from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels import posit_codec
+from repro_torch.kernels import posit_matmul as pm
+from repro_torch.kernels import prefill_attention as pf
 
 pytestmark = pytest.mark.gpu
 
@@ -198,3 +206,105 @@ def test_wrappers_reject_bad_inputs(cuda):
     with pytest.raises(ValueError):
         posit_codec.decode(torch.zeros(4, 4, dtype=torch.int16,
                                        device=cuda).T[:, :2], formats.P16_2)
+
+
+# (kv fmt, act dtype, B, C, Hq, Hkv, Dh, ps, M, starts, window, softcap,
+#  flash_chunk)
+PREFILL = {
+    "serving_p8_bf16": ("P8_2", torch.bfloat16, 4, 64, 16, 2, 128, 16, 16,
+                        [0, 64, 130, 17], 1 << 30, 0.0, 1024),
+    "streaming_p8_bf16": ("P8_2", torch.bfloat16, 3, 32, 8, 1, 128, 16, 12,
+                          [70, 130, 5], 1 << 30, 0.0, 64),
+    "p16_1_f32_window_softcap": ("P16_1", torch.float32, 2, 24, 8, 2, 64, 8,
+                                 10, [9, 40], 20, 30.0, 1024),
+    "f32_pool_streaming": (None, torch.float32, 2, 7, 4, 2, 32, 4, 20,
+                           [33, 2], 1 << 30, 0.0, 16),
+    "single_token": ("P16_1", torch.float32, 3, 1, 8, 2, 64, 16, 6,
+                     [0, 31, 80], 1 << 30, 0.0, 1024),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PREFILL))
+def test_prefill_attention_matches_plain(cuda, case):
+    fmt_name, act, B, C, Hq, Hkv, Dh, ps, M, starts, window, cap, chunk = \
+        PREFILL[case]
+    fmt = getattr(formats, fmt_name) if fmt_name else None
+    g = torch.Generator().manual_seed(sorted(PREFILL).index(case))
+    P = B * M + 1
+    kv = torch.randn(2, P, ps, Hkv * Dh, generator=g)
+    kv = posit.pack(kv, fmt) if fmt else kv
+    bt = torch.zeros(B, M, dtype=torch.int32)
+    perm = torch.randperm(P - 1, generator=g) + 1
+    for b in range(B):
+        n = -(-(starts[b] + C) // ps)
+        bt[b, :n] = perm[b * M:b * M + n].to(torch.int32)
+    # slots 0 and 1 share their first history page (forked before any
+    # write in the engine; read-only here since both starts pass it)
+    if B > 1 and starts[0] >= ps and starts[1] >= ps:
+        bt[1, 0] = bt[0, 0]
+    q = torch.randn(B, C, Hq, Dh, generator=g).to(act)
+    k = torch.randn(B, C, Hkv, Dh, generator=g).to(act)
+    v = torch.randn(B, C, Hkv, Dh, generator=g).to(act)
+    ok = torch.ones(B, M, dtype=torch.int32)
+    ok[-1] = 0  # the last slot's pages are not writable
+    args = [t.to(cuda) for t in (q, k, v)]
+    st = torch.tensor(starts, dtype=torch.int32, device=cuda)
+    win = torch.tensor([window], dtype=torch.int32, device=cuda)
+    kw = dict(fmt_kv=fmt, compute_dtype=act, softcap_val=cap,
+              flash_chunk=chunk, page_ok=ok.to(cuda))
+    kp, vp = kv[0].to(cuda), kv[1].to(cuda)
+    kp2, vp2 = kp.clone(), vp.clone()
+    got, _, _ = pf.prefill_attention_paged(*args, kp, vp, bt.to(cuda), st,
+                                           win, **kw)
+    want, _, _ = pf.prefill_attention_paged_plain(*args, kp2, vp2,
+                                                  bt.to(cuda), st, win, **kw)
+    assert got.dtype == act and torch.isfinite(got.float()).all()
+    if act == torch.float32:
+        torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+    else:
+        torch.testing.assert_close(got.float(), want.float(), rtol=2.0 ** -7,
+                                   atol=1e-6)
+    assert _bits_equal(kp[1:], kp2[1:]) and _bits_equal(vp[1:], vp2[1:])
+    last = bt[-1][bt[-1] > 0].long().to(cuda)
+    assert _bits_equal(kp[last], kv[0].to(cuda)[last])
+
+
+@pytest.mark.parametrize("shape", [(4, 8192, 1024), (3, 517, 130),
+                                   (256, 1024, 320), (70, 333, 65)])
+@pytest.mark.parametrize("fmts", [("P13_2", "P16_2", None),
+                                  ("P13_2", "P16_2", "P16_2"),
+                                  ("P8_2", "P16_1", "P8_2")])
+def test_posit_matmul_matches_plain(cuda, shape, fmts):
+    M, K, N = shape
+    fa, fb = getattr(formats, fmts[0]), getattr(formats, fmts[1])
+    fo = getattr(formats, fmts[2]) if fmts[2] else None
+    g = torch.Generator().manual_seed(M + K + N)
+    a = posit.pack(torch.randn(M, K, generator=g), fa).to(cuda)
+    b = posit.pack(torch.randn(K, N, generator=g) * 0.05, fb).to(cuda)
+    bound = pm.sum_bound(a, b, fa, fb)
+    plain = pm.posit_matmul_plain(a, b, fa, fb)
+    got = pm.posit_matmul(a, b, fa, fb)
+    assert got.dtype == torch.float32
+    assert bool(((got - plain).abs() <= bound).all())
+    if fo is not None:
+        codes = pm.posit_matmul(a, b, fa, fb, fo)
+        assert codes.dtype == posit.storage_dtype(fo)
+        # the codes are the rounding of the kernel's own f32 sums
+        assert _bits_equal(codes, posit_codec.encode_plain(got, fo))
+
+
+@pytest.mark.parametrize("K,N", [(8192, 1024), (22528, 512)])
+def test_posit_matmul_bound_rejects_planted_faults(cuda, K, N):
+    """At the decode shapes the kernel passes `sum_bound` and two faults
+    fail it: weights rounded to bf16, and one 32-wide K tile left out."""
+    fa, fb = formats.P13_2, formats.P16_2
+    g = torch.Generator().manual_seed(K + N)
+    a = posit.pack(torch.randn(4, K, generator=g), fa).to(cuda)
+    b = posit.pack(torch.randn(K, N, generator=g) * K ** -0.5, fb).to(cuda)
+    bound = pm.sum_bound(a, b, fa, fb)
+    plain = pm.posit_matmul_plain(a, b, fa, fb)
+    assert bool(((pm.posit_matmul(a, b, fa, fb) - plain).abs() <= bound).all())
+    A, B = posit_codec.decode_plain(a, fa), posit_codec.decode_plain(b, fb)
+    for bad in (torch.matmul(A, B.to(torch.bfloat16).float()),
+                plain - torch.matmul(A[:, :32], B[:32])):
+        assert bool(((bad - plain).abs() > bound).any())

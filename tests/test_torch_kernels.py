@@ -190,8 +190,6 @@ def test_dispatch_unported_paths_raise():
     coded = TPolicy(weights=tformats.P16_2, activations=tformats.P13_2,
                     execution="fused")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tdispatch.qdot(x, w, coded)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
         tdispatch.qdot(x, w, TPolicy(weights=tformats.P13_2,
                                      execution="bit_exact"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):

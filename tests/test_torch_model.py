@@ -304,7 +304,7 @@ def test_entry_points_raise_without_card():
     _, tcfg = _cfgs("tiny")
     params = tapi.init(torch.Generator().manual_seed(0), tcfg, device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        TEngine(tcfg, params, batch_slots=2, max_seq=32, prefix_sharing=False)
+        TEngine(tcfg, params, batch_slots=2, max_seq=32)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tapi.init(torch.Generator().manual_seed(0), tcfg)
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -317,13 +317,10 @@ def test_unported_engine_options_raise():
     _, tcfg = _cfgs("tiny")
     params = tapi.init(torch.Generator().manual_seed(0), tcfg, device="cpu")
     base = dict(batch_slots=2, max_seq=32, device="cpu")
-    for kw in (dict(), dict(fused_prefill=True, prefix_sharing=False),
-               dict(prefix_sharing=False, speculate_k=2),
-               dict(prefix_sharing=False, paged=False),
-               dict(prefix_sharing=False, mesh=object())):
+    for kw in (dict(speculate_k=2), dict(paged=False), dict(mesh=object())):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             TEngine(tcfg, params, **base, **kw)
-    eng = TEngine(tcfg, params, prefix_sharing=False, **base)
+    eng = TEngine(tcfg, params, **base)
     for call in (lambda: eng.preempt(0), lambda: eng.cancel(0)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             call()

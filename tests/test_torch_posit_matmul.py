@@ -1,0 +1,173 @@
+"""PyTorch port vs the JAX reference: the coded posit GEMM (K6) and the
+activation-coded fused dispatch.
+
+The reference runs `posit_matmul` in interpret mode (and its host
+reference `ref.posit_matmul_ref`); the port runs the kernel's plain
+version on the same codes.  Tolerance: products of decoded posits of up
+to 12 significand bits each are exact in f32, so the results differ only
+by the order of the K-long f32 sums of products of random sign:
+|port - reference| <= 16 u sqrt(K) sqrt(sum_k (a_ik b_kj)^2), u = 2^-24
+(`posit_matmul.sum_bound`).  A control holds that limit against the K6
+kernel's own summation order (which it must pass) and against two planted
+faults, weights rounded to bf16 and one K tile left out (which it must
+fail).  Coded outputs must
+round the port's sum: their value lies between the roundings of
+reference - bound and reference + bound.  Where the f32 sums agree
+bitwise, the codes must too.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import formats as jformats
+from repro.core import posit as jposit
+from repro.core.quant import QuantPolicy as JPolicy
+from repro.core.quant import policy_by_name as jpolicy
+from repro.kernels import dispatch as jdispatch
+from repro.kernels import posit_matmul as jpm
+from repro.kernels import ref as jref
+
+from repro_torch.core import formats as tformats
+from repro_torch.core import posit as tposit
+from repro_torch.core.quant import QuantPolicy as TPolicy
+from repro_torch.core.quant import policy_by_name as tpolicy
+from repro_torch.kernels import dispatch as tdispatch
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels.posit_matmul import sum_bound
+
+
+def _fmt(name):
+    return getattr(jformats, name), getattr(tformats, name)
+
+
+# (fmt_a, fmt_b, fmt_out, M, K, N)
+CASES = {
+    "a13_w16_f32": ("P13_2", "P16_2", None, 4, 96, 40),
+    "a13_w16_ragged": ("P13_2", "P16_2", None, 37, 777, 29),
+    "a13_w16_out16": ("P13_2", "P16_2", "P16_2", 5, 300, 130),
+    "a8_w16_out8": ("P8_2", "P16_2", "P8_2", 9, 130, 17),
+    "a16_w8_f32": ("P16_1", "P8_0", None, 3, 1030, 65),
+    "a10_w10_out13": ("P10_2", "P10_2", "P13_2", 64, 200, 64),
+}
+
+
+def _codes(rng, shape, jf, scale):
+    return np.array(jposit.pack(
+        jnp.asarray(rng.normal(0, scale, shape).astype(np.float32)), jf))
+
+
+def _assert_codes_round(got, want_f32, bound, fmt):
+    """got codes round a sum within `bound` of want_f32 (monotone RNE)."""
+    val = tposit.decode(got, fmt)
+    lo = tposit.decode(tposit.pack(want_f32 - bound, fmt), fmt)
+    hi = tposit.decode(tposit.pack(want_f32 + bound, fmt), fmt)
+    assert bool(((val >= lo) & (val <= hi)).all())
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_fused_matmul_matches_reference(name):
+    fa, fb, fo, M, K, N = CASES[name]
+    (jfa, tfa), (jfb, tfb) = _fmt(fa), _fmt(fb)
+    jfo, tfo = _fmt(fo) if fo else (None, None)
+    rng = np.random.default_rng(sorted(CASES).index(name))
+    a = _codes(rng, (M, K), jfa, 1.0)
+    b = _codes(rng, (K, N), jfb, 0.2)
+    ta, tb = torch.from_numpy(a), torch.from_numpy(b)
+    bound = sum_bound(ta, tb, tfa, tfb)
+    want_ref = np.array(jref.posit_matmul_ref(jnp.asarray(a), jnp.asarray(b),
+                                                jfa, jfb, None))
+    want_kernel = np.array(jpm.posit_matmul(
+        jnp.asarray(a), jnp.asarray(b), jfa, jfb, None, interpret=True))
+    got = tops.fused_matmul(ta, tb, tfa, tfb, None)
+    assert got.dtype == torch.float32 and got.shape == (M, N)
+    for want in (want_ref, want_kernel):
+        assert bool(((got - torch.from_numpy(want)).abs() <= bound).all())
+    if jfo is None:
+        return
+    got_codes = tops.fused_matmul(ta, tb, tfa, tfb, tfo)
+    assert got_codes.dtype == tposit.storage_dtype(tfo)
+    want_codes = np.asarray(jpm.posit_matmul(
+        jnp.asarray(a), jnp.asarray(b), jfa, jfb, jfo, interpret=True))
+    same = got.numpy() == want_kernel
+    np.testing.assert_array_equal(got_codes.numpy()[same], want_codes[same])
+    _assert_codes_round(got_codes, torch.from_numpy(want_kernel), bound, tfo)
+
+
+def test_fused_matmul_zero_codes_are_exact_zero():
+    a = torch.zeros(3, 70, dtype=torch.int16)
+    b = torch.from_numpy(_codes(np.random.default_rng(1), (70, 5),
+                                jformats.P16_2, 1.0))
+    out = tops.fused_matmul(a, b, tformats.P13_2, tformats.P16_2)
+    assert torch.equal(out, torch.zeros(3, 5))
+
+
+@pytest.mark.parametrize("packed", [True, False])
+def test_qdot_activation_coded_matches_reference(packed):
+    """dispatch.qdot under serve_fused_p16_a13: encode the activations to
+    P(13,2), then the coded GEMM, as the reference's dispatch does."""
+    rng = np.random.default_rng(3)
+    x = rng.normal(0, 1, (2, 3, 40)).astype(np.float32)
+    w = rng.normal(0, 0.2, (40, 24)).astype(np.float32)
+    jp, tp = jpolicy("serve_fused_p16_a13"), tpolicy("serve_fused_p16_a13")
+    jw = jnp.asarray(w)
+    if packed:
+        jw = jposit.pack(jw, jformats.P16_2)
+    want = np.array(jdispatch.qdot(jnp.asarray(x), jw, jp))
+    tw = torch.from_numpy(np.array(jw))
+    tx = torch.from_numpy(x)
+    got = tdispatch.qdot(tx, tw, tp)
+    assert got.shape == (2, 3, 24) and got.dtype == torch.float32
+    a_codes = tops.encode(tx.reshape(6, 40), tformats.P13_2)
+    w_codes = tw if packed else tops.encode(tw, tformats.P16_2)
+    bound = sum_bound(a_codes, w_codes, tformats.P13_2, tformats.P16_2)
+    diff = (got.reshape(6, 24) - torch.from_numpy(want).reshape(6, 24)).abs()
+    assert bool((diff <= bound).all())
+
+
+def test_qdot_activation_coded_bf16_activations():
+    """bf16 activations (the full-width compute dtype) take the same
+    encode -> coded GEMM path and come back in bf16."""
+    rng = np.random.default_rng(4)
+    x = rng.normal(0, 1, (5, 32)).astype(np.float32)
+    w = rng.normal(0, 0.2, (32, 16)).astype(np.float32)
+    jw = jposit.pack(jnp.asarray(w), jformats.P16_2)
+    jp = JPolicy(weights=jformats.P16_2, activations=jformats.P13_2,
+                 execution="fused")
+    tp = TPolicy(weights=tformats.P16_2, activations=tformats.P13_2,
+                 execution="fused")
+    want = np.asarray(jdispatch.qdot(jnp.asarray(x, jnp.bfloat16), jw, jp)
+                      .astype(jnp.float32))
+    got = tdispatch.qdot(torch.from_numpy(x).to(torch.bfloat16),
+                         torch.from_numpy(np.array(jw)), tp)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=2.0 ** -7,
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("case", ["kernel_order", "bf16_weights",
+                                  "dropped_k_tile"])
+def test_sum_bound_separates_sound_orders_from_faults(case):
+    """The K6 kernel sums each output's products one by one in K order
+    (exact products, f32 accumulator): that order must stay within
+    `sum_bound` of torch.matmul, and two faults a kernel could make must
+    not."""
+    M, K, N = 4, 2048, 64
+    rng = np.random.default_rng(5)
+    fa, fb = tformats.P13_2, tformats.P16_2
+    a = torch.from_numpy(_codes(rng, (M, K), jformats.P13_2, 1.0))
+    b = torch.from_numpy(_codes(rng, (K, N), jformats.P16_2, K ** -0.5))
+    bound = sum_bound(a, b, fa, fb)
+    A, B = tposit.decode(a, fa), tposit.decode(b, fb)
+    plain = tops.fused_matmul(a, b, fa, fb)
+    if case == "kernel_order":
+        acc = np.zeros((M, N), np.float32)
+        for k in range(K):
+            acc += np.outer(A[:, k].numpy(), B[k].numpy())
+        assert bool(((torch.from_numpy(acc) - plain).abs() <= bound).all())
+        return
+    if case == "bf16_weights":
+        bad = torch.matmul(A, B.to(torch.bfloat16).float())
+    else:
+        bad = plain - torch.matmul(A[:, :32], B[:32])
+    assert bool(((bad - plain).abs() > bound).any())

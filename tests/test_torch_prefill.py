@@ -1,0 +1,295 @@
+"""PyTorch port vs the JAX reference: the fused prefill attention that
+writes posit KV pages (K5), `paged.fork_page`, and the model's fused
+prefill branch.
+
+The reference runs its Pallas kernel in interpret mode; the port runs the
+kernel's plain version (the decomposed stages op for op) on the same
+numpy inputs.  Geometries follow `tests/test_prefill_fused.py:_CASES`
+plus the full-width dtype chain (bf16 activations, P(8,2) pages) and the
+streaming branch (a span past the flash chunk, flash_chunk 16).
+
+Tolerances: page contents are held bitwise (page 0, the trash page that
+unowned writes land on, excluded).  Attention is f32 sums taken in
+another order by XLA and PyTorch, with other exp / tanh implementations:
+f32 outputs within rtol 5e-5 and an absolute 5e-5 of the case's largest
+|output| (random posit codes decode to values up to 2^28, so the sums
+cancel); bf16 outputs within one bf16 ulp (rtol 2^-7).  Several cases are
+bitwise; none is required to be.  The port's own fused and decomposed
+model branches are held bitwise.
+"""
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro import configs as jconfigs
+from repro.core.formats import P8_2 as JP8_2, P16_1 as JP16_1
+from repro.core.quant import policy_by_name as jpolicy
+from repro.kernels import ops as jops
+from repro.models import api as japi
+from repro.models import paged as jpaged
+
+from repro_torch import configs as tconfigs
+from repro_torch.core.formats import P8_2 as TP8_2, P16_1 as TP16_1
+from repro_torch.core.quant import policy_by_name as tpolicy
+from repro_torch.kernels import ops as tops
+from repro_torch.models import api as tapi
+from repro_torch.models import packing as tpacking
+from repro_torch.models import paged as tpaged
+
+FMTS = {"p16_1": (JP16_1, TP16_1), "p8_2": (JP8_2, TP8_2), None: (None, None)}
+DT = {"f32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}
+
+# name: (fmt, compute dtype, activation dtype, C, window, softcap, starts,
+#        flash_chunk, per_slot)
+CASES = {
+    "coded_start0": ("p16_1", "f32", "f32", 8, None, 0.0, [0], 1024, False),
+    "coded_mixed_midpage_starts":
+        ("p16_1", "f32", "f32", 8, None, 0.0, [0, 5, 13], 1024, False),
+    "window_plus_softcap": ("p16_1", "f32", "f32", 8, 7, 30.0, [4, 9], 1024,
+                            False),
+    "f32_pool": (None, "f32", "f32", 8, None, 0.0, [3, 0], 1024, False),
+    "bf16_compute": ("p16_1", "bf16", "f32", 8, None, 0.0, [2, 7], 1024,
+                     False),
+    "bf16_activations_p8": ("p8_2", "bf16", "bf16", 8, None, 0.0, [2, 7],
+                            1024, False),
+    "p8_kv": ("p8_2", "f32", "f32", 8, None, 0.0, [1, 6], 1024, False),
+    "single_token_chunk": ("p16_1", "f32", "f32", 1, None, 0.0, [7, 0], 1024,
+                           False),
+    "per_slot_eq_batched": ("p16_1", "f32", "f32", 8, None, 0.0, [0, 5], 1024,
+                            True),
+    "streaming_p16": ("p16_1", "f32", "f32", 8, None, 0.0, [9, 17], 16,
+                      False),
+    "streaming_bf16_window_softcap":
+        ("p8_2", "bf16", "bf16", 8, 5, 10.0, [12, 3], 16, False),
+}
+HQ, HKV, DH, PS, M = 4, 2, 8, 4, 8
+
+
+def _pool(rng, fmt, shape):
+    """A recycled pool: valid posit codes (NaR excluded) or floats."""
+    if fmt is None:
+        return rng.normal(0, 1, shape).astype(np.float32)
+    jf = FMTS[fmt][0]
+    raw = rng.integers(0, 1 << jf.n, shape)
+    raw = np.where(raw == jf.nar_code, 0, raw)
+    w = jf.storage_bits
+    half = 1 << (w - 1)
+    return (((raw + half) & ((1 << w) - 1)) - half).astype(
+        np.int8 if w == 8 else np.int16)
+
+
+def _inputs(seed, fmt, C, starts):
+    rng = np.random.default_rng(seed)
+    B = len(starts)
+    F = HKV * DH
+    n_pages = 1 + B * M
+    pk = _pool(rng, fmt, (n_pages, PS, F))
+    pv = _pool(rng, fmt, (n_pages, PS, F))
+    bt = np.zeros((B, M), np.int32)
+    for b in range(B):
+        alloc = -(-(starts[b] + C) // PS)
+        bt[b, :alloc] = 1 + b * M + np.arange(alloc)
+    q = rng.normal(0, 1, (B, C, HQ, DH)).astype(np.float32)
+    k = rng.normal(0, 1, (B, C, HKV, DH)).astype(np.float32)
+    v = rng.normal(0, 1, (B, C, HKV, DH)).astype(np.float32)
+    return pk, pv, bt, q, k, v
+
+
+def _pools(pk, pv, fmt, compute):
+    jd, td = DT[compute]
+    if fmt is None:
+        return ((jnp.asarray(pk, jd), jnp.asarray(pv, jd)),
+                (torch.from_numpy(pk).to(td), torch.from_numpy(pv).to(td)))
+    return ((jnp.asarray(pk), jnp.asarray(pv)),
+            (torch.from_numpy(pk.copy()), torch.from_numpy(pv.copy())))
+
+
+def _f32(x):
+    if isinstance(x, torch.Tensor):
+        return x.to(torch.float32).numpy() if x.is_floating_point() \
+            else x.numpy()
+    return np.asarray(x.astype(jnp.float32)) if jnp.issubdtype(
+        x.dtype, jnp.floating) else np.asarray(x)
+
+
+def _assert_attn_close(got, want, act):
+    got, want = _f32(got), _f32(want)
+    assert np.isfinite(got).all()
+    if act == "bf16":
+        np.testing.assert_allclose(got, want, rtol=2.0 ** -7, atol=0)
+    else:
+        np.testing.assert_allclose(got, want, rtol=5e-5,
+                                   atol=5e-5 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_prefill_attention_matches_reference(name):
+    fmt, compute, act, C, win, cap, starts, chunk, per_slot = CASES[name]
+    pk, pv, bt, q, k, v = _inputs(sorted(CASES).index(name), fmt, C, starts)
+    (jpk, jpv), (tpk, tpv) = _pools(pk, pv, fmt, compute)
+    jf, tf = FMTS[fmt]
+    jcd, tcd = DT[compute]
+    jad, tad = DT[act]
+    w = np.full((1,), 2 ** 30 if win is None else win, np.int32)
+    st = np.asarray(starts, np.int32)
+    want_attn, want_k, want_v = jops.prefill_attention_paged(
+        jnp.asarray(q, jad), jnp.asarray(k, jad), jnp.asarray(v, jad), jpk,
+        jpv, jnp.asarray(bt), jnp.asarray(st), jnp.asarray(w), fmt_kv=jf,
+        compute_dtype=jcd, softcap_val=cap, flash_chunk=chunk)
+    tq, tk, tv = (torch.from_numpy(a).to(tad) for a in (q, k, v))
+    kw = dict(fmt_kv=tf, compute_dtype=tcd, softcap_val=cap, flash_chunk=chunk)
+    tw = torch.from_numpy(w)
+    if per_slot:
+        got_attn = torch.zeros_like(tq)
+        for b in range(len(starts)):
+            a1, _, _ = tops.prefill_attention_paged(
+                tq[b:b + 1], tk[b:b + 1], tv[b:b + 1], tpk, tpv,
+                torch.from_numpy(bt[b:b + 1]), torch.from_numpy(st[b:b + 1]),
+                tw, **kw)
+            got_attn[b] = a1[0]
+        got_k, got_v = tpk, tpv
+    else:
+        got_attn, got_k, got_v = tops.prefill_attention_paged(
+            tq, tk, tv, tpk, tpv, torch.from_numpy(bt), torch.from_numpy(st),
+            tw, **kw)
+    assert got_attn.dtype == tq.dtype and got_k is tpk  # pools in place
+    _assert_attn_close(got_attn, want_attn, act)
+    np.testing.assert_array_equal(_f32(got_k)[1:], _f32(want_k)[1:])
+    np.testing.assert_array_equal(_f32(got_v)[1:], _f32(want_v)[1:])
+
+
+def test_prefill_page_ok_masks_writes():
+    """Pages with page_ok == 0 keep their contents; the other slot's pages
+    are written exactly as the reference writes them."""
+    starts = [4, 9]
+    pk, pv, bt, q, k, v = _inputs(31, "p16_1", 8, starts)
+    (jpk, jpv), (tpk, tpv) = _pools(pk, pv, "p16_1", "f32")
+    ok = np.zeros_like(bt)
+    ok[0] = 1
+    w = np.full((1,), 2 ** 30, np.int32)
+    st = np.asarray(starts, np.int32)
+    want_attn, want_k, want_v = jops.prefill_attention_paged(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jpk, jpv,
+        jnp.asarray(bt), jnp.asarray(st), jnp.asarray(w), fmt_kv=JP16_1,
+        page_ok=jnp.asarray(ok))
+    got_attn, got_k, got_v = tops.prefill_attention_paged(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), tpk,
+        tpv, torch.from_numpy(bt), torch.from_numpy(st), torch.from_numpy(w),
+        fmt_kv=TP16_1, page_ok=torch.from_numpy(ok))
+    _assert_attn_close(got_attn, want_attn, "f32")
+    np.testing.assert_array_equal(got_k.numpy()[1:], np.asarray(want_k)[1:])
+    np.testing.assert_array_equal(got_v.numpy()[1:], np.asarray(want_v)[1:])
+    other = bt[1][bt[1] > 0]
+    np.testing.assert_array_equal(got_k.numpy()[other], pk[other])
+    np.testing.assert_array_equal(got_v.numpy()[other], pv[other])
+    assert not np.array_equal(got_k.numpy()[bt[0][bt[0] > 0]],
+                              pk[bt[0][bt[0] > 0]])
+
+
+def test_prefill_rejects_page_size_that_cannot_stream():
+    """A span past the flash chunk needs page_size | flash_chunk, as in the
+    reference."""
+    pk, pv, bt, q, k, v = _inputs(5, "p16_1", 8, [0, 5])
+    t = torch.from_numpy
+    with pytest.raises(ValueError, match="divide"):
+        tops.prefill_attention_paged(
+            t(q), t(k), t(v), t(pk), t(pv), t(bt),
+            torch.tensor([0, 5], dtype=torch.int32),
+            torch.tensor([2 ** 30], dtype=torch.int32), fmt_kv=TP16_1,
+            flash_chunk=18)
+
+
+def test_fork_page_matches_reference():
+    rng = np.random.default_rng(8)
+    pool = rng.integers(-128, 128, (3, 7, 4, 6)).astype(np.int8)
+    want = np.asarray(jpaged.fork_page(jnp.asarray(pool), 5, 2))
+    got = torch.from_numpy(pool.copy())
+    assert tpaged.fork_page(got, 5, 2) is got
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+# ---------------------------------------------------------------------------
+# the model's fused branch: bitwise equal to the decomposed branch on the
+# CPU, and equal to the reference's fused branch
+# ---------------------------------------------------------------------------
+
+def _model_cfgs(policy, fused, kv):
+    jq = dataclasses.replace(jpolicy(policy), fused_prefill=fused)
+    tq = dataclasses.replace(tpolicy(policy), fused_prefill=fused)
+    if kv is not None:
+        jq = dataclasses.replace(jq, kv_cache=FMTS[kv][0])
+        tq = dataclasses.replace(tq, kv_cache=FMTS[kv][1])
+    return (jconfigs.get_tiny_serving("command_r_35b").replace(quant=jq),
+            tconfigs.get_tiny_serving("command_r_35b").replace(quant=tq))
+
+
+def _prefill_twice(cfg, params, max_seq, toks, toks2, bt):
+    """Two chunks into a fresh paged cache (the second sees history);
+    returns (logits of both, k pool, v pool)."""
+    B = toks.shape[0]
+    layout = tpaged.PagedLayout.for_slots(B, max_seq, cfg.quant.kv_page_size)
+    cache = tapi.init_cache(cfg, B, max_seq, layout, device="cpu")
+    cache["block_table"] = torch.from_numpy(bt)
+    active = torch.ones(B, dtype=torch.bool)
+    l1, cache = tapi.prefill_chunk_batched(params, torch.from_numpy(toks),
+                                           cache, active, cfg)
+    l2, cache = tapi.prefill_chunk_batched(params, torch.from_numpy(toks2),
+                                           cache, active, cfg)
+    return l1, l2, cache["k"], cache["v"]
+
+
+@pytest.mark.parametrize("flash_chunk", [1024, 16])
+@pytest.mark.parametrize("kv", ["p8_2", "p16_1"])
+def test_model_fused_branch_bitwise_equals_decomposed(flash_chunk, kv,
+                                                      monkeypatch):
+    monkeypatch.setattr(tpaged, "FLASH_CHUNK", flash_chunk)
+    rng = np.random.default_rng(3)
+    _, t_fused = _model_cfgs("serve_fused_p16", True, kv)
+    _, t_dec = _model_cfgs("serve_fused_p16", False, kv)
+    params = tpacking.pack_params(tapi.init(
+        torch.Generator().manual_seed(1), t_fused, device="cpu"), t_fused)
+    max_seq = 40
+    bt = np.array([[3, 1, 0], [2, 6, 5]], np.int32)  # 16-token pages
+    toks = rng.integers(0, t_fused.vocab_size, (2, 9)).astype(np.int32)
+    toks2 = rng.integers(0, t_fused.vocab_size, (2, 4)).astype(np.int32)
+    got = _prefill_twice(t_fused, params, max_seq, toks, toks2, bt)
+    want = _prefill_twice(t_dec, params, max_seq, toks, toks2, bt)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_model_fused_prefill_matches_reference_fused(monkeypatch):
+    """Port and reference with fused prefill on, FLASH_CHUNK 16 on both
+    sides so the second chunk streams history: logits within 2e-5, pages
+    bitwise."""
+    monkeypatch.setattr(tpaged, "FLASH_CHUNK", 16)
+    monkeypatch.setattr(jpaged, "FLASH_CHUNK", 16)
+    import jax
+    jcfg, tcfg = _model_cfgs("serve_fused_p16", True, None)
+    jparams = japi.pack_params(japi.init(jax.random.key(4), jcfg), jcfg)
+    tparams = tpacking.params_from_numpy(jax.tree.map(np.asarray, jparams),
+                                         tcfg, "cpu")
+    rng = np.random.default_rng(6)
+    max_seq = 40
+    bt = np.array([[3, 1, 0], [2, 6, 5]], np.int32)  # 16-token pages
+    toks = rng.integers(0, tcfg.vocab_size, (2, 12)).astype(np.int32)
+    toks2 = rng.integers(0, tcfg.vocab_size, (2, 5)).astype(np.int32)
+    got = _prefill_twice(tcfg, tparams, max_seq, toks, toks2, bt)
+
+    B = 2
+    layout = jpaged.PagedLayout.for_slots(B, max_seq, jcfg.quant.kv_page_size)
+    jc = dict(japi.init_cache(jcfg, B, max_seq, layout),
+              block_table=jnp.asarray(bt))
+    active = jnp.ones((B,), bool)
+    step = jax.jit(lambda p, t, c: japi.prefill_chunk_batched(p, t, c, active,
+                                                              jcfg))
+    l1, jc = step(jparams, jnp.asarray(toks), jc)
+    l2, jc = step(jparams, jnp.asarray(toks2), jc)
+    for g, w in zip(got[:2], (l1, l2)):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=2e-5,
+                                   atol=2e-5)
+    np.testing.assert_array_equal(got[2].numpy(), np.asarray(jc["k"]))
+    np.testing.assert_array_equal(got[3].numpy(), np.asarray(jc["v"]))

@@ -2,19 +2,24 @@
 allocator.
 
 Engine runs on both sides serve the same queue with the same parameters
-(the reference's, carried over as numpy) and the same knobs, with
-`prefix_sharing=False, fused_prefill=False` (the port's configuration,
-which the reference pins token-identical to its defaults).  Greedy token
-streams must be equal; sampled streams must be equal when the port's
-`noise_fn` replays `repro.models.api.sample_noise` on the reference's key
-stream (fold_in(fold_in(key(base_seed), request seed), draw index)).
-Reference runs are shared through a module-scoped fixture.
+(the reference's, carried over as numpy) and the same knobs: a mixed queue
+with `prefix_sharing=False, fused_prefill=False`, and a shared-prefix
+queue at the engine defaults (prefix sharing with copy-on-write pages,
+fused prefill), also under `serve_fused_p16_a13`.  Greedy token streams
+must be equal; sampled streams must be equal when the port's `noise_fn`
+replays `repro.models.api.sample_noise` on the reference's key stream
+(fold_in(fold_in(key(base_seed), request seed), draw index)).  Sharing
+counters, allocator totals and the page pools (page 0, the trash page,
+excluded) must be equal too.  Reference runs are shared through
+module-scoped fixtures.
 """
 import jax
 import numpy as np
 import pytest
 
 from repro import configs as jconfigs
+from repro.core import formats as jformats
+from repro.core.quant import QuantPolicy as JPolicy
 from repro.core.quant import policy_by_name as jpolicy
 from repro.models import api as japi
 from repro.serve import PageAllocator as JAllocator
@@ -22,6 +27,8 @@ from repro.serve import Request as JRequest
 from repro.serve import ServingEngine as JEngine
 
 from repro_torch import configs as tconfigs
+from repro_torch.core import formats as tformats
+from repro_torch.core.quant import QuantPolicy as TPolicy
 from repro_torch.core.quant import policy_by_name as tpolicy
 from repro_torch.models import packing as tpacking
 from repro_torch.serve import PageAllocator as TAllocator
@@ -190,3 +197,149 @@ def test_submit_validation_matches_reference():
             eng.submit(req)
     eng.submit(TRequest(4, np.zeros(3, np.int32), max_new_tokens=2))
     assert len(eng.queue) == 1
+
+
+# ---------------------------------------------------------------------------
+# the engine defaults: prefix sharing + fused prefill, on a shared-prefix
+# queue (a 32-token system prompt = two 16-token pages, plus exact
+# duplicates whose partial tail page is shared and forked on write)
+# ---------------------------------------------------------------------------
+
+DEFAULT_RUNS = {
+    # name: (policy, greedy, batched_prefill, chunks_per_step)
+    "defaults-greedy": ("serve_fused_p16", True, None, 0),
+    "defaults-sampled": ("serve_fused_p16", False, None, 0),
+    "defaults-per-slot-interleaved": ("serve_fused_p16", True, False, 1),
+    "a13-greedy": ("serve_fused_p16_a13", True, None, 0),
+}
+
+
+def _shared_queue(vocab):
+    rng = np.random.default_rng(12)
+    system = rng.integers(0, vocab, 32).astype(np.int32)
+    dup = rng.integers(0, vocab, 21).astype(np.int32)
+    tail = lambda n: rng.integers(0, vocab, n).astype(np.int32)  # noqa: E731
+    # (prompt, max_new_tokens, eos)
+    return [(np.concatenate([system, tail(5)]), 6, None),
+            (np.concatenate([system, tail(3)]), 5, None),
+            (dup, 6, None),
+            (dup.copy(), 5, None),
+            (np.concatenate([system, tail(9)]), 4, 7),
+            (tail(13), 4, None),
+            (np.concatenate([system, tail(1)]), 3, None),
+            (dup.copy(), 2, None)]
+
+
+def _serve_queue(engine, request_cls, queue):
+    for rid, (p, max_new, eos) in enumerate(queue):
+        engine.submit(request_cls(rid=rid, prompt=p.copy(),
+                                  max_new_tokens=max_new, eos_id=eos,
+                                  seed=100 + rid))
+    done = engine.run()
+    return {r.rid: list(map(int, r.out_tokens)) for r in done}
+
+
+@pytest.fixture(scope="module", params=sorted(DEFAULT_RUNS))
+def served_defaults(request):
+    policy, greedy, batched, per_step = DEFAULT_RUNS[request.param]
+    jcfg = jconfigs.get_tiny_serving("command_r_35b").replace(
+        quant=jpolicy(policy))
+    tcfg = tconfigs.get_tiny_serving("command_r_35b").replace(
+        quant=tpolicy(policy))
+    params = japi.pack_params(japi.init(jax.random.key(2), jcfg), jcfg)
+    queue = _shared_queue(jcfg.vocab_size)
+    kw = dict(batch_slots=3, max_seq=MAX_SEQ, greedy=greedy,
+              temperature=0.8, top_k=5, base_seed=9,
+              prefill_chunks_per_step=per_step, batched_prefill=batched)
+    jeng = JEngine(jcfg, params, **kw)
+    want = _serve_queue(jeng, JRequest, queue)
+    teng = TEngine(tcfg, tpacking.params_from_numpy(
+        jax.tree.map(np.asarray, params), tcfg, "cpu"), device="cpu",
+        noise_fn=_jax_noise(9), **kw)
+    got = _serve_queue(teng, TRequest, queue)
+    return want, got, jeng, teng
+
+
+def test_defaults_token_streams_equal(served_defaults):
+    want, got, jeng, teng = served_defaults
+    assert teng.prefix_sharing and teng.cfg.quant.fused_prefill
+    assert got == want
+
+
+def test_defaults_sharing_counters_match(served_defaults):
+    _, _, jeng, teng = served_defaults
+    for key in ("shared_admissions", "pages_shared", "cow_forks",
+                "prefill_chunks", "prefill_device_programs", "decode_steps"):
+        assert teng.stats[key] == jeng.stats[key], key
+    assert teng.stats["shared_admissions"] > 0
+    assert teng.stats["cow_forks"] > 0
+    assert teng.allocator.total_allocs == jeng.allocator.total_allocs
+    assert teng.allocator.peak_in_use == jeng.allocator.peak_in_use
+    js, ts = jeng.execution_summary(), teng.execution_summary()
+    for key in ("pages_shared_mapped", "cow_forks", "fused_prefill",
+                "prefix_sharing", "activation_coded", "page_size",
+                "prefill_device_programs", "prefill_chunks"):
+        assert ts[key] == js[key], key
+    assert ts["prefill_device_programs"] == ts["prefill_chunks"]
+    assert teng.pages_free == teng.allocator.capacity
+    assert not teng._held and not teng.prefix_index
+
+
+def test_defaults_page_pools_bitwise(served_defaults):
+    _, _, jeng, teng = served_defaults
+    for name in ("k", "v"):
+        np.testing.assert_array_equal(teng.cache[name].numpy()[:, 1:],
+                                      np.asarray(jeng.cache[name])[:, 1:])
+
+
+def _tiny_pair(policy_kw):
+    jq = JPolicy(kv_cache=jformats.P16_1, **policy_kw)
+    tq = TPolicy(kv_cache=tformats.P16_1, **policy_kw)
+    jcfg = jconfigs.get_tiny_serving("command_r_35b", jq)
+    tcfg = tconfigs.get_tiny_serving("command_r_35b", tq)
+    params = japi.init(jax.random.key(0), jcfg)
+    return jcfg, tcfg, params, tpacking.params_from_numpy(
+        jax.tree.map(np.asarray, params), tcfg, "cpu")
+
+
+def test_resolve_page_size_rules_match_reference(monkeypatch):
+    """An explicit page size that loses the one-launch prefill raises; the
+    escape hatch keeps it; the policy default auto-picks a FLASH_CHUNK
+    divisor; sizes the span gate admits pass unchanged."""
+    from repro.models import paged as jpaged
+    from repro_torch.models import paged as tpaged
+    monkeypatch.setattr(tpaged, "FLASH_CHUNK", 16)
+    monkeypatch.setattr(jpaged, "FLASH_CHUNK", 16)
+    _, tcfg, _, tparams = _tiny_pair({})
+    with pytest.raises(ValueError, match="fused"):
+        TEngine(tcfg, tparams, batch_slots=1, max_seq=64, page_size=12,
+                device="cpu")
+    eng = TEngine(tcfg, tparams, batch_slots=1, max_seq=64, page_size=12,
+                  fused_prefill=False, device="cpu")
+    assert eng.layout.page_size == 12
+    assert eng._prefill_programs_per_chunk(8) == 3
+    jcfg, tcfg, jparams, tparams = _tiny_pair(dict(kv_page_size=12))
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, tcfg.vocab_size, n).astype(np.int32)
+               for n in (21, 6)]
+    got_eng = TEngine(tcfg, tparams, batch_slots=2, max_seq=64, device="cpu")
+    want_eng = JEngine(jcfg, jparams, batch_slots=2, max_seq=64)
+    assert got_eng.layout.page_size == want_eng.layout.page_size == 8
+    queue = [(p, 3, None) for p in prompts]
+    assert _serve_queue(got_eng, TRequest, queue) == \
+        _serve_queue(want_eng, JRequest, queue)
+    s = got_eng.execution_summary()
+    assert s["prefill_device_programs"] == s["prefill_chunks"] > 0
+
+
+def test_resolve_page_size_untouched_when_gate_holds():
+    _, tcfg, _, tparams = _tiny_pair({})
+    eng = TEngine(tcfg, tparams, batch_slots=1, max_seq=32, page_size=48,
+                  device="cpu")
+    assert eng.layout.page_size == 48
+    eng2 = TEngine(tcfg, tparams, batch_slots=1, max_seq=32, device="cpu")
+    assert eng2.layout.page_size == tcfg.quant.kv_page_size
+    assert eng2._prefill_programs_per_chunk(8) == 1
+    dec = TEngine(tcfg, tparams, batch_slots=1, max_seq=32,
+                  fused_prefill=False, device="cpu")
+    assert dec._prefill_programs_per_chunk(8) == 3
