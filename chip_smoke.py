@@ -2,7 +2,7 @@
 """Drive the PyTorch port on one CUDA card: build the kernels, hold each
 against its plain version at the serving shapes, then serve command-r-35b
 at full width (depth cut to 4 layers) through the engine, at the policy's
-defaults and activation-coded.
+defaults, activation-coded, speculatively and behind the async front end.
 
     python3 chip_smoke.py
 
@@ -10,12 +10,15 @@ Phases (any failure exits non-zero; no phase is caught):
   1. device: name, count, `nvidia-smi` name and power limit;
   2. build: nvcc for sm_90a of every source in src/repro_torch/csrc/, with
      the -Xptxas -v register / shared-memory report;
-  3. kernels: K1-K6 against their plain versions at the main path's shapes
+  3. kernels: K1-K7 against their plain versions at the main path's shapes
      (K1/K2 bitwise, K3 within 2e-5, K4 equal tokens, or a score within
-     1e-5 of the largest |logit| where the plain top two are that close;
-     K5 pages bitwise and attention within 2e-5 (f32) or one bf16 ulp
-     (bf16) at both span branches; K6 within 16 u sqrt(K) ||a_i . b_j||_2,
-     a limit two planted faults must fail),
+     1e-5 of the largest |logit| where the plain top two are that close,
+     and its first 4 rows' tokens equal over 16 rows and over 4; K5 pages
+     bitwise and attention within 2e-5 (f32) or one bf16 ulp (bf16) at
+     both span branches; K6 within 16 u sqrt(K) ||a_i . b_j||_2, a limit
+     two planted faults must fail; K7 within 2e-5, each of its rows
+     bitwise K3 at the row's own length, T = 1 bitwise K3, t_block 1/2/4
+     bitwise equal),
      with the device time per launch (CUDA-graph replay timed by CUDA
      events; the per-call time with host overhead is printed beside it),
      the plain version's time, the bound from bytes and FLOPs at the H100
@@ -29,13 +32,20 @@ Phases (any failure exits non-zero; no phase is caught):
      top-k 40), greedy again with sharing off (streams must be equal) and
      with the decomposed prefill (agreement printed), then one run at
      max_seq 1280 with an 1100-token prompt so a chunk's span crosses
-     FLASH_CHUNK; 5b. the same 8 requests under serve_fused_p16_a13.  Each
-     main-path run (defaults greedy and sampled, long prompt, a13) counts
-     its launches from 0, and its kernels must launch in it; every page
-     must come back;
+     FLASH_CHUNK; 5b. the same 8 requests under serve_fused_p16_a13;
+     5c. the same 8 requests with speculative decoding (k = 4, the draft
+     policy `with_draft()`), greedy and sampled: streams equal to phase
+     5's, or a difference only at a near-tie the verify's summation order
+     flips (shown with the gap and the verify-vs-sequential logit
+     difference); 5d. the async front end over a speculative engine: batch
+     work fills the slots, an interactive request preempts one, streamed
+     tokens equal final tokens equal plain decode, the pool ends clean.
+     Each main-path run (defaults greedy and sampled, long prompt, a13,
+     speculative greedy and sampled, front end) counts its launches from
+     0, and its kernels must launch in it; every page must come back;
   6. profile: torch.profiler over a few decode steps with four slots busy,
-     at the defaults and under a13, device time per step by kernel and the
-     device's busy share.
+     at the defaults and under a13, and over one speculative round, device
+     time per step by kernel and the device's busy share.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -255,6 +265,100 @@ def _k3_attention(dev):
                 shape="B=4 Hq=64 Hkv=8 Dh=128 ps=16 L<=256 int8 pages")
 
 
+def _k7_attention_mq(dev):
+    """K7 at the verify's shape: 4 slots, T = 4 new tokens each, 64 / 8
+    heads of 128, P(8,2) pages of 16, lengths up to 256."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.core import formats, posit
+    from repro_torch.kernels import paged_attention as pa
+    fmt = formats.P8_2
+    B, T, Hq, Hkv, Dh, ps, M = 4, 4, 64, 8, 128, 16, 16
+    P = B * M + 1
+    g = torch.Generator(device=dev).manual_seed(7)
+    q = torch.randn(B, T, Hq, Dh, generator=g, device=dev)
+    kp = posit.pack(torch.randn(P, ps, Hkv * Dh, generator=g, device=dev), fmt)
+    vp = posit.pack(torch.randn(P, ps, Hkv * Dh, generator=g, device=dev), fmt)
+    bt = torch.arange(1, P, device=dev, dtype=torch.int32).reshape(B, M)
+    lengths = torch.tensor([256, 137, 3, 64], dtype=torch.int32, device=dev)
+    full = torch.tensor([1 << 30], dtype=torch.int32, device=dev)
+    ok = torch.ones(B, M, dtype=torch.int32, device=dev)
+    ok[1, 3] = 0
+    err = 0.0
+    cases = [dict(window=full, softcap_val=0.0, page_ok=None, partials=False),
+             dict(window=torch.tensor([100], dtype=torch.int32, device=dev),
+                  softcap_val=30.0, page_ok=None, partials=False),
+             dict(window=full, softcap_val=0.0, page_ok=ok, partials=True)]
+    tup = lambda x: x if isinstance(x, tuple) else (x,)  # noqa: E731
+    for kw in cases:
+        got = tup(pa.paged_attention(q, kp, vp, bt, lengths, fmt_kv=fmt,
+                                     **kw))
+        want = tup(pa.paged_attention_plain(q, kp, vp, bt, lengths,
+                                            fmt_kv=fmt, **kw))
+        for a, b in zip(got, want):
+            _check(bool(torch.isfinite(a).all()), "K7 finite outputs")
+            _check(bool(torch.allclose(a, b, rtol=2e-5, atol=2e-5)),
+                   f"K7 paged_attention_mq within 2e-5 of its plain version "
+                   f"({kw['softcap_val']=}, partials={kw['partials']})")
+            err = max(err, float((a - b).abs().max()))
+        # each row i bitwise K3 at length L - T + i + 1; T = 1 is K3
+        for i in range(T):
+            k3 = tup(pa.paged_attention(q[:, i].contiguous(), kp, vp, bt,
+                                        lengths - T + i + 1, fmt_kv=fmt,
+                                        **kw))
+            _check(all(_bits_equal(a[:, i].contiguous(), b)
+                       for a, b in zip(got, k3)),
+                   f"K7 row {i} bitwise equal to K3 at its own length")
+        one = tup(pa.paged_attention(q[:, :1], kp, vp, bt, lengths - T + 1,
+                                     fmt_kv=fmt, **kw))
+        k3 = tup(pa.paged_attention(q[:, 0].contiguous(), kp, vp, bt,
+                                    lengths - T + 1, fmt_kv=fmt, **kw))
+        _check(all(_bits_equal(a[:, 0].contiguous(), b)
+                   for a, b in zip(one, k3)), "K7 at T = 1 bitwise K3")
+        tiles = [tup(pa.paged_attention(q, kp, vp, bt, lengths, fmt_kv=fmt,
+                                        t_block=tb, **kw)) for tb in (1, 2, 4)]
+        _check(all(_bits_equal(a, b) for t in tiles[1:]
+                   for a, b in zip(tiles[0], t)),
+               "K7 t_block 1 / 2 / 4 bitwise equal")
+    _check(bool((got[0][2, 0] == 0).all()),
+           "K7: a row with nothing to attend gives zeros")
+    args = (q, kp, vp, bt, lengths, full)
+    call_ms = _time_ms(lambda: pa.paged_attention(*args, fmt_kv=fmt),
+                       reps=200)
+    ms = _device_ms(lambda: pa.paged_attention(*args, fmt_kv=fmt),
+                    launches=50)
+    plain_ms = _time_ms(lambda: pa.paged_attention_plain(*args, fmt_kv=fmt),
+                        reps=5)
+    # yardstick: SDPA over the same K/V already gathered and decoded, with
+    # the causal-offset mask (row i sees positions <= L - T + i)
+    S = M * ps
+    kd = posit.decode(kp[bt.long()], fmt).reshape(B, S, Hkv, Dh)
+    vd = posit.decode(vp[bt.long()], fmt).reshape(B, S, Hkv, Dh)
+    kd = kd.permute(0, 2, 1, 3).repeat_interleave(Hq // Hkv, dim=1)
+    vd = vd.permute(0, 2, 1, 3).repeat_interleave(Hq // Hkv, dim=1)
+    q_pos = lengths.long()[:, None] - T + torch.arange(T, device=dev)
+    mask = torch.arange(S, device=dev)[None, None, :] <= q_pos[..., None]
+    qt = q.permute(0, 2, 1, 3)
+    library_ms = _device_ms(lambda: F.scaled_dot_product_attention(
+        qt, kd, vd, attn_mask=mask[:, None]), launches=50)
+    # bytes: q and the output once, each page a slot's rows reach once (K
+    # and V codes), the block tables and lengths; operations: q.k and p.v
+    # over the (row, key) pairs this data attends
+    rows = [[max(int(n) - T + i + 1, 0) for i in range(T)]
+            for n in lengths.tolist()]
+    pages = sum(-(-max(r) // ps) for r in rows)
+    bytes_moved = (2 * q.numel() * 4 + 2 * pages * ps * Hkv * Dh * 1
+                   + bt.numel() * 4 + lengths.numel() * 4)
+    flops = 4.0 * Hq * Dh * sum(sum(r) for r in rows)
+    bound, by = _bound(bytes_moved, flops)
+    return dict(name="paged_attention_mq",
+                source="src/repro_torch/csrc/paged_attention.cu",
+                replaces="src/repro/kernels/paged_attention.py:195",
+                max_abs_err=err, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+                bound_ms=bound, bound_by=by, library_ms=library_ms,
+                shape="B=4 T=4 Hq=64 Hkv=8 Dh=128 ps=16 L<=256 int8 pages")
+
+
 def _k4_decode_sample(dev):
     import torch
     from repro_torch.core import formats, posit
@@ -289,6 +393,20 @@ def _k4_decode_sample(dev):
         _check(bool(((tok == want) | (gap <= tol)).all()),
                f"K4 decode_sample tokens (greedy={greedy}, top_k={top_k})")
         err = max(err, float(gap.max()))
+    # the verify runs K4 over B * T = 16 rows where plain decode runs 4:
+    # a row's token must not depend on the other rows
+    x16 = torch.cat([x, torch.randn(12, D, generator=g, device=dev)
+                     .to(x.dtype)])
+    n16 = torch.cat([noise, -torch.log(-torch.log(
+        torch.rand(12, V, generator=g, device=dev).clamp(1e-9, 1 - 1e-7)))])
+    for greedy, top_k in ((True, 0), (False, 40)):
+        t16 = pa.decode_sample(x16, w, n16, 0.8, greedy=greedy, top_k=top_k,
+                               **kw)
+        t4 = pa.decode_sample(x, w, noise, 0.8, greedy=greedy, top_k=top_k,
+                              **kw)
+        _check(bool(torch.equal(t16[:4], t4)),
+               f"K4 tokens of rows 0-3 equal over 16 rows and over 4 "
+               f"(greedy={greedy})")
     run = lambda: pa.decode_sample(x, w, noise, 0.8, greedy=False,  # noqa: E731
                                    top_k=40, **kw)
     call_ms = _time_ms(run, reps=10)
@@ -557,7 +675,9 @@ def _run_engine(cfg, params, prompts, label: str, **kw):
     """Serve `prompts` (16 new tokens each) on a fresh 4-slot engine, one
     step at a time; checks every request and every page, prints the run's
     numbers, and returns ({rid: tokens}, engine, launches per pure decode
-    step summed over those steps, number of pure decode steps)."""
+    step summed over those steps, number of pure decode steps).  A pure
+    decode step of a speculative engine is a round (or a plain step where
+    the span falls below 2); the rounds' times are printed."""
     import numpy as np
     import torch
     from repro_torch.kernels import ops
@@ -567,10 +687,12 @@ def _run_engine(cfg, params, prompts, label: str, **kw):
         engine.submit(Request(rid=rid, prompt=p, max_new_tokens=16))
     torch.cuda.reset_peak_memory_stats()
     decode_ms = []
+    round_ms = []
     per_step: dict = {}
     t0 = time.perf_counter()
     while engine.queue or (engine.slot_phase != 0).any():
         chunks = engine.stats["prefill_chunks"]
+        rounds = engine.stats["spec_rounds"]
         before = dict(ops.launch_counts())
         torch.cuda.synchronize()
         s0 = time.perf_counter()
@@ -579,6 +701,8 @@ def _run_engine(cfg, params, prompts, label: str, **kw):
         torch.cuda.synchronize()
         if engine.stats["prefill_chunks"] == chunks:
             decode_ms.append((time.perf_counter() - s0) * 1e3)
+            if engine.stats["spec_rounds"] > rounds:
+                round_ms.append(decode_ms[-1])
             for k, v in ops.launch_counts().items():
                 per_step[k] = per_step.get(k, 0) + v - before[k]
     wall = time.perf_counter() - t0
@@ -607,6 +731,14 @@ def _run_engine(cfg, params, prompts, label: str, **kw):
            "peak_pages": engine.allocator.peak_in_use}))
     print(f"{label}: execution_summary "
           f"{json.dumps(engine.execution_summary())}")
+    if engine.speculate_k:
+        s = engine.execution_summary()
+        print(f"{label}: speculation k {engine.speculate_k}: rounds "
+              f"{s['speculation_rounds']}, accept rate "
+              f"{s['speculation_accept_rate']}, committed tokens "
+              f"{s['speculation_committed_tokens']}, mean round "
+              f"{float(np.mean(round_ms)) if round_ms else float('nan'):.3f}"
+              f" ms over {len(round_ms)} rounds without prefill")
     print(f"{label}: first tokens {done[0].out_tokens[:8]}")
     return ({r.rid: list(map(int, r.out_tokens)) for r in done}, engine,
             per_step, len(decode_ms))
@@ -714,8 +846,9 @@ def _serve(dev):
     _check(eng.stats["shared_admissions"] > 0, "shared admissions > 0")
     _check(summary["prefill_device_programs"] == summary["prefill_chunks"],
            "one prefill program per chunk group")
-    main_path("defaults sampled", cfg, params, prompts, greedy=False,
-              temperature=0.8, top_k=40, **base)
+    sampled, eng_sampled, _, _ = main_path(
+        "defaults sampled", cfg, params, prompts, greedy=False,
+        temperature=0.8, top_k=40, **base)
     unshared = _run_engine(cfg, params, prompts, "sharing off greedy",
                            greedy=True, prefix_sharing=False, **base)[0]
     _check(unshared == greedy,
@@ -754,7 +887,187 @@ def _serve(dev):
     print(f"a13 vs float-activation greedy streams: {same:.3f} of streams "
           f"identical, {toks:.4f} of tokens equal")
     _prefill_logit_gap(cfg13, params, prompts[0], dev)
+
+    # ---- phase 5c: speculative decoding at the defaults (k = 4)
+    _, diff = _verify_vs_sequential(
+        cfg, params, prompts[0], greedy[0][:7], greedy[0][7:7 + SPEC_K],
+        eng._chunk_sizes(len(prompts[0])), dev)
+    print(f"decode_verify vs {SPEC_K} sequential decode_step calls over the "
+          f"same tokens and pages (full width, bf16): max |logit diff| "
+          f"{diff:.4g}")
+    _check(diff == 0.0, "decode_verify logits bitwise equal to sequential "
+                        "decode_step logits")
+    for label, plain, plain_eng, kw in (
+            ("speculative greedy", greedy, eng, dict(greedy=True)),
+            ("speculative sampled", sampled, eng_sampled,
+             dict(greedy=False, temperature=0.8, top_k=40))):
+        spec, spec_eng, _, _ = main_path(label, cfg, params, prompts,
+                                         speculate_k=SPEC_K, **kw, **base)
+        for name in ("posit_decode", "posit_encode", "paged_attention",
+                     "paged_attention_mq", "decode_sample",
+                     "prefill_attention"):
+            _check(counts[label][name] > 0,
+                   f"kernel {name} launched in the '{label}' run")
+        _check(spec_eng.stats["spec_rounds"] > 0, f"{label}: rounds ran")
+        same, toks = _agreement(spec, plain)
+        print(f"{label} vs plain decode: {same:.3f} of streams identical, "
+              f"{toks:.4f} of tokens equal")
+        for rid in sorted(spec):
+            if spec[rid] != plain[rid]:
+                _spec_divergence(cfg, params, prompts[rid], rid, plain[rid],
+                                 spec[rid], plain_eng, dev, label)
+
+    # ---- phase 5d: the async front end over a speculative engine (its
+    # counts are read inside, around the front end's run alone)
+    label = "front end (speculative)"
+    counts[label] = _frontend_phase(cfg, params, prompts, greedy, rng, base)
+    print(f"{label}: launches {json.dumps(counts[label])}")
+    for name in ("posit_decode", "posit_encode", "paged_attention",
+                 "paged_attention_mq", "decode_sample", "prefill_attention"):
+        _check(counts[label][name] > 0,
+               f"kernel {name} launched in the '{label}' run")
     return counts, cfg, cfg13, params, prompts
+
+
+SPEC_K = 4
+
+
+def _verify_vs_sequential(cfg, params, prompt, before, window, chunks, dev):
+    """Replay one request on 4 slots (the engine's 4-row batch): prefill
+    `prompt` in the engine's chunks, decode `before`, then run the tokens
+    `window` once through decode_verify (logits) and once as sequential
+    decode_step calls over the same pages.  Returns (the sequential logits
+    of slot 0 per token, max |verify - sequential|)."""
+    import torch
+    from repro_torch.models import api, transformer
+    from repro_torch.models.paged import PagedLayout
+    B, M = 4, 16
+    cache = api.init_cache(cfg, B, M * 16, PagedLayout.for_slots(B, M * 16, 16),
+                           device=dev)
+    cache["block_table"] = torch.arange(1, 1 + B * M, dtype=torch.int32,
+                                        device=dev).reshape(B, M)
+    active = torch.ones(B, dtype=torch.bool, device=dev)
+    lo = 0
+    for size in chunks:
+        toks = torch.from_numpy(prompt[lo:lo + size]).to(dev)[None]
+        _, cache = api.prefill_chunk_batched(params, toks.repeat(B, 1),
+                                             cache, active, cfg)
+        lo += size
+    for t in before:
+        _, cache = api.decode_step(
+            params, torch.full((B,), t, dtype=torch.int32, device=dev),
+            cache, cfg)
+    tokens = torch.tensor(window, dtype=torch.int32, device=dev)
+    pools = dict(cache, k=cache["k"].clone(), v=cache["v"].clone())
+    verify, _ = transformer.decode_verify(
+        params, tokens[None].repeat(B, 1), pools, cfg)
+    diff = 0.0
+    seq = []
+    for i in range(tokens.numel()):
+        logits, cache = api.decode_step(params, tokens[i].repeat(B), cache,
+                                        cfg)
+        seq.append(logits[0])
+        diff = max(diff, float((verify[:, i] - logits).abs().max()))
+    return seq, diff
+
+
+def _spec_divergence(cfg, params, prompt, rid, plain, spec, plain_eng, dev,
+                     label):
+    """A speculative stream that differs from plain decode passes only at
+    a near-tie that the verify's other summation order flips: prints the
+    first differing position j, the plain run's top-two gap there, and the
+    largest |difference| between decode_verify's logits and T sequential
+    decode_step logits over the same tokens and pages; fails unless the
+    gap is the smaller."""
+    import torch
+    j = next(i for i, (a, b) in enumerate(zip(plain, spec)) if a != b)
+    _check(j >= 1, f"{label}: request {rid} differs at its prefill token")
+    seq, diff = _verify_vs_sequential(
+        cfg, params, prompt, plain[:j - 1], plain[j - 1:j - 1 + SPEC_K],
+        plain_eng._chunk_sizes(len(prompt)), dev)
+    l = seq[0].float()
+    if plain_eng.greedy:
+        score, scale = l, 1.0
+    else:
+        temp = plain_eng.temperature
+        noise = plain_eng._default_noise(rid, j, cfg.vocab_size)
+        kth = torch.topk(l / temp, plain_eng.top_k).values[-1]
+        score = noise + torch.where(l / temp >= kth, l / temp,
+                                    torch.full_like(l, -1e30))
+        scale = temp   # a logit difference d moves a score by d / T
+    top = torch.topk(score, 2).values
+    gap = float(top[0] - top[1]) * scale
+    print(f"{label}: request {rid} first differs from plain decode at "
+          f"position {j} (plain {plain[j]}, speculative {spec[j]}); plain "
+          f"top-two gap there {gap:.4g} (logit units); verify vs "
+          f"sequential decode_step logits over the same tokens and pages: "
+          f"max |diff| {diff:.4g}")
+    _check(gap < diff, f"{label}: request {rid} differs from plain decode "
+                       f"at position {j} away from a near-tie")
+
+
+def _frontend_phase(cfg, params, prompts, plain, rng, base):
+    """AsyncServingFrontend over a speculative engine: the 8 requests as
+    batch work fill the 4 slots, then an interactive request arrives; at
+    least one preemption, every streamed view equal to the request's
+    final tokens and to plain decode, the pool clean.  Returns the launch
+    counts of the front end's run alone (set to 0 after the plain run of
+    the interactive request, read when the front end is done)."""
+    import asyncio
+    import numpy as np
+    from repro_torch.kernels import ops
+    from repro_torch.serve import AsyncServingFrontend, ServingEngine
+    inter = rng.integers(0, cfg.vocab_size, 40).astype(np.int32)
+    ref = _run_engine(cfg, params, [inter], "plain run of the interactive "
+                      "request", greedy=True, **base)[0]
+    want = dict(plain) | {99: ref[0]}
+    ops.reset_launches()
+    eng = ServingEngine(cfg, params, batch_slots=4, greedy=True,
+                        speculate_k=SPEC_K, **base)
+    fe = AsyncServingFrontend(eng)
+    streams: dict = {}
+
+    def on_token(rid, idx, tok):
+        out = streams.setdefault(rid, [])
+        _check(idx == len(out), "front end: tokens stream in order")
+        out.append(int(tok))
+
+    async def main():
+        ts = [fe.submit(p, max_new_tokens=16, slo="batch", rid=i,
+                        on_token=on_token) for i, p in enumerate(prompts)]
+        runner = asyncio.ensure_future(fe.run())
+        while not ((eng.slot_phase == 2).all() and eng.queue):
+            _check(not runner.done(), "front end: the slots filled")
+            await asyncio.sleep(0)
+        ti = fe.submit(inter, max_new_tokens=16, slo="interactive", rid=99,
+                       on_token=on_token)
+        out = {t.rid: await t.wait() for t in ts + [ti]}
+        await runner
+        return out
+
+    t0 = time.perf_counter()
+    got = asyncio.run(main())
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    s = fe.execution_summary()
+    print(f"front end (speculative): {len(got)} requests, wall {wall:.3f} "
+          f"s, preemptions {fe.preemptions}, TTFT p50 "
+          f"{s['ttft_ms']['p50_ms']:.3f} / p95 {s['ttft_ms']['p95_ms']:.3f} "
+          f"ms, ITL p50 {s['itl_ms']['p50_ms']:.3f} / p95 "
+          f"{s['itl_ms']['p95_ms']:.3f} ms, speculation rounds "
+          f"{s['speculation_rounds']}, accept rate "
+          f"{s['speculation_accept_rate']}")
+    _check(fe.preemptions >= 1 and eng.stats["preemptions"] >= 1,
+           "front end: the interactive arrival preempted a batch slot")
+    _check({r: list(map(int, t)) for r, t in got.items()} == streams,
+           "front end: streamed tokens equal each request's final tokens")
+    same, toks = _agreement(streams, want)
+    print(f"front end (speculative) vs plain decode: {same:.3f} of streams "
+          f"identical, {toks:.4f} of tokens equal")
+    _check(streams == want, "front end: streams equal plain decode")
+    _check(eng.pages_in_use == 0 and not eng._held and not eng.queue,
+           "front end: the pool ends clean")
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -764,6 +1077,7 @@ def _serve(dev):
 # kernel-name fragments -> the layer that launched the kernel
 _KERNEL_GROUPS = (("posit_decode", "K1 posit_decode"),
                   ("posit_encode", "K2 posit_encode"),
+                  ("paged_attention_mq", "K7 paged_attention_mq"),
                   ("paged_attention", "K3 paged_attention"),
                   ("ds_", "K4 decode_sample"),
                   ("prefill_attention", "K5 prefill_attention"),
@@ -771,21 +1085,24 @@ _KERNEL_GROUPS = (("posit_decode", "K1 posit_decode"),
                   ("gemm", "torch.matmul"), ("gemv", "torch.matmul"))
 
 
-def _profile(cfg, params, prompts, label: str, steps: int = 4):
-    """torch.profiler over `steps` greedy decode steps with 4 slots busy:
-    device time per step by layer, and the device's busy share of the
-    window (host clock, ending in a synchronize)."""
+def _profile(cfg, params, prompts, label: str, steps: int = 4,
+             speculate_k: int = 0):
+    """torch.profiler over `steps` greedy decode steps (speculative rounds
+    with speculate_k) with 4 slots busy: device time per step by layer,
+    and the device's busy share of the window (host clock, ending in a
+    synchronize)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serve import Request, ServingEngine
     engine = ServingEngine(cfg, params, batch_slots=4, max_seq=256,
-                           page_size=16, greedy=True)
+                           page_size=16, greedy=True, speculate_k=speculate_k)
     for rid, p in enumerate(prompts[:4]):
-        engine.submit(Request(rid=rid, prompt=p, max_new_tokens=steps + 3))
+        engine.submit(Request(rid=rid, prompt=p, max_new_tokens=16))
     engine.step()   # prefill of all four, then their first decode step
     engine.step()
     _check(bool((engine.slot_phase == 2).all()), "profile: four slots decode")
+    rounds = engine.stats["spec_rounds"]
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -794,6 +1111,9 @@ def _profile(cfg, params, prompts, label: str, steps: int = 4):
             engine.step()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    if speculate_k:
+        _check(engine.stats["spec_rounds"] == rounds + steps,
+               "profile: every profiled step is a speculative round")
     groups: dict = {}
     for evt in prof.key_averages():
         if evt.device_type != DeviceType.CUDA or not evt.self_device_time_total:
@@ -802,7 +1122,9 @@ def _profile(cfg, params, prompts, label: str, steps: int = 4):
                      "other torch ops")
         groups[group] = groups.get(group, 0.0) + evt.self_device_time_total
     busy = sum(groups.values())
-    print(f"profile {label}: {steps} decode steps, 4 slots, wall "
+    print(f"profile {label}: {steps} "
+          f"{'speculative rounds' if speculate_k else 'decode steps'}, "
+          f"4 slots, wall "
           f"{wall_us / steps / 1e3:.3f}"
           f" ms/step, device busy {busy / steps / 1e3:.3f} ms/step "
           f"({100 * busy / wall_us:.1f}% of the window)"
@@ -854,7 +1176,7 @@ def main() -> int:
 
     kernels = []
     for fn in (_k1_decode, _k2_encode, _k3_attention, _k4_decode_sample,
-               _k5_prefill, _k6_matmul):
+               _k5_prefill, _k6_matmul, _k7_attention_mq):
         rec = fn(dev)
         torch.cuda.empty_cache()
         print(f"kernel {rec['name']} ({rec['shape']}): ms {rec['ms']:.4f} "
@@ -870,6 +1192,8 @@ def main() -> int:
     counts, cfg, cfg13, params, prompts = _serve(dev)
     _profile(cfg, params, prompts, "defaults")
     _profile(cfg13, params, prompts, "a13")
+    _profile(cfg, params, prompts, "speculative round", steps=1,
+             speculate_k=SPEC_K)
     # launches: the sum of the main-path runs' own counts (each from 0);
     # launches_by_path: each run's count
     for rec in kernels:

@@ -234,17 +234,3 @@ def quantize(x, fmt: PositFormat):
     """Fake-quantization (encode -> decode) in x's dtype."""
     return unpack(encode(x, fmt), fmt, dtype=x.dtype)
 
-
-class _QuantizeSTE(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, fmt):
-        return quantize(x, fmt)
-
-    @staticmethod
-    def backward(ctx, g):
-        return g, None
-
-
-def quantize_ste(x, fmt: PositFormat):
-    """Fake-quantize with a straight-through gradient (identity backward)."""
-    return _QuantizeSTE.apply(x, fmt)

@@ -4,7 +4,8 @@
 A `QuantPolicy` says which tensors are stored/computed in which posit
 format and which GEMM datapath (`execution`) runs every model matmul:
 
-  fake_quant : decode(encode(x)) on both operands, then a plain f32 dot.
+  fake_quant : decode(encode(x)) on both operands, then a plain f32 dot
+               (`kernels/dispatch.fake_quantize`).
   fused      : weights travel as posit *codes* (int8/int16) and are decoded
                exactly by the codec kernel right before the dot
                (`kernels/ops.matmul_posit_weights`), f32 accumulation; with
@@ -134,16 +135,6 @@ class QuantPolicy:
     @property
     def enabled(self) -> bool:
         return any(f is not None for f in (self.weights, self.activations, self.kv_cache))
-
-    def maybe_quant_weight(self, w):
-        if self.weights is None:
-            return w
-        return posit.quantize_ste(w, self.weights)
-
-    def maybe_quant_act(self, x):
-        if self.activations is None:
-            return x
-        return posit.quantize_ste(x, self.activations)
 
     def maybe_quant_kv(self, kv):
         if self.kv_cache is None:

@@ -35,6 +35,7 @@ _SIGNATURES = {
     },
     "paged_attention": {
         "paged_attention_launch": [_P] * 10 + [_I] * 9 + [_F, _F, _P],
+        "paged_attention_mq_launch": [_P] * 10 + [_I] * 11 + [_F, _F, _P],
     },
     "decode_sample": {
         "decode_sample_tiles": [_I, _I],

@@ -77,13 +77,17 @@ def encode(values, fmt: PositFormat):
 def paged_attention(q, k_pages, v_pages, block_tables, lengths, window,
                     fmt_kv: PositFormat | None = None,
                     softcap_val: float = 0.0, page_ok=None,
-                    partials: bool = False):
-    """Paged-attention decode (K3 on CUDA): block-table page gather, posit
-    decode next to the q.k dot, streaming softmax across pages.  See
+                    partials: bool = False, t_block: int | None = None):
+    """Paged attention: block-table page gather, posit decode next to the
+    q.k dot, streaming softmax across pages.  q [B, Hq, Dh] is one decode
+    token per slot (K3 on CUDA); q [B, T, Hq, Dh] is T new tokens per slot
+    (K7 on CUDA, the speculative verify), tiled by `t_block` (any tiling is
+    bitwise identical; T = 1 equals the 3-D path bitwise).  See
     kernels/paged_attention.py."""
     return paged_attention_mod.paged_attention(
         q, k_pages, v_pages, block_tables, lengths, window, fmt_kv=fmt_kv,
-        softcap_val=softcap_val, page_ok=page_ok, partials=partials)
+        softcap_val=softcap_val, page_ok=page_ok, partials=partials,
+        t_block=t_block)
 
 
 def prefill_attention_paged(q, k, v, k_pages, v_pages, block_tables, starts,

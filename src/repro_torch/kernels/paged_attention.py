@@ -1,13 +1,14 @@
-"""Paged-attention decode and the fused decode epilogue (head GEMM +
-sampler): CUDA kernels and their plain versions.
+"""Paged attention (one or T new tokens per slot) and the fused decode
+epilogue (head GEMM + sampler): CUDA kernels and their plain versions.
 
-`paged_attention` (K3, `csrc/paged_attention.cu`) replaces
-`repro/kernels/paged_attention.py:paged_attention` for a 3-D query (one
-decode token per slot); `decode_sample` (K4, `csrc/decode_sample.cu`)
-replaces `repro/kernels/paged_attention.py:decode_sample`.  On a CUDA
-tensor each wrapper launches its kernel; on a CPU tensor it runs the
-plain PyTorch version beside it, which states the same function densely.
-The multi-query (4-D q) form is not ported yet (ROADMAP queue 2).
+`paged_attention` launches K3 (`csrc/paged_attention.cu`, replacing
+`repro/kernels/paged_attention.py:paged_attention`) for a 3-D query, one
+decode token per slot, and K7 (the same source, replacing
+`_paged_attention_mq`) for a 4-D query, the T tokens of a speculative
+verify; `decode_sample` (K4, `csrc/decode_sample.cu`) replaces
+`repro/kernels/paged_attention.py:decode_sample`.  On a CUDA tensor each
+wrapper launches its kernel; on a CPU tensor it runs the plain PyTorch
+version beside it, which states the same function densely.
 """
 from __future__ import annotations
 
@@ -21,8 +22,12 @@ from .posit_codec import decode_plain
 
 _NEG = -2.0e38
 # launches of each kernel since the last reset (kernels/ops.reset_launches)
-LAUNCHES = {"paged_attention": 0, "decode_sample": 0}
+LAUNCHES = {"paged_attention": 0, "paged_attention_mq": 0, "decode_sample": 0}
 _KINDS = {torch.int8: 0, torch.int16: 1, torch.float32: 2, torch.bfloat16: 3}
+# threads of a K7 block (csrc/paged_attention.cu): a block serves at most
+# this many query rows, t_block x Hq / Hkv, one thread each for the row's
+# softmax state
+_K7_ROWS = 256
 
 
 def _softcap(x, cap: float):
@@ -43,11 +48,19 @@ def paged_attention_plain(q, k_pages, v_pages, block_tables, lengths, window,
                           fmt_kv: PositFormat | None = None,
                           softcap_val: float = 0.0, page_ok=None,
                           partials: bool = False):
-    """Dense statement of the paged-attention kernel: gather each slot's
-    pages by block table, decode, mask (pos < length, the window, page_ok)
-    and softmax.  With partials, returns the unnormalized (o, m, l) the
-    streaming kernel ends with (m = -2e38, l = 0 for an empty slot)."""
-    B, Hq, Dh = q.shape
+    """Dense statement of the paged-attention kernels: gather each slot's
+    pages by block table, decode, mask and softmax.  q is [B, Hq, Dh] (one
+    token per slot, at position lengths - 1) or [B, T, Hq, Dh] (token i at
+    lengths - T + i, `ref.paged_attention_mq_ref`); a key at pos counts
+    where pos <= q_pos, q_pos - pos < window and page_ok is nonzero.  With
+    partials, returns the unnormalized (o, m, l) the streaming kernels end
+    with (m = -2e38, l = 0 for a row with nothing to attend)."""
+    if q.ndim == 3:
+        out = paged_attention_plain(q[:, None], k_pages, v_pages,
+                                    block_tables, lengths, window, fmt_kv,
+                                    softcap_val, page_ok, partials)
+        return tuple(t[:, 0] for t in out) if partials else out[:, 0]
+    B, T, Hq, Dh = q.shape
     _, ps, kvd = k_pages.shape
     Hkv = kvd // Dh
     G = Hq // Hkv
@@ -57,55 +70,81 @@ def paged_attention_plain(q, k_pages, v_pages, block_tables, lengths, window,
     kg = _as_f32_values(k_pages[bt], fmt_kv).reshape(B, S, Hkv, Dh)
     vg = _as_f32_values(v_pages[bt], fmt_kv).reshape(B, S, Hkv, Dh)
     scale = 1.0 / math.sqrt(Dh)
-    qg = q.reshape(B, Hkv, G, Dh).to(torch.float32) * scale
-    s = _softcap(torch.einsum("bhgd,bkhd->bhgk", qg, kg), softcap_val)
-    pos = torch.arange(S, device=q.device)[None, :]
-    length = lengths.long()[:, None]
-    mask = (pos < length) & ((length - 1 - pos) < window.long()[0])
+    # rows r = t * G + g of each KV head's group
+    qg = q.reshape(B, T, Hkv, G, Dh).permute(0, 2, 1, 3, 4) \
+          .reshape(B, Hkv, T * G, Dh).to(torch.float32) * scale
+    s = _softcap(torch.einsum("bhrd,bkhd->bhrk", qg, kg), softcap_val)
+    pos = torch.arange(S, device=q.device)[None, None, :]
+    q_pos = (lengths.long()[:, None] - T
+             + torch.arange(T, device=q.device)[None, :])[..., None]
+    mask = (pos <= q_pos) & ((q_pos - pos) < window.long()[0])   # [B, T, S]
     if page_ok is not None:
-        mask &= (page_ok != 0).repeat_interleave(ps, dim=1)
-    mask = mask[:, None, None, :]
+        mask &= (page_ok != 0).repeat_interleave(ps, dim=1)[:, None, :]
+    mask = mask[:, :, None, :].expand(B, T, G, S).reshape(B, 1, T * G, S)
     m = torch.where(mask, s, torch.full_like(s, _NEG)).amax(-1)
     m = torch.clamp(m, min=_NEG)
     p = torch.where(mask, torch.exp(s - m[..., None]), torch.zeros_like(s))
     l = p.sum(-1)
-    o = torch.einsum("bhgk,bkhd->bhgd", p, vg)
+    o = torch.einsum("bhrk,bkhd->bhrd", p, vg)
+
+    def rows(t, *tail):   # [B, Hkv, T * G, ...] -> [B, T, Hq, ...]
+        return t.reshape(B, Hkv, T, G, *tail).transpose(1, 2) \
+                .reshape(B, T, Hq, *tail)
+
     if partials:
-        return (o.reshape(B, Hq, Dh), m.reshape(B, Hq), l.reshape(B, Hq))
-    return (o / torch.clamp(l, min=1e-30)[..., None]).reshape(B, Hq, Dh)
+        return rows(o, Dh), rows(m), rows(l)
+    return rows(o / torch.clamp(l, min=1e-30)[..., None], Dh)
 
 
 def paged_attention(q, k_pages, v_pages, block_tables, lengths, window,
                     fmt_kv: PositFormat | None = None,
                     softcap_val: float = 0.0, page_ok=None,
-                    partials: bool = False):
-    """One-token attention over block-table-paged posit KV.
+                    partials: bool = False, t_block: int | None = None):
+    """Attention of new query tokens over block-table-paged posit KV.
 
-    q            : [B, Hq, Dh] float query (one decode token per slot).
+    q            : [B, Hq, Dh] float query (one decode token per slot; K3),
+                   or [B, T, Hq, Dh] for T new tokens per slot (K7): token
+                   i of slot b at position lengths[b] - T + i, causal over
+                   the history and the other new tokens.  Row i equals
+                   the 3-D call at length lengths - T + i + 1, bitwise.
     k/v_pages    : [n_pages, page_size, Hkv*Dh] posit codes (int8/int16,
                    decoded in-kernel via fmt_kv) or float (fmt_kv=None).
     block_tables : [B, max_pages] int32; page j holds the slot's positions
                    [j*page_size, (j+1)*page_size).
-    lengths      : [B] int32 valid positions per slot including the current
-                   token.
+    lengths      : [B] int32 valid positions per slot including the new
+                   token(s).
     window       : [1] int32 sliding-window size (>= max_seq = unbounded).
     page_ok      : optional [B, max_pages] int32 mask (nonzero = attend).
-    partials     : return the unnormalized (o [B,Hq,Dh], m [B,Hq], l [B,Hq]).
+    partials     : return the unnormalized (o, m [B,(T,)Hq], l [B,(T,)Hq]).
+    t_block      : K7's query-token tile (divides T; default the largest of
+                   8, 4, 2, 1 that does and keeps t_block x Hq / Hkv within
+                   a block's 256 rows); value-neutral, ignored for 3-D q.
+                   On the card a block of more rows (K3: Hq / Hkv > 128)
+                   raises.
 
-    Returns [B, Hq, Dh] f32 (or the (o, m, l) triple)."""
-    if q.ndim != 3:
-        raise NotImplementedError(
-            "multi-query (4-D q) paged attention is not ported yet "
-            "(ROADMAP queue 2, the speculative verify kernel)")
+    Returns [B, Hq, Dh] (or [B, T, Hq, Dh]) f32, or the (o, m, l) triple."""
+    if q.ndim not in (3, 4):
+        raise ValueError(f"q must be [B, Hq, Dh] or [B, T, Hq, Dh], got "
+                         f"{tuple(q.shape)}")
     if v_pages.shape != k_pages.shape:
         raise ValueError(f"k/v page pools differ: {tuple(k_pages.shape)} vs "
                          f"{tuple(v_pages.shape)}")
-    B, Hq, Dh = q.shape
+    mq = q.ndim == 4
+    B, Hq, Dh = q.shape[0], q.shape[-2], q.shape[-1]
+    T = q.shape[1] if mq else 1
     n_pages, ps, kvd = k_pages.shape
     Hkv = kvd // Dh
     if Hkv * Dh != kvd or Hq % Hkv:
         raise ValueError(f"page feature dim {kvd} incompatible with "
                          f"q heads {Hq} x head_dim {Dh}")
+    if mq:
+        # the reference kernel's default tile, the largest of 8, 4, 2, 1
+        # dividing T, kept within K7's block rows
+        t_block = next((tb for tb in (8, 4, 2) if T % tb == 0
+                        and tb * (Hq // Hkv) <= _K7_ROWS), 1) \
+            if t_block is None else int(t_block)
+        if t_block < 1 or T % t_block:
+            raise ValueError(f"t_block={t_block} must divide T={T}")
     if q.device.type == "cpu":
         return paged_attention_plain(q, k_pages, v_pages, block_tables,
                                      lengths, window, fmt_kv, softcap_val,
@@ -125,25 +164,29 @@ def paged_attention(q, k_pages, v_pages, block_tables, lengths, window,
             raise ValueError(f"paged_attention: {name} must be int32 "
                              f"{shape}, got {t.dtype} {tuple(t.shape)}")
     extra = [page_ok] if page_ok is not None else []
-    _build.require_cuda("paged_attention", q, k_pages, v_pages, block_tables,
-                        lengths, window, *extra)
-    out = torch.empty((B, Hq, Dh), dtype=torch.float32, device=q.device)
+    kernel = "paged_attention_mq" if mq else "paged_attention"
+    _build.require_cuda(kernel, q, k_pages, v_pages, block_tables, lengths,
+                        window, *extra)
+    out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     m = l = None
     if partials:
-        m = torch.empty((B, Hq), dtype=torch.float32, device=q.device)
-        l = torch.empty((B, Hq), dtype=torch.float32, device=q.device)
-    if B:
+        m = torch.empty(q.shape[:-1], dtype=torch.float32, device=q.device)
+        l = torch.empty(q.shape[:-1], dtype=torch.float32, device=q.device)
+    if B and T:
         lib = _build.library("paged_attention")
         ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-        _build.check(lib.paged_attention_launch(
-            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-            block_tables.data_ptr(), lengths.data_ptr(), window.data_ptr(),
-            ptr(page_ok), out.data_ptr(), ptr(m), ptr(l),
-            B, M, ps, Hq, Hkv, Dh, _KINDS[k_pages.dtype],
-            fmt_kv.n if fmt_kv else 0, fmt_kv.es if fmt_kv else 0,
-            1.0 / math.sqrt(Dh), float(softcap_val), _build.stream_of(q)),
-            "paged_attention")
-        LAUNCHES["paged_attention"] += 1
+        head = (q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                block_tables.data_ptr(), lengths.data_ptr(), window.data_ptr(),
+                ptr(page_ok), out.data_ptr(), ptr(m), ptr(l), B, M, ps)
+        tail = (Hq, Hkv, Dh, _KINDS[k_pages.dtype],
+                fmt_kv.n if fmt_kv else 0, fmt_kv.es if fmt_kv else 0,
+                1.0 / math.sqrt(Dh), float(softcap_val), _build.stream_of(q))
+        if mq:
+            err = lib.paged_attention_mq_launch(*head, T, t_block, *tail)
+        else:
+            err = lib.paged_attention_launch(*head, *tail)
+        _build.check(err, kernel)
+        LAUNCHES[kernel] += 1
     return (out, m, l) if partials else out
 
 

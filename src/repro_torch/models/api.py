@@ -5,9 +5,10 @@
     init(generator, cfg, device)                      -> params
     decode_step(params, tokens, cache, cfg)           -> (logits, cache')
     decode_and_sample(params, tokens, cache, cfg, ...) -> (tokens, cache')
+    decode_verify(params, tokens, cache, cfg, ...)    -> ([B, T] tokens, cache')
     prefill_chunk(_batched)(...)                      -> (logits, cache')
     cache_specs / init_cache                          -> paged KV cache
-    sample_noise(generator, batch, vocab, device)     -> gumbel [B, V]
+    sample_noise(generator, batch, vocab)             -> gumbel [B, V]
 
 Posit-packed parameters (`packing.pack_params`) are accepted everywhere:
 the GEMM dispatch layer detects integer code containers.
@@ -49,9 +50,12 @@ def decode_step(params, tokens, cache, cfg: ModelConfig):
 
 
 def sample_noise(generator: torch.Generator, batch: int, vocab_size: int,
-                 device="cpu"):
+                 device=None):
     """Standard-gumbel noise [batch, V] from a torch.Generator: the noise
-    `argmax(noise + logits / T)` samples with (categorical sampling)."""
+    `argmax(noise + logits / T)` samples with (categorical sampling).  It is
+    drawn on `device`, by default the generator's own."""
+    if device is None:
+        device = generator.device
     u = torch.rand((batch, vocab_size), generator=generator, device=device,
                    dtype=torch.float32)
     tiny = torch.finfo(torch.float32).tiny
@@ -66,6 +70,23 @@ def decode_and_sample(params, tokens, cache, cfg: ModelConfig, noise,
     spec = common.SampleSpec(noise=noise, temperature=temperature,
                              greedy=greedy, top_k=top_k)
     return _mod(cfg).decode_step(params, tokens, cache, cfg, sample=spec)
+
+
+def decode_verify(params, tokens, cache, cfg: ModelConfig, noise,
+                  temperature, *, greedy: bool, top_k: int):
+    """k-token speculative verify: tokens [B, T] (the committed next token
+    and T-1 draft proposals per slot) under the serve policy, with one
+    multi-query paged-attention launch per layer and one head + sampler
+    launch over the B*T rows.  Returns ([B, T] int32 target tokens, cache'
+    with length + T): row (b, j) is bitwise the token T sequential
+    `decode_and_sample` calls would emit at that position given the same
+    inputs.
+
+    noise: [B*T, V] f32 gumbel rows, b-major (row b * T + j is slot b's
+    draw j; None when greedy); temperature: python float."""
+    spec = common.SampleSpec(noise=noise, temperature=temperature,
+                             greedy=greedy, top_k=top_k)
+    return _mod(cfg).decode_verify(params, tokens, cache, cfg, sample=spec)
 
 
 def prefill_chunk(params, tokens, cache, slot: int, cfg: ModelConfig):

@@ -198,7 +198,7 @@ def sample_head(x, emb_or_head, cfg: ModelConfig, sample: SampleSpec,
         if not dispatch.is_packed(w):
             # float masters: fake-quantize on float (elementwise, commutes
             # with the transpose); the kernel sees plain float weights
-            w = policy.maybe_quant_weight(w.to(x.dtype))
+            w = dispatch.maybe_quant_weight(policy, w.to(x.dtype))
             fmt_w = None
     elif policy.execution == "fused":
         plan = "fused"

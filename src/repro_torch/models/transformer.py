@@ -4,12 +4,14 @@
 Parameters are a dict of tensors with layers stacked on a leading dim
 ([L, D, N]); the layer loop is a Python loop over that dim.  Serving runs
 over the paged KV cache: `decode_step` (one token per slot, the
-paged-attention kernel) and `prefill_chunk` / `prefill_chunk_batched`
-(one prefill chunk per slot: where `paged.fused_prefill_applies`, the
-fused prefill kernel does attention + KV encode + page insert in one
-launch; otherwise the decomposed path encodes and inserts the chunk's KV,
-then runs flash attention over decoded history plus the raw chunk).  Page
-pools are updated in place.
+paged-attention kernel), `decode_verify` (T tokens per slot, the
+speculative verify: one multi-query paged-attention launch per layer) and
+`prefill_chunk` / `prefill_chunk_batched` (one prefill chunk per slot:
+where `paged.fused_prefill_applies`, the fused prefill kernel does
+attention + KV encode + page insert in one launch; otherwise the
+decomposed path encodes and inserts the chunk's KV, then runs flash
+attention over decoded history plus the raw chunk).  Page pools are
+updated in place.
 """
 from __future__ import annotations
 
@@ -18,7 +20,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import ops
+from repro_torch.kernels import dispatch, ops
 from repro_torch.kernels.prefill_attention import decomposed_prefill
 from . import common, paged
 from .config import ModelConfig
@@ -136,6 +138,31 @@ def _paged_attn_token(p, x, cfg: ModelConfig, k_l, v_l, bt, length, is_global):
                        cfg.quant)
 
 
+def _paged_attn_tokens(p, xs, cfg: ModelConfig, k_l, v_l, bt, length,
+                       is_global):
+    """T-token attention sub-block over paged KV (the speculative verify).
+
+    xs: T tensors [B, 1, D], token t of every slot; length: [B]
+    pre-insert valid counts.  Each token's projections run at the decode
+    step's shapes; the T tokens' KV codes are written at positions
+    length + [0, T) (what T decode steps would write), then one
+    multi-query paged-attention launch attends all T rows, token t over
+    positions <= length + t.  Returns the post-wo outputs, T x [B, 1, D]."""
+    B = xs[0].shape[0]
+    T = len(xs)
+    Hq, Dh = cfg.n_heads, cfg.head_dim
+    qkv = [_qkv(p, x, cfg, (length + t)[:, None]) for t, x in enumerate(xs)]
+    for j, pool in ((1, k_l), (2, v_l)):
+        codes = [common.kv_encode(cfg, t[j].reshape(B, -1)) for t in qkv]
+        paged.insert_chunk_batched(pool, bt, length, torch.stack(codes, 1))
+    attn = ops.paged_attention(
+        torch.cat([q for q, _, _ in qkv], 1), k_l, v_l, bt, length + T,
+        _window_arr(cfg, is_global, xs[0].device), fmt_kv=cfg.quant.kv_cache,
+        softcap_val=cfg.logit_softcap)
+    return [common.qdot(attn[:, t].reshape(B, 1, Hq * Dh).to(x.dtype),
+                        p["wo"], cfg.quant) for t, x in enumerate(xs)]
+
+
 def _chunk_attn_batched(p, x, cfg: ModelConfig, k_l, v_l, starts, bt,
                         is_global: bool):
     """Cross-slot batched prefill-chunk attention: queries of slot b sit at
@@ -232,6 +259,53 @@ def decode_step(params, tokens, cache, cfg: ModelConfig, sample=None):
                                   transpose=cfg.tie_embeddings), new_cache
     logits = common.logits_head(x, head, cfg, transpose=cfg.tie_embeddings)
     return logits[:, 0].reshape(B, -1), new_cache
+
+
+def decode_verify(params, tokens, cache, cfg: ModelConfig, sample=None):
+    """k-token speculative verify over the paged cache. tokens: [B, T]
+    int32, per slot the committed next token and T-1 draft proposals.
+
+    Per layer the T tokens' KV codes are written at positions
+    length + [0, T) (in place) and one multi-query paged-attention launch
+    attends all T query rows, token t over positions <= length + t; each
+    row is bitwise the one-token kernel's at that length.  The dense work
+    (norms, projections, MLP) runs token by token at the decode step's
+    [B, 1, D] shapes: on the card a GEMM or a row reduction sums in an
+    order that depends on its number of rows, and bf16 activations turn
+    those last-bit differences into other tokens.  Each layer's weights
+    are decoded once (`dispatch.Prepared`) for the T tokens' GEMMs, so a
+    verify moves a decode step's weight traffic.  The result is T
+    sequential `decode_step` calls over the same tokens, bitwise.  Returns
+    ([B, T] int32 tokens from one fused head + sampler launch over the
+    B*T rows, b-major (its rows are independent), with `sample`; else
+    [B, T, V] f32 logits) and cache' with length + T.  Callers commit the
+    accepted prefix and roll `length` back on the host; positions past the
+    commit hold rejected codes at or after the new length, which no read
+    sees before the next write."""
+    if "block_table" not in cache:
+        raise ValueError("decode_verify requires a paged cache")
+    B, T = tokens.shape
+    xs = [common.embed_tokens(params["embed"], tokens[:, t:t + 1], cfg)
+          for t in range(T)]
+    length, bt = cache["length"], cache["block_table"]
+    for i, is_global in enumerate(layer_flags(cfg)):
+        p = {k: dispatch.Prepared(v) if v.ndim == 2 else v
+             for k, v in _layer(params, i).items()}
+        attn = _paged_attn_tokens(p, xs, cfg, cache["k"][i], cache["v"][i],
+                                  bt, length, is_global)
+        xs = [x + a for x, a in zip(xs, attn)]
+        xs = [x + _mlp_block(p, x, cfg) for x in xs]
+    xs = [common.rms_norm(x, params["final_norm"]) for x in xs]
+    new_cache = {"k": cache["k"], "v": cache["v"], "block_table": bt,
+                 "length": length + T}
+    head = _head(params, cfg)
+    if sample is not None:
+        toks = common.sample_head(torch.cat(xs, 1).reshape(B * T, -1), head,
+                                  cfg, sample, transpose=cfg.tie_embeddings)
+        return toks.reshape(B, T), new_cache
+    head = dispatch.Prepared(head.T if cfg.tie_embeddings else head)
+    logits = [common.logits_head(x, head, cfg, transpose=False) for x in xs]
+    return torch.cat(logits, 1), new_cache
 
 
 def prefill_chunk(params, tokens, cache, slot: int, cfg: ModelConfig):

@@ -38,9 +38,24 @@ independent of batch composition.  `noise_fn(seed, draw_index, vocab)`
 replaces the default torch.Generator stream (tests replay the reference's
 `jax.random` stream through it).
 
-Not ported yet (each raises NotImplementedError naming ROADMAP):
-speculative decoding, sharded pools (`mesh`), the dense cache
-(`paged=False`), preemption and cancellation.
+Speculative decoding (`speculate_k=k`): each round a draft policy
+(`QuantPolicy.with_draft()`: fake_quant over the same weights, or
+`draft_quant` / `draft_params`) proposes k-1 tokens per decoding slot with
+plain decode steps, and one batched verify under the serve policy
+(`api.decode_verify`: one multi-query paged-attention launch per layer,
+the fused head + sampler over the B*k rows) scores all k positions.  Draft
+and verify write the same posit-coded pages; the verify re-writes every
+position before it attends, each position samples with the noise of the
+draw plain decode would make there, and the longest prefix of drafts that
+match the verified tokens commits, so the streams are plain decode's.
+Rejected positions are rolled back by the host's slot lengths.
+
+`preempt(slot)` evicts a running request back to the head of the queue
+(its prompt pages become holds it maps again on re-admission; its tokens
+are replayed identically) and `cancel(rid)` drops a queued request.
+
+Not ported yet (each raises NotImplementedError naming ROADMAP): sharded
+pools (`mesh`) and the dense cache (`paged=False`).
 """
 from __future__ import annotations
 
@@ -160,6 +175,8 @@ class ServingEngine:
                  fused_prefill: Optional[bool] = None,
                  fused_decode: Optional[bool] = None,
                  speculate_k: int = 0,
+                 draft_quant=None,
+                 draft_params=None,
                  mesh=None,
                  noise_fn: Optional[Callable] = None,
                  device="cuda"):
@@ -179,6 +196,10 @@ class ServingEngine:
         noise_fn(seed, draw_index, vocab) -> [vocab] f32 gumbel row, for
         sampled decoding; the default draws from a torch.Generator seeded
         by (base_seed, seed, draw_index).
+        speculate_k >= 2 turns speculative decoding on (k tokens per
+        round); draft_quant (default cfg.quant.with_draft()) must keep the
+        serve policy's kv_cache and kv_page_size; draft_params defaults to
+        `params`.
 
         Constructing an engine turns TF32 off (`set_float32_parity`): the
         posit-decoded P(16,2) weights have 11 fraction bits, which TF32
@@ -189,12 +210,18 @@ class ServingEngine:
         if fused_decode is not None:
             q = dataclasses.replace(q, fused_decode=bool(fused_decode))
         cfg = dataclasses.replace(cfg, quant=q)
+        if speculate_k:
+            if speculate_k < 2:
+                raise ValueError("speculate_k must be >= 2 (k=1 is plain "
+                                 "decode); pass 0 to disable speculation")
+            if not paged:
+                raise ValueError("speculative decoding requires the paged "
+                                 "KV cache (draft and verify must address "
+                                 "the same posit-coded pages)")
         if not paged:
             raise _not_ported("the dense (paged=False) serving cache")
         if mesh is not None:
             raise _not_ported("kv_pages-sharded serving (mesh=...)")
-        if speculate_k:
-            raise _not_ported("speculative decoding (speculate_k)")
         if cfg.quant.execution == "bit_exact":
             raise _not_ported("the bit_exact execution plan")
         self.device = resolve_device(device)
@@ -255,7 +282,30 @@ class ServingEngine:
         self.stats = {"pages_shared": 0, "shared_admissions": 0,
                       "cow_forks": 0, "prefill_batch_sizes": {},
                       "prefill_chunks": 0, "prefill_device_programs": 0,
-                      "decode_steps": 0, "decode_device_programs": 0}
+                      "decode_steps": 0, "decode_device_programs": 0,
+                      "preemptions": 0, "spec_rounds": 0,
+                      "spec_draft_tokens": 0, "spec_accepted_tokens": 0,
+                      "spec_committed_tokens": 0}
+
+        # speculative decoding: the draft policy proposes, the serve policy
+        # verifies over the same pages
+        self.speculate_k = int(speculate_k)
+        self.draft_quant = None
+        if self.speculate_k:
+            dq = draft_quant if draft_quant is not None else \
+                cfg.quant.with_draft()
+            if (dq.kv_cache != cfg.quant.kv_cache
+                    or dq.kv_page_size != cfg.quant.kv_page_size):
+                raise ValueError(
+                    "draft policy must keep the serve policy's kv_cache "
+                    "format and kv_page_size — draft and target decode "
+                    "the same posit-coded pages, which is what makes "
+                    "speculative acceptance exact (QuantPolicy.with_draft "
+                    "preserves both)")
+            self.draft_quant = dq
+            self._draft_cfg = dataclasses.replace(cfg, quant=dq)
+            self.draft_params = params if draft_params is None else \
+                draft_params
 
     def _resolve_page_size(self, requested: Optional[int],
                            max_seq: int) -> int:
@@ -383,6 +433,16 @@ class ServingEngine:
             "decode_device_programs": self.stats["decode_device_programs"],
             "pages_shared_mapped": self.pages_shared_mapped,
             "cow_forks": self.stats["cow_forks"],
+            "preemptions": self.stats["preemptions"],
+            "speculative": bool(self.speculate_k),
+            "speculate_k": self.speculate_k or None,
+            "speculation_rounds": self.stats["spec_rounds"],
+            "speculation_committed_tokens":
+                self.stats["spec_committed_tokens"],
+            "speculation_accept_rate": (
+                self.stats["spec_accepted_tokens"]
+                / self.stats["spec_draft_tokens"]
+                if self.stats["spec_draft_tokens"] else None),
         }
 
     # ------------------------------------------------------------------
@@ -410,11 +470,36 @@ class ServingEngine:
         req.out_tokens = []
         self.queue.append(req)
 
-    def preempt(self, slot: int):
-        raise _not_ported("preemption")
+    def preempt(self, slot: int) -> Optional[Request]:
+        """Evict a mid-flight slot and requeue its request at the head of
+        the queue; returns the requeued request (None for a free slot).
 
-    def cancel(self, rid: int):
-        raise _not_ported("cancellation")
+        The request is requeued before the slot releases, so `_release`
+        sees its own registered prompt pages as wanted by the queue and
+        turns them into engine holds instead of recycling them: on
+        re-admission the prefix lookup maps those pages back and only the
+        unshared tail prefills again.  Emitted tokens are discarded and
+        replayed: the noise derives from (seed, draw index), so the rerun
+        emits the identical stream.  Front ends that streamed tokens out
+        already dedup by count."""
+        if self.slot_phase[slot] == _FREE:
+            return None
+        req = self.slot_req[slot]
+        req.out_tokens = []
+        self.queue.insert(0, req)
+        self._release(slot)
+        self.stats["preemptions"] += 1
+        return req
+
+    def cancel(self, rid: int) -> bool:
+        """Drop a queued (not yet admitted) request; holds only its prefix
+        kept alive are released at once."""
+        for i, req in enumerate(self.queue):
+            if req.rid == rid:
+                self.queue.pop(i)
+                self._prune_holds()
+                return True
+        return False
 
     def _pages_needed(self, req: Request) -> int:
         last_pos = len(req.prompt) + req.max_new_tokens - 2  # final write
@@ -439,11 +524,13 @@ class ServingEngine:
             - int(self.slot_cursor[slot])
         return self._chunk_sizes(remaining)[0]
 
-    def _meta(self, mask=None):
+    def _meta(self, mask=None, lengths=None):
         """The cache with host-owned lengths / block tables pushed to the
         device; `mask` zeroes rows of slots that must not touch real state
-        (free / mid-prefill slots in decode, non-group slots in prefill)."""
-        lengths = self.lengths.copy()
+        (free / mid-prefill slots in decode, non-group slots in prefill).
+        `lengths` overrides the host lengths (the speculative draft loop
+        advances a transient position without committing it)."""
+        lengths = (self.lengths if lengths is None else lengths).copy()
         bts = self.block_tables.copy()
         if mask is not None:
             lengths[~mask] = 0
@@ -462,26 +549,38 @@ class ServingEngine:
                        + draw) & 0x7FFF_FFFF_FFFF_FFFF)
         return api.sample_noise(g, 1, vocab, self.device)[0]
 
+    def _noise_rows(self, draws):
+        """[len(draws), V] gumbel rows for (slot, draw index) pairs, zeros
+        for None entries (discarded draws); None when greedy.  Advances no
+        counter."""
+        if self.greedy:
+            return None
+        V = self.cfg.vocab_size
+        rows = []
+        for d in draws:
+            if d is None:
+                rows.append(torch.zeros(V, dtype=torch.float32,
+                                        device=self.device))
+                continue
+            row = self.noise_fn(self._slot_seed[d[0]], int(d[1]), V)
+            if not isinstance(row, torch.Tensor):
+                row = torch.from_numpy(np.array(row, np.float32))
+            rows.append(row.to(self.device, torch.float32).reshape(V))
+        return torch.stack(rows)
+
     def _sample_noise(self, slots, live=None):
         """[len(slots), V] gumbel rows (None when greedy), advancing each
         live slot's draw counter; rows of non-live slots are zeros and
         their draws are discarded."""
         if self.greedy:
             return None
-        V = self.cfg.vocab_size
-        rows = []
-        for s in slots:
-            if live is None or live[s]:
-                row = self.noise_fn(self._slot_seed[s],
-                                    int(self._slot_sampled[s]), V)
-                if not isinstance(row, torch.Tensor):
-                    row = torch.from_numpy(np.array(row, np.float32))
-                rows.append(row.to(self.device, torch.float32).reshape(V))
-                self._slot_sampled[s] += 1
-            else:
-                rows.append(torch.zeros(V, dtype=torch.float32,
-                                        device=self.device))
-        return torch.stack(rows)
+        draws = [(s, self._slot_sampled[s]) if live is None or live[s]
+                 else None for s in slots]
+        noise = self._noise_rows(draws)
+        for d in draws:
+            if d is not None:
+                self._slot_sampled[d[0]] += 1
+        return noise
 
     def _sample(self, logits_rows, slots, live=None):
         """Sample one token per row of logits_rows [n, V] for `slots`."""
@@ -911,6 +1010,11 @@ class ServingEngine:
         decode_mask = self.slot_phase == _DECODE
         if not decode_mask.any():
             return bool((self.slot_phase == _PREFILL).any())
+        if self.speculate_k:
+            T = self._spec_span(decode_mask)
+            if T >= 2:
+                self._spec_round(decode_mask, T)
+                return True
         for s in np.nonzero(decode_mask)[0]:
             pos = int(self.lengths[s])
             self._ensure_writable(int(s), pos, pos + 1)
@@ -940,6 +1044,95 @@ class ServingEngine:
                     req.eos_id is not None and int(tok) == req.eos_id):
                 self._retire(slot)
         return True
+
+    # ------------------------------------------------------------------
+    # speculative decoding
+    # ------------------------------------------------------------------
+
+    def _spec_span(self, decode_mask) -> int:
+        """Tokens per speculative round this iteration: speculate_k, capped
+        by the addressable tail of every live slot (a write past the block-
+        table row would clamp onto the slot's last page) and by the longest
+        remaining budget.  A span < 2 falls back to plain decode."""
+        cap = self.max_pages_per_slot * self.layout.page_size
+        slots = np.nonzero(decode_mask)[0]
+        head = min(cap - int(self.lengths[s]) for s in slots)
+        rem = max(int(self.slot_remaining[s]) for s in slots)
+        return min(self.speculate_k, head, rem)
+
+    def _spec_round(self, decode_mask, T: int):
+        """One speculative round over every decoding slot: T-1 draft
+        proposals (plain decode steps under the draft policy) and ONE
+        batched verify under the serve policy.  The verify re-writes all T
+        positions with the serve policy's KV codes before attending, and
+        its row (s, j) samples with the noise of draw base + j, the draw
+        plain decode would make there; only committed draws advance the
+        slot's draw counter and lengths roll forward by the committed
+        count, so the committed stream is plain decode's."""
+        slots = [int(s) for s in np.nonzero(decode_mask)[0]]
+        base = {s: int(self._slot_sampled[s]) for s in slots}
+        for s in slots:
+            pos = int(self.lengths[s])
+            self._ensure_writable(s, pos, pos + T)
+        inputs = np.zeros((self.B, T), np.int32)
+        inputs[:, 0] = self.next_token
+        # draft: d_j guesses the target's j-th draw, so it samples with that
+        # draw's noise (base + j - 1); the draft's page writes are
+        # placeholders the verify overwrites
+        cur = torch.from_numpy(self.next_token.copy()).to(self.device)
+        cache = self._meta(decode_mask)
+        for j in range(1, T):
+            logits, _ = api.decode_step(self.draft_params, cur, cache,
+                                        self._draft_cfg)
+            noise = self._noise_rows([(s, base[s] + j - 1)
+                                      if decode_mask[s] else None
+                                      for s in range(self.B)])
+            cur = sample_logits(logits.to(torch.float32), noise,
+                                self.temperature, greedy=self.greedy,
+                                top_k=self.top_k)
+            inputs[:, j] = cur.cpu().numpy()
+            if j < T - 1:
+                drafted = self.lengths + np.where(
+                    decode_mask, j, 0).astype(np.int32)
+                cache = self._meta(decode_mask, lengths=drafted)
+        # verify: rows b-major, row (s, j) with draw base[s] + j
+        noise = self._noise_rows([(s, base[s] + j) if decode_mask[s] else None
+                                  for s in range(self.B) for j in range(T)])
+        toks_bt, _ = api.decode_verify(
+            self.params, torch.from_numpy(inputs).to(self.device),
+            self._meta(decode_mask), self.cfg, noise, self.temperature,
+            greedy=self.greedy, top_k=self.top_k)
+        toks = toks_bt.cpu().numpy().astype(np.int32)
+        self.stats["spec_rounds"] += 1
+        self.stats["decode_steps"] += 1
+        # per draft token: one draft decode + one sampler dispatch
+        self.stats["decode_device_programs"] += 2 * (T - 1) + 1
+        for s in slots:
+            req = self.slot_req[s]
+            # accept the longest prefix whose drafts matched the verified
+            # tokens: t_j is trustworthy iff inputs[1..j] == t[0..j-1]
+            n_acc = 1
+            while n_acc < T and inputs[s, n_acc] == toks[s, n_acc - 1]:
+                n_acc += 1
+            self.stats["spec_draft_tokens"] += T - 1
+            self.stats["spec_accepted_tokens"] += n_acc - 1
+            commit = []
+            for j in range(min(n_acc, int(self.slot_remaining[s]))):
+                t = int(toks[s, j])
+                commit.append(t)
+                if req.eos_id is not None and t == req.eos_id:
+                    break
+            c = len(commit)
+            req.out_tokens.extend(commit)
+            if not self.greedy:
+                self._slot_sampled[s] = base[s] + c
+            self.lengths[s] += c
+            self.next_token[s] = commit[-1]
+            self.slot_remaining[s] -= c
+            self.stats["spec_committed_tokens"] += c
+            if self.slot_remaining[s] <= 0 or (
+                    req.eos_id is not None and commit[-1] == req.eos_id):
+                self._retire(s)
 
     def run(self, max_iters: int = 10_000):
         it = 0

@@ -308,3 +308,227 @@ def test_posit_matmul_bound_rejects_planted_faults(cuda, K, N):
     for bad in (torch.matmul(A, B.to(torch.bfloat16).float()),
                 plain - torch.matmul(A[:, :32], B[:32])):
         assert bool(((bad - plain).abs() > bound).any())
+
+
+# ---------------------------------------------------------------------------
+# K7: multi-query paged attention (the speculative verify)
+# ---------------------------------------------------------------------------
+
+# (kv dtype, fmt, lengths counting the T new tokens, T, window, softcap,
+#  partials with page_ok)
+MQ = {
+    "p8_2": (torch.int8, formats.P8_2, [96, 17, 4, 50], 4, 1 << 30, 0.0,
+             False),
+    "p16_1_t3": (torch.int16, formats.P16_1, [80, 96, 33, 16], 3, 1 << 30,
+                 0.0, False),
+    "f32": (torch.float32, None, [40, 7, 96, 64], 4, 1 << 30, 0.0, False),
+    "bf16": (torch.bfloat16, None, [12, 96, 3, 45], 2, 1 << 30, 0.0, False),
+    "window_softcap": (torch.int8, formats.P8_2, [96, 70, 9, 33], 4, 20,
+                       30.0, False),
+    "page_ok_partials": (torch.int8, formats.P8_2, [96, 2, 50, 17], 4,
+                         1 << 30, 0.0, True),
+    "zero_length": (torch.int16, formats.P16_1, [0, 5, 0, 96], 4, 1 << 30,
+                    0.0, False),
+}
+
+
+def _mq_case(cuda, case):
+    kv_dtype, fmt, lengths, T, window, cap, partials = MQ[case]
+    seed = sorted(MQ).index(case)
+    q3, kp, vp, bt = _attn_inputs(cuda, kv_dtype, fmt, seed)
+    B, M = bt.shape
+    g = torch.Generator().manual_seed(100 + seed)
+    q = torch.randn(B, T, q3.shape[1], q3.shape[2], generator=g).to(cuda)
+    ln = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    win = torch.tensor([window], dtype=torch.int32, device=cuda)
+    ok = None
+    if partials:
+        ok = (torch.rand(B, M, generator=g) > 0.3).to(torch.int32).to(cuda)
+    kw = dict(fmt_kv=fmt, softcap_val=cap, page_ok=ok, partials=partials)
+    return q, kp, vp, bt, ln, win, kw
+
+
+@pytest.mark.parametrize("case", sorted(MQ))
+def test_paged_attention_mq_matches_plain(cuda, case):
+    q, kp, vp, bt, ln, win, kw = _mq_case(cuda, case)
+    ops.reset_launches()
+    got = pa.paged_attention(q, kp, vp, bt, ln, win, **kw)
+    assert ops.launch_counts()["paged_attention_mq"] == 1
+    assert ops.launch_counts()["paged_attention"] == 0
+    want = pa.paged_attention_plain(q, kp, vp, bt, ln, win, **kw)
+    if not kw["partials"]:
+        got, want = (got,), (want,)
+    for g_, w_ in zip(got, want):
+        assert torch.isfinite(g_).all()
+        torch.testing.assert_close(g_, w_, rtol=2e-5, atol=2e-5)
+    for b, n in enumerate(ln.tolist()):
+        if n == 0:
+            assert (got[0][b] == 0).all()
+
+
+@pytest.mark.parametrize("case", sorted(MQ))
+def test_paged_attention_mq_rows_bitwise_k3(cuda, case):
+    """Row i of K7 is bitwise K3 for one query at length L - T + i + 1 over
+    the same pages; T = 1 is K3 itself."""
+    q, kp, vp, bt, ln, win, kw = _mq_case(cuda, case)
+    T = q.shape[1]
+    got = pa.paged_attention(q, kp, vp, bt, ln, win, **kw)
+    one = pa.paged_attention(q[:, :1], kp, vp, bt, ln - T + 1, win, **kw)
+    if not kw["partials"]:
+        got, one = (got,), (one,)
+    for i in range(T):
+        k3 = pa.paged_attention(q[:, i].contiguous(), kp, vp, bt,
+                                ln - T + i + 1, win, **kw)
+        if not kw["partials"]:
+            k3 = (k3,)
+        for a, b in zip(got, k3):
+            assert _bits_equal(a[:, i], b), (case, i)
+        if i == 0:
+            for a, b in zip(one, k3):
+                assert _bits_equal(a[:, 0], b)
+
+
+@pytest.mark.parametrize("case", ["p8_2", "window_softcap",
+                                  "page_ok_partials"])
+def test_paged_attention_mq_t_block_neutral(cuda, case):
+    q, kp, vp, bt, ln, win, kw = _mq_case(cuda, case)
+    outs = [pa.paged_attention(q, kp, vp, bt, ln, win, t_block=tb, **kw)
+            for tb in (1, 2, 4)]
+    for o in outs[1:]:
+        if kw["partials"]:
+            assert all(_bits_equal(a, b) for a, b in zip(outs[0], o))
+        else:
+            assert _bits_equal(outs[0], o)
+
+
+def test_paged_attention_rows_past_block_threads(cuda):
+    """A block gives each query row one thread (K3: 128, K7: 256): more
+    rows per block raise rather than come back wrong, and K7's default
+    t_block keeps within the limit."""
+    q, kp, vp, bt = _attn_inputs(cuda, torch.int8, formats.P8_2, 7, Hq=160,
+                                 Hkv=1, Dh=16)
+    ln = torch.tensor([40, 17, 96, 1], dtype=torch.int32, device=cuda)
+    win = torch.tensor([1 << 30], dtype=torch.int32, device=cuda)
+    kw = dict(fmt_kv=formats.P8_2)
+    with pytest.raises(RuntimeError, match="paged_attention: CUDA error"):
+        pa.paged_attention(q, kp, vp, bt, ln, win, **kw)
+    q4 = torch.stack([q, q.flip(1)], 1)
+    with pytest.raises(RuntimeError, match="paged_attention_mq: CUDA error"):
+        pa.paged_attention(q4, kp, vp, bt, ln, win, t_block=2, **kw)
+    got = pa.paged_attention(q4, kp, vp, bt, ln, win, **kw)
+    want = pa.paged_attention_plain(q4, kp, vp, bt, ln, win, **kw)
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("greedy", [True, False])
+def test_decode_sample_rows_invariant_in_batch(cuda, greedy):
+    """The verify runs K4 over B*T rows where plain decode runs B: each
+    row's token must not depend on the other rows."""
+    g = torch.Generator().manual_seed(9)
+    D, V = 1024, 20001
+    x = torch.randn(16, D, generator=g).to(cuda)
+    w = posit.pack(torch.randn(V, D, generator=g) * 0.05,
+                   formats.P16_2).to(cuda)
+    noise = -torch.log(-torch.log(torch.rand(16, V, generator=g)
+                                  .clamp(1e-9, 1 - 1e-7))).to(cuda)
+    kw = dict(plan="fused", fmt_w=formats.P16_2, transpose=True,
+              greedy=greedy, top_k=0 if greedy else 40)
+    all16 = pa.decode_sample(x, w, noise, 0.8, **kw)
+    first4 = pa.decode_sample(x[:4].contiguous(), w, noise[:4].contiguous(),
+                              0.8, **kw)
+    assert torch.equal(all16[:4], first4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fake_quantize_kernels_equal_plain_codec(cuda, dtype):
+    """The draft's fake-quant on the card: K2 encode then K1 decode, the
+    same values as the plain codec, bitwise."""
+    from repro_torch.kernels import dispatch
+    g = torch.Generator().manual_seed(10)
+    x = (torch.randn(300, 257, generator=g) * 3).to(dtype).to(cuda)
+    for fmt in (formats.P16_2, formats.P8_2):
+        ops.reset_launches()
+        got = dispatch.fake_quantize(x, fmt)
+        counts = ops.launch_counts()
+        assert counts["posit_encode"] == 1 and counts["posit_decode"] == 1
+        assert got.dtype == dtype
+        assert _bits_equal(got.float(), posit.quantize(x, fmt).float())
+        # a transposed view (the tied head's layout) too
+        assert _bits_equal(dispatch.fake_quantize(x.T, fmt).float(),
+                           posit.quantize(x.T.contiguous(), fmt).float())
+
+
+def test_speculative_engine_greedy_streams_equal_plain(cuda):
+    """A tiny speculative engine on the card (K3 in the draft, K7 and K4
+    in the verify) gives the plain engine's greedy streams."""
+    import numpy as np
+    from repro_torch import configs
+    from repro_torch.core.quant import policy_by_name
+    from repro_torch.models import api, packing
+    from repro_torch.serve import Request, ServingEngine
+    cfg = configs.get_smoke("command_r_35b").replace(
+        quant=policy_by_name("serve_fused_p16"))
+    params = packing.pack_params(
+        api.init(torch.Generator(device=cuda).manual_seed(0), cfg), cfg)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (5, 19, 33, 12, 8)]
+
+    def serve(**kw):
+        eng = ServingEngine(cfg, params, batch_slots=3, max_seq=64,
+                            page_size=16, **kw)
+        for rid, p in enumerate(prompts):
+            eng.submit(Request(rid=rid, prompt=p, max_new_tokens=9))
+        return {r.rid: r.out_tokens for r in eng.run()}, eng
+
+    want, _ = serve()
+    ops.reset_launches()
+    got, eng = serve(speculate_k=4)
+    counts = ops.launch_counts()
+    assert got == want
+    assert eng.execution_summary()["speculation_rounds"] > 0
+    for name in ("paged_attention", "paged_attention_mq", "decode_sample"):
+        assert counts[name] > 0, name
+    assert eng.pages_in_use == 0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_verify_bitwise_sequential_decode_steps(cuda, dtype):
+    """On the card the verify's logits are bitwise T sequential decode
+    steps' over the same tokens and pages (bf16 activations too, where a
+    GEMM or row reduction over another number of rows would move them)."""
+    from repro_torch import configs
+    from repro_torch.core.quant import policy_by_name
+    from repro_torch.models import api, packing, transformer
+    from repro_torch.models.paged import PagedLayout
+    cfg = configs.get_smoke("command_r_35b").replace(
+        quant=policy_by_name("serve_fused_p16"), dtype=dtype)
+    params = packing.pack_params(
+        api.init(torch.Generator(device=cuda).manual_seed(1), cfg), cfg)
+    B, T, S = 4, 4, 64
+    g = torch.Generator().manual_seed(2)
+    cache = api.init_cache(cfg, B, S, PagedLayout.for_slots(B, S, 16))
+    cache["block_table"] = torch.arange(1, 1 + B * 4, dtype=torch.int32,
+                                        device=cuda).reshape(B, 4)
+    prompt = torch.randint(0, cfg.vocab_size, (B, 21), generator=g,
+                           dtype=torch.int32).to(cuda)
+    _, cache = api.prefill_chunk_batched(
+        params, prompt, cache, torch.ones(B, dtype=torch.bool, device=cuda),
+        cfg)
+    window = torch.randint(0, cfg.vocab_size, (B, T), generator=g,
+                           dtype=torch.int32).to(cuda)
+    seq = dict(cache, k=cache["k"].clone(), v=cache["v"].clone())
+    ops.reset_launches()
+    verify, _ = transformer.decode_verify(params, window, cache, cfg)
+    counts = ops.launch_counts()
+    assert counts["paged_attention_mq"] == cfg.n_layers
+    for t in range(T):
+        ops.reset_launches()
+        logits, seq = api.decode_step(params, window[:, t].contiguous(), seq,
+                                      cfg)
+        # the verify decodes each weight once, as one decode step does
+        if t == 0:
+            assert counts["posit_decode"] == \
+                ops.launch_counts()["posit_decode"]
+        assert _bits_equal(verify[:, t], logits), t
+    assert _bits_equal(cache["k"], seq["k"])

@@ -22,6 +22,7 @@ from repro.kernels import dispatch as jdispatch
 from repro.kernels import ops as jops
 
 from repro_torch.core import formats as tformats
+from repro_torch.core import posit as tposit
 from repro_torch.core.quant import QuantPolicy as TPolicy
 from repro_torch.kernels import dispatch as tdispatch
 from repro_torch.kernels import ops as tops
@@ -89,12 +90,19 @@ def test_paged_attention_matches_reference(case):
 
 
 def test_paged_attention_4d_query_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tops.paged_attention(torch.zeros(1, 2, 2, 8), torch.zeros(3, 4, 8),
-                             torch.zeros(3, 4, 8),
-                             torch.ones(1, 1, dtype=torch.int32),
-                             torch.ones(1, dtype=torch.int32),
-                             torch.ones(1, dtype=torch.int32))
+    # The 4-D (multi-query) form is ported now (tests/test_torch_paged_mq.py
+    # holds it against the reference); what stays unsupported raises: a
+    # t_block that does not divide T, and a q of another rank.
+    args = (torch.zeros(3, 4, 8), torch.zeros(3, 4, 8),
+            torch.ones(1, 1, dtype=torch.int32),
+            torch.full((1,), 2, dtype=torch.int32),
+            torch.ones(1, dtype=torch.int32))
+    out = tops.paged_attention(torch.zeros(1, 2, 2, 8), *args)
+    assert out.shape == (1, 2, 2, 8) and bool((out == 0).all())
+    with pytest.raises(ValueError, match="must divide T"):
+        tops.paged_attention(torch.zeros(1, 3, 2, 8), *args, t_block=2)
+    with pytest.raises(ValueError, match="q must be"):
+        tops.paged_attention(torch.zeros(2, 8), *args)
 
 
 @pytest.mark.parametrize("fmt", ["P16_2", "P8_2"])
@@ -204,3 +212,70 @@ def test_degrade_tile_matches_reference():
             if cap is not None:
                 assert tops._largest_divisor(n, cap) == \
                     jops._largest_divisor(n, cap)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("fmt", ["P16_2", "P8_2", "P13_2"])
+def test_draft_fake_quant_equals_reference_quantize(fmt, dtype):
+    """The fake_quant plan's weight/activation rounding: on the CPU the
+    plain codec (no kernel launch), bitwise the reference's
+    posit.quantize, with an identity straight-through gradient."""
+    rng = np.random.default_rng(3)
+    x = rng.normal(0, 2, (64, 48)).astype(np.float32)
+    x[0, :4] = [0.0, 1e-30, 3e30, -7.5]
+    jf = getattr(jformats, fmt)
+    tf = getattr(tformats, fmt)
+    jd, td = getattr(jnp, dtype), getattr(torch, dtype)
+    want = np.asarray(jposit.quantize(jnp.asarray(x).astype(jd), jf)
+                      .astype(jnp.float32))
+    tops.reset_launches()
+    xt = torch.from_numpy(x).to(td).requires_grad_(True)
+    got = tdispatch.maybe_quant_weight(TPolicy(weights=tf), xt)
+    assert got.dtype == td
+    np.testing.assert_array_equal(got.detach().float().numpy(), want)
+    assert torch.equal(got.detach(), tposit.quantize(xt.detach(), tf))
+    assert torch.equal(tdispatch.fake_quantize(xt.detach(), tf),
+                       got.detach())
+    assert not any(tops.launch_counts().values())
+    got.float().sum().backward()
+    assert torch.equal(xt.grad, torch.ones_like(xt))
+
+
+@pytest.mark.parametrize("policy", [
+    dict(execution="fake_quant", packed=False),
+    dict(execution="fake_quant", packed=True),
+    dict(execution="fused", packed=False),
+    dict(execution="fused", packed=True),
+    dict(execution="fused", packed=True, activations=tformats.P13_2)])
+def test_prepared_weight_qdot_bitwise_and_decoded_once(policy, monkeypatch):
+    """A `Prepared` weight read by several qdot calls (the speculative
+    verify's tokens) gives each call's raw result bitwise, and its plan
+    operand is made once."""
+    policy = dict(policy)
+    packed = policy.pop("packed")
+    tp = TPolicy(weights=tformats.P16_2, **policy)
+    rng = np.random.default_rng(5)
+    w = _t(rng.normal(0, 0.2, (40, 24)).astype(np.float32))
+    if packed:
+        w = tops.encode(w, tformats.P16_2)
+    xs = [_t(rng.normal(0, 1, (3, 1, 40)).astype(np.float32))
+          .to(torch.bfloat16) for _ in range(4)]
+    want = [tdispatch.qdot(x, w, tp) for x in xs]
+    calls = {"encode": 0, "decode": 0}
+    for name in calls:
+        def counted(*a, _f=getattr(tops, name), _n=name, **kw):
+            calls[_n] += 1
+            return _f(*a, **kw)
+        monkeypatch.setattr(tops, name, counted)
+    prep = tdispatch.Prepared(w)
+    got = [tdispatch.qdot(x, prep, tp) for x in xs]
+    for g, h in zip(got, want):
+        assert torch.equal(g, h)
+    # the weight operand's codec calls happen once (the a13 plan also
+    # encodes each call's activations)
+    per_call = 1 if tp.activations is not None else 0
+    once = {"fake_quant": (1 - packed, 1), "fused": (1 - packed, 0)}
+    enc, dec = once[tp.execution]
+    if tp.execution == "fused" and tp.activations is None:
+        dec = 1
+    assert calls == {"encode": enc + per_call * len(xs), "decode": dec}

@@ -1,5 +1,6 @@
 """PyTorch port vs the JAX reference: the dense model's serving entry points
-(batched chunk prefill, paged decode, fused decode-and-sample), packing,
+(batched chunk prefill, paged decode, fused decode-and-sample, the
+speculative verify), packing,
 the checkpoint reader, and the port's import and device rules.
 
 Both packages get the same numpy inputs and the reference's own parameters
@@ -317,10 +318,66 @@ def test_unported_engine_options_raise():
     _, tcfg = _cfgs("tiny")
     params = tapi.init(torch.Generator().manual_seed(0), tcfg, device="cpu")
     base = dict(batch_slots=2, max_seq=32, device="cpu")
-    for kw in (dict(speculate_k=2), dict(paged=False), dict(mesh=object())):
+    # speculate_k, preempt and cancel are ported (test_torch_speculative.py,
+    # test_torch_frontend.py); the dense cache and sharded pools are not
+    for kw in (dict(paged=False), dict(mesh=object())):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             TEngine(tcfg, params, **base, **kw)
-    eng = TEngine(tcfg, params, **base)
-    for call in (lambda: eng.preempt(0), lambda: eng.cancel(0)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_verify_equals_sequential_decode_steps(dtype):
+    """`decode_verify` (sample=None) is T sequential `decode_step` calls
+    over the same tokens and pages, bitwise, in f32 and in bf16 compute.
+    Against the reference's decode_verify (f32 only: the two frameworks
+    round bf16 activations at other places): logits within rtol = atol =
+    2e-5 (the other summation order of `tests/test_torch_model.py`), the
+    pages after the verify bitwise, greedy tokens equal."""
+    from repro.models import transformer as jtransformer
+    from repro_torch.models import transformer as ttransformer
+    jcfg = jconfigs.get_smoke("command_r_35b").replace(
+        quant=jpolicy("serve_fused_p16"), dtype=dtype)
+    tcfg = tconfigs.get_smoke("command_r_35b").replace(
+        quant=tpolicy("serve_fused_p16"), dtype=dtype)
+    jparams = japi.pack_params(japi.init(jax.random.key(4), jcfg), jcfg)
+    tparams = tpacking.params_from_numpy(jax.tree.map(np.asarray, jparams),
+                                         tcfg, "cpu")
+    B, C, T, S = 2, 20, 4, 48
+    rng = np.random.default_rng(12)
+    bt = np.zeros((B, 3), np.int32)
+    bt[0], bt[1] = [2, 5, 1], [3, 4, 6]
+    prompt = rng.integers(0, jcfg.vocab_size, (B, C)).astype(np.int32)
+    window = rng.integers(0, jcfg.vocab_size, (B, T)).astype(np.int32)
+
+    tc = tapi.init_cache(tcfg, B, S, TLayout.for_slots(B, S, 16), device="cpu")
+    tc["block_table"] = torch.from_numpy(bt)
+    _, tc = tapi.prefill_chunk_batched(tparams, torch.from_numpy(prompt), tc,
+                                       torch.ones(B, dtype=torch.bool), tcfg)
+    seq_cache = dict(tc, k=tc["k"].clone(), v=tc["v"].clone())
+    verify, _ = ttransformer.decode_verify(tparams, torch.from_numpy(window),
+                                           tc, tcfg)
+    for t in range(T):
+        logits, seq_cache = tapi.decode_step(
+            tparams, torch.from_numpy(window[:, t].copy()), seq_cache, tcfg)
+        assert torch.equal(verify[:, t], logits), t
+    assert torch.equal(tc["k"], seq_cache["k"])
+    assert torch.equal(tc["v"], seq_cache["v"])
+    if dtype != "float32":
+        return
+
+    jc = japi.init_cache(jcfg, B, S, JLayout.for_slots(B, S, 16))
+    jc = dict(jc, block_table=jnp.asarray(bt))
+    _, jc = japi.prefill_chunk_batched(jparams, jnp.asarray(prompt), jc,
+                                       jnp.ones((B,), bool), jcfg)
+    jlogits, jc2 = jtransformer.decode_verify(jparams, jnp.asarray(window),
+                                              jc, jcfg)
+    np.testing.assert_array_equal(np.asarray(jc2["k"])[1:],
+                                  tc["k"].numpy()[1:])
+    np.testing.assert_allclose(verify.numpy(), np.asarray(jlogits),
+                               rtol=2e-5, atol=2e-5)
+    jtok, _ = japi.decode_verify(jparams, jnp.asarray(window), jc, jcfg, None,
+                                 jnp.float32(1.0), greedy=True, top_k=0)
+    tc2 = dict(seq_cache, length=seq_cache["length"] - T)
+    ttok, _ = tapi.decode_verify(tparams, torch.from_numpy(window), tc2,
+                                 tcfg, None, 1.0, greedy=True, top_k=0)
+    np.testing.assert_array_equal(ttok.numpy(), np.asarray(jtok))

@@ -1,0 +1,162 @@
+"""PyTorch port vs the JAX reference: multi-query paged attention, the
+4-D q [B, T, Hq, Dh] form of `ops.paged_attention` (the speculative
+verify's attention; K7 on the card).
+
+The port runs its plain version (CPU tensors); the reference runs its
+Pallas multi-query kernel in interpret mode.  Same numpy inputs, seeded,
+built as `tests/test_kernels.py` builds them (valid random codes of every
+page, a distinct page run per slot, lengths counting the T new tokens).
+
+Tolerances: outputs are f32 sums in another order (XLA einsum in the
+streaming kernel vs a dense PyTorch softmax), held to rtol = atol = 1e-5
+as in `tests/test_torch_kernels.py`; the partials' running max is held to
+the same tolerance.  Within the port, the t_block tilings and the T = 1
+form against the 3-D path are bitwise.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import formats as jformats
+from repro.kernels import ops as jops
+
+from repro_torch.core import formats as tformats
+from repro_torch.kernels import ops as tops
+
+RTOL = ATOL = 1e-5
+_FMT = {"P16_1": (jformats.P16_1, tformats.P16_1),
+        "P8_2": (jformats.P8_2, tformats.P8_2), None: (None, None)}
+
+
+def _setup(seed=1, fmt="P16_1", B=3, T=4, Hq=4, Hkv=2, Dh=8, ps=4, M=5,
+           lengths=(7, 15, 12)):
+    rng = np.random.default_rng(seed)
+    n_pages = 1 + B * M
+    F = Hkv * Dh
+    jf, _ = _FMT[fmt]
+    if jf is None:
+        kp = rng.normal(0, 1, (n_pages, ps, F)).astype(np.float32)
+        vp = rng.normal(0, 1, (n_pages, ps, F)).astype(np.float32)
+    else:
+        dt = {8: np.int8, 16: np.int16}[jf.storage_bits]
+
+        def codes():
+            c = rng.integers(0, 1 << jf.n, (n_pages, ps, F))
+            c = np.where(c == jf.nar_code, 0, c)
+            return (((c + (1 << (jf.storage_bits - 1)))
+                     % (1 << jf.storage_bits))
+                    - (1 << (jf.storage_bits - 1))).astype(dt)
+
+        kp, vp = codes(), codes()
+    bt = (1 + np.arange(B * M).reshape(B, M)).astype(np.int32)
+    q = rng.normal(0, 1, (B, T, Hq, Dh)).astype(np.float32)
+    return q, kp, vp, bt, np.asarray(lengths, np.int32)
+
+
+def _both(inputs, fmt, window, cap=0.0, page_ok=None, partials=False,
+          t_block=None):
+    q, kp, vp, bt, ln = inputs
+    jf, tf = _FMT[fmt]
+    win = np.array([window], np.int32)
+    want = jops.paged_attention(
+        jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp), jnp.asarray(bt),
+        jnp.asarray(ln), jnp.asarray(win), fmt_kv=jf, softcap_val=cap,
+        page_ok=None if page_ok is None else jnp.asarray(page_ok),
+        partials=partials, t_block=t_block)
+    t = lambda a: torch.from_numpy(np.array(a))  # noqa: E731
+    got = tops.paged_attention(
+        t(q), t(kp), t(vp), t(bt), t(ln), t(win), fmt_kv=tf,
+        softcap_val=cap, page_ok=None if page_ok is None else t(page_ok),
+        partials=partials, t_block=t_block)
+    if not partials:
+        want, got = (want,), (got,)
+    return [np.asarray(w) for w in want], [g.numpy() for g in got]
+
+
+def _close(want, got):
+    for w, g in zip(want, got):
+        assert g.shape == w.shape
+        assert np.isfinite(g).all()
+        np.testing.assert_allclose(g, w, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("t_block", [1, 2, 4, None])
+def test_mq_matches_reference(t_block):
+    want, got = _both(_setup(), "P16_1", 1 << 30, cap=20.0, t_block=t_block)
+    _close(want, got)
+
+
+CASES = {
+    # name: (fmt, lengths, window, softcap, page_ok, partials)
+    "window_softcap": ("P16_1", (7, 15, 12), 5, 12.0, False, False),
+    "p8_2_pages": ("P8_2", (9, 20, 4), 1 << 30, 0.0, False, False),
+    "float_pages": (None, (5, 17, 8), 1 << 30, 0.0, False, False),
+    "partials": ("P16_1", (7, 15, 12), 1 << 30, 0.0, False, True),
+    "page_ok_partials": ("P8_2", (11, 19, 14), 6, 3.0, True, True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_mq_cases_match_reference(case):
+    fmt, lengths, window, cap, use_ok, partials = CASES[case]
+    seed = 10 + sorted(CASES).index(case)
+    inputs = _setup(seed=seed, fmt=fmt, lengths=lengths)
+    ok = None
+    if use_ok:
+        ok = (np.random.default_rng(seed).random((3, 5)) > 0.3) \
+            .astype(np.int32)
+    want, got = _both(inputs, fmt, window, cap, page_ok=ok, partials=partials)
+    _close(want, got)
+
+
+def test_mq_zero_length_slot_gives_zeros():
+    inputs = _setup(lengths=(7, 15, 0))
+    (want,), (got,) = _both(inputs, "P16_1", 1 << 30, cap=20.0)
+    np.testing.assert_array_equal(got[2], 0.0)
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+    (_, m, l) = _both(inputs, "P16_1", 1 << 30, partials=True)[1]
+    assert (m[2] == np.float32(-2e38)).all() and (l[2] == 0).all()
+
+
+def _port(inputs, window=1 << 30, **kw):
+    q, kp, vp, bt, ln = (torch.from_numpy(np.array(a)) for a in inputs)
+    win = torch.tensor([window], dtype=torch.int32)
+    return q, kp, vp, bt, ln, win
+
+
+def test_mq_t_block_bitwise_neutral():
+    q, kp, vp, bt, ln, win = _port(_setup())
+    outs = [tops.paged_attention(q, kp, vp, bt, ln, win, fmt_kv=tformats.P16_1,
+                                 softcap_val=20.0, t_block=tb)
+            for tb in (1, 2, 4, None)]
+    for o in outs[1:]:
+        assert torch.equal(outs[0], o)
+    with pytest.raises(ValueError, match="t_block=3 must divide T=4"):
+        tops.paged_attention(q, kp, vp, bt, ln, win, fmt_kv=tformats.P16_1,
+                             t_block=3)
+
+
+@pytest.mark.parametrize("partials", [False, True])
+def test_mq_t1_equals_3d_path_bitwise(partials):
+    q, kp, vp, bt, ln, win = _port(_setup())
+    kw = dict(fmt_kv=tformats.P16_1, softcap_val=7.0, partials=partials)
+    o3 = tops.paged_attention(q[:, 0], kp, vp, bt, ln - 3, win, **kw)
+    o4 = tops.paged_attention(q[:, :1], kp, vp, bt, ln - 3, win, **kw)
+    if not partials:
+        o3, o4 = (o3,), (o4,)
+    for a, b in zip(o3, o4):
+        assert torch.equal(a, b[:, 0])
+
+
+def test_mq_rows_equal_3d_path_at_their_lengths():
+    """Row i of a T-token call is the 3-D call at length lengths - T + i + 1
+    (the plain version states both densely; on the card K7 against K3 is
+    held bitwise by the gpu tests)."""
+    q, kp, vp, bt, ln, win = _port(_setup())
+    T = q.shape[1]
+    o4 = tops.paged_attention(q, kp, vp, bt, ln, win, fmt_kv=tformats.P16_1)
+    for i in range(T):
+        o3 = tops.paged_attention(q[:, i].contiguous(), kp, vp, bt,
+                                  ln - T + i + 1, win, fmt_kv=tformats.P16_1)
+        torch.testing.assert_close(o4[:, i], o3, rtol=RTOL, atol=ATOL)
