@@ -2,7 +2,9 @@
 """Drive the PyTorch port on one CUDA card: build the kernels, hold each
 against its plain version at the serving shapes, then serve command-r-35b
 at full width (depth cut to 4 layers) through the engine, at the policy's
-defaults, activation-coded, speculatively and behind the async front end.
+defaults, activation-coded, speculatively and behind the async front end;
+command-r-35b (2 layers) under the bit-exact PDPU plan; and
+qwen3-moe-235b at full width (4 of 94 layers) at the defaults.
 
     python3 chip_smoke.py
 
@@ -18,15 +20,20 @@ Phases (any failure exits non-zero; no phase is caught):
      both span branches; K6 within 16 u sqrt(K) ||a_i . b_j||_2, a limit
      two planted faults must fail; K7 within 2e-5, each of its rows
      bitwise K3 at the row's own length, T = 1 bitwise K3, t_block 1/2/4
-     bitwise equal),
+     bitwise equal; K8 bitwise at M 4, K 8192, N 1024, B also transposed,
+     ragged with special codes; K9 within the sum bound at qwen3's expert
+     shapes with float and coded activations and a fmt_out encode, a limit
+     the two planted faults must fail; K3, K7 and K5 at 64 / 4 heads (G =
+     16) over P(8,2) and bf16 float pages),
      with the device time per launch (CUDA-graph replay timed by CUDA
      events; the per-call time with host overhead is printed beside it),
      the plain version's time, the bound from bytes and FLOPs at the H100
      SXM data-sheet rates, and one PyTorch call as a yardstick where one
      exists;
-  4. correctness on a small input: the smoke config's logits on the card
-     against the port's plain CPU path, under serve_fused_p16 (fused
-     prefill) and serve_fused_p16_a13;
+  4. correctness on a small input: the smoke configs' logits on the card
+     against the port's plain CPU path: command-r under serve_fused_p16
+     (fused prefill), serve_fused_p16_a13 and validate_bit_exact, qwen3-moe
+     under serve_fused_p16 and validate_bit_exact;
   5. serving at the policy's defaults (prefix sharing, fused prefill): 8
      requests sharing a 64-token system prompt, greedy and sampled (T 0.8,
      top-k 40), greedy again with sharing off (streams must be equal) and
@@ -45,7 +52,16 @@ Phases (any failure exits non-zero; no phase is caught):
      0, and its kernels must launch in it; every page must come back;
   6. profile: torch.profiler over a few decode steps with four slots busy,
      at the defaults and under a13, and over one speculative round, device
-     time per step by kernel and the device's busy share.
+     time per step by kernel and the device's busy share;
+  7. bit_exact: command-r-35b at full width, 2 layers, validate_bit_exact
+     (every projection and the tied head through K8, bf16 float pages, no
+     fused head): 4 requests of 16-32 tokens, 8 new tokens each, greedy;
+  8. MoE: qwen3-moe-235b at full width (4 of 94 layers; weights drawn and
+     packed layer by layer), serve_fused_p16 defaults: 8 requests sharing a
+     64-token system prompt, 16 new tokens each, greedy, every expert GEMM
+     through K9; then two of its decode steps profiled.
+     Phases 7 and 8 count their own launches from 0 and need K8 (K9)
+     launched 7 L + 1 (3 L) times per decode step.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -127,6 +143,15 @@ def _bits_equal(a, b) -> bool:
     if a.dtype == torch.float32:
         a, b = a.view(torch.int32), b.view(torch.int32)
     return bool(torch.equal(a, b))
+
+
+def _release():
+    """Free what dropped objects held on the card (engines keep reference
+    cycles, so collect them first)."""
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def _check(cond: bool, what: str):
@@ -629,16 +654,249 @@ def _k6_matmul(dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 3, slice 4: the chunked-PDPU GEMM (K8), the grouped posit GEMM (K9),
+# and attention at 16 query heads per KV head and over float pages
+# ---------------------------------------------------------------------------
+
+INT32_OP_PER_S = 16.7e12   # H100 SXM: 64 INT32 lanes x 132 SMs x 1.98 GHz
+
+
+def pdpu_step_ops(N: int) -> int:
+    """Integer operations of one chunk step of one output, counted from
+    core/pdpu.py's datapath: S1 the accumulator's decode (45), S2 per
+    product a multiply, a sign xor, a zero test, an exponent add and a
+    select (5 N), the comparator tree (N + 1), S3 per aligned term a shift
+    amount, a clamp, a shift, the sticky mask and OR, a negation (12 per
+    term, N + 1 terms), S4-S5 the sum, abs and leading-one count (25), S6
+    the rounding (45)."""
+    return 45 + 5 * N + (N + 1) + 12 * (N + 1) + 25 + 45
+
+
+DECODE_OPS = 45   # integer operations of one posit decode (S1, per code)
+
+
+def _k8_pdpu(dev):
+    """K8 at a full-width projection slice of command-r under bit_exact:
+    M 4 (decode slots), K 8192, N 1024, P(13,2) codes in, P(16,2) out,
+    bitwise against its plain version."""
+    import torch
+    from repro_torch.core import formats, posit
+    from repro_torch.core.quant import policy_by_name
+    from repro_torch.kernels import pdpu_dot
+    cfg = policy_by_name("validate_bit_exact").pdpu_config()
+    M, K, N = 4, 8192, 1024
+    g = torch.Generator(device=dev).manual_seed(8)
+    a = posit.pack(torch.randn(M, K, generator=g, device=dev), cfg.fmt_in)
+    b = posit.pack(torch.randn(K, N, generator=g, device=dev) / math.sqrt(K),
+                   cfg.fmt_in)
+    got = pdpu_dot.pdpu_matmul(a, b, cfg)
+    t0 = time.perf_counter()
+    want = pdpu_dot.pdpu_matmul_plain(a, b, cfg)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    _check(_bits_equal(got, want), "K8 pdpu_matmul bitwise its plain version "
+                                   f"at M={M} K={K} N={N}")
+    # the tied head's layout: B given transposed
+    _check(_bits_equal(pdpu_dot.pdpu_matmul(a, b.T.contiguous().T, cfg), want),
+           "K8 with B transposed bitwise")
+    # ragged M and N, and special codes (zero, NaR, maxpos, minpos)
+    a2, b2 = a[:3, :64].clone(), b[:64, :45].clone()
+    a2[0, :4] = torch.tensor([0, cfg.fmt_in.nar_code, cfg.fmt_in.maxpos_code,
+                              cfg.fmt_in.minpos_code], device=dev)
+    _check(_bits_equal(pdpu_dot.pdpu_matmul(a2, b2, cfg),
+                       pdpu_dot.pdpu_matmul_plain(a2, b2, cfg)),
+           "K8 ragged and special codes bitwise")
+    out = posit.decode(got.to(torch.int16), cfg.fmt_out)
+    ref = torch.matmul(posit.decode(a, cfg.fmt_in), posit.decode(b, cfg.fmt_in))
+    print(f"K8: fmt_out values vs the f32 matmul of the same codes: max |diff| "
+          f"{float((out - ref).abs().max()):.4g} (max |value| "
+          f"{float(ref.abs().max()):.4g}; the W_m = {cfg.w_m} datapath and "
+          f"the P(16,2) accumulator round, by design)")
+    call_ms = _time_ms(lambda: pdpu_dot.pdpu_matmul(a, b, cfg), reps=10)
+    ms = _device_ms(lambda: pdpu_dot.pdpu_matmul(a, b, cfg), launches=5)
+    steps = M * N * (K // cfg.N)
+    ops = steps * pdpu_step_ops(cfg.N) + DECODE_OPS * (M * K + K * N)
+    bytes_moved = (M * K + K * N) * 2 + M * N * 4
+    t_b = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_o = ops / INT32_OP_PER_S * 1e3
+    bound, by = (t_o, "operations") if t_o >= t_b else (t_b, "bytes")
+    print(f"K8: {steps} chunk steps x {pdpu_step_ops(cfg.N)} integer "
+          f"operations + {M * K + K * N} operand decodes: bound {t_o:.4f} ms "
+          f"at {INT32_OP_PER_S:.3g} INT32 op/s (bytes {t_b:.4f} ms); "
+          f"{steps / ms / 1e6:.4g} G chunk steps/s")
+    return dict(name="pdpu_matmul", source="src/repro_torch/csrc/pdpu_dot.cu",
+                replaces="src/repro/kernels/pdpu_dot.py:47",
+                max_abs_err=0.0, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+                bound_ms=bound, bound_by=by, library_ms=None,
+                shape=f"M={M} K={K} N={N}, int16 P(13,2) codes -> int32 "
+                      f"P(16,2), N=4 W_m=14")
+
+
+# qwen3-moe-235b's expert stacks, (K, N) per GEMM: gate, up, down
+_EXPERT_KN = ((4096, 1536), (4096, 1536), (1536, 4096))
+
+
+def _k9_grouped(dev):
+    """K9 at qwen3's expert shapes (E 128, capacity 8 rows at decode):
+    float activations (the serving path), coded activations and a fmt_out
+    encode, held to sum_bound, with the two planted faults."""
+    import torch
+    from repro_torch.core import formats, posit
+    from repro_torch.kernels import posit_codec
+    from repro_torch.kernels import posit_matmul as pm
+    fb, fa = formats.P16_2, formats.P13_2
+    E, M = 128, 8
+    g = torch.Generator(device=dev).manual_seed(9)
+    weights = {kn: posit_codec.encode(
+        torch.randn(E, *kn, generator=g, device=dev) / math.sqrt(kn[0]), fb)
+        for kn in sorted(set(_EXPERT_KN))}
+    acts = {K: torch.randn(E, M, K, generator=g, device=dev)
+            for K in {K for K, _ in _EXPERT_KN}}
+    err = ratio = 0.0
+
+    def units(gap, bound):
+        return float((gap / (bound / pm.SUM_TOL).clamp(min=1e-30)).max())
+
+    for (K, N), b in weights.items():
+        for fmt_a in (None, fa):
+            a = acts[K] if fmt_a is None else posit_codec.encode(acts[K], fa)
+            got = pm.posit_matmul_grouped(a, b, fmt_a, fb)
+            want = pm.posit_matmul_grouped_plain(a, b, fmt_a, fb)
+            bound = pm.sum_bound(a, b, fmt_a, fb)
+            gap = (got - want).abs()
+            _check(bool((gap <= bound).all()),
+                   f"K9 posit_matmul_grouped within {pm.SUM_TOL} u sqrt(K) "
+                   f"||ab|| at E={E} M={M} K={K} N={N} fmt_a={fmt_a}")
+            err = max(err, float(gap.max()))
+            sound = units(gap, bound)
+            ratio = max(ratio, sound)
+            if fmt_a is not None and K == 4096:
+                codes = pm.posit_matmul_grouped(a, b, fmt_a, fb, fb)
+                _check(_bits_equal(codes, posit.pack(got, fb)),
+                       "K9 fmt_out codes are the rounding of its f32 sums")
+            A = a.float() if fmt_a is None else posit.decode(a, fmt_a)
+            B = posit.decode(b, fb)
+            faults = {"bf16 weights": torch.matmul(A, B.to(torch.bfloat16).float()),
+                      "K tile left out": want - torch.matmul(A[..., :64],
+                                                             B[:, :64])}
+            seen = []
+            for what, bad in faults.items():
+                bad_gap = (bad - want).abs()
+                _check(bool((bad_gap > bound).any()),
+                       f"K9 tolerance rejects the planted fault '{what}' at "
+                       f"K={K} N={N} fmt_a={fmt_a}")
+                seen.append(f"{what} {units(bad_gap, bound):.4g}")
+            del A, B, faults, bound, want
+            torch.cuda.empty_cache()
+            print(f"K9 E={E} M={M} K={K} N={N} fmt_a={fmt_a}: max |err| "
+                  f"{float(gap.max()):.3g}, largest err in u sqrt(K) ||ab|| "
+                  f"{sound:.4g} (limit {pm.SUM_TOL}; planted: "
+                  f"{', '.join(seen)})")
+    layer = [(acts[K], weights[(K, N)]) for K, N in _EXPERT_KN]
+
+    def run():
+        for a, b in layer:
+            pm.posit_matmul_grouped(a, b, None, fb)
+
+    call_ms = _time_ms(run, reps=5)
+    ms = _device_ms(run, launches=3)
+    plain_ms = _time_once_ms(lambda: [pm.posit_matmul_grouped_plain(
+        a, b, None, fb) for a, b in layer])
+    decoded = [(a, posit.decode(b, fb)) for a, b in layer]
+    library_ms = _device_ms(lambda: [torch.bmm(a, b) for a, b in decoded],
+                            launches=3)
+    del decoded
+    bytes_moved = sum(E * (M * K * 4 + K * N * 2 + M * N * 4)
+                      for K, N in _EXPERT_KN)
+    flops = sum(2.0 * E * M * K * N for K, N in _EXPERT_KN)
+    bound, by = _bound(bytes_moved, flops)
+    print(f"K9: largest |err| in u sqrt(K) ||ab|| over the checks "
+          f"{ratio:.4g} (limit {pm.SUM_TOL}); one layer's expert GEMMs move "
+          f"{bytes_moved} B: {bytes_moved / ms / 1e6:.4g} GB/s")
+    return dict(name="posit_matmul_grouped",
+                source="src/repro_torch/csrc/posit_matmul_grouped.cu",
+                replaces="src/repro/kernels/posit_matmul.py:99",
+                max_abs_err=err, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+                bound_ms=bound, bound_by=by, library_ms=library_ms,
+                shape="E=128 M=8, one layer's 3 expert GEMMs (3 launches), "
+                      "f32 activations x int16 P(16,2) -> f32")
+
+
+def _attention_g16_float_pages(dev):
+    """K3, K7 and K5 at qwen3's 64 / 4 heads (G = 16) over P(8,2) pages and
+    over bf16 float pages (validate_bit_exact has no KV format): K3 and K7
+    within 2e-5 and each K7 row bitwise K3, K5's output within one bf16
+    ulp and its page writes bitwise; device times printed."""
+    import torch
+    from repro_torch.core import formats, posit
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import prefill_attention as pf
+    B, Hq, Hkv, Dh, ps, M, T = 4, 64, 4, 128, 16, 16, 4
+    P = B * M + 1
+    g = torch.Generator(device=dev).manual_seed(16)
+    full = torch.tensor([1 << 30], dtype=torch.int32, device=dev)
+    bt = torch.arange(1, P, device=dev, dtype=torch.int32).reshape(B, M)
+    lengths = torch.tensor([256, 137, 4, 64], dtype=torch.int32, device=dev)
+    bf16 = torch.bfloat16
+    for fmt in (formats.P8_2, None):
+        kv = torch.randn(2, P, ps, Hkv * Dh, generator=g, device=dev)
+        kv = posit.pack(kv, fmt) if fmt else kv.to(bf16)
+        kp, vp = kv[0], kv[1]
+        what = f"G=16 {'P(8,2)' if fmt else 'bf16'} pages"
+        q = torch.randn(B, Hq, Dh, generator=g, device=dev)
+        got = pa.paged_attention(q, kp, vp, bt, lengths, full, fmt_kv=fmt)
+        want = pa.paged_attention_plain(q, kp, vp, bt, lengths, full,
+                                        fmt_kv=fmt)
+        _check(bool(torch.allclose(got, want, rtol=2e-5, atol=2e-5)),
+               f"K3 within 2e-5 at {what}")
+        q4 = torch.randn(B, T, Hq, Dh, generator=g, device=dev)
+        got4 = pa.paged_attention(q4, kp, vp, bt, lengths, full, fmt_kv=fmt)
+        want4 = pa.paged_attention_plain(q4, kp, vp, bt, lengths, full,
+                                         fmt_kv=fmt)
+        _check(bool(torch.allclose(got4, want4, rtol=2e-5, atol=2e-5)),
+               f"K7 within 2e-5 at {what}")
+        for t in range(T):
+            row = pa.paged_attention(q4[:, t].contiguous(), kp, vp, bt,
+                                     lengths - (T - 1 - t), full, fmt_kv=fmt)
+            _check(_bits_equal(got4[:, t].contiguous(), row),
+                   f"K7 row {t} bitwise K3 at {what}")
+        # K5: a 64-token chunk group of bf16 activations
+        C = 64
+        starts = torch.tensor([0, 64, 130, 17], dtype=torch.int32, device=dev)
+        qc = torch.randn(B, C, Hq, Dh, generator=g, device=dev).to(bf16)
+        kc = torch.randn(B, C, Hkv, Dh, generator=g, device=dev).to(bf16)
+        vc = torch.randn(B, C, Hkv, Dh, generator=g, device=dev).to(bf16)
+        kw = dict(fmt_kv=fmt, compute_dtype=bf16, flash_chunk=1024)
+        kp2, vp2 = kp.clone(), vp.clone()
+        out, _, _ = pf.prefill_attention_paged(qc, kc, vc, kp, vp, bt, starts,
+                                               full, **kw)
+        ref, _, _ = pf.prefill_attention_paged_plain(qc, kc, vc, kp2, vp2, bt,
+                                                     starts, full, **kw)
+        _check(bool(torch.allclose(out.float(), ref.float(), rtol=2.0 ** -7,
+                                   atol=1e-6)),
+               f"K5 within one bf16 ulp at {what}")
+        _check(_bits_equal(kp[1:], kp2[1:]) and _bits_equal(vp[1:], vp2[1:]),
+               f"K5 page writes bitwise at {what}")
+        ms3 = _device_ms(lambda: pa.paged_attention(q, kp, vp, bt, lengths,
+                                                    full, fmt_kv=fmt),
+                         launches=50)
+        ms5 = _device_ms(lambda: pf.prefill_attention_paged(
+            qc, kc, vc, kp2, vp2, bt, starts, full, **kw), launches=10)
+        print(f"attention at {what}: K3 {ms3:.4f} ms (B 4, L <= 256), K5 "
+              f"{ms5:.4f} ms (B 4, C 64): within tolerance, K7 rows bitwise K3")
+
+
+# ---------------------------------------------------------------------------
 # phase 4: small-input agreement with the plain CPU path
 # ---------------------------------------------------------------------------
 
-def _small_reference(dev, policy: str):
+def _small_reference(dev, policy: str, arch: str = "command_r_35b"):
     import torch
     from repro_torch import configs
     from repro_torch.core.quant import policy_by_name
     from repro_torch.models import api, packing
     from repro_torch.models.paged import PagedLayout
-    cfg = configs.get_smoke("command_r_35b")
+    cfg = configs.get_smoke(arch)
     cfg = cfg.replace(quant=policy_by_name(policy))
     cpu = torch.device("cpu")
     params = packing.pack_params(
@@ -652,7 +910,8 @@ def _small_reference(dev, policy: str):
         cache = api.init_cache(cfg, 2, 64, layout, device=d)
         cache["block_table"] = torch.tensor([[1, 2, 0, 0], [3, 4, 0, 0]],
                                             dtype=torch.int32, device=d)
-        toks = torch.arange(40, dtype=torch.int32, device=d).reshape(2, 20) % 503
+        toks = torch.arange(40, dtype=torch.int32,
+                            device=d).reshape(2, 20) % cfg.vocab_size
         lp, cache = api.prefill_chunk_batched(
             p, toks, cache, torch.ones(2, dtype=torch.bool, device=d), cfg)
         ld, _ = api.decode_step(p, toks[:, -1], cache, cfg)
@@ -662,7 +921,7 @@ def _small_reference(dev, policy: str):
         _check(bool(torch.isfinite(a).all()), "small-input logits finite")
         _check(bool(torch.allclose(a, b, rtol=1e-4, atol=1e-4)),
                f"small-input logits on the card vs the plain CPU path "
-               f"({policy})")
+               f"({arch}, {policy})")
         err = max(err, float((a - b).abs().max()))
     return err
 
@@ -671,8 +930,9 @@ def _small_reference(dev, policy: str):
 # phase 5: serving the main path
 # ---------------------------------------------------------------------------
 
-def _run_engine(cfg, params, prompts, label: str, **kw):
-    """Serve `prompts` (16 new tokens each) on a fresh 4-slot engine, one
+def _run_engine(cfg, params, prompts, label: str, new_tokens: int = 16,
+                **kw):
+    """Serve `prompts` (`new_tokens` each) on a fresh 4-slot engine, one
     step at a time; checks every request and every page, prints the run's
     numbers, and returns ({rid: tokens}, engine, launches per pure decode
     step summed over those steps, number of pure decode steps).  A pure
@@ -684,7 +944,7 @@ def _run_engine(cfg, params, prompts, label: str, **kw):
     from repro_torch.serve import Request, ServingEngine
     engine = ServingEngine(cfg, params, batch_slots=4, **kw)
     for rid, p in enumerate(prompts):
-        engine.submit(Request(rid=rid, prompt=p, max_new_tokens=16))
+        engine.submit(Request(rid=rid, prompt=p, max_new_tokens=new_tokens))
     torch.cuda.reset_peak_memory_stats()
     decode_ms = []
     round_ms = []
@@ -709,8 +969,8 @@ def _run_engine(cfg, params, prompts, label: str, **kw):
     done = sorted(engine.done, key=lambda r: r.rid)
     n_tok = sum(len(r.out_tokens) for r in done)
     _check(len(done) == len(prompts)
-           and all(len(r.out_tokens) == 16 for r in done),
-           f"{label}: every request served 16 tokens")
+           and all(len(r.out_tokens) == new_tokens for r in done),
+           f"{label}: every request served {new_tokens} tokens")
     _check(all(0 <= t < cfg.vocab_size for r in done for t in r.out_tokens),
            f"{label}: tokens in the vocabulary")
     _check(engine.pages_free == engine.allocator.capacity,
@@ -1071,11 +1331,146 @@ def _frontend_phase(cfg, params, prompts, plain, rng, base):
 
 
 # ---------------------------------------------------------------------------
+# phase 7: bit_exact serving of command-r at full width (K8)
+# ---------------------------------------------------------------------------
+
+def _bit_exact_phase(dev):
+    """command-r-35b at full width (depth 2) under validate_bit_exact: every
+    projection and the tied head through the chunked-PDPU GEMM (K8), float
+    bf16 KV pages (the policy has no KV format), decode_step + logits head
+    + host sampler (no fused head).  4 requests of 16-32-token prompts, 8
+    new tokens each, greedy.  Returns (the run's launch counts (from 0),
+    cfg, params, prompts)."""
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.core.quant import policy_by_name
+    from repro_torch.kernels import ops
+    from repro_torch.models import api, packing
+    full = configs.get("command_r_35b")
+    cfg = full.replace(n_layers=2, quant=policy_by_name("validate_bit_exact"))
+    print('bit_exact: reduced: ' + json.dumps(
+        {"n_layers": f"{full.n_layers} -> {cfg.n_layers}"}))
+    params = api.init(torch.Generator(device=dev).manual_seed(10), cfg,
+                      device=dev)
+    params["embed"].mul_(1.0 / math.sqrt(cfg.d_model))
+    params = packing.pack_params(params, cfg)
+    torch.cuda.synchronize()
+    print(f"bit_exact: weights {packing.weight_bytes(params)} B "
+          f"(P(13,2) codes, f32 embedding)")
+    rng = np.random.default_rng(10)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (16, 24, 32, 20)]
+    ops.reset_launches()
+    _, eng, per_step, n_steps = _run_engine(
+        cfg, params, prompts, "bit_exact greedy", new_tokens=8, greedy=True,
+        max_seq=64, page_size=16, base_seed=1)
+    counts = ops.launch_counts()
+    _check(not eng.fused_decode, "bit_exact decodes without the fused head")
+    _check(eng.cache["k"].dtype == torch.bfloat16,
+           "bit_exact pages hold bf16 floats")
+    for name in ("pdpu_matmul", "posit_encode", "posit_decode",
+                 "paged_attention", "prefill_attention"):
+        _check(counts[name] > 0, f"kernel {name} launched in the bit_exact run")
+    _check(counts["decode_sample"] == 0, "no fused head under bit_exact")
+    per_token = 7 * cfg.n_layers + 1
+    _check(per_step.get("pdpu_matmul", 0) == per_token * n_steps,
+           f"K8 launched {per_token} times per decode step (7 projections "
+           f"per layer and the head)")
+    return counts, cfg, params, prompts
+
+
+# ---------------------------------------------------------------------------
+# phase 8: MoE serving of qwen3-moe-235b at full width (K9)
+# ---------------------------------------------------------------------------
+
+def _init_moe_packed(cfg, seed: int, dev):
+    """Random parameters of `cfg` drawn and packed layer by layer (one
+    layer's f32 masters, 10 GB at qwen3's width, live at a time), the
+    embedding float, the untied head packed."""
+    import torch
+    from repro_torch.core.posit import storage_dtype
+    from repro_torch.kernels import ops
+    from repro_torch.models import api, packing
+    from repro_torch.models.module import init_params
+    fmt = cfg.quant.weights
+    g = torch.Generator(device=dev).manual_seed(seed)
+    specs = api.param_specs(cfg)
+    packed = {p[1] for p in packing.packable_paths(cfg) if p[0] == "layers"}
+    layers = {n: torch.empty(s.shape, dtype=storage_dtype(fmt) if n in packed
+                             else s.dtype, device=dev)
+              for n, s in specs["layers"].items()}
+    one = api.param_specs(cfg.replace(n_layers=1))["layers"]
+    for i in range(cfg.n_layers):
+        sub = init_params(g, one, dev)
+        for n, t in sub.items():
+            layers[n][i] = ops.encode(t[0], fmt) if n in packed else t[0]
+        del sub
+    params = {"layers": layers,
+              "embed": init_params(g, specs["embed"], dev),
+              "final_norm": init_params(g, specs["final_norm"], dev)}
+    params["head"] = ops.encode(init_params(g, specs["head"], dev), fmt)
+    return params
+
+
+def _moe_phase(dev):
+    """qwen3-moe-235b at full width (depth cut to 4 of 94 layers) at the
+    serve_fused_p16 defaults: 8 requests sharing a 64-token system prompt,
+    16 new tokens each, greedy; every expert GEMM through K9.  Returns
+    (launch counts of the run, cfg, params, prompts)."""
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.core.quant import policy_by_name
+    from repro_torch.kernels import ops
+    from repro_torch.models import packing
+    full = configs.get("qwen3_moe_235b")
+    cfg = full.replace(n_layers=4, quant=policy_by_name("serve_fused_p16"))
+    print(f"MoE config: d_model {cfg.d_model}, heads {cfg.n_heads}/"
+          f"{cfg.n_kv_heads} x {cfg.head_dim}, {cfg.n_experts} experts x "
+          f"{cfg.moe_d_ff} top-{cfg.top_k}, capacity factor "
+          f"{cfg.capacity_factor}, vocab {cfg.vocab_size}, tied "
+          f"{cfg.tie_embeddings}, qk_norm {cfg.qk_norm}, dtype {cfg.dtype}")
+    print('MoE: reduced: ' + json.dumps(
+        {"n_layers": f"{full.n_layers} -> {cfg.n_layers}"}))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = _init_moe_packed(cfg, 11, dev)
+    torch.cuda.synchronize()
+    print(f"MoE: init + pack layer by layer {time.perf_counter() - t0:.3f} s, "
+          f"weights {packing.weight_bytes(params)} B, peak memory "
+          f"{torch.cuda.max_memory_allocated()} B")
+    rng = np.random.default_rng(11)
+    system = rng.integers(0, cfg.vocab_size, 64)
+    prompts = [np.concatenate([system, rng.integers(0, cfg.vocab_size, int(n))])
+               .astype(np.int32) for n in rng.integers(8, 57, 8)]
+    ops.reset_launches()
+    _, eng, per_step, n_steps = _run_engine(
+        cfg, params, prompts, "MoE greedy", greedy=True, max_seq=256,
+        page_size=16, base_seed=1)
+    counts = ops.launch_counts()
+    _check(not eng.batched_prefill,
+           "qwen3's droppy capacity prefills slot by slot")
+    _check(eng.fused_decode and eng.prefix_sharing,
+           "MoE serves with the fused head and prefix sharing")
+    _check(eng.stats["shared_admissions"] > 0, "MoE: shared admissions > 0")
+    for name in ("posit_matmul_grouped", "posit_decode", "posit_encode",
+                 "paged_attention", "decode_sample", "prefill_attention"):
+        _check(counts[name] > 0, f"kernel {name} launched in the MoE run")
+    per_layer = 3 * cfg.n_layers
+    _check(per_step.get("posit_matmul_grouped", 0) == per_layer * n_steps,
+           f"K9 launched {per_layer} times per decode step")
+    return counts, cfg, params, prompts
+
+
+# ---------------------------------------------------------------------------
 # phase 6: where a decode step's device time goes
 # ---------------------------------------------------------------------------
 
 # kernel-name fragments -> the layer that launched the kernel
-_KERNEL_GROUPS = (("posit_decode", "K1 posit_decode"),
+_KERNEL_GROUPS = (("grouped_kernel", "K9 posit_matmul_grouped"),
+                  ("pdpu_matmul", "K8 pdpu_matmul"),
+                  ("posit_decode", "K1 posit_decode"),
                   ("posit_encode", "K2 posit_encode"),
                   ("paged_attention_mq", "K7 paged_attention_mq"),
                   ("paged_attention", "K3 paged_attention"),
@@ -1176,7 +1571,8 @@ def main() -> int:
 
     kernels = []
     for fn in (_k1_decode, _k2_encode, _k3_attention, _k4_decode_sample,
-               _k5_prefill, _k6_matmul, _k7_attention_mq):
+               _k5_prefill, _k6_matmul, _k7_attention_mq, _k8_pdpu,
+               _k9_grouped):
         rec = fn(dev)
         torch.cuda.empty_cache()
         print(f"kernel {rec['name']} ({rec['shape']}): ms {rec['ms']:.4f} "
@@ -1186,14 +1582,37 @@ def main() -> int:
               f"{'none' if rec['library_ms'] is None else round(rec['library_ms'], 4)}"
               f", max_abs_err {rec['max_abs_err']:.3g}")
         kernels.append(rec)
-    for policy in ("serve_fused_p16", "serve_fused_p16_a13"):
-        print(f"small input ({policy}): max |logit diff| card vs plain CPU "
-              f"{_small_reference(dev, policy):.3g}")
+    _attention_g16_float_pages(dev)
+    torch.cuda.empty_cache()
+    for arch, policy in (("command_r_35b", "serve_fused_p16"),
+                         ("command_r_35b", "serve_fused_p16_a13"),
+                         ("command_r_35b", "validate_bit_exact"),
+                         ("qwen3_moe_235b", "serve_fused_p16"),
+                         ("qwen3_moe_235b", "validate_bit_exact")):
+        print(f"small input ({arch}, {policy}): max |logit diff| card vs "
+              f"plain CPU {_small_reference(dev, policy, arch):.3g}")
     counts, cfg, cfg13, params, prompts = _serve(dev)
     _profile(cfg, params, prompts, "defaults")
     _profile(cfg13, params, prompts, "a13")
     _profile(cfg, params, prompts, "speculative round", steps=1,
              speculate_k=SPEC_K)
+    # the engines hold reference cycles (bound methods): collect them so
+    # that each later phase starts with only its own weights on the card
+    del params
+    _release()
+    # ---- phase 7: bit_exact at full width; phase 8: MoE at full width
+    label = "bit_exact greedy"
+    counts[label], bx_cfg, bx_params, bx_prompts = _bit_exact_phase(dev)
+    print(f"{label}: launches {json.dumps(counts[label])}")
+    _profile(bx_cfg, bx_params, bx_prompts, "bit_exact", steps=1)
+    del bx_params
+    _release()
+    label = "MoE greedy"
+    counts[label], moe_cfg, moe_params, moe_prompts = _moe_phase(dev)
+    print(f"{label}: launches {json.dumps(counts[label])}")
+    _profile(moe_cfg, moe_params, moe_prompts, "MoE", steps=2)
+    del moe_params
+    _release()
     # launches: the sum of the main-path runs' own counts (each from 0);
     # launches_by_path: each run's count
     for rec in kernels:

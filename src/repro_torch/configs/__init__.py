@@ -1,15 +1,16 @@
 """Architecture registry of the PyTorch port (port of `repro.configs`).
 
-The port's slice 1 covers the dense serving main path, so the registry
-holds `command_r_35b` only; other names raise KeyError until their family
-is ported (ROADMAP queue 1).  `get(name)` / `get_smoke(name)` /
+The registry holds the configurations whose family the port serves:
+`command_r_35b` (dense) and the two MoE models `qwen3_moe_235b` and
+`deepseek_moe_16b`; other names raise KeyError until their family is
+ported (ROADMAP queue 1).  `get(name)` / `get_smoke(name)` /
 `get_tiny_serving(name)` mirror the reference and return equal shapes.
 """
 from __future__ import annotations
 
 import importlib
 
-ARCH_NAMES = ("command_r_35b",)
+ARCH_NAMES = ("command_r_35b", "qwen3_moe_235b", "deepseek_moe_16b")
 
 _ALIASES = {n.replace("_", "-"): n for n in ARCH_NAMES}
 
@@ -37,6 +38,8 @@ def get_tiny_serving(name: str, quant=None):
         "command_r_35b": dict(n_layers=1, d_model=16, n_heads=2,
                               n_kv_heads=1, head_dim=8, d_ff=32,
                               vocab_size=64),
+        "qwen3_moe_235b": dict(n_layers=1, d_model=32, n_experts=4,
+                               top_k=2, moe_d_ff=16, vocab_size=64),
     }.get(_ALIASES.get(name, name), {})
     if quant is not None:
         shrink["quant"] = quant

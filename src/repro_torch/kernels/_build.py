@@ -22,7 +22,8 @@ import torch
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 SOURCES = ("posit_codec", "paged_attention", "decode_sample",
-           "prefill_attention", "posit_matmul")
+           "prefill_attention", "posit_matmul", "posit_matmul_grouped",
+           "pdpu_dot")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -46,6 +47,13 @@ _SIGNATURES = {
     },
     "posit_matmul": {
         "posit_matmul_launch": [_P] * 4 + [_I] * 12 + [_P],
+    },
+    "posit_matmul_grouped": {
+        "posit_matmul_grouped_launch": [_P] * 4 + [_I] * 13 + [_P],
+    },
+    "pdpu_dot": {
+        "pdpu_matmul_launch": [_P] * 3 + [_I] * 3 + [_LL] * 4 + [_I] * 8
+                              + [_P],
     },
 }
 

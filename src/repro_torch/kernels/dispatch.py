@@ -16,10 +16,25 @@
               through the coded GEMM kernel (`ops.fused_matmul`, K6).
               Float masters are encoded first (the reference's STE
               forward).
-  bit_exact   not ported yet (ROADMAP queue 2: the PDPU GEMM kernel).
+  bit_exact   the chunked-PDPU GEMM (`ops.pdpu_matmul`, K8): activations
+              encoded to the PDPU's input format (K2), the weight codes
+              (packed, or float masters encoded), K padded to whole
+              chunks with code 0, the paper's S1..S6 integer datapath
+              with the W_m alignment truncation, fmt_out codes decoded
+              (K1).  Bit-identical to a silicon PDPU array.  Forward
+              only: differentiating through it raises (`_GradBarrier`).
 
-The grouped MoE entry point needs the grouped GEMM kernel, which is not
-ported yet: it raises `NotImplementedError`.
+Two entry points share the plan table:
+
+  qdot         : x [..., K] @ w [K, N], every dense projection.
+  qdot_grouped : stacked expert weights w [E, K, N] against per-expert
+                 activation slabs x [E, C, K] (sort-based dispatch
+                 buffers) or [B, E, Cg, K] (GShard grouped dispatch; the
+                 batch dim folds onto the per-expert rows for the kernel
+                 and folds back after).  The fused plan runs the grouped
+                 posit GEMM (`ops.matmul_posit_weights_grouped` /
+                 `fused_matmul_grouped`, K9), which reads the expert
+                 stacks as codes; bit_exact runs K8 expert by expert.
 
 A weight wrapped in `Prepared` keeps the operand its plan's dot reads
 (the rounded, decoded or encoded weights), so several `qdot` calls over
@@ -31,8 +46,16 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.formats import PositFormat
-from repro_torch.core.quant import QuantPolicy
+from repro_torch.core.posit import storage_dtype
+from repro_torch.core.quant import (EXECUTION_PLANS, QuantPolicy,
+                                    TRAINABLE_PLANS)
 from . import ops
+
+_BIT_EXACT_MSG = (
+    f"execution plan 'bit_exact' is not differentiable; trainable plans "
+    f"are {TRAINABLE_PLANS}.  Switch the QuantPolicy with "
+    f".with_execution(...) for QAT — bit_exact is a forward-only "
+    f"validation datapath.")
 
 
 def is_packed(w) -> bool:
@@ -71,6 +94,30 @@ def maybe_quant_act(policy: QuantPolicy, x):
         fake_quantize(x, policy.activations)
 
 
+class _GradBarrier(torch.autograd.Function):
+    """`out` unchanged; differentiating it towards `inputs` raises."""
+
+    @staticmethod
+    def forward(ctx, reason, out, *inputs):
+        ctx.reason = reason
+        return out.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        raise ValueError(ctx.reason)
+
+
+def _grad_barrier(reason: str, out, *inputs):
+    """Tie `out`, computed from `inputs` through integer codes (where
+    autograd sees no path), back to the float inputs so that a gradient
+    raises `reason` instead of coming back silently zero.  Without grad
+    mode or a float input that requires grad it is `out` itself."""
+    if torch.is_grad_enabled() and any(
+            t.is_floating_point() and t.requires_grad for t in inputs):
+        return _GradBarrier.apply(reason, out, *inputs)
+    return out
+
+
 class Prepared:
     """A 2-D weight whose plan operand (`_weight_operand`) is made on the
     first `qdot` that reads it, per policy and activation dtype, and
@@ -91,12 +138,19 @@ class Prepared:
 def _weight_operand(w, policy: QuantPolicy, dtype):
     """What the plan's dot reads of w [K, N], for activations of `dtype`:
     fake_quant the rounded weights in that dtype; fused the decoded f32
-    weights (float activations) or the codes (coded activations)."""
+    weights (float activations) or the codes (coded activations);
+    bit_exact the codes in the PDPU's input format."""
     packed = is_packed(w)
     if policy.execution == "fake_quant":
         if packed:
             return ops.decode(w, policy.weights).to(dtype)
         return maybe_quant_weight(policy, w.to(dtype))
+    if policy.execution == "bit_exact":
+        # packed weights are in policy.weights == cfg.fmt_in by
+        # construction (pdpu_config derives fmt_in from it); the kernel
+        # reads their low n bits
+        return w if packed else ops.encode(w.to(torch.float32),
+                                           policy.pdpu_config().fmt_in)
     # fused: float masters are encoded first (the reference's STE forward)
     codes = w if packed else ops.encode(w.to(torch.float32), policy.weights)
     if policy.activations is None:
@@ -122,27 +176,19 @@ def qdot(x, w, policy: QuantPolicy, prec_dtype=torch.float32, out_dtype=None):
     if is_packed(raw) and policy.weights is None:
         raise ValueError("packed posit weights need QuantPolicy.weights set")
     plan = policy.execution
-    if plan == "bit_exact":
-        raise NotImplementedError(
-            "the bit_exact plan needs the PDPU GEMM kernel (pdpu_matmul), "
-            "not ported yet: ROADMAP queue 2")
-    if plan not in ("fake_quant", "fused"):
+    if plan not in EXECUTION_PLANS:
         raise ValueError(f"unknown execution plan '{plan}'")
     wq = w.operand(policy, x.dtype) if isinstance(w, Prepared) else \
         _weight_operand(w, policy, x.dtype)
 
     if plan == "fake_quant":
-        xq = maybe_quant_act(policy, x)
-        if prec_dtype == torch.float32:
-            # products of the rounded operands are exact in f32: an f32
-            # matmul is the dot with f32 accumulation
-            out = torch.matmul(xq.to(torch.float32), wq.to(torch.float32))
-        else:
-            out = torch.matmul(xq, wq).to(prec_dtype)
-        return out.to(out_dtype)
+        return _fake_quant_dot(x, wq, policy, prec_dtype).to(out_dtype)
 
     xf, lead = _as_matrix(x)
-    if policy.activations is None:
+    if plan == "bit_exact":
+        out = _grad_barrier(_BIT_EXACT_MSG, _bit_exact(xf, wq, policy),
+                            xf, raw)
+    elif policy.activations is None:
         out = torch.matmul(xf.to(torch.float32), wq)
     else:
         a_codes = ops.encode(xf.to(torch.float32), policy.activations)
@@ -151,9 +197,89 @@ def qdot(x, w, policy: QuantPolicy, prec_dtype=torch.float32, out_dtype=None):
     return out.reshape(lead + (w.shape[-1],)).to(out_dtype)
 
 
+def _fake_quant_dot(x, wq, policy: QuantPolicy, prec_dtype):
+    """The fake_quant plan's dot of x (rounded here) with the rounded
+    weights wq (batched over leading dims)."""
+    xq = maybe_quant_act(policy, x)
+    if prec_dtype == torch.float32:
+        # products of the rounded operands are exact in f32: an f32
+        # matmul is the dot with f32 accumulation
+        return torch.matmul(xq.to(torch.float32), wq.to(torch.float32))
+    return torch.matmul(xq, wq).to(prec_dtype)
+
+
+def _bit_exact(xf, w_codes, policy: QuantPolicy):
+    """xf [..., M, K] float x w_codes [..., K, N] PDPU input codes through
+    the chunked-PDPU GEMM (K8), one launch per leading index; returns the
+    decoded fmt_out values, f32."""
+    cfg = policy.pdpu_config()
+    a_codes = ops.encode(xf.to(torch.float32), cfg.fmt_in)
+    pad_k = (-xf.shape[-1]) % cfg.N   # whole chunks; code 0 is exact zero
+    if pad_k:
+        a_codes = torch.nn.functional.pad(a_codes, (0, pad_k))
+        w_codes = torch.nn.functional.pad(w_codes, (0, 0, 0, pad_k))
+    if a_codes.ndim == 2:
+        out_codes = ops.pdpu_matmul(a_codes, w_codes, cfg)
+    else:
+        out_codes = torch.stack([ops.pdpu_matmul(a, b, cfg)
+                                 for a, b in zip(a_codes, w_codes)])
+    # fmt_out codes are non-negative below 2**n: the storage container
+    # keeps their bits for the decode kernel
+    return ops.decode(out_codes.to(storage_dtype(cfg.fmt_out)), cfg.fmt_out)
+
+
 def qdot_grouped(x, w, policy: QuantPolicy, prec_dtype=torch.float32,
                  out_dtype=None):
-    """Grouped matmul over stacked expert weights — not ported yet."""
-    raise NotImplementedError(
-        "qdot_grouped (MoE expert stacks) needs the grouped posit GEMM "
-        "kernel, not ported yet: ROADMAP queue 2")
+    """Policy-dispatched grouped matmul over stacked expert weights.
+
+    x: [E, C, K] or [B, E, Cg, K] activations; w: [E, K, N] stacked weights
+    (float masters or packed posit codes) -> [E, C, N] / [B, E, Cg, N].
+    Plan semantics match `qdot` applied per expert; the fused plan runs
+    the grouped posit GEMM (K9) over the [E, rows, K] slab, bit_exact the
+    chunked-PDPU GEMM (K8) expert by expert."""
+    if w.ndim != 3:
+        raise ValueError(f"qdot_grouped weights must be 3-D [E, K, N], "
+                         f"got {tuple(w.shape)}")
+    if x.ndim not in (3, 4):
+        raise ValueError(f"qdot_grouped activations must be [E, C, K] or "
+                         f"[B, E, Cg, K], got {tuple(x.shape)}")
+    E, K, N = w.shape
+    if x.shape[-3] != E or x.shape[-1] != K:
+        raise ValueError(f"grouped contraction mismatch {tuple(x.shape)} x "
+                         f"{tuple(w.shape)}")
+    out_dtype = out_dtype or x.dtype
+    packed = is_packed(w)
+    if packed and policy.weights is None:
+        raise ValueError("packed posit weights need QuantPolicy.weights set")
+    plan = policy.execution
+    if plan not in EXECUTION_PLANS:
+        raise ValueError(f"unknown execution plan '{plan}'")
+
+    if plan == "fake_quant":
+        wq = _weight_operand(w, policy, x.dtype)
+        return _fake_quant_dot(x, wq, policy, prec_dtype).to(out_dtype)
+
+    # fold a leading batch dim onto the per-expert row dim: the kernel sees
+    # one [E, rows, K] slab; rows unfold after
+    batched = x.ndim == 4
+    if batched:
+        B, _, C, _ = x.shape
+        xe = x.movedim(0, 1).reshape(E, B * C, K)
+    else:
+        xe = x
+    if plan == "bit_exact":
+        out = _grad_barrier(_BIT_EXACT_MSG, _bit_exact(
+            xe, _weight_operand(w, policy, x.dtype), policy), xe, w)
+    else:
+        fmt_w = policy.weights
+        # float masters are encoded first (the reference's STE forward)
+        codes = w if packed else ops.encode(w.to(torch.float32), fmt_w)
+        if policy.activations is None:
+            out = ops.matmul_posit_weights_grouped(xe, codes, fmt_w)
+        else:
+            a_codes = ops.encode(xe.to(torch.float32), policy.activations)
+            out = ops.fused_matmul_grouped(a_codes, codes, policy.activations,
+                                           fmt_w, fmt_out=None)
+    if batched:
+        out = out.reshape(E, B, C, N).movedim(1, 0)
+    return out.to(out_dtype)

@@ -12,13 +12,14 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.formats import PositFormat
+from repro_torch.core.formats import PDPUConfig, PositFormat
 from . import paged_attention as paged_attention_mod
-from . import posit_codec, posit_matmul
+from . import pdpu_dot, posit_codec, posit_matmul
 from . import prefill_attention as prefill_attention_mod
 
 _COUNTERS = (posit_codec.LAUNCHES, paged_attention_mod.LAUNCHES,
-             prefill_attention_mod.LAUNCHES, posit_matmul.LAUNCHES)
+             prefill_attention_mod.LAUNCHES, posit_matmul.LAUNCHES,
+             pdpu_dot.LAUNCHES)
 
 
 def launch_counts() -> dict:
@@ -109,6 +110,30 @@ def fused_matmul(a_codes, b_codes, fmt_a: PositFormat, fmt_b: PositFormat,
     """Coded posit GEMM (K6 on CUDA): in-kernel decode of both operands,
     f32 accumulation, one encode when fmt_out is set."""
     return posit_matmul.posit_matmul(a_codes, b_codes, fmt_a, fmt_b, fmt_out)
+
+
+def fused_matmul_grouped(a_codes, b_codes, fmt_a: PositFormat,
+                         fmt_b: PositFormat,
+                         fmt_out: PositFormat | None = None):
+    """Grouped coded posit GEMM (K9 on CUDA): [E, M, K] x [E, K, N] codes
+    -> [E, M, N], per-expert in-kernel decode, f32 accumulation, one
+    encode when fmt_out is set."""
+    return posit_matmul.posit_matmul_grouped(a_codes, b_codes, fmt_a, fmt_b,
+                                             fmt_out)
+
+
+def matmul_posit_weights_grouped(x, w_codes, fmt_w: PositFormat):
+    """Float activations x stacked posit weights, the grouped serving fast
+    path (K9 on CUDA): x [E, M, K] float, w_codes [E, K, N]; the expert
+    stacks travel as codes and decode in the kernel.  Returns f32."""
+    return posit_matmul.posit_matmul_grouped(x.to(torch.float32), w_codes,
+                                             None, fmt_w, None)
+
+
+def pdpu_matmul(a_codes, b_codes, cfg: PDPUConfig):
+    """Bit-exact chunked-PDPU GEMM (K8 on CUDA): the paper's W_m datapath,
+    int32 cfg.fmt_out codes out.  See kernels/pdpu_dot.py."""
+    return pdpu_dot.pdpu_matmul(a_codes, b_codes, cfg)
 
 
 def decode_sample(x, w, noise=None, temperature=None, *, plan: str = "fused",

@@ -1,12 +1,15 @@
-"""Coded posit GEMM: the CUDA kernel and its plain version.
+"""Posit GEMMs with in-kernel decode: the CUDA kernels and their plain
+versions.
 
 `posit_matmul` (K6, `csrc/posit_matmul.cu`) replaces
 `repro/kernels/posit_matmul.py:posit_matmul`: [M, K] posit codes x [K, N]
 posit codes, decoded in the kernel, accumulated in f32, returned as f32
-or encoded once into `fmt_out`.  On a CUDA tensor the wrapper launches
-the kernel; on a CPU tensor it runs the plain version (decode both
-operands, one f32 matmul, optional encode).  M, N and K need not divide
-any tile.  The grouped (MoE) form is not ported yet (ROADMAP queue 2).
+or encoded once into `fmt_out`.  `posit_matmul_grouped` (K9,
+`csrc/posit_matmul_grouped.cu`) replaces `:posit_matmul_grouped`, the MoE
+expert-stack form [E, M, K] x [E, K, N] with float or coded activations.
+On a CUDA tensor a wrapper launches its kernel; on a CPU tensor it runs
+the plain version (decode the coded operands, an f32 matmul, optional
+encode).  M, N and K need not divide any tile.
 """
 from __future__ import annotations
 
@@ -18,7 +21,7 @@ from . import _build
 from .posit_codec import decode_plain, encode_plain
 
 # launches of the kernel since the last reset (kernels/ops.reset_launches)
-LAUNCHES = {"posit_matmul": 0}
+LAUNCHES = {"posit_matmul": 0, "posit_matmul_grouped": 0}
 _CODE_DTYPES = (torch.int8, torch.int16)
 
 
@@ -30,17 +33,24 @@ _CODE_DTYPES = (torch.int8, torch.int16)
 SUM_TOL = 16.0
 
 
-def sum_bound(a_codes, b_codes, fmt_a: PositFormat, fmt_b: PositFormat):
+def sum_bound(a_codes, b_codes, fmt_a: PositFormat | None,
+              fmt_b: PositFormat):
     """Tolerance between two f32 sums of the same K products of random
     sign taken in different orders: SUM_TOL * u * sqrt(K) *
     sqrt(sum_k (a_ik b_kj)^2), u = 2^-24.  Each sum's rounding errors walk
     at random, so the gap grows as sqrt(K) u times the products' scale,
-    not as the worst case K u.  Returns [M, N] f32."""
-    K = a_codes.shape[1]
-    a = decode_plain(a_codes, fmt_a).double()
+    not as the worst case K u.  fmt_a None takes float activations; a
+    leading expert dim batches.  Returns [..., M, N] f32."""
+    K = a_codes.shape[-1]
+    a = _operand(a_codes, fmt_a).double()
     b = decode_plain(b_codes, fmt_b).double()
     norm = torch.matmul(a * a, b * b).sqrt()
     return (SUM_TOL * 2.0 ** -24 * K ** 0.5 * norm).float()
+
+
+def _operand(a, fmt: PositFormat | None):
+    """Activations as f32: decoded codes, or the float values."""
+    return a.to(torch.float32) if fmt is None else decode_plain(a, fmt)
 
 
 def posit_matmul_plain(a_codes, b_codes, fmt_a: PositFormat,
@@ -96,4 +106,64 @@ def posit_matmul(a_codes, b_codes, fmt_a: PositFormat, fmt_b: PositFormat,
             fmt_out.n if fmt_out else 0, fmt_out.es if fmt_out else 0,
             _build.stream_of(a_codes)), "posit_matmul")
         LAUNCHES["posit_matmul"] += 1
+    return out
+
+
+def posit_matmul_grouped_plain(a, b_codes, fmt_a: PositFormat | None,
+                               fmt_b: PositFormat,
+                               fmt_out: PositFormat | None = None):
+    """Per expert: decode(A) (or the f32 activations) @ decode(B) in f32,
+    then one encode to fmt_out if set."""
+    out = torch.matmul(_operand(a, fmt_a), decode_plain(b_codes, fmt_b))
+    return out if fmt_out is None else encode_plain(out, fmt_out)
+
+
+def posit_matmul_grouped(a, b_codes, fmt_a: PositFormat | None,
+                         fmt_b: PositFormat,
+                         fmt_out: PositFormat | None = None):
+    """[E, M, K] x [E, K, N] codes -> [E, M, N] f32 (fmt_out None) or
+    fmt_out codes in their storage dtype.  fmt_a None takes `a` as float
+    activations (cast to f32), otherwise `a` holds fmt_a codes."""
+    if a.ndim != 3 or b_codes.ndim != 3:
+        raise ValueError(f"posit_matmul_grouped takes 3-D operands, got "
+                         f"{tuple(a.shape)} x {tuple(b_codes.shape)}")
+    E, M, K = a.shape
+    Eb, K2, N = b_codes.shape
+    if E != Eb or K != K2:
+        raise ValueError(f"grouped mismatch {tuple(a.shape)} x "
+                         f"{tuple(b_codes.shape)}")
+    if a.device.type == "cpu":
+        return posit_matmul_grouped_plain(a, b_codes, fmt_a, fmt_b, fmt_out)
+    if fmt_a is None:
+        if not a.is_floating_point():
+            raise TypeError("posit_matmul_grouped: fmt_a None takes float "
+                            f"activations, got {a.dtype}")
+        a = a.to(torch.float32).contiguous()
+        a_kind = 0
+    else:
+        _check_codes("a", a, fmt_a)
+        a_kind = a.element_size()
+    _check_codes("b", b_codes, fmt_b)
+    _build.require_cuda("posit_matmul_grouped", a, b_codes)
+    dev = a.device
+    if fmt_out is None:
+        out = torch.empty((E, M, N), dtype=torch.float32, device=dev)
+    else:
+        dt = storage_dtype(fmt_out)
+        if dt not in _CODE_DTYPES:
+            raise ValueError(f"posit_matmul_grouped writes int8/int16 codes, "
+                             f"not {dt}")
+        out = torch.empty((E, M, N), dtype=dt, device=dev)
+    if E and M and N:
+        lib = _build.library("posit_matmul_grouped")
+        _build.check(lib.posit_matmul_grouped_launch(
+            a.data_ptr(), b_codes.data_ptr(),
+            out.data_ptr() if fmt_out is None else None,
+            None if fmt_out is None else out.data_ptr(), E, M, N, K, a_kind,
+            fmt_a.n if fmt_a else 0, fmt_a.es if fmt_a else 0,
+            b_codes.element_size(), fmt_b.n, fmt_b.es,
+            0 if fmt_out is None else out.element_size(),
+            fmt_out.n if fmt_out else 0, fmt_out.es if fmt_out else 0,
+            _build.stream_of(a)), "posit_matmul_grouped")
+        LAUNCHES["posit_matmul_grouped"] += 1
     return out

@@ -1,5 +1,5 @@
 """Unified model API — dispatch by config family (PyTorch port of
-`repro.models.api`; the dense family of slice 1).
+`repro.models.api`; the dense and MoE families).
 
     param_specs(cfg)                                  -> tree[ParamSpec]
     init(generator, cfg, device)                      -> params
@@ -19,7 +19,7 @@ from typing import Optional
 
 import torch
 
-from . import common, transformer
+from . import common, moe, transformer
 from .config import ModelConfig
 from .module import init_params
 from .packing import (pack_manifest, pack_params,  # noqa: F401
@@ -27,11 +27,14 @@ from .packing import (pack_manifest, pack_params,  # noqa: F401
 from .paged import PagedLayout
 
 
+_FAMILIES = {"dense": transformer, "moe": moe}
+
+
 def _mod(cfg: ModelConfig):
-    if cfg.family != "dense":
+    if cfg.family not in _FAMILIES:
         raise NotImplementedError(
             f"model family '{cfg.family}' is not ported yet (ROADMAP queue 1)")
-    return transformer
+    return _FAMILIES[cfg.family]
 
 
 def param_specs(cfg: ModelConfig):
@@ -84,9 +87,13 @@ def decode_verify(params, tokens, cache, cfg: ModelConfig, noise,
 
     noise: [B*T, V] f32 gumbel rows, b-major (row b * T + j is slot b's
     draw j; None when greedy); temperature: python float."""
+    mod = _mod(cfg)
+    if not hasattr(mod, "decode_verify"):
+        raise NotImplementedError(
+            f"family {cfg.family!r} has no k-token verify step")
     spec = common.SampleSpec(noise=noise, temperature=temperature,
                              greedy=greedy, top_k=top_k)
-    return _mod(cfg).decode_verify(params, tokens, cache, cfg, sample=spec)
+    return mod.decode_verify(params, tokens, cache, cfg, sample=spec)
 
 
 def prefill_chunk(params, tokens, cache, slot: int, cfg: ModelConfig):

@@ -34,6 +34,16 @@ def qdot(x, w, policy: QuantPolicy, prec_dtype=torch.float32):
     return dispatch.qdot(x, w, policy, prec_dtype=prec_dtype)
 
 
+def qdot_grouped(x, w, policy: QuantPolicy, prec_dtype=torch.float32,
+                 out_dtype=None):
+    """Grouped qdot over stacked expert weights (the MoE expert GEMMs):
+    x [E, C, K] or [B, E, Cg, K] @ w [E, K, N], float masters or packed
+    posit codes; same plan semantics as `qdot`, per expert (see
+    kernels/dispatch.qdot_grouped)."""
+    return dispatch.qdot_grouped(x, w, policy, prec_dtype=prec_dtype,
+                                 out_dtype=out_dtype)
+
+
 def tp_prec(cfg) -> torch.dtype:
     """Output dtype for TP-contracted projections (see qdot)."""
     return cfg.compute_dtype if cfg.tp_bf16_reduce else torch.float32
@@ -189,7 +199,8 @@ def sample_head(x, emb_or_head, cfg: ModelConfig, sample: SampleSpec,
     """Fused replacement for `logits_head` + the serving sampler (K4 on
     CUDA): tokens equal to the two-step path.  x: [B, D] hidden rows.  The
     head weights stay untransposed; the kernel reads the tied [V, D]
-    layout directly."""
+    layout directly.  bit_exact has no fused head (the engine keeps the
+    decomposed `logits_head` + sampler there)."""
     policy = cfg.quant
     w = emb_or_head
     fmt_w = policy.weights

@@ -1,9 +1,10 @@
 """One-shot param packing: float weights -> posit-code weight tensors
-(PyTorch port of `repro.models.packing`, dense family).
+(PyTorch port of `repro.models.packing`, dense and MoE families).
 
 Only the weights consumed through the GEMM dispatch layer pack (the
-attention and MLP projections, and an untied head); norms and the
-embedding, read by indexing, stay float.  Packing is one rounding per
+attention and MLP projections, the routed expert stacks and shared
+experts of a MoE, and an untied head); norms, routers and the embedding,
+read by indexing, stay float.  Packing is one rounding per
 weight (posit encode), identical to the reference's `pack_params`; the
 encode runs through `kernels.ops.encode` (K2 on CUDA), one layer at a
 time so the transient stays one layer wide.
@@ -26,7 +27,9 @@ from .module import tree_leaves, tree_map
 
 _ATTN_NAMES = ("wq", "wk", "wv", "wo")
 _MLP_NAMES = ("wi_gate", "wi_up", "wo_mlp")
-_PORTED_FAMILIES = ("dense",)
+_EXPERT_NAMES = ("we_gate", "we_up", "we_down")   # stacked: qdot_grouped
+_SHARED_EXPERT_NAMES = ("ws_gate", "ws_up", "ws_down")
+_PORTED_FAMILIES = ("dense", "moe")
 
 
 def packable_paths(cfg: ModelConfig) -> Tuple[Tuple[str, ...], ...]:
@@ -35,7 +38,13 @@ def packable_paths(cfg: ModelConfig) -> Tuple[Tuple[str, ...], ...]:
         raise NotImplementedError(
             f"param packing for family '{cfg.family}' is not ported yet "
             f"(have {_PORTED_FAMILIES}; ROADMAP queue 1)")
-    paths = [("layers", n) for n in _ATTN_NAMES + _MLP_NAMES]
+    if cfg.family == "moe":
+        names = _ATTN_NAMES + _EXPERT_NAMES
+        if cfg.n_shared_experts:
+            names += _SHARED_EXPERT_NAMES
+    else:
+        names = _ATTN_NAMES + _MLP_NAMES
+    paths = [("layers", n) for n in names]
     if not cfg.tie_embeddings:
         paths.append(("head",))
     return tuple(paths)

@@ -83,12 +83,18 @@ def _head(params, cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 
 
+def swiglu(h, w_gate, w_up, w_down, cfg: ModelConfig):
+    """silu(h @ w_gate) * (h @ w_up) @ w_down through the GEMM dispatch
+    (the dense MLP, and the MoE's shared experts)."""
+    g = common.qdot(h, w_gate, cfg.quant)
+    u = common.qdot(h, w_up, cfg.quant)
+    h = torch.nn.functional.silu(g.to(torch.float32)).to(h.dtype) * u
+    return common.qdot(h, w_down, cfg.quant, prec_dtype=common.tp_prec(cfg))
+
+
 def _mlp_block(p, x, cfg: ModelConfig):
     h = common.rms_norm(x, p["ln2"], upcast=not cfg.tp_bf16_reduce)
-    g = common.qdot(h, p["wi_gate"], cfg.quant)
-    u = common.qdot(h, p["wi_up"], cfg.quant)
-    h = torch.nn.functional.silu(g.to(torch.float32)).to(x.dtype) * u
-    return common.qdot(h, p["wo_mlp"], cfg.quant, prec_dtype=common.tp_prec(cfg))
+    return swiglu(h, p["wi_gate"], p["wi_up"], p["wo_mlp"], cfg)
 
 
 def _window(cfg: ModelConfig, is_global: bool) -> int:
@@ -233,13 +239,16 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
                     cache_specs(cfg, batch, max_seq, layout))
 
 
-def decode_step(params, tokens, cache, cfg: ModelConfig, sample=None):
+def decode_step(params, tokens, cache, cfg: ModelConfig, sample=None,
+                ffn=_mlp_block):
     """One autoregressive step over the paged cache. tokens: [B] int32.
 
     Per layer the token's KV codes are written into the slot's current page
-    (in place) and the paged-attention kernel attends.  Returns
-    (logits [B, V] f32, cache') — or, with `sample` (common.SampleSpec),
-    ([B] int32 tokens, cache') from the fused head + sampler kernel."""
+    (in place) and the paged-attention kernel attends; `ffn(p, x, cfg)` is
+    the layer's feed-forward block (the dense MLP here, the routed experts
+    in models/moe.py).  Returns (logits [B, V] f32, cache') — or, with
+    `sample` (common.SampleSpec), ([B] int32 tokens, cache') from the fused
+    head + sampler kernel."""
     if "block_table" not in cache:
         raise NotImplementedError("the dense KV cache is not ported yet")
     B = tokens.shape[0]
@@ -249,7 +258,7 @@ def decode_step(params, tokens, cache, cfg: ModelConfig, sample=None):
         p = _layer(params, i)
         x = x + _paged_attn_token(p, x, cfg, cache["k"][i], cache["v"][i], bt,
                                   length, is_global)
-        x = x + _mlp_block(p, x, cfg)
+        x = x + ffn(p, x, cfg)
     x = common.rms_norm(x, params["final_norm"])
     new_cache = {"k": cache["k"], "v": cache["v"], "block_table": bt,
                  "length": length + 1}
@@ -308,7 +317,8 @@ def decode_verify(params, tokens, cache, cfg: ModelConfig, sample=None):
     return torch.cat(logits, 1), new_cache
 
 
-def prefill_chunk(params, tokens, cache, slot: int, cfg: ModelConfig):
+def prefill_chunk(params, tokens, cache, slot: int, cfg: ModelConfig,
+                  ffn=_mlp_block):
     """Chunked prefill of prompt chunk `tokens` [1, C] for one slot, at
     positions length[slot] + [0, C).  Returns (last-position logits
     [1, 1, V], cache') with length[slot] advanced by C."""
@@ -320,7 +330,7 @@ def prefill_chunk(params, tokens, cache, slot: int, cfg: ModelConfig):
         p = _layer(params, i)
         x = x + _chunk_attn(p, x, cfg, cache["k"][i], cache["v"][i], start,
                             bt_row, is_global)
-        x = x + _mlp_block(p, x, cfg)
+        x = x + ffn(p, x, cfg)
     x = common.rms_norm(x[:, -1:], params["final_norm"])
     logits = common.logits_head(x, _head(params, cfg), cfg,
                                 transpose=cfg.tie_embeddings)
@@ -329,7 +339,8 @@ def prefill_chunk(params, tokens, cache, slot: int, cfg: ModelConfig):
     return logits, dict(cache, length=length)
 
 
-def prefill_chunk_batched(params, tokens, cache, active, cfg: ModelConfig):
+def prefill_chunk_batched(params, tokens, cache, active, cfg: ModelConfig,
+                          ffn=_mlp_block):
     """Cross-slot batched chunked prefill: one [B, C] pass advances every
     active slot by a chunk of the same bucket size.  The caller zeroes
     inactive rows' length/block-table metadata, so their writes land on
@@ -341,7 +352,7 @@ def prefill_chunk_batched(params, tokens, cache, active, cfg: ModelConfig):
         p = _layer(params, i)
         x = x + _chunk_attn_batched(p, x, cfg, cache["k"][i], cache["v"][i],
                                     starts, bt, is_global)
-        x = x + _mlp_block(p, x, cfg)
+        x = x + ffn(p, x, cfg)
     x = common.rms_norm(x[:, -1:], params["final_norm"])
     logits = common.logits_head(x, _head(params, cfg), cfg,
                                 transpose=cfg.tie_embeddings)

@@ -50,6 +50,12 @@ draw plain decode would make there, and the longest prefix of drafts that
 match the verified tokens commits, so the streams are plain decode's.
 Rejected positions are rolled back by the host's slot lengths.
 
+Under the bit_exact plan (`validate_bit_exact`) there is no fused head:
+decoding is `decode_step`, the logits head through the PDPU GEMM and the
+host sampler.  A routed-MoE config whose capacity can drop choices
+prefills slot by slot (a batched chunk's padding rows could displace
+active tokens), and MoE has no k-token verify, so `speculate_k` raises.
+
 `preempt(slot)` evicts a running request back to the head of the queue
 (its prompt pages become holds it maps again on re-admission; its tokens
 are replayed identically) and `cancel(rid)` drops a queued request.
@@ -218,12 +224,13 @@ class ServingEngine:
                 raise ValueError("speculative decoding requires the paged "
                                  "KV cache (draft and verify must address "
                                  "the same posit-coded pages)")
+            if not hasattr(api._mod(cfg), "decode_verify"):
+                raise NotImplementedError(
+                    f"family {cfg.family!r} has no k-token verify step")
         if not paged:
             raise _not_ported("the dense (paged=False) serving cache")
         if mesh is not None:
             raise _not_ported("kv_pages-sharded serving (mesh=...)")
-        if cfg.quant.execution == "bit_exact":
-            raise _not_ported("the bit_exact execution plan")
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             set_float32_parity()
@@ -248,9 +255,21 @@ class ServingEngine:
         self.max_pages_per_slot = self.cache["block_table"].shape[1]
         self.prefix_sharing = bool(q.prefix_sharing if prefix_sharing is None
                                    else prefix_sharing)
-        self.batched_prefill = bool(q.batched_prefill if batched_prefill is None
-                                    else batched_prefill)
-        self.fused_decode = bool(q.fused_decode)
+        if batched_prefill is None:
+            # routed-MoE capacity is computed over the whole [B, C] batch:
+            # unless the capacity factor is drop-proof (capacity >= tokens
+            # even if routing concentrates), padding rows of a batched
+            # chunk could displace active tokens and make outputs depend
+            # on batch composition, so such configs prefill slot by slot.
+            # An explicit batched_prefill=True overrides.
+            droppy_moe = (cfg.n_experts > 0 and
+                          cfg.capacity_factor * cfg.top_k < cfg.n_experts)
+            self.batched_prefill = bool(q.batched_prefill) and not droppy_moe
+        else:
+            self.batched_prefill = bool(batched_prefill)
+        # bit_exact has no fused head: it decodes with decode_step, the
+        # logits head and the host-side sampler
+        self.fused_decode = bool(q.fused_decode) and q.execution != "bit_exact"
         self.noise_fn = noise_fn or self._default_noise
 
         # host-owned scheduler state (device copies are refreshed per call)

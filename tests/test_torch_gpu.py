@@ -14,7 +14,10 @@ other, where the kernel's choice must score within 1e-4 of the best; the
 coded GEMM is within 16 u sqrt(K) sqrt(sum_k (a_ik b_kj)^2) of its plain
 version (exact products of random sign, another summation order;
 `posit_matmul.sum_bound`), a limit that weights rounded to bf16 or one K
-tile left out must fail.
+tile left out must fail, and so is the grouped posit GEMM (K9, also with
+float activations, whose products round once in the FMA as in any f32
+GEMM); the chunked-PDPU GEMM (K8) and the whole bit_exact dispatch are
+integer datapaths, held bitwise.
 """
 import pytest
 import torch
@@ -532,3 +535,200 @@ def test_decode_verify_bitwise_sequential_decode_steps(cuda, dtype):
                 ops.launch_counts()["posit_decode"]
         assert _bits_equal(verify[:, t], logits), t
     assert _bits_equal(cache["k"], seq["k"])
+
+
+# ---------------------------------------------------------------------------
+# G = 16 query heads per KV head (qwen3-moe-235b's 64 / 4) and float pages
+# ---------------------------------------------------------------------------
+
+G16 = {
+    "p8_2": (torch.int8, formats.P8_2),
+    "bf16": (torch.bfloat16, None),
+    "f32": (torch.float32, None),
+}
+
+
+@pytest.mark.parametrize("case", sorted(G16))
+def test_paged_attention_group_of_16(cuda, case):
+    """K3 (one query per slot) and K7 (T = 4 queries per slot) at 64 query
+    heads over 4 KV heads, coded and float pages, against the plain
+    version; each K7 row bitwise K3 at the row's length."""
+    kv_dtype, fmt = G16[case]
+    q3, kp, vp, bt = _attn_inputs(cuda, kv_dtype, fmt, 50 + len(case),
+                                  Hq=64, Hkv=4)
+    B = bt.shape[0]
+    lengths = [96, 17, 4, 50]
+    ln = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    win = torch.tensor([1 << 30], dtype=torch.int32, device=cuda)
+    got = pa.paged_attention(q3, kp, vp, bt, ln, win, fmt_kv=fmt)
+    want = pa.paged_attention_plain(q3, kp, vp, bt, ln, win, fmt_kv=fmt)
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+    T = 4
+    g = torch.Generator().manual_seed(7)
+    q = torch.randn(B, T, 64, 128, generator=g).to(cuda)
+    got = pa.paged_attention(q, kp, vp, bt, ln, win, fmt_kv=fmt)
+    want = pa.paged_attention_plain(q, kp, vp, bt, ln, win, fmt_kv=fmt)
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+    for t in range(T):
+        row = pa.paged_attention(q[:, t].contiguous(), kp, vp, bt,
+                                 ln - (T - 1 - t), win, fmt_kv=fmt)
+        assert _bits_equal(got[:, t], row)
+
+
+@pytest.mark.parametrize("fmt_name", ["P8_2", None])
+def test_prefill_attention_group_of_16(cuda, fmt_name):
+    """K5 at qwen3's geometry (64 / 4 heads of 128, a 64-token chunk, bf16
+    activations), int8 P(8,2) pages and bf16 float pages: output within
+    one bf16 ulp, page writes bitwise."""
+    fmt = getattr(formats, fmt_name) if fmt_name else None
+    act = torch.bfloat16
+    B, C, Hq, Hkv, Dh, ps, M = 4, 64, 64, 4, 128, 16, 16
+    starts = [0, 64, 130, 17]
+    g = torch.Generator().manual_seed(61)
+    P = B * M + 1
+    kv = torch.randn(2, P, ps, Hkv * Dh, generator=g)
+    kv = posit.pack(kv, fmt) if fmt else kv.to(act)
+    bt = torch.zeros(B, M, dtype=torch.int32)
+    perm = torch.randperm(P - 1, generator=g) + 1
+    for b in range(B):
+        n = -(-(starts[b] + C) // ps)
+        bt[b, :n] = perm[b * M:b * M + n].to(torch.int32)
+    q, k, v = (torch.randn(B, C, h, Dh, generator=g).to(act).to(cuda)
+               for h in (Hq, Hkv, Hkv))
+    st = torch.tensor(starts, dtype=torch.int32, device=cuda)
+    win = torch.tensor([1 << 30], dtype=torch.int32, device=cuda)
+    kp, vp = kv[0].to(cuda), kv[1].to(cuda)
+    kp2, vp2 = kp.clone(), vp.clone()
+    kw = dict(fmt_kv=fmt, compute_dtype=act, flash_chunk=1024)
+    got, _, _ = pf.prefill_attention_paged(q, k, v, kp, vp, bt.to(cuda), st,
+                                           win, **kw)
+    want, _, _ = pf.prefill_attention_paged_plain(q, k, v, kp2, vp2,
+                                                  bt.to(cuda), st, win, **kw)
+    assert torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), want.float(), rtol=2.0 ** -7,
+                               atol=1e-6)
+    assert _bits_equal(kp[1:], kp2[1:]) and _bits_equal(vp[1:], vp2[1:])
+
+
+# ---------------------------------------------------------------------------
+# K8: the chunked-PDPU GEMM, bitwise its plain version
+# ---------------------------------------------------------------------------
+
+def _codes(g, fmt, shape):
+    """Random codes over the whole range with zero, NaR, +-maxpos and
+    +-minpos planted, in the int16 container (sign-extending)."""
+    c = torch.randint(0, 1 << fmt.n, shape, generator=g, dtype=torch.int64)
+    flat = c.view(-1)
+    special = torch.tensor([0, fmt.nar_code, fmt.maxpos_code,
+                            (-fmt.maxpos_code) & fmt.mask, fmt.minpos_code,
+                            (-fmt.minpos_code) & fmt.mask])
+    idx = torch.randperm(flat.numel(), generator=g)[:3 * special.numel()]
+    flat[idx] = special.repeat(3)[:idx.numel()]
+    return posit.to_container(c, fmt)
+
+
+PDPU_CASES = {
+    # name: (config, guard_bits, sticky, M, K, N_out)
+    "p13_n4_decode": (formats.PDPU_P13_16_N4_W14, 2, True, 4, 512, 96),
+    "p13_n4_ragged": (formats.PDPU_P13_16_N4_W14, 2, True, 5, 68, 33),
+    "p16_n4_truncate": (formats.PDPU_P16_16_N4_W14, 0, False, 9, 64, 40),
+    "p10_n8": (formats.PDPU_P10_16_N8_W14, 3, True, 3, 128, 70),
+    "p13_n8_w10": (formats.PDPU_P13_16_N8_W10, 1, False, 4, 96, 64),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PDPU_CASES))
+def test_pdpu_matmul_bitwise_plain(cuda, case):
+    import dataclasses
+    from repro_torch.kernels import pdpu_dot
+    cfg, gb, st, M, K, N = PDPU_CASES[case]
+    cfg = dataclasses.replace(cfg, guard_bits=gb, sticky=st)
+    g = torch.Generator().manual_seed(sorted(PDPU_CASES).index(case))
+    a = _codes(g, cfg.fmt_in, (M, K)).to(cuda)
+    b = _codes(g, cfg.fmt_in, (K, N)).to(cuda)
+    ops.reset_launches()
+    got = pdpu_dot.pdpu_matmul(a, b, cfg)
+    assert ops.launch_counts()["pdpu_matmul"] == 1
+    want = pdpu_dot.pdpu_matmul_plain(a, b, cfg)
+    assert got.dtype == torch.int32 and _bits_equal(got, want)
+    # B given transposed (the tied head's layout): the same bits
+    bt = b.T.contiguous().T
+    assert _bits_equal(pdpu_dot.pdpu_matmul(a, bt, cfg), want)
+    # the CPU's plain version agrees with the card's
+    assert _bits_equal(pdpu_dot.pdpu_matmul(a.cpu(), b.cpu(), cfg), want)
+
+
+def test_qdot_bit_exact_on_card_equals_cpu(cuda):
+    """The whole bit_exact dispatch (K2 encode, K8, K1 decode of the
+    fmt_out codes) on the card, bitwise the CPU's plain path, for float
+    masters, packed weights and a ragged K; grouped per expert too."""
+    from repro_torch.core.quant import policy_by_name
+    from repro_torch.kernels import dispatch
+    tp = policy_by_name("validate_bit_exact")
+    g = torch.Generator().manual_seed(5)
+    for K in (256, 258):
+        x = torch.randn(4, K, generator=g)
+        w = torch.randn(K, 72, generator=g) / K ** 0.5
+        for wt in (w, posit.pack(w, formats.P13_2)):
+            want = dispatch.qdot(x, wt, tp)
+            got = dispatch.qdot(x.to(cuda), wt.to(cuda), tp)
+            assert _bits_equal(got, want)
+    xg = torch.randn(3, 8, 64, generator=g)
+    wg = posit.pack(torch.randn(3, 64, 48, generator=g) / 8, formats.P13_2)
+    assert _bits_equal(dispatch.qdot_grouped(xg.to(cuda), wg.to(cuda), tp),
+                       dispatch.qdot_grouped(xg, wg, tp))
+
+
+# ---------------------------------------------------------------------------
+# K9: the grouped posit GEMM within sum_bound
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("shape", [(8, 8, 4096, 1536), (4, 8, 1536, 4096),
+                                   (3, 5, 517, 130), (2, 20, 333, 66)])
+@pytest.mark.parametrize("fmts", [(None, "P16_2", None),
+                                  ("P13_2", "P16_2", None),
+                                  ("P13_2", "P16_2", "P16_2"),
+                                  ("P8_2", "P16_1", "P8_2")])
+def test_posit_matmul_grouped_matches_plain(cuda, shape, fmts):
+    E, M, K, N = shape
+    fa = getattr(formats, fmts[0]) if fmts[0] else None
+    fb = getattr(formats, fmts[1])
+    fo = getattr(formats, fmts[2]) if fmts[2] else None
+    g = torch.Generator().manual_seed(E + M + K + N)
+    x = torch.randn(E, M, K, generator=g)
+    a = (x if fa is None else posit.pack(x, fa)).to(cuda)
+    b = posit.pack(torch.randn(E, K, N, generator=g) * K ** -0.5, fb).to(cuda)
+    bound = pm.sum_bound(a, b, fa, fb)
+    plain = pm.posit_matmul_grouped_plain(a, b, fa, fb)
+    ops.reset_launches()
+    got = pm.posit_matmul_grouped(a, b, fa, fb)
+    assert ops.launch_counts()["posit_matmul_grouped"] == 1
+    assert got.dtype == torch.float32
+    assert bool(((got - plain).abs() <= bound).all())
+    if fo is not None:
+        codes = pm.posit_matmul_grouped(a, b, fa, fb, fo)
+        assert codes.dtype == posit.storage_dtype(fo)
+        assert _bits_equal(codes, posit_codec.encode_plain(got, fo))
+
+
+@pytest.mark.parametrize("fmt_a", [None, "P13_2"])
+def test_posit_matmul_grouped_bound_rejects_planted_faults(cuda, fmt_a):
+    """At qwen3's expert shape (K 4096, N 1536, 8 rows) the kernel passes
+    `sum_bound` and two faults fail it: weights rounded to bf16, and one
+    64-wide K tile left out."""
+    fa = getattr(formats, fmt_a) if fmt_a else None
+    fb = formats.P16_2
+    E, M, K, N = 4, 8, 4096, 1536
+    g = torch.Generator().manual_seed(9)
+    x = torch.randn(E, M, K, generator=g)
+    a = (x if fa is None else posit.pack(x, fa)).to(cuda)
+    b = posit.pack(torch.randn(E, K, N, generator=g) * K ** -0.5, fb).to(cuda)
+    bound = pm.sum_bound(a, b, fa, fb)
+    plain = pm.posit_matmul_grouped_plain(a, b, fa, fb)
+    assert bool(((pm.posit_matmul_grouped(a, b, fa, fb) - plain).abs()
+                 <= bound).all())
+    A = a.float() if fa is None else posit_codec.decode_plain(a, fa)
+    B = posit_codec.decode_plain(b, fb)
+    for bad in (torch.matmul(A, B.to(torch.bfloat16).float()),
+                plain - torch.matmul(A[..., :64], B[:, :64])):
+        assert bool(((bad - plain).abs() > bound).any())

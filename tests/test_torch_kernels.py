@@ -194,14 +194,21 @@ def test_qdot_matches_reference(plan, packed, dtype):
 
 
 def test_dispatch_unported_paths_raise():
+    """bit_exact qdot and qdot_grouped are ported (tests/test_torch_pdpu.py
+    holds them against the reference): on the CPU both run their plain
+    versions; an unknown plan and malformed grouped operands raise."""
     x, w = torch.zeros(2, 8), torch.zeros(8, 4, dtype=torch.int16)
     coded = TPolicy(weights=tformats.P16_2, activations=tformats.P13_2,
                     execution="fused")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tdispatch.qdot(x, w, TPolicy(weights=tformats.P13_2,
-                                     execution="bit_exact"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tdispatch.qdot_grouped(x[None], w[None], coded)
+    out = tdispatch.qdot(x, w.to(torch.int16), TPolicy(weights=tformats.P13_2,
+                                                       execution="bit_exact"))
+    assert out.shape == (2, 4) and not out.any()
+    assert tdispatch.qdot_grouped(x[None], w[None], coded).shape == (1, 2, 4)
+    with pytest.raises(ValueError, match="unknown execution plan"):
+        tdispatch.qdot(x, w, TPolicy(weights=tformats.P16_2,
+                                     execution="no_such_plan"))
+    with pytest.raises(ValueError, match="3-D"):
+        tdispatch.qdot_grouped(x[None], w, coded)
     assert tdispatch.is_packed(w) and not tdispatch.is_packed(x)
 
 

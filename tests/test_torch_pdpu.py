@@ -1,0 +1,307 @@
+"""PyTorch port vs the JAX reference: the bit-exact PDPU datapath
+(`core/pdpu.py`), the chunked-PDPU GEMM's plain version (K8), the grouped
+posit GEMM's plain version (K9), the bit_exact and grouped dispatch, and
+bit_exact serving through the engine.
+
+Same numpy inputs on both sides, seeded.  The port runs on the CPU (each
+kernel's plain version); the reference runs its Pallas kernels in
+interpret mode.
+
+Tolerances: every PDPU result is an integer code and is held bitwise, and
+so is everything the bit_exact plan computes (codes decoded exactly), the
+bit_exact token streams included.  The grouped fused and fake_quant plans
+are f32 GEMMs: at the expert shapes used here (E 8, K 64, N 48, rows 8,
+the qwen3 smoke config's) XLA's and PyTorch's CPU GEMMs sum in the same
+order and the results are held bitwise; K9's plain version against the
+reference kernel at ragged shapes (where the two GEMMs sum in other
+orders) is held to rtol = atol = 1e-5, its fmt_out codes to one code step
+(a sum one ulp either side of a rounding boundary).
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro import configs as jconfigs
+from repro.core import formats as jformats
+from repro.core import pdpu as jpdpu
+from repro.core import posit as jposit
+from repro.core.quant import policy_by_name as jpolicy
+from repro.kernels import dispatch as jdispatch
+from repro.kernels import pdpu_dot as jpdpu_dot
+from repro.kernels import posit_matmul as jpm
+from repro.models import api as japi
+from repro.serve import Request as JRequest
+from repro.serve import ServingEngine as JEngine
+
+from repro_torch import configs as tconfigs
+from repro_torch.core import formats as tformats
+from repro_torch.core import pdpu as tpdpu
+from repro_torch.core.quant import policy_by_name as tpolicy
+from repro_torch.kernels import dispatch as tdispatch
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import pdpu_dot as tpdpu_dot
+from repro_torch.kernels import posit_matmul as tpm
+from repro_torch.models import packing as tpacking
+from repro_torch.serve import Request as TRequest
+from repro_torch.serve import ServingEngine as TEngine
+
+CONFIGS = sorted(n for n in dir(jformats) if n.startswith("PDPU_"))
+VARIANTS = {"guard2-sticky": (2, True), "truncate": (0, False),
+            "guard3-sticky": (3, True), "guard1": (1, False)}
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def _cfg_pair(name, variant):
+    g, st = VARIANTS[variant]
+    return (dataclasses.replace(getattr(jformats, name), guard_bits=g, sticky=st),
+            dataclasses.replace(getattr(tformats, name), guard_bits=g, sticky=st))
+
+
+def _valid(cfg) -> bool:
+    try:
+        jpdpu._validate(cfg)
+    except ValueError:
+        return False
+    return True
+
+
+def _codes(rng, fmt, shape):
+    """Random codes over the whole range, with zero, NaR, +-maxpos and
+    +-minpos planted."""
+    c = rng.integers(0, 1 << fmt.n, shape)
+    flat = c.reshape(-1)
+    special = [0, fmt.nar_code, fmt.maxpos_code, (-fmt.maxpos_code) & fmt.mask,
+               fmt.minpos_code, (-fmt.minpos_code) & fmt.mask]
+    idx = rng.choice(flat.size, size=min(flat.size, 3 * len(special)),
+                     replace=False)
+    flat[idx] = np.resize(special, idx.size)
+    return c
+
+
+@pytest.mark.parametrize("variant", sorted(VARIANTS))
+@pytest.mark.parametrize("name", CONFIGS)
+def test_pdpu_dot_matches_reference(name, variant):
+    """One PDPU step (round(acc + Va . Vb)) on random operand and
+    accumulator codes, bitwise, on every Table I configuration of
+    formats.py with guard / sticky variants; `_validate` raises for the
+    same configurations in both packages."""
+    jcfg, tcfg = _cfg_pair(name, variant)
+    if not _valid(jcfg):
+        with pytest.raises(ValueError):
+            tpdpu._validate(tcfg)
+        return
+    tpdpu._validate(tcfg)
+    rng = np.random.default_rng(10 * CONFIGS.index(name)
+                                + sorted(VARIANTS).index(variant))
+    R, N = 600, jcfg.N
+    va = _codes(rng, jcfg.fmt_in, (R, N))
+    vb = _codes(rng, jcfg.fmt_in, (R, N))
+    acc = _codes(rng, jcfg.fmt_out, (R,))
+    # rows of zero products over a live accumulator, and the reverse
+    va[:20] = 0
+    acc[20:40] = 0
+    want = np.asarray(jpdpu.pdpu_dot(jnp.asarray(va, jnp.int32),
+                                     jnp.asarray(vb, jnp.int32),
+                                     jnp.asarray(acc, jnp.int32), jcfg))
+    got = tpdpu.pdpu_dot(_t(va), _t(vb), _t(acc), tcfg)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("name", CONFIGS)
+def test_pdpu_matmul_exact_matches_reference(name):
+    """The chunked accumulation over K (the fmt_out accumulator rounded
+    after every chunk), bitwise."""
+    jcfg, tcfg = _cfg_pair(name, "guard2-sticky")
+    if not _valid(jcfg):
+        return
+    rng = np.random.default_rng(3)
+    M, K, N = 3, 4 * jcfg.N, 5
+    a = _codes(rng, jcfg.fmt_in, (M, K))
+    b = _codes(rng, jcfg.fmt_in, (K, N))
+    want = np.asarray(jpdpu.pdpu_matmul_exact(jnp.asarray(a, jnp.int32),
+                                              jnp.asarray(b, jnp.int32), jcfg))
+    np.testing.assert_array_equal(
+        tpdpu.pdpu_matmul_exact(_t(a), _t(b), tcfg).numpy(), want)
+    with pytest.raises(ValueError, match="divisible"):
+        tpdpu.pdpu_chunked_dot(_t(a[:, :-1]), _t(b.T[:, :-1]), tcfg)
+
+
+@pytest.mark.parametrize("M,N_out", [(5, 7), (1, 3), (9, 130)])
+def test_pdpu_matmul_plain_matches_reference_kernel(M, N_out):
+    """K8's plain version (the wrapper on CPU tensors) against the
+    reference's Pallas kernel in interpret mode, bitwise, with ragged M and
+    N_out, codes in sign-extending int16 containers, a transposed B; K not
+    a whole number of chunks raises."""
+    jcfg = jformats.PDPU_P13_16_N4_W14
+    tcfg = tformats.PDPU_P13_16_N4_W14
+    rng = np.random.default_rng(M * 100 + N_out)
+    K = 24
+    fi = jcfg.fmt_in
+    a = _codes(rng, fi, (M, K))
+    b = _codes(rng, fi, (K, N_out))
+    to16 = lambda c: ((c + (1 << 15)) % (1 << 16) - (1 << 15)).astype(np.int16)  # noqa: E731
+    want = np.asarray(jpdpu_dot.pdpu_matmul(jnp.asarray(to16(a)),
+                                            jnp.asarray(to16(b)), jcfg,
+                                            interpret=True))
+    got = tops.pdpu_matmul(_t(to16(a)), _t(to16(b)), tcfg)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    got_t = tops.pdpu_matmul(_t(to16(a)), _t(to16(b).T.copy()).T, tcfg)
+    np.testing.assert_array_equal(got_t.numpy(), want)
+    assert tpdpu_dot.LAUNCHES["pdpu_matmul"] == 0   # no kernel on the CPU
+    with pytest.raises(ValueError, match="divisible"):
+        tops.pdpu_matmul(_t(a[:, :K - 1]), _t(b[:K - 1]), tcfg)
+
+
+# ---------------------------------------------------------------------------
+# dispatch: qdot under bit_exact, qdot_grouped under all three plans
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("K", [16, 18], ids=["whole-chunks", "ragged-K"])
+@pytest.mark.parametrize("packed", [False, True], ids=["float", "packed"])
+@pytest.mark.parametrize("lead", [(3,), (2, 3)], ids=["2d", "3d"])
+def test_qdot_bit_exact_matches_reference(K, packed, lead):
+    rng = np.random.default_rng(K + 2 * packed)
+    x = rng.normal(0, 1, lead + (K,)).astype(np.float32)
+    w = (rng.normal(0, 1, (K, 5)) / np.sqrt(K)).astype(np.float32)
+    jp, tp = jpolicy("validate_bit_exact"), tpolicy("validate_bit_exact")
+    jw = jposit.pack(jnp.asarray(w), jformats.P13_2) if packed else jnp.asarray(w)
+    want = np.asarray(jdispatch.qdot(jnp.asarray(x), jw, jp))
+    got = tdispatch.qdot(_t(x), _t(np.asarray(jw)), tp)
+    np.testing.assert_array_equal(got.numpy().view(np.int32),
+                                  want.view(np.int32))
+    # a Prepared weight keeps the codes and gives the same bits
+    prep = tdispatch.Prepared(_t(np.asarray(jw)))
+    np.testing.assert_array_equal(
+        tdispatch.qdot(_t(x), prep, tp).numpy().view(np.int32),
+        want.view(np.int32))
+
+
+GROUPED_POLICIES = ("paper_mixed", "serve_fused_p16", "serve_fused_p16_a13",
+                    "validate_bit_exact")
+
+
+@pytest.mark.parametrize("shape", [(8, 8, 64), (2, 8, 4, 64), (8, 8, 66)],
+                         ids=["3d", "4d", "ragged-K"])
+@pytest.mark.parametrize("packed", [False, True], ids=["float", "packed"])
+@pytest.mark.parametrize("policy", GROUPED_POLICIES)
+def test_qdot_grouped_matches_reference(policy, packed, shape):
+    """fake_quant (paper_mixed), fused with float and with coded
+    activations, and bit_exact, over float masters and packed expert
+    stacks, 3-D and 4-D activations and a K that is not a whole number of
+    PDPU chunks: bitwise."""
+    rng = np.random.default_rng(len(shape) + 3 * packed + shape[-1])
+    K = shape[-1]
+    x = rng.normal(0, 1, shape).astype(np.float32)
+    w = (rng.normal(0, 1, (8, K, 48)) / np.sqrt(K)).astype(np.float32)
+    jp, tp = jpolicy(policy), tpolicy(policy)
+    jw = jposit.pack(jnp.asarray(w), jp.weights) if packed else jnp.asarray(w)
+    want = np.asarray(jax.jit(lambda a, b: jdispatch.qdot_grouped(a, b, jp))(
+        jnp.asarray(x), jw))
+    got = tdispatch.qdot_grouped(_t(x), _t(np.asarray(jw)), tp)
+    assert got.shape == want.shape
+    np.testing.assert_array_equal(got.numpy().view(np.int32),
+                                  want.view(np.int32))
+
+
+def test_bit_exact_backward_raises():
+    """Gradients through the bit_exact plan raise the reference's message
+    instead of coming back zero, for qdot and qdot_grouped, towards the
+    activations and towards float-master weights; without grad the plan
+    is a plain forward."""
+    tp = tpolicy("validate_bit_exact")
+    x = torch.randn(3, 8, requires_grad=True)
+    w = torch.randn(8, 4, requires_grad=True)
+    with pytest.raises(ValueError, match="not differentiable"):
+        tdispatch.qdot(x, w, tp).sum().backward()
+    with pytest.raises(ValueError, match="not differentiable"):
+        tdispatch.qdot(x, w.detach().to(torch.int16), tp).sum().backward()
+    xg = torch.randn(2, 3, 8, requires_grad=True)
+    wg = torch.randn(2, 8, 4)
+    with pytest.raises(ValueError, match="not differentiable"):
+        tdispatch.qdot_grouped(xg, wg, tp).sum().backward()
+    with torch.no_grad():
+        out = tdispatch.qdot(x, w, tp)
+    assert not out.requires_grad
+
+
+# ---------------------------------------------------------------------------
+# K9's plain version against the reference kernel
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("fmt_out", [None, "P16_2"])
+@pytest.mark.parametrize("fmt_a", [None, "P13_2"])
+def test_posit_matmul_grouped_plain_matches_reference(fmt_a, fmt_out):
+    rng = np.random.default_rng(7)
+    E, M, K, N = 3, 5, 37, 11
+    jfa = getattr(jformats, fmt_a) if fmt_a else None
+    tfa = getattr(tformats, fmt_a) if fmt_a else None
+    jfo = getattr(jformats, fmt_out) if fmt_out else None
+    tfo = getattr(tformats, fmt_out) if fmt_out else None
+    x = rng.normal(0, 1, (E, M, K)).astype(np.float32)
+    a = x if fmt_a is None else np.asarray(jposit.pack(jnp.asarray(x), jfa))
+    b = np.asarray(jposit.pack(jnp.asarray(
+        rng.normal(0, 1, (E, K, N)).astype(np.float32) / np.sqrt(K)),
+        jformats.P16_2))
+    want = np.asarray(jpm.posit_matmul_grouped(
+        jnp.asarray(a), jnp.asarray(b), jfa, jformats.P16_2, jfo,
+        interpret=True))
+    got = tpm.posit_matmul_grouped(_t(a), _t(b), tfa, tformats.P16_2, tfo)
+    assert got.numpy().dtype == want.dtype
+    if fmt_out is None:
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+    else:
+        diff = (got.numpy().astype(np.int64) - want.astype(np.int64))
+        assert np.abs(diff).max() <= 1
+    assert tpm.LAUNCHES["posit_matmul_grouped"] == 0   # no kernel on the CPU
+    # the ops entry points route here
+    if fmt_a is None and fmt_out is None:
+        np.testing.assert_array_equal(
+            tops.matmul_posit_weights_grouped(_t(a), _t(b), tformats.P16_2)
+            .numpy(), got.numpy())
+
+
+# ---------------------------------------------------------------------------
+# bit_exact serving: greedy streams against the reference engine
+# ---------------------------------------------------------------------------
+
+
+def test_bit_exact_engine_streams_match_reference():
+    """command-r's tiny serving config under validate_bit_exact (P(13,2)
+    weights and activations through the PDPU, float KV pages): greedy
+    streams equal to the reference engine's, the fused decode reported off
+    (decode_step, logits head, host sampler), the pool clean."""
+    jcfg = jconfigs.get_tiny_serving("command_r_35b",
+                                     jpolicy("validate_bit_exact"))
+    tcfg = tconfigs.get_tiny_serving("command_r_35b",
+                                     tpolicy("validate_bit_exact"))
+    jparams = jax.jit(lambda k: japi.pack_params(japi.init(k, jcfg), jcfg))(
+        jax.random.key(8))
+    tparams = tpacking.params_from_numpy(jax.tree.map(np.asarray, jparams),
+                                         tcfg, "cpu")
+    rng = np.random.default_rng(9)
+    system = rng.integers(0, jcfg.vocab_size, 16)
+    prompts = [np.concatenate([system, rng.integers(0, jcfg.vocab_size, n)])
+               .astype(np.int32) for n in (3, 9, 1)]
+    out = []
+    for eng, req in ((JEngine(jcfg, jparams, batch_slots=2, max_seq=48),
+                      JRequest),
+                     (TEngine(tcfg, tparams, batch_slots=2, max_seq=48,
+                              device="cpu"), TRequest)):
+        for rid, p in enumerate(prompts):
+            eng.submit(req(rid=rid, prompt=p, max_new_tokens=4))
+        out.append({r.rid: list(map(int, r.out_tokens)) for r in eng.run()})
+        assert not eng.execution_summary()["fused_decode"]
+    assert out[1] == out[0]
+    assert eng.pages_in_use == 0
+    assert eng.cache["k"].dtype == torch.float32   # float pages (no KV format)
