@@ -16,15 +16,20 @@ Phases (any failure exits non-zero; no phase is caught):
      (K1/K2 bitwise, K3 within 2e-5, K4 equal tokens, or a score within
      1e-5 of the largest |logit| where the plain top two are that close,
      and its first 4 rows' tokens equal over 16 rows and over 4; K5 pages
-     bitwise and attention within 2e-5 (f32) or one bf16 ulp (bf16) at
-     both span branches; K6 within 16 u sqrt(K) ||a_i . b_j||_2, a limit
-     two planted faults must fail; K7 within 2e-5, each of its rows
+     bitwise and attention within 2e-5 (f32, the SIMT variant) or one bf16
+     ulp (bf16, the tensor-core variant) at both span branches and at 64 /
+     4 heads (G = 16) over P(8,2) and bf16 pages, each case on the variant
+     its dtype picks; K6 within 16 u sqrt(K) ||a_i . b_j||_2 at every
+     projection shape of a layer at M 4 and M 256, a limit two planted
+     faults must fail, bitwise equal on a second call, timed per shape
+     and for the layer beside torch.matmul on decoded f32; K7 within
+     2e-5, each of its rows
      bitwise K3 at the row's own length, T = 1 bitwise K3, t_block 1/2/4
      bitwise equal; K8 bitwise at M 4, K 8192, N 1024, B also transposed,
      ragged with special codes; K9 within the sum bound at qwen3's expert
      shapes with float and coded activations and a fmt_out encode, a limit
-     the two planted faults must fail; K3, K7 and K5 at 64 / 4 heads (G =
-     16) over P(8,2) and bf16 float pages),
+     the two planted faults must fail; K3 and K7 at 64 / 4 heads (G =
+     16) over P(8,2) and bf16 float pages, K3 with its bound and SDPA),
      with the device time per launch (CUDA-graph replay timed by CUDA
      events; the per-call time with host overhead is printed beside it),
      the plain version's time, the bound from bytes and FLOPs at the H100
@@ -50,6 +55,8 @@ Phases (any failure exits non-zero; no phase is caught):
      Each main-path run (defaults greedy and sampled, long prompt, a13,
      speculative greedy and sampled, front end) counts its launches from
      0, and its kernels must launch in it; every page must come back;
+     each run prints its prefill steps' share of the wall time; a13's
+     decode-step K6 launches must take the P(16,2) split-K GEMV;
   6. profile: torch.profiler over a few decode steps with four slots busy,
      at the defaults and under a13, and over one speculative round, device
      time per step by kernel and the device's busy share;
@@ -61,7 +68,9 @@ Phases (any failure exits non-zero; no phase is caught):
      64-token system prompt, 16 new tokens each, greedy, every expert GEMM
      through K9; then two of its decode steps profiled.
      Phases 7 and 8 count their own launches from 0 and need K8 (K9)
-     launched 7 L + 1 (3 L) times per decode step.
+     launched 7 L + 1 (3 L) times per decode step.  Every main path runs
+     bf16 activations, so all of its K5 launches must take the
+     tensor-core variant ("prefill_attention:tc").
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -449,21 +458,26 @@ def _k4_decode_sample(dev):
                 shape="B=4 D=8192 V=256000 int16 [V, D], T=0.8 top-k 40")
 
 
-def _k5_case(dev, act, M, starts, reps):
+def _k5_case(dev, act, M, starts, reps, Hkv=8, paged_fmt="P8_2"):
     """K5 against its plain version at the serving geometry (4 slots, a
-    64-token chunk, 64 / 8 heads of 128, 16-token P(8,2) pages, M pages
-    per slot).  Slots 0 and 1 share their history pages; slot 3 has
-    page_ok all 0.  Returns (max |err|, times, bound, library time)."""
+    64-token chunk, 64 query heads of 128 over Hkv KV heads, 16-token
+    pages, M pages per slot), P(8,2) pages or (paged_fmt None) bf16 float
+    pages.  Slots 0 and 1 share their history pages; slot 3 has page_ok
+    all 0.  Checks the variant the wrapper took (tensor cores for bf16).
+    Returns (max |err|, times, bound, library time)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.core import formats, posit
+    from repro_torch.kernels import ops
     from repro_torch.kernels import prefill_attention as pf
-    fmt = formats.P8_2
-    B, C, Hq, Hkv, Dh, ps = 4, 64, 64, 8, 128, 16
+    fmt = getattr(formats, paged_fmt) if paged_fmt else None
+    B, C, Hq, Dh, ps = 4, 64, 64, 128, 16
     P = B * M + 1
     g = torch.Generator(device=dev).manual_seed(5 + M)
-    kp = posit.pack(torch.randn(P, ps, Hkv * Dh, generator=g, device=dev), fmt)
-    vp = posit.pack(torch.randn(P, ps, Hkv * Dh, generator=g, device=dev), fmt)
+    kp, vp = (torch.randn(P, ps, Hkv * Dh, generator=g, device=dev)
+              for _ in range(2))
+    kp, vp = ((posit.pack(x, fmt) for x in (kp, vp)) if fmt
+              else (x.to(act) for x in (kp, vp)))
     bt = torch.arange(1, P, device=dev, dtype=torch.int32).reshape(B, M)
     shared = starts[0] // ps
     bt[1, :shared] = bt[0, :shared]
@@ -476,7 +490,11 @@ def _k5_case(dev, act, M, starts, reps):
     ok[3] = 0
     kw = dict(fmt_kv=fmt, compute_dtype=act, flash_chunk=1024, page_ok=ok)
     kp0, vp0 = kp.clone(), vp.clone()
+    variant = "tc" if act == torch.bfloat16 else "simt"
+    before = ops.launch_counts()[f"prefill_attention:{variant}"]
     got, _, _ = pf.prefill_attention_paged(q, k, v, kp, vp, bt, st, win, **kw)
+    _check(ops.launch_counts()[f"prefill_attention:{variant}"] == before + 1,
+           f"K5 takes its {variant} variant for {act}")
     want, _, _ = pf.prefill_attention_paged_plain(q, k, v, kp0.clone(),
                                                   vp0.clone(), bt, st, win,
                                                   **kw)
@@ -503,8 +521,8 @@ def _k5_case(dev, act, M, starts, reps):
     # yardstick: SDPA over history already gathered and decoded, plus the
     # chunk, with the causal / unwritten-history mask
     S_h = M * ps
-    hk = posit.decode(kp0[bt.long()], fmt).reshape(B, S_h, Hkv, Dh).to(act)
-    hv = posit.decode(vp0[bt.long()], fmt).reshape(B, S_h, Hkv, Dh).to(act)
+    hk, hv = ((posit.decode(x[bt.long()], fmt) if fmt else x[bt.long()])
+              .reshape(B, S_h, Hkv, Dh).to(act) for x in (kp0, vp0))
     keys = torch.cat([hk, k], 1).permute(0, 2, 1, 3).repeat_interleave(
         Hq // Hkv, dim=1)
     vals = torch.cat([hv, v], 1).permute(0, 2, 1, 3).repeat_interleave(
@@ -522,12 +540,12 @@ def _k5_case(dev, act, M, starts, reps):
     # V once, the chunk's codes written (slot 3's not); operations: q.k and
     # p.v over the (query, key) pairs this data attends (causal), at the
     # peak rate of the activations' type (bf16 tensor cores for bf16).  The
-    # kernel keeps f32 FMA for parity with the plain version; the bound at
-    # the f32 rate is that design's cost and is printed beside it.
-    ab = q.element_size()
+    # SIMT variant (f32) keeps f32 FMA; the bound at the f32 rate is printed
+    # beside it.
+    ab, pb = q.element_size(), kp.element_size()
     hist_rows = sum(starts[:1] + starts[2:])   # slot 1 reads slot 0's pages
     bytes_moved = (B * C * (2 * Hq + 2 * Hkv) * Dh * ab
-                   + 2 * hist_rows * Hkv * Dh + 2 * (B - 1) * C * Hkv * Dh)
+                   + (2 * hist_rows + 2 * (B - 1) * C) * Hkv * Dh * pb)
     pairs = sum(C * s + C * (C + 1) // 2 for s in starts)
     flops = 4.0 * pairs * Hq * Dh
     rate = BF16_FLOP_PER_S if act == torch.bfloat16 else F32_FLOP_PER_S
@@ -539,27 +557,38 @@ def _k5_case(dev, act, M, starts, reps):
 def _k5_prefill(dev):
     import torch
     # serving geometry (max_seq 256: one flash pass), in bf16 as the model
-    # runs it and in f32; then a long span (M 128: two whole flash chunks
-    # of history stream before the tail)
+    # runs it and in f32; a long span (M 128: two whole flash chunks of
+    # history stream before the tail); qwen3's G = 16 over P(8,2) and bf16
+    # pages
     err16, ms, call_ms, plain_ms, bound, by, library_ms, fma_ms = _k5_case(
         dev, torch.bfloat16, 16, [64, 64, 130, 190], reps=50)
     err32 = _k5_case(dev, torch.float32, 16, [64, 64, 130, 190], reps=5)
     long = _k5_case(dev, torch.bfloat16, 128, [1024, 1024, 1500, 1984],
                     reps=10)
     print(f"kernel prefill_attention serving shape: bound_ms at the f32 FMA "
-          f"rate (the parity design's cost) {fma_ms:.4f}")
+          f"rate {fma_ms:.4f}")
     print(f"kernel prefill_attention long span (M 128, starts >= 1024, two "
           f"streamed flash chunks): ms {long[1]:.4f}, plain_ms {long[3]:.3f}, "
           f"bound_ms {long[4]:.4f} ({long[5]}), bound_ms at the f32 FMA rate "
           f"{long[7]:.4f}, library_ms {long[6]:.4f}, max_abs_err "
           f"{long[0]:.3g}")
-    print(f"kernel prefill_attention f32 activations (serving shape): ms "
-          f"{err32[1]:.4f}, bound_ms {err32[4]:.4f} ({err32[5]}), "
-          f"library_ms {err32[6]:.4f}, max_abs_err {err32[0]:.3g}")
+    print(f"kernel prefill_attention f32 activations (serving shape, SIMT "
+          f"variant): ms {err32[1]:.4f}, bound_ms {err32[4]:.4f} "
+          f"({err32[5]}), library_ms {err32[6]:.4f}, max_abs_err "
+          f"{err32[0]:.3g}")
+    errs = [err16, long[0]]
+    for paged_fmt in ("P8_2", None):
+        g16 = _k5_case(dev, torch.bfloat16, 16, [64, 64, 130, 190], reps=20,
+                       Hkv=4, paged_fmt=paged_fmt)
+        errs.append(g16[0])
+        print(f"kernel prefill_attention G=16 (64 / 4 heads, "
+              f"{paged_fmt or 'bf16'} pages): ms {g16[1]:.4f}, plain_ms "
+              f"{g16[3]:.3f}, bound_ms {g16[4]:.4f} ({g16[5]}), library_ms "
+              f"{g16[6]:.4f}, max_abs_err {g16[0]:.3g}")
     return dict(name="prefill_attention",
                 source="src/repro_torch/csrc/prefill_attention.cu",
                 replaces="src/repro/kernels/prefill_attention.py:251",
-                max_abs_err=max(err16, long[0]), ms=ms, call_ms=call_ms,
+                max_abs_err=max(errs), ms=ms, call_ms=call_ms,
                 plain_ms=plain_ms, bound_ms=bound, bound_by=by,
                 library_ms=library_ms,
                 shape="B=4 C=64 Hq=64 Hkv=8 Dh=128 ps=16 M=16 bf16, int8 "
@@ -575,7 +604,7 @@ _LAYER_KN = ((8192, 8192), (8192, 1024), (8192, 1024), (8192, 8192),
 def _k6_matmul(dev):
     import torch
     from repro_torch.core import formats, posit
-    from repro_torch.kernels import posit_codec
+    from repro_torch.kernels import ops, posit_codec
     from repro_torch.kernels import posit_matmul as pm
     fa, fb = formats.P13_2, formats.P16_2
     g = torch.Generator(device=dev).manual_seed(6)
@@ -587,8 +616,9 @@ def _k6_matmul(dev):
         torch.randn(M, K, generator=g, device=dev), fa)
         for M in (4, 256) for K in {K for K, _ in _LAYER_KN}}
     err = ratio = 0.0
-    checks = [(4, K, N, None) for K, N in sorted(set(_LAYER_KN))]
-    checks += [(256, *_LAYER_KN[0], None), (256, *_LAYER_KN[1], formats.P16_2)]
+    checks = [(M, K, N, formats.P16_2 if (M, K, N) == (256, 8192, 1024)
+               else None)
+              for M in (4, 256) for K, N in sorted(set(_LAYER_KN))]
 
     def units(gap, bound):
         # largest gap in units of u sqrt(K) ||a_i . b_j||_2 (bound / SUM_TOL)
@@ -596,7 +626,13 @@ def _k6_matmul(dev):
 
     for M, K, N, fo in checks:
         a, b = acts[(M, K)], weights[(K, N)]
+        variant = pm.matmul_variant(M, fb, b.dtype)
+        before = ops.launch_counts()[f"posit_matmul:{variant}"]
         got = pm.posit_matmul(a, b, fa, fb)
+        _check(ops.launch_counts()[f"posit_matmul:{variant}"] == before + 1,
+               f"K6 takes its {variant} variant at M={M}")
+        _check(_bits_equal(pm.posit_matmul(a, b, fa, fb), got),
+               f"K6 bitwise deterministic at M={M} K={K} N={N}")
         want = pm.posit_matmul_plain(a, b, fa, fb)
         bound = pm.sum_bound(a, b, fa, fb)
         gap = (got - want).abs()
@@ -621,28 +657,49 @@ def _k6_matmul(dev):
                    f"K6 tolerance rejects the planted fault '{what}' at "
                    f"M={M} K={K} N={N}")
             seen.append(f"{what} {units(bad_gap, bound):.4g}")
-        del A, B, faults
-        print(f"K6 M={M} K={K} N={N} fmt_out={fo}: max |err| "
+        del faults
+        ms = _device_ms(lambda: pm.posit_matmul(a, b, fa, fb), launches=5)
+        lib = _device_ms(lambda: torch.matmul(A, B), launches=5)
+        pb, pby = _bound(M * K * 2 + K * N * 2 + M * N * 4, 2.0 * M * K * N)
+        del A, B
+        print(f"K6 M={M} K={K} N={N} fmt_out={fo} ({variant}): max |err| "
               f"{float(gap.max()):.3g}, largest err in u sqrt(K) ||ab|| "
               f"{units(gap, bound):.4g} (limit {pm.SUM_TOL}; planted: "
-              f"{', '.join(seen)}), ms "
-              f"{_device_ms(lambda: pm.posit_matmul(a, b, fa, fb), launches=5):.4f}")
-    layer = [(acts[(4, K)], weights[(K, N)]) for K, N in _LAYER_KN]
+              f"{', '.join(seen)}), bitwise equal on a second call, ms "
+              f"{ms:.4f}, bound_ms {pb:.4f} ({pby}), library_ms (torch.matmul, "
+              f"decoded f32) {lib:.4f}")
 
-    def run():
-        for a, b in layer:
-            pm.posit_matmul(a, b, fa, fb)
+    def layer_record(M):
+        """Device time of one layer's 7 projections at M rows, with the
+        plain version, bound and torch.matmul on decoded f32 beside it."""
+        layer = [(acts[(M, K)], weights[(K, N)]) for K, N in _LAYER_KN]
 
-    call_ms = _time_ms(run, reps=5)
-    ms = _device_ms(run, launches=3)
-    plain_ms = _time_once_ms(lambda: [pm.posit_matmul_plain(a, b, fa, fb)
-                                      for a, b in layer])
-    decoded = [(posit.decode(a, fa), posit.decode(b, fb)) for a, b in layer]
-    library_ms = _device_ms(lambda: [torch.matmul(a, b) for a, b in decoded],
-                            launches=3)
-    bytes_moved = sum(4 * K * 2 + K * N * 2 + 4 * N * 4 for K, N in _LAYER_KN)
-    flops = sum(2.0 * 4 * K * N for K, N in _LAYER_KN)
-    bound, by = _bound(bytes_moved, flops)
+        def run():
+            for a, b in layer:
+                pm.posit_matmul(a, b, fa, fb)
+
+        reps = 5 if M <= pm.GEMV_MAX_M else 1
+        call_ms = _time_ms(run, reps=reps)
+        ms = _device_ms(run, launches=3 if reps > 1 else 1)
+        plain_ms = _time_once_ms(lambda: [pm.posit_matmul_plain(a, b, fa, fb)
+                                          for a, b in layer])
+        decoded = [(posit.decode(a, fa), posit.decode(b, fb)) for a, b in layer]
+        library_ms = _device_ms(
+            lambda: [torch.matmul(a, b) for a, b in decoded],
+            launches=3 if reps > 1 else 1)
+        del decoded
+        bytes_moved = sum(M * K * 2 + K * N * 2 + M * N * 4
+                          for K, N in _LAYER_KN)
+        flops = sum(2.0 * M * K * N for K, N in _LAYER_KN)
+        bound, by = _bound(bytes_moved, flops)
+        return ms, call_ms, plain_ms, library_ms, bound, by
+
+    ms, call_ms, plain_ms, library_ms, bound, by = layer_record(4)
+    m256 = layer_record(256)
+    print(f"kernel posit_matmul M=256 (a13 prefill, tiled variant), one "
+          f"layer's 7 projections: ms {m256[0]:.4f}, plain_ms {m256[2]:.3f}, "
+          f"bound_ms {m256[4]:.4f} ({m256[5]}), library_ms (torch.matmul, "
+          f"decoded f32) {m256[3]:.4f}")
     print(f"K6: largest |err| in u sqrt(K) ||ab|| over the checks "
           f"{ratio:.4g} (limit {pm.SUM_TOL})")
     return dict(name="posit_matmul", source="src/repro_torch/csrc/posit_matmul.cu",
@@ -823,14 +880,14 @@ def _k9_grouped(dev):
 
 
 def _attention_g16_float_pages(dev):
-    """K3, K7 and K5 at qwen3's 64 / 4 heads (G = 16) over P(8,2) pages and
+    """K3 and K7 at qwen3's 64 / 4 heads (G = 16) over P(8,2) pages and
     over bf16 float pages (validate_bit_exact has no KV format): K3 and K7
-    within 2e-5 and each K7 row bitwise K3, K5's output within one bf16
-    ulp and its page writes bitwise; device times printed."""
+    within 2e-5 and each K7 row bitwise K3; K3's device time, bound and
+    SDPA time printed.  (K5 at G = 16 is a case of `_k5_prefill`.)"""
     import torch
+    import torch.nn.functional as F
     from repro_torch.core import formats, posit
     from repro_torch.kernels import paged_attention as pa
-    from repro_torch.kernels import prefill_attention as pf
     B, Hq, Hkv, Dh, ps, M, T = 4, 64, 4, 128, 16, 16, 4
     P = B * M + 1
     g = torch.Generator(device=dev).manual_seed(16)
@@ -860,30 +917,23 @@ def _attention_g16_float_pages(dev):
                                      lengths - (T - 1 - t), full, fmt_kv=fmt)
             _check(_bits_equal(got4[:, t].contiguous(), row),
                    f"K7 row {t} bitwise K3 at {what}")
-        # K5: a 64-token chunk group of bf16 activations
-        C = 64
-        starts = torch.tensor([0, 64, 130, 17], dtype=torch.int32, device=dev)
-        qc = torch.randn(B, C, Hq, Dh, generator=g, device=dev).to(bf16)
-        kc = torch.randn(B, C, Hkv, Dh, generator=g, device=dev).to(bf16)
-        vc = torch.randn(B, C, Hkv, Dh, generator=g, device=dev).to(bf16)
-        kw = dict(fmt_kv=fmt, compute_dtype=bf16, flash_chunk=1024)
-        kp2, vp2 = kp.clone(), vp.clone()
-        out, _, _ = pf.prefill_attention_paged(qc, kc, vc, kp, vp, bt, starts,
-                                               full, **kw)
-        ref, _, _ = pf.prefill_attention_paged_plain(qc, kc, vc, kp2, vp2, bt,
-                                                     starts, full, **kw)
-        _check(bool(torch.allclose(out.float(), ref.float(), rtol=2.0 ** -7,
-                                   atol=1e-6)),
-               f"K5 within one bf16 ulp at {what}")
-        _check(_bits_equal(kp[1:], kp2[1:]) and _bits_equal(vp[1:], vp2[1:]),
-               f"K5 page writes bitwise at {what}")
         ms3 = _device_ms(lambda: pa.paged_attention(q, kp, vp, bt, lengths,
                                                     full, fmt_kv=fmt),
                          launches=50)
-        ms5 = _device_ms(lambda: pf.prefill_attention_paged(
-            qc, kc, vc, kp2, vp2, bt, starts, full, **kw), launches=10)
-        print(f"attention at {what}: K3 {ms3:.4f} ms (B 4, L <= 256), K5 "
-              f"{ms5:.4f} ms (B 4, C 64): within tolerance, K7 rows bitwise K3")
+        # bound and yardstick as for the main K3 row (`_k3_attention`)
+        kd, vd = ((posit.decode(x[bt.long()], fmt) if fmt
+                   else x[bt.long()].float()).reshape(B, M * ps, Hkv, Dh)
+                  .permute(0, 2, 1, 3).repeat_interleave(Hq // Hkv, dim=1)
+                  for x in (kp, vp))
+        library_ms = _device_ms(lambda: F.scaled_dot_product_attention(
+            q[:, :, None, :], kd, vd), launches=50)
+        pages = sum(-(-int(n) // ps) for n in lengths.tolist())
+        bytes_moved = (2 * q.numel() * 4 + 2 * pages * ps * Hkv * Dh
+                       * kp.element_size() + bt.numel() * 4 + B * 4)
+        bound, by = _bound(bytes_moved, 4.0 * Hq * Dh * int(lengths.sum()))
+        print(f"attention at {what}: K3 ms {ms3:.4f} (B 4, L <= 256), "
+              f"bound_ms {bound:.4f} ({by}), library_ms {library_ms:.4f}: "
+              f"within tolerance, K7 rows bitwise K3")
 
 
 # ---------------------------------------------------------------------------
@@ -947,6 +997,7 @@ def _run_engine(cfg, params, prompts, label: str, new_tokens: int = 16,
         engine.submit(Request(rid=rid, prompt=p, max_new_tokens=new_tokens))
     torch.cuda.reset_peak_memory_stats()
     decode_ms = []
+    prefill_ms = []   # steps that ran a prefill chunk group
     round_ms = []
     per_step: dict = {}
     t0 = time.perf_counter()
@@ -959,7 +1010,9 @@ def _run_engine(cfg, params, prompts, label: str, new_tokens: int = 16,
         if not engine.step():
             break
         torch.cuda.synchronize()
-        if engine.stats["prefill_chunks"] == chunks:
+        if engine.stats["prefill_chunks"] != chunks:
+            prefill_ms.append((time.perf_counter() - s0) * 1e3)
+        else:
             decode_ms.append((time.perf_counter() - s0) * 1e3)
             if engine.stats["spec_rounds"] > rounds:
                 round_ms.append(decode_ms[-1])
@@ -980,6 +1033,9 @@ def _run_engine(cfg, params, prompts, label: str, new_tokens: int = 16,
           f"{n_tok / wall:.2f} tok/s, mean decode step "
           f"{float(np.mean(decode_ms)):.3f} ms over {len(decode_ms)} "
           f"steps, peak memory {torch.cuda.max_memory_allocated()} B")
+    print(f"{label}: prefill steps {len(prefill_ms)}, "
+          f"{sum(prefill_ms):.3f} ms, {100 * sum(prefill_ms) / 1e3 / wall:.1f}% "
+          f"of the wall time")
     print(f"{label}: launches per pure decode step " + json.dumps(
         {k: v / n_steps for k, v in per_step.items()}))
     print(f"{label}: stats " + json.dumps(
@@ -1139,6 +1195,9 @@ def _serve(dev):
     per_layer = 7 * cfg.n_layers
     _check(per_step.get("posit_matmul", 0) == per_layer * n_steps,
            f"K6 launched {per_layer} times per pure decode step")
+    _check(per_step.get("posit_matmul:gemv_p16_2", 0) == per_layer * n_steps,
+           "K6's decode-step launches take the split-K GEMV with the "
+           "P(16,2) decode")
     for name in ("posit_encode", "paged_attention", "decode_sample",
                  "prefill_attention", "posit_matmul"):
         _check(counts["a13 greedy"][name] > 0,
@@ -1613,16 +1672,27 @@ def main() -> int:
     _profile(moe_cfg, moe_params, moe_prompts, "MoE", steps=2)
     del moe_params
     _release()
+    # every main path runs bf16 activations: K5 must take its tensor-core
+    # variant (exact three-term splits) on each of them
+    for label, c in counts.items():
+        _check(c["prefill_attention"] > 0
+               and c["prefill_attention:tc"] == c["prefill_attention"],
+               f"'{label}': every K5 launch took the tensor-core variant")
     # launches: the sum of the main-path runs' own counts (each from 0);
-    # launches_by_path: each run's count
+    # launches_by_path: each run's count; launches_by_variant: the sum by
+    # the wrapper's variant (K5, K6)
     for rec in kernels:
         rec["launches_by_path"] = {label: c[rec["name"]]
                                    for label, c in counts.items()}
         rec["launches"] = sum(rec["launches_by_path"].values())
+        rec["launches_by_variant"] = {
+            key.split(":", 1)[1]: sum(c[key] for c in counts.values())
+            for key in next(iter(counts.values()))
+            if key.startswith(rec["name"] + ":")}
         rec["route"] = "cuda"
     keys = ("name", "route", "source", "replaces", "launches",
-            "launches_by_path", "max_abs_err", "ms", "plain_ms", "bound_ms",
-            "bound_by", "library_ms")
+            "launches_by_path", "launches_by_variant", "max_abs_err", "ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in kernels]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}))

@@ -1,48 +1,77 @@
-// K5 prefill_attention: one prefill chunk of every slot in one launch --
+// K5 prefill_attention: one prefill chunk of every slot in one call --
 // flash attention over [decoded history pages | raw chunk | pad], the posit
 // encode of the chunk's K/V and their in-place page writes.
 //
-// Replaces src/repro/kernels/prefill_attention.py:prefill_attention_paged
-// (_fused_prefill_kernel).  On the TPU the grid is (slot, page) and the
+// Replaces src/repro/kernels/prefill_attention.py:251
+// prefill_attention_paged (its pl.pallas_call at :376,
+// _fused_prefill_kernel).  On the TPU the grid is (slot, page) and the
 // page axis runs in order: each step stages one decoded page into a VMEM
 // ring one flash chunk wide, folds a full ring into the running softmax,
-// and merge-writes the page's chunk rows.  Blocks on Hopper run in no
-// order, so here one block owns (slot b, KV head h, a tile of QT chunk
-// queries) and serves the G = Hq / Hkv query heads of its group, R = G * QT
-// rows, walking the slot's whole key span itself:
-//   * keys: the span [history S_h = M * ps | chunk C | pad] is scanned in
-//     flash chunks of ck = min(flash_chunk, S_h + C) keys -- the chunk
-//     boundaries of models/common.py:flash_attention -- each staged kKT
-//     keys at a time into shared memory.  History keys come from the
-//     slot's pages through its block table, head h's Dh columns only,
-//     decoded (posit.cuh) and rounded to the compute dtype as kv_decode
-//     does; chunk keys are the raw (pre-encode) k / v.
-//   * per flash chunk every score of the chunk is kept in shared memory
-//     ([R][ck]); then m_new = max(m, row max), p = exp(s - m_new),
-//     corr = exp(m - m_new), l = l * corr + sum p and o = o * corr + p @ v
-//     (the o * corr term is kept, as the reference keeps it), and at the
-//     end o / max(l, 1e-30).  Masked keys (history at or past the chunk
-//     start, causal, window, pad) score -2e38 and get p = 0; tiles with no
-//     live key are never loaded.
-//   * page writes: each block encodes (RNE, as K2) the chunk rows of its
-//     own query tile, head h's columns, and writes them in place.  Rows on
-//     pages with bt = 0 or page_ok = 0 are not written.  History reads
-//     cover rows < start and writes rows >= start, so within a slot they
-//     are disjoint; across slots the serving engine forks every shared
-//     page before the launch (copy-on-write), so no page is written by one
-//     slot while another reads it.
-//   * arithmetic is f32 FMA, not tensor cores: TF32 would round P(16,1)
-//     history and the activations.
+// and merge-writes the page's chunk rows.  The numerics to keep are
+// models/common.py:flash_attention's: q * scale in f32, f32 scores,
+// p = exp(s - m) in f32, v in f32 for p @ v, o * corr + p @ v, and
+// o / max(l, 1e-30) at the end.
 //
-// Bound on an H100: at the serving shapes (4 slots, a 64-token chunk,
-// 64 / 8 heads of 128, a span of 320 keys) the launch does about 2.7 GFLOP
-// of f32 work over 3 MB of chunk activations and pages, so f32 SIMT rate,
-// then latency, bounds it; a grid of B * Hkv * ceil(C / QT) blocks keeps
-// the SMs busy.
+// Bound on an H100 at the serving shape (4 slots, a 64-token chunk, 64 / 8
+// heads of 128, P(8,2) pages, spans of up to 320 keys): about 1.2 GFLOP of
+// causal q.k and p.v work over some 3 MB of activations and codes: 1 us of
+// HBM bytes, 1.2 us at the bf16 tensor-core rate (3.7 us for the three
+// split terms below), 18 us at the f32 FMA rate.  So the arithmetic has
+// to run on tensor cores, and at these sizes what is left is latency: few
+// launches, enough blocks, no serial loops.
+//
+// The tensor-core variant (bf16 activations, head_dim a multiple of 16 up
+// to 128: every serving path of the port) is two kernels:
+//   * prefill_attention_span_kernel decodes each history element once per
+//     (slot, KV head) -- not once per query tile -- into a bf16 span buffer
+//     [2 (K, V), B, Hkv, L, Dh] (L = history + chunk rounded up to 64
+//     keys; unwritten history rows and pad are zeros), copies the raw chunk
+//     k / v behind it, and encodes (RNE, as K2) the chunk rows into their
+//     pages in place.  Rows on pages with bt = 0 or page_ok = 0 are not
+//     written.  History reads cover rows < start and writes rows >= start,
+//     so within a slot they are disjoint; across slots the serving engine
+//     forks every shared page before the call (copy-on-write).  Hopper
+//     blocks cannot wait for one another inside a launch, so one pass
+//     over the span, which then sits in the 50 MB L2 for the next kernel,
+//     is the simplest way to decode once and still keep 256 blocks busy.
+//   * prefill_attention_tc_kernel: one block per (64 query rows, KV head,
+//     slot), 4 warps of 16 rows (row r = chunk query r / G, query head
+//     h * G + r % G).  Key tiles of 64 stream from the span buffer through
+//     shared memory with cp.async, double-buffered; tiles no row of the
+//     block may see (past the causal edge, before the window, unwritten
+//     history) are never loaded.  S = q K^T and O += P V run on
+//     mma.sync.m16n8k16 bf16 with f32 accumulators, their K and V
+//     fragments read by ldmatrix (.trans for V); the score accumulators
+//     become P's A fragments in registers.
+//   * exact products: every K and V operand is exact in bf16 (P(8,2) pages
+//     have at most 3 fraction bits; other coded history is rounded to bf16
+//     by the kv_decode dtype chain, hist_bf16; raw chunk k / v are bf16).
+//     q * scale and p are f32: each is split exactly into three bf16 terms,
+//     hi = bf16(x), mid = bf16(x - hi), lo = bf16(x - hi - mid) (x - hi is
+//     exact and has at most 16 significant bits, x - hi - mid at most 8),
+//     so x = hi + mid + lo and S = sum of three MMAs, P V likewise.  Every
+//     product is exact; only the order of the f32 sums differs from the
+//     plain version, as on the SIMT path.  (Below 2^-110, where lo or a
+//     product would be an f32 subnormal, a term loses at most 2^-126, far
+//     below the tolerance.)  No default path rounds q or p to one bf16 term.
+//   * softmax: a running row max over the key tiles (m, l and the o * corr
+//     rescale per tile) instead of one max per flash chunk: the same
+//     function, with p = exp(s - m) rounded at other points; flash-chunk
+//     boundaries therefore play no part here, and the shared-memory use is
+//     70 KB per block at any span (2 blocks per SM).
+// The SIMT variant (f32 activations -- an exact split of f32 chunk k / v
+// would take nine MMAs -- and head dims that are not a multiple of 16) is
+// prefill_attention_simt_kernel: one block per (slot, KV head, 4 chunk
+// queries), every score of a flash chunk of ck keys in shared memory
+// before its row max (the reference's per-flash-chunk softmax), f32 FMA
+// throughout, and its own page writes of its query tile's rows.  The
+// wrapper picks the variant by dtype and head_dim
+// (kernels/prefill_attention.py:prefill_variant).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 #include "posit.cuh"
 
@@ -131,7 +160,7 @@ __device__ __forceinline__ void stage_tile(
 }
 
 template <typename AT, typename PT>
-__global__ void __launch_bounds__(kThreads) prefill_attention_kernel(
+__global__ void __launch_bounds__(kThreads) prefill_attention_simt_kernel(
     const AT* __restrict__ q, const AT* __restrict__ k,
     const AT* __restrict__ v, PT* __restrict__ k_pages,
     PT* __restrict__ v_pages, const int* __restrict__ bt,
@@ -300,7 +329,7 @@ size_t smem_bytes(int R, int Dh, int ck) {
 constexpr size_t kSmemCap = 200 * 1024;
 
 template <typename AT, typename PT>
-int launch(const void* q, const void* k, const void* v, void* k_pages,
+int launch_simt(const void* q, const void* k, const void* v, void* k_pages,
            void* v_pages, const int* bt, const int* starts, const int* window,
            const int* page_ok, void* out, int B, int C, int M, int ps, int Hq,
            int Hkv, int Dh, int n, int es, int hist_bf16, int ck, float scale,
@@ -312,73 +341,536 @@ int launch(const void* q, const void* k, const void* v, void* k_pages,
   if (smem > kSmemCap) return (int)cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        prefill_attention_kernel<AT, PT>,
+        prefill_attention_simt_kernel<AT, PT>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   dim3 grid((C + QT - 1) / QT, Hkv, B);
-  prefill_attention_kernel<AT, PT><<<grid, kThreads, smem, s>>>(
+  prefill_attention_simt_kernel<AT, PT><<<grid, kThreads, smem, s>>>(
       (const AT*)q, (const AT*)k, (const AT*)v, (PT*)k_pages, (PT*)v_pages,
       bt, starts, window, page_ok, (AT*)out, C, M, ps, Hq, Hkv, Dh, n, es,
       hist_bf16, QT, ck, scale, softcap);
   return (int)cudaGetLastError();
 }
 
+
+// ---- tensor-core variant -------------------------------------------------
+
+constexpr int kTcThreads = 128;  // 4 warps x 16 query rows
+constexpr int kTcRows = 64;      // query rows per block
+constexpr int kTcKeys = 64;      // keys per tile
+constexpr int kDMax = 128;       // largest head_dim of this variant
+constexpr int kPad = 8;          // bf16 pad per shared-memory row
+
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// x0, x1 -> three packed bf16 pairs with x = t[0] + t[1] + t[2] exactly
+__device__ __forceinline__ void split3(float x0, float x1, uint32_t* t) {
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    const __nv_bfloat162 v = __floats2bfloat162_rn(x0, x1);
+    t[i] = *reinterpret_cast<const uint32_t*>(&v);
+    x0 -= __low2float(v);
+    x1 -= __high2float(v);
+  }
+}
+
+// not volatile: the compiler may interleave independent MMAs
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Four 8x8 bf16 matrices from shared memory; lane l gives the address of
+// row l % 8 of matrix l / 8, and r[i] receives matrix i's (row lane / 4,
+// cols 2 (lane % 4), +1) -- with .trans its (rows 2 (lane % 4), +1, col
+// lane / 4).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const bf16* p) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(s));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const bf16* p) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(s));
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Position of span key kk: history rows below start, chunk rows, else -1.
+__device__ __forceinline__ int key_pos(int kk, int S_h, int C, int start) {
+  if (kk < S_h) return kk < start ? kk : -1;
+  return kk - S_h < C ? start + kk - S_h : -1;
+}
+
+// May any query position in [qlo, qhi] see a key of tile [t0, t0 + 64)?
+// A key at position p is seen by queries in [p, p + win).
+__device__ __forceinline__ bool tc_tile_live(int t0, int S_h, int C,
+                                             int start, int qlo, int qhi,
+                                             long long win) {
+  const int t1 = t0 + kTcKeys;
+  const int h1 = min(min(t1, S_h), start);
+  if (t0 < h1 && t0 <= qhi && (long long)(h1 - 1) + win > qlo) return true;
+  const int c0 = max(t0, S_h), c1 = min(t1, S_h + C);
+  if (c0 >= c1) return false;
+  const int p0 = start + c0 - S_h, p1 = start + c1 - 1 - S_h;
+  return p0 <= qhi && (long long)p1 + win > qlo;
+}
+
+// A pool entry as f32: int8 codes from the decode table, others decoded.
+template <typename PT>
+__device__ __forceinline__ float table_or_decode(const float*, PT c, int n,
+                                                 int es) {
+  return pool_value(c, n, es);
+}
+__device__ __forceinline__ float table_or_decode(const float* table, int8_t c,
+                                                 int, int) {
+  return table[(uint8_t)c];
+}
+
+// Span rows of one (slot, KV head): the first half of the block's threads
+// K, the second V, 128 / (Dh / 8) rows each, 8 values a thread.  int8
+// pages decode through a 256-entry table in shared memory (one lookup a
+// code).  Tiles that hold neither a written history row nor a chunk row
+// are never loaded by prefill_attention_tc_kernel and are not written; in
+// the others, unwritten history and pad rows are zeros.  A chunk row is
+// copied and also encoded into its page (the page write).
+template <typename PT>
+__global__ void __launch_bounds__(256) prefill_attention_span_kernel(
+    const bf16* __restrict__ k, const bf16* __restrict__ v,
+    PT* __restrict__ k_pages, PT* __restrict__ v_pages,
+    const int* __restrict__ bt, const int* __restrict__ starts,
+    const int* __restrict__ page_ok, bf16* __restrict__ span, int B, int C,
+    int M, int ps, int Hkv, int Dh, int L, int n, int es) {
+  constexpr bool kTable = std::is_same<PT, int8_t>::value;
+  __shared__ float table[kTable ? 256 : 1];
+  if (kTable) {
+    table[threadIdx.x] = posit_decode(threadIdx.x, n, es);
+    __syncthreads();
+  }
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int is_v = threadIdx.x >= 128, tid = threadIdx.x & 127;
+  const int vecs = Dh / 8, rows = 128 / vecs;
+  const int t = blockIdx.x * rows + tid / vecs;
+  const int d0 = (tid % vecs) * 8;
+  if (tid >= rows * vecs || t >= L) return;
+  const int F = Hkv * Dh, S_h = M * ps, start = starts[b];
+  const int tile0 = t / kTcKeys * kTcKeys;
+  if (!(tile0 < min(start, S_h) || tile0 + kTcKeys > S_h)) return;
+  PT* pages = is_v ? v_pages : k_pages;
+  uint4 val = make_uint4(0u, 0u, 0u, 0u);
+  if (t < S_h) {
+    if (t < start) {
+      const PT* src = pages + ((size_t)bt[b * M + t / ps] * ps + t % ps) * F +
+                      h * Dh + d0;
+      float x[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        x[e] = table_or_decode(table, src[e], n, es);
+      val = make_uint4(pack_bf16(x[0], x[1]), pack_bf16(x[2], x[3]),
+                       pack_bf16(x[4], x[5]), pack_bf16(x[6], x[7]));
+    }
+  } else if (t - S_h < C) {
+    const int j = t - S_h;
+    val = *reinterpret_cast<const uint4*>(
+        (is_v ? v : k) + (((size_t)b * C + j) * Hkv + h) * Dh + d0);
+    const int pos = start + j;
+    const int idx = min(max(pos / ps, 0), M - 1);
+    const int page = bt[b * M + idx];
+    if (page != 0 && (page_ok == nullptr || page_ok[b * M + idx] != 0)) {
+      PT* dst = pages + ((size_t)page * ps + pos % ps) * F + h * Dh + d0;
+      const bf16* x8 = reinterpret_cast<const bf16*>(&val);
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        pool_store(dst + e, __bfloat162float(x8[e]), n, es);
+    }
+  }
+  *reinterpret_cast<uint4*>(
+      span + ((((size_t)is_v * B + b) * Hkv + h) * L + t) * Dh + d0) = val;
+}
+
+__global__ void __launch_bounds__(kTcThreads, 2) prefill_attention_tc_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ span,
+    const int* __restrict__ starts, const int* __restrict__ window,
+    bf16* __restrict__ out, int B, int C, int M, int ps, int Hq, int Hkv,
+    int Dh, int L, float scale, float softcap) {
+  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int G = Hq / Hkv, R = G * C, S_h = M * ps;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tig = lane & 3;
+  const int start = starts[b];
+  const long long win = window[0];
+  const int DS = Dh + kPad;
+  const int nks = Dh / 16, ndn = Dh / 8;
+
+  extern __shared__ float4 tc_smem4[];
+  bf16* Ks = reinterpret_cast<bf16*>(tc_smem4);  // [2][kTcKeys][DS]
+  bf16* Vs = Ks + 2 * kTcKeys * DS;               // [2][kTcKeys][DS]
+  const bf16* kspan = span + ((size_t)b * Hkv + h) * L * Dh;
+  const bf16* vspan = span + (((size_t)B + b) * Hkv + h) * L * Dh;
+
+  // this thread's rows: r_base + g and r_base + g + 8
+  const int r_base = qt * kTcRows + warp * 16;
+  int qpos[2];
+  bool rvalid[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = r_base + g + 8 * i;
+    rvalid[i] = r < R;
+    qpos[i] = start + r / G;
+  }
+  const int r_lo = qt * kTcRows, r_hi = min(R, r_lo + kTcRows) - 1;
+  const int qlo = start + r_lo / G, qhi = start + r_hi / G;
+
+  float o[kDMax / 8][4];
+#pragma unroll
+  for (int dn = 0; dn < kDMax / 8; ++dn)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[dn][e] = 0.0f;
+  float m_r[2] = {kNeg, kNeg}, l_r[2] = {0.0f, 0.0f};
+
+  const int n_tiles = L / kTcKeys;
+  auto next_live = [&](int t) {
+    while (t < n_tiles &&
+           !tc_tile_live(t * kTcKeys, S_h, C, start, qlo, qhi, win))
+      ++t;
+    return t;
+  };
+  auto issue = [&](int t, int buf) {
+    const int per_row = Dh / 8;
+    for (int c = threadIdx.x; c < kTcKeys * per_row; c += kTcThreads) {
+      const int key = c / per_row, d8 = (c % per_row) * 8;
+      const size_t src = (size_t)(t * kTcKeys + key) * Dh + d8;
+      const int dst = (buf * kTcKeys + key) * DS + d8;
+      cp_async16(Ks + dst, kspan + src);
+      cp_async16(Vs + dst, vspan + src);
+    }
+    cp_async_commit();
+  };
+
+  // the block's 64 q rows, staged in the second K buffer (free until the
+  // loop's first prefetch) together with the first key tile; rows past R
+  // are zeros
+  {
+    const int per_row = Dh / 8;
+    bf16* Qs = Ks + kTcKeys * DS;
+    for (int c = threadIdx.x; c < kTcRows * per_row; c += kTcThreads) {
+      const int row = c / per_row, d8 = (c % per_row) * 8;
+      const int r = qt * kTcRows + row;
+      if (r < R)
+        cp_async16(Qs + row * DS + d8,
+                   q + (((size_t)b * C + r / G) * Hq + h * G + r % G) * Dh +
+                       d8);
+      else
+        *reinterpret_cast<uint4*>(Qs + row * DS + d8) =
+            make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
+  cp_async_commit();
+  int t = next_live(0), buf = 0;
+  if (t < n_tiles) issue(t, 0);
+  cp_async_wait_all();
+  __syncthreads();
+
+  // q * scale as three bf16 A fragments per 16-wide k step (ldmatrix:
+  // lane l gives row l % 8 + 8 * ((l / 8) % 2), cols 8 * (l / 16))
+  uint32_t qf[3][kDMax / 16][4];
+  {
+    const bf16* ql = Ks + kTcKeys * DS +
+                     (warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * DS +
+                     (lane >> 4) * 8;
+#pragma unroll
+    for (int ks = 0; ks < kDMax / 16; ++ks) {
+      if (ks >= nks) break;
+      uint32_t raw[4];
+      ldmatrix_x4(raw, ql + ks * 16);
+#pragma unroll
+      for (int reg = 0; reg < 4; ++reg) {
+        const __nv_bfloat162 x =
+            *reinterpret_cast<const __nv_bfloat162*>(&raw[reg]);
+        uint32_t t3[3];
+        split3(__low2float(x) * scale, __high2float(x) * scale, t3);
+#pragma unroll
+        for (int i = 0; i < 3; ++i) qf[i][ks][reg] = t3[i];
+      }
+    }
+  }
+
+  while (t < n_tiles) {
+    const int t_next = next_live(t + 1);
+    cp_async_wait_all();
+    __syncthreads();  // tile t landed; every warp is done with tile t - 1
+                      // (and, on the first pass, with the staged q rows)
+    if (t_next < n_tiles) issue(t_next, buf ^ 1);
+    const bf16* Kt = Ks + buf * kTcKeys * DS;
+    const bf16* Vt = Vs + buf * kTcKeys * DS;
+
+    // S = (hi + mid + lo) K^T over the tile's 64 keys (8 n-tiles of 8)
+    float s[kTcKeys / 8][4];
+#pragma unroll
+    for (int nt = 0; nt < kTcKeys / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nt][e] = 0.0f;
+    // B fragments of n-tiles 2 np and 2 np + 1 by one ldmatrix: lane l
+    // gives key (2 np + l / 16) * 8 + l % 8, dims ks * 16 + 8 * ((l / 8) % 2);
+    // a k step loads all 8 n-tiles, then runs the 3 terms across them
+    const bf16* kl = Kt + ((lane >> 4) * 8 + (lane & 7)) * DS +
+                     ((lane >> 3) & 1) * 8;
+#pragma unroll
+    for (int ks = 0; ks < kDMax / 16; ++ks) {
+      if (ks >= nks) break;
+      uint32_t b[kTcKeys / 16][4];
+#pragma unroll
+      for (int np = 0; np < kTcKeys / 16; ++np)
+        ldmatrix_x4(b[np], kl + np * 16 * DS + ks * 16);
+#pragma unroll
+      for (int i = 0; i < 3; ++i)
+#pragma unroll
+        for (int np = 0; np < kTcKeys / 16; ++np) {
+          mma_bf16(s[2 * np], qf[i][ks], b[np][0], b[np][1]);
+          mma_bf16(s[2 * np + 1], qf[i][ks], b[np][2], b[np][3]);
+        }
+    }
+
+    // softcap, mask, running max; element e of n-tile nt is row
+    // g + 8 * (e >> 1), key t * 64 + nt * 8 + tig * 2 + (e & 1).  A tile of
+    // written history that every row sees whole needs no mask (rows past
+    // R are never stored, and their zero q gives finite scores).
+    const bool whole = t * kTcKeys + kTcKeys <= min(start, S_h) &&
+                       (long long)qhi - t * kTcKeys < win;
+    float mx[2] = {kNeg, kNeg};
+#pragma unroll
+    for (int nt = 0; nt < kTcKeys / 8; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1;
+        float x = s[nt][e];
+        if (softcap > 0.0f) x = softcap * tanhf(x / softcap);
+        if (!whole) {
+          const int pos = key_pos(t * kTcKeys + nt * 8 + tig * 2 + (e & 1),
+                                  S_h, C, start);
+          const bool ok = rvalid[i] && pos >= 0 && qpos[i] >= pos &&
+                          (long long)(qpos[i] - pos) < win;
+          x = ok ? x : kNeg;
+        }
+        s[nt][e] = x;
+        mx[i] = fmaxf(mx[i], x);
+      }
+    }
+    float corr[2], psum[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      const float m_new = fmaxf(m_r[i], mx[i]);
+      corr[i] = expf(m_r[i] - m_new);
+      m_r[i] = m_new;
+    }
+#pragma unroll
+    for (int nt = 0; nt < kTcKeys / 8; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1;
+        const float p = s[nt][e] == kNeg ? 0.0f : expf(s[nt][e] - m_r[i]);
+        s[nt][e] = p;
+        psum[i] += p;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      psum[i] += __shfl_xor_sync(0xffffffffu, psum[i], 1);
+      psum[i] += __shfl_xor_sync(0xffffffffu, psum[i], 2);
+      l_r[i] = l_r[i] * corr[i] + psum[i];
+    }
+#pragma unroll
+    for (int dn = 0; dn < kDMax / 8; ++dn) {
+      o[dn][0] *= corr[0];
+      o[dn][1] *= corr[0];
+      o[dn][2] *= corr[1];
+      o[dn][3] *= corr[1];
+    }
+
+    // O += (hi + mid + lo)(P) V, 16 keys per k step: the score fragments
+    // of n-tiles 2 kk and 2 kk + 1 are the A fragment of that step
+#pragma unroll
+    for (int kk = 0; kk < kTcKeys / 16; ++kk) {
+      uint32_t pa[3][4], t3[3];
+      split3(s[2 * kk][0], s[2 * kk][1], t3);
+#pragma unroll
+      for (int i = 0; i < 3; ++i) pa[i][0] = t3[i];
+      split3(s[2 * kk][2], s[2 * kk][3], t3);
+#pragma unroll
+      for (int i = 0; i < 3; ++i) pa[i][1] = t3[i];
+      split3(s[2 * kk + 1][0], s[2 * kk + 1][1], t3);
+#pragma unroll
+      for (int i = 0; i < 3; ++i) pa[i][2] = t3[i];
+      split3(s[2 * kk + 1][2], s[2 * kk + 1][3], t3);
+#pragma unroll
+      for (int i = 0; i < 3; ++i) pa[i][3] = t3[i];
+      // B fragments of dim tiles dn and dn + 1 by one transposing
+      // ldmatrix: lane l gives key kk * 16 + 8 * ((l / 8) % 2) + l % 8,
+      // dims (dn + l / 16) * 8
+      const bf16* vl =
+          Vt + (kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) * DS +
+          (lane >> 4) * 8;
+#pragma unroll
+      for (int dn = 0; dn < kDMax / 8; dn += 2) {
+        if (dn >= ndn) break;
+        uint32_t b[4];
+        ldmatrix_x4_trans(b, vl + dn * 8);
+#pragma unroll
+        for (int i = 0; i < 3; ++i) {
+          mma_bf16(o[dn], pa[i], b[0], b[1]);
+          mma_bf16(o[dn + 1], pa[i], b[2], b[3]);
+        }
+      }
+    }
+    t = t_next;
+    buf ^= 1;
+  }
+
+  // o / max(l, 1e-30) -> bf16; element (dn, e) is row g + 8 * (e >> 1),
+  // dims dn * 8 + tig * 2 + (e & 1)
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (!rvalid[i]) continue;
+    const int r = r_base + g + 8 * i;
+    bf16* dst =
+        out + (((size_t)b * C + r / G) * Hq + h * G + r % G) * Dh + tig * 2;
+    const float l = fmaxf(l_r[i], 1e-30f);
+#pragma unroll
+    for (int dn = 0; dn < kDMax / 8; ++dn) {
+      if (dn >= ndn) break;
+      *reinterpret_cast<__nv_bfloat162*>(dst + dn * 8) =
+          __floats2bfloat162_rn(o[dn][2 * i] / l, o[dn][2 * i + 1] / l);
+    }
+  }
+}
+
+size_t tc_smem_bytes(int Dh) {
+  return sizeof(bf16) * 4 * kTcKeys * (size_t)(Dh + kPad);
+}
+
+template <typename PT>
+int launch_tc(const void* q, const void* k, const void* v, void* k_pages,
+              void* v_pages, const int* bt, const int* starts,
+              const int* window, const int* page_ok, void* out, void* span,
+              int B, int C, int M, int ps, int Hq, int Hkv, int Dh, int n,
+              int es, float scale, float softcap, cudaStream_t s) {
+  if (Dh % 16 != 0 || Dh > kDMax) return (int)cudaErrorInvalidValue;
+  const int L = (M * ps + C + kTcKeys - 1) / kTcKeys * kTcKeys;
+  const int rows = 128 / (Dh / 8);
+  prefill_attention_span_kernel<PT>
+      <<<dim3((L + rows - 1) / rows, Hkv, B), 256, 0, s>>>(
+      (const bf16*)k, (const bf16*)v, (PT*)k_pages, (PT*)v_pages, bt, starts,
+      page_ok, (bf16*)span, B, C, M, ps, Hkv, Dh, L, n, es);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const size_t smem = tc_smem_bytes(Dh);
+  if (smem > 48 * 1024) {
+    e = cudaFuncSetAttribute(prefill_attention_tc_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const int G = Hq / Hkv;
+  dim3 grid((G * C + kTcRows - 1) / kTcRows, Hkv, B);
+  prefill_attention_tc_kernel<<<grid, kTcThreads, smem, s>>>(
+      (const bf16*)q, (const bf16*)span, starts, window, (bf16*)out, B, C, M,
+      ps, Hq, Hkv, Dh, L, scale, softcap);
+  return (int)cudaGetLastError();
+}
+
 template <typename AT>
-int launch_pool(int pool_kind, const void* q, const void* k, const void* v,
-                void* kp, void* vp, const int* bt, const int* st,
-                const int* win, const int* ok, void* out, int B, int C, int M,
-                int ps, int Hq, int Hkv, int Dh, int n, int es, int hist_bf16,
-                int ck, float scale, float softcap, cudaStream_t s) {
+int launch_pool(int variant, int pool_kind, const void* q, const void* k,
+                const void* v, void* kp, void* vp, const int* bt,
+                const int* st, const int* win, const int* ok, void* out,
+                void* span, int B, int C, int M, int ps, int Hq, int Hkv,
+                int Dh, int n, int es, int hist_bf16, int ck, float scale,
+                float softcap, cudaStream_t s) {
+#define K5_LAUNCH(PT)                                                        \
+  if (variant == 1)                                                          \
+    return std::is_same<AT, __nv_bfloat16>::value                            \
+               ? launch_tc<PT>(q, k, v, kp, vp, bt, st, win, ok, out, span,  \
+                               B, C, M, ps, Hq, Hkv, Dh, n, es, scale,       \
+                               softcap, s)                                   \
+               : (int)cudaErrorInvalidValue;                                 \
+  return launch_simt<AT, PT>(q, k, v, kp, vp, bt, st, win, ok, out, B, C, M, \
+                             ps, Hq, Hkv, Dh, n, es, hist_bf16, ck, scale,   \
+                             softcap, s)
   switch (pool_kind) {
     case 0:
-      return launch<AT, int8_t>(q, k, v, kp, vp, bt, st, win, ok, out, B, C,
-                                M, ps, Hq, Hkv, Dh, n, es, hist_bf16, ck,
-                                scale, softcap, s);
+      K5_LAUNCH(int8_t);
     case 1:
-      return launch<AT, int16_t>(q, k, v, kp, vp, bt, st, win, ok, out, B, C,
-                                 M, ps, Hq, Hkv, Dh, n, es, hist_bf16, ck,
-                                 scale, softcap, s);
+      K5_LAUNCH(int16_t);
     case 2:
-      return launch<AT, float>(q, k, v, kp, vp, bt, st, win, ok, out, B, C,
-                               M, ps, Hq, Hkv, Dh, n, es, hist_bf16, ck,
-                               scale, softcap, s);
+      K5_LAUNCH(float);
     case 3:
-      return launch<AT, __nv_bfloat16>(q, k, v, kp, vp, bt, st, win, ok, out,
-                                       B, C, M, ps, Hq, Hkv, Dh, n, es,
-                                       hist_bf16, ck, scale, softcap, s);
+      K5_LAUNCH(__nv_bfloat16);
     default:
       return (int)cudaErrorInvalidValue;
   }
+#undef K5_LAUNCH
 }
 
 }  // namespace
 
 // act_kind: 0 = float32, 1 = bfloat16 (q, k, v and the output).
 // pool_kind: 0 = int8 codes, 1 = int16 codes, 2 = float32, 3 = bfloat16.
-// hist_bf16: round decoded history to bf16 (the kv_decode dtype chain).
-// page_ok may be null (every page writable).
+// variant (the wrapper's prefill_variant): 0 = SIMT, 1 = tensor cores
+// (bf16 activations, Dh a multiple of 16 up to 128; `span` is its bf16
+// [2, B, Hkv, L, Dh] scratch, L = M * ps + C rounded up to 64).
+// hist_bf16: round decoded history to bf16 (the kv_decode dtype chain;
+// always so on the tensor-core variant).  page_ok may be null (every page
+// writable).
 extern "C" int prefill_attention_launch(
     const void* q, const void* k, const void* v, void* k_pages, void* v_pages,
     const void* bt, const void* starts, const void* window,
-    const void* page_ok, void* out, int B, int C, int M, int ps, int Hq,
-    int Hkv, int Dh, int act_kind, int pool_kind, int n, int es,
-    int hist_bf16, int ck, float scale, float softcap, void* stream) {
+    const void* page_ok, void* out, void* span, int B, int C, int M, int ps,
+    int Hq, int Hkv, int Dh, int act_kind, int pool_kind, int n, int es,
+    int hist_bf16, int ck, int variant, float scale, float softcap,
+    void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const int* bt_i = (const int*)bt;
   const int* st_i = (const int*)starts;
   const int* win_i = (const int*)window;
   const int* ok_i = (const int*)page_ok;
+  if (variant != 0 && variant != 1) return (int)cudaErrorInvalidValue;
   if (act_kind == 0) {
-    return launch_pool<float>(pool_kind, q, k, v, k_pages, v_pages, bt_i,
-                              st_i, win_i, ok_i, out, B, C, M, ps, Hq, Hkv,
-                              Dh, n, es, hist_bf16, ck, scale, softcap, s);
+    return launch_pool<float>(variant, pool_kind, q, k, v, k_pages, v_pages,
+                              bt_i, st_i, win_i, ok_i, out, span, B, C, M, ps,
+                              Hq, Hkv, Dh, n, es, hist_bf16, ck, scale,
+                              softcap, s);
   }
   if (act_kind == 1) {
-    return launch_pool<__nv_bfloat16>(pool_kind, q, k, v, k_pages, v_pages,
-                                      bt_i, st_i, win_i, ok_i, out, B, C, M,
-                                      ps, Hq, Hkv, Dh, n, es, hist_bf16, ck,
-                                      scale, softcap, s);
+    return launch_pool<__nv_bfloat16>(variant, pool_kind, q, k, v, k_pages,
+                                      v_pages, bt_i, st_i, win_i, ok_i, out,
+                                      span, B, C, M, ps, Hq, Hkv, Dh, n, es,
+                                      hist_bf16, ck, scale, softcap, s);
   }
   return (int)cudaErrorInvalidValue;
 }

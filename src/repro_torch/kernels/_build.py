@@ -43,10 +43,10 @@ _SIGNATURES = {
         "decode_sample_launch": [_P] * 7 + [_I] * 8 + [_F, _F, _I, _I, _P],
     },
     "prefill_attention": {
-        "prefill_attention_launch": [_P] * 10 + [_I] * 13 + [_F, _F, _P],
+        "prefill_attention_launch": [_P] * 11 + [_I] * 14 + [_F, _F, _P],
     },
     "posit_matmul": {
-        "posit_matmul_launch": [_P] * 4 + [_I] * 12 + [_P],
+        "posit_matmul_launch": [_P] * 5 + [_I] * 15 + [_P],
     },
     "posit_matmul_grouped": {
         "posit_matmul_grouped_launch": [_P] * 4 + [_I] * 13 + [_P],

@@ -20,9 +20,48 @@ from repro_torch.core.posit import storage_dtype
 from . import _build
 from .posit_codec import decode_plain, encode_plain
 
-# launches of the kernel since the last reset (kernels/ops.reset_launches)
-LAUNCHES = {"posit_matmul": 0, "posit_matmul_grouped": 0}
+# launches of each kernel since the last reset (kernels/ops.reset_launches);
+# "posit_matmul:<variant>" counts K6's launches by `matmul_variant`
+LAUNCHES = {"posit_matmul": 0, "posit_matmul:gemv_p16_2": 0,
+            "posit_matmul:gemv": 0, "posit_matmul:tiled": 0,
+            "posit_matmul_grouped": 0}
 _CODE_DTYPES = (torch.int8, torch.int16)
+
+# K6's split-K GEMV (M <= GEMV_MAX_M): a block owns GEMV_BN columns (32
+# threads x 8 codes) and one K split whose row count is a multiple of
+# GEMV_ROWS (8 warps x 4 rows in flight) and at most GEMV_MAX_ROWS (its
+# decoded activation rows live in shared memory); the splits aim at
+# GEMV_BLOCKS blocks, 4 per SM of an H100.
+GEMV_MAX_M = 8
+GEMV_BN = 256
+GEMV_ROWS = 32
+GEMV_MAX_ROWS = 2048
+GEMV_BLOCKS = 4 * 132
+_VARIANTS = {"tiled": 0, "gemv": 1, "gemv_p16_2": 2}
+
+
+def matmul_variant(M: int, fmt_b: PositFormat, b_dtype) -> str:
+    """K6's kernel for an [M, K] x [K, N] call: the split-K GEMV at decode
+    shapes (M <= GEMV_MAX_M), with the compile-time P(16,2) decode for
+    int16 P(16,2) weights (every a13 projection); output tiles above."""
+    if M > GEMV_MAX_M:
+        return "tiled"
+    if (fmt_b.n, fmt_b.es) == (16, 2) and b_dtype == torch.int16:
+        return "gemv_p16_2"
+    return "gemv"
+
+
+def split_k(N: int, K: int) -> tuple[int, int]:
+    """(rows per split KS, number of splits S) of the split-K GEMV.  Split
+    s covers K rows [s * KS, min(K, (s + 1) * KS)), so the splits cover
+    [0, K) once, in split order, none empty; S is at least 1 (K = 0 gives
+    one empty split and zero sums)."""
+    tiles = -(-N // GEMV_BN)
+    want = max(1, -(-GEMV_BLOCKS // max(tiles, 1)))
+    rows = -(-K // want)
+    ks = min(max(-(-rows // GEMV_ROWS) * GEMV_ROWS, GEMV_ROWS), GEMV_MAX_ROWS)
+    return ks, max(1, -(-K // ks))
+
 
 
 # Tolerance constant of `sum_bound`, in units of u sqrt(K) ||a_i . b_j||_2.
@@ -95,17 +134,25 @@ def posit_matmul(a_codes, b_codes, fmt_a: PositFormat, fmt_b: PositFormat,
             raise ValueError(f"posit_matmul writes int8/int16 codes, not {dt}")
         out = torch.empty((M, N), dtype=dt, device=dev)
     if M and N:
+        variant = matmul_variant(M, fmt_b, b_codes.dtype)
+        ks, splits = split_k(N, K) if variant != "tiled" else (0, 0)
+        # the GEMV's per-split partial sums, reduced in split order
+        partial = (torch.empty((splits, M, N), dtype=torch.float32,
+                               device=dev) if splits else None)
         lib = _build.library("posit_matmul")
         _build.check(lib.posit_matmul_launch(
             a_codes.data_ptr(), b_codes.data_ptr(),
             out.data_ptr() if fmt_out is None else None,
-            None if fmt_out is None else out.data_ptr(), M, N, K,
+            None if fmt_out is None else out.data_ptr(),
+            None if partial is None else partial.data_ptr(), M, N, K,
             a_codes.element_size(), fmt_a.n, fmt_a.es,
             b_codes.element_size(), fmt_b.n, fmt_b.es,
             0 if fmt_out is None else out.element_size(),
             fmt_out.n if fmt_out else 0, fmt_out.es if fmt_out else 0,
-            _build.stream_of(a_codes)), "posit_matmul")
+            _VARIANTS[variant], ks, splits, _build.stream_of(a_codes)),
+            "posit_matmul")
         LAUNCHES["posit_matmul"] += 1
+        LAUNCHES[f"posit_matmul:{variant}"] += 1
     return out
 
 

@@ -3,9 +3,11 @@ its plain version.
 
 `prefill_attention_paged` (K5, `csrc/prefill_attention.cu`) replaces
 `repro/kernels/prefill_attention.py:prefill_attention_paged`: one prefill
-chunk of every slot as one launch -- flash attention over [decoded history
+chunk of every slot as one call -- flash attention over [decoded history
 pages | raw chunk | pad], the posit encode of the chunk's K/V and their
-in-place page writes.  On a CUDA tensor the wrapper launches the kernel;
+in-place page writes.  On a CUDA tensor the wrapper launches the variant
+`prefill_variant` picks (tensor cores for bf16 activations, SIMT f32 for
+the rest);
 on a CPU tensor it runs the plain version, the decomposed stages
 (gather -> encode -> insert -> decode -> flash attention) of
 `decomposed_prefill`, which the model's decomposed branch also runs, so on
@@ -23,9 +25,33 @@ from . import _build
 from .paged_attention import _KINDS
 from .posit_codec import decode_plain, encode_plain
 
-# launches of the kernel since the last reset (kernels/ops.reset_launches)
-LAUNCHES = {"prefill_attention": 0}
+# launches of the kernel since the last reset (kernels/ops.reset_launches);
+# "prefill_attention:<variant>" counts them by `prefill_variant`
+LAUNCHES = {"prefill_attention": 0, "prefill_attention:tc": 0,
+            "prefill_attention:simt": 0}
 _ACT_KINDS = {torch.float32: 0, torch.bfloat16: 1}
+_VARIANTS = {"simt": 0, "tc": 1}
+# the tensor-core variant's key tile and largest head_dim
+TC_KEYS = 64
+TC_MAX_HEAD_DIM = 128
+
+
+def prefill_variant(dtype, head_dim: int) -> str:
+    """K5's kernel for q/k/v of `dtype`: "tc" (tensor cores, exact
+    three-term bf16 splits of q * scale and p) for bf16 activations with a
+    head_dim that is a multiple of 16 up to TC_MAX_HEAD_DIM -- every
+    serving path of the port -- else "simt" (f32 FMA: f32 chunk k / v
+    would need nine MMAs for an exact split)."""
+    if dtype == torch.bfloat16 and head_dim % 16 == 0 \
+            and 0 < head_dim <= TC_MAX_HEAD_DIM:
+        return "tc"
+    return "simt"
+
+
+def tc_span_rows(M: int, page_size: int, C: int) -> int:
+    """Rows of the tensor-core variant's span buffer: history M * page_size
+    plus the chunk, rounded up to whole key tiles."""
+    return -(-(M * page_size + C) // TC_KEYS) * TC_KEYS
 
 
 def decomposed_prefill(q, k, v, k_pages, v_pages, block_tables, starts,
@@ -103,8 +129,10 @@ def prefill_attention_paged(q, k, v, k_pages, v_pages, block_tables, starts,
                    (their writes land on the trash page).
     starts       : [B] int32 chunk start per slot.
     window       : [1] int32 sliding window (>= max_seq = unbounded).
-    flash_chunk  : flash_attention's key-chunk length to replay; spans past
-                   it need page_size | flash_chunk.
+    flash_chunk  : flash_attention's key-chunk length, replayed by the
+                   plain version and the SIMT kernel (the tensor-core
+                   kernel's running max spans it); spans past it need
+                   page_size | flash_chunk.
     page_ok      : optional [B, M] int32 mask; pages with 0 are not
                    written.
 
@@ -164,15 +192,21 @@ def prefill_attention_paged(q, k, v, k_pages, v_pages, block_tables, starts,
     bf16 = torch.bfloat16
     hist_bf16 = q.dtype == bf16 or (fmt_kv is not None and compute_dtype == bf16)
     if B and C:
+        variant = prefill_variant(q.dtype, Dh)
+        # the tensor-core variant's decoded [history | chunk] span, K and V
+        span = (torch.empty((2, B, Hkv, tc_span_rows(M, ps, C), Dh),
+                            dtype=torch.bfloat16, device=q.device)
+                if variant == "tc" else None)
         lib = _build.library("prefill_attention")
         _build.check(lib.prefill_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), k_pages.data_ptr(),
             v_pages.data_ptr(), block_tables.data_ptr(), starts.data_ptr(),
             window.data_ptr(), None if page_ok is None else page_ok.data_ptr(),
-            out.data_ptr(), B, C, M, ps, Hq, Hkv, Dh, _ACT_KINDS[q.dtype],
-            _KINDS[k_pages.dtype], fmt_kv.n if fmt_kv else 0,
-            fmt_kv.es if fmt_kv else 0, int(hist_bf16), ck,
-            1.0 / math.sqrt(Dh), float(softcap_val), _build.stream_of(q)),
-            "prefill_attention")
+            out.data_ptr(), None if span is None else span.data_ptr(), B, C,
+            M, ps, Hq, Hkv, Dh, _ACT_KINDS[q.dtype], _KINDS[k_pages.dtype],
+            fmt_kv.n if fmt_kv else 0, fmt_kv.es if fmt_kv else 0,
+            int(hist_bf16), ck, _VARIANTS[variant], 1.0 / math.sqrt(Dh),
+            float(softcap_val), _build.stream_of(q)), "prefill_attention")
         LAUNCHES["prefill_attention"] += 1
+        LAUNCHES[f"prefill_attention:{variant}"] += 1
     return out, k_pages, v_pages

@@ -224,6 +224,22 @@ PREFILL = {
                            [33, 2], 1 << 30, 0.0, 16),
     "single_token": ("P16_1", torch.float32, 3, 1, 8, 2, 64, 16, 6,
                      [0, 31, 80], 1 << 30, 0.0, 1024),
+    # the tensor-core variant's branches: rows that fill no whole 64-row
+    # tile, window + softcap, int16 pools at G = 16, several flash chunks
+    # streaming past a long history, head_dim 64, one-token chunks; and a
+    # bf16 head_dim that is not a multiple of 16 (the SIMT variant)
+    "tc_ragged_rows_window_softcap": ("P8_2", torch.bfloat16, 3, 7, 8, 2,
+                                      64, 16, 8, [9, 40, 0], 20, 30.0, 1024),
+    "tc_p16_1_g16": ("P16_1", torch.bfloat16, 2, 24, 32, 2, 128, 16, 12,
+                     [33, 100], 1 << 30, 0.0, 1024),
+    "tc_long_span_flash_chunks": ("P8_2", torch.bfloat16, 2, 64, 16, 2, 128,
+                                  16, 80, [1030, 1200], 1 << 30, 0.0, 512),
+    "tc_head_dim_64_streaming": ("P8_2", torch.bfloat16, 3, 16, 8, 1, 64, 8,
+                                 12, [50, 0, 75], 1 << 30, 0.0, 32),
+    "tc_single_token": ("P16_1", torch.bfloat16, 3, 1, 8, 2, 64, 16, 6,
+                        [0, 31, 80], 1 << 30, 0.0, 1024),
+    "simt_bf16_head_dim_40": ("P8_2", torch.bfloat16, 2, 8, 4, 2, 40, 16, 4,
+                              [3, 20], 1 << 30, 0.0, 1024),
 }
 
 
@@ -257,8 +273,13 @@ def test_prefill_attention_matches_plain(cuda, case):
               flash_chunk=chunk, page_ok=ok.to(cuda))
     kp, vp = kv[0].to(cuda), kv[1].to(cuda)
     kp2, vp2 = kp.clone(), vp.clone()
+    ops.reset_launches()
     got, _, _ = pf.prefill_attention_paged(*args, kp, vp, bt.to(cuda), st,
                                            win, **kw)
+    variant = pf.prefill_variant(act, Dh)
+    assert ops.launch_counts()[f"prefill_attention:{variant}"] == 1
+    assert variant == ("tc" if case.startswith(("serving", "streaming",
+                                                "tc_")) else "simt")
     want, _, _ = pf.prefill_attention_paged_plain(*args, kp2, vp2,
                                                   bt.to(cuda), st, win, **kw)
     assert got.dtype == act and torch.isfinite(got.float()).all()
@@ -273,7 +294,9 @@ def test_prefill_attention_matches_plain(cuda, case):
 
 
 @pytest.mark.parametrize("shape", [(4, 8192, 1024), (3, 517, 130),
-                                   (256, 1024, 320), (70, 333, 65)])
+                                   (256, 1024, 320), (70, 333, 65),
+                                   (1, 8190, 1000), (4, 8190, 1000),
+                                   (8, 8190, 1000), (9, 8190, 1000)])
 @pytest.mark.parametrize("fmts", [("P13_2", "P16_2", None),
                                   ("P13_2", "P16_2", "P16_2"),
                                   ("P8_2", "P16_1", "P8_2")])
@@ -296,13 +319,15 @@ def test_posit_matmul_matches_plain(cuda, shape, fmts):
         assert _bits_equal(codes, posit_codec.encode_plain(got, fo))
 
 
-@pytest.mark.parametrize("K,N", [(8192, 1024), (22528, 512)])
-def test_posit_matmul_bound_rejects_planted_faults(cuda, K, N):
-    """At the decode shapes the kernel passes `sum_bound` and two faults
-    fail it: weights rounded to bf16, and one 32-wide K tile left out."""
+@pytest.mark.parametrize("K,N,M", [(8192, 1024, 4), (22528, 512, 4),
+                                   (8190, 1000, 1), (8190, 1000, 8)])
+def test_posit_matmul_bound_rejects_planted_faults(cuda, K, N, M):
+    """At the decode shapes the kernel (split-K over 32-row steps) passes
+    `sum_bound` and two faults fail it: weights rounded to bf16, and one
+    32-wide K tile (one row step of a split) left out."""
     fa, fb = formats.P13_2, formats.P16_2
     g = torch.Generator().manual_seed(K + N)
-    a = posit.pack(torch.randn(4, K, generator=g), fa).to(cuda)
+    a = posit.pack(torch.randn(M, K, generator=g), fa).to(cuda)
     b = posit.pack(torch.randn(K, N, generator=g) * K ** -0.5, fb).to(cuda)
     bound = pm.sum_bound(a, b, fa, fb)
     plain = pm.posit_matmul_plain(a, b, fa, fb)
@@ -311,6 +336,42 @@ def test_posit_matmul_bound_rejects_planted_faults(cuda, K, N):
     for bad in (torch.matmul(A, B.to(torch.bfloat16).float()),
                 plain - torch.matmul(A[:, :32], B[:32])):
         assert bool(((bad - plain).abs() > bound).any())
+
+
+@pytest.mark.parametrize("M,K,N,fmt_out", [(4, 8192, 1024, None),
+                                           (8, 8190, 1000, "P16_2"),
+                                           (256, 1024, 320, None)])
+def test_posit_matmul_bitwise_deterministic(cuda, M, K, N, fmt_out):
+    """Two calls on the same inputs are bitwise equal: the split-K
+    partials are summed in split order, never by float atomics."""
+    fa, fb = formats.P13_2, formats.P16_2
+    fo = getattr(formats, fmt_out) if fmt_out else None
+    g = torch.Generator().manual_seed(M * K)
+    a = posit.pack(torch.randn(M, K, generator=g), fa).to(cuda)
+    b = posit.pack(torch.randn(K, N, generator=g) * K ** -0.5, fb).to(cuda)
+    first = pm.posit_matmul(a, b, fa, fb, fo)
+    for _ in range(3):
+        assert _bits_equal(pm.posit_matmul(a, b, fa, fb, fo), first)
+
+
+@pytest.mark.parametrize("fmt_b,M", [("P16_2", 1), ("P16_2", 4),
+                                     ("P16_1", 1), ("P16_2", 9)])
+def test_posit_matmul_decodes_every_weight_code(cuda, fmt_b, M):
+    """Every 16-bit weight code times 1.0 through each kernel variant (the
+    compile-time P(16,2) decode, the run-time decode, the tiled kernel)
+    gives the plain decode bitwise (NaR as nan)."""
+    fa, fb = formats.P13_2, getattr(formats, fmt_b)
+    a = posit.pack(torch.ones(M, 1), fa).to(cuda)
+    codes = posit.to_container(torch.arange(1 << 16, dtype=torch.int64), fb)
+    b = codes.reshape(1, -1).to(cuda)
+    ops.reset_launches()
+    got = pm.posit_matmul(a, b, fa, fb)
+    variant = pm.matmul_variant(M, fb, b.dtype)
+    assert ops.launch_counts()[f"posit_matmul:{variant}"] == 1
+    want = posit_codec.decode_plain(b, fb).expand(M, -1)
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan)
+    assert _bits_equal(got[~nan], want[~nan])
 
 
 # ---------------------------------------------------------------------------
@@ -608,6 +669,43 @@ def test_prefill_attention_group_of_16(cuda, fmt_name):
     torch.testing.assert_close(got.float(), want.float(), rtol=2.0 ** -7,
                                atol=1e-6)
     assert _bits_equal(kp[1:], kp2[1:]) and _bits_equal(vp[1:], vp2[1:])
+
+
+@pytest.mark.parametrize("pool", ["float32", "bfloat16"])
+def test_prefill_attention_tc_over_float_pools(cuda, pool):
+    """The tensor-core K5 variant over float pools (no KV format; the
+    compute dtype is the pool's): bf16 activations, the history rounded
+    to bf16 by the kv_decode dtype chain; output within one bf16 ulp,
+    page writes bitwise, page_ok == 0 pages untouched."""
+    act, dt = torch.bfloat16, getattr(torch, pool)
+    B, C, Hq, Hkv, Dh, ps, M = 3, 40, 16, 2, 128, 16, 10
+    starts = [16, 100, 0]
+    g = torch.Generator().manual_seed(71)
+    P = B * M + 1
+    kv = torch.randn(2, P, ps, Hkv * Dh, generator=g).to(dt)
+    bt = torch.arange(1, P, dtype=torch.int32).reshape(B, M)
+    bt[1, 0] = bt[0, 0]   # a shared history page, read by both slots
+    ok = torch.ones(B, M, dtype=torch.int32)
+    ok[2] = 0
+    q, k, v = (torch.randn(B, C, h, Dh, generator=g).to(act).to(cuda)
+               for h in (Hq, Hkv, Hkv))
+    st = torch.tensor(starts, dtype=torch.int32, device=cuda)
+    win = torch.tensor([1 << 30], dtype=torch.int32, device=cuda)
+    kp, vp = kv[0].to(cuda), kv[1].to(cuda)
+    kp2, vp2 = kp.clone(), vp.clone()
+    kw = dict(fmt_kv=None, compute_dtype=dt, flash_chunk=1024,
+              page_ok=ok.to(cuda))
+    ops.reset_launches()
+    got, _, _ = pf.prefill_attention_paged(q, k, v, kp, vp, bt.to(cuda), st,
+                                           win, **kw)
+    assert ops.launch_counts()["prefill_attention:tc"] == 1
+    want, _, _ = pf.prefill_attention_paged_plain(q, k, v, kp2, vp2,
+                                                  bt.to(cuda), st, win, **kw)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2.0 ** -7,
+                               atol=1e-6)
+    assert _bits_equal(kp[1:], kp2[1:]) and _bits_equal(vp[1:], vp2[1:])
+    last = bt[2].long().to(cuda)
+    assert _bits_equal(kp[last], kv[0].to(cuda)[last])
 
 
 # ---------------------------------------------------------------------------

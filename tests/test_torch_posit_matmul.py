@@ -34,6 +34,7 @@ from repro_torch.core.quant import QuantPolicy as TPolicy
 from repro_torch.core.quant import policy_by_name as tpolicy
 from repro_torch.kernels import dispatch as tdispatch
 from repro_torch.kernels import ops as tops
+from repro_torch.kernels import posit_matmul as tpm
 from repro_torch.kernels.posit_matmul import sum_bound
 
 
@@ -148,10 +149,11 @@ def test_qdot_activation_coded_bf16_activations():
 @pytest.mark.parametrize("case", ["kernel_order", "bf16_weights",
                                   "dropped_k_tile"])
 def test_sum_bound_separates_sound_orders_from_faults(case):
-    """The K6 kernel sums each output's products one by one in K order
-    (exact products, f32 accumulator): that order must stay within
-    `sum_bound` of torch.matmul, and two faults a kernel could make must
-    not."""
+    """The K6 kernel's order at decode shapes (the split-K GEMV: in each K
+    split, warp w sums rows w, w + 8, ... one by one with exact products in
+    an f32 accumulator, the split adds its 8 warps in order, the splits are
+    added in split order) must stay within `sum_bound` of torch.matmul,
+    and two faults a kernel could make must not."""
     M, K, N = 4, 2048, 64
     rng = np.random.default_rng(5)
     fa, fb = tformats.P13_2, tformats.P16_2
@@ -161,9 +163,19 @@ def test_sum_bound_separates_sound_orders_from_faults(case):
     A, B = tposit.decode(a, fa), tposit.decode(b, fb)
     plain = tops.fused_matmul(a, b, fa, fb)
     if case == "kernel_order":
-        acc = np.zeros((M, N), np.float32)
-        for k in range(K):
-            acc += np.outer(A[:, k].numpy(), B[k].numpy())
+        ks, _ = tpm.split_k(N, K)
+        acc = None
+        for k0, k1 in _split_ranges(K, ks):
+            warps = []
+            for w in range(8):
+                part = np.zeros((M, N), np.float32)
+                for k in range(k0 + w, k1, 8):
+                    part += np.outer(A[:, k].numpy(), B[k].numpy())
+                warps.append(part)
+            split = warps[0]
+            for part in warps[1:]:
+                split = split + part
+            acc = split if acc is None else acc + split
         assert bool(((torch.from_numpy(acc) - plain).abs() <= bound).all())
         return
     if case == "bf16_weights":
@@ -171,3 +183,53 @@ def test_sum_bound_separates_sound_orders_from_faults(case):
     else:
         bad = plain - torch.matmul(A[:, :32], B[:32])
     assert bool(((bad - plain).abs() > bound).any())
+
+
+def _split_ranges(K, ks):
+    """The K rows of each split of `split_k`, in the order the kernel sums
+    them: split s takes rows [s * ks, min(K, (s + 1) * ks))."""
+    return [(k0, min(K, k0 + ks)) for k0 in range(0, K, ks)] or [(0, 0)]
+
+
+# (N, K): command-r-35b's projections, ragged and tiny shapes
+SPLIT_SHAPES = [(8192, 8192), (1024, 8192), (22528, 8192), (8192, 22528),
+                (1000, 8190), (130, 517), (65, 333), (40, 96), (7, 1),
+                (300, 0)]
+
+
+@pytest.mark.parametrize("N,K", SPLIT_SHAPES)
+def test_gemv_splits_cover_k_once_in_order(N, K):
+    """The split-K GEMV's splits cover [0, K) exactly once, in increasing
+    order, none empty (K = 0: one empty split); each split's rows are a
+    multiple of the row step (the last one excepted) within the shared-
+    memory cap; and wherever K has enough row steps the grid holds at least
+    3 blocks per SM of an H100 (the aim is GEMV_BLOCKS, 4 per SM; whole
+    row steps per split can cost up to one)."""
+    ks, splits = tpm.split_k(N, K)
+    ranges = _split_ranges(K, ks)
+    assert len(ranges) == splits >= 1
+    assert ks % tpm.GEMV_ROWS == 0 and ks <= tpm.GEMV_MAX_ROWS
+    assert ranges[0][0] == 0 and ranges[-1][1] == K
+    for (a0, a1), (b0, _) in zip(ranges, ranges[1:]):
+        assert a1 == b0 and a1 - a0 == ks
+    assert all(k1 > k0 for k0, k1 in ranges) or K == 0
+    tiles = -(-N // tpm.GEMV_BN)
+    steps = -(-K // tpm.GEMV_ROWS)
+    assert tiles * splits >= min(3 * 132, tiles * max(steps, 1))
+
+
+@pytest.mark.parametrize("M,fmt_b,dtype,want", [
+    (1, "P16_2", torch.int16, "gemv_p16_2"),
+    (4, "P16_2", torch.int16, "gemv_p16_2"),
+    (8, "P16_2", torch.int16, "gemv_p16_2"),
+    (9, "P16_2", torch.int16, "tiled"),
+    (256, "P16_2", torch.int16, "tiled"),
+    (4, "P16_1", torch.int16, "gemv"),
+    (3, "P8_0", torch.int8, "gemv"),
+    (64, "P10_2", torch.int16, "tiled"),
+])
+def test_matmul_variant_by_shape_and_format(M, fmt_b, dtype, want):
+    """K6's wrapper picks its kernel by M and the weight format alone: the
+    split-K GEMV at decode shapes (the compile-time P(16,2) decode for the
+    a13 weights), output tiles above GEMV_MAX_M rows."""
+    assert tpm.matmul_variant(M, getattr(tformats, fmt_b), dtype) == want

@@ -18,6 +18,7 @@ bitwise; none is required to be.  The port's own fused and decomposed
 model branches are held bitwise.
 """
 import dataclasses
+import math
 
 import jax.numpy as jnp
 import numpy as np
@@ -293,3 +294,70 @@ def test_model_fused_prefill_matches_reference_fused(monkeypatch):
                                    atol=2e-5)
     np.testing.assert_array_equal(got[2].numpy(), np.asarray(jc["k"]))
     np.testing.assert_array_equal(got[3].numpy(), np.asarray(jc["v"]))
+
+
+@pytest.mark.parametrize("dtype,head_dim,want", [
+    (torch.bfloat16, 128, "tc"), (torch.bfloat16, 64, "tc"),
+    (torch.bfloat16, 16, "tc"), (torch.bfloat16, 72, "simt"),
+    (torch.bfloat16, 256, "simt"), (torch.float32, 128, "simt"),
+    (torch.float32, 32, "simt"),
+])
+def test_prefill_variant_by_dtype_and_head_dim(dtype, head_dim, want):
+    """K5's wrapper picks its kernel by the activations' dtype and the head
+    dim alone: tensor cores for bf16 with head_dim a multiple of 16 up to
+    128, the SIMT kernel for f32 activations and other head dims."""
+    from repro_torch.kernels import prefill_attention as tpf
+    assert tpf.prefill_variant(dtype, head_dim) == want
+
+
+@pytest.mark.parametrize("name", ["command_r_35b", "qwen3_moe_235b",
+                                  "deepseek_moe_16b"])
+def test_serving_configs_take_tensor_core_prefill(name):
+    """Every serving config of the port at full width (bf16 activations,
+    head_dim 128) prefills on the tensor-core K5 variant; the f32 smoke
+    configs take the SIMT one."""
+    from repro_torch.kernels import prefill_attention as tpf
+    cfg, smoke = tconfigs.get(name), tconfigs.get_smoke(name)
+    assert tpf.prefill_variant(cfg.compute_dtype, cfg.head_dim) == "tc"
+    assert tpf.prefill_variant(smoke.compute_dtype, smoke.head_dim) == "simt"
+
+
+def test_tc_span_rows_cover_history_and_chunk():
+    from repro_torch.kernels import prefill_attention as tpf
+    assert tpf.tc_span_rows(16, 16, 64) == 320
+    assert tpf.tc_span_rows(128, 16, 64) == 2112
+    assert tpf.tc_span_rows(10, 8, 7) == 128
+    assert tpf.tc_span_rows(0, 16, 1) == tpf.TC_KEYS
+
+
+def _bf16_round(x):
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+@pytest.mark.parametrize("what", ["q_scaled", "p"])
+def test_three_term_bf16_split_is_exact(what):
+    """The tensor-core K5 variant's argument: an f32 x (q * scale from bf16
+    q, or p = exp(s - m) in (0, 1]) splits into hi = bf16(x), mid =
+    bf16(x - hi), lo = bf16(x - hi - mid) with x = hi + mid + lo exactly,
+    and each term times a bf16 value is exact in f32, so three bf16 MMAs
+    sum the same exact products as the f32 plain version.  Below 2^-110,
+    where lo (or a product) would be an f32 subnormal, the split and the
+    products lose at most 2^-126."""
+    g = torch.Generator().manual_seed(11)
+    if what == "q_scaled":
+        x = _bf16_round(torch.randn(1 << 16, generator=g) * 3) \
+            * (1.0 / math.sqrt(128))
+    else:
+        x = torch.exp(-torch.rand(1 << 16, generator=g) * 100)
+    hi = _bf16_round(x)
+    mid = _bf16_round(x - hi)
+    lo = _bf16_round(x - hi - mid)
+    gap = (hi.double() + mid.double() + lo.double() - x.double()).abs()
+    assert bool((gap[x >= 2.0 ** -110] == 0).all())
+    assert bool((gap <= 2.0 ** -126).all())
+    k = _bf16_round(torch.randn(1 << 16, generator=g))
+    normal = x >= 2.0 ** -110
+    for t in (hi, mid, lo):
+        prod_gap = ((t * k).double() - t.double() * k.double()).abs()
+        assert bool((prod_gap[normal] == 0).all())
+        assert bool((prod_gap <= 2.0 ** -126).all())
