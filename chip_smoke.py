@@ -13,16 +13,22 @@ Phases (any failure exits non-zero; no phase is caught):
   2. build: nvcc for sm_90a of every source in src/repro_torch/csrc/, with
      the -Xptxas -v register / shared-memory report;
   3. kernels: K1-K7 against their plain versions at the main path's shapes
-     (K1/K2 bitwise, K3 within 2e-5, K4 equal tokens, or a score within
+     (K1/K2 bitwise, K3 within 2e-5, also at lengths 1, 32, 33, 256 and
+     1100 that end on and span its 2-page key splits, over int8, bf16 and
+     f32 pages, with K7's rows bitwise K3 there, and its grid wider than
+     B x Hkv; K4 equal tokens, or a score within
      1e-5 of the largest |logit| where the plain top two are that close,
-     and its first 4 rows' tokens equal over 16 rows and over 4; K5 pages
+     and its first 4 rows' tokens equal over 16 rows and over 4, and the
+     sampler's temperature division bitwise the host's; K5 pages
      bitwise and attention within 2e-5 (f32, the SIMT variant) or one bf16
      ulp (bf16, the tensor-core variant) at both span branches and at 64 /
      4 heads (G = 16) over P(8,2) and bf16 pages, each case on the variant
      its dtype picks; K6 within 16 u sqrt(K) ||a_i . b_j||_2 at every
-     projection shape of a layer at M 4 and M 256, a limit two planted
+     projection shape of a layer at M 4 (split-K GEMV) and M 256 (split-bf16
+     tensor cores), a limit two planted
      faults must fail, bitwise equal on a second call, timed per shape
-     and for the layer beside torch.matmul on decoded f32; K7 within
+     and for the layer beside torch.matmul on decoded f32 with both the
+     f32 and the tensor-core bound at M 256; K7 within
      2e-5, each of its rows
      bitwise K3 at the row's own length, T = 1 bitwise K3, t_block 1/2/4
      bitwise equal; K8 bitwise at M 4, K 8192, N 1024, B also transposed,
@@ -56,7 +62,8 @@ Phases (any failure exits non-zero; no phase is caught):
      speculative greedy and sampled, front end) counts its launches from
      0, and its kernels must launch in it; every page must come back;
      each run prints its prefill steps' share of the wall time; a13's
-     decode-step K6 launches must take the P(16,2) split-K GEMV;
+     decode-step K6 launches must take the P(16,2) split-K GEMV and its
+     prefill launches the split-bf16 tensor-core GEMM;
   6. profile: torch.profiler over a few decode steps with four slots busy,
      at the defaults and under a13, and over one speculative round, device
      time per step by kernel and the device's busy share;
@@ -70,7 +77,8 @@ Phases (any failure exits non-zero; no phase is caught):
      Phases 7 and 8 count their own launches from 0 and need K8 (K9)
      launched 7 L + 1 (3 L) times per decode step.  Every main path runs
      bf16 activations, so all of its K5 launches must take the
-     tensor-core variant ("prefill_attention:tc").
+     tensor-core variant ("prefill_attention:tc"), and every K3 launch of
+     a main path must split its key span and merge ("paged_attention:merge").
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -236,6 +244,66 @@ def _k2_encode(dev):
                 shape="[256000, 8192] f32 -> int16")
 
 
+# lengths that end on a split boundary of K3 / K7 (2 pages of 16 tokens)
+# and span several splits
+SPLIT_LENGTHS = (1, 32, 33, 256, 1100)
+
+
+def _attention_splits_check(dev, Hq, Hkv, kv: str):
+    """K3 and K7 (T = 4) over one block table of 70 pages at
+    SPLIT_LENGTHS, full window, window 100 + softcap 30, and page_ok +
+    partials: within 2e-5 of the plain version, every K7 row bitwise K3
+    at its length, each call on the merge kernel.  Returns max |err|."""
+    import torch
+    from repro_torch.core import formats, posit
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import paged_attention as pa
+    fmt = formats.P8_2 if kv == "int8" else None
+    B, M, ps, Dh, T = len(SPLIT_LENGTHS), 70, 16, 128, 4
+    P = B * M + 1
+    g = torch.Generator(device=dev).manual_seed(Hq + Hkv)
+    kvp = torch.randn(2, P, ps, Hkv * Dh, generator=g, device=dev)
+    kvp = posit.pack(kvp, fmt) if fmt else kvp.to(
+        {"bf16": torch.bfloat16, "f32": torch.float32}[kv])
+    kp, vp = kvp[0], kvp[1]
+    bt = torch.arange(1, P, device=dev, dtype=torch.int32).reshape(B, M)
+    ln = torch.tensor(SPLIT_LENGTHS, dtype=torch.int32, device=dev)
+    q3 = torch.randn(B, Hq, Dh, generator=g, device=dev)
+    q4 = torch.randn(B, T, Hq, Dh, generator=g, device=dev)
+    ok = (torch.rand(B, M, generator=g, device=dev) > 0.2).to(torch.int32)
+    tup = lambda x: x if isinstance(x, tuple) else (x,)  # noqa: E731
+    err = 0.0
+    for win, kw in ((1 << 30, {}), (100, dict(softcap_val=30.0)),
+                    (1 << 30, dict(page_ok=ok, partials=True))):
+        w = torch.tensor([win], dtype=torch.int32, device=dev)
+        for q in (q3, q4):
+            name = "paged_attention_mq" if q.ndim == 4 else "paged_attention"
+            before = ops.launch_counts()[f"{name}:merge"]
+            got = tup(pa.paged_attention(q, kp, vp, bt, ln, w, fmt_kv=fmt,
+                                         **kw))
+            _check(ops.launch_counts()[f"{name}:merge"] == before + 1,
+                   f"{name} merges its splits")
+            want = tup(pa.paged_attention_plain(q, kp, vp, bt, ln, w,
+                                                fmt_kv=fmt, **kw))
+            for a, b in zip(got, want):
+                _check(bool(torch.isfinite(a).all())
+                       and bool(torch.allclose(a, b, rtol=2e-5, atol=2e-5)),
+                       f"{name} within 2e-5 at split-boundary lengths "
+                       f"(G={Hq // Hkv}, {kv} pages, window {win}, {kw})")
+                err = max(err, float((a - b).abs().max()))
+        for i in range(T):
+            k3 = tup(pa.paged_attention(q4[:, i].contiguous(), kp, vp, bt,
+                                        ln - T + i + 1, w, fmt_kv=fmt, **kw))
+            _check(all(_bits_equal(a[:, i].contiguous(), b)
+                       for a, b in zip(got, k3)),
+                   f"K7 row {i} bitwise K3 at split-boundary lengths "
+                   f"(G={Hq // Hkv}, {kv} pages)")
+    print(f"K3 / K7 at lengths {SPLIT_LENGTHS} (G={Hq // Hkv}, {kv} pages, "
+          f"{pa.attention_splits(M, ps)[1]} splits): max |err| {err:.3g}, "
+          f"K7 rows bitwise K3")
+    return err
+
+
 def _k3_attention(dev):
     import torch
     import torch.nn.functional as F
@@ -270,6 +338,14 @@ def _k3_attention(dev):
                    f"K3 paged_attention within 2e-5 ({kw['softcap_val']=})")
             err = max(err, float((a - b).abs().max()))
         _check(bool((got[0][2] == 0).all()), "K3 zero-length slot")
+    for kv in ("int8", "bf16", "f32"):
+        err = max(err, _attention_splits_check(dev, Hq, Hkv, kv))
+    sp, n_splits = pa.attention_splits(M, ps)
+    _check(n_splits * Hkv * B > B * Hkv,
+           "K3 launches more than B x Hkv blocks at the serving shape")
+    print(f"K3 grid at the serving shape: {n_splits} splits of {sp} pages x "
+          f"{Hkv} KV heads x {B} slots = {n_splits * Hkv * B} blocks "
+          f"(B x Hkv = {B * Hkv})")
     args = (q, kp, vp, bt, lengths, full)
     call_ms = _time_ms(lambda: pa.paged_attention(*args, fmt_kv=fmt),
                        reps=200)
@@ -356,6 +432,7 @@ def _k7_attention_mq(dev):
                "K7 t_block 1 / 2 / 4 bitwise equal")
     _check(bool((got[0][2, 0] == 0).all()),
            "K7: a row with nothing to attend gives zeros")
+    err = max(err, _attention_splits_check(dev, Hq, Hkv, "int8"))
     args = (q, kp, vp, bt, lengths, full)
     call_ms = _time_ms(lambda: pa.paged_attention(*args, fmt_kv=fmt),
                        reps=200)
@@ -417,7 +494,7 @@ def _k4_decode_sample(dev):
                                greedy=greedy, top_k=top_k, **kw)
         want = pa.sample_logits(logits, noise, temp, greedy=greedy,
                                 top_k=top_k)
-        l = logits if greedy else logits / temp
+        l = logits if greedy else pa.scale_logits(logits, temp)
         if top_k:
             kth = torch.topk(l, top_k, dim=-1).values[..., -1:]
             l = torch.where(l >= kth, l, torch.full_like(l, -1e30))
@@ -427,6 +504,20 @@ def _k4_decode_sample(dev):
         _check(bool(((tok == want) | (gap <= tol)).all()),
                f"K4 decode_sample tokens (greedy={greedy}, top_k={top_k})")
         err = max(err, float(gap.max()))
+    # the sampler's l / max(T, 1e-6) on the card against the host's f32
+    # division; the former expression divided by a Python float
+    import numpy as np
+    host = logits.cpu().numpy()
+    for temp in (0.8, 0.7, 1e-7):
+        want_bits = (host / np.float32(max(temp, 1e-6))).view(np.int32)
+        got = pa.scale_logits(logits, temp).cpu().numpy().view(np.int32)
+        old = (logits / max(float(temp), 1e-6)).cpu().numpy().view(np.int32)
+        _check(bool(np.array_equal(got, want_bits)),
+               f"the sampler's temperature division at T {temp} is bitwise "
+               f"the host's f32 division")
+        print(f"temperature {temp}: scale_logits bitwise the host's f32 "
+              f"division on {host.size} logits; the former Python-float "
+              f"division differs on {int((old != want_bits).sum())}")
     # the verify runs K4 over B * T = 16 rows where plain decode runs 4:
     # a row's token must not depend on the other rows
     x16 = torch.cat([x, torch.randn(12, D, generator=g, device=dev)
@@ -626,7 +717,7 @@ def _k6_matmul(dev):
 
     for M, K, N, fo in checks:
         a, b = acts[(M, K)], weights[(K, N)]
-        variant = pm.matmul_variant(M, fb, b.dtype)
+        variant = pm.matmul_variant(M, fa, fb, b.dtype)
         before = ops.launch_counts()[f"posit_matmul:{variant}"]
         got = pm.posit_matmul(a, b, fa, fb)
         _check(ops.launch_counts()[f"posit_matmul:{variant}"] == before + 1,
@@ -696,10 +787,17 @@ def _k6_matmul(dev):
 
     ms, call_ms, plain_ms, library_ms, bound, by = layer_record(4)
     m256 = layer_record(256)
-    print(f"kernel posit_matmul M=256 (a13 prefill, tiled variant), one "
+    # the exact tensor-core form does four bf16 products per multiply-add
+    tc_bound, tc_by = _bound(
+        sum(256 * K * 2 + K * N * 2 + 256 * N * 4 for K, N in _LAYER_KN),
+        sum(4 * 2.0 * 256 * K * N for K, N in _LAYER_KN), BF16_FLOP_PER_S)
+    print(f"kernel posit_matmul M=256 (a13 prefill, "
+          f"{pm.matmul_variant(256, fa, fb, torch.int16)} variant), one "
           f"layer's 7 projections: ms {m256[0]:.4f}, plain_ms {m256[2]:.3f}, "
-          f"bound_ms {m256[4]:.4f} ({m256[5]}), library_ms (torch.matmul, "
-          f"decoded f32) {m256[3]:.4f}")
+          f"bound_ms {m256[4]:.4f} ({m256[5]}, f32), bound_ms of the exact "
+          f"split-bf16 form {tc_bound:.4f} ({tc_by}, 4 bf16 products a "
+          f"multiply-add at 989 TFLOP/s), library_ms (torch.matmul, decoded "
+          f"f32) {m256[3]:.4f}")
     print(f"K6: largest |err| in u sqrt(K) ||ab|| over the checks "
           f"{ratio:.4g} (limit {pm.SUM_TOL})")
     return dict(name="posit_matmul", source="src/repro_torch/csrc/posit_matmul.cu",
@@ -931,6 +1029,7 @@ def _attention_g16_float_pages(dev):
         bytes_moved = (2 * q.numel() * 4 + 2 * pages * ps * Hkv * Dh
                        * kp.element_size() + bt.numel() * 4 + B * 4)
         bound, by = _bound(bytes_moved, 4.0 * Hq * Dh * int(lengths.sum()))
+        _attention_splits_check(dev, Hq, Hkv, "int8" if fmt else "bf16")
         print(f"attention at {what}: K3 ms {ms3:.4f} (B 4, L <= 256), "
               f"bound_ms {bound:.4f} ({by}), library_ms {library_ms:.4f}: "
               f"within tolerance, K7 rows bitwise K3")
@@ -1198,6 +1297,12 @@ def _serve(dev):
     _check(per_step.get("posit_matmul:gemv_p16_2", 0) == per_layer * n_steps,
            "K6's decode-step launches take the split-K GEMV with the "
            "P(16,2) decode")
+    c13 = counts["a13 greedy"]
+    _check(c13["posit_matmul:tc_p16_2"] > 0 and
+           c13["posit_matmul:tc_p16_2"] + c13["posit_matmul:gemv_p16_2"]
+           == c13["posit_matmul"],
+           "K6's prefill launches (M > 8) take the split-bf16 tensor-core "
+           "GEMM with the P(16,2) decode")
     for name in ("posit_encode", "paged_attention", "decode_sample",
                  "prefill_attention", "posit_matmul"):
         _check(counts["a13 greedy"][name] > 0,
@@ -1625,7 +1730,8 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s")
     for src_name, log in _build.build_log.items():
         for line in log.splitlines():
-            if "registers" in line or "Compiling entry" in line:
+            if ("registers" in line or "Compiling entry" in line
+                    or "Performance" in line):
                 print(f"ptxas[{src_name}]: {line.strip()}")
 
     kernels = []
@@ -1672,6 +1778,12 @@ def main() -> int:
     _profile(moe_cfg, moe_params, moe_prompts, "MoE", steps=2)
     del moe_params
     _release()
+    # K3 splits every main path's key spans (tables of more than 2 pages)
+    # and merges the partials: each launch ran the merge kernel
+    for label, c in counts.items():
+        _check(c["paged_attention"] > 0
+               and c["paged_attention:merge"] == c["paged_attention"],
+               f"'{label}': every K3 launch split its key span and merged")
     # every main path runs bf16 activations: K5 must take its tensor-core
     # variant (exact three-term splits) on each of them
     for label, c in counts.items():

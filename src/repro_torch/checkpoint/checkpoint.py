@@ -7,7 +7,7 @@ Layout of one committed checkpoint:
 
 Pure numpy and json: `restore` returns the tree as numpy arrays, which
 `models.packing.params_from_numpy` moves onto a device.  Writing is not
-ported yet (ROADMAP queue 1, slice G).
+ported yet (ROADMAP queue 1, item 1).
 """
 from __future__ import annotations
 

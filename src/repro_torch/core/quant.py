@@ -11,7 +11,8 @@ format and which GEMM datapath (`execution`) runs every model matmul:
                (`kernels/ops.matmul_posit_weights`), f32 accumulation; with
                `activations` set, both operands travel as codes through
                the coded GEMM kernel (`kernels/ops.fused_matmul`).
-  bit_exact  : the chunked-PDPU datapath; not ported yet (ROADMAP queue 2).
+  bit_exact  : the chunked-PDPU datapath, bit for bit the paper's W_m
+               accumulator (`kernels/ops.pdpu_matmul`).
 
 The serving knobs (`kv_page_size`, `prefix_sharing`, `batched_prefill`,
 `fused_prefill`, `fused_decode`) keep the reference's meanings and

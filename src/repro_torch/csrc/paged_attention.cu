@@ -9,42 +9,48 @@
 // lengths[b] - T + i and attends causally over the history and the new
 // tokens before it.  On the TPU the grid is (slot, [token tile,] page) and
 // the page axis runs in order, carrying the running max / normalizer /
-// output in VMEM scratch.  Blocks on Hopper run in no order, so here one
-// block owns one (slot, KV head[, token tile]) and loops over the slot's
-// pages itself:
-//   * it stages the page's codes for its head into shared memory and
-//     decodes them there (each code is read from HBM and decoded once per
-//     block),
-//   * it serves every query row of the group from that one decoded page:
-//     the G = Hq / Hkv query heads (GQA reuse), times the t_block tokens of
-//     its tile for K7,
-//   * the running max m, normalizer l and output o of each row's streaming
-//     softmax live in shared memory for the whole page loop,
+// output in VMEM scratch.  Blocks on Hopper run in no order, and one
+// block per (slot, KV head) walking the pages leaves most of the 132 SMs
+// idle (32 blocks for command-r, 16 for qwen3), so the key span is split
+// across blocks (flash-decoding):
+//   * grid (split, KV head, slot x token tile): split s covers the pages
+//     [s SP, (s + 1) SP) of the block table, SP = max(1, 32 / page size)
+//     (the wrapper's `attention_splits`: 2 pages of 16 tokens), fixed by
+//     the table's width and the page size alone;
+//   * a block decodes the split's pages that any of its rows visits once
+//     into shared memory (16-byte loads; int8 codes through a 256-entry
+//     table), then serves every query row of the group from them: the
+//     G = Hq / Hkv query heads (GQA reuse), times the t_block tokens of
+//     its tile for K7.  Two barriers a block, none per page;
+//   * one warp per row (a block has a warp per row, up to 16 warps, and
+//     two blocks fit an SM): lane l holds q dims l, l + 32, ...; a chunk of 32
+//     keys' dot products is summed over the lanes by a transposing
+//     butterfly (31 shuffles) that leaves key i's score on lane i, the
+//     row's max and normalizer are warp reductions, and lane l
+//     accumulates o over the keys for its dims, in key order;
+//   * each row writes its split's (o, m, l) partial (a row that visits no
+//     page of the split writes the neutral m = -2e38, l = 0, o = 0), and
+//     paged_attention_merge_kernel combines a row's partials in split
+//     order (one split: the block writes the output itself);
 //   * masking follows the TPU kernels (paged_attention.py:93-102, :168):
 //     pos <= q_pos, q_pos - pos < window, page_ok[b, p] != 0.
 //
-// Both kernels run the same row body (attend_rows), so every row of K7 is
-// bitwise the row K3 computes for one query at length q_pos + 1 over the
-// same pages: a row visits exactly the pages K3 visits at that length (a
-// page before the row's last, inside its window, with page_ok set) in
-// ascending order, and every other page leaves it untouched, as K3's skip
-// does; within a page the scores are fmaf over d in ascending order, the
-// page max runs over unmasked positions only, then expf, corr =
-// expf(m_old - m_new), l = fmaf(l, corr, sum p), o = fmaf(o, corr, sum p v)
-// with sum p v an fmaf chain over the page's positions, and finally
-// o / max(l, 1e-30).  Every multiply-add is written as an explicit fmaf so
-// the compiler's contraction cannot differ between the two kernels.  Each
-// value is computed by one thread, so the thread count does not change
-// it, and neither does K7's t_block: rows are independent.  A slot of
-// length 0 (or a row before position 0) yields finite zeros (m = -2e38,
-// l = 0 with partials).
+// Every value of a row is computed from that row alone, in an order fixed
+// by its length, its q and its pages: a row visits exactly the pages K3
+// visits at that length (a page before the row's last, inside its window,
+// with page_ok set), each in the split that holds it, and includes all
+// positions of a visited page (masked ones with p = 0).  The splits and
+// the merge order depend on the block table's width only.  So every row
+// of K7 is bitwise the row K3 computes for one query at length q_pos + 1
+// over the same pages, whatever T and t_block, and no row depends on the
+// block's other rows.  A slot of length 0 (or a row before position 0)
+// yields finite zeros (m = -2e38, l = 0 with partials).
 //
 // Bound on an H100: at serving shapes (4 slots, 8 KV heads, Dh = 128,
 // 16-token pages, a few hundred tokens, T = 4 for K7) a call moves about
-// 2 MB, under a microsecond of HBM time, so launch latency and the serial
-// page loop bound it, and a grid of B * Hkv blocks is enough.  Splitting
-// long slots over several blocks (flash-decoding), tensor cores and TMA
-// staging are left for when contexts grow.
+// 2 MB, under a microsecond of HBM time, so launch latency and each
+// block's serial work bound it: the split keeps a block to 32 keys and
+// fills the card with some 100-300 blocks.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -55,193 +61,343 @@
 namespace {
 
 constexpr float kNeg = -2.0e38f;
-constexpr int kThreadsK3 = 128;
-constexpr int kThreadsK7 = 256;
+constexpr int kMaxThreads = 512;  // a block has a warp per row, up to 16
+constexpr int kMaxDh = 256;      // a lane holds at most 8 dims of a row
+constexpr int kMaxChunks = 4;    // a split holds at most 128 keys
 
-__device__ __forceinline__ float kv_value(int8_t c, int n, int es) {
+// One KV element as f32 (int8 codes through the block's decode table).
+__device__ __forceinline__ float kv_value(int8_t c, const float* table, int,
+                                          int) {
+  return table[(uint8_t)c];
+}
+__device__ __forceinline__ float kv_value(int16_t c, const float*, int n,
+                                          int es) {
   return posit_decode((uint32_t)(int)c, n, es);
 }
-__device__ __forceinline__ float kv_value(int16_t c, int n, int es) {
-  return posit_decode((uint32_t)(int)c, n, es);
+__device__ __forceinline__ float kv_value(float c, const float*, int, int) {
+  return c;
 }
-__device__ __forceinline__ float kv_value(float c, int, int) { return c; }
-__device__ __forceinline__ float kv_value(__nv_bfloat16 c, int, int) {
+__device__ __forceinline__ float kv_value(__nv_bfloat16 c, const float*, int,
+                                          int) {
   return __bfloat162float(c);
 }
 
-// Shared memory of a block serving R query rows.
-size_t smem_bytes(int R, int ps, int Dh) {
-  return sizeof(float) * (size_t)(2 * R * Dh + ps * (Dh + 1) + ps * Dh +
-                                  R * ps + 3 * R) +
-         sizeof(int) * (size_t)(R * ps + 2 * R);
+// Element e of a 16-byte chunk w of KV elements, as f32.
+template <typename KT>
+__device__ __forceinline__ float chunk_value(const uint32_t* w, int e,
+                                             const float* table, int n,
+                                             int es);
+template <>
+__device__ __forceinline__ float chunk_value<int8_t>(const uint32_t* w, int e,
+                                                     const float* table, int,
+                                                     int) {
+  return table[(w[e >> 2] >> (8 * (e & 3))) & 0xffu];
+}
+template <>
+__device__ __forceinline__ float chunk_value<int16_t>(const uint32_t* w, int e,
+                                                      const float*, int n,
+                                                      int es) {
+  return posit_decode(w[e >> 1] >> (16 * (e & 1)), n, es);
+}
+template <>
+__device__ __forceinline__ float chunk_value<float>(const uint32_t* w, int e,
+                                                    const float*, int, int) {
+  return __uint_as_float(w[e]);
+}
+template <>
+__device__ __forceinline__ float chunk_value<__nv_bfloat16>(
+    const uint32_t* w, int e, const float*, int, int) {
+  const uint32_t x = w[e >> 1];
+  return __uint_as_float((e & 1) ? (x & 0xffff0000u) : (x << 16));
 }
 
-// The rows of one block: slot blockIdx.y, KV head blockIdx.x, tokens
-// [t0, t0 + tb) of the slot's T new tokens.  Row r = tt * G + g is token
-// t0 + tt with query head h * G + g; its query sits at position
-// length - T + t0 + tt.  q / out are [B, T, Hq, Dh], m / l [B, T, Hq].
+// 16 bytes of KV elements at src (aligned) -> f32 at dst.
+template <typename KT>
+__device__ __forceinline__ void kv_chunk16(const KT* __restrict__ src,
+                                           float* __restrict__ dst,
+                                           const float* table, int n, int es) {
+  constexpr int kE = 16 / sizeof(KT);
+  const uint4 raw = __ldg(reinterpret_cast<const uint4*>(src));
+  const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+  for (int e = 0; e < kE; e += 4)
+    *reinterpret_cast<float4*>(dst + e) =
+        make_float4(chunk_value<KT>(w, e, table, n, es),
+                    chunk_value<KT>(w, e + 1, table, n, es),
+                    chunk_value<KT>(w, e + 2, table, n, es),
+                    chunk_value<KT>(w, e + 3, table, n, es));
+}
+
+// Transposing butterfly over a warp: lane l holds part[i], its share of
+// key i's sum (i < 2 W).  After the step of width W, lane l keeps the
+// keys of its half (bit W of l) summed over itself and lane l ^ W, in
+// part[0, W); at the end key l's sum sits in part[0] of lane l, added in
+// a fixed tree order.  W is a template argument so every index is a
+// constant and part stays in registers.
+template <int W>
+__device__ __forceinline__ void transpose_sum(float* part, int lane) {
+  const bool upper = (lane & W) != 0;
+#pragma unroll
+  for (int i = 0; i < W; ++i) {
+    const float send = upper ? part[i] : part[i + W];
+    const float keep = upper ? part[i + W] : part[i];
+    part[i] = keep + __shfl_xor_sync(0xffffffffu, send, W);
+  }
+  if constexpr (W > 1) transpose_sum<W / 2>(part, lane);
+}
+
+// Shared memory of a block: the int8 decode table and the split's K and V.
+size_t smem_bytes(int keys, int Dh) {
+  return sizeof(float) * (256 + 2 * (size_t)keys * Dh);
+}
+
+// The rows of one block: split blockIdx.x, KV head blockIdx.y, slot b,
+// tokens [t0, t0 + tb) of the slot's T new tokens.  Row r = tt * G + g is
+// token t0 + tt with query head h * G + g; its query sits at position
+// length - T + t0 + tt.  q / out are [B, T, Hq, Dh], m / l [B, T, Hq];
+// part_o [B * T * Hq, S, Dh] and part_ml [B * T * Hq, S, 2] the partials
+// when S > 1.
 template <typename KT>
 __device__ __forceinline__ void attend_rows(
     const float* __restrict__ q, const KT* __restrict__ k_pages,
     const KT* __restrict__ v_pages, const int* __restrict__ bt,
     const int* __restrict__ lengths, const int* __restrict__ window,
     const int* __restrict__ page_ok, float* __restrict__ out,
-    float* __restrict__ m_out, float* __restrict__ l_out, int T, int t0,
-    int tb, int M, int ps, int Hq, int Hkv, int Dh, int n, int es,
-    float scale, float softcap) {
-  const int h = blockIdx.x;
-  const int b = blockIdx.y;
-  const int G = Hq / Hkv;
-  const int F = Hkv * Dh;
-  const int R = tb * G;
-  const int tid = threadIdx.x;
-  const int nthr = blockDim.x;
-
+    float* __restrict__ m_out, float* __restrict__ l_out,
+    float* __restrict__ part_o, float* __restrict__ part_ml, int b, int T,
+    int t0, int tb, int M, int ps, int Hq, int Hkv, int Dh, int n, int es,
+    int SP, int S, float scale, float softcap, int vec) {
+  const int s = blockIdx.x, h = blockIdx.y;
+  const int G = Hq / Hkv, F = Hkv * Dh, R = tb * G;
+  const int keys = SP * ps, p0 = s * SP;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
   extern __shared__ float smem[];
-  float* q_s = smem;                   // [R][Dh], pre-scaled
-  float* o_s = q_s + R * Dh;           // [R][Dh]
-  float* k_s = o_s + R * Dh;           // [ps][Dh + 1] (padded rows)
-  float* v_s = k_s + ps * (Dh + 1);    // [ps][Dh]
-  float* p_s = v_s + ps * Dh;          // [R][ps] scores, then probabilities
-  float* m_s = p_s + R * ps;           // [R]
-  float* l_s = m_s + R;                // [R]
-  float* c_s = l_s + R;                // [R] rescale factor of this page
-  int* ok_s = reinterpret_cast<int*>(c_s + R);  // [R][ps] mask
-  int* len_s = ok_s + R * ps;                   // [R] the row's length
-  int* act_s = len_s + R;                       // [R] row visits this page
+  float* table = smem;              // [256] int8 decode table
+  float* k_s = table + 256;         // [keys][Dh]
+  float* v_s = k_s + keys * Dh;     // [keys][Dh]
 
   const int length = lengths[b];
   const long long win = window[0];
-  // the row of the [B * T * Hq] (query head) index space
-  auto row_id = [&](int r) {
-    return ((size_t)b * T + t0 + r / G) * Hq + (size_t)h * G + r % G;
-  };
-  // whether row r visits page p: exactly the pages K3's loop takes for
-  // the row's length (before its last page, inside the window; page_ok is
-  // checked for the whole block)
-  auto visits = [&](int r, int p) {
-    const int len = len_s[r];
+  // bit i: the row of length len visits page p0 + i (before its last page,
+  // inside its window, page_ok set)
+  auto visits = [&](int len) {
+    unsigned mask = 0u;
     const int np = len > 0 ? min(M, (len + ps - 1) / ps) : 0;
-    return p < np && (long long)p * ps + ps - 1 > (long long)len - 1 - win;
+    for (int i = 0; i < SP; ++i) {
+      const int p = p0 + i;
+      if (p < np && (long long)p * ps + ps - 1 > (long long)len - 1 - win &&
+          (page_ok == nullptr || page_ok[(size_t)b * M + p] != 0))
+        mask |= 1u << i;
+    }
+    return mask;
   };
+  // every thread takes the same decision: the pages some row visits
+  unsigned load = 0u;
+  for (int tt = 0; tt < tb; ++tt) load |= visits(length - T + t0 + tt + 1);
 
-  for (int i = tid; i < R * Dh; i += nthr) {
-    const int r = i / Dh, d = i % Dh;
-    q_s[i] = q[row_id(r) * Dh + d] * scale;
-    o_s[i] = 0.0f;
-  }
-  if (tid < R) {
-    m_s[tid] = kNeg;
-    l_s[tid] = 0.0f;
-    len_s[tid] = length - T + t0 + tid / G + 1;  // its position + 1
-  }
-  const int last_len = length - T + t0 + tb;  // the block's longest row
-  const int n_pages = last_len > 0 ? min(M, (last_len + ps - 1) / ps) : 0;
-  __syncthreads();
-
-  for (int p = 0; p < n_pages; ++p) {
-    // every thread takes the same decision: skip the page when no row of
-    // the block visits it (the rows of one token share their length)
-    if (page_ok != nullptr && page_ok[(size_t)b * M + p] == 0) continue;
-    bool any = false;
-    for (int r = G - 1; r < R; r += G) any = any || visits(r, p);
-    if (!any) continue;
-    if (tid < R) act_s[tid] = visits(tid, p);  // read after the barrier
-    const size_t page = (size_t)bt[(size_t)b * M + p];
-    const KT* kp = k_pages + page * ps * F + (size_t)h * Dh;
-    const KT* vp = v_pages + page * ps * F + (size_t)h * Dh;
-    for (int i = tid; i < ps * Dh; i += nthr) {
-      const int t = i / Dh, d = i % Dh;
-      k_s[t * (Dh + 1) + d] = kv_value(kp[(size_t)t * F + d], n, es);
-      v_s[t * Dh + d] = kv_value(vp[(size_t)t * F + d], n, es);
-    }
+  if (load != 0u) {
+    if (sizeof(KT) == 1)
+      for (int i = threadIdx.x; i < 256; i += blockDim.x)
+        table[i] = posit_decode((uint32_t)i, n, es);
     __syncthreads();
-
-    for (int i = tid; i < R * ps; i += nthr) {
-      const int r = i / ps, t = i % ps;
-      if (!act_s[r]) continue;
-      float acc = 0.0f;
-      for (int d = 0; d < Dh; ++d) {
-        acc = fmaf(q_s[r * Dh + d], k_s[t * (Dh + 1) + d], acc);
+    const int per_key = vec ? Dh * (int)sizeof(KT) / 16 : Dh;
+    const int step = vec ? 16 / (int)sizeof(KT) : 1;
+    for (int c = threadIdx.x; c < keys * per_key; c += blockDim.x) {
+      const int key = c / per_key, d = (c % per_key) * step;
+      const int pl = key / ps;
+      if (!((load >> pl) & 1u)) continue;
+      const size_t src = ((size_t)bt[(size_t)b * M + p0 + pl] * ps + key % ps) *
+                             F + (size_t)h * Dh + d;
+      float* kd = k_s + key * Dh + d;
+      float* vd = v_s + key * Dh + d;
+      if (vec) {
+        kv_chunk16(k_pages + src, kd, table, n, es);
+        kv_chunk16(v_pages + src, vd, table, n, es);
+      } else {
+        *kd = kv_value(k_pages[src], table, n, es);
+        *vd = kv_value(v_pages[src], table, n, es);
       }
-      if (softcap > 0.0f) acc = softcap * tanhf(acc / softcap);
-      const long long len = len_s[r];
-      const long long pos = (long long)p * ps + t;
-      ok_s[i] = (pos < len) && (len - 1 - pos < win);
-      p_s[i] = acc;
-    }
-    __syncthreads();
-
-    if (tid < R && act_s[tid]) {
-      const int r = tid;
-      float mx = m_s[r];
-      for (int t = 0; t < ps; ++t) {
-        if (ok_s[r * ps + t]) mx = fmaxf(mx, p_s[r * ps + t]);
-      }
-      float lsum = 0.0f;
-      for (int t = 0; t < ps; ++t) {
-        const float pr = ok_s[r * ps + t] ? expf(p_s[r * ps + t] - mx) : 0.0f;
-        p_s[r * ps + t] = pr;
-        lsum += pr;
-      }
-      const float corr = expf(m_s[r] - mx);
-      c_s[r] = corr;
-      l_s[r] = fmaf(l_s[r], corr, lsum);
-      m_s[r] = mx;
-    }
-    __syncthreads();
-
-    for (int i = tid; i < R * Dh; i += nthr) {
-      const int r = i / Dh, d = i % Dh;
-      if (!act_s[r]) continue;
-      float acc = 0.0f;
-      for (int t = 0; t < ps; ++t) {
-        acc = fmaf(p_s[r * ps + t], v_s[t * Dh + d], acc);
-      }
-      o_s[i] = fmaf(o_s[i], c_s[r], acc);
     }
     __syncthreads();
   }
 
-  for (int i = tid; i < R * Dh; i += nthr) {
-    const int r = i / Dh, d = i % Dh;
-    const size_t oi = row_id(r) * Dh + d;
-    out[oi] = m_out != nullptr ? o_s[i] : o_s[i] / fmaxf(l_s[r], 1e-30f);
-  }
-  if (m_out != nullptr && tid < R) {
-    m_out[row_id(tid)] = m_s[tid];
-    l_out[row_id(tid)] = l_s[tid];
+  const int nj = (Dh + 31) / 32;
+  const int nch = (keys + 31) / 32;
+  unsigned dmask = 0u;  // bit j: the lane holds dim lane + 32 j
+  for (int j = 0; j < nj; ++j)
+    if (lane + 32 * j < Dh) dmask |= 1u << j;
+  for (int r = warp; r < R; r += nwarps) {
+    const int tt = r / G;
+    const int len = length - T + t0 + tt + 1;  // the row's position + 1
+    const unsigned vis = load ? visits(len) : 0u;
+    const size_t row = ((size_t)b * T + t0 + tt) * Hq + (size_t)h * G + r % G;
+    float acc[kMaxDh / 32];
+#pragma unroll
+    for (int j = 0; j < kMaxDh / 32; ++j) acc[j] = 0.0f;
+    float mx = kNeg, lsum = 0.0f;
+    if (vis != 0u) {
+      float qr[kMaxDh / 32];
+#pragma unroll
+      for (int j = 0; j < kMaxDh / 32; ++j) {
+        const int d = lane + 32 * j;
+        qr[j] = (dmask >> j) & 1u ? q[row * Dh + d] * scale : 0.0f;
+      }
+      float sc[kMaxChunks];
+      unsigned kin[kMaxChunks];  // bit i: key c * 32 + i is in a visited page
+      unsigned ok = 0u;          // bit c: lane's key of chunk c is attended
+      // not unrolled: one chunk at the serving page size, and the body's
+      // 32-key butterfly is large
+#pragma unroll 1
+      for (int c = 0; c < nch; ++c) {
+        const int key = c * 32 + lane;
+        const int pl = key / ps;
+        kin[c] = __ballot_sync(0xffffffffu,
+                               key < keys && ((vis >> pl) & 1u));
+        // the lane's share of the 32 keys' dot products
+        float part[32];
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          float a = 0.0f;
+          if ((kin[c] >> i) & 1u) {
+            const float* kr = k_s + (c * 32 + i) * Dh + lane;
+#pragma unroll
+            for (int j = 0; j < kMaxDh / 32; ++j)
+              if ((dmask >> j) & 1u) a = fmaf(qr[j], kr[32 * j], a);
+          }
+          part[i] = a;
+        }
+        transpose_sum<16>(part, lane);
+        float x = part[0];
+        if (softcap > 0.0f) x = softcap * tanhf(x / softcap);
+        const long long pos = (long long)p0 * ps + key;
+        const bool live = ((kin[c] >> lane) & 1u) && pos < (long long)len &&
+                          (long long)len - 1 - pos < win;
+        sc[c] = x;
+        if (live) {
+          ok |= 1u << c;
+          mx = fmaxf(mx, x);
+        }
+      }
+#pragma unroll
+      for (int step = 0; step < 5; ++step)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 16 >> step));
+#pragma unroll
+      for (int c = 0; c < kMaxChunks; ++c) {
+        if (c >= nch) break;
+        sc[c] = ((ok >> c) & 1u) ? expf(sc[c] - mx) : 0.0f;
+        lsum += sc[c];
+      }
+#pragma unroll
+      for (int step = 0; step < 5; ++step)
+        lsum += __shfl_xor_sync(0xffffffffu, lsum, 16 >> step);
+      // o over every position of the visited pages, in key order
+#pragma unroll
+      for (int c = 0; c < kMaxChunks; ++c) {
+        if (c >= nch) break;
+#pragma unroll 4
+        for (int i = 0; i < 32; ++i) {
+          if (!((kin[c] >> i) & 1u)) continue;
+          const float p = __shfl_sync(0xffffffffu, sc[c], i);
+          const float* vr = v_s + (c * 32 + i) * Dh + lane;
+#pragma unroll
+          for (int j = 0; j < kMaxDh / 32; ++j)
+            if ((dmask >> j) & 1u) acc[j] = fmaf(p, vr[32 * j], acc[j]);
+        }
+      }
+    }
+    if (S == 1) {
+#pragma unroll
+      for (int j = 0; j < kMaxDh / 32; ++j) {
+        const int d = lane + 32 * j;
+        if ((dmask >> j) & 1u)
+          out[row * Dh + d] =
+              m_out != nullptr ? acc[j] : acc[j] / fmaxf(lsum, 1e-30f);
+      }
+      if (m_out != nullptr && lane == 0) {
+        m_out[row] = mx;
+        l_out[row] = lsum;
+      }
+    } else {
+      float* po = part_o + (row * S + s) * Dh;
+#pragma unroll
+      for (int j = 0; j < kMaxDh / 32; ++j) {
+        const int d = lane + 32 * j;
+        if ((dmask >> j) & 1u) po[d] = acc[j];
+      }
+      if (lane == 0) {
+        part_ml[(row * S + s) * 2] = mx;
+        part_ml[(row * S + s) * 2 + 1] = lsum;
+      }
+    }
   }
 }
 
-// K3: one token per slot (T = 1), grid (Hkv, B).
+// K3: one token per slot (T = 1), grid (S, Hkv, B).
 template <typename KT>
-__global__ void paged_attention_kernel(
+__global__ void __launch_bounds__(kMaxThreads, 2) paged_attention_kernel(
     const float* __restrict__ q, const KT* __restrict__ k_pages,
     const KT* __restrict__ v_pages, const int* __restrict__ bt,
     const int* __restrict__ lengths, const int* __restrict__ window,
     const int* __restrict__ page_ok, float* __restrict__ out,
-    float* __restrict__ m_out, float* __restrict__ l_out, int M, int ps,
-    int Hq, int Hkv, int Dh, int n, int es, float scale, float softcap) {
+    float* __restrict__ m_out, float* __restrict__ l_out,
+    float* __restrict__ part_o, float* __restrict__ part_ml, int M, int ps,
+    int Hq, int Hkv, int Dh, int n, int es, int SP, int S, float scale,
+    float softcap, int vec) {
   attend_rows<KT>(q, k_pages, v_pages, bt, lengths, window, page_ok, out,
-                  m_out, l_out, 1, 0, 1, M, ps, Hq, Hkv, Dh, n, es, scale,
-                  softcap);
+                  m_out, l_out, part_o, part_ml, blockIdx.z, 1, 0, 1, M, ps,
+                  Hq, Hkv, Dh, n, es, SP, S, scale, softcap, vec);
 }
 
-// K7: T tokens per slot, grid (Hkv, B, T / tb); block z serves tokens
-// [z * tb, (z + 1) * tb).
+// K7: T tokens per slot, grid (S, Hkv, B * T / tb); block z serves slot
+// z / (T / tb), tokens [(z % (T / tb)) tb, + tb).
 template <typename KT>
-__global__ void paged_attention_mq_kernel(
+__global__ void __launch_bounds__(kMaxThreads, 2) paged_attention_mq_kernel(
     const float* __restrict__ q, const KT* __restrict__ k_pages,
     const KT* __restrict__ v_pages, const int* __restrict__ bt,
     const int* __restrict__ lengths, const int* __restrict__ window,
     const int* __restrict__ page_ok, float* __restrict__ out,
-    float* __restrict__ m_out, float* __restrict__ l_out, int T, int tb,
-    int M, int ps, int Hq, int Hkv, int Dh, int n, int es, float scale,
-    float softcap) {
+    float* __restrict__ m_out, float* __restrict__ l_out,
+    float* __restrict__ part_o, float* __restrict__ part_ml, int T, int tb,
+    int M, int ps, int Hq, int Hkv, int Dh, int n, int es, int SP, int S,
+    float scale, float softcap, int vec) {
+  const int tiles = T / tb;
   attend_rows<KT>(q, k_pages, v_pages, bt, lengths, window, page_ok, out,
-                  m_out, l_out, T, blockIdx.z * tb, tb, M, ps, Hq, Hkv, Dh,
-                  n, es, scale, softcap);
+                  m_out, l_out, part_o, part_ml, blockIdx.z / tiles, T,
+                  (blockIdx.z % tiles) * tb, tb, M, ps, Hq, Hkv, Dh, n, es,
+                  SP, S, scale, softcap, vec);
+}
+
+// A row's S partials (o, m, l) combined in split order; then the
+// normalized output, or the merged partials.  One thread per (row, dim).
+__global__ void paged_attention_merge_kernel(
+    const float* __restrict__ part_o, const float* __restrict__ part_ml,
+    float* __restrict__ out, float* __restrict__ m_out,
+    float* __restrict__ l_out, int rows, int S, int Dh) {
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (size_t)rows * Dh) return;
+  const size_t row = i / Dh;
+  const int d = (int)(i % Dh);
+  const float* ml = part_ml + row * S * 2;
+  const float* po = part_o + row * S * Dh + d;
+  float m = ml[0], l = ml[1], o = po[0];
+  for (int s = 1; s < S; ++s) {
+    const float ms = ml[2 * s], ls = ml[2 * s + 1];
+    const float mn = fmaxf(m, ms);
+    const float ca = expf(m - mn), cb = expf(ms - mn);
+    l = fmaf(l, ca, ls * cb);
+    o = fmaf(o, ca, po[(size_t)s * Dh] * cb);
+    m = mn;
+  }
+  if (m_out != nullptr) {
+    out[i] = o;
+    if (d == 0) {
+      m_out[row] = m;
+      l_out[row] = l;
+    }
+  } else {
+    out[i] = o / fmaxf(l, 1e-30f);
+  }
 }
 
 template <typename Kernel>
@@ -255,43 +411,54 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
 template <typename KT>
 int launch(const void* q, const void* k, const void* v, const int* bt,
            const int* lengths, const int* window, const int* page_ok,
-           float* out, float* m_out, float* l_out, int B, int M, int ps,
-           int T, int tb, int Hq, int Hkv, int Dh, int n, int es, float scale,
+           float* out, float* m_out, float* l_out, float* part_o,
+           float* part_ml, int B, int M, int ps, int T, int tb, int Hq,
+           int Hkv, int Dh, int n, int es, int SP, int S, float scale,
            float softcap, bool mq, cudaStream_t s) {
-  const int G = Hq / Hkv;
-  const size_t smem = smem_bytes(tb * G, ps, Dh);
+  const size_t smem = smem_bytes(SP * ps, Dh);
+  if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
+  // 16-byte loads need every (page, token, head) row of codes aligned
+  const int vec = (Dh * sizeof(KT)) % 16 == 0 &&
+                  reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
+                  reinterpret_cast<uintptr_t>(v) % 16 == 0;
+  // a warp per query row of the block, up to kMaxThreads
+  const int threads = min(32 * tb * (Hq / Hkv), kMaxThreads);
   if (mq) {
     cudaError_t e = allow_smem(paged_attention_mq_kernel<KT>, smem);
     if (e != cudaSuccess) return (int)e;
-    dim3 grid(Hkv, B, T / tb);
-    paged_attention_mq_kernel<KT><<<grid, kThreadsK7, smem, s>>>(
+    dim3 grid(S, Hkv, B * (T / tb));
+    paged_attention_mq_kernel<KT><<<grid, threads, smem, s>>>(
         (const float*)q, (const KT*)k, (const KT*)v, bt, lengths, window,
-        page_ok, out, m_out, l_out, T, tb, M, ps, Hq, Hkv, Dh, n, es, scale,
-        softcap);
+        page_ok, out, m_out, l_out, part_o, part_ml, T, tb, M, ps, Hq, Hkv,
+        Dh, n, es, SP, S, scale, softcap, vec);
   } else {
     cudaError_t e = allow_smem(paged_attention_kernel<KT>, smem);
     if (e != cudaSuccess) return (int)e;
-    dim3 grid(Hkv, B);
-    paged_attention_kernel<KT><<<grid, kThreadsK3, smem, s>>>(
+    dim3 grid(S, Hkv, B);
+    paged_attention_kernel<KT><<<grid, threads, smem, s>>>(
         (const float*)q, (const KT*)k, (const KT*)v, bt, lengths, window,
-        page_ok, out, m_out, l_out, M, ps, Hq, Hkv, Dh, n, es, scale,
-        softcap);
+        page_ok, out, m_out, l_out, part_o, part_ml, M, ps, Hq, Hkv, Dh, n,
+        es, SP, S, scale, softcap, vec);
   }
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || S == 1) return (int)e;
+  const int rows = B * T * Hq;
+  const size_t total = (size_t)rows * Dh;
+  paged_attention_merge_kernel<<<(unsigned)((total + 255) / 256), 256, 0, s>>>(
+      part_o, part_ml, out, m_out, l_out, rows, S, Dh);
   return (int)cudaGetLastError();
 }
 
 int dispatch(const void* q, const void* k_pages, const void* v_pages,
              const void* bt, const void* lengths, const void* window,
-             const void* page_ok, void* out, void* m_out, void* l_out, int B,
-             int M, int ps, int T, int tb, int Hq, int Hkv, int Dh,
-             int kv_kind, int n, int es, float scale, float softcap, bool mq,
-             void* stream) {
-  if (T < 1 || tb < 1 || T % tb != 0 || Hkv < 1 || Hq % Hkv != 0) {
-    return (int)cudaErrorInvalidValue;
-  }
-  // attend_rows gives each of a block's tb * G rows one thread for its
-  // softmax state, so the rows may not outnumber the block's threads
-  if (tb * (Hq / Hkv) > (mq ? kThreadsK7 : kThreadsK3)) {
+             const void* page_ok, void* out, void* m_out, void* l_out,
+             void* part_o, void* part_ml, int B, int M, int ps, int T, int tb,
+             int Hq, int Hkv, int Dh, int kv_kind, int n, int es, int SP,
+             int S, float scale, float softcap, bool mq, void* stream) {
+  if (T < 1 || tb < 1 || T % tb != 0 || Hkv < 1 || Hq % Hkv != 0 ||
+      Dh < 1 || Dh > kMaxDh || SP < 1 || SP > 32 ||
+      SP * ps > 32 * kMaxChunks || S != (M + SP - 1) / SP + (M == 0) ||
+      (S > 1 && (part_o == nullptr || part_ml == nullptr))) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
@@ -302,51 +469,50 @@ int dispatch(const void* q, const void* k_pages, const void* v_pages,
   float* o = (float*)out;
   float* mo = (float*)m_out;
   float* lo = (float*)l_out;
+  float* po = (float*)part_o;
+  float* pml = (float*)part_ml;
+#define K3_LAUNCH(KT)                                                        \
+  return launch<KT>(q, k_pages, v_pages, bt_i, len_i, win_i, ok_i, o, mo,   \
+                    lo, po, pml, B, M, ps, T, tb, Hq, Hkv, Dh, n, es, SP, S, \
+                    scale, softcap, mq, s)
   switch (kv_kind) {
-    case 0:
-      return launch<int8_t>(q, k_pages, v_pages, bt_i, len_i, win_i, ok_i, o,
-                            mo, lo, B, M, ps, T, tb, Hq, Hkv, Dh, n, es,
-                            scale, softcap, mq, s);
-    case 1:
-      return launch<int16_t>(q, k_pages, v_pages, bt_i, len_i, win_i, ok_i, o,
-                             mo, lo, B, M, ps, T, tb, Hq, Hkv, Dh, n, es,
-                             scale, softcap, mq, s);
-    case 2:
-      return launch<float>(q, k_pages, v_pages, bt_i, len_i, win_i, ok_i, o,
-                           mo, lo, B, M, ps, T, tb, Hq, Hkv, Dh, n, es, scale,
-                           softcap, mq, s);
-    case 3:
-      return launch<__nv_bfloat16>(q, k_pages, v_pages, bt_i, len_i, win_i,
-                                   ok_i, o, mo, lo, B, M, ps, T, tb, Hq, Hkv,
-                                   Dh, n, es, scale, softcap, mq, s);
-    default:
-      return (int)cudaErrorInvalidValue;
+    case 0: K3_LAUNCH(int8_t);
+    case 1: K3_LAUNCH(int16_t);
+    case 2: K3_LAUNCH(float);
+    case 3: K3_LAUNCH(__nv_bfloat16);
+    default: return (int)cudaErrorInvalidValue;
   }
+#undef K3_LAUNCH
 }
 
 }  // namespace
 
 // kv_kind: 0 = int8 codes, 1 = int16 codes, 2 = float32, 3 = bfloat16.
-// m_out / l_out non-null selects the unnormalized partials output.
+// m_out / l_out non-null selects the unnormalized partials output.  SP
+// pages per split, S = ceil(M / SP) splits (the wrapper's
+// `attention_splits`); with S > 1, part_o [B * T * Hq, S, Dh] and part_ml
+// [B * T * Hq, S, 2] f32 scratch.
 // K3: q / out [B, Hq, Dh], m / l [B, Hq].
 extern "C" int paged_attention_launch(
     const void* q, const void* k_pages, const void* v_pages, const void* bt,
     const void* lengths, const void* window, const void* page_ok, void* out,
-    void* m_out, void* l_out, int B, int M, int ps, int Hq, int Hkv, int Dh,
-    int kv_kind, int n, int es, float scale, float softcap, void* stream) {
+    void* m_out, void* l_out, void* part_o, void* part_ml, int B, int M,
+    int ps, int Hq, int Hkv, int Dh, int kv_kind, int n, int es, int SP,
+    int S, float scale, float softcap, void* stream) {
   return dispatch(q, k_pages, v_pages, bt, lengths, window, page_ok, out,
-                  m_out, l_out, B, M, ps, 1, 1, Hq, Hkv, Dh, kv_kind, n, es,
-                  scale, softcap, false, stream);
+                  m_out, l_out, part_o, part_ml, B, M, ps, 1, 1, Hq, Hkv, Dh,
+                  kv_kind, n, es, SP, S, scale, softcap, false, stream);
 }
 
 // K7: q / out [B, T, Hq, Dh], m / l [B, T, Hq]; t_block divides T.
 extern "C" int paged_attention_mq_launch(
     const void* q, const void* k_pages, const void* v_pages, const void* bt,
     const void* lengths, const void* window, const void* page_ok, void* out,
-    void* m_out, void* l_out, int B, int M, int ps, int T, int t_block,
-    int Hq, int Hkv, int Dh, int kv_kind, int n, int es, float scale,
-    float softcap, void* stream) {
+    void* m_out, void* l_out, void* part_o, void* part_ml, int B, int M,
+    int ps, int T, int t_block, int Hq, int Hkv, int Dh, int kv_kind, int n,
+    int es, int SP, int S, float scale, float softcap, void* stream) {
   return dispatch(q, k_pages, v_pages, bt, lengths, window, page_ok, out,
-                  m_out, l_out, B, M, ps, T, t_block, Hq, Hkv, Dh, kv_kind, n,
-                  es, scale, softcap, true, stream);
+                  m_out, l_out, part_o, part_ml, B, M, ps, T, t_block, Hq,
+                  Hkv, Dh, kv_kind, n, es, SP, S, scale, softcap, true,
+                  stream);
 }

@@ -35,8 +35,8 @@ _SIGNATURES = {
         "posit_encode_launch": [_P, _P, _LL, _I, _I, _I, _P],
     },
     "paged_attention": {
-        "paged_attention_launch": [_P] * 10 + [_I] * 9 + [_F, _F, _P],
-        "paged_attention_mq_launch": [_P] * 10 + [_I] * 11 + [_F, _F, _P],
+        "paged_attention_launch": [_P] * 12 + [_I] * 11 + [_F, _F, _P],
+        "paged_attention_mq_launch": [_P] * 12 + [_I] * 13 + [_F, _F, _P],
     },
     "decode_sample": {
         "decode_sample_tiles": [_I, _I],
@@ -46,7 +46,7 @@ _SIGNATURES = {
         "prefill_attention_launch": [_P] * 11 + [_I] * 14 + [_F, _F, _P],
     },
     "posit_matmul": {
-        "posit_matmul_launch": [_P] * 5 + [_I] * 15 + [_P],
+        "posit_matmul_launch": [_P] * 6 + [_I] * 15 + [_P],
     },
     "posit_matmul_grouped": {
         "posit_matmul_grouped_launch": [_P] * 4 + [_I] * 13 + [_P],

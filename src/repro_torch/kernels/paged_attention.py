@@ -21,13 +21,31 @@ from . import _build
 from .posit_codec import decode_plain
 
 _NEG = -2.0e38
-# launches of each kernel since the last reset (kernels/ops.reset_launches)
-LAUNCHES = {"paged_attention": 0, "paged_attention_mq": 0, "decode_sample": 0}
+# launches of each kernel since the last reset (kernels/ops.reset_launches);
+# "<kernel>:merge" counts the launches that also ran the split merge
+LAUNCHES = {"paged_attention": 0, "paged_attention:merge": 0,
+            "paged_attention_mq": 0, "paged_attention_mq:merge": 0,
+            "decode_sample": 0}
 _KINDS = {torch.int8: 0, torch.int16: 1, torch.float32: 2, torch.bfloat16: 3}
-# threads of a K7 block (csrc/paged_attention.cu): a block serves at most
-# this many query rows, t_block x Hq / Hkv, one thread each for the row's
-# softmax state
-_K7_ROWS = 256
+# K3 / K7 split a slot's key span across blocks: a split holds
+# SPLIT_KEYS // page_size pages (at least one), at most MAX_SPLIT_KEYS
+# keys; a lane holds at most MAX_HEAD_DIM / 32 dims of a row
+# (csrc/paged_attention.cu)
+SPLIT_KEYS = 32
+MAX_SPLIT_KEYS = 128
+MAX_HEAD_DIM = 256
+# rows a block serves with one warp each (more rows take turns)
+BLOCK_ROWS = 16
+
+
+def attention_splits(M: int, page_size: int) -> tuple[int, int]:
+    """(pages per split SP, splits S) of K3 / K7 over a block table of M
+    pages: split s covers pages [s SP, min(M, (s + 1) SP)), in split order,
+    S >= 1.  SP depends on the page size alone, never on T, t_block or a
+    row's length, so every row of any call over the same table meets the
+    same splits and the same merge order."""
+    sp = max(1, SPLIT_KEYS // page_size)
+    return sp, max(1, -(-M // sp))
 
 
 def _softcap(x, cap: float):
@@ -118,9 +136,9 @@ def paged_attention(q, k_pages, v_pages, block_tables, lengths, window,
     partials     : return the unnormalized (o, m [B,(T,)Hq], l [B,(T,)Hq]).
     t_block      : K7's query-token tile (divides T; default the largest of
                    8, 4, 2, 1 that does and keeps t_block x Hq / Hkv within
-                   a block's 256 rows); value-neutral, ignored for 3-D q.
-                   On the card a block of more rows (K3: Hq / Hkv > 128)
-                   raises.
+                   BLOCK_ROWS); value-neutral, ignored for 3-D q.
+                   On the card Dh may not exceed MAX_HEAD_DIM, nor the
+                   page size MAX_SPLIT_KEYS.
 
     Returns [B, Hq, Dh] (or [B, T, Hq, Dh]) f32, or the (o, m, l) triple."""
     if q.ndim not in (3, 4):
@@ -138,10 +156,11 @@ def paged_attention(q, k_pages, v_pages, block_tables, lengths, window,
         raise ValueError(f"page feature dim {kvd} incompatible with "
                          f"q heads {Hq} x head_dim {Dh}")
     if mq:
-        # the reference kernel's default tile, the largest of 8, 4, 2, 1
-        # dividing T, kept within K7's block rows
+        # the largest of 8, 4, 2, 1 dividing T that keeps a block to
+        # BLOCK_ROWS rows (a warp each); the reference takes the largest
+        # dividing T, and every tile gives the same values
         t_block = next((tb for tb in (8, 4, 2) if T % tb == 0
-                        and tb * (Hq // Hkv) <= _K7_ROWS), 1) \
+                        and tb * (Hq // Hkv) <= BLOCK_ROWS), 1) \
             if t_block is None else int(t_block)
         if t_block < 1 or T % t_block:
             raise ValueError(f"t_block={t_block} must divide T={T}")
@@ -154,6 +173,10 @@ def paged_attention(q, k_pages, v_pages, block_tables, lengths, window,
                         f"got {k_pages.dtype}")
     if fmt_kv is not None and k_pages.is_floating_point():
         raise TypeError("fmt_kv given but the pages hold floats")
+    if Dh > MAX_HEAD_DIM or ps > MAX_SPLIT_KEYS:
+        raise ValueError(f"paged_attention on the card takes head_dim <= "
+                         f"{MAX_HEAD_DIM} and pages of <= {MAX_SPLIT_KEYS} "
+                         f"tokens, got {Dh} and {ps}")
     q = q.to(torch.float32).contiguous()
     M = block_tables.shape[1]
     for name, t, shape in (("block_tables", block_tables, (B, M)),
@@ -173,26 +196,48 @@ def paged_attention(q, k_pages, v_pages, block_tables, lengths, window,
         m = torch.empty(q.shape[:-1], dtype=torch.float32, device=q.device)
         l = torch.empty(q.shape[:-1], dtype=torch.float32, device=q.device)
     if B and T:
+        sp, n_splits = attention_splits(M, ps)
+        part_o = part_ml = None
+        if n_splits > 1:
+            # each row's per-split (o, m, l), merged in split order
+            part_o = torch.empty((B * T * Hq, n_splits, Dh),
+                                 dtype=torch.float32, device=q.device)
+            part_ml = torch.empty((B * T * Hq, n_splits, 2),
+                                  dtype=torch.float32, device=q.device)
         lib = _build.library("paged_attention")
         ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
         head = (q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                 block_tables.data_ptr(), lengths.data_ptr(), window.data_ptr(),
-                ptr(page_ok), out.data_ptr(), ptr(m), ptr(l), B, M, ps)
+                ptr(page_ok), out.data_ptr(), ptr(m), ptr(l), ptr(part_o),
+                ptr(part_ml), B, M, ps)
         tail = (Hq, Hkv, Dh, _KINDS[k_pages.dtype],
                 fmt_kv.n if fmt_kv else 0, fmt_kv.es if fmt_kv else 0,
-                1.0 / math.sqrt(Dh), float(softcap_val), _build.stream_of(q))
+                sp, n_splits, 1.0 / math.sqrt(Dh), float(softcap_val),
+                _build.stream_of(q))
         if mq:
             err = lib.paged_attention_mq_launch(*head, T, t_block, *tail)
         else:
             err = lib.paged_attention_launch(*head, *tail)
         _build.check(err, kernel)
         LAUNCHES[kernel] += 1
+        if n_splits > 1:
+            LAUNCHES[f"{kernel}:merge"] += 1
     return (out, m, l) if partials else out
 
 
 # ---------------------------------------------------------------------------
 # fused decode epilogue: logits-head posit GEMM + sampling
 # ---------------------------------------------------------------------------
+
+def scale_logits(l, temperature):
+    """l / max(T, 1e-6) in f32, as the reference's `logits /
+    jnp.maximum(temperature, 1e-6)`: the divisor is a 0-dim f32 tensor on
+    l's device.  (PyTorch divides a CUDA tensor by a Python or CPU scalar
+    as a multiply by its reciprocal, which can be one ulp off.)"""
+    t = torch.tensor(max(float(temperature), 1e-6), dtype=torch.float32,
+                     device=l.device)
+    return l / t
+
 
 def sample_logits(l, noise, temperature, *, greedy: bool, top_k: int):
     """The serving sampler on f32 logits rows [B, V]: greedy argmax, or
@@ -201,7 +246,7 @@ def sample_logits(l, noise, temperature, *, greedy: bool, top_k: int):
     noise + l).  Ties go to the first index, as in jnp.argmax."""
     if greedy:
         return torch.argmax(l, dim=-1).to(torch.int32)
-    l = l / max(float(temperature), 1e-6)
+    l = scale_logits(l, temperature)
     V = l.shape[-1]
     if 0 < top_k < V:
         kth = torch.topk(l, top_k, dim=-1).values[..., -1:]

@@ -13,17 +13,20 @@ encode).  M, N and K need not divide any tile.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch.core.formats import PositFormat
-from repro_torch.core.posit import storage_dtype
+from repro_torch.core.posit import storage_dtype, to_container
 from . import _build
 from .posit_codec import decode_plain, encode_plain
 
 # launches of each kernel since the last reset (kernels/ops.reset_launches);
 # "posit_matmul:<variant>" counts K6's launches by `matmul_variant`
 LAUNCHES = {"posit_matmul": 0, "posit_matmul:gemv_p16_2": 0,
-            "posit_matmul:gemv": 0, "posit_matmul:tiled": 0,
+            "posit_matmul:gemv": 0, "posit_matmul:tc_p16_2": 0,
+            "posit_matmul:tc": 0, "posit_matmul:tiled": 0,
             "posit_matmul_grouped": 0}
 _CODE_DTYPES = (torch.int8, torch.int16)
 
@@ -37,18 +40,59 @@ GEMV_BN = 256
 GEMV_ROWS = 32
 GEMV_MAX_ROWS = 2048
 GEMV_BLOCKS = 4 * 132
-_VARIANTS = {"tiled": 0, "gemv": 1, "gemv_p16_2": 2}
+# K6's split-bf16 tensor-core GEMM (M > GEMV_MAX_M): a block owns a
+# TC_BM x TC_BN output tile and one K split of a multiple of TC_BK rows;
+# the splits aim at TC_BLOCKS blocks, one per SM of an H100.
+TC_BM = 128
+TC_BN = 128
+TC_BK = 64
+TC_BLOCKS = 132
+_VARIANTS = {"tiled": 0, "gemv": 1, "gemv_p16_2": 2, "tc": 3, "tc_p16_2": 4}
 
 
-def matmul_variant(M: int, fmt_b: PositFormat, b_dtype) -> str:
+def split_bf16(x):
+    """x (f32) -> (hi, lo) bf16 with hi = bf16(x), lo = bf16(x - hi): the
+    two terms K6's tensor-core variant multiplies.  For a decoded posit of
+    at most 14 significand bits hi + lo == x exactly."""
+    hi = x.to(torch.bfloat16)
+    return hi, (x - hi.to(torch.float32)).to(torch.bfloat16)
+
+
+@functools.lru_cache(maxsize=None)
+def _split_exponents(n: int, es: int) -> tuple[int, int]:
+    """(least, greatest) binary exponent of the nonzero bf16 terms of
+    `split_bf16` over every code of P(n, es) but NaR."""
+    fmt = PositFormat(n, es)
+    x = decode_plain(to_container(torch.arange(1 << n, dtype=torch.int64),
+                                  fmt), fmt)
+    x = x[torch.isfinite(x) & (x != 0)]
+    terms = torch.cat([t.to(torch.float32) for t in split_bf16(x)]).abs()
+    _, e = torch.frexp(terms[terms != 0])
+    return int(e.min()) - 1, int(e.max()) - 1
+
+
+def split_exact(fmt_a: PositFormat, fmt_b: PositFormat) -> bool:
+    """Whether every product of a `split_bf16` term of a fmt_a value and
+    one of a fmt_b value is a normal, finite f32 (so exact: 8 x 8
+    significand bits), as the tensor-core variant needs."""
+    lo_a, hi_a = _split_exponents(fmt_a.n, fmt_a.es)
+    lo_b, hi_b = _split_exponents(fmt_b.n, fmt_b.es)
+    return hi_a + hi_b <= 126 and lo_a + lo_b >= -126
+
+
+def matmul_variant(M: int, fmt_a: PositFormat, fmt_b: PositFormat,
+                   b_dtype) -> str:
     """K6's kernel for an [M, K] x [K, N] call: the split-K GEMV at decode
-    shapes (M <= GEMV_MAX_M), with the compile-time P(16,2) decode for
-    int16 P(16,2) weights (every a13 projection); output tiles above."""
-    if M > GEMV_MAX_M:
+    shapes (M <= GEMV_MAX_M), the split-bf16 tensor-core GEMM above where
+    the split is exact for both formats (`split_exact`), else the f32 SIMT
+    tiles; "_p16_2" marks the compile-time P(16,2) decode for int16
+    P(16,2) weights (every a13 projection)."""
+    p16_2 = (fmt_b.n, fmt_b.es) == (16, 2) and b_dtype == torch.int16
+    if M <= GEMV_MAX_M:
+        return "gemv_p16_2" if p16_2 else "gemv"
+    if not split_exact(fmt_a, fmt_b):
         return "tiled"
-    if (fmt_b.n, fmt_b.es) == (16, 2) and b_dtype == torch.int16:
-        return "gemv_p16_2"
-    return "gemv"
+    return "tc_p16_2" if p16_2 else "tc"
 
 
 def split_k(N: int, K: int) -> tuple[int, int]:
@@ -62,6 +106,17 @@ def split_k(N: int, K: int) -> tuple[int, int]:
     ks = min(max(-(-rows // GEMV_ROWS) * GEMV_ROWS, GEMV_ROWS), GEMV_MAX_ROWS)
     return ks, max(1, -(-K // ks))
 
+
+def tc_split_k(M: int, N: int, K: int) -> tuple[int, int]:
+    """(rows per split KS, number of splits S) of the tensor-core GEMM:
+    KS a multiple of TC_BK, split s covers K rows [s * KS, min(K, (s + 1)
+    * KS)) (rows past K are zeros), none empty, S >= 1; output tiles
+    times splits come near TC_BLOCKS where K allows."""
+    tiles = -(-M // TC_BM) * -(-N // TC_BN)
+    want = max(1, TC_BLOCKS // max(tiles, 1))
+    steps = max(1, -(-K // TC_BK))
+    ks = -(-steps // min(want, steps)) * TC_BK
+    return ks, max(1, -(-K // ks))
 
 
 # Tolerance constant of `sum_bound`, in units of u sqrt(K) ||a_i . b_j||_2.
@@ -134,17 +189,27 @@ def posit_matmul(a_codes, b_codes, fmt_a: PositFormat, fmt_b: PositFormat,
             raise ValueError(f"posit_matmul writes int8/int16 codes, not {dt}")
         out = torch.empty((M, N), dtype=dt, device=dev)
     if M and N:
-        variant = matmul_variant(M, fmt_b, b_codes.dtype)
-        ks, splits = split_k(N, K) if variant != "tiled" else (0, 0)
-        # the GEMV's per-split partial sums, reduced in split order
+        variant = matmul_variant(M, fmt_a, fmt_b, b_codes.dtype)
+        ks, splits, a_split = 0, 0, None
+        if variant.startswith("gemv"):
+            ks, splits = split_k(N, K)
+        elif variant.startswith("tc"):
+            ks, splits = tc_split_k(M, N, K)
+            # the activations' hi / lo bf16 rows, decoded once per call
+            a_split = torch.empty((2, -(-M // TC_BM) * TC_BM, splits * ks),
+                                  dtype=torch.bfloat16, device=dev)
+        # per-split partial sums, reduced in split order (one split of the
+        # tensor-core GEMM with an f32 output writes `out` directly)
+        direct = variant.startswith("tc") and splits == 1 and fmt_out is None
         partial = (torch.empty((splits, M, N), dtype=torch.float32,
-                               device=dev) if splits else None)
+                               device=dev) if splits and not direct else None)
+        ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
         lib = _build.library("posit_matmul")
         _build.check(lib.posit_matmul_launch(
             a_codes.data_ptr(), b_codes.data_ptr(),
             out.data_ptr() if fmt_out is None else None,
             None if fmt_out is None else out.data_ptr(),
-            None if partial is None else partial.data_ptr(), M, N, K,
+            ptr(partial), ptr(a_split), M, N, K,
             a_codes.element_size(), fmt_a.n, fmt_a.es,
             b_codes.element_size(), fmt_b.n, fmt_b.es,
             0 if fmt_out is None else out.element_size(),

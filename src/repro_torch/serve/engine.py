@@ -109,7 +109,7 @@ class PageAllocator:
         if n_shards != 1:
             raise NotImplementedError(
                 "per-device page budgets (sharded pools) are not ported yet "
-                "(ROADMAP queue 1, slice H)")
+                "(ROADMAP queue 1, item 8)")
         if n_pages < 2:
             raise ValueError(f"need >= 2 pages (trash + 1), got {n_pages}")
         self.n_shards = 1

@@ -157,7 +157,8 @@ def _check_tokens(tok, plain_tok, scores):
 def _scores(l, noise, temperature, greedy, top_k):
     if greedy:
         return l
-    l = l / max(temperature, 1e-6)
+    l = l / torch.tensor(max(temperature, 1e-6), dtype=torch.float32,
+                         device=l.device)
     if 0 < top_k < l.shape[-1]:
         kth = torch.topk(l, top_k, dim=-1).values[..., -1:]
         l = torch.where(l >= kth, l, torch.full_like(l, -1e30))
@@ -186,6 +187,20 @@ def test_decode_sample_matches_plain(cuda, w_kind, transpose):
         tok = pa.decode_sample(x, w, None if greedy else noise, temp, **kw)
         plain = pa.sample_logits(l, noise, temp, greedy=greedy, top_k=top_k)
         _check_tokens(tok, plain, _scores(l, noise, temp, greedy, top_k))
+
+
+@pytest.mark.parametrize("temperature", [0.8, 0.7, 1e-7])
+def test_scale_logits_bitwise_host_division(cuda, temperature):
+    """The sampler's l / max(T, 1e-6) on the card is bitwise the f32
+    division numpy does on the host (the reference's `logits /
+    jnp.maximum(temperature, 1e-6)`), not a multiply by the reciprocal."""
+    import numpy as np
+    g = torch.Generator().manual_seed(11)
+    l = torch.randn(4, 50000, generator=g) * 30
+    want = l.numpy() / np.float32(max(temperature, 1e-6))
+    got = pa.scale_logits(l.to(cuda), temperature).cpu().numpy()
+    assert got.dtype == np.float32
+    assert np.array_equal(got.view(np.int32), want.view(np.int32))
 
 
 def test_decode_sample_fake_quant_bf16_rounding(cuda):
@@ -358,20 +373,101 @@ def test_posit_matmul_bitwise_deterministic(cuda, M, K, N, fmt_out):
                                      ("P16_1", 1), ("P16_2", 9)])
 def test_posit_matmul_decodes_every_weight_code(cuda, fmt_b, M):
     """Every 16-bit weight code times 1.0 through each kernel variant (the
-    compile-time P(16,2) decode, the run-time decode, the tiled kernel)
-    gives the plain decode bitwise (NaR as nan)."""
+    GEMV's compile-time P(16,2) and run-time decodes, the tensor-core GEMM
+    at M 9, whose hi + lo split must sum back to the code's value) gives
+    the plain decode bitwise (NaR as nan)."""
     fa, fb = formats.P13_2, getattr(formats, fmt_b)
     a = posit.pack(torch.ones(M, 1), fa).to(cuda)
     codes = posit.to_container(torch.arange(1 << 16, dtype=torch.int64), fb)
     b = codes.reshape(1, -1).to(cuda)
     ops.reset_launches()
     got = pm.posit_matmul(a, b, fa, fb)
-    variant = pm.matmul_variant(M, fb, b.dtype)
+    variant = pm.matmul_variant(M, fa, fb, b.dtype)
     assert ops.launch_counts()[f"posit_matmul:{variant}"] == 1
     want = posit_codec.decode_plain(b, fb).expand(M, -1)
     nan = torch.isnan(want)
     assert torch.equal(torch.isnan(got), nan)
     assert _bits_equal(got[~nan], want[~nan])
+
+
+# (activation format, weight format, output format): the four int8 / int16
+# container pairs
+TC_PAIRS = {
+    "a16_w16": ("P13_2", "P16_2", "P16_2"),
+    "a8_w16": ("P8_2", "P16_1", "P8_2"),
+    "a16_w8": ("P13_2", "P8_2", "P13_2"),
+    "a8_w8": ("P8_2", "P8_0", "P8_2"),
+}
+
+
+@pytest.mark.parametrize("pair", sorted(TC_PAIRS))
+@pytest.mark.parametrize("M", [9, 33, 255, 257])
+def test_posit_matmul_tc_ragged(cuda, M, pair):
+    """K6's tensor-core variant at ragged M, N 1000 and K 2050 (no multiple
+    of its 128 x 128 tiles or 32-row K steps): within `sum_bound`, fmt_out
+    codes the rounding of its own f32 sums, bitwise equal on a second
+    call."""
+    fa, fb, fo = (getattr(formats, f) for f in TC_PAIRS[pair])
+    K, N = 2050, 1000
+    g = torch.Generator(device=cuda).manual_seed(M * 7 + len(pair))
+    a = posit.pack(torch.randn(M, K, generator=g, device=cuda), fa)
+    b = posit.pack(torch.randn(K, N, generator=g, device=cuda) * K ** -0.5,
+                   fb)
+    ops.reset_launches()
+    got = pm.posit_matmul(a, b, fa, fb)
+    variant = pm.matmul_variant(M, fa, fb, b.dtype)
+    assert variant.startswith("tc")
+    assert ops.launch_counts()[f"posit_matmul:{variant}"] == 1
+    plain = pm.posit_matmul_plain(a, b, fa, fb)
+    assert bool(((got - plain).abs() <= pm.sum_bound(a, b, fa, fb)).all())
+    assert _bits_equal(pm.posit_matmul(a, b, fa, fb), got)
+    codes = pm.posit_matmul(a, b, fa, fb, fo)
+    assert codes.dtype == posit.storage_dtype(fo)
+    assert _bits_equal(codes, posit_codec.encode_plain(got, fo))
+    assert _bits_equal(pm.posit_matmul(a, b, fa, fb, fo), codes)
+
+
+# command-r-35b's projections, (K, N)
+LAYER_KN = {"wq": (8192, 8192), "wk": (8192, 1024), "wv": (8192, 1024),
+            "wo": (8192, 8192), "gate": (8192, 22528), "up": (8192, 22528),
+            "down": (22528, 8192)}
+
+
+@pytest.mark.parametrize("proj", list(LAYER_KN))
+def test_posit_matmul_tc_bound_rejects_planted_faults(cuda, proj):
+    """At the a13 prefill shape (M 256) every command-r projection passes
+    `sum_bound` on the tensor-core variant, and two faults fail it:
+    weights rounded to bf16, one 32-wide K tile left out."""
+    fa, fb = formats.P13_2, formats.P16_2
+    K, N = LAYER_KN[proj]
+    g = torch.Generator(device=cuda).manual_seed(K + N + len(proj))
+    a = posit.pack(torch.randn(256, K, generator=g, device=cuda), fa)
+    b = posit.pack(torch.randn(K, N, generator=g, device=cuda) * K ** -0.5,
+                   fb)
+    ops.reset_launches()
+    got = pm.posit_matmul(a, b, fa, fb)
+    assert ops.launch_counts()["posit_matmul:tc_p16_2"] == 1
+    bound = pm.sum_bound(a, b, fa, fb)
+    plain = pm.posit_matmul_plain(a, b, fa, fb)
+    assert bool(((got - plain).abs() <= bound).all())
+    A, B = posit_codec.decode_plain(a, fa), posit_codec.decode_plain(b, fb)
+    for bad in (torch.matmul(A, B.to(torch.bfloat16).float()),
+                plain - torch.matmul(A[:, :32], B[:32])):
+        assert bool(((bad - plain).abs() > bound).any())
+
+
+def test_posit_matmul_tiled_for_unsplittable_formats(cuda):
+    """A format pair whose bf16 split products could leave f32's normal
+    range (P(16,3) reaches 2^112) keeps the f32 SIMT tiles at M > 8."""
+    fa, fb = formats.PositFormat(16, 3), formats.P16_2
+    g = torch.Generator(device=cuda).manual_seed(12)
+    a = posit.pack(torch.randn(40, 300, generator=g, device=cuda), fa)
+    b = posit.pack(torch.randn(300, 96, generator=g, device=cuda) * 0.05, fb)
+    ops.reset_launches()
+    got = pm.posit_matmul(a, b, fa, fb)
+    assert ops.launch_counts()["posit_matmul:tiled"] == 1
+    plain = pm.posit_matmul_plain(a, b, fa, fb)
+    assert bool(((got - plain).abs() <= pm.sum_bound(a, b, fa, fb)).all())
 
 
 # ---------------------------------------------------------------------------
@@ -466,22 +562,28 @@ def test_paged_attention_mq_t_block_neutral(cuda, case):
 
 
 def test_paged_attention_rows_past_block_threads(cuda):
-    """A block gives each query row one thread (K3: 128, K7: 256): more
-    rows per block raise rather than come back wrong, and K7's default
-    t_block keeps within the limit."""
+    """A block serves more query rows than it has threads (K3: 160 rows
+    on 128 threads; K7 at t_block 2: 320 on 256): its warps take the rows
+    in turn, so both match the plain version and each K7 row is bitwise
+    K3 at its length."""
     q, kp, vp, bt = _attn_inputs(cuda, torch.int8, formats.P8_2, 7, Hq=160,
                                  Hkv=1, Dh=16)
     ln = torch.tensor([40, 17, 96, 1], dtype=torch.int32, device=cuda)
     win = torch.tensor([1 << 30], dtype=torch.int32, device=cuda)
     kw = dict(fmt_kv=formats.P8_2)
-    with pytest.raises(RuntimeError, match="paged_attention: CUDA error"):
-        pa.paged_attention(q, kp, vp, bt, ln, win, **kw)
+    got3 = pa.paged_attention(q, kp, vp, bt, ln, win, **kw)
+    torch.testing.assert_close(
+        got3, pa.paged_attention_plain(q, kp, vp, bt, ln, win, **kw),
+        rtol=2e-5, atol=2e-5)
     q4 = torch.stack([q, q.flip(1)], 1)
-    with pytest.raises(RuntimeError, match="paged_attention_mq: CUDA error"):
-        pa.paged_attention(q4, kp, vp, bt, ln, win, t_block=2, **kw)
-    got = pa.paged_attention(q4, kp, vp, bt, ln, win, **kw)
     want = pa.paged_attention_plain(q4, kp, vp, bt, ln, win, **kw)
-    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+    for tb in (2, None):
+        got = pa.paged_attention(q4, kp, vp, bt, ln, win, t_block=tb, **kw)
+        torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+    for i in range(2):
+        assert _bits_equal(
+            got[:, i], pa.paged_attention(q4[:, i].contiguous(), kp, vp, bt,
+                                          ln - 1 + i, win, **kw))
 
 
 @pytest.mark.parametrize("greedy", [True, False])
@@ -634,6 +736,46 @@ def test_paged_attention_group_of_16(cuda, case):
         row = pa.paged_attention(q[:, t].contiguous(), kp, vp, bt,
                                  ln - (T - 1 - t), win, fmt_kv=fmt)
         assert _bits_equal(got[:, t], row)
+
+
+@pytest.mark.parametrize("kind", ["int8", "bf16", "f32"])
+@pytest.mark.parametrize("G", [8, 16])
+def test_paged_attention_split_boundaries(cuda, G, kind):
+    """K3 at lengths that end on a split boundary and span several splits
+    (1, one split's 32 tokens, 33, 256, 1100), with window + softcap and
+    page_ok + partials, within 2e-5 of the plain version; K7 (T = 4) on
+    the same pages within 2e-5 and each row bitwise K3 at its length."""
+    fmt = formats.P8_2 if kind == "int8" else None
+    dt = {"int8": torch.int8, "bf16": torch.bfloat16, "f32": torch.float32}
+    lengths = [1, pa.SPLIT_KEYS, pa.SPLIT_KEYS + 1, 256, 1100]
+    B, M = len(lengths), 70
+    q3, kp, vp, bt = _attn_inputs(cuda, dt[kind], fmt, 80 + G, B=B,
+                                  Hq=2 * G, Hkv=2, M=M, P=B * M + 1)
+    ln = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    g = torch.Generator().manual_seed(G)
+    ok = (torch.rand(B, M, generator=g) > 0.2).to(torch.int32).to(cuda)
+    q4 = torch.randn(B, 4, 2 * G, 128, generator=g).to(cuda)
+    cases = [dict(window=1 << 30), dict(window=100, softcap_val=30.0),
+             dict(window=1 << 30, page_ok=ok, partials=True)]
+    for case in cases:
+        kw = dict(case, fmt_kv=fmt)
+        win = torch.tensor([kw.pop("window")], dtype=torch.int32,
+                           device=cuda)
+        tup = lambda x: x if isinstance(x, tuple) else (x,)  # noqa: E731
+        for q in (q3, q4):
+            ops.reset_launches()
+            got = tup(pa.paged_attention(q, kp, vp, bt, ln, win, **kw))
+            key = "paged_attention_mq" if q.ndim == 4 else "paged_attention"
+            assert ops.launch_counts()[f"{key}:merge"] == 1
+            want = tup(pa.paged_attention_plain(q, kp, vp, bt, ln, win, **kw))
+            for a, b in zip(got, want):
+                assert torch.isfinite(a).all()
+                torch.testing.assert_close(a, b, rtol=2e-5, atol=2e-5)
+        for i in range(4):
+            k3 = tup(pa.paged_attention(q4[:, i].contiguous(), kp, vp, bt,
+                                        ln - 3 + i, win, **kw))
+            for a, b in zip(got, k3):
+                assert _bits_equal(a[:, i], b), (case, i)
 
 
 @pytest.mark.parametrize("fmt_name", ["P8_2", None])

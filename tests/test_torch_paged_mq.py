@@ -23,6 +23,7 @@ from repro.kernels import ops as jops
 
 from repro_torch.core import formats as tformats
 from repro_torch.kernels import ops as tops
+from repro_torch.kernels import paged_attention as tpa
 
 RTOL = ATOL = 1e-5
 _FMT = {"P16_1": (jformats.P16_1, tformats.P16_1),
@@ -160,3 +161,92 @@ def test_mq_rows_equal_3d_path_at_their_lengths():
         o3 = tops.paged_attention(q[:, i].contiguous(), kp, vp, bt,
                                   ln - T + i + 1, win, fmt_kv=tformats.P16_1)
         torch.testing.assert_close(o4[:, i], o3, rtol=RTOL, atol=ATOL)
+
+
+# (block-table width M, page size): serving tables, the long prompt's,
+# tiny and ragged ones
+SPLIT_TABLES = [(16, 16), (80, 16), (5, 4), (6, 16), (3, 64), (7, 5),
+                (1, 16), (0, 16)]
+
+
+@pytest.mark.parametrize("M,ps", SPLIT_TABLES)
+def test_attention_splits_cover_pages_once_in_order(M, ps):
+    """K3 / K7 split a block table into S runs of SP pages: the runs cover
+    [0, M) once, ascending, none empty (M = 0: one), at most
+    SPLIT_KEYS keys each unless one page is longer, SP from the page size
+    alone."""
+    sp, n_splits = tpa.attention_splits(M, ps)
+    assert sp >= 1 and n_splits >= 1
+    runs = [list(range(s * sp, min(M, (s + 1) * sp)))
+            for s in range(n_splits)]
+    assert [p for run in runs for p in run] == list(range(M))
+    assert all(runs) or M == 0
+    assert sp * ps <= max(tpa.SPLIT_KEYS, ps)
+    assert all(tpa.attention_splits(m, ps)[0] == sp for m in range(1, 90))
+
+
+def _row_pages(length: int, M: int, page_size: int, window: int,
+              ok_row=None) -> list[int]:
+    """The pages a query row at position length - 1 visits, ascending:
+    before its last page, inside its window, page_ok set (as K3's skip)."""
+    n = min(M, -(-length // page_size)) if length > 0 else 0
+    return [p for p in range(n)
+            if p * page_size + page_size - 1 > length - 1 - window
+            and (ok_row is None or ok_row[p])]
+
+
+def _split_schedule(lengths, T: int, t_block: int, M: int, page_size: int,
+                   window: int, page_ok=None) -> dict:
+    """The pages each row of a call visits, by split, as the kernels'
+    grid (`csrc/paged_attention.cu`) takes them: blocks (split s, slot b, token tile) load the split's
+    pages any of their rows visits; a row attends the loaded pages it
+    visits itself.  Returns {(b, t): [(s, [pages...]), ...]} over the
+    splits in order (T = 1, t_block = 1 is K3)."""
+    sp, n_splits = tpa.attention_splits(M, page_size)
+    out = {}
+    for b, length in enumerate(lengths):
+        ok_row = None if page_ok is None else page_ok[b]
+        for z in range(T // t_block):
+            rows = {t: _row_pages(length - T + t + 1, M, page_size, window,
+                                 ok_row)
+                    for t in range(z * t_block, (z + 1) * t_block)}
+            for s in range(n_splits):
+                split = range(s * sp, min(M, (s + 1) * sp))
+                loaded = {p for pages in rows.values() for p in pages
+                          if p in split}
+                for t, pages in rows.items():
+                    out.setdefault((b, t), []).append(
+                        (s, [p for p in split if p in loaded and p in pages]))
+    return out
+
+
+# (lengths counting the T new tokens, window, page_ok rows or None)
+SCHEDULES = {
+    "full": ([96, 17, 4, 50, 1, 33], 1 << 30, None),
+    "window": ([96, 70, 9, 33, 64, 65], 20, None),
+    "page_ok": ([96, 2, 50, 17, 80, 32], 1 << 30,
+                [[1, 1, 0, 1, 1, 0]] * 6),
+}
+
+
+@pytest.mark.parametrize("name", sorted(SCHEDULES))
+@pytest.mark.parametrize("T,t_block", [(4, 1), (4, 2), (4, 4), (3, 3),
+                                       (8, 8), (8, 2)])
+def test_split_schedule_rows_match_k3(name, T, t_block):
+    """Through the kernels' grid (blocks of t_block tokens load the pages
+    any of their rows visits), every row visits each of its pages exactly
+    once, in ascending order and in the split that holds it, and a K7 row
+    meets the same splits and pages as a K3 row of the same length."""
+    lengths, window, ok = SCHEDULES[name]
+    M, ps = 6, 16
+    mq = _split_schedule(lengths, T, t_block, M, ps, window, ok)
+    for (b, t), splits in mq.items():
+        length = lengths[b] - T + t + 1
+        k3 = _split_schedule([length], 1, 1, M, ps, window,
+                                None if ok is None else [ok[b]])[(0, 0)]
+        assert splits == k3
+        assert [s for s, _ in splits] == list(range(len(splits)))
+        pages = [p for _, run in splits for p in run]
+        assert pages == _row_pages(length, M, ps, window,
+                                      None if ok is None else ok[b])
+        assert pages == sorted(set(pages))

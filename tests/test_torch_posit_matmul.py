@@ -146,14 +146,15 @@ def test_qdot_activation_coded_bf16_activations():
                                atol=1e-6)
 
 
-@pytest.mark.parametrize("case", ["kernel_order", "bf16_weights",
-                                  "dropped_k_tile"])
+@pytest.mark.parametrize("case", ["kernel_order", "tc_order",
+                                  "bf16_weights", "dropped_k_tile"])
 def test_sum_bound_separates_sound_orders_from_faults(case):
-    """The K6 kernel's order at decode shapes (the split-K GEMV: in each K
-    split, warp w sums rows w, w + 8, ... one by one with exact products in
-    an f32 accumulator, the split adds its 8 warps in order, the splits are
-    added in split order) must stay within `sum_bound` of torch.matmul,
-    and two faults a kernel could make must not."""
+    """The K6 kernel's orders (at decode shapes the split-K GEMV: in each
+    K split, warp w sums rows w, w + 8, ... one by one with exact products
+    in an f32 accumulator, the split adds its 8 warps in order, the splits
+    are added in split order; above, the tensor-core GEMM's TC_BK-row steps)
+    must stay within `sum_bound` of torch.matmul, and two faults a kernel
+    could make must not."""
     M, K, N = 4, 2048, 64
     rng = np.random.default_rng(5)
     fa, fb = tformats.P13_2, tformats.P16_2
@@ -177,6 +178,21 @@ def test_sum_bound_separates_sound_orders_from_faults(case):
                 split = split + part
             acc = split if acc is None else acc + split
         assert bool(((torch.from_numpy(acc) - plain).abs() <= bound).all())
+        return
+    if case == "tc_order":
+        # the tensor-core GEMM at M > 8 (a13 geometry): per split, each
+        # TC_BK-row K step summed from zero (exact products; its sum rounded
+        # once here) and added into the running f32 sum, splits in order
+        ks, _ = tpm.tc_split_k(256, N, K)
+        acc = None
+        for k0, k1 in _split_ranges(K, ks):
+            run = torch.zeros(M, N, dtype=torch.float32)
+            for s0 in range(k0, k1, tpm.TC_BK):
+                s1 = min(s0 + tpm.TC_BK, k1)
+                run = run + torch.matmul(A[:, s0:s1].double(),
+                                         B[s0:s1].double()).float()
+            acc = run if acc is None else acc + run
+        assert bool(((acc - plain).abs() <= bound).all())
         return
     if case == "bf16_weights":
         bad = torch.matmul(A, B.to(torch.bfloat16).float())
@@ -218,18 +234,87 @@ def test_gemv_splits_cover_k_once_in_order(N, K):
     assert tiles * splits >= min(3 * 132, tiles * max(steps, 1))
 
 
-@pytest.mark.parametrize("M,fmt_b,dtype,want", [
-    (1, "P16_2", torch.int16, "gemv_p16_2"),
-    (4, "P16_2", torch.int16, "gemv_p16_2"),
-    (8, "P16_2", torch.int16, "gemv_p16_2"),
-    (9, "P16_2", torch.int16, "tiled"),
-    (256, "P16_2", torch.int16, "tiled"),
-    (4, "P16_1", torch.int16, "gemv"),
-    (3, "P8_0", torch.int8, "gemv"),
-    (64, "P10_2", torch.int16, "tiled"),
+@pytest.mark.parametrize("M,fmt_a,fmt_b,dtype,want", [
+    (1, "P13_2", "P16_2", torch.int16, "gemv_p16_2"),
+    (4, "P13_2", "P16_2", torch.int16, "gemv_p16_2"),
+    (8, "P13_2", "P16_2", torch.int16, "gemv_p16_2"),
+    (9, "P13_2", "P16_2", torch.int16, "tc_p16_2"),
+    (256, "P13_2", "P16_2", torch.int16, "tc_p16_2"),
+    (4, "P13_2", "P16_1", torch.int16, "gemv"),
+    (3, "P8_2", "P8_0", torch.int8, "gemv"),
+    (64, "P10_2", "P10_2", torch.int16, "tc"),
+    (256, "P8_2", "P16_1", torch.int16, "tc"),
+    (40, "P16_3", "P16_2", torch.int16, "tiled"),
+    (4, "P16_3", "P16_2", torch.int16, "gemv_p16_2"),
 ])
-def test_matmul_variant_by_shape_and_format(M, fmt_b, dtype, want):
-    """K6's wrapper picks its kernel by M and the weight format alone: the
+def test_matmul_variant_by_shape_and_format(M, fmt_a, fmt_b, dtype, want):
+    """K6's wrapper picks its kernel by M and the formats alone: the
     split-K GEMV at decode shapes (the compile-time P(16,2) decode for the
-    a13 weights), output tiles above GEMV_MAX_M rows."""
-    assert tpm.matmul_variant(M, getattr(tformats, fmt_b), dtype) == want
+    a13 weights), above GEMV_MAX_M rows the split-bf16 tensor-core GEMM
+    where `split_exact` holds, else the f32 SIMT tiles."""
+    fa, fb = (_fmt_by_name(f)[1] for f in (fmt_a, fmt_b))
+    assert tpm.matmul_variant(M, fa, fb, dtype) == want
+
+
+# every format of the port, and two whose split products overflow f32
+SPLIT_FORMATS = {"P8_0": True, "P8_1": True, "P8_2": True, "P10_2": True,
+                 "P13_2": True, "P16_1": True, "P16_2": True,
+                 "P16_0": True, "P16_3": False, "P9_4": False}
+
+
+def _fmt_by_name(name):
+    n, es = (int(x) for x in name[1:].split("_"))
+    return jformats.PositFormat(n, es), tformats.PositFormat(n, es)
+
+
+@pytest.mark.parametrize("name", sorted(SPLIT_FORMATS))
+def test_split_bf16_exact_on_every_code(name):
+    """K6's tensor-core variant multiplies hi = bf16(x), lo = bf16(x - hi):
+    on every code of the format, decoded by the reference, hi + lo == x
+    exactly with lo == x - hi (no rounding in either term), zero gives two
+    zeros and NaR two nans; `split_exact` accepts the format against
+    P(16,2) and itself exactly where every term product is a normal f32."""
+    jf, tf = _fmt_by_name(name)
+    codes = np.arange(1 << jf.n, dtype=np.int64)
+    x = torch.from_numpy(np.array(
+        jposit.decode(jnp.asarray(codes, jnp.int32), jf), np.float32))
+    hi, lo = tpm.split_bf16(x)
+    assert hi.dtype == lo.dtype == torch.bfloat16
+    h, l = hi.double(), lo.double()
+    nar = torch.isnan(x)
+    assert int(nar.sum()) == 1 and bool(torch.isnan(h[nar]).all()) \
+        and bool(torch.isnan(l[nar]).all())
+    assert h[0] == 0 and l[0] == 0
+    assert torch.equal((h + l)[~nar], x.double()[~nar])
+    assert torch.equal(l[~nar], (x.double() - h)[~nar])
+    assert tpm.split_exact(tf, tformats.P16_2) is SPLIT_FORMATS[name]
+    assert tpm.split_exact(tf, tf) is SPLIT_FORMATS[name]
+
+
+# (M, N, K, splits): a13 prefill projections of command-r-35b (N 1024
+# needs 8 splits to near one block per SM), ragged and tiny shapes (None:
+# not pinned)
+TC_SHAPES = [(256, 8192, 8192, 1), (256, 1024, 8192, 8),
+             (256, 22528, 8192, 1), (256, 8192, 22528, 1),
+             (9, 1000, 8190, 16), (257, 65, 333, None),
+             (33, 130, 517, None), (100, 7, 1, 1), (64, 300, 0, 1)]
+
+
+@pytest.mark.parametrize("M,N,K,want", TC_SHAPES)
+def test_tc_splits_cover_k_once_in_order(M, N, K, want):
+    """The tensor-core GEMM's splits cover [0, K) once, in increasing
+    order, none empty (K = 0: one split of zeros), each a multiple of its
+    TC_BK-row K step, and tiles x splits stay within TC_BLOCKS (one block per
+    SM of an H100) unless the tiles alone exceed it."""
+    ks, splits = tpm.tc_split_k(M, N, K)
+    assert ks % tpm.TC_BK == 0 and ks >= tpm.TC_BK and splits >= 1
+    ranges = _split_ranges(K, ks)
+    assert len(ranges) == splits
+    assert ranges[0][0] == 0 and ranges[-1][1] == K
+    for (a0, a1), (b0, _) in zip(ranges, ranges[1:]):
+        assert a1 == b0 and a1 - a0 == ks
+    assert all(k1 > k0 for k0, k1 in ranges) or K == 0
+    tiles = -(-M // tpm.TC_BM) * -(-N // tpm.TC_BN)
+    assert tiles * splits <= max(tpm.TC_BLOCKS, tiles)
+    if want is not None:
+        assert splits == want

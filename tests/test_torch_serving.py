@@ -144,6 +144,24 @@ def test_default_noise_is_seeded_and_batch_independent():
     assert run([0, 1, 3]) == mixed
 
 
+@pytest.mark.parametrize("temperature", [0.8, 0.7, 1e-7])
+def test_sampler_temperature_division_matches_reference(temperature):
+    """The sampler scales logits by a true f32 division by max(T, 1e-6),
+    bitwise numpy's and the reference's `logits / jnp.maximum(temperature,
+    1e-6)` (src/repro/serve/engine.py), never by a reciprocal multiply."""
+    import jax.numpy as jnp
+    import torch
+    from repro_torch.kernels import paged_attention as tpa
+    rng = np.random.default_rng(3)
+    logits = (rng.standard_normal((4, 5003)) * 30).astype(np.float32)
+    got = tpa.scale_logits(torch.from_numpy(logits), temperature).numpy()
+    host = logits / np.float32(max(temperature, 1e-6))
+    ref = np.asarray(jnp.asarray(logits) / jnp.maximum(temperature, 1e-6))
+    assert got.dtype == np.float32
+    assert np.array_equal(got.view(np.int32), host.view(np.int32))
+    assert np.array_equal(got.view(np.int32), ref.view(np.int32))
+
+
 def test_page_allocator_fuzz_matches_reference():
     rng = np.random.default_rng(17)
     for trial in range(4):
