@@ -19,7 +19,9 @@ Phases (any failure exits non-zero; no phase is caught):
      B x Hkv; K4 equal tokens, or a score within
      1e-5 of the largest |logit| where the plain top two are that close,
      and its first 4 rows' tokens equal over 16 rows and over 4, and the
-     sampler's temperature division bitwise the host's; K5 pages
+     sampler's temperature division bitwise the host's; the same over
+     qwen3's [D, V] head at 16 rows; both heads timed at 4 and 16 rows
+     with the two passes apart, every launch on the p16_2 variant; K5 pages
      bitwise and attention within 2e-5 (f32, the SIMT variant) or one bf16
      ulp (bf16, the tensor-core variant) at both span branches and at 64 /
      4 heads (G = 16) over P(8,2) and bf16 pages, each case on the variant
@@ -34,7 +36,11 @@ Phases (any failure exits non-zero; no phase is caught):
      bitwise equal; K8 bitwise at M 4, K 8192, N 1024, B also transposed,
      ragged with special codes; K9 within the sum bound at qwen3's expert
      shapes with float and coded activations and a fmt_out encode, a limit
-     the two planted faults must fail; K3 and K7 at 64 / 4 heads (G =
+     the two planted faults must fail, and at a decode step's routing (4
+     tokens top-8 of 128 experts, zeros elsewhere) within the same limit,
+     each routed expert bitwise an E = 1 call, timed beside the routed
+     experts' bytes and torch.bmm over the routed and over all experts'
+     decoded stacks, every launch on p16_2; K3 and K7 at 64 / 4 heads (G =
      16) over P(8,2) and bf16 float pages, K3 with its bound and SDPA),
      with the device time per launch (CUDA-graph replay timed by CUDA
      events; the per-call time with host overhead is printed beside it),
@@ -75,7 +81,9 @@ Phases (any failure exits non-zero; no phase is caught):
      64-token system prompt, 16 new tokens each, greedy, every expert GEMM
      through K9; then two of its decode steps profiled.
      Phases 7 and 8 count their own launches from 0 and need K8 (K9)
-     launched 7 L + 1 (3 L) times per decode step.  Every main path runs
+     launched 7 L + 1 (3 L) times per decode step.  Every K9 and K4 launch
+     of the MoE run, and every K4 launch of the defaults runs, must take
+     the p16_2 variant (the compile-time P(16,2) decode).  Every main path runs
      bf16 activations, so all of its K5 launches must take the
      tensor-core variant ("prefill_attention:tc"), and every K3 launch of
      a main path must split its key span and merge ("paged_attention:merge").
@@ -470,9 +478,55 @@ def _k7_attention_mq(dev):
                 shape="B=4 T=4 Hq=64 Hkv=8 Dh=128 ps=16 L<=256 int8 pages")
 
 
+def _kernel_device_ms(fn, calls: int = 3) -> dict:
+    """Device time per call of each kernel `fn` launches, by kernel name
+    (torch.profiler; host overhead excluded)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {evt.key: evt.self_device_time_total / calls / 1e3
+            for evt in prof.key_averages()
+            if evt.device_type == DeviceType.CUDA
+            and evt.self_device_time_total}
+
+
+def _k4_times(label, x, w, noise, transpose):
+    """K4 at 4 and at 16 batch rows over one head (T 0.8, top-k 40): device
+    time per call, its two passes apart (torch.profiler), and the bytes
+    bound (weights, activations, noise and tokens once)."""
+    from repro_torch.core import formats
+    from repro_torch.kernels import paged_attention as pa
+    V, D = (w.shape if transpose else w.shape[::-1])
+    for B in (4, 16):
+        xb, nb = x[:B].contiguous(), noise[:B].contiguous()
+        run = lambda: pa.decode_sample(  # noqa: E731
+            xb, w, nb, 0.8, plan="fused", fmt_w=formats.P16_2,
+            transpose=transpose, greedy=False, top_k=40)
+        ms = _device_ms(run, launches=3)
+        passes = {"pass 1": 0.0, "pass 2": 0.0}
+        for key, t in _kernel_device_ms(run).items():
+            if "ds_logits" in key:
+                passes["pass 1"] += t
+            elif "ds_select" in key:
+                passes["pass 2"] += t
+        bound, by = _bound(w.numel() * w.element_size() + xb.numel() * 4
+                           + nb.numel() * 4 + B * 4, 2.0 * B * V * D)
+        print(f"K4 {label} (V {V}, D {D}) B={B}: ms {ms:.4f} (pass 1 "
+              f"{passes['pass 1']:.4f}, pass 2 {passes['pass 2']:.4f}, "
+              f"torch.profiler), bound_ms {bound:.4f} ({by}), "
+              f"{bound / ms:.3f} of the bound")
+
+
 def _k4_decode_sample(dev):
     import torch
     from repro_torch.core import formats, posit
+    from repro_torch.kernels import ops
     from repro_torch.kernels import paged_attention as pa
     fmt = formats.P16_2
     B, D, V = 4, 8192, 256000
@@ -488,6 +542,7 @@ def _k4_decode_sample(dev):
     # plain matmul: a token may differ only where the plain top-two scores
     # lie within 1e-5 of the largest |logit|
     tol = 1e-5 * float(logits.abs().max())
+    ops.reset_launches()
     for greedy, top_k, temp in ((True, 0, 1.0), (False, 40, 0.8),
                                 (False, 0, 0.8)):
         tok = pa.decode_sample(x, w, None if greedy else noise, temp,
@@ -532,6 +587,10 @@ def _k4_decode_sample(dev):
         _check(bool(torch.equal(t16[:4], t4)),
                f"K4 tokens of rows 0-3 equal over 16 rows and over 4 "
                f"(greedy={greedy})")
+    # every launch above decoded the P(16,2) head at compile time
+    counts = ops.launch_counts()
+    _check(counts["decode_sample:p16_2"] == counts["decode_sample"] > 0,
+           "K4 takes its p16_2 variant for an int16 P(16,2) head")
     run = lambda: pa.decode_sample(x, w, noise, 0.8, greedy=False,  # noqa: E731
                                    top_k=40, **kw)
     call_ms = _time_ms(run, reps=10)
@@ -540,7 +599,34 @@ def _k4_decode_sample(dev):
         x, w, noise, 0.8, greedy=False, top_k=40, **kw))
     bytes_moved = w.numel() * 2 + x.numel() * 4 + noise.numel() * 4 + B * 4
     bound, by = _bound(bytes_moved, 2.0 * B * V * D)
+    _k4_times("[V, D] command-r head", x16, w, n16, True)
     del w, logits
+    # qwen3-moe's untied [D, V] head
+    Dq, Vq = 4096, 151936
+    wq = posit.pack(torch.randn(Dq, Vq, generator=g, device=dev) / 64, fmt)
+    xq = torch.randn(16, Dq, generator=g, device=dev)
+    nq = -torch.log(-torch.log(torch.rand(16, Vq, generator=g, device=dev)
+                               .clamp(1e-9, 1 - 1e-7)))
+    lq = pa.head_logits_plain(xq, wq, plan="fused", fmt_w=fmt,
+                              transpose=False, softcap_val=0.0)
+    tq = pa.decode_sample(xq, wq, nq, 0.8, plan="fused", fmt_w=fmt,
+                          greedy=False, top_k=40)
+    want = pa.sample_logits(lq, nq, 0.8, greedy=False, top_k=40)
+    sq = pa.scale_logits(lq, 0.8)
+    kth = torch.topk(sq, 40, dim=-1).values[..., -1:]
+    sq = nq + torch.where(sq >= kth, sq, torch.full_like(sq, -1e30))
+    rows = torch.arange(16, device=dev)
+    gap = (sq[rows, want.long()] - sq[rows, tq.long()]).abs()
+    _check(bool(((tq == want) | (gap <= 1e-5 * float(lq.abs().max()))).all()),
+           "K4 tokens over qwen3's [D, V] head at 16 rows")
+    _check(bool(torch.equal(tq[:4], pa.decode_sample(
+        xq[:4].contiguous(), wq, nq[:4].contiguous(), 0.8, plan="fused",
+        fmt_w=fmt, greedy=False, top_k=40))),
+        "K4 [D, V]: rows 0-3 equal over 16 rows and over 4")
+    err = max(err, float(gap.max()))
+    del lq, sq
+    _k4_times("[D, V] qwen3 head", xq, wq, nq, False)
+    del wq
     return dict(name="decode_sample",
                 source="src/repro_torch/csrc/decode_sample.cu",
                 replaces="src/repro/kernels/paged_attention.py:467",
@@ -891,6 +977,83 @@ def _k8_pdpu(dev):
 _EXPERT_KN = ((4096, 1536), (4096, 1536), (1536, 4096))
 
 
+def _k9_routed(dev, weights, g) -> float:
+    """K9 at a decode step's routing: 4 tokens, top-8 of 128 experts,
+    capacity 8, each token's f32 row in its experts' next free row and
+    zeros elsewhere (as `moe._dispatch` fills the buffer).  Held to
+    sum_bound, each routed expert bitwise equal to an E = 1 call, every
+    launch on the p16_2 variant; the layer's 3 GEMMs timed beside the
+    bound over the routed experts' bytes and torch.bmm over the routed and
+    over all experts' decoded stacks.  Returns the largest |err|."""
+    import torch
+    from repro_torch.core import formats, posit
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import posit_matmul as pm
+    fb = formats.P16_2
+    E, M, T, k = 128, 8, 4, 8
+    choice = torch.stack([torch.randperm(E, generator=g, device=dev)[:k]
+                          for _ in range(T)])
+    acts = {}
+    for K in {K for K, _ in _EXPERT_KN}:
+        x = torch.randn(T, K, generator=g, device=dev)
+        buf = torch.zeros(E, M, K, device=dev)
+        fill = [0] * E
+        for t in range(T):
+            for e in choice[t].tolist():
+                buf[e, fill[e]] = x[t]
+                fill[e] += 1
+        acts[K] = buf
+    routed = [e for e in range(E) if fill[e]]
+    _check(bool(torch.equal(pm.occupied_rows_plain(acts[4096], None).cpu(),
+                            torch.tensor(fill, dtype=torch.int32))),
+           "K9 routed buffer: occupied rows as dispatched")
+    layer = [(acts[K], weights[(K, N)]) for K, N in _EXPERT_KN]
+    err = 0.0
+    ops.reset_launches()
+    for a, b in layer:
+        got = pm.posit_matmul_grouped(a, b, None, fb)
+        want = pm.posit_matmul_grouped_plain(a, b, None, fb)
+        gap = (got - want).abs()
+        _check(bool((gap <= pm.sum_bound(a, b, None, fb)).all()),
+               f"K9 routed decode shape within {pm.SUM_TOL} u sqrt(K) ||ab|| "
+               f"at K={a.shape[2]} N={b.shape[2]}")
+        err = max(err, float(gap.max()))
+        for e in routed:
+            alone = pm.posit_matmul_grouped(a[e:e + 1], b[e:e + 1], None, fb)
+            _check(_bits_equal(alone[0], got[e]),
+                   f"K9 expert {e} bitwise equal to an E = 1 call")
+        del want
+    counts = ops.launch_counts()
+    _check(counts["posit_matmul_grouped:p16_2"]
+           == counts["posit_matmul_grouped"] == 3 * (1 + len(routed)),
+           "K9 takes its p16_2 variant for int16 P(16,2) expert stacks")
+
+    def run():
+        for a, b in layer:
+            pm.posit_matmul_grouped(a, b, None, fb)
+
+    ms = _device_ms(run, launches=3)
+    idx = torch.tensor(routed, device=dev)
+    dec_all = [(a, posit.decode(b, fb)) for a, b in layer]
+    dec_routed = [(a[idx], d[idx]) for a, d in dec_all]
+    bmm_all = _device_ms(lambda: [torch.bmm(a, d) for a, d in dec_all],
+                         launches=3)
+    bmm_routed = _device_ms(lambda: [torch.bmm(a, d) for a, d in dec_routed],
+                            launches=3)
+    del dec_all, dec_routed
+    code_bytes = sum(len(routed) * K * N * 2 for K, N in _EXPERT_KN)
+    bytes_moved = code_bytes + sum(E * M * (K + N) * 4 for K, N in _EXPERT_KN)
+    bound, by = _bound(bytes_moved, sum(2.0 * len(routed) * M * K * N
+                                        for K, N in _EXPERT_KN))
+    print(f"K9 decode routing ({T} tokens top-{k}: {len(routed)} of {E} "
+          f"experts, {sum(fill)} rows): one layer's 3 GEMMs ms {ms:.4f}, "
+          f"bound_ms {bound:.4f} ({by}; the routed experts' codes "
+          f"{code_bytes} B), torch.bmm over the routed experts' decoded "
+          f"stacks {bmm_routed:.4f}, over all {E} {bmm_all:.4f}; every routed "
+          f"expert bitwise its E = 1 call; max |err| {err:.3g}")
+    return err
+
+
 def _k9_grouped(dev):
     """K9 at qwen3's expert shapes (E 128, capacity 8 rows at decode):
     float activations (the serving path), coded activations and a fmt_out
@@ -948,6 +1111,7 @@ def _k9_grouped(dev):
                   f"{sound:.4g} (limit {pm.SUM_TOL}; planted: "
                   f"{', '.join(seen)})")
     layer = [(acts[K], weights[(K, N)]) for K, N in _EXPERT_KN]
+    err = max(err, _k9_routed(dev, weights, g))
 
     def run():
         for a, b in layer:
@@ -1285,6 +1449,9 @@ def _serve(dev):
                      "decode_sample", "prefill_attention"):
             _check(counts[label][name] > 0,
                    f"kernel {name} launched in the '{label}' run")
+        _check(counts[label]["decode_sample:p16_2"]
+               == counts[label]["decode_sample"],
+               f"'{label}': every K4 launch took the p16_2 variant")
     _prefill_logit_gap(cfg, params, prompts[0], dev)
 
     # ---- phase 5b: activation-coded (serve_fused_p16_a13)
@@ -1621,6 +1788,9 @@ def _moe_phase(dev):
     for name in ("posit_matmul_grouped", "posit_decode", "posit_encode",
                  "paged_attention", "decode_sample", "prefill_attention"):
         _check(counts[name] > 0, f"kernel {name} launched in the MoE run")
+    for name in ("posit_matmul_grouped", "decode_sample"):
+        _check(counts[f"{name}:p16_2"] == counts[name],
+               f"every {name} launch of the MoE run took the p16_2 variant")
     per_layer = 3 * cfg.n_layers
     _check(per_step.get("posit_matmul_grouped", 0) == per_layer * n_steps,
            f"K9 launched {per_layer} times per decode step")
@@ -1632,7 +1802,7 @@ def _moe_phase(dev):
 # ---------------------------------------------------------------------------
 
 # kernel-name fragments -> the layer that launched the kernel
-_KERNEL_GROUPS = (("grouped_kernel", "K9 posit_matmul_grouped"),
+_KERNEL_GROUPS = (("grouped_", "K9 posit_matmul_grouped"),
                   ("pdpu_matmul", "K8 pdpu_matmul"),
                   ("posit_decode", "K1 posit_decode"),
                   ("posit_encode", "K2 posit_encode"),

@@ -94,6 +94,7 @@
 
 #include <cstdint>
 
+#include "code_rows.cuh"
 #include "posit.cuh"
 
 namespace {
@@ -102,71 +103,8 @@ namespace {
 
 constexpr int kGemvThreads = 256;
 constexpr int kGemvWarps = kGemvThreads / 32;
-constexpr int kCols = 8;               // weight codes a thread reads per row
 constexpr int kGemvBN = 32 * kCols;    // columns per block
 constexpr int kUnroll = 4;             // rows in flight per thread
-
-struct DecodeRuntime {
-  int n, es;
-  __device__ __forceinline__ float operator()(uint32_t c) const {
-    return posit_decode(c, n, es);
-  }
-};
-
-struct DecodeP16_2 {
-  __device__ __forceinline__ float operator()(uint32_t c) const {
-    return posit_decode_fast<16, 2>(c);
-  }
-};
-
-// kCols consecutive codes of one weight row as raw words; code(j) leaves
-// the code in the low bits (both decoders ignore the bits above n).
-template <typename BT>
-struct Row8;
-
-template <>
-struct Row8<int16_t> {
-  uint32_t w[4];
-  __device__ __forceinline__ void load(const int16_t* __restrict__ p,
-                                       int ncols, bool vec) {
-    if (vec && ncols >= kCols) {
-      const uint4 v = __ldg(reinterpret_cast<const uint4*>(p));
-      w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
-      return;
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const uint32_t lo = 2 * i < ncols ? (uint16_t)p[2 * i] : 0u;
-      const uint32_t hi = 2 * i + 1 < ncols ? (uint16_t)p[2 * i + 1] : 0u;
-      w[i] = lo | (hi << 16);
-    }
-  }
-  __device__ __forceinline__ void zero() { w[0] = w[1] = w[2] = w[3] = 0u; }
-  __device__ __forceinline__ uint32_t code(int j) const {
-    return (j & 1) ? w[j >> 1] >> 16 : w[j >> 1];
-  }
-};
-
-template <>
-struct Row8<int8_t> {
-  uint32_t w[2];
-  __device__ __forceinline__ void load(const int8_t* __restrict__ p,
-                                       int ncols, bool vec) {
-    if (vec && ncols >= kCols) {
-      const uint2 v = __ldg(reinterpret_cast<const uint2*>(p));
-      w[0] = v.x; w[1] = v.y;
-      return;
-    }
-    w[0] = w[1] = 0u;
-#pragma unroll
-    for (int j = 0; j < kCols; ++j)
-      if (j < ncols) w[j >> 2] |= (uint32_t)(uint8_t)p[j] << (8 * (j & 3));
-  }
-  __device__ __forceinline__ void zero() { w[0] = w[1] = 0u; }
-  __device__ __forceinline__ uint32_t code(int j) const {
-    return w[j >> 2] >> (8 * (j & 3));
-  }
-};
 
 __device__ __forceinline__ uint32_t act_code(const void* a, int a_bytes,
                                              size_t i) {

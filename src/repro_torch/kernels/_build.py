@@ -40,7 +40,7 @@ _SIGNATURES = {
     },
     "decode_sample": {
         "decode_sample_tiles": [_I, _I],
-        "decode_sample_launch": [_P] * 7 + [_I] * 8 + [_F, _F, _I, _I, _P],
+        "decode_sample_launch": [_P] * 7 + [_I] * 9 + [_F, _F, _I, _I, _P],
     },
     "prefill_attention": {
         "prefill_attention_launch": [_P] * 11 + [_I] * 14 + [_F, _F, _P],
@@ -49,7 +49,7 @@ _SIGNATURES = {
         "posit_matmul_launch": [_P] * 6 + [_I] * 15 + [_P],
     },
     "posit_matmul_grouped": {
-        "posit_matmul_grouped_launch": [_P] * 4 + [_I] * 13 + [_P],
+        "posit_matmul_grouped_launch": [_P] * 6 + [_I] * 16 + [_P],
     },
     "pdpu_dot": {
         "pdpu_matmul_launch": [_P] * 3 + [_I] * 3 + [_LL] * 4 + [_I] * 8

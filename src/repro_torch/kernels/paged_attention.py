@@ -22,11 +22,15 @@ from .posit_codec import decode_plain
 
 _NEG = -2.0e38
 # launches of each kernel since the last reset (kernels/ops.reset_launches);
-# "<kernel>:merge" counts the launches that also ran the split merge
+# "<kernel>:merge" counts the launches that also ran the split merge,
+# "decode_sample:<variant>" K4's launches by `sample_variant`
 LAUNCHES = {"paged_attention": 0, "paged_attention:merge": 0,
             "paged_attention_mq": 0, "paged_attention_mq:merge": 0,
-            "decode_sample": 0}
+            "decode_sample": 0, "decode_sample:p16_2": 0,
+            "decode_sample:posit": 0, "decode_sample:f32": 0,
+            "decode_sample:bf16": 0}
 _KINDS = {torch.int8: 0, torch.int16: 1, torch.float32: 2, torch.bfloat16: 3}
+_SAMPLE_VARIANTS = {"posit": 0, "p16_2": 1, "f32": 2, "bf16": 3}
 # K3 / K7 split a slot's key span across blocks: a split holds
 # SPLIT_KEYS // page_size pages (at least one), at most MAX_SPLIT_KEYS
 # keys; a lane holds at most MAX_HEAD_DIM / 32 dims of a row
@@ -271,6 +275,22 @@ def head_logits_plain(x, w, *, plan: str, fmt_w: PositFormat | None,
     return _softcap(l, softcap_val)
 
 
+def sample_variant(w_dtype, fmt_w: PositFormat | None) -> str:
+    """K4's pass-1 kernel for the head's weights: "p16_2" (int16 P(16,2)
+    codes, every serving head: the compile-time decode), "posit" (codes of
+    any other format: the run-time decode), "f32" or "bf16" (float
+    weights, read as they are)."""
+    if w_dtype in (torch.int8, torch.int16):
+        if fmt_w is None:
+            raise ValueError("decode_sample: coded head weights need fmt_w")
+        return ("p16_2" if (fmt_w.n, fmt_w.es) == (16, 2)
+                and w_dtype == torch.int16 else "posit")
+    if w_dtype in (torch.float32, torch.bfloat16):
+        return "f32" if w_dtype == torch.float32 else "bf16"
+    raise TypeError(f"decode_sample takes int8/int16/f32/bf16 weights, "
+                    f"got {w_dtype}")
+
+
 def decode_sample_plain(x, w, noise=None, temperature=None, *,
                         plan: str = "fused", fmt_w: PositFormat | None = None,
                         transpose: bool = False, greedy: bool = False,
@@ -299,6 +319,10 @@ def decode_sample(x, w, noise=None, temperature=None, *, plan: str = "fused",
     top_k       : 0 (or >= V) disables the filter; any 0 < top_k < V runs
                   the exact threshold sort(l)[..., -top_k].
 
+    On the card the weights decode by `sample_variant`, and one pass over
+    them serves up to 16 batch rows; a row's logits (and token) do not
+    depend on B or on the other rows.
+
     Returns [B] int32 tokens."""
     if plan not in ("fused", "fake_quant"):
         raise ValueError(f"no fused decode head for plan {plan!r}")
@@ -314,9 +338,7 @@ def decode_sample(x, w, noise=None, temperature=None, *, plan: str = "fused",
                                    fmt_w=fmt_w, transpose=transpose,
                                    greedy=greedy, top_k=top_k,
                                    softcap_val=softcap_val)
-    if w.dtype not in _KINDS:
-        raise TypeError(f"decode_sample takes int8/int16/f32/bf16 weights, "
-                        f"got {w.dtype}")
+    variant = sample_variant(w.dtype, fmt_w)
     rbf16 = plan == "fake_quant" and x.dtype == torch.bfloat16
     if plan == "fake_quant" and x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"fake_quant head in {x.dtype} is not ported")
@@ -344,9 +366,11 @@ def decode_sample(x, w, noise=None, temperature=None, *, plan: str = "fused",
             None if greedy else noise.data_ptr(), logits.data_ptr(),
             tile_val.data_ptr(), tile_idx.data_ptr(), tok.data_ptr(),
             B, D, V, int(transpose), _KINDS[w.dtype],
-            fmt_w.n if fmt_w else 0, fmt_w.es if fmt_w else 0, int(rbf16),
+            _SAMPLE_VARIANTS[variant], fmt_w.n if fmt_w else 0,
+            fmt_w.es if fmt_w else 0, int(rbf16),
             float(softcap_val), 1.0 if temperature is None else float(temperature),
             int(greedy), k, _build.stream_of(x)),
             "decode_sample")
         LAUNCHES["decode_sample"] += 1
+        LAUNCHES[f"decode_sample:{variant}"] += 1
     return tok

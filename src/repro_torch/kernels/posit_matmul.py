@@ -27,7 +27,8 @@ from .posit_codec import decode_plain, encode_plain
 LAUNCHES = {"posit_matmul": 0, "posit_matmul:gemv_p16_2": 0,
             "posit_matmul:gemv": 0, "posit_matmul:tc_p16_2": 0,
             "posit_matmul:tc": 0, "posit_matmul:tiled": 0,
-            "posit_matmul_grouped": 0}
+            "posit_matmul_grouped": 0, "posit_matmul_grouped:p16_2": 0,
+            "posit_matmul_grouped:posit": 0}
 _CODE_DTYPES = (torch.int8, torch.int16)
 
 # K6's split-K GEMV (M <= GEMV_MAX_M): a block owns GEMV_BN columns (32
@@ -48,6 +49,14 @@ TC_BN = 128
 TC_BK = 64
 TC_BLOCKS = 132
 _VARIANTS = {"tiled": 0, "gemv": 1, "gemv_p16_2": 2, "tc": 3, "tc_p16_2": 4}
+# K9's grouped GEMV: a block owns one expert's GROUPED_BM-row tile,
+# GEMV_BN columns and one K split (rows a multiple of GEMV_ROWS, at most
+# GEMV_MAX_ROWS); the splits aim at GROUPED_EXPERT_BLOCKS blocks an
+# occupied expert, so the 32 experts a decode step routes to fill the
+# card's 132 SMs.
+GROUPED_BM = 8
+GROUPED_EXPERT_BLOCKS = 24
+_GROUPED_VARIANTS = {"posit": 0, "p16_2": 1}
 
 
 def split_bf16(x):
@@ -221,6 +230,41 @@ def posit_matmul(a_codes, b_codes, fmt_a: PositFormat, fmt_b: PositFormat,
     return out
 
 
+def grouped_variant(fmt_b: PositFormat, b_dtype) -> str:
+    """K9's weight decode: "p16_2", the compile-time P(16,2) decode, for
+    int16 P(16,2) weights (every serving expert stack), else "posit", the
+    run-time decode of any format."""
+    return ("p16_2" if (fmt_b.n, fmt_b.es) == (16, 2)
+            and b_dtype == torch.int16 else "posit")
+
+
+def grouped_split_k(M: int, N: int, K: int) -> tuple[int, int]:
+    """(rows per split KS, number of splits S) of K9's grouped GEMV, from
+    the shapes alone (never from the routing, so an expert's sums do not
+    depend on the other experts' rows).  Split s covers K rows [s * KS,
+    min(K, (s + 1) * KS)), in split order, none empty; S >= 1 (K = 0: one
+    empty split)."""
+    tiles = -(-M // GROUPED_BM) * -(-N // GEMV_BN)
+    want = max(1, -(-GROUPED_EXPERT_BLOCKS // max(tiles, 1)))
+    rows = -(-K // want)
+    ks = min(max(-(-rows // GEMV_ROWS) * GEMV_ROWS, GEMV_ROWS), GEMV_MAX_ROWS)
+    return ks, max(1, -(-K // ks))
+
+
+def occupied_rows_plain(a, fmt_a: PositFormat | None):
+    """[E] int32: one past the last row of each expert's [M, K] slab that
+    holds a non-zero activation (a code other than 0, a float other than
+    +-0), 0 for an expert no token was routed to; the plain statement of
+    K9's pre-pass.  The kernel writes zeros for the rows from there on."""
+    E, M = a.shape[:2]
+    if M == 0:
+        return torch.zeros(E, dtype=torch.int32, device=a.device)
+    vals = a if fmt_a is not None else a.to(torch.float32)
+    hit = (vals != 0).any(-1)                               # [E, M]
+    last = hit * torch.arange(1, M + 1, device=a.device)
+    return last.amax(-1).to(torch.int32)
+
+
 def posit_matmul_grouped_plain(a, b_codes, fmt_a: PositFormat | None,
                                fmt_b: PositFormat,
                                fmt_out: PositFormat | None = None):
@@ -235,7 +279,15 @@ def posit_matmul_grouped(a, b_codes, fmt_a: PositFormat | None,
                          fmt_out: PositFormat | None = None):
     """[E, M, K] x [E, K, N] codes -> [E, M, N] f32 (fmt_out None) or
     fmt_out codes in their storage dtype.  fmt_a None takes `a` as float
-    activations (cast to f32), otherwise `a` holds fmt_a codes."""
+    activations (cast to f32), otherwise `a` holds fmt_a codes.
+
+    On the card the kernel skips, per expert, the rows from
+    `occupied_rows_plain` on (the dispatch buffer's empty capacity, and
+    every row of an expert no token was routed to) and writes +0.0 there
+    (code 0 under fmt_out): equal to the plain version wherever no weight
+    code is NaR, which packing never writes (finite values saturate).
+    The weights decode by `grouped_variant`; the K splits are
+    `grouped_split_k`'s."""
     if a.ndim != 3 or b_codes.ndim != 3:
         raise ValueError(f"posit_matmul_grouped takes 3-D operands, got "
                          f"{tuple(a.shape)} x {tuple(b_codes.shape)}")
@@ -267,15 +319,23 @@ def posit_matmul_grouped(a, b_codes, fmt_a: PositFormat | None,
                              f"not {dt}")
         out = torch.empty((E, M, N), dtype=dt, device=dev)
     if E and M and N:
+        variant = grouped_variant(fmt_b, b_codes.dtype)
+        ks, splits = grouped_split_k(M, N, K)
+        rows = torch.empty((E,), dtype=torch.int32, device=dev)
+        partial = torch.empty((splits, E, M, N), dtype=torch.float32,
+                              device=dev)
         lib = _build.library("posit_matmul_grouped")
         _build.check(lib.posit_matmul_grouped_launch(
             a.data_ptr(), b_codes.data_ptr(),
             out.data_ptr() if fmt_out is None else None,
-            None if fmt_out is None else out.data_ptr(), E, M, N, K, a_kind,
+            None if fmt_out is None else out.data_ptr(), rows.data_ptr(),
+            partial.data_ptr(), E, M, N, K, a_kind,
             fmt_a.n if fmt_a else 0, fmt_a.es if fmt_a else 0,
             b_codes.element_size(), fmt_b.n, fmt_b.es,
             0 if fmt_out is None else out.element_size(),
             fmt_out.n if fmt_out else 0, fmt_out.es if fmt_out else 0,
-            _build.stream_of(a)), "posit_matmul_grouped")
+            _GROUPED_VARIANTS[variant], ks, splits, _build.stream_of(a)),
+            "posit_matmul_grouped")
         LAUNCHES["posit_matmul_grouped"] += 1
+        LAUNCHES[f"posit_matmul_grouped:{variant}"] += 1
     return out

@@ -234,8 +234,12 @@ def cache_specs(cfg: ModelConfig, batch: int, max_seq: int,
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
-               layout: Optional[PagedLayout] = None, device="cpu"):
-    return tree_map(lambda s: torch.zeros(s.shape, dtype=s.dtype, device=device),
+               layout: Optional[PagedLayout] = None, device="cuda"):
+    """The zeroed paged cache on `device` (a card by default; raises
+    without one, as every entry point does)."""
+    from repro_torch import resolve_device
+    dev = resolve_device(device)
+    return tree_map(lambda s: torch.zeros(s.shape, dtype=s.dtype, device=dev),
                     cache_specs(cfg, batch, max_seq, layout))
 
 

@@ -972,3 +972,122 @@ def test_posit_matmul_grouped_bound_rejects_planted_faults(cuda, fmt_a):
     for bad in (torch.matmul(A, B.to(torch.bfloat16).float()),
                 plain - torch.matmul(A[..., :64], B[:, :64])):
         assert bool(((bad - plain).abs() > bound).any())
+
+
+def _routed(g, E, M, K, occupancy, fa):
+    """An [E, M, K] dispatch buffer on g's device: expert e holds
+    occupancy[e] leading rows of activations, zeros after (f32, or fa
+    codes)."""
+    x = torch.randn(E, M, K, generator=g, device=g.device)
+    for e, n in enumerate(occupancy):
+        x[e, int(n):] = 0.0
+    return x if fa is None else posit.pack(x, fa)
+
+
+@pytest.mark.parametrize("shape", [(128, 8, 4096, 1536), (16, 8, 1536, 4096),
+                                   (5, 20, 333, 66)])
+@pytest.mark.parametrize("fmts", [(None, "P16_2", None),
+                                  ("P13_2", "P16_2", None),
+                                  ("P13_2", "P16_2", "P16_2"),
+                                  ("P8_2", "P16_1", "P8_2")])
+def test_posit_matmul_grouped_routed_occupancy(cuda, shape, fmts):
+    """K9 over a routed buffer (0-3 occupied rows an expert, the rest
+    zeros; at E 128 about 32 experts routed, as in a decode step): within
+    `sum_bound` of its plain version, every empty row (and so every empty
+    expert) exactly zero, on the variant `grouped_variant` picks."""
+    E, M, K, N = shape
+    fa = getattr(formats, fmts[0]) if fmts[0] else None
+    fb = getattr(formats, fmts[1])
+    fo = getattr(formats, fmts[2]) if fmts[2] else None
+    g = torch.Generator().manual_seed(E + K + N)
+    occ = torch.randint(0, 4, (E,), generator=g)
+    occ[torch.randperm(E, generator=g)[:E - max(E // 4, 2)]] = 0
+    # the stacks are drawn and packed on the card (qwen3's are 805 M codes)
+    gd = torch.Generator(device=cuda).manual_seed(E + K + N)
+    a = _routed(gd, E, M, K, occ, fa)
+    b = posit.pack(torch.randn(E, K, N, generator=gd, device=cuda)
+                   * K ** -0.5, fb)
+    assert torch.equal(pm.occupied_rows_plain(a, fa).cpu(), occ.to(torch.int32))
+    variant = pm.grouped_variant(fb, b.dtype)
+    ops.reset_launches()
+    got = pm.posit_matmul_grouped(a, b, fa, fb)
+    assert ops.launch_counts()[f"posit_matmul_grouped:{variant}"] == 1
+    plain = pm.posit_matmul_grouped_plain(a, b, fa, fb)
+    assert bool(((got - plain).abs() <= pm.sum_bound(a, b, fa, fb)).all())
+    for e, n in enumerate(occ.tolist()):
+        assert _bits_equal(got[e, n:], torch.zeros_like(got[e, n:]))
+    if fo is not None:
+        codes = pm.posit_matmul_grouped(a, b, fa, fb, fo)
+        assert _bits_equal(codes, posit_codec.encode_plain(got, fo))
+
+
+@pytest.mark.parametrize("fmt_a", [None, "P13_2"])
+def test_posit_matmul_grouped_expert_independent_of_routing(cuda, fmt_a):
+    """An expert's K9 output does not depend on the other experts' rows:
+    bitwise equal under two routings that differ elsewhere and to the same
+    expert alone in an E = 1 call; two calls are bitwise equal; an expert
+    with no rows gives zeros."""
+    fa = getattr(formats, fmt_a) if fmt_a else None
+    fb = formats.P16_2
+    E, M, K, N = 32, 8, 4096, 1536
+    g = torch.Generator().manual_seed(31)
+    occ1 = torch.randint(0, 4, (E,), generator=g)
+    occ2 = torch.where(torch.arange(E) % 2 == 0, occ1,
+                       torch.randint(0, 9, (E,), generator=g))
+    occ1[3] = 0
+    occ2[3] = 0
+    gd = torch.Generator(device=cuda).manual_seed(31)
+    full = _routed(gd, E, M, K, [M] * E, fa)
+    keep = [e for e in range(E) if e % 2 == 0]
+    a1, a2 = full.clone(), full.clone()
+    for a, occ in ((a1, occ1), (a2, occ2)):
+        for e, n in enumerate(occ.tolist()):
+            a[e, n:] = 0
+    b = posit.pack(torch.randn(E, K, N, generator=gd, device=cuda)
+                   * K ** -0.5, fb)
+    o1 = pm.posit_matmul_grouped(a1, b, fa, fb)
+    o2 = pm.posit_matmul_grouped(a2, b, fa, fb)
+    assert _bits_equal(pm.posit_matmul_grouped(a1, b, fa, fb), o1)
+    assert _bits_equal(o1[keep], o2[keep])
+    assert _bits_equal(o1[3], torch.zeros_like(o1[3]))
+    for e in (0, 2, 5):
+        alone = pm.posit_matmul_grouped(a1[e:e + 1].contiguous(),
+                                        b[e:e + 1].contiguous(), fa, fb)
+        assert _bits_equal(alone[0], o1[e])
+
+
+@pytest.mark.parametrize("B", [1, 4, 5, 16, 17])
+@pytest.mark.parametrize("fmt_name", ["P16_2", "P16_1"])
+@pytest.mark.parametrize("transpose", [True, False])
+def test_decode_sample_batch_rows(cuda, transpose, fmt_name, B):
+    """K4 at 1 to 17 batch rows (one pass of 4 or 16 rows, or two of 16),
+    both layouts, the P(16,2) and the run-time decode: tokens equal to the
+    plain head plus sampler (near ties excepted, as `_check_tokens`), on
+    the variant `sample_variant` picks, and the first rows' tokens bitwise
+    those of a batch of 4."""
+    fmt = getattr(formats, fmt_name)
+    g = torch.Generator(device=cuda).manual_seed(17)
+    D, V = 1024, 20000
+    x = torch.randn(17, D, generator=g, device=cuda)
+    w = posit.pack(torch.randn((V, D) if transpose else (D, V), generator=g,
+                               device=cuda) * 0.05, fmt)
+    noise = -torch.log(-torch.log(torch.rand(17, V, generator=g, device=cuda)
+                                  .clamp(1e-9, 1 - 1e-7)))
+    variant = pa.sample_variant(w.dtype, fmt)
+    assert variant == ("p16_2" if fmt_name == "P16_2" else "posit")
+    l = pa.head_logits_plain(x[:B], w, plan="fused", fmt_w=fmt,
+                             transpose=transpose, softcap_val=0.0)
+    n = min(B, 4)
+    for greedy, top_k in ((True, 0), (False, 40), (False, 0)):
+        kw = dict(plan="fused", fmt_w=fmt, transpose=transpose,
+                  greedy=greedy, top_k=top_k)
+        ops.reset_launches()
+        tok = pa.decode_sample(x[:B].contiguous(), w,
+                               noise[:B].contiguous(), 0.8, **kw)
+        assert ops.launch_counts()[f"decode_sample:{variant}"] == 1
+        plain = pa.sample_logits(l, noise[:B], 0.8, greedy=greedy,
+                                 top_k=top_k)
+        _check_tokens(tok, plain, _scores(l, noise[:B], 0.8, greedy, top_k))
+        four = pa.decode_sample(x[:4].contiguous(), w, noise[:4].contiguous(),
+                                0.8, **kw)
+        assert torch.equal(tok[:n], four[:n])

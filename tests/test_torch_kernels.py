@@ -154,6 +154,50 @@ def test_decode_sample_tokens_equal(plan, transpose, packed, greedy, top_k):
     np.testing.assert_array_equal(got, want)
 
 
+@pytest.mark.parametrize("dtype,fmt,want", [
+    (torch.int16, "P16_2", "p16_2"),
+    (torch.int16, "P16_1", "posit"),
+    (torch.int8, "P8_2", "posit"),
+    (torch.float32, None, "f32"),
+    (torch.bfloat16, None, "bf16"),
+])
+def test_sample_variant_by_head_weights(dtype, fmt, want):
+    """K4's wrapper picks its pass-1 kernel by the head's weights alone:
+    the compile-time P(16,2) decode for int16 P(16,2) codes (every serving
+    head), the run-time decode for other codes, float weights as read;
+    codes without a format and other dtypes raise."""
+    from repro_torch.kernels import paged_attention as tpa
+    tf = getattr(tformats, fmt) if fmt else None
+    assert tpa.sample_variant(dtype, tf) == want
+    if fmt:
+        with pytest.raises(ValueError):
+            tpa.sample_variant(dtype, None)
+    with pytest.raises(TypeError):
+        tpa.sample_variant(torch.int32, tf)
+
+
+@pytest.mark.parametrize("transpose", [True, False])
+def test_decode_sample_17_rows_equal_reference(transpose):
+    """17 batch rows (two passes of 16 rows on the card) through the port
+    and the reference: equal tokens, greedy and with top-k."""
+    rng = np.random.default_rng(71)
+    B, D, V = 17, 48, 97
+    x = rng.normal(0, 1, (B, D)).astype(np.float32)
+    w = np.asarray(jposit.pack(jnp.asarray(rng.normal(
+        0, 0.3, (V, D) if transpose else (D, V)).astype(np.float32)),
+        jformats.P16_2))
+    noise = rng.gumbel(size=(B, V)).astype(np.float32)
+    for greedy, top_k in ((True, 0), (False, 7)):
+        kw = dict(plan="fused", transpose=transpose, greedy=greedy,
+                  top_k=top_k, softcap_val=5.0)
+        want = np.asarray(jops.decode_sample(
+            jnp.asarray(x), jnp.asarray(w), jnp.asarray(noise),
+            jnp.float32(0.8), fmt_w=jformats.P16_2, **kw))
+        got = tops.decode_sample(_t(x), _t(w), _t(noise), 0.8,
+                                 fmt_w=tformats.P16_2, **kw).numpy()
+        np.testing.assert_array_equal(got, want)
+
+
 def test_decode_sample_topk_ties_keep_multiset_threshold():
     """Repeated logits: the threshold is sort(l)[..., -k] (multiset), so
     every tied copy of the k-th value stays in the filter."""

@@ -312,6 +312,28 @@ def test_entry_points_raise_without_card():
         tpacking.params_from_numpy({}, tcfg)
 
 
+@pytest.mark.parametrize("module", ["transformer", "moe"])
+def test_model_init_cache_defaults_to_card(module):
+    """`transformer.init_cache` (also `moe.init_cache`) takes the card by
+    default, as `api.init_cache` does: without one it raises; device="cpu"
+    gives the zeroed cache `api.init_cache` gives."""
+    import importlib
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    mod = importlib.import_module(f"repro_torch.models.{module}")
+    _, tcfg = _cfgs("tiny")
+    layout = TLayout.for_slots(2, 32, 16)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        mod.init_cache(tcfg, 2, 32, layout)
+    got = mod.init_cache(tcfg, 2, 32, layout, device="cpu")
+    want = tapi.init_cache(tcfg, 2, 32, layout, device="cpu")
+    assert sorted(got) == sorted(want)
+    for name in want:
+        assert got[name].device.type == "cpu"
+        assert torch.equal(got[name], want[name])
+
+
 def test_unported_engine_options_raise():
     from repro_torch.serve import ServingEngine as TEngine
 

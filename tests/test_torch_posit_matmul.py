@@ -318,3 +318,121 @@ def test_tc_splits_cover_k_once_in_order(M, N, K, want):
     assert tiles * splits <= max(tpm.TC_BLOCKS, tiles)
     if want is not None:
         assert splits == want
+
+
+# ---------------------------------------------------------------------------
+# K9: the grouped GEMV's variant, split geometry and occupied rows
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("fmt_b,dtype,want", [
+    ("P16_2", torch.int16, "p16_2"),
+    ("P16_1", torch.int16, "posit"),
+    ("P13_2", torch.int16, "posit"),
+    ("P8_2", torch.int8, "posit"),
+    ("P8_0", torch.int8, "posit"),
+])
+def test_grouped_variant_by_weight_format(fmt_b, dtype, want):
+    """K9's wrapper picks the compile-time P(16,2) decode for int16
+    P(16,2) expert stacks (every serving MoE layer) and the run-time
+    decode for any other weight format."""
+    assert tpm.grouped_variant(_fmt_by_name(fmt_b)[1], dtype) == want
+
+
+# (M, N, K): qwen3-moe's expert GEMMs at capacity 8 (gate / up, down),
+# deepseek-moe's, ragged and tiny shapes
+GROUPED_SHAPES = [(8, 1536, 4096), (8, 4096, 1536), (8, 1408, 2048),
+                  (8, 2048, 1408), (20, 66, 333), (5, 130, 517),
+                  (64, 1536, 4096), (1, 7, 1), (8, 300, 0)]
+
+
+@pytest.mark.parametrize("M,N,K", GROUPED_SHAPES)
+def test_grouped_splits_cover_k_once_in_order(M, N, K):
+    """K9's K splits cover [0, K) once, in increasing order, none empty
+    (K = 0: one empty split), each a multiple of the row step within the
+    shared-memory cap; the geometry is a function of (M, N, K) alone, and
+    where K has enough row steps an occupied expert gets at least 16
+    blocks, so the 32 experts of a decode step give the 132 SMs 3 or more
+    blocks each."""
+    ks, splits = tpm.grouped_split_k(M, N, K)
+    assert (ks, splits) == tpm.grouped_split_k(M, N, K)
+    assert ks % tpm.GEMV_ROWS == 0 and ks <= tpm.GEMV_MAX_ROWS
+    ranges = _split_ranges(K, ks)
+    assert len(ranges) == splits >= 1
+    assert ranges[0][0] == 0 and ranges[-1][1] == K
+    for (a0, a1), (b0, _) in zip(ranges, ranges[1:]):
+        assert a1 == b0 and a1 - a0 == ks
+    assert all(k1 > k0 for k0, k1 in ranges) or K == 0
+    tiles = -(-M // tpm.GROUPED_BM) * -(-N // tpm.GEMV_BN)
+    steps = -(-K // tpm.GEMV_ROWS)
+    assert tiles * splits >= min(16, tiles * max(steps, 1))
+    if (M, N, K) in ((8, 1536, 4096), (8, 4096, 1536)):
+        assert 32 * tiles * splits >= 3 * 132
+
+
+def _routed_buffer(rng, E, M, K, occupancy, fmt=None):
+    """An [E, M, K] dispatch buffer whose expert e holds occupancy[e]
+    leading rows of activations and zeros after (as `moe._dispatch` fills
+    its capacity), f32 or (fmt) codes as numpy."""
+    x = rng.normal(0, 1, (E, M, K)).astype(np.float32)
+    for e, n in enumerate(occupancy):
+        x[e, n:] = 0.0
+    return x if fmt is None else np.array(jposit.pack(jnp.asarray(x), fmt))
+
+
+@pytest.mark.parametrize("fmt_a", [None, "P13_2", "P8_2"])
+def test_occupied_rows_plain_matches_numpy(fmt_a):
+    """The plain statement of K9's pre-pass: one past the last row holding
+    a non-zero activation, whatever lies before it (a zero row inside the
+    occupied span counts as occupied; -0.0 counts as zero, nan as not)."""
+    rng = np.random.default_rng(17)
+    E, M, K = 9, 8, 33
+    occ = rng.integers(0, M + 1, E)
+    occ[0], occ[1] = 0, M
+    a = _routed_buffer(rng, E, M, K, occ, _fmt(fmt_a)[0] if fmt_a else None)
+    if fmt_a is None:
+        a[2, :] = 0.0
+        a[2, 1, 3] = -0.0
+        a[2, 2, 5] = np.nan           # row 2 holds a nan: occupied to 3
+        a[3, 1] = 0.0                 # a zero row inside the span
+    want = np.array([max([m + 1 for m in range(M) if np.any(a[e, m] != 0)],
+                         default=0) for e in range(E)], np.int32)
+    got = tpm.occupied_rows_plain(torch.from_numpy(a),
+                                  _fmt(fmt_a)[1] if fmt_a else None)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    if fmt_a is None:
+        assert want[2] == 3
+
+
+@pytest.mark.parametrize("fmt_out", [None, "P16_2"])
+@pytest.mark.parametrize("fmt_a", [None, "P13_2"])
+def test_grouped_plain_with_empty_experts_matches_reference(fmt_a, fmt_out):
+    """K9's plain version over a routed buffer (experts with 0..3 occupied
+    rows of 8, the rest zeros, two experts empty) against the reference's
+    grouped kernel in interpret mode: the same values, every empty row
+    exactly zero on both sides (what the card kernel writes for the rows
+    it skips)."""
+    rng = np.random.default_rng(23)
+    E, M, K, N = 6, 8, 67, 19
+    occ = np.array([0, 1, 3, 0, 2, 3])
+    jfa, tfa = _fmt(fmt_a) if fmt_a else (None, None)
+    jfo, tfo = _fmt(fmt_out) if fmt_out else (None, None)
+    a = _routed_buffer(rng, E, M, K, occ, jfa)
+    b = _codes(rng, (E, K, N), jformats.P16_2, 1 / np.sqrt(K))
+    want = np.asarray(jpm.posit_matmul_grouped(
+        jnp.asarray(a), jnp.asarray(b), jfa, jformats.P16_2, jfo,
+        interpret=True))
+    got = tpm.posit_matmul_grouped(torch.from_numpy(a), torch.from_numpy(b),
+                                   tfa, tformats.P16_2, tfo).numpy()
+    assert got.dtype == want.dtype
+    rows = tpm.occupied_rows_plain(torch.from_numpy(a), tfa).numpy()
+    np.testing.assert_array_equal(rows, occ)
+    for e, n in enumerate(occ):
+        assert not got[e, n:].any() and not want[e, n:].any()
+    if fmt_out is None:
+        bound = sum_bound(torch.from_numpy(a), torch.from_numpy(b), tfa,
+                          tformats.P16_2).numpy()
+        assert np.all(np.abs(got - want) <= bound)
+    else:
+        diff = got.astype(np.int64) - want.astype(np.int64)
+        assert np.abs(diff).max() <= 1
