@@ -13,7 +13,10 @@ Phases (any failure exits non-zero; no phase is caught):
   2. build: nvcc for sm_90a of every source in src/repro_torch/csrc/, with
      the -Xptxas -v register / shared-memory report;
   3. kernels: K1-K7 against their plain versions at the main path's shapes
-     (K1/K2 bitwise, K3 within 2e-5, also at lengths 1, 32, 33, 256 and
+     (K1 bitwise; K2 bitwise at the tied head's [256000, 8192] into
+     P(16,2) and P(13,2), each on its compile-time variant, and on every
+     rounding boundary between adjacent codes and its f32 neighbours for
+     P(16,2), P(13,2) and P(8,2); K3 within 2e-5, also at lengths 1, 32, 33, 256 and
      1100 that end on and span its 2-page key splits, over int8, bf16 and
      f32 pages, with K7's rows bitwise K3 there, and its grid wider than
      B x Hkv; K4 equal tokens, or a score within
@@ -33,8 +36,13 @@ Phases (any failure exits non-zero; no phase is caught):
      f32 and the tensor-core bound at M 256; K7 within
      2e-5, each of its rows
      bitwise K3 at the row's own length, T = 1 bitwise K3, t_block 1/2/4
-     bitwise equal; K8 bitwise at M 4, K 8192, N 1024, B also transposed,
-     ragged with special codes; K9 within the sum bound at qwen3's expert
+     bitwise equal; K8's compile-time variant bitwise at M 4, K 8192, N
+     1024, B also transposed, ragged with special codes, at M 64, and over
+     the tied head (N_out 256000, B a transposed view, 256 columns
+     checked), its run-time variant on P(10/16,2) N 8, every step shape
+     timed beside its operations bound (integer operations counted from
+     the built kernel's SASS, scripts/count_k8_sass.py) and latency floor;
+     K9 within the sum bound at qwen3's expert
      shapes with float and coded activations and a fmt_out encode, a limit
      the two planted faults must fail, and at a decode step's routing (4
      tokens top-8 of 128 experts, zeros elsewhere) within the same limit,
@@ -76,6 +84,8 @@ Phases (any failure exits non-zero; no phase is caught):
   7. bit_exact: command-r-35b at full width, 2 layers, validate_bit_exact
      (every projection and the tied head through K8, bf16 float pages, no
      fused head): 4 requests of 16-32 tokens, 8 new tokens each, greedy;
+     every K8 launch on the compile-time variant p13_16_n4, every K2
+     launch on p13_2;
   8. MoE: qwen3-moe-235b at full width (4 of 94 layers; weights drawn and
      packed layer by layer), serve_fused_p16 defaults: 8 requests sharing a
      64-token system prompt, 16 new tokens each, greedy, every expert GEMM
@@ -86,7 +96,9 @@ Phases (any failure exits non-zero; no phase is caught):
      the p16_2 variant (the compile-time P(16,2) decode).  Every main path runs
      bf16 activations, so all of its K5 launches must take the
      tensor-core variant ("prefill_attention:tc"), and every K3 launch of
-     a main path must split its key span and merge ("paged_attention:merge").
+     a main path must split its key span and merge ("paged_attention:merge"),
+     and every K2 launch of a main path must take a compile-time variant
+     (none "posit_encode:posit").
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -219,10 +231,14 @@ def _k1_decode(dev):
 
 
 def _k2_encode(dev):
+    """K2 at the tied head's shape, [256000, 8192] f32, into P(16,2) (the
+    defaults' re-encode) and P(13,2) (bit_exact's), bitwise, each launch
+    on its compile-time variant; every rounding boundary between adjacent
+    codes and its two f32 neighbours (both signs) for each compile-time
+    variant, bitwise."""
     import torch
     from repro_torch.core import formats
-    from repro_torch.kernels import posit_codec
-    fmt = formats.P16_2
+    from repro_torch.kernels import ops, posit_codec
     g = torch.Generator(device=dev).manual_seed(2)
     emb = torch.randn(256000, 8192, generator=g, device=dev)
     flat = emb.view(-1)
@@ -237,19 +253,40 @@ def _k2_encode(dev):
     bits = torch.randint(-2 ** 31, 2 ** 31 - 1, (1 << 22,), generator=g,
                          device=dev, dtype=torch.int64).to(torch.int32)
     flat[-(1 << 22):] = bits.view(torch.float32)
-    got = posit_codec.encode(emb, fmt)
-    want = posit_codec.encode_plain(emb, fmt)
-    _check(_bits_equal(got, want), "K2 posit_encode at [256000, 8192]")
+    times = {}
+    for fmt in (formats.P16_2, formats.P13_2):
+        variant = posit_codec.encode_variant(fmt, torch.int16)
+        before = ops.launch_counts()[f"posit_encode:{variant}"]
+        got = posit_codec.encode(emb, fmt)
+        _check(ops.launch_counts()[f"posit_encode:{variant}"] == before + 1,
+               f"K2 {fmt} took its variant {variant}")
+        want = posit_codec.encode_plain(emb, fmt)
+        _check(_bits_equal(got, want), f"K2 posit_encode {fmt} at "
+                                       f"[256000, 8192]")
+        del got, want
+        times[fmt] = _device_ms(lambda: posit_codec.encode(emb, fmt),
+                                launches=2)
+        print(f"K2 {fmt} [256000, 8192] ({variant}): ms {times[fmt]:.4f}")
+    for fmt in (formats.P16_2, formats.P13_2, formats.P8_2):
+        b = posit_codec.rounding_boundaries(fmt).to(dev)
+        v = torch.cat([b, torch.nextafter(b, torch.zeros_like(b)),
+                       torch.nextafter(b, torch.full_like(b, float("inf")))])
+        v = torch.cat([v, -v])
+        _check(_bits_equal(posit_codec.encode(v, fmt),
+                           posit_codec.encode_plain(v, fmt)),
+               f"K2 {fmt}: every rounding boundary and its neighbours")
+        print(f"K2 {fmt}: {b.numel()} rounding boundaries and their f32 "
+              f"neighbours, both signs, bitwise")
+    fmt = formats.P16_2
     call_ms = _time_ms(lambda: posit_codec.encode(emb, fmt), reps=5)
-    ms = _device_ms(lambda: posit_codec.encode(emb, fmt), launches=2)
     plain_ms = _time_once_ms(lambda: posit_codec.encode_plain(emb, fmt))
     bound, by = _bound(emb.numel() * (4 + 2), 0)
-    del got, want, emb, flat
+    del emb, flat
     return dict(name="posit_encode", source="src/repro_torch/csrc/posit_codec.cu",
                 replaces="src/repro/kernels/posit_codec.py:78",
-                max_abs_err=0.0, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
-                bound_ms=bound, bound_by=by, library_ms=None,
-                shape="[256000, 8192] f32 -> int16")
+                max_abs_err=0.0, ms=times[fmt], call_ms=call_ms,
+                plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                library_ms=None, shape="[256000, 8192] f32 -> int16 P(16,2)")
 
 
 # lengths that end on a split boundary of K3 / K7 (2 pages of 16 tokens)
@@ -903,74 +940,162 @@ INT32_OP_PER_S = 16.7e12   # H100 SXM: 64 INT32 lanes x 132 SMs x 1.98 GHz
 
 
 def pdpu_step_ops(N: int) -> int:
-    """Integer operations of one chunk step of one output, counted from
-    core/pdpu.py's datapath: S1 the accumulator's decode (45), S2 per
-    product a multiply, a sign xor, a zero test, an exponent add and a
-    select (5 N), the comparator tree (N + 1), S3 per aligned term a shift
-    amount, a clamp, a shift, the sticky mask and OR, a negation (12 per
-    term, N + 1 terms), S4-S5 the sum, abs and leading-one count (25), S6
-    the rounding (45)."""
+    """Integer operations of one chunk step of one output as the run-time
+    variant runs it, counted from core/pdpu.py's datapath: S1 the
+    accumulator's decode (45), S2 per product a multiply, a sign xor, a
+    zero test, an exponent add and a select (5 N), the comparator tree
+    (N + 1), S3 per aligned term a shift amount, a clamp, a shift, the
+    sticky mask and OR, a negation (12 per term, N + 1 terms), S4-S5 the
+    sum, abs and leading-one count (25), S6 the rounding (45)."""
     return 45 + 5 * N + (N + 1) + 12 * (N + 1) + 25 + 45
 
 
-DECODE_OPS = 45   # integer operations of one posit decode (S1, per code)
+def k8_sass_ops() -> dict:
+    """The compile-time variant's integer operations a chunk step and a
+    decoded code, counted from the SASS of the library just built
+    (scripts/count_k8_sass.py): its bound uses these, the least count of
+    its datapath as compiled."""
+    from repro_torch.kernels import _build
+    sys.path.insert(0, os.path.join(HERE, "scripts"))
+    import count_k8_sass
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    text = subprocess.run([cuobjdump, "-sass",
+                           str(_build.build_all()["pdpu_dot"])], check=True,
+                          capture_output=True, text=True, timeout=120).stdout
+    return count_k8_sass.count(text)
+
+
+# command-r's projections under bit_exact at a decode step (2 layers):
+# (name, K, N_out, launches a step); the tied head, B transposed, is one
+# more launch at K 8192, N_out 256000
+K8_STEP_SHAPES = (("wq / wo", 8192, 8192, 4), ("wk / wv", 8192, 1024, 4),
+                  ("gate / up", 8192, 22528, 4), ("down", 22528, 8192, 2),
+                  ("head", 8192, 256000, 1))
+
+
+def _k8_bound(M, K, N, step_ops, decode_ops):
+    """(bound ms, by): every code decoded once, every chunk step once."""
+    ops = M * N * (K // 4) * step_ops + (M * K + K * N) * decode_ops
+    return _bound((M * K + K * N) * 2 + M * N * 4, ops, INT32_OP_PER_S)
 
 
 def _k8_pdpu(dev):
-    """K8 at a full-width projection slice of command-r under bit_exact:
-    M 4 (decode slots), K 8192, N 1024, P(13,2) codes in, P(16,2) out,
-    bitwise against its plain version."""
+    """K8 under bit_exact (P(13,2) codes in, P(16,2) out, N 4, W_m 14): the
+    compile-time variant bitwise against its plain version at M 4, K 8192,
+    N 1024 (B also transposed), ragged with special codes, at a prefill M
+    (64), and over the tied head's 256000 columns (B a transposed view;
+    256 columns checked, the first and last column tiles among them); the
+    run-time variant on a second configuration.  Each step shape timed
+    beside its operations bound (from the SASS count) and, at M 4, its
+    latency floor: a lone 32-column, one-row call at the same K, which
+    runs each chain alone on its SM."""
     import torch
     from repro_torch.core import formats, posit
     from repro_torch.core.quant import policy_by_name
-    from repro_torch.kernels import pdpu_dot
+    from repro_torch.kernels import ops, pdpu_dot
     cfg = policy_by_name("validate_bit_exact").pdpu_config()
-    M, K, N = 4, 8192, 1024
+    _check(pdpu_dot.pdpu_variant(cfg) == "p13_16_n4",
+           "the bit_exact PDPU takes the compile-time variant")
+    sass = k8_sass_ops()
+    step_ops, decode_ops = sass["step_ops"], sass["decode_ops"]
+    print(f"K8 SASS (scripts/count_k8_sass.py): {json.dumps(sass)}")
     g = torch.Generator(device=dev).manual_seed(8)
-    a = posit.pack(torch.randn(M, K, generator=g, device=dev), cfg.fmt_in)
-    b = posit.pack(torch.randn(K, N, generator=g, device=dev) / math.sqrt(K),
-                   cfg.fmt_in)
-    got = pdpu_dot.pdpu_matmul(a, b, cfg)
-    t0 = time.perf_counter()
-    want = pdpu_dot.pdpu_matmul_plain(a, b, cfg)
-    torch.cuda.synchronize()
-    plain_ms = (time.perf_counter() - t0) * 1e3
-    _check(_bits_equal(got, want), "K8 pdpu_matmul bitwise its plain version "
-                                   f"at M={M} K={K} N={N}")
+
+    def codes(shape, scale=1.0, fmt=cfg.fmt_in):
+        return posit.pack(torch.randn(*shape, generator=g, device=dev)
+                          * scale, fmt)
+
+    def bitwise(a, b, c, what):
+        variant = pdpu_dot.pdpu_variant(c)
+        before = ops.launch_counts()[f"pdpu_matmul:{variant}"]
+        got = pdpu_dot.pdpu_matmul(a, b, c)
+        _check(ops.launch_counts()[f"pdpu_matmul:{variant}"] == before + 1,
+               f"K8 {what}: launched on {variant}")
+        t0 = time.perf_counter()
+        want = pdpu_dot.pdpu_matmul_plain(a, b, c)
+        torch.cuda.synchronize()
+        _check(_bits_equal(got, want), f"K8 {what} bitwise its plain version")
+        return got, (time.perf_counter() - t0) * 1e3
+
+    M, K, N = 4, 8192, 1024
+    a = codes((M, K))
+    b = codes((K, N), 1 / math.sqrt(K))
+    got, plain_ms = bitwise(a, b, cfg, f"M={M} K={K} N={N}")
     # the tied head's layout: B given transposed
-    _check(_bits_equal(pdpu_dot.pdpu_matmul(a, b.T.contiguous().T, cfg), want),
-           "K8 with B transposed bitwise")
+    bitwise(a, b.T.contiguous().T, cfg, "with B transposed")
     # ragged M and N, and special codes (zero, NaR, maxpos, minpos)
     a2, b2 = a[:3, :64].clone(), b[:64, :45].clone()
     a2[0, :4] = torch.tensor([0, cfg.fmt_in.nar_code, cfg.fmt_in.maxpos_code,
                               cfg.fmt_in.minpos_code], device=dev)
-    _check(_bits_equal(pdpu_dot.pdpu_matmul(a2, b2, cfg),
-                       pdpu_dot.pdpu_matmul_plain(a2, b2, cfg)),
-           "K8 ragged and special codes bitwise")
+    bitwise(a2, b2, cfg, "ragged, special codes")
+    # a prefill M
+    a64 = codes((64, K))
+    bitwise(a64, b, cfg, "M=64 (prefill)")
+    # the run-time variant on a second configuration
+    c10 = formats.PDPU_P10_16_N8_W14
+    bitwise(codes((4, 1024), fmt=c10.fmt_in),
+            codes((1024, 256), 1 / 32, fmt=c10.fmt_in), c10,
+            "run-time variant, P(10/16,2) N 8")
     out = posit.decode(got.to(torch.int16), cfg.fmt_out)
     ref = torch.matmul(posit.decode(a, cfg.fmt_in), posit.decode(b, cfg.fmt_in))
     print(f"K8: fmt_out values vs the f32 matmul of the same codes: max |diff| "
           f"{float((out - ref).abs().max()):.4g} (max |value| "
           f"{float(ref.abs().max()):.4g}; the W_m = {cfg.w_m} datapath and "
           f"the P(16,2) accumulator round, by design)")
+    # the tied head: [256000, 8192] codes read as B = head.T
+    head = codes((256000, K), 1 / math.sqrt(K))
+    got = pdpu_dot.pdpu_matmul(a, head.T, cfg)
+    cols = torch.cat([torch.arange(32, device=dev),
+                      torch.arange(256000 - 32, 256000, device=dev),
+                      torch.randperm(256000, generator=g, device=dev)[:192]])
+    _check(_bits_equal(got[:, cols],
+                       pdpu_dot.pdpu_matmul_plain(a, head[cols].T, cfg)),
+           "K8 the head (B transposed, N_out 256000): 256 columns bitwise")
+    print("K8 head: 256 of 256000 columns bitwise, the first and the last "
+          "column tiles among them")
+    del got
+    # times per step shape, bounds, latency floors
+    lone = {}
+    for kk in sorted({k for _, k, _, _ in K8_STEP_SHAPES}):
+        x1, w1 = codes((1, kk)), codes((kk, 32), 1 / math.sqrt(kk))
+        lone[kk] = _device_ms(lambda: pdpu_dot.pdpu_matmul(x1, w1, cfg),
+                              launches=3)
+    step_ms = step_bound = 0.0
+    for name, kk, nn, per_step in K8_STEP_SHAPES:
+        x = a if kk == K else codes((M, kk))
+        w = head.T if name == "head" else codes((kk, nn), 1 / math.sqrt(kk))
+        ms = _device_ms(lambda: pdpu_dot.pdpu_matmul(x, w, cfg),
+                        launches=1 if name == "head" else 3)
+        bound, by = _k8_bound(M, kk, nn, step_ops, decode_ops)
+        step_ms += per_step * ms
+        step_bound += per_step * bound
+        print(f"K8 {name} (M {M}, K {kk}, N_out {nn}{', B transposed' if name == 'head' else ''}): "
+              f"ms {ms:.4f}, bound {bound:.4f} ({by}), latency floor "
+              f"{lone[kk]:.4f} (a lone chain, {kk // 4} steps), "
+              f"{per_step} a bit_exact decode step")
+        del x, w
+    print(f"K8 a bit_exact decode step (2 layers + head, 15 launches): "
+          f"{step_ms:.4f} ms, bound {step_bound:.4f} ms")
+    del head
+    ms64 = _device_ms(lambda: pdpu_dot.pdpu_matmul(a64, b, cfg), launches=2)
+    bound64, by64 = _k8_bound(64, K, N, step_ops, decode_ops)
+    print(f"K8 M 64, K {K}, N_out {N} (prefill): ms {ms64:.4f}, bound "
+          f"{bound64:.4f} ({by64})")
     call_ms = _time_ms(lambda: pdpu_dot.pdpu_matmul(a, b, cfg), reps=10)
     ms = _device_ms(lambda: pdpu_dot.pdpu_matmul(a, b, cfg), launches=5)
-    steps = M * N * (K // cfg.N)
-    ops = steps * pdpu_step_ops(cfg.N) + DECODE_OPS * (M * K + K * N)
-    bytes_moved = (M * K + K * N) * 2 + M * N * 4
-    t_b = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_o = ops / INT32_OP_PER_S * 1e3
-    bound, by = (t_o, "operations") if t_o >= t_b else (t_b, "bytes")
-    print(f"K8: {steps} chunk steps x {pdpu_step_ops(cfg.N)} integer "
-          f"operations + {M * K + K * N} operand decodes: bound {t_o:.4f} ms "
-          f"at {INT32_OP_PER_S:.3g} INT32 op/s (bytes {t_b:.4f} ms); "
-          f"{steps / ms / 1e6:.4g} G chunk steps/s")
+    bound, by = _k8_bound(M, K, N, step_ops, decode_ops)
+    print(f"K8: {M * N * (K // cfg.N)} chunk steps x {step_ops:.1f} integer "
+          f"operations + {M * K + K * N} operand decodes x {decode_ops:.1f} "
+          f"(SASS): bound {bound:.4f} ms ({by}) at {INT32_OP_PER_S:.3g} "
+          f"INT32 op/s; {M * N * (K // cfg.N) / ms / 1e6:.4g} G chunk "
+          f"steps/s; the run-time variant's count would be "
+          f"{pdpu_step_ops(cfg.N)} a step")
     return dict(name="pdpu_matmul", source="src/repro_torch/csrc/pdpu_dot.cu",
                 replaces="src/repro/kernels/pdpu_dot.py:47",
                 max_abs_err=0.0, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
                 bound_ms=bound, bound_by=by, library_ms=None,
                 shape=f"M={M} K={K} N={N}, int16 P(13,2) codes -> int32 "
-                      f"P(16,2), N=4 W_m=14")
+                      f"P(16,2), N=4 W_m=14, p13_16_n4")
 
 
 # qwen3-moe-235b's expert stacks, (K, N) per GEMM: gate, up, down
@@ -1297,8 +1422,10 @@ def _run_engine(cfg, params, prompts, label: str, new_tokens: int = 16,
           f"{float(np.mean(decode_ms)):.3f} ms over {len(decode_ms)} "
           f"steps, peak memory {torch.cuda.max_memory_allocated()} B")
     print(f"{label}: prefill steps {len(prefill_ms)}, "
-          f"{sum(prefill_ms):.3f} ms, {100 * sum(prefill_ms) / 1e3 / wall:.1f}% "
-          f"of the wall time")
+          f"{sum(prefill_ms):.3f} ms (mean "
+          f"{float(np.mean(prefill_ms)) if prefill_ms else 0.0:.3f} ms a "
+          f"step), {100 * sum(prefill_ms) / 1e3 / wall:.1f}% of the wall "
+          f"time")
     print(f"{label}: launches per pure decode step " + json.dumps(
         {k: v / n_steps for k, v in per_step.items()}))
     print(f"{label}: stats " + json.dumps(
@@ -1704,6 +1831,12 @@ def _bit_exact_phase(dev):
                  "paged_attention", "prefill_attention"):
         _check(counts[name] > 0, f"kernel {name} launched in the bit_exact run")
     _check(counts["decode_sample"] == 0, "no fused head under bit_exact")
+    # the policy's PDPU is the compile-time variant, and every encode
+    # (activations and the tied head's re-encode) is P(13,2)'s
+    for name, variant in (("pdpu_matmul", "p13_16_n4"),
+                          ("posit_encode", "p13_2")):
+        _check(counts[f"{name}:{variant}"] == counts[name],
+               f"every bit_exact {name} launch took {variant}")
     per_token = 7 * cfg.n_layers + 1
     _check(per_step.get("pdpu_matmul", 0) == per_token * n_steps,
            f"K8 launched {per_token} times per decode step (7 projections "
@@ -1954,6 +2087,11 @@ def main() -> int:
         _check(c["paged_attention"] > 0
                and c["paged_attention:merge"] == c["paged_attention"],
                f"'{label}': every K3 launch split its key span and merged")
+    # every format a main path encodes (P(16,2) heads and weights, P(13,2)
+    # activations, P(8,2) KV pages) has a compile-time K2 variant
+    for label, c in counts.items():
+        _check(c["posit_encode"] > 0 and c["posit_encode:posit"] == 0,
+               f"'{label}': every K2 launch took a compile-time variant")
     # every main path runs bf16 activations: K5 must take its tensor-core
     # variant (exact three-term splits) on each of them
     for label, c in counts.items():

@@ -10,28 +10,54 @@
 // What the datapath is decides the design.  The accumulator is rounded to
 // fmt_out after every chunk of N products, so the K/N chunk steps of one
 // output are a sequential chain: K splits neither across blocks nor across
-// threads, and the only parallelism is M x N_out.  Here a block of 128
-// threads owns a 4 x 32 output tile, one output per thread.  For each slab
-// of K (a whole number of chunks) the block decodes the 4 x KT codes of A
-// and the KT x 32 codes of B once into shared memory as packed (frac,
-// scale, sign, zero, NaR) fields (S1, shared by the tile), then every
-// thread walks the slab's chunks in registers: S1 of its accumulator,
-// S2 products and the exponent max, S3 alignment with guard and sticky
-// bits, S4 the integer sum, S5 the leading-one position, S6 the posit
-// rounding into fmt_out.  Arithmetic that the reference runs in int32 and
-// that may wrap (shifts by up to 31, the sticky mask at 31, negation and
-// the sum) runs in uint32 and is cast back, so no signed overflow or
-// oversized shift is undefined here.  B may be given transposed (strides),
-// which the logits head's tied embedding is.
+// threads, and the only parallelism is M x N_out.  Each product is shifted
+// by its own exponent difference and truncated to the W_m window before
+// the integer sum, so a chunk is not a dot product: tensor cores cannot
+// run it, and both variants are SIMT integer work.
 //
-// Bound on an H100: integer operations, not bytes.  A chunk step (N = 4)
-// is some 150-200 integer operations per output; the codes are read once
-// per tile.  With one output per thread the chain's latency is hidden only
-// by other warps, and at decode (M = 4) a projection of N_out = 1024 gives
-// 32 blocks: this first kernel is latency-bound on narrow outputs.
+// Two variants, chosen by the wrapper (kernels/pdpu_dot.py:pdpu_variant):
+//
+// * p13_16_n4 (pdpu_matmul_fixed_kernel), the bit_exact policy's PDPU:
+//   P(13,2) in, P(16,2) out, N 4, W_m 14, 2 guard bits, sticky, fixed at
+//   compile time.  Bound on an H100: integer operations at wide outputs
+//   (the tied head's 1.02 M chains), the chain's latency at narrow ones (a
+//   decode projection has 4 K to 90 K chains, at most about 5 warps a
+//   scheduler).  So the design takes off the chain everything that does
+//   not depend on the accumulator (pdpu_step.cuh): the accumulator is
+//   carried as fields (never re-decoded from its code), S6 rounds in 32-bit
+//   integers, NaR is a per-row / per-column flag applied at the end, and
+//   the unrolled chunk loop lets the next chunk's products and exponent max
+//   overlap this chunk's S3-S6.  Four producer warps stage each 32-deep K
+//   slab: 16-byte loads one slab ahead into registers, then the
+//   compile-time P(13,2) decode into ready-to-use fields (significand,
+//   exponent field, sign mask) in a double-buffered shared slab, while the
+//   four consumer warps run the chains of the previous slab.  With one
+//   producer warp beside each consumer warp on each scheduler, no
+//   consumer's chain is slowed more than another's (with two, the two
+//   schedulers that held them set the pace at every slab's barrier).  A block
+//   owns 4 rows x 32 columns, a warp a row and a lane one chain, at every
+//   M: more rows a lane (a B field read shared by 4 chains) and 16-row
+//   blocks (a B code decoded once for 16 rows) were slower at every step
+//   shape and at prefill M, so the chains spread over the SMs as thinly
+//   as the shape allows.  B given transposed (the tied head, [N_out, K]
+//   storage) is loaded along K, 16 bytes a lane.
+// * posit (pdpu_matmul_kernel): every other configuration, formats and
+//   chunk size at run time.  A block of 128 threads owns a 4 x 32 output
+//   tile, one output per thread; for each slab of K the block decodes the
+//   codes once into shared memory as packed (frac, scale, sign, zero, NaR)
+//   fields, then every thread walks the slab's chunks in registers: S1 of
+//   its accumulator, S2 products and the exponent max, S3 alignment with
+//   guard and sticky bits, S4 the integer sum, S5 the leading-one
+//   position, S6 the posit rounding into fmt_out.  Arithmetic that the
+//   reference runs in int32 and that may wrap (shifts by up to 31, the
+//   sticky mask at 31, negation and the sum) runs in uint32 and is cast
+//   back, so no signed overflow or oversized shift is undefined here.  It
+//   is latency-bound on narrow outputs.
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "pdpu_step.cuh"
 
 namespace {
 
@@ -233,24 +259,252 @@ int launch(const int16_t* a, const int16_t* b, int32_t* out, int M, int K,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// p13_16_n4: the compile-time variant
+// ---------------------------------------------------------------------------
+
+using PF = PdpuFixed<13, 16, 2, 4, 14, 2, true>;
+constexpr int FX_KT = 32;            // K a slab: 8 chunks of 4
+constexpr int FX_P = FX_KT + 4;      // field row pitch: 16-byte rows, and
+                                     // conflict-free 16-byte lane reads
+constexpr int FX_BM = 4;             // rows a block: 4 consumer warps
+constexpr int FX_PT = 128;           // producer threads: 4 warps
+constexpr int FX_NT = 32 * FX_BM + FX_PT;
+constexpr int FX_BUNITS = FX_KT * 32 / 8;  // 8-code units of B a slab
+static_assert(PF::N == 4, "a chunk is one 16-byte field read");
+static_assert(FX_BUNITS % FX_PT == 0 && 4 * FX_BM <= FX_PT, "units");
+
+// One slab of decoded fields: B as [column][k], A as [row][k].
+struct FxSlab {
+  alignas(16) uint32_t bf[32][FX_P];
+  alignas(16) int bd[32][FX_P];
+  alignas(16) uint32_t bm[32][FX_P];
+  alignas(16) uint32_t af[FX_BM][FX_P];
+  alignas(16) int ad[FX_BM][FX_P];
+  alignas(16) uint32_t am[FX_BM][FX_P];
+};
+
+union Codes8 {
+  uint4 raw;
+  int16_t c[8];
+};
+
+// 8 codes at p, p + step, ...: one 16-byte load when vec and all 8 lie in
+// range, else `count` scalar loads (the rest zero, the posit zero)
+__device__ __forceinline__ uint4 fx_load(const int16_t* p, long long step,
+                                         int count, bool vec) {
+  Codes8 u;
+  if (vec && count == 8) {
+    u.raw = __ldg(reinterpret_cast<const uint4*>(p));
+    return u.raw;
+  }
+  u.raw = make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+    if (j < count) u.c[j] = __ldg(p + j * step);
+  return u.raw;
+}
+
+// 8 codes -> fields, stored as two 16-byte rows at (f, d, m)[0..7]
+__device__ __forceinline__ bool fx_store8(uint4 raw, int offset,
+                                          uint32_t* f, int* d, uint32_t* m) {
+  Codes8 cv;
+  cv.raw = raw;
+  uint32_t fv[8], mv[8];
+  int dv[8];
+  bool any = false;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    bool nar;
+    pdpu_operand<PF>((uint32_t)(int)cv.c[j], offset, fv[j], dv[j], mv[j],
+                     nar);
+    any = any || nar;
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    reinterpret_cast<uint4*>(f)[h] =
+        make_uint4(fv[4 * h], fv[4 * h + 1], fv[4 * h + 2], fv[4 * h + 3]);
+    reinterpret_cast<int4*>(d)[h] =
+        make_int4(dv[4 * h], dv[4 * h + 1], dv[4 * h + 2], dv[4 * h + 3]);
+    reinterpret_cast<uint4*>(m)[h] =
+        make_uint4(mv[4 * h], mv[4 * h + 1], mv[4 * h + 2], mv[4 * h + 3]);
+  }
+  return any;
+}
+
+// A block owns FX_BM rows x 32 columns: a consumer warp a row, a lane a
+// column (one chain); four producer warps stage the slabs.
+__global__ void __launch_bounds__(FX_NT) pdpu_matmul_fixed_kernel(
+    const int16_t* __restrict__ a, const int16_t* __restrict__ b,
+    int32_t* __restrict__ out, int M, int K, int NO, long long sa_m,
+    long long sa_k, long long sb_k, long long sb_n, int a_vec, int b_vec,
+    int b_rows) {
+  constexpr int BM = FX_BM, PT = FX_PT, BU = FX_BUNITS / FX_PT;
+  __shared__ FxSlab sl[2];
+  __shared__ int nar_row[BM], nar_col[32];
+  const int tid = threadIdx.x;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * 32;
+  const int nslab = (K + FX_KT - 1) / FX_KT;
+  if (tid < BM) nar_row[tid] = 0;
+  if (tid < 32) nar_col[tid] = 0;
+  __syncthreads();
+
+  if (tid >= 32 * BM) {
+    // ---- producers: one slab ahead in registers, decode into sl[] ----
+    const int pt = tid - 32 * BM;
+    uint4 rb[BU], ra;
+    auto load = [&](int s) {
+      const int k0 = s * FX_KT;
+#pragma unroll
+      for (int q = 0; q < BU; ++q) {
+        const int u = pt + q * PT;
+        if (b_rows) {  // [K, N_out] rows: 8 columns of one k, a k a lane
+          const int kk = u % 32, nn = 8 * (u / 32);
+          const int cnt = k0 + kk < K ? min(max(NO - (n0 + nn), 0), 8) : 0;
+          rb[q] = fx_load(b + (k0 + kk) * sb_k + (n0 + nn) * sb_n, sb_n, cnt,
+                          b_vec);
+        } else {       // transposed: 8 k of one column, 4 lanes a column
+          const int nn = u / 4, kk = 8 * (u % 4);
+          const int cnt = n0 + nn < NO ? min(max(K - (k0 + kk), 0), 8) : 0;
+          rb[q] = fx_load(b + (k0 + kk) * sb_k + (n0 + nn) * sb_n, sb_k, cnt,
+                          b_vec);
+        }
+      }
+      if (pt < 4 * BM) {
+        const int mm = pt / 4, kk = 8 * (pt % 4);
+        const int cnt = m0 + mm < M ? min(max(K - (k0 + kk), 0), 8) : 0;
+        ra = fx_load(a + (m0 + mm) * sa_m + (k0 + kk) * sa_k, sa_k, cnt,
+                     a_vec);
+      }
+    };
+    auto store = [&](FxSlab& S) {
+#pragma unroll
+      for (int q = 0; q < BU; ++q) {
+        const int u = pt + q * PT;
+        if (b_rows) {
+          const int kk = u % 32, nn = 8 * (u / 32);
+          Codes8 cv;
+          cv.raw = rb[q];
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            bool nar;
+            pdpu_operand<PF>((uint32_t)(int)cv.c[j], 0, S.bf[nn + j][kk],
+                             S.bd[nn + j][kk], S.bm[nn + j][kk], nar);
+            if (nar) nar_col[nn + j] = 1;
+          }
+        } else {
+          const int nn = u / 4, kk = 8 * (u % 4);
+          if (fx_store8(rb[q], 0, &S.bf[nn][kk], &S.bd[nn][kk],
+                        &S.bm[nn][kk]))
+            nar_col[nn] = 1;
+        }
+      }
+      if (pt < 4 * BM) {
+        const int mm = pt / 4, kk = 8 * (pt % 4);
+        if (fx_store8(ra, PF::CP, &S.af[mm][kk], &S.ad[mm][kk],
+                      &S.am[mm][kk]))
+          nar_row[mm] = 1;
+      }
+    };
+    load(0);
+    store(sl[0]);
+    if (nslab > 1) load(1);
+    __syncthreads();
+    for (int s = 0; s < nslab; ++s) {
+      if (s + 1 < nslab) {
+        store(sl[(s + 1) & 1]);
+        if (s + 2 < nslab) load(s + 2);
+      }
+      __syncthreads();
+    }
+    return;
+  }
+
+  // ---- consumers: a lane owns column n0 + lane of its warp's row ----
+  const int row = tid / 32, lane = tid % 32;
+  PdpuAcc acc{0u, PF::SENT, 0u};
+  __syncthreads();  // the first slab is staged
+  for (int s = 0; s < nslab; ++s) {
+    const FxSlab& S = sl[s & 1];
+    auto chunk = [&](int c) {
+      const uint4 fb4 = *reinterpret_cast<const uint4*>(&S.bf[lane][4 * c]);
+      const int4 db4 = *reinterpret_cast<const int4*>(&S.bd[lane][4 * c]);
+      const uint4 mb4 = *reinterpret_cast<const uint4*>(&S.bm[lane][4 * c]);
+      const uint4 fa4 = *reinterpret_cast<const uint4*>(&S.af[row][4 * c]);
+      const int4 da4 = *reinterpret_cast<const int4*>(&S.ad[row][4 * c]);
+      const uint4 ma4 = *reinterpret_cast<const uint4*>(&S.am[row][4 * c]);
+      const uint32_t fb[4] = {fb4.x, fb4.y, fb4.z, fb4.w};
+      const int db[4] = {db4.x, db4.y, db4.z, db4.w};
+      const uint32_t mb[4] = {mb4.x, mb4.y, mb4.z, mb4.w};
+      const uint32_t fa[4] = {fa4.x, fa4.y, fa4.z, fa4.w};
+      const int da[4] = {da4.x, da4.y, da4.z, da4.w};
+      const uint32_t ma[4] = {ma4.x, ma4.y, ma4.z, ma4.w};
+      uint32_t v[4], m[4];
+      int d[4], ep, nneg;
+      pdpu_products<PF>(fa, da, ma, fb, db, mb, v, d, m, ep, nneg);
+      pdpu_step<PF>(acc, v, d, m, ep, nneg);
+    };
+    const int nch = min(FX_KT, K - s * FX_KT) / 4;
+    if (nch == FX_KT / 4) {
+#pragma unroll
+      for (int c = 0; c < FX_KT / 4; ++c) chunk(c);
+    } else {
+      for (int c = 0; c < nch; ++c) chunk(c);
+    }
+    __syncthreads();
+  }
+  const int m = m0 + row, n = n0 + lane;
+  if (m < M && n < NO)
+    out[(long long)m * NO + n] = (nar_row[row] | nar_col[lane])
+                                     ? (int32_t)(1u << (PF::NO - 1))
+                                     : (int32_t)pdpu_code<PF>(acc);
+}
+
+int launch_fixed(const int16_t* a, const int16_t* b, int32_t* out, int M,
+                 int K, int NO, long long sa_m, long long sa_k,
+                 long long sb_k, long long sb_n, cudaStream_t s) {
+  const auto al16 = [](const void* p) {
+    return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
+  };
+  const int a_vec = sa_k == 1 && sa_m % 8 == 0 && al16(a);
+  const int b_rows = sb_n == 1;
+  const int b_vec = al16(b) && (b_rows ? sb_k % 8 == 0
+                                       : sb_k == 1 && sb_n % 8 == 0);
+  dim3 grid((NO + 31) / 32, (M + FX_BM - 1) / FX_BM);
+  pdpu_matmul_fixed_kernel<<<grid, FX_NT, 0, s>>>(
+      a, b, out, M, K, NO, sa_m, sa_k, sb_k, sb_n, a_vec, b_vec, b_rows);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // a: int16 codes with strides (sa_m, sa_k); b: int16 codes with strides
 // (sb_k, sb_n) in elements; out: int32 [M, N_out] fmt_out codes.  The chunk
-// size N must be 1, 2, 4, 8 or 16 and divide K.
+// size N must be 1, 2, 4, 8 or 16 and divide K.  variant 0 runs the
+// run-time kernel; variant 1 the compile-time p13_16_n4, which the
+// configuration must match (one of sb_k, sb_n must be 1 there).
 extern "C" int pdpu_matmul_launch(const void* a, const void* b, void* out,
                                   int M, int K, int NO, long long sa_m,
                                   long long sa_k, long long sb_k,
                                   long long sb_n, int n_in, int es_in,
                                   int n_out, int es_out, int N, int w_m,
-                                  int G, int sticky, void* stream) {
+                                  int G, int sticky, int variant,
+                                  void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   if (N < 1 || K % N) return (int)cudaErrorInvalidValue;
-  const Fmt fi{n_in, es_in, max(n_in - 3 - es_in, 0)};
-  const Fmt fo{n_out, es_out, max(n_out - 3 - es_out, 0)};
   const int16_t* A = (const int16_t*)a;
   const int16_t* B = (const int16_t*)b;
   int32_t* O = (int32_t*)out;
+  if (variant == 1) {
+    if (n_in != PF::NI || n_out != PF::NO || es_in != PF::ES ||
+        es_out != PF::ES || N != PF::N || w_m != PF::WM || G != PF::G ||
+        sticky != (int)PF::STICKY || (sb_k != 1 && sb_n != 1))
+      return (int)cudaErrorInvalidValue;
+    return launch_fixed(A, B, O, M, K, NO, sa_m, sa_k, sb_k, sb_n, s);
+  }
+  if (variant != 0) return (int)cudaErrorInvalidValue;
+  const Fmt fi{n_in, es_in, max(n_in - 3 - es_in, 0)};
+  const Fmt fo{n_out, es_out, max(n_out - 3 - es_out, 0)};
   switch (N) {
     case 1: return launch<1>(A, B, O, M, K, NO, sa_m, sa_k, sb_k, sb_n, fi, fo, w_m, G, sticky, s);
     case 2: return launch<2>(A, B, O, M, K, NO, sa_m, sa_k, sb_k, sb_n, fi, fo, w_m, G, sticky, s);

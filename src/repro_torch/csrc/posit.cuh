@@ -105,3 +105,49 @@ __device__ __forceinline__ uint32_t posit_encode(float f, int n, int es) {
   if (sat_lo) code_abs = 1;                     // minpos
   return (uint32_t)(sign ? ((-code_abs) & mask) : code_abs);
 }
+
+// The posit rounding of a magnitude in 32-bit integers, for a format fixed
+// at compile time: scale S and a significand L left-aligned in one word
+// (its leading one at bit 31) -> the code of |value| (1 .. maxpos), the
+// same bits as posit_encode's 64-bit body (K2's variants and K8's
+// compile-time accumulator).  The pattern is one arithmetic shift: the
+// word [1, 0, exponent, fraction] shifted right by m = k (k >= 0) is the
+// regime of k + 1 ones and a zero followed by the rest; [0, 1, exponent,
+// fraction] shifted by m = -k - 1 is -k zeros and a one.  The code is the
+// pattern's top N - 1 bits rounded to nearest even, the guard the next bit
+// and the sticky every bit below (the ones shifted off the word included).
+// S clamped to +-((N - 1) 2^ES - 1) gives k = N - 2, whose pattern rounds
+// to maxpos, and k = -(N - 1) with a nonzero exponent, which rounds up to
+// minpos: every magnitude beyond saturates.  L's bits below bit ES + 2
+// must be zero (they would be lost).
+template <int N, int ES>
+__device__ __forceinline__ uint32_t posit_round_abs(int S, uint32_t L) {
+  static_assert(N >= 3 && N <= 16 && ES >= 1 && ES <= 4, "posit format");
+  constexpr int SMAX = ((N - 1) << ES) - 1;
+  const int Sc = min(max(S, -SMAX), SMAX);
+  const int k = Sc >> ES;  // arithmetic shift = floor division
+  const int m = k ^ (k >> 31);  // k >= 0: k; k < 0: -k - 1
+  const uint32_t w = (k >= 0 ? 0x80000000u : 0x40000000u) |
+                     (((uint32_t)Sc << (32 - ES)) >> 2) |
+                     ((L << 1) >> (ES + 2));
+  const uint32_t pat = (uint32_t)((int32_t)w >> m);
+  const uint32_t base = pat >> (33 - N);
+  const uint32_t g = (pat >> (32 - N)) & 1u;
+  const uint32_t st = (w << (N - m)) != 0u;  // w's bits below the guard
+  return base + (g & (st | base));
+}
+
+// posit_encode for a format fixed at compile time in 32-bit integers
+// (K2's variants): bit for bit posit_encode(f, N, ES) on every f32.  f32
+// subnormals (exp8 0, scale -127) saturate to minpos as the clamp gives.
+template <int N, int ES>
+__device__ __forceinline__ uint32_t posit_encode_fast(float f) {
+  const uint32_t bits = __float_as_uint(f);
+  const uint32_t exp8 = (bits >> 23) & 0xFFu;
+  const uint32_t s = (uint32_t)((int32_t)bits >> 31);
+  uint32_t code =
+      posit_round_abs<N, ES>((int)exp8 - 127, 0x80000000u | (bits << 8));
+  code = ((code ^ s) - s) & ((1u << N) - 1u);
+  code = (bits << 1) == 0u ? 0u : code;                 // +-0
+  return exp8 == 0xFFu ? 1u << (N - 1) : code;          // inf / nan -> NaR
+}

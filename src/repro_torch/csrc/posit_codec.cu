@@ -17,9 +17,25 @@
 //     16-byte aligned, with a scalar loop for the tail and for unaligned
 //     views,
 //   * the format is a run-time argument, so one binary serves every n <= 16.
+//
+// K2's compile-time variants (p16_2, p13_2 into int16, p8_2 into int8;
+// posit_encode_fast_kernel) are what every main path encodes: the tied
+// head's re-encode, activations, KV pages.  The run-time encode builds its
+// body in 64-bit integers, which the SM emulates with 32-bit pairs: some
+// 50 instructions an element, so at [256000, 8192] the integer pipe (about
+// 6 ms) and not HBM (3.76 ms) bounds it.  The variants round in one 32-bit
+// word (posit_round_abs in posit.cuh: the pattern is one arithmetic
+// shift, saturation a clamp of the scale) and issue a lane's four 16-byte
+// loads, each coalesced across its warp, before the first encode: 64
+// bytes in flight a thread.  A float4's 4 codes leave as one 8-byte
+// (int16) or 4-byte (int8) store, coalesced across the warp; 16-byte
+// stores (8 consecutive codes a lane) need loads 64 bytes apart across
+// the warp, which measured slower.  The run-time kernel stays as the
+// `posit` variant for every other format.
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 #include "posit.cuh"
 
@@ -94,6 +110,51 @@ __global__ void posit_encode_kernel(const float* __restrict__ in,
   }
 }
 
+// A warp encodes tiles of 4 x 32 float4: lane l reads float4 32 j + l of
+// its tile (j < 4; each load coalesced across the warp, all four issued
+// before the first encode) and writes that float4's 4 codes as one 8-byte
+// (int16) or 4-byte (int8) store, coalesced across the warp.
+template <typename CT, int N, int ES>
+__global__ void posit_encode_fast_kernel(const float* __restrict__ in,
+                                         CT* __restrict__ out,
+                                         long long count, int vec) {
+  constexpr int J = 4;  // float4 loads in flight a lane
+  using Pack = typename std::conditional<sizeof(CT) == 2, uint2,
+                                         uint32_t>::type;
+  const long long tid = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  long long done = 0;
+  if (vec) {
+    const int lane = threadIdx.x & 31;
+    const long long tiles = count / (128 * J);
+    const float4* in4 = reinterpret_cast<const float4*>(in);
+    Pack* outp = reinterpret_cast<Pack*>(out);
+    for (long long t = tid >> 5; t < tiles; t += stride >> 5) {
+      float4 f[J];
+#pragma unroll
+      for (int j = 0; j < J; ++j) f[j] = __ldg(in4 + (t * J + j) * 32 + lane);
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        const uint32_t c0 = posit_encode_fast<N, ES>(f[j].x);
+        const uint32_t c1 = posit_encode_fast<N, ES>(f[j].y);
+        const uint32_t c2 = posit_encode_fast<N, ES>(f[j].z);
+        const uint32_t c3 = posit_encode_fast<N, ES>(f[j].w);
+        Pack p;
+        if constexpr (sizeof(CT) == 2) {
+          p = make_uint2(c0 | (c1 << 16), c2 | (c3 << 16));
+        } else {
+          p = c0 | (c1 << 8) | (c2 << 16) | (c3 << 24);
+        }
+        outp[(t * J + j) * 32 + lane] = p;
+      }
+    }
+    done = tiles * 128 * J;
+  }
+  for (long long i = done + tid; i < count; i += stride) {
+    out[i] = (CT)posit_encode_fast<N, ES>(in[i]);
+  }
+}
+
 int grid_for(long long work) {
   long long blocks = (work + 255) / 256;
   if (blocks < 1) blocks = 1;
@@ -126,19 +187,40 @@ extern "C" int posit_decode_launch(const void* in, void* out, long long count,
   return (int)cudaGetLastError();
 }
 
+// variant: 0 the run-time format (n, es), 1 p16_2, 2 p13_2 (int16 codes),
+// 3 p8_2 (int8 codes); a compile-time variant must match n, es and the
+// container.
 extern "C" int posit_encode_launch(const void* in, void* out, long long count,
-                                   int code_bytes, int n, int es,
+                                   int code_bytes, int n, int es, int variant,
                                    void* stream) {
   const int vec = aligned16(in) && aligned16(out);
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  const float* x = (const float*)in;
+  if (variant != 0) {
+    static const int want[4][3] = {{0, 0, 0}, {16, 2, 2}, {13, 2, 2},
+                                   {8, 2, 1}};
+    if (variant < 0 || variant > 3 || want[variant][0] != n ||
+        want[variant][1] != es || want[variant][2] != code_bytes)
+      return (int)cudaErrorInvalidValue;
+    const int grid = grid_for(vec ? count / 16 : count);
+    if (variant == 1) {
+      posit_encode_fast_kernel<int16_t, 16, 2><<<grid, 256, 0, s>>>(
+          x, (int16_t*)out, count, vec);
+    } else if (variant == 2) {
+      posit_encode_fast_kernel<int16_t, 13, 2><<<grid, 256, 0, s>>>(
+          x, (int16_t*)out, count, vec);
+    } else {
+      posit_encode_fast_kernel<int8_t, 8, 2><<<grid, 256, 0, s>>>(
+          x, (int8_t*)out, count, vec);
+    }
+    return (int)cudaGetLastError();
+  }
   if (code_bytes == 1) {
     posit_encode_kernel<int8_t><<<grid_for(vec ? count / 16 : count), 256, 0,
-                                  s>>>((const float*)in, (int8_t*)out, count,
-                                       n, es, vec);
+                                  s>>>(x, (int8_t*)out, count, n, es, vec);
   } else if (code_bytes == 2) {
     posit_encode_kernel<int16_t><<<grid_for(vec ? count / 8 : count), 256, 0,
-                                   s>>>((const float*)in, (int16_t*)out,
-                                        count, n, es, vec);
+                                   s>>>(x, (int16_t*)out, count, n, es, vec);
   } else {
     return (int)cudaErrorInvalidValue;
   }

@@ -32,7 +32,7 @@ _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_flo
 _SIGNATURES = {
     "posit_codec": {
         "posit_decode_launch": [_P, _P, _LL, _I, _I, _I, _P],
-        "posit_encode_launch": [_P, _P, _LL, _I, _I, _I, _P],
+        "posit_encode_launch": [_P, _P, _LL, _I, _I, _I, _I, _P],
     },
     "paged_attention": {
         "paged_attention_launch": [_P] * 12 + [_I] * 11 + [_F, _F, _P],
@@ -52,7 +52,7 @@ _SIGNATURES = {
         "posit_matmul_grouped_launch": [_P] * 6 + [_I] * 16 + [_P],
     },
     "pdpu_dot": {
-        "pdpu_matmul_launch": [_P] * 3 + [_I] * 3 + [_LL] * 4 + [_I] * 8
+        "pdpu_matmul_launch": [_P] * 3 + [_I] * 3 + [_LL] * 4 + [_I] * 9
                               + [_P],
     },
 }

@@ -9,19 +9,142 @@ that chunk size and alignment width produces.  On a CUDA tensor the
 wrapper launches the kernel; on a CPU tensor it runs the plain version,
 `core/pdpu.pdpu_matmul_exact`.  K must hold whole chunks; M and N_out
 need not divide any tile.
+
+The kernel has two variants (`pdpu_variant`): `p13_16_n4`, the bit_exact
+policy's PDPU fixed at compile time, which carries each accumulator as
+decoded fields from one chunk step to the next, and `posit`, every other
+configuration at run time.  `pdpu_matmul_fields` states the first one's
+rearranged chain in plain PyTorch (for any valid configuration).
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core import pdpu
-from repro_torch.core.formats import PDPUConfig
+from repro_torch.core import pdpu, posit
+from repro_torch.core.formats import P13_2, P16_2, PDPUConfig
 from . import _build
+from .posit_codec import round_abs_plain
 
-# launches of the kernel since the last reset (kernels/ops.reset_launches)
-LAUNCHES = {"pdpu_matmul": 0}
+# launches of the kernel since the last reset (kernels/ops.reset_launches);
+# "pdpu_matmul:<variant>" counts them by `pdpu_variant`
+LAUNCHES = {"pdpu_matmul": 0, "pdpu_matmul:p13_16_n4": 0,
+            "pdpu_matmul:posit": 0}
 _CHUNKS = (1, 2, 4, 8, 16)
 _CODE_DTYPES = (torch.int8, torch.int16, torch.int32)
+# the compile-time variant's configuration: validate_bit_exact's PDPU
+FIXED = PDPUConfig(P13_2, P16_2, N=4, w_m=14, guard_bits=2, sticky=True)
+_VARIANTS = {"posit": 0, "p13_16_n4": 1}
+_SENT = -(1 << 20)   # the exponent field of a zero operand / accumulator
+_FW = 20             # fraction bits of S6's log-domain word
+_M32 = 0xFFFFFFFF
+
+
+def pdpu_variant(cfg: PDPUConfig) -> str:
+    """K8's kernel for a configuration: the compile-time `p13_16_n4` for
+    `FIXED` (P(13,2) in, P(16,2) out, N 4, W_m 14, 2 guard bits, sticky),
+    the run-time `posit` kernel for every other one."""
+    return "p13_16_n4" if cfg == FIXED else "posit"
+
+
+def _shift_terms(cfg: PDPUConfig):
+    """(CP, CA): the left shift of a product's / the accumulator's
+    significand in S3 when its exponent is the chunk's e_max."""
+    return (cfg.w_m - 2 - 2 * cfg.fmt_in.frac_bits + cfg.guard_bits,
+            cfg.w_m - 2 - cfg.fmt_out.frac_bits + cfg.guard_bits)
+
+
+def _term(v, r, m, sticky: bool):
+    """S3 of one term as the kernel runs it: v shifted right by r (shifts
+    clamp at 32), the dropped bits' OR into the LSB when sticky, xor the
+    sign mask m (0 or 2**32 - 1)."""
+    rc = torch.clamp(r, max=32)
+    t = v >> rc
+    if sticky:
+        t = t | ((v & ((1 << rc) - 1)) != 0).to(torch.int64)
+    return t ^ m
+
+
+def round_fields(mag, e_max, cfg: PDPUConfig):
+    """S6 of the compile-time variant, giving the next step's accumulator:
+    the rounding of mag * 2**(e_max + 2 - W_m - G) into fmt_out, in the
+    log domain.  The posit pattern's round to nearest even is the round of
+    Y = S 2**FW + fraction (S the scale) at bit D = es + FW - n_avail,
+    n_avail = n - 1 - rlen the exponent and fraction bits the regime
+    leaves: Y's bits above es + FW are the regime's k, so a carry out of
+    the exponent is the regime's carry.  With n_avail = 0 the code's last
+    bit is the regime's terminator, the inverse of k's parity, so ties
+    flip; S clamped to [-maxs - 1, maxs] gives minpos / maxpos beyond.
+    Returns (sig, ec): the result's significand << max(CA, 0) (0 for zero)
+    and its scale (`_SENT` for zero)."""
+    fo, fw = cfg.fmt_out, _FW
+    _, ca = _shift_terms(cfg)
+    z = 32 - posit.bit_length32(mag)
+    S = e_max + (2 - cfg.w_m - cfg.guard_bits) + 31 - z
+    maxs = (fo.n - 2) << fo.es
+    Sc = torch.clamp(S, -maxs - 1, maxs)
+    k = Sc >> fo.es
+    m = k ^ (k >> 31)                       # rlen = m + 2
+    D = fo.es + fw - fo.n + 3 + m
+    L = (mag << torch.clamp(z, max=31)) & _M32
+    Y = Sc * (1 << fw) + (((L << 1) & _M32) >> (32 - fw))
+    lsb = ((Y >> D) ^ (m >= fo.n - 3).to(torch.int64)) & 1
+    Yr = ((Y + (1 << (D - 1)) - 1 + lsb) >> D) << D
+    sig = ((Yr & ((1 << fw) - 1)) | (1 << fw)) \
+        >> (fw - fo.frac_bits - max(ca, 0))
+    live = mag != 0
+    return torch.where(live, sig, 0), torch.where(live, Yr >> fw, _SENT)
+
+
+def pdpu_matmul_fields(a_codes, b_codes, cfg: PDPUConfig):
+    """The compile-time variant's chain in plain PyTorch: [M, K] x [K,
+    N_out] fmt_in codes -> int32 fmt_out codes, bit for bit
+    `pdpu_matmul_plain`.  Operands as fields (significand, exponent field
+    d, sign mask; a zero has significand 0 and d = `_SENT`), every S3 term
+    a right shift by e_max - d of a value pre-shifted by its fixed left
+    shift, two's complement as xor plus a count, S6 in the log domain
+    (`round_fields`), the accumulator carried as fields and packed into a
+    code once at the end, NaR a per-row / per-column flag."""
+    pdpu._validate(cfg)
+    fi, N = cfg.fmt_in, cfg.N
+    M, K = a_codes.shape
+    N_out = b_codes.shape[1]
+    if K % N:
+        raise ValueError(f"K={K} not divisible by PDPU chunk size N={N}")
+    cp, ca = _shift_terms(cfg)
+
+    def fields(codes, offset):
+        zero, nar, sign, scale, frac = posit.decode_unpacked(codes, fi)
+        live = ~(zero | nar)
+        return (torch.where(live, frac, 0),
+                torch.where(live, scale + offset, _SENT),
+                torch.where(live & (sign == 1), _M32, 0), nar)
+
+    # a product is fa * fb << max(CP, 0), its d = scale_a + scale_b +
+    # min(CP, 0): the right shift is e_max - d
+    fa, da, ma, nar_a = fields(a_codes.to(torch.int64) & fi.mask, min(cp, 0))
+    fb, db, mb, nar_b = fields(b_codes.to(torch.int64) & fi.mask, 0)
+    nar = nar_a.any(dim=1)[:, None] | nar_b.any(dim=0)[None, :]
+    zeros = torch.zeros((M, N_out), dtype=torch.int64, device=a_codes.device)
+    sig, ec, neg = zeros, zeros + _SENT, zeros
+    for j in range(0, K, N):
+        v = (fa[:, None, j:j + N] * fb.T[None, :, j:j + N]) << max(cp, 0)
+        d = da[:, None, j:j + N] + db.T[None, :, j:j + N]
+        m = ma[:, None, j:j + N] ^ mb.T[None, :, j:j + N]
+        e_max = torch.maximum(d.amax(dim=-1) - min(cp, 0), ec)
+        s = _term(v, e_max[..., None] - d, m, cfg.sticky).sum(dim=-1) \
+            + (m & 1).sum(dim=-1) + (neg & 1) \
+            + _term(sig, e_max - ec - min(ca, 0), neg, cfg.sticky)
+        s = ((s + (1 << 31)) & _M32) - (1 << 31)     # the int32 sum
+        sig, ec = round_fields(s.abs(), e_max, cfg)
+        neg = torch.where(s < 0, _M32, 0)
+    # the code, packed once: the value is a posit of fmt_out, so the
+    # rounding only packs it
+    fo = cfg.fmt_out
+    code = round_abs_plain(
+        ec, sig << (31 - fo.frac_bits - max(ca, 0)), fo)
+    out = torch.where(neg != 0, (-code) & fo.mask, code)
+    out = torch.where(sig != 0, out, 0)
+    return torch.where(nar, fo.nar_code, out).to(torch.int32)
 
 
 def pdpu_matmul_plain(a_codes, b_codes, cfg: PDPUConfig):
@@ -69,12 +192,15 @@ def pdpu_matmul(a_codes, b_codes, cfg: PDPUConfig):
                          f"got {a16.device} and {b16.device}")
     out = torch.empty((M, N_out), dtype=torch.int32, device=dev)
     if M and N_out:
+        variant = pdpu_variant(cfg)
         lib = _build.library("pdpu_dot")
         fi, fo = cfg.fmt_in, cfg.fmt_out
         _build.check(lib.pdpu_matmul_launch(
             a16.data_ptr(), b16.data_ptr(), out.data_ptr(), M, K, N_out,
             a16.stride(0), a16.stride(1), b16.stride(0), b16.stride(1),
             fi.n, fi.es, fo.n, fo.es, cfg.N, cfg.w_m, cfg.guard_bits,
-            int(cfg.sticky), _build.stream_of(a16)), "pdpu_matmul")
+            int(cfg.sticky), _VARIANTS[variant], _build.stream_of(a16)),
+            "pdpu_matmul")
         LAUNCHES["pdpu_matmul"] += 1
+        LAUNCHES[f"pdpu_matmul:{variant}"] += 1
     return out

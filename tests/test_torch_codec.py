@@ -159,3 +159,59 @@ def test_plain_codec_slices_large_inputs(monkeypatch):
     np.testing.assert_array_equal(
         tposit.decode(whole_enc, tf).numpy().view(np.int32),
         whole_dec.numpy().view(np.int32))
+
+
+# ---------------------------------------------------------------------------
+# K2's compile-time variants: the choice, and the 32-bit encoder's arithmetic
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n,es,dtype,variant", [
+    (16, 2, torch.int16, "p16_2"), (13, 2, torch.int16, "p13_2"),
+    (8, 2, torch.int8, "p8_2"), (16, 1, torch.int16, "posit"),
+    (8, 0, torch.int8, "posit"), (10, 2, torch.int16, "posit")])
+def test_encode_variant_by_format_and_container(n, es, dtype, variant):
+    from repro_torch.kernels import posit_codec as tcodec
+    assert tcodec.encode_variant(tformats.PositFormat(n, es), dtype) == variant
+
+
+def _boundary_values(fmt):
+    """Every rounding boundary between adjacent positive codes and the f32
+    values either side of it, both signs."""
+    from repro_torch.kernels import posit_codec as tcodec
+    b = tcodec.rounding_boundaries(fmt)
+    v = torch.cat([b, torch.nextafter(b, torch.zeros_like(b)),
+                   torch.nextafter(b, torch.full_like(b, float("inf")))])
+    return torch.cat([v, -v])
+
+
+@pytest.mark.parametrize("n,es", [(16, 2), (13, 2), (8, 2)])
+def test_rounding_boundaries_split_adjacent_codes(n, es):
+    """Boundary c | c + 1: the f32 below encodes to c, above to c + 1, the
+    boundary itself to the even one of the two (the reference codec)."""
+    from repro_torch.kernels import posit_codec as tcodec
+    jf, tf = _fmts(n, es)
+    b = tcodec.rounding_boundaries(tf)
+    c = np.arange(1, tf.maxpos_code)
+    enc = lambda x: np.asarray(jposit.encode(jnp.asarray(x.numpy()), jf))  # noqa: E731
+    np.testing.assert_array_equal(
+        enc(torch.nextafter(b, torch.zeros_like(b))), c)
+    np.testing.assert_array_equal(
+        enc(torch.nextafter(b, torch.full_like(b, float("inf")))), c + 1)
+    np.testing.assert_array_equal(enc(b), np.where(c % 2 == 0, c, c + 1))
+
+
+@pytest.mark.parametrize("n,es", [(16, 2), (13, 2), (8, 2)])
+def test_encode_fast_plain_bitwise(n, es):
+    """The 32-bit encoder of K2's variants (`posit_encode_fast`, stated in
+    `encode_fast_plain`) against the plain codec and the reference codec:
+    every bf16 pattern, every rounding boundary and its f32 neighbours,
+    the sorted sweep."""
+    from repro_torch.kernels import posit_codec as tcodec
+    jf, tf = _fmts(n, es)
+    bf16 = (torch.arange(1 << 16, dtype=torch.int64) << 16) \
+        .to(torch.int32).view(torch.float32)
+    v = torch.cat([bf16, _boundary_values(tf), torch.from_numpy(SWEEP)])
+    got = tcodec.encode_fast_plain(v, tf)
+    np.testing.assert_array_equal(got.numpy(), tposit.encode(v, tf).numpy())
+    np.testing.assert_array_equal(
+        got.numpy(), np.asarray(jposit.encode(jnp.asarray(v.numpy()), jf)))

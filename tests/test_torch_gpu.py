@@ -16,8 +16,9 @@ version (exact products of random sign, another summation order;
 `posit_matmul.sum_bound`), a limit that weights rounded to bf16 or one K
 tile left out must fail, and so is the grouped posit GEMM (K9, also with
 float activations, whose products round once in the FMA as in any f32
-GEMM); the chunked-PDPU GEMM (K8) and the whole bit_exact dispatch are
-integer datapaths, held bitwise.
+GEMM); the chunked-PDPU GEMM (K8, both variants) and the whole bit_exact
+dispatch are integer datapaths, held bitwise; so are K2's compile-time
+encode variants.
 """
 import pytest
 import torch
@@ -77,6 +78,31 @@ def test_encode_sweep_bitwise(cuda, fmt):
     want = posit_codec.encode_plain(v, fmt)
     assert _bits_equal(posit_codec.encode(v, fmt), want)
     assert _bits_equal(posit_codec.encode(v[3:], fmt), want[3:])
+
+
+@pytest.mark.parametrize("fmt", [formats.P16_2, formats.P13_2, formats.P8_2])
+def test_encode_fast_variants_bitwise(cuda, fmt):
+    """K2's compile-time variants: every rounding boundary between adjacent
+    codes and its f32 neighbours (both signs), every bf16 pattern and a
+    spread of f32 bit patterns, bitwise the plain codec; the launch counted
+    on its variant; an unaligned view (the scalar path) the same bits."""
+    g = torch.Generator().manual_seed(fmt.n)
+    b = posit_codec.rounding_boundaries(fmt)
+    edges = torch.cat([b, torch.nextafter(b, torch.zeros_like(b)),
+                       torch.nextafter(b, torch.full_like(b, float("inf")))])
+    bf16 = (torch.arange(1 << 16, dtype=torch.int64) << 16).to(torch.int32)
+    bits = torch.randint(-2 ** 31, 2 ** 31 - 1, ((1 << 20) + 7,),
+                         generator=g, dtype=torch.int64).to(torch.int32)
+    v = torch.cat([edges, -edges, bf16.view(torch.float32),
+                   bits.view(torch.float32)]).to(cuda)
+    want = posit_codec.encode_plain(v, fmt)
+    variant = posit_codec.encode_variant(fmt, want.dtype)
+    assert variant != "posit"
+    ops.reset_launches()
+    assert _bits_equal(posit_codec.encode(v, fmt), want)
+    assert ops.launch_counts()[f"posit_encode:{variant}"] == 1
+    assert _bits_equal(posit_codec.encode(v[5:], fmt), want[5:])
+    assert ops.launch_counts()["posit_encode"] == 2
 
 
 def test_launch_counters_count_launches(cuda):
@@ -889,6 +915,8 @@ def test_pdpu_matmul_bitwise_plain(cuda, case):
     ops.reset_launches()
     got = pdpu_dot.pdpu_matmul(a, b, cfg)
     assert ops.launch_counts()["pdpu_matmul"] == 1
+    assert ops.launch_counts()[
+        f"pdpu_matmul:{pdpu_dot.pdpu_variant(cfg)}"] == 1
     want = pdpu_dot.pdpu_matmul_plain(a, b, cfg)
     assert got.dtype == torch.int32 and _bits_equal(got, want)
     # B given transposed (the tied head's layout): the same bits
@@ -896,6 +924,49 @@ def test_pdpu_matmul_bitwise_plain(cuda, case):
     assert _bits_equal(pdpu_dot.pdpu_matmul(a, bt, cfg), want)
     # the CPU's plain version agrees with the card's
     assert _bits_equal(pdpu_dot.pdpu_matmul(a.cpu(), b.cpu(), cfg), want)
+
+
+FIXED_CASES = {
+    # name: (M, K, N_out, values (True) or random codes)
+    "decode_k8192": (4, 8192, 40, True),
+    "ragged_random_codes": (5, 68, 33, False),
+    "prefill_m40": (40, 256, 70, True),
+    "one_row_m1": (1, 1028, 75, False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(FIXED_CASES))
+def test_pdpu_matmul_fixed_variant_bitwise(cuda, case):
+    """K8's compile-time variant (the bit_exact policy's PDPU): bitwise its
+    plain version at K 8192 and a narrow N, at ragged M, K and N, at a
+    prefill M, with B given transposed, and with NaR in one A row and one B
+    column only (NaR reaches exactly their outputs)."""
+    from repro_torch.kernels import pdpu_dot
+    cfg = pdpu_dot.FIXED
+    M, K, N, values = FIXED_CASES[case]
+    g = torch.Generator().manual_seed(sorted(FIXED_CASES).index(case))
+    if values:
+        a = posit.pack(torch.randn(M, K, generator=g), cfg.fmt_in)
+        b = posit.pack(torch.randn(K, N, generator=g) / K ** 0.5, cfg.fmt_in)
+    else:
+        a = _codes(g, cfg.fmt_in, (M, K))
+        b = _codes(g, cfg.fmt_in, (K, N))
+        a[a == cfg.fmt_in.nar_code] = 0
+        b[b == cfg.fmt_in.nar_code] = 0
+        a[M // 2, K // 3] = cfg.fmt_in.nar_code
+        b[K // 2, N - 1] = cfg.fmt_in.nar_code
+    a, b = a.to(cuda), b.to(cuda)
+    want = pdpu_dot.pdpu_matmul_plain(a, b, cfg)
+    ops.reset_launches()
+    got = pdpu_dot.pdpu_matmul(a, b, cfg)
+    assert ops.launch_counts()["pdpu_matmul:p13_16_n4"] == 1
+    assert got.dtype == torch.int32 and _bits_equal(got, want)
+    assert _bits_equal(pdpu_dot.pdpu_matmul(a, b.T.contiguous().T, cfg), want)
+    if not values:
+        nar = cfg.fmt_out.nar_code
+        assert bool((want[M // 2] == nar).all()) and \
+            bool((want[:, N - 1] == nar).all())
+        assert int((want == nar).sum()) == M + N - 1
 
 
 def test_qdot_bit_exact_on_card_equals_cpu(cuda):

@@ -162,6 +162,128 @@ def test_pdpu_matmul_plain_matches_reference_kernel(M, N_out):
 
 
 # ---------------------------------------------------------------------------
+# K8's compile-time variant: the choice, and its rearranged chain stated in
+# plain PyTorch (pdpu_matmul_fields, round_fields)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("name,gb,st,variant", [
+    ("PDPU_P13_16_N4_W14", 2, True, "p13_16_n4"),
+    ("PDPU_P13_16_N4_W14", 3, True, "posit"),
+    ("PDPU_P13_16_N4_W14", 2, False, "posit"),
+    ("PDPU_P13_16_N8_W14", 2, True, "posit"),
+    ("PDPU_P16_16_N4_W14", 2, True, "posit"),
+    ("PDPU_P10_16_N8_W14", 2, True, "posit")])
+def test_pdpu_variant_by_config(name, gb, st, variant):
+    """The bit_exact policy's PDPU takes the compile-time variant, every
+    other configuration the run-time kernel."""
+    cfg = dataclasses.replace(getattr(tformats, name), guard_bits=gb,
+                              sticky=st)
+    assert tpdpu_dot.pdpu_variant(cfg) == variant
+    assert tpdpu_dot.pdpu_variant(
+        tpolicy("validate_bit_exact").pdpu_config()) == "p13_16_n4"
+
+
+def _long_operands(rng, fmt, M, K, N):
+    """A [M, K] and B [K, N] over K >= 1024: rows / columns of values near
+    1 (the accumulator grows through regimes and rounds at every step), of
+    +-maxpos and large values (it saturates at maxpos), and of random codes
+    with zero, NaR, +-maxpos and +-minpos planted (row 2 and column 2, so
+    NaR reaches only their outputs)."""
+    def enc(x):
+        return np.asarray(jposit.encode(jnp.asarray(x.astype(np.float32)),
+                                        fmt)).astype(np.int64)
+    a = enc(rng.normal(0, 1, (M, K)))
+    b = enc(rng.normal(0, 1, (K, N)) / 4)
+    a[1] = enc(np.sign(rng.normal(0, 1, K)) * 2.0 ** 60)      # +-maxpos
+    b[:, 1] = enc(rng.normal(0, 1, K) * 2.0 ** 30)
+    a[2] = _codes(rng, fmt, (K,))
+    b[:, 2] = _codes(rng, fmt, (K,))
+    a[0, ::7] = 0
+    return a, b
+
+
+@pytest.mark.parametrize("variant", sorted(VARIANTS))
+@pytest.mark.parametrize("name", CONFIGS)
+def test_pdpu_matmul_fields_matches_exact(name, variant):
+    """The rearranged chain (accumulator as fields, right shifts only, S6
+    in the log domain, NaR as flags) bitwise `pdpu_matmul_exact`, on every
+    valid Table I configuration with guard / sticky variants, at K 1024."""
+    jcfg, tcfg = _cfg_pair(name, variant)
+    if not _valid(jcfg):
+        return
+    rng = np.random.default_rng(CONFIGS.index(name) * 10
+                                + sorted(VARIANTS).index(variant))
+    a, b = _long_operands(rng, jcfg.fmt_in, 4, 1024, 3)
+    got = tpdpu_dot.pdpu_matmul_fields(_t(a), _t(b), tcfg)
+    assert got.dtype == torch.int32
+    want = tpdpu.pdpu_matmul_exact(_t(a), _t(b), tcfg)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    assert (got[2] == tcfg.fmt_out.nar_code).all()
+    assert (got[:, 2] == tcfg.fmt_out.nar_code).all()
+    assert int(got[1, 1]) in (tcfg.fmt_out.maxpos_code,
+                              (-tcfg.fmt_out.maxpos_code) & tcfg.fmt_out.mask)
+
+
+@pytest.mark.parametrize("name,variant", [
+    ("PDPU_P13_16_N4_W14", "guard2-sticky"), ("PDPU_P10_16_N8_W14", "truncate")])
+def test_pdpu_matmul_fields_matches_reference_kernel(name, variant):
+    """The rearranged chain against the reference's Pallas kernel in
+    interpret mode at K 1024, bitwise (the compile-time variant's
+    configuration, and one whose products shift left)."""
+    jcfg, tcfg = _cfg_pair(name, variant)
+    rng = np.random.default_rng(11)
+    a, b = _long_operands(rng, jcfg.fmt_in, 4, 1024, 3)
+    want = np.asarray(jpdpu_dot.pdpu_matmul(
+        jnp.asarray(a, jnp.int32), jnp.asarray(b, jnp.int32), jcfg,
+        interpret=True))
+    np.testing.assert_array_equal(
+        tpdpu_dot.pdpu_matmul_fields(_t(a), _t(b), tcfg).numpy(), want)
+
+
+@pytest.mark.parametrize("variant", ["guard2-sticky", "truncate"])
+def test_round_fields_match_encode_then_decode(variant):
+    """S6 of the rearranged chain gives the fields of
+    decode(encode_core(...)): on every positive fmt_out code's exact value,
+    on every rounding boundary between adjacent codes (ties to even) and
+    one unit either side of it, and beyond maxpos / minpos."""
+    from repro_torch.core import posit as tposit
+    from repro_torch.kernels import posit_codec as tcodec
+    _, cfg = _cfg_pair("PDPU_P13_16_N4_W14", variant)
+    fo = cfg.fmt_out
+    ca = cfg.w_m - 2 - fo.frac_bits + cfg.guard_bits
+    base = 2 - cfg.w_m - cfg.guard_bits        # f_scale = e_max + base + p
+    # exact values: (scale, significand with frac_bits fraction bits)
+    _, _, _, scale, frac = tposit.decode_unpacked(
+        torch.arange(1, fo.maxpos_code + 1), fo)
+    mags = [frac << (18 - fo.frac_bits)]
+    scales = [scale]
+    # boundaries: P(n + 1, es) codes 2c + 1, 13-bit significands
+    bits = tcodec.rounding_boundaries(fo).view(torch.int32).to(torch.int64)
+    bsig = ((1 << 23) | (bits & 0x7FFFFF)) >> 11
+    for delta in (-1, 0, 1):
+        mags.append((bsig << 6) + delta)
+        scales.append((bits >> 23) - 127)
+    # beyond the range: saturation to maxpos / minpos
+    far = torch.tensor([60, 61, 100, -57, -60, -100])
+    mags.append(torch.full_like(far, (1 << 18) + 12345))
+    scales.append(far)
+    mag, S = torch.cat(mags), torch.cat(scales)
+    e_max = S - base - 18          # mag's leading one at bit 18 (or 17)
+    sig, ec = tpdpu_dot.round_fields(mag, e_max, cfg)
+    p = tposit.bit_length32(mag) - 1
+    code = tposit.encode_core(torch.zeros_like(mag), e_max + base + p, mag,
+                              p, torch.zeros_like(mag, dtype=torch.bool), fo)
+    _, _, _, want_scale, want_frac = tposit.decode_unpacked(code, fo)
+    np.testing.assert_array_equal(ec.numpy(), want_scale.numpy())
+    np.testing.assert_array_equal(sig.numpy(), (want_frac << ca).numpy())
+    # zero magnitude: the zero accumulator
+    sig0, ec0 = tpdpu_dot.round_fields(torch.tensor([0]), torch.tensor([3]),
+                                       cfg)
+    assert int(sig0) == 0 and int(ec0) == tpdpu_dot._SENT
+
+
+# ---------------------------------------------------------------------------
 # dispatch: qdot under bit_exact, qdot_grouped under all three plans
 # ---------------------------------------------------------------------------
 
