@@ -4,7 +4,8 @@ against its plain version at the serving shapes, then serve command-r-35b
 at full width (depth cut to 4 layers) through the engine, at the policy's
 defaults, activation-coded, speculatively and behind the async front end;
 command-r-35b (2 layers) under the bit-exact PDPU plan; and
-qwen3-moe-235b at full width (4 of 94 layers) at the defaults.
+qwen3-moe-235b at full width (4 of 94 layers) at the defaults; then train
+minitron-8b at full width (4 of 32 layers) under paper_mixed fused.
 
     python3 chip_smoke.py
 
@@ -99,6 +100,23 @@ Phases (any failure exits non-zero; no phase is caught):
      a main path must split its key span and merge ("paged_attention:merge"),
      and every K2 launch of a main path must take a compile-time variant
      (none "posit_encode:posit").
+  9. training: minitron-8b at full width (d_model 4096, 32 / 8 heads of
+     128, d_ff 16384, vocab 256000, untied; 4 of 32 layers), paper_mixed
+     fused, 4 steps of 8 x 128 tokens in 2 microbatches through Pipeline
+     and Trainer (AdamW, cosine schedule, remat per layer), counted from 0:
+     finite losses, every K6 launch on `tc` (P(13,2) x P(13,2)), 7 x
+     layers x microbatches x 2 of them (forward and recompute), every K2
+     launch on `p13_2`; median step time, tokens/s, peak memory and one
+     step profiled (device time by kernel, host share); 9b the STE
+     function at the gate and down projections (M 512): forward within
+     `sum_bound` of `ops.ste_plain`, dx and dw bitwise it and the
+     fake_quant plan's; the training shapes of K6 (M 512, minitron's 7
+     projections), K2 and K1 (the head, [4096, 256000]) against their
+     plain versions and timed; 9c 3 Trainer steps of minitron's smoke
+     config on the card against the CPU (losses within 1e-3); 9d the
+     training example's `run` at smoke size, float and paper_mixed fused,
+     50 steps each, losses falling; 9e a checkpoint round trip of a
+     train state on the card (async save, restore) bitwise.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -1036,6 +1054,18 @@ def _k8_pdpu(dev):
     bitwise(codes((4, 1024), fmt=c10.fmt_in),
             codes((1024, 256), 1 / 32, fmt=c10.fmt_in), c10,
             "run-time variant, P(10/16,2) N 8")
+    # ... timed at the wk / wv step shape, beside its operations bound
+    # (pdpu_step_ops counts its datapath a chunk step)
+    ar = codes((M, K), fmt=c10.fmt_in)
+    br = codes((K, N), 1 / math.sqrt(K), fmt=c10.fmt_in)
+    rt_ms = _device_ms(lambda: pdpu_dot.pdpu_matmul(ar, br, c10), launches=3)
+    rt_bound, rt_by = _bound((M * K + K * N) * 2 + M * N * 4,
+                             M * N * (K // c10.N) * pdpu_step_ops(c10.N),
+                             INT32_OP_PER_S)
+    print(f"K8 run-time variant (posit), P(10/16,2) N 8, M {M}, K {K}, N "
+          f"{N}: ms {rt_ms:.4f}, bound {rt_bound:.4f} ({rt_by}, "
+          f"{pdpu_step_ops(c10.N)} integer operations a chunk step)")
+    del ar, br
     out = posit.decode(got.to(torch.int16), cfg.fmt_out)
     ref = torch.matmul(posit.decode(a, cfg.fmt_in), posit.decode(b, cfg.fmt_in))
     print(f"K8: fmt_out values vs the f32 matmul of the same codes: max |diff| "
@@ -1997,6 +2027,373 @@ def _profile(cfg, params, prompts, label: str, steps: int = 4,
               f"({100 * us / busy:.1f}% of device time)")
 
 
+# ---------------------------------------------------------------------------
+# phase 9: QAT training (STE autograd over K2 / K6 / K1) at full width
+# ---------------------------------------------------------------------------
+
+# minitron-8b at full width, depth cut from 32 layers to 4 for one card:
+# 3.07e9 parameters, whose f32 masters, gradients and AdamW moments take
+# 49 GB, the head's codes and decoded copy 6.3 GB more
+TRAIN_LAYERS = 4
+TRAIN_LABEL = "train minitron-8b"
+TRAIN_STEPS = 4
+TRAIN_ACCUM = 2
+# minitron-8b's projections, (name, K, N)
+MINITRON_KN = (("wq", 4096, 4096), ("wk", 4096, 1024), ("wv", 4096, 1024),
+               ("wo", 4096, 4096), ("gate", 4096, 16384),
+               ("up", 4096, 16384), ("down", 16384, 4096))
+# 9b's shapes (name, M, K, N): a microbatch's 512 rows through gate, down
+STE_SHAPES = (("gate", 512, 4096, 16384), ("down", 512, 16384, 4096))
+# the untied head's master, [d_model, vocab]
+HEAD_SHAPE = (4096, 256000)
+TRAIN_M = 512
+
+
+def _train_shape():
+    from repro_torch.models.config import ShapeConfig
+    return ShapeConfig("ex", seq_len=128, global_batch=8, kind="train")
+
+
+def _trainer(cfg, dev, steps, ckpt_dir=None):
+    """The training example's trainer: 8 x 128 tokens a step in 2
+    microbatches, AdamW with its cosine schedule."""
+    from repro_torch.data import Pipeline
+    from repro_torch.optim import adamw, cosine_schedule
+    from repro_torch.train import Trainer, TrainerConfig
+    shape = _train_shape()
+    opt = adamw(cosine_schedule(3e-3, warmup=steps // 10, total=steps))
+    return Trainer(cfg, shape, opt, Pipeline(cfg, shape),
+                   TrainerConfig(total_steps=steps, log_every=1,
+                                 ckpt_every=steps, ckpt_dir=ckpt_dir,
+                                 accum=TRAIN_ACCUM, async_ckpt=False),
+                   device=dev)
+
+
+def _train_full_width(dev):
+    """9a: minitron-8b (4 of 32 layers) under paper_mixed fused, 4 steps of
+    8 x 128 tokens in 2 microbatches through Pipeline and Trainer, counted
+    from 0; then one more step under torch.profiler.  Returns the run's
+    launch counts."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import configs
+    from repro_torch.core.quant import policy_by_name
+    from repro_torch.kernels import ops
+    cfg = configs.get("minitron_8b").replace(
+        n_layers=TRAIN_LAYERS,
+        quant=policy_by_name("paper_mixed").with_execution("fused"))
+    tr = _trainer(cfg, dev, TRAIN_STEPS)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    state = tr.run(torch.Generator(device=dev).manual_seed(9))
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [h["loss"] for h in tr.history]
+    _check(len(losses) == TRAIN_STEPS and all(map(math.isfinite, losses)),
+           f"training minitron-8b: {TRAIN_STEPS} finite losses")
+    L, mb = TRAIN_LAYERS, TRAIN_STEPS * TRAIN_ACCUM
+    # forward + the remat recompute: 7 coded GEMMs a layer, twice
+    _check(counts["posit_matmul:tc"] == 7 * L * mb * 2
+           and counts["posit_matmul"] == counts["posit_matmul:tc"],
+           f"training: every K6 launch on tc, 7 x {L} x {mb} x 2")
+    # K2: the 7 weights and 7 activations of a layer in the forward and
+    # again in the recompute, and the head's weights; K1: the two codes of
+    # each coded GEMM in the backward, the head's forward and backward
+    _check(counts["posit_encode:p13_2"] == mb * (28 * L + 1)
+           and counts["posit_encode"] == counts["posit_encode:p13_2"],
+           f"training: every K2 launch on p13_2, {mb} x (28 x {L} + 1)")
+    _check(counts["posit_decode"] == mb * (14 * L + 2),
+           f"training: K1 launched {mb} x (14 x {L} + 2) times")
+    times = sorted(h["time_s"] for h in tr.history[1:])
+    step_ms = times[len(times) // 2] * 1e3
+    tokens = tr.shape.tokens
+    print(f"train minitron-8b ({L} of 32 layers, d_model 4096, vocab "
+          f"256000, paper_mixed fused, {tokens} tokens a step in "
+          f"{TRAIN_ACCUM} microbatches): losses "
+          f"{[round(x, 4) for x in losses]}, median step over steps 2-"
+          f"{TRAIN_STEPS} {step_ms:.3f} ms (steps "
+          f"{[round(h['time_s'] * 1e3, 3) for h in tr.history]} ms), "
+          f"{tokens / step_ms * 1e3:.1f} tokens/s, peak memory "
+          f"{peak / 1e9:.3f} GB")
+    print(f"train minitron-8b: launches {json.dumps(counts)}")
+    # one step profiled: device time by layer and the host's share
+    batch = tr._to_device(tr.pipeline.batch_at(TRAIN_STEPS))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, metrics = tr.train_step(state, batch)
+        float(metrics["loss"])
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    groups: dict = {}
+    other: dict = {}
+    for evt in prof.key_averages():
+        if evt.device_type != DeviceType.CUDA or not evt.self_device_time_total:
+            continue
+        group = next((g for frag, g in _KERNEL_GROUPS if frag in evt.key),
+                     "attention and other torch ops")
+        groups[group] = groups.get(group, 0.0) + evt.self_device_time_total
+        if group.startswith("attention"):
+            other[evt.key] = other.get(evt.key, 0.0) + evt.self_device_time_total
+    busy = sum(groups.values())
+    if busy:
+        print(f"profile train step: wall {wall_us / 1e3:.3f} ms, device busy "
+              f"{busy / 1e3:.3f} ms ({100 * busy / wall_us:.1f}%), host and "
+              f"idle {(wall_us - busy) / 1e3:.3f} ms")
+        for group, us in sorted(groups.items(), key=lambda kv: -kv[1]):
+            print(f"profile train step: {group}: {us / 1e3:.3f} ms "
+                  f"({100 * us / busy:.1f}% of device time)")
+        # the largest kernels of the last group (elementwise, reductions,
+        # indexing: the optimizer, the loss, the embedding's gradient)
+        for key, us in sorted(other.items(), key=lambda kv: -kv[1])[:8]:
+            print(f"profile train step:   other: {us / 1e3:.3f} ms "
+                  f"{key[:110]}")
+    else:
+        print("profile train step: the profiler recorded no device time "
+              "(not measured)")
+    del state, tr, metrics, batch, prof
+    return counts
+
+
+def _train_ste(dev):
+    """9b: the STE functions at full width on the gate (M 512, K 4096, N
+    16384) and down (K 16384, N 4096) projections: the forward within
+    `sum_bound` of the plain version, dx and dw bitwise the plain
+    version's and the fake_quant plan's for the same g."""
+    import torch
+    from repro_torch.core.formats import P13_2
+    from repro_torch.core.quant import QuantPolicy
+    from repro_torch.kernels import dispatch, ops, posit_codec
+    from repro_torch.kernels import posit_matmul as pm
+    g = torch.Generator(device=dev).manual_seed(19)
+    fake_quant = QuantPolicy(weights=P13_2, activations=P13_2)
+    for name, M, K, N in STE_SHAPES:
+        x = torch.randn(M, K, generator=g, device=dev)
+        w = torch.randn(K, N, generator=g, device=dev) / math.sqrt(K)
+        gr = torch.randn(M, N, generator=g, device=dev)
+        xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
+        before = ops.launch_counts()["posit_matmul:tc"]
+        out = ops.fused_matmul_ste(xr, wr, P13_2, P13_2)
+        _check(ops.launch_counts()["posit_matmul:tc"] == before + 1,
+               f"9b {name}: the STE forward ran K6 on tc")
+        dx, dw = torch.autograd.grad(out, (xr, wr), gr)
+        want, want_dx, want_dw = ops.ste_plain(x, w, P13_2, P13_2, gr)
+        bound = pm.sum_bound(posit_codec.encode_plain(x, P13_2),
+                             posit_codec.encode_plain(w, P13_2), P13_2, P13_2)
+        gap = (out.detach() - want).abs()
+        _check(bool((gap <= bound).all()),
+               f"9b {name}: the STE forward within sum_bound of the plain")
+        _check(_bits_equal(dx, want_dx) and _bits_equal(dw, want_dw),
+               f"9b {name}: dx, dw bitwise the plain version's")
+        xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
+        fq = torch.autograd.grad(dispatch.qdot(xr, wr, fake_quant), (xr, wr),
+                                 gr)
+        _check(_bits_equal(dx, fq[0]) and _bits_equal(dw, fq[1]),
+               f"9b {name}: dx, dw bitwise the fake_quant plan's")
+        print(f"9b STE {name} (M {M}, K {K}, N {N}): forward max |err| "
+              f"{float(gap.max()):.4g} (largest in sum_bound units "
+              f"{float((gap / bound.clamp(min=1e-30)).max()):.4g}); dx, dw "
+              f"bitwise the plain version's and the fake_quant plan's")
+        del x, w, gr, out, dx, dw, want, want_dx, want_dw, bound, fq
+
+
+def _train_kernels(dev):
+    """The training path's kernel shapes, each against its plain version
+    and timed: K6 tc at M 512 over minitron's 7 projections, K2 p13_2 and
+    K1 P(13,2) at the head's [4096, 256000].  Returns three records."""
+    import torch
+    from repro_torch.core.formats import P13_2
+    from repro_torch.kernels import posit_codec
+    from repro_torch.kernels import posit_matmul as pm
+    g = torch.Generator(device=dev).manual_seed(29)
+    M = TRAIN_M
+    layer = []
+    err = ratio = 0.0
+    for name, K, N in MINITRON_KN:
+        a = posit_codec.encode(torch.randn(M, K, generator=g, device=dev),
+                               P13_2)
+        b = posit_codec.encode(torch.randn(K, N, generator=g, device=dev)
+                               / math.sqrt(K), P13_2)
+        got = pm.posit_matmul(a, b, P13_2, P13_2)
+        bound = pm.sum_bound(a, b, P13_2, P13_2)
+        gap = (got - pm.posit_matmul_plain(a, b, P13_2, P13_2)).abs()
+        _check(bool((gap <= bound).all()),
+               f"K6 tc P(13,2) x P(13,2) at M {M} {name} within sum_bound")
+        err = max(err, float(gap.max()))
+        ratio = max(ratio, float((gap / bound.clamp(min=1e-30)).max()))
+        A, B = posit_codec.decode(a, P13_2), posit_codec.decode(b, P13_2)
+        ms = _device_ms(lambda: pm.posit_matmul(a, b, P13_2, P13_2),
+                        launches=3)
+        lib = _device_ms(lambda: torch.matmul(A, B), launches=3)
+        io = M * K * 2 + K * N * 2 + M * N * 4
+        f32_bound, f32_by = _bound(io, 2.0 * M * K * N)
+        tc_bound, tc_by = _bound(io, 4 * 2.0 * M * K * N, BF16_FLOP_PER_S)
+        print(f"K6 train {name} (M {M}, K {K}, N {N}, tc, P(13,2) x "
+              f"P(13,2)): ms {ms:.4f}, bound_ms {tc_bound:.4f} ({tc_by}, "
+              f"the exact split-bf16 form: 4 bf16 products a multiply-add), "
+              f"f32 bound {f32_bound:.4f} ({f32_by}), library_ms "
+              f"(torch.matmul, decoded f32) {lib:.4f}")
+        layer.append((a, b, A, B, io, M * K * N))
+        del got, bound, gap
+
+    def run():
+        for a, b, *_ in layer:
+            pm.posit_matmul(a, b, P13_2, P13_2)
+
+    ms = _device_ms(run, launches=1)
+    plain_ms = _time_once_ms(lambda: [pm.posit_matmul_plain(a, b, P13_2, P13_2)
+                                      for a, b, *_ in layer])
+    library_ms = _device_ms(lambda: [torch.matmul(A, B)
+                                     for _, _, A, B, *_ in layer], launches=1)
+    bound, by = _bound(sum(r[4] for r in layer),
+                       sum(8.0 * r[5] for r in layer), BF16_FLOP_PER_S)
+    f32_bound, _ = _bound(sum(r[4] for r in layer),
+                          sum(2.0 * r[5] for r in layer))
+    print(f"K6 train layer (7 projections at M {M}): ms {ms:.4f}, bound_ms "
+          f"{bound:.4f} ({by}; f32 {f32_bound:.4f}), plain_ms {plain_ms:.3f}, "
+          f"library_ms {library_ms:.4f}; largest err in sum_bound units "
+          f"{ratio:.4g}")
+    del layer
+    records = [dict(name="posit_matmul (training: tc, P(13,2) x P(13,2), "
+                         "M 512, minitron-8b's 7 projections)",
+                    counter="posit_matmul:tc",
+                    source="src/repro_torch/csrc/posit_matmul.cu",
+                    replaces="src/repro/kernels/posit_matmul.py:168",
+                    max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                    bound_by=by, library_ms=library_ms)]
+    # the untied head's codec: [4096, 256000] f32 masters -> P(13,2) and back
+    x = torch.randn(*HEAD_SHAPE, generator=g, device=dev) / 64
+    codes = posit_codec.encode(x, P13_2)
+    t0 = time.perf_counter()
+    plain_codes = posit_codec.encode_plain(x, P13_2)
+    torch.cuda.synchronize()
+    enc_plain_ms = (time.perf_counter() - t0) * 1e3
+    _check(_bits_equal(codes, plain_codes),
+           "K2 p13_2 at the head's [4096, 256000] bitwise its plain version")
+    del plain_codes
+    enc_ms = _device_ms(lambda: posit_codec.encode(x, P13_2), launches=3)
+    n = x.numel()
+    enc_bound, enc_by = _bound(n * 6, 0.0)
+    del x
+    vals = posit_codec.decode(codes, P13_2)
+    t0 = time.perf_counter()
+    plain_vals = posit_codec.decode_plain(codes, P13_2)
+    torch.cuda.synchronize()
+    dec_plain_ms = (time.perf_counter() - t0) * 1e3
+    _check(_bits_equal(vals, plain_vals),
+           "K1 P(13,2) at the head's [4096, 256000] bitwise its plain version")
+    del plain_vals, vals
+    dec_ms = _device_ms(lambda: posit_codec.decode(codes, P13_2), launches=3)
+    dec_bound, dec_by = _bound(n * 6, 0.0)
+    del codes
+    print(f"K2 train head [4096, 256000] f32 -> P(13,2) (p13_2): ms "
+          f"{enc_ms:.4f}, bound_ms {enc_bound:.4f} ({enc_by}), plain_ms "
+          f"{enc_plain_ms:.3f}; K1 P(13,2) -> f32: ms {dec_ms:.4f}, bound_ms "
+          f"{dec_bound:.4f} ({dec_by}), plain_ms {dec_plain_ms:.3f}")
+    records.append(dict(name="posit_encode (training: p13_2, the head's "
+                             "[4096, 256000])",
+                        counter="posit_encode:p13_2",
+                        source="src/repro_torch/csrc/posit_codec.cu",
+                        replaces="src/repro/kernels/posit_codec.py:78",
+                        max_abs_err=0.0, ms=enc_ms, plain_ms=enc_plain_ms,
+                        bound_ms=enc_bound, bound_by=enc_by, library_ms=None))
+    records.append(dict(name="posit_decode (training: P(13,2), the head's "
+                             "[4096, 256000])",
+                        counter="posit_decode",
+                        source="src/repro_torch/csrc/posit_codec.cu",
+                        replaces="src/repro/kernels/posit_codec.py:55",
+                        max_abs_err=0.0, ms=dec_ms, plain_ms=dec_plain_ms,
+                        bound_ms=dec_bound, bound_by=dec_by, library_ms=None))
+    return records
+
+
+def _train_small_reference(dev):
+    """9c: 3 Trainer steps of minitron-8b SMOKE (f32) under paper_mixed
+    fused on the card against the same steps on the CPU (the plain
+    versions), from one initial state (a checkpoint both trainers
+    restore).  Returns the card's trainer (for 9e)."""
+    import shutil
+    import torch
+    from repro_torch import configs
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core.quant import policy_by_name
+    from repro_torch.train import step as step_lib
+    cfg = configs.get_smoke("minitron_8b").replace(
+        quant=policy_by_name("paper_mixed").with_execution("fused"))
+    root = os.path.join(HERE, "build", "chip_smoke_train")
+    shutil.rmtree(root, ignore_errors=True)
+    losses = {}
+    trainers = {}
+    for label, d in (("cpu", torch.device("cpu")), ("card", dev)):
+        ckpt = os.path.join(root, label)
+        tr = _trainer(cfg, d, 3, ckpt_dir=ckpt)
+        CheckpointManager(ckpt).save(0, step_lib.init_state(
+            torch.Generator().manual_seed(3), cfg, tr.opt, "cpu"))
+        tr.run(torch.Generator(device=d))
+        losses[label] = [h["loss"] for h in tr.history]
+        trainers[label] = tr
+    _check(len(losses["card"]) == 3
+           and all(map(math.isfinite, losses["card"])),
+           "9c: 3 finite losses on the card")
+    # P(13,2) rounds every activation: an f32 sum taken in another order
+    # on the card can land an activation on the adjacent code, so the
+    # losses are held to 1e-3 of their size, not bitwise
+    gap = max(abs(a - b) / abs(b) for a, b in zip(losses["card"],
+                                                  losses["cpu"]))
+    _check(gap <= 1e-3, "9c: card and CPU losses within 1e-3")
+    print(f"9c small input (minitron-8b smoke, paper_mixed fused, 3 steps): "
+          f"card {losses['card']}, CPU {losses['cpu']}, largest relative "
+          f"gap {gap:.3g} (limit 1e-3)")
+    return trainers["card"], root
+
+
+def _train_example(dev):
+    """9d: the training example's `run` at smoke size on the card, float
+    and paper_mixed fused, 50 steps each: the mean loss of the last 10
+    steps below the first step's."""
+    sys.path.insert(0, os.path.join(HERE, "examples"))
+    import train_posit_lm_torch as example
+    for quant, execution in (("none", "fake_quant"), ("paper_mixed", "fused")):
+        t0 = time.perf_counter()
+        losses = example.run(quant, 50, "minitron_8b", execution,
+                             device=dev.type)
+        wall = time.perf_counter() - t0
+        tail = sum(losses[-10:]) / 10
+        _check(len(losses) == 50 and all(map(math.isfinite, losses))
+               and tail < losses[0],
+               f"9d: the example ({quant}, {execution}) lowers its loss")
+        print(f"9d example minitron-8b smoke {quant} ({execution}): first "
+              f"loss {losses[0]:.4f}, mean of the last 10 {tail:.4f}, 50 "
+              f"steps in {wall:.2f} s")
+
+
+def _train_checkpoint(tr, root):
+    """9e: an async save of the card trainer's state, wait, restore:
+    bitwise."""
+    import shutil
+    import torch
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.checkpoint.checkpoint import _flatten
+    from repro_torch.train import step as step_lib
+    gen = torch.Generator(device=tr.device).manual_seed(4)
+    state = step_lib.init_state(gen, tr.cfg, tr.opt, tr.device)
+    state, _ = tr.train_step(state, tr._to_device(tr.pipeline.batch_at(0)))
+    mgr = CheckpointManager(os.path.join(root, "roundtrip"), keep_last=1)
+    mgr.save_async(1, state)
+    mgr.wait()
+    back = mgr.restore(1, state)
+    want, got = _flatten(state), _flatten(back)
+    _check(set(want) == set(got) and all(
+        got[k].device == want[k].device and _bits_equal(got[k], want[k])
+        for k in want), "9e: the train state's checkpoint round trip bitwise")
+    print(f"9e checkpoint: {len(want)} arrays of the smoke train state "
+          f"saved async, restored on the card, bitwise")
+    shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     src = os.path.join(HERE, "src")
     if not os.path.isdir(os.path.join(src, "repro_torch", "csrc")):
@@ -2081,6 +2478,20 @@ def main() -> int:
     _profile(moe_cfg, moe_params, moe_prompts, "MoE", steps=2)
     del moe_params
     _release()
+    # ---- phase 9: QAT training of minitron-8b at full width, its STE
+    # functions and kernel shapes, small-input agreement, the example,
+    # checkpoints
+    train_counts = _train_full_width(dev)
+    _release()
+    _train_ste(dev)
+    _release()
+    kernels.extend(_train_kernels(dev))
+    _release()
+    tr, root = _train_small_reference(dev)
+    _train_example(dev)
+    _train_checkpoint(tr, root)
+    del tr
+    _release()
     # K3 splits every main path's key spans (tables of more than 2 pages)
     # and merges the partials: each launch ran the merge kernel
     for label, c in counts.items():
@@ -2098,17 +2509,19 @@ def main() -> int:
         _check(c["prefill_attention"] > 0
                and c["prefill_attention:tc"] == c["prefill_attention"],
                f"'{label}': every K5 launch took the tensor-core variant")
-    # launches: the sum of the main-path runs' own counts (each from 0);
-    # launches_by_path: each run's count; launches_by_variant: the sum by
-    # the wrapper's variant (K5, K6)
+    # launches: the sum of the main-path runs' own counts (each from 0),
+    # the training run's among them; launches_by_path: each run's count;
+    # launches_by_variant: the sum by the wrapper's variant.  The training
+    # records count their variant's launches ("counter")
+    runs = dict(counts, **{TRAIN_LABEL: train_counts})
     for rec in kernels:
-        rec["launches_by_path"] = {label: c[rec["name"]]
-                                   for label, c in counts.items()}
+        counter = rec.get("counter", rec["name"])
+        rec["launches_by_path"] = {label: c[counter]
+                                   for label, c in runs.items()}
         rec["launches"] = sum(rec["launches_by_path"].values())
         rec["launches_by_variant"] = {
-            key.split(":", 1)[1]: sum(c[key] for c in counts.values())
-            for key in next(iter(counts.values()))
-            if key.startswith(rec["name"] + ":")}
+            key.split(":", 1)[1]: sum(c[key] for c in runs.values())
+            for key in train_counts if key.startswith(counter + ":")}
         rec["route"] = "cuda"
     keys = ("name", "route", "source", "replaces", "launches",
             "launches_by_path", "launches_by_variant", "max_abs_err", "ms",

@@ -1,2 +1,3 @@
-"""Reader of the reference's checkpoint format."""
-from .checkpoint import latest_step, read_manifest, restore  # noqa: F401
+"""Atomic, async checkpoints in the reference's format."""
+from .checkpoint import (CheckpointManager, latest_step,  # noqa: F401
+                         read_manifest, restore, tree_paths)

@@ -1,16 +1,17 @@
 """Architecture registry of the PyTorch port (port of `repro.configs`).
 
-The registry holds the configurations whose family the port serves:
-`command_r_35b` (dense) and the two MoE models `qwen3_moe_235b` and
-`deepseek_moe_16b`; other names raise KeyError until their family is
-ported (ROADMAP queue 1).  `get(name)` / `get_smoke(name)` /
+The registry holds the configurations the port runs: `command_r_35b`
+and `minitron_8b` (dense; minitron is the training example's default)
+and the two MoE models `qwen3_moe_235b` and `deepseek_moe_16b`; other
+names raise KeyError until they are ported (ROADMAP queue 1).  `get(name)` / `get_smoke(name)` /
 `get_tiny_serving(name)` mirror the reference and return equal shapes.
 """
 from __future__ import annotations
 
 import importlib
 
-ARCH_NAMES = ("command_r_35b", "qwen3_moe_235b", "deepseek_moe_16b")
+ARCH_NAMES = ("command_r_35b", "minitron_8b", "qwen3_moe_235b",
+              "deepseek_moe_16b")
 
 _ALIASES = {n.replace("_", "-"): n for n in ARCH_NAMES}
 

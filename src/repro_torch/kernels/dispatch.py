@@ -14,8 +14,12 @@
               `QuantPolicy.activations` set (activation-coded serving) the
               activations are encoded (K2) and both code operands go
               through the coded GEMM kernel (`ops.fused_matmul`, K6).
-              Float masters are encoded first (the reference's STE
-              forward).
+              Float masters go through the STE entry points
+              (`ops.fused_matmul_ste` and the grouped pair): the same
+              forward on their codes, and the fake_quant plan's
+              straight-through gradients (QAT on the serving datapath).
+              Packed weights with coded activations are forward-only:
+              differentiating them raises (`_PACKED_ACT_MSG`).
   bit_exact   the chunked-PDPU GEMM (`ops.pdpu_matmul`, K8): activations
               encoded to the PDPU's input format (K2), the weight codes
               (packed, or float masters encoded), K padded to whole
@@ -39,7 +43,10 @@ Two entry points share the plan table:
 A weight wrapped in `Prepared` keeps the operand its plan's dot reads
 (the rounded, decoded or encoded weights), so several `qdot` calls over
 the same weights (the speculative verify's tokens) decode them once and
-give, bitwise, what separate calls give.
+give, bitwise, what separate calls give.  It serves packed weights and
+float weights outside autograd only: a master that requires grad changes
+every training step, so `Prepared` refuses it under grad mode rather
+than serve stale codes.
 """
 from __future__ import annotations
 
@@ -56,6 +63,12 @@ _BIT_EXACT_MSG = (
     f"are {TRAINABLE_PLANS}.  Switch the QuantPolicy with "
     f".with_execution(...) for QAT — bit_exact is a forward-only "
     f"validation datapath.")
+
+_PACKED_ACT_MSG = (
+    "the activation-coded fused plan over packed int weights is not "
+    "differentiable: the float->code activation encode drops tangents, so "
+    "gradients would silently be zero.  Differentiate under the fused plan "
+    "over float masters instead.")
 
 
 def is_packed(w) -> bool:
@@ -129,6 +142,11 @@ class Prepared:
         self._operands = {}
 
     def operand(self, policy: QuantPolicy, dtype):
+        if torch.is_grad_enabled() and self.w.requires_grad:
+            raise ValueError(
+                "Prepared caches a weight's plan operand and cannot follow a "
+                "master that requires grad; pass the tensor itself when "
+                "training")
         key = (policy, dtype)
         if key not in self._operands:
             self._operands[key] = _weight_operand(self.w, policy, dtype)
@@ -173,18 +191,26 @@ def qdot(x, w, policy: QuantPolicy, prec_dtype=torch.float32, out_dtype=None):
                          f"{tuple(w.shape)}")
     out_dtype = out_dtype or x.dtype
     raw = w.w if isinstance(w, Prepared) else w
-    if is_packed(raw) and policy.weights is None:
+    packed = is_packed(raw)
+    if packed and policy.weights is None:
         raise ValueError("packed posit weights need QuantPolicy.weights set")
     plan = policy.execution
     if plan not in EXECUTION_PLANS:
         raise ValueError(f"unknown execution plan '{plan}'")
+    xf, lead = _as_matrix(x)
+    if plan == "fused" and not packed and not isinstance(w, Prepared):
+        # float masters: the differentiable STE entry points, the same
+        # coded forward with straight-through gradients (QAT)
+        out = ops.fused_matmul_ste(xf.to(torch.float32),
+                                   raw.to(torch.float32), policy.activations,
+                                   policy.weights)
+        return out.reshape(lead + (w.shape[-1],)).to(out_dtype)
     wq = w.operand(policy, x.dtype) if isinstance(w, Prepared) else \
         _weight_operand(w, policy, x.dtype)
 
     if plan == "fake_quant":
         return _fake_quant_dot(x, wq, policy, prec_dtype).to(out_dtype)
 
-    xf, lead = _as_matrix(x)
     if plan == "bit_exact":
         out = _grad_barrier(_BIT_EXACT_MSG, _bit_exact(xf, wq, policy),
                             xf, raw)
@@ -192,8 +218,9 @@ def qdot(x, w, policy: QuantPolicy, prec_dtype=torch.float32, out_dtype=None):
         out = torch.matmul(xf.to(torch.float32), wq)
     else:
         a_codes = ops.encode(xf.to(torch.float32), policy.activations)
-        out = ops.fused_matmul(a_codes, wq, policy.activations,
-                               policy.weights, fmt_out=None)
+        out = _grad_barrier(_PACKED_ACT_MSG, ops.fused_matmul(
+            a_codes, wq, policy.activations, policy.weights, fmt_out=None),
+            xf)
     return out.reshape(lead + (w.shape[-1],)).to(out_dtype)
 
 
@@ -270,16 +297,17 @@ def qdot_grouped(x, w, policy: QuantPolicy, prec_dtype=torch.float32,
     if plan == "bit_exact":
         out = _grad_barrier(_BIT_EXACT_MSG, _bit_exact(
             xe, _weight_operand(w, policy, x.dtype), policy), xe, w)
+    elif not packed:
+        # float masters: the grouped STE entry points (QAT datapath)
+        out = ops.fused_matmul_grouped_ste(
+            xe.to(torch.float32), w.to(torch.float32), policy.activations,
+            policy.weights)
+    elif policy.activations is None:
+        out = ops.matmul_posit_weights_grouped(xe, w, policy.weights)
     else:
-        fmt_w = policy.weights
-        # float masters are encoded first (the reference's STE forward)
-        codes = w if packed else ops.encode(w.to(torch.float32), fmt_w)
-        if policy.activations is None:
-            out = ops.matmul_posit_weights_grouped(xe, codes, fmt_w)
-        else:
-            a_codes = ops.encode(xe.to(torch.float32), policy.activations)
-            out = ops.fused_matmul_grouped(a_codes, codes, policy.activations,
-                                           fmt_w, fmt_out=None)
+        a_codes = ops.encode(xe.to(torch.float32), policy.activations)
+        out = _grad_barrier(_PACKED_ACT_MSG, ops.fused_matmul_grouped(
+            a_codes, w, policy.activations, policy.weights, fmt_out=None), xe)
     if batched:
         out = out.reshape(E, B, C, N).movedim(1, 0)
     return out.to(out_dtype)

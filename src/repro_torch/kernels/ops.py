@@ -7,6 +7,12 @@ PyTorch version (the analogue of the reference's interpret mode).  Launch
 geometry is fixed per kernel; the reference's autotune cache (`_resolve`)
 is not ported yet.  `launch_counts` / `reset_launches` read and clear the
 per-kernel launch counters.
+
+The raw entry points take and return codes and are forward-only; the STE
+entry points (`fused_matmul_ste`, `matmul_posit_weights_ste` and the
+grouped pair) take f32 masters, run the same kernels forward and carry a
+straight-through backward (`torch.autograd.Function`), so QAT trains on
+the serving datapath.
 """
 from __future__ import annotations
 
@@ -155,3 +161,97 @@ def matmul_posit_weights(x, w_codes, fmt_w: PositFormat):
     through `torch.matmul`, as the reference leaves its dot to XLA.
     Returns f32."""
     return torch.matmul(x.to(torch.float32), decode(w_codes, fmt_w))
+
+
+# ---------------------------------------------------------------------------
+# differentiable (STE) entry points over float masters
+# ---------------------------------------------------------------------------
+#
+# The forward runs the serving datapath: the f32 masters are encoded to
+# posit codes (K2) and the product runs on the codes, through the coded GEMM
+# (K6, K9 grouped) with coded activations or through the exact decode (K1)
+# and an f32 `torch.matmul` with float activations.  The backward is
+# straight-through with respect to the float operands, on the decoded
+# quantized operands the forward computed on: dx = g @ wq^T and
+# dw = aq^T @ g, the same products as the fake_quant plan's backward, so
+# the gradients are bitwise that plan's for the same g.  Only codes are
+# saved (the weight codes, and the activation codes, or the float
+# activations themselves when fmt_a is None), never a decoded f32 copy;
+# K1 decodes them again in the backward.  The two backward products are
+# plain f32 matmuls, as the reference leaves them to XLA.  All four take
+# and return f32; the dispatch layer casts.
+
+
+class _FusedMatmulSTE(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, fmt_a, fmt_w, grouped):
+        w_codes = encode(w, fmt_w)
+        if fmt_a is None:
+            a_res = x
+            out = (matmul_posit_weights_grouped if grouped else
+                   matmul_posit_weights)(x, w_codes, fmt_w)
+        else:
+            a_res = encode(x, fmt_a)
+            out = (fused_matmul_grouped if grouped else fused_matmul)(
+                a_res, w_codes, fmt_a, fmt_w, fmt_out=None)
+        ctx.fmt_a, ctx.fmt_w = fmt_a, fmt_w
+        ctx.save_for_backward(a_res, w_codes)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        a_res, w_codes = ctx.saved_tensors
+        wq = decode(w_codes, ctx.fmt_w)
+        g = g.to(torch.float32)
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = torch.matmul(g, wq.transpose(-1, -2))
+        del wq
+        if ctx.needs_input_grad[1]:
+            aq = a_res if ctx.fmt_a is None else decode(a_res, ctx.fmt_a)
+            dw = torch.matmul(aq.to(torch.float32).transpose(-1, -2), g)
+        return dx, dw, None, None, None
+
+
+def fused_matmul_ste(x, w, fmt_a: PositFormat | None, fmt_w: PositFormat):
+    """Differentiable fused GEMM over float masters: x [M, K] @ w [K, N],
+    both f32.  fmt_a None keeps the activations float (the
+    `matmul_posit_weights` path: K2 on w, K1, `torch.matmul`); otherwise
+    both operands travel as codes through `fused_matmul` (K2 twice, K6).
+    Backward: dx = g @ wq^T, dw = xq^T @ g on the decoded quantized
+    operands, the fake_quant plan's straight-through gradients."""
+    return _FusedMatmulSTE.apply(x, w, fmt_a, fmt_w, False)
+
+
+def matmul_posit_weights_ste(x, w, fmt_w: PositFormat):
+    """Differentiable serving fast path: float activations, posit weights
+    encoded from the float masters in the forward, STE weight gradients."""
+    return _FusedMatmulSTE.apply(x, w, None, fmt_w, False)
+
+
+def fused_matmul_grouped_ste(x, w, fmt_a: PositFormat | None,
+                             fmt_w: PositFormat):
+    """Differentiable grouped fused GEMM over float masters: x [E, C, K] @
+    w [E, K, N] -> [E, C, N] through K9, the STE of `fused_matmul_ste`
+    per expert (batched backward products)."""
+    return _FusedMatmulSTE.apply(x, w, fmt_a, fmt_w, True)
+
+
+def matmul_posit_weights_grouped_ste(x, w, fmt_w: PositFormat):
+    """Differentiable grouped serving fast path (float activations)."""
+    return _FusedMatmulSTE.apply(x, w, None, fmt_w, True)
+
+
+def ste_plain(x, w, fmt_a: PositFormat | None, fmt_w: PositFormat, g):
+    """(out, dx, dw) of the STE functions above, on x [..., M, K] and
+    w [..., K, N] f32 and the output gradient g, with every kernel
+    replaced by its plain version: the codec's plain encode / decode and
+    f32 `torch.matmul` on the decoded operands.  On the card the backward
+    is bitwise this (K1 is bitwise and the products are the same calls);
+    the forward is within `posit_matmul.sum_bound` (K6, K9) or bitwise
+    (float activations, 2-D)."""
+    wq = posit_codec.decode_plain(posit_codec.encode_plain(w, fmt_w), fmt_w)
+    aq = x if fmt_a is None else posit_codec.decode_plain(
+        posit_codec.encode_plain(x, fmt_a), fmt_a)
+    return (torch.matmul(aq, wq), torch.matmul(g, wq.transpose(-1, -2)),
+            torch.matmul(aq.transpose(-1, -2), g))

@@ -3,6 +3,8 @@
 
     param_specs(cfg)                                  -> tree[ParamSpec]
     init(generator, cfg, device)                      -> params
+    apply(params, batch, cfg)                         -> logits [B, S, V]
+    input_specs(cfg, shape) / abstract_state(cfg)     -> meta tensors
     decode_step(params, tokens, cache, cfg)           -> (logits, cache')
     decode_and_sample(params, tokens, cache, cfg, ...) -> (tokens, cache')
     decode_verify(params, tokens, cache, cfg, ...)    -> ([B, T] tokens, cache')
@@ -20,8 +22,8 @@ from typing import Optional
 import torch
 
 from . import common, moe, transformer
-from .config import ModelConfig
-from .module import init_params
+from .config import ModelConfig, ShapeConfig
+from .module import abstract_params, init_params
 from .packing import (pack_manifest, pack_params,  # noqa: F401
                       packed_param_specs, weight_bytes)
 from .paged import PagedLayout
@@ -46,6 +48,42 @@ def init(generator: torch.Generator, cfg: ModelConfig, device="cuda"):
     live on that device)."""
     from repro_torch import resolve_device
     return init_params(generator, param_specs(cfg), resolve_device(device))
+
+
+def apply(params, batch, cfg: ModelConfig):
+    """Whole-sequence forward (training): batch {"tokens": [B, S]} -> f32
+    logits [B, S, V].  The dense family only: MoE training is not ported
+    yet (ROADMAP queue 1)."""
+    mod = _mod(cfg)
+    if not hasattr(mod, "apply"):
+        raise NotImplementedError(
+            f"family {cfg.family!r} has no whole-sequence forward yet")
+    return mod.apply(params, batch, cfg)
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig, *, with_labels=True):
+    """Model inputs for one shape cell as meta tensors (shapes and dtypes,
+    no storage): train / prefill a [B, S] token batch (plus [B, S] labels
+    for train), decode one token per row."""
+    if cfg.frontend is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: stub frontends (vlm / encoder) are not ported yet")
+    B, S = shape.global_batch, shape.seq_len
+
+    def meta(*dims):
+        return torch.empty(dims, dtype=torch.int32, device="meta")
+
+    if shape.kind == "decode":
+        return {"tokens": meta(B)}
+    batch = {"tokens": meta(B, S)}
+    if with_labels and shape.kind == "train":
+        batch["labels"] = meta(B, S)
+    return batch
+
+
+def abstract_state(cfg: ModelConfig):
+    """The parameter tree as meta tensors."""
+    return abstract_params(param_specs(cfg))
 
 
 def decode_step(params, tokens, cache, cfg: ModelConfig):

@@ -160,7 +160,7 @@ def kv_decode(cfg: ModelConfig, x):
 
 
 # ---------------------------------------------------------------------------
-# embeddings / head
+# embeddings / head / losses
 # ---------------------------------------------------------------------------
 
 def embed_tokens(emb, tokens, cfg: ModelConfig):
@@ -177,6 +177,9 @@ def _head_policy(cfg: ModelConfig) -> QuantPolicy:
 
 
 def logits_head(x, emb_or_head, cfg: ModelConfig, transpose: bool):
+    """x [..., D] -> f32 logits [..., V] through `qdot` under the head's
+    weights-only policy; differentiable under fake_quant and, over float
+    masters, under fused (`ops.matmul_posit_weights_ste`)."""
     w = emb_or_head.T if transpose else emb_or_head
     out = dispatch.qdot(x, w, _head_policy(cfg), prec_dtype=torch.float32,
                         out_dtype=torch.float32)
@@ -224,3 +227,16 @@ def sample_head(x, emb_or_head, cfg: ModelConfig, sample: SampleSpec,
         x, w, sample.noise, sample.temperature, plan=plan, fmt_w=fmt_w,
         transpose=transpose, greedy=sample.greedy, top_k=sample.top_k,
         softcap_val=cfg.logit_softcap)
+
+
+def cross_entropy(logits, labels, mask=None):
+    """Stable mean cross-entropy of logits [..., V] against int labels
+    [...], in f32; with `mask` the mean over the unmasked positions."""
+    logits = logits.to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = lse - gold
+    if mask is not None:
+        nll = nll * mask
+        return nll.sum() / torch.clamp(mask.sum(), min=1.0)
+    return nll.mean()

@@ -54,6 +54,13 @@ def _init_leaf(s: ParamSpec, generator: torch.Generator, device):
     raise ValueError(f"unknown init '{s.init}'")
 
 
+def abstract_params(specs):
+    """tree[ParamSpec] -> the same tree of tensors on the meta device:
+    shapes and dtypes, no storage."""
+    return tree_map(lambda s: torch.empty(s.shape, dtype=s.dtype,
+                                          device="meta"), specs)
+
+
 def init_params(generator: torch.Generator, specs, device):
     """Materialize a spec tree on `device`, drawing leaves in sorted-key
     order from `generator` (which must live on that device)."""

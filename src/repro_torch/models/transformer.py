@@ -1,8 +1,11 @@
-"""Dense GQA transformer LM, paged serving path (PyTorch port of
-`repro.models.transformer`): command-r-35b and the other dense configs.
+"""Dense GQA transformer LM (PyTorch port of `repro.models.transformer`):
+command-r-35b, minitron-8b and the other dense configs.
 
 Parameters are a dict of tensors with layers stacked on a leading dim
-([L, D, N]); the layer loop is a Python loop over that dim.  Serving runs
+([L, D, N]); the layer loop is a Python loop over that dim.  `apply` is
+the whole-sequence forward of training (logits [B, S, V], differentiable
+under the trainable plans, each layer recomputed in the backward when
+`cfg.remat == "layer"`).  Serving runs
 over the paged KV cache: `decode_step` (one token per slot, the
 paged-attention kernel), `decode_verify` (T tokens per slot, the
 speculative verify: one multi-query paged-attention launch per layer) and
@@ -19,6 +22,7 @@ import functools
 from typing import Optional
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.kernels import dispatch, ops
 from repro_torch.kernels.prefill_attention import decomposed_prefill
@@ -122,6 +126,62 @@ def _qkv(p, x, cfg: ModelConfig, pos):
         k = common.rms_norm(k, p["k_norm"])
     return (common.rope(q, pos, cfg.rope_theta),
             common.rope(k, pos, cfg.rope_theta), v)
+
+
+def _attn_block(p, x, cfg: ModelConfig, pos, is_global: bool):
+    """Causal self-attention over the whole sequence x [B, S, D] at
+    positions pos [B, S] (the plain streaming-softmax attention); returns
+    the post-wo output."""
+    B, S, _ = x.shape
+    q, k, v = _qkv(p, x, cfg, pos)
+    window = (None if cfg.sliding_window is None
+              else _window(cfg, is_global))
+    attn = common.flash_attention(q, k, v, pos, pos, causal=cfg.causal,
+                                  window=window,
+                                  softcap_val=cfg.logit_softcap)
+    return common.qdot(attn.reshape(B, S, cfg.n_heads * cfg.head_dim),
+                       p["wo"], cfg.quant, prec_dtype=common.tp_prec(cfg))
+
+
+def _seq_layer(p, x, cfg: ModelConfig, pos, is_global: bool):
+    x = x + _attn_block(p, x, cfg, pos, is_global)
+    return x + _mlp_block(p, x, cfg)
+
+
+def _embed_inputs(params, batch, cfg: ModelConfig):
+    """tokens [B, S] -> [B, S, D] in the compute dtype.  The stub frontends
+    (audio / vision embeddings) are not ported (`param_specs` raises)."""
+    if cfg.frontend is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: stub frontends (vlm / encoder) are not ported yet")
+    return common.embed_tokens(params["embed"], batch["tokens"], cfg)
+
+
+def apply(params, batch, cfg: ModelConfig):
+    """Training forward. batch: {"tokens": [B, S] int}.  Returns f32
+    logits [B, S, V].  With `cfg.remat == "layer"` each layer's
+    activations are dropped after the forward and recomputed in the
+    backward (`torch.utils.checkpoint`; the recompute is bitwise the first
+    forward, the kernels being deterministic)."""
+    x = _embed_inputs(params, batch, cfg)
+    B, S, _ = x.shape
+    pos = torch.arange(S, dtype=torch.int32,
+                       device=x.device)[None].expand(B, S)
+    names = sorted(params["layers"])
+    # one unbind per stacked leaf: its backward stacks the layers' grads
+    # (a per-layer index would zero-fill a full-size grad each layer)
+    per_layer = zip(*(params["layers"][n].unbind(0) for n in names))
+    for vals, is_global in zip(per_layer, layer_flags(cfg)):
+        p = dict(zip(names, vals))
+        if cfg.remat == "layer" and torch.is_grad_enabled():
+            x = torch.utils.checkpoint.checkpoint(
+                _seq_layer, p, x, cfg, pos, is_global, use_reentrant=False,
+                preserve_rng_state=False)
+        else:
+            x = _seq_layer(p, x, cfg, pos, is_global)
+    x = common.rms_norm(x, params["final_norm"])
+    return common.logits_head(x, _head(params, cfg), cfg,
+                              transpose=cfg.tie_embeddings)
 
 
 def _paged_attn_token(p, x, cfg: ModelConfig, k_l, v_l, bt, length, is_global):

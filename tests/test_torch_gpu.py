@@ -1162,3 +1162,140 @@ def test_decode_sample_batch_rows(cuda, transpose, fmt_name, B):
         four = pa.decode_sample(x[:4].contiguous(), w, noise[:4].contiguous(),
                                 0.8, **kw)
         assert torch.equal(tok[:n], four[:n])
+
+
+# ---------------------------------------------------------------------------
+# QAT training: the STE autograd functions, K6 at P(13,2) x P(13,2), remat
+# ---------------------------------------------------------------------------
+
+# minitron-8b's projections, (K, N)
+MINITRON_KN = {"wq": (4096, 4096), "wk": (4096, 1024), "wv": (4096, 1024),
+               "wo": (4096, 4096), "gate": (4096, 16384),
+               "up": (4096, 16384), "down": (16384, 4096)}
+
+
+@pytest.mark.parametrize("M,K,N", [(512, K, N) for K, N in
+                                   sorted(set(MINITRON_KN.values()))]
+                         + [(9, 2050, 1000), (511, 2050, 1000),
+                            (512, 2050, 1000), (515, 2050, 1000)])
+def test_posit_matmul_tc_p13_both_operands(cuda, M, K, N):
+    """The training path's K6: P(13,2) activations x P(13,2) weights, both
+    int16, on the `tc` variant (run-time decode, split-bf16 wgmma) at M 512
+    over minitron's projections and at ragged M: within `sum_bound`,
+    bitwise equal on a second call."""
+    fa = fb = formats.P13_2
+    assert pm.split_exact(fa, fb)
+    g = torch.Generator(device=cuda).manual_seed(M + K + N)
+    a = posit.pack(torch.randn(M, K, generator=g, device=cuda), fa)
+    b = posit.pack(torch.randn(K, N, generator=g, device=cuda) * K ** -0.5,
+                   fb)
+    assert pm.matmul_variant(M, fa, fb, b.dtype) == ("gemv" if M <= 8
+                                                     else "tc")
+    ops.reset_launches()
+    got = pm.posit_matmul(a, b, fa, fb)
+    assert ops.launch_counts()["posit_matmul:tc"] == 1
+    plain = pm.posit_matmul_plain(a, b, fa, fb)
+    assert bool(((got - plain).abs() <= pm.sum_bound(a, b, fa, fb)).all())
+    assert _bits_equal(pm.posit_matmul(a, b, fa, fb), got)
+
+
+STE_CASES = {
+    "fused_matmul_ste": (ops.fused_matmul_ste, formats.P13_2, (512, 2048),
+                         (2048, 1536)),
+    "matmul_posit_weights_ste": (ops.fused_matmul_ste, None, (512, 2048),
+                                 (2048, 1536)),
+    "fused_matmul_grouped_ste": (ops.fused_matmul_grouped_ste,
+                                 formats.P13_2, (4, 64, 1024), (4, 1024, 768)),
+    "matmul_posit_weights_grouped_ste": (ops.fused_matmul_grouped_ste, None,
+                                         (4, 64, 1024), (4, 1024, 768)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(STE_CASES))
+def test_ste_functions_match_plain(cuda, case):
+    """The four STE functions on the card against `ops.ste_plain`: the
+    forward within `sum_bound` (bitwise for the 2-D float-activation path,
+    K1 + the same matmul), dx and dw bitwise for a given g; the kernels
+    launched (K2, then K6 / K9 / K1)."""
+    fn, fmt_a, xs, ws = STE_CASES[case]
+    fmt_w = formats.P13_2
+    g = torch.Generator(device=cuda).manual_seed(len(case))
+    x = torch.randn(*xs, generator=g, device=cuda)
+    w = torch.randn(*ws, generator=g, device=cuda) * ws[-2] ** -0.5
+    gr = torch.randn(*xs[:-1], ws[-1], generator=g, device=cuda)
+    xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
+    ops.reset_launches()
+    out = fn(xr, wr, fmt_a, fmt_w)
+    dx, dw = torch.autograd.grad(out, (xr, wr), gr)
+    counts = ops.launch_counts()
+    assert counts["posit_encode:p13_2"] == (1 if fmt_a is None else 2)
+    gemm = ("posit_matmul_grouped" if len(xs) == 3 else
+            "posit_matmul" if fmt_a is not None else "posit_decode")
+    assert counts[gemm] >= 1
+    want, want_dx, want_dw = ops.ste_plain(x, w, fmt_a, fmt_w, gr)
+    if len(xs) == 2 and fmt_a is None:
+        assert _bits_equal(out, want)
+    else:
+        a = x if fmt_a is None else posit_codec.encode_plain(x, fmt_a)
+        bound = pm.sum_bound(a, posit_codec.encode_plain(w, fmt_w), fmt_a,
+                             fmt_w)
+        assert bool(((out - want).abs() <= bound).all())
+    assert _bits_equal(dx, want_dx) and _bits_equal(dw, want_dw)
+
+
+@pytest.mark.parametrize("grouped", [False, True])
+def test_ste_grads_bitwise_fake_quant_on_card(cuda, grouped):
+    """On the card, too, the fused plan's gradients are the fake_quant
+    plan's, bitwise (paper_mixed, f32)."""
+    from repro_torch.core.quant import QuantPolicy
+    from repro_torch.kernels import dispatch
+    fn = dispatch.qdot_grouped if grouped else dispatch.qdot
+    xs, ws = ((4, 64, 1024), (4, 1024, 768)) if grouped else \
+        ((4, 128, 2048), (2048, 1536))
+    g = torch.Generator(device=cuda).manual_seed(31 + grouped)
+    x = torch.randn(*xs, generator=g, device=cuda)
+    w = torch.randn(*ws, generator=g, device=cuda) * ws[-2] ** -0.5
+    gr = torch.randn(*xs[:-1], ws[-1], generator=g, device=cuda)
+    policy = QuantPolicy(weights=formats.P13_2, activations=formats.P13_2)
+    grads = []
+    for pol in (policy, policy.with_execution("fused")):
+        xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
+        grads.append(torch.autograd.grad(fn(xr, wr, pol), (xr, wr), gr))
+    for a, b in zip(*grads):
+        assert _bits_equal(a, b)
+
+
+def test_remat_recompute_bitwise_first_forward(cuda):
+    """A layer recomputed in the backward (cfg.remat "layer") is bitwise
+    its first forward on the card: the gradients with remat equal those
+    without, bitwise, and a layer run twice gives the same bits."""
+    from repro_torch import configs
+    from repro_torch.core.quant import policy_by_name
+    from repro_torch.models import api, transformer
+    from repro_torch.models.module import tree_leaves
+    from repro_torch.train import step
+    base = configs.get_smoke("minitron_8b").replace(
+        d_model=256, n_heads=4, n_kv_heads=2, head_dim=64, d_ff=512,
+        quant=policy_by_name("paper_mixed").with_execution("fused"))
+    tok = torch.randint(0, base.vocab_size, (2, 4, 64),
+                        generator=torch.Generator().manual_seed(5))
+    batch = {"tokens": tok[0].to(cuda), "labels": tok[1].to(cuda)}
+    out = []
+    for remat in ("layer", "none"):
+        cfg = base.replace(remat=remat)
+        params = api.init(torch.Generator(device=cuda).manual_seed(2), cfg,
+                          cuda)
+        for p in tree_leaves(params):
+            p.requires_grad_(True)
+        loss, _ = step.loss_fn(params, batch, cfg)
+        loss.backward()
+        out.append([loss] + [p.grad for p in tree_leaves(params)])
+    for a, b in zip(*out):
+        assert _bits_equal(a, b)
+    p = {k: v[0].detach() for k, v in params["layers"].items()}
+    x = torch.randn(4, 64, 256, device=cuda)
+    pos = torch.arange(64, dtype=torch.int32, device=cuda)[None].expand(4, 64)
+    with torch.no_grad():
+        first = transformer._seq_layer(p, x, base, pos, True)
+        assert _bits_equal(transformer._seq_layer(p, x, base, pos, True),
+                           first)
