@@ -1,17 +1,21 @@
 """Architecture registry of the PyTorch port (port of `repro.configs`).
 
-The registry holds the configurations the port runs: `command_r_35b`
-and `minitron_8b` (dense; minitron is the training example's default)
-and the two MoE models `qwen3_moe_235b` and `deepseek_moe_16b`; other
-names raise KeyError until they are ported (ROADMAP queue 1).  `get(name)` / `get_smoke(name)` /
-`get_tiny_serving(name)` mirror the reference and return equal shapes.
+The registry holds the configurations the port runs: the dense
+`command_r_35b`, `command_r_plus_104b`, `gemma3_4b` (5:1 local:global
+sliding-window attention, qk-norm) and `minitron_8b` (the training
+example's default), and the two MoE models `qwen3_moe_235b` and
+`deepseek_moe_16b`; other names raise KeyError until they are ported
+(ROADMAP queue 1).  `get(name)` / `get_smoke(name)` /
+`get_tiny_serving(name)` mirror the reference and return equal shapes;
+`shape_skips(name)` gives the assigned shape cells an arch does not run,
+with reasons, and `runnable_shapes(name)` the others.
 """
 from __future__ import annotations
 
 import importlib
 
-ARCH_NAMES = ("command_r_35b", "minitron_8b", "qwen3_moe_235b",
-              "deepseek_moe_16b")
+ARCH_NAMES = ("command_r_35b", "command_r_plus_104b", "gemma3_4b",
+              "minitron_8b", "qwen3_moe_235b", "deepseek_moe_16b")
 
 _ALIASES = {n.replace("_", "-"): n for n in ARCH_NAMES}
 
@@ -45,3 +49,14 @@ def get_tiny_serving(name: str, quant=None):
     if quant is not None:
         shrink["quant"] = quant
     return cfg.replace(**shrink)
+
+
+def shape_skips(name: str) -> dict:
+    """shape_name -> reason, for cells this arch skips by assignment rule."""
+    return getattr(_module(name), "SHAPE_SKIPS", {})
+
+
+def runnable_shapes(name: str):
+    from repro_torch.models.config import ALL_SHAPES
+    skips = shape_skips(name)
+    return tuple(s for s in ALL_SHAPES if s.name not in skips)

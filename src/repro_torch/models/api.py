@@ -4,16 +4,18 @@
     param_specs(cfg)                                  -> tree[ParamSpec]
     init(generator, cfg, device)                      -> params
     apply(params, batch, cfg)                         -> logits [B, S, V]
+    prefill(params, batch, cfg, max_seq, device)      -> (logits, dense cache)
     input_specs(cfg, shape) / abstract_state(cfg)     -> meta tensors
     decode_step(params, tokens, cache, cfg)           -> (logits, cache')
     decode_and_sample(params, tokens, cache, cfg, ...) -> (tokens, cache')
     decode_verify(params, tokens, cache, cfg, ...)    -> ([B, T] tokens, cache')
     prefill_chunk(_batched)(...)                      -> (logits, cache')
-    cache_specs / init_cache                          -> paged KV cache
+    cache_specs / init_cache                          -> paged or dense KV cache
     sample_noise(generator, batch, vocab)             -> gumbel [B, V]
 
-Posit-packed parameters (`packing.pack_params`) are accepted everywhere:
-the GEMM dispatch layer detects integer code containers.
+Posit-packed parameters (`packing.pack_params`, inverted by
+`unpack_params`) are accepted everywhere: the GEMM dispatch layer detects
+integer code containers.
 """
 from __future__ import annotations
 
@@ -25,7 +27,7 @@ from . import common, moe, transformer
 from .config import ModelConfig, ShapeConfig
 from .module import abstract_params, init_params
 from .packing import (pack_manifest, pack_params,  # noqa: F401
-                      packed_param_specs, weight_bytes)
+                      packed_param_specs, unpack_params, weight_bytes)
 from .paged import PagedLayout
 
 
@@ -86,6 +88,18 @@ def abstract_state(cfg: ModelConfig):
     return abstract_params(param_specs(cfg))
 
 
+def prefill(params, batch, cfg: ModelConfig, max_seq: Optional[int] = None,
+            device="cuda"):
+    """Whole-sequence prefill: batch {"tokens": [B, S]} (tensors or numpy,
+    moved to `device`, where `params` must live) -> (f32 logits [B, S, V],
+    the dense KV cache [L, B, max(max_seq, S), Hkv*Dh] with length S).  The
+    dense family only: the MoE whole-sequence forward is not ported yet."""
+    from repro_torch import resolve_device
+    dev = resolve_device(device)
+    batch = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+    return _mod(cfg).prefill(params, batch, cfg, max_seq=max_seq)
+
+
 def decode_step(params, tokens, cache, cfg: ModelConfig):
     return _mod(cfg).decode_step(params, tokens, cache, cfg)
 
@@ -135,7 +149,8 @@ def decode_verify(params, tokens, cache, cfg: ModelConfig, noise,
 
 
 def prefill_chunk(params, tokens, cache, slot: int, cfg: ModelConfig):
-    """Process one prompt chunk [1, C] for one slot of the paged cache."""
+    """Process one prompt chunk [1, C] for one slot of the paged or the
+    dense cache."""
     return _mod(cfg).prefill_chunk(params, tokens, cache, slot, cfg)
 
 
@@ -151,6 +166,7 @@ def cache_specs(cfg: ModelConfig, batch: int, max_seq: int,
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
                layout: Optional[PagedLayout] = None, device="cuda"):
+    """The zeroed KV cache: dense with layout=None, else paged."""
     from repro_torch import resolve_device
     return _mod(cfg).init_cache(cfg, batch, max_seq, layout,
                                 device=resolve_device(device))

@@ -134,6 +134,34 @@ def flash_attention(q, k, v, q_pos, kv_pos, *, causal: bool,
     return out.to(q.dtype)
 
 
+def decode_attention(q, k_cache, v_cache, cache_len, kv_pos, *,
+                     window: Optional[int], softcap_val: float = 0.0):
+    """Single-token attention over a dense KV cache (the plain softmax; the
+    dense cache runs no kernel, as in the reference).
+
+    q: [B, 1, Hq, D]; k_cache / v_cache: [B, S, Hkv, D] floats (already
+    decoded by the caller when stored as posit codes); cache_len: [B] valid
+    length including this token, whose position is cache_len - 1; kv_pos:
+    [B, S].  A key attends where kv_pos < cache_len and, with a window,
+    cache_len - kv_pos <= window (the reference's mask, kept as written).
+    """
+    B, S, Hkv, D = k_cache.shape
+    Hq = q.shape[2]
+    G = Hq // Hkv
+    scale = 1.0 / math.sqrt(D)
+    qg = q.reshape(B, Hkv, G, D).to(torch.float32) * scale
+    s = torch.einsum("bhgd,bkhd->bhgk", qg, k_cache.to(torch.float32))
+    s = softcap(s, softcap_val)
+    q_pos = cache_len[:, None]
+    mask = kv_pos < q_pos  # [B, S]
+    if window is not None:
+        mask = mask & ((q_pos - kv_pos) <= window)
+    s = torch.where(mask[:, None, None, :], s, torch.full_like(s, _NEG))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgk,bkhd->bhgd", p, v_cache.to(torch.float32))
+    return o.reshape(B, 1, Hq, D).to(q.dtype)
+
+
 # ---------------------------------------------------------------------------
 # KV cache with optional posit storage (QuantPolicy.kv_cache)
 # ---------------------------------------------------------------------------

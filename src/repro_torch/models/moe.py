@@ -1,6 +1,6 @@
 """Mixture-of-Experts LM (PyTorch port of `repro.models.moe`):
 qwen3-moe-235b (128 experts, top-8) and deepseek-moe-16b (2 shared + 64
-routed, top-6), paged serving path.
+routed, top-6), serving over the paged or the dense KV cache.
 
 Expert dispatch is sort-based with a capacity limit (GShard-style
 dropping): token -> expert choices are sorted by expert id (a stable
@@ -180,19 +180,30 @@ def _moe_block(p, x, cfg: ModelConfig):
 
 
 # ---------------------------------------------------------------------------
-# serving: the transformer's paged cache and loops with the MoE block.  The
-# capacity limit applies within each prefill chunk (or batched chunk
-# group); smoke-scale capacity factors are drop-proof, and the engine
-# prefills slot by slot where they are not (see ServingEngine).  There is
-# no k-token verify: speculative decoding of MoE models is not offered.
+# serving: the transformer's KV caches (paged or dense) and loops with the
+# MoE block.  The capacity limit applies within each prefill chunk (or
+# batched chunk group); smoke-scale capacity factors are drop-proof, and
+# the engine prefills slot by slot where they are not (see ServingEngine).
+# There is no k-token verify: speculative decoding of MoE models is not
+# offered.
 # ---------------------------------------------------------------------------
 
 cache_specs = transformer.cache_specs
 init_cache = transformer.init_cache
 
 
+def prefill(params, batch, cfg: ModelConfig, max_seq=None):
+    """The whole-sequence prefill needs `moe.apply`, the MoE whole-sequence
+    forward, which comes with MoE training (ROADMAP queue 1)."""
+    raise NotImplementedError(
+        "moe.prefill needs moe.apply, the MoE whole-sequence forward, which "
+        "is not ported yet (ROADMAP queue 1, MoE training); serve MoE models "
+        "through prefill_chunk / prefill_chunk_batched")
+
+
 def decode_step(params, tokens, cache, cfg: ModelConfig, sample=None):
-    """One paged decode step with the MoE FFN (transformer.decode_step)."""
+    """One decode step (paged or dense cache) with the MoE FFN
+    (transformer.decode_step)."""
     return transformer.decode_step(params, tokens, cache, cfg, sample=sample,
                                    ffn=_moe_block)
 

@@ -7,7 +7,8 @@ experts of a MoE, and an untied head); norms, routers and the embedding,
 read by indexing, stay float.  Packing is one rounding per
 weight (posit encode), identical to the reference's `pack_params`; the
 encode runs through `kernels.ops.encode` (K2 on CUDA), one layer at a
-time so the transient stays one layer wide.
+time so the transient stays one layer wide; `unpack_params` decodes the
+codes back (K1 on CUDA).
 
 `params_from_numpy` carries a parameter tree of the JAX package (leaves
 as numpy arrays, float masters or packed codes) over to the port.
@@ -92,6 +93,25 @@ def pack_params(params, cfg: ModelConfig, fmt: PositFormat = None):
             codes = ops.encode(leaf.to(torch.float32), fmt)
         _set(packed, path, codes)
     return packed
+
+
+def unpack_params(params, cfg: ModelConfig, fmt: PositFormat = None,
+                  dtype=torch.float32):
+    """Inverse of pack_params: decode every code leaf back to float values
+    of `dtype` (K1 on CUDA; decoded to f32, then cast).  Layer-stacked
+    leaves decode one layer at a time."""
+    fmt = _fmt(cfg, fmt, "unpack_params")
+    out = _copy_tree(params)
+    for path in packable_paths(cfg):
+        leaf = _get(params, path)
+        if path[0] == "layers":
+            vals = torch.empty(leaf.shape, dtype=dtype, device=leaf.device)
+            for i in range(leaf.shape[0]):
+                vals[i] = ops.decode(leaf[i], fmt).to(dtype)
+        else:
+            vals = ops.decode(leaf, fmt).to(dtype)
+        _set(out, path, vals)
+    return out
 
 
 def packed_param_specs(cfg: ModelConfig, fmt: PositFormat = None):

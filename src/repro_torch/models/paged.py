@@ -64,7 +64,7 @@ class PagedLayout:
         if self.n_shards != 1:
             raise NotImplementedError(
                 "kv_pages-sharded page pools are not ported yet "
-                "(ROADMAP queue 1, item 8)")
+                "(ROADMAP queue 1, sharded pools)")
         if self.n_pages < 2:
             raise ValueError(f"the pool needs its trash page plus >=1 usable "
                              f"page; got {self.n_pages} pages in {self}")

@@ -5,16 +5,25 @@ Parameters are a dict of tensors with layers stacked on a leading dim
 ([L, D, N]); the layer loop is a Python loop over that dim.  `apply` is
 the whole-sequence forward of training (logits [B, S, V], differentiable
 under the trainable plans, each layer recomputed in the backward when
-`cfg.remat == "layer"`).  Serving runs
-over the paged KV cache: `decode_step` (one token per slot, the
-paged-attention kernel), `decode_verify` (T tokens per slot, the
-speculative verify: one multi-query paged-attention launch per layer) and
-`prefill_chunk` / `prefill_chunk_batched` (one prefill chunk per slot:
-where `paged.fused_prefill_applies`, the fused prefill kernel does
-attention + KV encode + page insert in one launch; otherwise the
-decomposed path encodes and inserts the chunk's KV, then runs flash
-attention over decoded history plus the raw chunk).  Page pools are
-updated in place.
+`cfg.remat == "layer"`); `prefill` runs it once more collecting each
+layer's K/V into a dense cache.  Serving runs over either KV cache:
+
+  * the paged cache (a page pool per layer plus block tables):
+    `decode_step` (one token per slot, the paged-attention kernel),
+    `decode_verify` (T tokens per slot, the speculative verify: one
+    multi-query paged-attention launch per layer) and `prefill_chunk` /
+    `prefill_chunk_batched` (one prefill chunk per slot: where
+    `paged.fused_prefill_applies`, the fused prefill kernel does attention
+    + KV encode + page insert in one launch; otherwise the decomposed path
+    encodes and inserts the chunk's KV, then runs flash attention over
+    decoded history plus the raw chunk);
+  * the dense cache ([L, B, max_seq, Hkv*Dh] rows per slot, `layout=None`):
+    `decode_step` writes the token's codes at its position and attends the
+    decoded row with `common.decode_attention`, and the prefill chunks run
+    flash attention over the decoded row plus the raw chunk, as the
+    reference does outside its kernels.
+
+Both caches are updated in place.
 """
 from __future__ import annotations
 
@@ -128,23 +137,27 @@ def _qkv(p, x, cfg: ModelConfig, pos):
             common.rope(k, pos, cfg.rope_theta), v)
 
 
-def _attn_block(p, x, cfg: ModelConfig, pos, is_global: bool):
+def _dense_window(cfg: ModelConfig, is_global: bool) -> Optional[int]:
+    """The window of the plain attentions (None without sliding windows)."""
+    return None if cfg.sliding_window is None else _window(cfg, is_global)
+
+
+def _attn(p, x, cfg: ModelConfig, pos, is_global: bool):
     """Causal self-attention over the whole sequence x [B, S, D] at
     positions pos [B, S] (the plain streaming-softmax attention); returns
-    the post-wo output."""
+    (the post-wo output, k, v), k / v [B, S, Hkv, Dh] for a cache."""
     B, S, _ = x.shape
     q, k, v = _qkv(p, x, cfg, pos)
-    window = (None if cfg.sliding_window is None
-              else _window(cfg, is_global))
     attn = common.flash_attention(q, k, v, pos, pos, causal=cfg.causal,
-                                  window=window,
+                                  window=_dense_window(cfg, is_global),
                                   softcap_val=cfg.logit_softcap)
-    return common.qdot(attn.reshape(B, S, cfg.n_heads * cfg.head_dim),
-                       p["wo"], cfg.quant, prec_dtype=common.tp_prec(cfg))
+    out = common.qdot(attn.reshape(B, S, cfg.n_heads * cfg.head_dim),
+                      p["wo"], cfg.quant, prec_dtype=common.tp_prec(cfg))
+    return out, k, v
 
 
 def _seq_layer(p, x, cfg: ModelConfig, pos, is_global: bool):
-    x = x + _attn_block(p, x, cfg, pos, is_global)
+    x = x + _attn(p, x, cfg, pos, is_global)[0]
     return x + _mlp_block(p, x, cfg)
 
 
@@ -157,12 +170,13 @@ def _embed_inputs(params, batch, cfg: ModelConfig):
     return common.embed_tokens(params["embed"], batch["tokens"], cfg)
 
 
-def apply(params, batch, cfg: ModelConfig):
-    """Training forward. batch: {"tokens": [B, S] int}.  Returns f32
-    logits [B, S, V].  With `cfg.remat == "layer"` each layer's
-    activations are dropped after the forward and recomputed in the
-    backward (`torch.utils.checkpoint`; the recompute is bitwise the first
-    forward, the kernels being deterministic)."""
+def apply(params, batch, cfg: ModelConfig, collect_cache: bool = False):
+    """Training / prefill forward. batch: {"tokens": [B, S] int}.  Returns
+    f32 logits [B, S, V], and with `collect_cache` also each layer's (k, v)
+    [B, S, Hkv, Dh] in a list.  With `cfg.remat == "layer"` (and no cache
+    to collect) each layer's activations are dropped after the forward and
+    recomputed in the backward (`torch.utils.checkpoint`; the recompute is
+    bitwise the first forward, the kernels being deterministic)."""
     x = _embed_inputs(params, batch, cfg)
     B, S, _ = x.shape
     pos = torch.arange(S, dtype=torch.int32,
@@ -171,17 +185,24 @@ def apply(params, batch, cfg: ModelConfig):
     # one unbind per stacked leaf: its backward stacks the layers' grads
     # (a per-layer index would zero-fill a full-size grad each layer)
     per_layer = zip(*(params["layers"][n].unbind(0) for n in names))
+    kvs = []
     for vals, is_global in zip(per_layer, layer_flags(cfg)):
         p = dict(zip(names, vals))
-        if cfg.remat == "layer" and torch.is_grad_enabled():
+        if collect_cache:
+            out, k, v = _attn(p, x, cfg, pos, is_global)
+            x = x + out
+            x = x + _mlp_block(p, x, cfg)
+            kvs.append((k, v))
+        elif cfg.remat == "layer" and torch.is_grad_enabled():
             x = torch.utils.checkpoint.checkpoint(
                 _seq_layer, p, x, cfg, pos, is_global, use_reentrant=False,
                 preserve_rng_state=False)
         else:
             x = _seq_layer(p, x, cfg, pos, is_global)
     x = common.rms_norm(x, params["final_norm"])
-    return common.logits_head(x, _head(params, cfg), cfg,
-                              transpose=cfg.tie_embeddings)
+    logits = common.logits_head(x, _head(params, cfg), cfg,
+                                transpose=cfg.tie_embeddings)
+    return (logits, kvs) if collect_cache else logits
 
 
 def _paged_attn_token(p, x, cfg: ModelConfig, k_l, v_l, bt, length, is_global):
@@ -230,18 +251,25 @@ def _paged_attn_tokens(p, xs, cfg: ModelConfig, k_l, v_l, bt, length,
 
 
 def _chunk_attn_batched(p, x, cfg: ModelConfig, k_l, v_l, starts, bt,
-                        is_global: bool):
+                        is_global: bool, active=None):
     """Cross-slot batched prefill-chunk attention: queries of slot b sit at
     starts[b] + [0, C) and attend that slot's history plus themselves;
     intra-chunk attention uses the raw (pre-encode) k/v.  x: [B, C, D];
-    starts [B] int32; bt [B, M] with inactive rows zeroed (their writes
-    land on the trash page).  Where `paged.fused_prefill_applies`, one
+    starts [B] int32.  Paged (bt [B, M], inactive rows zeroed: their writes
+    land on the trash page): where `paged.fused_prefill_applies`, one
     fused prefill launch (ops.prefill_attention_paged) replaces the three
-    stages of `decomposed_prefill`.  Returns the post-wo output [B, C, D]."""
+    stages of `decomposed_prefill`.  Dense (bt None, k_l / v_l [B, S, F]):
+    `_dense_chunk_attn`, whose writes skip the rows `active` marks False.
+    Returns the post-wo output [B, C, D]."""
     B, C, _ = x.shape
     Hq, Dh = cfg.n_heads, cfg.head_dim
     pos = starts.long()[:, None] + torch.arange(C, device=x.device)[None]
     q, k, v = _qkv(p, x, cfg, pos)
+    if bt is None:
+        attn = _dense_chunk_attn(q, k, v, cfg, k_l, v_l, starts, pos,
+                                 is_global, active)
+        return common.qdot(attn.reshape(B, C, Hq * Dh), p["wo"], cfg.quant,
+                           prec_dtype=common.tp_prec(cfg))
     window = _window_arr(cfg, is_global, x.device)
     if paged.fused_prefill_applies(cfg.quant, bt.shape[1], k_l.shape[1], C):
         attn, _, _ = ops.prefill_attention_paged(
@@ -258,12 +286,44 @@ def _chunk_attn_batched(p, x, cfg: ModelConfig, k_l, v_l, starts, bt,
                        prec_dtype=common.tp_prec(cfg))
 
 
+def _dense_chunk_attn(q, k, v, cfg: ModelConfig, k_l, v_l, starts, pos,
+                      is_global: bool, active=None):
+    """The dense cache's chunk attention: flash attention over the slot's
+    decoded cache row (positions below starts[b]; the rest masked as
+    unwritten) plus the raw chunk, then the chunk's KV codes are written at
+    [b, starts[b] + j] of every active row (the reference writes every row
+    and reverts the inactive ones).  q / k / v: [B, C, H, Dh] after rope;
+    k_l / v_l: [B, S, F].  Returns the attention output [B, C, Hq, Dh]."""
+    B, C, Hkv, Dh = k.shape
+    S_h = k_l.shape[1]
+    hist_pos = torch.arange(S_h, device=q.device)[None].expand(B, S_h)
+    hist_pos = torch.where(hist_pos < starts.long()[:, None], hist_pos,
+                           torch.full_like(hist_pos, -1))
+    kd = common.kv_decode(cfg, k_l).reshape(B, S_h, Hkv, Dh).to(k.dtype)
+    vd = common.kv_decode(cfg, v_l).reshape(B, S_h, Hkv, Dh).to(v.dtype)
+    attn = common.flash_attention(
+        q, torch.cat([kd, k], 1), torch.cat([vd, v], 1), pos,
+        torch.cat([hist_pos, pos], 1), causal=True,
+        window=_dense_window(cfg, is_global), chunk_k=paged.FLASH_CHUNK,
+        softcap_val=cfg.logit_softcap)
+    rows = (torch.arange(B, device=q.device) if active is None
+            else torch.nonzero(active)[:, 0])
+    for pool, t in ((k_l, k), (v_l, v)):
+        codes = common.kv_encode(cfg, t.reshape(B, C, -1))
+        pool[rows[:, None], pos[rows]] = codes[rows].to(pool.dtype)
+    return attn
+
+
 def _chunk_attn(p, x, cfg: ModelConfig, k_l, v_l, start, bt_row,
-                is_global: bool):
+                is_global: bool, slot=None):
     """Prefill-chunk attention for one slot (the per-slot path): x [1, C, D]
     at positions start + [0, C) of the slot whose block-table row is
-    bt_row [M]."""
+    bt_row [M] (paged), or of row `slot` of the dense pools (bt_row None)."""
     starts = torch.reshape(start, (1,)).to(torch.int32)
+    if bt_row is None:
+        return _chunk_attn_batched(p, x, cfg, k_l[slot:slot + 1],
+                                   v_l[slot:slot + 1], starts, None,
+                                   is_global)
     return _chunk_attn_batched(p, x, cfg, k_l, v_l, starts, bt_row[None],
                                is_global)
 
@@ -275,12 +335,18 @@ def _chunk_attn(p, x, cfg: ModelConfig, k_l, v_l, start, bt_row,
 
 def cache_specs(cfg: ModelConfig, batch: int, max_seq: int,
                 layout: Optional[PagedLayout] = None):
-    """Paged KV cache: a page pool [L, n_pages, page_size, Hkv*Dh] at KV
-    code width plus per-slot block tables.  The dense layout is not ported."""
-    if layout is None:
-        raise NotImplementedError(
-            "the dense (non-paged) KV cache is not ported yet; serve paged")
+    """Abstract KV cache at KV code width.  layout=None: dense rows
+    [L, B, max_seq, Hkv*Dh] per k / v plus `length`; with a PagedLayout: a
+    page pool [L, n_pages, page_size, Hkv*Dh] plus per-slot block tables."""
     dt = common.kv_store_dtype(cfg)
+    if layout is None:
+        shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads * cfg.head_dim)
+        axes = ("layers", "batch", "kv_seq", "kv_heads")
+        return {
+            "k": ParamSpec(shape, axes, "zeros", dt),
+            "v": ParamSpec(shape, axes, "zeros", dt),
+            "length": ParamSpec((batch,), ("batch",), "zeros", torch.int32),
+        }
     shape = (cfg.n_layers, layout.n_pages, layout.page_size,
              cfg.n_kv_heads * cfg.head_dim)
     axes = ("layers", "kv_pages", None, "kv_heads")
@@ -295,37 +361,70 @@ def cache_specs(cfg: ModelConfig, batch: int, max_seq: int,
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
                layout: Optional[PagedLayout] = None, device="cuda"):
-    """The zeroed paged cache on `device` (a card by default; raises
-    without one, as every entry point does)."""
+    """The zeroed KV cache (dense with layout=None, else paged) on `device`
+    (a card by default; raises without one, as every entry point does)."""
     from repro_torch import resolve_device
     dev = resolve_device(device)
     return tree_map(lambda s: torch.zeros(s.shape, dtype=s.dtype, device=dev),
                     cache_specs(cfg, batch, max_seq, layout))
 
 
+def _cache_insert(cache_l, new_kv, length):
+    """cache_l: [B, S, F]; new_kv: [B, 1, F]; writes row b at length[b]
+    (in place)."""
+    B = cache_l.shape[0]
+    cache_l[torch.arange(B, device=cache_l.device), length.long()] = \
+        new_kv[:, 0].to(cache_l.dtype)
+
+
+def _dense_attn_token(p, x, cfg: ModelConfig, k_l, v_l, length, is_global):
+    """One-token attention sub-block over the dense cache: x [B, 1, D];
+    k_l / v_l [B, S, F] (written in place); length [B] pre-insert valid
+    counts.  Writes the token's KV codes at `length`, decodes the rows and
+    attends them (`common.decode_attention`).  Returns the post-wo output
+    [B, 1, D]."""
+    B = x.shape[0]
+    S_max = k_l.shape[1]
+    Hq, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q, k, v = _qkv(p, x, cfg, length[:, None])
+    _cache_insert(k_l, common.kv_encode(cfg, k.reshape(B, 1, -1)), length)
+    _cache_insert(v_l, common.kv_encode(cfg, v.reshape(B, 1, -1)), length)
+    kc = common.kv_decode(cfg, k_l).reshape(B, S_max, Hkv, Dh)
+    vc = common.kv_decode(cfg, v_l).reshape(B, S_max, Hkv, Dh)
+    kv_pos = torch.arange(S_max, dtype=torch.int32,
+                          device=x.device)[None].expand(B, S_max)
+    attn = common.decode_attention(q, kc, vc, length + 1, kv_pos,
+                                   window=_dense_window(cfg, is_global),
+                                   softcap_val=cfg.logit_softcap)
+    return common.qdot(attn.reshape(B, 1, Hq * Dh), p["wo"], cfg.quant)
+
+
 def decode_step(params, tokens, cache, cfg: ModelConfig, sample=None,
                 ffn=_mlp_block):
-    """One autoregressive step over the paged cache. tokens: [B] int32.
+    """One autoregressive step over the paged or the dense cache. tokens:
+    [B] int32.
 
-    Per layer the token's KV codes are written into the slot's current page
-    (in place) and the paged-attention kernel attends; `ffn(p, x, cfg)` is
-    the layer's feed-forward block (the dense MLP here, the routed experts
-    in models/moe.py).  Returns (logits [B, V] f32, cache') — or, with
-    `sample` (common.SampleSpec), ([B] int32 tokens, cache') from the fused
-    head + sampler kernel."""
-    if "block_table" not in cache:
-        raise NotImplementedError("the dense KV cache is not ported yet")
+    Per layer the token's KV codes are written at position length[b] (in
+    place: into the slot's current page, or row b of the dense pools) and
+    attended (the paged-attention kernel, or `common.decode_attention` over
+    the decoded rows); `ffn(p, x, cfg)` is the layer's feed-forward block
+    (the dense MLP here, the routed experts in models/moe.py).  Returns
+    (logits [B, V] f32, cache') — or, with `sample` (common.SampleSpec),
+    ([B] int32 tokens, cache') from the fused head + sampler kernel."""
     B = tokens.shape[0]
     x = common.embed_tokens(params["embed"], tokens[:, None], cfg)
-    length, bt = cache["length"], cache["block_table"]
+    length, bt = cache["length"], cache.get("block_table")
     for i, is_global in enumerate(layer_flags(cfg)):
         p = _layer(params, i)
-        x = x + _paged_attn_token(p, x, cfg, cache["k"][i], cache["v"][i], bt,
-                                  length, is_global)
+        if bt is None:
+            x = x + _dense_attn_token(p, x, cfg, cache["k"][i],
+                                      cache["v"][i], length, is_global)
+        else:
+            x = x + _paged_attn_token(p, x, cfg, cache["k"][i],
+                                      cache["v"][i], bt, length, is_global)
         x = x + ffn(p, x, cfg)
     x = common.rms_norm(x, params["final_norm"])
-    new_cache = {"k": cache["k"], "v": cache["v"], "block_table": bt,
-                 "length": length + 1}
+    new_cache = dict(cache, length=length + 1)
     head = _head(params, cfg)
     if sample is not None:
         return common.sample_head(x[:, 0], head, cfg, sample,
@@ -383,17 +482,18 @@ def decode_verify(params, tokens, cache, cfg: ModelConfig, sample=None):
 
 def prefill_chunk(params, tokens, cache, slot: int, cfg: ModelConfig,
                   ffn=_mlp_block):
-    """Chunked prefill of prompt chunk `tokens` [1, C] for one slot, at
-    positions length[slot] + [0, C).  Returns (last-position logits
-    [1, 1, V], cache') with length[slot] advanced by C."""
+    """Chunked prefill of prompt chunk `tokens` [1, C] for one slot of the
+    paged or the dense cache, at positions length[slot] + [0, C).  Returns
+    (last-position logits [1, 1, V], cache') with length[slot] advanced by
+    C."""
     C = tokens.shape[1]
     x = common.embed_tokens(params["embed"], tokens, cfg)
     start = cache["length"][slot]
-    bt_row = cache["block_table"][slot]
+    bt_row = cache["block_table"][slot] if "block_table" in cache else None
     for i, is_global in enumerate(layer_flags(cfg)):
         p = _layer(params, i)
         x = x + _chunk_attn(p, x, cfg, cache["k"][i], cache["v"][i], start,
-                            bt_row, is_global)
+                            bt_row, is_global, slot=slot)
         x = x + ffn(p, x, cfg)
     x = common.rms_norm(x[:, -1:], params["final_norm"])
     logits = common.logits_head(x, _head(params, cfg), cfg,
@@ -407,15 +507,16 @@ def prefill_chunk_batched(params, tokens, cache, active, cfg: ModelConfig,
                           ffn=_mlp_block):
     """Cross-slot batched chunked prefill: one [B, C] pass advances every
     active slot by a chunk of the same bucket size.  The caller zeroes
-    inactive rows' length/block-table metadata, so their writes land on
-    the trash page.  Returns (last-position logits [B, V], cache')."""
+    inactive rows' length/block-table metadata, so their paged writes land
+    on the trash page; the dense cache's inactive rows are not written.
+    Returns (last-position logits [B, V], cache')."""
     C = tokens.shape[1]
     x = common.embed_tokens(params["embed"], tokens, cfg)
-    starts, bt = cache["length"], cache["block_table"]
+    starts, bt = cache["length"], cache.get("block_table")
     for i, is_global in enumerate(layer_flags(cfg)):
         p = _layer(params, i)
         x = x + _chunk_attn_batched(p, x, cfg, cache["k"][i], cache["v"][i],
-                                    starts, bt, is_global)
+                                    starts, bt, is_global, active=active)
         x = x + ffn(p, x, cfg)
     x = common.rms_norm(x[:, -1:], params["final_norm"])
     logits = common.logits_head(x, _head(params, cfg), cfg,
@@ -423,3 +524,18 @@ def prefill_chunk_batched(params, tokens, cache, active, cfg: ModelConfig,
     length = cache["length"] + torch.where(
         active, C, 0).to(torch.int32)
     return logits[:, 0], dict(cache, length=length)
+
+
+def prefill(params, batch, cfg: ModelConfig, max_seq: Optional[int] = None):
+    """Whole-sequence forward (`apply`) that also builds the dense KV cache:
+    returns (logits [B, S, V], {"k", "v": [L, B, max(max_seq, S), Hkv*Dh]
+    codes, positions past S zero; "length": [B] = S})."""
+    logits, kvs = apply(params, batch, cfg, collect_cache=True)
+    B, S = kvs[0][0].shape[:2]
+    rows = max(max_seq or S, S)
+    cache = init_cache(cfg, B, rows, device=logits.device)
+    for i, (k, v) in enumerate(kvs):
+        cache["k"][i, :, :S] = common.kv_encode(cfg, k.reshape(B, S, -1))
+        cache["v"][i, :, :S] = common.kv_encode(cfg, v.reshape(B, S, -1))
+    cache["length"].fill_(S)
+    return logits, cache

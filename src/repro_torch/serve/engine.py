@@ -1,5 +1,5 @@
-"""Paged posit-KV serving engine (PyTorch port of `repro.serve.engine`,
-single device).
+"""Posit-KV serving engine (PyTorch port of `repro.serve.engine`, single
+device).
 
 The engine is a host-side slot scheduler over the model entry points:
 
@@ -60,8 +60,14 @@ active tokens), and MoE has no k-token verify, so `speculate_k` raises.
 (its prompt pages become holds it maps again on re-admission; its tokens
 are replayed identically) and `cancel(rid)` drops a queued request.
 
-Not ported yet (each raises NotImplementedError naming ROADMAP): sharded
-pools (`mesh`) and the dense cache (`paged=False`).
+`paged=False` serves from the dense cache instead: rows [L, B, max_seq,
+Hkv*Dh] per slot at KV code width, zeroed when a slot is admitted, with
+no allocator, no prefix sharing, no fused prefill or fused decode (the
+dense attention runs outside the kernels, as in the reference) and no
+speculation.
+
+Not ported yet (raises NotImplementedError naming ROADMAP): sharded pools
+(`mesh`).
 """
 from __future__ import annotations
 
@@ -81,11 +87,6 @@ from repro_torch.models.paged import PagedLayout, fork_page, \
     fused_prefill_applies, fused_prefill_span_ok
 
 
-def _not_ported(what: str):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP queue 1, "
-                               f"serving items)")
-
-
 @dataclasses.dataclass
 class Request:
     rid: int
@@ -97,7 +98,8 @@ class Request:
 
 
 class PageAllocator:
-    """Host-side refcounted free list over the single KV page pool.
+    """Host-side refcounted free list over the single KV page pool (one
+    shard: `pages_in_use_by_shard` has one entry).
 
     Page 0 is the trash page and is never handed out, so capacity is
     n_pages - 1.  `alloc(n)` grants fresh pages (low ids first) at refcount
@@ -109,7 +111,7 @@ class PageAllocator:
         if n_shards != 1:
             raise NotImplementedError(
                 "per-device page budgets (sharded pools) are not ported yet "
-                "(ROADMAP queue 1, item 8)")
+                "(ROADMAP queue 1, sharded pools)")
         if n_pages < 2:
             raise ValueError(f"need >= 2 pages (trash + 1), got {n_pages}")
         self.n_shards = 1
@@ -127,6 +129,10 @@ class PageAllocator:
     @property
     def pages_in_use(self) -> int:
         return self.capacity - self.pages_free
+
+    @property
+    def pages_in_use_by_shard(self) -> List[int]:
+        return [self.pages_in_use]
 
     def refcount(self, page: int) -> int:
         return self._refs.get(page, 0)
@@ -205,7 +211,9 @@ class ServingEngine:
         speculate_k >= 2 turns speculative decoding on (k tokens per
         round); draft_quant (default cfg.quant.with_draft()) must keep the
         serve policy's kv_cache and kv_page_size; draft_params defaults to
-        `params`.
+        `params`.  paged=False serves from the dense cache (no pages: the
+        page and sharing knobs do not apply, decoding takes decode_step
+        and the host sampler).
 
         Constructing an engine turns TF32 off (`set_float32_parity`): the
         posit-decoded P(16,2) weights have 11 fraction bits, which TF32
@@ -227,10 +235,10 @@ class ServingEngine:
             if not hasattr(api._mod(cfg), "decode_verify"):
                 raise NotImplementedError(
                     f"family {cfg.family!r} has no k-token verify step")
-        if not paged:
-            raise _not_ported("the dense (paged=False) serving cache")
         if mesh is not None:
-            raise _not_ported("kv_pages-sharded serving (mesh=...)")
+            raise NotImplementedError(
+                "kv_pages-sharded serving (mesh=...) is not ported yet "
+                "(ROADMAP queue 1, sharded pools)")
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             set_float32_parity()
@@ -245,16 +253,21 @@ class ServingEngine:
         self.prefill_chunks_per_step = int(prefill_chunks_per_step)
         self.prefill_buckets = tuple(sorted(
             {int(b) for b in prefill_buckets if b >= 1} | {1}, reverse=True))
-        ps = self._resolve_page_size(page_size, max_seq)
-        self.layout = PagedLayout.for_slots(batch_slots, max_seq, ps, n_pages)
+        self.paged = bool(paged)
+        self.layout = None
+        if self.paged:
+            ps = self._resolve_page_size(page_size, max_seq)
+            self.layout = PagedLayout.for_slots(batch_slots, max_seq, ps,
+                                                n_pages)
         self.cache = api.init_cache(cfg, batch_slots, max_seq, self.layout,
                                     device=self.device)
-        self.paged = True
         self.n_shards = 1
-        self.allocator = PageAllocator(self.layout.n_pages)
-        self.max_pages_per_slot = self.cache["block_table"].shape[1]
-        self.prefix_sharing = bool(q.prefix_sharing if prefix_sharing is None
-                                   else prefix_sharing)
+        self.allocator = (PageAllocator(self.layout.n_pages) if self.paged
+                          else None)
+        self.max_pages_per_slot = (self.cache["block_table"].shape[1]
+                                   if self.paged else 0)
+        self.prefix_sharing = self.paged and bool(
+            q.prefix_sharing if prefix_sharing is None else prefix_sharing)
         if batched_prefill is None:
             # routed-MoE capacity is computed over the whole [B, C] batch:
             # unless the capacity factor is drop-proof (capacity >= tokens
@@ -268,14 +281,15 @@ class ServingEngine:
         else:
             self.batched_prefill = bool(batched_prefill)
         # bit_exact has no fused head: it decodes with decode_step, the
-        # logits head and the host-side sampler
-        self.fused_decode = bool(q.fused_decode) and q.execution != "bit_exact"
+        # logits head and the host-side sampler; so does the dense cache
+        self.fused_decode = (self.paged and bool(q.fused_decode)
+                             and q.execution != "bit_exact")
         self.noise_fn = noise_fn or self._default_noise
 
         # host-owned scheduler state (device copies are refreshed per call)
         self.lengths = np.zeros(batch_slots, np.int32)
-        self.block_tables = np.zeros((batch_slots, self.max_pages_per_slot),
-                                     np.int32)
+        self.block_tables = np.zeros(
+            (batch_slots, max(self.max_pages_per_slot, 1)), np.int32)
         self.slot_phase = np.full(batch_slots, _FREE, np.int8)
         self.slot_req: List[Optional[Request]] = [None] * batch_slots
         self.slot_pages: List[List[int]] = [[] for _ in range(batch_slots)]
@@ -397,29 +411,58 @@ class ServingEngine:
         return weight_bytes(self.params)
 
     def kv_cache_summary(self) -> dict:
-        """Decode-state storage split: `kv_bytes` is the K/V page payload,
-        `metadata_bytes` the positions + block tables."""
-        nbytes = {k: v.numel() * v.element_size() for k, v in self.cache.items()}
-        kv = nbytes["k"] + nbytes["v"]
-        meta = nbytes["length"] + nbytes["block_table"]
-        page_b = kv // self.layout.n_pages
-        return {"kv_bytes": kv, "metadata_bytes": meta,
-                "total_bytes": kv + meta,
-                "kv_bytes_in_use": self.pages_in_use * page_b,
-                "kv_bytes_peak": self.allocator.peak_in_use * page_b}
+        """Decode-state storage split: `kv_bytes` is the K/V payload (pages
+        or dense rows, at code width when posit-coded), `metadata_bytes` the
+        positions + block tables; a paged engine adds the bytes of the pages
+        in use and at the peak."""
+        kv = meta = 0
+        for name, leaf in self.cache.items():
+            nbytes = leaf.numel() * leaf.element_size()
+            if name in ("length", "block_table"):
+                meta += nbytes
+            else:
+                kv += nbytes
+        out = {"kv_bytes": kv, "metadata_bytes": meta,
+               "total_bytes": kv + meta}
+        if self.paged:
+            page_b = kv // self.layout.n_pages
+            out["kv_bytes_in_use"] = self.pages_in_use * page_b
+            out["kv_bytes_peak"] = self.allocator.peak_in_use * page_b
+        return out
+
+    def kv_cache_bytes(self) -> int:
+        """Total allocated decode-state bytes (payload + metadata)."""
+        return self.kv_cache_summary()["total_bytes"]
+
+    @property
+    def slot_free(self) -> List[bool]:
+        """Per-slot availability (a view over the phase array)."""
+        return [bool(p == _FREE) for p in self.slot_phase]
 
     @property
     def pages_in_use(self) -> int:
-        return self.allocator.pages_in_use
+        return self.allocator.pages_in_use if self.allocator else 0
 
     @property
     def pages_free(self) -> int:
-        return self.allocator.pages_free
+        return self.allocator.pages_free if self.allocator else 0
+
+    @property
+    def pages_promised(self) -> int:
+        """Diagnostic: worst-case pages the queued requests will draw, each
+        counted unshared.  Submission is not gated on it: admission accounts
+        each admitted request's full private demand (its fork reserve
+        included), and oversubscription waits for reclaimed pages."""
+        if not self.paged:
+            return 0
+        return sum(self._pages_needed(r) for r in self.queue)
 
     @property
     def pages_shared_mapped(self) -> int:
         """Extra block-table references onto live pages beyond the first
         (how many page loads prefix sharing is deduplicating now)."""
+        if not self.paged:
+            return 0
         return sum(rc - 1 for rc in self.allocator._refs.values())
 
     def execution_summary(self) -> dict:
@@ -438,13 +481,16 @@ class ServingEngine:
             "kv_cache_bytes": kv["total_bytes"],
             "kv_bytes": kv["kv_bytes"],
             "metadata_bytes": kv["metadata_bytes"],
-            "paged": True,
-            "page_size": self.layout.page_size,
+            "paged": self.paged,
+            "page_size": self.layout.page_size if self.paged else None,
+            "kv_shards": self.n_shards,
             "pages_in_use": self.pages_in_use,
             "pages_free": self.pages_free,
+            "pages_in_use_by_shard": (self.allocator.pages_in_use_by_shard
+                                      if self.paged else None),
             "prefix_sharing": self.prefix_sharing,
             "batched_prefill": self.batched_prefill,
-            "fused_prefill": bool(q.fused_prefill),
+            "fused_prefill": self.paged and bool(q.fused_prefill),
             "fused_decode": self.fused_decode,
             "prefill_chunks": self.stats["prefill_chunks"],
             "prefill_device_programs": self.stats["prefill_device_programs"],
@@ -481,7 +527,7 @@ class ServingEngine:
                 f"request {req.rid}: prompt ({n}) + max_new_tokens "
                 f"({req.max_new_tokens}) needs {n + req.max_new_tokens - 1} "
                 f"positions but max_seq is {self.S}")
-        if self._pages_needed(req) > self.allocator.capacity:
+        if self.paged and self._pages_needed(req) > self.allocator.capacity:
             raise ValueError(
                 f"request {req.rid} needs {self._pages_needed(req)} pages "
                 f"but the pool only has {self.allocator.capacity}; raise "
@@ -516,7 +562,8 @@ class ServingEngine:
         for i, req in enumerate(self.queue):
             if req.rid == rid:
                 self.queue.pop(i)
-                self._prune_holds()
+                if self.paged:
+                    self._prune_holds()
                 return True
         return False
 
@@ -550,13 +597,16 @@ class ServingEngine:
         `lengths` overrides the host lengths (the speculative draft loop
         advances a transient position without committing it)."""
         lengths = (self.lengths if lengths is None else lengths).copy()
-        bts = self.block_tables.copy()
         if mask is not None:
             lengths[~mask] = 0
-            bts[~mask] = 0
-        return {"k": self.cache["k"], "v": self.cache["v"],
-                "length": torch.from_numpy(lengths).to(self.device),
-                "block_table": torch.from_numpy(bts).to(self.device)}
+        cache = {"k": self.cache["k"], "v": self.cache["v"],
+                 "length": torch.from_numpy(lengths).to(self.device)}
+        if self.paged:
+            bts = self.block_tables.copy()
+            if mask is not None:
+                bts[~mask] = 0
+            cache["block_table"] = torch.from_numpy(bts).to(self.device)
+        return cache
 
     # ------------------------------------------------------------------
     # sampling
@@ -846,33 +896,19 @@ class ServingEngine:
             if qi is None:
                 break
             req = self.queue[qi]
-            shared, n_shared, partial = self._lookup_prefix(req)
-            k_full = len(shared) - (1 if partial else 0)
-            pages = self.allocator.alloc(self._pages_needed(req) - k_full)
-            if pages is None and self._held \
-                    and not (self.slot_phase != _FREE).any():
-                # nothing in flight will ever reclaim: held prefix pages
-                # must yield so the head of the queue can run
-                self._drop_all_holds()
-                shared, n_shared, partial = self._lookup_prefix(req)
-                k_full = len(shared) - (1 if partial else 0)
-                pages = self.allocator.alloc(self._pages_needed(req) - k_full)
-            if pages is None:
-                return admitted  # wait for reclamation
-            self.allocator.share(shared)
-            reserve = pages.pop() if partial else None
-            row = shared + pages
-            self.slot_pages[slot] = list(row) + (
-                [reserve] if reserve is not None else [])
-            self.slot_reserve[slot] = reserve
-            self.block_tables[slot] = 0
-            self.block_tables[slot, :len(row)] = row
-            self._slot_registered[slot] = n_shared // self.layout.page_size
-            if shared:
-                self.stats["pages_shared"] += len(shared)
-                self.stats["shared_admissions"] += 1
+            if self.paged:
+                n_shared = self._admit_pages(slot, req)
+                if n_shared is None:
+                    return admitted  # wait for reclamation
+            else:
+                # dense rows are seeded by prefill: zero the slot's row so
+                # no stale value of an earlier request reaches its attention
+                n_shared = 0
+                self.cache["k"][:, slot] = 0
+                self.cache["v"][:, slot] = 0
             self.queue.pop(qi)
-            self._prune_holds()
+            if self.paged:
+                self._prune_holds()
             self.slot_req[slot] = req
             self.slot_phase[slot] = _PREFILL
             self.slot_cursor[slot] = n_shared
@@ -882,7 +918,46 @@ class ServingEngine:
             admitted = True
         return admitted
 
+    def _admit_pages(self, slot: int, req: Request) -> Optional[int]:
+        """Map the request's shared prefix pages and allocate the rest of
+        its private demand (and its fork reserve) into the slot's block
+        table.  Returns the shared prefix's length in tokens, or None when
+        the pool cannot serve the request yet."""
+        shared, n_shared, partial = self._lookup_prefix(req)
+        k_full = len(shared) - (1 if partial else 0)
+        pages = self.allocator.alloc(self._pages_needed(req) - k_full)
+        if pages is None and self._held \
+                and not (self.slot_phase != _FREE).any():
+            # nothing in flight will ever reclaim: held prefix pages must
+            # yield so the head of the queue can run
+            self._drop_all_holds()
+            shared, n_shared, partial = self._lookup_prefix(req)
+            k_full = len(shared) - (1 if partial else 0)
+            pages = self.allocator.alloc(self._pages_needed(req) - k_full)
+        if pages is None:
+            return None
+        self.allocator.share(shared)
+        reserve = pages.pop() if partial else None
+        row = shared + pages
+        self.slot_pages[slot] = list(row) + (
+            [reserve] if reserve is not None else [])
+        self.slot_reserve[slot] = reserve
+        self.block_tables[slot] = 0
+        self.block_tables[slot, :len(row)] = row
+        self._slot_registered[slot] = n_shared // self.layout.page_size
+        if shared:
+            self.stats["pages_shared"] += len(shared)
+            self.stats["shared_admissions"] += 1
+        return n_shared
+
     def _release(self, slot: int):
+        if self.paged:
+            self._release_pages(slot)
+        self.lengths[slot] = 0
+        self.slot_phase[slot] = _FREE
+        self.slot_req[slot] = None
+
+    def _release_pages(self, slot: int):
         pages = self.slot_pages[slot]
         if self.prefix_sharing and self.queue:
             # keep prefix pages a queued request still matches alive: the
@@ -898,9 +973,6 @@ class ServingEngine:
         self.slot_pages[slot] = []
         self.slot_reserve[slot] = None
         self.block_tables[slot] = 0
-        self.lengths[slot] = 0
-        self.slot_phase[slot] = _FREE
-        self.slot_req[slot] = None
 
     def _retire(self, slot: int):
         self.done.append(self.slot_req[slot])
@@ -928,8 +1000,9 @@ class ServingEngine:
         per layer: 1 when the fused kernel applies (attention + KV encode +
         page insert in one launch), else 3 (flash attention, KV encode,
         page insert)."""
-        fused = fused_prefill_applies(self.cfg.quant, self.max_pages_per_slot,
-                                      self.layout.page_size, size)
+        fused = self.paged and fused_prefill_applies(
+            self.cfg.quant, self.max_pages_per_slot, self.layout.page_size,
+            size)
         return 1 if fused else 3
 
     def _count_chunk(self, n_slots: int, size: int):
@@ -944,7 +1017,8 @@ class ServingEngine:
         prompt = np.asarray(self.slot_req[slot].prompt, np.int32)
         lo = int(self.slot_cursor[slot])
         size = self._next_chunk(slot)
-        self._ensure_writable(slot, lo, lo + size)
+        if self.paged:
+            self._ensure_writable(slot, lo, lo + size)
         tokens = torch.from_numpy(prompt[None, lo:lo + size]).to(self.device)
         logits, _ = api.prefill_chunk(self.params, tokens, self._meta(), slot,
                                       self.cfg)
@@ -964,7 +1038,8 @@ class ServingEngine:
             lo = int(self.slot_cursor[s])
             tokens[s] = np.asarray(self.slot_req[s].prompt,
                                    np.int32)[lo:lo + size]
-            self._ensure_writable(s, lo, lo + size)
+            if self.paged:
+                self._ensure_writable(s, lo, lo + size)
         active = np.zeros(self.B, bool)
         active[slots] = True
         logits, _ = api.prefill_chunk_batched(
@@ -1034,9 +1109,20 @@ class ServingEngine:
             if T >= 2:
                 self._spec_round(decode_mask, T)
                 return True
-        for s in np.nonzero(decode_mask)[0]:
-            pos = int(self.lengths[s])
-            self._ensure_writable(int(s), pos, pos + 1)
+        if self.paged:
+            for s in np.nonzero(decode_mask)[0]:
+                pos = int(self.lengths[s])
+                self._ensure_writable(int(s), pos, pos + 1)
+        # the decode pass writes every row at its (masked) length: a dense
+        # row of a slot mid-prefill (interleaved mode) gets position 0
+        # written, so keep that entry and put it back afterwards, as the
+        # reference reverts those rows
+        keep = None
+        filling = np.nonzero(self.slot_phase == _PREFILL)[0]
+        if not self.paged and len(filling):
+            rows = torch.from_numpy(filling).to(self.device)
+            keep = (rows, self.cache["k"][:, rows, 0].clone(),
+                    self.cache["v"][:, rows, 0].clone())
         cache_in = self._meta(decode_mask)
         tokens_in = torch.from_numpy(self.next_token.copy()).to(self.device)
         slots = [s for s in range(self.B) if decode_mask[s]]
@@ -1049,6 +1135,10 @@ class ServingEngine:
         else:
             logits, _ = api.decode_step(self.params, tokens_in, cache_in,
                                         self.cfg)
+            if keep is not None:
+                rows, k0, v0 = keep
+                self.cache["k"][:, rows, 0] = k0
+                self.cache["v"][:, rows, 0] = v0
             toks = self._sample(logits, list(range(self.B)),
                                 live=decode_mask)[slots]
         self.stats["decode_steps"] += 1

@@ -1299,3 +1299,210 @@ def test_remat_recompute_bitwise_first_forward(cuda):
         first = transformer._seq_layer(p, x, base, pos, True)
         assert _bits_equal(transformer._seq_layer(p, x, base, pos, True),
                            first)
+
+
+# ---------------------------------------------------------------------------
+# gemma3-4b and command-r-plus-104b shapes: head_dim 256, G = 2 with a
+# 1024-token window, G = 12; K4 at V 2^18; the dense cache on the card
+# ---------------------------------------------------------------------------
+
+# lengths around gemma3's window (1024) and a split boundary (1056 = 33
+# splits of 32 keys), and one whose window starts past many whole splits
+GEMMA_LENGTHS = [1024, 1025, 1057, 1300]
+
+
+@pytest.mark.parametrize("kind", ["int8", "bf16"])
+@pytest.mark.parametrize("window", [1024, 1 << 30])
+def test_paged_attention_head_dim_256_window(cuda, window, kind):
+    """K3 at gemma3's heads (8 / 4 of 256, pages of 16) over spans that pass
+    the 1024-token window: with the window, whole splits before it are
+    empty partials (max -inf, sum 0) the merge must weigh zero; within
+    2e-5 of the plain version, finite, merged; K7 (T = 4) rows bitwise K3."""
+    fmt = formats.P8_2 if kind == "int8" else None
+    dt = torch.int8 if kind == "int8" else torch.bfloat16
+    B, M = len(GEMMA_LENGTHS), 90
+    q3, kp, vp, bt = _attn_inputs(cuda, dt, fmt, 256 + window % 7, B=B, Hq=8,
+                                  Hkv=4, Dh=256, M=M, P=B * M + 1)
+    ln = torch.tensor(GEMMA_LENGTHS, dtype=torch.int32, device=cuda)
+    win = torch.tensor([window], dtype=torch.int32, device=cuda)
+    q4 = torch.randn(B, 4, 8, 256, generator=torch.Generator().manual_seed(3)
+                     ).to(cuda)
+    for q in (q3, q4):
+        ops.reset_launches()
+        got = pa.paged_attention(q, kp, vp, bt, ln, win, fmt_kv=fmt)
+        key = "paged_attention_mq" if q.ndim == 4 else "paged_attention"
+        assert ops.launch_counts()[f"{key}:merge"] == 1
+        want = pa.paged_attention_plain(q, kp, vp, bt, ln, win, fmt_kv=fmt)
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+    for i in range(4):
+        row = pa.paged_attention(q4[:, i].contiguous(), kp, vp, bt,
+                                 ln - 3 + i, win, fmt_kv=fmt)
+        assert _bits_equal(got[:, i], row)
+
+
+def test_paged_attention_head_dim_256_page_sizes(cuda):
+    """At head_dim 256 a split of 64-token pages fits the shared memory
+    (within 2e-5 of the plain version); 128-token pages do not, and the
+    wrapper says so before launching."""
+    for ps, M in ((64, 24), (128, 12)):
+        q, kp, vp, bt = _attn_inputs(cuda, torch.int8, formats.P8_2, ps,
+                                     Hq=8, Hkv=4, Dh=256, ps=ps, M=M,
+                                     P=4 * M + 1)
+        ln = torch.tensor([ps * M, 1, ps + 1, 1000], dtype=torch.int32,
+                          device=cuda)
+        win = torch.tensor([1024], dtype=torch.int32, device=cuda)
+        keys = pa.attention_splits(M, ps)[0] * ps
+        if pa.split_smem_bytes(keys, 256) > pa.MAX_SMEM_BYTES:
+            assert ps == 128
+            with pytest.raises(ValueError, match="shared memory"):
+                pa.paged_attention(q, kp, vp, bt, ln, win,
+                                   fmt_kv=formats.P8_2)
+            continue
+        got = pa.paged_attention(q, kp, vp, bt, ln, win, fmt_kv=formats.P8_2)
+        want = pa.paged_attention_plain(q, kp, vp, bt, ln, win,
+                                        fmt_kv=formats.P8_2)
+        torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+
+
+def test_paged_attention_group_of_12(cuda):
+    """K3 and K7 at command-r-plus's 96 query heads over 8 KV heads (G = 12,
+    a group that does not divide a warp's 16 rows), against the plain
+    version; each K7 row bitwise K3."""
+    q3, kp, vp, bt = _attn_inputs(cuda, torch.int8, formats.P8_2, 12, B=4,
+                                  Hq=96, Hkv=8, M=20, P=81)
+    ln = torch.tensor([300, 33, 1, 64], dtype=torch.int32, device=cuda)
+    for window in (100, 1 << 30):
+        win = torch.tensor([window], dtype=torch.int32, device=cuda)
+        got = pa.paged_attention(q3, kp, vp, bt, ln, win, fmt_kv=formats.P8_2)
+        want = pa.paged_attention_plain(q3, kp, vp, bt, ln, win,
+                                        fmt_kv=formats.P8_2)
+        torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+        q4 = torch.randn(4, 4, 96, 128,
+                         generator=torch.Generator().manual_seed(12)).to(cuda)
+        got = pa.paged_attention(q4, kp, vp, bt, ln, win, fmt_kv=formats.P8_2)
+        want = pa.paged_attention_plain(q4, kp, vp, bt, ln, win,
+                                        fmt_kv=formats.P8_2)
+        torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+        for t in range(4):
+            row = pa.paged_attention(q4[:, t].contiguous(), kp, vp, bt,
+                                     ln - 3 + t, win, fmt_kv=formats.P8_2)
+            assert _bits_equal(got[:, t], row)
+
+
+def _prefill_case(cuda, act, B, C, Hq, Hkv, Dh, ps, M, starts, window, seed):
+    """K5 against its plain version: output within one bf16 ulp, page
+    writes bitwise; returns the variant it launched."""
+    fmt = formats.P8_2
+    g = torch.Generator().manual_seed(seed)
+    P = B * M + 1
+    kv = posit.pack(torch.randn(2, P, ps, Hkv * Dh, generator=g), fmt)
+    bt = torch.zeros(B, M, dtype=torch.int32)
+    perm = torch.randperm(P - 1, generator=g) + 1
+    for b in range(B):
+        n = -(-(starts[b] + C) // ps)
+        bt[b, :n] = perm[b * M:b * M + n].to(torch.int32)
+    q, k, v = (torch.randn(B, C, h, Dh, generator=g).to(act).to(cuda)
+               for h in (Hq, Hkv, Hkv))
+    st = torch.tensor(starts, dtype=torch.int32, device=cuda)
+    win = torch.tensor([window], dtype=torch.int32, device=cuda)
+    kp, vp = kv[0].to(cuda), kv[1].to(cuda)
+    kp2, vp2 = kp.clone(), vp.clone()
+    kw = dict(fmt_kv=fmt, compute_dtype=act, flash_chunk=1024)
+    ops.reset_launches()
+    got, _, _ = pf.prefill_attention_paged(q, k, v, kp, vp, bt.to(cuda), st,
+                                           win, **kw)
+    variant = pf.prefill_variant(act, Dh)
+    assert ops.launch_counts()[f"prefill_attention:{variant}"] == 1
+    want, _, _ = pf.prefill_attention_paged_plain(q, k, v, kp2, vp2,
+                                                  bt.to(cuda), st, win, **kw)
+    assert torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), want.float(), rtol=2.0 ** -7,
+                               atol=1e-6)
+    assert _bits_equal(kp[1:], kp2[1:]) and _bits_equal(vp[1:], vp2[1:])
+    return variant
+
+
+@pytest.mark.parametrize("window", [1024, 1 << 30])
+def test_prefill_attention_simt_head_dim_256_window(cuda, window):
+    """K5 at gemma3's heads (8 / 4 of 256) in bf16 takes the SIMT variant
+    (the tensor-core one stops at head_dim 128); a 64-token chunk at starts
+    past 1024, so the window cuts into the first flash chunk of history."""
+    assert _prefill_case(cuda, torch.bfloat16, 4, 64, 8, 4, 256, 16, 128,
+                         [1024, 1100, 1500, 1960], window, 7) == "simt"
+
+
+def test_prefill_attention_tc_group_of_12(cuda):
+    """K5's tensor-core variant at command-r-plus's 96 / 8 heads of 128
+    (G = 12 does not divide its 64-row tiles)."""
+    assert _prefill_case(cuda, torch.bfloat16, 4, 64, 96, 8, 128, 16, 16,
+                         [0, 64, 130, 17], 1 << 30, 12) == "tc"
+
+
+@pytest.mark.parametrize("D,V", [(2560, 262144), (12288, 32000)])
+def test_decode_sample_gemma3_vocab_and_wide_rows(cuda, D, V):
+    """K4 over a tied [V, D] P(16,2) head at gemma3's vocab (2^18) and at
+    command-r-plus's d_model (12288): tokens equal to the plain head +
+    sampler (near ties excepted), greedy and sampled, on p16_2."""
+    fmt = formats.P16_2
+    g = torch.Generator(device=cuda).manual_seed(D)
+    x = torch.randn(4, D, generator=g, device=cuda).to(torch.bfloat16)
+    w = posit.pack(torch.randn(V, D, generator=g, device=cuda) * 0.05, fmt)
+    noise = -torch.log(-torch.log(torch.rand(4, V, generator=g, device=cuda)
+                                  .clamp(1e-9, 1 - 1e-7)))
+    l = pa.head_logits_plain(x, w, plan="fused", fmt_w=fmt, transpose=True,
+                             softcap_val=0.0)
+    for greedy, top_k in ((True, 0), (False, 40), (False, 0)):
+        ops.reset_launches()
+        tok = pa.decode_sample(x, w, noise, 0.8, plan="fused", fmt_w=fmt,
+                               transpose=True, greedy=greedy, top_k=top_k)
+        assert ops.launch_counts()["decode_sample:p16_2"] == 1
+        plain = pa.sample_logits(l, noise, 0.8, greedy=greedy, top_k=top_k)
+        _check_tokens(tok, plain, _scores(l, noise, 0.8, greedy, top_k))
+
+
+@pytest.mark.parametrize("arch", ["command_r_35b", "gemma3_4b",
+                                  "command_r_plus_104b"])
+def test_dense_engine_equals_paged_engine_on_card(cuda, arch):
+    """The smoke configs (f32) served on the card by the dense engine (plain
+    attention) and the paged engine (K3, K5, K4): equal greedy streams,
+    every page back; `unpack_params` on the card (K1) bitwise the CPU's."""
+    import numpy as np
+    from repro_torch import configs
+    from repro_torch.core.quant import policy_by_name
+    from repro_torch.models import api, packing
+    from repro_torch.serve import Request, ServingEngine
+    cfg = configs.get_smoke(arch).replace(
+        quant=policy_by_name("serve_fused_p16"))
+    params = packing.pack_params(
+        api.init(torch.Generator(device=cuda).manual_seed(0), cfg), cfg)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (5, 27, 40, 12, 9)]
+
+    def serve(**kw):
+        eng = ServingEngine(cfg, params, batch_slots=3, max_seq=64, **kw)
+        for rid, p in enumerate(prompts):
+            eng.submit(Request(rid=rid, prompt=p, max_new_tokens=9))
+        return {r.rid: r.out_tokens for r in eng.run()}, eng
+
+    ops.reset_launches()
+    paged, eng = serve(page_size=16)
+    counts = ops.launch_counts()
+    for name in ("paged_attention", "prefill_attention", "decode_sample"):
+        assert counts[name] > 0, name
+    assert eng.pages_in_use == 0
+    ops.reset_launches()
+    dense, deng = serve(paged=False)
+    counts = ops.launch_counts()
+    assert counts["paged_attention"] == counts["prefill_attention"] == 0
+    assert counts["decode_sample"] == 0
+    assert dense == paged
+    assert deng.kv_cache_bytes() == sum(
+        t.numel() * t.element_size() for t in deng.cache.values())
+    cpu = {k: ({kk: vv.cpu() for kk, vv in v.items()} if isinstance(v, dict)
+               else v.cpu()) for k, v in params.items()}
+    on_card = packing.unpack_params(params, cfg)
+    on_cpu = packing.unpack_params(cpu, cfg)
+    for name in ("wq", "wo_mlp"):
+        assert _bits_equal(on_card["layers"][name], on_cpu["layers"][name])

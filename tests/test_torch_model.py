@@ -273,8 +273,10 @@ def test_configs_match_reference():
                   "dtype", "sliding_window", "logit_softcap"):
             assert getattr(t, f) == getattr(j, f), (getter, f)
     assert tconfigs.get("command_r_35b").compute_dtype == torch.bfloat16
+    # gemma3_4b and command_r_plus_104b are ported (tests/test_torch_configs.py);
+    # the other families' names still raise
     with pytest.raises(KeyError):
-        tconfigs.get("gemma3_4b")
+        tconfigs.get("mamba2_1_3b")
 
 
 # ---------------------------------------------------------------------------
@@ -341,8 +343,9 @@ def test_unported_engine_options_raise():
     params = tapi.init(torch.Generator().manual_seed(0), tcfg, device="cpu")
     base = dict(batch_slots=2, max_seq=32, device="cpu")
     # speculate_k, preempt and cancel are ported (test_torch_speculative.py,
-    # test_torch_frontend.py); the dense cache and sharded pools are not
-    for kw in (dict(paged=False), dict(mesh=object())):
+    # test_torch_frontend.py), so is the dense cache (paged=False,
+    # test_torch_dense_cache.py); sharded pools are not
+    for kw in (dict(mesh=object()), dict(mesh=object(), paged=False)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             TEngine(tcfg, params, **base, **kw)
 
