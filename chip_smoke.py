@@ -157,6 +157,7 @@ The line before the last is the kernels' JSON record; the last line is
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -1398,85 +1399,227 @@ def _attention_g16_float_pages(dev):
 # phase 4: small-input agreement with the plain CPU path
 # ---------------------------------------------------------------------------
 
-def _kv_flips(caches, arch: str, policy: str) -> int:
-    """Compare the card's KV pages with the CPU's: posit codes equal or, at
-    a rounding boundary that the two sides' summation orders straddle,
-    the adjacent code (returns how many); float pages (no KV format)
-    within 1e-5."""
+# a small-input run may show at most this many differing KV codes; each
+# must come from a value within the float pages' tolerance (rtol 1e-5,
+# atol 1e-6) of the rounding boundary between the two codes
+_KV_FLIP_LIMIT = 8
+_KV_RTOL, _KV_ATOL = 1e-5, 1e-6
+
+
+class _KVValues:
+    """While active, every KV write of the plain CPU path into `cache`'s
+    page pools also records the f32 value that was encoded (`shadow`, the
+    pools' layout) and where it went (`written`).  The values come from
+    the codec call just before the write; each write checks that they
+    encode to the codes it stores.  With `forced` (pools of codes in the
+    same layout) each write then stores the forced codes at its positions
+    instead, so that the CPU goes on from the card's codes."""
+
+    def __init__(self, cache, fmt, forced=None):
+        import torch
+        self.fmt, self.forced = fmt, forced
+        self.shadow = {n: torch.zeros(cache[n].shape, dtype=torch.float32)
+                       for n in ("k", "v")}
+        self.written = {n: torch.zeros(cache[n].shape, dtype=torch.bool)
+                        for n in ("k", "v")}
+        self.layers = {cache[n][i].data_ptr(): (n, i)
+                       for n in ("k", "v") for i in range(cache[n].shape[0])}
+
+    def __enter__(self):
+        import torch
+        from repro_torch.kernels import posit_codec, prefill_attention
+        from repro_torch.models import paged
+        self.patched = [(posit_codec, "encode_plain"),
+                        (prefill_attention, "encode_plain"),
+                        (paged, "insert_tokens"),
+                        (paged, "insert_chunk_batched")]
+        self.saved = [getattr(m, n) for m, n in self.patched]
+        encode, last = posit_codec.encode_plain, {}
+
+        def record(values, fmt):
+            last["x"] = values.float()
+            return encode(values, fmt)
+
+        def shadowed(insert):
+            def write(pages, table, where, vals):
+                x = last.pop("x").reshape(vals.shape)
+                _check(_bits_equal(encode(x, self.fmt), vals),
+                       "small input: the recorded KV values encode to the "
+                       "codes written")
+                name, i = self.layers[pages.data_ptr()]
+                insert(self.shadow[name][i], table, where, x)
+                insert(self.written[name][i], table, where,
+                       torch.ones_like(x, dtype=torch.bool))
+                if self.forced is not None:
+                    vals = _codes_at(self.forced[name][i], table, where,
+                                     vals.shape)
+                insert(pages, table, where, vals)
+                return pages
+            return write
+
+        for (m, n), fn in zip(self.patched,
+                              (record, record,
+                               shadowed(self.saved[2]),
+                               shadowed(self.saved[3]))):
+            setattr(m, n, fn)
+        return self
+
+    def __exit__(self, *exc):
+        for (m, n), fn in zip(self.patched, self.saved):
+            setattr(m, n, fn)
+
+
+def _codes_at(pool, table, where, shape):
+    """The entries of `pool` [P, ps, F] that a write of `shape` ([B, F] one
+    token, or [B, C, F] a chunk) at positions `where` [B] + [0, C) goes to
+    through block table `table` (as models/paged.py's inserts place it)."""
     import torch
+    ps = pool.shape[1]
+    C = shape[1] if len(shape) == 3 else 1
+    pos = where.long()[:, None] + torch.arange(C)[None]
+    page = torch.gather(table.long(), 1,
+                        torch.clamp(pos // ps, 0, table.shape[1] - 1))
+    return pool[page, pos % ps].reshape(shape)
+
+
+def _kv_flips(card, values, cfg, what: str) -> int:
+    """Compare the card's KV codes with the CPU's wherever `values` (a
+    _KVValues) saw the CPU write, and return how many differ.  A code may
+    differ only by one, where the CPU's pre-encode value lies within
+    rtol _KV_RTOL / atol _KV_ATOL of the rounding boundary between the
+    two codes (two summation orders straddle it there)."""
+    import torch
+    from repro_torch.kernels import posit_codec
+    fmt = cfg.quant.kv_cache
+    bounds = posit_codec.rounding_boundaries(fmt)
     flips = 0
     for name in ("k", "v"):
-        a, b = caches["card"][name].cpu(), caches["cpu"][name]
-        if a.is_floating_point():
-            _check(bool(torch.allclose(a.float(), b.float(), rtol=1e-5,
-                                       atol=1e-6)),
-                   f"small input ({arch}, {policy}): float KV entries "
-                   f"within 1e-5")
+        m = values.written[name]
+        x = values.shadow[name][m]
+        ca = card[name].cpu()[m].long()
+        cb = posit_codec.encode_plain(x, fmt).long()
+        diff = ca != cb
+        if not bool(diff.any()):
             continue
-        gap = (a.long() - b.long()).abs()
-        _check(int(gap.max()) <= 1, f"small input ({arch}, {policy}): KV "
-                                    f"codes on the card and on the CPU "
-                                    f"equal or adjacent")
-        flips += int((gap > 0).sum())
+        ca, cb, x = ca[diff], cb[diff], x[diff]
+        lo = torch.minimum(ca.abs(), cb.abs())
+        edge = bounds[(lo - 1).clamp(0, bounds.numel() - 1)]
+        gap = (x.abs() - edge).abs()
+        ok = (((ca - cb).abs() == 1) & (ca.sign() == cb.sign())
+              & (x.sign() == cb.sign()) & (lo >= 1)
+              & (gap <= _KV_ATOL + _KV_RTOL * edge))
+        where = torch.nonzero(m)[diff]
+        for j in range(int(diff.sum())):
+            print(f"{what}: {name} code at [layer, page, row, entry] "
+                  f"{where[j].tolist()} card {int(ca[j])} CPU {int(cb[j])}; "
+                  f"CPU value {float(x[j])!r}, boundary {float(edge[j])!r} "
+                  f"(relative gap {float(gap[j] / edge[j]):.3g})")
+        _check(bool(ok.all()), f"{what}: every KV code that differs on the "
+                               f"card is the adjacent one, across a rounding "
+                               f"boundary the CPU's value lies on")
+        flips += int(diff.sum())
     return flips
 
 
 def _small_reference(dev, policy: str, arch: str = "command_r_35b"):
     """Prefill two 20-token prompts and take one decode step of `arch`'s
-    smoke config on the card and on the CPU (the plain versions).  The
-    prefill logits agree within 1e-4.  The KV pages agree except where a
-    value the two sides sum in another order lies at a rounding boundary
-    of the KV format: there the code is the adjacent one (`_kv_flips`).
-    The decode step runs over the card's prefill pages on both sides; its
-    logits agree within 1e-4 where no code of the step differs, and
-    within 1e-3 of the largest |logit| where one does (an adjacent P(8,2)
-    code moves a short window's attention by about that much).  Returns
-    (max |logit diff|, adjacent codes)."""
+    smoke config on the card and on the CPU (the plain versions), each side
+    over its own pages.  The prefill logits agree within 1e-4.  KV pages:
+    float pages agree within 1e-5; posit codes are equal except where a
+    value lies at a rounding boundary that the two sides' summation orders
+    straddle (`_kv_flips`: the adjacent code, the value within the float
+    tolerance of the boundary, at most _KV_FLIP_LIMIT of them).  The CPU
+    takes the decode step twice: over its own pages, held to the card's
+    logits within 1e-4 where no code differs and within 1e-3 of the largest
+    |logit| where one does (an adjacent P(8,2) code moves a short window's
+    attention by about that much); and over the card's codes (its prefill
+    pages, and each code the card's step wrote in place of the CPU's own,
+    whose values are held as above), within 1e-4.  Returns (max |logit
+    diff|, codes that differ)."""
     import torch
     from repro_torch import configs
     from repro_torch.core.quant import policy_by_name
     from repro_torch.models import api, packing
     from repro_torch.models.paged import PagedLayout
+    what = f"small input ({arch}, {policy})"
     cfg = configs.get_smoke(arch)
     cfg = cfg.replace(quant=policy_by_name(policy))
+    fmt = cfg.quant.kv_cache
     cpu = torch.device("cpu")
     params = packing.pack_params(
         api.init(torch.Generator().manual_seed(7), cfg, device=cpu), cfg)
     sides = (("cpu", cpu), ("card", dev))
-    on = {side: {k: ({kk: vv.to(d) for kk, vv in v.items()}
-                     if isinstance(v, dict) else v.to(d))
-                 for k, v in params.items()} for side, d in sides}
-    logits, caches, toks = {}, {}, {}
+    on, toks, pre, step, logits = {}, {}, {}, {}, {}
+
+    def recording(cache, forced=None):
+        return (contextlib.nullcontext() if fmt is None
+                else _KVValues(cache, fmt, forced))
+
     for side, d in sides:
-        layout = PagedLayout.for_slots(2, 64, 16)
-        cache = api.init_cache(cfg, 2, 64, layout, device=d)
+        on[side] = {k: ({kk: vv.to(d) for kk, vv in v.items()}
+                        if isinstance(v, dict) else v.to(d))
+                    for k, v in params.items()}
+        cache = api.init_cache(cfg, 2, 64, PagedLayout.for_slots(2, 64, 16),
+                               device=d)
         cache["block_table"] = torch.tensor([[1, 2, 0, 0], [3, 4, 0, 0]],
                                             dtype=torch.int32, device=d)
         toks[side] = torch.arange(40, dtype=torch.int32,
                                   device=d).reshape(2, 20) % cfg.vocab_size
-        lp, caches[side] = api.prefill_chunk_batched(
-            on[side], toks[side], cache,
-            torch.ones(2, dtype=torch.bool, device=d), cfg)
+        if side == "cpu":
+            pre_rec = recording(cache)
+        with pre_rec if side == "cpu" else contextlib.nullcontext():
+            lp, pre[side] = api.prefill_chunk_batched(
+                on[side], toks[side], cache,
+                torch.ones(2, dtype=torch.bool, device=d), cfg)
         logits[side] = [lp.cpu()]
-    flips = _kv_flips(caches, arch, policy)
-    for name in ("k", "v"):
-        caches["cpu"][name].copy_(caches["card"][name].cpu())
-    for side, d in sides:
-        ld, _ = api.decode_step(on[side], toks[side][:, -1], caches[side],
-                                cfg)
+    card_pre = {n: pre["card"][n].cpu() for n in ("k", "v")}
+    if fmt is None:
+        for name in ("k", "v"):
+            _check(bool(torch.allclose(card_pre[name].float(),
+                                       pre["cpu"][name].float(),
+                                       rtol=_KV_RTOL, atol=_KV_ATOL)),
+                   f"{what}: float KV entries within 1e-5")
+        flips = 0
+    else:
+        flips = _kv_flips(card_pre, pre_rec, cfg, what)
+    forced = dict(pre["cpu"], k=card_pre["k"].clone(),
+                  v=card_pre["v"].clone())
+    for side, _ in sides:
+        ld, step[side] = api.decode_step(on[side], toks[side][:, -1],
+                                         pre[side], cfg)
         logits[side].append(ld.cpu())
-    step_flips = _kv_flips(caches, arch, policy)
+    card_step = {n: step["card"][n].cpu() for n in ("k", "v")}
+    if fmt is None:
+        for name in ("k", "v"):
+            _check(bool(torch.allclose(card_step[name].float(),
+                                       step["cpu"][name].float(),
+                                       rtol=_KV_RTOL, atol=_KV_ATOL)),
+                   f"{what}: float KV entries within 1e-5")
+        forced_logits = logits["cpu"][1]
+    else:
+        rec = recording(forced, card_step)
+        with rec:
+            forced_logits, _ = api.decode_step(on["cpu"], toks["cpu"][:, -1],
+                                               forced, cfg)
+        flips += _kv_flips(card_step, rec, cfg, what)
+    _check(flips <= _KV_FLIP_LIMIT, f"{what}: {flips} KV codes differ "
+                                    f"(limit {_KV_FLIP_LIMIT})")
     err = 0.0
     for i, (a, b) in enumerate(zip(logits["card"], logits["cpu"])):
         _check(bool(torch.isfinite(a).all()), "small-input logits finite")
-        if i == 1 and step_flips:
+        if i == 1 and flips:
             close = float((a - b).abs().max()) <= 1e-3 * float(b.abs().max())
         else:
             close = bool(torch.allclose(a, b, rtol=1e-4, atol=1e-4))
         _check(close, f"small-input logits on the card vs the plain CPU "
                       f"path ({arch}, {policy})")
         err = max(err, float((a - b).abs().max()))
-    return err, flips + step_flips
+    _check(bool(torch.allclose(logits["card"][1], forced_logits, rtol=1e-4,
+                               atol=1e-4)),
+           f"{what}: decode logits on the card vs the plain CPU path over "
+           f"the card's codes")
+    forced_err = float((logits["card"][1] - forced_logits).abs().max())
+    return err, forced_err, flips
 
 
 # ---------------------------------------------------------------------------
@@ -3013,10 +3156,11 @@ def main() -> int:
                          ("qwen3_moe_235b", "validate_bit_exact"),
                          ("gemma3_4b", "serve_fused_p16"),
                          ("command_r_plus_104b", "serve_fused_p16")):
-        err, flips = _small_reference(dev, policy, arch)
+        err, forced_err, flips = _small_reference(dev, policy, arch)
         print(f"small input ({arch}, {policy}): max |logit diff| card vs "
-              f"plain CPU {err:.3g}; KV codes adjacent (a rounding "
-              f"boundary) {flips}")
+              f"plain CPU {err:.3g} (decode over the card's codes "
+              f"{forced_err:.3g}); KV codes adjacent across a rounding "
+              f"boundary {flips}")
     counts, cfg, cfg13, params, prompts, greedy = _serve(dev)
     _profile(cfg, params, prompts, "defaults")
     _profile(cfg13, params, prompts, "a13")

@@ -151,6 +151,10 @@ size_t smem_bytes(int keys, int Dh) {
   return sizeof(float) * (256 + 2 * (size_t)keys * Dh);
 }
 
+// The launchers' return code when that exceeds the 227 KB a block may take
+// (kernels/paged_attention.py raises on it).
+constexpr int kSmemRefused = -1;
+
 // The rows of one block: split blockIdx.x, KV head blockIdx.y, slot b,
 // tokens [t0, t0 + tb) of the slot's T new tokens.  Row r = tt * G + g is
 // token t0 + tt with query head h * G + g; its query sits at position
@@ -416,7 +420,7 @@ int launch(const void* q, const void* k, const void* v, const int* bt,
            int Hkv, int Dh, int n, int es, int SP, int S, float scale,
            float softcap, bool mq, cudaStream_t s) {
   const size_t smem = smem_bytes(SP * ps, Dh);
-  if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
+  if (smem > 227 * 1024) return kSmemRefused;
   // 16-byte loads need every (page, token, head) row of codes aligned
   const int vec = (Dh * sizeof(KT)) % 16 == 0 &&
                   reinterpret_cast<uintptr_t>(k) % 16 == 0 &&

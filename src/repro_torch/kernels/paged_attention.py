@@ -40,15 +40,10 @@ MAX_SPLIT_KEYS = 128
 MAX_HEAD_DIM = 256
 # rows a block serves with one warp each (more rows take turns)
 BLOCK_ROWS = 16
-# dynamic shared memory a block may take on an H100
-MAX_SMEM_BYTES = 227 * 1024
-
-
-def split_smem_bytes(keys: int, head_dim: int) -> int:
-    """Shared memory of a K3 / K7 block: the int8 decode table and one
-    split's K and V rows in f32 (csrc/paged_attention.cu:smem_bytes).  At
-    head_dim 256 a split of 128 keys does not fit, one of 64 does."""
-    return 4 * (256 + 2 * keys * head_dim)
+# what the launchers return when a split's K and V rows do not fit a
+# block's shared memory (csrc/paged_attention.cu: at head_dim 256 a split
+# of 128 keys does not fit, one of 64 does)
+_SMEM_REFUSED = -1
 
 
 def attention_splits(M: int, page_size: int) -> tuple[int, int]:
@@ -151,8 +146,9 @@ def paged_attention(q, k_pages, v_pages, block_tables, lengths, window,
                    8, 4, 2, 1 that does and keeps t_block x Hq / Hkv within
                    BLOCK_ROWS); value-neutral, ignored for 3-D q.
                    On the card Dh may not exceed MAX_HEAD_DIM, nor the
-                   page size MAX_SPLIT_KEYS, and a split's keys x Dh must
-                   fit the shared memory (`split_smem_bytes`).
+                   page size MAX_SPLIT_KEYS, and a split's K and V rows
+                   must fit a block's shared memory (the launcher refuses
+                   them before launching: ValueError).
 
     Returns [B, Hq, Dh] (or [B, T, Hq, Dh]) f32, or the (o, m, l) triple."""
     if q.ndim not in (3, 4):
@@ -191,12 +187,6 @@ def paged_attention(q, k_pages, v_pages, block_tables, lengths, window,
         raise ValueError(f"paged_attention on the card takes head_dim <= "
                          f"{MAX_HEAD_DIM} and pages of <= {MAX_SPLIT_KEYS} "
                          f"tokens, got {Dh} and {ps}")
-    keys = attention_splits(block_tables.shape[1], ps)[0] * ps
-    if split_smem_bytes(keys, Dh) > MAX_SMEM_BYTES:
-        raise ValueError(f"paged_attention on the card: a split of {keys} "
-                         f"keys at head_dim {Dh} needs "
-                         f"{split_smem_bytes(keys, Dh)} B of shared memory, "
-                         f"more than {MAX_SMEM_BYTES}; use smaller pages")
     q = q.to(torch.float32).contiguous()
     M = block_tables.shape[1]
     for name, t, shape in (("block_tables", block_tables, (B, M)),
@@ -238,6 +228,10 @@ def paged_attention(q, k_pages, v_pages, block_tables, lengths, window,
             err = lib.paged_attention_mq_launch(*head, T, t_block, *tail)
         else:
             err = lib.paged_attention_launch(*head, *tail)
+        if err == _SMEM_REFUSED:
+            raise ValueError(f"{kernel} on the card: a split of {sp * ps} "
+                             f"keys at head_dim {Dh} does not fit a block's "
+                             f"shared memory; use smaller pages")
         _build.check(err, kernel)
         LAUNCHES[kernel] += 1
         if n_splits > 1:

@@ -6,7 +6,7 @@
     apply(params, batch, cfg)                         -> logits [B, S, V]
     prefill(params, batch, cfg, max_seq, device)      -> (logits, dense cache)
     input_specs(cfg, shape) / abstract_state(cfg)     -> meta tensors
-    decode_step(params, tokens, cache, cfg)           -> (logits, cache')
+    decode_step(params, tokens, cache, cfg, active=None) -> (logits, cache')
     decode_and_sample(params, tokens, cache, cfg, ...) -> (tokens, cache')
     decode_verify(params, tokens, cache, cfg, ...)    -> ([B, T] tokens, cache')
     prefill_chunk(_batched)(...)                      -> (logits, cache')
@@ -100,8 +100,8 @@ def prefill(params, batch, cfg: ModelConfig, max_seq: Optional[int] = None,
     return _mod(cfg).prefill(params, batch, cfg, max_seq=max_seq)
 
 
-def decode_step(params, tokens, cache, cfg: ModelConfig):
-    return _mod(cfg).decode_step(params, tokens, cache, cfg)
+def decode_step(params, tokens, cache, cfg: ModelConfig, active=None):
+    return _mod(cfg).decode_step(params, tokens, cache, cfg, active=active)
 
 
 def sample_noise(generator: torch.Generator, batch: int, vocab_size: int,

@@ -201,11 +201,12 @@ def prefill(params, batch, cfg: ModelConfig, max_seq=None):
         "through prefill_chunk / prefill_chunk_batched")
 
 
-def decode_step(params, tokens, cache, cfg: ModelConfig, sample=None):
+def decode_step(params, tokens, cache, cfg: ModelConfig, sample=None,
+                active=None):
     """One decode step (paged or dense cache) with the MoE FFN
     (transformer.decode_step)."""
     return transformer.decode_step(params, tokens, cache, cfg, sample=sample,
-                                   ffn=_moe_block)
+                                   ffn=_moe_block, active=active)
 
 
 def prefill_chunk(params, tokens, cache, slot: int, cfg: ModelConfig):

@@ -369,26 +369,32 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
                     cache_specs(cfg, batch, max_seq, layout))
 
 
-def _cache_insert(cache_l, new_kv, length):
+def _cache_insert(cache_l, new_kv, length, active=None):
     """cache_l: [B, S, F]; new_kv: [B, 1, F]; writes row b at length[b]
-    (in place)."""
-    B = cache_l.shape[0]
-    cache_l[torch.arange(B, device=cache_l.device), length.long()] = \
-        new_kv[:, 0].to(cache_l.dtype)
+    (in place), where `active` ([B] bool) is True or not given."""
+    rows = torch.arange(cache_l.shape[0], device=cache_l.device)
+    at = length.long()
+    vals = new_kv[:, 0].to(cache_l.dtype)
+    if active is not None:
+        vals = torch.where(active[:, None], vals, cache_l[rows, at])
+    cache_l[rows, at] = vals
 
 
-def _dense_attn_token(p, x, cfg: ModelConfig, k_l, v_l, length, is_global):
+def _dense_attn_token(p, x, cfg: ModelConfig, k_l, v_l, length, is_global,
+                      active=None):
     """One-token attention sub-block over the dense cache: x [B, 1, D];
     k_l / v_l [B, S, F] (written in place); length [B] pre-insert valid
-    counts.  Writes the token's KV codes at `length`, decodes the rows and
-    attends them (`common.decode_attention`).  Returns the post-wo output
-    [B, 1, D]."""
+    counts.  Writes the token's KV codes at `length` of the rows `active`
+    marks (all without it), decodes the rows and attends them
+    (`common.decode_attention`).  Returns the post-wo output [B, 1, D]."""
     B = x.shape[0]
     S_max = k_l.shape[1]
     Hq, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q, k, v = _qkv(p, x, cfg, length[:, None])
-    _cache_insert(k_l, common.kv_encode(cfg, k.reshape(B, 1, -1)), length)
-    _cache_insert(v_l, common.kv_encode(cfg, v.reshape(B, 1, -1)), length)
+    _cache_insert(k_l, common.kv_encode(cfg, k.reshape(B, 1, -1)), length,
+                  active)
+    _cache_insert(v_l, common.kv_encode(cfg, v.reshape(B, 1, -1)), length,
+                  active)
     kc = common.kv_decode(cfg, k_l).reshape(B, S_max, Hkv, Dh)
     vc = common.kv_decode(cfg, v_l).reshape(B, S_max, Hkv, Dh)
     kv_pos = torch.arange(S_max, dtype=torch.int32,
@@ -400,7 +406,7 @@ def _dense_attn_token(p, x, cfg: ModelConfig, k_l, v_l, length, is_global):
 
 
 def decode_step(params, tokens, cache, cfg: ModelConfig, sample=None,
-                ffn=_mlp_block):
+                ffn=_mlp_block, active=None):
     """One autoregressive step over the paged or the dense cache. tokens:
     [B] int32.
 
@@ -408,7 +414,11 @@ def decode_step(params, tokens, cache, cfg: ModelConfig, sample=None,
     place: into the slot's current page, or row b of the dense pools) and
     attended (the paged-attention kernel, or `common.decode_attention` over
     the decoded rows); `ffn(p, x, cfg)` is the layer's feed-forward block
-    (the dense MLP here, the routed experts in models/moe.py).  Returns
+    (the dense MLP here, the routed experts in models/moe.py).  `active`
+    ([B] bool, dense cache only) leaves the rows it marks False unwritten:
+    an engine's free or mid-prefill slots (on the paged cache such rows
+    carry zeroed block tables, so their writes land on the trash page).
+    Returns
     (logits [B, V] f32, cache') — or, with `sample` (common.SampleSpec),
     ([B] int32 tokens, cache') from the fused head + sampler kernel."""
     B = tokens.shape[0]
@@ -418,7 +428,8 @@ def decode_step(params, tokens, cache, cfg: ModelConfig, sample=None,
         p = _layer(params, i)
         if bt is None:
             x = x + _dense_attn_token(p, x, cfg, cache["k"][i],
-                                      cache["v"][i], length, is_global)
+                                      cache["v"][i], length, is_global,
+                                      active)
         else:
             x = x + _paged_attn_token(p, x, cfg, cache["k"][i],
                                       cache["v"][i], bt, length, is_global)

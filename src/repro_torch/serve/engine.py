@@ -1113,16 +1113,6 @@ class ServingEngine:
             for s in np.nonzero(decode_mask)[0]:
                 pos = int(self.lengths[s])
                 self._ensure_writable(int(s), pos, pos + 1)
-        # the decode pass writes every row at its (masked) length: a dense
-        # row of a slot mid-prefill (interleaved mode) gets position 0
-        # written, so keep that entry and put it back afterwards, as the
-        # reference reverts those rows
-        keep = None
-        filling = np.nonzero(self.slot_phase == _PREFILL)[0]
-        if not self.paged and len(filling):
-            rows = torch.from_numpy(filling).to(self.device)
-            keep = (rows, self.cache["k"][:, rows, 0].clone(),
-                    self.cache["v"][:, rows, 0].clone())
         cache_in = self._meta(decode_mask)
         tokens_in = torch.from_numpy(self.next_token.copy()).to(self.device)
         slots = [s for s in range(self.B) if decode_mask[s]]
@@ -1133,12 +1123,12 @@ class ServingEngine:
                 self.temperature, greedy=self.greedy, top_k=self.top_k)
             toks = toks_all.cpu().numpy().astype(np.int32)[slots]
         else:
+            # dense rows of free or mid-prefill slots stay unwritten, as
+            # the reference reverts them
+            active = (None if self.paged else
+                      torch.from_numpy(decode_mask).to(self.device))
             logits, _ = api.decode_step(self.params, tokens_in, cache_in,
-                                        self.cfg)
-            if keep is not None:
-                rows, k0, v0 = keep
-                self.cache["k"][:, rows, 0] = k0
-                self.cache["v"][:, rows, 0] = v0
+                                        self.cfg, active=active)
             toks = self._sample(logits, list(range(self.B)),
                                 live=decode_mask)[slots]
         self.stats["decode_steps"] += 1

@@ -5,7 +5,9 @@ engine's public surface.
 whole-sequence `prefill` that builds a dense cache and the dense
 `decode_step` after it, `ServingEngine(paged=False)` (greedy streams equal
 to the reference's dense engine and to the port's paged engine, also
-interleaved with decode and sampled), the MoE family's dense decode,
+interleaved with decode and sampled), the paged engine's streams against
+the reference's paged engine on the same configs, the MoE family's dense
+decode,
 `kv_cache_bytes` / `slot_free` / `pages_promised` / `execution_summary()`
 and `packing.unpack_params`.  The same numpy inputs and the reference's
 own parameters go to both packages; the port runs on the CPU, the
@@ -16,6 +18,7 @@ attention and GEMMs summed in another order).  Codes, lengths, tokens and
 counters are held bitwise.
 """
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -43,17 +46,33 @@ SEQ_TOL = 2e-5
 MAX_SEQ = 48
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's CPU ops at these sizes are too small to share out: with
+    the suite's other workers busy, torch's thread pool waits on taken
+    cores and a smoke-config engine run slows many times over.  Run this
+    module's torch work on one thread."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _cfgs(arch, kind, policy="serve_fused_p16"):
     getter = {"tiny": "get_tiny_serving", "smoke": "get_smoke"}[kind]
     return (getattr(jconfigs, getter)(arch).replace(quant=jpolicy(policy)),
             getattr(tconfigs, getter)(arch).replace(quant=tpolicy(policy)))
 
 
-def _params(jcfg, tcfg, seed=2, packed=True):
-    jparams = japi.init(jax.random.key(seed), jcfg)
-    if packed:
-        jparams = japi.pack_params(jparams, jcfg)
-    return jparams, tpacking.params_from_numpy(
+@functools.lru_cache(maxsize=None)
+def _params(arch, kind, policy="serve_fused_p16", seed=2):
+    """(jcfg, tcfg, jparams, tparams): the reference's packed init from
+    `seed` and the same leaves in the port, built once per module (the
+    pack jitted: eager it takes seconds a config on the CPU)."""
+    jcfg, tcfg = _cfgs(arch, kind, policy)
+    jparams = jax.jit(lambda p: japi.pack_params(p, jcfg))(
+        japi.init(jax.random.key(seed), jcfg))
+    return jcfg, tcfg, jparams, tpacking.params_from_numpy(
         jax.tree.map(np.asarray, jparams), tcfg, "cpu")
 
 
@@ -101,8 +120,7 @@ def test_decode_attention_matches_reference(window, softcap):
 
 @pytest.fixture(scope="module")
 def prefill_runs():
-    jcfg, tcfg = _cfgs("gemma3_4b", "smoke")
-    jparams, tparams = _params(jcfg, tcfg, seed=3)
+    jcfg, tcfg, jparams, tparams = _params("gemma3_4b", "smoke", seed=3)
     rng = np.random.default_rng(13)
     toks = rng.integers(0, jcfg.vocab_size, (2, 19)).astype(np.int32)
     nxt = rng.integers(0, jcfg.vocab_size, (3, 2)).astype(np.int32)
@@ -216,9 +234,10 @@ ENGINE_RUNS = {
 
 @pytest.fixture(scope="module", params=sorted(ENGINE_RUNS))
 def dense_served(request):
+    """Both packages' dense and paged engines over QUEUE (the paged ones at
+    the serving defaults: prefix sharing, fused prefill, fused decode)."""
     arch, kind, knobs = ENGINE_RUNS[request.param]
-    jcfg, tcfg = _cfgs(arch, kind)
-    jparams, tparams = _params(jcfg, tcfg)
+    jcfg, tcfg, jparams, tparams = _params(arch, kind)
     prompts = _prompts(jcfg.vocab_size)
     kw = dict(batch_slots=2, max_seq=MAX_SEQ, **knobs)
     tkw = dict(device="cpu", noise_fn=_jax_noise(knobs.get("base_seed", 0)))
@@ -234,10 +253,15 @@ def dense_served(request):
         surface.append((before, eng.slot_free, eng.pages_promised,
                         eng.kv_cache_bytes(), eng.execution_summary()))
     want, got = _streams(jeng), _streams(teng)
-    paged = TEngine(tcfg, tparams, **kw, **tkw)
-    _submit(paged, TRequest, prompts)
-    return dict(want=want, got=got, paged=_streams(paged), jeng=jeng,
-                teng=teng, surface=surface)
+    paged = {}
+    for name, eng, req in (("want", JEngine(jcfg, jparams, **kw), JRequest),
+                           ("got", TEngine(tcfg, tparams, **kw, **tkw),
+                            TRequest)):
+        _submit(eng, req, prompts)
+        paged[name] = _streams(eng)
+    return dict(want=want, got=got, paged=paged["got"],
+                paged_want=paged["want"], jeng=jeng, teng=teng,
+                surface=surface)
 
 
 def test_dense_engine_streams_match_reference(dense_served):
@@ -249,6 +273,11 @@ def test_dense_engine_streams_match_reference(dense_served):
 
 def test_dense_engine_streams_equal_paged_engine(dense_served):
     assert dense_served["got"] == dense_served["paged"]
+
+
+def test_paged_engine_streams_match_reference(dense_served):
+    assert sorted(dense_served["paged"]) == list(range(len(QUEUE)))
+    assert dense_served["paged"] == dense_served["paged_want"]
 
 
 def test_dense_engine_surface_matches_reference(dense_served):
@@ -283,9 +312,8 @@ def test_dense_engine_counters_and_bytes_after_run(dense_served):
 
 def test_dense_engine_interleaved_equals_whole_prompt_admission():
     """A prefill chunk per request per step interleaved with decode (the
-    decode pass writes the filling slots' rows at their masked position 0,
-    which the engine restores) gives the streams of whole-prompt admission
-    and of the paged engine."""
+    decode pass leaves the filling slots' rows unwritten) gives the streams
+    of whole-prompt admission and of the paged engine."""
     _, tcfg = _cfgs("gemma3_4b", "smoke")
     params = tpacking.pack_params(
         tapi.init(torch.Generator().manual_seed(3), tcfg, device="cpu"), tcfg)
@@ -305,8 +333,7 @@ def test_paged_engine_surface_matches_reference():
     """kv_cache_bytes / slot_free / pages_promised (an oversubscribed pool,
     so requests wait in the queue) and execution_summary()'s kv_shards /
     pages_in_use_by_shard, before, during and after a run."""
-    jcfg, tcfg = _cfgs("command_r_35b", "tiny")
-    jparams, tparams = _params(jcfg, tcfg)
+    jcfg, tcfg, jparams, tparams = _params("command_r_35b", "tiny")
     prompts = _prompts(jcfg.vocab_size)
     kw = dict(batch_slots=2, max_seq=MAX_SEQ, page_size=4, n_pages=14)
     jeng = JEngine(jcfg, jparams, **kw)
@@ -350,8 +377,7 @@ def test_moe_dense_decode_matches_reference():
     decode steps over the dense cache, logits and codes against the
     reference; `moe.prefill` (which needs the MoE whole-sequence forward)
     raises and names the queue item."""
-    jcfg, tcfg = _cfgs("qwen3_moe_235b", "tiny")
-    jparams, tparams = _params(jcfg, tcfg, seed=6)
+    jcfg, tcfg, jparams, tparams = _params("qwen3_moe_235b", "tiny", seed=6)
     rng = np.random.default_rng(8)
     toks = rng.integers(0, jcfg.vocab_size, (2, 7)).astype(np.int32)
     nxt = rng.integers(0, jcfg.vocab_size, (2, 2)).astype(np.int32)
@@ -386,8 +412,7 @@ def test_moe_dense_decode_matches_reference():
     ("gemma3_4b", "serve_paged_p16", "bfloat16"),
     ("qwen3_moe_235b", "serve_fused_p16", "float32")])
 def test_unpack_params_bitwise(arch, policy, dtype):
-    jcfg, tcfg = _cfgs(arch, "tiny", policy)
-    jparams, tparams = _params(jcfg, tcfg, seed=5)
+    jcfg, tcfg, jparams, tparams = _params(arch, "tiny", policy, seed=5)
     want = jax.jit(lambda p: japi.unpack_params(
         p, jcfg, dtype=getattr(jnp, dtype)))(jparams)
     got = tapi.unpack_params(tparams, tcfg, dtype=getattr(torch, dtype))

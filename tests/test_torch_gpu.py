@@ -1344,7 +1344,7 @@ def test_paged_attention_head_dim_256_window(cuda, window, kind):
 def test_paged_attention_head_dim_256_page_sizes(cuda):
     """At head_dim 256 a split of 64-token pages fits the shared memory
     (within 2e-5 of the plain version); 128-token pages do not, and the
-    wrapper says so before launching."""
+    launcher refuses them before launching."""
     for ps, M in ((64, 24), (128, 12)):
         q, kp, vp, bt = _attn_inputs(cuda, torch.int8, formats.P8_2, ps,
                                      Hq=8, Hkv=4, Dh=256, ps=ps, M=M,
@@ -1352,12 +1352,12 @@ def test_paged_attention_head_dim_256_page_sizes(cuda):
         ln = torch.tensor([ps * M, 1, ps + 1, 1000], dtype=torch.int32,
                           device=cuda)
         win = torch.tensor([1024], dtype=torch.int32, device=cuda)
-        keys = pa.attention_splits(M, ps)[0] * ps
-        if pa.split_smem_bytes(keys, 256) > pa.MAX_SMEM_BYTES:
-            assert ps == 128
+        if ps == 128:
+            before = pa.LAUNCHES["paged_attention"]
             with pytest.raises(ValueError, match="shared memory"):
                 pa.paged_attention(q, kp, vp, bt, ln, win,
                                    fmt_kv=formats.P8_2)
+            assert pa.LAUNCHES["paged_attention"] == before
             continue
         got = pa.paged_attention(q, kp, vp, bt, ln, win, fmt_kv=formats.P8_2)
         want = pa.paged_attention_plain(q, kp, vp, bt, ln, win,
