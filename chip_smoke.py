@@ -103,8 +103,9 @@ Phases (any failure exits non-zero; no phase is caught):
      launched 7 L + 1 (3 L) times per decode step.  Every K9 and K4 launch
      of the MoE run, and every K4 launch of the defaults runs, must take
      the p16_2 variant (the compile-time P(16,2) decode).  Every main path runs
-     bf16 activations, so all of its K5 launches must take the
-     tensor-core variant ("prefill_attention:tc"), and every K3 launch of
+     bf16 activations, so all of its K5 launches must take a
+     tensor-core variant ("prefill_attention:tc" at head_dim 128,
+     ":tc256" for gemma3's 256), and every K3 launch of
      a main path must split its key span and merge ("paged_attention:merge"),
      and every K2 launch of a main path must take a compile-time variant
      (none "posit_encode:posit").
@@ -132,12 +133,15 @@ Phases (any failure exits non-zero; no phase is caught):
      layers; 12 of 34 layers, layers 5 and 11 global), serve_fused_p16:
      K3 at its decode shape (lengths 1024-1320, window 1024 and 2^30)
      within 2e-5 of the plain version with its bound and masked SDPA; K5's
-     SIMT variant (bf16, head_dim 256, a 64-token chunk at starts >= 1024,
-     window 1024) within one bf16 ulp, pages bitwise; K4 over the tied
+     tc256 variant (bf16, head_dim 256, a 64-token chunk at starts >= 1024,
+     window 1024 and 2^30) within one bf16 ulp, pages bitwise, timed beside
+     masked SDPA and its bound (the exact form: one bf16 product a q.k
+     multiply-add and three a p.v one, or the bytes); the SIMT variant at
+     the same shape in f32 within 2e-5; K4 over the tied
      [262144, 2560] head; then 8 requests (a shared 64-token system prompt
      plus 1040-1240 of their own, so every span passes the window) at
      max_seq 1536, 16 new tokens, greedy and sampled, every K5 launch on
-     `simt`; and the window bites: the first decode step's logits with and
+     `tc256`; and the window bites: the first decode step's logits with and
      without the window differ by more than 1e-3;
      10b command-r-plus-104b at full width (d_model 12288, 96 / 8 heads of
      128, d_ff 33792, vocab 256000; 2 of 64 layers): K1 at [12288, 33792],
@@ -733,8 +737,8 @@ def _k5_case(dev, act, M, starts, reps, Hkv=8, paged_fmt="P8_2", Hq=64,
     M pages per slot, a sliding window), P(8,2) pages or (paged_fmt None)
     bf16 float pages.  Slots 0 and 1 share their history pages; slot 3 has
     page_ok all 0.  Checks the variant the wrapper took
-    (`prefill_variant`).  Returns (max |err|, times, bound, library
-    time)."""
+    (`prefill_variant`).  Returns a dict: max |err|, times, bounds and the
+    library time."""
     import torch
     import torch.nn.functional as F
     from repro_torch.core import formats, posit
@@ -813,6 +817,9 @@ def _k5_case(dev, act, M, starts, reps, Hkv=8, paged_fmt="P8_2", Hq=64,
     # pairs this data attends (causal, within the window), at the peak rate
     # of the activations' type (bf16 tensor cores for bf16).  The SIMT
     # variant keeps f32 FMA; the bound at the f32 rate is printed beside it.
+    # The exact form counts the bf16 products the tensor-core variants run:
+    # three a p.v multiply-add, and three a q.k one (one on tc256 when
+    # 1 / sqrt(Dh) is a power of two, as at 256).
     ab, pb = q.element_size(), kp.element_size()
     table = bt.tolist()
     hist_rows = {(table[b][r // ps], r % ps) for b, s in enumerate(starts)
@@ -823,8 +830,15 @@ def _k5_case(dev, act, M, starts, reps, Hkv=8, paged_fmt="P8_2", Hq=64,
     flops = 4.0 * pairs * Hq * Dh
     rate = BF16_FLOP_PER_S if act == torch.bfloat16 else F32_FLOP_PER_S
     bound, by = _bound(bytes_moved, flops, rate)
-    f32_fma_ms = _bound(bytes_moved, flops)[0]
-    return err, ms, call_ms, plain_ms, bound, by, library_ms, f32_fma_ms
+    q_terms = 1 if variant == "tc256" and math.frexp(Dh ** -0.5)[0] == 0.5 \
+        else 3
+    exact_ms, exact_by = _bound(bytes_moved, 2.0 * pairs * Hq * Dh
+                                * (q_terms + 3), BF16_FLOP_PER_S)
+    return dict(err=err, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+                bound=bound, by=by, library_ms=library_ms,
+                f32_fma_ms=_bound(bytes_moved, flops)[0],
+                bytes_ms=bytes_moved / HBM_BYTES_PER_S * 1e3,
+                exact_ms=exact_ms, exact_by=exact_by)
 
 
 def _k5_prefill(dev):
@@ -833,37 +847,39 @@ def _k5_prefill(dev):
     # runs it and in f32; a long span (M 128: two whole flash chunks of
     # history stream before the tail); qwen3's G = 16 over P(8,2) and bf16
     # pages
-    err16, ms, call_ms, plain_ms, bound, by, library_ms, fma_ms = _k5_case(
-        dev, torch.bfloat16, 16, [64, 64, 130, 190], reps=50)
-    err32 = _k5_case(dev, torch.float32, 16, [64, 64, 130, 190], reps=5)
+    serving = _k5_case(dev, torch.bfloat16, 16, [64, 64, 130, 190], reps=50)
+    f32 = _k5_case(dev, torch.float32, 16, [64, 64, 130, 190], reps=5)
     long = _k5_case(dev, torch.bfloat16, 128, [1024, 1024, 1500, 1984],
                     reps=10)
     print(f"kernel prefill_attention serving shape: bound_ms at the f32 FMA "
-          f"rate {fma_ms:.4f}")
+          f"rate {serving['f32_fma_ms']:.4f}")
     print(f"kernel prefill_attention long span (M 128, starts >= 1024, two "
-          f"streamed flash chunks): ms {long[1]:.4f}, plain_ms {long[3]:.3f}, "
-          f"bound_ms {long[4]:.4f} ({long[5]}), bound_ms at the f32 FMA rate "
-          f"{long[7]:.4f}, library_ms {long[6]:.4f}, max_abs_err "
-          f"{long[0]:.3g}")
+          f"streamed flash chunks): ms {long['ms']:.4f}, plain_ms "
+          f"{long['plain_ms']:.3f}, bound_ms {long['bound']:.4f} "
+          f"({long['by']}), bound_ms at the f32 FMA rate "
+          f"{long['f32_fma_ms']:.4f}, library_ms {long['library_ms']:.4f}, "
+          f"max_abs_err {long['err']:.3g}")
     print(f"kernel prefill_attention f32 activations (serving shape, SIMT "
-          f"variant): ms {err32[1]:.4f}, bound_ms {err32[4]:.4f} "
-          f"({err32[5]}), library_ms {err32[6]:.4f}, max_abs_err "
-          f"{err32[0]:.3g}")
-    errs = [err16, long[0]]
+          f"variant): ms {f32['ms']:.4f}, bound_ms {f32['bound']:.4f} "
+          f"({f32['by']}), library_ms {f32['library_ms']:.4f}, max_abs_err "
+          f"{f32['err']:.3g}")
+    errs = [serving["err"], long["err"]]
     for paged_fmt in ("P8_2", None):
         g16 = _k5_case(dev, torch.bfloat16, 16, [64, 64, 130, 190], reps=20,
                        Hkv=4, paged_fmt=paged_fmt)
-        errs.append(g16[0])
+        errs.append(g16["err"])
         print(f"kernel prefill_attention G=16 (64 / 4 heads, "
-              f"{paged_fmt or 'bf16'} pages): ms {g16[1]:.4f}, plain_ms "
-              f"{g16[3]:.3f}, bound_ms {g16[4]:.4f} ({g16[5]}), library_ms "
-              f"{g16[6]:.4f}, max_abs_err {g16[0]:.3g}")
+              f"{paged_fmt or 'bf16'} pages): ms {g16['ms']:.4f}, plain_ms "
+              f"{g16['plain_ms']:.3f}, bound_ms {g16['bound']:.4f} "
+              f"({g16['by']}), library_ms {g16['library_ms']:.4f}, "
+              f"max_abs_err {g16['err']:.3g}")
     return dict(name="prefill_attention",
                 source="src/repro_torch/csrc/prefill_attention.cu",
                 replaces="src/repro/kernels/prefill_attention.py:251",
-                max_abs_err=max(errs), ms=ms, call_ms=call_ms,
-                plain_ms=plain_ms, bound_ms=bound, bound_by=by,
-                library_ms=library_ms,
+                max_abs_err=max(errs), ms=serving["ms"],
+                call_ms=serving["call_ms"], plain_ms=serving["plain_ms"],
+                bound_ms=serving["bound"], bound_by=serving["by"],
+                library_ms=serving["library_ms"],
                 shape="B=4 C=64 Hq=64 Hkv=8 Dh=128 ps=16 M=16 bf16, int8 "
                       "P(8,2) pages")
 
@@ -2756,20 +2772,26 @@ def _k3_case(dev, label, Hq, Hkv, Dh, lengths, window, M, seed):
                 bound_ms=bound, bound_by=by, library_ms=library_ms)
 
 
-def _k5_record(dev, label, counter, **kw):
-    """One K5 case of `_k5_case` as a kernel record."""
+def _k5_record(dev, label, counter, act=None, exact=False, **kw):
+    """One K5 case of `_k5_case` (bf16 unless `act`) as a kernel record;
+    with `exact` its bound is the exact form (the tensor-core variants'
+    bf16 products) or the bytes, the larger."""
     import torch
-    err, ms, call_ms, plain_ms, bound, by, lib, fma = _k5_case(
-        dev, torch.bfloat16, reps=10, **kw)
-    print(f"10 K5 {label}: ms {ms:.4f}, call_ms {call_ms:.4f}, plain_ms "
-          f"{plain_ms:.3f}, bound_ms {bound:.4f} ({by}), bound at the f32 "
-          f"FMA rate {fma:.4f}, library_ms (SDPA, masked) {lib:.4f}, "
-          f"max_abs_err {err:.3g}")
+    r = _k5_case(dev, act or torch.bfloat16, reps=10, **kw)
+    bound, by = ((r["exact_ms"], r["exact_by"]) if exact
+                 else (r["bound"], r["by"]))
+    print(f"10 K5 {label}: ms {r['ms']:.4f}, call_ms {r['call_ms']:.4f}, "
+          f"plain_ms {r['plain_ms']:.3f}, bound_ms {bound:.4f} ({by}; "
+          f"bytes {r['bytes_ms']:.4f}, exact form {r['exact_ms']:.4f}, at "
+          f"the f32 FMA rate {r['f32_fma_ms']:.4f}), library_ms (SDPA, "
+          f"masked) {r['library_ms']:.4f} ({r['ms'] / r['library_ms']:.2f}x), "
+          f"max_abs_err {r['err']:.3g}")
     return dict(name=f"prefill_attention ({label})", counter=counter,
                 source="src/repro_torch/csrc/prefill_attention.cu",
                 replaces="src/repro/kernels/prefill_attention.py:251",
-                max_abs_err=err, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
-                bound_ms=bound, bound_by=by, library_ms=lib)
+                max_abs_err=r["err"], ms=r["ms"], call_ms=r["call_ms"],
+                plain_ms=r["plain_ms"], bound_ms=bound, bound_by=by,
+                library_ms=r["library_ms"])
 
 
 def _k4_record(dev, label, D, V, w=None, seed=41):
@@ -2852,8 +2874,8 @@ def _path_checks(label, c, k5_variant):
 
 def _gemma3_phase(dev):
     """10a: gemma3-4b at full width (12 of 34 layers: layers 5 and 11
-    global, the rest a 1024-token window) at serve_fused_p16: K3, K5's SIMT
-    variant and K4 at its shapes, 8 requests of 1104-1304 tokens (a shared
+    global, the rest a 1024-token window) at serve_fused_p16: K3, K5 (tc256;
+    SIMT in f32) and K4 at its shapes, 8 requests of 1104-1304 tokens (a shared
     64-token system prompt) at max_seq 1536, 16 new tokens, greedy and
     sampled; the window bites.  Returns (launch counts by run, records)."""
     import numpy as np
@@ -2884,11 +2906,19 @@ def _gemma3_phase(dev):
         GEMMA_MAX_SEQ // 16, 31) for label, window in (
             (f"window {cfg.sliding_window}", cfg.sliding_window),
             ("global", 1 << 30))]
-    records.append(_k5_record(
-        dev, f"gemma3-4b: SIMT, bf16, head_dim {cfg.head_dim}, window "
-             f"{cfg.sliding_window}", "prefill_attention:simt", M=128,
-        starts=[1024, 1100, 1500, 1960], Hkv=cfg.n_kv_heads, Hq=cfg.n_heads,
-        Dh=cfg.head_dim, window=cfg.sliding_window))
+    # K5 at its chunk shape: tc256 with the local layers' window and the
+    # global layers' 2^30; the SIMT kernel held there in f32 (printed; no
+    # main path runs it)
+    k5 = dict(M=128, starts=[1024, 1100, 1500, 1960], Hkv=cfg.n_kv_heads,
+              Hq=cfg.n_heads, Dh=cfg.head_dim)
+    for label, window in ((f"window {cfg.sliding_window}",
+                           cfg.sliding_window), ("global", 1 << 30)):
+        records.append(_k5_record(
+            dev, f"gemma3-4b: tc256, head_dim {cfg.head_dim}, {label}",
+            "prefill_attention:tc256", exact=True, window=window, **k5))
+    _k5_record(dev, f"gemma3-4b: SIMT, f32, head_dim {cfg.head_dim}, window "
+                    f"{cfg.sliding_window}", "prefill_attention:simt",
+               act=torch.float32, window=cfg.sliding_window, **k5)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = _dense_params(cfg, 20, dev)
@@ -2916,7 +2946,7 @@ def _gemma3_phase(dev):
         _check(eng.execution_summary()["fused_prefill"]
                and eng.stats["shared_admissions"] > 0,
                f"{label}: fused prefill and shared admissions")
-        _path_checks(label, counts[label], "simt")
+        _path_checks(label, counts[label], "tc256")
     # the window bites: the first decode step of request 0 (1100+ tokens)
     # with gemma3's windows against the same weights without them
     windowed = _prefill_then_decode(cfg, params, prompts[0], dev,

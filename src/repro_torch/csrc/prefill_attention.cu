@@ -20,9 +20,10 @@
 // to run on tensor cores, and at these sizes what is left is latency: few
 // launches, enough blocks, no serial loops.
 //
-// The tensor-core variant (bf16 activations, head_dim a multiple of 16 up
-// to 128: every serving path of the port) is two kernels:
-//   * prefill_attention_span_kernel decodes each history element once per
+// The tensor-core variants take bf16 activations with a head_dim that is
+// a multiple of 16: `tc` up to 128 (command-r, command-r-plus, qwen3,
+// deepseek), `tc256` above 128 up to 256 (gemma3-4b).  Both start with
+//   * prefill_attention_span_kernel, which decodes each history element once per
 //     (slot, KV head) -- not once per query tile -- into a bf16 span buffer
 //     [2 (K, V), B, Hkv, L, Dh] (L = history + chunk rounded up to 64
 //     keys; unwritten history rows and pad are zeros), copies the raw chunk
@@ -34,6 +35,9 @@
 //     blocks cannot wait for one another inside a launch, so one pass
 //     over the span, which then sits in the 50 MB L2 for the next kernel,
 //     is the simplest way to decode once and still keep 256 blocks busy.
+//     Key tiles of 64 that no query of the slot may see (unwritten
+//     history, pad, history before the window) are skipped: no attention
+//     block loads them.
 //   * prefill_attention_tc_kernel: one block per (64 query rows, KV head,
 //     slot), 4 warps of 16 rows (row r = chunk query r / G, query head
 //     h * G + r % G).  Key tiles of 64 stream from the span buffer through
@@ -59,17 +63,44 @@
 //     function, with p = exp(s - m) rounded at other points; flash-chunk
 //     boundaries therefore play no part here, and the shared-memory use is
 //     70 KB per block at any span (2 blocks per SM).
+//   * prefill_attention_tc256_kernel (head_dim up to 256): the same tiles,
+//     mask, softmax and P V, with three changes that head_dim 256 forces.
+//     O of 64 rows x 256 dims is 128 f32 registers a thread, so q stays in
+//     shared memory and its A fragments are read by ldmatrix at every k
+//     step.  q * scale is one bf16 term when the scale is a power of two
+//     (1/16 at 256: q * scale is then exact in bf16), else three.  Q, K and
+//     V take 99 KB at 256, so K and V are single-buffered and two blocks
+//     share an SM: a tile's keys load during the previous tile's P V, its
+//     values during its own S (double buffers, 165 KB and one block an
+//     SM, took 1.35x as long on an H100 at gemma3's chunk shape,
+//     scripts/time_k5.py).  gemma3's chunk group has only 2 x 4 x 4 = 32
+//     blocks of 64 rows, so the key span is split: grid (split, 64-row
+//     tile, KV head x slot),
+//     split s covering key tiles [s TS, (s + 1) TS) (tc256_splits: TS 4,
+//     more for spans past 32 splits; fixed by M, page size and C alone, so
+//     a slot's rows never depend on another slot's start or the window).
+//     A split writes its rows' (o, m, l) partials; a split that no row of
+//     its block may see writes only (m, l) = (-2e38, 0) and loads nothing.
+//     prefill_attention_merge_kernel combines a row's partials in split
+//     order, skipping those with l = 0, and normalizes (one split: the
+//     attention kernel writes the output itself).  Bound at gemma3's chunk
+//     group (4 slots, C 64, 8 / 4 heads of 256, starts 1024-1960, window
+//     1024): 4.3 GFLOP of exact bf16 products (one a q.k multiply-add,
+//     three a p.v one), 4.3 us on the tensor cores, about 3 us of HBM
+//     bytes.
 // The SIMT variant (f32 activations -- an exact split of f32 chunk k / v
 // would take nine MMAs -- and head dims that are not a multiple of 16) is
 // prefill_attention_simt_kernel: one block per (slot, KV head, 4 chunk
 // queries), every score of a flash chunk of ck keys in shared memory
 // before its row max (the reference's per-flash-chunk softmax), f32 FMA
-// throughout, and its own page writes of its query tile's rows.  The
-// wrapper picks the variant by dtype and head_dim
+// throughout, and its own page writes of its query tile's rows.  Its key
+// skip (tile_live) does not know the window: a slow spot for f32 and odd
+// head dims only.  The wrapper picks the variant by dtype and head_dim
 // (kernels/prefill_attention.py:prefill_variant).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cmath>
 #include <cstdint>
 #include <type_traits>
 
@@ -328,6 +359,14 @@ size_t smem_bytes(int R, int Dh, int ck) {
 
 constexpr size_t kSmemCap = 200 * 1024;
 
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)smem);
+}
+
 template <typename AT, typename PT>
 int launch_simt(const void* q, const void* k, const void* v, void* k_pages,
            void* v_pages, const int* bt, const int* starts, const int* window,
@@ -339,12 +378,8 @@ int launch_simt(const void* q, const void* k, const void* v, void* k_pages,
   while (QT > 1 && smem_bytes(G * QT, Dh, ck) > kSmemCap) QT /= 2;
   const size_t smem = smem_bytes(G * QT, Dh, ck);
   if (smem > kSmemCap) return (int)cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        prefill_attention_simt_kernel<AT, PT>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
+  cudaError_t e = allow_smem(prefill_attention_simt_kernel<AT, PT>, smem);
+  if (e != cudaSuccess) return (int)e;
   dim3 grid((C + QT - 1) / QT, Hkv, B);
   prefill_attention_simt_kernel<AT, PT><<<grid, kThreads, smem, s>>>(
       (const AT*)q, (const AT*)k, (const AT*)v, (PT*)k_pages, (PT*)v_pages,
@@ -420,6 +455,9 @@ __device__ __forceinline__ void cp_async_commit() {
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
+__device__ __forceinline__ void cp_async_wait_1() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
 
 // Position of span key kk: history rows below start, chunk rows, else -1.
 __device__ __forceinline__ int key_pos(int kk, int S_h, int C, int start) {
@@ -455,17 +493,20 @@ __device__ __forceinline__ float table_or_decode(const float* table, int8_t c,
 // Span rows of one (slot, KV head): the first half of the block's threads
 // K, the second V, 128 / (Dh / 8) rows each, 8 values a thread.  int8
 // pages decode through a 256-entry table in shared memory (one lookup a
-// code).  Tiles that hold neither a written history row nor a chunk row
-// are never loaded by prefill_attention_tc_kernel and are not written; in
-// the others, unwritten history and pad rows are zeros.  A chunk row is
-// copied and also encoded into its page (the page write).
+// code).  Tiles that no query of the slot may see (tc_tile_live over the
+// slot's positions [start, start + C)) are never loaded by the attention
+// kernels, whose blocks see a subset of those positions, and are not
+// written; in the others, unwritten history and pad rows are zeros.  Every
+// chunk row's tile is live: a chunk row is copied and also encoded into
+// its page (the page write).
 template <typename PT>
 __global__ void __launch_bounds__(256) prefill_attention_span_kernel(
     const bf16* __restrict__ k, const bf16* __restrict__ v,
     PT* __restrict__ k_pages, PT* __restrict__ v_pages,
     const int* __restrict__ bt, const int* __restrict__ starts,
-    const int* __restrict__ page_ok, bf16* __restrict__ span, int B, int C,
-    int M, int ps, int Hkv, int Dh, int L, int n, int es) {
+    const int* __restrict__ window, const int* __restrict__ page_ok,
+    bf16* __restrict__ span, int B, int C, int M, int ps, int Hkv, int Dh,
+    int L, int n, int es) {
   constexpr bool kTable = std::is_same<PT, int8_t>::value;
   __shared__ float table[kTable ? 256 : 1];
   if (kTable) {
@@ -479,8 +520,9 @@ __global__ void __launch_bounds__(256) prefill_attention_span_kernel(
   const int d0 = (tid % vecs) * 8;
   if (tid >= rows * vecs || t >= L) return;
   const int F = Hkv * Dh, S_h = M * ps, start = starts[b];
-  const int tile0 = t / kTcKeys * kTcKeys;
-  if (!(tile0 < min(start, S_h) || tile0 + kTcKeys > S_h)) return;
+  if (!tc_tile_live(t / kTcKeys * kTcKeys, S_h, C, start, start,
+                    start + C - 1, window[0]))
+    return;
   PT* pages = is_v ? v_pages : k_pages;
   uint4 val = make_uint4(0u, 0u, 0u, 0u);
   if (t < S_h) {
@@ -511,6 +553,110 @@ __global__ void __launch_bounds__(256) prefill_attention_span_kernel(
   }
   *reinterpret_cast<uint4*>(
       span + ((((size_t)is_v * B + b) * Hkv + h) * L + t) * Dh + d0) = val;
+}
+
+// Softcap, mask and the running max / sum over one 64-key tile at key t0:
+// the scores s become p = exp(s - m), and o is rescaled by the tile's
+// corr.  Element e of n-tile nt is row g + 8 * (e >> 1), key t0 + nt * 8 +
+// tig * 2 + (e & 1); `whole` skips the mask.
+template <int kNdn>
+__device__ __forceinline__ void tile_softmax(
+    float (&s)[kTcKeys / 8][4], float (&o)[kNdn][4], float* m_r, float* l_r,
+    int t0, bool whole, const bool* rvalid, const int* qpos, int S_h, int C,
+    int start, long long win, float softcap, int tig) {
+  float mx[2] = {kNeg, kNeg};
+#pragma unroll
+  for (int nt = 0; nt < kTcKeys / 8; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = e >> 1;
+      float x = s[nt][e];
+      if (softcap > 0.0f) x = softcap * tanhf(x / softcap);
+      if (!whole) {
+        const int pos = key_pos(t0 + nt * 8 + tig * 2 + (e & 1), S_h, C,
+                                start);
+        const bool ok = rvalid[i] && pos >= 0 && qpos[i] >= pos &&
+                        (long long)(qpos[i] - pos) < win;
+        x = ok ? x : kNeg;
+      }
+      s[nt][e] = x;
+      mx[i] = fmaxf(mx[i], x);
+    }
+  }
+  float corr[2], psum[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+    const float m_new = fmaxf(m_r[i], mx[i]);
+    corr[i] = expf(m_r[i] - m_new);
+    m_r[i] = m_new;
+  }
+#pragma unroll
+  for (int nt = 0; nt < kTcKeys / 8; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = e >> 1;
+      const float p = s[nt][e] == kNeg ? 0.0f : expf(s[nt][e] - m_r[i]);
+      s[nt][e] = p;
+      psum[i] += p;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    psum[i] += __shfl_xor_sync(0xffffffffu, psum[i], 1);
+    psum[i] += __shfl_xor_sync(0xffffffffu, psum[i], 2);
+    l_r[i] = l_r[i] * corr[i] + psum[i];
+  }
+#pragma unroll
+  for (int dn = 0; dn < kNdn; ++dn) {
+    o[dn][0] *= corr[0];
+    o[dn][1] *= corr[0];
+    o[dn][2] *= corr[1];
+    o[dn][3] *= corr[1];
+  }
+}
+
+// O += (hi + mid + lo)(P) V over one 64-key tile Vt [kTcKeys][DS], 16 keys
+// per k step: the score fragments of n-tiles 2 kk and 2 kk + 1 are the A
+// fragment of that step; dim tiles past ndn are left alone.
+template <int kNdn>
+__device__ __forceinline__ void tile_pv(float (&o)[kNdn][4],
+                                        const float (&s)[kTcKeys / 8][4],
+                                        const bf16* Vt, int DS, int ndn,
+                                        int lane) {
+#pragma unroll
+  for (int kk = 0; kk < kTcKeys / 16; ++kk) {
+    uint32_t pa[3][4], t3[3];
+    split3(s[2 * kk][0], s[2 * kk][1], t3);
+#pragma unroll
+    for (int i = 0; i < 3; ++i) pa[i][0] = t3[i];
+    split3(s[2 * kk][2], s[2 * kk][3], t3);
+#pragma unroll
+    for (int i = 0; i < 3; ++i) pa[i][1] = t3[i];
+    split3(s[2 * kk + 1][0], s[2 * kk + 1][1], t3);
+#pragma unroll
+    for (int i = 0; i < 3; ++i) pa[i][2] = t3[i];
+    split3(s[2 * kk + 1][2], s[2 * kk + 1][3], t3);
+#pragma unroll
+    for (int i = 0; i < 3; ++i) pa[i][3] = t3[i];
+    // B fragments of dim tiles dn and dn + 1 by one transposing
+    // ldmatrix: lane l gives key kk * 16 + 8 * ((l / 8) % 2) + l % 8,
+    // dims (dn + l / 16) * 8
+    const bf16* vl = Vt + (kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) * DS +
+                     (lane >> 4) * 8;
+#pragma unroll
+    for (int dn = 0; dn < kNdn; dn += 2) {
+      if (dn >= ndn) break;
+      uint32_t b[4];
+      ldmatrix_x4_trans(b, vl + dn * 8);
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+        mma_bf16(o[dn], pa[i], b[0], b[1]);
+        mma_bf16(o[dn + 1], pa[i], b[2], b[3]);
+      }
+    }
+  }
 }
 
 __global__ void __launch_bounds__(kTcThreads, 2) prefill_attention_tc_kernel(
@@ -656,99 +802,13 @@ __global__ void __launch_bounds__(kTcThreads, 2) prefill_attention_tc_kernel(
         }
     }
 
-    // softcap, mask, running max; element e of n-tile nt is row
-    // g + 8 * (e >> 1), key t * 64 + nt * 8 + tig * 2 + (e & 1).  A tile of
-    // written history that every row sees whole needs no mask (rows past
-    // R are never stored, and their zero q gives finite scores).
+    // A tile of written history that every row sees whole needs no mask
+    // (rows past R are never stored, and their zero q gives finite scores).
     const bool whole = t * kTcKeys + kTcKeys <= min(start, S_h) &&
                        (long long)qhi - t * kTcKeys < win;
-    float mx[2] = {kNeg, kNeg};
-#pragma unroll
-    for (int nt = 0; nt < kTcKeys / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = e >> 1;
-        float x = s[nt][e];
-        if (softcap > 0.0f) x = softcap * tanhf(x / softcap);
-        if (!whole) {
-          const int pos = key_pos(t * kTcKeys + nt * 8 + tig * 2 + (e & 1),
-                                  S_h, C, start);
-          const bool ok = rvalid[i] && pos >= 0 && qpos[i] >= pos &&
-                          (long long)(qpos[i] - pos) < win;
-          x = ok ? x : kNeg;
-        }
-        s[nt][e] = x;
-        mx[i] = fmaxf(mx[i], x);
-      }
-    }
-    float corr[2], psum[2] = {0.0f, 0.0f};
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-      const float m_new = fmaxf(m_r[i], mx[i]);
-      corr[i] = expf(m_r[i] - m_new);
-      m_r[i] = m_new;
-    }
-#pragma unroll
-    for (int nt = 0; nt < kTcKeys / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = e >> 1;
-        const float p = s[nt][e] == kNeg ? 0.0f : expf(s[nt][e] - m_r[i]);
-        s[nt][e] = p;
-        psum[i] += p;
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      psum[i] += __shfl_xor_sync(0xffffffffu, psum[i], 1);
-      psum[i] += __shfl_xor_sync(0xffffffffu, psum[i], 2);
-      l_r[i] = l_r[i] * corr[i] + psum[i];
-    }
-#pragma unroll
-    for (int dn = 0; dn < kDMax / 8; ++dn) {
-      o[dn][0] *= corr[0];
-      o[dn][1] *= corr[0];
-      o[dn][2] *= corr[1];
-      o[dn][3] *= corr[1];
-    }
-
-    // O += (hi + mid + lo)(P) V, 16 keys per k step: the score fragments
-    // of n-tiles 2 kk and 2 kk + 1 are the A fragment of that step
-#pragma unroll
-    for (int kk = 0; kk < kTcKeys / 16; ++kk) {
-      uint32_t pa[3][4], t3[3];
-      split3(s[2 * kk][0], s[2 * kk][1], t3);
-#pragma unroll
-      for (int i = 0; i < 3; ++i) pa[i][0] = t3[i];
-      split3(s[2 * kk][2], s[2 * kk][3], t3);
-#pragma unroll
-      for (int i = 0; i < 3; ++i) pa[i][1] = t3[i];
-      split3(s[2 * kk + 1][0], s[2 * kk + 1][1], t3);
-#pragma unroll
-      for (int i = 0; i < 3; ++i) pa[i][2] = t3[i];
-      split3(s[2 * kk + 1][2], s[2 * kk + 1][3], t3);
-#pragma unroll
-      for (int i = 0; i < 3; ++i) pa[i][3] = t3[i];
-      // B fragments of dim tiles dn and dn + 1 by one transposing
-      // ldmatrix: lane l gives key kk * 16 + 8 * ((l / 8) % 2) + l % 8,
-      // dims (dn + l / 16) * 8
-      const bf16* vl =
-          Vt + (kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) * DS +
-          (lane >> 4) * 8;
-#pragma unroll
-      for (int dn = 0; dn < kDMax / 8; dn += 2) {
-        if (dn >= ndn) break;
-        uint32_t b[4];
-        ldmatrix_x4_trans(b, vl + dn * 8);
-#pragma unroll
-        for (int i = 0; i < 3; ++i) {
-          mma_bf16(o[dn], pa[i], b[0], b[1]);
-          mma_bf16(o[dn + 1], pa[i], b[2], b[3]);
-        }
-      }
-    }
+    tile_softmax(s, o, m_r, l_r, t * kTcKeys, whole, rvalid, qpos, S_h, C,
+                 start, win, softcap, tig);
+    tile_pv(o, s, Vt, DS, ndn, lane);
     t = t_next;
     buf ^= 1;
   }
@@ -771,8 +831,264 @@ __global__ void __launch_bounds__(kTcThreads, 2) prefill_attention_tc_kernel(
   }
 }
 
+// ---- tensor-core variant for head_dim up to 256 -------------------------
+
+constexpr int kTc256DMax = 256;   // largest head_dim of tc256
+constexpr int kSplitTiles = 4;    // key tiles a split covers, at least
+constexpr int kMaxSplits = 32;    // beyond, a split covers more tiles
+constexpr size_t kBlockSmem = 227 * 1024;  // what a block may take
+// The launchers' return code for a head_dim the variant does not take
+// (kernels/prefill_attention.py raises on it).
+constexpr int kRefused = -1;
+
+// The block's rows (as prefill_attention_tc_kernel's) over the live key
+// tiles of split blockIdx.x, tiles [split TS, (split + 1) TS).  With S
+// splits the rows' (o, m, l) go to part_o [rows, S, Dh] and part_ml
+// [rows, S, 2] (a row with l = 0 writes (m, l) only); with one split the
+// normalized output to out.  kQTerms: bf16 terms of q * scale (1 when
+// scale is a power of two, so q * scale is exact in bf16; else 3).
+template <int kQTerms>
+__global__ void __launch_bounds__(kTcThreads, 2)
+    prefill_attention_tc256_kernel(
+        const bf16* __restrict__ q, const bf16* __restrict__ span,
+        const int* __restrict__ starts, const int* __restrict__ window,
+        bf16* __restrict__ out, float* __restrict__ part_o,
+        float* __restrict__ part_ml, int B, int C, int M, int ps, int Hq,
+        int Hkv, int Dh, int L, int TS, int S, float scale, float softcap) {
+  const int split = blockIdx.x, qt = blockIdx.y;
+  const int h = blockIdx.z % Hkv, b = blockIdx.z / Hkv;
+  const int G = Hq / Hkv, R = G * C, S_h = M * ps;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tig = lane & 3;
+  const int start = starts[b];
+  const long long win = window[0];
+  const int DS = Dh + kPad;
+  const int nks = Dh / 16, ndn = Dh / 8, per_row = Dh / 8;
+
+  extern __shared__ float4 tc_smem4[];
+  bf16* Qs = reinterpret_cast<bf16*>(tc_smem4);  // [kTcRows][DS]
+  bf16* Ks = Qs + kTcRows * DS;                   // [kTcKeys][DS]
+  bf16* Vs = Ks + kTcKeys * DS;                   // [kTcKeys][DS]
+  const bf16* kspan = span + ((size_t)b * Hkv + h) * L * Dh;
+  const bf16* vspan = span + (((size_t)B + b) * Hkv + h) * L * Dh;
+
+  // this thread's rows: r_base + g and r_base + g + 8
+  const int r_base = qt * kTcRows + warp * 16;
+  int qpos[2];
+  bool rvalid[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = r_base + g + 8 * i;
+    rvalid[i] = r < R;
+    qpos[i] = start + r / G;
+  }
+  const int r_lo = qt * kTcRows, r_hi = min(R, r_lo + kTcRows) - 1;
+  const int qlo = start + r_lo / G, qhi = start + r_hi / G;
+
+  float o[kTc256DMax / 8][4];
+#pragma unroll
+  for (int dn = 0; dn < kTc256DMax / 8; ++dn)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[dn][e] = 0.0f;
+  float m_r[2] = {kNeg, kNeg}, l_r[2] = {0.0f, 0.0f};
+
+  const int t_end = min(L / kTcKeys, (split + 1) * TS);
+  auto next_live = [&](int t) {
+    while (t < t_end &&
+           !tc_tile_live(t * kTcKeys, S_h, C, start, qlo, qhi, win))
+      ++t;
+    return t;
+  };
+  // one tile of keys (or values) into dst, as its own commit group
+  auto issue = [&](int t, bf16* dst_s, const bf16* src_g) {
+    for (int c = threadIdx.x; c < kTcKeys * per_row; c += kTcThreads) {
+      const int key = c / per_row, d8 = (c % per_row) * 8;
+      cp_async16(dst_s + key * DS + d8,
+                 src_g + (size_t)(t * kTcKeys + key) * Dh + d8);
+    }
+    cp_async_commit();
+  };
+
+  int t = next_live(split * TS);
+  if (t < t_end) {
+    // the block's 64 q rows (zeros past R), pre-scaled when one term is
+    // exact; the loop's first barrier publishes them
+    for (int c = threadIdx.x; c < kTcRows * per_row; c += kTcThreads) {
+      const int row = c / per_row, d8 = (c % per_row) * 8;
+      const int r = qt * kTcRows + row;
+      uint4 val = make_uint4(0u, 0u, 0u, 0u);
+      if (r < R) {
+        val = *reinterpret_cast<const uint4*>(
+            q + (((size_t)b * C + r / G) * Hq + h * G + r % G) * Dh + d8);
+        if (kQTerms == 1) {
+          __nv_bfloat162* x2 = reinterpret_cast<__nv_bfloat162*>(&val);
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            x2[e] = __floats2bfloat162_rn(__low2float(x2[e]) * scale,
+                                          __high2float(x2[e]) * scale);
+        }
+      }
+      *reinterpret_cast<uint4*>(Qs + row * DS + d8) = val;
+    }
+    issue(t, Ks, kspan);
+    issue(t, Vs, vspan);
+  }
+  // A fragments of q by ldmatrix: lane l gives row l % 8 + 8 * ((l / 8) %
+  // 2), cols 8 * (l / 16) of the k step
+  const bf16* ql = Qs + (warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * DS +
+                   (lane >> 4) * 8;
+
+  // K and V single-buffered (two blocks fit an SM): tile t + 1's keys
+  // load during tile t's P V, its values during tile t + 1's S
+  while (t < t_end) {
+    const int t_next = next_live(t + 1);
+    cp_async_wait_1();
+    __syncthreads();  // keys of tile t landed (its values may not have)
+
+    // S = q K^T over the tile's 64 keys (8 n-tiles of 8), B fragments as
+    // in prefill_attention_tc_kernel
+    float s[kTcKeys / 8][4];
+#pragma unroll
+    for (int nt = 0; nt < kTcKeys / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nt][e] = 0.0f;
+    const bf16* kl = Ks + ((lane >> 4) * 8 + (lane & 7)) * DS +
+                     ((lane >> 3) & 1) * 8;
+#pragma unroll
+    for (int ks = 0; ks < kTc256DMax / 16; ++ks) {
+      if (ks >= nks) break;
+      uint32_t a[4], bk[kTcKeys / 16][4];
+      ldmatrix_x4(a, ql + ks * 16);
+#pragma unroll
+      for (int np = 0; np < kTcKeys / 16; ++np)
+        ldmatrix_x4(bk[np], kl + np * 16 * DS + ks * 16);
+      if constexpr (kQTerms == 1) {
+#pragma unroll
+        for (int np = 0; np < kTcKeys / 16; ++np) {
+          mma_bf16(s[2 * np], a, bk[np][0], bk[np][1]);
+          mma_bf16(s[2 * np + 1], a, bk[np][2], bk[np][3]);
+        }
+      } else {
+        uint32_t qa[3][4];
+#pragma unroll
+        for (int reg = 0; reg < 4; ++reg) {
+          const __nv_bfloat162 x =
+              *reinterpret_cast<const __nv_bfloat162*>(&a[reg]);
+          uint32_t t3[3];
+          split3(__low2float(x) * scale, __high2float(x) * scale, t3);
+#pragma unroll
+          for (int i = 0; i < 3; ++i) qa[i][reg] = t3[i];
+        }
+#pragma unroll
+        for (int i = 0; i < 3; ++i)
+#pragma unroll
+          for (int np = 0; np < kTcKeys / 16; ++np) {
+            mma_bf16(s[2 * np], qa[i], bk[np][0], bk[np][1]);
+            mma_bf16(s[2 * np + 1], qa[i], bk[np][2], bk[np][3]);
+          }
+      }
+    }
+
+    __syncthreads();  // every warp is done with the keys
+    if (t_next < t_end) issue(t_next, Ks, kspan);
+    const bool whole = t * kTcKeys + kTcKeys <= min(start, S_h) &&
+                       (long long)qhi - t * kTcKeys < win;
+    tile_softmax(s, o, m_r, l_r, t * kTcKeys, whole, rvalid, qpos, S_h, C,
+                 start, win, softcap, tig);
+    if (t_next < t_end)
+      cp_async_wait_1();
+    else
+      cp_async_wait_all();
+    __syncthreads();  // values of tile t landed
+    tile_pv(o, s, Vs, DS, ndn, lane);
+    __syncthreads();  // every warp is done with the values
+    if (t_next < t_end) issue(t_next, Vs, vspan);
+    t = t_next;
+  }
+
+  // element (dn, e) is row g + 8 * (e >> 1), dims dn * 8 + tig * 2 + (e & 1)
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (!rvalid[i]) continue;
+    const int r = r_base + g + 8 * i;
+    const size_t row = ((size_t)b * C + r / G) * Hq + h * G + r % G;
+    if (S == 1) {
+      bf16* dst = out + row * Dh + tig * 2;
+      const float l = fmaxf(l_r[i], 1e-30f);
+#pragma unroll
+      for (int dn = 0; dn < kTc256DMax / 8; ++dn) {
+        if (dn >= ndn) break;
+        *reinterpret_cast<__nv_bfloat162*>(dst + dn * 8) =
+            __floats2bfloat162_rn(o[dn][2 * i] / l, o[dn][2 * i + 1] / l);
+      }
+      continue;
+    }
+    const size_t part = row * S + split;
+    if (tig == 0) {
+      part_ml[2 * part] = m_r[i];
+      part_ml[2 * part + 1] = l_r[i];
+    }
+    if (l_r[i] == 0.0f) continue;  // the merge skips this partial
+    float* dst = part_o + part * Dh + tig * 2;
+#pragma unroll
+    for (int dn = 0; dn < kTc256DMax / 8; ++dn) {
+      if (dn >= ndn) break;
+      *reinterpret_cast<float2*>(dst + dn * 8) =
+          make_float2(o[dn][2 * i], o[dn][2 * i + 1]);
+    }
+  }
+}
+
+// A row's S partials combined in split order (those with l = 0 hold no
+// key and are skipped), normalized to bf16.  One thread per (row, dim).
+__global__ void prefill_attention_merge_kernel(
+    const float* __restrict__ part_o, const float* __restrict__ part_ml,
+    bf16* __restrict__ out, int rows, int S, int Dh) {
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (size_t)rows * Dh) return;
+  const size_t row = i / Dh;
+  const float* ml = part_ml + row * S * 2;
+  const float* po = part_o + row * S * Dh + i % Dh;
+  float m = kNeg, l = 0.0f, o = 0.0f;
+  for (int s = 0; s < S; ++s) {
+    const float ls = ml[2 * s + 1];
+    if (ls == 0.0f) continue;
+    const float ms = ml[2 * s], mn = fmaxf(m, ms);
+    const float ca = expf(m - mn), cb = expf(ms - mn);
+    l = fmaf(l, ca, ls * cb);
+    o = fmaf(o, ca, po[(size_t)s * Dh] * cb);
+    m = mn;
+  }
+  out[i] = __float2bfloat16_rn(o / fmaxf(l, 1e-30f));
+}
+
 size_t tc_smem_bytes(int Dh) {
   return sizeof(bf16) * 4 * kTcKeys * (size_t)(Dh + kPad);
+}
+
+// Q, K and V of one tile (kernels/prefill_attention.py mirrors it).
+size_t tc256_smem_bytes(int Dh) {
+  return sizeof(bf16) * 3 * kTcKeys * (size_t)(Dh + kPad);
+}
+
+// Key tiles a tc256 split covers over n_tiles tiles (the wrapper's
+// tc256_splits): shapes alone decide it.
+int tc256_split_tiles(int n_tiles) {
+  return max(kSplitTiles, (n_tiles + kMaxSplits - 1) / kMaxSplits);
+}
+
+template <typename PT>
+cudaError_t launch_span(const void* k, const void* v, void* k_pages,
+                        void* v_pages, const int* bt, const int* starts,
+                        const int* window, const int* page_ok, void* span,
+                        int B, int C, int M, int ps, int Hkv, int Dh, int L,
+                        int n, int es, cudaStream_t s) {
+  const int rows = 128 / (Dh / 8);
+  prefill_attention_span_kernel<PT>
+      <<<dim3((L + rows - 1) / rows, Hkv, B), 256, 0, s>>>(
+      (const bf16*)k, (const bf16*)v, (PT*)k_pages, (PT*)v_pages, bt, starts,
+      window, page_ok, (bf16*)span, B, C, M, ps, Hkv, Dh, L, n, es);
+  return cudaGetLastError();
 }
 
 template <typename PT>
@@ -783,20 +1099,13 @@ int launch_tc(const void* q, const void* k, const void* v, void* k_pages,
               int es, float scale, float softcap, cudaStream_t s) {
   if (Dh % 16 != 0 || Dh > kDMax) return (int)cudaErrorInvalidValue;
   const int L = (M * ps + C + kTcKeys - 1) / kTcKeys * kTcKeys;
-  const int rows = 128 / (Dh / 8);
-  prefill_attention_span_kernel<PT>
-      <<<dim3((L + rows - 1) / rows, Hkv, B), 256, 0, s>>>(
-      (const bf16*)k, (const bf16*)v, (PT*)k_pages, (PT*)v_pages, bt, starts,
-      page_ok, (bf16*)span, B, C, M, ps, Hkv, Dh, L, n, es);
-  cudaError_t e = cudaGetLastError();
+  cudaError_t e = launch_span<PT>(k, v, k_pages, v_pages, bt, starts, window,
+                                  page_ok, span, B, C, M, ps, Hkv, Dh, L, n,
+                                  es, s);
   if (e != cudaSuccess) return (int)e;
   const size_t smem = tc_smem_bytes(Dh);
-  if (smem > 48 * 1024) {
-    e = cudaFuncSetAttribute(prefill_attention_tc_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
+  e = allow_smem(prefill_attention_tc_kernel, smem);
+  if (e != cudaSuccess) return (int)e;
   const int G = Hq / Hkv;
   dim3 grid((G * C + kTcRows - 1) / kTcRows, Hkv, B);
   prefill_attention_tc_kernel<<<grid, kTcThreads, smem, s>>>(
@@ -805,20 +1114,68 @@ int launch_tc(const void* q, const void* k, const void* v, void* k_pages,
   return (int)cudaGetLastError();
 }
 
+template <typename PT>
+int launch_tc256(const void* q, const void* k, const void* v, void* k_pages,
+                 void* v_pages, const int* bt, const int* starts,
+                 const int* window, const int* page_ok, void* out, void* span,
+                 void* part_o, void* part_ml, int B, int C, int M, int ps,
+                 int Hq, int Hkv, int Dh, int n, int es, int splits,
+                 float scale, float softcap, cudaStream_t s) {
+  const size_t smem = tc256_smem_bytes(Dh);
+  if (Dh % 16 != 0 || Dh > kTc256DMax || smem > kBlockSmem) return kRefused;
+  const int L = (M * ps + C + kTcKeys - 1) / kTcKeys * kTcKeys;
+  const int n_tiles = L / kTcKeys, TS = tc256_split_tiles(n_tiles);
+  const int S = (n_tiles + TS - 1) / TS;
+  if (splits != S || (S > 1 && (part_o == nullptr || part_ml == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e = launch_span<PT>(k, v, k_pages, v_pages, bt, starts, window,
+                                  page_ok, span, B, C, M, ps, Hkv, Dh, L, n,
+                                  es, s);
+  if (e != cudaSuccess) return (int)e;
+  int ex;
+  auto kernel = std::frexp(scale, &ex) == 0.5f
+                    ? prefill_attention_tc256_kernel<1>
+                    : prefill_attention_tc256_kernel<3>;
+  e = allow_smem(kernel, smem);
+  if (e != cudaSuccess) return (int)e;
+  const int G = Hq / Hkv;
+  dim3 grid(S, (G * C + kTcRows - 1) / kTcRows, Hkv * B);
+  kernel<<<grid, kTcThreads, smem, s>>>(
+      (const bf16*)q, (const bf16*)span, starts, window, (bf16*)out,
+      (float*)part_o, (float*)part_ml, B, C, M, ps, Hq, Hkv, Dh, L, TS, S,
+      scale, softcap);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || S == 1) return (int)e;
+  const int rows = B * C * Hq;
+  const size_t total = (size_t)rows * Dh;
+  prefill_attention_merge_kernel<<<(unsigned)((total + 255) / 256), 256, 0,
+                                   s>>>((const float*)part_o,
+                                        (const float*)part_ml, (bf16*)out,
+                                        rows, S, Dh);
+  return (int)cudaGetLastError();
+}
+
 template <typename AT>
 int launch_pool(int variant, int pool_kind, const void* q, const void* k,
                 const void* v, void* kp, void* vp, const int* bt,
                 const int* st, const int* win, const int* ok, void* out,
-                void* span, int B, int C, int M, int ps, int Hq, int Hkv,
-                int Dh, int n, int es, int hist_bf16, int ck, float scale,
-                float softcap, cudaStream_t s) {
+                void* span, void* part_o, void* part_ml, int B, int C, int M,
+                int ps, int Hq, int Hkv, int Dh, int n, int es, int hist_bf16,
+                int ck, int splits, float scale, float softcap,
+                cudaStream_t s) {
+  constexpr bool kBf16 = std::is_same<AT, __nv_bfloat16>::value;
 #define K5_LAUNCH(PT)                                                        \
   if (variant == 1)                                                          \
-    return std::is_same<AT, __nv_bfloat16>::value                            \
-               ? launch_tc<PT>(q, k, v, kp, vp, bt, st, win, ok, out, span,  \
-                               B, C, M, ps, Hq, Hkv, Dh, n, es, scale,       \
-                               softcap, s)                                   \
-               : (int)cudaErrorInvalidValue;                                 \
+    return kBf16 ? launch_tc<PT>(q, k, v, kp, vp, bt, st, win, ok, out,      \
+                                 span, B, C, M, ps, Hq, Hkv, Dh, n, es,      \
+                                 scale, softcap, s)                          \
+                 : (int)cudaErrorInvalidValue;                               \
+  if (variant == 2)                                                          \
+    return kBf16 ? launch_tc256<PT>(q, k, v, kp, vp, bt, st, win, ok, out,   \
+                                    span, part_o, part_ml, B, C, M, ps, Hq,  \
+                                    Hkv, Dh, n, es, splits, scale, softcap,  \
+                                    s)                                       \
+                 : (int)cudaErrorInvalidValue;                               \
   return launch_simt<AT, PT>(q, k, v, kp, vp, bt, st, win, ok, out, B, C, M, \
                              ps, Hq, Hkv, Dh, n, es, hist_bf16, ck, scale,   \
                              softcap, s)
@@ -841,36 +1198,40 @@ int launch_pool(int variant, int pool_kind, const void* q, const void* k,
 
 // act_kind: 0 = float32, 1 = bfloat16 (q, k, v and the output).
 // pool_kind: 0 = int8 codes, 1 = int16 codes, 2 = float32, 3 = bfloat16.
-// variant (the wrapper's prefill_variant): 0 = SIMT, 1 = tensor cores
-// (bf16 activations, Dh a multiple of 16 up to 128; `span` is its bf16
-// [2, B, Hkv, L, Dh] scratch, L = M * ps + C rounded up to 64).
+// variant (the wrapper's prefill_variant): 0 = SIMT, 1 = tensor cores up
+// to head_dim 128, 2 = tensor cores up to 256 with the key span split
+// (both bf16 activations and Dh a multiple of 16; `span` is their bf16
+// [2, B, Hkv, L, Dh] scratch, L = M * ps + C rounded up to 64; variant 2
+// takes `splits` = tc256_splits and, with more than one, its f32
+// partials part_o [B * C * Hq, splits, Dh] and part_ml [.., splits, 2]).
 // hist_bf16: round decoded history to bf16 (the kv_decode dtype chain;
-// always so on the tensor-core variant).  page_ok may be null (every page
-// writable).
+// always so on the tensor-core variants).  page_ok may be null (every page
+// writable).  Returns 0, a CUDA error code, or -1 (kRefused) when variant
+// 2 does not take Dh.
 extern "C" int prefill_attention_launch(
     const void* q, const void* k, const void* v, void* k_pages, void* v_pages,
     const void* bt, const void* starts, const void* window,
-    const void* page_ok, void* out, void* span, int B, int C, int M, int ps,
-    int Hq, int Hkv, int Dh, int act_kind, int pool_kind, int n, int es,
-    int hist_bf16, int ck, int variant, float scale, float softcap,
-    void* stream) {
+    const void* page_ok, void* out, void* span, void* part_o, void* part_ml,
+    int B, int C, int M, int ps, int Hq, int Hkv, int Dh, int act_kind,
+    int pool_kind, int n, int es, int hist_bf16, int ck, int variant,
+    int splits, float scale, float softcap, void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const int* bt_i = (const int*)bt;
   const int* st_i = (const int*)starts;
   const int* win_i = (const int*)window;
   const int* ok_i = (const int*)page_ok;
-  if (variant != 0 && variant != 1) return (int)cudaErrorInvalidValue;
+  if (variant < 0 || variant > 2) return (int)cudaErrorInvalidValue;
   if (act_kind == 0) {
     return launch_pool<float>(variant, pool_kind, q, k, v, k_pages, v_pages,
-                              bt_i, st_i, win_i, ok_i, out, span, B, C, M, ps,
-                              Hq, Hkv, Dh, n, es, hist_bf16, ck, scale,
-                              softcap, s);
+                              bt_i, st_i, win_i, ok_i, out, span, part_o,
+                              part_ml, B, C, M, ps, Hq, Hkv, Dh, n, es,
+                              hist_bf16, ck, splits, scale, softcap, s);
   }
   if (act_kind == 1) {
-    return launch_pool<__nv_bfloat16>(variant, pool_kind, q, k, v, k_pages,
-                                      v_pages, bt_i, st_i, win_i, ok_i, out,
-                                      span, B, C, M, ps, Hq, Hkv, Dh, n, es,
-                                      hist_bf16, ck, scale, softcap, s);
+    return launch_pool<__nv_bfloat16>(
+        variant, pool_kind, q, k, v, k_pages, v_pages, bt_i, st_i, win_i,
+        ok_i, out, span, part_o, part_ml, B, C, M, ps, Hq, Hkv, Dh, n, es,
+        hist_bf16, ck, splits, scale, softcap, s);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -43,7 +43,7 @@ _SIGNATURES = {
         "decode_sample_launch": [_P] * 7 + [_I] * 9 + [_F, _F, _I, _I, _P],
     },
     "prefill_attention": {
-        "prefill_attention_launch": [_P] * 11 + [_I] * 14 + [_F, _F, _P],
+        "prefill_attention_launch": [_P] * 13 + [_I] * 15 + [_F, _F, _P],
     },
     "posit_matmul": {
         "posit_matmul_launch": [_P] * 6 + [_I] * 15 + [_P],

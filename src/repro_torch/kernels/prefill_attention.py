@@ -6,8 +6,9 @@ its plain version.
 chunk of every slot as one call -- flash attention over [decoded history
 pages | raw chunk | pad], the posit encode of the chunk's K/V and their
 in-place page writes.  On a CUDA tensor the wrapper launches the variant
-`prefill_variant` picks (tensor cores for bf16 activations, SIMT f32 for
-the rest);
+`prefill_variant` picks (tensor cores for bf16 activations with head_dim a
+multiple of 16 up to 256, SIMT f32 for the rest), and raises if the
+launcher refuses it;
 on a CPU tensor it runs the plain version, the decomposed stages
 (gather -> encode -> insert -> decode -> flash attention) of
 `decomposed_prefill`, which the model's decomposed branch also runs, so on
@@ -28,30 +29,59 @@ from .posit_codec import decode_plain, encode_plain
 # launches of the kernel since the last reset (kernels/ops.reset_launches);
 # "prefill_attention:<variant>" counts them by `prefill_variant`
 LAUNCHES = {"prefill_attention": 0, "prefill_attention:tc": 0,
-            "prefill_attention:simt": 0}
+            "prefill_attention:tc256": 0, "prefill_attention:simt": 0}
 _ACT_KINDS = {torch.float32: 0, torch.bfloat16: 1}
-_VARIANTS = {"simt": 0, "tc": 1}
-# the tensor-core variant's key tile and largest head_dim
+_VARIANTS = {"simt": 0, "tc": 1, "tc256": 2}
+# the tensor-core variants' key tile and largest head dims
 TC_KEYS = 64
 TC_MAX_HEAD_DIM = 128
+TC256_MAX_HEAD_DIM = 256
+# a tc256 split covers at least this many key tiles, and there are at most
+# TC256_MAX_SPLITS splits (csrc/prefill_attention.cu:tc256_split_tiles)
+TC256_SPLIT_TILES = 4
+TC256_MAX_SPLITS = 32
+# shared memory a block may take on an H100, and what the launcher returns
+# for a head_dim the tc256 kernel does not take
+BLOCK_SMEM = 227 * 1024
+_REFUSED = -1
 
 
 def prefill_variant(dtype, head_dim: int) -> str:
-    """K5's kernel for q/k/v of `dtype`: "tc" (tensor cores, exact
-    three-term bf16 splits of q * scale and p) for bf16 activations with a
-    head_dim that is a multiple of 16 up to TC_MAX_HEAD_DIM -- every
-    serving path of the port -- else "simt" (f32 FMA: f32 chunk k / v
+    """K5's kernel for q/k/v of `dtype`: for bf16 activations with a
+    head_dim that is a multiple of 16, "tc" (tensor cores, exact bf16
+    splits of q * scale and p) up to TC_MAX_HEAD_DIM (command-r,
+    command-r-plus, qwen3, deepseek) and "tc256" (the same with q in
+    shared memory and the key span split across blocks) up to
+    TC256_MAX_HEAD_DIM (gemma3-4b); else "simt" (f32 FMA: f32 chunk k / v
     would need nine MMAs for an exact split)."""
-    if dtype == torch.bfloat16 and head_dim % 16 == 0 \
-            and 0 < head_dim <= TC_MAX_HEAD_DIM:
-        return "tc"
+    if dtype == torch.bfloat16 and head_dim % 16 == 0 and head_dim > 0:
+        if head_dim <= TC_MAX_HEAD_DIM:
+            return "tc"
+        if head_dim <= TC256_MAX_HEAD_DIM:
+            return "tc256"
     return "simt"
 
 
 def tc_span_rows(M: int, page_size: int, C: int) -> int:
-    """Rows of the tensor-core variant's span buffer: history M * page_size
+    """Rows of the tensor-core variants' span buffer: history M * page_size
     plus the chunk, rounded up to whole key tiles."""
     return -(-(M * page_size + C) // TC_KEYS) * TC_KEYS
+
+
+def tc256_splits(M: int, page_size: int, C: int) -> int:
+    """Splits of the tc256 kernel's key span: TC256_SPLIT_TILES key tiles
+    each, more when that would pass TC256_MAX_SPLITS.  The shapes alone fix
+    them, so a slot's rows never depend on another slot's start or on the
+    window."""
+    tiles = tc_span_rows(M, page_size, C) // TC_KEYS
+    per_split = max(TC256_SPLIT_TILES, -(-tiles // TC256_MAX_SPLITS))
+    return -(-tiles // per_split)
+
+
+def tc256_smem_bytes(head_dim: int) -> int:
+    """Shared memory of a tc256 block: 64 q rows, 64 keys and 64 values,
+    bf16 rows padded by 8 (two blocks share an SM at head_dim 256)."""
+    return 2 * 3 * TC_KEYS * (head_dim + 8)
 
 
 def decomposed_prefill(q, k, v, k_pages, v_pages, block_tables, starts,
@@ -131,7 +161,7 @@ def prefill_attention_paged(q, k, v, k_pages, v_pages, block_tables, starts,
     window       : [1] int32 sliding window (>= max_seq = unbounded).
     flash_chunk  : flash_attention's key-chunk length, replayed by the
                    plain version and the SIMT kernel (the tensor-core
-                   kernel's running max spans it); spans past it need
+                   kernels' running max spans it); spans past it need
                    page_size | flash_chunk.
     page_ok      : optional [B, M] int32 mask; pages with 0 are not
                    written.
@@ -193,20 +223,34 @@ def prefill_attention_paged(q, k, v, k_pages, v_pages, block_tables, starts,
     hist_bf16 = q.dtype == bf16 or (fmt_kv is not None and compute_dtype == bf16)
     if B and C:
         variant = prefill_variant(q.dtype, Dh)
-        # the tensor-core variant's decoded [history | chunk] span, K and V
+        tc = variant in ("tc", "tc256")
+        # the tensor-core variants' decoded [history | chunk] span, K and V,
+        # and tc256's split partials (o, then m and l) of every output row
         span = (torch.empty((2, B, Hkv, tc_span_rows(M, ps, C), Dh),
                             dtype=torch.bfloat16, device=q.device)
-                if variant == "tc" else None)
+                if tc else None)
+        splits = tc256_splits(M, ps, C) if variant == "tc256" else 1
+        part_o, part_ml = ((torch.empty((B * C * Hq, splits, Dh),
+                                        dtype=torch.float32, device=q.device),
+                            torch.empty((B * C * Hq, splits, 2),
+                                        dtype=torch.float32, device=q.device))
+                           if splits > 1 else (None, None))
         lib = _build.library("prefill_attention")
-        _build.check(lib.prefill_attention_launch(
+        err = lib.prefill_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), k_pages.data_ptr(),
             v_pages.data_ptr(), block_tables.data_ptr(), starts.data_ptr(),
             window.data_ptr(), None if page_ok is None else page_ok.data_ptr(),
-            out.data_ptr(), None if span is None else span.data_ptr(), B, C,
+            out.data_ptr(), None if span is None else span.data_ptr(),
+            None if part_o is None else part_o.data_ptr(),
+            None if part_ml is None else part_ml.data_ptr(), B, C,
             M, ps, Hq, Hkv, Dh, _ACT_KINDS[q.dtype], _KINDS[k_pages.dtype],
             fmt_kv.n if fmt_kv else 0, fmt_kv.es if fmt_kv else 0,
-            int(hist_bf16), ck, _VARIANTS[variant], 1.0 / math.sqrt(Dh),
-            float(softcap_val), _build.stream_of(q)), "prefill_attention")
+            int(hist_bf16), ck, _VARIANTS[variant], splits,
+            1.0 / math.sqrt(Dh), float(softcap_val), _build.stream_of(q))
+        if err == _REFUSED:
+            raise ValueError(f"prefill_attention: the {variant} kernel does "
+                             f"not take head_dim {Dh}")
+        _build.check(err, "prefill_attention")
         LAUNCHES["prefill_attention"] += 1
         LAUNCHES[f"prefill_attention:{variant}"] += 1
     return out, k_pages, v_pages

@@ -281,6 +281,25 @@ PREFILL = {
                         [0, 31, 80], 1 << 30, 0.0, 1024),
     "simt_bf16_head_dim_40": ("P8_2", torch.bfloat16, 2, 8, 4, 2, 40, 16, 4,
                               [3, 20], 1 << 30, 0.0, 1024),
+    # the tc256 variant at gemma3's heads (8 / 4 of 256): its chunk shape
+    # with the local layers' window and the global layers' 2^30 (9 key
+    # splits), softcap, ragged rows (C 7, G 2), a one-token chunk, start 0
+    # (one split), a span past flash_chunk 512
+    "tc256_gemma3_window": ("P8_2", torch.bfloat16, 4, 64, 8, 4, 256, 16,
+                            128, [1024, 1100, 1500, 1960], 1024, 0.0, 1024),
+    "tc256_gemma3_global": ("P8_2", torch.bfloat16, 4, 64, 8, 4, 256, 16,
+                            128, [1024, 1100, 1500, 1960], 1 << 30, 0.0,
+                            1024),
+    "tc256_softcap": ("P8_2", torch.bfloat16, 2, 32, 8, 4, 256, 16, 24,
+                      [100, 300], 1 << 30, 50.0, 1024),
+    "tc256_ragged_rows": ("P8_2", torch.bfloat16, 3, 7, 4, 2, 256, 16, 40,
+                          [9, 400, 0], 20, 0.0, 1024),
+    "tc256_single_token": ("P16_1", torch.bfloat16, 3, 1, 8, 4, 256, 16, 6,
+                           [0, 31, 80], 1 << 30, 0.0, 1024),
+    "tc256_start_0": ("P8_2", torch.bfloat16, 2, 64, 8, 4, 256, 16, 4,
+                      [0, 0], 1 << 30, 0.0, 1024),
+    "tc256_past_flash_chunk": ("P8_2", torch.bfloat16, 2, 64, 8, 4, 256, 16,
+                               80, [1030, 1200], 1 << 30, 0.0, 512),
 }
 
 
@@ -319,7 +338,8 @@ def test_prefill_attention_matches_plain(cuda, case):
                                            win, **kw)
     variant = pf.prefill_variant(act, Dh)
     assert ops.launch_counts()[f"prefill_attention:{variant}"] == 1
-    assert variant == ("tc" if case.startswith(("serving", "streaming",
+    assert variant == ("tc256" if case.startswith("tc256_") else
+                       "tc" if case.startswith(("serving", "streaming",
                                                 "tc_")) else "simt")
     want, _, _ = pf.prefill_attention_paged_plain(*args, kp2, vp2,
                                                   bt.to(cuda), st, win, **kw)
@@ -1390,9 +1410,9 @@ def test_paged_attention_group_of_12(cuda):
             assert _bits_equal(got[:, t], row)
 
 
-def _prefill_case(cuda, act, B, C, Hq, Hkv, Dh, ps, M, starts, window, seed):
-    """K5 against its plain version: output within one bf16 ulp, page
-    writes bitwise; returns the variant it launched."""
+def _prefill_inputs(cuda, act, B, C, Hq, Hkv, Dh, ps, M, starts, window,
+                    seed):
+    """Random q / k / v, P(8,2) pools and block tables for K5 on the card."""
     fmt = formats.P8_2
     g = torch.Generator().manual_seed(seed)
     P = B * M + 1
@@ -1406,30 +1426,82 @@ def _prefill_case(cuda, act, B, C, Hq, Hkv, Dh, ps, M, starts, window, seed):
                for h in (Hq, Hkv, Hkv))
     st = torch.tensor(starts, dtype=torch.int32, device=cuda)
     win = torch.tensor([window], dtype=torch.int32, device=cuda)
-    kp, vp = kv[0].to(cuda), kv[1].to(cuda)
+    return (q, k, v, kv[0].to(cuda), kv[1].to(cuda), bt.to(cuda), st, win,
+            dict(fmt_kv=fmt, compute_dtype=act, flash_chunk=1024))
+
+
+def _prefill_case(cuda, act, B, C, Hq, Hkv, Dh, ps, M, starts, window, seed):
+    """K5 against its plain version: output within one bf16 ulp (bf16) or
+    2e-5 (f32), page writes bitwise; returns the variant it launched."""
+    q, k, v, kp, vp, bt, st, win, kw = _prefill_inputs(
+        cuda, act, B, C, Hq, Hkv, Dh, ps, M, starts, window, seed)
     kp2, vp2 = kp.clone(), vp.clone()
-    kw = dict(fmt_kv=fmt, compute_dtype=act, flash_chunk=1024)
     ops.reset_launches()
-    got, _, _ = pf.prefill_attention_paged(q, k, v, kp, vp, bt.to(cuda), st,
-                                           win, **kw)
+    got, _, _ = pf.prefill_attention_paged(q, k, v, kp, vp, bt, st, win, **kw)
     variant = pf.prefill_variant(act, Dh)
     assert ops.launch_counts()[f"prefill_attention:{variant}"] == 1
-    want, _, _ = pf.prefill_attention_paged_plain(q, k, v, kp2, vp2,
-                                                  bt.to(cuda), st, win, **kw)
+    want, _, _ = pf.prefill_attention_paged_plain(q, k, v, kp2, vp2, bt, st,
+                                                  win, **kw)
     assert torch.isfinite(got.float()).all()
-    torch.testing.assert_close(got.float(), want.float(), rtol=2.0 ** -7,
-                               atol=1e-6)
+    if act == torch.float32:
+        torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+    else:
+        torch.testing.assert_close(got.float(), want.float(),
+                                   rtol=2.0 ** -7, atol=1e-6)
     assert _bits_equal(kp[1:], kp2[1:]) and _bits_equal(vp[1:], vp2[1:])
     return variant
 
 
+@pytest.mark.parametrize("act,variant", [(torch.float32, "simt"),
+                                         (torch.bfloat16, "tc256")])
 @pytest.mark.parametrize("window", [1024, 1 << 30])
-def test_prefill_attention_simt_head_dim_256_window(cuda, window):
-    """K5 at gemma3's heads (8 / 4 of 256) in bf16 takes the SIMT variant
-    (the tensor-core one stops at head_dim 128); a 64-token chunk at starts
-    past 1024, so the window cuts into the first flash chunk of history."""
-    assert _prefill_case(cuda, torch.bfloat16, 4, 64, 8, 4, 256, 16, 128,
-                         [1024, 1100, 1500, 1960], window, 7) == "simt"
+def test_prefill_attention_simt_head_dim_256_window(cuda, window, act,
+                                                    variant):
+    """K5 at gemma3's heads (8 / 4 of 256): f32 activations keep the SIMT
+    kernel there, bf16 take tc256; a 64-token chunk at starts past 1024,
+    so the window cuts into the first flash chunk of history."""
+    assert _prefill_case(cuda, act, 4, 64, 8, 4, 256, 16, 128,
+                         [1024, 1100, 1500, 1960], window, 7) == variant
+
+
+@pytest.mark.parametrize("head_dim", list(range(144, 257, 16)))
+def test_prefill_attention_tc256_head_dims(cuda, head_dim):
+    """Every head dim tc256 takes (multiples of 16 in (128, 256]; only 256
+    has a power-of-two scale, so the others split q * scale in three
+    terms): two slots over 7 key tiles (2 splits), the window biting."""
+    assert _prefill_case(cuda, torch.bfloat16, 2, 24, 4, 2, head_dim, 16,
+                         24, [100, 350], 200, 3) == "tc256"
+
+
+def test_prefill_attention_tc256_rows_independent_of_other_slots(cuda):
+    """tc256's splits are fixed by the shapes, so a slot's rows are bitwise
+    the same whatever another slot's start."""
+    outs = []
+    for start1 in (1100, 1300):
+        q, k, v, kp, vp, bt, st, win, kw = _prefill_inputs(
+            cuda, torch.bfloat16, 4, 64, 8, 4, 256, 16, 128,
+            [1024, start1, 1500, 1960], 1024, 9)
+        outs.append(pf.prefill_attention_paged(q, k, v, kp, vp, bt, st, win,
+                                               **kw)[0])
+    for b in (0, 2, 3):
+        assert _bits_equal(outs[0][b], outs[1][b])
+    assert not _bits_equal(outs[0][1], outs[1][1])
+
+
+def test_prefill_attention_tc256_refused_raises(cuda, monkeypatch):
+    """A head dim the tc256 kernel does not take is refused by its launcher
+    before anything runs: the wrapper raises, launches nothing else and
+    writes no page."""
+    q, k, v, kp, vp, bt, st, win, kw = _prefill_inputs(
+        cuda, torch.bfloat16, 2, 8, 4, 2, 272, 16, 4, [3, 20], 1 << 30, 5)
+    kp0 = kp.clone()
+    monkeypatch.setattr(pf, "prefill_variant", lambda dtype, dh: "tc256")
+    ops.reset_launches()
+    with pytest.raises(ValueError, match="head_dim 272"):
+        pf.prefill_attention_paged(q, k, v, kp, vp, bt, st, win, **kw)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["prefill_attention"] == 0
+    assert _bits_equal(kp, kp0)
 
 
 def test_prefill_attention_tc_group_of_12(cuda):

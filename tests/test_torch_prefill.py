@@ -69,6 +69,17 @@ CASES = {
 HQ, HKV, DH, PS, M = 4, 2, 8, 4, 8
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's CPU ops at these sizes are too small to share out: with
+    the suite's other workers busy, torch's thread pool waits on taken
+    cores.  Run this module's torch work on one thread."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _pool(rng, fmt, shape):
     """A recycled pool: valid posit codes (NaR excluded) or floats."""
     if fmt is None:
@@ -299,26 +310,32 @@ def test_model_fused_prefill_matches_reference_fused(monkeypatch):
 @pytest.mark.parametrize("dtype,head_dim,want", [
     (torch.bfloat16, 128, "tc"), (torch.bfloat16, 64, "tc"),
     (torch.bfloat16, 16, "tc"), (torch.bfloat16, 72, "simt"),
-    (torch.bfloat16, 256, "simt"), (torch.float32, 128, "simt"),
+    (torch.bfloat16, 256, "tc256"), (torch.bfloat16, 144, "tc256"),
+    (torch.bfloat16, 136, "simt"), (torch.bfloat16, 272, "simt"),
+    (torch.float32, 256, "simt"), (torch.float32, 128, "simt"),
     (torch.float32, 32, "simt"),
 ])
 def test_prefill_variant_by_dtype_and_head_dim(dtype, head_dim, want):
     """K5's wrapper picks its kernel by the activations' dtype and the head
-    dim alone: tensor cores for bf16 with head_dim a multiple of 16 up to
-    128, the SIMT kernel for f32 activations and other head dims."""
+    dim alone: tensor cores for bf16 with head_dim a multiple of 16 (`tc`
+    up to 128, `tc256` up to 256), the SIMT kernel for f32 activations and
+    other head dims."""
     from repro_torch.kernels import prefill_attention as tpf
     assert tpf.prefill_variant(dtype, head_dim) == want
 
 
-@pytest.mark.parametrize("name", ["command_r_35b", "qwen3_moe_235b",
-                                  "deepseek_moe_16b"])
-def test_serving_configs_take_tensor_core_prefill(name):
-    """Every serving config of the port at full width (bf16 activations,
-    head_dim 128) prefills on the tensor-core K5 variant; the f32 smoke
-    configs take the SIMT one."""
+@pytest.mark.parametrize("name,want", [
+    ("command_r_35b", "tc"), ("qwen3_moe_235b", "tc"),
+    ("deepseek_moe_16b", "tc"), ("command_r_plus_104b", "tc"),
+    ("gemma3_4b", "tc256"),
+])
+def test_serving_configs_take_tensor_core_prefill(name, want):
+    """Every serving config of the port at full width (bf16 activations)
+    prefills on a tensor-core K5 variant: `tc` at head_dim 128, `tc256` at
+    gemma3's 256; the f32 smoke configs take the SIMT one."""
     from repro_torch.kernels import prefill_attention as tpf
     cfg, smoke = tconfigs.get(name), tconfigs.get_smoke(name)
-    assert tpf.prefill_variant(cfg.compute_dtype, cfg.head_dim) == "tc"
+    assert tpf.prefill_variant(cfg.compute_dtype, cfg.head_dim) == want
     assert tpf.prefill_variant(smoke.compute_dtype, smoke.head_dim) == "simt"
 
 
@@ -328,6 +345,35 @@ def test_tc_span_rows_cover_history_and_chunk():
     assert tpf.tc_span_rows(128, 16, 64) == 2112
     assert tpf.tc_span_rows(10, 8, 7) == 128
     assert tpf.tc_span_rows(0, 16, 1) == tpf.TC_KEYS
+
+
+def test_tc256_geometry_from_shapes():
+    """The tc256 kernel's splits come from (M, page size, C) alone: 4 key
+    tiles of 64 a split, at most 32 splits; gemma3's chunk group (4 slots,
+    C 64, 8 / 4 heads, max_seq 2048) fills 132 SMs; and a block's shared
+    memory fits 227 KB at every head dim the variant takes."""
+    from repro_torch.kernels import prefill_attention as tpf
+    assert tpf.tc256_splits(128, 16, 64) == 9       # 33 tiles
+    assert tpf.tc256_splits(16, 16, 64) == 2        # 5 tiles
+    assert tpf.tc256_splits(0, 16, 1) == 1
+    assert tpf.tc256_splits(8, 16, 64) == 1         # 3 tiles
+    assert tpf.tc256_splits(8192, 16, 64) == 32     # 2049 tiles, 65 a split
+    for M, ps, C in ((1, 16, 1), (96, 16, 64), (4096, 16, 7), (3, 128, 33)):
+        S = tpf.tc256_splits(M, ps, C)
+        tiles = tpf.tc_span_rows(M, ps, C) // tpf.TC_KEYS
+        per_split = -(-tiles // S)
+        assert 1 <= S <= tpf.TC256_MAX_SPLITS
+        assert per_split >= tpf.TC256_SPLIT_TILES or S == 1
+        assert (S - 1) * per_split < tiles <= S * per_split
+    B, C, Hq, Hkv, M = 4, 64, 8, 4, 128
+    row_tiles = -(-(Hq // Hkv) * C // 64)
+    assert tpf.tc256_splits(M, 16, C) * row_tiles * Hkv * B >= 132
+    dims = [d for d in range(16, 513, 8)
+            if tpf.prefill_variant(torch.bfloat16, d) == "tc256"]
+    assert dims == list(range(144, 257, 16))
+    assert all(tpf.tc256_smem_bytes(d) <= tpf.BLOCK_SMEM for d in dims)
+    assert tpf.tc256_smem_bytes(256) == 101376
+    assert 2 * (tpf.tc256_smem_bytes(256) + 1024) <= 228 * 1024
 
 
 def _bf16_round(x):
