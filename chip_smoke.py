@@ -8,7 +8,8 @@ qwen3-moe-235b at full width (4 of 94 layers) at the defaults; then train
 minitron-8b at full width (4 of 32 layers) under paper_mixed fused; then
 serve gemma3-4b (12 of 34 layers) and command-r-plus-104b (2 of 64) at
 full width, command-r-35b over the dense KV cache, and the serving
-example.
+example; then train qwen3-moe-235b (1 of 94 layers) and deepseek-moe-16b
+(4 of 28) at full width, and run the remaining example twins.
 
     python3 chip_smoke.py
 
@@ -117,11 +118,12 @@ Phases (any failure exits non-zero; no phase is caught):
      layers x microbatches x 2 of them (forward and recompute), every K2
      launch on `p13_2`; median step time, tokens/s, peak memory and one
      step profiled (device time by kernel, host share); 9b the STE
-     function at the gate and down projections (M 512): forward within
-     `sum_bound` of `ops.ste_plain`, dx and dw bitwise it and the
-     fake_quant plan's; the training shapes of K6 (M 512, minitron's 7
-     projections), K2 and K1 (the head, [4096, 256000]) against their
-     plain versions and timed; 9c 3 Trainer steps of minitron's smoke
+     function at each distinct shape of minitron's projections (M 512):
+     forward within `sum_bound` of `ops.ste_plain` (a limit two planted
+     faults must fail), dx and dw bitwise it and the fake_quant plan's;
+     the training shapes of K6 (M 512, minitron's 7 projections, the same
+     limit and faults), K2 and K1 (the head, [4096, 256000], bitwise)
+     against their plain versions and timed; 9c 3 Trainer steps of minitron's smoke
      config on the card against the CPU (losses within 1e-3); 9d the
      training example's `run` at smoke size, float and paper_mixed fused,
      50 steps each, losses falling; 9e a checkpoint round trip of a
@@ -156,6 +158,36 @@ Phases (any failure exits non-zero; no phase is caught):
      10d examples/serve_posit_lm_torch.py (4 requests, 4 new tokens) in a
      subprocess on the card, exit 0.  10a, 10b and 10c each profile two
      decode steps with four slots busy, as phase 6 does.
+ 11. MoE training at full width, paper_mixed fused (peak learning rate
+     4.2e-4), phase 9's 4 steps of 8 x 128 tokens in 2 microbatches, each
+     run counted from 0:
+     11a qwen3-moe-235b (d_model 4096, 64 / 4 heads of 128, 128 experts of
+     1536 top-8, vocab 151936, untied; 1 of 94 layers, adafactor: AdamW's
+     state would not fit); 11b deepseek-moe-16b (d_model 2048, 16 heads
+     of 128, 64 routed experts of 1408 top-6 and 2 shared, vocab 102400;
+     4 of 28 layers, AdamW).  Each: finite losses, every K9 launch on the
+     run-time `posit` decode, 3 x layers x microbatches x 2 of them
+     (forward and remat recompute), K6 (attention projections and shared
+     experts, `tc`), K2 (`p13_2`) and K1 counted against their formulas;
+     median step, tokens/s, peak memory, one step profiled.  11c the
+     grouped STE at both models' training shapes (qwen3: E 128, 40
+     capacity rows; deepseek: E 64, 64 rows): the forward within
+     `sum_bound` of `ops.ste_plain` (two planted faults must fail it), dx
+     and dw bitwise it; K9 over a layer's three expert GEMMs timed beside
+     its plain version, torch.bmm on the decoded stacks and its bound.
+     11d for each model, phase 9's checks at its own shapes: the STE and K6
+     at M 512 over its attention projections (qwen3: wq / wo [4096, 8192]
+     / [8192, 4096], wk / wv [4096, 512]; deepseek: [2048, 2048]) and
+     deepseek's shared experts ([2048, 2816], [2816, 2048]), K2 / K1 over
+     its untied head ([4096, 151936], [2048, 102400]), and 3 Trainer steps
+     of its smoke config on the card against the CPU.  Every shape and
+     capacity comes from the model's config (`_dense_kn`, `_expert_kn`,
+     `moe.capacity`).  Each training record of the kernels line counts
+     the launches of its own run.
+ 12. the example twins examples/quickstart_torch.py,
+     wm_sensitivity_study_torch.py, ptq_study_torch.py (20 steps) and
+     serve_async_torch.py (2 + 1 requests, 4 tokens) on the card, in
+     processes started together; each must exit 0.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -252,6 +284,35 @@ def _release():
 def _check(cond: bool, what: str):
     if not cond:
         raise SystemExit(f"chip_smoke: FAILED: {what}")
+
+
+def _units(gap, bound) -> float:
+    """The largest gap in units of u sqrt(K) ||a_i . b_j||_2 (the
+    `sum_bound` over its SUM_TOL)."""
+    from repro_torch.kernels import posit_matmul as pm
+    return float((gap / (bound / pm.SUM_TOL).clamp(min=1e-30)).max())
+
+
+def _planted_faults(what: str, A, B, want, bound) -> str:
+    """Two faults the `sum_bound` limit must reject against the plain
+    version's `want` from the decoded operands A, B ([..., M, K] and
+    [..., K, N]): both operands rounded to bf16, and one 64-wide K tile
+    left out.  (P(13,2) weights below 2^-4 in magnitude carry at most 7
+    fraction bits, so rounding them alone to bf16 can change nothing.)
+    Returns each fault's largest gap in `_units`."""
+    import torch
+    seen = []
+    for fault, bad in (("bf16 operands",
+                        torch.matmul(A.to(torch.bfloat16).float(),
+                                     B.to(torch.bfloat16).float())),
+                       ("K tile left out",
+                        want - torch.matmul(A[..., :64], B[..., :64, :]))):
+        bad_gap = (bad - want).abs()
+        _check(bool((bad_gap > bound).any()),
+               f"{what}: the limit rejects the planted fault '{fault}'")
+        seen.append(f"{fault} {_units(bad_gap, bound):.4g}")
+        del bad, bad_gap
+    return ", ".join(seen)
 
 
 # ---------------------------------------------------------------------------
@@ -909,10 +970,6 @@ def _k6_matmul(dev):
                else None)
               for M in (4, 256) for K, N in sorted(set(_LAYER_KN))]
 
-    def units(gap, bound):
-        # largest gap in units of u sqrt(K) ||a_i . b_j||_2 (bound / SUM_TOL)
-        return float((gap / (bound / pm.SUM_TOL).clamp(min=1e-30)).max())
-
     for M, K, N, fo in checks:
         a, b = acts[(M, K)], weights[(K, N)]
         variant = pm.matmul_variant(M, fa, fb, b.dtype)
@@ -929,7 +986,7 @@ def _k6_matmul(dev):
                f"K6 posit_matmul within {pm.SUM_TOL} u sqrt(K) ||ab|| at "
                f"M={M} K={K} N={N}")
         err = max(err, float(gap.max()))
-        ratio = max(ratio, units(gap, bound))
+        ratio = max(ratio, _units(gap, bound))
         if fo is not None:
             codes = pm.posit_matmul(a, b, fa, fb, fo)
             _check(_bits_equal(codes, posit.pack(got, fo)),
@@ -945,7 +1002,7 @@ def _k6_matmul(dev):
             _check(bool((bad_gap > bound).any()),
                    f"K6 tolerance rejects the planted fault '{what}' at "
                    f"M={M} K={K} N={N}")
-            seen.append(f"{what} {units(bad_gap, bound):.4g}")
+            seen.append(f"{what} {_units(bad_gap, bound):.4g}")
         del faults
         ms = _device_ms(lambda: pm.posit_matmul(a, b, fa, fb), launches=5)
         lib = _device_ms(lambda: torch.matmul(A, B), launches=5)
@@ -953,7 +1010,7 @@ def _k6_matmul(dev):
         del A, B
         print(f"K6 M={M} K={K} N={N} fmt_out={fo} ({variant}): max |err| "
               f"{float(gap.max()):.3g}, largest err in u sqrt(K) ||ab|| "
-              f"{units(gap, bound):.4g} (limit {pm.SUM_TOL}; planted: "
+              f"{_units(gap, bound):.4g} (limit {pm.SUM_TOL}; planted: "
               f"{', '.join(seen)}), bitwise equal on a second call, ms "
               f"{ms:.4f}, bound_ms {pb:.4f} ({pby}), library_ms (torch.matmul, "
               f"decoded f32) {lib:.4f}")
@@ -1283,10 +1340,6 @@ def _k9_grouped(dev):
     acts = {K: torch.randn(E, M, K, generator=g, device=dev)
             for K in {K for K, _ in _EXPERT_KN}}
     err = ratio = 0.0
-
-    def units(gap, bound):
-        return float((gap / (bound / pm.SUM_TOL).clamp(min=1e-30)).max())
-
     for (K, N), b in weights.items():
         for fmt_a in (None, fa):
             a = acts[K] if fmt_a is None else posit_codec.encode(acts[K], fa)
@@ -1298,30 +1351,21 @@ def _k9_grouped(dev):
                    f"K9 posit_matmul_grouped within {pm.SUM_TOL} u sqrt(K) "
                    f"||ab|| at E={E} M={M} K={K} N={N} fmt_a={fmt_a}")
             err = max(err, float(gap.max()))
-            sound = units(gap, bound)
+            sound = _units(gap, bound)
             ratio = max(ratio, sound)
             if fmt_a is not None and K == 4096:
                 codes = pm.posit_matmul_grouped(a, b, fmt_a, fb, fb)
                 _check(_bits_equal(codes, posit.pack(got, fb)),
                        "K9 fmt_out codes are the rounding of its f32 sums")
-            A = a.float() if fmt_a is None else posit.decode(a, fmt_a)
-            B = posit.decode(b, fb)
-            faults = {"bf16 weights": torch.matmul(A, B.to(torch.bfloat16).float()),
-                      "K tile left out": want - torch.matmul(A[..., :64],
-                                                             B[:, :64])}
-            seen = []
-            for what, bad in faults.items():
-                bad_gap = (bad - want).abs()
-                _check(bool((bad_gap > bound).any()),
-                       f"K9 tolerance rejects the planted fault '{what}' at "
-                       f"K={K} N={N} fmt_a={fmt_a}")
-                seen.append(f"{what} {units(bad_gap, bound):.4g}")
-            del A, B, faults, bound, want
+            planted = _planted_faults(
+                f"K9 at K={K} N={N} fmt_a={fmt_a}",
+                a.float() if fmt_a is None else posit.decode(a, fmt_a),
+                posit.decode(b, fb), want, bound)
+            del bound, want
             torch.cuda.empty_cache()
             print(f"K9 E={E} M={M} K={K} N={N} fmt_a={fmt_a}: max |err| "
                   f"{float(gap.max()):.3g}, largest err in u sqrt(K) ||ab|| "
-                  f"{sound:.4g} (limit {pm.SUM_TOL}; planted: "
-                  f"{', '.join(seen)})")
+                  f"{sound:.4g} (limit {pm.SUM_TOL}; planted: {planted})")
     layer = [(acts[K], weights[(K, N)]) for K, N in _EXPERT_KN]
     err = max(err, _k9_routed(dev, weights, g))
 
@@ -2285,14 +2329,7 @@ TRAIN_LAYERS = 4
 TRAIN_LABEL = "train minitron-8b"
 TRAIN_STEPS = 4
 TRAIN_ACCUM = 2
-# minitron-8b's projections, (name, K, N)
-MINITRON_KN = (("wq", 4096, 4096), ("wk", 4096, 1024), ("wv", 4096, 1024),
-               ("wo", 4096, 4096), ("gate", 4096, 16384),
-               ("up", 4096, 16384), ("down", 16384, 4096))
-# 9b's shapes (name, M, K, N): a microbatch's 512 rows through gate, down
-STE_SHAPES = (("gate", 512, 4096, 16384), ("down", 512, 16384, 4096))
-# the untied head's master, [d_model, vocab]
-HEAD_SHAPE = (4096, 256000)
+# the rows of a microbatch (4 x 128 tokens) through each coded GEMM
 TRAIN_M = 512
 
 
@@ -2301,14 +2338,17 @@ def _train_shape():
     return ShapeConfig("ex", seq_len=128, global_batch=8, kind="train")
 
 
-def _trainer(cfg, dev, steps, ckpt_dir=None):
+def _trainer(cfg, dev, steps, ckpt_dir=None, optimizer="adamw",
+             peak_lr=3e-3):
     """The training example's trainer: 8 x 128 tokens a step in 2
-    microbatches, AdamW with its cosine schedule."""
+    microbatches, AdamW (or `optimizer`) with its cosine schedule (peak
+    3e-3 unless `peak_lr`)."""
     from repro_torch.data import Pipeline
-    from repro_torch.optim import adamw, cosine_schedule
+    from repro_torch.optim import by_name, cosine_schedule
     from repro_torch.train import Trainer, TrainerConfig
     shape = _train_shape()
-    opt = adamw(cosine_schedule(3e-3, warmup=steps // 10, total=steps))
+    opt = by_name(optimizer, cosine_schedule(peak_lr, warmup=steps // 10,
+                                             total=steps))
     return Trainer(cfg, shape, opt, Pipeline(cfg, shape),
                    TrainerConfig(total_steps=steps, log_every=1,
                                  ckpt_every=steps, ckpt_dir=ckpt_dir,
@@ -2322,8 +2362,6 @@ def _train_full_width(dev):
     from 0; then one more step under torch.profiler.  Returns the run's
     launch counts."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch import configs
     from repro_torch.core.quant import policy_by_name
     from repro_torch.kernels import ops
@@ -2365,8 +2403,19 @@ def _train_full_width(dev):
           f"{tokens / step_ms * 1e3:.1f} tokens/s, peak memory "
           f"{peak / 1e9:.3f} GB")
     print(f"train minitron-8b: launches {json.dumps(counts)}")
-    # one step profiled: device time by layer and the host's share
-    batch = tr._to_device(tr.pipeline.batch_at(TRAIN_STEPS))
+    _profile_train_step(tr, state, "train step")
+    del state, tr
+    return counts
+
+
+def _profile_train_step(tr, state, label: str):
+    """One more step of `tr` from `state` under torch.profiler: device
+    time by kernel group, the largest kernels of the rest, and the host's
+    share of the step."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    batch = tr._to_device(tr.pipeline.batch_at(int(state.step)))
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -2387,37 +2436,62 @@ def _train_full_width(dev):
             other[evt.key] = other.get(evt.key, 0.0) + evt.self_device_time_total
     busy = sum(groups.values())
     if busy:
-        print(f"profile train step: wall {wall_us / 1e3:.3f} ms, device busy "
+        print(f"profile {label}: wall {wall_us / 1e3:.3f} ms, device busy "
               f"{busy / 1e3:.3f} ms ({100 * busy / wall_us:.1f}%), host and "
               f"idle {(wall_us - busy) / 1e3:.3f} ms")
         for group, us in sorted(groups.items(), key=lambda kv: -kv[1]):
-            print(f"profile train step: {group}: {us / 1e3:.3f} ms "
+            print(f"profile {label}: {group}: {us / 1e3:.3f} ms "
                   f"({100 * us / busy:.1f}% of device time)")
         # the largest kernels of the last group (elementwise, reductions,
         # indexing: the optimizer, the loss, the embedding's gradient)
         for key, us in sorted(other.items(), key=lambda kv: -kv[1])[:8]:
-            print(f"profile train step:   other: {us / 1e3:.3f} ms "
+            print(f"profile {label}:   other: {us / 1e3:.3f} ms "
                   f"{key[:110]}")
     else:
-        print("profile train step: the profiler recorded no device time "
-              "(not measured)")
-    del state, tr, metrics, batch, prof
-    return counts
+        print(f"profile {label}: the profiler recorded no device time "
+              f"(not measured)")
 
 
-def _train_ste(dev):
-    """9b: the STE functions at full width on the gate (M 512, K 4096, N
-    16384) and down (K 16384, N 4096) projections: the forward within
-    `sum_bound` of the plain version, dx and dw bitwise the plain
-    version's and the fake_quant plan's for the same g."""
+def _dense_kn(cfg):
+    """A layer's coded GEMMs outside the routed experts, (name, K, N): the
+    attention projections, then the dense FFN or, in the MoE family, the
+    shared experts (n_shared x moe_d_ff wide; none in qwen3-moe)."""
+    D = cfg.d_model
+    q, kv = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
+    kn = [("wq", D, q), ("wk", D, kv), ("wv", D, kv), ("wo", q, D)]
+    F = (cfg.n_shared_experts * cfg.moe_d_ff if cfg.family == "moe"
+         else cfg.d_ff)
+    if F:
+        kn += [("gate", D, F), ("up", D, F), ("down", F, D)]
+    return tuple(kn)
+
+
+def _expert_kn(cfg):
+    """A layer's routed expert GEMMs (K, N): gate, up, down."""
+    D, F = cfg.d_model, cfg.moe_d_ff
+    return ((D, F), (D, F), (F, D))
+
+
+def _train_ste(dev, label: str, arch: str):
+    """9b / 11d: the STE function at M 512 on each distinct (K, N) of
+    `arch`'s coded GEMMs outside the routed experts (`_dense_kn`): the
+    forward within `sum_bound` of `ops.ste_plain` (a limit two planted
+    faults must fail), dx and dw bitwise the plain version's and the
+    fake_quant plan's for the same g."""
     import torch
+    from repro_torch import configs
     from repro_torch.core.formats import P13_2
     from repro_torch.core.quant import QuantPolicy
     from repro_torch.kernels import dispatch, ops, posit_codec
     from repro_torch.kernels import posit_matmul as pm
     g = torch.Generator(device=dev).manual_seed(19)
     fake_quant = QuantPolicy(weights=P13_2, activations=P13_2)
-    for name, M, K, N in STE_SHAPES:
+    shapes = {}
+    for name, K, N in _dense_kn(configs.get(arch)):
+        shapes.setdefault((K, N), []).append(name)
+    M = TRAIN_M
+    for (K, N), names in shapes.items():
+        what = f"STE {label} {' / '.join(names)} (M {M}, K {K}, N {N})"
         x = torch.randn(M, K, generator=g, device=dev)
         w = torch.randn(K, N, generator=g, device=dev) / math.sqrt(K)
         gr = torch.randn(M, N, generator=g, device=dev)
@@ -2425,66 +2499,76 @@ def _train_ste(dev):
         before = ops.launch_counts()["posit_matmul:tc"]
         out = ops.fused_matmul_ste(xr, wr, P13_2, P13_2)
         _check(ops.launch_counts()["posit_matmul:tc"] == before + 1,
-               f"9b {name}: the STE forward ran K6 on tc")
+               f"{what}: the forward ran K6 on tc")
         dx, dw = torch.autograd.grad(out, (xr, wr), gr)
         want, want_dx, want_dw = ops.ste_plain(x, w, P13_2, P13_2, gr)
-        bound = pm.sum_bound(posit_codec.encode_plain(x, P13_2),
-                             posit_codec.encode_plain(w, P13_2), P13_2, P13_2)
+        a = posit_codec.encode_plain(x, P13_2)
+        b = posit_codec.encode_plain(w, P13_2)
+        bound = pm.sum_bound(a, b, P13_2, P13_2)
         gap = (out.detach() - want).abs()
         _check(bool((gap <= bound).all()),
-               f"9b {name}: the STE forward within sum_bound of the plain")
+               f"{what}: the forward within sum_bound of the plain version")
+        planted = _planted_faults(what, posit_codec.decode(a, P13_2),
+                                  posit_codec.decode(b, P13_2), want, bound)
         _check(_bits_equal(dx, want_dx) and _bits_equal(dw, want_dw),
-               f"9b {name}: dx, dw bitwise the plain version's")
+               f"{what}: dx, dw bitwise the plain version's")
         xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
         fq = torch.autograd.grad(dispatch.qdot(xr, wr, fake_quant), (xr, wr),
                                  gr)
         _check(_bits_equal(dx, fq[0]) and _bits_equal(dw, fq[1]),
-               f"9b {name}: dx, dw bitwise the fake_quant plan's")
-        print(f"9b STE {name} (M {M}, K {K}, N {N}): forward max |err| "
-              f"{float(gap.max()):.4g} (largest in sum_bound units "
-              f"{float((gap / bound.clamp(min=1e-30)).max()):.4g}); dx, dw "
-              f"bitwise the plain version's and the fake_quant plan's")
-        del x, w, gr, out, dx, dw, want, want_dx, want_dw, bound, fq
+               f"{what}: dx, dw bitwise the fake_quant plan's")
+        print(f"{what}: forward max |err| {float(gap.max()):.4g} (largest "
+              f"in u sqrt(K) ||ab|| {_units(gap, bound):.4g}, limit "
+              f"{pm.SUM_TOL}; planted: {planted}); dx, dw bitwise the plain "
+              f"version's and the fake_quant plan's")
+        del x, w, gr, out, dx, dw, want, want_dx, want_dw, a, b, bound, fq
 
 
-def _train_kernels(dev):
-    """The training path's kernel shapes, each against its plain version
-    and timed: K6 tc at M 512 over minitron's 7 projections, K2 p13_2 and
-    K1 P(13,2) at the head's [4096, 256000].  Returns three records."""
+def _train_kernels(dev, label: str, arch: str):
+    """9 / 11d: `arch`'s training shapes of K6, K2 and K1, each against its
+    plain version and timed: K6 tc (P(13,2) x P(13,2)) at M 512 over its
+    coded GEMMs outside the routed experts (`_dense_kn`), within
+    `sum_bound` with two planted faults; K2 p13_2 and K1 P(13,2) over its
+    untied head's [d_model, vocab] masters, bitwise.  Returns three
+    records whose launches are those of the run `label`."""
     import torch
+    from repro_torch import configs
     from repro_torch.core.formats import P13_2
     from repro_torch.kernels import posit_codec
     from repro_torch.kernels import posit_matmul as pm
+    cfg = configs.get(arch)
     g = torch.Generator(device=dev).manual_seed(29)
     M = TRAIN_M
     layer = []
     err = ratio = 0.0
-    for name, K, N in MINITRON_KN:
+    for name, K, N in _dense_kn(cfg):
+        what = f"K6 {label} {name} (M {M}, K {K}, N {N}, tc, P(13,2) x P(13,2))"
         a = posit_codec.encode(torch.randn(M, K, generator=g, device=dev),
                                P13_2)
         b = posit_codec.encode(torch.randn(K, N, generator=g, device=dev)
                                / math.sqrt(K), P13_2)
         got = pm.posit_matmul(a, b, P13_2, P13_2)
+        want = pm.posit_matmul_plain(a, b, P13_2, P13_2)
         bound = pm.sum_bound(a, b, P13_2, P13_2)
-        gap = (got - pm.posit_matmul_plain(a, b, P13_2, P13_2)).abs()
-        _check(bool((gap <= bound).all()),
-               f"K6 tc P(13,2) x P(13,2) at M {M} {name} within sum_bound")
-        err = max(err, float(gap.max()))
-        ratio = max(ratio, float((gap / bound.clamp(min=1e-30)).max()))
+        gap = (got - want).abs()
+        _check(bool((gap <= bound).all()), f"{what} within sum_bound")
         A, B = posit_codec.decode(a, P13_2), posit_codec.decode(b, P13_2)
+        planted = _planted_faults(what, A, B, want, bound)
+        err = max(err, float(gap.max()))
+        ratio = max(ratio, _units(gap, bound))
         ms = _device_ms(lambda: pm.posit_matmul(a, b, P13_2, P13_2),
                         launches=3)
         lib = _device_ms(lambda: torch.matmul(A, B), launches=3)
         io = M * K * 2 + K * N * 2 + M * N * 4
         f32_bound, f32_by = _bound(io, 2.0 * M * K * N)
         tc_bound, tc_by = _bound(io, 4 * 2.0 * M * K * N, BF16_FLOP_PER_S)
-        print(f"K6 train {name} (M {M}, K {K}, N {N}, tc, P(13,2) x "
-              f"P(13,2)): ms {ms:.4f}, bound_ms {tc_bound:.4f} ({tc_by}, "
-              f"the exact split-bf16 form: 4 bf16 products a multiply-add), "
-              f"f32 bound {f32_bound:.4f} ({f32_by}), library_ms "
-              f"(torch.matmul, decoded f32) {lib:.4f}")
+        print(f"{what}: largest err in u sqrt(K) ||ab|| "
+              f"{_units(gap, bound):.4g} (planted: {planted}); ms {ms:.4f}, "
+              f"bound_ms {tc_bound:.4f} ({tc_by}, the exact split-bf16 form: "
+              f"4 bf16 products a multiply-add), f32 bound {f32_bound:.4f} "
+              f"({f32_by}), library_ms (torch.matmul, decoded f32) {lib:.4f}")
         layer.append((a, b, A, B, io, M * K * N))
-        del got, bound, gap
+        del got, want, bound, gap
 
     def run():
         for a, b, *_ in layer:
@@ -2499,27 +2583,31 @@ def _train_kernels(dev):
                        sum(8.0 * r[5] for r in layer), BF16_FLOP_PER_S)
     f32_bound, _ = _bound(sum(r[4] for r in layer),
                           sum(2.0 * r[5] for r in layer))
-    print(f"K6 train layer (7 projections at M {M}): ms {ms:.4f}, bound_ms "
-          f"{bound:.4f} ({by}; f32 {f32_bound:.4f}), plain_ms {plain_ms:.3f}, "
-          f"library_ms {library_ms:.4f}; largest err in sum_bound units "
-          f"{ratio:.4g}")
+    n = len(layer)
+    print(f"K6 {label} layer ({n} projections at M {M}): ms {ms:.4f}, "
+          f"bound_ms {bound:.4f} ({by}; f32 {f32_bound:.4f}), plain_ms "
+          f"{plain_ms:.3f}, library_ms {library_ms:.4f}; largest err in "
+          f"sum_bound units {ratio:.4g}")
     del layer
-    records = [dict(name="posit_matmul (training: tc, P(13,2) x P(13,2), "
-                         "M 512, minitron-8b's 7 projections)",
-                    counter="posit_matmul:tc",
+    paths = (label,)
+    records = [dict(name=f"posit_matmul (training: tc, P(13,2) x P(13,2), "
+                         f"M {M}, {arch}'s {n} projections)",
+                    counter="posit_matmul:tc", paths=paths,
                     source="src/repro_torch/csrc/posit_matmul.cu",
                     replaces="src/repro/kernels/posit_matmul.py:168",
                     max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
                     bound_by=by, library_ms=library_ms)]
-    # the untied head's codec: [4096, 256000] f32 masters -> P(13,2) and back
-    x = torch.randn(*HEAD_SHAPE, generator=g, device=dev) / 64
+    # the untied head's codec: [d_model, vocab] f32 masters -> P(13,2) and
+    # back
+    head = [cfg.d_model, cfg.vocab_size]
+    x = torch.randn(*head, generator=g, device=dev) / 64
     codes = posit_codec.encode(x, P13_2)
     t0 = time.perf_counter()
     plain_codes = posit_codec.encode_plain(x, P13_2)
     torch.cuda.synchronize()
     enc_plain_ms = (time.perf_counter() - t0) * 1e3
     _check(_bits_equal(codes, plain_codes),
-           "K2 p13_2 at the head's [4096, 256000] bitwise its plain version")
+           f"K2 p13_2 at {arch}'s head {head} bitwise its plain version")
     del plain_codes
     enc_ms = _device_ms(lambda: posit_codec.encode(x, P13_2), launches=3)
     n = x.numel()
@@ -2531,25 +2619,25 @@ def _train_kernels(dev):
     torch.cuda.synchronize()
     dec_plain_ms = (time.perf_counter() - t0) * 1e3
     _check(_bits_equal(vals, plain_vals),
-           "K1 P(13,2) at the head's [4096, 256000] bitwise its plain version")
+           f"K1 P(13,2) at {arch}'s head {head} bitwise its plain version")
     del plain_vals, vals
     dec_ms = _device_ms(lambda: posit_codec.decode(codes, P13_2), launches=3)
     dec_bound, dec_by = _bound(n * 6, 0.0)
     del codes
-    print(f"K2 train head [4096, 256000] f32 -> P(13,2) (p13_2): ms "
-          f"{enc_ms:.4f}, bound_ms {enc_bound:.4f} ({enc_by}), plain_ms "
-          f"{enc_plain_ms:.3f}; K1 P(13,2) -> f32: ms {dec_ms:.4f}, bound_ms "
-          f"{dec_bound:.4f} ({dec_by}), plain_ms {dec_plain_ms:.3f}")
-    records.append(dict(name="posit_encode (training: p13_2, the head's "
-                             "[4096, 256000])",
-                        counter="posit_encode:p13_2",
+    print(f"K2 {label} head {head} f32 -> P(13,2) (p13_2): ms {enc_ms:.4f}, "
+          f"bound_ms {enc_bound:.4f} ({enc_by}), plain_ms {enc_plain_ms:.3f}; "
+          f"K1 P(13,2) -> f32: ms {dec_ms:.4f}, bound_ms {dec_bound:.4f} "
+          f"({dec_by}), plain_ms {dec_plain_ms:.3f}")
+    records.append(dict(name=f"posit_encode (training: p13_2, {arch}'s head "
+                             f"{head})",
+                        counter="posit_encode:p13_2", paths=paths,
                         source="src/repro_torch/csrc/posit_codec.cu",
                         replaces="src/repro/kernels/posit_codec.py:78",
                         max_abs_err=0.0, ms=enc_ms, plain_ms=enc_plain_ms,
                         bound_ms=enc_bound, bound_by=enc_by, library_ms=None))
-    records.append(dict(name="posit_decode (training: P(13,2), the head's "
-                             "[4096, 256000])",
-                        counter="posit_decode",
+    records.append(dict(name=f"posit_decode (training: P(13,2), {arch}'s head "
+                             f"{head})",
+                        counter="posit_decode", paths=paths,
                         source="src/repro_torch/csrc/posit_codec.cu",
                         replaces="src/repro/kernels/posit_codec.py:55",
                         max_abs_err=0.0, ms=dec_ms, plain_ms=dec_plain_ms,
@@ -2557,20 +2645,21 @@ def _train_kernels(dev):
     return records
 
 
-def _train_small_reference(dev):
-    """9c: 3 Trainer steps of minitron-8b SMOKE (f32) under paper_mixed
-    fused on the card against the same steps on the CPU (the plain
-    versions), from one initial state (a checkpoint both trainers
-    restore).  Returns the card's trainer (for 9e)."""
+def _train_small_reference(dev, arch: str = "minitron_8b", tag: str = "9c"):
+    """9c / 11d: 3 Trainer steps of `arch`'s SMOKE config (f32) under
+    paper_mixed fused on the card against the same steps on the CPU (the
+    plain versions), from one initial state (a checkpoint both trainers
+    restore).  Returns the card's trainer (for 9e) and the checkpoints'
+    directory."""
     import shutil
     import torch
     from repro_torch import configs
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.core.quant import policy_by_name
     from repro_torch.train import step as step_lib
-    cfg = configs.get_smoke("minitron_8b").replace(
+    cfg = configs.get_smoke(arch).replace(
         quant=policy_by_name("paper_mixed").with_execution("fused"))
-    root = os.path.join(HERE, "build", "chip_smoke_train")
+    root = os.path.join(HERE, "build", f"chip_smoke_train_{arch}")
     shutil.rmtree(root, ignore_errors=True)
     losses = {}
     trainers = {}
@@ -2584,14 +2673,15 @@ def _train_small_reference(dev):
         trainers[label] = tr
     _check(len(losses["card"]) == 3
            and all(map(math.isfinite, losses["card"])),
-           "9c: 3 finite losses on the card")
+           f"{tag}: 3 finite losses on the card ({arch} smoke)")
     # P(13,2) rounds every activation: an f32 sum taken in another order
     # on the card can land an activation on the adjacent code, so the
     # losses are held to 1e-3 of their size, not bitwise
     gap = max(abs(a - b) / abs(b) for a, b in zip(losses["card"],
                                                   losses["cpu"]))
-    _check(gap <= 1e-3, "9c: card and CPU losses within 1e-3")
-    print(f"9c small input (minitron-8b smoke, paper_mixed fused, 3 steps): "
+    _check(gap <= 1e-3, f"{tag}: card and CPU losses within 1e-3 ({arch} "
+                        f"smoke)")
+    print(f"{tag} small input ({arch} smoke, paper_mixed fused, 3 steps): "
           f"card {losses['card']}, CPU {losses['cpu']}, largest relative "
           f"gap {gap:.3g} (limit 1e-3)")
     return trainers["card"], root
@@ -2639,6 +2729,245 @@ def _train_checkpoint(tr, root):
     print(f"9e checkpoint: {len(want)} arrays of the smoke train state "
           f"saved async, restored on the card, bitwise")
     shutil.rmtree(root, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 11: MoE QAT training at full width (the grouped STE over K2 / K9 /
+# K1, K9 at the capacity rows of a 512-token microbatch)
+# ---------------------------------------------------------------------------
+
+# (arch, layers, optimizer).  qwen3-moe-235b: one layer holds 2.42e9 expert
+# parameters, 3.73e9 with the untied 151936-row embedding and head; the
+# f32 masters, gradients, AdamW's two moments and its new updates (20 B a
+# parameter, 74.6 GB) leave no room on an 80 GB card for the update's
+# temporaries, so one layer trains with adafactor (factored second moment,
+# 12 B a parameter).  deepseek-moe-16b: 4 of 28 layers, 2.77e9 parameters,
+# AdamW.
+MOE_TRAIN = (("qwen3_moe_235b", 1, "adafactor"),
+             ("deepseek_moe_16b", 4, "adamw"))
+# the peak learning rate of the MoE runs, DeepSeekMoE 16B's published one
+# (arXiv:2401.06066): at the training example's 3e-3 a full-width random
+# init diverges in its first step and the router sends most tokens to a
+# few experts
+MOE_PEAK_LR = 4.2e-4
+
+
+def _moe_train_full_width(dev, arch: str, layers: int, optimizer: str):
+    """11a / 11b: `arch` at full width (`layers` of its depth) under
+    paper_mixed fused, 4 steps of 8 x 128 tokens in 2 microbatches through
+    Pipeline and Trainer (remat per layer; peak learning rate
+    MOE_PEAK_LR), counted from 0: finite losses,
+    every K9 launch on the run-time `posit` decode (both operands P(13,2)
+    codes), 3 x layers x microbatches x 2 of them (forward and the remat
+    recompute), every K6 launch on `tc`, every K2 launch on `p13_2`; median
+    step, tokens/s, peak memory; then one more step profiled.  Returns
+    (label, the run's launch counts)."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.core.quant import policy_by_name
+    from repro_torch.kernels import ops
+    from repro_torch.models import moe
+    full = configs.get(arch)
+    cfg = full.replace(
+        n_layers=layers,
+        quant=policy_by_name("paper_mixed").with_execution("fused"))
+    label = f"train {arch}"
+    T = _train_shape().tokens // TRAIN_ACCUM
+    C = moe.capacity(cfg, T)
+    print(f"{label}: d_model {cfg.d_model}, heads {cfg.n_heads}/"
+          f"{cfg.n_kv_heads} x {cfg.head_dim}, {cfg.n_experts} experts x "
+          f"{cfg.moe_d_ff} top-{cfg.top_k} (+{cfg.n_shared_experts} shared), "
+          f"capacity factor {cfg.capacity_factor}: {C} rows an expert for "
+          f"{T} tokens, vocab {cfg.vocab_size}, {optimizer}; reduced "
+          + json.dumps({"n_layers": f"{full.n_layers} -> {layers}"}))
+    _release()
+    tr = _trainer(cfg, dev, TRAIN_STEPS, optimizer=optimizer,
+                  peak_lr=MOE_PEAK_LR)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    state = tr.run(torch.Generator(device=dev).manual_seed(13))
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [h["loss"] for h in tr.history]
+    _check(len(losses) == TRAIN_STEPS and all(map(math.isfinite, losses)),
+           f"{label}: {TRAIN_STEPS} finite losses")
+    mb = TRAIN_STEPS * TRAIN_ACCUM
+    dense = 4 + (3 if cfg.n_shared_experts else 0)   # K6 GEMMs a layer
+    _check(counts["posit_matmul_grouped"] == 3 * layers * mb * 2
+           and counts["posit_matmul_grouped:posit"]
+           == counts["posit_matmul_grouped"],
+           f"{label}: every K9 launch on posit, 3 x {layers} x {mb} x 2")
+    _check(counts["posit_matmul:tc"] == dense * layers * mb * 2
+           and counts["posit_matmul"] == counts["posit_matmul:tc"],
+           f"{label}: every K6 launch on tc, {dense} x {layers} x {mb} x 2")
+    # K2: each coded GEMM's weights and activations, in the forward and the
+    # recompute, and the head's weights; K1: each coded GEMM's two codes in
+    # the backward, the head's in its forward and backward
+    gemms = dense + 3
+    _check(counts["posit_encode:p13_2"] == mb * (4 * gemms * layers + 1)
+           and counts["posit_encode"] == counts["posit_encode:p13_2"],
+           f"{label}: every K2 launch on p13_2, {mb} x (4 x {gemms} x "
+           f"{layers} + 1)")
+    _check(counts["posit_decode"] == mb * (2 * gemms * layers + 2),
+           f"{label}: K1 launched {mb} x (2 x {gemms} x {layers} + 2) times")
+    times = sorted(h["time_s"] for h in tr.history[1:])
+    step_ms = times[len(times) // 2] * 1e3
+    tokens = tr.shape.tokens
+    print(f"{label} ({layers} of {full.n_layers} layers, paper_mixed fused, "
+          f"{optimizer}, {tokens} tokens a step in {TRAIN_ACCUM} "
+          f"microbatches): losses {[round(x, 4) for x in losses]}, median "
+          f"step over steps 2-{TRAIN_STEPS} {step_ms:.3f} ms (steps "
+          f"{[round(h['time_s'] * 1e3, 3) for h in tr.history]} ms), "
+          f"{tokens / step_ms * 1e3:.1f} tokens/s, peak memory "
+          f"{peak / 1e9:.3f} GB")
+    print(f"{label}: launches {json.dumps(counts)}")
+    _profile_train_step(tr, state, f"{label} step")
+    del state, tr
+    _release()
+    return label, counts
+
+
+def _k9_train(dev, arch: str, train_label: str):
+    """11c: the grouped STE (`ops.fused_matmul_grouped_ste`, P(13,2) x
+    P(13,2)) at `arch`'s training shape, its E experts of the capacity
+    rows `moe.capacity` gives a microbatch: at the gate and down shapes the
+    forward within `sum_bound` of `ops.ste_plain` (a limit two planted
+    faults must fail), dx and dw bitwise its; then K9 over the layer's
+    three expert GEMMs on codes (as the forward runs it) timed beside its
+    plain version, torch.bmm on the decoded f32 stacks and the bound.
+    Returns the kernel record, whose launches are those of the run
+    `train_label`."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.core.formats import P13_2
+    from repro_torch.kernels import ops, posit_codec
+    from repro_torch.kernels import posit_matmul as pm
+    from repro_torch.models import moe
+    cfg = configs.get(arch)
+    E, layer_kn = cfg.n_experts, _expert_kn(cfg)
+    M = moe.capacity(cfg, _train_shape().tokens // TRAIN_ACCUM)
+    g = torch.Generator(device=dev).manual_seed(31)
+    err = ratio = 0.0
+    for K, N in (layer_kn[0], layer_kn[2]):
+        x = torch.randn(E, M, K, generator=g, device=dev)
+        w = torch.randn(E, K, N, generator=g, device=dev) / math.sqrt(K)
+        gr = torch.randn(E, M, N, generator=g, device=dev)
+        xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
+        before = ops.launch_counts()["posit_matmul_grouped:posit"]
+        out = ops.fused_matmul_grouped_ste(xr, wr, P13_2, P13_2)
+        _check(ops.launch_counts()["posit_matmul_grouped:posit"]
+               == before + 1,
+               f"11c {arch} K={K}: the grouped STE forward ran K9 on posit")
+        dx, dw = torch.autograd.grad(out, (xr, wr), gr)
+        del xr, wr
+        want, want_dx, want_dw = ops.ste_plain(x, w, P13_2, P13_2, gr)
+        _check(_bits_equal(dx, want_dx) and _bits_equal(dw, want_dw),
+               f"11c {arch} K={K} N={N}: dx, dw bitwise the plain version's")
+        del dx, dw, want_dx, want_dw, gr
+        a = posit_codec.encode_plain(x, P13_2)
+        b = posit_codec.encode_plain(w, P13_2)
+        bound = pm.sum_bound(a, b, P13_2, P13_2)
+        gap = (out.detach() - want).abs()
+        _check(bool((gap <= bound).all()),
+               f"11c {arch} E={E} M={M} K={K} N={N}: the grouped STE forward "
+               f"within {pm.SUM_TOL} u sqrt(K) ||ab|| of the plain version")
+        units = _units(gap, bound)
+        err, ratio = max(err, float(gap.max())), max(ratio, units)
+        planted = _planted_faults(
+            f"11c {arch} K={K}", posit_codec.decode(a, P13_2),
+            posit_codec.decode(b, P13_2), want, bound)
+        print(f"11c grouped STE {arch} (E {E}, M {M}, K {K}, N {N}): forward "
+              f"max |err| {float(gap.max()):.4g}, largest in u sqrt(K) "
+              f"||ab|| {units:.4g} (limit {pm.SUM_TOL}; planted: "
+              f"{planted}); dx, dw bitwise the plain version's")
+        del x, w, out, want, a, b, bound, gap
+        torch.cuda.empty_cache()
+    acts = {K: posit_codec.encode(torch.randn(E, M, K, generator=g,
+                                              device=dev), P13_2)
+            for K in {K for K, _ in layer_kn}}
+    layer = [(acts[K], posit_codec.encode(torch.randn(
+        E, K, N, generator=g, device=dev) / math.sqrt(K), P13_2))
+        for K, N in layer_kn]
+
+    def run():
+        for a, b in layer:
+            pm.posit_matmul_grouped(a, b, P13_2, P13_2)
+
+    call_ms = _time_ms(run, reps=3)
+    ms = _device_ms(run, launches=1)
+    plain_ms = _time_once_ms(lambda: [pm.posit_matmul_grouped_plain(
+        a, b, P13_2, P13_2) for a, b in layer])
+    decoded = [(posit_codec.decode(a, P13_2), posit_codec.decode(b, P13_2))
+               for a, b in layer]
+    library_ms = _device_ms(lambda: [torch.bmm(a, b) for a, b in decoded],
+                            launches=1)
+    del decoded, layer, acts
+    torch.cuda.empty_cache()
+    bytes_moved = sum(E * (M * K * 2 + K * N * 2 + M * N * 4)
+                      for K, N in layer_kn)
+    flops = sum(2.0 * E * M * K * N for K, N in layer_kn)
+    bound, by = _bound(bytes_moved, flops)
+    print(f"11c K9 training {arch} (E {E}, M {M}, the layer's 3 expert "
+          f"GEMMs, P(13,2) x P(13,2), posit): ms {ms:.4f}, call_ms "
+          f"{call_ms:.4f}, plain_ms {plain_ms:.3f}, bound_ms {bound:.4f} "
+          f"({by}; {flops / 1e9:.2f} GFLOP, {bytes_moved} B), torch.bmm on "
+          f"the decoded f32 stacks {library_ms:.4f}; largest err in u "
+          f"sqrt(K) ||ab|| {ratio:.4g}")
+    return dict(name=f"posit_matmul_grouped (training: posit, P(13,2) x "
+                     f"P(13,2), {arch} E {E} M {M}, the layer's 3 expert "
+                     f"GEMMs)",
+                counter="posit_matmul_grouped:posit", paths=(train_label,),
+                source="src/repro_torch/csrc/posit_matmul_grouped.cu",
+                replaces="src/repro/kernels/posit_matmul.py:99",
+                max_abs_err=err, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+                bound_ms=bound, bound_by=by, library_ms=library_ms,
+                shape=f"E={E} M={M} {layer_kn}")
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the example twins on the card
+# ---------------------------------------------------------------------------
+
+EXAMPLE_RUNS = (("quickstart_torch.py", (), {}),
+                ("wm_sensitivity_study_torch.py", (), {}),
+                ("ptq_study_torch.py", ("--steps", "20"), {}),
+                ("serve_async_torch.py", (),
+                 {"SERVE_ASYNC_REQUESTS": "2", "SERVE_ASYNC_TOKENS": "4"}))
+
+
+def _examples_on_card():
+    """12: the four example twins of this slice, each in its own process on
+    the card (all started together, each waited for); every one must exit
+    0.  Prints each one's last lines."""
+    path = os.pathsep.join([os.path.join(HERE, "src")] + [
+        p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p])
+    t0 = time.perf_counter()
+    procs = []
+    for script, args, env in EXAMPLE_RUNS:
+        procs.append((script, subprocess.Popen(
+            [sys.executable, os.path.join(HERE, "examples", script), *args],
+            cwd=HERE, env=dict(os.environ, PYTHONPATH=path, **env),
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    results = []
+    for script, proc in procs:
+        try:
+            out, err = proc.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, err = proc.communicate()
+        results.append((script, proc.returncode, out, err))
+    wall = time.perf_counter() - t0
+    for script, rc, out, err in results:
+        if rc != 0:
+            print(out[-4000:])
+            print(err[-4000:], file=sys.stderr)
+        _check(rc == 0, f"12: examples/{script} exits 0 on the card")
+        lines = out.strip().splitlines()
+        for line in lines[-3:]:
+            print(f"12 {script}: {line}")
+    print(f"12 examples: 4 twins exit 0 on the card in {wall:.1f} s (run "
+          f"together)")
 
 
 # ---------------------------------------------------------------------------
@@ -3124,6 +3453,40 @@ def _serve_example():
     print(f"10d example: exit 0 in {wall:.1f} s ({len(lines)} lines)")
 
 
+def _attribute_launches(kernels, runs):
+    """Fill each kernel record's launches from the main-path runs' own
+    counts (each from 0): launches_by_path, each run's count of the
+    record's counter ("counter", else its name: a kernel, or one of its
+    variants); launches, their sum; launches_by_variant, the same by the
+    wrapper's variant.  A record counts the runs its "paths" name (the
+    training runs and phase 10's models: their own); one without counts
+    the runs that no other record of its kernel names."""
+
+    def kernel_of(rec):
+        return rec.get("counter", rec["name"]).split(":", 1)[0]
+
+    named: dict = {}
+    for rec in kernels:
+        named.setdefault(kernel_of(rec), set()).update(rec.get("paths", ()))
+    for rec in kernels:
+        counter = rec.get("counter", rec["name"])
+        paths = rec.get("paths") or [label for label in runs
+                                     if label not in named[kernel_of(rec)]]
+        rec["launches_by_path"] = {label: runs[label][counter]
+                                   for label in paths}
+        rec["launches"] = sum(rec["launches_by_path"].values())
+        if ":" in counter:
+            rec["launches_by_variant"] = {counter.split(":", 1)[1]:
+                                          rec["launches"]}
+        else:
+            variants = sorted({key for label in paths for key in runs[label]
+                               if key.startswith(counter + ":")})
+            rec["launches_by_variant"] = {
+                key.split(":", 1)[1]: sum(runs[label][key] for label in paths)
+                for key in variants}
+        rec["route"] = "cuda"
+
+
 def main() -> int:
     src = os.path.join(HERE, "src")
     if not os.path.isdir(os.path.join(src, "repro_torch", "csrc")):
@@ -3221,9 +3584,9 @@ def main() -> int:
     # checkpoints
     train_counts = _train_full_width(dev)
     _release()
-    _train_ste(dev)
+    _train_ste(dev, TRAIN_LABEL, "minitron_8b")
     _release()
-    kernels.extend(_train_kernels(dev))
+    kernels.extend(_train_kernels(dev, TRAIN_LABEL, "minitron_8b"))
     _release()
     tr, root = _train_small_reference(dev)
     _train_example(dev)
@@ -3235,9 +3598,31 @@ def main() -> int:
     for phase in (_gemma3_phase, _command_r_plus_phase):
         c, recs = phase(dev)
         counts10.update(c)
+        for rec in recs:
+            rec["paths"] = tuple(c)
         kernels.extend(recs)
         _release()
     _serve_example()
+    # ---- phase 11: MoE QAT training at full width (qwen3-moe-235b, 1
+    # layer, adafactor; deepseek-moe-16b, 4 layers, AdamW), then the
+    # grouped STE and K9 at their training shapes, and each model's K6 /
+    # K2 / K1 shapes and smoke steps against the CPU; phase 12: the
+    # example twins
+    train_runs = {TRAIN_LABEL: train_counts}
+    for arch, layers, optimizer in MOE_TRAIN:
+        label, c = _moe_train_full_width(dev, arch, layers, optimizer)
+        train_runs[label] = c
+    for arch, _, _ in MOE_TRAIN:
+        label = f"train {arch}"
+        kernels.append(_k9_train(dev, arch, label))
+        _release()
+        _train_ste(dev, label, arch)
+        _release()
+        kernels.extend(_train_kernels(dev, label, arch))
+        _release()
+        _train_small_reference(dev, arch, "11d")
+        _release()
+    _examples_on_card()
     # K3 splits every main path's key spans (tables of more than 2 pages)
     # and merges the partials: each launch ran the merge kernel
     for label, c in counts.items():
@@ -3255,20 +3640,8 @@ def main() -> int:
         _check(c["prefill_attention"] > 0
                and c["prefill_attention:tc"] == c["prefill_attention"],
                f"'{label}': every K5 launch took the tensor-core variant")
-    # launches: the sum of the main-path runs' own counts (each from 0),
-    # the training run's among them; launches_by_path: each run's count;
-    # launches_by_variant: the sum by the wrapper's variant.  The training
-    # records count their variant's launches ("counter")
-    runs = dict(counts, **counts10, **{TRAIN_LABEL: train_counts})
-    for rec in kernels:
-        counter = rec.get("counter", rec["name"])
-        rec["launches_by_path"] = {label: c[counter]
-                                   for label, c in runs.items()}
-        rec["launches"] = sum(rec["launches_by_path"].values())
-        rec["launches_by_variant"] = {
-            key.split(":", 1)[1]: sum(c[key] for c in runs.values())
-            for key in train_counts if key.startswith(counter + ":")}
-        rec["route"] = "cuda"
+    runs = dict(counts, **counts10, **train_runs)
+    _attribute_launches(kernels, runs)
     keys = ("name", "route", "source", "replaces", "launches",
             "launches_by_path", "launches_by_variant", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")

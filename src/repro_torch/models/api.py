@@ -3,7 +3,7 @@
 
     param_specs(cfg)                                  -> tree[ParamSpec]
     init(generator, cfg, device)                      -> params
-    apply(params, batch, cfg)                         -> logits [B, S, V]
+    apply(params, batch, cfg, **kw)                   -> logits [B, S, V]
     prefill(params, batch, cfg, max_seq, device)      -> (logits, dense cache)
     input_specs(cfg, shape) / abstract_state(cfg)     -> meta tensors
     decode_step(params, tokens, cache, cfg, active=None) -> (logits, cache')
@@ -52,15 +52,12 @@ def init(generator: torch.Generator, cfg: ModelConfig, device="cuda"):
     return init_params(generator, param_specs(cfg), resolve_device(device))
 
 
-def apply(params, batch, cfg: ModelConfig):
+def apply(params, batch, cfg: ModelConfig, **kw):
     """Whole-sequence forward (training): batch {"tokens": [B, S]} -> f32
-    logits [B, S, V].  The dense family only: MoE training is not ported
-    yet (ROADMAP queue 1)."""
-    mod = _mod(cfg)
-    if not hasattr(mod, "apply"):
-        raise NotImplementedError(
-            f"family {cfg.family!r} has no whole-sequence forward yet")
-    return mod.apply(params, batch, cfg)
+    logits [B, S, V].  `kw` goes to the family's `apply`: `collect_cache`
+    (each layer's (k, v)) and, for the MoE family, `with_aux` (the
+    layers' mean load-balance loss, returned last)."""
+    return _mod(cfg).apply(params, batch, cfg, **kw)
 
 
 def input_specs(cfg: ModelConfig, shape: ShapeConfig, *, with_labels=True):
@@ -92,8 +89,7 @@ def prefill(params, batch, cfg: ModelConfig, max_seq: Optional[int] = None,
             device="cuda"):
     """Whole-sequence prefill: batch {"tokens": [B, S]} (tensors or numpy,
     moved to `device`, where `params` must live) -> (f32 logits [B, S, V],
-    the dense KV cache [L, B, max(max_seq, S), Hkv*Dh] with length S).  The
-    dense family only: the MoE whole-sequence forward is not ported yet."""
+    the dense KV cache [L, B, max(max_seq, S), Hkv*Dh] with length S)."""
     from repro_torch import resolve_device
     dev = resolve_device(device)
     batch = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}

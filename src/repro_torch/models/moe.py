@@ -1,6 +1,8 @@
 """Mixture-of-Experts LM (PyTorch port of `repro.models.moe`):
 qwen3-moe-235b (128 experts, top-8) and deepseek-moe-16b (2 shared + 64
-routed, top-6), serving over the paged or the dense KV cache.
+routed, top-6): the whole-sequence forward of training (with the
+router's load-balance loss) and serving over the paged or the dense KV
+cache.
 
 Expert dispatch is sort-based with a capacity limit (GShard-style
 dropping): token -> expert choices are sorted by expert id (a stable
@@ -8,12 +10,13 @@ sort), ranked within their expert and scattered into an [E, C, D] buffer
 whose extra drop row takes the choices past capacity.  Every expert GEMM
 (we_gate / we_up / we_down, both dispatch flavours) goes through
 `common.qdot_grouped` -> `kernels/dispatch.qdot_grouped`: the grouped
-posit GEMM (K9) over packed expert stacks when serving fused, the
-chunked-PDPU GEMM (K8) per expert under bit_exact.  The combine adds each
-token's k weighted expert outputs in ascending expert id, the order the
-reference's scatter-add takes them, as a fixed sequence of adds: the same
-on the CPU and on the card, where an atomic scatter-add would sum in no
-fixed order.  Attention, the cache and the serving loops are
+posit GEMM (K9) over packed expert stacks when serving fused and over the
+float masters' codes in training (the grouped STE of `kernels/ops.py`),
+the chunked-PDPU GEMM (K8) per expert under bit_exact.  The combine adds
+each token's k weighted expert outputs in ascending expert id, the order
+the reference's scatter-add takes them, as a fixed sequence of adds: the
+same on the CPU and on the card, where an atomic scatter-add would sum in
+no fixed order.  Attention, the cache and the serving loops are
 `transformer`'s; this module supplies the feed-forward block.  On one
 card the reference's sharding constraints have nothing to do.
 """
@@ -73,7 +76,11 @@ def _aux_loss(probs, ids, E: int):
 def _dispatch(x, ids, E: int, C: int):
     """Sort-based dispatch per routing group.  x [G, T, D], ids [G, T, k]
     -> (buf [G, E, C, D], slot, keep, order) with slot/keep/order
-    [G, T*k] over the choices in expert order; slot E*C is the drop row."""
+    [G, T*k] over the choices in expert order; slot E*C is the drop row.
+    The choices' rows are gathered from a copy of x with each row repeated
+    k times, each copy once: the gradient of a token's row is then a sum
+    over its k choices in a fixed order, where a gather from x itself
+    would add them by atomics on the card, in no fixed order."""
     G, T, D = x.shape
     k = ids.shape[-1]
     flat_e = ids.reshape(G, T * k)
@@ -86,10 +93,10 @@ def _dispatch(x, ids, E: int, C: int):
         torch.gather(starts, 1, sorted_e)
     keep = rank < C
     slot = torch.where(keep, sorted_e * C + rank, E * C)
-    tok = order // k
+    rows = x[:, :, None].expand(G, T, k, D).reshape(G, T * k, D)
     buf = torch.zeros((G, E * C + 1, D), dtype=x.dtype, device=x.device)
     buf.scatter_(1, slot[..., None].expand(G, T * k, D),
-                 torch.gather(x, 1, tok[..., None].expand(G, T * k, D)))
+                 torch.gather(rows, 1, order[..., None].expand(G, T * k, D)))
     return buf[:, :E * C].reshape(G, E, C, D), slot, keep, order
 
 
@@ -138,19 +145,26 @@ def _shared(p, x, y, cfg: ModelConfig):
                                   cfg)
 
 
+def capacity(cfg: ModelConfig, tokens: int, multiple: int = 8) -> int:
+    """Rows an expert takes from a routing group of `tokens` tokens: the
+    capacity factor times its even share of the top-k choices, rounded up
+    to a multiple of `multiple` (and at least `multiple`)."""
+    C = int(tokens * cfg.top_k / cfg.n_experts * cfg.capacity_factor)
+    return max(multiple, -(-C // multiple) * multiple)
+
+
 def moe_ffn(p, x, cfg: ModelConfig):
     """Routed expert FFN. x: [B, S, D] -> ([B, S, D], aux_loss scalar).
     The capacity limit C applies over all B * S tokens."""
     if cfg.moe_grouped_dispatch:
         return moe_ffn_grouped(p, x, cfg)
     B, S, D = x.shape
-    E, k = cfg.n_experts, cfg.top_k
+    E = cfg.n_experts
     T = B * S
     xf = x.reshape(1, T, D)
     probs, vals, ids = _route(xf, p["router"], cfg)
     aux = _aux_loss(probs, ids, E)
-    C = int(T * k / E * cfg.capacity_factor)
-    C = max(8, -(-C // 8) * 8)
+    C = capacity(cfg, T)
     buf, slot, keep, order = _dispatch(xf, ids, E, C)
     out_e = _experts(p, buf[0], cfg, x.dtype).reshape(1, E * C, D)
     y = _combine(out_e, ids, vals, slot, keep, order, x.dtype)
@@ -162,9 +176,8 @@ def moe_ffn_grouped(p, x, cfg: ModelConfig):
     its own capacity Cg; the [B, E, Cg, D] buffer folds its batch dim onto
     the per-expert rows inside qdot_grouped."""
     B, S, D = x.shape
-    E, k = cfg.n_experts, cfg.top_k
-    Cg = int(S * k / E * cfg.capacity_factor)
-    Cg = max(4, -(-Cg // 4) * 4)
+    E = cfg.n_experts
+    Cg = capacity(cfg, S, multiple=4)
     probs, vals, ids = _route(x, p["router"], cfg)
     aux = _aux_loss(probs, ids, E)
     buf, slot, keep, order = _dispatch(x, ids, E, Cg)
@@ -174,9 +187,23 @@ def moe_ffn_grouped(p, x, cfg: ModelConfig):
 
 
 def _moe_block(p, x, cfg: ModelConfig):
-    """The layer's feed-forward block: ln2, then the routed experts."""
+    """The layer's feed-forward block: ln2, then the routed experts;
+    returns (output, the router's load-balance loss)."""
     h = common.rms_norm(x, p["ln2"], upcast=not cfg.tp_bf16_reduce)
-    return moe_ffn(p, h, cfg)[0]
+    return moe_ffn(p, h, cfg)
+
+
+def apply(params, batch, cfg: ModelConfig, collect_cache: bool = False,
+          with_aux: bool = False):
+    """Training / prefill forward with the MoE FFN (transformer.apply):
+    f32 logits [B, S, V], then each layer's (k, v) with `collect_cache`,
+    then the layers' mean load-balance loss with `with_aux`.  The capacity
+    limit applies over all B * S tokens (per sequence under
+    `cfg.moe_grouped_dispatch`).  Gradients reach the router through the
+    combine's weights and the aux loss's probabilities; the expert counts
+    of the aux loss carry none, as in the reference."""
+    return transformer.apply(params, batch, cfg, collect_cache=collect_cache,
+                             with_aux=with_aux, ffn=_moe_block)
 
 
 # ---------------------------------------------------------------------------
@@ -193,12 +220,12 @@ init_cache = transformer.init_cache
 
 
 def prefill(params, batch, cfg: ModelConfig, max_seq=None):
-    """The whole-sequence prefill needs `moe.apply`, the MoE whole-sequence
-    forward, which comes with MoE training (ROADMAP queue 1)."""
-    raise NotImplementedError(
-        "moe.prefill needs moe.apply, the MoE whole-sequence forward, which "
-        "is not ported yet (ROADMAP queue 1, MoE training); serve MoE models "
-        "through prefill_chunk / prefill_chunk_batched")
+    """Whole-sequence prefill (`apply`) that also builds the dense KV cache
+    (transformer.prefill with the MoE FFN): (logits [B, S, V], {"k", "v":
+    [L, B, max(max_seq, S), Hkv*Dh] codes, positions past S zero;
+    "length": [B] = S})."""
+    return transformer.prefill(params, batch, cfg, max_seq=max_seq,
+                               ffn=_moe_block)
 
 
 def decode_step(params, tokens, cache, cfg: ModelConfig, sample=None,

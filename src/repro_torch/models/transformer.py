@@ -110,6 +110,12 @@ def _mlp_block(p, x, cfg: ModelConfig):
     return swiglu(h, p["wi_gate"], p["wi_up"], p["wo_mlp"], cfg)
 
 
+def _mlp_ffn(p, x, cfg: ModelConfig):
+    """The dense layer's feed-forward block as an `ffn`: (output, aux),
+    with no auxiliary loss (None)."""
+    return _mlp_block(p, x, cfg), None
+
+
 def _window(cfg: ModelConfig, is_global: bool) -> int:
     if cfg.sliding_window is None or is_global:
         return _UNBOUNDED
@@ -156,9 +162,11 @@ def _attn(p, x, cfg: ModelConfig, pos, is_global: bool):
     return out, k, v
 
 
-def _seq_layer(p, x, cfg: ModelConfig, pos, is_global: bool):
+def _seq_layer(p, x, cfg: ModelConfig, pos, is_global: bool, ffn=_mlp_ffn):
+    """One layer of the whole-sequence forward: (x', the ffn's aux)."""
     x = x + _attn(p, x, cfg, pos, is_global)[0]
-    return x + _mlp_block(p, x, cfg)
+    out, aux = ffn(p, x, cfg)
+    return x + out, aux
 
 
 def _embed_inputs(params, batch, cfg: ModelConfig):
@@ -170,13 +178,18 @@ def _embed_inputs(params, batch, cfg: ModelConfig):
     return common.embed_tokens(params["embed"], batch["tokens"], cfg)
 
 
-def apply(params, batch, cfg: ModelConfig, collect_cache: bool = False):
+def apply(params, batch, cfg: ModelConfig, collect_cache: bool = False,
+          with_aux: bool = False, ffn=_mlp_ffn):
     """Training / prefill forward. batch: {"tokens": [B, S] int}.  Returns
-    f32 logits [B, S, V], and with `collect_cache` also each layer's (k, v)
-    [B, S, Hkv, Dh] in a list.  With `cfg.remat == "layer"` (and no cache
-    to collect) each layer's activations are dropped after the forward and
-    recomputed in the backward (`torch.utils.checkpoint`; the recompute is
-    bitwise the first forward, the kernels being deterministic)."""
+    f32 logits [B, S, V]; with `collect_cache` also each layer's (k, v)
+    [B, S, Hkv, Dh] in a list, and with `with_aux` last the mean over the
+    layers of the ffn's auxiliary loss.  `ffn(p, x, cfg) -> (out, aux)` is
+    the layer's feed-forward block: the dense MLP here, the routed experts
+    in models/moe.py.  With `cfg.remat == "layer"` (and no cache to
+    collect) each layer's activations are dropped after the forward and
+    recomputed in the backward (`torch.utils.checkpoint`, aux included;
+    the recompute is bitwise the first forward, the kernels and the
+    routing being deterministic)."""
     x = _embed_inputs(params, batch, cfg)
     B, S, _ = x.shape
     pos = torch.arange(S, dtype=torch.int32,
@@ -185,24 +198,31 @@ def apply(params, batch, cfg: ModelConfig, collect_cache: bool = False):
     # one unbind per stacked leaf: its backward stacks the layers' grads
     # (a per-layer index would zero-fill a full-size grad each layer)
     per_layer = zip(*(params["layers"][n].unbind(0) for n in names))
-    kvs = []
+    kvs, auxes = [], []
     for vals, is_global in zip(per_layer, layer_flags(cfg)):
         p = dict(zip(names, vals))
         if collect_cache:
             out, k, v = _attn(p, x, cfg, pos, is_global)
             x = x + out
-            x = x + _mlp_block(p, x, cfg)
+            out, aux = ffn(p, x, cfg)
+            x = x + out
             kvs.append((k, v))
         elif cfg.remat == "layer" and torch.is_grad_enabled():
-            x = torch.utils.checkpoint.checkpoint(
-                _seq_layer, p, x, cfg, pos, is_global, use_reentrant=False,
-                preserve_rng_state=False)
+            x, aux = torch.utils.checkpoint.checkpoint(
+                _seq_layer, p, x, cfg, pos, is_global, ffn,
+                use_reentrant=False, preserve_rng_state=False)
         else:
-            x = _seq_layer(p, x, cfg, pos, is_global)
+            x, aux = _seq_layer(p, x, cfg, pos, is_global, ffn)
+        auxes.append(aux)
     x = common.rms_norm(x, params["final_norm"])
     logits = common.logits_head(x, _head(params, cfg), cfg,
                                 transpose=cfg.tie_embeddings)
-    return (logits, kvs) if collect_cache else logits
+    outs = [logits]
+    if collect_cache:
+        outs.append(kvs)
+    if with_aux:
+        outs.append(torch.stack(auxes).mean())
+    return outs[0] if len(outs) == 1 else tuple(outs)
 
 
 def _paged_attn_token(p, x, cfg: ModelConfig, k_l, v_l, bt, length, is_global):
@@ -406,7 +426,7 @@ def _dense_attn_token(p, x, cfg: ModelConfig, k_l, v_l, length, is_global,
 
 
 def decode_step(params, tokens, cache, cfg: ModelConfig, sample=None,
-                ffn=_mlp_block, active=None):
+                ffn=_mlp_ffn, active=None):
     """One autoregressive step over the paged or the dense cache. tokens:
     [B] int32.
 
@@ -414,7 +434,8 @@ def decode_step(params, tokens, cache, cfg: ModelConfig, sample=None,
     place: into the slot's current page, or row b of the dense pools) and
     attended (the paged-attention kernel, or `common.decode_attention` over
     the decoded rows); `ffn(p, x, cfg)` is the layer's feed-forward block
-    (the dense MLP here, the routed experts in models/moe.py).  `active`
+    (the dense MLP here, the routed experts in models/moe.py; its aux is
+    dropped).  `active`
     ([B] bool, dense cache only) leaves the rows it marks False unwritten:
     an engine's free or mid-prefill slots (on the paged cache such rows
     carry zeroed block tables, so their writes land on the trash page).
@@ -433,7 +454,7 @@ def decode_step(params, tokens, cache, cfg: ModelConfig, sample=None,
         else:
             x = x + _paged_attn_token(p, x, cfg, cache["k"][i],
                                       cache["v"][i], bt, length, is_global)
-        x = x + ffn(p, x, cfg)
+        x = x + ffn(p, x, cfg)[0]
     x = common.rms_norm(x, params["final_norm"])
     new_cache = dict(cache, length=length + 1)
     head = _head(params, cfg)
@@ -492,7 +513,7 @@ def decode_verify(params, tokens, cache, cfg: ModelConfig, sample=None):
 
 
 def prefill_chunk(params, tokens, cache, slot: int, cfg: ModelConfig,
-                  ffn=_mlp_block):
+                  ffn=_mlp_ffn):
     """Chunked prefill of prompt chunk `tokens` [1, C] for one slot of the
     paged or the dense cache, at positions length[slot] + [0, C).  Returns
     (last-position logits [1, 1, V], cache') with length[slot] advanced by
@@ -505,7 +526,7 @@ def prefill_chunk(params, tokens, cache, slot: int, cfg: ModelConfig,
         p = _layer(params, i)
         x = x + _chunk_attn(p, x, cfg, cache["k"][i], cache["v"][i], start,
                             bt_row, is_global, slot=slot)
-        x = x + ffn(p, x, cfg)
+        x = x + ffn(p, x, cfg)[0]
     x = common.rms_norm(x[:, -1:], params["final_norm"])
     logits = common.logits_head(x, _head(params, cfg), cfg,
                                 transpose=cfg.tie_embeddings)
@@ -515,7 +536,7 @@ def prefill_chunk(params, tokens, cache, slot: int, cfg: ModelConfig,
 
 
 def prefill_chunk_batched(params, tokens, cache, active, cfg: ModelConfig,
-                          ffn=_mlp_block):
+                          ffn=_mlp_ffn):
     """Cross-slot batched chunked prefill: one [B, C] pass advances every
     active slot by a chunk of the same bucket size.  The caller zeroes
     inactive rows' length/block-table metadata, so their paged writes land
@@ -528,7 +549,7 @@ def prefill_chunk_batched(params, tokens, cache, active, cfg: ModelConfig,
         p = _layer(params, i)
         x = x + _chunk_attn_batched(p, x, cfg, cache["k"][i], cache["v"][i],
                                     starts, bt, is_global, active=active)
-        x = x + ffn(p, x, cfg)
+        x = x + ffn(p, x, cfg)[0]
     x = common.rms_norm(x[:, -1:], params["final_norm"])
     logits = common.logits_head(x, _head(params, cfg), cfg,
                                 transpose=cfg.tie_embeddings)
@@ -537,11 +558,12 @@ def prefill_chunk_batched(params, tokens, cache, active, cfg: ModelConfig,
     return logits[:, 0], dict(cache, length=length)
 
 
-def prefill(params, batch, cfg: ModelConfig, max_seq: Optional[int] = None):
+def prefill(params, batch, cfg: ModelConfig, max_seq: Optional[int] = None,
+            ffn=_mlp_ffn):
     """Whole-sequence forward (`apply`) that also builds the dense KV cache:
     returns (logits [B, S, V], {"k", "v": [L, B, max(max_seq, S), Hkv*Dh]
     codes, positions past S zero; "length": [B] = S})."""
-    logits, kvs = apply(params, batch, cfg, collect_cache=True)
+    logits, kvs = apply(params, batch, cfg, collect_cache=True, ffn=ffn)
     B, S = kvs[0][0].shape[:2]
     rows = max(max_seq or S, S)
     cache = init_cache(cfg, B, rows, device=logits.device)

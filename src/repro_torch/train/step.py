@@ -46,18 +46,18 @@ def init_state(generator: torch.Generator, cfg: ModelConfig, opt: Optimizer,
 
 
 def loss_fn(params, batch, cfg: ModelConfig, aux_weight: float = 0.01):
-    """Mean cross-entropy of the model's logits against batch["labels"];
-    returns (loss, {"ce", "aux"}).  Dense family only (the MoE auxiliary
-    loss waits for `moe.apply`)."""
+    """Mean cross-entropy of the model's logits against batch["labels"],
+    plus `aux_weight` times the MoE family's load-balance loss; returns
+    (loss, {"ce", "aux"})."""
     if cfg.cast_params_early:
         cd = cfg.compute_dtype
         params = tree_map(
             lambda p: p.to(cd) if p.dtype == torch.float32 else p, params)
     if cfg.family in ("moe", "hybrid"):
-        raise NotImplementedError(
-            f"training of family {cfg.family!r} is not ported yet")
-    logits = api.apply(params, batch, cfg)
-    aux = 0.0
+        logits, aux = api.apply(params, batch, cfg, with_aux=True)
+    else:
+        logits = api.apply(params, batch, cfg)
+        aux = 0.0
     loss = common.cross_entropy(logits, batch["labels"])
     return loss + aux_weight * aux, {"ce": loss, "aux": aux}
 

@@ -6,8 +6,8 @@ whole-sequence `prefill` that builds a dense cache and the dense
 `decode_step` after it, `ServingEngine(paged=False)` (greedy streams equal
 to the reference's dense engine and to the port's paged engine, also
 interleaved with decode and sampled), the paged engine's streams against
-the reference's paged engine on the same configs, the MoE family's dense
-decode,
+the reference's paged engine on the same configs (the MoE smoke configs
+among them), the MoE family's dense decode and whole-sequence prefill,
 `kv_cache_bytes` / `slot_free` / `pages_promised` / `execution_summary()`
 and `packing.unpack_params`.  The same numpy inputs and the reference's
 own parameters go to both packages; the port runs on the CPU, the
@@ -226,6 +226,8 @@ ENGINE_RUNS = {
     "command_r_35b-smoke": ("command_r_35b", "smoke", {}),
     "command_r_plus_104b-smoke": ("command_r_plus_104b", "smoke", {}),
     "gemma3_4b-smoke": ("gemma3_4b", "smoke", {}),
+    "qwen3_moe_235b-smoke": ("qwen3_moe_235b", "smoke", {}),
+    "deepseek_moe_16b-smoke": ("deepseek_moe_16b", "smoke", {}),
     "command_r_35b-sampled": ("command_r_35b", "tiny",
                               dict(greedy=False, temperature=0.8, top_k=5,
                                    base_seed=9)),
@@ -375,8 +377,9 @@ def test_dense_engine_rejects_speculation_and_unported_mesh():
 def test_moe_dense_decode_matches_reference():
     """qwen3-moe's tiny serving config: a batched chunk prefill and two
     decode steps over the dense cache, logits and codes against the
-    reference; `moe.prefill` (which needs the MoE whole-sequence forward)
-    raises and names the queue item."""
+    reference; then the whole-sequence `prefill` of the same tokens (the
+    MoE whole-sequence forward) against the reference's, its codes
+    bitwise."""
     jcfg, tcfg, jparams, tparams = _params("qwen3_moe_235b", "tiny", seed=6)
     rng = np.random.default_rng(8)
     toks = rng.integers(0, jcfg.vocab_size, (2, 7)).astype(np.int32)
@@ -398,8 +401,14 @@ def test_moe_dense_decode_matches_reference():
                                    atol=ATOL)
     for name in ("k", "v", "length"):
         np.testing.assert_array_equal(tc[name].numpy(), np.asarray(jc[name]))
-    with pytest.raises(NotImplementedError, match="queue 1"):
-        tapi.prefill(tparams, {"tokens": toks}, tcfg, device="cpu")
+    jl, jc = jax.jit(lambda p, b: japi.prefill(p, b, jcfg, max_seq=MAX_SEQ))(
+        jparams, {"tokens": jnp.asarray(toks)})
+    tl, tc = tapi.prefill(tparams, {"tokens": toks}, tcfg, max_seq=MAX_SEQ,
+                          device="cpu")
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=SEQ_TOL,
+                               atol=SEQ_TOL)
+    for name in ("k", "v", "length"):
+        np.testing.assert_array_equal(tc[name].numpy(), np.asarray(jc[name]))
 
 
 # ---------------------------------------------------------------------------

@@ -1316,9 +1316,48 @@ def test_remat_recompute_bitwise_first_forward(cuda):
     x = torch.randn(4, 64, 256, device=cuda)
     pos = torch.arange(64, dtype=torch.int32, device=cuda)[None].expand(4, 64)
     with torch.no_grad():
-        first = transformer._seq_layer(p, x, base, pos, True)
-        assert _bits_equal(transformer._seq_layer(p, x, base, pos, True),
+        first = transformer._seq_layer(p, x, base, pos, True)[0]
+        assert _bits_equal(transformer._seq_layer(p, x, base, pos, True)[0],
                            first)
+
+
+@pytest.mark.parametrize("arch", ["qwen3_moe_235b", "deepseek_moe_16b"])
+def test_moe_remat_recompute_bitwise_first_forward(cuda, arch):
+    """The MoE layer recomputed in the backward routes as its first forward
+    did on the card (stable sort, K9 without atomics): loss, aux and every
+    gradient with remat equal those without, bitwise; every K9 launch takes
+    the run-time decode (both operands P(13,2) codes)."""
+    from repro_torch import configs
+    from repro_torch.core.quant import policy_by_name
+    from repro_torch.models import api
+    from repro_torch.models.module import tree_leaves
+    from repro_torch.train import step
+    base = configs.get_smoke(arch).replace(
+        d_model=256, n_heads=4, n_kv_heads=2 if arch.startswith("qwen") else 4,
+        head_dim=64, moe_d_ff=384, n_experts=16, capacity_factor=1.25,
+        quant=policy_by_name("paper_mixed").with_execution("fused"))
+    tok = torch.randint(0, base.vocab_size, (2, 4, 64),
+                        generator=torch.Generator().manual_seed(7))
+    batch = {"tokens": tok[0].to(cuda), "labels": tok[1].to(cuda)}
+    out = []
+    for remat in ("layer", "none"):
+        cfg = base.replace(remat=remat)
+        params = api.init(torch.Generator(device=cuda).manual_seed(2), cfg,
+                          cuda)
+        for p in tree_leaves(params):
+            p.requires_grad_(True)
+        ops.reset_launches()
+        loss, metrics = step.loss_fn(params, batch, cfg)
+        loss.backward()
+        counts = ops.launch_counts()
+        assert counts["posit_matmul_grouped"] == \
+            counts["posit_matmul_grouped:posit"] == \
+            3 * cfg.n_layers * (2 if remat == "layer" else 1)
+        out.append([loss, metrics["aux"]]
+                   + [p.grad for p in tree_leaves(params)])
+    assert torch.isfinite(out[0][0])
+    for a, b in zip(*out):
+        assert _bits_equal(a, b)
 
 
 # ---------------------------------------------------------------------------

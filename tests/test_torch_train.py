@@ -381,14 +381,28 @@ def test_trainer_rolls_back_on_repeated_nan(tmp_path, monkeypatch):
 
 
 def test_train_step_rejects_bit_exact_and_moe():
+    """bit_exact is rejected up front; the MoE family trains (one step of
+    qwen3-moe's smoke config, its metrics carrying the aux loss)."""
     cfg = tconfigs.get_smoke("minitron_8b").replace(
         quant=tpolicy("validate_bit_exact"))
     opt = topt.adamw(topt.constant_schedule(1e-3))
     with pytest.raises(ValueError, match="not differentiable"):
         tstep.make_train_step(cfg, opt)
-    moe = tconfigs.get_smoke("qwen3_moe_235b")
-    with pytest.raises(NotImplementedError):
-        tapi.apply({}, {"tokens": torch.zeros(1, 2, dtype=torch.int32)}, moe)
+    moe = tconfigs.get_smoke("qwen3_moe_235b").replace(
+        quant=tpolicy("paper_mixed").with_execution("fused"))
+    state = tstep.init_state(torch.Generator().manual_seed(5), moe, opt,
+                             "cpu")
+    rng = np.random.default_rng(6)
+    batch = {k: torch.from_numpy(
+        rng.integers(0, moe.vocab_size, (4, 8)).astype(np.int32))
+        for k in ("tokens", "labels")}
+    state, metrics = tstep.make_train_step(moe, opt, accum=2)(state, batch)
+    assert int(state.step) == 1
+    assert all(np.isfinite(float(metrics[k])) for k in ("loss", "ce", "aux"))
+    assert float(metrics["aux"]) > 0
+    np.testing.assert_allclose(
+        float(metrics["loss"]),
+        float(metrics["ce"]) + 0.01 * float(metrics["aux"]), rtol=1e-6)
 
 
 def test_input_specs_and_abstract_state_are_meta():
