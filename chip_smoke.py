@@ -166,15 +166,19 @@ Phases (any failure exits non-zero; no phase is caught):
      state would not fit); 11b deepseek-moe-16b (d_model 2048, 16 heads
      of 128, 64 routed experts of 1408 top-6 and 2 shared, vocab 102400;
      4 of 28 layers, AdamW).  Each: finite losses, every K9 launch on the
-     run-time `posit` decode, 3 x layers x microbatches x 2 of them
+     tensor-core variant with the P(13,2) decode table (`tc_p13_2`: 40 /
+     64 capacity rows of coded activations), 3 x layers x microbatches x 2 of them
      (forward and remat recompute), K6 (attention projections and shared
      experts, `tc`), K2 (`p13_2`) and K1 counted against their formulas;
      median step, tokens/s, peak memory, one step profiled.  11c the
      grouped STE at both models' training shapes (qwen3: E 128, 40
      capacity rows; deepseek: E 64, 64 rows): the forward within
      `sum_bound` of `ops.ste_plain` (two planted faults must fail it), dx
-     and dw bitwise it; K9 over a layer's three expert GEMMs timed beside
-     its plain version, torch.bmm on the decoded stacks and its bound.
+     and dw bitwise it; K9 over a layer's three expert GEMMs on
+     `tc_p13_2`, bitwise equal on a second call and expert 0 bitwise its
+     E = 1 call, timed beside its plain version, torch.bmm on the decoded
+     stacks and its bound (bytes, or the exact form's 4 bf16 products a
+     multiply-add).
      11d for each model, phase 9's checks at its own shapes: the STE and K6
      at M 512 over its attention projections (qwen3: wq / wo [4096, 8192]
      / [8192, 4096], wk / wv [4096, 512]; deepseek: [2048, 2048]) and
@@ -2757,9 +2761,9 @@ def _moe_train_full_width(dev, arch: str, layers: int, optimizer: str):
     paper_mixed fused, 4 steps of 8 x 128 tokens in 2 microbatches through
     Pipeline and Trainer (remat per layer; peak learning rate
     MOE_PEAK_LR), counted from 0: finite losses,
-    every K9 launch on the run-time `posit` decode (both operands P(13,2)
-    codes), 3 x layers x microbatches x 2 of them (forward and the remat
-    recompute), every K6 launch on `tc`, every K2 launch on `p13_2`; median
+    every K9 launch on the tensor-core variant `tc_p13_2` (both operands
+    P(13,2) codes, the capacity rows above 8), 3 x layers x microbatches x
+    2 of them (forward and the remat recompute), every K6 launch on `tc`, every K2 launch on `p13_2`; median
     step, tokens/s, peak memory; then one more step profiled.  Returns
     (label, the run's launch counts)."""
     import torch
@@ -2795,9 +2799,9 @@ def _moe_train_full_width(dev, arch: str, layers: int, optimizer: str):
     mb = TRAIN_STEPS * TRAIN_ACCUM
     dense = 4 + (3 if cfg.n_shared_experts else 0)   # K6 GEMMs a layer
     _check(counts["posit_matmul_grouped"] == 3 * layers * mb * 2
-           and counts["posit_matmul_grouped:posit"]
+           and counts["posit_matmul_grouped:tc_p13_2"]
            == counts["posit_matmul_grouped"],
-           f"{label}: every K9 launch on posit, 3 x {layers} x {mb} x 2")
+           f"{label}: every K9 launch on tc_p13_2, 3 x {layers} x {mb} x 2")
     _check(counts["posit_matmul:tc"] == dense * layers * mb * 2
            and counts["posit_matmul"] == counts["posit_matmul:tc"],
            f"{label}: every K6 launch on tc, {dense} x {layers} x {mb} x 2")
@@ -2834,8 +2838,11 @@ def _k9_train(dev, arch: str, train_label: str):
     rows `moe.capacity` gives a microbatch: at the gate and down shapes the
     forward within `sum_bound` of `ops.ste_plain` (a limit two planted
     faults must fail), dx and dw bitwise its; then K9 over the layer's
-    three expert GEMMs on codes (as the forward runs it) timed beside its
-    plain version, torch.bmm on the decoded f32 stacks and the bound.
+    three expert GEMMs on codes (as the forward runs it, on `tc_p13_2`),
+    bitwise equal on a second call, expert 0 bitwise its E = 1 call,
+    timed beside its plain version, torch.bmm on the decoded f32 stacks
+    and the bound: bytes, or the exact form's operations (4 bf16 products
+    a multiply-add at the bf16 rate), the larger.
     Returns the kernel record, whose launches are those of the run
     `train_label`."""
     import torch
@@ -2854,11 +2861,12 @@ def _k9_train(dev, arch: str, train_label: str):
         w = torch.randn(E, K, N, generator=g, device=dev) / math.sqrt(K)
         gr = torch.randn(E, M, N, generator=g, device=dev)
         xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
-        before = ops.launch_counts()["posit_matmul_grouped:posit"]
+        before = ops.launch_counts()["posit_matmul_grouped:tc_p13_2"]
         out = ops.fused_matmul_grouped_ste(xr, wr, P13_2, P13_2)
-        _check(ops.launch_counts()["posit_matmul_grouped:posit"]
+        _check(ops.launch_counts()["posit_matmul_grouped:tc_p13_2"]
                == before + 1,
-               f"11c {arch} K={K}: the grouped STE forward ran K9 on posit")
+               f"11c {arch} K={K}: the grouped STE forward ran K9 on "
+               f"tc_p13_2")
         dx, dw = torch.autograd.grad(out, (xr, wr), gr)
         del xr, wr
         want, want_dx, want_dw = ops.ste_plain(x, w, P13_2, P13_2, gr)
@@ -2890,6 +2898,18 @@ def _k9_train(dev, arch: str, train_label: str):
         E, K, N, generator=g, device=dev) / math.sqrt(K), P13_2))
         for K, N in layer_kn]
 
+    for a, b in layer:
+        before = ops.launch_counts()["posit_matmul_grouped:tc_p13_2"]
+        first = pm.posit_matmul_grouped(a, b, P13_2, P13_2)
+        _check(ops.launch_counts()["posit_matmul_grouped:tc_p13_2"]
+               == before + 1, f"11c {arch}: K9 ran on tc_p13_2")
+        _check(_bits_equal(pm.posit_matmul_grouped(a, b, P13_2, P13_2),
+                           first), f"11c {arch}: K9 bitwise on a second call")
+        alone = pm.posit_matmul_grouped(a[:1], b[:1], P13_2, P13_2)
+        _check(_bits_equal(alone[0], first[0]),
+               f"11c {arch}: K9's expert 0 bitwise its E = 1 call")
+        del first, alone
+
     def run():
         for a, b in layer:
             pm.posit_matmul_grouped(a, b, P13_2, P13_2)
@@ -2907,17 +2927,22 @@ def _k9_train(dev, arch: str, train_label: str):
     bytes_moved = sum(E * (M * K * 2 + K * N * 2 + M * N * 4)
                       for K, N in layer_kn)
     flops = sum(2.0 * E * M * K * N for K, N in layer_kn)
-    bound, by = _bound(bytes_moved, flops)
+    # the exact form: 4 bf16 products a multiply-add on the tensor cores
+    bound, by = _bound(bytes_moved, 4 * flops, BF16_FLOP_PER_S)
+    f32_bound, _ = _bound(bytes_moved, flops)
     print(f"11c K9 training {arch} (E {E}, M {M}, the layer's 3 expert "
-          f"GEMMs, P(13,2) x P(13,2), posit): ms {ms:.4f}, call_ms "
+          f"GEMMs, P(13,2) x P(13,2), tc_p13_2): ms {ms:.4f}, call_ms "
           f"{call_ms:.4f}, plain_ms {plain_ms:.3f}, bound_ms {bound:.4f} "
-          f"({by}; {flops / 1e9:.2f} GFLOP, {bytes_moved} B), torch.bmm on "
-          f"the decoded f32 stacks {library_ms:.4f}; largest err in u "
+          f"({by}; {flops / 1e9:.2f} GFLOP, x 4 bf16 products "
+          f"{4 * flops / BF16_FLOP_PER_S * 1e3:.4f} ms, {bytes_moved} B "
+          f"{bytes_moved / HBM_BYTES_PER_S * 1e3:.4f} ms; f32 FMA "
+          f"{f32_bound:.4f} ms), torch.bmm on the decoded f32 stacks "
+          f"{library_ms:.4f} ({ms / library_ms:.3f}x); largest err in u "
           f"sqrt(K) ||ab|| {ratio:.4g}")
-    return dict(name=f"posit_matmul_grouped (training: posit, P(13,2) x "
-                     f"P(13,2), {arch} E {E} M {M}, the layer's 3 expert "
+    return dict(name=f"posit_matmul_grouped (training: tc_p13_2, P(13,2) "
+                     f"x P(13,2), {arch} E {E} M {M}, the layer's 3 expert "
                      f"GEMMs)",
-                counter="posit_matmul_grouped:posit", paths=(train_label,),
+                counter="posit_matmul_grouped:tc_p13_2", paths=(train_label,),
                 source="src/repro_torch/csrc/posit_matmul_grouped.cu",
                 replaces="src/repro/kernels/posit_matmul.py:99",
                 max_abs_err=err, ms=ms, call_ms=call_ms, plain_ms=plain_ms,

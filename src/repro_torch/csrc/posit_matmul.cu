@@ -89,13 +89,13 @@
 // only the order of the K-long f32 sum differs from the plain version
 // (held to posit_matmul.sum_bound).  At M <= 8 the decode, not the
 // arithmetic, bounds the call, so the GEMV stays on the FMA pipe.
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 #include "code_rows.cuh"
 #include "posit.cuh"
+#include "tc_util.cuh"
 
 namespace {
 
@@ -349,30 +349,10 @@ int launch_tiled(const void* a, const void* b, float* out_f32, void* out_codes,
 
 // ---- M > 8: exact split-bf16 tensor-core GEMM ------------------------------
 
-using bf16 = __nv_bfloat16;
-
 constexpr int kTcBM = 128, kTcBN = 128, kTcBK = 64;
 constexpr int kTcThreads = 256;        // 2 warpgroups, 64 x 128 each
 constexpr int kTcAPitch = kTcBK + 8;   // bf16 per A row (144 B: ldmatrix
                                        // rows land on distinct banks)
-
-// x -> (hi, lo) bf16 with x == hi + lo exactly (x has <= 14 significand
-// bits); nan stays nan in both
-__device__ __forceinline__ void split2(float x, bf16& hi, bf16& lo) {
-  hi = __float2bfloat16_rn(x);
-  lo = __float2bfloat16_rn(x - __bfloat162float(hi));
-}
-
-// Two values at once: packed bf16 pairs hi, lo (first value in the low
-// half), each pair one cvt.rn.bf16x2.f32
-__device__ __forceinline__ void split2x2(float x0, float x1, uint32_t& hi,
-                                         uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-  const __nv_bfloat162 l = __floats2bfloat162_rn(x0 - __low2float(h),
-                                                 x1 - __high2float(h));
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = *reinterpret_cast<const uint32_t*>(&l);
-}
 
 // Activation codes [M, K] -> hi / lo bf16 rows [2][Mp][Kp], zero past M
 // and K.
@@ -391,27 +371,6 @@ __global__ void posit_split_rows_kernel(const void* __restrict__ a,
   split2(x, out[i], out[total + i]);
 }
 
-__device__ __forceinline__ void cp_async16_zfill(void* smem, const void* gmem,
-                                                 bool valid) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  const int n = valid ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(n));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const bf16* p) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(p);
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(s));
-}
-
 // code j of a 16-byte chunk of weight codes, in the low bits (both
 // decoders ignore the bits above n)
 template <typename BT>
@@ -427,27 +386,12 @@ __device__ __forceinline__ uint32_t chunk_code<int8_t>(const uint32_t* w,
   return w[j >> 2] >> (8 * (j & 3));
 }
 
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_wait0() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
 // Shared-memory matrix descriptor of a B slice (no swizzle, N-major): core
 // matrices of 8 K rows x 8 N columns, 128 contiguous bytes; the leading
 // byte offset steps 8 K rows (kTcBN / 8 core matrices, 2048 bytes), the
 // stride byte offset 8 N columns (128 bytes).
 __device__ __forceinline__ uint64_t wg_desc(const void* smem) {
-  constexpr uint32_t lbo = kTcBN / 8 * 128, sbo = 128;
-  const uint32_t a = (uint32_t)__cvta_generic_to_shared(smem);
-  return (uint64_t)((a & 0x3FFFFu) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32);
+  return smem_desc(smem, kTcBN / 8 * 128, 128);
 }
 // D (64 x 128 f32 a warpgroup) += A (registers, 64 x 16) B (smem, 16 x 128,
 // N-major); scale_d 0 ignores D's old value

@@ -49,7 +49,7 @@ _SIGNATURES = {
         "posit_matmul_launch": [_P] * 6 + [_I] * 15 + [_P],
     },
     "posit_matmul_grouped": {
-        "posit_matmul_grouped_launch": [_P] * 6 + [_I] * 16 + [_P],
+        "posit_matmul_grouped_launch": [_P] * 8 + [_I] * 16 + [_P],
     },
     "pdpu_dot": {
         "pdpu_matmul_launch": [_P] * 3 + [_I] * 3 + [_LL] * 4 + [_I] * 9

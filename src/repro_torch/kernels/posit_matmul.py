@@ -6,7 +6,9 @@ versions.
 posit codes, decoded in the kernel, accumulated in f32, returned as f32
 or encoded once into `fmt_out`.  `posit_matmul_grouped` (K9,
 `csrc/posit_matmul_grouped.cu`) replaces `:posit_matmul_grouped`, the MoE
-expert-stack form [E, M, K] x [E, K, N] with float or coded activations.
+expert-stack form [E, M, K] x [E, K, N] with float or coded activations
+(a split-K GEMV at serving rows, a split-bf16 tensor-core GEMM at the
+training rows: `grouped_variant`).
 On a CUDA tensor a wrapper launches its kernel; on a CPU tensor it runs
 the plain version (decode the coded operands, an f32 matmul, optional
 encode).  M, N and K need not divide any tile.
@@ -17,7 +19,7 @@ import functools
 
 import torch
 
-from repro_torch.core.formats import PositFormat
+from repro_torch.core.formats import P13_2, PositFormat
 from repro_torch.core.posit import storage_dtype, to_container
 from . import _build
 from .posit_codec import decode_plain, encode_plain
@@ -28,7 +30,8 @@ LAUNCHES = {"posit_matmul": 0, "posit_matmul:gemv_p16_2": 0,
             "posit_matmul:gemv": 0, "posit_matmul:tc_p16_2": 0,
             "posit_matmul:tc": 0, "posit_matmul:tiled": 0,
             "posit_matmul_grouped": 0, "posit_matmul_grouped:p16_2": 0,
-            "posit_matmul_grouped:posit": 0}
+            "posit_matmul_grouped:posit": 0, "posit_matmul_grouped:tc": 0,
+            "posit_matmul_grouped:tc_p13_2": 0}
 _CODE_DTYPES = (torch.int8, torch.int16)
 
 # K6's split-K GEMV (M <= GEMV_MAX_M): a block owns GEMV_BN columns (32
@@ -56,7 +59,17 @@ _VARIANTS = {"tiled": 0, "gemv": 1, "gemv_p16_2": 2, "tc": 3, "tc_p16_2": 4}
 # card's 132 SMs.
 GROUPED_BM = 8
 GROUPED_EXPERT_BLOCKS = 24
-_GROUPED_VARIANTS = {"posit": 0, "p16_2": 1}
+# K9's split-bf16 tensor-core GEMM (M > GROUPED_BM, coded activations): a
+# block owns one expert's GROUPED_TC_BM-row tile, GROUPED_TC_BN weight
+# columns and one K split of a multiple of GROUPED_TC_BK rows; the splits
+# aim at GROUPED_TC_EXPERT_BLOCKS blocks an expert.
+GROUPED_TC_BM = 64
+GROUPED_TC_BN = 128
+GROUPED_TC_BK = 64
+GROUPED_TC_EXPERT_BLOCKS = 8
+_GROUPED_VARIANTS = {"posit": 0, "p16_2": 1, "tc": 2, "tc_p13_2": 3}
+# what a launcher returns for a configuration it does not take
+_REFUSED = -1
 
 
 def split_bf16(x):
@@ -230,10 +243,19 @@ def posit_matmul(a_codes, b_codes, fmt_a: PositFormat, fmt_b: PositFormat,
     return out
 
 
-def grouped_variant(fmt_b: PositFormat, b_dtype) -> str:
-    """K9's weight decode: "p16_2", the compile-time P(16,2) decode, for
-    int16 P(16,2) weights (every serving expert stack), else "posit", the
-    run-time decode of any format."""
+def grouped_variant(M: int, fmt_a: PositFormat | None, fmt_b: PositFormat,
+                    b_dtype) -> str:
+    """K9's kernel for an [E, M, K] x [E, K, N] call.  Above GROUPED_BM
+    rows with coded activations, int16 weights and an exact bf16 split of
+    both formats (`split_exact`): the split-bf16 tensor-core GEMM, "tc_p13_2"
+    (the P(13,2) decode table) for P(13,2) weights (every training expert
+    stack), else "tc" (the run-time decode).  Otherwise the split-K GEMV:
+    "p16_2", the compile-time P(16,2) decode, for int16 P(16,2) weights
+    (every serving expert stack), else "posit", the run-time decode of any
+    format."""
+    if (M > GROUPED_BM and fmt_a is not None and b_dtype == torch.int16
+            and split_exact(fmt_a, fmt_b)):
+        return "tc_p13_2" if fmt_b == P13_2 else "tc"
     return ("p16_2" if (fmt_b.n, fmt_b.es) == (16, 2)
             and b_dtype == torch.int16 else "posit")
 
@@ -249,6 +271,40 @@ def grouped_split_k(M: int, N: int, K: int) -> tuple[int, int]:
     rows = -(-K // want)
     ks = min(max(-(-rows // GEMV_ROWS) * GEMV_ROWS, GEMV_ROWS), GEMV_MAX_ROWS)
     return ks, max(1, -(-K // ks))
+
+
+def grouped_tc_split_k(M: int, N: int, K: int) -> tuple[int, int]:
+    """(rows per split KS, number of splits S) of K9's tensor-core GEMM,
+    from the shapes alone (never from E or the routing): KS a multiple of
+    GROUPED_TC_BK, split s covers K rows [s * KS, min(K, (s + 1) * KS))
+    (rows past K are zeros), in split order, none empty, S >= 1; an
+    expert's tiles times splits come near GROUPED_TC_EXPERT_BLOCKS where K
+    allows."""
+    tiles = -(-M // GROUPED_TC_BM) * -(-N // GROUPED_TC_BN)
+    want = max(1, -(-GROUPED_TC_EXPERT_BLOCKS // max(tiles, 1)))
+    steps = max(1, -(-K // GROUPED_TC_BK))
+    ks = -(-steps // min(want, steps)) * GROUPED_TC_BK
+    return ks, max(1, -(-K // ks))
+
+
+@functools.lru_cache(maxsize=None)
+def p13_2_table() -> torch.Tensor:
+    """[8192] int32, the decode table of K9's "tc_p13_2" variant: entry c
+    (a 13-bit P(13,2) code) holds the bf16 bits of hi = bf16(x) in its low
+    half and of lo = bf16(x - hi) in its high half, x = decode(c)
+    (`split_bf16`; hi + lo == x, NaR -> nan in both).  On the CPU."""
+    x = decode_plain(to_container(torch.arange(1 << 13, dtype=torch.int64),
+                                  P13_2), P13_2)
+    hi, lo = (t.view(torch.int16).to(torch.int64) & 0xFFFF
+              for t in split_bf16(x))
+    # the 32-bit pattern as int32: less 2^32 where lo's sign bit is set
+    return ((hi | lo << 16) - ((lo >> 15) << 32)).to(torch.int32)
+
+
+@functools.lru_cache(maxsize=None)
+def _device_table(dev) -> torch.Tensor:
+    """`p13_2_table()` on `dev`, uploaded once."""
+    return p13_2_table().to(dev)
 
 
 def occupied_rows_plain(a, fmt_a: PositFormat | None):
@@ -286,8 +342,9 @@ def posit_matmul_grouped(a, b_codes, fmt_a: PositFormat | None,
     every row of an expert no token was routed to) and writes +0.0 there
     (code 0 under fmt_out): equal to the plain version wherever no weight
     code is NaR, which packing never writes (finite values saturate).
-    The weights decode by `grouped_variant`; the K splits are
-    `grouped_split_k`'s."""
+    `grouped_variant` picks the kernel (the split-bf16 tensor-core GEMM
+    for coded activations above GROUPED_BM rows, else the split-K GEMV);
+    the K splits are `grouped_tc_split_k`'s or `grouped_split_k`'s."""
     if a.ndim != 3 or b_codes.ndim != 3:
         raise ValueError(f"posit_matmul_grouped takes 3-D operands, got "
                          f"{tuple(a.shape)} x {tuple(b_codes.shape)}")
@@ -319,23 +376,43 @@ def posit_matmul_grouped(a, b_codes, fmt_a: PositFormat | None,
                              f"not {dt}")
         out = torch.empty((E, M, N), dtype=dt, device=dev)
     if E and M and N:
-        variant = grouped_variant(fmt_b, b_codes.dtype)
-        ks, splits = grouped_split_k(M, N, K)
+        variant = grouped_variant(M, fmt_a, fmt_b, b_codes.dtype)
+        tc = variant.startswith("tc")
         rows = torch.empty((E,), dtype=torch.int32, device=dev)
-        partial = torch.empty((splits, E, M, N), dtype=torch.float32,
-                              device=dev)
+        a_split = table = None
+        if tc:
+            ks, splits = grouped_tc_split_k(M, N, K)
+            # the activations' hi / lo bf16 tiles, split once per call
+            mp = -(-M // GROUPED_TC_BM) * GROUPED_TC_BM
+            a_split = torch.empty((2 * E * mp * splits * ks,),
+                                  dtype=torch.bfloat16, device=dev)
+            if variant == "tc_p13_2":
+                table = _device_table(dev)
+        else:
+            ks, splits = grouped_split_k(M, N, K)
+        # per-split partial sums, reduced in split order (one split of the
+        # tensor-core GEMM with an f32 output writes `out` directly)
+        direct = tc and splits == 1 and fmt_out is None
+        partial = None if direct else torch.empty(
+            (splits, E, M, N), dtype=torch.float32, device=dev)
+        ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
         lib = _build.library("posit_matmul_grouped")
-        _build.check(lib.posit_matmul_grouped_launch(
+        err = lib.posit_matmul_grouped_launch(
             a.data_ptr(), b_codes.data_ptr(),
             out.data_ptr() if fmt_out is None else None,
             None if fmt_out is None else out.data_ptr(), rows.data_ptr(),
-            partial.data_ptr(), E, M, N, K, a_kind,
+            ptr(partial), ptr(a_split), ptr(table), E, M, N, K, a_kind,
             fmt_a.n if fmt_a else 0, fmt_a.es if fmt_a else 0,
             b_codes.element_size(), fmt_b.n, fmt_b.es,
             0 if fmt_out is None else out.element_size(),
             fmt_out.n if fmt_out else 0, fmt_out.es if fmt_out else 0,
-            _GROUPED_VARIANTS[variant], ks, splits, _build.stream_of(a)),
-            "posit_matmul_grouped")
+            _GROUPED_VARIANTS[variant], ks, splits, _build.stream_of(a))
+        if err == _REFUSED:
+            raise ValueError(
+                f"posit_matmul_grouped: the {variant} kernel does not take "
+                f"{a.dtype} activations x {b_codes.dtype} weights, or needs "
+                f"more shared memory than this card gives a block")
+        _build.check(err, "posit_matmul_grouped")
         LAUNCHES["posit_matmul_grouped"] += 1
         LAUNCHES[f"posit_matmul_grouped:{variant}"] += 1
     return out

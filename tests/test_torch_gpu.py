@@ -1099,7 +1099,7 @@ def test_posit_matmul_grouped_routed_occupancy(cuda, shape, fmts):
     b = posit.pack(torch.randn(E, K, N, generator=gd, device=cuda)
                    * K ** -0.5, fb)
     assert torch.equal(pm.occupied_rows_plain(a, fa).cpu(), occ.to(torch.int32))
-    variant = pm.grouped_variant(fb, b.dtype)
+    variant = pm.grouped_variant(M, fa, fb, b.dtype)
     ops.reset_launches()
     got = pm.posit_matmul_grouped(a, b, fa, fb)
     assert ops.launch_counts()[f"posit_matmul_grouped:{variant}"] == 1
@@ -1145,6 +1145,120 @@ def test_posit_matmul_grouped_expert_independent_of_routing(cuda, fmt_a):
         alone = pm.posit_matmul_grouped(a1[e:e + 1].contiguous(),
                                         b[e:e + 1].contiguous(), fa, fb)
         assert _bits_equal(alone[0], o1[e])
+
+
+# K9's tensor-core variants (M > 8, coded activations): the MoE training
+# shapes (qwen3-moe's 40 capacity rows at K 4096, N 1536; deepseek-moe's
+# 64 at K 2048, N 1408), ragged M, K and N, and 80 rows (two M tiles)
+GROUPED_TC_SHAPES = [(4, 40, 4096, 1536), (4, 64, 2048, 1408),
+                     (3, 9, 517, 130), (2, 20, 333, 66), (2, 80, 1024, 384)]
+# (fmt_a, fmt_b, fmt_out): the training pair (the P(13,2) decode table),
+# and two pairs on the run-time decode
+GROUPED_TC_FMTS = [("P13_2", "P13_2", "P13_2"), ("P13_2", "P16_2", "P16_2"),
+                   ("P8_2", "P16_1", "P8_2")]
+
+
+@pytest.mark.parametrize("fmts", GROUPED_TC_FMTS)
+@pytest.mark.parametrize("shape", GROUPED_TC_SHAPES)
+def test_posit_matmul_grouped_tc_matches_plain(cuda, shape, fmts):
+    """K9's split-bf16 tensor-core GEMM on the variant `grouped_variant`
+    picks ("tc_p13_2" for P(13,2) weights, else "tc"): within `sum_bound`
+    of the plain version, bitwise equal on a second call, each expert
+    bitwise its E = 1 call, fmt_out codes the rounding of its f32 sums."""
+    E, M, K, N = shape
+    fa, fb, fo = (getattr(formats, f) for f in fmts)
+    g = torch.Generator(device=cuda).manual_seed(E * M + K + N)
+    a = posit.pack(torch.randn(E, M, K, generator=g, device=cuda), fa)
+    b = posit.pack(torch.randn(E, K, N, generator=g, device=cuda)
+                   * K ** -0.5, fb)
+    variant = pm.grouped_variant(M, fa, fb, b.dtype)
+    assert variant == ("tc_p13_2" if fb == formats.P13_2 else "tc")
+    ops.reset_launches()
+    got = pm.posit_matmul_grouped(a, b, fa, fb)
+    assert ops.launch_counts()[f"posit_matmul_grouped:{variant}"] == 1
+    plain = pm.posit_matmul_grouped_plain(a, b, fa, fb)
+    assert bool(((got - plain).abs() <= pm.sum_bound(a, b, fa, fb)).all())
+    assert _bits_equal(pm.posit_matmul_grouped(a, b, fa, fb), got)
+    for e in range(E):
+        alone = pm.posit_matmul_grouped(a[e:e + 1].contiguous(),
+                                        b[e:e + 1].contiguous(), fa, fb)
+        assert _bits_equal(alone[0], got[e])
+    codes = pm.posit_matmul_grouped(a, b, fa, fb, fo)
+    assert codes.dtype == posit.storage_dtype(fo)
+    assert _bits_equal(codes, posit_codec.encode_plain(got, fo))
+
+
+def test_posit_matmul_grouped_tc_bound_rejects_planted_faults(cuda):
+    """At qwen3's training shape (40 rows, K 4096, N 1536, P(13,2) x
+    P(13,2)) the tensor-core K9 passes `sum_bound` and two faults fail it:
+    both operands rounded to bf16 (a P(13,2) weight below 2^-4 is exact in
+    bf16, so rounding the weights alone may change nothing), and one
+    64-wide K tile left out."""
+    fa = fb = formats.P13_2
+    E, M, K, N = 4, 40, 4096, 1536
+    g = torch.Generator(device=cuda).manual_seed(40)
+    a = posit.pack(torch.randn(E, M, K, generator=g, device=cuda), fa)
+    b = posit.pack(torch.randn(E, K, N, generator=g, device=cuda)
+                   * K ** -0.5, fb)
+    bound = pm.sum_bound(a, b, fa, fb)
+    plain = pm.posit_matmul_grouped_plain(a, b, fa, fb)
+    ops.reset_launches()
+    got = pm.posit_matmul_grouped(a, b, fa, fb)
+    assert ops.launch_counts()["posit_matmul_grouped:tc_p13_2"] == 1
+    assert bool(((got - plain).abs() <= bound).all())
+    A = posit_codec.decode_plain(a, fa)
+    B = posit_codec.decode_plain(b, fb)
+    for bad in (torch.matmul(A.to(torch.bfloat16).float(),
+                             B.to(torch.bfloat16).float()),
+                plain - torch.matmul(A[..., :64], B[:, :64])):
+        assert bool(((bad - plain).abs() > bound).any())
+
+
+@pytest.mark.parametrize("shape", [(128, 40, 4096, 1536), (16, 64, 1408, 2048),
+                                   (5, 80, 333, 66)])
+def test_posit_matmul_grouped_tc_routed_occupancy(cuda, shape):
+    """The tensor-core K9 over a routed buffer (0..M occupied rows an
+    expert, some experts empty; at 80 rows some second M tiles empty, and
+    K 333 takes three K splits): within `sum_bound`, every row at or past
+    an expert's occupied rows exactly +0.0, as f32 and as fmt_out code 0."""
+    E, M, K, N = shape
+    fa = fb = formats.P13_2
+    g = torch.Generator().manual_seed(E + M + K)
+    occ = torch.randint(0, M + 1, (E,), generator=g)
+    occ[torch.randperm(E, generator=g)[:max(E // 4, 1)]] = 0
+    occ[0] = M
+    gd = torch.Generator(device=cuda).manual_seed(E + M + K)
+    a = _routed(gd, E, M, K, occ, fa)
+    b = posit.pack(torch.randn(E, K, N, generator=gd, device=cuda)
+                   * K ** -0.5, fb)
+    assert torch.equal(pm.occupied_rows_plain(a, fa).cpu(), occ.to(torch.int32))
+    ops.reset_launches()
+    got = pm.posit_matmul_grouped(a, b, fa, fb)
+    codes = pm.posit_matmul_grouped(a, b, fa, fb, fb)
+    assert ops.launch_counts()["posit_matmul_grouped:tc_p13_2"] == 2
+    plain = pm.posit_matmul_grouped_plain(a, b, fa, fb)
+    assert bool(((got - plain).abs() <= pm.sum_bound(a, b, fa, fb)).all())
+    for e, n in enumerate(occ.tolist()):
+        assert _bits_equal(got[e, n:], torch.zeros_like(got[e, n:]))
+        assert not codes[e, n:].any()
+    assert _bits_equal(codes, posit_codec.encode_plain(got, fb))
+
+
+def test_posit_matmul_grouped_tc_refused_raises(cuda, monkeypatch):
+    """The tensor-core launcher takes int16 weight codes only: int8 weights
+    sent to it are refused before anything runs, and the wrapper raises
+    (no silent fallback to the GEMV)."""
+    fa, fb = formats.P13_2, formats.P8_2
+    g = torch.Generator(device=cuda).manual_seed(8)
+    a = posit.pack(torch.randn(2, 40, 96, generator=g, device=cuda), fa)
+    b = posit.pack(torch.randn(2, 96, 64, generator=g, device=cuda) * 0.1, fb)
+    assert pm.grouped_variant(40, fa, fb, b.dtype) == "posit"
+    monkeypatch.setattr(pm, "grouped_variant", lambda M, fa, fb, dt: "tc")
+    ops.reset_launches()
+    with pytest.raises(ValueError, match="does not take"):
+        pm.posit_matmul_grouped(a, b, fa, fb)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["posit_matmul_grouped"] == 0
 
 
 @pytest.mark.parametrize("B", [1, 4, 5, 16, 17])
@@ -1252,6 +1366,9 @@ def test_ste_functions_match_plain(cuda, case):
     gemm = ("posit_matmul_grouped" if len(xs) == 3 else
             "posit_matmul" if fmt_a is not None else "posit_decode")
     assert counts[gemm] >= 1
+    if len(xs) == 3:  # 64 rows: coded activations take the tensor cores
+        variant = "tc_p13_2" if fmt_a is not None else "posit"
+        assert counts[f"posit_matmul_grouped:{variant}"] == 1
     want, want_dx, want_dw = ops.ste_plain(x, w, fmt_a, fmt_w, gr)
     if len(xs) == 2 and fmt_a is None:
         assert _bits_equal(out, want)
@@ -1326,7 +1443,8 @@ def test_moe_remat_recompute_bitwise_first_forward(cuda, arch):
     """The MoE layer recomputed in the backward routes as its first forward
     did on the card (stable sort, K9 without atomics): loss, aux and every
     gradient with remat equal those without, bitwise; every K9 launch takes
-    the run-time decode (both operands P(13,2) codes)."""
+    the tensor-core variant with the P(13,2) decode table (both operands
+    P(13,2) codes, 40 / 64 capacity rows)."""
     from repro_torch import configs
     from repro_torch.core.quant import policy_by_name
     from repro_torch.models import api
@@ -1351,7 +1469,7 @@ def test_moe_remat_recompute_bitwise_first_forward(cuda, arch):
         loss.backward()
         counts = ops.launch_counts()
         assert counts["posit_matmul_grouped"] == \
-            counts["posit_matmul_grouped:posit"] == \
+            counts["posit_matmul_grouped:tc_p13_2"] == \
             3 * cfg.n_layers * (2 if remat == "layer" else 1)
         out.append([loss, metrics["aux"]]
                    + [p.grad for p in tree_leaves(params)])

@@ -334,8 +334,100 @@ def test_tc_splits_cover_k_once_in_order(M, N, K, want):
 def test_grouped_variant_by_weight_format(fmt_b, dtype, want):
     """K9's wrapper picks the compile-time P(16,2) decode for int16
     P(16,2) expert stacks (every serving MoE layer) and the run-time
-    decode for any other weight format."""
-    assert tpm.grouped_variant(_fmt_by_name(fmt_b)[1], dtype) == want
+    decode for any other weight format, at the serving capacity of 8 rows
+    with float activations."""
+    assert tpm.grouped_variant(8, None, _fmt_by_name(fmt_b)[1], dtype) == want
+
+
+# (M, fmt_a, fmt_b, weight dtype, variant)
+GROUPED_VARIANTS = [
+    (8, "P13_2", "P13_2", torch.int16, "posit"),     # serving rows: GEMV
+    (8, "P13_2", "P16_2", torch.int16, "p16_2"),
+    (1, None, "P16_2", torch.int16, "p16_2"),
+    (9, "P13_2", "P13_2", torch.int16, "tc_p13_2"),  # training: tensor cores
+    (40, "P13_2", "P13_2", torch.int16, "tc_p13_2"),
+    (64, "P13_2", "P13_2", torch.int16, "tc_p13_2"),
+    (80, "P13_2", "P13_2", torch.int16, "tc_p13_2"),
+    (40, "P13_2", "P16_2", torch.int16, "tc"),
+    (64, "P8_2", "P16_1", torch.int16, "tc"),
+    (40, None, "P13_2", torch.int16, "posit"),       # float activations
+    (64, None, "P16_2", torch.int16, "p16_2"),
+    (40, "P16_3", "P16_2", torch.int16, "p16_2"),    # split not exact
+    (40, "P16_3", "P13_2", torch.int16, "posit"),
+    (40, "P13_2", "P8_2", torch.int8, "posit"),      # int8 weight codes
+]
+
+
+@pytest.mark.parametrize("M,fmt_a,fmt_b,dtype,want", GROUPED_VARIANTS)
+def test_grouped_variant_by_rows_and_formats(M, fmt_a, fmt_b, dtype, want):
+    """K9's kernel by shape and format, as `matmul_variant` picks K6's:
+    above 8 rows, coded activations, int16 weights and an exact bf16 split
+    of both formats take the tensor-core GEMM ("tc_p13_2" with the P(13,2)
+    decode table, "tc" otherwise); every other call keeps the GEMV, at 8
+    rows exactly as before."""
+    fa = _fmt_by_name(fmt_a)[1] if fmt_a else None
+    fb = _fmt_by_name(fmt_b)[1]
+    assert tpm.grouped_variant(M, fa, fb, dtype) == want
+    if want.startswith("tc"):
+        assert tpm.split_exact(fa, fb)
+
+
+# (M, N, K): the MoE training shapes (qwen3-moe: 40 capacity rows of a
+# 512-token microbatch; deepseek-moe: 64), 80 rows (two M tiles), ragged
+# and tiny shapes
+GROUPED_TC_SHAPES = [(40, 1536, 4096), (40, 4096, 1536), (64, 1408, 2048),
+                     (64, 2048, 1408), (80, 384, 1024), (9, 130, 517),
+                     (20, 66, 333), (64, 300, 0), (9, 1, 1), (200, 7, 4097)]
+
+
+@pytest.mark.parametrize("M,N,K", GROUPED_TC_SHAPES)
+def test_grouped_tc_splits_cover_k_once_in_order(M, N, K):
+    """The tensor-core K9's K splits cover [0, K) once, in increasing
+    order, none empty (K = 0: one empty split), each a multiple of its
+    64-row K step; the geometry is a function of (M, N, K) alone (the
+    wrapper passes no E, so an expert's sums are those of an E = 1 call);
+    the splits are the shortest multiple of 64 rows that gives at most
+    ceil(8 / tiles) splits (an expert's tiles x splits near 8 blocks), and
+    the training shapes take one split (the output written directly)."""
+    ks, splits = tpm.grouped_tc_split_k(M, N, K)
+    assert (ks, splits) == tpm.grouped_tc_split_k(M, N, K)
+    assert ks % tpm.GROUPED_TC_BK == 0 and ks >= tpm.GROUPED_TC_BK
+    ranges = _split_ranges(K, ks)
+    assert len(ranges) == splits >= 1
+    assert ranges[0][0] == 0 and ranges[-1][1] == K
+    for (a0, a1), (b0, _) in zip(ranges, ranges[1:]):
+        assert a1 == b0 and a1 - a0 == ks
+    assert all(k1 > k0 for k0, k1 in ranges) or K == 0
+    tiles = -(-M // tpm.GROUPED_TC_BM) * -(-N // tpm.GROUPED_TC_BN)
+    want = max(1, -(-tpm.GROUPED_TC_EXPERT_BLOCKS // tiles))
+    assert splits <= want
+    shorter = ks - tpm.GROUPED_TC_BK
+    assert shorter == 0 or -(-K // shorter) > want
+    if (M, N, K) in GROUPED_TC_SHAPES[:4]:
+        assert splits == 1
+
+
+def test_p13_2_decode_table_matches_reference():
+    """K9's "tc_p13_2" decode table against the JAX reference's decode on
+    all 8192 P(13,2) codes: the low half is bf16(value), the high half the
+    remainder, hi + lo == value bitwise (NaR: nan in both halves)."""
+    jf = jformats.P13_2
+    want = np.array(jposit.decode(jnp.asarray(np.arange(1 << 13), jnp.int32),
+                                  jf), np.float32)
+    table = tpm.p13_2_table()
+    assert table.dtype == torch.int32 and table.shape == (1 << 13,)
+    halves = table.view(torch.int16).reshape(-1, 2)
+    hi, lo = (halves[:, i].contiguous().view(torch.bfloat16).float()
+              for i in (0, 1))
+    nar = np.isnan(want)
+    assert nar.sum() == 1 and nar[1 << 12]
+    assert torch.isnan(hi[1 << 12]) and torch.isnan(lo[1 << 12])
+    fin = torch.from_numpy(~nar)
+    value = torch.from_numpy(want)
+    assert torch.equal((hi + lo)[fin].view(torch.int32),
+                       value[fin].view(torch.int32))
+    assert torch.equal(hi[fin], value[fin].to(torch.bfloat16).float())
+    assert (lo[fin] != 0).any()     # the split needs its second term
 
 
 # (M, N, K): qwen3-moe's expert GEMMs at capacity 8 (gate / up, down),

@@ -98,28 +98,34 @@ def test_attribute_launches_counts_each_launch_once():
     runs = {
         "MoE greedy": {"posit_matmul_grouped": 12,
                        "posit_matmul_grouped:p16_2": 12,
-                       "posit_matmul_grouped:posit": 0, "posit_decode": 7},
+                       "posit_matmul_grouped:posit": 0,
+                       "posit_matmul_grouped:tc_p13_2": 0, "posit_decode": 7},
         "train qwen3": {"posit_matmul_grouped": 48,
                         "posit_matmul_grouped:p16_2": 0,
-                        "posit_matmul_grouped:posit": 48, "posit_decode": 5},
+                        "posit_matmul_grouped:posit": 0,
+                        "posit_matmul_grouped:tc_p13_2": 48,
+                        "posit_decode": 5},
         "train deepseek": {"posit_matmul_grouped": 192,
                            "posit_matmul_grouped:p16_2": 0,
-                           "posit_matmul_grouped:posit": 192,
+                           "posit_matmul_grouped:posit": 0,
+                           "posit_matmul_grouped:tc_p13_2": 192,
                            "posit_decode": 3}}
     recs = [dict(name="posit_matmul_grouped"),
-            dict(name="K9 qwen3", counter="posit_matmul_grouped:posit",
+            dict(name="K9 qwen3", counter="posit_matmul_grouped:tc_p13_2",
                  paths=("train qwen3",)),
-            dict(name="K9 deepseek", counter="posit_matmul_grouped:posit",
+            dict(name="K9 deepseek",
+                 counter="posit_matmul_grouped:tc_p13_2",
                  paths=("train deepseek",)),
             dict(name="posit_decode")]
     chip_smoke._attribute_launches(recs, runs)
     serving, qwen3, deepseek, decode = recs
     assert serving["launches_by_path"] == {"MoE greedy": 12}
-    assert serving["launches_by_variant"] == {"p16_2": 12, "posit": 0}
+    assert serving["launches_by_variant"] == {"p16_2": 12, "posit": 0,
+                                              "tc_p13_2": 0}
     assert (qwen3["launches"], qwen3["launches_by_variant"]) == (
-        48, {"posit": 48})
+        48, {"tc_p13_2": 48})
     assert (deepseek["launches"], deepseek["launches_by_variant"]) == (
-        192, {"posit": 192})
+        192, {"tc_p13_2": 192})
     assert sum(r["launches"] for r in recs[:3]) == sum(
         c["posit_matmul_grouped"] for c in runs.values())
     assert decode["launches"] == 15 and decode["launches_by_variant"] == {}
