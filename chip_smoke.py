@@ -18,7 +18,17 @@ Phases (any failure exits non-zero; no phase is caught):
   2. build: nvcc for sm_90a of every source in src/repro_torch/csrc/, with
      the -Xptxas -v register / shared-memory report;
   3. kernels: K1-K7 against their plain versions at the main path's shapes
-     (K1 bitwise; K2 bitwise at the tied head's [256000, 8192] into
+     (K1 bitwise on every container pattern of P(16,2), P(13,2), P(8,2)
+     (each on its compile-time variant) and P(16,1) (the run-time one), and
+     timed beside its bytes bound at [8192, 22528], [12288, 33792],
+     [4096, 256000] and a dense KV cache layer's [4, 256, 1024] int8 rows;
+     the float GEMV (the float weight path at decode rows) within
+     `sum_bound(x, w, None, fmt)` at every projection shape of a layer at
+     M 4 with bf16 activations and over the tied [256000, 8192] head's
+     transpose, a limit two planted faults (bf16 weights, one K split
+     left out) must fail, bitwise equal on a second call, timed beside K1
+     + torch.matmul and torch.matmul on pre-decoded f32;
+     K2 bitwise at the tied head's [256000, 8192] into
      P(16,2) and P(13,2), each on its compile-time variant, and on every
      rounding boundary between adjacent codes and its f32 neighbours for
      P(16,2), P(13,2) and P(8,2); K3 within 2e-5, also at lengths 1, 32, 33, 256 and
@@ -85,7 +95,10 @@ Phases (any failure exits non-zero; no phase is caught):
      Each main-path run (defaults greedy and sampled, long prompt, a13,
      speculative greedy and sampled, front end) counts its launches from
      0, and its kernels must launch in it; every page must come back;
-     each run prints its prefill steps' share of the wall time; a13's
+     each run prints its prefill steps' share of the wall time; the
+     defaults runs' decode steps must run their 7 x layers projections on
+     the float GEMV's p16_2 variant and no K1 (K1 keeps the prefill chunk
+     groups, every launch on a compile-time variant); a13's
      decode-step K6 launches must take the P(16,2) split-K GEMV and its
      prefill launches the split-bf16 tensor-core GEMM;
   6. profile: torch.profiler over a few decode steps with four slots busy,
@@ -116,7 +129,8 @@ Phases (any failure exits non-zero; no phase is caught):
      and Trainer (AdamW, cosine schedule, remat per layer), counted from 0:
      finite losses, every K6 launch on `tc` (P(13,2) x P(13,2)), 7 x
      layers x microbatches x 2 of them (forward and recompute), every K2
-     launch on `p13_2`; median step time, tokens/s, peak memory and one
+     launch on `p13_2`, every K1 launch on `p13_2`; median step time,
+     tokens/s, peak memory and one
      step profiled (device time by kernel, host share); 9b the STE
      function at each distinct shape of minitron's projections (M 512):
      forward within `sum_bound` of `ops.ste_plain` (a limit two planted
@@ -148,12 +162,14 @@ Phases (any failure exits non-zero; no phase is caught):
      10b command-r-plus-104b at full width (d_model 12288, 96 / 8 heads of
      128, d_ff 33792, vocab 256000; 2 of 64 layers): K1 at [12288, 33792],
      K3 / K7 and K5 (`tc`) at G 12, K4 over the tied [256000, 12288] head,
-     then phase 5's 8 requests greedy on the float weight path (K1 +
-     torch.matmul, no K6), every K5 launch on `tc`;
+     then phase 5's 8 requests greedy on the float weight path (the float
+     GEMV at decode steps as in phase 5, no K6), every K5 launch on `tc`;
      10c (run right after phase 6, on phase 5's weights and requests)
      ServingEngine(paged=False): every request served, kv_cache_bytes()
      the [L, B, max_seq, F] int8 rows plus `length`, no attention kernel
-     launched; streams and first-step logits against phase 5's paged run
+     launched, each decode step's projections on the float GEMV and its
+     unfused tied head on the GEMV's transposed variant (K1 only on the KV
+     rows, p8_2); streams and first-step logits against phase 5's paged run
      printed;
      10d examples/serve_posit_lm_torch.py (4 requests, 4 new tokens) in a
      subprocess on the card, exit 0.  10a, 10b and 10c each profile two
@@ -323,34 +339,211 @@ def _planted_faults(what: str, A, B, want, bound) -> str:
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
+# the weight shapes K1 is timed at (the bytes bound beside each): prefill
+# chunk groups' widest projections (command-r-35b, command-r-plus-104b),
+# the training head, the run-time variant, a dense KV cache layer's rows;
+# the label of each shape whose time is a record of the kernels line
+_K1_SHAPES = (("P16_2", (8192, 22528)), ("P16_2", (12288, 33792)),
+              ("P13_2", (4096, 256000)), ("P16_1", (8192, 22528)),
+              ("P8_2", (4, 256, 1024)))
+_K1_RECORDS = {("P16_2", (8192, 22528)):
+               "command-r-35b's gate / up, prefill chunk groups",
+               ("P8_2", (4, 256, 1024)): "a dense KV cache layer's int8 rows"}
+
+
 def _k1_decode(dev):
+    """K1 on every code of each format with a compile-time variant
+    (P(16,2) and P(13,2) from int16, P(8,2) from int8: every container
+    pattern, bits above n ignored) and of P(16,1) (the run-time variant),
+    bitwise the plain decode; then timed at the weight shapes that keep K1
+    (prefill chunk groups, the heads, training) beside the bytes bound.
+    Returns a record per compile-time variant a main path runs."""
     import torch
     from repro_torch.core import formats, posit
-    from repro_torch.kernels import posit_codec
-    fmt = formats.P16_2
-    every = posit.to_container(torch.arange(1 << 16, dtype=torch.int64), fmt)
-    every = every.to(dev)
-    _check(_bits_equal(posit_codec.decode(every, fmt),
-                       posit_codec.decode_plain(every, fmt)),
-           "K1 posit_decode on all 2^16 P(16,2) codes")
+    from repro_torch.kernels import ops, posit_codec
+    for name in ("P16_2", "P13_2", "P8_2", "P16_1"):
+        fmt = getattr(formats, name)
+        dtype = posit.storage_dtype(fmt)
+        bits = 8 * dtype.itemsize
+        every = torch.arange(-(1 << (bits - 1)), 1 << (bits - 1),
+                             dtype=torch.int64).to(dtype).to(dev)
+        variant = posit_codec.decode_variant(fmt, dtype)
+        before = ops.launch_counts()[f"posit_decode:{variant}"]
+        _check(_bits_equal(posit_codec.decode(every, fmt),
+                           posit_codec.decode_plain(every, fmt)),
+               f"K1 posit_decode ({variant}) on all 2^{bits} {name} "
+               f"container patterns")
+        _check(ops.launch_counts()[f"posit_decode:{variant}"] == before + 1,
+               f"K1 takes its {variant} variant for {name} in {dtype}")
     g = torch.Generator(device=dev).manual_seed(1)
-    w = (torch.randn(8192, 22528, generator=g, device=dev) *
-         (1.0 / math.sqrt(8192)))
-    codes = posit_codec.encode(w, fmt)
-    del w
-    got = posit_codec.decode(codes, fmt)
-    want = posit_codec.decode_plain(codes, fmt)
-    _check(_bits_equal(got, want), "K1 posit_decode at [8192, 22528]")
-    call_ms = _time_ms(lambda: posit_codec.decode(codes, fmt), reps=20)
-    ms = _device_ms(lambda: posit_codec.decode(codes, fmt), launches=10)
-    plain_ms = _time_once_ms(lambda: posit_codec.decode_plain(codes, fmt))
-    bound, by = _bound(codes.numel() * (2 + 4), 0)
-    del got, want, codes
-    return dict(name="posit_decode", source="src/repro_torch/csrc/posit_codec.cu",
+    records = []
+    for name, shape in _K1_SHAPES:
+        fmt = getattr(formats, name)
+        codes = posit_codec.encode(
+            torch.randn(*shape, generator=g, device=dev)
+            * (1.0 / math.sqrt(shape[-2])), fmt)
+        got = posit_codec.decode(codes, fmt)
+        want = posit_codec.decode_plain(codes, fmt)
+        _check(_bits_equal(got, want),
+               f"K1 posit_decode at {name} {list(shape)}")
+        del got, want
+        call_ms = _time_ms(lambda: posit_codec.decode(codes, fmt), reps=10)
+        ms = _device_ms(lambda: posit_codec.decode(codes, fmt), launches=5)
+        label = _K1_RECORDS.get((name, shape))
+        plain_ms = (_time_once_ms(lambda: posit_codec.decode_plain(codes, fmt))
+                    if label else None)
+        bound, by = _bound(codes.numel() * (codes.element_size() + 4), 0)
+        variant = posit_codec.decode_variant(fmt, codes.dtype)
+        print(f"K1 {name} {list(shape)} ({variant}): ms {ms:.4f}, call_ms "
+              f"{call_ms:.4f}, plain_ms "
+              f"{'not measured' if plain_ms is None else f'{plain_ms:.3f}'}"
+              f", bound_ms {bound:.4f} ({by}), {bound / ms:.3f} of the "
+              f"bound")
+        del codes
+        torch.cuda.empty_cache()
+        if label:
+            records.append(dict(
+                name=f"posit_decode:{variant} ({label})",
+                counter=f"posit_decode:{variant}",
+                source="src/repro_torch/csrc/posit_codec.cu",
                 replaces="src/repro/kernels/posit_codec.py:55",
                 max_abs_err=0.0, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
                 bound_ms=bound, bound_by=by, library_ms=None,
-                shape="[8192, 22528] int16 -> f32")
+                shape=f"{list(shape)} {name} codes -> f32"))
+    return records
+
+
+def _gemv_f_faults(what: str, x, W, want, bound, ks: int) -> str:
+    """Two faults the float GEMV's `sum_bound(x, w, None, fmt)` limit must
+    reject against the plain version's `want` from the f32 activations x
+    [M, K] and the decoded weights W [K, N]: W rounded to bf16, and the
+    first K split (ks rows) left out.  Returns each fault's largest gap in
+    `_units`."""
+    import torch
+    seen = []
+    for fault, bad in (("bf16 weights",
+                        torch.matmul(x, W.to(torch.bfloat16).float())),
+                       ("K split left out",
+                        want - torch.matmul(x[:, :ks], W[:ks]))):
+        bad_gap = (bad - want).abs()
+        _check(bool((bad_gap > bound).any()),
+               f"{what}: the limit rejects the planted fault '{fault}'")
+        seen.append(f"{fault} {_units(bad_gap, bound):.4g}")
+        del bad, bad_gap
+    return ", ".join(seen)
+
+
+# command-r-35b's tied head: [vocab, d_model] codes read as [d_model, vocab]
+_HEAD_VD = (256000, 8192)
+
+
+def _gemv_f(dev):
+    """The float GEMV (the float weight path at decode rows) at every
+    command-r-35b projection shape and over the tied head's transpose, at
+    M 4 with bf16 activations (the serving path's): within `sum_bound(x,
+    w, None, fmt)` of its plain version, a limit two planted faults must
+    fail, bitwise equal on a second call, each launch on its variant;
+    timed beside K1 + torch.matmul (the path it replaces), torch.matmul on
+    pre-decoded f32 weights, its plain version and its bytes bound.
+    Returns the records of the layer ([K, N], `p16_2`) and of the head
+    (transposed, `p16_2_t`)."""
+    import torch
+    from repro_torch.core import formats
+    from repro_torch.kernels import ops, posit_codec
+    from repro_torch.kernels import posit_matmul as pm
+    fmt, M = formats.P16_2, 4
+    g = torch.Generator(device=dev).manual_seed(7)
+    xs = {K: torch.randn(M, K, generator=g, device=dev).to(torch.bfloat16)
+          for K in {K for K, _ in _LAYER_KN}}
+    weights = {(K, N): posit_codec.encode(
+        torch.randn(K, N, generator=g, device=dev) / math.sqrt(K), fmt)
+        for K, N in sorted(set(_LAYER_KN))}
+    V, D = _HEAD_VD
+    head = posit_codec.encode(torch.randn(V, D, generator=g, device=dev)
+                              / math.sqrt(D), fmt)
+    cases = [((K, N), weights[(K, N)]) for K, N in sorted(set(_LAYER_KN))]
+    cases.append(((D, V), head.T))
+    err = ratio = 0.0
+    per = {}
+    for (K, N), w in cases:
+        x = xs[K]
+        variant = pm.gemv_f_variant(M, fmt, w)
+        before = ops.launch_counts()[f"posit_gemv_f:{variant}"]
+        got = pm.posit_gemv_f(x, w, fmt)
+        _check(ops.launch_counts()[f"posit_gemv_f:{variant}"] == before + 1,
+               f"the float GEMV takes its {variant} variant at K={K} N={N}")
+        _check(_bits_equal(pm.posit_gemv_f(x, w, fmt), got),
+               f"the float GEMV bitwise deterministic at K={K} N={N}")
+        xf = x.to(torch.float32)
+        W = ops.decode(w, fmt)
+        want = torch.matmul(xf, W)
+        bound = pm.sum_bound(x, w, None, fmt)
+        gap = (got - want).abs()
+        _check(bool((gap <= bound).all()),
+               f"the float GEMV within {pm.SUM_TOL} u sqrt(K) ||x w|| at "
+               f"K={K} N={N} ({variant})")
+        err = max(err, float(gap.max()))
+        ratio = max(ratio, _units(gap, bound))
+        ks = (pm.split_k_t(N, K) if variant.endswith("_t")
+              else pm.split_k(N, K))[0]
+        faults = _gemv_f_faults(f"float GEMV K={K} N={N}", xf, W, want,
+                                bound, ks)
+        del got, want, gap, bound
+        ms = _device_ms(lambda: pm.posit_gemv_f(x, w, fmt), launches=5)
+        k1_mm = _device_ms(lambda: torch.matmul(
+            x.to(torch.float32), ops.decode(w, fmt)), launches=3)
+        mm = _device_ms(lambda: torch.matmul(xf, W), launches=5)
+        del W
+        torch.cuda.empty_cache()
+        bound_ms, by = _bound(K * N * 2 + M * K * 2 + M * N * 4,
+                              2.0 * M * K * N)
+        per[(K, N)] = (ms, k1_mm, mm, bound_ms, by)
+        print(f"float GEMV M={M} K={K} N={N} ({variant}, bf16 activations): "
+              f"largest err in u sqrt(K) ||x w|| so far {ratio:.4g} (limit "
+              f"{pm.SUM_TOL}; planted: {faults}), bitwise equal on a second "
+              f"call, ms {ms:.4f}, K1 + torch.matmul {k1_mm:.4f}, "
+              f"torch.matmul on decoded f32 {mm:.4f}, bound_ms "
+              f"{bound_ms:.4f} ({by})")
+
+    def layer_run():
+        for K, N in _LAYER_KN:
+            pm.posit_gemv_f(xs[K], weights[(K, N)], fmt)
+
+    layer_ms = _device_ms(layer_run, launches=3)
+    call_ms = _time_ms(layer_run, reps=5)
+    plain_ms = _time_once_ms(lambda: [pm.posit_gemv_f_plain(
+        xs[K], weights[(K, N)], fmt) for K, N in _LAYER_KN])
+    k1_mm = sum(per[kn][1] for kn in _LAYER_KN)
+    mm = sum(per[kn][2] for kn in _LAYER_KN)
+    bound, by = _bound(sum(K * N * 2 + M * K * 2 + M * N * 4
+                           for K, N in _LAYER_KN),
+                       sum(2.0 * M * K * N for K, N in _LAYER_KN))
+    print(f"kernel posit_gemv_f (float GEMV, M={M}, one command-r layer's 7 "
+          f"projections): ms {layer_ms:.4f}, K1 + torch.matmul {k1_mm:.4f} "
+          f"(sum of the projections), torch.matmul on decoded f32 {mm:.4f}, "
+          f"bound_ms {bound:.4f} ({by}), {bound / layer_ms:.3f} of the "
+          f"bound; largest err {ratio:.4g} units (limit {pm.SUM_TOL})")
+    hms, hk1, hmm, hbound, hby = per[(D, V)]
+    x = xs[D]
+    head_call = _time_ms(lambda: pm.posit_gemv_f(x, head.T, fmt), reps=5)
+    head_plain = _time_once_ms(lambda: pm.posit_gemv_f_plain(x, head.T, fmt))
+    del head, weights
+    torch.cuda.empty_cache()
+    common = dict(source="src/repro_torch/csrc/posit_gemv_f.cu",
+                  replaces="src/repro/kernels/posit_codec.py:55",
+                  max_abs_err=err)
+    return [dict(common, name="posit_gemv_f:p16_2 (float weight path, M 4, "
+                              "a command-r layer's 7 projections)",
+                 counter="posit_gemv_f:p16_2", ms=layer_ms, call_ms=call_ms,
+                 plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                 library_ms=mm, k1_matmul_ms=k1_mm,
+                 shape="M=4 bf16 x [K, N] int16 P(16,2), 7 launches"),
+            dict(common, name="posit_gemv_f:p16_2_t (float weight path, M 4, "
+                              "the tied head's transpose)",
+                 counter="posit_gemv_f:p16_2_t", ms=hms, call_ms=head_call,
+                 plain_ms=head_plain, bound_ms=hbound, bound_by=hby,
+                 library_ms=hmm, k1_matmul_ms=hk1,
+                 shape=f"M=4 bf16 x [{V}, {D}]^T int16 P(16,2)")]
 
 
 def _k2_encode(dev):
@@ -1821,6 +2014,29 @@ def _prefill_logit_gap(cfg, params, prompt, dev):
     return gap
 
 
+def _float_path_checks(label, c, per_step_steps, cfg, head_t: int = 0):
+    """The float weight path of a decode step at the defaults (fused
+    plan, float activations, P(16,2) weights): each of the 7 x layers
+    projections on the float GEMV's p16_2 variant and, with head_t, that
+    many launches a step of its transposed variant (the unfused tied
+    head); no K1 launch beyond the dense cache's KV rows (p8_2); and no
+    K1 / GEMV variant other than the compile-time ones on the whole run."""
+    per_step, n_steps = per_step_steps
+    want = 7 * cfg.n_layers * n_steps
+    _check(per_step.get("posit_gemv_f:p16_2", 0) == want
+           and per_step.get("posit_gemv_f:p16_2_t", 0) == head_t * n_steps
+           and per_step.get("posit_gemv_f", 0) == want + head_t * n_steps,
+           f"'{label}': {7 * cfg.n_layers} float GEMV launches (p16_2) "
+           f"{f'and {head_t} p16_2_t ' if head_t else ''}a decode step")
+    _check(per_step.get("posit_decode", 0)
+           == per_step.get("posit_decode:p8_2", 0),
+           f"'{label}': no K1 launch on a weight in a decode step")
+    _check(c["posit_gemv_f:posit"] == c["posit_gemv_f:posit_t"] == 0
+           and c["posit_decode:posit"] == 0,
+           f"'{label}': every K1 and float GEMV launch on a compile-time "
+           f"variant")
+
+
 def _serve(dev):
     import numpy as np
     import torch
@@ -1858,11 +2074,13 @@ def _serve(dev):
     # it, read just after.  The sharing-off and decomposed runs are
     # comparisons and are not counted.
     counts = {}
+    steps_of = {}   # label -> (launches per pure decode step summed, steps)
 
     def main_path(label, *args, **kw):
         ops.reset_launches()
         out = _run_engine(*args, label=label, **kw)
         counts[label] = ops.launch_counts()
+        steps_of[label] = out[2:]
         print(f"{label}: launches {json.dumps(counts[label])}")
         return out
 
@@ -1895,13 +2113,14 @@ def _serve(dev):
     _check(summary["prefill_device_programs"] == summary["prefill_chunks"],
            "long prompt: one prefill program per chunk group")
     for label in ("defaults greedy", "defaults sampled", "long prompt greedy"):
-        for name in ("posit_decode", "posit_encode", "paged_attention",
-                     "decode_sample", "prefill_attention"):
+        for name in ("posit_decode", "posit_gemv_f", "posit_encode",
+                     "paged_attention", "decode_sample", "prefill_attention"):
             _check(counts[label][name] > 0,
                    f"kernel {name} launched in the '{label}' run")
         _check(counts[label]["decode_sample:p16_2"]
                == counts[label]["decode_sample"],
                f"'{label}': every K4 launch took the p16_2 variant")
+        _float_path_checks(label, counts[label], steps_of[label], cfg)
     _prefill_logit_gap(cfg, params, prompts[0], dev)
 
     # ---- phase 5b: activation-coded (serve_fused_p16_a13)
@@ -2258,7 +2477,8 @@ def _moe_phase(dev):
 # ---------------------------------------------------------------------------
 
 # kernel-name fragments -> the layer that launched the kernel
-_KERNEL_GROUPS = (("grouped_", "K9 posit_matmul_grouped"),
+_KERNEL_GROUPS = (("posit_gemv_f", "K1 float GEMV (posit_gemv_f)"),
+                  ("grouped_", "K9 posit_matmul_grouped"),
                   ("pdpu_matmul", "K8 pdpu_matmul"),
                   ("posit_decode", "K1 posit_decode"),
                   ("posit_encode", "K2 posit_encode"),
@@ -2274,8 +2494,8 @@ def _profile(cfg, params, prompts, label: str, steps: int = 4,
              speculate_k: int = 0, **kw):
     """torch.profiler over `steps` greedy decode steps (speculative rounds
     with speculate_k) with 4 slots busy: device time per step by layer,
-    and the device's busy share of the window (host clock, ending in a
-    synchronize).  `kw` overrides the engine's max_seq 256 and page size
+    and the device's busy share of the window of as many steps run just
+    before without the profiler (host clock, ending in a synchronize).  `kw` overrides the engine's max_seq 256 and page size
     16, or serves the dense cache (paged=False)."""
     import torch
     from torch.autograd import DeviceType
@@ -2289,6 +2509,14 @@ def _profile(cfg, params, prompts, label: str, steps: int = 4,
     engine.step()   # prefill of all four, then their first decode step
     engine.step()
     _check(bool((engine.slot_phase == 2).all()), "profile: four slots decode")
+    # the same number of steps without the profiler first: its host-side
+    # tracing lengthens a host-bound step's window many times over
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        engine.step()
+    torch.cuda.synchronize()
+    plain_us = (time.perf_counter() - t0) * 1e6
     rounds = engine.stats["spec_rounds"]
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -2311,10 +2539,10 @@ def _profile(cfg, params, prompts, label: str, steps: int = 4,
     busy = sum(groups.values())
     print(f"profile {label}: {steps} "
           f"{'speculative rounds' if speculate_k else 'decode steps'}, "
-          f"4 slots, wall "
-          f"{wall_us / steps / 1e3:.3f}"
-          f" ms/step, device busy {busy / steps / 1e3:.3f} ms/step "
-          f"({100 * busy / wall_us:.1f}% of the window)"
+          f"4 slots, wall {plain_us / steps / 1e3:.3f} ms/step without the "
+          f"profiler ({wall_us / steps / 1e3:.3f} under it), device busy "
+          f"{busy / steps / 1e3:.3f} ms/step ({100 * busy / plain_us:.1f}% "
+          f"of the unprofiled window)"
           if busy else f"profile {label}: the profiler recorded no device "
           f"time (not measured)")
     for group, us in sorted(groups.items(), key=lambda kv: -kv[1]):
@@ -2393,8 +2621,9 @@ def _train_full_width(dev):
     _check(counts["posit_encode:p13_2"] == mb * (28 * L + 1)
            and counts["posit_encode"] == counts["posit_encode:p13_2"],
            f"training: every K2 launch on p13_2, {mb} x (28 x {L} + 1)")
-    _check(counts["posit_decode"] == mb * (14 * L + 2),
-           f"training: K1 launched {mb} x (14 x {L} + 2) times")
+    _check(counts["posit_decode"] == mb * (14 * L + 2)
+           and counts["posit_decode:p13_2"] == counts["posit_decode"],
+           f"training: every K1 launch on p13_2, {mb} x (14 x {L} + 2)")
     times = sorted(h["time_s"] for h in tr.history[1:])
     step_ms = times[len(times) // 2] * 1e3
     tokens = tr.shape.tokens
@@ -2630,8 +2859,9 @@ def _train_kernels(dev, label: str, arch: str):
     del codes
     print(f"K2 {label} head {head} f32 -> P(13,2) (p13_2): ms {enc_ms:.4f}, "
           f"bound_ms {enc_bound:.4f} ({enc_by}), plain_ms {enc_plain_ms:.3f}; "
-          f"K1 P(13,2) -> f32: ms {dec_ms:.4f}, bound_ms {dec_bound:.4f} "
-          f"({dec_by}), plain_ms {dec_plain_ms:.3f}")
+          f"K1 P(13,2) -> f32 (p13_2): ms {dec_ms:.4f}, bound_ms "
+          f"{dec_bound:.4f} ({dec_by}), {dec_bound / dec_ms:.3f} of the "
+          f"bound, plain_ms {dec_plain_ms:.3f}")
     records.append(dict(name=f"posit_encode (training: p13_2, {arch}'s head "
                              f"{head})",
                         counter="posit_encode:p13_2", paths=paths,
@@ -2639,9 +2869,9 @@ def _train_kernels(dev, label: str, arch: str):
                         replaces="src/repro/kernels/posit_codec.py:78",
                         max_abs_err=0.0, ms=enc_ms, plain_ms=enc_plain_ms,
                         bound_ms=enc_bound, bound_by=enc_by, library_ms=None))
-    records.append(dict(name=f"posit_decode (training: P(13,2), {arch}'s head "
+    records.append(dict(name=f"posit_decode:p13_2 (training: {arch}'s head "
                              f"{head})",
-                        counter="posit_decode", paths=paths,
+                        counter="posit_decode:p13_2", paths=paths,
                         source="src/repro_torch/csrc/posit_codec.cu",
                         replaces="src/repro/kernels/posit_codec.py:55",
                         max_abs_err=0.0, ms=dec_ms, plain_ms=dec_plain_ms,
@@ -2813,8 +3043,10 @@ def _moe_train_full_width(dev, arch: str, layers: int, optimizer: str):
            and counts["posit_encode"] == counts["posit_encode:p13_2"],
            f"{label}: every K2 launch on p13_2, {mb} x (4 x {gemms} x "
            f"{layers} + 1)")
-    _check(counts["posit_decode"] == mb * (2 * gemms * layers + 2),
-           f"{label}: K1 launched {mb} x (2 x {gemms} x {layers} + 2) times")
+    _check(counts["posit_decode"] == mb * (2 * gemms * layers + 2)
+           and counts["posit_decode:p13_2"] == counts["posit_decode"],
+           f"{label}: every K1 launch on p13_2, {mb} x (2 x {gemms} x "
+           f"{layers} + 2)")
     times = sorted(h["time_s"] for h in tr.history[1:])
     step_ms = times[len(times) // 2] * 1e3
     tokens = tr.shape.tokens
@@ -3359,8 +3591,9 @@ def _command_r_plus_phase(dev):
           f"{call_ms:.4f}, plain_ms {plain_ms:.3f}, bound_ms {bound:.4f} "
           f"({by}), {bound / ms:.3f} of the bound")
     records.append(dict(
-        name=f"posit_decode (command-r-plus-104b: [{K}, {N}])",
-        counter="posit_decode", source="src/repro_torch/csrc/posit_codec.cu",
+        name=f"posit_decode:p16_2 (command-r-plus-104b: [{K}, {N}])",
+        counter="posit_decode:p16_2",
+        source="src/repro_torch/csrc/posit_codec.cu",
         replaces="src/repro/kernels/posit_codec.py:55", max_abs_err=0.0,
         ms=ms, call_ms=call_ms, plain_ms=plain_ms, bound_ms=bound,
         bound_by=by, library_ms=None))
@@ -3401,10 +3634,9 @@ def _command_r_plus_phase(dev):
     counts = {label: ops.launch_counts()}
     print(f"{label}: launches {json.dumps(counts[label])}")
     _path_checks(label, counts[label], "tc")
-    _check(counts[label]["posit_matmul"] == 0
-           and per_step.get("posit_decode", 0) == 7 * cfg.n_layers * n_steps,
-           f"'{label}': the float weight path (K1 + torch.matmul, no K6), "
-           f"{7 * cfg.n_layers} K1 launches a decode step")
+    _check(counts[label]["posit_matmul"] == 0,
+           f"'{label}': the float weight path (no K6)")
+    _float_path_checks(label, counts[label], (per_step, n_steps), cfg)
     _profile(cfg, params, prompts, "command-r-plus", steps=2)
     del params
     _release()
@@ -3423,10 +3655,13 @@ def _dense_cache_phase(cfg, params, prompts, paged_greedy, dev):
     from repro_torch.kernels import ops
     label = "dense cache greedy"
     ops.reset_launches()
-    dense, eng, _, _ = _run_engine(cfg, params, prompts, label, greedy=True,
-                                   paged=False, max_seq=256, base_seed=1)
+    dense, eng, per_step, n_steps = _run_engine(
+        cfg, params, prompts, label, greedy=True, paged=False, max_seq=256,
+        base_seed=1)
     counts = ops.launch_counts()
     print(f"{label}: launches {json.dumps(counts)}")
+    # the unfused tied head runs the float GEMV over the head's transpose
+    _float_path_checks(label, counts, (per_step, n_steps), cfg, head_t=1)
     rows = 2 * cfg.n_layers * eng.B * eng.S * cfg.n_kv_heads * cfg.head_dim
     _check(not eng.paged and eng.cache["k"].dtype == torch.int8
            and eng.kv_cache_bytes() == rows + 4 * eng.B,
@@ -3434,7 +3669,7 @@ def _dense_cache_phase(cfg, params, prompts, paged_greedy, dev):
     for name in ("paged_attention", "paged_attention_mq",
                  "prefill_attention", "decode_sample"):
         _check(counts[name] == 0, f"dense cache: no {name} launch")
-    for name in ("posit_decode", "posit_encode"):
+    for name in ("posit_decode", "posit_gemv_f", "posit_encode"):
         _check(counts[name] > 0, f"dense cache: {name} launched")
     same, toks = _agreement(dense, paged_greedy)
     paged = _prefill_then_decode(cfg, params, prompts[0], dev, 256)
@@ -3553,18 +3788,23 @@ def main() -> int:
                 print(f"ptxas[{src_name}]: {line.strip()}")
 
     kernels = []
-    for fn in (_k1_decode, _k2_encode, _k3_attention, _k4_decode_sample,
-               _k5_prefill, _k6_matmul, _k7_attention_mq, _k8_pdpu,
-               _k9_grouped):
-        rec = fn(dev)
+    for fn in (_k1_decode, _gemv_f, _k2_encode, _k3_attention,
+               _k4_decode_sample, _k5_prefill, _k6_matmul, _k7_attention_mq,
+               _k8_pdpu, _k9_grouped):
+        recs = fn(dev)
         torch.cuda.empty_cache()
-        print(f"kernel {rec['name']} ({rec['shape']}): ms {rec['ms']:.4f} "
-              f"(device, graph replay), call_ms {rec['call_ms']:.4f} (per "
-              f"call with host overhead), plain_ms {rec['plain_ms']:.3f}, bound_ms "
-              f"{rec['bound_ms']:.4f} ({rec['bound_by']}), library_ms "
-              f"{'none' if rec['library_ms'] is None else round(rec['library_ms'], 4)}"
-              f", max_abs_err {rec['max_abs_err']:.3g}")
-        kernels.append(rec)
+        for rec in recs if isinstance(recs, list) else [recs]:
+            plain = rec["plain_ms"]
+            print(f"kernel {rec['name']} ({rec['shape']}): ms "
+                  f"{rec['ms']:.4f} (device, graph replay), call_ms "
+                  f"{rec['call_ms']:.4f} (per call with host overhead), "
+                  f"plain_ms "
+                  f"{'not measured' if plain is None else f'{plain:.3f}'}, "
+                  f"bound_ms {rec['bound_ms']:.4f} ({rec['bound_by']}), "
+                  f"library_ms "
+                  f"{'none' if rec['library_ms'] is None else round(rec['library_ms'], 4)}"
+                  f", max_abs_err {rec['max_abs_err']:.3g}")
+            kernels.append(rec)
     _attention_g16_float_pages(dev)
     torch.cuda.empty_cache()
     for arch, policy in (("command_r_35b", "serve_fused_p16"),

@@ -7,8 +7,9 @@ format and which GEMM datapath (`execution`) runs every model matmul:
   fake_quant : decode(encode(x)) on both operands, then a plain f32 dot
                (`kernels/dispatch.fake_quantize`).
   fused      : weights travel as posit *codes* (int8/int16) and are decoded
-               exactly by the codec kernel right before the dot
-               (`kernels/ops.matmul_posit_weights`), f32 accumulation; with
+               exactly next to the dot (`kernels/ops.matmul_posit_weights`:
+               a GEMV that decodes in-kernel at decode rows, the codec
+               kernel right before the dot above), f32 accumulation; with
                `activations` set, both operands travel as codes through
                the coded GEMM kernel (`kernels/ops.fused_matmul`).
   bit_exact  : the chunked-PDPU datapath, bit for bit the paper's W_m

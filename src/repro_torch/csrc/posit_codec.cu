@@ -6,17 +6,38 @@
 // blocks over a sequential grid.
 //
 // Bound on an H100: memory.  Decode reads 2 bytes (int16) or 1 byte (int8)
-// and writes 4 bytes per element; encode reads 4 and writes 1 or 2.  The
-// codec itself is ~25 integer instructions per element on the CUDA cores,
-// which at int16 widths is of the same order as the bytes, so the design
-// keeps the instruction count per byte low rather than adding stages:
+// and writes 4 bytes per element; encode reads 4 and writes 1 or 2.  At
+// those rates an SM must finish about 2.4 int16 codes a clock, so the
+// codec's integer operations (some 30 an element for the run-time decode,
+// about 17 for a compile-time one, on 64 integer lanes an SM) are of the
+// same order as the bytes: the design keeps the instruction count per byte
+// low rather than adding stages:
 //   * a flat grid-stride loop (no 2-D tiling: the op is elementwise and the
 //     flattened layout is what the memory system wants),
-//   * 16-byte loads and stores: each thread handles one 16-byte vector of
-//     the narrower side (8 int16 or 16 int8 codes) when both pointers are
-//     16-byte aligned, with a scalar loop for the tail and for unaligned
-//     views,
-//   * the format is a run-time argument, so one binary serves every n <= 16.
+//   * the run-time kernels (the `posit` variants, any n <= 16) take one
+//     16-byte vector of the narrower side a thread (8 int16 or 16 int8
+//     codes) when both pointers are 16-byte aligned, with a scalar loop for
+//     the tail and for unaligned views.
+//
+// The float weight path no longer runs K1 at decode rows: a GEMV that
+// decodes each weight code next to its dot (csrc/posit_gemv_f.cu) takes
+// M <= 8.  K1 keeps what decodes a whole operand: prefill chunk groups
+// and training (M > 8), the heads, bit_exact's fmt_out codes, the dense
+// KV cache's rows and the speculative draft's fake_quant weights.
+//
+// K1's compile-time variants (p16_2, p13_2 from int16, p8_2 from int8;
+// posit_decode_fast_kernel) cover every format those paths decode.  They
+// decode with posit_decode_fast<N, ES> (posit.cuh) and issue all of a
+// lane's loads of a tile before the first decode: a lane reads 4
+// consecutive codes a load (8 bytes of int16, 4 of int8; each load
+// coalesced across the warp), 32 bytes in flight, and writes their 4
+// values as one 16-byte store, coalesced across the warp.  Every tile has
+// a warp of its own.  On an H100 at [8192, 22528] this layout took
+// 0.376 ms (88% of the bytes bound) where 16-byte loads with two 16-byte
+// stores 32 bytes apart across the warp took 0.46-0.67, 64 bytes in
+// flight 0.386, and one wave of resident blocks walking the tiles 0.40
+// (PERF.md).  The run-time kernel stays as the `posit` variant for every
+// other format.
 //
 // K2's compile-time variants (p16_2, p13_2 into int16, p8_2 into int8;
 // posit_encode_fast_kernel) are what every main path encodes: the tied
@@ -76,6 +97,51 @@ __global__ void posit_decode_kernel(const CT* __restrict__ in,
   }
   for (long long i = done + tid; i < count; i += stride) {
     out[i] = posit_decode((uint32_t)(int)in[i], n, es);
+  }
+}
+
+// A warp decodes tiles of J x 32 loads of 4 codes: lane l reads load
+// 32 j + l of its tile (j < J; each load coalesced across the warp, all J
+// issued before the first decode: 32 bytes a lane) and writes its 4 values
+// as one 16-byte store, coalesced across the warp.  The grid gives every
+// tile a warp of its own; the loop serves a grid the launcher capped.
+template <typename CT, int N, int ES>
+__global__ void posit_decode_fast_kernel(const CT* __restrict__ in,
+                                         float* __restrict__ out,
+                                         long long count, int vec) {
+  constexpr int J = 32 / (4 * (int)sizeof(CT));  // 4 (int16), 8 (int8)
+  using Pack = typename std::conditional<sizeof(CT) == 2, uint2,
+                                         uint32_t>::type;
+  const long long tid = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  long long done = 0;
+  if (vec) {
+    const int lane = threadIdx.x & 31;
+    const long long tiles = count / (128 * J);
+    const Pack* inp = reinterpret_cast<const Pack*>(in);
+    float4* out4 = reinterpret_cast<float4*>(out);
+    for (long long t = tid >> 5; t < tiles; t += stride >> 5) {
+      Pack p[J];
+#pragma unroll
+      for (int j = 0; j < J; ++j) p[j] = __ldg(inp + (t * J + j) * 32 + lane);
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        uint32_t c[4];
+        if constexpr (sizeof(CT) == 2) {
+          c[0] = p[j].x; c[1] = p[j].x >> 16; c[2] = p[j].y;
+          c[3] = p[j].y >> 16;
+        } else {
+          c[0] = p[j]; c[1] = p[j] >> 8; c[2] = p[j] >> 16; c[3] = p[j] >> 24;
+        }
+        out4[(t * J + j) * 32 + lane] = make_float4(
+            posit_decode_fast<N, ES>(c[0]), posit_decode_fast<N, ES>(c[1]),
+            posit_decode_fast<N, ES>(c[2]), posit_decode_fast<N, ES>(c[3]));
+      }
+    }
+    done = tiles * 128 * J;
+  }
+  for (long long i = done + tid; i < count; i += stride) {
+    out[i] = posit_decode_fast<N, ES>((uint32_t)(int)in[i]);
   }
 }
 
@@ -168,19 +234,49 @@ bool aligned16(const void* p) {
 
 }  // namespace
 
+// variant: 0 the run-time format (n, es), 1 p16_2, 2 p13_2 (int16 codes),
+// 3 p8_2 (int8 codes); a compile-time variant must match n, es and the
+// container.
 extern "C" int posit_decode_launch(const void* in, void* out, long long count,
-                                   int code_bytes, int n, int es,
+                                   int code_bytes, int n, int es, int variant,
                                    void* stream) {
   const int vec = aligned16(in) && aligned16(out);
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  float* y = (float*)out;
+  if (variant != 0) {
+    static const int want[4][3] = {{0, 0, 0}, {16, 2, 2}, {13, 2, 2},
+                                   {8, 2, 1}};
+    if (variant < 0 || variant > 3 || want[variant][0] != n ||
+        want[variant][1] != es || want[variant][2] != code_bytes)
+      return (int)cudaErrorInvalidValue;
+    // a warp a tile of 128 J codes (J = 4 int16, 8 int8: 16 / 32 codes a
+    // thread); the scalar path one element a thread
+    long long threads = vec ? count * code_bytes / 32 : count;
+    if (threads < 1) threads = 1;
+    const long long blocks = (threads + 255) / 256;
+    if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+    const int grid = (int)blocks;
+#define K1_FAST(CT, N, ES)                                                   \
+  posit_decode_fast_kernel<CT, N, ES><<<grid, 256, 0, s>>>((const CT*)in, y, \
+                                                            count, vec)
+    if (variant == 1) {
+      K1_FAST(int16_t, 16, 2);
+    } else if (variant == 2) {
+      K1_FAST(int16_t, 13, 2);
+    } else {
+      K1_FAST(int8_t, 8, 2);
+    }
+#undef K1_FAST
+    return (int)cudaGetLastError();
+  }
   if (code_bytes == 1) {
     posit_decode_kernel<int8_t><<<grid_for(vec ? count / 16 : count), 256, 0,
-                                  s>>>((const int8_t*)in, (float*)out, count,
-                                       n, es, vec);
+                                  s>>>((const int8_t*)in, y, count, n, es,
+                                       vec);
   } else if (code_bytes == 2) {
     posit_decode_kernel<int16_t><<<grid_for(vec ? count / 8 : count), 256, 0,
-                                   s>>>((const int16_t*)in, (float*)out,
-                                        count, n, es, vec);
+                                   s>>>((const int16_t*)in, y, count, n, es,
+                                        vec);
   } else {
     return (int)cudaErrorInvalidValue;
   }

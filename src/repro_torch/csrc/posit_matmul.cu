@@ -15,7 +15,8 @@
 // SM is some 0.9 ms for that layer, so at M <= 8 the design's aim is to
 // spend no more than that decode and to keep every SM fed.
 //
-// M <= 8, the split-K GEMV (posit_matmul_gemv_kernel, then
+// M <= 8, the split-K GEMV (posit_matmul_gemv_kernel over gemv_rows.cuh's
+// body, which the float weight path's GEMV shares, then
 // posit_matmul_reduce_kernel):
 //   * a block owns 256 columns (32 lanes x 8 codes) and one K split of KS
 //     rows; its 8 warps take the split's rows in turn.  Each thread reads
@@ -94,100 +95,21 @@
 #include <cstdint>
 
 #include "code_rows.cuh"
+#include "gemv_rows.cuh"
 #include "posit.cuh"
 #include "tc_util.cuh"
 
 namespace {
 
-// ---- M <= 8: split-K GEMV --------------------------------------------------
+// ---- M <= 8: split-K GEMV (gemv_rows.cuh) -----------------------------------
 
-constexpr int kGemvThreads = 256;
-constexpr int kGemvWarps = kGemvThreads / 32;
-constexpr int kGemvBN = 32 * kCols;    // columns per block
-constexpr int kUnroll = 4;             // rows in flight per thread
-
-__device__ __forceinline__ uint32_t act_code(const void* a, int a_bytes,
-                                             size_t i) {
-  return a_bytes == 2 ? (uint32_t)(int)static_cast<const int16_t*>(a)[i]
-                      : (uint32_t)(int)static_cast<const int8_t*>(a)[i];
-}
-
-// One (256-column tile, K split): writes the split's [M, 256] partial
-// sums into partial[split].  MR >= M rows of accumulators (a power of 2).
 template <int MR, typename BT, typename Dec>
 __global__ void __launch_bounds__(kGemvThreads) posit_matmul_gemv_kernel(
-    const void* __restrict__ a, int a_bytes, int na, int esa,
-    const BT* __restrict__ b, Dec dec, float* __restrict__ partial, int M,
-    int N, int K, int KS, int vec) {
+    ActCodes a, const BT* __restrict__ b, Dec dec,
+    float* __restrict__ partial, int M, int N, int K, int KS, int vec) {
   extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int n0 = blockIdx.x * kGemvBN;
-  const int split = blockIdx.y;
-  const int k0 = split * KS;
-  const int nk = min(K - k0, KS);
-
-  // the split's activation rows, decoded once: As[kk * MR + m]
-  for (int i = threadIdx.x; i < nk * MR; i += kGemvThreads) {
-    const int kk = i / MR, m = i % MR;
-    const size_t idx = (size_t)m * K + k0 + kk;
-    smem[i] = m < M ? posit_decode(act_code(a, a_bytes, idx), na, esa) : 0.0f;
-  }
-  __syncthreads();
-
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int col = n0 + lane * kCols;
-  const int ncols = N - col;
-  float acc[MR][kCols];
-#pragma unroll
-  for (int m = 0; m < MR; ++m)
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) acc[m][j] = 0.0f;
-
-  for (int r0 = warp; r0 < nk; r0 += kGemvWarps * kUnroll) {
-    Row8<BT> rows[kUnroll];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int r = r0 + u * kGemvWarps;
-      if (r < nk && ncols > 0)
-        rows[u].load(b + (size_t)(k0 + r) * N + col, ncols, vec != 0);
-      else
-        rows[u].zero();
-    }
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int r = r0 + u * kGemvWarps;
-      if (r < nk) {
-        float av[MR];
-#pragma unroll
-        for (int m = 0; m < MR; ++m) av[m] = smem[r * MR + m];
-#pragma unroll
-        for (int j = 0; j < kCols; ++j) {
-          const float bv = dec(rows[u].code(j));
-#pragma unroll
-          for (int m = 0; m < MR; ++m) acc[m][j] = fmaf(av[m], bv, acc[m][j]);
-        }
-      }
-    }
-  }
-  __syncthreads();  // every warp is done with the activation rows
-
-  // red[(warp * MR + m) * kGemvBN + c]: each warp's partial row sums
-#pragma unroll
-  for (int m = 0; m < MR; ++m) {
-    float4* dst = reinterpret_cast<float4*>(
-        smem + (warp * MR + m) * kGemvBN + lane * kCols);
-    dst[0] = make_float4(acc[m][0], acc[m][1], acc[m][2], acc[m][3]);
-    dst[1] = make_float4(acc[m][4], acc[m][5], acc[m][6], acc[m][7]);
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < MR * kGemvBN; i += kGemvThreads) {
-    const int m = i / kGemvBN, c = i % kGemvBN;
-    if (m >= M || n0 + c >= N) continue;
-    float sum = smem[m * kGemvBN + c];
-    for (int w = 1; w < kGemvWarps; ++w)
-      sum += smem[(w * MR + m) * kGemvBN + c];
-    partial[((size_t)split * M + m) * N + n0 + c] = sum;
-  }
+  gemv_split<MR>(a, b, dec, partial, M, N, K, KS, vec,
+                 reinterpret_cast<float*>(smem4));
 }
 
 // out[i] = sum of the S partials in split order, then f32 or one encode.
@@ -209,11 +131,6 @@ __global__ void posit_matmul_reduce_kernel(const float* __restrict__ partial,
   }
 }
 
-size_t gemv_smem_bytes(int MR, int KS) {
-  const size_t act = (size_t)KS * MR, red = (size_t)kGemvWarps * MR * kGemvBN;
-  return sizeof(float) * (act > red ? act : red);
-}
-
 template <int MR, typename BT, typename Dec>
 int launch_gemv(const void* a, int a_bytes, int na, int esa, const void* b,
                 Dec dec, float* partial, float* out_f32, void* out_codes,
@@ -232,7 +149,8 @@ int launch_gemv(const void* a, int a_bytes, int na, int esa, const void* b,
                   reinterpret_cast<uintptr_t>(b) % (kCols * sizeof(BT)) == 0;
   dim3 grid((N + kGemvBN - 1) / kGemvBN, S);
   posit_matmul_gemv_kernel<MR, BT, Dec><<<grid, kGemvThreads, smem, s>>>(
-      a, a_bytes, na, esa, (const BT*)b, dec, partial, M, N, K, KS, vec);
+      ActCodes{a, a_bytes, na, esa}, (const BT*)b, dec, partial, M, N, K, KS,
+      vec);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   const int MN = M * N;
@@ -365,8 +283,7 @@ __global__ void posit_split_rows_kernel(const void* __restrict__ a,
   if (i >= total) return;
   const int m = (int)(i / Kp), k = (int)(i % Kp);
   const float x = (m < M && k < K)
-                      ? posit_decode(act_code(a, a_bytes, (size_t)m * K + k),
-                                     na, esa)
+                      ? ActCodes{a, a_bytes, na, esa}((size_t)m * K + k)
                       : 0.0f;
   split2(x, out[i], out[total + i]);
 }

@@ -23,7 +23,7 @@ _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 SOURCES = ("posit_codec", "paged_attention", "decode_sample",
            "prefill_attention", "posit_matmul", "posit_matmul_grouped",
-           "pdpu_dot")
+           "posit_gemv_f", "pdpu_dot")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -31,7 +31,7 @@ _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_flo
 # argtypes of every exported C function, by library
 _SIGNATURES = {
     "posit_codec": {
-        "posit_decode_launch": [_P, _P, _LL, _I, _I, _I, _P],
+        "posit_decode_launch": [_P, _P, _LL, _I, _I, _I, _I, _P],
         "posit_encode_launch": [_P, _P, _LL, _I, _I, _I, _I, _P],
     },
     "paged_attention": {
@@ -47,6 +47,9 @@ _SIGNATURES = {
     },
     "posit_matmul": {
         "posit_matmul_launch": [_P] * 6 + [_I] * 15 + [_P],
+    },
+    "posit_gemv_f": {
+        "posit_gemv_f_launch": [_P] * 4 + [_I] * 11 + [_P],
     },
     "posit_matmul_grouped": {
         "posit_matmul_grouped_launch": [_P] * 8 + [_I] * 16 + [_P],

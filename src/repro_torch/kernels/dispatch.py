@@ -8,9 +8,11 @@
               Weights may be float masters (rounded to the format) or
               packed posit codes (decoded, K1).  The speculative draft
               policy (`QuantPolicy.with_draft`) runs this plan.
-  fused       float activations x posit-coded weights: packed codes decode
-              exactly through the codec kernel and `torch.matmul`
-              accumulates in f32 (as `ops.matmul_posit_weights`).  With
+  fused       float activations x posit-coded weights
+              (`ops.matmul_posit_weights`): at decode rows (M <= 8) a GEMV
+              that decodes each code next to its dot and accumulates in
+              f32; above, the codes decode exactly through the codec
+              kernel (K1) and `torch.matmul` accumulates in f32.  With
               `QuantPolicy.activations` set (activation-coded serving) the
               activations are encoded (K2) and both code operands go
               through the coded GEMM kernel (`ops.fused_matmul`, K6).
@@ -41,12 +43,15 @@ Two entry points share the plan table:
                  stacks as codes; bit_exact runs K8 expert by expert.
 
 A weight wrapped in `Prepared` keeps the operand its plan's dot reads
-(the rounded, decoded or encoded weights), so several `qdot` calls over
-the same weights (the speculative verify's tokens) decode them once and
-give, bitwise, what separate calls give.  It serves packed weights and
-float weights outside autograd only: a master that requires grad changes
-every training step, so `Prepared` refuses it under grad mode rather
-than serve stale codes.
+(the rounded or encoded weights; under the fused plan with float
+activations the codes, and their decoded f32 copy only once a call
+above 8 rows or on the CPU reads it), so several `qdot` calls over the
+same weights (the speculative verify's tokens) round, encode or decode
+them once and give, bitwise, what separate calls give: at decode rows
+each call runs the same float GEMV at the same M.  It serves packed
+weights and float weights outside autograd only: a master that requires
+grad changes every training step, so `Prepared` refuses it under grad
+mode rather than serve stale codes.
 """
 from __future__ import annotations
 
@@ -56,7 +61,7 @@ from repro_torch.core.formats import PositFormat
 from repro_torch.core.posit import storage_dtype
 from repro_torch.core.quant import (EXECUTION_PLANS, QuantPolicy,
                                     TRAINABLE_PLANS)
-from . import ops
+from . import ops, posit_matmul
 
 _BIT_EXACT_MSG = (
     f"execution plan 'bit_exact' is not differentiable; trainable plans "
@@ -134,7 +139,9 @@ def _grad_barrier(reason: str, out, *inputs):
 class Prepared:
     """A 2-D weight whose plan operand (`_weight_operand`) is made on the
     first `qdot` that reads it, per policy and activation dtype, and
-    reused by every later one."""
+    reused by every later one; under the fused plan with float activations
+    the operand is the codes, and `decoded` keeps their f32 decode for the
+    calls that read it."""
 
     def __init__(self, w):
         self.w = w
@@ -152,11 +159,19 @@ class Prepared:
             self._operands[key] = _weight_operand(self.w, policy, dtype)
         return self._operands[key]
 
+    def decoded(self, policy: QuantPolicy, dtype):
+        """The f32 decode of the fused plan's weight codes, made once."""
+        key = (policy, dtype, "decoded")
+        if key not in self._operands:
+            self._operands[key] = ops.decode(self.operand(policy, dtype),
+                                             policy.weights)
+        return self._operands[key]
+
 
 def _weight_operand(w, policy: QuantPolicy, dtype):
     """What the plan's dot reads of w [K, N], for activations of `dtype`:
-    fake_quant the rounded weights in that dtype; fused the decoded f32
-    weights (float activations) or the codes (coded activations);
+    fake_quant the rounded weights in that dtype; fused the codes (the
+    float weight path decodes them itself, `ops.matmul_posit_weights`);
     bit_exact the codes in the PDPU's input format."""
     packed = is_packed(w)
     if policy.execution == "fake_quant":
@@ -170,10 +185,20 @@ def _weight_operand(w, policy: QuantPolicy, dtype):
         return w if packed else ops.encode(w.to(torch.float32),
                                            policy.pdpu_config().fmt_in)
     # fused: float masters are encoded first (the reference's STE forward)
-    codes = w if packed else ops.encode(w.to(torch.float32), policy.weights)
-    if policy.activations is None:
-        return ops.decode(codes, policy.weights)
-    return codes
+    return w if packed else ops.encode(w.to(torch.float32), policy.weights)
+
+
+def _float_weight_dot(xf, w, codes, policy: QuantPolicy, dtype):
+    """xf [M, K] float @ the fused plan's weight codes -> f32
+    (`ops.matmul_posit_weights`).  A `Prepared` weight serves its cached
+    f32 decode wherever the call would decode the whole operand (above
+    GEMV_MAX_M rows, or on the CPU): the same values into the same
+    `torch.matmul`."""
+    if isinstance(w, Prepared) and (
+            xf.device.type == "cpu"
+            or xf.shape[0] > posit_matmul.GEMV_MAX_M):
+        return torch.matmul(xf.to(torch.float32), w.decoded(policy, dtype))
+    return ops.matmul_posit_weights(xf, codes, policy.weights)
 
 
 def qdot(x, w, policy: QuantPolicy, prec_dtype=torch.float32, out_dtype=None):
@@ -215,7 +240,7 @@ def qdot(x, w, policy: QuantPolicy, prec_dtype=torch.float32, out_dtype=None):
         out = _grad_barrier(_BIT_EXACT_MSG, _bit_exact(xf, wq, policy),
                             xf, raw)
     elif policy.activations is None:
-        out = torch.matmul(xf.to(torch.float32), wq)
+        out = _float_weight_dot(xf, w, wq, policy, x.dtype)
     else:
         a_codes = ops.encode(xf.to(torch.float32), policy.activations)
         out = _grad_barrier(_PACKED_ACT_MSG, ops.fused_matmul(

@@ -155,12 +155,49 @@ def decode_sample(x, w, noise=None, temperature=None, *, plan: str = "fused",
 
 
 def matmul_posit_weights(x, w_codes, fmt_w: PositFormat):
-    """float activations x posit-stored weights — the serving fast path.
+    """float activations x posit-stored weights — the serving fast path:
+    x [..., K] @ w_codes [K, N] -> f32 [..., N].
 
-    The weights decode exactly (K1 on CUDA) and the dot accumulates in f32
-    through `torch.matmul`, as the reference leaves its dot to XLA.
-    Returns f32."""
+    On the card, at most `posit_matmul.GEMV_MAX_M` rows (every decode
+    step's projections and the unfused head) run the float GEMV, which
+    decodes each weight code next to its dot and reads bf16 or f32
+    activations as they lie (`posit_matmul.posit_gemv_f`; w_codes
+    contiguous or the transpose of contiguous [N, K] codes).  Above, the
+    weights decode exactly (K1) and the dot accumulates in f32 through
+    `torch.matmul`, as the reference leaves its dot to XLA.  On the CPU
+    always the latter (the GEMV's plain version), bitwise the reference."""
+    K = x.shape[-1]
+    if x.device.type == "cuda" and \
+            x.numel() // max(K, 1) <= posit_matmul.GEMV_MAX_M:
+        if torch.is_grad_enabled() and x.requires_grad:
+            return _FloatGemv.apply(x, w_codes, fmt_w)
+        return _float_gemv(x, w_codes, fmt_w)
     return torch.matmul(x.to(torch.float32), decode(w_codes, fmt_w))
+
+
+def _float_gemv(x, w_codes, fmt_w: PositFormat):
+    """x [..., K] (at most GEMV_MAX_M rows) through the float GEMV."""
+    out = posit_matmul.posit_gemv_f(x.reshape(-1, x.shape[-1]), w_codes,
+                                    fmt_w)
+    return out.reshape(tuple(x.shape[:-1]) + (w_codes.shape[-1],))
+
+
+class _FloatGemv(torch.autograd.Function):
+    """The float GEMV with the gradient `torch.matmul` on the decoded
+    weights would give x: dx = g @ decode(w_codes)^T."""
+
+    @staticmethod
+    def forward(ctx, x, w_codes, fmt_w):
+        ctx.save_for_backward(w_codes)
+        ctx.fmt_w, ctx.x_dtype = fmt_w, x.dtype
+        return _float_gemv(x, w_codes, fmt_w)
+
+    @staticmethod
+    def backward(ctx, g):
+        (w_codes,) = ctx.saved_tensors
+        wq = decode(w_codes, ctx.fmt_w)
+        dx = torch.matmul(g.to(torch.float32), wq.transpose(-1, -2))
+        return dx.to(ctx.x_dtype), None, None
 
 
 # ---------------------------------------------------------------------------
@@ -169,8 +206,9 @@ def matmul_posit_weights(x, w_codes, fmt_w: PositFormat):
 #
 # The forward runs the serving datapath: the f32 masters are encoded to
 # posit codes (K2) and the product runs on the codes, through the coded GEMM
-# (K6, K9 grouped) with coded activations or through the exact decode (K1)
-# and an f32 `torch.matmul` with float activations.  The backward is
+# (K6, K9 grouped) with coded activations or `matmul_posit_weights` with
+# float activations (the float GEMV at most 8 rows on the card, else the
+# exact decode (K1) and an f32 `torch.matmul`).  The backward is
 # straight-through with respect to the float operands, on the decoded
 # quantized operands the forward computed on: dx = g @ wq^T and
 # dw = aq^T @ g, the same products as the fake_quant plan's backward, so
@@ -216,7 +254,8 @@ class _FusedMatmulSTE(torch.autograd.Function):
 def fused_matmul_ste(x, w, fmt_a: PositFormat | None, fmt_w: PositFormat):
     """Differentiable fused GEMM over float masters: x [M, K] @ w [K, N],
     both f32.  fmt_a None keeps the activations float (the
-    `matmul_posit_weights` path: K2 on w, K1, `torch.matmul`); otherwise
+    `matmul_posit_weights` path: K2 on w, then the float GEMV or K1 and
+    `torch.matmul`); otherwise
     both operands travel as codes through `fused_matmul` (K2 twice, K6).
     Backward: dx = g @ wq^T, dw = xq^T @ g on the decoded quantized
     operands, the fake_quant plan's straight-through gradients."""
@@ -248,8 +287,9 @@ def ste_plain(x, w, fmt_a: PositFormat | None, fmt_w: PositFormat, g):
     replaced by its plain version: the codec's plain encode / decode and
     f32 `torch.matmul` on the decoded operands.  On the card the backward
     is bitwise this (K1 is bitwise and the products are the same calls);
-    the forward is within `posit_matmul.sum_bound` (K6, K9) or bitwise
-    (float activations, 2-D)."""
+    the forward is within `posit_matmul.sum_bound` (K6, K9, the float GEMV
+    at most `posit_matmul.GEMV_MAX_M` rows) or bitwise (float activations,
+    2-D, above that: K1 and the same `torch.matmul`)."""
     wq = posit_codec.decode_plain(posit_codec.encode_plain(w, fmt_w), fmt_w)
     aq = x if fmt_a is None else posit_codec.decode_plain(
         posit_codec.encode_plain(x, fmt_a), fmt_a)

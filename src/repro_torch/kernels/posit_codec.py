@@ -6,9 +6,10 @@ hand-written kernels of `csrc/posit_codec.cu` (K1 and K2, which replace
 run the plain PyTorch codec (`decode_plain` / `encode_plain`), which is
 bit-for-bit the JAX codec.  The kernels take int8/int16 codes and f32
 values (other floats are converted first) and must match the plain
-versions bit for bit.  `encode` picks K2's variant by format and
-container (`encode_variant`): a compile-time 32-bit encoder for the
-formats the serving paths encode, the run-time encoder otherwise;
+versions bit for bit.  Each picks its variant by format and container
+(`decode_variant`, `encode_variant`): a compile-time kernel for P(16,2)
+and P(13,2) in int16 and P(8,2) in int8 (every format the port's paths
+decode and encode), the run-time kernel ("posit") otherwise;
 `encode_fast_plain` states the 32-bit encoder's arithmetic in plain
 PyTorch.
 """
@@ -21,15 +22,19 @@ from repro_torch.core.formats import PositFormat
 from . import _build
 
 # launches of each kernel since the last reset (kernels/ops.reset_launches);
-# "posit_encode:<variant>" counts K2's launches by `encode_variant`
-LAUNCHES = {"posit_decode": 0, "posit_encode": 0, "posit_encode:p16_2": 0,
-            "posit_encode:p13_2": 0, "posit_encode:p8_2": 0,
-            "posit_encode:posit": 0}
+# "posit_decode:<variant>" / "posit_encode:<variant>" count K1's / K2's
+# launches by `decode_variant` / `encode_variant`
+LAUNCHES = {"posit_decode": 0, "posit_decode:p16_2": 0,
+            "posit_decode:p13_2": 0, "posit_decode:p8_2": 0,
+            "posit_decode:posit": 0, "posit_encode": 0,
+            "posit_encode:p16_2": 0, "posit_encode:p13_2": 0,
+            "posit_encode:p8_2": 0, "posit_encode:posit": 0}
 _CODE_DTYPES = (torch.int8, torch.int16)
-# K2's compile-time variants: (n, es, container) -> (name, launcher id)
-_ENCODE_VARIANTS = {(16, 2, torch.int16): ("p16_2", 1),
-                    (13, 2, torch.int16): ("p13_2", 2),
-                    (8, 2, torch.int8): ("p8_2", 3)}
+# K1's and K2's compile-time variants: (n, es, container) -> (name,
+# launcher id)
+_FAST_VARIANTS = {(16, 2, torch.int16): ("p16_2", 1),
+                  (13, 2, torch.int16): ("p13_2", 2),
+                  (8, 2, torch.int8): ("p8_2", 3)}
 _M32 = 0xFFFFFFFF
 
 
@@ -43,11 +48,22 @@ def encode_plain(values, fmt: PositFormat):
     return posit.pack(values, fmt)
 
 
+def _variant(fmt: PositFormat, dtype: torch.dtype) -> tuple[str, int]:
+    return _FAST_VARIANTS.get((fmt.n, fmt.es, dtype), ("posit", 0))
+
+
+def decode_variant(fmt: PositFormat, dtype: torch.dtype) -> str:
+    """K1's kernel for codes of `fmt` in a `dtype` container: the
+    compile-time decode (`posit_decode_fast`) for P(16,2) and P(13,2) in
+    int16 and P(8,2) in int8, the run-time decode ("posit") otherwise."""
+    return _variant(fmt, dtype)[0]
+
+
 def encode_variant(fmt: PositFormat, dtype: torch.dtype) -> str:
     """K2's kernel for codes of `fmt` in a `dtype` container: the
     compile-time 32-bit encoder for P(16,2) and P(13,2) in int16 and P(8,2)
     in int8, the run-time encoder ("posit") otherwise."""
-    return _ENCODE_VARIANTS.get((fmt.n, fmt.es, dtype), ("posit", 0))[0]
+    return _variant(fmt, dtype)[0]
 
 
 def round_abs_plain(S, L, fmt: PositFormat):
@@ -124,12 +140,14 @@ def decode(codes, fmt: PositFormat):
     _check_fmt(fmt, codes.dtype)
     out = torch.empty(codes.shape, dtype=torch.float32, device=codes.device)
     if codes.numel():
+        variant, vid = _variant(fmt, codes.dtype)
         lib = _build.library("posit_codec")
         _build.check(lib.posit_decode_launch(
             codes.data_ptr(), out.data_ptr(), codes.numel(),
-            codes.element_size(), fmt.n, fmt.es, _build.stream_of(codes)),
-            "posit_decode")
+            codes.element_size(), fmt.n, fmt.es, vid,
+            _build.stream_of(codes)), "posit_decode")
         LAUNCHES["posit_decode"] += 1
+        LAUNCHES[f"posit_decode:{variant}"] += 1
     return out
 
 
@@ -146,8 +164,7 @@ def encode(values, fmt: PositFormat):
         raise ValueError(f"posit_encode writes int8/int16 codes, not {dtype}")
     out = torch.empty(values.shape, dtype=dtype, device=values.device)
     if values.numel():
-        variant, vid = _ENCODE_VARIANTS.get((fmt.n, fmt.es, dtype),
-                                            ("posit", 0))
+        variant, vid = _variant(fmt, dtype)
         lib = _build.library("posit_codec")
         _build.check(lib.posit_encode_launch(
             values.data_ptr(), out.data_ptr(), values.numel(),

@@ -4,7 +4,12 @@ versions.
 `posit_matmul` (K6, `csrc/posit_matmul.cu`) replaces
 `repro/kernels/posit_matmul.py:posit_matmul`: [M, K] posit codes x [K, N]
 posit codes, decoded in the kernel, accumulated in f32, returned as f32
-or encoded once into `fmt_out`.  `posit_matmul_grouped` (K9,
+or encoded once into `fmt_out`.  `posit_gemv_f` (`csrc/posit_gemv_f.cu`)
+is the float weight path at decode rows: [M <= 8, K] f32 or bf16
+activations x [K, N] posit codes (or the transpose of [N, K] codes, the
+tied head), each code decoded next to its dot; it replaces, on that path,
+K1's decode of the whole operand (`repro/kernels/posit_codec.py:decode`)
+before the reference's `jnp.dot`.  `posit_matmul_grouped` (K9,
 `csrc/posit_matmul_grouped.cu`) replaces `:posit_matmul_grouped`, the MoE
 expert-stack form [E, M, K] x [E, K, N] with float or coded activations
 (a split-K GEMV at serving rows, a split-bf16 tensor-core GEMM at the
@@ -31,7 +36,10 @@ LAUNCHES = {"posit_matmul": 0, "posit_matmul:gemv_p16_2": 0,
             "posit_matmul:tc": 0, "posit_matmul:tiled": 0,
             "posit_matmul_grouped": 0, "posit_matmul_grouped:p16_2": 0,
             "posit_matmul_grouped:posit": 0, "posit_matmul_grouped:tc": 0,
-            "posit_matmul_grouped:tc_p13_2": 0}
+            "posit_matmul_grouped:tc_p13_2": 0,
+            "posit_gemv_f": 0, "posit_gemv_f:p16_2": 0,
+            "posit_gemv_f:posit": 0, "posit_gemv_f:p16_2_t": 0,
+            "posit_gemv_f:posit_t": 0}
 _CODE_DTYPES = (torch.int8, torch.int16)
 
 # K6's split-K GEMV (M <= GEMV_MAX_M): a block owns GEMV_BN columns (32
@@ -52,6 +60,15 @@ TC_BN = 128
 TC_BK = 64
 TC_BLOCKS = 132
 _VARIANTS = {"tiled": 0, "gemv": 1, "gemv_p16_2": 2, "tc": 3, "tc_p16_2": 4}
+# The float GEMV over the transpose of [N, K] codes: a block owns
+# GEMV_T_ROWS output rows (8 warps x 16) and one K split of whole
+# GEMV_T_SPAN-code steps (a warp-load of 32 lanes x 8 codes), at most
+# GEMV_T_MAX_STEPS of them (its f32 activations live in shared memory);
+# splits are added where the row tiles alone leave the card's
+# GEMV_BLOCKS short.
+GEMV_T_ROWS = 128
+GEMV_T_SPAN = 256
+GEMV_T_MAX_STEPS = 8
 # K9's grouped GEMV: a block owns one expert's GROUPED_BM-row tile,
 # GEMV_BN columns and one K split (rows a multiple of GEMV_ROWS, at most
 # GEMV_MAX_ROWS); the splits aim at GROUPED_EXPERT_BLOCKS blocks an
@@ -240,6 +257,103 @@ def posit_matmul(a_codes, b_codes, fmt_a: PositFormat, fmt_b: PositFormat,
             "posit_matmul")
         LAUNCHES["posit_matmul"] += 1
         LAUNCHES[f"posit_matmul:{variant}"] += 1
+    return out
+
+
+def _gemv_f_layout(w_codes):
+    """"kn" for contiguous [K, N] codes, "t" for the transpose of
+    contiguous [N, K] codes (read as they lie), None for another view."""
+    if w_codes.is_contiguous():
+        return "kn"
+    if w_codes.ndim == 2 and w_codes.T.is_contiguous():
+        return "t"
+    return None
+
+
+def gemv_f_variant(M: int, fmt_w: PositFormat, w_codes) -> str:
+    """The float weight path's kernel for x [M, K] @ w_codes [K, N]: at
+    most GEMV_MAX_M rows the float GEMV (`posit_gemv_f`): "p16_2", the
+    compile-time P(16,2) decode, for int16 P(16,2) codes (every serving
+    checkpoint), else "posit", the run-time decode of any format, with
+    "_t" where w_codes is the transpose of contiguous [N, K] codes (the
+    tied head; another non-contiguous view is copied to [K, N] first).
+    Above: "decode", K1 over the whole operand then `torch.matmul`."""
+    if M > GEMV_MAX_M:
+        return "decode"
+    p16_2 = (fmt_w.n, fmt_w.es) == (16, 2) and w_codes.dtype == torch.int16
+    return ("p16_2" if p16_2 else "posit") + (
+        "_t" if _gemv_f_layout(w_codes) == "t" else "")
+
+
+def split_k_t(N: int, K: int) -> tuple[int, int]:
+    """(codes per split KS, number of splits S) of the float GEMV over the
+    transpose of [N, K] codes: KS a multiple of GEMV_T_SPAN of at most
+    GEMV_T_MAX_STEPS steps, split s covers [s * KS, min(K, (s + 1) * KS))
+    in split order, none empty, S >= 1 (K = 0: one empty split); row
+    tiles times splits come near GEMV_BLOCKS where K allows."""
+    tiles = -(-N // GEMV_T_ROWS)
+    want = max(1, -(-GEMV_BLOCKS // max(tiles, 1)))
+    steps = max(1, -(-K // GEMV_T_SPAN))
+    ks = min(GEMV_T_MAX_STEPS, -(-steps // want)) * GEMV_T_SPAN
+    return ks, max(1, -(-K // ks))
+
+
+def posit_gemv_f_plain(x, w_codes, fmt_w: PositFormat):
+    """x (float, cast to f32) @ decode(w_codes) in f32."""
+    return torch.matmul(x.to(torch.float32), decode_plain(w_codes, fmt_w))
+
+
+def posit_gemv_f(x, w_codes, fmt_w: PositFormat):
+    """[M, K] float activations x [K, N] posit codes -> [M, N] f32, M <=
+    GEMV_MAX_M on the card.  x in f32 or bf16 is read as it lies (other
+    floats are cast to f32 first); w_codes contiguous [K, N], or the
+    transpose of contiguous [N, K] codes, read in place.  `gemv_f_variant`
+    names the kernel; the K splits are `split_k`'s ([K, N]) or
+    `split_k_t`'s (transposed).  Within `sum_bound(x, w_codes, None,
+    fmt_w)` of the plain version; bitwise equal across calls."""
+    if x.ndim != 2 or w_codes.ndim != 2:
+        raise ValueError(f"posit_gemv_f takes 2-D operands, got "
+                         f"{tuple(x.shape)} x {tuple(w_codes.shape)}")
+    M, K = x.shape
+    K2, N = w_codes.shape
+    if K != K2:
+        raise ValueError(f"contraction mismatch {tuple(x.shape)} x "
+                         f"{tuple(w_codes.shape)}")
+    if x.device.type == "cpu":
+        return posit_gemv_f_plain(x, w_codes, fmt_w)
+    if M > GEMV_MAX_M:
+        raise ValueError(f"posit_gemv_f takes at most {GEMV_MAX_M} rows, "
+                         f"got {M}")
+    if not x.is_floating_point():
+        raise TypeError(f"posit_gemv_f takes float activations, got "
+                        f"{x.dtype}")
+    _check_codes("b", w_codes, fmt_w)
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        x = x.to(torch.float32)
+    x = x.contiguous()
+    variant = gemv_f_variant(M, fmt_w, w_codes)
+    transposed = variant.endswith("_t")
+    b = w_codes.T if transposed else w_codes.contiguous()
+    _build.require_cuda("posit_gemv_f", x, b)
+    out = torch.empty((M, N), dtype=torch.float32, device=x.device)
+    if M and N:
+        ks, splits = split_k_t(N, K) if transposed else split_k(N, K)
+        partial = torch.empty((splits, M, N), dtype=torch.float32,
+                              device=x.device) if splits > 1 else None
+        lib = _build.library("posit_gemv_f")
+        err = lib.posit_gemv_f_launch(
+            x.data_ptr(), b.data_ptr(), out.data_ptr(),
+            None if partial is None else partial.data_ptr(), M, N, K,
+            0 if x.dtype == torch.float32 else 1, b.element_size(),
+            fmt_w.n, fmt_w.es, int(transposed),
+            1 if variant.startswith("p16_2") else 0, ks, splits,
+            _build.stream_of(x))
+        if err == _REFUSED:
+            raise ValueError(f"posit_gemv_f: the {variant} kernel does not "
+                             f"take {x.dtype} x {b.dtype} at M={M}")
+        _build.check(err, "posit_gemv_f")
+        LAUNCHES["posit_gemv_f"] += 1
+        LAUNCHES[f"posit_gemv_f:{variant}"] += 1
     return out
 
 

@@ -477,8 +477,10 @@ def decode_verify(params, tokens, cache, cfg: ModelConfig, sample=None):
     [B, 1, D] shapes: on the card a GEMM or a row reduction sums in an
     order that depends on its number of rows, and bf16 activations turn
     those last-bit differences into other tokens.  Each layer's weights
-    are decoded once (`dispatch.Prepared`) for the T tokens' GEMMs, so a
-    verify moves a decode step's weight traffic.  The result is T
+    are prepared once (`dispatch.Prepared`: rounded, encoded or decoded
+    once, as the plan reads them) for the T tokens' GEMMs; under the
+    fused plan with float activations each token's GEMMs read the codes
+    through the float GEMV at the decode step's rows.  The result is T
     sequential `decode_step` calls over the same tokens, bitwise.  Returns
     ([B, T] int32 tokens from one fused head + sampler launch over the
     B*T rows, b-major (its rows are independent), with `sample`; else

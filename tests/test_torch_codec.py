@@ -174,6 +174,17 @@ def test_encode_variant_by_format_and_container(n, es, dtype, variant):
     assert tcodec.encode_variant(tformats.PositFormat(n, es), dtype) == variant
 
 
+@pytest.mark.parametrize("n,es,dtype,variant", [
+    (16, 2, torch.int16, "p16_2"), (13, 2, torch.int16, "p13_2"),
+    (8, 2, torch.int8, "p8_2"), (16, 1, torch.int16, "posit"),
+    (8, 0, torch.int8, "posit"), (10, 2, torch.int16, "posit")])
+def test_decode_variant_by_format_and_container(n, es, dtype, variant):
+    """K1 takes the same compile-time variants as K2: P(16,2) and P(13,2)
+    from int16, P(8,2) from int8, the run-time decode for the rest."""
+    from repro_torch.kernels import posit_codec as tcodec
+    assert tcodec.decode_variant(tformats.PositFormat(n, es), dtype) == variant
+
+
 def _boundary_values(fmt):
     """Every rounding boundary between adjacent positive codes and the f32
     values either side of it, both signs."""

@@ -16,9 +16,12 @@ version (exact products of random sign, another summation order;
 `posit_matmul.sum_bound`), a limit that weights rounded to bf16 or one K
 tile left out must fail, and so is the grouped posit GEMM (K9, also with
 float activations, whose products round once in the FMA as in any f32
-GEMM); the chunked-PDPU GEMM (K8, both variants) and the whole bit_exact
-dispatch are integer datapaths, held bitwise; so are K2's compile-time
-encode variants.
+GEMM); the float weight path's GEMV (float activations x posit codes)
+is held to the same limit with fmt_a None (each product rounds once in
+the FMA, as in any f32 GEMM), which weights rounded to bf16 or one K
+split left out must fail; the chunked-PDPU GEMM (K8, both variants) and
+the whole bit_exact dispatch are integer datapaths, held bitwise; so are
+K1's and K2's compile-time decode / encode variants.
 """
 import pytest
 import torch
@@ -738,10 +741,13 @@ def test_decode_verify_bitwise_sequential_decode_steps(cuda, dtype):
         ops.reset_launches()
         logits, seq = api.decode_step(params, window[:, t].contiguous(), seq,
                                       cfg)
-        # the verify decodes each weight once, as one decode step does
+        # each token's projections and head run the float GEMV at the
+        # decode step's rows, as one decode step does
         if t == 0:
-            assert counts["posit_decode"] == \
-                ops.launch_counts()["posit_decode"]
+            step = ops.launch_counts()
+            assert step["posit_gemv_f"] > 0
+            assert counts["posit_gemv_f"] == T * step["posit_gemv_f"]
+            assert counts["posit_decode"] == step["posit_decode"]
         assert _bits_equal(verify[:, t], logits), t
     assert _bits_equal(cache["k"], seq["k"])
 
@@ -1735,3 +1741,160 @@ def test_dense_engine_equals_paged_engine_on_card(cuda, arch):
     on_cpu = packing.unpack_params(cpu, cfg)
     for name in ("wq", "wo_mlp"):
         assert _bits_equal(on_card["layers"][name], on_cpu["layers"][name])
+
+
+# ---------------------------------------------------------------------------
+# K1 redesigned: the compile-time decode variants and the float GEMV
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("fmt", [formats.P16_2, formats.P13_2, formats.P8_2])
+def test_decode_fast_variants_bitwise(cuda, fmt):
+    """K1's compile-time variants: every code of the format, every container
+    pattern (bits above n ignored) and a ragged stretch of random codes
+    that fills whole warp tiles and a scalar tail, bitwise the plain decode;
+    the launch counted on its variant; an unaligned view (the scalar path)
+    the same bits."""
+    dtype = posit.storage_dtype(fmt)
+    bits = 8 * dtype.itemsize
+    every = torch.arange(-(1 << (bits - 1)), 1 << (bits - 1),
+                         dtype=torch.int64).to(dtype)
+    g = torch.Generator().manual_seed(fmt.n)
+    spread = torch.randint(-(1 << (bits - 1)), 1 << (bits - 1),
+                           ((1 << 21) + 37,), generator=g).to(dtype)
+    codes = torch.cat([every, spread]).to(cuda)
+    want = posit_codec.decode_plain(codes, fmt)
+    variant = posit_codec.decode_variant(fmt, dtype)
+    assert variant != "posit"
+    ops.reset_launches()
+    assert _bits_equal(posit_codec.decode(codes, fmt), want)
+    assert ops.launch_counts()[f"posit_decode:{variant}"] == 1
+    assert _bits_equal(posit_codec.decode(codes[3:], fmt), want[3:])
+    assert ops.launch_counts()["posit_decode"] == 2
+
+
+# (K, N): command-r-35b's projection shapes, ragged and tiny ones
+GEMV_F_SHAPES = [(8192, 1024), (8192, 8192), (22528, 512), (517, 130),
+                 (8190, 1000), (40, 7), (1, 300)]
+
+
+_GEMV_F_WEIGHTS: dict = {}
+
+
+def _gemv_f_inputs(cuda, M, K, N, fmt, act, layout, seed):
+    """x [M, K] in `act`; the weight codes as [K, N] ("kn") or as the
+    transpose of contiguous [N, K] codes ("t"), drawn and encoded on the
+    card (K2, bitwise the plain encode) once per shape and format."""
+    key = (K, N, fmt.n, fmt.es)
+    if key not in _GEMV_F_WEIGHTS:
+        g = torch.Generator(device=cuda).manual_seed(K + N)
+        _GEMV_F_WEIGHTS[key] = posit_codec.encode(
+            torch.randn(N, K, generator=g, device=cuda) * K ** -0.5, fmt)
+    w = _GEMV_F_WEIGHTS[key]
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn(M, K, generator=g, device=cuda).to(act)
+    return x, (w.T if layout == "t" else w.T.contiguous())
+
+
+@pytest.mark.parametrize("M", list(range(1, 9)))
+@pytest.mark.parametrize("layout", ["kn", "t"])
+@pytest.mark.parametrize("case", [("P16_2", torch.bfloat16),
+                                  ("P16_2", torch.float32),
+                                  ("P16_1", torch.bfloat16),
+                                  ("P8_2", torch.float32)])
+def test_gemv_f_matches_plain(cuda, case, layout, M):
+    """The float GEMV at M 1-8 in both layouts: within `sum_bound(x, w,
+    None, fmt)` of the plain version at every shape, bitwise equal on a
+    second call, each launch on the variant `gemv_f_variant` names."""
+    fmt = getattr(formats, case[0])
+    for K, N in GEMV_F_SHAPES:
+        x, w = _gemv_f_inputs(cuda, M, K, N, fmt, case[1], layout, M * K + N)
+        variant = pm.gemv_f_variant(M, fmt, w)
+        # a transposed view of a single-row [N, 1] is contiguous as well
+        assert variant.endswith("_t") == (layout == "t"
+                                          and not w.is_contiguous())
+        ops.reset_launches()
+        got = pm.posit_gemv_f(x, w, fmt)
+        assert ops.launch_counts()[f"posit_gemv_f:{variant}"] == 1
+        plain = pm.posit_gemv_f_plain(x, w, fmt)
+        bound = pm.sum_bound(x, w, None, fmt)
+        assert bool(((got - plain).abs() <= bound).all()), (K, N)
+        assert _bits_equal(pm.posit_gemv_f(x, w, fmt), got)
+
+
+@pytest.mark.parametrize("layout", ["kn", "t"])
+@pytest.mark.parametrize("K,N,M", [(8192, 1024, 4), (8192, 4096, 1),
+                                   (22528, 512, 8)])
+def test_gemv_f_bound_rejects_planted_faults(cuda, K, N, M, layout):
+    """The float GEMV passes `sum_bound` with fmt_a None and two faults
+    fail it: weights rounded to bf16, and one K split left out."""
+    fmt = formats.P16_2
+    x, w = _gemv_f_inputs(cuda, M, K, N, fmt, torch.float32, layout, K + N)
+    bound = pm.sum_bound(x, w, None, fmt)
+    plain = pm.posit_gemv_f_plain(x, w, fmt)
+    assert bool(((pm.posit_gemv_f(x, w, fmt) - plain).abs() <= bound).all())
+    W = posit_codec.decode_plain(w, fmt)
+    ks = (pm.split_k_t(N, K) if layout == "t" else pm.split_k(N, K))[0]
+    for bad in (torch.matmul(x, W.to(torch.bfloat16).float()),
+                plain - torch.matmul(x[:, :ks], W[:ks])):
+        assert bool(((bad - plain).abs() > bound).any())
+
+
+def test_gemv_f_decodes_every_weight_code(cuda):
+    """Every int16 code times 1.0 through the GEMV (P(16,2) and the
+    run-time decode of P(16,1), both layouts) is the plain decode bitwise
+    (NaR as nan)."""
+    codes = torch.arange(-(1 << 15), 1 << 15, dtype=torch.int64)
+    for fmt in (formats.P16_2, formats.P16_1):
+        b = codes.to(torch.int16).reshape(1, -1).to(cuda)
+        for w in (b, b.T.contiguous().T):
+            got = pm.posit_gemv_f(torch.ones(1, 1, device=cuda), w, fmt)
+            want = posit_codec.decode_plain(w, fmt)
+            nan = torch.isnan(want)
+            assert torch.equal(torch.isnan(got), nan)
+            assert _bits_equal(got[~nan], want[~nan])
+
+
+def test_matmul_posit_weights_routes_by_rows(cuda):
+    """`ops.matmul_posit_weights` takes the float GEMV at 8 rows (bf16
+    activations read as they lie, the transposed head in place) and K1 +
+    torch.matmul at 9 (within `sum_bound` of the plain version: cuBLAS
+    sums a transposed operand in its own order); a gradient towards x
+    flows through the GEMV as through torch.matmul."""
+    fmt = formats.P16_2
+    x, w = _gemv_f_inputs(cuda, 9, 1024, 640, fmt, torch.bfloat16, "t", 3)
+    ops.reset_launches()
+    got8 = ops.matmul_posit_weights(x[:8], w, fmt)
+    c = ops.launch_counts()
+    assert c["posit_gemv_f:p16_2_t"] == 1 and c["posit_decode"] == 0
+    assert _bits_equal(got8, pm.posit_gemv_f(x[:8], w, fmt))
+    got9 = ops.matmul_posit_weights(x, w, fmt)
+    c = ops.launch_counts()
+    assert c["posit_decode:p16_2"] == 1 and c["posit_gemv_f"] == 2
+    assert _bits_equal(got9, torch.matmul(x.float(), ops.decode(w, fmt)))
+    assert bool(((got9 - pm.posit_gemv_f_plain(x, w, fmt)).abs()
+                 <= pm.sum_bound(x, w, None, fmt)).all())
+    xr = x[:4].float().requires_grad_()
+    gr = torch.randn(4, 640, device=cuda)
+    dx, = torch.autograd.grad(ops.matmul_posit_weights(xr, w, fmt), xr, gr)
+    want, = torch.autograd.grad(torch.matmul(xr, ops.decode(w, fmt)), xr, gr)
+    assert _bits_equal(dx, want)
+
+
+def test_prepared_float_weights_equal_separate_calls(cuda):
+    """Under the fused plan with float activations a `Prepared` weight
+    gives, bitwise, what separate `qdot` calls give: the GEMV at 4 rows
+    (no decode launched), the cached decode and torch.matmul at 16."""
+    from repro_torch.core.quant import policy_by_name
+    from repro_torch.kernels import dispatch
+    policy = policy_by_name("serve_fused_p16")
+    x, w = _gemv_f_inputs(cuda, 16, 2048, 768, formats.P16_2,
+                          torch.bfloat16, "kn", 5)
+    prep = dispatch.Prepared(w)
+    ops.reset_launches()
+    for rows in (x[:4], x[4:8], x, x):
+        assert _bits_equal(dispatch.qdot(rows, prep, policy),
+                           dispatch.qdot(rows, w, policy))
+    c = ops.launch_counts()
+    assert c["posit_gemv_f:p16_2"] == 4
+    # the separate calls at 16 rows decode twice, the Prepared one once
+    assert c["posit_decode:p16_2"] == 3

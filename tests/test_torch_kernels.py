@@ -118,6 +118,80 @@ def test_matmul_posit_weights_matches_reference(fmt):
     np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
 
 
+# (M, layout): decode rows (the float GEMV's on the card) and prefill rows
+# (K1 + torch.matmul), over [K, N] codes and over the transpose of [N, K]
+# codes (the tied head)
+FLOAT_PATH = [(4, "kn"), (16, "kn"), (4, "t"), (16, "t")]
+
+
+@pytest.fixture(scope="module")
+def float_path_inputs():
+    """x [16, 64] f32 and P(16,2) codes of a [64, 503] weight stored both
+    ways (numpy), shared by the float weight path's tests, which run their
+    torch work on one thread (at these sizes torch's pool only waits on
+    the cores the suite's other workers hold)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    rng = np.random.default_rng(11)
+    x = rng.normal(0, 1, (16, 64)).astype(np.float32)
+    w = rng.normal(0, 0.1, (503, 64)).astype(np.float32)
+    codes = np.asarray(jposit.pack(jnp.asarray(w), jformats.P16_2))
+    yield x, {"kn": np.ascontiguousarray(codes.T), "t": codes}
+    torch.set_num_threads(threads)
+
+
+def _float_path_operands(float_path_inputs, M, layout):
+    """(jax x, jax weight [K, N], torch x, torch weight [K, N]): the "t"
+    weights are the transpose of contiguous [N, K] codes on both sides."""
+    x, codes = float_path_inputs
+    c = codes[layout]
+    jw = jnp.asarray(c).T if layout == "t" else jnp.asarray(c)
+    tw = torch.from_numpy(c).T if layout == "t" else torch.from_numpy(c)
+    return jnp.asarray(x[:M]), jw, torch.from_numpy(x[:M]), tw
+
+
+@pytest.mark.parametrize("M,layout", FLOAT_PATH)
+def test_float_weight_path_bitwise_reference(float_path_inputs, M, layout):
+    """`ops.matmul_posit_weights` and `qdot` under the fused plan with
+    float activations (packed weights) on the CPU: bitwise the reference's
+    `ops.matmul_posit_weights` / `dispatch.qdot` at decode and prefill
+    rows and over the transposed head (the plain version of the float
+    GEMV is the decode and the same f32 matmul)."""
+    jx, jw, tx, tw = _float_path_operands(float_path_inputs, M, layout)
+    want = np.asarray(jops.matmul_posit_weights(jx, jw, jformats.P16_2))
+    got = tops.matmul_posit_weights(tx, tw, tformats.P16_2).numpy()
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    jp = JPolicy(weights=jformats.P16_2, execution="fused")
+    tp = TPolicy(weights=tformats.P16_2, execution="fused")
+    want = np.asarray(jdispatch.qdot(jx, jw, jp))
+    got = tdispatch.qdot(tx, tw, tp).numpy()
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    assert not any(tops.launch_counts().values())
+
+
+@pytest.mark.parametrize("M,layout", FLOAT_PATH)
+def test_prepared_float_weights_equal_separate_calls(float_path_inputs, M,
+                                                     layout, monkeypatch):
+    """Under the fused plan with float activations a `Prepared` weight's
+    operand is the codes themselves, and each qdot over it gives, bitwise,
+    what a separate call gives; on the CPU (as on the card above 8 rows)
+    its f32 decode is made once, by the first call that reads it."""
+    _, _, tx, tw = _float_path_operands(float_path_inputs, M, layout)
+    tp = TPolicy(weights=tformats.P16_2, execution="fused")
+    xs = [tx.to(torch.bfloat16), tx, tx.to(torch.bfloat16)]
+    want = [tdispatch.qdot(x, tw, tp) for x in xs]
+    decodes = []
+    real = tops.decode
+    monkeypatch.setattr(tops, "decode",
+                        lambda *a, **k: decodes.append(1) or real(*a, **k))
+    prep = tdispatch.Prepared(tw)
+    assert prep.operand(tp, torch.bfloat16) is tw
+    for x, h in zip(xs, want):
+        assert torch.equal(tdispatch.qdot(x, prep, tp), h)
+    # one decode per activation dtype (the operand key), none per call
+    assert len(decodes) == 2
+
+
 def _head_inputs(rng, plan, transpose, packed, dtype):
     B, D, V = 3, 48, 97
     x = rng.normal(0, 1, (B, D)).astype(np.float32)

@@ -256,6 +256,63 @@ def test_matmul_variant_by_shape_and_format(M, fmt_a, fmt_b, dtype, want):
     assert tpm.matmul_variant(M, fa, fb, dtype) == want
 
 
+def _weight_view(fmt_name, dtype, layout, K=40, N=24):
+    """Codes of fmt in `dtype` as [K, N]: contiguous ("kn"), the transpose
+    of contiguous [N, K] codes ("t"), or a strided view of neither kind."""
+    w = torch.zeros(N, K, dtype=dtype)
+    return {"kn": w.T.contiguous(), "t": w.T,
+            "strided": torch.zeros(K, 2 * N, dtype=dtype)[:, ::2]}[layout]
+
+
+@pytest.mark.parametrize("M", [1, 8, 9])
+@pytest.mark.parametrize("fmt_w,dtype,layout,want", [
+    ("P16_2", torch.int16, "kn", "p16_2"),
+    ("P16_2", torch.int16, "t", "p16_2_t"),
+    ("P16_2", torch.int16, "strided", "p16_2"),
+    ("P13_2", torch.int16, "kn", "posit"),
+    ("P8_2", torch.int8, "kn", "posit"),
+    ("P8_2", torch.int8, "t", "posit_t"),
+    ("P16_1", torch.int16, "t", "posit_t"),
+])
+def test_gemv_f_variant_by_rows_format_and_layout(M, fmt_w, dtype, layout,
+                                                  want):
+    """The float weight path picks its kernel from M, the weight format and
+    the layout alone: the float GEMV at most GEMV_MAX_M rows (the
+    compile-time P(16,2) decode for int16 P(16,2) codes, "_t" over the
+    transpose of contiguous [N, K] codes), K1 + torch.matmul ("decode")
+    above."""
+    fmt = _fmt_by_name(fmt_w)[1]
+    w = _weight_view(fmt_w, dtype, layout)
+    assert tpm.gemv_f_variant(M, fmt, w) == (want if M <= tpm.GEMV_MAX_M
+                                              else "decode")
+
+
+# (N, K): the tied heads (command-r-35b, gemma3-4b, command-r-plus-104b),
+# few row tiles, ragged and tiny shapes
+SPLIT_T_SHAPES = [(256000, 8192), (262144, 2560), (256000, 12288),
+                  (1024, 8192), (1000, 8190), (130, 517), (7, 1), (300, 0)]
+
+
+@pytest.mark.parametrize("N,K", SPLIT_T_SHAPES)
+def test_gemv_f_t_splits_cover_k_once_in_order(N, K):
+    """The transposed float GEMV's splits cover [0, K) once, in order, none
+    empty (K = 0: one empty split), in whole GEMV_T_SPAN-code steps, at
+    most GEMV_T_MAX_STEPS of them; row tiles times splits reach 3 blocks
+    per SM of an H100 wherever K has the steps (the aim is GEMV_BLOCKS)."""
+    ks, splits = tpm.split_k_t(N, K)
+    ranges = _split_ranges(K, ks)
+    assert len(ranges) == splits >= 1
+    assert ks % tpm.GEMV_T_SPAN == 0
+    assert ks <= tpm.GEMV_T_MAX_STEPS * tpm.GEMV_T_SPAN
+    assert ranges[0][0] == 0 and ranges[-1][1] == K
+    for (a0, a1), (b0, _) in zip(ranges, ranges[1:]):
+        assert a1 == b0 and a1 - a0 == ks
+    assert all(k1 > k0 for k0, k1 in ranges) or K == 0
+    tiles = -(-N // tpm.GEMV_T_ROWS)
+    steps = -(-K // tpm.GEMV_T_SPAN)
+    assert tiles * splits >= min(3 * 132, tiles * max(steps, 1))
+
+
 # every format of the port, and two whose split products overflow f32
 SPLIT_FORMATS = {"P8_0": True, "P8_1": True, "P8_2": True, "P10_2": True,
                  "P13_2": True, "P16_1": True, "P16_2": True,

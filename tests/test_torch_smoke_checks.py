@@ -156,3 +156,30 @@ def test_planted_faults_fail_the_sum_bound():
             chip_smoke._planted_faults("test", A, B, want,
                                        torch.full_like(bound, float("inf")))
 
+
+
+@pytest.mark.parametrize("layout", ["kn", "t"])
+def test_planted_faults_fail_the_float_gemv_bound(layout):
+    """The float GEMV's gate, `sum_bound(x, w, None, fmt)`: its plain
+    version passes, and both planted faults (the P(16,2) weights rounded
+    to bf16, the first K split left out) exceed it over [K, N] codes and
+    over the transpose of [N, K] codes; a bound no gap can pass trips the
+    check."""
+    from repro_torch.core.formats import P16_2
+    from repro_torch.kernels import posit_codec
+    from repro_torch.kernels import posit_matmul as pm
+    g = torch.Generator().manual_seed(6)
+    M, K, N = 4, 1024, 96
+    x = torch.randn(M, K, generator=g).to(torch.bfloat16)
+    w = posit_codec.encode(torch.randn(N, K, generator=g) / K ** 0.5, P16_2)
+    w = w.T if layout == "t" else w.T.contiguous()
+    xf, W = x.float(), posit_codec.decode(w, P16_2)
+    want = pm.posit_gemv_f(x, w, P16_2)
+    bound = pm.sum_bound(x, w, None, P16_2)
+    assert bool(((want - torch.matmul(xf, W)).abs() <= bound).all())
+    ks = (pm.split_k_t(N, K) if layout == "t" else pm.split_k(N, K))[0]
+    assert ks < K
+    chip_smoke._gemv_f_faults("test", xf, W, want, bound, ks)
+    with pytest.raises(SystemExit):
+        chip_smoke._gemv_f_faults("test", xf, W, want,
+                                  torch.full_like(bound, float("inf")), ks)
