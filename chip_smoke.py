@@ -9,7 +9,9 @@ minitron-8b at full width (4 of 32 layers) under paper_mixed fused; then
 serve gemma3-4b (12 of 34 layers) and command-r-plus-104b (2 of 64) at
 full width, command-r-35b over the dense KV cache, and the serving
 example; then train qwen3-moe-235b (1 of 94 layers) and deepseek-moe-16b
-(4 of 28) at full width, and run the remaining example twins.
+(4 of 28) at full width, and run the remaining example twins; then serve
+mamba2-1.3b at full width and all 48 layers, and the jamba-1.5-large and
+mamba2 smoke engines on the card against the CPU.
 
     python3 chip_smoke.py
 
@@ -208,6 +210,33 @@ Phases (any failure exits non-zero; no phase is caught):
      wm_sensitivity_study_torch.py, ptq_study_torch.py (20 steps) and
      serve_async_torch.py (2 + 1 requests, 4 tokens) on the card, in
      processes started together; each must exit 0.
+ 13. the SSM and hybrid families:
+     13a mamba2-1.3b at full width and depth (48 layers, d_model 2048,
+     d_inner 4096, 64 SSM heads of 64, state 128, vocab 50280, tied; no
+     cut), seeded random weights packed to P(16,2): its kernels at its
+     shapes (`_mamba_kernels`: the float GEMV over in_proj [2048, 8512] and
+     out_proj [4096, 2048] at M 4 and over the tied head's transpose, K1 at
+     in_proj, K2 re-encoding the head, each against its plain version and
+     timed); phase 5's queue greedy and sampled, the greedy again with
+     prefill interleaved (streams equal), a 2048-token prompt in chunks of
+     256; the launches against their formulas (`_ssm_path_checks`: 2 x 48
+     GEMV launches, one K2 and one `p16_2_t` a decode step, no K3 / K4 / K5
+     / K6 / K9); the SSD's chunk form chunked and as a recurrence against
+     the whole prompt with f32 activations within MAMBA_SSD_TOL of the
+     largest |logit| (bf16's gaps printed); where those gaps come from
+     (`_ssd_layer_gaps`: the residual's gap layer by layer, and at layer 0
+     in_proj by row groups against all rows at once, the SSD chunked
+     against whole on the same inputs and its recurrence against its
+     chunk form); one decode step profiled.
+     13b the jamba and mamba2 smoke engines (f32 activations) with the same
+     packed weights on the card and the CPU, greedy, 6 requests sharing a
+     prefix: equal streams; jamba's K5 (`simt`), K3, K4, K9 and GEMV
+     launches, mamba2's GEMV / K1 / K2 only, printed by variant; every
+     kernel the card run launched replayed at each signature the run
+     called it with, on copies of that call's inputs, against its plain
+     version (K1 / K2 bitwise, the GEMV and K9 within `sum_bound`, K3 / K5
+     within 2e-5, K4 tokens) with planted faults the limits must reject,
+     and timed; these records count the smoke runs' launches.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -277,7 +306,10 @@ def _device_ms(fn, launches: int, replays: int = 3) -> float:
 
 
 def _time_once_ms(fn) -> float:
+    """One call's time on the host clock ending in a synchronize, after
+    one untimed call (a first call pays for allocations and setup)."""
     import torch
+    fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     fn()
@@ -3713,6 +3745,857 @@ def _serve_example():
     print(f"10d example: exit 0 in {wall:.1f} s ({len(lines)} lines)")
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the SSM and hybrid families: mamba2-1.3b at full width and all
+# 48 layers; the jamba and mamba2 smoke engines on the card against the CPU
+# ---------------------------------------------------------------------------
+
+MAMBA_LONG = 2048       # 13a's long prompt, prefilled in chunks of ssm_chunk
+MAMBA_SSD_TOL = 1e-3    # |logit gap| / max |logit|, f32 activations
+# `_ssd_layer_gaps`' limits: the SSD's recurrence against its chunk form
+# over the largest |y| (the CPU parity tests' SSD_TOL), and layer 1's
+# residual gap, chunked vs whole, over its largest |value|: 5x the f32
+# reading (1.99e-6), two bf16 steps in bf16 (3.65e-3 read; in_proj's rows
+# over 256 at a time are not bitwise over 2048 on the card)
+MAMBA_RECURRENCE_TOL = 1e-5
+MAMBA_LAYER1_TOL = {"float32": 1e-5, "bfloat16": 2.0 ** -7}
+# 13a's main-path runs (each counted from 0): the kernel records of
+# `_mamba_kernels` count their launches, and no other record does
+MAMBA_RUNS = ("mamba2 greedy", "mamba2 sampled", "mamba2 long prompt")
+
+
+def _mamba_cfg():
+    from repro_torch import configs
+    from repro_torch.core.quant import policy_by_name
+    return configs.get("mamba2_1_3b").replace(
+        quant=policy_by_name("serve_fused_p16"))
+
+
+def _mamba_kernels(dev):
+    """The kernels of mamba2-1.3b's path at its shapes: the float GEMV over
+    a layer's in_proj [2048, 8512] and out_proj [4096, 2048] at M 4 with
+    bf16 activations and over the tied head's transpose [50280, 2048]^T,
+    each within `sum_bound(x, w, None, fmt)` of its plain version and
+    bitwise equal on a second call; K1 (`p16_2`) at in_proj (the prefill
+    chunk groups) and K2 (`p16_2`) re-encoding the f32 tied head (each
+    step), bitwise their plain versions.  Each is timed beside its plain
+    version, its bound and, for the GEMV, torch.matmul on pre-decoded f32.
+    Returns records whose launches are 13a's (`paths`)."""
+    import torch
+    from repro_torch.core import formats
+    from repro_torch.kernels import ops, posit_codec
+    from repro_torch.kernels import posit_matmul as pm
+    cfg = _mamba_cfg()
+    fmt, M = formats.P16_2, 4
+    D, Di, V = cfg.d_model, cfg.ssm_d_inner, cfg.vocab_size
+    proj = 2 * Di + 2 * cfg.ssm_state + cfg.ssm_heads
+    layer = ((D, proj), (Di, D))
+    g = torch.Generator(device=dev).manual_seed(17)
+    weights = {kn: posit_codec.encode(torch.randn(*kn, generator=g, device=dev)
+                                      / math.sqrt(kn[0]), fmt) for kn in layer}
+    head_f = torch.randn(V, D, generator=g, device=dev) / math.sqrt(D)
+    head = posit_codec.encode(head_f, fmt)
+    xs = {K: torch.randn(M, K, generator=g, device=dev).to(torch.bfloat16)
+          for K in (D, Di)}
+    err, per = 0.0, {}
+    for (K, N), w in [(kn, weights[kn]) for kn in layer] + [((D, V), head.T)]:
+        x = xs[K]
+        variant = pm.gemv_f_variant(M, fmt, w)
+        before = ops.launch_counts()[f"posit_gemv_f:{variant}"]
+        got = pm.posit_gemv_f(x, w, fmt)
+        _check(ops.launch_counts()[f"posit_gemv_f:{variant}"] == before + 1
+               and _bits_equal(pm.posit_gemv_f(x, w, fmt), got),
+               f"13: the float GEMV ({variant}) at K={K} N={N}, bitwise "
+               f"equal on a second call")
+        xf, W = x.to(torch.float32), ops.decode(w, fmt)
+        want = torch.matmul(xf, W)
+        gap = (got - want).abs()
+        _check(bool((gap <= pm.sum_bound(x, w, None, fmt)).all()),
+               f"13: the float GEMV within sum_bound at K={K} N={N}")
+        err = max(err, float(gap.max()))
+        ms = _device_ms(lambda: pm.posit_gemv_f(x, w, fmt), launches=5)
+        mm = _device_ms(lambda: torch.matmul(xf, W), launches=5)
+        plain = _time_once_ms(lambda: pm.posit_gemv_f_plain(x, w, fmt))
+        bound = _bound(K * N * 2 + M * K * 2 + M * N * 4, 2.0 * M * K * N)
+        per[(K, N)] = (ms, mm, plain, bound)
+        print(f"13 float GEMV M={M} K={K} N={N} ({variant}): ms {ms:.4f}, "
+              f"torch.matmul on decoded f32 {mm:.4f}, plain {plain:.3f}, "
+              f"bound_ms {bound[0]:.4f} ({bound[1]}), max_abs_err {err:.3g}")
+        del got, want, gap, W
+    layer_ms = _device_ms(lambda: [pm.posit_gemv_f(xs[K], weights[(K, N)], fmt)
+                                   for K, N in layer], launches=3)
+    layer_bound = _bound(sum(K * N * 2 + M * K * 2 + M * N * 4
+                             for K, N in layer),
+                         sum(2.0 * M * K * N for K, N in layer))
+    codes = weights[layer[0]]
+    _check(_bits_equal(posit_codec.decode(codes, fmt),
+                       posit_codec.decode_plain(codes, fmt)),
+           f"13: K1 p16_2 at {list(layer[0])}")
+    k1 = (_device_ms(lambda: posit_codec.decode(codes, fmt), launches=5),
+          _time_once_ms(lambda: posit_codec.decode_plain(codes, fmt)),
+          _bound(codes.numel() * (2 + 4), 0))
+    _check(_bits_equal(posit_codec.encode(head_f, fmt),
+                       posit_codec.encode_plain(head_f, fmt)),
+           f"13: K2 p16_2 at [{V}, {D}]")
+    k2 = (_device_ms(lambda: posit_codec.encode(head_f, fmt), launches=3),
+          _time_once_ms(lambda: posit_codec.encode_plain(head_f, fmt)),
+          _bound(head_f.numel() * (4 + 2), 0))
+    print(f"13 K1 p16_2 {list(layer[0])}: ms {k1[0]:.4f}, plain {k1[1]:.3f}, "
+          f"bound_ms {k1[2][0]:.4f}; K2 p16_2 [{V}, {D}]: ms {k2[0]:.4f}, "
+          f"plain {k2[1]:.3f}, bound_ms {k2[2][0]:.4f}")
+    del weights, head, head_f, codes
+    torch.cuda.empty_cache()
+    hms, hmm, hplain, hbound = per[(D, V)]
+    common = dict(paths=MAMBA_RUNS, replaces="src/repro/kernels/posit_codec.py:55")
+    gemv = dict(common, source="src/repro_torch/csrc/posit_gemv_f.cu",
+                max_abs_err=err, call_ms=None)
+    return [
+        dict(gemv, name="posit_gemv_f:p16_2 (mamba2-1.3b, M 4, a layer's "
+                        "in_proj and out_proj)",
+             counter="posit_gemv_f:p16_2", ms=layer_ms,
+             plain_ms=sum(per[kn][2] for kn in layer),
+             bound_ms=layer_bound[0], bound_by=layer_bound[1],
+             library_ms=sum(per[kn][1] for kn in layer),
+             shape=f"M=4 bf16 x {[list(kn) for kn in layer]} int16 P(16,2)"),
+        dict(gemv, name="posit_gemv_f:p16_2_t (mamba2-1.3b, M 4, the tied "
+                        "head's transpose)",
+             counter="posit_gemv_f:p16_2_t", ms=hms, plain_ms=hplain,
+             bound_ms=hbound[0], bound_by=hbound[1], library_ms=hmm,
+             shape=f"M=4 bf16 x [{V}, {D}]^T int16 P(16,2)"),
+        dict(common, name="posit_decode:p16_2 (mamba2-1.3b in_proj, prefill "
+                          "chunk groups)",
+             counter="posit_decode:p16_2",
+             source="src/repro_torch/csrc/posit_codec.cu", max_abs_err=0.0,
+             ms=k1[0], call_ms=None, plain_ms=k1[1], bound_ms=k1[2][0],
+             bound_by=k1[2][1], library_ms=None,
+             shape=f"{list(layer[0])} int16 P(16,2) -> f32"),
+        dict(common, name="posit_encode:p16_2 (mamba2-1.3b's tied head, "
+                          "re-encoded each step)",
+             counter="posit_encode:p16_2",
+             replaces="src/repro/kernels/posit_codec.py:78",
+             source="src/repro_torch/csrc/posit_codec.cu", max_abs_err=0.0,
+             ms=k2[0], call_ms=None, plain_ms=k2[1], bound_ms=k2[2][0],
+             bound_by=k2[2][1], library_ms=None,
+             shape=f"[{V}, {D}] f32 -> int16 P(16,2)")]
+
+
+def _ssm_path_checks(label, c, per_step, n_steps, engine, cfg):
+    """mamba2's launches: no attention, fused head or coded-activation
+    kernel; each decode step 2 x layers float GEMV launches (in_proj,
+    out_proj) and the unfused tied head (K2 re-encode + the GEMV's
+    transposed variant), no K1; over the run, each chunk group and step 2
+    x layers projections (the GEMV at <= 8 rows, K1 + torch.matmul above)
+    and one head, every launch on a compile-time variant."""
+    L = cfg.n_layers
+    for name in ("paged_attention", "paged_attention_mq", "prefill_attention",
+                 "decode_sample", "posit_matmul", "posit_matmul_grouped",
+                 "pdpu_matmul"):
+        _check(c.get(name, 0) == 0, f"'{label}': no {name} launch")
+    _check(per_step.get("posit_gemv_f:p16_2", 0) == 2 * L * n_steps
+           and per_step.get("posit_gemv_f:p16_2_t", 0) == n_steps
+           and per_step.get("posit_encode:p16_2", 0) == n_steps
+           and per_step.get("posit_decode", 0) == 0,
+           f"'{label}': {2 * L} GEMV launches (p16_2), one K2 and one "
+           f"p16_2_t a decode step, no K1")
+    groups = engine.stats["prefill_chunks"] + engine.stats["decode_steps"]
+    _check(c.get("posit_gemv_f:p16_2", 0) + c.get("posit_decode:p16_2", 0)
+           == 2 * L * groups
+           and c.get("posit_gemv_f:p16_2_t", 0) == groups
+           and c.get("posit_encode:p16_2", 0) == groups,
+           f"'{label}': {2 * L} projections and one head per chunk group "
+           f"and step ({groups})")
+    _check(c["posit_gemv_f"] == c.get("posit_gemv_f:p16_2", 0)
+           + c.get("posit_gemv_f:p16_2_t", 0)
+           and c["posit_decode"] == c.get("posit_decode:p16_2", 0)
+           and c["posit_encode"] == c.get("posit_encode:p16_2", 0),
+           f"'{label}': every GEMV, K1 and K2 launch on a compile-time "
+           f"variant")
+
+
+def _ssd_full_width(cfg, params, prompt, dev):
+    """The SSD's chunk form chunked and as a recurrence against the whole
+    prompt at full width, with f32 activations (bf16's gaps printed, not
+    gated): the S-token prompt prefilled in chunks of ssm_chunk, and its
+    first S - 1 tokens (the last chunk one short), against `api.prefill`
+    over the whole prompt at positions S - 1 and S - 2; then one decode
+    step of the last token after those S - 1 (the recurrence) against
+    position S - 1.  Each gap over the largest |logit| within
+    MAMBA_SSD_TOL."""
+    import torch
+    from repro_torch.models import api
+    S, Q = len(prompt), cfg.ssm_chunk
+    toks = torch.from_numpy(prompt[None]).to(dev)
+
+    def rel(got, want):
+        return float((got - want).abs().max() / want.abs().max())
+
+    for dtype in ("float32", "bfloat16"):
+        c = cfg.replace(dtype=dtype)
+        whole = api.prefill(params, {"tokens": toks}, c, device=dev)[0][0]
+        want = {S: whole[-1].clone(), S - 1: whole[-2].clone()}
+        del whole
+        gaps = {}
+        for n_tok in (S, S - 1):
+            cache = api.init_cache(c, 1, S, device=dev)
+            for lo in range(0, n_tok, Q):
+                logits, cache = api.prefill_chunk(
+                    params, toks[:, lo:min(lo + Q, n_tok)], cache, 0, c)
+            gaps[f"{n_tok} tokens chunked"] = rel(logits[0, 0], want[n_tok])
+        step = api.decode_step(params, toks[:, -1], cache, c)[0][0]
+        gaps["decode step (recurrence)"] = rel(step, want[S])
+        gated = dtype == "float32"
+        print(f"13a SSD at full width ({dtype} activations), gap over the "
+              f"largest |logit| against the whole prompt: "
+              + ", ".join(f"{k} {v:.3g}" for k, v in gaps.items())
+              + (f" (limit {MAMBA_SSD_TOL})" if gated else " (not gated)"))
+        if gated:
+            _check(max(gaps.values()) <= MAMBA_SSD_TOL,
+                   f"13a: the SSD's chunk form, chunked and as a recurrence, "
+                   f"within {MAMBA_SSD_TOL} of the largest |logit|")
+
+
+def _ssd_layer_gaps(cfg, params, prompt, dev):
+    """Where `_ssd_full_width`'s gaps come from, with f32 and bf16
+    activations.  (1) The residual stream's last row after each layer, the
+    S-token prompt run in chunks of ssm_chunk (states carried) against the
+    whole prompt, as a gap over the row's largest |value|.  (2) At layer 0
+    the two forms' differences apart: in_proj over the prompt's rows
+    ssm_chunk at a time against all at once (K1 + torch.matmul above 8
+    rows), and, on the same projections, the SSD (`ssd_forward`) whole
+    against chunk by chunk with its state carried (bitwise or not), and
+    its recurrence (`ssd_decode_step` over the last token after the first
+    S - 1) against the chunk form's last row, with layer 0's A_log and with
+    the last layer's (the largest decays of the stack-wide `arange1`).
+    The SSD must be bitwise and its recurrence within MAMBA_RECURRENCE_TOL,
+    layer 1 within MAMBA_LAYER1_TOL; deeper layers are printed (random
+    weights amplify layer 1's gap about 160x (f32) and 75x (bf16) over
+    48 layers, so no limit on the logits tells a fault from that growth).
+    Returns {dtype: (per-layer gaps, the layer-0 readings)}."""
+    import torch
+    from repro_torch.models import common, mamba
+    S, Q, L = len(prompt), cfg.ssm_chunk, cfg.n_layers
+    Di, N = cfg.ssm_d_inner, cfg.ssm_state
+    toks = torch.from_numpy(prompt[None]).to(dev)
+
+    def rel(got, want):
+        return float((got.float() - want.float()).abs().max()
+                     / want.float().abs().max())
+
+    found = {}
+    for dtype in ("float32", "bfloat16"):
+        c = cfg.replace(dtype=dtype)
+        x = common.embed_tokens(params["embed"], toks, c)
+        whole = []
+        for i in range(L):
+            x = x + mamba.mamba_block(mamba._layer(params, i), x, c)[0]
+            whole.append(x[0, -1].clone())
+        conv, ssm = [None] * L, [None] * L
+        for lo in range(0, S, Q):
+            x = common.embed_tokens(params["embed"], toks[:, lo:lo + Q], c)
+            chunked = []
+            for i in range(L):
+                out, conv[i], ssm[i] = mamba.mamba_block(
+                    mamba._layer(params, i), x, c, conv_state=conv[i],
+                    ssm_state=ssm[i])
+                x = x + out
+                chunked.append(x[0, -1].clone())
+        layers = [rel(a, b) for a, b in zip(chunked, whole)]
+        del x, conv, ssm, whole, chunked
+        p0 = mamba._layer(params, 0)
+        h = common.rms_norm(common.embed_tokens(params["embed"], toks, c),
+                            p0["ln"], upcast=not c.tp_bf16_reduce)
+        proj = common.qdot(h, p0["in_proj"], c.quant)
+        rows = torch.cat([common.qdot(h[:, lo:lo + Q], p0["in_proj"], c.quant)
+                          for lo in range(0, S, Q)], 1)
+        readings = {"in_proj rows": (bool(torch.equal(rows, proj)),
+                                     rel(rows, proj))}
+        _, xs, B_, C_, dt = mamba._split_proj(c, proj)
+        xBC = mamba._causal_conv(torch.cat([xs, B_, C_], -1), p0["conv_w"],
+                                 p0["conv_b"])[0]
+        xs, B_, C_ = xBC[..., :Di], xBC[..., Di:Di + N], xBC[..., Di + N:]
+        for i in (0, L - 1):
+            A_log, dt_bias = params["layers"]["A_log"][i], p0["dt_bias"]
+            y, s = mamba.ssd_forward(c, xs, B_, C_, dt, A_log, dt_bias)
+            state, ys = None, []
+            for lo in range(0, S, Q):
+                part = slice(lo, lo + Q)
+                yq, state = mamba.ssd_forward(
+                    c, xs[:, part], B_[:, part], C_[:, part], dt[:, part],
+                    A_log, dt_bias, state)
+                ys.append(yq)
+            bitwise = _bits_equal(torch.cat(ys, 1), y) and \
+                _bits_equal(state, s)
+            state = None
+            for lo in range(0, S - 1, Q):
+                part = slice(lo, min(lo + Q, S - 1))
+                state = mamba.ssd_forward(
+                    c, xs[:, part], B_[:, part], C_[:, part], dt[:, part],
+                    A_log, dt_bias, state)[1]
+            y1 = mamba.ssd_decode_step(
+                c, xs[:, -1].reshape(1, cfg.ssm_heads, cfg.ssm_head_dim),
+                B_[:, -1], C_[:, -1], dt[:, -1], A_log, dt_bias, state)[0]
+            readings[f"SSD, layer {i}'s A_log"] = (
+                bitwise, rel(y1, y[0, -1][None]))
+        del proj, rows, xs, B_, C_, dt, xBC, y, s, h
+        torch.cuda.empty_cache()
+        shown = sorted({n for n in (1, 2, 3, 4, 6, 8, 12, 16, 24, 32, 40)
+                        if n < L} | {L})
+        print(f"13a SSD gaps by layer ({dtype} activations), chunked vs "
+              f"whole, the residual's last row over its largest |value|: "
+              + ", ".join(f"layer {n} {layers[n - 1]:.3g}" for n in shown))
+        print(f"13a layer 0 ({dtype} activations): in_proj {S // Q} x "
+              f"{Q} rows vs {S} at once: bitwise "
+              f"{readings['in_proj rows'][0]}, gap "
+              f"{readings['in_proj rows'][1]:.3g}; "
+              + "; ".join(f"{k}: chunked vs whole bitwise {b}, recurrence vs "
+                          f"chunk form {g:.3g}" for k, (b, g)
+                          in readings.items() if k.startswith("SSD")))
+        for k, (bitwise, gap) in readings.items():
+            if k.startswith("SSD"):
+                _check(bitwise and gap <= MAMBA_RECURRENCE_TOL,
+                       f"13a ({dtype}): the {k}, chunked bitwise whole, its "
+                       f"recurrence within {MAMBA_RECURRENCE_TOL} of the "
+                       f"chunk form")
+        _check(layers[0] <= MAMBA_LAYER1_TOL[dtype],
+               f"13a ({dtype}): layer 1's residual, chunked vs whole, within "
+               f"{MAMBA_LAYER1_TOL[dtype]} of its largest |value|")
+        found[dtype] = (layers, readings)
+    return found
+
+
+def _mamba_phase(dev):
+    """13a: mamba2-1.3b at full width and all 48 layers, seeded random
+    weights packed to P(16,2): phase 5's queue greedy and sampled, the same
+    greedy with prefill interleaved (streams equal), a 2048-token prompt in
+    chunks of ssm_chunk, the SSD's forms against each other
+    (`_ssd_full_width`), launches against their formulas, one decode step
+    profiled.  Returns (launch counts by run, cfg, params, prompts)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import api, packing
+    cfg = _mamba_cfg()
+    print(f"mamba2 config: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"d_inner {cfg.ssm_d_inner}, {cfg.ssm_heads} SSM heads of "
+          f"{cfg.ssm_head_dim}, state {cfg.ssm_state}, conv {cfg.ssm_conv}, "
+          f"chunk {cfg.ssm_chunk}, vocab {cfg.vocab_size}, tied "
+          f"{cfg.tie_embeddings}, dtype {cfg.dtype}")
+    print("mamba2: reduced: {} (full width, 48 of 48 layers)")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = api.init(torch.Generator(device=dev).manual_seed(13), cfg,
+                      device=dev)
+    params["embed"].mul_(1.0 / math.sqrt(cfg.d_model))  # as phase 5
+    params = packing.pack_params(params, cfg)
+    _release()
+    torch.cuda.synchronize()
+    print(f"mamba2: init + pack {time.perf_counter() - t0:.3f} s, weights "
+          f"{packing.weight_bytes(params)} B, peak memory "
+          f"{torch.cuda.max_memory_allocated()} B")
+    rng = np.random.default_rng(13)
+    system = rng.integers(0, cfg.vocab_size, 64)
+    prompts = [np.concatenate([system, rng.integers(0, cfg.vocab_size, int(n))])
+               .astype(np.int32) for n in rng.integers(8, 57, 8)]
+    base = dict(max_seq=256, base_seed=1)
+    counts = {}
+
+    def main_path(label, prompts_, **kw):
+        ops.reset_launches()
+        streams, eng, per_step, n_steps = _run_engine(cfg, params, prompts_,
+                                                      label, **kw)
+        counts[label] = ops.launch_counts()
+        print(f"{label}: launches {json.dumps(counts[label])}")
+        _ssm_path_checks(label, counts[label], per_step, n_steps, eng, cfg)
+        return streams, eng
+
+    greedy, eng = main_path("mamba2 greedy", prompts, greedy=True, **base)
+    _check(not eng.paged and not eng.fused_decode and not eng.prefix_sharing
+           and eng.batched_prefill,
+           "13a: the SSM engine serves unpaged, unfused, batched prefill")
+    summary = eng.kv_cache_summary()
+    print(f"mamba2: decode state {summary['kv_bytes']} B for {eng.B} slots "
+          f"({summary['kv_bytes'] // (eng.B * cfg.n_layers)} B a slot and "
+          f"layer), metadata {summary['metadata_bytes']} B")
+    main_path("mamba2 sampled", prompts, greedy=False, temperature=0.8,
+              top_k=40, **base)
+    interleaved = _run_engine(cfg, params, prompts, "mamba2 interleaved greedy",
+                              greedy=True, prefill_chunks_per_step=1,
+                              **base)[0]
+    _check(_agreement(greedy, interleaved)[0] == 1.0,
+           "13a: interleaved prefill's greedy streams equal prefill at "
+           "admission")
+    long_prompt = np.random.default_rng(14).integers(
+        0, cfg.vocab_size, MAMBA_LONG).astype(np.int32)
+    _, eng = main_path("mamba2 long prompt", [long_prompt], greedy=True,
+                       max_seq=MAMBA_LONG + 16,
+                       prefill_buckets=(cfg.ssm_chunk, 1))
+    _check(eng.stats["prefill_chunks"] == MAMBA_LONG // cfg.ssm_chunk,
+           f"13a: the {MAMBA_LONG}-token prompt in "
+           f"{MAMBA_LONG // cfg.ssm_chunk} chunks of {cfg.ssm_chunk}")
+    _ssd_full_width(cfg, params, long_prompt, dev)
+    _ssd_layer_gaps(cfg, params, long_prompt, dev)
+    return counts, cfg, params, prompts
+
+
+# the kernel wrappers a main path reaches, (module of repro_torch.kernels,
+# function); 13b captures each smoke run's calls of them and replays each
+# against its plain version
+_WRAPPERS = (("posit_codec", "decode"), ("posit_codec", "encode"),
+             ("paged_attention", "paged_attention"),
+             ("paged_attention", "decode_sample"),
+             ("prefill_attention", "prefill_attention_paged"),
+             ("posit_matmul", "posit_gemv_f"),
+             ("posit_matmul", "posit_matmul_grouped"))
+
+
+@contextlib.contextmanager
+def _capture_calls(device_type: str = "cuda"):
+    """Within the block, each wrapper of `_WRAPPERS` called on a tensor of
+    `device_type` keeps a copy of its arguments, taken before the call (K5 writes
+    its pools in place), at the first call of each signature: the tensors'
+    shapes, dtypes and strides and the other arguments' values.  Yields
+    the list of (function name, bound arguments) it fills."""
+    import importlib
+    import inspect
+    import torch
+    calls, seen, saved = [], set(), []
+
+    def sig(v):
+        if isinstance(v, torch.Tensor):
+            return (tuple(v.shape), str(v.dtype), v.stride())
+        return repr(v)
+
+    def wrap(name, fn):
+        signature = inspect.signature(fn)
+
+        def wrapper(*args, **kw):
+            bound = signature.bind(*args, **kw)
+            bound.apply_defaults()
+            a = bound.arguments
+            first = next(iter(a.values()))
+            key = (name,) + tuple((k, sig(v)) for k, v in a.items())
+            if isinstance(first, torch.Tensor) and key not in seen \
+                    and first.device.type == device_type:
+                seen.add(key)
+                calls.append((name, {k: v.clone() if isinstance(
+                    v, torch.Tensor) else v for k, v in a.items()}))
+            return fn(*args, **kw)
+        return wrapper
+
+    for mod_name, fn_name in _WRAPPERS:
+        mod = importlib.import_module(f"repro_torch.kernels.{mod_name}")
+        saved.append((mod, fn_name, getattr(mod, fn_name)))
+        setattr(mod, fn_name, wrap(fn_name, getattr(mod, fn_name)))
+    try:
+        yield calls
+    finally:
+        for mod, fn_name, fn in saved:
+            setattr(mod, fn_name, fn)
+
+
+def _replay_codec(a, decode):
+    """K1 (decode) or K2 (encode) on captured arguments: bitwise its plain
+    version.  Returns (max |err|, ms, plain ms, bytes, ops, rate, library
+    ms, detail)."""
+    from repro_torch.kernels import posit_codec as pc
+    x, fmt = (a["codes"], a["fmt"]) if decode else (a["values"], a["fmt"])
+    fn, plain = ((pc.decode, pc.decode_plain) if decode
+                 else (pc.encode, pc.encode_plain))
+    got = fn(x, fmt)
+    _check(_bits_equal(got, plain(x, fmt)),
+           f"{'K1' if decode else 'K2'} bitwise its plain version at "
+           f"{list(x.shape)} {fmt}")
+    ms = _device_ms(lambda: fn(x, fmt), launches=5)
+    plain_ms = _time_once_ms(lambda: plain(x, fmt))
+    nbytes = x.numel() * (x.element_size() + got.element_size())
+    return 0.0, ms, plain_ms, nbytes, 0.0, F32_FLOP_PER_S, None, "bitwise"
+
+
+def _replay_gemv(a):
+    """The float GEMV on captured arguments: within `sum_bound(x, w, None,
+    fmt)` of its plain version (a limit `_gemv_f_faults` must fail),
+    bitwise equal on a second call; torch.matmul on the decoded weights
+    the library call."""
+    import torch
+    from repro_torch.kernels import posit_codec as pc
+    from repro_torch.kernels import posit_matmul as pm
+    x, w, fmt = a["x"], a["w_codes"], a["fmt_w"]
+    (M, K), N = x.shape, w.shape[1]
+    variant = pm.gemv_f_variant(M, fmt, w)
+    got = pm.posit_gemv_f(x, w, fmt)
+    _check(_bits_equal(pm.posit_gemv_f(x, w, fmt), got),
+           f"the float GEMV ({variant}) bitwise equal on a second call at "
+           f"M={M} K={K} N={N}")
+    want = pm.posit_gemv_f_plain(x, w, fmt)
+    bound = pm.sum_bound(x, w, None, fmt)
+    gap = (got - want).abs()
+    _check(bool((gap <= bound).all()),
+           f"the float GEMV ({variant}) within sum_bound at M={M} K={K} "
+           f"N={N}")
+    xf, W = x.to(torch.float32), pc.decode_plain(w, fmt)
+    ks = (pm.split_k_t(N, K) if variant.endswith("_t")
+          else pm.split_k(N, K))[0]
+    faults = _gemv_f_faults(f"float GEMV M={M} K={K} N={N}", xf, W, want,
+                            bound, ks)
+    ms = _device_ms(lambda: pm.posit_gemv_f(x, w, fmt), launches=5)
+    plain_ms = _time_once_ms(lambda: pm.posit_gemv_f_plain(x, w, fmt))
+    lib = _device_ms(lambda: torch.matmul(xf, W), launches=5)
+    nbytes = K * N * w.element_size() + M * K * x.element_size() + M * N * 4
+    return (float(gap.max()), ms, plain_ms, nbytes, 2.0 * M * K * N,
+            F32_FLOP_PER_S, lib,
+            f"{_units(gap, bound):.4g} units of sum_bound; planted: {faults}")
+
+
+def _replay_grouped(a):
+    """K9 on captured arguments: within `sum_bound` of its plain version
+    (a limit `_planted_faults` must fail); torch.bmm on the decoded stacks
+    the library call; the bound counts the codes of the experts holding a
+    row and the rows' products."""
+    import torch
+    from repro_torch.kernels import posit_codec as pc
+    from repro_torch.kernels import posit_matmul as pm
+    x, w, fa, fb = a["a"], a["b_codes"], a["fmt_a"], a["fmt_b"]
+    _check(a["fmt_out"] is None, "K9 replay: float output")
+    E, M, K = x.shape
+    N = w.shape[2]
+    got = pm.posit_matmul_grouped(x, w, fa, fb)
+    want = pm.posit_matmul_grouped_plain(x, w, fa, fb)
+    bound = pm.sum_bound(x, w, fa, fb)
+    gap = (got - want).abs()
+    _check(bool((gap <= bound).all()),
+           f"K9 within sum_bound at E={E} M={M} K={K} N={N}")
+    A = x.to(torch.float32) if fa is None else pc.decode_plain(x, fa)
+    W = pc.decode_plain(w, fb)
+    faults = _planted_faults(f"K9 at E={E} M={M} K={K} N={N}", A, W, want,
+                             bound)
+    ms = _device_ms(lambda: pm.posit_matmul_grouped(x, w, fa, fb),
+                    launches=5)
+    plain_ms = _time_once_ms(lambda: pm.posit_matmul_grouped_plain(
+        x, w, fa, fb))
+    lib = _device_ms(lambda: torch.bmm(A, W), launches=5)
+    rows = pm.occupied_rows_plain(x, fa)
+    nbytes = (int((rows > 0).sum()) * K * N * w.element_size()
+              + E * M * K * x.element_size() + E * M * N * 4)
+    return (float(gap.max()), ms, plain_ms, nbytes,
+            2.0 * int(rows.sum()) * K * N, F32_FLOP_PER_S, lib,
+            f"{int(rows.sum())} occupied rows; {_units(gap, bound):.4g} "
+            f"units of sum_bound; planted: {faults}")
+
+
+def _pages_as(pool, bt, fmt, dtype):
+    """A pool's pages in each slot's block-table order, decoded: [B, M *
+    page_size, F] in dtype."""
+    from repro_torch.kernels import posit_codec as pc
+    rows = pool[bt.long()]
+    rows = pc.decode_plain(rows, fmt) if fmt is not None else rows
+    return rows.reshape(bt.shape[0], -1, pool.shape[-1]).to(dtype)
+
+
+def _attention_close(got, want):
+    """The attention kernels' limits against their plain versions: 2e-5
+    in f32, one bf16 ulp in bf16."""
+    import torch
+    if got.dtype == torch.bfloat16:
+        return bool(torch.allclose(got.float(), want.float(), rtol=2.0 ** -7,
+                                   atol=1e-6))
+    return bool(torch.allclose(got, want, rtol=2e-5, atol=2e-5))
+
+
+def _replay_paged(a):
+    """K3 on captured arguments: finite and within 2e-5 of its plain
+    version, a limit two planted faults must fail (q scaled by 1 + 2^-10,
+    each slot's newest key left out); SDPA over the decoded pages with the
+    same mask the library call; the bound counts the keys this data
+    attends."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import paged_attention as pa
+    q, kp, vp, bt = a["q"], a["k_pages"], a["v_pages"], a["block_tables"]
+    ln, win, fmt = a["lengths"], a["window"], a["fmt_kv"]
+    _check(q.ndim == 3 and not a["partials"] and a["page_ok"] is None
+           and a["softcap_val"] == 0.0, "K3 replay: one token a slot")
+    B, Hq, Dh = q.shape
+    Hkv = kp.shape[-1] // Dh
+    got = pa.paged_attention(**a)
+    plain = dict((k, v) for k, v in a.items() if k != "t_block")
+    want = pa.paged_attention_plain(**plain)
+    _check(bool(torch.isfinite(got).all()) and _attention_close(got, want),
+           f"K3 within 2e-5 of its plain version at B={B} Hq={Hq} Hkv={Hkv} "
+           f"Dh={Dh}")
+    for fault, bad in (("q scaled by 1 + 2^-10", dict(plain, q=q * (
+            1 + 2.0 ** -10))), ("the newest key left out", dict(
+                plain, lengths=(ln - 1).clamp(min=0)))):
+        _check(not _attention_close(pa.paged_attention_plain(**bad), want),
+               f"K3: the limit rejects the planted fault '{fault}'")
+    ms = _device_ms(lambda: pa.paged_attention(**a), launches=20)
+    plain_ms = _time_once_ms(lambda: pa.paged_attention_plain(**plain))
+    M = bt.shape[1]
+    S = M * kp.shape[1]
+    kd, vd = (_pages_as(t, bt, fmt, torch.float32).reshape(B, S, Hkv, Dh)
+              .permute(0, 2, 1, 3).repeat_interleave(Hq // Hkv, dim=1)
+              for t in (kp, vp))
+    pos = torch.arange(S, device=q.device)
+    qp = ln.long()[:, None] - 1
+    mask = (pos[None] <= qp) & (qp - pos[None] < win.long())
+    lib = _device_ms(lambda: F.scaled_dot_product_attention(
+        q[:, :, None].float(), kd, vd, attn_mask=mask[:, None, None]),
+        launches=20)
+    keys = int(mask.sum())
+    nbytes = (2 * q.numel() * 4 + 2 * keys * Hkv * Dh * kp.element_size()
+              + bt.numel() * 4 + B * 4)
+    return (float((got - want).abs().max()), ms, plain_ms, nbytes,
+            4.0 * Hq * Dh * keys, F32_FLOP_PER_S, lib,
+            f"{keys} keys attended; planted faults rejected")
+
+
+def _replay_sample(a):
+    """K4 on captured arguments: each token the plain head + sampler's,
+    or a score within 1e-5 of the largest |logit| of it; the runner-up
+    token must fail that limit in some row."""
+    import torch
+    from repro_torch.kernels import paged_attention as pa
+    x, w, noise = a["x"], a["w"], a["noise"]
+    greedy, top_k, T = a["greedy"], a["top_k"], a["temperature"]
+    T = 1.0 if T is None else T
+    head = {k: a[k] for k in ("plan", "fmt_w", "transpose", "softcap_val")}
+    B, D = x.shape
+    V = w.shape[0] if a["transpose"] else w.shape[1]
+    tok = pa.decode_sample(**a)
+    logits = pa.head_logits_plain(x, w, **head)
+    want = pa.sample_logits(logits, noise, T, greedy=greedy, top_k=top_k)
+    l = logits if greedy else pa.scale_logits(logits, T)
+    if not greedy and 0 < top_k < V:
+        kth = torch.topk(l, top_k, dim=-1).values[..., -1:]
+        l = torch.where(l >= kth, l, torch.full_like(l, -1e30))
+    score = l if greedy else noise + l
+    tol = 1e-5 * float(logits.abs().max())
+    rows = torch.arange(B, device=x.device)
+    gap = (score[rows, want.long()] - score[rows, tok.long()]).abs()
+    _check(bool(((tok == want) | (gap <= tol)).all()),
+           f"K4 tokens at B={B} D={D} V={V} (greedy={greedy})")
+    second = torch.topk(score, 2, dim=-1).indices[:, 1]
+    _check(bool((score[rows, want.long()] - score[rows, second] > tol).any()),
+           "K4: the limit rejects the planted fault 'the runner-up token'")
+    ms = _device_ms(lambda: pa.decode_sample(**a), launches=5)
+    plain_ms = _time_once_ms(lambda: pa.decode_sample_plain(**a))
+    nbytes = (w.numel() * w.element_size() + x.numel() * x.element_size()
+              + (0 if greedy else noise.numel() * 4) + B * 4)
+    return (float(gap.max()), ms, plain_ms, nbytes, 2.0 * B * V * D,
+            F32_FLOP_PER_S, None, "tokens equal; planted fault rejected")
+
+
+def _replay_prefill(a):
+    """K5 on captured arguments (the pools as they were before the call):
+    pages bitwise and attention within 2e-5 (f32) or one bf16 ulp of its
+    plain version, a limit two planted faults must fail (q scaled by 1 +
+    2^-10, 2^-6 in bf16; the first KV head's chunk keys zeroed); SDPA over
+    the decoded history and the chunk with the same mask the library
+    call; the bound counts the history rows the window reaches, the rows
+    written and the (query, key) pairs this data attends."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import prefill_attention as pf
+    q, k, v, bt = a["q"], a["k"], a["v"], a["block_tables"]
+    kp0, vp0, st, fmt = a["k_pages"], a["v_pages"], a["starts"], a["fmt_kv"]
+    window, page_ok, act = int(a["window"][0]), a["page_ok"], q.dtype
+    _check(a["softcap_val"] == 0.0, "K5 replay: no softcap")
+    B, C, Hq, Dh = q.shape
+    Hkv, ps, M = k.shape[2], kp0.shape[1], bt.shape[1]
+
+    def fresh(**kw):
+        return dict(a, k_pages=kp0.clone(), v_pages=vp0.clone(), **kw)
+
+    got, kp, vp = pf.prefill_attention_paged(**fresh())
+    want, kp2, vp2 = pf.prefill_attention_paged_plain(**fresh())
+    _check(_bits_equal(kp[1:], kp2[1:]) and _bits_equal(vp[1:], vp2[1:]),
+           f"K5 page writes bitwise at B={B} C={C} Hq={Hq} Hkv={Hkv} Dh={Dh}")
+    _check(bool(torch.isfinite(got.float()).all())
+           and _attention_close(got, want),
+           f"K5 attention within its limit at B={B} C={C} Hq={Hq} Dh={Dh}")
+    k0 = k.clone()
+    k0[:, :, 0] = 0
+    scale = 1 + 2.0 ** (-10 if act == torch.float32 else -6)
+    for fault, kw in (("q scaled by 1 + eps", dict(q=(q * scale).to(act))),
+                      ("the first KV head's chunk keys zeroed", dict(k=k0))):
+        bad = pf.prefill_attention_paged_plain(**fresh(**kw))[0]
+        _check(not _attention_close(bad, want),
+               f"K5: the limit rejects the planted fault '{fault}'")
+    pools = fresh()
+    ms = _device_ms(lambda: pf.prefill_attention_paged(**pools), launches=10)
+    plain_ms = _time_once_ms(lambda: pf.prefill_attention_paged_plain(
+        **fresh()))
+    S_h = M * ps
+    hk, hv = (_pages_as(t, bt, fmt, act).reshape(B, S_h, Hkv, Dh)
+              for t in (kp0, vp0))
+    keys, vals = (torch.cat([h, c], 1).permute(0, 2, 1, 3).repeat_interleave(
+        Hq // Hkv, dim=1) for h, c in ((hk, k), (hv, v)))
+    hpos = torch.arange(S_h, device=q.device)[None]
+    kv_pos = torch.cat([torch.where(hpos < st[:, None].long(), hpos, -1),
+                        st[:, None].long()
+                        + torch.arange(C, device=q.device)], 1)
+    q_pos = st[:, None].long() + torch.arange(C, device=q.device)
+    mask = ((kv_pos[:, None, :] >= 0) & (q_pos[:, :, None] >= kv_pos[:, None])
+            & (q_pos[:, :, None] - kv_pos[:, None] < window))
+    lib = _device_ms(lambda: F.scaled_dot_product_attention(
+        q.permute(0, 2, 1, 3), keys, vals, attn_mask=mask[:, None]),
+        launches=10)
+    starts, table = st.tolist(), bt.tolist()
+    ok = page_ok.tolist() if page_ok is not None else [[1] * M] * B
+    hist = {(table[b][r // ps], r % ps) for b, s in enumerate(starts)
+            for r in range(max(0, s - window + 1), s)}
+    written = sum(1 for b, s in enumerate(starts) for j in range(C)
+                  if (s + j) // ps < M and ok[b][(s + j) // ps])
+    nbytes = (B * C * (2 * Hq + 2 * Hkv) * Dh * q.element_size()
+              + (2 * len(hist) + 2 * written) * Hkv * Dh * kp0.element_size())
+    pairs = sum(min(s + j + 1, window) for s in starts for j in range(C))
+    rate = BF16_FLOP_PER_S if act == torch.bfloat16 else F32_FLOP_PER_S
+    return (float((got.float() - want.float()).abs().max()), ms, plain_ms,
+            nbytes, 4.0 * pairs * Hq * Dh, rate, lib,
+            f"starts {starts}; planted faults rejected")
+
+
+# kernel counter -> (captured function, replay, source, the TPU kernel)
+_REPLAYS = {
+    "posit_decode": ("decode", lambda a: _replay_codec(a, True),
+                     "src/repro_torch/csrc/posit_codec.cu",
+                     "src/repro/kernels/posit_codec.py:55"),
+    "posit_encode": ("encode", lambda a: _replay_codec(a, False),
+                     "src/repro_torch/csrc/posit_codec.cu",
+                     "src/repro/kernels/posit_codec.py:78"),
+    "posit_gemv_f": ("posit_gemv_f", _replay_gemv,
+                     "src/repro_torch/csrc/posit_gemv_f.cu",
+                     "src/repro/kernels/posit_codec.py:55"),
+    "posit_matmul_grouped": ("posit_matmul_grouped", _replay_grouped,
+                             "src/repro_torch/csrc/posit_matmul_grouped.cu",
+                             "src/repro/kernels/posit_matmul.py:99"),
+    "paged_attention": ("paged_attention", _replay_paged,
+                        "src/repro_torch/csrc/paged_attention.cu",
+                        "src/repro/kernels/paged_attention.py:266"),
+    "decode_sample": ("decode_sample", _replay_sample,
+                      "src/repro_torch/csrc/decode_sample.cu",
+                      "src/repro/kernels/paged_attention.py:467"),
+    "prefill_attention": ("prefill_attention_paged", _replay_prefill,
+                          "src/repro_torch/csrc/prefill_attention.cu",
+                          "src/repro/kernels/prefill_attention.py:251"),
+}
+
+
+def _replay_smoke_calls(label, calls, counts):
+    """Every kernel a smoke run launched, held against its plain version
+    at each signature the run called it with (`_capture_calls`), each
+    variant the run launched among the replayed ones.  Returns one kernel
+    record a kernel, counting `label`'s launches (`paths`): ms, plain_ms,
+    bound_ms and library_ms the sums over the signatures (one call each),
+    bound_by the larger side of the bound's largest call."""
+    from repro_torch.kernels import ops
+    records = []
+    for kernel, (fn_name, replay, source, replaces) in _REPLAYS.items():
+        if not counts.get(kernel, 0):
+            continue
+        mine = [a for name, a in calls if name == fn_name]
+        before = ops.launch_counts()
+        rows = [replay(a) for a in mine]
+        after = ops.launch_counts()
+        launched = {k for k, n in counts.items()
+                    if k.startswith(kernel + ":") and n}
+        replayed = {k for k in launched if after[k] > before[k]}
+        _check(bool(mine) and replayed == launched,
+               f"13b {label}: {kernel} replayed at every variant the run "
+               f"launched ({sorted(launched)}; replayed {sorted(replayed)})")
+        bounds = [_bound(r[3], r[4], r[5]) for r in rows]
+        libs = [r[6] for r in rows]
+        for r, b in zip(rows, bounds):
+            print(f"13b {label} {kernel}: ms {r[1]:.4f}, plain_ms "
+                  f"{r[2]:.3f}, bound_ms {b[0]:.4f} ({b[1]}), library_ms "
+                  f"{'none' if r[6] is None else f'{r[6]:.4f}'}, max_abs_err "
+                  f"{r[0]:.3g}; {r[7]}")
+        records.append(dict(
+            name=f"{kernel} ({label}: {len(rows)} call signatures)",
+            counter=kernel, paths=(label,), source=source, replaces=replaces,
+            max_abs_err=max(r[0] for r in rows), ms=sum(r[1] for r in rows),
+            call_ms=None, plain_ms=sum(r[2] for r in rows),
+            bound_ms=sum(b[0] for b in bounds),
+            bound_by=max(bounds)[1],
+            library_ms=(None if None in libs else sum(libs))))
+    return records
+
+
+def _recurrent_smoke_on_card(dev):
+    """13b: the jamba and mamba2 smoke engines (serve_fused_p16, f32
+    activations) with the same packed weights on the card and on the CPU,
+    greedy, 6 requests sharing a 32-token prefix, 4 slots, 8 new tokens:
+    equal streams; the card run's launches by variant (jamba: K5 (SIMT,
+    f32), K3, K4, K9 and the GEMV; mamba2: the GEMV, K1 and K2, no
+    attention or fused head); every kernel the card run launched held
+    against its plain version at each signature the run called it with
+    (`_capture_calls`, `_replay_smoke_calls`).  Returns the card runs'
+    launch counts and their kernel records."""
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.core.quant import policy_by_name
+    from repro_torch.kernels import ops
+    from repro_torch.models import api, packing
+    from repro_torch.models.module import tree_map
+    from repro_torch.serve import Request, ServingEngine
+    counts, records = {}, []
+    for arch in ("jamba_1_5_large", "mamba2_1_3b"):
+        cfg = configs.get_smoke(arch).replace(
+            quant=policy_by_name("serve_fused_p16"))
+        params = packing.pack_params(api.init(
+            torch.Generator().manual_seed(5), cfg, device="cpu"), cfg)
+        rng = np.random.default_rng(5)
+        system = rng.integers(0, cfg.vocab_size, 32)
+        prompts = [np.concatenate([system, rng.integers(0, cfg.vocab_size,
+                                                        int(n))])
+                   .astype(np.int32) for n in rng.integers(4, 41, 6)]
+        streams, label = {}, f"{arch} smoke"
+        for where in ("cpu", "cuda"):
+            eng = ServingEngine(
+                cfg, params if where == "cpu" else tree_map(
+                    lambda t: t.to(dev), params), batch_slots=4, max_seq=128,
+                greedy=True, device=where)
+            for rid, p in enumerate(prompts):
+                eng.submit(Request(rid=rid, prompt=p, max_new_tokens=8))
+            ops.reset_launches()
+            with _capture_calls() as calls:
+                streams[where] = {r.rid: list(map(int, r.out_tokens))
+                                  for r in eng.run()}
+            if where == "cuda":
+                counts[label] = ops.launch_counts()
+        same, toks = _agreement(streams["cpu"], streams["cuda"])
+        print(f"13b {label}: streams card vs CPU: {same:.3f} identical, "
+              f"{toks:.3f} of tokens; stats "
+              f"{json.dumps({k: eng.stats[k] for k in ('shared_admissions', 'prefill_chunks', 'decode_steps')})}")
+        c = counts[label]
+        print(f"13b {label}: launches by variant " + json.dumps(
+            {k: v for k, v in c.items() if v}))
+        _check(same == 1.0, f"13b {label}: the card's greedy streams equal "
+                            f"the CPU's")
+        if arch == "jamba_1_5_large":
+            _check(eng.paged and eng.fused_decode
+                   and eng.stats["shared_admissions"] > 0,
+                   f"13b {label}: paged, fused decode, shared admissions")
+            for name, variant in (("prefill_attention", "simt"),
+                                  ("decode_sample", "p16_2"),
+                                  ("posit_matmul_grouped", "p16_2"),
+                                  ("posit_gemv_f", "p16_2")):
+                _check(c[name] > 0 and c.get(f"{name}:{variant}", 0) > 0,
+                       f"13b {label}: {name} launched ({variant})")
+            _check(c["paged_attention"] > 0,
+                   f"13b {label}: paged_attention launched")
+        else:
+            _check(c["posit_gemv_f"] > 0 and c["paged_attention"]
+                   == c["prefill_attention"] == c["decode_sample"] == 0,
+                   f"13b {label}: the GEMV, no attention or fused head")
+        del eng
+        _release()
+        records.extend(_replay_smoke_calls(label, calls, c))
+        del calls
+        _release()
+    return counts, records
+
+
 def _attribute_launches(kernels, runs):
     """Fill each kernel record's launches from the main-path runs' own
     counts (each from 0): launches_by_path, each run's count of the
@@ -3888,6 +4771,18 @@ def main() -> int:
         _train_small_reference(dev, arch, "11d")
         _release()
     _examples_on_card()
+    # ---- phase 13: mamba2-1.3b at full width and all 48 layers (its
+    # kernels at its shapes, serving, the SSD's forms, one step profiled);
+    # the jamba and mamba2 smoke engines on the card against the CPU
+    kernels.extend(_mamba_kernels(dev))
+    _release()
+    counts13, m_cfg, m_params, m_prompts = _mamba_phase(dev)
+    _profile(m_cfg, m_params, m_prompts, "mamba2", steps=1)
+    del m_params
+    _release()
+    c, recs = _recurrent_smoke_on_card(dev)
+    counts13.update(c)
+    kernels.extend(recs)
     # K3 splits every main path's key spans (tables of more than 2 pages)
     # and merges the partials: each launch ran the merge kernel
     for label, c in counts.items():
@@ -3905,7 +4800,7 @@ def main() -> int:
         _check(c["prefill_attention"] > 0
                and c["prefill_attention:tc"] == c["prefill_attention"],
                f"'{label}': every K5 launch took the tensor-core variant")
-    runs = dict(counts, **counts10, **train_runs)
+    runs = dict(counts, **counts10, **train_runs, **counts13)
     _attribute_launches(kernels, runs)
     keys = ("name", "route", "source", "replaces", "launches",
             "launches_by_path", "launches_by_variant", "max_abs_err", "ms",

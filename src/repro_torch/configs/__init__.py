@@ -3,9 +3,10 @@
 The registry holds the configurations the port runs: the dense
 `command_r_35b`, `command_r_plus_104b`, `gemma3_4b` (5:1 local:global
 sliding-window attention, qk-norm) and `minitron_8b` (the training
-example's default), and the two MoE models `qwen3_moe_235b` and
-`deepseek_moe_16b`; other names raise KeyError until they are ported
-(ROADMAP queue 1).  `get(name)` / `get_smoke(name)` /
+example's default), the two MoE models `qwen3_moe_235b` and
+`deepseek_moe_16b`, the SSM `mamba2_1_3b` and the hybrid
+`jamba_1_5_large`; the stub-frontend names (`hubert_xlarge`,
+`paligemma_3b`) raise KeyError until they are ported (ROADMAP queue 1).  `get(name)` / `get_smoke(name)` /
 `get_tiny_serving(name)` mirror the reference and return equal shapes;
 `shape_skips(name)` gives the assigned shape cells an arch does not run,
 with reasons, and `runnable_shapes(name)` the others.
@@ -15,7 +16,8 @@ from __future__ import annotations
 import importlib
 
 ARCH_NAMES = ("command_r_35b", "command_r_plus_104b", "gemma3_4b",
-              "minitron_8b", "qwen3_moe_235b", "deepseek_moe_16b")
+              "minitron_8b", "qwen3_moe_235b", "deepseek_moe_16b",
+              "jamba_1_5_large", "mamba2_1_3b")
 
 _ALIASES = {n.replace("_", "-"): n for n in ARCH_NAMES}
 
@@ -43,6 +45,9 @@ def get_tiny_serving(name: str, quant=None):
         "command_r_35b": dict(n_layers=1, d_model=16, n_heads=2,
                               n_kv_heads=1, head_dim=8, d_ff=32,
                               vocab_size=64),
+        "mamba2_1_3b": dict(n_layers=1, vocab_size=64),
+        "jamba_1_5_large": dict(n_layers=2, d_model=32, d_ff=48,
+                                moe_d_ff=48, vocab_size=64),
         "qwen3_moe_235b": dict(n_layers=1, d_model=32, n_experts=4,
                                top_k=2, moe_d_ff=16, vocab_size=64),
     }.get(_ALIASES.get(name, name), {})

@@ -1,5 +1,5 @@
 """Unified model API — dispatch by config family (PyTorch port of
-`repro.models.api`; the dense and MoE families).
+`repro.models.api`; the dense, MoE, SSM and hybrid families).
 
     param_specs(cfg)                                  -> tree[ParamSpec]
     init(generator, cfg, device)                      -> params
@@ -7,10 +7,12 @@
     prefill(params, batch, cfg, max_seq, device)      -> (logits, dense cache)
     input_specs(cfg, shape) / abstract_state(cfg)     -> meta tensors
     decode_step(params, tokens, cache, cfg, active=None) -> (logits, cache')
-    decode_and_sample(params, tokens, cache, cfg, ...) -> (tokens, cache')
+    decode_and_sample(params, tokens, cache, cfg, ..., active=None)
+                                                      -> (tokens, cache')
     decode_verify(params, tokens, cache, cfg, ...)    -> ([B, T] tokens, cache')
     prefill_chunk(_batched)(...)                      -> (logits, cache')
     cache_specs / init_cache                          -> paged or dense KV cache
+                                                         (+ recurrent states)
     sample_noise(generator, batch, vocab)             -> gumbel [B, V]
 
 Posit-packed parameters (`packing.pack_params`, inverted by
@@ -23,7 +25,7 @@ from typing import Optional
 
 import torch
 
-from . import common, moe, transformer
+from . import common, hybrid, mamba, moe, transformer
 from .config import ModelConfig, ShapeConfig
 from .module import abstract_params, init_params
 from .packing import (pack_manifest, pack_params,  # noqa: F401
@@ -31,7 +33,8 @@ from .packing import (pack_manifest, pack_params,  # noqa: F401
 from .paged import PagedLayout
 
 
-_FAMILIES = {"dense": transformer, "moe": moe}
+_FAMILIES = {"dense": transformer, "moe": moe, "ssm": mamba,
+             "hybrid": hybrid}
 
 
 def _mod(cfg: ModelConfig):
@@ -55,8 +58,8 @@ def init(generator: torch.Generator, cfg: ModelConfig, device="cuda"):
 def apply(params, batch, cfg: ModelConfig, **kw):
     """Whole-sequence forward (training): batch {"tokens": [B, S]} -> f32
     logits [B, S, V].  `kw` goes to the family's `apply`: `collect_cache`
-    (each layer's (k, v)) and, for the MoE family, `with_aux` (the
-    layers' mean load-balance loss, returned last)."""
+    (each attention layer's (k, v)) and, for the MoE and hybrid families,
+    `with_aux` (the layers' mean load-balance loss, returned last)."""
     return _mod(cfg).apply(params, batch, cfg, **kw)
 
 
@@ -89,7 +92,9 @@ def prefill(params, batch, cfg: ModelConfig, max_seq: Optional[int] = None,
             device="cuda"):
     """Whole-sequence prefill: batch {"tokens": [B, S]} (tensors or numpy,
     moved to `device`, where `params` must live) -> (f32 logits [B, S, V],
-    the dense KV cache [L, B, max(max_seq, S), Hkv*Dh] with length S)."""
+    the dense cache after the prompt, length S: KV rows [L, B, max(max_seq,
+    S), Hkv*Dh] and, for the SSM and hybrid families, the recurrent
+    states)."""
     from repro_torch import resolve_device
     dev = resolve_device(device)
     batch = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
@@ -114,13 +119,15 @@ def sample_noise(generator: torch.Generator, batch: int, vocab_size: int,
 
 
 def decode_and_sample(params, tokens, cache, cfg: ModelConfig, noise,
-                      temperature, *, greedy: bool, top_k: int):
+                      temperature, *, greedy: bool, top_k: int, active=None):
     """One decode step with the fused head + sampler: ([B] int32 tokens,
     cache'), the tokens equal to `decode_step` followed by the engine
-    sampler.  noise: [B, V] f32 gumbel rows (None when greedy)."""
+    sampler.  noise: [B, V] f32 gumbel rows (None when greedy); `active`
+    as `decode_step`'s."""
     spec = common.SampleSpec(noise=noise, temperature=temperature,
                              greedy=greedy, top_k=top_k)
-    return _mod(cfg).decode_step(params, tokens, cache, cfg, sample=spec)
+    return _mod(cfg).decode_step(params, tokens, cache, cfg, sample=spec,
+                                 active=active)
 
 
 def decode_verify(params, tokens, cache, cfg: ModelConfig, noise,

@@ -17,7 +17,7 @@ import torch
 class ParamSpec(NamedTuple):
     shape: Tuple[int, ...]
     logical_axes: Tuple[Optional[str], ...]
-    init: str = "normal"        # normal | zeros | ones | fan_in | embed
+    init: str = "normal"  # normal | zeros | ones | fan_in | embed | arange1
     dtype: Any = torch.float32
 
 
@@ -51,6 +51,11 @@ def _init_leaf(s: ParamSpec, generator: torch.Generator, device):
     if s.init.startswith("const:"):
         return torch.full(s.shape, float(s.init.split(":")[1]), dtype=s.dtype,
                           device=device)
+    if s.init == "arange1":  # log(1..n) over the whole stack (Mamba A_log)
+        n = int(np.prod(s.shape))
+        out = torch.log(torch.arange(1, n + 1, dtype=torch.float32,
+                                     device=device))
+        return out.reshape(s.shape).to(s.dtype)
     raise ValueError(f"unknown init '{s.init}'")
 
 

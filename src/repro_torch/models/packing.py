@@ -1,14 +1,15 @@
 """One-shot param packing: float weights -> posit-code weight tensors
-(PyTorch port of `repro.models.packing`, dense and MoE families).
+(PyTorch port of `repro.models.packing`).
 
 Only the weights consumed through the GEMM dispatch layer pack (the
 attention and MLP projections, the routed expert stacks and shared
-experts of a MoE, and an untied head); norms, routers and the embedding,
-read by indexing, stay float.  Packing is one rounding per
-weight (posit encode), identical to the reference's `pack_params`; the
-encode runs through `kernels.ops.encode` (K2 on CUDA), one layer at a
-time so the transient stays one layer wide; `unpack_params` decodes the
-codes back (K1 on CUDA).
+experts of a MoE, the SSM in / out projections, and an untied head);
+norms, routers, conv taps, the SSM scan's parameters and the embedding,
+read by indexing, stay float.  Packing is one rounding per weight (posit
+encode), identical to the reference's `pack_params`; the encode runs
+through `kernels.ops.encode` (K2 on CUDA), one layer (or hybrid block) at
+a time so the transient stays that wide; `unpack_params` decodes the codes
+back (K1 on CUDA).
 
 `params_from_numpy` carries a parameter tree of the JAX package (leaves
 as numpy arrays, float masters or packed codes) over to the port.
@@ -30,7 +31,9 @@ _ATTN_NAMES = ("wq", "wk", "wv", "wo")
 _MLP_NAMES = ("wi_gate", "wi_up", "wo_mlp")
 _EXPERT_NAMES = ("we_gate", "we_up", "we_down")   # stacked: qdot_grouped
 _SHARED_EXPERT_NAMES = ("ws_gate", "ws_up", "ws_down")
-_PORTED_FAMILIES = ("dense", "moe")
+_SSM_NAMES = ("in_proj", "out_proj")
+_PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+_STACKS = ("layers", "blocks")
 
 
 def packable_paths(cfg: ModelConfig) -> Tuple[Tuple[str, ...], ...]:
@@ -39,13 +42,22 @@ def packable_paths(cfg: ModelConfig) -> Tuple[Tuple[str, ...], ...]:
         raise NotImplementedError(
             f"param packing for family '{cfg.family}' is not ported yet "
             f"(have {_PORTED_FAMILIES}; ROADMAP queue 1)")
-    if cfg.family == "moe":
-        names = _ATTN_NAMES + _EXPERT_NAMES
-        if cfg.n_shared_experts:
-            names += _SHARED_EXPERT_NAMES
+    if cfg.family == "hybrid":
+        # jamba-style blocks: attention, mamba, dense-FFN and MoE sub-trees
+        paths = [("blocks", "attn", n) for n in _ATTN_NAMES]
+        paths += [("blocks", "mamba", n) for n in _SSM_NAMES]
+        paths += [("blocks", "ffn", n) for n in _MLP_NAMES]
+        paths += [("blocks", "moe", n) for n in _EXPERT_NAMES]
     else:
-        names = _ATTN_NAMES + _MLP_NAMES
-    paths = [("layers", n) for n in names]
+        if cfg.family == "moe":
+            names = _ATTN_NAMES + _EXPERT_NAMES
+            if cfg.n_shared_experts:
+                names += _SHARED_EXPERT_NAMES
+        elif cfg.family == "ssm":
+            names = _SSM_NAMES
+        else:
+            names = _ATTN_NAMES + _MLP_NAMES
+        paths = [("layers", n) for n in names]
     if not cfg.tie_embeddings:
         paths.append(("head",))
     return tuple(paths)
@@ -79,12 +91,13 @@ def _fmt(cfg: ModelConfig, fmt: PositFormat, what: str) -> PositFormat:
 
 def pack_params(params, cfg: ModelConfig, fmt: PositFormat = None):
     """Replace every packable float weight with posit codes (int8/int16).
-    Layer-stacked leaves [L, ...] encode one layer at a time."""
+    Stacked leaves ([L, ...] layers, [nb, ...] hybrid blocks) encode one
+    entry of the stack at a time."""
     fmt = _fmt(cfg, fmt, "pack_params")
     packed = _copy_tree(params)
     for path in packable_paths(cfg):
         leaf = _get(params, path)
-        if path[0] == "layers":
+        if path[0] in _STACKS:
             codes = torch.empty(leaf.shape, dtype=storage_dtype(fmt),
                                 device=leaf.device)
             for i in range(leaf.shape[0]):
@@ -98,13 +111,13 @@ def pack_params(params, cfg: ModelConfig, fmt: PositFormat = None):
 def unpack_params(params, cfg: ModelConfig, fmt: PositFormat = None,
                   dtype=torch.float32):
     """Inverse of pack_params: decode every code leaf back to float values
-    of `dtype` (K1 on CUDA; decoded to f32, then cast).  Layer-stacked
-    leaves decode one layer at a time."""
+    of `dtype` (K1 on CUDA; decoded to f32, then cast).  Stacked leaves
+    decode one entry of the stack at a time."""
     fmt = _fmt(cfg, fmt, "unpack_params")
     out = _copy_tree(params)
     for path in packable_paths(cfg):
         leaf = _get(params, path)
-        if path[0] == "layers":
+        if path[0] in _STACKS:
             vals = torch.empty(leaf.shape, dtype=dtype, device=leaf.device)
             for i in range(leaf.shape[0]):
                 vals[i] = ops.decode(leaf[i], fmt).to(dtype)
@@ -142,7 +155,8 @@ def weight_bytes(params) -> int:
 def params_from_numpy(tree, cfg: ModelConfig, device="cuda"):
     """The reference's parameter tree (nested dicts of numpy arrays, float
     masters or packed codes) -> the port's parameters on `device`.  Leaf
-    names and layouts are kept ([L, D, N] stacks, embed [V, D]); every leaf
+    names and layouts are kept ([L, D, N] stacks, a hybrid's [nb, ...]
+    blocks, embed [V, D]); every leaf
     the config's param_specs names must be present."""
     from repro_torch import resolve_device
     from . import api

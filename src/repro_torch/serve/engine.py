@@ -66,6 +66,18 @@ no allocator, no prefix sharing, no fused prefill or fused decode (the
 dense attention runs outside the kernels, as in the reference) and no
 speculation.
 
+Recurrent families (SSM, hybrid) carry per-slot conv / SSM state rows
+beside any KV.  A slot's rows are zeroed at admission (prefill seeds
+them) and a decode call writes only the decoding slots' rows, so a slot
+filling between steps keeps its own.  An SSM cache has no pages: the
+engine serves it unpaged whatever `paged` says.  Under prefix sharing a
+hybrid registers a snapshot of the slot's states with each page whose
+end is a chunk boundary; a request maps a shared prefix only up to such
+a page and starts from its snapshot (no partially-filled tail pages).
+Recurrent state cannot roll back a rejected draft, so `speculate_k`
+raises for these families, and bucket sizes the SSD's chunk length does
+not divide are dropped.
+
 Not ported yet (raises NotImplementedError naming ROADMAP): sharded pools
 (`mesh`).
 """
@@ -171,6 +183,7 @@ class PageAllocator:
 
 
 _FREE, _PREFILL, _DECODE = 0, 1, 2
+_META = ("k", "v", "length", "block_table")
 
 
 class ServingEngine:
@@ -224,17 +237,6 @@ class ServingEngine:
         if fused_decode is not None:
             q = dataclasses.replace(q, fused_decode=bool(fused_decode))
         cfg = dataclasses.replace(cfg, quant=q)
-        if speculate_k:
-            if speculate_k < 2:
-                raise ValueError("speculate_k must be >= 2 (k=1 is plain "
-                                 "decode); pass 0 to disable speculation")
-            if not paged:
-                raise ValueError("speculative decoding requires the paged "
-                                 "KV cache (draft and verify must address "
-                                 "the same posit-coded pages)")
-            if not hasattr(api._mod(cfg), "decode_verify"):
-                raise NotImplementedError(
-                    f"family {cfg.family!r} has no k-token verify step")
         if mesh is not None:
             raise NotImplementedError(
                 "kv_pages-sharded serving (mesh=...) is not ported yet "
@@ -251,9 +253,33 @@ class ServingEngine:
         self.top_k = int(top_k)
         self.base_seed = int(base_seed)
         self.prefill_chunks_per_step = int(prefill_chunks_per_step)
-        self.prefill_buckets = tuple(sorted(
-            {int(b) for b in prefill_buckets if b >= 1} | {1}, reverse=True))
-        self.paged = bool(paged)
+        # what the family's cache holds when offered pages: KV pages (an
+        # SSM cache has none, and is served unpaged whatever `paged` says),
+        # and rows with a batch axis beside the KV (recurrent conv / SSM
+        # state)
+        offered = api.cache_specs(cfg, batch_slots, max_seq,
+                                  PagedLayout.for_slots(batch_slots, max_seq,
+                                                        max_seq))
+        self.paged = bool(paged) and "block_table" in offered
+        self._recurrent = any(name not in _META and "batch" in s.logical_axes
+                              for name, s in offered.items())
+        if speculate_k:
+            if speculate_k < 2:
+                raise ValueError("speculate_k must be >= 2 (k=1 is plain "
+                                 "decode); pass 0 to disable speculation")
+            if not self.paged:
+                raise ValueError("speculative decoding requires the paged "
+                                 "KV cache (draft and verify must address "
+                                 "the same posit-coded pages)")
+            if self._recurrent:
+                raise ValueError(
+                    "speculative decoding is limited to pure-attention "
+                    "paged families: recurrent (conv/SSM) state cannot be "
+                    "rolled back when a draft token is rejected")
+            if not hasattr(api._mod(cfg), "decode_verify"):
+                raise NotImplementedError(
+                    f"family {cfg.family!r} has no k-token verify step")
+        self.prefill_buckets = self._valid_buckets(prefill_buckets)
         self.layout = None
         if self.paged:
             ps = self._resolve_page_size(page_size, max_seq)
@@ -261,6 +287,12 @@ class ServingEngine:
                                                 n_pages)
         self.cache = api.init_cache(cfg, batch_slots, max_seq, self.layout,
                                     device=self.device)
+        # batch-dim index per cache leaf (page pools have none)
+        specs = api.cache_specs(cfg, batch_slots, max_seq, self.layout)
+        self._state_bdim = {
+            name: (s.logical_axes.index("batch")
+                   if "batch" in s.logical_axes else None)
+            for name, s in specs.items()}
         self.n_shards = 1
         self.allocator = (PageAllocator(self.layout.n_pages) if self.paged
                           else None)
@@ -303,12 +335,13 @@ class ServingEngine:
         self.queue: List[Request] = []
         self.done: List[Request] = []
 
-        # prefix index: digest(prompt token prefix) -> page; _page_keys /
+        # prefix index: digest(prompt token prefix) -> (page, the slot's
+        # recurrent states after that prefix or None); _page_keys /
         # _frozen support eviction and copy-on-write decisions; _held are
         # pages a retiring request left behind because a queued request's
         # prefix still matches them (the engine owns their last reference
         # until that request admits or leaves the queue)
-        self.prefix_index: Dict[bytes, int] = {}
+        self.prefix_index: Dict[bytes, tuple] = {}
         self._page_keys: Dict[int, set] = {}
         self._frozen: Dict[int, int] = {}
         self._held: set = set()
@@ -339,6 +372,17 @@ class ServingEngine:
             self._draft_cfg = dataclasses.replace(cfg, quant=dq)
             self.draft_params = params if draft_params is None else \
                 draft_params
+
+    def _valid_buckets(self, buckets):
+        """Descending chunk sizes; 1 is always included (exact prompt
+        decomposition), and for recurrent families (an SSD in their
+        layers) sizes the SSD cannot chunk are dropped (a chunk C needs C %
+        min(ssm_chunk, C) == 0)."""
+        out = {int(b) for b in buckets if b >= 1} | {1}
+        if self._recurrent:
+            q = self.cfg.ssm_chunk
+            out = {b for b in out if b <= q or b % q == 0}
+        return tuple(sorted(out, reverse=True))
 
     def _resolve_page_size(self, requested: Optional[int],
                            max_seq: int) -> int:
@@ -412,9 +456,9 @@ class ServingEngine:
 
     def kv_cache_summary(self) -> dict:
         """Decode-state storage split: `kv_bytes` is the K/V payload (pages
-        or dense rows, at code width when posit-coded), `metadata_bytes` the
-        positions + block tables; a paged engine adds the bytes of the pages
-        in use and at the peak."""
+        or dense rows, at code width when posit-coded) plus any conv / SSM
+        state, `metadata_bytes` the positions + block tables; a paged engine
+        adds the bytes of the pages in use and at the peak."""
         kv = meta = 0
         for name, leaf in self.cache.items():
             nbytes = leaf.numel() * leaf.element_size()
@@ -425,7 +469,9 @@ class ServingEngine:
         out = {"kv_bytes": kv, "metadata_bytes": meta,
                "total_bytes": kv + meta}
         if self.paged:
-            page_b = kv // self.layout.n_pages
+            pools = (self.cache["k"], self.cache["v"])
+            page_b = sum(t.numel() * t.element_size()
+                         for t in pools) // self.layout.n_pages
             out["kv_bytes_in_use"] = self.pages_in_use * page_b
             out["kv_bytes_peak"] = self.allocator.peak_in_use * page_b
         return out
@@ -599,8 +645,9 @@ class ServingEngine:
         lengths = (self.lengths if lengths is None else lengths).copy()
         if mask is not None:
             lengths[~mask] = 0
-        cache = {"k": self.cache["k"], "v": self.cache["v"],
-                 "length": torch.from_numpy(lengths).to(self.device)}
+        cache = {name: leaf for name, leaf in self.cache.items()
+                 if name not in ("length", "block_table")}
+        cache["length"] = torch.from_numpy(lengths).to(self.device)
         if self.paged:
             bts = self.block_tables.copy()
             if mask is not None:
@@ -680,13 +727,14 @@ class ServingEngine:
         req._prefix_digests = (ps, full, whole)
         return full, whole
 
-    def _put_index(self, key: bytes, page: int, frozen: int):
-        """Register a page for the token prefix hashed by `key`; `frozen`
-        is the first position holders may still write (everything below is
+    def _put_index(self, key: bytes, page: int, frozen: int, state=None):
+        """Register a page (and the slot's recurrent states after the
+        prefix, or None) for the token prefix hashed by `key`; `frozen` is
+        the first position holders may still write (everything below is
         trusted by sharers and must copy-on-write)."""
         if key in self.prefix_index:
             return  # first registration wins; duplicates are identical KV
-        self.prefix_index[key] = page
+        self.prefix_index[key] = (page, state)
         self._page_keys.setdefault(page, set()).add(key)
         self._frozen[page] = max(self._frozen.get(page, 0), frozen)
 
@@ -697,10 +745,37 @@ class ServingEngine:
                 self.prefix_index.pop(key, None)
             self._frozen.pop(p, None)
 
+    def _snapshot_state(self, slot: int):
+        """A copy of the slot's recurrent (conv / SSM) rows on the device,
+        or None for pure-attention families."""
+        out = {}
+        for name, leaf in self.cache.items():
+            bdim = self._state_bdim.get(name)
+            if name in _META or bdim is None:
+                continue
+            out[name] = leaf.select(bdim, slot).clone()
+        return out or None
+
+    def _restore_state(self, slot: int, state: dict):
+        for name, rows in state.items():
+            self.cache[name].select(self._state_bdim[name], slot).copy_(rows)
+
+    def _reset_slot_state(self, slot: int):
+        """Zero the slot's rows of every leaf with a batch dim but the
+        metadata (conv / SSM states and dense KV rows are seeded by
+        prefill: no stale value of an earlier request may leak)."""
+        for name, leaf in self.cache.items():
+            bdim = self._state_bdim.get(name)
+            if name in ("length", "block_table") or bdim is None:
+                continue
+            leaf.select(bdim, slot).zero_()
+
     def _register_pages(self, slot: int):
         """Publish the slot's freshly prompt-filled pages to the prefix
         index (after every prefill chunk, while cursor <= prompt length, so
-        every registered page holds prompt KV only)."""
+        every registered page holds prompt KV only).  A recurrent family's
+        states ride along with the page a chunk ends on exactly; pages that
+        end inside a chunk become links without states."""
         if not self.prefix_sharing:
             return
         req = self.slot_req[slot]
@@ -708,11 +783,14 @@ class ServingEngine:
         cur = int(self.slot_cursor[slot])
         full = cur // ps
         digests, full_digest = self._prompt_digests(req)
+        snap = (self._snapshot_state(slot)
+                if self._recurrent and cur % ps == 0 and full else None)
         for i in range(int(self._slot_registered[slot]), full):
             self._put_index(digests[i], int(self.block_tables[slot, i]),
-                            (i + 1) * ps)
+                            (i + 1) * ps,
+                            snap if (i + 1) * ps == cur else None)
         self._slot_registered[slot] = full
-        if cur == len(req.prompt) and cur % ps:
+        if cur == len(req.prompt) and cur % ps and not self._recurrent:
             # the partially-filled tail page: exact-duplicate prompts map
             # it too and copy-on-write their divergence
             self._put_index(full_digest,
@@ -721,22 +799,25 @@ class ServingEngine:
     def _tail_shareable(self, n: int) -> bool:
         """May a request of prompt length n map an exact-duplicate donor's
         partially-filled tail page?  Position n-1 must be a boundary of its
-        own chunk decomposition (the condition _lookup_prefix enforces)."""
+        own chunk decomposition (the condition _lookup_prefix enforces),
+        and recurrent families need a state snapshot, which partial pages
+        never carry."""
         ps = self.layout.page_size
-        return n % ps != 0 and (n - 1) in {
-            int(t) for t in np.cumsum(self._chunk_sizes(n))}
+        return (not self._recurrent and n % ps != 0 and (n - 1) in {
+            int(t) for t in np.cumsum(self._chunk_sizes(n))})
 
-    def _index_chain(self, req: Request) -> List[int]:
-        """Pages the index holds for the request's full-page prefixes, in
-        order up to the first miss; at most (n-1) // page_size of them, so
-        at least one prompt token is left to prefill."""
+    def _index_chain(self, req: Request) -> List[tuple]:
+        """Index entries (page, state) for the request's full-page
+        prefixes, in order up to the first miss; at most (n-1) //
+        page_size of them, so at least one prompt token is left to
+        prefill."""
         digests, _ = self._prompt_digests(req)
         chain = []
         for key in digests[:(len(req.prompt) - 1) // self.layout.page_size]:
-            page = self.prefix_index.get(key)
-            if page is None:
+            entry = self.prefix_index.get(key)
+            if entry is None:
                 break
-            chain.append(page)
+            chain.append(entry)
         return chain
 
     def _chain_pages(self, req: Request) -> set:
@@ -744,11 +825,11 @@ class ServingEngine:
         (full-page chain plus the exact-duplicate tail page)."""
         n = len(req.prompt)
         chain = self._index_chain(req)
-        out = set(chain)
+        out = {page for page, _ in chain}
         if self._tail_shareable(n) and len(chain) == n // self.layout.page_size:
-            page = self.prefix_index.get(self._prompt_digests(req)[1])
-            if page is not None:
-                out.add(page)
+            entry = self.prefix_index.get(self._prompt_digests(req)[1])
+            if entry is not None:
+                out.add(entry[0])
         return out
 
     def _wanted_by_queue(self) -> set:
@@ -778,24 +859,27 @@ class ServingEngine:
 
     def _lookup_prefix(self, req: Request):
         """Longest shareable prompt prefix for `req` from the index:
-        (shared pages, n_shared_tokens, partial).  Sharing stops at a
-        boundary of the request's own chunk decomposition and leaves at
+        (shared pages, n_shared_tokens, state, partial).  Sharing stops at
+        a boundary of the request's own chunk decomposition, leaves at
         least one prompt token to prefill (the engine samples from its
-        logits)."""
+        logits) and, for recurrent families, needs a state snapshot at the
+        boundary."""
         if not self.prefix_sharing:
-            return [], 0, False
+            return [], 0, None, False
         n = len(req.prompt)
         ps = self.layout.page_size
         bounds = set(int(t) for t in np.cumsum(self._chunk_sizes(n)))
         chain = self._index_chain(req)
-        best = ([], 0, False)
-        for i in range(len(chain)):
-            if (i + 1) * ps in bounds:
-                best = (chain[:i + 1], (i + 1) * ps, False)
+        best = ([], 0, None, False)
+        for i, (_, state) in enumerate(chain):
+            t = (i + 1) * ps
+            if t in bounds and (state is not None or not self._recurrent):
+                best = ([p for p, _ in chain[:i + 1]], t, state, False)
         if self._tail_shareable(n) and len(chain) == n // ps:
-            page = self.prefix_index.get(self._prompt_digests(req)[1])
-            if page is not None:
-                best = (chain + [page], n - 1, True)
+            entry = self.prefix_index.get(self._prompt_digests(req)[1])
+            if entry is not None:
+                best = ([p for p, _ in chain] + [entry[0]], n - 1, None,
+                        True)
         return best
 
     # ------------------------------------------------------------------
@@ -856,7 +940,7 @@ class ServingEngine:
         n = len(req.prompt)
         ps = self.layout.page_size
         max_full = (n - 1) // ps
-        if max_full == 0 and n % ps == 0:
+        if max_full == 0 and (self._recurrent or n % ps == 0):
             return False
         digests, full_digest = self._prompt_digests(req)
         # tokens the index can hand over now
@@ -896,16 +980,15 @@ class ServingEngine:
             if qi is None:
                 break
             req = self.queue[qi]
+            n_shared, state = 0, None
             if self.paged:
-                n_shared = self._admit_pages(slot, req)
-                if n_shared is None:
+                got = self._admit_pages(slot, req)
+                if got is None:
                     return admitted  # wait for reclamation
-            else:
-                # dense rows are seeded by prefill: zero the slot's row so
-                # no stale value of an earlier request reaches its attention
-                n_shared = 0
-                self.cache["k"][:, slot] = 0
-                self.cache["v"][:, slot] = 0
+                n_shared, state = got
+            self._reset_slot_state(slot)
+            if state is not None:
+                self._restore_state(slot, state)
             self.queue.pop(qi)
             if self.paged:
                 self._prune_holds()
@@ -918,12 +1001,13 @@ class ServingEngine:
             admitted = True
         return admitted
 
-    def _admit_pages(self, slot: int, req: Request) -> Optional[int]:
+    def _admit_pages(self, slot: int, req: Request) -> Optional[tuple]:
         """Map the request's shared prefix pages and allocate the rest of
         its private demand (and its fork reserve) into the slot's block
-        table.  Returns the shared prefix's length in tokens, or None when
-        the pool cannot serve the request yet."""
-        shared, n_shared, partial = self._lookup_prefix(req)
+        table.  Returns (the shared prefix's length in tokens, the
+        recurrent states after it or None), or None when the pool cannot
+        serve the request yet."""
+        shared, n_shared, state, partial = self._lookup_prefix(req)
         k_full = len(shared) - (1 if partial else 0)
         pages = self.allocator.alloc(self._pages_needed(req) - k_full)
         if pages is None and self._held \
@@ -931,7 +1015,7 @@ class ServingEngine:
             # nothing in flight will ever reclaim: held prefix pages must
             # yield so the head of the queue can run
             self._drop_all_holds()
-            shared, n_shared, partial = self._lookup_prefix(req)
+            shared, n_shared, state, partial = self._lookup_prefix(req)
             k_full = len(shared) - (1 if partial else 0)
             pages = self.allocator.alloc(self._pages_needed(req) - k_full)
         if pages is None:
@@ -948,7 +1032,7 @@ class ServingEngine:
         if shared:
             self.stats["pages_shared"] += len(shared)
             self.stats["shared_admissions"] += 1
-        return n_shared
+        return n_shared, state
 
     def _release(self, slot: int):
         if self.paged:
@@ -1116,17 +1200,18 @@ class ServingEngine:
         cache_in = self._meta(decode_mask)
         tokens_in = torch.from_numpy(self.next_token.copy()).to(self.device)
         slots = [s for s in range(self.B) if decode_mask[s]]
+        # dense KV rows and recurrent state rows of free or mid-prefill
+        # slots stay unwritten, as the reference reverts them
+        active = (torch.from_numpy(decode_mask).to(self.device)
+                  if not self.paged or self._recurrent else None)
         if self.fused_decode:
             noise = self._sample_noise(list(range(self.B)), live=decode_mask)
             toks_all, _ = api.decode_and_sample(
                 self.params, tokens_in, cache_in, self.cfg, noise,
-                self.temperature, greedy=self.greedy, top_k=self.top_k)
+                self.temperature, greedy=self.greedy, top_k=self.top_k,
+                active=active)
             toks = toks_all.cpu().numpy().astype(np.int32)[slots]
         else:
-            # dense rows of free or mid-prefill slots stay unwritten, as
-            # the reference reverts them
-            active = (None if self.paged else
-                      torch.from_numpy(decode_mask).to(self.device))
             logits, _ = api.decode_step(self.params, tokens_in, cache_in,
                                         self.cfg, active=active)
             toks = self._sample(logits, list(range(self.B)),

@@ -273,10 +273,18 @@ def test_configs_match_reference():
                   "dtype", "sliding_window", "logit_softcap"):
             assert getattr(t, f) == getattr(j, f), (getter, f)
     assert tconfigs.get("command_r_35b").compute_dtype == torch.bfloat16
-    # gemma3_4b and command_r_plus_104b are ported (tests/test_torch_configs.py);
-    # the other families' names still raise
+    # gemma3_4b, command_r_plus_104b (tests/test_torch_configs.py) and the
+    # SSM and hybrid configs are ported; an unknown name still raises
+    for name in ("mamba2_1_3b", "jamba_1_5_large"):
+        j, t = jconfigs.get(name), tconfigs.get(name)
+        for f in ("family", "n_layers", "d_model", "vocab_size", "ssm_state",
+                  "ssm_head_dim", "ssm_expand", "ssm_conv", "ssm_chunk",
+                  "attn_interval", "moe_interval", "n_experts", "top_k",
+                  "tie_embeddings", "dtype"):
+            assert getattr(t, f) == getattr(j, f), (name, f)
+        assert t.ssm_heads == j.ssm_heads and t.ssm_d_inner == j.ssm_d_inner
     with pytest.raises(KeyError):
-        tconfigs.get("mamba2_1_3b")
+        tconfigs.get("nonexistent")
 
 
 # ---------------------------------------------------------------------------

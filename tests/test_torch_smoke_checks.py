@@ -183,3 +183,113 @@ def test_planted_faults_fail_the_float_gemv_bound(layout):
     with pytest.raises(SystemExit):
         chip_smoke._gemv_f_faults("test", xf, W, want,
                                   torch.full_like(bound, float("inf")), ks)
+
+
+def _smoke_engine_calls(arch):
+    """13b's smoke engine of `arch` on the CPU with every kernel wrapper's
+    calls captured (`_capture_calls("cpu")`): (label, calls)."""
+    import numpy as np
+    from repro_torch.core.quant import policy_by_name
+    from repro_torch.models import packing
+    from repro_torch.serve import Request, ServingEngine
+    cfg = configs.get_smoke(arch).replace(
+        quant=policy_by_name("serve_fused_p16"))
+    params = packing.pack_params(api.init(torch.Generator().manual_seed(5),
+                                          cfg, device="cpu"), cfg)
+    rng = np.random.default_rng(5)
+    system = rng.integers(0, cfg.vocab_size, 32)
+    eng = ServingEngine(cfg, params, batch_slots=4, max_seq=128, greedy=True,
+                        device="cpu")
+    for rid, n in enumerate(rng.integers(4, 41, 6)):
+        prompt = np.concatenate([system, rng.integers(0, cfg.vocab_size,
+                                                      int(n))])
+        eng.submit(Request(rid=rid, prompt=prompt.astype(np.int32),
+                           max_new_tokens=8))
+    with chip_smoke._capture_calls("cpu") as calls:
+        eng.run()
+    return f"{arch} smoke", calls
+
+
+def _untimed(monkeypatch):
+    """chip_smoke's timers as plain calls (no card to time on)."""
+    monkeypatch.setattr(chip_smoke, "_device_ms",
+                        lambda fn, launches, replays=3: (fn(), 0.0)[1])
+    monkeypatch.setattr(chip_smoke, "_time_once_ms",
+                        lambda fn: (fn(), 0.0)[1])
+
+
+@pytest.mark.parametrize("arch,kernels", [
+    ("jamba_1_5_large", {"posit_decode", "posit_encode", "paged_attention",
+                         "decode_sample", "prefill_attention",
+                         "posit_matmul_grouped"}),
+    ("mamba2_1_3b", {"posit_decode", "posit_encode"})])
+def test_smoke_replays_hold_each_captured_call(monkeypatch, arch, kernels):
+    """13b's capture and replay on the CPU, where each wrapper runs its
+    plain version (the float GEMV is reached only on the card): the run's
+    calls are captured once a signature, each kernel the run reaches is
+    replayed within its limit with every planted fault rejected, and each
+    record counts the smoke run's launches alone."""
+    _untimed(monkeypatch)
+    label, calls = _smoke_engine_calls(arch)
+    names = [name for name, _ in calls]
+    counts = {k: 1 for k, spec in chip_smoke._REPLAYS.items()
+              if spec[0] in names}
+    assert set(counts) == kernels
+    sigs = [(n, tuple((k, tuple(v.shape), v.dtype) if torch.is_tensor(v)
+                      else (k, repr(v)) for k, v in a.items()))
+            for n, a in calls]
+    assert len(set(sigs)) == len(sigs)
+    recs = chip_smoke._replay_smoke_calls(label, calls, counts)
+    assert {r["counter"] for r in recs} == kernels
+    assert all(r["paths"] == (label,) and r["max_abs_err"] == 0.0
+               for r in recs)
+    with pytest.raises(SystemExit):
+        chip_smoke._replay_smoke_calls(label, calls,
+                                       dict(counts, posit_gemv_f=1))
+
+
+@pytest.mark.parametrize("module,fn,wrong", [
+    ("paged_attention", "paged_attention", lambda out: out * (1 + 1e-3)),
+    ("prefill_attention", "prefill_attention_paged",
+     lambda out: (out[0] * (1 + 1e-3),) + tuple(out[1:])),
+    ("posit_matmul", "posit_matmul_grouped", lambda out: out * (1 + 1e-4)),
+    ("paged_attention", "decode_sample", lambda out: (out + 1) % 257),
+    ("posit_codec", "encode", lambda out: out ^ 1)])
+def test_smoke_replays_reject_a_wrong_kernel(monkeypatch, module, fn, wrong):
+    """A kernel whose output is off by a relative 1e-3 (attention), 1e-4
+    (K9), one token (K4) or one code (K2) fails its replay."""
+    import importlib
+    _untimed(monkeypatch)
+    label, calls = _smoke_engine_calls("jamba_1_5_large")
+    mod = importlib.import_module(f"repro_torch.kernels.{module}")
+    right = getattr(mod, fn)
+    monkeypatch.setattr(mod, fn, lambda *a, **kw: wrong(right(*a, **kw)))
+    counts = {k: 1 for k, spec in chip_smoke._REPLAYS.items()
+              if spec[0] == fn}
+    with pytest.raises(SystemExit):
+        chip_smoke._replay_smoke_calls(label, calls, counts)
+
+
+def test_ssd_layer_gaps_on_the_cpu(monkeypatch):
+    """13a's SSD witness at mamba2's smoke config (2 layers, ssm_chunk 8)
+    on a 64-token prompt: on the CPU the row groups' projections are
+    bitwise all rows' (MKL's sums do not depend on M here), so every layer
+    is bitwise, the SSD chunked is bitwise whole with both layers' A_log,
+    and its recurrence is within MAMBA_RECURRENCE_TOL."""
+    import numpy as np
+    from repro_torch.core.quant import policy_by_name
+    from repro_torch.models import packing
+    monkeypatch.setattr(torch.cuda, "empty_cache", lambda: None)
+    cfg = configs.get_smoke("mamba2_1_3b").replace(
+        quant=policy_by_name("serve_fused_p16"))
+    params = packing.pack_params(api.init(torch.Generator().manual_seed(5),
+                                          cfg, device="cpu"), cfg)
+    prompt = np.random.default_rng(1).integers(
+        0, cfg.vocab_size, 64).astype(np.int32)
+    found = chip_smoke._ssd_layer_gaps(cfg, params, prompt, CPU)
+    for layers, readings in found.values():
+        assert layers == [0.0] * cfg.n_layers
+        assert readings.pop("in_proj rows") == (True, 0.0)
+        assert len(readings) == 2
+        assert all(bitwise and gap <= chip_smoke.MAMBA_RECURRENCE_TOL
+                   for bitwise, gap in readings.values())
