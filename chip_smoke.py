@@ -11,7 +11,10 @@ full width, command-r-35b over the dense KV cache, and the serving
 example; then train qwen3-moe-235b (1 of 94 layers) and deepseek-moe-16b
 (4 of 28) at full width, and run the remaining example twins; then serve
 mamba2-1.3b at full width and all 48 layers, and the jamba-1.5-large and
-mamba2 smoke engines on the card against the CPU.
+mamba2 smoke engines on the card against the CPU; then paligemma-3b (all
+18 layers: its image-prefix prefill and decode, its text-only engine) and
+hubert-xlarge (all 48 layers: a forward and QAT) at full width, and QAT
+of mamba2-1.3b at full width and depth.
 
     python3 chip_smoke.py
 
@@ -237,6 +240,34 @@ Phases (any failure exits non-zero; no phase is caught):
      version (K1 / K2 bitwise, the GEMV and K9 within `sum_bound`, K3 / K5
      within 2e-5, K4 tokens) with planted faults the limits must reject,
      and timed; these records count the smoke runs' launches.
+ 14. the stub-frontend configs at full width and the SSM family's QAT,
+     each run counted from 0:
+     14a paligemma-3b (18 of 18 layers, d_model 2048, 8 query heads on 1
+     KV head of 256, d_ff 16384, vocab 257216, tied, 256 patches of 1152),
+     serve_fused_p16: `api.prefill` of 4 rows of 256 random patches + 64
+     tokens into the dense cache and 16 greedy decode steps (the prefill's
+     projections and head on K1 p16_2, its KV on K2 p8_2; each decode step
+     `_float_path_checks` with the tied head on the GEMV's p16_2_t); the
+     smoke config's image prefix on the card against the CPU; the
+     text-only engine on phase 5's queue, greedy and sampled (`_path_checks`
+     with K5 on tc256, the float GEMV's decode steps), and greedy again
+     with every kernel call recorded (streams equal) and replayed against
+     its plain version with planted faults (K3 / K5 tc256 at G 8, K4 over
+     the tied head, the GEMV at wk / wv N 256, K1, K2); one decode step
+     profiled;
+     14b hubert-xlarge (48 of 48 layers, d_model 1280, 16 heads of 80,
+     d_ff 5120, vocab 504, untied, bidirectional): a packed
+     serve_fused_p16 forward of 8 clips x 500 frames twice (K1 p16_2 on
+     every projection and the head, nothing else), the last frame moves the
+     first frame's logits, the smoke config on the card against the CPU;
+     then 4 steps of paper_mixed fused QAT on the same shape (AdamW, remat,
+     2 microbatches: phase 9's launch formulas, median step, tokens/s, peak
+     memory, one step profiled), the STE and K6 / K2 / K1 at its training
+     shapes (M 2000), 3 smoke steps on the card against the CPU;
+     14c mamba2-1.3b (48 of 48 layers) paper_mixed fused QAT, phase 9's 4
+     steps of 8 x 128 tokens (K6 on in_proj [2048, 8512] and out_proj
+     [4096, 2048]), the STE and K6 / K2 / K1 at those shapes, and 3 smoke
+     steps of mamba2 and of jamba on the card against the CPU.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -2603,14 +2634,14 @@ def _train_shape():
 
 
 def _trainer(cfg, dev, steps, ckpt_dir=None, optimizer="adamw",
-             peak_lr=3e-3):
-    """The training example's trainer: 8 x 128 tokens a step in 2
-    microbatches, AdamW (or `optimizer`) with its cosine schedule (peak
-    3e-3 unless `peak_lr`)."""
+             peak_lr=3e-3, shape=None):
+    """The training example's trainer: 8 x 128 tokens a step (or `shape`)
+    in 2 microbatches, AdamW (or `optimizer`) with its cosine schedule
+    (peak 3e-3 unless `peak_lr`)."""
     from repro_torch.data import Pipeline
     from repro_torch.optim import by_name, cosine_schedule
     from repro_torch.train import Trainer, TrainerConfig
-    shape = _train_shape()
+    shape = shape or _train_shape()
     opt = by_name(optimizer, cosine_schedule(peak_lr, warmup=steps // 10,
                                              total=steps))
     return Trainer(cfg, shape, opt, Pipeline(cfg, shape),
@@ -2625,14 +2656,31 @@ def _train_full_width(dev):
     8 x 128 tokens in 2 microbatches through Pipeline and Trainer, counted
     from 0; then one more step under torch.profiler.  Returns the run's
     launch counts."""
-    import torch
     from repro_torch import configs
     from repro_torch.core.quant import policy_by_name
-    from repro_torch.kernels import ops
     cfg = configs.get("minitron_8b").replace(
         n_layers=TRAIN_LAYERS,
         quant=policy_by_name("paper_mixed").with_execution("fused"))
-    tr = _trainer(cfg, dev, TRAIN_STEPS)
+    return _qat_full_width(dev, cfg, "train minitron-8b", 7,
+                           "of 32 layers, d_model 4096, vocab 256000")
+
+
+def _qat_full_width(dev, cfg, label: str, gemms: int, about: str,
+                    shape=None, peak_lr=3e-3):
+    """`cfg` (a dense-trunk, SSM or stub-frontend config at full width, its
+    plan paper_mixed fused) trained TRAIN_STEPS steps of `shape` (phase 9's
+    8 x 128 tokens unless given) in TRAIN_ACCUM microbatches through
+    Pipeline and Trainer (AdamW, remat per layer), counted from 0: finite
+    losses (peak learning rate `peak_lr`); each layer's `gemms` coded
+    GEMMs on K6 `tc`, in the forward
+    and again in the remat recompute; K2 on `p13_2` (each GEMM's weights
+    and activations, twice, and the head's weights); K1 on `p13_2` (each
+    GEMM's two codes in the backward, the head's forward and backward).
+    Prints the median step, tokens/s and peak memory, then profiles one
+    more step.  Returns the run's launch counts."""
+    import torch
+    from repro_torch.kernels import ops
+    tr = _trainer(cfg, dev, TRAIN_STEPS, shape=shape, peak_lr=peak_lr)
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
     state = tr.run(torch.Generator(device=dev).manual_seed(9))
@@ -2641,34 +2689,31 @@ def _train_full_width(dev):
     peak = torch.cuda.max_memory_allocated()
     losses = [h["loss"] for h in tr.history]
     _check(len(losses) == TRAIN_STEPS and all(map(math.isfinite, losses)),
-           f"training minitron-8b: {TRAIN_STEPS} finite losses")
-    L, mb = TRAIN_LAYERS, TRAIN_STEPS * TRAIN_ACCUM
-    # forward + the remat recompute: 7 coded GEMMs a layer, twice
-    _check(counts["posit_matmul:tc"] == 7 * L * mb * 2
+           f"{label}: {TRAIN_STEPS} finite losses")
+    L, mb = cfg.n_layers, TRAIN_STEPS * TRAIN_ACCUM
+    _check(counts["posit_matmul:tc"] == gemms * L * mb * 2
            and counts["posit_matmul"] == counts["posit_matmul:tc"],
-           f"training: every K6 launch on tc, 7 x {L} x {mb} x 2")
-    # K2: the 7 weights and 7 activations of a layer in the forward and
-    # again in the recompute, and the head's weights; K1: the two codes of
-    # each coded GEMM in the backward, the head's forward and backward
-    _check(counts["posit_encode:p13_2"] == mb * (28 * L + 1)
+           f"{label}: every K6 launch on tc, {gemms} x {L} x {mb} x 2")
+    _check(counts["posit_encode:p13_2"] == mb * (4 * gemms * L + 1)
            and counts["posit_encode"] == counts["posit_encode:p13_2"],
-           f"training: every K2 launch on p13_2, {mb} x (28 x {L} + 1)")
-    _check(counts["posit_decode"] == mb * (14 * L + 2)
+           f"{label}: every K2 launch on p13_2, {mb} x ({4 * gemms} x {L} "
+           f"+ 1)")
+    _check(counts["posit_decode"] == mb * (2 * gemms * L + 2)
            and counts["posit_decode:p13_2"] == counts["posit_decode"],
-           f"training: every K1 launch on p13_2, {mb} x (14 x {L} + 2)")
+           f"{label}: every K1 launch on p13_2, {mb} x ({2 * gemms} x {L} "
+           f"+ 2)")
     times = sorted(h["time_s"] for h in tr.history[1:])
     step_ms = times[len(times) // 2] * 1e3
     tokens = tr.shape.tokens
-    print(f"train minitron-8b ({L} of 32 layers, d_model 4096, vocab "
-          f"256000, paper_mixed fused, {tokens} tokens a step in "
-          f"{TRAIN_ACCUM} microbatches): losses "
+    print(f"{label} ({L} {about}, paper_mixed fused, {tokens} tokens a "
+          f"step in {TRAIN_ACCUM} microbatches): losses "
           f"{[round(x, 4) for x in losses]}, median step over steps 2-"
           f"{TRAIN_STEPS} {step_ms:.3f} ms (steps "
           f"{[round(h['time_s'] * 1e3, 3) for h in tr.history]} ms), "
           f"{tokens / step_ms * 1e3:.1f} tokens/s, peak memory "
           f"{peak / 1e9:.3f} GB")
-    print(f"train minitron-8b: launches {json.dumps(counts)}")
-    _profile_train_step(tr, state, "train step")
+    print(f"{label}: launches {json.dumps(counts)}")
+    _profile_train_step(tr, state, f"{label} step")
     del state, tr
     return counts
 
@@ -2720,8 +2765,13 @@ def _profile_train_step(tr, state, label: str):
 def _dense_kn(cfg):
     """A layer's coded GEMMs outside the routed experts, (name, K, N): the
     attention projections, then the dense FFN or, in the MoE family, the
-    shared experts (n_shared x moe_d_ff wide; none in qwen3-moe)."""
+    shared experts (n_shared x moe_d_ff wide; none in qwen3-moe); an SSM
+    layer's in_proj and out_proj."""
     D = cfg.d_model
+    if cfg.family == "ssm":
+        Di = cfg.ssm_d_inner
+        return (("in_proj", D, 2 * Di + 2 * cfg.ssm_state + cfg.ssm_heads),
+                ("out_proj", Di, D))
     q, kv = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
     kn = [("wq", D, q), ("wk", D, kv), ("wv", D, kv), ("wo", q, D)]
     F = (cfg.n_shared_experts * cfg.moe_d_ff if cfg.family == "moe"
@@ -2737,9 +2787,10 @@ def _expert_kn(cfg):
     return ((D, F), (D, F), (F, D))
 
 
-def _train_ste(dev, label: str, arch: str):
-    """9b / 11d: the STE function at M 512 on each distinct (K, N) of
-    `arch`'s coded GEMMs outside the routed experts (`_dense_kn`): the
+def _train_ste(dev, label: str, arch: str, M: int = TRAIN_M):
+    """9b / 11d / 14: the STE function at M rows (a microbatch's, 512
+    unless given) on each distinct (K, N) of `arch`'s coded GEMMs outside
+    the routed experts (`_dense_kn`): the
     forward within `sum_bound` of `ops.ste_plain` (a limit two planted
     faults must fail), dx and dw bitwise the plain version's and the
     fake_quant plan's for the same g."""
@@ -2754,7 +2805,6 @@ def _train_ste(dev, label: str, arch: str):
     shapes = {}
     for name, K, N in _dense_kn(configs.get(arch)):
         shapes.setdefault((K, N), []).append(name)
-    M = TRAIN_M
     for (K, N), names in shapes.items():
         what = f"STE {label} {' / '.join(names)} (M {M}, K {K}, N {N})"
         x = torch.randn(M, K, generator=g, device=dev)
@@ -2789,13 +2839,14 @@ def _train_ste(dev, label: str, arch: str):
         del x, w, gr, out, dx, dw, want, want_dx, want_dw, a, b, bound, fq
 
 
-def _train_kernels(dev, label: str, arch: str):
-    """9 / 11d: `arch`'s training shapes of K6, K2 and K1, each against its
-    plain version and timed: K6 tc (P(13,2) x P(13,2)) at M 512 over its
-    coded GEMMs outside the routed experts (`_dense_kn`), within
-    `sum_bound` with two planted faults; K2 p13_2 and K1 P(13,2) over its
-    untied head's [d_model, vocab] masters, bitwise.  Returns three
-    records whose launches are those of the run `label`."""
+def _train_kernels(dev, label: str, arch: str, M: int = TRAIN_M):
+    """9 / 11d / 14: `arch`'s training shapes of K6, K2 and K1, each
+    against its plain version and timed: K6 tc (P(13,2) x P(13,2)) at M
+    rows (512 unless given) over its coded GEMMs outside the routed
+    experts (`_dense_kn`), within `sum_bound` with two planted faults; K2
+    p13_2 and K1 P(13,2) over its head's masters ([d_model, vocab]
+    elements), bitwise.  Returns three records whose launches are those
+    of the run `label`."""
     import torch
     from repro_torch import configs
     from repro_torch.core.formats import P13_2
@@ -2803,7 +2854,6 @@ def _train_kernels(dev, label: str, arch: str):
     from repro_torch.kernels import posit_matmul as pm
     cfg = configs.get(arch)
     g = torch.Generator(device=dev).manual_seed(29)
-    M = TRAIN_M
     layer = []
     err = ratio = 0.0
     for name, K, N in _dense_kn(cfg):
@@ -2862,8 +2912,7 @@ def _train_kernels(dev, label: str, arch: str):
                     replaces="src/repro/kernels/posit_matmul.py:168",
                     max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
                     bound_by=by, library_ms=library_ms)]
-    # the untied head's codec: [d_model, vocab] f32 masters -> P(13,2) and
-    # back
+    # the head's codec: [d_model, vocab] f32 masters -> P(13,2) and back
     head = [cfg.d_model, cfg.vocab_size]
     x = torch.randn(*head, generator=g, device=dev) / 64
     codes = posit_codec.encode(x, P13_2)
@@ -4304,6 +4353,7 @@ def _attention_close(got, want):
 def _replay_paged(a):
     """K3 on captured arguments: finite and within 2e-5 of its plain
     version, a limit two planted faults must fail (q scaled by 1 + 2^-10,
+    2^-6 for bf16 q, whose 8 significand bits 1 + 2^-10 leaves unchanged;
     each slot's newest key left out); SDPA over the decoded pages with the
     same mask the library call; the bound counts the keys this data
     attends."""
@@ -4322,8 +4372,9 @@ def _replay_paged(a):
     _check(bool(torch.isfinite(got).all()) and _attention_close(got, want),
            f"K3 within 2e-5 of its plain version at B={B} Hq={Hq} Hkv={Hkv} "
            f"Dh={Dh}")
-    for fault, bad in (("q scaled by 1 + 2^-10", dict(plain, q=q * (
-            1 + 2.0 ** -10))), ("the newest key left out", dict(
+    scale = 1 + 2.0 ** (-6 if q.dtype == torch.bfloat16 else -10)
+    for fault, bad in (("q scaled by 1 + eps", dict(plain, q=(
+            q * scale).to(q.dtype))), ("the newest key left out", dict(
                 plain, lengths=(ln - 1).clamp(min=0)))):
         _check(not _attention_close(pa.paged_attention_plain(**bad), want),
                f"K3: the limit rejects the planted fault '{fault}'")
@@ -4480,11 +4531,12 @@ _REPLAYS = {
 }
 
 
-def _replay_smoke_calls(label, calls, counts):
-    """Every kernel a smoke run launched, held against its plain version
-    at each signature the run called it with (`_capture_calls`), each
-    variant the run launched among the replayed ones.  Returns one kernel
-    record a kernel, counting `label`'s launches (`paths`): ms, plain_ms,
+def _replay_smoke_calls(label, calls, counts, tag="13b", paths=None):
+    """Every kernel a run launched, held against its plain version at each
+    signature the run called it with (`_capture_calls`), each variant the
+    run launched among the replayed ones.  Returns one kernel record a
+    kernel, counting the launches of `paths` (`label`'s unless given;
+    messages start with `tag`): ms, plain_ms,
     bound_ms and library_ms the sums over the signatures (one call each),
     bound_by the larger side of the bound's largest call."""
     from repro_torch.kernels import ops
@@ -4500,18 +4552,21 @@ def _replay_smoke_calls(label, calls, counts):
                     if k.startswith(kernel + ":") and n}
         replayed = {k for k in launched if after[k] > before[k]}
         _check(bool(mine) and replayed == launched,
-               f"13b {label}: {kernel} replayed at every variant the run "
+               f"{tag} {label}: {kernel} replayed at every variant the run "
                f"launched ({sorted(launched)}; replayed {sorted(replayed)})")
         bounds = [_bound(r[3], r[4], r[5]) for r in rows]
         libs = [r[6] for r in rows]
-        for r, b in zip(rows, bounds):
-            print(f"13b {label} {kernel}: ms {r[1]:.4f}, plain_ms "
+        for a, r, b in zip(mine, rows, bounds):
+            shapes = ", ".join(f"{k} {list(v.shape)}" for k, v in a.items()
+                               if hasattr(v, "shape") and v.dim())
+            print(f"{tag} {label} {kernel} ({shapes}): ms {r[1]:.4f}, plain_ms "
                   f"{r[2]:.3f}, bound_ms {b[0]:.4f} ({b[1]}), library_ms "
                   f"{'none' if r[6] is None else f'{r[6]:.4f}'}, max_abs_err "
                   f"{r[0]:.3g}; {r[7]}")
         records.append(dict(
             name=f"{kernel} ({label}: {len(rows)} call signatures)",
-            counter=kernel, paths=(label,), source=source, replaces=replaces,
+            counter=kernel, paths=paths or (label,), source=source,
+            replaces=replaces,
             max_abs_err=max(r[0] for r in rows), ms=sum(r[1] for r in rows),
             call_ms=None, plain_ms=sum(r[2] for r in rows),
             bound_ms=sum(b[0] for b in bounds),
@@ -4594,6 +4649,431 @@ def _recurrent_smoke_on_card(dev):
         del calls
         _release()
     return counts, records
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the stub-frontend configs at full width; QAT of the SSM family
+# ---------------------------------------------------------------------------
+
+PALI_TEXT = 64          # text tokens after paligemma's 256 image patches
+PALI_DECODE = 16        # greedy decode steps after the image-prefix prefill
+PALI_PREFIX = "paligemma image prefix"
+PALI_RUNS = ("paligemma greedy", "paligemma sampled")
+HUBERT_CLIPS = 8
+HUBERT_FRAMES = 500     # 10 s of audio at HuBERT's 20 ms frame stride
+HUBERT_FORWARD = "hubert forward"
+HUBERT_TRAIN = "train hubert-xlarge"
+MAMBA_TRAIN = "train mamba2-1.3b"
+# mamba2's QAT peak learning rate.  At phase 9's 3e-3 the loss went from 252
+# to 839 between steps 2 and 3 on an H100; why is not established (no float
+# plan, smaller depth or reference run at full width was tried), so the rate
+# is the MoE runs' lower one, at which the 4 steps' losses stay finite
+MAMBA_PEAK_LR = 4.2e-4
+
+
+def _image_prefix(cfg, params, patches, text, dev, steps, feed=None):
+    """`api.prefill` of the vlm's image patches [B, P, F] and text tokens
+    [B, T] into a dense cache of P + T + steps rows, then `steps` decode
+    steps fed their greedy tokens (or `feed`'s rows).  Returns (the
+    prefill's last-position logits, each step's logits, the cache, the
+    launch counts after the prefill, prefill ms, [step ms])."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import api
+    S = cfg.frontend_tokens + text.shape[1]
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        logits, cache = api.prefill(params, {"patches": patches,
+                                             "tokens": text}, cfg,
+                                    max_seq=S + steps, device=dev)
+    last = logits[:, -1].float()
+    _check(tuple(logits.shape) == (text.shape[0], S, cfg.vocab_size)
+           and bool(torch.isfinite(last).all()),
+           f"image prefix ({cfg.name}): finite prefill logits over "
+           f"{cfg.frontend_tokens} patches + {text.shape[1]} tokens")
+    del logits
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    after_prefill = dict(ops.launch_counts())
+    toks = last.argmax(-1).to(torch.int32)
+    outs, step_ms = [], []
+    for i in range(steps):
+        if feed is not None:
+            toks = feed[i].to(dev)
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            lg, cache = api.decode_step(params, toks, cache, cfg)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        outs.append(lg.float())
+        toks = lg.argmax(-1).to(torch.int32)
+    _check(cache["length"].tolist() == [S + steps] * text.shape[0]
+           and all(bool(torch.isfinite(o).all()) for o in outs),
+           f"image prefix ({cfg.name}): {steps} finite decode steps from "
+           f"position {S}")
+    return last, outs, cache, after_prefill, prefill_ms, step_ms
+
+
+def _image_prefix_small(dev):
+    """14a's small input: paligemma's smoke config (P(16,2) weights, P(8,2)
+    KV rows) on the card against the plain CPU path, the same packed
+    weights, 2 rows of image patches + 12 tokens, then 2 decode steps fed
+    the same tokens: prefill logits within 1e-4; KV codes equal, or at
+    most _KV_FLIP_LIMIT the adjacent code (a value at a rounding boundary
+    the two sides' sums straddle); decode logits within 1e-4, 1e-3 of the
+    largest where a code differs."""
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.core.quant import policy_by_name
+    from repro_torch.models import api, packing
+    from repro_torch.models.module import tree_map
+    cfg = configs.get_smoke("paligemma_3b").replace(
+        quant=policy_by_name("serve_fused_p16"))
+    params = packing.pack_params(api.init(
+        torch.Generator().manual_seed(8), cfg, device="cpu"), cfg)
+    rng = np.random.default_rng(8)
+    patches = rng.normal(0, 1, (2, cfg.frontend_tokens,
+                                cfg.frontend_dim)).astype(np.float32)
+    text = rng.integers(0, cfg.vocab_size, (2, 12)).astype(np.int32)
+    feed = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 2))
+                            .astype(np.int32))
+    out = {}
+    for where, d in (("cpu", torch.device("cpu")), ("card", dev)):
+        out[where] = _image_prefix(cfg, tree_map(lambda t: t.to(d), params),
+                                   patches, text, d, 2, feed=feed)
+    cpu, card = out["cpu"], out["card"]
+    _check(bool(torch.allclose(card[0].cpu(), cpu[0], rtol=1e-4, atol=1e-4)),
+           "14a small input: prefill logits on the card within 1e-4 of the "
+           "CPU's")
+    flips = 0
+    for name in ("k", "v"):
+        a = card[2][name].cpu().to(torch.int32)
+        b = cpu[2][name].to(torch.int32)
+        _check(bool(((a - b).abs() <= 1).all()),
+               f"14a small input: {name} codes equal or adjacent")
+        flips += int((a != b).sum())
+    _check(flips <= _KV_FLIP_LIMIT, f"14a small input: {flips} KV codes "
+                                    f"differ (limit {_KV_FLIP_LIMIT})")
+    err = 0.0
+    for a, b in zip(card[1], cpu[1]):
+        a = a.cpu()
+        close = (float((a - b).abs().max()) <= 1e-3 * float(b.abs().max())
+                 if flips else bool(torch.allclose(a, b, rtol=1e-4,
+                                                   atol=1e-4)))
+        _check(close, "14a small input: decode logits on the card vs the "
+                      "CPU's")
+        err = max(err, float((a - b).abs().max()))
+    print(f"14a small input (paligemma smoke, serve_fused_p16, "
+          f"{cfg.frontend_tokens} patches + 12 tokens, 2 decode steps): "
+          f"prefill max |logit diff| card vs CPU "
+          f"{float((card[0].cpu() - cpu[0]).abs().max()):.3g}, decode "
+          f"{err:.3g}, KV codes differing {flips}")
+
+
+def _paligemma_phase(dev):
+    """14a: paligemma-3b at full width and depth (18 layers, d_model 2048,
+    8 query heads on 1 KV head of 256, d_ff 16384, vocab 257216, tied, 256
+    patches of 1152), serve_fused_p16: the image-prefix path (`api.prefill`
+    of 4 rows of 256 random patches + 64 tokens into the dense cache,
+    then 16 greedy decode steps on the float weight path, the unfused tied
+    head on the GEMV's transpose), then once more with every kernel call
+    recorded (the same tokens and launches) and each replayed against its
+    plain version (`_replay_smoke_calls`: K1 at the prefill's projections
+    and the [257216, 2048] head, K2's KV rows and head re-encode, the GEMV
+    at the decode steps' shapes); its small input on the card against the
+    CPU; the text-only engine (the reference's engine embeds tokens only)
+    on phase 5's queue, greedy and sampled, then both once more with every
+    kernel call recorded (streams equal the first runs') and each replayed
+    against its plain version with planted faults (K3 and K5 `tc256` at
+    G 8, K4 greedy and sampling over the tied head, the GEMV at the narrow
+    wk / wv, K1, K2); one decode step profiled.  Returns (launch counts by
+    run, records)."""
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.core.quant import policy_by_name
+    from repro_torch.kernels import ops
+    from repro_torch.models import packing
+    cfg = configs.get("paligemma_3b").replace(
+        quant=policy_by_name("serve_fused_p16"))
+    L, B = cfg.n_layers, 4
+    print(f"14a paligemma config: {L} layers, d_model {cfg.d_model}, heads "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} x {cfg.head_dim}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab_size}, tied {cfg.tie_embeddings}, "
+          f"{cfg.frontend_tokens} patches of {cfg.frontend_dim}, dtype "
+          f"{cfg.dtype}; reduced: {{}}")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = _dense_params(cfg, 40, dev)
+    torch.cuda.synchronize()
+    _check(params["layers"]["wq"].dtype == torch.int16
+           and params["frontend_proj"].dtype == torch.float32,
+           "14a: the trunk packed to P(16,2), frontend_proj float")
+    trunk = sum(t.numel() for t in params["layers"].values())
+    print(f"14a paligemma: init + pack {time.perf_counter() - t0:.3f} s, "
+          f"{trunk} trunk weights, {params['embed'].numel()} embedding and "
+          f"{params['frontend_proj'].numel()} frontend_proj weights, "
+          f"{packing.weight_bytes(params)} B on the card; peak memory "
+          f"{torch.cuda.max_memory_allocated()} B")
+    counts = {}
+    # ---- the image prefix over the dense cache
+    rng = np.random.default_rng(40)
+    patches = rng.normal(0, 1, (B, cfg.frontend_tokens, cfg.frontend_dim)
+                         ).astype(np.float32)
+    text = rng.integers(0, cfg.vocab_size, (B, PALI_TEXT)).astype(np.int32)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    _, outs, cache, pre, pre_ms, step_ms = _image_prefix(
+        cfg, params, patches, text, dev, PALI_DECODE)
+    c = counts[PALI_PREFIX] = ops.launch_counts()
+    tokens = [o.argmax(-1) for o in outs]
+    del outs
+    per_step = {k: v - pre[k] for k, v in c.items()}
+    S = cfg.frontend_tokens + PALI_TEXT
+    _check(pre["posit_decode:p16_2"] == pre["posit_decode"] == 7 * L + 1
+           and pre["posit_encode:p8_2"] == 2 * L
+           and pre["posit_encode:p16_2"] == 1 and pre["posit_gemv_f"] == 0,
+           f"14a {PALI_PREFIX}: the prefill's {7 * L} projections and the "
+           f"head on K1 (p16_2), its {2 * L} KV encodes on K2 (p8_2)")
+    _float_path_checks(PALI_PREFIX, c, (per_step, PALI_DECODE), cfg,
+                       head_t=1)
+    _check(c["paged_attention"] == c["prefill_attention"]
+           == c["decode_sample"] == 0,
+           f"14a {PALI_PREFIX}: the dense cache runs no paged or fused "
+           f"kernel")
+    kv = sum(cache[n].numel() * cache[n].element_size() for n in ("k", "v"))
+    print(f"14a {PALI_PREFIX}: {B} rows of {cfg.frontend_tokens} patches + "
+          f"{PALI_TEXT} tokens, prefill {pre_ms:.3f} ms "
+          f"({B * S / pre_ms * 1e3:.1f} positions/s), {PALI_DECODE} decode "
+          f"steps, mean {float(np.mean(step_ms)):.3f} ms (median "
+          f"{float(np.median(step_ms)):.3f}; {B / np.mean(step_ms) * 1e3:.2f} "
+          f"tok/s), dense KV cache {kv} B ({kv // (B * (S + PALI_DECODE))} B "
+          f"a token), peak memory {torch.cuda.max_memory_allocated()} B")
+    print(f"14a {PALI_PREFIX}: prefill launches " + json.dumps(
+        {k: v for k, v in pre.items() if v}))
+    print(f"14a {PALI_PREFIX}: launches a decode step " + json.dumps(
+        {k: v / PALI_DECODE for k, v in per_step.items() if v}))
+    del cache
+    _release()
+    # the image prefix again with its kernel calls recorded (the same
+    # greedy tokens), then each call replayed against its plain version
+    label = f"{PALI_PREFIX} (calls recorded)"
+    ops.reset_launches()
+    with _capture_calls() as calls:
+        _, outs, cache, *_ = _image_prefix(cfg, params, patches, text, dev,
+                                           PALI_DECODE)
+    recorded = ops.launch_counts()
+    _check(all(torch.equal(o.argmax(-1), t) for o, t in zip(outs, tokens))
+           and recorded == c,
+           f"14a {label}: the greedy tokens and launches of the first run")
+    del outs, cache
+    _release()
+    records = _replay_smoke_calls(label, calls, recorded, tag="14a",
+                                  paths=(PALI_PREFIX,))
+    del calls
+    _release()
+    _image_prefix_small(dev)
+    # ---- the text-only engine on phase 5's queue
+    system = rng.integers(0, cfg.vocab_size, 64)
+    prompts = [np.concatenate([system, rng.integers(0, cfg.vocab_size, int(n))])
+               .astype(np.int32) for n in rng.integers(8, 57, 8)]
+    base = dict(max_seq=256, page_size=16, base_seed=1)
+    streams = {}
+    runs = ((PALI_RUNS[0], dict(greedy=True)),
+            (PALI_RUNS[1], dict(greedy=False, temperature=0.8, top_k=40)))
+    for label, kw in runs:
+        ops.reset_launches()
+        streams[label], eng, per_step, n_steps = _run_engine(
+            cfg, params, prompts, label, **kw, **base)
+        c = counts[label] = ops.launch_counts()
+        print(f"{label}: launches {json.dumps(c)}")
+        _check(eng.execution_summary()["fused_prefill"]
+               and eng.stats["shared_admissions"] > 0,
+               f"{label}: fused prefill and shared admissions")
+        _path_checks(label, c, "tc256")
+        _float_path_checks(label, c, (per_step, n_steps), cfg)
+        del eng
+    _release()
+    # the greedy and sampled runs again with their kernel calls recorded,
+    # then each call replayed against its plain version
+    label = "paligemma greedy and sampled (calls recorded)"
+    ops.reset_launches()
+    with _capture_calls() as calls:
+        for run, kw in runs:
+            again, eng, _, _ = _run_engine(
+                cfg, params, prompts, f"{run} (calls recorded)", **kw, **base)
+            _check(again == streams[run],
+                   f"14a: the recorded {run} run's streams equal the first's")
+            del eng
+    recorded = ops.launch_counts()
+    _profile(cfg, params, prompts, "paligemma", steps=1)
+    del params
+    _release()
+    records += _replay_smoke_calls(label, calls, recorded, tag="14a",
+                                   paths=PALI_RUNS)
+    del calls
+    _release()
+    return counts, records
+
+
+def _encoder_small(dev):
+    """14b's small input: hubert's smoke config, packed to P(16,2), on the
+    card against the plain CPU path on the same frames: logits within
+    1e-4."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.core.quant import policy_by_name
+    from repro_torch.models import api, packing
+    from repro_torch.models.module import tree_map
+    cfg = configs.get_smoke("hubert_xlarge").replace(
+        quant=policy_by_name("serve_fused_p16"))
+    params = packing.pack_params(api.init(
+        torch.Generator().manual_seed(9), cfg, device="cpu"), cfg)
+    frames = torch.randn(2, 24, cfg.frontend_dim,
+                         generator=torch.Generator().manual_seed(9))
+    with torch.no_grad():
+        want = api.apply(params, {"frames": frames}, cfg)
+        got = api.apply(tree_map(lambda t: t.to(dev), params),
+                        {"frames": frames.to(dev)}, cfg).cpu()
+    err = float((got - want).abs().max())
+    _check(bool(torch.allclose(got, want, rtol=1e-4, atol=1e-4)),
+           "14b small input: hubert smoke logits on the card within 1e-4 of "
+           "the CPU's")
+    print(f"14b small input (hubert smoke, serve_fused_p16, 2 x 24 frames): "
+          f"max |logit diff| card vs CPU {err:.3g}")
+
+
+def _hubert_phase(dev):
+    """14b: hubert-xlarge at full width and depth (48 layers, d_model 1280,
+    16 heads of 80, d_ff 5120, vocab 504, untied, bidirectional, frames of
+    512): a packed serve_fused_p16 forward of 8 clips x 500 frames, twice
+    (every projection and the head on K1 `p16_2` + torch.matmul, the
+    attention the plain bidirectional one: head_dim 80 takes no attention
+    kernel); the encoder attends both ways (the last frame moves the first
+    frame's logits), a third forward whose kernel calls are recorded and
+    replayed against their plain version (K1 at the projections and the
+    head); its small input on the card against the CPU; then
+    paper_mixed fused QAT on the same shape (`_qat_full_width`), K6 / K2 /
+    K1 and the STE at its shapes (M 2000) and 3 smoke steps on the card
+    against the CPU.  Returns (launch counts by run, records)."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.core.quant import policy_by_name
+    from repro_torch.kernels import ops
+    from repro_torch.models import api, packing
+    from repro_torch.models.config import ShapeConfig
+    full = configs.get("hubert_xlarge")
+    cfg = full.replace(quant=policy_by_name("serve_fused_p16"))
+    L = cfg.n_layers
+    print(f"14b hubert config: {L} layers, d_model {cfg.d_model}, heads "
+          f"{cfg.n_heads} x {cfg.head_dim}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_size}, causal {cfg.causal}, frames of "
+          f"{cfg.frontend_dim}, dtype {cfg.dtype}; reduced: {{}}")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = packing.pack_params(api.init(
+        torch.Generator(device=dev).manual_seed(50), cfg, device=dev), cfg)
+    torch.cuda.synchronize()
+    print(f"14b hubert: init + pack {time.perf_counter() - t0:.3f} s, "
+          f"{packing.weight_bytes(params)} B on the card; peak memory "
+          f"{torch.cuda.max_memory_allocated()} B")
+    frames = torch.randn(HUBERT_CLIPS, HUBERT_FRAMES, cfg.frontend_dim,
+                         generator=torch.Generator(device=dev).manual_seed(51),
+                         device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    times = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            logits = api.apply(params, {"frames": frames}, cfg)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    c = ops.launch_counts()
+    _check(tuple(logits.shape) == (HUBERT_CLIPS, HUBERT_FRAMES,
+                                   cfg.vocab_size)
+           and bool(torch.isfinite(logits).all()),
+           "14b hubert: finite logits [8, 500, 504]")
+    _check(c["posit_decode:p16_2"] == c["posit_decode"] == 2 * (7 * L + 1)
+           and c["posit_encode"] == c["posit_gemv_f"] == 0
+           and c["paged_attention"] == c["prefill_attention"] == 0,
+           f"14b hubert: each forward's {7 * L} projections and the head on "
+           f"K1 (p16_2), no other kernel")
+    moved = frames.clone()
+    moved[:, -1] += 1.0
+    # the same forward on the moved frames, its kernel calls recorded (a
+    # run of the forward's shapes) and replayed against their plain version
+    label = f"{HUBERT_FORWARD} (calls recorded)"
+    ops.reset_launches()
+    with _capture_calls() as calls, torch.no_grad():
+        gap = float((api.apply(params, {"frames": moved}, cfg)[:, 0]
+                     - logits[:, 0]).abs().max())
+    _check(ops.launch_counts() == {k: v // 2 for k, v in c.items()},
+           f"14b {label}: the launches of one forward")
+    _check(gap > 1e-3, "14b hubert: the last frame moves the first frame's "
+                       "logits (bidirectional)")
+    tokens = HUBERT_CLIPS * HUBERT_FRAMES
+    print(f"14b {HUBERT_FORWARD}: {HUBERT_CLIPS} clips x {HUBERT_FRAMES} "
+          f"frames, ms {[round(t, 3) for t in times]} (the second "
+          f"{tokens / times[1] * 1e3:.1f} frames/s), peak memory "
+          f"{torch.cuda.max_memory_allocated()} B; the last frame moves "
+          f"the first frame's logits by {gap:.4g}")
+    print(f"14b {HUBERT_FORWARD}: launches " + json.dumps(
+        {k: v for k, v in c.items() if v}))
+    del params, logits, frames, moved
+    _release()
+    records = _replay_smoke_calls(label, calls, c, tag="14b",
+                                  paths=(HUBERT_FORWARD,))
+    del calls
+    _release()
+    _encoder_small(dev)
+    shape = ShapeConfig("hubert", seq_len=HUBERT_FRAMES,
+                        global_batch=HUBERT_CLIPS, kind="train")
+    tc = _qat_full_width(
+        dev, full.replace(quant=policy_by_name("paper_mixed")
+                          .with_execution("fused")),
+        HUBERT_TRAIN, 7, "of 48 layers, d_model 1280, 16 heads of 80, "
+        "frames of 512, untied head of 504", shape)
+    _release()
+    M = tokens // TRAIN_ACCUM
+    _train_ste(dev, HUBERT_TRAIN, "hubert_xlarge", M)
+    _release()
+    records += _train_kernels(dev, HUBERT_TRAIN, "hubert_xlarge", M)
+    _release()
+    _train_small_reference(dev, "hubert_xlarge", "14b")
+    _release()
+    return {HUBERT_FORWARD: c, HUBERT_TRAIN: tc}, records
+
+
+def _mamba_train_phase(dev):
+    """14c: mamba2-1.3b at full width and depth (48 layers) under
+    paper_mixed fused QAT (`_qat_full_width`: phase 9's 4 steps of 8 x 128
+    tokens, AdamW, remat per layer; in_proj and out_proj on K6), K6 / K2 /
+    K1 and the STE at its training shapes (M 512), peak learning rate
+    MAMBA_PEAK_LR, and 3 smoke steps of mamba2 and jamba (the hybrid:
+    attention, mamba and MoE sub-layers) on the card against the CPU.  Returns (launch counts by run, records)."""
+    from repro_torch import configs
+    from repro_torch.core.quant import policy_by_name
+    cfg = configs.get("mamba2_1_3b").replace(
+        quant=policy_by_name("paper_mixed").with_execution("fused"))
+    c = _qat_full_width(dev, cfg, MAMBA_TRAIN, 2,
+                        "of 48 layers, d_model 2048, 64 SSM heads of 64, "
+                        "state 128, vocab 50280, tied", peak_lr=MAMBA_PEAK_LR)
+    _release()
+    _train_ste(dev, MAMBA_TRAIN, "mamba2_1_3b")
+    _release()
+    records = _train_kernels(dev, MAMBA_TRAIN, "mamba2_1_3b")
+    _release()
+    for arch in ("mamba2_1_3b", "jamba_1_5_large"):
+        _train_small_reference(dev, arch, "14c")
+        _release()
+    return {MAMBA_TRAIN: c}, records
 
 
 def _attribute_launches(kernels, runs):
@@ -4696,7 +5176,8 @@ def main() -> int:
                          ("qwen3_moe_235b", "serve_fused_p16"),
                          ("qwen3_moe_235b", "validate_bit_exact"),
                          ("gemma3_4b", "serve_fused_p16"),
-                         ("command_r_plus_104b", "serve_fused_p16")):
+                         ("command_r_plus_104b", "serve_fused_p16"),
+                         ("paligemma_3b", "serve_fused_p16")):
         err, forced_err, flips = _small_reference(dev, policy, arch)
         print(f"small input ({arch}, {policy}): max |logit diff| card vs "
               f"plain CPU {err:.3g} (decode over the card's codes "
@@ -4783,6 +5264,15 @@ def main() -> int:
     c, recs = _recurrent_smoke_on_card(dev)
     counts13.update(c)
     kernels.extend(recs)
+    _release()
+    # ---- phase 14: paligemma-3b's image prefix and text-only engine,
+    # hubert-xlarge's forward and QAT, mamba2-1.3b's QAT, at full width
+    counts14 = {}
+    for phase in (_paligemma_phase, _hubert_phase, _mamba_train_phase):
+        c, recs = phase(dev)
+        counts14.update(c)
+        kernels.extend(recs)
+        _release()
     # K3 splits every main path's key spans (tables of more than 2 pages)
     # and merges the partials: each launch ran the merge kernel
     for label, c in counts.items():
@@ -4800,7 +5290,7 @@ def main() -> int:
         _check(c["prefill_attention"] > 0
                and c["prefill_attention:tc"] == c["prefill_attention"],
                f"'{label}': every K5 launch took the tensor-core variant")
-    runs = dict(counts, **counts10, **train_runs, **counts13)
+    runs = dict(counts, **counts10, **train_runs, **counts13, **counts14)
     _attribute_launches(kernels, runs)
     keys = ("name", "route", "source", "replaces", "launches",
             "launches_by_path", "launches_by_variant", "max_abs_err", "ms",

@@ -12,14 +12,17 @@ The twin of `examples/train_posit_lm.py`.
                the head K2 + K1 + an f32 matmul) and the gradients come
                from the straight-through backward of `kernels/ops.py`.
 
-`--arch` takes any ported config with a whole-sequence forward: the
-dense family (minitron_8b, command_r_35b, ...) and the MoE family
-(qwen3_moe_235b, deepseek_moe_16b, whose loss adds the router's
-load-balance term).
+`--arch` takes every ported config: the dense family (minitron_8b,
+command_r_35b, ...), the MoE family (qwen3_moe_235b, deepseek_moe_16b,
+whose loss adds the router's load-balance term), the SSM mamba2_1_3b, the
+hybrid jamba_1_5_large (attention, mamba and MoE sub-layers), the vlm
+paligemma_3b (random patch embeddings ahead of the text) and the encoder
+hubert_xlarge (random audio frames, a label a frame).
 
     PYTHONPATH=src python examples/train_posit_lm_torch.py --steps 200
     PYTHONPATH=src python examples/train_posit_lm_torch.py --execution fused
     PYTHONPATH=src python examples/train_posit_lm_torch.py --arch qwen3_moe_235b
+    PYTHONPATH=src python examples/train_posit_lm_torch.py --arch mamba2_1_3b
 """
 import argparse
 

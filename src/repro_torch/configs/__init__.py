@@ -4,9 +4,11 @@ The registry holds the configurations the port runs: the dense
 `command_r_35b`, `command_r_plus_104b`, `gemma3_4b` (5:1 local:global
 sliding-window attention, qk-norm) and `minitron_8b` (the training
 example's default), the two MoE models `qwen3_moe_235b` and
-`deepseek_moe_16b`, the SSM `mamba2_1_3b` and the hybrid
-`jamba_1_5_large`; the stub-frontend names (`hubert_xlarge`,
-`paligemma_3b`) raise KeyError until they are ported (ROADMAP queue 1).  `get(name)` / `get_smoke(name)` /
+`deepseek_moe_16b`, the SSM `mamba2_1_3b`, the hybrid
+`jamba_1_5_large`, and the two stub-frontend configs, the encoder
+`hubert_xlarge` (precomputed audio frames) and the vlm `paligemma_3b`
+(precomputed patch embeddings ahead of the text): all ten of the
+reference's.  `get(name)` / `get_smoke(name)` /
 `get_tiny_serving(name)` mirror the reference and return equal shapes;
 `shape_skips(name)` gives the assigned shape cells an arch does not run,
 with reasons, and `runnable_shapes(name)` the others.
@@ -16,8 +18,9 @@ from __future__ import annotations
 import importlib
 
 ARCH_NAMES = ("command_r_35b", "command_r_plus_104b", "gemma3_4b",
-              "minitron_8b", "qwen3_moe_235b", "deepseek_moe_16b",
-              "jamba_1_5_large", "mamba2_1_3b")
+              "minitron_8b", "hubert_xlarge", "qwen3_moe_235b",
+              "deepseek_moe_16b", "jamba_1_5_large", "mamba2_1_3b",
+              "paligemma_3b")
 
 _ALIASES = {n.replace("_", "-"): n for n in ARCH_NAMES}
 
@@ -25,7 +28,7 @@ _ALIASES = {n.replace("_", "-"): n for n in ARCH_NAMES}
 def _module(name: str):
     name = _ALIASES.get(name, name)
     if name not in ARCH_NAMES:
-        raise KeyError(f"arch '{name}' is not ported yet (have {ARCH_NAMES})")
+        raise KeyError(f"unknown arch '{name}' (have {ARCH_NAMES})")
     return importlib.import_module(f"repro_torch.configs.{name}")
 
 

@@ -39,18 +39,38 @@ class Pipeline:
         self.local_batch = shape.global_batch // data_cfg.host_count
 
     def batch_at(self, step: int) -> dict:
-        """This host's slice of global batch `step`: {"tokens", "labels"},
-        [local_batch, seq_len] int32, a zipfian token stream."""
+        """This host's slice of global batch `step`, [local_batch, seq_len]:
+        int32 "tokens" (a zipfian stream) and "labels" (the next token).
+        The audio stub's batch is f32 "frames" [B, S, frontend_dim] and a
+        label a frame; the vision stub's adds f32 "patches" [B,
+        frontend_tokens, frontend_dim] ahead of S - frontend_tokens tokens,
+        its labels left-padded with frontend_tokens zeros (counted by the
+        loss, as in the reference)."""
         m, s = self.model_cfg, self.shape
-        if m.frontend is not None:
-            raise NotImplementedError(
-                f"{m.name}: stub frontends (vlm / encoder) are not ported yet")
         rng = np.random.default_rng(
             np.random.SeedSequence([self.cfg.seed, step, self.cfg.host_index]))
         B, S = self.local_batch, s.seq_len
-        z = rng.zipf(1.3, size=(B, S + 1)).astype(np.int64)
+        out = {}
+        if m.frontend == "audio_stub":
+            out["frames"] = rng.normal(
+                0, 1, (B, S, m.frontend_dim)).astype(np.float32)
+            out["labels"] = rng.integers(0, m.vocab_size, (B, S),
+                                         dtype=np.int32)
+            return out
+        text = S
+        if m.frontend == "vision_stub":
+            out["patches"] = rng.normal(
+                0, 1, (B, m.frontend_tokens, m.frontend_dim)).astype(np.float32)
+            text = S - m.frontend_tokens
+        z = rng.zipf(1.3, size=(B, text + 1)).astype(np.int64)
         toks = np.minimum(z - 1, m.vocab_size - 1).astype(np.int32)
-        return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        out["tokens"] = toks[:, :-1]
+        labels = toks[:, 1:]
+        if m.frontend == "vision_stub":
+            pad = np.zeros((B, m.frontend_tokens), np.int32)
+            labels = np.concatenate([pad, labels], axis=1)
+        out["labels"] = labels
+        return out
 
     def iterator(self, start_step: int = 0) -> Iterator[dict]:
         """Batches start_step, start_step + 1, ... made ahead by a

@@ -1,5 +1,6 @@
 """Unified model API — dispatch by config family (PyTorch port of
-`repro.models.api`; the dense, MoE, SSM and hybrid families).
+`repro.models.api`; the dense, MoE, SSM and hybrid families, the encoder
+and the vlm, the last two over `transformer`).
 
     param_specs(cfg)                                  -> tree[ParamSpec]
     init(generator, cfg, device)                      -> params
@@ -33,15 +34,18 @@ from .packing import (pack_manifest, pack_params,  # noqa: F401
 from .paged import PagedLayout
 
 
-_FAMILIES = {"dense": transformer, "moe": moe, "ssm": mamba,
-             "hybrid": hybrid}
+_FAMILIES = {"dense": transformer, "encoder": transformer,
+             "vlm": transformer, "moe": moe, "ssm": mamba, "hybrid": hybrid}
 
 
 def _mod(cfg: ModelConfig):
-    if cfg.family not in _FAMILIES:
-        raise NotImplementedError(
-            f"model family '{cfg.family}' is not ported yet (ROADMAP queue 1)")
     return _FAMILIES[cfg.family]
+
+
+def _no_serving(cfg: ModelConfig, what: str = "autoregressive serving"):
+    """An encoder has no cache to serve from: raise as the reference does."""
+    if cfg.is_encoder:
+        raise ValueError(f"{cfg.name} is encoder-only: no {what}")
 
 
 def param_specs(cfg: ModelConfig):
@@ -56,8 +60,9 @@ def init(generator: torch.Generator, cfg: ModelConfig, device="cuda"):
 
 
 def apply(params, batch, cfg: ModelConfig, **kw):
-    """Whole-sequence forward (training): batch {"tokens": [B, S]} -> f32
-    logits [B, S, V].  `kw` goes to the family's `apply`: `collect_cache`
+    """Whole-sequence forward (training): batch {"tokens": [B, S]} (or the
+    stub frontend's inputs, as `input_specs` gives them) -> f32 logits
+    [B, S, V].  `kw` goes to the family's `apply`: `collect_cache`
     (each attention layer's (k, v)) and, for the MoE and hybrid families,
     `with_aux` (the layers' mean load-balance loss, returned last)."""
     return _mod(cfg).apply(params, batch, cfg, **kw)
@@ -66,18 +71,25 @@ def apply(params, batch, cfg: ModelConfig, **kw):
 def input_specs(cfg: ModelConfig, shape: ShapeConfig, *, with_labels=True):
     """Model inputs for one shape cell as meta tensors (shapes and dtypes,
     no storage): train / prefill a [B, S] token batch (plus [B, S] labels
-    for train), decode one token per row."""
-    if cfg.frontend is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: stub frontends (vlm / encoder) are not ported yet")
+    for train), decode one token per row.  The stub frontends: the audio
+    encoder takes f32 frames [B, S, frontend_dim] in the tokens' place, the
+    vlm f32 patches [B, frontend_tokens, frontend_dim] and the remaining
+    S - frontend_tokens tokens."""
     B, S = shape.global_batch, shape.seq_len
 
-    def meta(*dims):
-        return torch.empty(dims, dtype=torch.int32, device="meta")
+    def meta(*dims, dtype=torch.int32):
+        return torch.empty(dims, dtype=dtype, device="meta")
 
     if shape.kind == "decode":
         return {"tokens": meta(B)}
-    batch = {"tokens": meta(B, S)}
+    if cfg.frontend == "audio_stub":
+        batch = {"frames": meta(B, S, cfg.frontend_dim, dtype=torch.float32)}
+    elif cfg.frontend == "vision_stub":
+        batch = {"patches": meta(B, cfg.frontend_tokens, cfg.frontend_dim,
+                                 dtype=torch.float32),
+                 "tokens": meta(B, S - cfg.frontend_tokens)}
+    else:
+        batch = {"tokens": meta(B, S)}
     if with_labels and shape.kind == "train":
         batch["labels"] = meta(B, S)
     return batch
@@ -91,10 +103,11 @@ def abstract_state(cfg: ModelConfig):
 def prefill(params, batch, cfg: ModelConfig, max_seq: Optional[int] = None,
             device="cuda"):
     """Whole-sequence prefill: batch {"tokens": [B, S]} (tensors or numpy,
-    moved to `device`, where `params` must live) -> (f32 logits [B, S, V],
-    the dense cache after the prompt, length S: KV rows [L, B, max(max_seq,
-    S), Hkv*Dh] and, for the SSM and hybrid families, the recurrent
-    states)."""
+    moved to `device`, where `params` must live; the vlm's also "patches",
+    its S counting them) -> (f32 logits [B, S, V], the dense cache after
+    the prompt, length S: KV rows [L, B, max(max_seq, S), Hkv*Dh] and, for
+    the SSM and hybrid families, the recurrent states)."""
+    _no_serving(cfg)
     from repro_torch import resolve_device
     dev = resolve_device(device)
     batch = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
@@ -102,6 +115,7 @@ def prefill(params, batch, cfg: ModelConfig, max_seq: Optional[int] = None,
 
 
 def decode_step(params, tokens, cache, cfg: ModelConfig, active=None):
+    _no_serving(cfg, "decode step")
     return _mod(cfg).decode_step(params, tokens, cache, cfg, active=active)
 
 
@@ -124,6 +138,7 @@ def decode_and_sample(params, tokens, cache, cfg: ModelConfig, noise,
     cache'), the tokens equal to `decode_step` followed by the engine
     sampler.  noise: [B, V] f32 gumbel rows (None when greedy); `active`
     as `decode_step`'s."""
+    _no_serving(cfg, "decode step")
     spec = common.SampleSpec(noise=noise, temperature=temperature,
                              greedy=greedy, top_k=top_k)
     return _mod(cfg).decode_step(params, tokens, cache, cfg, sample=spec,
@@ -142,6 +157,7 @@ def decode_verify(params, tokens, cache, cfg: ModelConfig, noise,
 
     noise: [B*T, V] f32 gumbel rows, b-major (row b * T + j is slot b's
     draw j; None when greedy); temperature: python float."""
+    _no_serving(cfg, "decode step")
     mod = _mod(cfg)
     if not hasattr(mod, "decode_verify"):
         raise NotImplementedError(
@@ -154,11 +170,13 @@ def decode_verify(params, tokens, cache, cfg: ModelConfig, noise,
 def prefill_chunk(params, tokens, cache, slot: int, cfg: ModelConfig):
     """Process one prompt chunk [1, C] for one slot of the paged or the
     dense cache."""
+    _no_serving(cfg)
     return _mod(cfg).prefill_chunk(params, tokens, cache, slot, cfg)
 
 
 def prefill_chunk_batched(params, tokens, cache, active, cfg: ModelConfig):
     """Advance every active slot by one same-size chunk in one [B, C] pass."""
+    _no_serving(cfg)
     return _mod(cfg).prefill_chunk_batched(params, tokens, cache, active, cfg)
 
 

@@ -28,6 +28,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.utils.checkpoint
 
 from . import common, moe, transformer
 from . import mamba as mamba_m
@@ -132,12 +133,32 @@ def _mamba_sub(blk, j, x, cfg: ModelConfig, conv_l, ssm_l, active=None,
     return x + out
 
 
+def _seq_block(blk, x, cfg: ModelConfig, pos, kvs=None):
+    """One block (period) of the whole-sequence forward: (x', the mean of
+    its sub-layers' aux losses); the attention's (k, v) appended to `kvs`
+    where given."""
+    block_aux = []
+    for j in range(_period(cfg)):
+        if j == 0:
+            out, k, v = transformer._attn(blk["attn"], x, cfg, pos, True)
+            if kvs is not None:
+                kvs.append((k, v))
+        else:
+            out = mamba_m.mamba_block(_sub(blk["mamba"], j - 1), x, cfg)[0]
+        x, aux = _ffn_apply(blk, j, x + out, cfg)
+        block_aux.append(aux)
+    return x, torch.stack(block_aux).mean()
+
+
 def apply(params, batch, cfg: ModelConfig, collect_cache: bool = False,
           with_aux: bool = False):
     """Whole-sequence forward: f32 logits [B, S, V]; with `collect_cache`
     also each block's attention (k, v) [B, S, Hkv, Dh] in a list, and with
     `with_aux` last the mean over the blocks of each block's mean
-    sub-layer aux loss."""
+    sub-layer aux loss.  With `cfg.remat == "layer"` (grad on, no cache to
+    collect) each block is recomputed in the backward
+    (`torch.utils.checkpoint`, its aux loss included; the recompute routes
+    the tokens as the first forward did)."""
     x = common.embed_tokens(params["embed"], batch["tokens"], cfg)
     B, S, _ = x.shape
     pos = torch.arange(S, dtype=torch.int32,
@@ -145,17 +166,15 @@ def apply(params, batch, cfg: ModelConfig, collect_cache: bool = False,
     kvs, auxes = [], []
     for b in range(_n_blocks(cfg)):
         blk = _block(params, b)
-        block_aux = []
-        for j in range(_period(cfg)):
-            if j == 0:
-                out, k, v = transformer._attn(blk["attn"], x, cfg, pos, True)
-                kvs.append((k, v))
-            else:
-                out = mamba_m.mamba_block(_sub(blk["mamba"], j - 1), x,
-                                          cfg)[0]
-            x, aux = _ffn_apply(blk, j, x + out, cfg)
-            block_aux.append(aux)
-        auxes.append(torch.stack(block_aux).mean())
+        if collect_cache:
+            x, aux = _seq_block(blk, x, cfg, pos, kvs)
+        elif cfg.remat == "layer" and torch.is_grad_enabled():
+            x, aux = torch.utils.checkpoint.checkpoint(
+                _seq_block, blk, x, cfg, pos, use_reentrant=False,
+                preserve_rng_state=False)
+        else:
+            x, aux = _seq_block(blk, x, cfg, pos)
+        auxes.append(aux)
     x = common.rms_norm(x, params["final_norm"])
     logits = common.logits_head(x, params["embed"], cfg, transpose=True)
     outs = [logits]

@@ -24,6 +24,7 @@ rows it marks False unwritten (an engine's free or mid-prefill slots).
 from __future__ import annotations
 
 import torch
+import torch.utils.checkpoint
 
 from . import common
 from .config import ModelConfig
@@ -216,11 +217,29 @@ def put_rows(dst, src, active=None):
     dst.copy_(src)
 
 
+def _seq_layer(p, x, cfg: ModelConfig):
+    """One layer of the whole-sequence forward, residual included."""
+    return x + mamba_block(p, x, cfg)[0]
+
+
 def apply(params, batch, cfg: ModelConfig):
-    """Whole-sequence forward -> f32 logits [B, S, V]."""
+    """Whole-sequence forward (training) -> f32 logits [B, S, V].  With
+    `cfg.remat == "layer"` (and grad on) each layer's activations are
+    dropped after the forward and recomputed in the backward
+    (`torch.utils.checkpoint`; the recompute is bitwise the first
+    forward)."""
     x = common.embed_tokens(params["embed"], batch["tokens"], cfg)
-    for i in range(cfg.n_layers):
-        x = x + mamba_block(_layer(params, i), x, cfg)[0]
+    names = sorted(params["layers"])
+    # one unbind per stacked leaf: its backward stacks the layers' grads
+    # (a per-layer index would zero-fill a full-size grad each layer)
+    for vals in zip(*(params["layers"][n].unbind(0) for n in names)):
+        p = dict(zip(names, vals))
+        if cfg.remat == "layer" and torch.is_grad_enabled():
+            x = torch.utils.checkpoint.checkpoint(
+                _seq_layer, p, x, cfg, use_reentrant=False,
+                preserve_rng_state=False)
+        else:
+            x = _seq_layer(p, x, cfg)
     x = common.rms_norm(x, params["final_norm"])
     return common.logits_head(x, params["embed"], cfg, transpose=True)
 

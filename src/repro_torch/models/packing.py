@@ -4,8 +4,9 @@
 Only the weights consumed through the GEMM dispatch layer pack (the
 attention and MLP projections, the routed expert stacks and shared
 experts of a MoE, the SSM in / out projections, and an untied head);
-norms, routers, conv taps, the SSM scan's parameters and the embedding,
-read by indexing, stay float.  Packing is one rounding per weight (posit
+norms, routers, conv taps, the SSM scan's parameters, the embedding, read
+by indexing, and a stub frontend's `frontend_proj` (a plain float product)
+stay float.  Packing is one rounding per weight (posit
 encode), identical to the reference's `pack_params`; the encode runs
 through `kernels.ops.encode` (K2 on CUDA), one layer (or hybrid block) at
 a time so the transient stays that wide; `unpack_params` decodes the codes
@@ -32,16 +33,11 @@ _MLP_NAMES = ("wi_gate", "wi_up", "wo_mlp")
 _EXPERT_NAMES = ("we_gate", "we_up", "we_down")   # stacked: qdot_grouped
 _SHARED_EXPERT_NAMES = ("ws_gate", "ws_up", "ws_down")
 _SSM_NAMES = ("in_proj", "out_proj")
-_PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 _STACKS = ("layers", "blocks")
 
 
 def packable_paths(cfg: ModelConfig) -> Tuple[Tuple[str, ...], ...]:
     """Paths (key tuples) of the weight leaves that pack to posit codes."""
-    if cfg.family not in _PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"param packing for family '{cfg.family}' is not ported yet "
-            f"(have {_PORTED_FAMILIES}; ROADMAP queue 1)")
     if cfg.family == "hybrid":
         # jamba-style blocks: attention, mamba, dense-FFN and MoE sub-trees
         paths = [("blocks", "attn", n) for n in _ATTN_NAMES]
@@ -55,7 +51,7 @@ def packable_paths(cfg: ModelConfig) -> Tuple[Tuple[str, ...], ...]:
                 names += _SHARED_EXPERT_NAMES
         elif cfg.family == "ssm":
             names = _SSM_NAMES
-        else:
+        else:   # dense, encoder, vlm
             names = _ATTN_NAMES + _MLP_NAMES
         paths = [("layers", n) for n in names]
     if not cfg.tie_embeddings:

@@ -1,5 +1,7 @@
 """Dense GQA transformer LM (PyTorch port of `repro.models.transformer`):
-command-r-35b, minitron-8b and the other dense configs.
+command-r-35b, minitron-8b and the other dense configs, the encoder
+hubert-xlarge (bidirectional, precomputed audio frames in) and the vlm
+paligemma-3b (precomputed patch embeddings ahead of the text).
 
 Parameters are a dict of tensors with layers stacked on a leading dim
 ([L, D, N]); the layer loop is a Python loop over that dim.  `apply` is
@@ -73,8 +75,8 @@ def param_specs(cfg: ModelConfig):
     if not cfg.tie_embeddings:
         specs["head"] = ParamSpec((D, V), ("embed", "vocab"), "fan_in")
     if cfg.frontend is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: stub frontends (vlm / encoder) are not ported yet")
+        specs["frontend_proj"] = ParamSpec(
+            (cfg.frontend_dim, D), (None, "embed"), "fan_in")
     return specs
 
 
@@ -170,18 +172,30 @@ def _seq_layer(p, x, cfg: ModelConfig, pos, is_global: bool, ffn=_mlp_ffn):
 
 
 def _embed_inputs(params, batch, cfg: ModelConfig):
-    """tokens [B, S] -> [B, S, D] in the compute dtype.  The stub frontends
-    (audio / vision embeddings) are not ported (`param_specs` raises)."""
-    if cfg.frontend is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: stub frontends (vlm / encoder) are not ported yet")
-    return common.embed_tokens(params["embed"], batch["tokens"], cfg)
+    """The model's input rows [B, S, D] in the compute dtype: the token
+    embeddings; for the audio stub (an encoder) the frames [B, S, F]
+    projected by `frontend_proj` in their place; for the vision stub the
+    patches [B, P, F] projected and put ahead of the tokens' embeddings
+    (S = P + T).  `frontend_proj` is a plain float product, as the
+    reference's `jnp.dot` outside any kernel."""
+    if cfg.frontend is None:
+        return common.embed_tokens(params["embed"], batch["tokens"], cfg)
+    cd = cfg.compute_dtype
+    proj = params["frontend_proj"].to(cd)
+    if cfg.frontend == "audio_stub":
+        return torch.matmul(batch["frames"].to(cd), proj)
+    if cfg.frontend == "vision_stub":
+        patches = torch.matmul(batch["patches"].to(cd), proj)
+        text = common.embed_tokens(params["embed"], batch["tokens"], cfg)
+        return torch.cat([patches, text], 1)
+    raise ValueError(cfg.frontend)
 
 
 def apply(params, batch, cfg: ModelConfig, collect_cache: bool = False,
           with_aux: bool = False, ffn=_mlp_ffn):
-    """Training / prefill forward. batch: {"tokens": [B, S] int}.  Returns
-    f32 logits [B, S, V]; with `collect_cache` also each layer's (k, v)
+    """Training / prefill forward. batch: {"tokens": [B, S] int}, or the
+    stub frontend's inputs (`_embed_inputs`; positions run 0..S-1 over
+    the whole sequence, patches included).  Returns f32 logits [B, S, V]; with `collect_cache` also each layer's (k, v)
     [B, S, Hkv, Dh] in a list, and with `with_aux` last the mean over the
     layers of the ffn's auxiliary loss.  `ffn(p, x, cfg) -> (out, aux)` is
     the layer's feed-forward block: the dense MLP here, the routed experts

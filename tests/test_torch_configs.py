@@ -100,13 +100,14 @@ def test_gemma3_window_pattern_and_unported_names():
     for name in NEW_ARCHS:
         assert dataclasses.astuple(tconfigs.get_tiny_serving(name)) == \
             dataclasses.astuple(tconfigs.get_smoke(name))
-    # the SSM and hybrid configs are ported and read as the reference's;
-    # the stub-frontend names and unknown names still raise
-    for name in ("mamba2_1_3b", "jamba_1_5_large"):
+    # the SSM, hybrid and stub-frontend configs are ported and read as the
+    # reference's; an unknown name still raises
+    for name in ("mamba2_1_3b", "jamba_1_5_large", "hubert_xlarge",
+                 "paligemma_3b"):
         assert _fields(tconfigs.get(name)) == _fields(jconfigs.get(name))
-    for name in ("hubert_xlarge", "paligemma_3b", "nonexistent"):
-        with pytest.raises(KeyError):
-            tconfigs.get(name)
+    assert sorted(tconfigs.ARCH_NAMES) == sorted(jconfigs.ARCH_NAMES)
+    with pytest.raises(KeyError):
+        tconfigs.get("nonexistent")
 
 
 # ---------------------------------------------------------------------------

@@ -16,7 +16,9 @@ each against the reference example where the two compute the same thing.
   it asserts equal across plain, async and speculative serving) are the
   reference's plain engine's.
 - `train_posit_lm_torch.py` trains the MoE smoke configs (`--arch`): a
-  few paper_mixed fused steps lower the loss.
+  few paper_mixed fused steps lower the loss; and the encoder's
+  (hubert-xlarge) from the reference example's initial parameters: its
+  losses are the reference example's within rtol 1e-3.
 """
 import contextlib
 import io
@@ -163,3 +165,30 @@ def test_train_example_trains_moe(arch):
                                       device="cpu")
     assert len(losses) == 4 and all(np.isfinite(losses))
     assert losses[-1] < losses[0]
+
+
+def test_train_example_trains_hubert_like_reference(monkeypatch):
+    """The encoder (audio frames in, a label a frame): 2 paper_mixed fused
+    steps of the example's `run` from the reference example's initial
+    parameters (`api.init` from key 0, handed to the port's Trainer) give
+    the reference example's losses within rtol 1e-3, as the Trainer tests
+    hold them (tests/test_torch_train.py)."""
+    from repro.core.quant import policy_by_name as jpolicy
+    from repro_torch.train import Trainer as TTrainer, step as tstep
+    ref, _ = _reference_example("train_posit_lm.py")
+    want, _ = _printed(ref["run"], "paper_mixed", 2, "hubert_xlarge",
+                       "fused")
+    jcfg = jconfigs.get_smoke("hubert_xlarge").replace(
+        quant=jpolicy("paper_mixed").with_execution("fused"))
+    init = jax.tree.map(np.asarray, japi.init(jax.random.key(0), jcfg))
+
+    def from_reference(self, generator):
+        params = tpacking.params_from_numpy(init, self.cfg, self.device)
+        return tstep.TrainState(params, self.opt.init(params),
+                                torch.zeros((), dtype=torch.int32))
+
+    monkeypatch.setattr(TTrainer, "init_or_restore", from_reference)
+    got = train_posit_lm_torch.run("paper_mixed", 2, "hubert_xlarge",
+                                   "fused", device="cpu")
+    assert len(got) == len(want) == 2 and all(np.isfinite(got))
+    np.testing.assert_allclose(got, want, rtol=1e-3)
