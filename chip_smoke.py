@@ -268,6 +268,32 @@ Phases (any failure exits non-zero; no phase is caught):
      steps of 8 x 128 tokens (K6 on in_proj [2048, 8512] and out_proj
      [4096, 2048]), the STE and K6 / K2 / K1 at those shapes, and 3 smoke
      steps of mamba2 and of jamba on the card against the CPU.
+ 15. kv_pages-sharded page pools on phase 5's weights (command-r-35b, full
+     width, 4 of 40 layers, serve_fused_p16), right after 10c, each run
+     counted from 0: 15a two shards of cuda:0 (`make_serving_mesh(2)`),
+     the default pool, phase 5's queue greedy: every K3 launch per shard
+     with its ownership mask and partials, one merge a layer and decode
+     step, one K5 launch a layer and chunk group on the home shard reading
+     history from the gathered global pool (`prefill_attention:
+     global_hist`, on `tc`); the streams of slots whose pages lie on one
+     shard bitwise phase 5's greedy streams; each slot's shards printed;
+     15b four shards, 3 usable pages each, phase 5's queue plus a
+     170-token prompt that needs all 12 (a slot spans all four shards):
+     how many of the 8 streams equal phase 5's, every shard's pages back
+     after the drain; that prompt on the engine's own pages of it: its
+     prefill logits and pool bytes bitwise the single pool's, K3 over the
+     gathered pool bitwise the single pool's first-step logits, the
+     merged first step within SHARD_LOGIT_TOL and one shard's partials
+     dropped outside it; a sharded decode step profiled; for each run,
+     every K5 and K3 signature it called (K5 keyed by masked writes and
+     the shards one slot's history spans, K3 by its shard's ownership)
+     replayed against the plain versions (K5's page writes bitwise, its
+     attention within its limit and bitwise the unsharded launch over
+     the global pool) and the merge at each K3 shape with the run's shard
+     count against the unsharded K3 (bitwise for a slot on one shard),
+     each record counting its own run's launches; 15c `python -m
+     repro_torch.launch.serve --mesh-model 2` at smoke width in a
+     subprocess, exit 0.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -1761,7 +1787,8 @@ class _KVValues:
             return encode(values, fmt)
 
         def shadowed(insert):
-            def write(pages, table, where, vals):
+            def write(pages, table, where, vals, shard=None):
+                _check(shard is None, "small input: a single page pool")
                 x = last.pop("x").reshape(vals.shape)
                 _check(_bits_equal(encode(x, self.fmt), vals),
                        "small input: the recorded KV values encode to the "
@@ -2546,6 +2573,7 @@ _KERNEL_GROUPS = (("posit_gemv_f", "K1 float GEMV (posit_gemv_f)"),
                   ("posit_decode", "K1 posit_decode"),
                   ("posit_encode", "K2 posit_encode"),
                   ("paged_attention_mq", "K7 paged_attention_mq"),
+                  ("attn_shard_merge", "merge_attn_partials"),
                   ("paged_attention", "K3 paged_attention"),
                   ("ds_", "K4 decode_sample"),
                   ("prefill_attention", "K5 prefill_attention"),
@@ -3342,31 +3370,52 @@ def _dense_params(cfg, seed: int, dev):
     return packing.pack_params(params, cfg)
 
 
-def _prefill_then_decode(cfg, params, prompt, dev, max_seq, paged=True):
+def _prefill_slot0(cfg, params, prompt, dev, max_seq, paged=True, shards=0,
+                   n_pages=None, table=None):
     """Prefill one prompt in slot 0 of a 4-slot cache (paged or dense) in
-    the engine's chunks, then one greedy decode step; returns slot 0's
-    first-step logits (f32)."""
+    the engine's chunks.  With `shards` the paged pool of `n_pages` (the
+    default layout's when None) is split over that many shards of `dev`;
+    slot 0's block-table row is `table` when given, else its pages go
+    round-robin over the shards (page j on shard j mod shards).  Returns
+    (the cache, the PageShard or None, the last chunk's logits, the next
+    tokens: slot 0's greedy pick)."""
     import torch
     from repro_torch.models import api
-    from repro_torch.models.paged import PagedLayout
-    layout = PagedLayout.for_slots(4, max_seq, 16) if paged else None
-    cache = api.init_cache(cfg, 4, max_seq, layout, device=dev)
+    from repro_torch.models.paged import PagedLayout, PageShard
+    shard = PageShard([dev] * shards) if shards else None
+    layout = (PagedLayout.for_slots(4, max_seq, 16, n_pages,
+                                    n_shards=max(shards, 1))
+              if paged else None)
+    cache = api.init_cache(cfg, 4, max_seq, layout, device=dev, shard=shard)
     if paged:
-        cache["block_table"][0] = torch.arange(
-            1, cache["block_table"].shape[1] + 1, dtype=torch.int32,
-            device=dev)
+        M = cache["block_table"].shape[1]
+        j = torch.arange(M, dtype=torch.int32, device=dev)
+        cache["block_table"][0] = (
+            torch.as_tensor(table).to(dev, torch.int32) if table is not None
+            else (j % shards) * layout.pages_per_shard + 1 + j // shards
+            if shards else j + 1)
     active = torch.tensor([True, False, False, False], device=dev)
     lo = 0
     for size in _chunks(len(prompt)):
         toks = torch.zeros(4, size, dtype=torch.int32, device=dev)
         toks[0] = torch.from_numpy(prompt[lo:lo + size]).to(dev)
         logits, cache = api.prefill_chunk_batched(params, toks, cache, active,
-                                                  cfg)
+                                                  cfg, shard=shard)
         lo += size
     nxt = torch.zeros(4, dtype=torch.int32, device=dev)
     nxt[0] = logits[0].argmax()
     cache["length"][1:] = 0
-    logits, _ = api.decode_step(params, nxt, cache, cfg)
+    return cache, shard, logits[0].float(), nxt
+
+
+def _prefill_then_decode(cfg, params, prompt, dev, max_seq, paged=True,
+                         shards=0):
+    """`_prefill_slot0`, then one greedy decode step; returns slot 0's
+    first-step logits (f32)."""
+    from repro_torch.models import api
+    cache, shard, _, nxt = _prefill_slot0(cfg, params, prompt, dev, max_seq,
+                                          paged, shards)
+    logits, _ = api.decode_step(params, nxt, cache, cfg, shard=shard)
     return logits[0].float()
 
 
@@ -4198,12 +4247,14 @@ _WRAPPERS = (("posit_codec", "decode"), ("posit_codec", "encode"),
 
 
 @contextlib.contextmanager
-def _capture_calls(device_type: str = "cuda"):
-    """Within the block, each wrapper of `_WRAPPERS` called on a tensor of
-    `device_type` keeps a copy of its arguments, taken before the call (K5 writes
-    its pools in place), at the first call of each signature: the tensors'
-    shapes, dtypes and strides and the other arguments' values.  Yields
-    the list of (function name, bound arguments) it fills."""
+def _capture_calls(device_type: str = "cuda", names=None, key=None):
+    """Within the block, each wrapper of `_WRAPPERS` (those of `names` when
+    given) called on a tensor of `device_type` keeps a copy of its
+    arguments, taken before the call (K5 writes its pools in place), at
+    the first call of each signature: the tensors' shapes, dtypes and
+    strides and the other arguments' values, and `key(name, arguments)`
+    when given (a call it maps to None is not kept).  Yields the list of
+    (function name, bound arguments) it fills."""
     import importlib
     import inspect
     import torch
@@ -4222,16 +4273,22 @@ def _capture_calls(device_type: str = "cuda"):
             bound.apply_defaults()
             a = bound.arguments
             first = next(iter(a.values()))
-            key = (name,) + tuple((k, sig(v)) for k, v in a.items())
-            if isinstance(first, torch.Tensor) and key not in seen \
-                    and first.device.type == device_type:
-                seen.add(key)
+            mark = (name,) + tuple((k, sig(v)) for k, v in a.items())
+            keep = (isinstance(first, torch.Tensor)
+                    and first.device.type == device_type)
+            if keep and key is not None:
+                extra = key(name, a)
+                keep, mark = extra is not None, mark + (extra,)
+            if keep and mark not in seen:
+                seen.add(mark)
                 calls.append((name, {k: v.clone() if isinstance(
                     v, torch.Tensor) else v for k, v in a.items()}))
             return fn(*args, **kw)
         return wrapper
 
     for mod_name, fn_name in _WRAPPERS:
+        if names is not None and fn_name not in names:
+            continue
         mod = importlib.import_module(f"repro_torch.kernels.{mod_name}")
         saved.append((mod, fn_name, getattr(mod, fn_name)))
         setattr(mod, fn_name, wrap(fn_name, getattr(mod, fn_name)))
@@ -4350,33 +4407,65 @@ def _attention_close(got, want):
     return bool(torch.allclose(got, want, rtol=2e-5, atol=2e-5))
 
 
+def _owned_pages(a):
+    """[B, M] bool: the pages of a K3 call's block tables its slots attend
+    (below their lengths) that its page_ok lets it read."""
+    import torch
+    bt, ps = a["block_tables"], a["k_pages"].shape[1]
+    att = (torch.arange(bt.shape[1], device=bt.device)[None] * ps
+           < a["lengths"][:, None].long())
+    return att, att & (a["page_ok"] != 0)
+
+
 def _replay_paged(a):
     """K3 on captured arguments: finite and within 2e-5 of its plain
     version, a limit two planted faults must fail (q scaled by 1 + 2^-10,
     2^-6 for bf16 q, whose 8 significand bits 1 + 2^-10 leaves unchanged;
-    each slot's newest key left out); SDPA over the decoded pages with the
+    each slot's newest key left out, or under page_ok each slot's last
+    readable page masked); SDPA over the decoded pages with the
     same mask the library call; the bound counts the keys this data
-    attends."""
+    attends.  A shard's partials (o, m, l) are compared as K3 finalizes
+    them (the merge of one shard), m and l within the same limit."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import paged_attention as pa
     q, kp, vp, bt = a["q"], a["k_pages"], a["v_pages"], a["block_tables"]
     ln, win, fmt = a["lengths"], a["window"], a["fmt_kv"]
-    _check(q.ndim == 3 and not a["partials"] and a["page_ok"] is None
-           and a["softcap_val"] == 0.0, "K3 replay: one token a slot")
+    partials, page_ok = a["partials"], a["page_ok"]
+    _check(q.ndim == 3 and a["softcap_val"] == 0.0,
+           "K3 replay: one token a slot")
     B, Hq, Dh = q.shape
     Hkv = kp.shape[-1] // Dh
+
+    def final(r):
+        return (pa.merge_attn_partials_plain(*(t[None] for t in r))
+                if partials else r)
+
     got = pa.paged_attention(**a)
     plain = dict((k, v) for k, v in a.items() if k != "t_block")
     want = pa.paged_attention_plain(**plain)
-    _check(bool(torch.isfinite(got).all()) and _attention_close(got, want),
+    _check(bool(torch.isfinite(final(got)).all())
+           and _attention_close(final(got), final(want))
+           and (not partials or all(_attention_close(g, w) for g, w in
+                                    zip(got[1:], want[1:]))),
            f"K3 within 2e-5 of its plain version at B={B} Hq={Hq} Hkv={Hkv} "
-           f"Dh={Dh}")
+           f"Dh={Dh}{' (shard partials)' if partials else ''}")
     scale = 1 + 2.0 ** (-6 if q.dtype == torch.bfloat16 else -10)
+    if page_ok is not None:
+        own = _owned_pages(a)[1]
+        last = own.shape[1] - 1 - own.flip(1).int().argmax(1)
+        rows = torch.nonzero(own.any(1))[:, 0]
+        masked = page_ok.clone()
+        masked[rows, last[rows]] = 0
+        second = ("each slot's last owned page masked",
+                  dict(plain, page_ok=masked))
+    else:
+        second = ("the newest key left out",
+                  dict(plain, lengths=(ln - 1).clamp(min=0)))
     for fault, bad in (("q scaled by 1 + eps", dict(plain, q=(
-            q * scale).to(q.dtype))), ("the newest key left out", dict(
-                plain, lengths=(ln - 1).clamp(min=0)))):
-        _check(not _attention_close(pa.paged_attention_plain(**bad), want),
+            q * scale).to(q.dtype))), second):
+        _check(not _attention_close(final(pa.paged_attention_plain(**bad)),
+                                    final(want)),
                f"K3: the limit rejects the planted fault '{fault}'")
     ms = _device_ms(lambda: pa.paged_attention(**a), launches=20)
     plain_ms = _time_once_ms(lambda: pa.paged_attention_plain(**plain))
@@ -4388,13 +4477,19 @@ def _replay_paged(a):
     pos = torch.arange(S, device=q.device)
     qp = ln.long()[:, None] - 1
     mask = (pos[None] <= qp) & (qp - pos[None] < win.long())
+    if page_ok is not None:
+        mask &= (page_ok != 0).repeat_interleave(kp.shape[1], dim=1)
     lib = _device_ms(lambda: F.scaled_dot_product_attention(
         q[:, :, None].float(), kd, vd, attn_mask=mask[:, None, None]),
         launches=20)
     keys = int(mask.sum())
+    # the partials' m and l written beside o
     nbytes = (2 * q.numel() * 4 + 2 * keys * Hkv * Dh * kp.element_size()
-              + bt.numel() * 4 + B * 4)
-    return (float((got - want).abs().max()), ms, plain_ms, nbytes,
+              + bt.numel() * 4 + B * 4
+              + (2 * B * Hq * 4 if partials else 0)
+              + (0 if page_ok is None else page_ok.numel() * 4))
+    return (float((final(got) - final(want)).abs().max()), ms, plain_ms,
+            nbytes,
             4.0 * Hq * Dh * keys, F32_FLOP_PER_S, lib,
             f"{keys} keys attended; planted faults rejected")
 
@@ -4476,8 +4571,12 @@ def _replay_prefill(a):
     plain_ms = _time_once_ms(lambda: pf.prefill_attention_paged_plain(
         **fresh()))
     S_h = M * ps
-    hk, hv = (_pages_as(t, bt, fmt, act).reshape(B, S_h, Hkv, Dh)
-              for t in (kp0, vp0))
+    # history comes from the global pool by global id under a shard
+    hbt = a.get("hist_bt")
+    hpools, hbt = (((kp0, vp0), bt) if hbt is None
+                   else ((a["hist_pool_k"], a["hist_pool_v"]), hbt))
+    hk, hv = (_pages_as(t, hbt, fmt, act).reshape(B, S_h, Hkv, Dh)
+              for t in hpools)
     keys, vals = (torch.cat([h, c], 1).permute(0, 2, 1, 3).repeat_interleave(
         Hq // Hkv, dim=1) for h, c in ((hk, k), (hv, v)))
     hpos = torch.arange(S_h, device=q.device)[None]
@@ -4490,7 +4589,7 @@ def _replay_prefill(a):
     lib = _device_ms(lambda: F.scaled_dot_product_attention(
         q.permute(0, 2, 1, 3), keys, vals, attn_mask=mask[:, None]),
         launches=10)
-    starts, table = st.tolist(), bt.tolist()
+    starts, table = st.tolist(), hbt.tolist()
     ok = page_ok.tolist() if page_ok is not None else [[1] * M] * B
     hist = {(table[b][r // ps], r % ps) for b, s in enumerate(starts)
             for r in range(max(0, s - window + 1), s)}
@@ -5076,6 +5175,404 @@ def _mamba_train_phase(dev):
     return {MAMBA_TRAIN: c}, records
 
 
+# ---------------------------------------------------------------------------
+# phase 15: kv_pages-sharded page pools on phase 5's weights and queue
+# ---------------------------------------------------------------------------
+
+SHARD_RUNS = ("sharded 2 greedy", "sharded 4 spilling greedy")
+SHARD_LONG = 170        # 15b's extra prompt: 12 pages of 16 with 16 new tokens
+SHARD_USABLE = 3        # 15b's usable pages a shard (4 pages with the trash)
+# |first-step logit gap| / max |logit| of 15b's slot that spans four
+# shards, on its own pages, against the single pool.  Its prefill writes
+# the single pool's bytes and K3 over the gathered pool gives the single
+# pool's logits bitwise (both checked), so the gap is the merge's: the
+# four shards' partials summed in another f32 order than K3's own key
+# split, then rounded into the bf16 activations of 4 layers.  The limit
+# lies between that reading (9.06e-3, PERF.md) and the planted fault's
+# (one shard's partials dropped), which must fail it.
+SHARD_LOGIT_TOL = 2e-2
+
+
+def _sharded_run(cfg, params, prompts, label, n_shards, **kw):
+    """Serve `prompts` (16 new tokens each) greedy on a 4-slot engine over
+    a pool split into `n_shards` shards of the card (`make_serving_mesh`),
+    one step at a time, counting the run's launches from 0 and recording
+    after each step each request's block-table row and the shards it
+    addresses.  Checks every request served and every shard's pages
+    returned.  Returns ({rid: tokens}, {rid: set of shards}, {rid: its
+    last block-table row}, the engine, the launch counts)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_serving_mesh, placement
+    from repro_torch.serve import Request, ServingEngine
+    mesh = make_serving_mesh(n_shards)
+    print(f"15 {label}: mesh {placement(mesh)}")
+    ops.reset_launches()
+    engine = ServingEngine(cfg, params, batch_slots=4, greedy=True,
+                           mesh=mesh, **kw)
+    for rid, p in enumerate(prompts):
+        engine.submit(Request(rid=rid, prompt=p, max_new_tokens=16))
+    spans, tables = {}, {}
+    decode_ms = []
+    t0 = time.perf_counter()
+    while engine.queue or (engine.slot_phase != 0).any():
+        chunks = engine.stats["prefill_chunks"]
+        s0 = time.perf_counter()
+        if not engine.step():
+            break
+        torch.cuda.synchronize()
+        if engine.stats["prefill_chunks"] == chunks:
+            decode_ms.append((time.perf_counter() - s0) * 1e3)
+        for slot, req in enumerate(engine.slot_req):
+            if req is not None:
+                row = engine.block_tables[slot].copy()
+                tables[req.rid] = row
+                spans.setdefault(req.rid, set()).update(
+                    engine.allocator.shard_of(int(p)) for p in row if p)
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    done = {r.rid: list(map(int, r.out_tokens)) for r in engine.done}
+    a = engine.allocator
+    _check(len(done) == len(prompts)
+           and all(len(t) == 16 for t in done.values()),
+           f"15 {label}: every request served 16 tokens")
+    _check(a.pages_in_use_by_shard == [0] * n_shards
+           and a.pages_free_by_shard == [a.pages_per_shard - 1] * n_shards
+           and not a._refs and not engine._held,
+           f"15 {label}: every shard's pages returned after the drain")
+    n_tok = sum(len(t) for t in done.values())
+    print(f"15 {label}: {engine.n_shards} shards of "
+          f"{a.pages_per_shard - 1} usable pages, tokens {n_tok}, wall "
+          f"{wall:.3f} s, {n_tok / wall:.2f} tok/s, mean decode step "
+          f"{float(np.mean(decode_ms)):.3f} ms over {len(decode_ms)} steps; "
+          f"peak {a.peak_in_use} pages; stats " + json.dumps(
+              {k: engine.stats[k] for k in ("shared_admissions",
+                                            "pages_shared", "cow_forks",
+                                            "prefill_chunks",
+                                            "decode_steps")}))
+    print(f"15 {label}: shards of each request's pages "
+          + json.dumps({rid: sorted(v) for rid, v in sorted(spans.items())}))
+    print(f"15 {label}: launches {json.dumps(counts)}")
+    # the attention over pages: K3 with partials on every shard and one
+    # merge a layer and decode step; one K5 a layer and chunk group, on the
+    # home shard, reading history from the gathered global pool
+    L, st = cfg.n_layers, engine.stats
+    _check(counts["merge_attn_partials"] == L * st["decode_steps"] > 0
+           and counts["paged_attention"]
+           == n_shards * counts["merge_attn_partials"]
+           and counts["paged_attention:merge"] == counts["paged_attention"],
+           f"15 {label}: K3 on every shard, one merge a layer and step")
+    _check(counts["prefill_attention"] == L * st["prefill_chunks"] > 0
+           and counts["prefill_attention:global_hist"]
+           == counts["prefill_attention"]
+           == counts["prefill_attention:tc"],
+           f"15 {label}: one K5 launch a layer and chunk group, on `tc`, "
+           f"from the global pool")
+    return done, spans, tables, engine, counts
+
+
+def _phase15_key(name, a):
+    """`_capture_calls`'s key in phase 15.  K3: its shard's partials only,
+    by whether every page its slots attend is the shard's own (a call
+    that may read none is not kept).  K5: whether page_ok masks some of
+    the chunk's writes, and how many shards one slot's history spans."""
+    if name == "paged_attention":
+        if not a["partials"]:
+            return None
+        att, own = _owned_pages(a)
+        if not bool(own.any()):
+            return None
+        return "mixed" if bool((att & ~own).any()) else "owned"
+    if a["hist_bt"] is None:
+        return None
+    pps, ps = a["k_pages"].shape[0], a["k_pages"].shape[1]
+    spans = [len({int(p) // pps for j, p in enumerate(row) if j * ps < st})
+             for row, st in zip(a["hist_bt"].tolist(), a["starts"].tolist())]
+    return bool((a["page_ok"] == 0).any()), max(spans)
+
+
+def _replay_prefill_global(a):
+    """K5 with global history on captured arguments: `_replay_prefill`'s
+    checks (page writes bitwise its plain version, attention within its
+    limit, planted faults rejected) and its attention bitwise the
+    unsharded launch over the same global pool."""
+    from repro_torch.kernels import prefill_attention as pf
+    unsharded = dict(a, k_pages=a["hist_pool_k"].clone(),
+                     v_pages=a["hist_pool_v"].clone(),
+                     block_tables=a["hist_bt"], page_ok=None,
+                     hist_pool_k=None, hist_pool_v=None, hist_bt=None)
+    want = pf.prefill_attention_paged(**unsharded)[0]
+    got = pf.prefill_attention_paged(**dict(
+        a, k_pages=a["k_pages"].clone(), v_pages=a["v_pages"].clone()))[0]
+    _check(_bits_equal(got, want),
+           f"15 K5 with global history bitwise the unsharded launch at "
+           f"{list(a['q'].shape)}")
+    r = _replay_prefill(a)
+    return r[:7] + (r[7] + "; bitwise the unsharded launch",)
+
+
+def _merge_replay(dev, a, n_shards):
+    """The merge at a captured K3 call's shapes (q, lengths and window as
+    the run had them): a random P(8,2) pool of `n_shards` sub-pools as
+    wide as the call's, slot 0's pages on shard 0 alone and the others'
+    round-robin over the shards; each shard's K3 partials (ownership as
+    page_ok) merged, against K3 over the whole pool: bitwise for slot 0,
+    within 2e-5 elsewhere, and within 1e-6 of the merge's plain version.
+    Returns (max |err|, ms, plain ms, bytes, ops, rate, library ms,
+    detail)."""
+    import torch
+    from repro_torch.kernels import paged_attention as pa
+    q, ln, win, fmt = a["q"], a["lengths"], a["window"], a["fmt_kv"]
+    B, M = a["block_tables"].shape
+    pps, ps, F = a["k_pages"].shape
+    g = torch.Generator(device=dev).manual_seed(15)
+    P = n_shards * pps
+    kp, vp = (torch.randint(-127, 128, (P, ps, F), generator=g, device=dev,
+                            dtype=torch.int32).to(torch.int8)
+              for _ in range(2))
+    bt = torch.zeros(B, M, dtype=torch.int32, device=dev)
+    bt[0] = 1 + torch.arange(M, device=dev) % (pps - 1)
+    for b in range(1, B):
+        j = torch.arange(M, device=dev)
+        bt[b] = ((b + j) % n_shards) * pps + 1 + (j + b) % (pps - 1)
+    full = pa.paged_attention(q, kp, vp, bt, ln, win, fmt_kv=fmt)
+    parts = []
+    for s in range(n_shards):
+        lo = s * pps
+        owned = (bt >= lo) & (bt < lo + pps)
+        parts.append(pa.paged_attention(
+            q, kp[lo:lo + pps], vp[lo:lo + pps],
+            torch.where(owned, bt - lo, 0).to(torch.int32), ln, win,
+            fmt_kv=fmt, page_ok=owned.to(torch.int32), partials=True))
+    o, m, l = (torch.stack([p[j] for p in parts]) for j in range(3))
+    got = pa.merge_attn_partials(o, m, l)
+    plain = pa.merge_attn_partials_plain(o, m, l)
+    _check(_bits_equal(got[0], full[0]),
+           "15 merge: a slot on one shard bitwise the unsharded K3")
+    _check(bool(torch.allclose(got, full, rtol=2e-5, atol=2e-5))
+           and bool(torch.allclose(got, plain, rtol=1e-6, atol=1e-6)),
+           "15 merge: within 2e-5 of the unsharded K3 and 1e-6 of its plain "
+           "version")
+    ms = _device_ms(lambda: pa.merge_attn_partials(o, m, l), launches=20)
+    plain_ms = _time_once_ms(lambda: pa.merge_attn_partials_plain(o, m, l))
+    # the partials read once, the output written once; per element of o an
+    # exp, two multiplies and two adds a shard, and one division
+    nbytes = (o.numel() + m.numel() + l.numel() + got.numel()) * 4
+    flops = o.numel() * 4.0 + got.numel()
+    return (float((got - full).abs().max()), ms, plain_ms, nbytes, flops,
+            F32_FLOP_PER_S, None,
+            f"{n_shards} shards, rows {list(got.shape)}; slot 0 bitwise the "
+            f"unsharded K3")
+
+
+def _sharded_record(name, counter, rows, source, replaces, label):
+    """A kernels-line record over replayed signatures (sums, as
+    `_replay_smoke_calls` builds them), counting the launches of the run
+    `label`, whose signatures they are."""
+    bounds = [_bound(r[3], r[4], r[5]) for r in rows]
+    libs = [r[6] for r in rows]
+    for r, b in zip(rows, bounds):
+        print(f"15 {name}: ms {r[1]:.4f}, plain_ms {r[2]:.3f}, bound_ms "
+              f"{b[0]:.4f} ({b[1]}), library_ms "
+              f"{'none' if r[6] is None else f'{r[6]:.4f}'}, max_abs_err "
+              f"{r[0]:.3g}; {r[7]}")
+    return dict(name=f"{name} ({label}: {len(rows)} call signatures)",
+                counter=counter, paths=(label,), source=source,
+                replaces=replaces, max_abs_err=max(r[0] for r in rows),
+                ms=sum(r[1] for r in rows), call_ms=None,
+                plain_ms=sum(r[2] for r in rows),
+                bound_ms=sum(b[0] for b in bounds), bound_by=max(bounds)[1],
+                library_ms=None if None in libs else sum(libs))
+
+
+def _launcher_on_card():
+    """15c: `python -m repro_torch.launch.serve --mesh-model 2` at smoke
+    width on the card in a subprocess; it must exit 0 and print the
+    mesh's placement and each shard's occupancy."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.join(HERE, "src")]
+        + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep)
+           if p]))
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+           "command_r_35b", "--smoke", "--quant", "serve_fused_p16",
+           "--mesh-model", "2", "--requests", "4", "--new-tokens", "8"]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, cwd=HERE, env=env, capture_output=True,
+                         text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if res.returncode != 0:
+        print(res.stdout[-4000:])
+        print(res.stderr[-4000:], file=sys.stderr)
+    _check(res.returncode == 0, "15c: the serving launcher exits 0")
+    out = res.stdout
+    _check("[serve] mesh: model[0]=cuda:0 model[1]=cuda:0" in out
+           and "per-device page occupancy: d0=0/" in out,
+           "15c: the launcher prints the placement and the occupancy")
+    for line in out.strip().splitlines():
+        print(f"15c launcher: {line}")
+    print(f"15c launcher: {' '.join(cmd[1:])}: exit 0 in {wall:.1f} s")
+
+
+def _spanning_first_step(cfg, params, prompt, table, n_pages, dev):
+    """15b's spanning slot on its own pages: `prompt` prefilled into slot 0
+    of a pool of `n_pages` split over four shards, its block-table row
+    `table` (the engine's), then one greedy decode step, against the same
+    over the single pool.  Checks the prefill's logits and the slot's pool
+    bytes bitwise the single pool's, and K3 over the gathered pool (no
+    merge) bitwise the single pool's first-step logits; reads the merged
+    step's gap and that of a planted fault (one shard's partials dropped).
+    Returns (the gap, the fault's gap), each max |logit diff| / max
+    |logit|."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import api
+    one_c, _, one_pre, one_nxt = _prefill_slot0(cfg, params, prompt, dev, 256)
+    sh_c, shard, sh_pre, sh_nxt = _prefill_slot0(
+        cfg, params, prompt, dev, 256, shards=4, n_pages=n_pages, table=table)
+    _check(_bits_equal(sh_pre, one_pre) and torch.equal(sh_nxt, one_nxt),
+           "15b: the spanning slot's prefill logits bitwise the single pool's")
+    n = len(prompt)
+
+    def slot_rows(cache, key):
+        pool = cache[key]
+        if isinstance(pool, list):
+            pool = torch.cat(pool, 1)
+        rows = pool[:, cache["block_table"][0].long()]
+        return rows.reshape(rows.shape[0], -1, rows.shape[-1])[:, :n]
+
+    _check(all(_bits_equal(slot_rows(sh_c, key), slot_rows(one_c, key))
+               for key in ("k", "v")),
+           "15b: the spanning slot's prefill writes the single pool's bytes")
+    gathered = dict(sh_c, k=torch.cat(sh_c["k"], 1), v=torch.cat(sh_c["v"], 1))
+
+    def step(cache, shard=None):
+        return api.decode_step(params, one_nxt, cache, cfg,
+                               shard=shard)[0][0].float()
+
+    one = step(one_c)
+    _check(_bits_equal(step(gathered), one),
+           "15b: K3 over the gathered pool gives the single pool's "
+           "first-step logits bitwise")
+    merged = step(sh_c, shard)
+    merge, drop = ops.merge_attn_partials, 1
+
+    def dropped(o, m, l):
+        o, m, l = list(o), list(m), list(l)
+        o[drop], l[drop] = torch.zeros_like(o[drop]), torch.zeros_like(l[drop])
+        m[drop] = torch.full_like(m[drop], -2e38)
+        return merge(o, m, l)
+
+    ops.merge_attn_partials = dropped
+    try:
+        fault = step(sh_c, shard)
+    finally:
+        ops.merge_attn_partials = merge
+    scale = float(one.abs().max())
+    shards = sorted({int(p) // (n_pages // 4) for p in table.tolist() if p})
+    print(f"15b: the spanning slot's pages {table.tolist()} (shards "
+          f"{shards}): prefill logits and pool bytes bitwise the single "
+          f"pool's; K3 over the gathered pool bitwise its first-step logits")
+    return (float((merged - one).abs().max()) / scale,
+            float((fault - one).abs().max()) / scale)
+
+
+def _sharded_phase(cfg, params, prompts, paged_greedy, dev):
+    """Phase 15 on phase 5's weights and queue.  Returns ({run label:
+    launch counts}, the kernel records)."""
+    import numpy as np
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.models import paged
+    label_a, label_b = SHARD_RUNS
+    base = dict(max_seq=256, page_size=16, base_seed=1)
+    names = ("prefill_attention_paged", "paged_attention")
+    # 15a: two shards, the default pool
+    with _capture_calls(names=names, key=_phase15_key) as calls_a:
+        greedy_a, spans_a, _, eng, c_a = _sharded_run(cfg, params, prompts,
+                                                      label_a, 2, **base)
+    subs = paged.layer_pools(eng.cache["k"], 0)
+    _check(eng.n_shards == 2 and len(subs) == 2
+           and paged.global_pool(subs, subs[0].device).data_ptr()
+           == subs[0].data_ptr(),
+           "15a: two sub-pools of one card, gathered as a view (no copy)")
+    single = sorted(r for r, v in spans_a.items() if len(v) == 1)
+    equal = [r for r in single if greedy_a[r] == paged_greedy[r]]
+    print(f"15a: greedy streams equal to phase 5's: "
+          f"{sum(greedy_a[r] == paged_greedy[r] for r in greedy_a)} of "
+          f"{len(greedy_a)}; single-shard slots {single}, bitwise "
+          f"{equal}")
+    _check(single and equal == single,
+           "15a: every single-shard slot's greedy stream is phase 5's")
+    del eng
+    # 15b: four shards of 3 usable pages; the long prompt needs all 12
+    long = np.random.default_rng(15).integers(
+        0, cfg.vocab_size, SHARD_LONG).astype(np.int32)
+    n_pages = 4 * (SHARD_USABLE + 1)
+    with _capture_calls(names=names, key=_phase15_key) as calls_b:
+        greedy_b, spans_b, tables_b, eng, c_b = _sharded_run(
+            cfg, params, prompts + [long], label_b, 4, n_pages=n_pages,
+            **base)
+    del eng
+    spanning = sorted(r for r, v in spans_b.items() if len(v) == 4)
+    _check(len(prompts) in spanning, "15b: the long prompt's slot spans all "
+                                     "four shards")
+    same = sum(greedy_b[r] == paged_greedy[r] for r in range(len(prompts)))
+    gap, fault = _spanning_first_step(cfg, params, long,
+                                      tables_b[len(prompts)], n_pages, dev)
+    print(f"15b: slots spanning all four shards {spanning}; greedy streams "
+          f"of phase 5's 8 requests equal to phase 5's: {same} of "
+          f"{len(prompts)}; the long prompt's first decode step on its "
+          f"engine pages over four shards vs the single pool: max |logit "
+          f"diff| / max |logit| = {gap:.3g} (limit {SHARD_LOGIT_TOL}); "
+          f"with shard 1's partials dropped {fault:.3g}")
+    _check(gap <= SHARD_LOGIT_TOL < fault,
+           "15b: the spanning slot's first-step logits within "
+           "SHARD_LOGIT_TOL, and the planted fault outside it")
+    # a sharded decode step profiled: the device's share of its window
+    _profile(cfg, params, prompts, "sharded 2", mesh=make_serving_mesh(2),
+             **base)
+    # replays: every signature each run captured, counting that run's
+    # launches: K5 with global history, K3's shard partials, the merge at
+    # each K3 shape with the run's shard count
+    records = []
+    for label, calls, n_shards in ((label_a, calls_a, 2),
+                                   (label_b, calls_b, 4)):
+        k5 = [a for name, a in calls if name == "prefill_attention_paged"]
+        k3 = [a for name, a in calls if name == "paged_attention"]
+        keys = [_phase15_key("prefill_attention_paged", a) for a in k5]
+        print(f"15 {label}: K5 signatures (masked writes, shards one "
+              f"slot's history spans) {keys}; K3 partials signatures "
+              f"{[_phase15_key('paged_attention', a) for a in k3]}")
+        _check(bool(k5) and bool(k3), f"15 {label}: K5 and K3 captured")
+        if n_shards == 4:
+            _check(any(masked and hist > 1 for masked, hist in keys),
+                   f"15 {label}: a K5 call with history on several shards "
+                   f"and masked writes replayed")
+        shapes = {}
+        for a in k3:
+            shapes.setdefault((tuple(a["q"].shape), tuple(a["k_pages"].shape),
+                               tuple(a["block_tables"].shape)), a)
+        records += [
+            _sharded_record(
+                "prefill_attention (global history)", "prefill_attention",
+                [_replay_prefill_global(a) for a in k5],
+                "src/repro_torch/csrc/prefill_attention.cu",
+                "src/repro/kernels/prefill_attention.py:251", label),
+            _sharded_record(
+                "paged_attention (shard partials)", "paged_attention",
+                [_replay_paged(a) for a in k3],
+                "src/repro_torch/csrc/paged_attention.cu",
+                "src/repro/kernels/paged_attention.py:266", label),
+            _sharded_record(
+                f"merge_attn_partials ({n_shards} shards)",
+                "merge_attn_partials",
+                [_merge_replay(dev, a, n_shards) for a in shapes.values()],
+                "src/repro_torch/csrc/paged_attention.cu",
+                "src/repro/kernels/ops.py:244", label)]
+    _launcher_on_card()
+    return {label_a: c_a, label_b: c_b}, records
+
+
 def _attribute_launches(kernels, runs):
     """Fill each kernel record's launches from the main-path runs' own
     counts (each from 0): launches_by_path, each run's count of the
@@ -5191,6 +5688,9 @@ def main() -> int:
     # ---- phase 10c: the dense cache on phase 5's weights and requests
     counts10 = {"dense cache greedy": _dense_cache_phase(
         cfg, params, prompts, greedy, dev)}
+    # ---- phase 15: kv_pages-sharded pools on phase 5's weights and queue
+    counts15, recs = _sharded_phase(cfg, params, prompts, greedy, dev)
+    kernels.extend(recs)
     # the engines hold reference cycles (bound methods): collect them so
     # that each later phase starts with only its own weights on the card
     del params
@@ -5290,7 +5790,8 @@ def main() -> int:
         _check(c["prefill_attention"] > 0
                and c["prefill_attention:tc"] == c["prefill_attention"],
                f"'{label}': every K5 launch took the tensor-core variant")
-    runs = dict(counts, **counts10, **train_runs, **counts13, **counts14)
+    runs = dict(counts, **counts10, **train_runs, **counts13, **counts14,
+                **counts15)
     _attribute_launches(kernels, runs)
     keys = ("name", "route", "source", "replaces", "launches",
             "launches_by_path", "launches_by_variant", "max_abs_err", "ms",

@@ -520,3 +520,51 @@ extern "C" int paged_attention_mq_launch(
                   Hkv, Dh, kv_kind, n, es, SP, S, scale, softcap, true,
                   stream);
 }
+
+// merge_attn_partials: the log-sum-exp merge of a kv_pages-sharded pool's
+// per-shard K3 / K7 partials (replaces the reference's plain
+// kernels/ops.py:244 merge_attn_partials, a pmax and two psums over the
+// shard axis).  Shard s's partials o [S, rows, Dh], m / l [S, rows] are
+// rescaled to the rows' global max and summed in shard order, then
+// normalized: w = exp(m_s - max), l = sum l_s w, o = sum o_s w,
+// out = o / max(l, 1e-30).  The products and sums are rounded one by one
+// (no fused multiply-add), and the division is K3's finalize, so a row
+// whose pages all lie on one shard comes out bitwise K3's unsharded
+// output: its shard has w = 1 and every other shard m = -2e38, l = 0,
+// o = 0, hence w = 0.  One thread per (row, dim).
+namespace {
+
+__global__ void attn_shard_merge_kernel(const float* __restrict__ o,
+                                        const float* __restrict__ m,
+                                        const float* __restrict__ l,
+                                        float* __restrict__ out, int S,
+                                        long long rows, int Dh) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= rows * Dh) return;
+  const long long row = i / Dh;
+  float mx = m[row];
+  for (int s = 1; s < S; ++s) mx = fmaxf(mx, m[s * rows + row]);
+  float lt = 0.0f, ot = 0.0f;
+  for (int s = 0; s < S; ++s) {
+    const float w = expf(m[s * rows + row] - mx);
+    lt = __fadd_rn(lt, __fmul_rn(l[s * rows + row], w));
+    ot = __fadd_rn(ot, __fmul_rn(o[s * rows * Dh + i], w));
+  }
+  out[i] = ot / fmaxf(lt, 1e-30f);
+}
+
+}  // namespace
+
+// o [S, rows, Dh], m / l [S, rows] f32 (S shards' partials, contiguous);
+// out [rows, Dh] f32.
+extern "C" int attn_shard_merge_launch(const void* o, const void* m,
+                                       const void* l, void* out, int S,
+                                       long long rows, int Dh, void* stream) {
+  const long long total = rows * Dh;
+  if (S < 1 || total <= 0) return S < 1 ? (int)cudaErrorInvalidValue : 0;
+  attn_shard_merge_kernel<<<(unsigned)((total + 255) / 256), 256, 0,
+                            reinterpret_cast<cudaStream_t>(stream)>>>(
+      (const float*)o, (const float*)m, (const float*)l, (float*)out, S,
+      rows, Dh);
+  return (int)cudaGetLastError();
+}

@@ -97,6 +97,19 @@
 // skip (tile_live) does not know the window: a slow spot for f32 and odd
 // head dims only.  The wrapper picks the variant by dtype and head_dim
 // (kernels/prefill_attention.py:prefill_variant).
+//
+// kv_pages-sharded pools (the reference's hist_pool_k / hist_pool_v /
+// hist_bt, prefill_attention.py:129-130): every variant reads history
+// through one pair of pool pointers and one block table, hist_k / hist_v
+// / hbt, and writes the chunk's rows through k_pages / v_pages, bt and
+// page_ok.  Unsharded they are the same pools and table.  Under a shard
+// the caller passes the gathered global pool and the global ids for the
+// reads, and the shard's own pool with the localized ids and their
+// ownership mask for the writes.  A launch reads the same codes in the
+// same order either way, so its attention output is bitwise the
+// unsharded launch's over the same history bytes.  The reads cover rows
+// < start and the writes rows >= start, so the two pointer pairs never
+// touch one element from both sides when they alias.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -196,7 +209,9 @@ __global__ void __launch_bounds__(kThreads) prefill_attention_simt_kernel(
     const AT* __restrict__ v, PT* __restrict__ k_pages,
     PT* __restrict__ v_pages, const int* __restrict__ bt,
     const int* __restrict__ starts, const int* __restrict__ window,
-    const int* __restrict__ page_ok, AT* __restrict__ out, int C, int M,
+    const int* __restrict__ page_ok, const PT* __restrict__ hist_k,
+    const PT* __restrict__ hist_v, const int* __restrict__ hbt,
+    AT* __restrict__ out, int C, int M,
     int ps, int Hq, int Hkv, int Dh, int n, int es, int hist_bf16, int QT,
     int ck, float scale, float softcap) {
   const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
@@ -209,6 +224,7 @@ __global__ void __launch_bounds__(kThreads) prefill_attention_simt_kernel(
   const int start = starts[b];
   const long long win = window[0];
   const int* bt_row = bt + (size_t)b * M;
+  const int* hbt_row = hbt + (size_t)b * M;
 
   extern __shared__ float smem[];
   float* q_s = smem;                    // [R][Dh], pre-scaled
@@ -267,7 +283,7 @@ __global__ void __launch_bounds__(kThreads) prefill_attention_simt_kernel(
         continue;
       }
       __syncthreads();  // the previous tile's readers are done with kv_s
-      stage_tile(k_pages, k, bt_row, b, h, t0, nt, S_h, C, start, ps, F,
+      stage_tile(hist_k, k, hbt_row, b, h, t0, nt, S_h, C, start, ps, F,
                  Hkv, Dh, n, es, hist_bf16, kv_s, pos_s);
       __syncthreads();
       for (int i = tid; i < R * kKT; i += kThreads) {
@@ -324,7 +340,7 @@ __global__ void __launch_bounds__(kThreads) prefill_attention_simt_kernel(
       const int nt = min(kKT, base + ck - t0);
       if (!tile_live(t0, nt, S_h, C, start)) continue;
       __syncthreads();  // kv_s free, and p of every row written
-      stage_tile(v_pages, v, bt_row, b, h, t0, nt, S_h, C, start, ps, F,
+      stage_tile(hist_v, v, hbt_row, b, h, t0, nt, S_h, C, start, ps, F,
                  Hkv, Dh, n, es, hist_bf16, kv_s, pos_s);
       __syncthreads();
       for (int i = tid; i < R * Dh; i += kThreads) {
@@ -370,7 +386,8 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
 template <typename AT, typename PT>
 int launch_simt(const void* q, const void* k, const void* v, void* k_pages,
            void* v_pages, const int* bt, const int* starts, const int* window,
-           const int* page_ok, void* out, int B, int C, int M, int ps, int Hq,
+           const int* page_ok, const void* hist_k, const void* hist_v,
+           const int* hbt, void* out, int B, int C, int M, int ps, int Hq,
            int Hkv, int Dh, int n, int es, int hist_bf16, int ck, float scale,
            float softcap, cudaStream_t s) {
   const int G = Hq / Hkv;
@@ -383,8 +400,9 @@ int launch_simt(const void* q, const void* k, const void* v, void* k_pages,
   dim3 grid((C + QT - 1) / QT, Hkv, B);
   prefill_attention_simt_kernel<AT, PT><<<grid, kThreads, smem, s>>>(
       (const AT*)q, (const AT*)k, (const AT*)v, (PT*)k_pages, (PT*)v_pages,
-      bt, starts, window, page_ok, (AT*)out, C, M, ps, Hq, Hkv, Dh, n, es,
-      hist_bf16, QT, ck, scale, softcap);
+      bt, starts, window, page_ok, (const PT*)hist_k, (const PT*)hist_v, hbt,
+      (AT*)out, C, M, ps, Hq, Hkv, Dh, n, es, hist_bf16, QT, ck, scale,
+      softcap);
   return (int)cudaGetLastError();
 }
 
@@ -505,7 +523,9 @@ __global__ void __launch_bounds__(256) prefill_attention_span_kernel(
     PT* __restrict__ k_pages, PT* __restrict__ v_pages,
     const int* __restrict__ bt, const int* __restrict__ starts,
     const int* __restrict__ window, const int* __restrict__ page_ok,
-    bf16* __restrict__ span, int B, int C, int M, int ps, int Hkv, int Dh,
+    const PT* __restrict__ hist_k, const PT* __restrict__ hist_v,
+    const int* __restrict__ hbt, bf16* __restrict__ span, int B, int C,
+    int M, int ps, int Hkv, int Dh,
     int L, int n, int es) {
   constexpr bool kTable = std::is_same<PT, int8_t>::value;
   __shared__ float table[kTable ? 256 : 1];
@@ -527,7 +547,8 @@ __global__ void __launch_bounds__(256) prefill_attention_span_kernel(
   uint4 val = make_uint4(0u, 0u, 0u, 0u);
   if (t < S_h) {
     if (t < start) {
-      const PT* src = pages + ((size_t)bt[b * M + t / ps] * ps + t % ps) * F +
+      const PT* src = (is_v ? hist_v : hist_k) +
+                      ((size_t)hbt[b * M + t / ps] * ps + t % ps) * F +
                       h * Dh + d0;
       float x[8];
 #pragma unroll
@@ -1080,28 +1101,32 @@ int tc256_split_tiles(int n_tiles) {
 template <typename PT>
 cudaError_t launch_span(const void* k, const void* v, void* k_pages,
                         void* v_pages, const int* bt, const int* starts,
-                        const int* window, const int* page_ok, void* span,
-                        int B, int C, int M, int ps, int Hkv, int Dh, int L,
-                        int n, int es, cudaStream_t s) {
+                        const int* window, const int* page_ok,
+                        const void* hist_k, const void* hist_v,
+                        const int* hbt, void* span, int B, int C, int M,
+                        int ps, int Hkv, int Dh, int L, int n, int es,
+                        cudaStream_t s) {
   const int rows = 128 / (Dh / 8);
   prefill_attention_span_kernel<PT>
       <<<dim3((L + rows - 1) / rows, Hkv, B), 256, 0, s>>>(
       (const bf16*)k, (const bf16*)v, (PT*)k_pages, (PT*)v_pages, bt, starts,
-      window, page_ok, (bf16*)span, B, C, M, ps, Hkv, Dh, L, n, es);
+      window, page_ok, (const PT*)hist_k, (const PT*)hist_v, hbt,
+      (bf16*)span, B, C, M, ps, Hkv, Dh, L, n, es);
   return cudaGetLastError();
 }
 
 template <typename PT>
 int launch_tc(const void* q, const void* k, const void* v, void* k_pages,
               void* v_pages, const int* bt, const int* starts,
-              const int* window, const int* page_ok, void* out, void* span,
+              const int* window, const int* page_ok, const void* hist_k,
+              const void* hist_v, const int* hbt, void* out, void* span,
               int B, int C, int M, int ps, int Hq, int Hkv, int Dh, int n,
               int es, float scale, float softcap, cudaStream_t s) {
   if (Dh % 16 != 0 || Dh > kDMax) return (int)cudaErrorInvalidValue;
   const int L = (M * ps + C + kTcKeys - 1) / kTcKeys * kTcKeys;
   cudaError_t e = launch_span<PT>(k, v, k_pages, v_pages, bt, starts, window,
-                                  page_ok, span, B, C, M, ps, Hkv, Dh, L, n,
-                                  es, s);
+                                  page_ok, hist_k, hist_v, hbt, span, B, C, M,
+                                  ps, Hkv, Dh, L, n, es, s);
   if (e != cudaSuccess) return (int)e;
   const size_t smem = tc_smem_bytes(Dh);
   e = allow_smem(prefill_attention_tc_kernel, smem);
@@ -1117,7 +1142,8 @@ int launch_tc(const void* q, const void* k, const void* v, void* k_pages,
 template <typename PT>
 int launch_tc256(const void* q, const void* k, const void* v, void* k_pages,
                  void* v_pages, const int* bt, const int* starts,
-                 const int* window, const int* page_ok, void* out, void* span,
+                 const int* window, const int* page_ok, const void* hist_k,
+                 const void* hist_v, const int* hbt, void* out, void* span,
                  void* part_o, void* part_ml, int B, int C, int M, int ps,
                  int Hq, int Hkv, int Dh, int n, int es, int splits,
                  float scale, float softcap, cudaStream_t s) {
@@ -1129,8 +1155,8 @@ int launch_tc256(const void* q, const void* k, const void* v, void* k_pages,
   if (splits != S || (S > 1 && (part_o == nullptr || part_ml == nullptr)))
     return (int)cudaErrorInvalidValue;
   cudaError_t e = launch_span<PT>(k, v, k_pages, v_pages, bt, starts, window,
-                                  page_ok, span, B, C, M, ps, Hkv, Dh, L, n,
-                                  es, s);
+                                  page_ok, hist_k, hist_v, hbt, span, B, C, M,
+                                  ps, Hkv, Dh, L, n, es, s);
   if (e != cudaSuccess) return (int)e;
   int ex;
   auto kernel = std::frexp(scale, &ex) == 0.5f
@@ -1158,7 +1184,8 @@ int launch_tc256(const void* q, const void* k, const void* v, void* k_pages,
 template <typename AT>
 int launch_pool(int variant, int pool_kind, const void* q, const void* k,
                 const void* v, void* kp, void* vp, const int* bt,
-                const int* st, const int* win, const int* ok, void* out,
+                const int* st, const int* win, const int* ok,
+                const void* hk, const void* hv, const int* hbt, void* out,
                 void* span, void* part_o, void* part_ml, int B, int C, int M,
                 int ps, int Hq, int Hkv, int Dh, int n, int es, int hist_bf16,
                 int ck, int splits, float scale, float softcap,
@@ -1166,19 +1193,20 @@ int launch_pool(int variant, int pool_kind, const void* q, const void* k,
   constexpr bool kBf16 = std::is_same<AT, __nv_bfloat16>::value;
 #define K5_LAUNCH(PT)                                                        \
   if (variant == 1)                                                          \
-    return kBf16 ? launch_tc<PT>(q, k, v, kp, vp, bt, st, win, ok, out,      \
-                                 span, B, C, M, ps, Hq, Hkv, Dh, n, es,      \
-                                 scale, softcap, s)                          \
+    return kBf16 ? launch_tc<PT>(q, k, v, kp, vp, bt, st, win, ok, hk, hv,  \
+                                 hbt, out, span, B, C, M, ps, Hq, Hkv, Dh,   \
+                                 n, es, scale, softcap, s)                   \
                  : (int)cudaErrorInvalidValue;                               \
   if (variant == 2)                                                          \
-    return kBf16 ? launch_tc256<PT>(q, k, v, kp, vp, bt, st, win, ok, out,   \
-                                    span, part_o, part_ml, B, C, M, ps, Hq,  \
+    return kBf16 ? launch_tc256<PT>(q, k, v, kp, vp, bt, st, win, ok, hk,   \
+                                    hv, hbt, out, span, part_o, part_ml, B,  \
+                                    C, M, ps, Hq,                            \
                                     Hkv, Dh, n, es, splits, scale, softcap,  \
                                     s)                                       \
                  : (int)cudaErrorInvalidValue;                               \
-  return launch_simt<AT, PT>(q, k, v, kp, vp, bt, st, win, ok, out, B, C, M, \
-                             ps, Hq, Hkv, Dh, n, es, hist_bf16, ck, scale,   \
-                             softcap, s)
+  return launch_simt<AT, PT>(q, k, v, kp, vp, bt, st, win, ok, hk, hv, hbt,  \
+                             out, B, C, M, ps, Hq, Hkv, Dh, n, es,           \
+                             hist_bf16, ck, scale, softcap, s)
   switch (pool_kind) {
     case 0:
       K5_LAUNCH(int8_t);
@@ -1206,12 +1234,17 @@ int launch_pool(int variant, int pool_kind, const void* q, const void* k,
 // partials part_o [B * C * Hq, splits, Dh] and part_ml [.., splits, 2]).
 // hist_bf16: round decoded history to bf16 (the kv_decode dtype chain;
 // always so on the tensor-core variants).  page_ok may be null (every page
-// writable).  Returns 0, a CUDA error code, or -1 (kRefused) when variant
+// writable).  hist_k / hist_v / hist_bt (all three or none): the pools and
+// the [B, M] block tables history is read from (a sharded pool's gathered
+// global pool and global ids); null reads history from k_pages / v_pages
+// through bt.  Writes always go to k_pages / v_pages through bt and
+// page_ok.  Returns 0, a CUDA error code, or -1 (kRefused) when variant
 // 2 does not take Dh.
 extern "C" int prefill_attention_launch(
     const void* q, const void* k, const void* v, void* k_pages, void* v_pages,
     const void* bt, const void* starts, const void* window,
-    const void* page_ok, void* out, void* span, void* part_o, void* part_ml,
+    const void* page_ok, const void* hist_k, const void* hist_v,
+    const void* hist_bt, void* out, void* span, void* part_o, void* part_ml,
     int B, int C, int M, int ps, int Hq, int Hkv, int Dh, int act_kind,
     int pool_kind, int n, int es, int hist_bf16, int ck, int variant,
     int splits, float scale, float softcap, void* stream) {
@@ -1221,16 +1254,24 @@ extern "C" int prefill_attention_launch(
   const int* win_i = (const int*)window;
   const int* ok_i = (const int*)page_ok;
   if (variant < 0 || variant > 2) return (int)cudaErrorInvalidValue;
+  if ((hist_k == nullptr) != (hist_v == nullptr) ||
+      (hist_k == nullptr) != (hist_bt == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const void* hk = hist_k != nullptr ? hist_k : k_pages;
+  const void* hv = hist_v != nullptr ? hist_v : v_pages;
+  const int* hbt = hist_bt != nullptr ? (const int*)hist_bt : bt_i;
   if (act_kind == 0) {
     return launch_pool<float>(variant, pool_kind, q, k, v, k_pages, v_pages,
-                              bt_i, st_i, win_i, ok_i, out, span, part_o,
+                              bt_i, st_i, win_i, ok_i, hk, hv, hbt, out,
+                              span, part_o,
                               part_ml, B, C, M, ps, Hq, Hkv, Dh, n, es,
                               hist_bf16, ck, splits, scale, softcap, s);
   }
   if (act_kind == 1) {
     return launch_pool<__nv_bfloat16>(
         variant, pool_kind, q, k, v, k_pages, v_pages, bt_i, st_i, win_i,
-        ok_i, out, span, part_o, part_ml, B, C, M, ps, Hq, Hkv, Dh, n, es,
+        ok_i, hk, hv, hbt, out, span, part_o, part_ml, B, C, M, ps, Hq, Hkv,
+        Dh, n, es,
         hist_bf16, ck, splits, scale, softcap, s);
   }
   return (int)cudaErrorInvalidValue;

@@ -37,13 +37,14 @@ _SIGNATURES = {
     "paged_attention": {
         "paged_attention_launch": [_P] * 12 + [_I] * 11 + [_F, _F, _P],
         "paged_attention_mq_launch": [_P] * 12 + [_I] * 13 + [_F, _F, _P],
+        "attn_shard_merge_launch": [_P] * 4 + [_I, _LL, _I, _P],
     },
     "decode_sample": {
         "decode_sample_tiles": [_I, _I],
         "decode_sample_launch": [_P] * 7 + [_I] * 9 + [_F, _F, _I, _I, _P],
     },
     "prefill_attention": {
-        "prefill_attention_launch": [_P] * 13 + [_I] * 15 + [_F, _F, _P],
+        "prefill_attention_launch": [_P] * 16 + [_I] * 15 + [_F, _F, _P],
     },
     "posit_matmul": {
         "posit_matmul_launch": [_P] * 6 + [_I] * 15 + [_P],

@@ -101,14 +101,27 @@ def prefill_attention_paged(q, k, v, k_pages, v_pages, block_tables, starts,
                             window, fmt_kv: PositFormat | None = None,
                             compute_dtype=torch.float32,
                             softcap_val: float = 0.0, flash_chunk: int = 1024,
-                            page_ok=None):
+                            page_ok=None, hist_pool_k=None, hist_pool_v=None,
+                            hist_bt=None):
     """Fused prefill (K5 on CUDA): chunk attention + posit KV encode + page
     insert in one launch, the pools written in place; on the CPU the
-    decomposed stages op for op.  See kernels/prefill_attention.py."""
+    decomposed stages op for op.  Sharded pools pass the gathered global
+    pool (hist_pool_k/v) and the global block tables as hist_bt beside the
+    shard's pools, its localized block tables and their ownership mask as
+    page_ok.  See kernels/prefill_attention.py."""
     return prefill_attention_mod.prefill_attention_paged(
         q, k, v, k_pages, v_pages, block_tables, starts, window,
         fmt_kv=fmt_kv, compute_dtype=compute_dtype, softcap_val=softcap_val,
-        flash_chunk=flash_chunk, page_ok=page_ok)
+        flash_chunk=flash_chunk, page_ok=page_ok, hist_pool_k=hist_pool_k,
+        hist_pool_v=hist_pool_v, hist_bt=hist_bt)
+
+
+def merge_attn_partials(o, m, l):
+    """Log-sum-exp merge of a sharded pool's per-shard paged-attention
+    partials (stacked over the shards, or lists), bitwise K3's unsharded
+    output for a row whose pages all lie on one shard.  See
+    kernels/paged_attention.py."""
+    return paged_attention_mod.merge_attn_partials(o, m, l)
 
 
 def fused_matmul(a_codes, b_codes, fmt_a: PositFormat, fmt_b: PositFormat,

@@ -6,7 +6,10 @@ epilogue (head GEMM + sampler): CUDA kernels and their plain versions.
 decode token per slot, and K7 (the same source, replacing
 `_paged_attention_mq`) for a 4-D query, the T tokens of a speculative
 verify; `decode_sample` (K4, `csrc/decode_sample.cu`) replaces
-`repro/kernels/paged_attention.py:decode_sample`.  On a CUDA tensor each
+`repro/kernels/paged_attention.py:decode_sample`; `merge_attn_partials`
+(the same source as K3) replaces the reference's plain
+`repro/kernels/ops.py:merge_attn_partials`, the log-sum-exp merge of a
+sharded pool's per-shard K3 / K7 partials.  On a CUDA tensor each
 wrapper launches its kernel; on a CPU tensor it runs the plain PyTorch
 version beside it, which states the same function densely.
 """
@@ -28,7 +31,7 @@ LAUNCHES = {"paged_attention": 0, "paged_attention:merge": 0,
             "paged_attention_mq": 0, "paged_attention_mq:merge": 0,
             "decode_sample": 0, "decode_sample:p16_2": 0,
             "decode_sample:posit": 0, "decode_sample:f32": 0,
-            "decode_sample:bf16": 0}
+            "decode_sample:bf16": 0, "merge_attn_partials": 0}
 _KINDS = {torch.int8: 0, torch.int16: 1, torch.float32: 2, torch.bfloat16: 3}
 _SAMPLE_VARIANTS = {"posit": 0, "p16_2": 1, "f32": 2, "bf16": 3}
 # K3 / K7 split a slot's key span across blocks: a split holds
@@ -237,6 +240,59 @@ def paged_attention(q, k_pages, v_pages, block_tables, lengths, window,
         if n_splits > 1:
             LAUNCHES[f"{kernel}:merge"] += 1
     return (out, m, l) if partials else out
+
+
+# ---------------------------------------------------------------------------
+# the sharded pools' merge of per-shard partials
+# ---------------------------------------------------------------------------
+
+def _stacked(parts, home):
+    if isinstance(parts, (list, tuple)):
+        return torch.stack([t.to(home) for t in parts])
+    return parts
+
+
+def merge_attn_partials_plain(o, m, l):
+    """The merge below, plain: shard order, one rounding per product and
+    per sum, K3's finalize."""
+    mx = m.amax(0)
+    lt = torch.zeros_like(l[0])
+    ot = torch.zeros_like(o[0])
+    for s in range(o.shape[0]):
+        w = torch.exp(m[s] - mx)
+        lt = lt + l[s] * w
+        ot = ot + o[s] * w[..., None]
+    return ot / torch.clamp(lt, min=1e-30)[..., None]
+
+
+def merge_attn_partials(o, m, l):
+    """Log-sum-exp merge of the per-shard partials of `paged_attention(...,
+    page_ok=<the shard's ownership>, partials=True)`: o [S, B, (T,) Hq,
+    Dh], m / l [S, B, (T,) Hq] f32, stacked over the S shards or given as
+    lists of S tensors (moved to the first one's device).  Every shard's
+    state is rescaled to the rows' global max, summed in shard order and
+    normalized as K3 normalizes, o / max(l, 1e-30), dividing: a row whose
+    pages all lie on one shard is bitwise K3's unsharded output (the other
+    shards hold m = -2e38, l = 0, so their weight is 0).  Returns
+    [B, (T,) Hq, Dh] f32."""
+    home = (o[0] if isinstance(o, (list, tuple)) else o).device
+    o, m, l = (_stacked(t, home) for t in (o, m, l))
+    if o.shape[:-1] != m.shape or l.shape != m.shape:
+        raise ValueError(f"partials o {tuple(o.shape)}, m {tuple(m.shape)}, "
+                         f"l {tuple(l.shape)} do not match")
+    if o.device.type == "cpu":
+        return merge_attn_partials_plain(o, m, l)
+    o, m, l = (t.to(torch.float32).contiguous() for t in (o, m, l))
+    _build.require_cuda("merge_attn_partials", o, m, l)
+    out = torch.empty(o.shape[1:], dtype=torch.float32, device=o.device)
+    S, Dh = o.shape[0], o.shape[-1]
+    rows = m[0].numel()
+    if rows:
+        _build.check(_build.library("paged_attention").attn_shard_merge_launch(
+            o.data_ptr(), m.data_ptr(), l.data_ptr(), out.data_ptr(), S, rows,
+            Dh, _build.stream_of(o)), "merge_attn_partials")
+        LAUNCHES["merge_attn_partials"] += 1
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -12,8 +12,14 @@ launcher refuses it;
 on a CPU tensor it runs the plain version, the decomposed stages
 (gather -> encode -> insert -> decode -> flash attention) of
 `decomposed_prefill`, which the model's decomposed branch also runs, so on
-the CPU the fused and decomposed branches of the model are bitwise equal.  The sharded-pool arguments of the reference (`hist_pool_k/v`,
-`hist_bt`) are not ported.
+the CPU the fused and decomposed branches of the model are bitwise equal.
+
+Sharded pools (`hist_pool_k/v` + `hist_bt`, models/paged.py): the caller
+passes the gathered global pool and the global block tables, from which
+history is read, beside the shard's own pools, the localized block tables
+and their ownership mask `page_ok`, through which the chunk's rows are
+written.  With the same history bytes the attention output is the
+unsharded launch's, bitwise.
 """
 from __future__ import annotations
 
@@ -29,7 +35,8 @@ from .posit_codec import decode_plain, encode_plain
 # launches of the kernel since the last reset (kernels/ops.reset_launches);
 # "prefill_attention:<variant>" counts them by `prefill_variant`
 LAUNCHES = {"prefill_attention": 0, "prefill_attention:tc": 0,
-            "prefill_attention:tc256": 0, "prefill_attention:simt": 0}
+            "prefill_attention:tc256": 0, "prefill_attention:simt": 0,
+            "prefill_attention:global_hist": 0}
 _ACT_KINDS = {torch.float32: 0, torch.bfloat16: 1}
 _VARIANTS = {"simt": 0, "tc": 1, "tc256": 2}
 # the tensor-core variants' key tile and largest head dims
@@ -86,25 +93,38 @@ def tc256_smem_bytes(head_dim: int) -> int:
 
 def decomposed_prefill(q, k, v, k_pages, v_pages, block_tables, starts,
                        window, *, encode, decode, softcap_val: float = 0.0,
-                       flash_chunk: int = 1024, page_ok=None):
+                       flash_chunk: int = 1024, page_ok=None,
+                       hist_pool_k=None, hist_pool_v=None, hist_bt=None,
+                       shard=None):
     """The decomposed prefill stages, in place: gather every slot's history
     pages, encode and insert the chunk's K/V (writes to pages with
     page_ok == 0 land on the trash page 0), then flash attention over
     [history decoded -> k dtype | raw chunk].  `encode` maps [B, C, F]
     values to pool entries and `decode` pool entries to the compute dtype:
     the model's decomposed branch passes its KV codec (K1 / K2 on CUDA),
-    the plain version below the plain codecs."""
+    the plain version below the plain codecs.  History comes from
+    hist_pool_k/v by hist_bt when they are given (K5's sharded-pool
+    arguments).  Under `shard` (models/paged.py) k_pages / v_pages are the
+    lists of sub-pools, block_tables hold global ids, and the gather and
+    the inserts run over every shard."""
     from repro_torch.models import common, paged  # models import kernels
 
     B, C, Hq, Dh = q.shape
     Hkv = k.shape[2]
     bt = block_tables
-    hist_k, hist_v = paged.gather_slots(k_pages, bt), paged.gather_slots(v_pages, bt)
+    if hist_pool_k is not None:
+        hist_k = paged.gather_slots(hist_pool_k, hist_bt)
+        hist_v = paged.gather_slots(hist_pool_v, hist_bt)
+    else:
+        hist_k = paged.gather_slots(k_pages, bt, shard=shard)
+        hist_v = paged.gather_slots(v_pages, bt, shard=shard)
     bt_w = bt if page_ok is None else torch.where(page_ok != 0, bt,
                                                   torch.zeros_like(bt))
     starts = starts.long()
-    paged.insert_chunk_batched(k_pages, bt_w, starts, encode(k.reshape(B, C, -1)))
-    paged.insert_chunk_batched(v_pages, bt_w, starts, encode(v.reshape(B, C, -1)))
+    paged.insert_chunk_batched(k_pages, bt_w, starts,
+                               encode(k.reshape(B, C, -1)), shard=shard)
+    paged.insert_chunk_batched(v_pages, bt_w, starts,
+                               encode(v.reshape(B, C, -1)), shard=shard)
     S_h = hist_k.shape[1]
     pos = starts[:, None] + torch.arange(C, device=q.device)[None]
     hist_pos = torch.arange(S_h, device=q.device)[None].expand(B, S_h)
@@ -124,7 +144,9 @@ def prefill_attention_paged_plain(q, k, v, k_pages, v_pages, block_tables,
                                   fmt_kv: PositFormat | None = None,
                                   compute_dtype=torch.float32,
                                   softcap_val: float = 0.0,
-                                  flash_chunk: int = 1024, page_ok=None):
+                                  flash_chunk: int = 1024, page_ok=None,
+                                  hist_pool_k=None, hist_pool_v=None,
+                                  hist_bt=None):
     """K5's plain version: the decomposed stages with the plain codecs."""
 
     def encode(x):
@@ -138,14 +160,16 @@ def prefill_attention_paged_plain(q, k, v, k_pages, v_pages, block_tables,
     return decomposed_prefill(q, k, v, k_pages, v_pages, block_tables, starts,
                               window, encode=encode, decode=decode,
                               softcap_val=softcap_val, flash_chunk=flash_chunk,
-                              page_ok=page_ok)
+                              page_ok=page_ok, hist_pool_k=hist_pool_k,
+                              hist_pool_v=hist_pool_v, hist_bt=hist_bt)
 
 
 def prefill_attention_paged(q, k, v, k_pages, v_pages, block_tables, starts,
                             window, fmt_kv: PositFormat | None = None,
                             compute_dtype=torch.float32,
                             softcap_val: float = 0.0, flash_chunk: int = 1024,
-                            page_ok=None):
+                            page_ok=None, hist_pool_k=None, hist_pool_v=None,
+                            hist_bt=None):
     """Fused prefill: chunk attention + posit KV encode + paged insert.
 
     q            : [B, C, Hq, Dh] post-rope queries (chunk positions
@@ -165,6 +189,11 @@ def prefill_attention_paged(q, k, v, k_pages, v_pages, block_tables, starts,
                    page_size | flash_chunk.
     page_ok      : optional [B, M] int32 mask; pages with 0 are not
                    written.
+    hist_pool_k/v: optional [n_pages_global, page_size, Hkv*Dh] pools
+                   history is read from (a sharded pool's gathered global
+                   pool), with `hist_bt` [B, M] int32, its global ids;
+                   k/v_pages and block_tables are then the shard's own
+                   pools and localized ids, written where page_ok allows.
 
     Returns (attn [B, C, Hq, Dh] in q.dtype, k_pages, v_pages)."""
     B, C, Hq, Dh = q.shape
@@ -180,6 +209,15 @@ def prefill_attention_paged(q, k, v, k_pages, v_pages, block_tables, starts,
         raise ValueError(f"k/v page pools differ: {tuple(k_pages.shape)} vs "
                          f"{tuple(v_pages.shape)}")
     M = block_tables.shape[1]
+    global_hist = hist_pool_k is not None or hist_pool_v is not None
+    if global_hist:
+        if hist_pool_k is None or hist_pool_v is None or hist_bt is None:
+            raise ValueError("hist_pool_k/v require each other and the "
+                             "global hist_bt")
+        for t in (hist_pool_k, hist_pool_v):
+            if tuple(t.shape[1:]) != (ps, kvd):
+                raise ValueError(f"hist pool page shape {tuple(t.shape[1:])} "
+                                 f"!= {(ps, kvd)}")
     # flash_attention's key-chunk length over [history M*ps | chunk C]; a
     # span holding whole chunks of pure history streams them page by page
     ck = min(int(flash_chunk), M * ps + C)
@@ -190,7 +228,8 @@ def prefill_attention_paged(q, k, v, k_pages, v_pages, block_tables, starts,
         return prefill_attention_paged_plain(
             q, k, v, k_pages, v_pages, block_tables, starts, window,
             fmt_kv=fmt_kv, compute_dtype=compute_dtype,
-            softcap_val=softcap_val, flash_chunk=flash_chunk, page_ok=page_ok)
+            softcap_val=softcap_val, flash_chunk=flash_chunk, page_ok=page_ok,
+            hist_pool_k=hist_pool_k, hist_pool_v=hist_pool_v, hist_bt=hist_bt)
     if q.dtype not in _ACT_KINDS or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"prefill_attention takes f32 or bf16 q/k/v of one "
                         f"dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
@@ -210,11 +249,17 @@ def prefill_attention_paged(q, k, v, k_pages, v_pages, block_tables, starts,
     for name, t, shape in (("block_tables", block_tables, (B, M)),
                            ("starts", starts, (B,)),
                            ("window", window, (1,)),
-                           ("page_ok", page_ok, (B, M))):
+                           ("page_ok", page_ok, (B, M)),
+                           ("hist_bt", hist_bt, (B, M))):
         if t is not None and (t.dtype != torch.int32 or tuple(t.shape) != shape):
             raise ValueError(f"prefill_attention: {name} must be int32 "
                              f"{shape}, got {t.dtype} {tuple(t.shape)}")
-    extra = [page_ok] if page_ok is not None else []
+    if global_hist and (hist_pool_k.dtype != k_pages.dtype
+                        or hist_pool_v.dtype != k_pages.dtype):
+        raise TypeError(f"hist pools must hold the pool's {k_pages.dtype}, "
+                        f"got {hist_pool_k.dtype} / {hist_pool_v.dtype}")
+    extra = [t for t in (page_ok, hist_pool_k, hist_pool_v, hist_bt)
+             if t is not None]
     _build.require_cuda("prefill_attention", q, k, v, k_pages, v_pages,
                         block_tables, starts, window, *extra)
     out = torch.empty_like(q)
@@ -240,6 +285,8 @@ def prefill_attention_paged(q, k, v, k_pages, v_pages, block_tables, starts,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), k_pages.data_ptr(),
             v_pages.data_ptr(), block_tables.data_ptr(), starts.data_ptr(),
             window.data_ptr(), None if page_ok is None else page_ok.data_ptr(),
+            *(None if t is None else t.data_ptr()
+              for t in (hist_pool_k, hist_pool_v, hist_bt)),
             out.data_ptr(), None if span is None else span.data_ptr(),
             None if part_o is None else part_o.data_ptr(),
             None if part_ml is None else part_ml.data_ptr(), B, C,
@@ -253,4 +300,6 @@ def prefill_attention_paged(q, k, v, k_pages, v_pages, block_tables, starts,
         _build.check(err, "prefill_attention")
         LAUNCHES["prefill_attention"] += 1
         LAUNCHES[f"prefill_attention:{variant}"] += 1
+        if global_hist:
+            LAUNCHES["prefill_attention:global_hist"] += 1
     return out, k_pages, v_pages

@@ -7,21 +7,31 @@ and the vlm, the last two over `transformer`).
     apply(params, batch, cfg, **kw)                   -> logits [B, S, V]
     prefill(params, batch, cfg, max_seq, device)      -> (logits, dense cache)
     input_specs(cfg, shape) / abstract_state(cfg)     -> meta tensors
-    decode_step(params, tokens, cache, cfg, active=None) -> (logits, cache')
-    decode_and_sample(params, tokens, cache, cfg, ..., active=None)
-                                                      -> (tokens, cache')
+    decode_step(params, tokens, cache, cfg, active=None, shard=None)
+                                                      -> (logits, cache')
+    decode_and_sample(params, tokens, cache, cfg, ..., active=None,
+                      shard=None)                     -> (tokens, cache')
     decode_verify(params, tokens, cache, cfg, ...)    -> ([B, T] tokens, cache')
-    prefill_chunk(_batched)(...)                      -> (logits, cache')
-    cache_specs / init_cache                          -> paged or dense KV cache
-                                                         (+ recurrent states)
+    prefill_chunk(_batched)(..., shard=None)          -> (logits, cache')
+    cache_specs / init_cache(..., shard=None)         -> paged (possibly
+                                                         sharded) or dense KV
+                                                         cache (+ recurrent
+                                                         states)
     sample_noise(generator, batch, vocab)             -> gumbel [B, V]
 
 Posit-packed parameters (`packing.pack_params`, inverted by
 `unpack_params`) are accepted everywhere: the GEMM dispatch layer detects
 integer code containers.
+
+`shard` (models/paged.py's `PageShard`) marks a kv_pages-sharded paged
+cache: its page pools are lists of per-shard sub-pools (`init_cache(...,
+shard=...)`), block tables hold global page ids, and the attention over
+pages runs per shard (models/transformer.py).  The SSM family has no
+pages and refuses a shard.
 """
 from __future__ import annotations
 
+import itertools
 from typing import Optional
 
 import torch
@@ -114,9 +124,11 @@ def prefill(params, batch, cfg: ModelConfig, max_seq: Optional[int] = None,
     return _mod(cfg).prefill(params, batch, cfg, max_seq=max_seq)
 
 
-def decode_step(params, tokens, cache, cfg: ModelConfig, active=None):
+def decode_step(params, tokens, cache, cfg: ModelConfig, active=None,
+                shard=None):
     _no_serving(cfg, "decode step")
-    return _mod(cfg).decode_step(params, tokens, cache, cfg, active=active)
+    return _mod(cfg).decode_step(params, tokens, cache, cfg, active=active,
+                                 shard=shard)
 
 
 def sample_noise(generator: torch.Generator, batch: int, vocab_size: int,
@@ -133,7 +145,8 @@ def sample_noise(generator: torch.Generator, batch: int, vocab_size: int,
 
 
 def decode_and_sample(params, tokens, cache, cfg: ModelConfig, noise,
-                      temperature, *, greedy: bool, top_k: int, active=None):
+                      temperature, *, greedy: bool, top_k: int, active=None,
+                      shard=None):
     """One decode step with the fused head + sampler: ([B] int32 tokens,
     cache'), the tokens equal to `decode_step` followed by the engine
     sampler.  noise: [B, V] f32 gumbel rows (None when greedy); `active`
@@ -142,7 +155,7 @@ def decode_and_sample(params, tokens, cache, cfg: ModelConfig, noise,
     spec = common.SampleSpec(noise=noise, temperature=temperature,
                              greedy=greedy, top_k=top_k)
     return _mod(cfg).decode_step(params, tokens, cache, cfg, sample=spec,
-                                 active=active)
+                                 active=active, shard=shard)
 
 
 def decode_verify(params, tokens, cache, cfg: ModelConfig, noise,
@@ -167,17 +180,21 @@ def decode_verify(params, tokens, cache, cfg: ModelConfig, noise,
     return mod.decode_verify(params, tokens, cache, cfg, sample=spec)
 
 
-def prefill_chunk(params, tokens, cache, slot: int, cfg: ModelConfig):
+def prefill_chunk(params, tokens, cache, slot: int, cfg: ModelConfig,
+                  shard=None):
     """Process one prompt chunk [1, C] for one slot of the paged or the
     dense cache."""
     _no_serving(cfg)
-    return _mod(cfg).prefill_chunk(params, tokens, cache, slot, cfg)
+    return _mod(cfg).prefill_chunk(params, tokens, cache, slot, cfg,
+                                   shard=shard)
 
 
-def prefill_chunk_batched(params, tokens, cache, active, cfg: ModelConfig):
+def prefill_chunk_batched(params, tokens, cache, active, cfg: ModelConfig,
+                          shard=None):
     """Advance every active slot by one same-size chunk in one [B, C] pass."""
     _no_serving(cfg)
-    return _mod(cfg).prefill_chunk_batched(params, tokens, cache, active, cfg)
+    return _mod(cfg).prefill_chunk_batched(params, tokens, cache, active, cfg,
+                                           shard=shard)
 
 
 def cache_specs(cfg: ModelConfig, batch: int, max_seq: int,
@@ -186,8 +203,32 @@ def cache_specs(cfg: ModelConfig, batch: int, max_seq: int,
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
-               layout: Optional[PagedLayout] = None, device="cuda"):
-    """The zeroed KV cache: dense with layout=None, else paged."""
+               layout: Optional[PagedLayout] = None, device="cuda",
+               shard=None):
+    """The zeroed KV cache: dense with layout=None, else paged.  With a
+    `shard` (a PageShard over layout.n_shards shards) every leaf with a
+    kv_pages axis is a list of zeroed sub-pools, pages_per_shard pages
+    each, sub-pool s on shard.devices[s] (the sub-pools of one device
+    views of one tensor); the other leaves live on
+    `device`, which must be the shard's home device."""
     from repro_torch import resolve_device
-    return _mod(cfg).init_cache(cfg, batch, max_seq, layout,
-                                device=resolve_device(device))
+    dev = resolve_device(device)
+    if shard is None:
+        return _mod(cfg).init_cache(cfg, batch, max_seq, layout, device=dev)
+    if layout is None or layout.n_shards != shard.n_shards:
+        raise ValueError(f"a PageShard of {shard.n_shards} shards needs a "
+                         f"paged layout with as many shards, got {layout}")
+    out = {}
+    for name, s in cache_specs(cfg, batch, max_seq, layout).items():
+        if "kv_pages" in s.logical_axes:
+            ax = s.logical_axes.index("kv_pages")
+            shape, out[name] = list(s.shape), []
+            # the shards of one device are consecutive blocks of one
+            # tensor: paged.global_pool then gathers a layer as a view
+            for d, group in itertools.groupby(shard.devices):
+                shape[ax] = layout.pages_per_shard * len(list(group))
+                out[name] += torch.zeros(shape, dtype=s.dtype, device=d).split(
+                    layout.pages_per_shard, dim=ax)
+        else:
+            out[name] = torch.zeros(s.shape, dtype=s.dtype, device=dev)
+    return out

@@ -30,7 +30,7 @@ from typing import Optional
 import torch
 import torch.utils.checkpoint
 
-from . import common, moe, transformer
+from . import common, moe, paged, transformer
 from . import mamba as mamba_m
 from .config import ModelConfig
 from .module import ParamSpec, tree_map
@@ -260,16 +260,19 @@ def prefill(params, batch, cfg: ModelConfig, max_seq=None):
     return logits, cache
 
 
-def prefill_chunk(params, tokens, cache, slot: int, cfg: ModelConfig):
+def prefill_chunk(params, tokens, cache, slot: int, cfg: ModelConfig,
+                  shard=None):
     """Chunked prefill for one slot: the attention sub-layers write and
     read the slot's KV (pages or its dense row; the fused prefill kernel
     where it applies), the mamba sub-layers carry the slot's conv / SSM
-    states across chunks.  Returns (the last position's logits [1, 1, V],
-    cache')."""
+    states across chunks.  Under a kv_pages `shard` only the KV pages are
+    split (models/paged.py); the conv / SSM states stay on the home device.
+    Returns (the last position's logits [1, 1, V], cache')."""
     C = tokens.shape[1]
     x = common.embed_tokens(params["embed"], tokens, cfg)
     start = cache["length"][slot]
     bt_row = cache["block_table"][slot] if "block_table" in cache else None
+    transformer._check_shard(bt_row, shard)
     for b in range(_n_blocks(cfg)):
         blk = _block(params, b)
         conv_l = cache["conv"][b, :, slot:slot + 1]
@@ -277,8 +280,9 @@ def prefill_chunk(params, tokens, cache, slot: int, cfg: ModelConfig):
         for j in range(_period(cfg)):
             if j == 0:
                 x = x + transformer._chunk_attn(
-                    blk["attn"], x, cfg, cache["k"][b], cache["v"][b], start,
-                    bt_row, True, slot=slot)
+                    blk["attn"], x, cfg, paged.layer_pools(cache["k"], b),
+                    paged.layer_pools(cache["v"], b), start, bt_row, True,
+                    slot=slot, shard=shard)
             else:
                 x = _mamba_sub(blk, j, x, cfg, conv_l, ssm_l)
             x = _ffn_apply(blk, j, x, cfg)[0]
@@ -289,7 +293,8 @@ def prefill_chunk(params, tokens, cache, slot: int, cfg: ModelConfig):
     return logits, dict(cache, length=length)
 
 
-def prefill_chunk_batched(params, tokens, cache, active, cfg: ModelConfig):
+def prefill_chunk_batched(params, tokens, cache, active, cfg: ModelConfig,
+                          shard=None):
     """Cross-slot batched chunked prefill: the attention sub-layers run the
     batched chunk attention over every slot's own pages / rows (inactive
     paged rows carry zeroed block tables; inactive dense rows are not
@@ -299,13 +304,15 @@ def prefill_chunk_batched(params, tokens, cache, active, cfg: ModelConfig):
     C = tokens.shape[1]
     x = common.embed_tokens(params["embed"], tokens, cfg)
     starts, bt = cache["length"], cache.get("block_table")
+    transformer._check_shard(bt, shard)
     for b in range(_n_blocks(cfg)):
         blk = _block(params, b)
         for j in range(_period(cfg)):
             if j == 0:
                 x = x + transformer._chunk_attn_batched(
-                    blk["attn"], x, cfg, cache["k"][b], cache["v"][b],
-                    starts, bt, True, active=active)
+                    blk["attn"], x, cfg, paged.layer_pools(cache["k"], b),
+                    paged.layer_pools(cache["v"], b), starts, bt, True,
+                    active=active, shard=shard)
             else:
                 x = _mamba_sub(blk, j, x, cfg, cache["conv"][b],
                                cache["ssm"][b], active)
@@ -317,7 +324,7 @@ def prefill_chunk_batched(params, tokens, cache, active, cfg: ModelConfig):
 
 
 def decode_step(params, tokens, cache, cfg: ModelConfig, sample=None,
-                active=None):
+                active=None, shard=None):
     """One token per slot over the paged cache (K3 on the attention
     sub-layers) or the dense one (`common.decode_attention`).  tokens: [B]
     int32.  Returns (logits [B, V] f32, cache'), or with `sample`
@@ -325,16 +332,19 @@ def decode_step(params, tokens, cache, cfg: ModelConfig, sample=None,
     sampler kernel."""
     x = common.embed_tokens(params["embed"], tokens[:, None], cfg)
     length, bt = cache["length"], cache.get("block_table")
+    transformer._check_shard(bt, shard)
     for b in range(_n_blocks(cfg)):
         blk = _block(params, b)
-        k_l, v_l = cache["k"][b], cache["v"][b]
+        k_l = paged.layer_pools(cache["k"], b)
+        v_l = paged.layer_pools(cache["v"], b)
         for j in range(_period(cfg)):
             if j == 0 and bt is None:
                 x = x + transformer._dense_attn_token(
                     blk["attn"], x, cfg, k_l, v_l, length, True, active)
             elif j == 0:
                 x = x + transformer._paged_attn_token(
-                    blk["attn"], x, cfg, k_l, v_l, bt, length, True)
+                    blk["attn"], x, cfg, k_l, v_l, bt, length, True,
+                    shard=shard)
             else:
                 x = _mamba_sub(blk, j, x, cfg, cache["conv"][b],
                                cache["ssm"][b], active, single_step=True)

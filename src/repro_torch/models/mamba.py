@@ -285,13 +285,21 @@ def prefill(params, batch, cfg: ModelConfig, max_seq=None):
     return logits, cache
 
 
-def prefill_chunk(params, tokens, cache, slot: int, cfg: ModelConfig):
+def _no_shard(shard):
+    if shard is not None:
+        raise ValueError("ssm state is replicated; kv_pages sharding does "
+                         "not apply to the SSM family")
+
+
+def prefill_chunk(params, tokens, cache, slot: int, cfg: ModelConfig,
+                  shard=None):
     """Chunked prefill for one slot: the SSD forward over chunk `tokens`
     [1, C] seeded with the slot's carried conv / SSM states (state in,
     state out: the recurrence is exact under chunking).  Returns (the last
     position's logits [1, 1, V], cache').  A chunk longer than
     cfg.ssm_chunk must be a multiple of it (the engine's bucket table
     guarantees this)."""
+    _no_shard(shard)
     C = tokens.shape[1]
     x = common.embed_tokens(params["embed"], tokens, cfg)
     for i in range(cfg.n_layers):
@@ -309,11 +317,13 @@ def prefill_chunk(params, tokens, cache, slot: int, cfg: ModelConfig):
     return logits, dict(cache, length=length)
 
 
-def prefill_chunk_batched(params, tokens, cache, active, cfg: ModelConfig):
+def prefill_chunk_batched(params, tokens, cache, active, cfg: ModelConfig,
+                          shard=None):
     """Cross-slot batched chunked prefill: every active slot advances one
     chunk [B, C] seeded with its own carried states; the rows `active`
     marks False compute on padding and are not written.  Returns
     (last-position logits [B, V], cache')."""
+    _no_shard(shard)
     C = tokens.shape[1]
     x = common.embed_tokens(params["embed"], tokens, cfg)
     for i in range(cfg.n_layers):
@@ -330,11 +340,12 @@ def prefill_chunk_batched(params, tokens, cache, active, cfg: ModelConfig):
 
 
 def decode_step(params, tokens, cache, cfg: ModelConfig, sample=None,
-                active=None):
+                active=None, shard=None):
     """One token per slot through the recurrence. tokens: [B] int32.
     Returns (logits [B, V] f32, cache'), or with `sample`
     (common.SampleSpec) ([B] int32 tokens, cache') from the fused head +
     sampler kernel."""
+    _no_shard(shard)
     x = common.embed_tokens(params["embed"], tokens[:, None], cfg)
     for i in range(cfg.n_layers):
         conv_l, ssm_l = cache["conv"][i], cache["ssm"][i]

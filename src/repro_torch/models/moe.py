@@ -229,22 +229,24 @@ def prefill(params, batch, cfg: ModelConfig, max_seq=None):
 
 
 def decode_step(params, tokens, cache, cfg: ModelConfig, sample=None,
-                active=None):
-    """One decode step (paged or dense cache) with the MoE FFN
-    (transformer.decode_step)."""
+                active=None, shard=None):
+    """One decode step (paged, possibly sharded, or dense cache) with the
+    MoE FFN (transformer.decode_step)."""
     return transformer.decode_step(params, tokens, cache, cfg, sample=sample,
-                                   ffn=_moe_block, active=active)
+                                   ffn=_moe_block, active=active, shard=shard)
 
 
-def prefill_chunk(params, tokens, cache, slot: int, cfg: ModelConfig):
+def prefill_chunk(params, tokens, cache, slot: int, cfg: ModelConfig,
+                  shard=None):
     """Chunked prefill of one slot with the MoE FFN (returns the last
     position's logits [1, 1, V])."""
     return transformer.prefill_chunk(params, tokens, cache, slot, cfg,
-                                     ffn=_moe_block)
+                                     ffn=_moe_block, shard=shard)
 
 
-def prefill_chunk_batched(params, tokens, cache, active, cfg: ModelConfig):
+def prefill_chunk_batched(params, tokens, cache, active, cfg: ModelConfig,
+                          shard=None):
     """Cross-slot batched chunked prefill with the MoE FFN; the capacity
     limit applies over the whole [B, C] batch."""
     return transformer.prefill_chunk_batched(params, tokens, cache, active,
-                                             cfg, ffn=_moe_block)
+                                             cfg, ffn=_moe_block, shard=shard)

@@ -25,7 +25,20 @@ layer's K/V into a dense cache.  Serving runs over either KV cache:
     flash attention over the decoded row plus the raw chunk, as the
     reference does outside its kernels.
 
-Both caches are updated in place.
+Both caches are updated in place.  A kv_pages-sharded pool (`shard`, a
+`paged.PageShard`; the cache's pools are lists of sub-pools,
+models/paged.py) changes only the attention over pages: a decode step
+runs the paged-attention kernel on each shard's sub-pool with that
+shard's localized block table, its ownership mask as `page_ok` and
+`partials=True`, and merges the partials (`ops.merge_attn_partials`,
+bitwise the unsharded kernel for a slot whose pages lie on one shard); a
+fused prefill chunk gathers the sub-pools into the global pool on the
+home device (the reference's all_gather) and runs the fused kernel once,
+on the home shard, with history read from it by global id and writes
+confined to the home shard's pages; the chunk's rows on the other shards
+are the KV encode's codes (the kernel's, bitwise) inserted under the
+shard.  The decomposed stages gather and insert under the shard.  The
+dense work runs once, on the home device.
 """
 from __future__ import annotations
 
@@ -239,22 +252,39 @@ def apply(params, batch, cfg: ModelConfig, collect_cache: bool = False,
     return outs[0] if len(outs) == 1 else tuple(outs)
 
 
-def _paged_attn_token(p, x, cfg: ModelConfig, k_l, v_l, bt, length, is_global):
+def _paged_attn_token(p, x, cfg: ModelConfig, k_l, v_l, bt, length, is_global,
+                      shard=None):
     """One-token attention sub-block over paged KV (decode hot path).
 
     x: [B, 1, D]; k_l/v_l: [n_pages, ps, Hkv*Dh] page pools (written in
-    place); bt: [B, M]; length: [B] pre-insert valid counts.  Writes the new
-    token's KV codes at position `length`, then runs the paged-attention
-    kernel.  Returns the post-wo output [B, 1, D]."""
+    place; under `shard` the lists of sub-pools); bt: [B, M] global ids;
+    length: [B] pre-insert valid counts.  Writes the new token's KV codes
+    at position `length`, then runs the paged-attention kernel (under a
+    shard: on every sub-pool, partials merged).  Returns the post-wo
+    output [B, 1, D]."""
     B = x.shape[0]
     Hq, Dh = cfg.n_heads, cfg.head_dim
     q, k, v = _qkv(p, x, cfg, length[:, None])
-    paged.insert_tokens(k_l, bt, length, common.kv_encode(cfg, k.reshape(B, -1)))
-    paged.insert_tokens(v_l, bt, length, common.kv_encode(cfg, v.reshape(B, -1)))
-    attn = ops.paged_attention(
-        q.reshape(B, Hq, Dh), k_l, v_l, bt, length + 1,
-        _window_arr(cfg, is_global, x.device), fmt_kv=cfg.quant.kv_cache,
-        softcap_val=cfg.logit_softcap)
+    paged.insert_tokens(k_l, bt, length,
+                        common.kv_encode(cfg, k.reshape(B, -1)), shard=shard)
+    paged.insert_tokens(v_l, bt, length,
+                        common.kv_encode(cfg, v.reshape(B, -1)), shard=shard)
+    window = _window_arr(cfg, is_global, x.device)
+    kw = dict(fmt_kv=cfg.quant.kv_cache, softcap_val=cfg.logit_softcap)
+    q = q.reshape(B, Hq, Dh)
+    if shard is None:
+        attn = ops.paged_attention(q, k_l, v_l, bt, length + 1, window, **kw)
+    else:
+        parts = []
+        for s, (k_s, v_s) in enumerate(zip(k_l, v_l)):
+            dev = k_s.device
+            lbt, owned = paged.localize_ids(bt.to(dev), k_s.shape[0], s)
+            parts.append(ops.paged_attention(
+                q.to(dev), k_s, v_s, lbt, (length + 1).to(dev),
+                window.to(dev), page_ok=owned.to(torch.int32), partials=True,
+                **kw))
+        attn = ops.merge_attn_partials(*([part[j] for part in parts]
+                                         for j in range(3)))
     return common.qdot(attn.reshape(B, 1, Hq * Dh).to(x.dtype), p["wo"],
                        cfg.quant)
 
@@ -285,7 +315,7 @@ def _paged_attn_tokens(p, xs, cfg: ModelConfig, k_l, v_l, bt, length,
 
 
 def _chunk_attn_batched(p, x, cfg: ModelConfig, k_l, v_l, starts, bt,
-                        is_global: bool, active=None):
+                        is_global: bool, active=None, shard=None):
     """Cross-slot batched prefill-chunk attention: queries of slot b sit at
     starts[b] + [0, C) and attend that slot's history plus themselves;
     intra-chunk attention uses the raw (pre-encode) k/v.  x: [B, C, D];
@@ -294,7 +324,9 @@ def _chunk_attn_batched(p, x, cfg: ModelConfig, k_l, v_l, starts, bt,
     fused prefill launch (ops.prefill_attention_paged) replaces the three
     stages of `decomposed_prefill`.  Dense (bt None, k_l / v_l [B, S, F]):
     `_dense_chunk_attn`, whose writes skip the rows `active` marks False.
-    Returns the post-wo output [B, C, D]."""
+    Under `shard` the pools are lists of sub-pools and bt holds global ids
+    (`_sharded_fused_prefill`; the decomposed stages gather and insert
+    under the shard).  Returns the post-wo output [B, C, D]."""
     B, C, _ = x.shape
     Hq, Dh = cfg.n_heads, cfg.head_dim
     pos = starts.long()[:, None] + torch.arange(C, device=x.device)[None]
@@ -305,19 +337,51 @@ def _chunk_attn_batched(p, x, cfg: ModelConfig, k_l, v_l, starts, bt,
         return common.qdot(attn.reshape(B, C, Hq * Dh), p["wo"], cfg.quant,
                            prec_dtype=common.tp_prec(cfg))
     window = _window_arr(cfg, is_global, x.device)
-    if paged.fused_prefill_applies(cfg.quant, bt.shape[1], k_l.shape[1], C):
-        attn, _, _ = ops.prefill_attention_paged(
-            q, k, v, k_l, v_l, bt, starts.to(torch.int32), window,
-            fmt_kv=cfg.quant.kv_cache, compute_dtype=cfg.compute_dtype,
-            softcap_val=cfg.logit_softcap, flash_chunk=paged.FLASH_CHUNK)
+    ps = paged.pool_page_size(k_l)
+    kw = dict(fmt_kv=cfg.quant.kv_cache, compute_dtype=cfg.compute_dtype,
+              softcap_val=cfg.logit_softcap, flash_chunk=paged.FLASH_CHUNK)
+    if paged.fused_prefill_applies(cfg.quant, bt.shape[1], ps, C):
+        starts = starts.to(torch.int32)
+        if shard is None:
+            attn, _, _ = ops.prefill_attention_paged(
+                q, k, v, k_l, v_l, bt, starts, window, **kw)
+        else:
+            attn = _sharded_fused_prefill(cfg, q, k, v, k_l, v_l, bt, starts,
+                                          window, kw, shard)
     else:
         attn, _, _ = decomposed_prefill(
             q, k, v, k_l, v_l, bt, starts, window,
             encode=functools.partial(common.kv_encode, cfg),
             decode=functools.partial(common.kv_decode, cfg),
-            softcap_val=cfg.logit_softcap, flash_chunk=paged.FLASH_CHUNK)
+            softcap_val=cfg.logit_softcap, flash_chunk=paged.FLASH_CHUNK,
+            shard=shard)
     return common.qdot(attn.reshape(B, C, Hq * Dh), p["wo"], cfg.quant,
                        prec_dtype=common.tp_prec(cfg))
+
+
+def _sharded_fused_prefill(cfg, q, k, v, k_l, v_l, bt, starts, window, kw,
+                           shard):
+    """The fused prefill kernel over a sharded pool: one launch on the home
+    shard reads history by global id from the global pool (the sub-pools
+    gathered in shard order, the reference's all_gather) and writes the
+    chunk's rows the home shard owns (its localized block table, the
+    ownership mask as page_ok); the rows on the other shards are the KV
+    encode's codes, bitwise the kernel's, inserted under the shard (the
+    home shard's go to the trash page).  Returns the attention output."""
+    home = k_l[0]
+    lbt, owned = paged.localize_ids(bt.to(home.device), home.shape[0], 0)
+    attn = ops.prefill_attention_paged(
+        q, k, v, home, v_l[0], lbt, starts, window,
+        page_ok=owned.to(torch.int32),
+        hist_pool_k=paged.global_pool(k_l, home.device),
+        hist_pool_v=paged.global_pool(v_l, home.device),
+        hist_bt=bt.to(torch.int32), **kw)[0]
+    rest = torch.where(owned.to(bt.device), torch.zeros_like(bt), bt)
+    B, C = q.shape[:2]
+    for pool, t in ((k_l, k), (v_l, v)):
+        paged.insert_chunk_batched(pool, rest, starts, common.kv_encode(
+            cfg, t.reshape(B, C, -1)), shard=shard)
+    return attn
 
 
 def _dense_chunk_attn(q, k, v, cfg: ModelConfig, k_l, v_l, starts, pos,
@@ -349,7 +413,7 @@ def _dense_chunk_attn(q, k, v, cfg: ModelConfig, k_l, v_l, starts, pos,
 
 
 def _chunk_attn(p, x, cfg: ModelConfig, k_l, v_l, start, bt_row,
-                is_global: bool, slot=None):
+                is_global: bool, slot=None, shard=None):
     """Prefill-chunk attention for one slot (the per-slot path): x [1, C, D]
     at positions start + [0, C) of the slot whose block-table row is
     bt_row [M] (paged), or of row `slot` of the dense pools (bt_row None)."""
@@ -359,7 +423,7 @@ def _chunk_attn(p, x, cfg: ModelConfig, k_l, v_l, start, bt_row,
                                    v_l[slot:slot + 1], starts, None,
                                    is_global)
     return _chunk_attn_batched(p, x, cfg, k_l, v_l, starts, bt_row[None],
-                               is_global)
+                               is_global, shard=shard)
 
 
 # ---------------------------------------------------------------------------
@@ -403,6 +467,11 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
                     cache_specs(cfg, batch, max_seq, layout))
 
 
+def _check_shard(bt, shard):
+    if shard is not None and bt is None:
+        raise ValueError("kv_pages sharding requires a paged cache")
+
+
 def _cache_insert(cache_l, new_kv, length, active=None):
     """cache_l: [B, S, F]; new_kv: [B, 1, F]; writes row b at length[b]
     (in place), where `active` ([B] bool) is True or not given."""
@@ -440,7 +509,7 @@ def _dense_attn_token(p, x, cfg: ModelConfig, k_l, v_l, length, is_global,
 
 
 def decode_step(params, tokens, cache, cfg: ModelConfig, sample=None,
-                ffn=_mlp_ffn, active=None):
+                ffn=_mlp_ffn, active=None, shard=None):
     """One autoregressive step over the paged or the dense cache. tokens:
     [B] int32.
 
@@ -453,12 +522,14 @@ def decode_step(params, tokens, cache, cfg: ModelConfig, sample=None,
     ([B] bool, dense cache only) leaves the rows it marks False unwritten:
     an engine's free or mid-prefill slots (on the paged cache such rows
     carry zeroed block tables, so their writes land on the trash page).
+    `shard`: a kv_pages-sharded paged cache (models/paged.py).
     Returns
     (logits [B, V] f32, cache') — or, with `sample` (common.SampleSpec),
     ([B] int32 tokens, cache') from the fused head + sampler kernel."""
     B = tokens.shape[0]
     x = common.embed_tokens(params["embed"], tokens[:, None], cfg)
     length, bt = cache["length"], cache.get("block_table")
+    _check_shard(bt, shard)
     for i, is_global in enumerate(layer_flags(cfg)):
         p = _layer(params, i)
         if bt is None:
@@ -466,8 +537,10 @@ def decode_step(params, tokens, cache, cfg: ModelConfig, sample=None,
                                       cache["v"][i], length, is_global,
                                       active)
         else:
-            x = x + _paged_attn_token(p, x, cfg, cache["k"][i],
-                                      cache["v"][i], bt, length, is_global)
+            x = x + _paged_attn_token(
+                p, x, cfg, paged.layer_pools(cache["k"], i),
+                paged.layer_pools(cache["v"], i), bt, length, is_global,
+                shard=shard)
         x = x + ffn(p, x, cfg)[0]
     x = common.rms_norm(x, params["final_norm"])
     new_cache = dict(cache, length=length + 1)
@@ -529,7 +602,7 @@ def decode_verify(params, tokens, cache, cfg: ModelConfig, sample=None):
 
 
 def prefill_chunk(params, tokens, cache, slot: int, cfg: ModelConfig,
-                  ffn=_mlp_ffn):
+                  ffn=_mlp_ffn, shard=None):
     """Chunked prefill of prompt chunk `tokens` [1, C] for one slot of the
     paged or the dense cache, at positions length[slot] + [0, C).  Returns
     (last-position logits [1, 1, V], cache') with length[slot] advanced by
@@ -538,10 +611,12 @@ def prefill_chunk(params, tokens, cache, slot: int, cfg: ModelConfig,
     x = common.embed_tokens(params["embed"], tokens, cfg)
     start = cache["length"][slot]
     bt_row = cache["block_table"][slot] if "block_table" in cache else None
+    _check_shard(bt_row, shard)
     for i, is_global in enumerate(layer_flags(cfg)):
         p = _layer(params, i)
-        x = x + _chunk_attn(p, x, cfg, cache["k"][i], cache["v"][i], start,
-                            bt_row, is_global, slot=slot)
+        x = x + _chunk_attn(p, x, cfg, paged.layer_pools(cache["k"], i),
+                            paged.layer_pools(cache["v"], i), start, bt_row,
+                            is_global, slot=slot, shard=shard)
         x = x + ffn(p, x, cfg)[0]
     x = common.rms_norm(x[:, -1:], params["final_norm"])
     logits = common.logits_head(x, _head(params, cfg), cfg,
@@ -552,7 +627,7 @@ def prefill_chunk(params, tokens, cache, slot: int, cfg: ModelConfig,
 
 
 def prefill_chunk_batched(params, tokens, cache, active, cfg: ModelConfig,
-                          ffn=_mlp_ffn):
+                          ffn=_mlp_ffn, shard=None):
     """Cross-slot batched chunked prefill: one [B, C] pass advances every
     active slot by a chunk of the same bucket size.  The caller zeroes
     inactive rows' length/block-table metadata, so their paged writes land
@@ -561,10 +636,12 @@ def prefill_chunk_batched(params, tokens, cache, active, cfg: ModelConfig,
     C = tokens.shape[1]
     x = common.embed_tokens(params["embed"], tokens, cfg)
     starts, bt = cache["length"], cache.get("block_table")
+    _check_shard(bt, shard)
     for i, is_global in enumerate(layer_flags(cfg)):
         p = _layer(params, i)
-        x = x + _chunk_attn_batched(p, x, cfg, cache["k"][i], cache["v"][i],
-                                    starts, bt, is_global, active=active)
+        x = x + _chunk_attn_batched(p, x, cfg, paged.layer_pools(cache["k"], i),
+                                    paged.layer_pools(cache["v"], i), starts,
+                                    bt, is_global, active=active, shard=shard)
         x = x + ffn(p, x, cfg)[0]
     x = common.rms_norm(x[:, -1:], params["final_norm"])
     logits = common.logits_head(x, _head(params, cfg), cfg,

@@ -1,5 +1,4 @@
-"""Posit-KV serving engine (PyTorch port of `repro.serve.engine`, single
-device).
+"""Posit-KV serving engine (PyTorch port of `repro.serve.engine`).
 
 The engine is a host-side slot scheduler over the model entry points:
 
@@ -78,8 +77,20 @@ Recurrent state cannot roll back a rejected draft, so `speculate_k`
 raises for these families, and bucket sizes the SSD's chunk length does
 not divide are dropped.
 
-Not ported yet (raises NotImplementedError naming ROADMAP): sharded pools
-(`mesh`).
+Sharded pools (`mesh=...`, a `parallel.sharding.Mesh` whose >1 axis is
+the one the rules map kv_pages onto, e.g. `launch.mesh.make_serving_mesh`):
+the pool's pages split into contiguous per-shard ranges, one sub-pool per
+mesh device and one page budget per shard (`PageAllocator`); block tables
+keep global page ids (models/paged.py).  Allocation keeps a slot on one
+shard when any budget fits (a prefix donor's shard first) and spills
+otherwise; admission checks each request against the per-shard budgets.
+Decode runs the paged-attention kernel on every shard and merges the
+partials, bitwise the single pool for a slot on one shard; fused prefill
+reads history from the gathered global pool.  Everything else (weights,
+metadata, conv / SSM states) stays on the home device, the mesh's first,
+where the model's dense work runs once.  Dense-cache and SSM-family
+engines ignore the mesh; speculation over a sharded pool is refused, as
+the reference refuses it.
 """
 from __future__ import annotations
 
@@ -95,8 +106,9 @@ from repro_torch.kernels.paged_attention import sample_logits
 from repro_torch.models import api
 from repro_torch.models.config import ModelConfig
 from repro_torch.models import paged as paged_mod
-from repro_torch.models.paged import PagedLayout, fork_page, \
+from repro_torch.models.paged import PagedLayout, PageShard, fork_page, \
     fused_prefill_applies, fused_prefill_span_ok
+from repro_torch.parallel import sharding
 
 
 @dataclasses.dataclass
@@ -110,52 +122,90 @@ class Request:
 
 
 class PageAllocator:
-    """Host-side refcounted free list over the single KV page pool (one
-    shard: `pages_in_use_by_shard` has one entry).
+    """Host-side refcounted free lists over the (possibly sharded) KV pool.
 
-    Page 0 is the trash page and is never handed out, so capacity is
-    n_pages - 1.  `alloc(n)` grants fresh pages (low ids first) at refcount
-    1, `share` takes an extra reference, `free` drops one reference per
-    page and recycles a page when its last reference goes (returning the
-    recycled pages); freeing a page that holds no reference raises."""
+    Block tables address global page ids (models/paged.py).  With
+    n_shards=1 this is the single pool: page 0 is the trash page and is
+    never handed out.  With n_shards>1 the pool's pages split into
+    contiguous per-shard ranges and the allocator keeps one free list, one
+    page budget, per shard: every shard's local page 0 (global ids
+    divisible by pages_per_shard) is its trash page, so capacity is
+    n_pages - n_shards.
+
+    `alloc(n, prefer_shard=...)` grants fresh pages (low local ids first)
+    at refcount 1 from one shard when any single shard can serve all n
+    (prefer_shard first, a prefix donor's shard; else the shard with the
+    most free pages, ties by index), and spills deterministically across
+    shards (most free first, ties by index) only when no single budget
+    fits.  `share` takes an extra reference, `free` drops one reference
+    per page and recycles a page onto its own shard's free list when its
+    last reference goes (returning the recycled pages); freeing a page
+    that holds no reference raises."""
 
     def __init__(self, n_pages: int, n_shards: int = 1):
-        if n_shards != 1:
-            raise NotImplementedError(
-                "per-device page budgets (sharded pools) are not ported yet "
-                "(ROADMAP queue 1, sharded pools)")
-        if n_pages < 2:
-            raise ValueError(f"need >= 2 pages (trash + 1), got {n_pages}")
-        self.n_shards = 1
-        self.pages_per_shard = n_pages
-        self.capacity = n_pages - 1
+        if n_pages % n_shards:
+            raise ValueError(f"n_pages={n_pages} not divisible by "
+                             f"n_shards={n_shards}")
+        self.n_shards = n_shards
+        self.pages_per_shard = n_pages // n_shards
+        if self.pages_per_shard < 2:
+            raise ValueError(f"need >= 2 pages per shard (trash + 1), got "
+                             f"{self.pages_per_shard}")
+        self.capacity = n_pages - n_shards
         self.peak_in_use = 0
         self.total_allocs = 0   # fresh grants ever (shares not counted)
-        self._free = list(range(n_pages - 1, 0, -1))  # pop() -> low ids first
+        # per-shard free lists of global ids, pop() -> low local ids first
+        self._free = [list(range((s + 1) * self.pages_per_shard - 1,
+                                 s * self.pages_per_shard, -1))
+                      for s in range(n_shards)]
         self._refs: Dict[int, int] = {}
 
     @property
     def pages_free(self) -> int:
-        return len(self._free)
+        return sum(len(f) for f in self._free)
 
     @property
     def pages_in_use(self) -> int:
         return self.capacity - self.pages_free
 
     @property
+    def pages_free_by_shard(self) -> List[int]:
+        return [len(f) for f in self._free]
+
+    @property
     def pages_in_use_by_shard(self) -> List[int]:
-        return [self.pages_in_use]
+        per = self.pages_per_shard - 1  # usable pages per shard
+        return [per - len(f) for f in self._free]
+
+    def shard_of(self, page: int) -> int:
+        return page // self.pages_per_shard
 
     def refcount(self, page: int) -> int:
         return self._refs.get(page, 0)
 
-    def alloc(self, n: int) -> Optional[List[int]]:
+    def alloc(self, n: int,
+              prefer_shard: Optional[int] = None) -> Optional[List[int]]:
         if n > self.pages_free:
             return None
-        out = [self._free.pop() for _ in range(n)]
+        if n == 0:
+            return []
+        if prefer_shard is not None and len(self._free[prefer_shard]) >= n:
+            order = [prefer_shard]
+        else:
+            fits = [s for s in range(self.n_shards)
+                    if len(self._free[s]) >= n]
+            if fits:
+                order = [max(fits, key=lambda s: (len(self._free[s]), -s))]
+            else:
+                order = sorted(range(self.n_shards),
+                               key=lambda s: (-len(self._free[s]), s))
+        out: List[int] = []
+        for s in order:
+            while len(out) < n and self._free[s]:
+                out.append(self._free[s].pop())
         for p in out:
             self._refs[p] = 1
-        self.total_allocs += n
+        self.total_allocs += len(out)
         self.peak_in_use = max(self.peak_in_use, self.pages_in_use)
         return out
 
@@ -175,11 +225,25 @@ class PageAllocator:
                 raise ValueError(f"double free of page {p}")
             if rc == 1:
                 del self._refs[p]
-                self._free.append(p)
+                self._free[self.shard_of(p)].append(p)
                 recycled.append(p)
             else:
                 self._refs[p] = rc - 1
         return recycled
+
+
+def _nbytes(leaf) -> int:
+    """Bytes of a cache leaf (a tensor, or a sharded pool's sub-pools)."""
+    if isinstance(leaf, (list, tuple)):
+        return sum(_nbytes(t) for t in leaf)
+    return leaf.numel() * leaf.element_size()
+
+
+def _canonical(dev: torch.device) -> torch.device:
+    """`cuda` names the current card: give it its index."""
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev
 
 
 _FREE, _PREFILL, _DECODE = 0, 1, 2
@@ -227,6 +291,13 @@ class ServingEngine:
         `params`.  paged=False serves from the dense cache (no pages: the
         page and sharing knobs do not apply, decoding takes decode_step
         and the host sampler).
+        mesh: a `parallel.sharding.Mesh`.  When kv_pages maps onto one of
+        its axes of size > 1, the page pool splits over that axis: one
+        sub-pool and one page budget per shard, n_pages divisible by the
+        shard count, sub-pool s on mesh.devices[s]; `device` must be the
+        mesh's first device (the home device).  Any other axis of size > 1,
+        or kv_pages over two such axes, raises.  Dense-cache and SSM
+        engines ignore the mesh.
 
         Constructing an engine turns TF32 off (`set_float32_parity`): the
         posit-decoded P(16,2) weights have 11 fraction bits, which TF32
@@ -237,11 +308,12 @@ class ServingEngine:
         if fused_decode is not None:
             q = dataclasses.replace(q, fused_decode=bool(fused_decode))
         cfg = dataclasses.replace(cfg, quant=q)
-        if mesh is not None:
-            raise NotImplementedError(
-                "kv_pages-sharded serving (mesh=...) is not ported yet "
-                "(ROADMAP queue 1, sharded pools)")
         self.device = resolve_device(device)
+        if mesh is not None and not isinstance(mesh, sharding.Mesh):
+            raise TypeError(f"mesh must be a repro_torch.parallel.sharding."
+                            f"Mesh, got {type(mesh).__name__}")
+        shard_devices = (self._shard_devices(mesh)
+                         if mesh is not None and paged else None)
         if self.device.type == "cuda":
             set_float32_parity()
         self.cfg = cfg
@@ -263,6 +335,18 @@ class ServingEngine:
         self.paged = bool(paged) and "block_table" in offered
         self._recurrent = any(name not in _META and "batch" in s.logical_axes
                               for name, s in offered.items())
+        # SSM recurrent state is O(1) and has no pages: nothing to shard
+        self.mesh = mesh if shard_devices and self.paged else None
+        self._page_shard = None
+        if self.mesh is not None:
+            self._page_shard = PageShard(shard_devices)
+            if _canonical(self._page_shard.home) != _canonical(self.device):
+                raise ValueError(
+                    f"the engine's device {self.device} must be the mesh's "
+                    f"first device {self._page_shard.home} (the home device "
+                    f"of the weights and the dense work)")
+        self.n_shards = (self._page_shard.n_shards if self._page_shard
+                         else 1)
         if speculate_k:
             if speculate_k < 2:
                 raise ValueError("speculate_k must be >= 2 (k=1 is plain "
@@ -276,6 +360,9 @@ class ServingEngine:
                     "speculative decoding is limited to pure-attention "
                     "paged families: recurrent (conv/SSM) state cannot be "
                     "rolled back when a draft token is rejected")
+            if self.n_shards > 1:
+                raise ValueError("speculative decoding is not implemented "
+                                 "for sharded page pools yet")
             if not hasattr(api._mod(cfg), "decode_verify"):
                 raise NotImplementedError(
                     f"family {cfg.family!r} has no k-token verify step")
@@ -284,18 +371,20 @@ class ServingEngine:
         if self.paged:
             ps = self._resolve_page_size(page_size, max_seq)
             self.layout = PagedLayout.for_slots(batch_slots, max_seq, ps,
-                                                n_pages)
+                                                n_pages,
+                                                n_shards=self.n_shards)
         self.cache = api.init_cache(cfg, batch_slots, max_seq, self.layout,
-                                    device=self.device)
+                                    device=self.device,
+                                    shard=self._page_shard)
         # batch-dim index per cache leaf (page pools have none)
         specs = api.cache_specs(cfg, batch_slots, max_seq, self.layout)
         self._state_bdim = {
             name: (s.logical_axes.index("batch")
                    if "batch" in s.logical_axes else None)
             for name, s in specs.items()}
-        self.n_shards = 1
-        self.allocator = (PageAllocator(self.layout.n_pages) if self.paged
-                          else None)
+        self.allocator = (PageAllocator(self.layout.n_pages,
+                                        self.layout.n_shards)
+                          if self.paged else None)
         self.max_pages_per_slot = (self.cache["block_table"].shape[1]
                                    if self.paged else 0)
         self.prefix_sharing = self.paged and bool(
@@ -372,6 +461,30 @@ class ServingEngine:
             self._draft_cfg = dataclasses.replace(cfg, quant=dq)
             self.draft_params = params if draft_params is None else \
                 draft_params
+
+    @staticmethod
+    def _shard_devices(mesh):
+        """The devices of the mesh axis kv_pages shards over (None when it
+        shards over none of size > 1); raises for a mesh whose other axes
+        of size > 1 the rules do not map kv_pages onto, or that maps it
+        onto two such axes."""
+        axes = [a for a in sharding.mesh_axes_for("kv_pages", mesh)
+                if mesh.shape[a] > 1]
+        extra = [a for a in mesh.axis_names
+                 if mesh.shape[a] > 1 and a not in axes]
+        if extra:
+            raise ValueError(
+                f"serving mesh has >1-sized axes {extra} that kv_pages "
+                f"does not shard over; the engine only shards the page "
+                f"pool — use a mesh whose non-trivial axis is the "
+                f"kv_pages one (default: 'model')")
+        if len(axes) > 1:
+            raise ValueError(
+                f"kv_pages maps onto multiple >1 mesh axes {axes}; "
+                f"shard the page pool over a single axis")
+        # every other axis has size 1, so the row-major device list runs
+        # along the kv_pages axis
+        return tuple(mesh.devices) if axes else None
 
     def _valid_buckets(self, buckets):
         """Descending chunk sizes; 1 is always included (exact prompt
@@ -461,19 +574,20 @@ class ServingEngine:
         adds the bytes of the pages in use and at the peak."""
         kv = meta = 0
         for name, leaf in self.cache.items():
-            nbytes = leaf.numel() * leaf.element_size()
             if name in ("length", "block_table"):
-                meta += nbytes
+                meta += _nbytes(leaf)
             else:
-                kv += nbytes
+                kv += _nbytes(leaf)
         out = {"kv_bytes": kv, "metadata_bytes": meta,
                "total_bytes": kv + meta}
         if self.paged:
-            pools = (self.cache["k"], self.cache["v"])
-            page_b = sum(t.numel() * t.element_size()
-                         for t in pools) // self.layout.n_pages
+            page_b = (_nbytes(self.cache["k"]) + _nbytes(self.cache["v"])) \
+                // self.layout.n_pages
             out["kv_bytes_in_use"] = self.pages_in_use * page_b
             out["kv_bytes_peak"] = self.allocator.peak_in_use * page_b
+            if self.n_shards > 1:
+                out["pages_in_use_by_shard"] = \
+                    self.allocator.pages_in_use_by_shard
         return out
 
     def kv_cache_bytes(self) -> int:
@@ -574,10 +688,13 @@ class ServingEngine:
                 f"({req.max_new_tokens}) needs {n + req.max_new_tokens - 1} "
                 f"positions but max_seq is {self.S}")
         if self.paged and self._pages_needed(req) > self.allocator.capacity:
+            budgets = ("" if self.allocator.n_shards == 1 else
+                       f" ({self.allocator.n_shards} per-device budgets of "
+                       f"{self.allocator.pages_per_shard - 1} pages)")
             raise ValueError(
                 f"request {req.rid} needs {self._pages_needed(req)} pages "
-                f"but the pool only has {self.allocator.capacity}; raise "
-                f"n_pages or shorten prompt/max_new_tokens")
+                f"but the pool only has {self.allocator.capacity}{budgets}; "
+                f"raise n_pages or shorten prompt/max_new_tokens")
         req.out_tokens = []
         self.queue.append(req)
 
@@ -906,7 +1023,9 @@ class ServingEngine:
         dst = self.slot_reserve[slot]
         self.slot_reserve[slot] = None
         if dst is None:
-            got = self.allocator.alloc(1)
+            # a fork stays on one shard when the source's shard has a page
+            got = self.allocator.alloc(
+                1, prefer_shard=self.allocator.shard_of(src))
             if got is None:
                 raise RuntimeError(
                     f"page pool exhausted during copy-on-write fork for "
@@ -914,8 +1033,8 @@ class ServingEngine:
                     f"front")
             dst = got[0]
             self.slot_pages[slot].append(dst)
-        fork_page(self.cache["k"], dst, src)
-        fork_page(self.cache["v"], dst, src)
+        fork_page(self.cache["k"], dst, src, shard=self._page_shard)
+        fork_page(self.cache["v"], dst, src, shard=self._page_shard)
         self.block_tables[slot, idx] = dst
         self.slot_pages[slot].remove(src)
         self._evict(self.allocator.free([src]))
@@ -1008,16 +1127,14 @@ class ServingEngine:
         recurrent states after it or None), or None when the pool cannot
         serve the request yet."""
         shared, n_shared, state, partial = self._lookup_prefix(req)
-        k_full = len(shared) - (1 if partial else 0)
-        pages = self.allocator.alloc(self._pages_needed(req) - k_full)
+        pages = self._alloc_private(req, shared, partial)
         if pages is None and self._held \
                 and not (self.slot_phase != _FREE).any():
             # nothing in flight will ever reclaim: held prefix pages must
             # yield so the head of the queue can run
             self._drop_all_holds()
             shared, n_shared, state, partial = self._lookup_prefix(req)
-            k_full = len(shared) - (1 if partial else 0)
-            pages = self.allocator.alloc(self._pages_needed(req) - k_full)
+            pages = self._alloc_private(req, shared, partial)
         if pages is None:
             return None
         self.allocator.share(shared)
@@ -1033,6 +1150,15 @@ class ServingEngine:
             self.stats["pages_shared"] += len(shared)
             self.stats["shared_admissions"] += 1
         return n_shared, state
+
+    def _alloc_private(self, req: Request, shared: List[int], partial: bool):
+        """Fresh pages for the request's demand beyond its shared prefix,
+        on the prefix donor's shard when it fits (the whole slot then stays
+        on one shard)."""
+        k_full = len(shared) - (1 if partial else 0)
+        prefer = self.allocator.shard_of(shared[0]) if shared else None
+        return self.allocator.alloc(self._pages_needed(req) - k_full,
+                                    prefer_shard=prefer)
 
     def _release(self, slot: int):
         if self.paged:
@@ -1105,7 +1231,7 @@ class ServingEngine:
             self._ensure_writable(slot, lo, lo + size)
         tokens = torch.from_numpy(prompt[None, lo:lo + size]).to(self.device)
         logits, _ = api.prefill_chunk(self.params, tokens, self._meta(), slot,
-                                      self.cfg)
+                                      self.cfg, shard=self._page_shard)
         self._count_chunk(1, size)
         self.slot_cursor[slot] += size
         self.lengths[slot] += size
@@ -1129,7 +1255,7 @@ class ServingEngine:
         logits, _ = api.prefill_chunk_batched(
             self.params, torch.from_numpy(tokens).to(self.device),
             self._meta(active), torch.from_numpy(active).to(self.device),
-            self.cfg)
+            self.cfg, shard=self._page_shard)
         self._count_chunk(len(slots), size)
         for s in slots:
             self.slot_cursor[s] += size
@@ -1209,11 +1335,12 @@ class ServingEngine:
             toks_all, _ = api.decode_and_sample(
                 self.params, tokens_in, cache_in, self.cfg, noise,
                 self.temperature, greedy=self.greedy, top_k=self.top_k,
-                active=active)
+                active=active, shard=self._page_shard)
             toks = toks_all.cpu().numpy().astype(np.int32)[slots]
         else:
             logits, _ = api.decode_step(self.params, tokens_in, cache_in,
-                                        self.cfg, active=active)
+                                        self.cfg, active=active,
+                                        shard=self._page_shard)
             toks = self._sample(logits, list(range(self.B)),
                                 live=decode_mask)[slots]
         self.stats["decode_steps"] += 1

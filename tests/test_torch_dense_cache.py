@@ -364,7 +364,15 @@ def test_dense_engine_rejects_speculation_and_unported_mesh():
     with pytest.raises(ValueError, match="paged"):
         TEngine(tcfg, params, batch_slots=1, max_seq=32, paged=False,
                 speculate_k=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # sharded pools are ported (test_torch_sharded.py): the dense cache
+    # ignores a mesh, as the reference's engine does, and refuses what is
+    # not one
+    from repro_torch.launch.mesh import make_serving_mesh
+    eng = TEngine(tcfg, params, batch_slots=1, max_seq=32, paged=False,
+                  mesh=make_serving_mesh(2, devices=["cpu", "cpu"]),
+                  device="cpu")
+    assert eng.n_shards == 1 and eng.mesh is None and not eng.paged
+    with pytest.raises(TypeError, match="Mesh"):
         TEngine(tcfg, params, batch_slots=1, max_seq=32, paged=False,
                 mesh=object(), device="cpu")
 

@@ -1898,3 +1898,114 @@ def test_prepared_float_weights_equal_separate_calls(cuda):
     assert c["posit_gemv_f:p16_2"] == 4
     # the separate calls at 16 rows decode twice, the Prepared one once
     assert c["posit_decode:p16_2"] == 3
+
+
+# ---------------------------------------------------------------------------
+# kv_pages-sharded pools: K5 with global history, the merge of K3 partials
+# ---------------------------------------------------------------------------
+
+
+def _sharded_pool_case(cuda, act, fmt, Dh, n_shards=2, B=3, C=16, M=6,
+                       ps=16, seed=0):
+    """A global pool of n_shards sub-pools and block tables whose slots
+    alternate pages across the shards (slot 0 on shard 0 alone)."""
+    g = torch.Generator().manual_seed(seed)
+    Hq, Hkv = 4, 2
+    pps = 1 + -(-B * M // n_shards)
+    P = n_shards * pps
+    kv = torch.randn(2, P, ps, Hkv * Dh, generator=g)
+    kv = posit.pack(kv, fmt) if fmt else kv.to(act)
+    free = [[s * pps + i for i in range(1, pps)] for s in range(n_shards)]
+    starts = [ps * 2 + 3, ps * 3, ps + 5][:B]
+    bt = torch.zeros(B, M, dtype=torch.int32)
+    for b in range(B):
+        for j in range(-(-(starts[b] + C) // ps)):
+            bt[b, j] = free[0 if b == 0 else (b + j) % n_shards].pop(0)
+    q = torch.randn(B, C, Hq, Dh, generator=g).to(act)
+    k = torch.randn(B, C, Hkv, Dh, generator=g).to(act)
+    v = torch.randn(B, C, Hkv, Dh, generator=g).to(act)
+    return ([t.to(cuda) for t in (q, k, v)], kv[0].to(cuda), kv[1].to(cuda),
+            bt.to(cuda), torch.tensor(starts, dtype=torch.int32,
+                                      device=cuda), pps)
+
+
+@pytest.mark.parametrize("variant,act,fmt,Dh", [
+    ("tc", torch.bfloat16, formats.P8_2, 64),
+    ("tc256", torch.bfloat16, formats.P8_2, 256),
+    ("simt", torch.float32, formats.P16_1, 32),
+    ("tc", torch.bfloat16, None, 128)])
+def test_prefill_global_history_bitwise_unsharded(cuda, variant, act, fmt,
+                                                  Dh):
+    """Each shard's K5 launch, history read from the global pool by global
+    id and writes confined to its own sub-pool: attention bitwise the
+    unsharded launch over the same pool, the shard's page writes bitwise
+    its plain version (its trash page excluded)."""
+    (q, k, v), kp, vp, bt, st, pps = _sharded_pool_case(cuda, act, fmt, Dh)
+    win = torch.tensor([1 << 30], dtype=torch.int32, device=cuda)
+    kw = dict(fmt_kv=fmt, compute_dtype=act)
+    assert pf.prefill_variant(act, Dh) == variant
+    want, _, _ = pf.prefill_attention_paged(q, k, v, kp.clone(), vp.clone(),
+                                            bt, st, win, **kw)
+    for s in range(2):
+        lo = s * pps
+        owned = (bt >= lo) & (bt < lo + pps)
+        lbt = torch.where(owned, bt - lo, 0).to(torch.int32)
+        ok = owned.to(torch.int32)
+        args = dict(hist_pool_k=kp, hist_pool_v=vp, hist_bt=bt, page_ok=ok,
+                    **kw)
+        sub_k, sub_v = kp[lo:lo + pps].clone(), vp[lo:lo + pps].clone()
+        ops.reset_launches()
+        got, _, _ = pf.prefill_attention_paged(q, k, v, sub_k, sub_v, lbt, st,
+                                               win, **args)
+        c = ops.launch_counts()
+        assert c["prefill_attention:global_hist"] == 1
+        assert c[f"prefill_attention:{variant}"] == 1
+        assert _bits_equal(got, want)
+        plain_k, plain_v = kp[lo:lo + pps].clone(), vp[lo:lo + pps].clone()
+        pf.prefill_attention_paged_plain(q, k, v, plain_k, plain_v, lbt, st,
+                                         win, **args)
+        assert _bits_equal(sub_k[1:], plain_k[1:])
+        assert _bits_equal(sub_v[1:], plain_v[1:])
+
+
+@pytest.mark.parametrize("four_d", [False, True], ids=["k3", "k7"])
+@pytest.mark.parametrize("n_shards", [2, 4])
+def test_merge_partials_matches_unsharded_k3(cuda, n_shards, four_d):
+    """The shards' partials (page_ok = ownership) merged by the merge
+    kernel: bitwise the unsharded K3 / K7 for a slot on one shard, within
+    2e-5 elsewhere, and within 1e-6 of the merge's plain version."""
+    g = torch.Generator().manual_seed(n_shards)
+    B, T, Hq, Hkv, Dh, ps, M = 4, 3, 8, 2, 128, 16, 12
+    pps = 1 + M
+    P = n_shards * pps
+    fmt = formats.P8_2
+    kp, vp = (posit.pack(torch.randn(P, ps, Hkv * Dh, generator=g),
+                         fmt).to(cuda) for _ in range(2))
+    q = torch.randn((B, T, Hq, Dh) if four_d else (B, Hq, Dh),
+                    generator=g).to(cuda)
+    bt = torch.zeros(B, M, dtype=torch.int32)
+    bt[0] = 1 + torch.arange(M)                          # shard 0 alone
+    for b in range(1, B):
+        for j in range(M):
+            s = (b + j) % n_shards
+            bt[b, j] = s * pps + 1 + (j + b) % M
+    bt = bt.to(cuda)
+    ln = torch.tensor([150, 191, 77, 33], dtype=torch.int32, device=cuda)
+    win = torch.tensor([1 << 30], dtype=torch.int32, device=cuda)
+    full = pa.paged_attention(q, kp, vp, bt, ln, win, fmt_kv=fmt)
+    parts = []
+    for s in range(n_shards):
+        lo = s * pps
+        owned = (bt >= lo) & (bt < lo + pps)
+        parts.append(pa.paged_attention(
+            q, kp[lo:lo + pps], vp[lo:lo + pps],
+            torch.where(owned, bt - lo, 0).to(torch.int32), ln, win,
+            fmt_kv=fmt, page_ok=owned.to(torch.int32), partials=True))
+    o, m, l = (torch.stack([p[j] for p in parts]) for j in range(3))
+    ops.reset_launches()
+    merged = pa.merge_attn_partials(o, m, l)
+    assert ops.launch_counts()["merge_attn_partials"] == 1
+    assert _bits_equal(merged[0], full[0])
+    torch.testing.assert_close(merged, full, rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(merged, pa.merge_attn_partials_plain(o, m, l),
+                               rtol=1e-6, atol=1e-6)

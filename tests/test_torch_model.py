@@ -351,11 +351,17 @@ def test_unported_engine_options_raise():
     params = tapi.init(torch.Generator().manual_seed(0), tcfg, device="cpu")
     base = dict(batch_slots=2, max_seq=32, device="cpu")
     # speculate_k, preempt and cancel are ported (test_torch_speculative.py,
-    # test_torch_frontend.py), so is the dense cache (paged=False,
-    # test_torch_dense_cache.py); sharded pools are not
+    # test_torch_frontend.py), so are the dense cache (paged=False,
+    # test_torch_dense_cache.py) and sharded pools (test_torch_sharded.py):
+    # a mesh must be the port's own, and the dense cache ignores one
     for kw in (dict(mesh=object()), dict(mesh=object(), paged=False)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(TypeError, match="Mesh"):
             TEngine(tcfg, params, **base, **kw)
+    from repro_torch.launch.mesh import make_serving_mesh
+    mesh = make_serving_mesh(2, devices=["cpu", "cpu"])
+    assert TEngine(tcfg, params, mesh=mesh, **base).n_shards == 2
+    assert TEngine(tcfg, params, mesh=mesh, paged=False,
+                   **base).n_shards == 1
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

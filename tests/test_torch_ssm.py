@@ -482,3 +482,77 @@ def test_packed_checkpoint_restores_into_engine(tiny, tmp_path):
                                       want["layers"][name])
     assert eng.params["layers"]["in_proj"].dtype == torch.int16
     assert sorted(_serve(eng, TRequest, prompts)) == list(range(len(QUEUE)))
+
+
+# ---------------------------------------------------------------------------
+# engine paths no other test compares for this family: preempt / cancel
+# mid-run (greedy, sampled, interleaved prefill, the dense cache), a13,
+# validate_bit_exact, serve_paged_p16 / serve_p16_kv8, the float policy
+# ---------------------------------------------------------------------------
+
+# name: (policy, engine knobs, preempt / cancel script).  Each run pairs
+# a policy with a scheduler path; an SSM engine is unpaged whatever
+# `paged` says, so the dense cache is `paged=False`'s same path.
+RECURRENT_PATHS = {
+    "a13_preempt_cancel": ("serve_fused_p16_a13", {}, True),
+    # the PDPU GEMM on the CPU is slow: three requests
+    "bit_exact": ("validate_bit_exact", {}, False),
+    "paged_p16_sampled_preempt_cancel": ("serve_paged_p16", dict(
+        greedy=False, temperature=0.8, top_k=5, base_seed=9), True),
+    "p16_kv8_interleaved_preempt_cancel": ("serve_p16_kv8", dict(
+        prefill_chunks_per_step=1), True),
+    "none_dense_preempt_cancel": ("none", dict(paged=False), True),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _policy_params(policy):
+    """The reference's tiny init (packed to the policy's weight codes when
+    it has them) and the same leaves in the port."""
+    jcfg, tcfg = _cfgs("tiny", policy)
+
+    def init(key):
+        p = japi.init(key, jcfg)
+        return japi.pack_params(p, jcfg) if jcfg.quant.weights else p
+
+    jparams = jax.jit(init)(jax.random.key(2))
+    return jcfg, tcfg, jparams, tpacking.params_from_numpy(
+        jax.tree.map(np.asarray, jparams), tcfg, "cpu")
+
+
+def _scripted(engine, req_cls, prompts, script):
+    """Serve QUEUE; with `script`, after one step preempt slot 0 and cancel
+    the request queued last.  Returns (streams, (the preempted rid, the
+    cancelled rid, the queue after both))."""
+    for rid, (p, (_, new)) in enumerate(zip(prompts, QUEUE)):
+        engine.submit(req_cls(rid=rid, prompt=p, max_new_tokens=new))
+    calls = None
+    if script:
+        engine.step()
+        pre = engine.preempt(0)
+        last = engine.queue[-1].rid
+        assert engine.cancel(last)
+        calls = (pre.rid, last, [r.rid for r in engine.queue])
+    return {r.rid: list(map(int, r.out_tokens)) for r in engine.run()}, calls
+
+
+@pytest.mark.parametrize("name", sorted(RECURRENT_PATHS))
+def test_engine_paths_match_reference(name):
+    policy, knobs, script = RECURRENT_PATHS[name]
+    jcfg, tcfg, jparams, tparams = _policy_params(policy)
+    # whole 4-token chunks and one bucket: the reference engine compiles
+    # one prefill program a run instead of one a bucket
+    rng = np.random.default_rng(8)
+    prompts = [rng.integers(0, jcfg.vocab_size, n).astype(np.int32)
+               for n in (12, 8, 8, 20, 4)]
+    if policy == "validate_bit_exact":
+        prompts = prompts[:3]
+    kw = dict(batch_slots=2, max_seq=32, prefill_buckets=(4,), **knobs)
+    jeng = JEngine(jcfg, jparams, **kw)
+    teng = TEngine(tcfg, tparams, device="cpu",
+                   noise_fn=_jax_noise(kw.get("base_seed", 0)), **kw)
+    want = _scripted(jeng, JRequest, prompts, script)
+    got = _scripted(teng, TRequest, prompts, script)
+    assert got == want
+    assert teng.stats == jeng.stats
+    assert teng.kv_cache_summary() == jeng.kv_cache_summary()
