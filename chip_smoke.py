@@ -14,7 +14,10 @@ mamba2-1.3b at full width and all 48 layers, and the jamba-1.5-large and
 mamba2 smoke engines on the card against the CPU; then paligemma-3b (all
 18 layers: its image-prefix prefill and decode, its text-only engine) and
 hubert-xlarge (all 48 layers: a forward and QAT) at full width, and QAT
-of mamba2-1.3b at full width and depth.
+of mamba2-1.3b at full width and depth; then K3 / K7 and command-r's
+engine on pages of 256-1024 tokens, mamba2-1.3b's posit-compressed
+cross-pod training step on a (2, 2, 1) mesh of the card, and a sweep of
+the autotune cache.
 
     python3 chip_smoke.py
 
@@ -294,6 +297,34 @@ Phases (any failure exits non-zero; no phase is caught):
      each record counting its own run's launches; 15c `python -m
      repro_torch.launch.serve --mesh-model 2` at smoke width in a
      subprocess, exit 0.
+ 16. large pages, the compressed cross-pod reduction, the autotune cache:
+     16a (on phase 5's weights, after phase 15) K3 and K7 (T = 4) at
+     pages of 256, 512 and 1024 tokens (64 / 8 heads of 128; 8 / 4 heads
+     of 256 with a 1024-token window), int8 and bf16 pages, within 2e-5
+     of the plain version, every K7 row bitwise K3 at its own length, two
+     shards' merged partials bitwise K3 for a slot on one shard; K3 / K7
+     records at pages of 256 and 1024 with their bounds and SDPA; phase
+     4's small-input check of command-r's smoke config at pages of 256
+     (300-token prompts); then phase 5's queue greedy at pages of 256
+     (max_seq 512), counted from 0 (phase 5's path rules, every K3 launch
+     merged), its tok/s beside a page-16 run at the same max_seq, and
+     speculatively (k = 4, every K7 launch merged), counted from 0; the
+     streams' agreement printed;
+     16b mamba2-1.3b at full width and depth, paper_mixed fused, through
+     `make_train_step_compressed` on a (pod 2, data 2, model 1) mesh of
+     cuda:0, 3 steps of 8 x 128 tokens, counted from 0: per step the
+     loss, the step time, K1 / K2 `p8_2` launches (2 n and n^2 + 3 n a
+     leaf) and the int8 bytes handed between pods against `wire_bytes`;
+     losses finite and falling; step 0's reduction of every leaf within
+     P(8,2)'s rounding bound of the pods' f32 mean and conserving the sum
+     with its residuals (`_compress_checks`, which a residual left out
+     fails), small leaves bitwise their CPU reduction, K2 / K1 `p8_2`
+     bitwise their plain versions on the step's g + e and timed at the
+     largest leaf's shape; one more step profiled;
+     16c K7's t_block swept by `launch/autotune.py`'s runner at the
+     verify's serving shape (each candidate's time printed), the cache
+     written to a temporary path, and a launch through it: the tuned tile
+     counted, the output bitwise the untuned launch's.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -749,7 +780,8 @@ def _attention_splits_check(dev, Hq, Hkv, kv: str):
                    f"K7 row {i} bitwise K3 at split-boundary lengths "
                    f"(G={Hq // Hkv}, {kv} pages)")
     print(f"K3 / K7 at lengths {SPLIT_LENGTHS} (G={Hq // Hkv}, {kv} pages, "
-          f"{pa.attention_splits(M, ps)[1]} splits): max |err| {err:.3g}, "
+          f"{pa.attention_splits(M, ps, Dh)[1]} splits): max |err| "
+          f"{err:.3g}, "
           f"K7 rows bitwise K3")
     return err
 
@@ -790,10 +822,10 @@ def _k3_attention(dev):
         _check(bool((got[0][2] == 0).all()), "K3 zero-length slot")
     for kv in ("int8", "bf16", "f32"):
         err = max(err, _attention_splits_check(dev, Hq, Hkv, kv))
-    sp, n_splits = pa.attention_splits(M, ps)
+    ks, n_splits = pa.attention_splits(M, ps, Dh)
     _check(n_splits * Hkv * B > B * Hkv,
            "K3 launches more than B x Hkv blocks at the serving shape")
-    print(f"K3 grid at the serving shape: {n_splits} splits of {sp} pages x "
+    print(f"K3 grid at the serving shape: {n_splits} splits of {ks} keys x "
           f"{Hkv} KV heads x {B} slots = {n_splits * Hkv * B} blocks "
           f"(B x Hkv = {B * Hkv})")
     args = (q, kp, vp, bt, lengths, full)
@@ -1868,8 +1900,10 @@ def _kv_flips(card, values, cfg, what: str) -> int:
     return flips
 
 
-def _small_reference(dev, policy: str, arch: str = "command_r_35b"):
-    """Prefill two 20-token prompts and take one decode step of `arch`'s
+def _small_reference(dev, policy: str, arch: str = "command_r_35b",
+                     page_size: int = 16, prompt: int = 20):
+    """Prefill two `prompt`-token prompts (pages of `page_size` tokens) and
+    take one decode step of `arch`'s
     smoke config on the card and on the CPU (the plain versions), each side
     over its own pages.  The prefill logits agree within 1e-4.  KV pages:
     float pages agree within 1e-5; posit codes are equal except where a
@@ -1888,7 +1922,7 @@ def _small_reference(dev, policy: str, arch: str = "command_r_35b"):
     from repro_torch.core.quant import policy_by_name
     from repro_torch.models import api, packing
     from repro_torch.models.paged import PagedLayout
-    what = f"small input ({arch}, {policy})"
+    what = f"small input ({arch}, {policy}, pages of {page_size})"
     cfg = configs.get_smoke(arch)
     cfg = cfg.replace(quant=policy_by_name(policy))
     fmt = cfg.quant.kv_cache
@@ -1906,12 +1940,19 @@ def _small_reference(dev, policy: str, arch: str = "command_r_35b"):
         on[side] = {k: ({kk: vv.to(d) for kk, vv in v.items()}
                         if isinstance(v, dict) else v.to(d))
                     for k, v in params.items()}
-        cache = api.init_cache(cfg, 2, 64, PagedLayout.for_slots(2, 64, 16),
+        # each slot's prompt and decode token on its own run of pages
+        used = -(-(prompt + 1) // page_size)
+        per = max(4, used)
+        max_seq = per * page_size
+        cache = api.init_cache(cfg, 2, max_seq,
+                               PagedLayout.for_slots(2, max_seq, page_size),
                                device=d)
-        cache["block_table"] = torch.tensor([[1, 2, 0, 0], [3, 4, 0, 0]],
-                                            dtype=torch.int32, device=d)
-        toks[side] = torch.arange(40, dtype=torch.int32,
-                                  device=d).reshape(2, 20) % cfg.vocab_size
+        cache["block_table"] = torch.tensor(
+            [[1 + s * used + j if j < used else 0 for j in range(per)]
+             for s in range(2)], dtype=torch.int32, device=d)
+        toks[side] = torch.arange(2 * prompt, dtype=torch.int32,
+                                  device=d).reshape(2, prompt) \
+            % cfg.vocab_size
         if side == "cpu":
             pre_rec = recording(cache)
         with pre_rec if side == "cpu" else contextlib.nullcontext():
@@ -2750,15 +2791,22 @@ def _profile_train_step(tr, state, label: str):
     """One more step of `tr` from `state` under torch.profiler: device
     time by kernel group, the largest kernels of the rest, and the host's
     share of the step."""
+    batch = tr._to_device(tr.pipeline.batch_at(int(state.step)))
+    _profile_step(lambda: tr.train_step(state, batch)[1], label)
+
+
+def _profile_step(step, label: str):
+    """`step()` (a training step returning its metrics) under
+    torch.profiler: device time by kernel group, the largest kernels of
+    the rest, and the host's share of the step."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    batch = tr._to_device(tr.pipeline.batch_at(int(state.step)))
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        state, metrics = tr.train_step(state, batch)
+        metrics = step()
         float(metrics["loss"])
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
@@ -3426,35 +3474,39 @@ def _encode_head(params, cfg):
     return ops.encode(params["embed"].to(torch.float32), cfg.quant.weights)
 
 
-def _k3_case(dev, label, Hq, Hkv, Dh, lengths, window, M, seed):
-    """K3 at one decode shape: a slot per entry of `lengths`, M pages of 16
-    P(8,2) tokens each, Hq / Hkv heads of Dh, one window: within 2e-5 of
-    the plain version, finite, split and merged; timed beside its bound
-    (the keys this data attends) and SDPA over the decoded K/V with the
-    same mask.  Returns a record."""
+def _k3_case(dev, label, Hq, Hkv, Dh, lengths, window, M, seed, ps=16,
+             T=0):
+    """K3 at one decode shape (K7 with T > 0 tokens a slot): a slot per
+    entry of `lengths` (counting the T new tokens), M pages of `ps` P(8,2)
+    tokens each, Hq / Hkv heads of Dh, one window: within 2e-5 of the
+    plain version, finite, split and merged; timed beside its bound (the
+    keys this data attends) and SDPA over the decoded K/V with the same
+    mask.  Returns a record."""
     import torch
     import torch.nn.functional as F
     from repro_torch.core import formats, posit
     from repro_torch.kernels import ops
     from repro_torch.kernels import paged_attention as pa
     fmt = formats.P8_2
-    B, ps = len(lengths), 16
+    B = len(lengths)
     P = B * M + 1
     g = torch.Generator(device=dev).manual_seed(seed)
-    q = torch.randn(B, Hq, Dh, generator=g, device=dev)
+    q = torch.randn((B, T, Hq, Dh) if T else (B, Hq, Dh), generator=g,
+                    device=dev)
     kp = posit.pack(torch.randn(P, ps, Hkv * Dh, generator=g, device=dev), fmt)
     vp = posit.pack(torch.randn(P, ps, Hkv * Dh, generator=g, device=dev), fmt)
     bt = torch.arange(1, P, device=dev, dtype=torch.int32).reshape(B, M)
     ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
     w = torch.tensor([window], dtype=torch.int32, device=dev)
-    before = ops.launch_counts()["paged_attention:merge"]
+    kernel = "paged_attention_mq" if T else "paged_attention"
+    before = ops.launch_counts()[f"{kernel}:merge"]
     got = pa.paged_attention(q, kp, vp, bt, ln, w, fmt_kv=fmt)
-    _check(ops.launch_counts()["paged_attention:merge"] == before + 1,
-           f"K3 ({label}) splits its key span and merges")
+    _check(ops.launch_counts()[f"{kernel}:merge"] == before + 1,
+           f"{kernel} ({label}) splits its key span and merges")
     want = pa.paged_attention_plain(q, kp, vp, bt, ln, w, fmt_kv=fmt)
     _check(bool(torch.isfinite(got).all())
            and bool(torch.allclose(got, want, rtol=2e-5, atol=2e-5)),
-           f"K3 ({label}) within 2e-5 of its plain version")
+           f"{kernel} ({label}) within 2e-5 of its plain version")
     err = float((got - want).abs().max())
     run = lambda: pa.paged_attention(q, kp, vp, bt, ln, w,  # noqa: E731
                                      fmt_kv=fmt)
@@ -3465,25 +3517,32 @@ def _k3_case(dev, label, Hq, Hkv, Dh, lengths, window, M, seed):
     kd, vd = (posit.decode(t[bt.long()], fmt).reshape(B, M * ps, Hkv, Dh)
               .permute(0, 2, 1, 3).repeat_interleave(Hq // Hkv, dim=1)
               for t in (kp, vp))
-    # the kernel's mask: position p attends below length and where
-    # (length - 1) - p < window
+    # the kernel's mask: row i of a slot sits at position length - T' + i
+    # (T' = max(T, 1)); it attends positions up to its own and where
+    # position - key < window
+    rows = max(T, 1)
     pos = torch.arange(M * ps, device=dev)
-    qp = ln.long()[:, None] - 1
-    mask = (pos[None] <= qp) & (qp - pos[None] < window)
+    qp = (ln.long()[:, None] - rows + torch.arange(rows, device=dev))
+    mask = ((pos[None, None] <= qp[..., None])
+            & (qp[..., None] - pos[None, None] < window))     # [B, rows, S]
+    qt = q.permute(0, 2, 1, 3) if T else q[:, :, None]
     library_ms = _device_ms(lambda: F.scaled_dot_product_attention(
-        q[:, :, None], kd, vd, attn_mask=mask[:, None, None]), launches=20)
+        qt, kd, vd, attn_mask=mask[:, None]), launches=20)
     keys = int(mask.sum())
-    bound, by = _bound(2 * q.numel() * 4 + 2 * keys * Hkv * Dh
+    read = int(mask.any(1).sum())      # distinct keys a slot's rows read
+    bound, by = _bound(2 * q.numel() * 4 + 2 * read * Hkv * Dh
                        + bt.numel() * 4 + B * 4, 4.0 * Hq * Dh * keys)
-    print(f"10 K3 {label} (B {B}, {Hq} / {Hkv} heads x {Dh}, lengths "
-          f"{tuple(lengths)}, window {window}, "
-          f"{pa.attention_splits(M, ps)[1]} splits): ms {ms:.4f}, call_ms "
-          f"{call_ms:.4f}, plain_ms {plain_ms:.3f}, bound_ms {bound:.4f} "
-          f"({by}, {keys} keys attended), library_ms (SDPA, decoded K/V, "
-          f"masked) {library_ms:.4f}, max_abs_err {err:.3g}")
-    return dict(name=f"paged_attention ({label})", counter="paged_attention",
+    print(f"K3 {label} ({kernel}, B {B}{f', T {T}' if T else ''}, {Hq} / "
+          f"{Hkv} heads x {Dh}, pages of {ps}, lengths {tuple(lengths)}, "
+          f"window {window}, {pa.attention_splits(M, ps, Dh)[1]} splits): "
+          f"ms {ms:.4f}, call_ms {call_ms:.4f}, plain_ms {plain_ms:.3f}, "
+          f"bound_ms {bound:.4f} ({by}, {keys} keys attended), library_ms "
+          f"(SDPA, decoded K/V, masked) {library_ms:.4f}, max_abs_err "
+          f"{err:.3g}")
+    return dict(name=f"{kernel} ({label})", counter=kernel,
                 source="src/repro_torch/csrc/paged_attention.cu",
-                replaces="src/repro/kernels/paged_attention.py:266",
+                replaces=("src/repro/kernels/paged_attention.py:195" if T
+                          else "src/repro/kernels/paged_attention.py:266"),
                 max_abs_err=err, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
                 bound_ms=bound, bound_by=by, library_ms=library_ms)
 
@@ -5573,6 +5632,477 @@ def _sharded_phase(cfg, params, prompts, paged_greedy, dev):
     return {label_a: c_a, label_b: c_b}, records
 
 
+# ---------------------------------------------------------------------------
+# phase 16: K3 / K7 over pages of up to 1024 tokens, the posit-compressed
+# cross-pod gradient reduction, the kernel autotune cache
+# ---------------------------------------------------------------------------
+
+LARGE_PAGES = (256, 512, 1024)
+PAGE256_LABEL = "pages of 256 greedy"
+PAGE256_SPEC_LABEL = "pages of 256 speculative greedy"
+# (Hq, Hkv, head_dim, window): command-r's G 8 at 128; gemma3's G 2 at 256
+# with its 1024-token window
+LARGE_PAGE_SHAPES = ((64, 8, 128, 1 << 30), (8, 4, 256, 1024))
+COMPRESS_LABEL = "compressed step mamba2-1.3b"
+COMPRESS_STEPS = 3
+COMPRESS_MESH = (2, 2)          # (pods, data replicas), model 1
+# the step-0 checks read each leaf's first elements, at most this many
+COMPRESS_CHECK_ELEMS = 1 << 24
+_U = 2.0 ** -24
+
+
+def _large_page_checks(dev):
+    """16a: K3 and K7 (T = 4) over pages of 256, 512 and 1024 tokens at
+    LARGE_PAGE_SHAPES, int8 P(8,2) and bf16 pages, lengths ending inside a
+    split, on its edge and across pages: within 2e-5 of the plain version,
+    every K7 row bitwise K3 at its own length, each launch merged, and the
+    merge of two shards' partials (pages by parity) bitwise K3 for a slot
+    whose page lies on one shard.  Returns max |err|."""
+    import torch
+    from repro_torch.core import formats, posit
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import paged_attention as pa
+    err = 0.0
+    for ps in LARGE_PAGES:
+        for Hq, Hkv, Dh, window in LARGE_PAGE_SHAPES:
+            for kv in ("int8", "bf16"):
+                M = max(1, 2048 // ps)
+                lengths = [1, 128, 129, ps + 70, M * ps]
+                B = len(lengths)
+                g = torch.Generator(device=dev).manual_seed(ps + Dh)
+                pool = torch.randn(2, B * M + 1, ps, Hkv * Dh, generator=g,
+                                   device=dev)
+                fmt = formats.P8_2 if kv == "int8" else None
+                kp, vp = ((posit.pack(t, fmt) for t in pool) if fmt
+                          else pool.to(torch.bfloat16).unbind(0))
+                bt = torch.randperm(B * M, generator=g, device=dev) \
+                    .reshape(B, M).to(torch.int32) + 1
+                ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
+                w = torch.tensor([window], dtype=torch.int32, device=dev)
+                q3 = torch.randn(B, Hq, Dh, generator=g, device=dev)
+                q4 = torch.randn(B, 4, Hq, Dh, generator=g, device=dev)
+                what = f"K3 / K7 at pages of {ps} ({Hq} / {Hkv} x {Dh}, {kv})"
+                outs = {}
+                for q in (q3, q4):
+                    ops.reset_launches()
+                    got = pa.paged_attention(q, kp, vp, bt, ln, w, fmt_kv=fmt)
+                    key = ("paged_attention_mq" if q.ndim == 4
+                           else "paged_attention")
+                    _check(ops.launch_counts()[f"{key}:merge"] == 1,
+                           f"{what}: {key} splits and merges")
+                    want = pa.paged_attention_plain(q, kp, vp, bt, ln, w,
+                                                    fmt_kv=fmt)
+                    _check(bool(torch.isfinite(got).all()) and bool(
+                        torch.allclose(got, want, rtol=2e-5, atol=2e-5)),
+                        f"{what}: {key} within 2e-5 of its plain version")
+                    err = max(err, float((got - want).abs().max()))
+                    outs[q.ndim] = got
+                for i in range(4):
+                    k3 = pa.paged_attention(q4[:, i].contiguous(), kp, vp,
+                                            bt, ln - 3 + i, w, fmt_kv=fmt)
+                    _check(_bits_equal(outs[4][:, i], k3),
+                           f"{what}: K7 row {i} bitwise K3 at its length")
+                ok = torch.zeros(B, M, dtype=torch.int32, device=dev)
+                ok[:, 0::2] = 1
+                parts = [pa.paged_attention(q3, kp, vp, bt, ln, w,
+                                            fmt_kv=fmt, page_ok=o,
+                                            partials=True)
+                         for o in (ok, 1 - ok)]
+                merged = pa.merge_attn_partials(
+                    *(list(t) for t in zip(*parts)))
+                _check(_bits_equal(merged[0], outs[3][0]),
+                       f"{what}: merged shard partials bitwise K3 for a "
+                       f"slot on one shard")
+    print(f"16a K3 / K7 at pages of {LARGE_PAGES} (head_dim 128 G 8, "
+          f"head_dim 256 G 2 window 1024; int8 and bf16): max |err| "
+          f"{err:.3g} (limit 2e-5), K7 rows bitwise K3, a slot on one shard "
+          f"merged bitwise")
+    return err
+
+
+def _large_pages_phase(cfg, params, prompts, greedy, dev):
+    """16a on phase 5's weights and queue: the kernel checks above; K3 and
+    K7 records at pages of 256 and 1024 (command-r's decode and verify
+    shapes); phase 4's small-input check of command-r's smoke config at
+    pages of 256 (300-token prompts, two 128-key splits a page); then the
+    full-width engine at pages of 256 (max_seq 512), phase 5's queue
+    greedy, counted from 0, beside a page-16 run at the same max_seq in
+    this call, and speculatively (k = 4: K7 over pages of 256), counted
+    from 0.  Returns ({label: launch counts}, records)."""
+    from repro_torch.kernels import ops
+    _large_page_checks(dev)
+    Hq, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    records = []
+    for ps in (256, 1024):
+        M = max(1, 1024 // ps)
+        lengths = [M * ps, 129, 1, ps + 70]
+        records.append(_k3_case(dev, f"pages of {ps}", Hq, Hkv, Dh, lengths,
+                                1 << 30, M, 160 + ps, ps=ps))
+        records.append(_k3_case(dev, f"pages of {ps}", Hq, Hkv, Dh, lengths,
+                                1 << 30, M, 161 + ps, ps=ps, T=4))
+    err, forced, flips = _small_reference(dev, "serve_fused_p16",
+                                          "command_r_35b", page_size=256,
+                                          prompt=300)
+    print(f"16a small input (command_r_35b, serve_fused_p16, pages of 256, "
+          f"300-token prompts): max |logit diff| card vs plain CPU "
+          f"{err:.3g} (decode over the card's codes {forced:.3g}); KV codes "
+          f"adjacent across a rounding boundary {flips}")
+    base = dict(max_seq=512, base_seed=1, greedy=True)
+    page16 = _run_engine(cfg, params, prompts, "pages of 16 greedy "
+                         "(max_seq 512)", page_size=16, **base)[0]
+    ops.reset_launches()
+    page256, eng, _, _ = _run_engine(cfg, params, prompts, PAGE256_LABEL,
+                                     page_size=256, **base)
+    counts = ops.launch_counts()
+    print(f"{PAGE256_LABEL}: launches {json.dumps(counts)}")
+    _check(eng.layout.page_size == 256, "the engine serves pages of 256")
+    _path_checks(PAGE256_LABEL, counts, "tc")
+    _check(counts["paged_attention"] > 0
+           and counts["paged_attention:merge"] == counts["paged_attention"],
+           f"'{PAGE256_LABEL}': every K3 launch split its pages and merged")
+    ops.reset_launches()
+    spec, spec_eng, _, _ = _run_engine(cfg, params, prompts,
+                                       PAGE256_SPEC_LABEL, page_size=256,
+                                       speculate_k=SPEC_K, **base)
+    spec_counts = ops.launch_counts()
+    print(f"{PAGE256_SPEC_LABEL}: launches {json.dumps(spec_counts)}")
+    _check(spec_eng.stats["spec_rounds"] > 0
+           and spec_counts["paged_attention_mq"] > 0
+           and spec_counts["paged_attention_mq:merge"]
+           == spec_counts["paged_attention_mq"],
+           f"'{PAGE256_SPEC_LABEL}': rounds ran, every K7 launch split its "
+           f"pages and merged")
+    for a, b, name in ((page256, page16, "pages of 256 vs pages of 16 at "
+                        "max_seq 512"),
+                       (page256, greedy, "pages of 256 vs phase 5's "
+                        "defaults greedy"),
+                       (spec, page256, "pages of 256, speculative vs "
+                        "plain")):
+        same, toks = _agreement(a, b)
+        print(f"16a greedy streams, {name}: {same:.3f} of streams "
+              f"identical, {toks:.4f} of tokens equal")
+    for rec in records:
+        rec["paths"] = ((PAGE256_SPEC_LABEL,)
+                        if rec["counter"] == "paged_attention_mq"
+                        else (PAGE256_LABEL, PAGE256_SPEC_LABEL))
+    del eng, spec_eng
+    return {PAGE256_LABEL: counts, PAGE256_SPEC_LABEL: spec_counts}, records
+
+
+def _round_bound(codes, fmt):
+    """The most the encode that gave each code can have rounded away: the
+    larger distance from the code's value to the ends of the interval of
+    values that round to it (`rounding_boundaries`: the pattern RNE's
+    boundaries, not the midpoints between values; every nonzero magnitude
+    below minpos rounds up to it, so that interval starts at 0; code 0
+    comes from 0 only).  Magnitudes beyond maxpos, which saturate, are not
+    covered (no gradient comes near 2^24)."""
+    import torch
+    from repro_torch.kernels import posit_codec
+    k = codes.to(torch.int64).abs()
+    v = posit_codec.decode_plain(codes, fmt).abs()
+    edges = posit_codec.rounding_boundaries(fmt).to(v.device)
+    zero = torch.zeros(1, dtype=v.dtype, device=v.device)
+    lo = torch.cat([zero, edges])                  # lower edge of code k
+    hi = torch.cat([edges, edges[-1:]])            # upper edge of code k
+    idx = (k - 1).clamp(0, edges.numel())
+    bound = torch.maximum(v - lo[idx], hi[idx] - v).clamp(min=0)
+    return torch.where(k == 0, torch.zeros_like(v), bound)
+
+
+def _compress_checks(gs, errs, red, new, fmt, limit=None):
+    """Phase 16b's checks of one leaf's reduction over the n pods (the
+    first `limit` elements): the reduced gradient against the plain f32
+    mean of the pods' g + e, within the bound P(8,2)'s two roundings give
+    (each pod's encode and the sum's, half a code gap each, over n, plus
+    f32 slack); and error feedback conserving the sum: sum_i (g_i + e_i)
+    = n r + sum_i e'_i up to the f32 rounding of those sums (a residual
+    left out shows as a gap of P(8,2)'s rounding).  Returns the largest
+    gap over each limit, (bound ratio, conservation ratio): both <= 1."""
+    import torch
+    from repro_torch.kernels import posit_codec
+    n = len(gs)
+    cut = (lambda t: t.reshape(-1)[:limit].to(torch.float32))
+    gf = [cut(g) + cut(e) for g, e in zip(gs, errs)]
+    r = cut(red[0])
+    ne = [cut(e) for e in new]
+    nt = torch.tensor(float(n), device=r.device)
+    total = gf[0]
+    for x in gf[1:]:
+        total = total + x
+    mean = total / nt
+    codes = [posit_codec.encode_plain(x, fmt) for x in gf]
+    s = posit_codec.decode_plain(codes[0], fmt)
+    rounded = _round_bound(codes[0], fmt)
+    for c in codes[1:]:
+        s = s + posit_codec.decode_plain(c, fmt)
+        rounded = rounded + _round_bound(c, fmt)
+    rounded = rounded + _round_bound(posit_codec.encode_plain(s, fmt), fmt)
+    mags = sum(x.abs() for x in gf)
+    bound = rounded / nt + 8 * _U * (mags / nt + r.abs()) + 1e-38
+    ratio_a = float(((r - mean).abs() / bound).max())
+    rhs = r * nt + sum(ne)
+    tol = 4 * n * _U * (mags + nt * r.abs() + sum(x.abs() for x in ne)) \
+        + 1e-38
+    ratio_b = float(((total - rhs).abs() / tol).max())
+    return ratio_a, ratio_b
+
+
+def _compressed_phase(dev):
+    """16b: mamba2-1.3b at full width and depth (48 layers), paper_mixed
+    fused QAT, through `make_train_step_compressed` on a (pod 2, data 2,
+    model 1) mesh of cuda:0 (`make_train_mesh`): COMPRESS_STEPS steps of
+    8 x 128 tokens (2 x 128 a replica), AdamW at MAMBA_PEAK_LR, counted
+    from 0.  Per step: the loss, the step time, K1 / K2 `p8_2` launches
+    and the int8 bytes handed between pods against `wire_bytes`.  Step
+    0's reduction is checked leaf by leaf on the card (`_compress_checks`)
+    and small leaves are replayed on the CPU (the plain codec) bitwise;
+    after the run K2 / K1 `p8_2` over a slice of the largest leaf's
+    g + e are held bitwise to `encode_plain` / `decode_plain` and timed at
+    the largest leaf's shape.  Returns ({label: counts}, records)."""
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.core.formats import P8_2
+    from repro_torch.core.quant import policy_by_name
+    from repro_torch.data import Pipeline
+    from repro_torch.kernels import ops, posit_codec
+    from repro_torch.launch.mesh import make_train_mesh
+    from repro_torch.models.module import tree_leaves
+    from repro_torch.optim import adamw, compress, constant_schedule
+    from repro_torch.train import step as step_lib
+    cfg = configs.get("mamba2_1_3b").replace(
+        quant=policy_by_name("paper_mixed").with_execution("fused"))
+    n_pods, n_data = COMPRESS_MESH
+    mesh = make_train_mesh(n_pods, n_data)
+    opt = adamw(constant_schedule(MAMBA_PEAK_LR))
+    shape = _train_shape()
+    ts = step_lib.make_train_step_compressed(cfg, opt, mesh)
+    state = step_lib.init_state(torch.Generator(device=dev).manual_seed(16),
+                                cfg, opt, dev)
+    err = ts.init_err(state.params)
+    leaves = tree_leaves(state.params)
+    n_el = sum(t.numel() for t in leaves)
+    wire = compress.wire_bytes(state.params, n_pods)
+    print(f"16b {COMPRESS_LABEL}: mesh {mesh.shape} on "
+          f"{sorted({str(d) for d in mesh.devices})}, {len(leaves)} leaves, "
+          f"{n_el} parameters: masters {4 * n_el} B, AdamW moments "
+          f"{8 * n_el} B, error trees {4 * n_el * n_pods} B, pod gradients "
+          f"{4 * n_el * n_pods} B; wire_bytes {json.dumps(wire)}")
+    pipe = Pipeline(cfg, shape)
+    real = compress.compressed_psum_leaf
+    seen = {"step": 0, "ratios": [0.0, 0.0], "replayed": 0, "leaves": 0}
+    biggest = max(range(len(leaves)), key=lambda i: leaves[i].numel())
+    kept = {}
+
+    def checked(gs, errs, fmt=P8_2):
+        red, new = real(gs, errs, fmt)
+        if seen["step"] == 0:
+            i = seen["leaves"]
+            seen["leaves"] += 1
+            a, b = _compress_checks(gs, errs, red, new, fmt,
+                                    COMPRESS_CHECK_ELEMS)
+            seen["ratios"] = [max(seen["ratios"][0], a),
+                              max(seen["ratios"][1], b)]
+            if gs[0].numel() <= 1 << 20:
+                handed = compress.BYTES_HANDED["int8"]
+                cpu_red, cpu_new = real([g.cpu() for g in gs],
+                                        [e.cpu() for e in errs], fmt)
+                compress.BYTES_HANDED["int8"] = handed
+                _check(all(_bits_equal(x.cpu(), y) for x, y in
+                           zip(red + new, cpu_red + cpu_new)),
+                       f"16b: leaf {i} reduced on the card bitwise its "
+                       f"plain CPU reduction")
+                seen["replayed"] += 1
+            if i == biggest:
+                kept["gf"] = (gs[0].reshape(-1)[:COMPRESS_CHECK_ELEMS]
+                              .float() + errs[0].reshape(-1)[
+                                  :COMPRESS_CHECK_ELEMS]).clone()
+        return red, new
+
+    compress.compressed_psum_leaf = checked
+    losses, times, per_step = [], [], []
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    try:
+        for s in range(COMPRESS_STEPS):
+            batch = {k: torch.from_numpy(np.asarray(v)).to(dev)
+                     for k, v in pipe.batch_at(s).items()}
+            before = ops.launch_counts()
+            handed = compress.BYTES_HANDED["int8"]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            (state, err), m = ts((state, err), batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            seen["step"] += 1
+            losses.append(float(m["loss"]))
+            after = ops.launch_counts()
+            per_step.append({k: after[k] - before[k] for k in
+                             ("posit_encode:p8_2", "posit_decode:p8_2",
+                              "posit_encode:p13_2", "posit_decode:p13_2",
+                              "posit_matmul:tc")})
+            moved = compress.BYTES_HANDED["int8"] - handed
+            print(f"16b step {s}: loss {losses[-1]:.4f}, step "
+                  f"{times[-1]:.3f} ms, launches {json.dumps(per_step[-1])}, "
+                  f"int8 bytes handed between pods {moved} "
+                  f"({moved / n_pods:.0f} a pod; wire_bytes "
+                  f"{wire['posit_bytes']:.0f} a device)")
+            _check(abs(moved / n_pods - wire["posit_bytes"])
+                   <= 2 * (n_pods - 1) * len(leaves),
+                   "16b: the int8 bytes a pod hands match wire_bytes (up to "
+                   "each leaf's padding)")
+    finally:
+        compress.compressed_psum_leaf = real
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    n_leaves = len(leaves)
+    print(f"{COMPRESS_LABEL}: losses {[round(x, 4) for x in losses]}, steps "
+          f"{[round(t, 3) for t in times]} ms, peak memory {peak / 1e9:.3f} "
+          f"GB; launches {json.dumps(counts)}")
+    _check(all(map(math.isfinite, losses)) and losses[-1] < losses[0],
+           f"16b: finite losses, falling over {COMPRESS_STEPS} steps")
+    for c in per_step:
+        _check(c["posit_encode:p8_2"] == 2 * n_pods * n_leaves
+               and c["posit_decode:p8_2"] == (n_pods ** 2 + 3 * n_pods)
+               * n_leaves,
+               f"16b: K2 p8_2 {2 * n_pods} and K1 p8_2 "
+               f"{n_pods ** 2 + 3 * n_pods} launches a leaf a step")
+    _check(counts["posit_matmul:tc"] > 0
+           and counts["posit_encode:posit"] == 0,
+           "16b: the replicas' QAT ran K6 tc, every K2 on a compile-time "
+           "variant")
+    ratio_a, ratio_b = seen["ratios"]
+    print(f"16b step 0: {seen['leaves']} leaves checked; reduced gradient vs "
+          f"the plain f32 mean of the pods' gradients {ratio_a:.3f} of "
+          f"P(8,2)'s rounding bound; error feedback's conservation gap "
+          f"{ratio_b:.3f} of its f32 limit; {seen['replayed']} leaves "
+          f"replayed on the CPU bitwise")
+    _check(seen["leaves"] == n_leaves and ratio_a <= 1.0 and ratio_b <= 1.0,
+           "16b: step 0's reduced gradient within P(8,2)'s rounding bound of "
+           "the f32 mean, error feedback conserving the sum")
+    _check(seen["replayed"] > 0, "16b: small leaves replayed on the CPU")
+    batch = {k: torch.from_numpy(np.asarray(v)).to(dev)
+             for k, v in pipe.batch_at(COMPRESS_STEPS).items()}
+    _profile_step(lambda: ts((state, err), batch)[1],
+                  f"{COMPRESS_LABEL} step")
+    del state, err, ts, batch
+    _release()
+    gf = kept["gf"]
+    codes = ops.encode(gf, P8_2)
+    _check(_bits_equal(codes, posit_codec.encode_plain(gf, P8_2)),
+           "16b: K2 p8_2 bitwise encode_plain on the step's g + e")
+    _check(_bits_equal(ops.decode(codes, P8_2),
+                       posit_codec.decode_plain(codes, P8_2)),
+           "16b: K1 p8_2 bitwise decode_plain on the step's codes")
+    records = []
+    shape_big = tuple(leaves[biggest].shape)
+    del leaves
+    big = torch.randn(shape_big, device=dev) * float(gf.std())
+    big_codes = ops.encode(big, P8_2)
+    n_big = big.numel()
+    for name, fn, plain, counter, nbytes, src in (
+            ("posit_encode (p8_2, gradient)",
+             lambda: ops.encode(big, P8_2),
+             lambda: posit_codec.encode_plain(big, P8_2),
+             "posit_encode:p8_2", 5 * n_big,
+             "src/repro/kernels/posit_codec.py:78"),
+            ("posit_decode (p8_2, gradient)",
+             lambda: ops.decode(big_codes, P8_2),
+             lambda: posit_codec.decode_plain(big_codes, P8_2),
+             "posit_decode:p8_2", 5 * n_big,
+             "src/repro/kernels/posit_codec.py:55")):
+        got, want = fn(), plain()
+        _check(_bits_equal(got, want), f"16b: {name} bitwise its plain "
+                                       f"version at {shape_big}")
+        del got, want
+        ms = _device_ms(fn, launches=5)
+        call_ms = _time_ms(fn, reps=5)
+        plain_ms = _time_once_ms(plain)
+        bound, by = _bound(nbytes, 0.0)
+        print(f"kernel {name} ({shape_big}): ms {ms:.4f}, call_ms "
+              f"{call_ms:.4f}, plain_ms {plain_ms:.3f}, bound_ms {bound:.4f} "
+              f"({by})")
+        records.append(dict(
+            name=name, counter=counter, paths=(COMPRESS_LABEL,),
+            source="src/repro_torch/csrc/posit_codec.cu", replaces=src,
+            max_abs_err=0.0, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+            bound_ms=bound, bound_by=by, library_ms=None))
+    del big, big_codes, gf, kept
+    return {COMPRESS_LABEL: counts}, records
+
+
+def _autotune_phase(dev):
+    """16c: `launch/autotune.py`'s sweep of K7's t_block at the serving
+    verify shape (B 4, T 4, 64 / 8 heads of 128, 16-token P(8,2) pages,
+    M 16), each candidate's time printed; then K7 through
+    `ops.paged_attention` with caches written to a temporary path: the
+    swept winner, and t_block 4 (not the wrapper's default 2 at this
+    shape).  Each launch reads the cache and runs the tile `ops` resolves
+    from it (the reference's rule: a cached tile that does not divide T,
+    or one below `_TILE_FLOOR`, yields to the default), counted as
+    `paged_attention_mq:t<n>`, with the untuned launch's bits
+    (REPRO_AUTOTUNE=off)."""
+    import tempfile
+    from repro_torch.kernels import autotune, ops
+    from repro_torch.launch import autotune as launch_autotune
+    import torch
+    shape, fmts = launch_autotune.sweep_points(quick=True)["paged_attention"][0]
+    g = torch.Generator(device=dev).manual_seed(16)
+    run = launch_autotune._runner("paged_attention", shape, fmts, g, dev)
+    params, ms, table = autotune.sweep("paged_attention", shape, run,
+                                       fmts=fmts, reps=50)
+    for row in table:
+        print(f"16c sweep K7 {shape} {row['params']}: "
+              + ("refused" if row["ms"] is None else f"{row['ms']:.4f} ms"))
+    print(f"16c best {params} {ms:.4f} ms")
+    launch = run({})
+    tiles = lambda c: {k: v for k, v in c.items()  # noqa: E731
+                       if k.startswith("paged_attention_mq:t") and v}
+    saved = {k: os.environ.get(k) for k in ("REPRO_AUTOTUNE",
+                                            "REPRO_AUTOTUNE_CACHE")}
+    try:
+        os.environ["REPRO_AUTOTUNE"] = "off"
+        autotune.reset_cache(None)
+        ops.reset_launches()
+        untuned = launch()
+        (default,) = tiles(ops.launch_counts())
+        os.environ["REPRO_AUTOTUNE"] = "on"
+        with tempfile.TemporaryDirectory() as tmp:
+            for tb in (params["t_block"], 4):
+                cache = autotune.AutotuneCache()
+                cache.put("paged_attention", shape, {"t_block": tb},
+                          fmts=fmts, ms=ms)
+                path = cache.save(os.path.join(tmp, f"cache_t{tb}.json"))
+                os.environ["REPRO_AUTOTUNE_CACHE"] = path
+                autotune.reset_cache(None)
+                ops.reset_launches()
+                tuned = launch()
+                on = tiles(ops.launch_counts())
+                report = autotune.hit_report()
+                resolved = ops._degrade_tile(shape[1], tb)
+                want = (f"paged_attention_mq:t{resolved}" if resolved
+                        else default)
+                print(f"16c cache {path} (backend {cache.backend}) with "
+                      f"t_block {tb}: untuned launch {{{default!r}: 1}}, "
+                      f"tuned launch {on}; hits {json.dumps(report)}")
+                _check(report == {"paged_attention": {"hits": 1,
+                                                      "misses": 0}}
+                       and on == {want: 1},
+                       f"16c: the launch read the cache (t_block {tb}) and "
+                       f"ran {want}")
+                _check(_bits_equal(tuned, untuned),
+                       f"16c: the launch tuned to t_block {tb} bitwise the "
+                       f"untuned one")
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        autotune.reset_cache(None)
+
+
 def _attribute_launches(kernels, runs):
     """Fill each kernel record's launches from the main-path runs' own
     counts (each from 0): launches_by_path, each run's count of the
@@ -5691,6 +6221,11 @@ def main() -> int:
     # ---- phase 15: kv_pages-sharded pools on phase 5's weights and queue
     counts15, recs = _sharded_phase(cfg, params, prompts, greedy, dev)
     kernels.extend(recs)
+    # ---- phase 16a: K3 / K7 over pages of 256-1024 tokens; the engine at
+    # pages of 256 on phase 5's weights and queue
+    counts16, recs = _large_pages_phase(cfg, params, prompts, greedy, dev)
+    kernels.extend(recs)
+    _release()
     # the engines hold reference cycles (bound methods): collect them so
     # that each later phase starts with only its own weights on the card
     del params
@@ -5773,6 +6308,15 @@ def main() -> int:
         counts14.update(c)
         kernels.extend(recs)
         _release()
+    # ---- phase 16b: the posit-compressed cross-pod gradient reduction
+    # (mamba2-1.3b at full width on a (2, 2, 1) mesh of cuda:0); 16c: the
+    # autotune cache's sweep of K7's t_block and a tuned launch
+    c, recs = _compressed_phase(dev)
+    counts16.update(c)
+    kernels.extend(recs)
+    _release()
+    _autotune_phase(dev)
+    _release()
     # K3 splits every main path's key spans (tables of more than 2 pages)
     # and merges the partials: each launch ran the merge kernel
     for label, c in counts.items():
@@ -5791,7 +6335,7 @@ def main() -> int:
                and c["prefill_attention:tc"] == c["prefill_attention"],
                f"'{label}': every K5 launch took the tensor-core variant")
     runs = dict(counts, **counts10, **train_runs, **counts13, **counts14,
-                **counts15)
+                **counts15, **counts16)
     _attribute_launches(kernels, runs)
     keys = ("name", "route", "source", "replaces", "launches",
             "launches_by_path", "launches_by_variant", "max_abs_err", "ms",

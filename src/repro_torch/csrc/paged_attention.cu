@@ -13,12 +13,18 @@
 // block per (slot, KV head) walking the pages leaves most of the 132 SMs
 // idle (32 blocks for command-r, 16 for qwen3), so the key span is split
 // across blocks (flash-decoding):
-//   * grid (split, KV head, slot x token tile): split s covers the pages
-//     [s SP, (s + 1) SP) of the block table, SP = max(1, 32 / page size)
-//     (the wrapper's `attention_splits`: 2 pages of 16 tokens), fixed by
-//     the table's width and the page size alone;
-//   * a block decodes the split's pages that any of its rows visits once
-//     into shared memory (16-byte loads; int8 codes through a 256-entry
+//   * grid (split, KV head, slot x token tile): split s covers the keys
+//     [s KS, (s + 1) KS) of the block table's span M x page size, KS
+//     (the wrapper's `attention_splits`) fixed by the page size and
+//     head_dim alone: whole pages, SP = max(1, 32 / page size) of them
+//     (2 pages of 16 tokens), where a page fits the block's shared memory
+//     and holds at most 128 keys; else a page is cut into splits of the
+//     largest power of two of keys, at most 128, whose K and V rows fit
+//     227 KB (64 at head_dim 256), so shared memory never grows with the
+//     page size (pages of up to 1024 tokens);
+//   * a block decodes the split's pieces of pages (a piece: the split's
+//     keys on one page) that any of its rows visits once into shared
+//     memory (16-byte loads; int8 codes through a 256-entry
 //     table), then serves every query row of the group from them: the
 //     G = Hq / Hkv query heads (GQA reuse), times the t_block tokens of
 //     its tile for K7.  Two barriers a block, none per page;
@@ -36,11 +42,14 @@
 //     pos <= q_pos, q_pos - pos < window, page_ok[b, p] != 0.
 //
 // Every value of a row is computed from that row alone, in an order fixed
-// by its length, its q and its pages: a row visits exactly the pages K3
-// visits at that length (a page before the row's last, inside its window,
-// with page_ok set), each in the split that holds it, and includes all
-// positions of a visited page (masked ones with p = 0).  The splits and
-// the merge order depend on the block table's width only.  So every row
+// by its length, its q and its pages: a row visits exactly the pieces K3
+// visits at that length (a piece that starts before the row's position
+// + 1, ends inside its window, on a page with page_ok set), each in the
+// split that holds it, and includes all positions of a visited piece
+// (masked ones with p = 0); a split with no visited piece leaves the
+// neutral partial, which the merge passes through bitwise.  The splits
+// and the merge order depend on the block table's width, the page size
+// and head_dim only.  So every row
 // of K7 is bitwise the row K3 computes for one query at length q_pos + 1
 // over the same pages, whatever T and t_block, and no row depends on the
 // block's other rows.  A slot of length 0 (or a row before position 0)
@@ -64,6 +73,7 @@ constexpr float kNeg = -2.0e38f;
 constexpr int kMaxThreads = 512;  // a block has a warp per row, up to 16
 constexpr int kMaxDh = 256;      // a lane holds at most 8 dims of a row
 constexpr int kMaxChunks = 4;    // a split holds at most 128 keys
+constexpr size_t kMaxSmem = 227 * 1024;  // a block's shared memory
 
 // One KV element as f32 (int8 codes through the block's decode table).
 __device__ __forceinline__ float kv_value(int8_t c, const float* table, int,
@@ -146,14 +156,11 @@ __device__ __forceinline__ void transpose_sum(float* part, int lane) {
   if constexpr (W > 1) transpose_sum<W / 2>(part, lane);
 }
 
-// Shared memory of a block: the int8 decode table and the split's K and V.
+// Shared memory of a block: the int8 decode table and the split's K and V
+// (kernels/paged_attention.py:split_smem_bytes mirrors it).
 size_t smem_bytes(int keys, int Dh) {
   return sizeof(float) * (256 + 2 * (size_t)keys * Dh);
 }
-
-// The launchers' return code when that exceeds the 227 KB a block may take
-// (kernels/paged_attention.py raises on it).
-constexpr int kSmemRefused = -1;
 
 // The rows of one block: split blockIdx.x, KV head blockIdx.y, slot b,
 // tokens [t0, t0 + tb) of the slot's T new tokens.  Row r = tt * G + g is
@@ -170,10 +177,12 @@ __device__ __forceinline__ void attend_rows(
     float* __restrict__ m_out, float* __restrict__ l_out,
     float* __restrict__ part_o, float* __restrict__ part_ml, int b, int T,
     int t0, int tb, int M, int ps, int Hq, int Hkv, int Dh, int n, int es,
-    int SP, int S, float scale, float softcap, int vec) {
+    int KS, int S, float scale, float softcap, int vec) {
   const int s = blockIdx.x, h = blockIdx.y;
   const int G = Hq / Hkv, F = Hkv * Dh, R = tb * G;
-  const int keys = SP * ps, p0 = s * SP;
+  // the split's keys [k0, k0 + KS) of the span lie on pages p0 .. p0 + NP - 1
+  const int keys = KS, k0 = s * KS, p0 = k0 / ps;
+  const int NP = (k0 + KS - 1) / ps - p0 + 1;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nwarps = blockDim.x >> 5;
   extern __shared__ float smem[];
@@ -183,14 +192,17 @@ __device__ __forceinline__ void attend_rows(
 
   const int length = lengths[b];
   const long long win = window[0];
-  // bit i: the row of length len visits page p0 + i (before its last page,
-  // inside its window, page_ok set)
+  // bit i: the row of length len visits the split's piece of page p0 + i,
+  // positions [lo, hi): it starts before len, ends inside the window, and
+  // the page is in the table with page_ok set (whole pages: K3's page rule)
   auto visits = [&](int len) {
     unsigned mask = 0u;
-    const int np = len > 0 ? min(M, (len + ps - 1) / ps) : 0;
-    for (int i = 0; i < SP; ++i) {
+    for (int i = 0; i < NP; ++i) {
       const int p = p0 + i;
-      if (p < np && (long long)p * ps + ps - 1 > (long long)len - 1 - win &&
+      const long long lo = max((long long)k0, (long long)p * ps);
+      const long long hi = min((long long)k0 + KS, (long long)(p + 1) * ps);
+      if (p < M && lo < (long long)len &&
+          hi - 1 > (long long)len - 1 - win &&
           (page_ok == nullptr || page_ok[(size_t)b * M + p] != 0))
         mask |= 1u << i;
     }
@@ -209,9 +221,9 @@ __device__ __forceinline__ void attend_rows(
     const int step = vec ? 16 / (int)sizeof(KT) : 1;
     for (int c = threadIdx.x; c < keys * per_key; c += blockDim.x) {
       const int key = c / per_key, d = (c % per_key) * step;
-      const int pl = key / ps;
+      const int at = k0 + key, pl = at / ps - p0;
       if (!((load >> pl) & 1u)) continue;
-      const size_t src = ((size_t)bt[(size_t)b * M + p0 + pl] * ps + key % ps) *
+      const size_t src = ((size_t)bt[(size_t)b * M + p0 + pl] * ps + at % ps) *
                              F + (size_t)h * Dh + d;
       float* kd = k_s + key * Dh + d;
       float* vd = v_s + key * Dh + d;
@@ -255,7 +267,7 @@ __device__ __forceinline__ void attend_rows(
 #pragma unroll 1
       for (int c = 0; c < nch; ++c) {
         const int key = c * 32 + lane;
-        const int pl = key / ps;
+        const int pl = (k0 + key) / ps - p0;
         kin[c] = __ballot_sync(0xffffffffu,
                                key < keys && ((vis >> pl) & 1u));
         // the lane's share of the 32 keys' dot products
@@ -274,7 +286,7 @@ __device__ __forceinline__ void attend_rows(
         transpose_sum<16>(part, lane);
         float x = part[0];
         if (softcap > 0.0f) x = softcap * tanhf(x / softcap);
-        const long long pos = (long long)p0 * ps + key;
+        const long long pos = (long long)k0 + key;
         const bool live = ((kin[c] >> lane) & 1u) && pos < (long long)len &&
                           (long long)len - 1 - pos < win;
         sc[c] = x;
@@ -346,11 +358,11 @@ __global__ void __launch_bounds__(kMaxThreads, 2) paged_attention_kernel(
     const int* __restrict__ page_ok, float* __restrict__ out,
     float* __restrict__ m_out, float* __restrict__ l_out,
     float* __restrict__ part_o, float* __restrict__ part_ml, int M, int ps,
-    int Hq, int Hkv, int Dh, int n, int es, int SP, int S, float scale,
+    int Hq, int Hkv, int Dh, int n, int es, int KS, int S, float scale,
     float softcap, int vec) {
   attend_rows<KT>(q, k_pages, v_pages, bt, lengths, window, page_ok, out,
                   m_out, l_out, part_o, part_ml, blockIdx.z, 1, 0, 1, M, ps,
-                  Hq, Hkv, Dh, n, es, SP, S, scale, softcap, vec);
+                  Hq, Hkv, Dh, n, es, KS, S, scale, softcap, vec);
 }
 
 // K7: T tokens per slot, grid (S, Hkv, B * T / tb); block z serves slot
@@ -363,13 +375,13 @@ __global__ void __launch_bounds__(kMaxThreads, 2) paged_attention_mq_kernel(
     const int* __restrict__ page_ok, float* __restrict__ out,
     float* __restrict__ m_out, float* __restrict__ l_out,
     float* __restrict__ part_o, float* __restrict__ part_ml, int T, int tb,
-    int M, int ps, int Hq, int Hkv, int Dh, int n, int es, int SP, int S,
+    int M, int ps, int Hq, int Hkv, int Dh, int n, int es, int KS, int S,
     float scale, float softcap, int vec) {
   const int tiles = T / tb;
   attend_rows<KT>(q, k_pages, v_pages, bt, lengths, window, page_ok, out,
                   m_out, l_out, part_o, part_ml, blockIdx.z / tiles, T,
                   (blockIdx.z % tiles) * tb, tb, M, ps, Hq, Hkv, Dh, n, es,
-                  SP, S, scale, softcap, vec);
+                  KS, S, scale, softcap, vec);
 }
 
 // A row's S partials (o, m, l) combined in split order; then the
@@ -417,10 +429,9 @@ int launch(const void* q, const void* k, const void* v, const int* bt,
            const int* lengths, const int* window, const int* page_ok,
            float* out, float* m_out, float* l_out, float* part_o,
            float* part_ml, int B, int M, int ps, int T, int tb, int Hq,
-           int Hkv, int Dh, int n, int es, int SP, int S, float scale,
+           int Hkv, int Dh, int n, int es, int KS, int S, float scale,
            float softcap, bool mq, cudaStream_t s) {
-  const size_t smem = smem_bytes(SP * ps, Dh);
-  if (smem > 227 * 1024) return kSmemRefused;
+  const size_t smem = smem_bytes(KS, Dh);
   // 16-byte loads need every (page, token, head) row of codes aligned
   const int vec = (Dh * sizeof(KT)) % 16 == 0 &&
                   reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
@@ -434,7 +445,7 @@ int launch(const void* q, const void* k, const void* v, const int* bt,
     paged_attention_mq_kernel<KT><<<grid, threads, smem, s>>>(
         (const float*)q, (const KT*)k, (const KT*)v, bt, lengths, window,
         page_ok, out, m_out, l_out, part_o, part_ml, T, tb, M, ps, Hq, Hkv,
-        Dh, n, es, SP, S, scale, softcap, vec);
+        Dh, n, es, KS, S, scale, softcap, vec);
   } else {
     cudaError_t e = allow_smem(paged_attention_kernel<KT>, smem);
     if (e != cudaSuccess) return (int)e;
@@ -442,7 +453,7 @@ int launch(const void* q, const void* k, const void* v, const int* bt,
     paged_attention_kernel<KT><<<grid, threads, smem, s>>>(
         (const float*)q, (const KT*)k, (const KT*)v, bt, lengths, window,
         page_ok, out, m_out, l_out, part_o, part_ml, M, ps, Hq, Hkv, Dh, n,
-        es, SP, S, scale, softcap, vec);
+        es, KS, S, scale, softcap, vec);
   }
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || S == 1) return (int)e;
@@ -457,11 +468,16 @@ int dispatch(const void* q, const void* k_pages, const void* v_pages,
              const void* bt, const void* lengths, const void* window,
              const void* page_ok, void* out, void* m_out, void* l_out,
              void* part_o, void* part_ml, int B, int M, int ps, int T, int tb,
-             int Hq, int Hkv, int Dh, int kv_kind, int n, int es, int SP,
+             int Hq, int Hkv, int Dh, int kv_kind, int n, int es, int KS,
              int S, float scale, float softcap, bool mq, void* stream) {
+  // a split is whole pages (at most 32) or a piece of one (it then touches
+  // at most two pages); S covers the span once
+  const long long span = (long long)M * ps;
   if (T < 1 || tb < 1 || T % tb != 0 || Hkv < 1 || Hq % Hkv != 0 ||
-      Dh < 1 || Dh > kMaxDh || SP < 1 || SP > 32 ||
-      SP * ps > 32 * kMaxChunks || S != (M + SP - 1) / SP + (M == 0) ||
+      Dh < 1 || Dh > kMaxDh || ps < 1 || KS < 1 || KS > 32 * kMaxChunks ||
+      (KS % ps == 0 ? KS / ps > 32 : KS > ps) ||
+      smem_bytes(KS, Dh) > kMaxSmem ||
+      S != (span + KS - 1) / KS + (M == 0) ||
       (S > 1 && (part_o == nullptr || part_ml == nullptr))) {
     return (int)cudaErrorInvalidValue;
   }
@@ -477,7 +493,7 @@ int dispatch(const void* q, const void* k_pages, const void* v_pages,
   float* pml = (float*)part_ml;
 #define K3_LAUNCH(KT)                                                        \
   return launch<KT>(q, k_pages, v_pages, bt_i, len_i, win_i, ok_i, o, mo,   \
-                    lo, po, pml, B, M, ps, T, tb, Hq, Hkv, Dh, n, es, SP, S, \
+                    lo, po, pml, B, M, ps, T, tb, Hq, Hkv, Dh, n, es, KS, S, \
                     scale, softcap, mq, s)
   switch (kv_kind) {
     case 0: K3_LAUNCH(int8_t);
@@ -492,8 +508,8 @@ int dispatch(const void* q, const void* k_pages, const void* v_pages,
 }  // namespace
 
 // kv_kind: 0 = int8 codes, 1 = int16 codes, 2 = float32, 3 = bfloat16.
-// m_out / l_out non-null selects the unnormalized partials output.  SP
-// pages per split, S = ceil(M / SP) splits (the wrapper's
+// m_out / l_out non-null selects the unnormalized partials output.  KS
+// keys per split, S = max(1, ceil(M * ps / KS)) splits (the wrapper's
 // `attention_splits`); with S > 1, part_o [B * T * Hq, S, Dh] and part_ml
 // [B * T * Hq, S, 2] f32 scratch.
 // K3: q / out [B, Hq, Dh], m / l [B, Hq].
@@ -501,11 +517,11 @@ extern "C" int paged_attention_launch(
     const void* q, const void* k_pages, const void* v_pages, const void* bt,
     const void* lengths, const void* window, const void* page_ok, void* out,
     void* m_out, void* l_out, void* part_o, void* part_ml, int B, int M,
-    int ps, int Hq, int Hkv, int Dh, int kv_kind, int n, int es, int SP,
+    int ps, int Hq, int Hkv, int Dh, int kv_kind, int n, int es, int KS,
     int S, float scale, float softcap, void* stream) {
   return dispatch(q, k_pages, v_pages, bt, lengths, window, page_ok, out,
                   m_out, l_out, part_o, part_ml, B, M, ps, 1, 1, Hq, Hkv, Dh,
-                  kv_kind, n, es, SP, S, scale, softcap, false, stream);
+                  kv_kind, n, es, KS, S, scale, softcap, false, stream);
 }
 
 // K7: q / out [B, T, Hq, Dh], m / l [B, T, Hq]; t_block divides T.
@@ -514,10 +530,10 @@ extern "C" int paged_attention_mq_launch(
     const void* lengths, const void* window, const void* page_ok, void* out,
     void* m_out, void* l_out, void* part_o, void* part_ml, int B, int M,
     int ps, int T, int t_block, int Hq, int Hkv, int Dh, int kv_kind, int n,
-    int es, int SP, int S, float scale, float softcap, void* stream) {
+    int es, int KS, int S, float scale, float softcap, void* stream) {
   return dispatch(q, k_pages, v_pages, bt, lengths, window, page_ok, out,
                   m_out, l_out, part_o, part_ml, B, M, ps, T, t_block, Hq,
-                  Hkv, Dh, kv_kind, n, es, SP, S, scale, softcap, true,
+                  Hkv, Dh, kv_kind, n, es, KS, S, scale, softcap, true,
                   stream);
 }
 

@@ -3,9 +3,11 @@
 
 Each entry point takes tensors on one device: on a CUDA device it launches
 the hand-written Hopper kernel, on the CPU it runs the kernel's plain
-PyTorch version (the analogue of the reference's interpret mode).  Launch
-geometry is fixed per kernel; the reference's autotune cache (`_resolve`)
-is not ported yet.  `launch_counts` / `reset_launches` read and clear the
+PyTorch version (the analogue of the reference's interpret mode).  A launch knob the
+caller does not pass is resolved through the autotune cache
+(`kernels/autotune.py`, `_resolve`): only knobs that change no value bit
+are tunable, so far K7's `t_block`; every other launch geometry is fixed
+per kernel.  `launch_counts` / `reset_launches` read and clear the
 per-kernel launch counters.
 
 The raw entry points take and return codes and are forward-only; the STE
@@ -19,6 +21,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.formats import PDPUConfig, PositFormat
+from . import autotune
 from . import paged_attention as paged_attention_mod
 from . import pdpu_dot, posit_codec, posit_matmul
 from . import prefill_attention as prefill_attention_mod
@@ -37,6 +40,22 @@ def reset_launches():
     for table in _COUNTERS:
         for name in table:
             table[name] = 0
+
+
+def _resolve(kernel: str, shape, fmts, kw: dict, names) -> dict:
+    """Dispatch-time autotune resolution: fill the launch params the
+    caller did not pass (None) from the tuned cache (kernels/autotune.py).
+    Explicit values always win; a miss leaves them absent, so the
+    kernel's defaults apply."""
+    missing = [n for n in names if kw.get(n) is None]
+    if not missing:
+        return kw
+    tuned = autotune.lookup(kernel, shape, fmts)
+    if tuned:
+        for n in missing:
+            if tuned.get(n) is not None:
+                kw[n] = tuned[n]
+    return kw
 
 
 def _largest_divisor(n: int, cap: int) -> int:
@@ -89,8 +108,16 @@ def paged_attention(q, k_pages, v_pages, block_tables, lengths, window,
     q.k dot, streaming softmax across pages.  q [B, Hq, Dh] is one decode
     token per slot (K3 on CUDA); q [B, T, Hq, Dh] is T new tokens per slot
     (K7 on CUDA, the speculative verify), tiled by `t_block` (any tiling is
-    bitwise identical; T = 1 equals the 3-D path bitwise).  See
-    kernels/paged_attention.py."""
+    bitwise identical; T = 1 equals the 3-D path bitwise), resolved
+    through the autotune cache when not given: a cached tile that does not
+    divide T degrades to the largest divisor below it, or to the kernel's
+    default (`_degrade_tile`).  See kernels/paged_attention.py."""
+    if q.ndim == 4 and t_block is None:
+        kw = _resolve("paged_attention",
+                      (q.shape[0], q.shape[1], block_tables.shape[1],
+                       k_pages.shape[1], k_pages.shape[2]),
+                      (fmt_kv,), {}, ("t_block",))
+        t_block = _degrade_tile(q.shape[1], kw.get("t_block"))
     return paged_attention_mod.paged_attention(
         q, k_pages, v_pages, block_tables, lengths, window, fmt_kv=fmt_kv,
         softcap_val=softcap_val, page_ok=page_ok, partials=partials,

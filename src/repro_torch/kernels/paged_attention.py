@@ -26,37 +26,66 @@ from .posit_codec import decode_plain
 _NEG = -2.0e38
 # launches of each kernel since the last reset (kernels/ops.reset_launches);
 # "<kernel>:merge" counts the launches that also ran the split merge,
+# "paged_attention_mq:t<n>" K7's launches by query-token tile t_block,
 # "decode_sample:<variant>" K4's launches by `sample_variant`
 LAUNCHES = {"paged_attention": 0, "paged_attention:merge": 0,
             "paged_attention_mq": 0, "paged_attention_mq:merge": 0,
+            "paged_attention_mq:t1": 0, "paged_attention_mq:t2": 0,
+            "paged_attention_mq:t4": 0, "paged_attention_mq:t8": 0,
             "decode_sample": 0, "decode_sample:p16_2": 0,
             "decode_sample:posit": 0, "decode_sample:f32": 0,
             "decode_sample:bf16": 0, "merge_attn_partials": 0}
 _KINDS = {torch.int8: 0, torch.int16: 1, torch.float32: 2, torch.bfloat16: 3}
 _SAMPLE_VARIANTS = {"posit": 0, "p16_2": 1, "f32": 2, "bf16": 3}
-# K3 / K7 split a slot's key span across blocks: a split holds
-# SPLIT_KEYS // page_size pages (at least one), at most MAX_SPLIT_KEYS
-# keys; a lane holds at most MAX_HEAD_DIM / 32 dims of a row
-# (csrc/paged_attention.cu)
+# K3 / K7 split a slot's key span across blocks: a split holds whole pages,
+# SPLIT_KEYS // page_size of them (at least one), where a page fits a
+# block's shared memory and holds at most MAX_SPLIT_KEYS keys; else a page
+# is cut into splits of `split_key_cap(head_dim)` keys.  A lane holds at
+# most MAX_HEAD_DIM / 32 dims of a row (csrc/paged_attention.cu)
 SPLIT_KEYS = 32
 MAX_SPLIT_KEYS = 128
 MAX_HEAD_DIM = 256
+# the shared memory a block may take on an H100
+BLOCK_SMEM = 227 * 1024
 # rows a block serves with one warp each (more rows take turns)
 BLOCK_ROWS = 16
-# what the launchers return when a split's K and V rows do not fit a
-# block's shared memory (csrc/paged_attention.cu: at head_dim 256 a split
-# of 128 keys does not fit, one of 64 does)
-_SMEM_REFUSED = -1
 
 
-def attention_splits(M: int, page_size: int) -> tuple[int, int]:
-    """(pages per split SP, splits S) of K3 / K7 over a block table of M
-    pages: split s covers pages [s SP, min(M, (s + 1) SP)), in split order,
-    S >= 1.  SP depends on the page size alone, never on T, t_block or a
-    row's length, so every row of any call over the same table meets the
-    same splits and the same merge order."""
-    sp = max(1, SPLIT_KEYS // page_size)
-    return sp, max(1, -(-M // sp))
+def split_smem_bytes(keys: int, head_dim: int) -> int:
+    """Shared memory of a K3 / K7 block staging `keys` K and V rows in f32
+    beside the int8 decode table (`smem_bytes` of csrc/paged_attention.cu)."""
+    return 4 * (256 + 2 * keys * head_dim)
+
+
+def _fits(head_dim: int) -> int:
+    """The most keys a split may stage at this head_dim: MAX_SPLIT_KEYS,
+    or fewer where their K and V rows would not fit BLOCK_SMEM."""
+    return min(MAX_SPLIT_KEYS,
+               (BLOCK_SMEM // 4 - 256) // (2 * max(1, head_dim)))
+
+
+def split_key_cap(head_dim: int) -> int:
+    """Keys of a split cut from a page that does not fit one: the largest
+    power of two within `_fits(head_dim)` (128 up to head_dim 226, 64 at
+    256), so the splits of a page of 2^k tokens tile it exactly."""
+    return 1 << (_fits(head_dim).bit_length() - 1)
+
+
+def attention_splits(M: int, page_size: int,
+                     head_dim: int) -> tuple[int, int]:
+    """(keys per split KS, splits S) of K3 / K7 over a block table of M
+    pages: split s covers the keys [s KS, min(M page_size, (s + 1) KS)) of
+    the table's span, in split order, S >= 1.  KS is whole pages, max(1,
+    SPLIT_KEYS // page_size) of them, where one page fits a split; else
+    `split_key_cap(head_dim)`, so a block's shared memory never grows with
+    the page size.  KS depends on the page size and head_dim alone, never
+    on T, t_block or a row's length, so every row of any call over the same
+    table meets the same splits and the same merge order."""
+    if page_size <= _fits(head_dim):
+        ks = max(1, SPLIT_KEYS // page_size) * page_size
+    else:
+        ks = split_key_cap(head_dim)
+    return ks, max(1, -(-M * page_size // ks))
 
 
 def _softcap(x, cap: float):
@@ -186,10 +215,9 @@ def paged_attention(q, k_pages, v_pages, block_tables, lengths, window,
                         f"got {k_pages.dtype}")
     if fmt_kv is not None and k_pages.is_floating_point():
         raise TypeError("fmt_kv given but the pages hold floats")
-    if Dh > MAX_HEAD_DIM or ps > MAX_SPLIT_KEYS:
+    if Dh > MAX_HEAD_DIM:
         raise ValueError(f"paged_attention on the card takes head_dim <= "
-                         f"{MAX_HEAD_DIM} and pages of <= {MAX_SPLIT_KEYS} "
-                         f"tokens, got {Dh} and {ps}")
+                         f"{MAX_HEAD_DIM}, got {Dh}")
     q = q.to(torch.float32).contiguous()
     M = block_tables.shape[1]
     for name, t, shape in (("block_tables", block_tables, (B, M)),
@@ -209,7 +237,7 @@ def paged_attention(q, k_pages, v_pages, block_tables, lengths, window,
         m = torch.empty(q.shape[:-1], dtype=torch.float32, device=q.device)
         l = torch.empty(q.shape[:-1], dtype=torch.float32, device=q.device)
     if B and T:
-        sp, n_splits = attention_splits(M, ps)
+        ks, n_splits = attention_splits(M, ps, Dh)
         part_o = part_ml = None
         if n_splits > 1:
             # each row's per-split (o, m, l), merged in split order
@@ -225,20 +253,19 @@ def paged_attention(q, k_pages, v_pages, block_tables, lengths, window,
                 ptr(part_ml), B, M, ps)
         tail = (Hq, Hkv, Dh, _KINDS[k_pages.dtype],
                 fmt_kv.n if fmt_kv else 0, fmt_kv.es if fmt_kv else 0,
-                sp, n_splits, 1.0 / math.sqrt(Dh), float(softcap_val),
+                ks, n_splits, 1.0 / math.sqrt(Dh), float(softcap_val),
                 _build.stream_of(q))
         if mq:
             err = lib.paged_attention_mq_launch(*head, T, t_block, *tail)
         else:
             err = lib.paged_attention_launch(*head, *tail)
-        if err == _SMEM_REFUSED:
-            raise ValueError(f"{kernel} on the card: a split of {sp * ps} "
-                             f"keys at head_dim {Dh} does not fit a block's "
-                             f"shared memory; use smaller pages")
         _build.check(err, kernel)
         LAUNCHES[kernel] += 1
         if n_splits > 1:
             LAUNCHES[f"{kernel}:merge"] += 1
+        if mq:
+            tile = f"{kernel}:t{t_block}"
+            LAUNCHES[tile] = LAUNCHES.get(tile, 0) + 1
     return (out, m, l) if partials else out
 
 

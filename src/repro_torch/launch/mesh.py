@@ -1,4 +1,5 @@
-"""Serving mesh construction (PyTorch port of `repro.launch.mesh`).
+"""Serving and training mesh construction (PyTorch port of
+`repro.launch.mesh`).
 
 `make_production_mesh` / `make_host_mesh` (the reference's TPU pod
 meshes) and `HW` (a TPU's peak figures) are not ported: the port runs on
@@ -13,6 +14,27 @@ import torch
 from repro_torch.parallel.sharding import Mesh
 
 
+def _place(n: int, devices: Optional[Sequence], what: str) -> tuple:
+    """n devices: the first n of `devices` (n 0: all of them), else
+    cuda:(i mod torch.cuda.device_count()) for i < n (n 0: one a card).
+    Raises without a card unless `devices` is given."""
+    if devices is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"{what} places its devices on CUDA and none is "
+                "available; pass devices=[...] (e.g. torch.device('cpu') per "
+                "entry) to build a mesh on other devices")
+        count = torch.cuda.device_count()
+        n = n or count
+        return tuple(torch.device("cuda", i % count) for i in range(n))
+    devices = [torch.device(d) for d in devices]
+    n = n or len(devices)
+    if n > len(devices):
+        raise ValueError(f"{n} mesh positions need {n} devices, got "
+                         f"{len(devices)}")
+    return tuple(devices[:n])
+
+
 def make_serving_mesh(n_devices: int = 0,
                       devices: Optional[Sequence] = None) -> Mesh:
     """1-D ("model",) mesh of n_devices shards, the axis the sharding rules
@@ -23,23 +45,20 @@ def make_serving_mesh(n_devices: int = 0,
     0 takes them all), else shard i on cuda:(i mod torch.cuda.device_count())
     — on one card every shard is a page range of cuda:0, on n cards shard i
     is card i.  Raises without a card unless `devices` is given."""
-    if devices is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "make_serving_mesh places shards on CUDA devices and none is "
-                "available; pass devices=[...] (e.g. torch.device('cpu') per "
-                "shard) to build a mesh on other devices")
-        count = torch.cuda.device_count()
-        n = n_devices or count
-        devices = [torch.device("cuda", i % count) for i in range(n)]
-    else:
-        devices = [torch.device(d) for d in devices]
-        n = n_devices or len(devices)
-        if n > len(devices):
-            raise ValueError(f"{n} shards need {n} devices, got "
-                             f"{len(devices)}")
-        devices = devices[:n]
-    return Mesh(("model",), (n,), tuple(devices))
+    devices = _place(n_devices, devices, "make_serving_mesh")
+    return Mesh(("model",), (len(devices),), devices)
+
+
+def make_train_mesh(n_pods: int, n_data: int,
+                    devices: Optional[Sequence] = None) -> Mesh:
+    """("pod", "data", "model") mesh of n_pods x n_data x 1 replicas for
+    `train.make_train_step_compressed`, row-major: replica p n_data + d on
+    the (p n_data + d)-th device, placed by `make_serving_mesh`'s rule (on
+    one card every replica is cuda:0 and they run one after another)."""
+    if n_pods < 1 or n_data < 1:
+        raise ValueError(f"a mesh of {n_pods} pods x {n_data} data replicas")
+    devices = _place(n_pods * n_data, devices, "make_train_mesh")
+    return Mesh(("pod", "data", "model"), (n_pods, n_data, 1), devices)
 
 
 def placement(mesh: Mesh) -> str:

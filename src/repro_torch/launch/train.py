@@ -6,9 +6,10 @@
 
 `--smoke` trains the config's smoke size (the same code path end to end:
 models, quantization, trainer, checkpointing); `--device cpu` runs every
-kernel's plain version.  The reference's `--grad-compress` (the
-posit-compressed cross-pod gradient reduction, `optim/compress.py`) is
-not ported.
+kernel's plain version.  The reference names `--grad-compress` in its
+docstring, but its parser takes no such flag, so neither does this one;
+the posit-compressed cross-pod step is
+`train.make_train_step_compressed` on a `launch.mesh.make_train_mesh`.
 """
 from __future__ import annotations
 

@@ -35,6 +35,19 @@ def tree_leaves(tree):
     return [tree]
 
 
+def tree_unflatten(like, leaves):
+    """A tree of `like`'s structure holding `leaves`, given in
+    `tree_leaves` order."""
+    it = iter(leaves)
+
+    def fill(tree):
+        if isinstance(tree, dict):
+            return {k: fill(tree[k]) for k in sorted(tree)}
+        return next(it)
+
+    return fill(like)
+
+
 def _init_leaf(s: ParamSpec, generator: torch.Generator, device):
     if s.init == "zeros":
         return torch.zeros(s.shape, dtype=s.dtype, device=device)

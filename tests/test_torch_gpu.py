@@ -1525,9 +1525,9 @@ def test_paged_attention_head_dim_256_window(cuda, window, kind):
 
 
 def test_paged_attention_head_dim_256_page_sizes(cuda):
-    """At head_dim 256 a split of 64-token pages fits the shared memory
-    (within 2e-5 of the plain version); 128-token pages do not, and the
-    launcher refuses them before launching."""
+    """At head_dim 256 a split of 64-token pages fits the shared memory;
+    128-token pages (whose K and V rows would not) are cut into two
+    64-key splits.  Both within 2e-5 of the plain version."""
     for ps, M in ((64, 24), (128, 12)):
         q, kp, vp, bt = _attn_inputs(cuda, torch.int8, formats.P8_2, ps,
                                      Hq=8, Hkv=4, Dh=256, ps=ps, M=M,
@@ -1535,17 +1535,68 @@ def test_paged_attention_head_dim_256_page_sizes(cuda):
         ln = torch.tensor([ps * M, 1, ps + 1, 1000], dtype=torch.int32,
                           device=cuda)
         win = torch.tensor([1024], dtype=torch.int32, device=cuda)
-        if ps == 128:
-            before = pa.LAUNCHES["paged_attention"]
-            with pytest.raises(ValueError, match="shared memory"):
-                pa.paged_attention(q, kp, vp, bt, ln, win,
-                                   fmt_kv=formats.P8_2)
-            assert pa.LAUNCHES["paged_attention"] == before
-            continue
+        assert pa.attention_splits(M, ps, 256)[0] == 64
+        ops.reset_launches()
         got = pa.paged_attention(q, kp, vp, bt, ln, win, fmt_kv=formats.P8_2)
+        assert ops.launch_counts()["paged_attention"] == 1
         want = pa.paged_attention_plain(q, kp, vp, bt, ln, win,
                                         fmt_kv=formats.P8_2)
         torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+
+
+# (Hq, Hkv, head_dim, window): command-r's G 8 at 128, gemma3's G 2 at 256
+# with its 1024-token window
+LARGE_PAGE_SHAPES = {"hd128_g8": (64, 8, 128, 1 << 30),
+                     "hd256_g2_window": (8, 4, 256, 1024)}
+
+
+@pytest.mark.parametrize("kind", ["int8", "bf16"])
+@pytest.mark.parametrize("shape", sorted(LARGE_PAGE_SHAPES))
+@pytest.mark.parametrize("ps", [256, 512, 1024])
+def test_paged_attention_large_pages(cuda, ps, shape, kind):
+    """K3 and K7 (T = 4) over pages of 256-1024 tokens, each page cut into
+    splits of `split_key_cap(head_dim)` keys: within 2e-5 of the plain
+    version at lengths that end inside a piece, on a piece's edge and
+    across pages; each K7 row bitwise K3 at its own length; and the merge
+    of per-shard partials bitwise K3 for a slot whose pages all lie on one
+    shard."""
+    Hq, Hkv, Dh, window = LARGE_PAGE_SHAPES[shape]
+    fmt = formats.P8_2 if kind == "int8" else None
+    dt = torch.int8 if kind == "int8" else torch.bfloat16
+    M = max(1, 2048 // ps)
+    lengths = [1, 128, 129, ps + 70, M * ps]
+    B = len(lengths)
+    q3, kp, vp, bt = _attn_inputs(cuda, dt, fmt, ps + Dh, B=B, Hq=Hq,
+                                  Hkv=Hkv, Dh=Dh, ps=ps, M=M, P=B * M + 1)
+    ln = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    win = torch.tensor([window], dtype=torch.int32, device=cuda)
+    ks, n_splits = pa.attention_splits(M, ps, Dh)
+    assert ks == pa.split_key_cap(Dh) and n_splits == M * ps // ks
+    g = torch.Generator().manual_seed(ps)
+    q4 = torch.randn(B, 4, Hq, Dh, generator=g).to(cuda)
+    outs = {}
+    for q in (q3, q4):
+        ops.reset_launches()
+        got = pa.paged_attention(q, kp, vp, bt, ln, win, fmt_kv=fmt)
+        key = "paged_attention_mq" if q.ndim == 4 else "paged_attention"
+        assert ops.launch_counts()[f"{key}:merge"] == 1
+        want = pa.paged_attention_plain(q, kp, vp, bt, ln, win, fmt_kv=fmt)
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+        outs[q.ndim] = got
+    for i in range(4):
+        k3 = pa.paged_attention(q4[:, i].contiguous(), kp, vp, bt,
+                                ln - 3 + i, win, fmt_kv=fmt)
+        assert _bits_equal(outs[4][:, i], k3), i
+    # two shards by page parity: slot 0's one page lies on shard 0 alone
+    ok = torch.zeros(B, M, dtype=torch.int32, device=cuda)
+    ok[:, 0::2] = 1
+    parts = [pa.paged_attention(q3, kp, vp, bt, ln, win, fmt_kv=fmt,
+                                page_ok=o, partials=True)
+             for o in (ok, 1 - ok)]
+    merged = pa.merge_attn_partials(*(list(t) for t in zip(*parts)))
+    assert _bits_equal(merged[0], outs[3][0])
+    torch.testing.assert_close(merged, outs[3], rtol=2e-5, atol=2e-5)
 
 
 def test_paged_attention_group_of_12(cuda):
@@ -2009,3 +2060,61 @@ def test_merge_partials_matches_unsharded_k3(cuda, n_shards, four_d):
     torch.testing.assert_close(merged, full, rtol=2e-5, atol=2e-5)
     torch.testing.assert_close(merged, pa.merge_attn_partials_plain(o, m, l),
                                rtol=1e-6, atol=1e-6)
+
+
+def test_autotune_tuned_t_block_bitwise_untuned(cuda, tmp_path, monkeypatch):
+    """The sweep times each K7 tile on the card (t_block 8 refused at T 4);
+    with the swept cache K7 resolves the winner (a cached 1 yields to the
+    default, the reference's floor), counts it by tile, and gives the
+    untuned launch's bits."""
+    from repro_torch.kernels import autotune
+    from repro_torch.launch import autotune as launch_autotune
+    shape, fmts = launch_autotune.sweep_points(quick=True)["paged_attention"][0]
+    run = launch_autotune._runner("paged_attention", shape, fmts,
+                                  torch.Generator(device=cuda).manual_seed(5),
+                                  cuda)
+    params, ms, table = autotune.sweep("paged_attention", shape, run,
+                                       fmts=fmts, reps=5)
+    assert ms > 0 and params in list(autotune.candidates("paged_attention"))
+    assert [r["ms"] is None for r in table] == [False, False, False, True]
+    cache = autotune.AutotuneCache()
+    cache.put("paged_attention", shape, params, fmts=fmts, ms=ms)
+    path = cache.save(str(tmp_path / "cache.json"))
+    monkeypatch.setenv("REPRO_AUTOTUNE", "off")
+    autotune.reset_cache(None)
+    untuned = run({})()
+    monkeypatch.setenv("REPRO_AUTOTUNE", "on")
+    monkeypatch.setenv("REPRO_AUTOTUNE_CACHE", path)
+    autotune.reset_cache(None)
+    try:
+        ops.reset_launches()
+        tuned = run({})()
+        tb = ops._degrade_tile(shape[1], params["t_block"]) or 2
+        assert ops.launch_counts()[f"paged_attention_mq:t{tb}"] == 1
+        assert autotune.hit_report() == {"paged_attention": {"hits": 1,
+                                                             "misses": 0}}
+    finally:
+        autotune.reset_cache(None)
+    assert _bits_equal(tuned, untuned)
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_compressed_psum_leaf_on_card_equals_cpu(cuda, n):
+    """The compressed reduction of one leaf with the pods on the card:
+    bitwise the CPU's plain reduction (K2 / K1 p8_2 are bitwise their
+    plain versions and the sums run in pod order on both), with 2 n K2 and
+    n^2 + 3 n K1 launches, all on p8_2."""
+    from repro_torch.optim import compress
+    g = torch.Generator().manual_seed(n)
+    L = 1 << 20
+    gs = [torch.randn(L, generator=g) * 1e-3 for _ in range(n)]
+    errs = [torch.randn(L, generator=g) * 1e-5 for _ in range(n)]
+    want_r, want_e = compress.compressed_psum_leaf(gs, errs)
+    ops.reset_launches()
+    got_r, got_e = compress.compressed_psum_leaf(
+        [x.to(cuda) for x in gs], [x.to(cuda) for x in errs])
+    c = ops.launch_counts()
+    assert c["posit_encode:p8_2"] == c["posit_encode"] == 2 * n
+    assert c["posit_decode:p8_2"] == c["posit_decode"] == n * n + 3 * n
+    for a, b in zip(got_r + got_e, want_r + want_e):
+        assert _bits_equal(a, b)

@@ -169,20 +169,78 @@ SPLIT_TABLES = [(16, 16), (80, 16), (5, 4), (6, 16), (3, 64), (7, 5),
                 (1, 16), (0, 16)]
 
 
+def _runs(M: int, ps: int, head_dim: int) -> list[list[tuple]]:
+    """Each split's pieces (page, first key, end key) in the table's span,
+    as the kernels cut them (`csrc/paged_attention.cu`: split s covers
+    keys [s KS, (s + 1) KS), a piece is its keys on one page)."""
+    ks, n_splits = tpa.attention_splits(M, ps, head_dim)
+    out = []
+    for s in range(n_splits):
+        k0, k1 = s * ks, min(M * ps, (s + 1) * ks)
+        out.append([(p, max(k0, p * ps), min(k1, (p + 1) * ps))
+                    for p in range(k0 // ps, -(-k1 // ps))])
+    return out
+
+
 @pytest.mark.parametrize("M,ps", SPLIT_TABLES)
 def test_attention_splits_cover_pages_once_in_order(M, ps):
-    """K3 / K7 split a block table into S runs of SP pages: the runs cover
-    [0, M) once, ascending, none empty (M = 0: one), at most
-    SPLIT_KEYS keys each unless one page is longer, SP from the page size
-    alone."""
-    sp, n_splits = tpa.attention_splits(M, ps)
-    assert sp >= 1 and n_splits >= 1
-    runs = [list(range(s * sp, min(M, (s + 1) * sp)))
-            for s in range(n_splits)]
-    assert [p for run in runs for p in run] == list(range(M))
-    assert all(runs) or M == 0
-    assert sp * ps <= max(tpa.SPLIT_KEYS, ps)
-    assert all(tpa.attention_splits(m, ps)[0] == sp for m in range(1, 90))
+    """K3 / K7 split a block table into S runs of SP whole pages when a
+    page fits a split: the runs cover [0, M) once, ascending, none empty
+    (M = 0: one), at most SPLIT_KEYS keys each unless one page is longer,
+    SP from the page size alone, the same at every head_dim."""
+    for head_dim in (16, 128, 256):
+        ks, n_splits = tpa.attention_splits(M, ps, head_dim)
+        assert ks % ps == 0
+        sp = ks // ps
+        assert sp >= 1 and n_splits >= 1
+        runs = [list(range(s * sp, min(M, (s + 1) * sp)))
+                for s in range(n_splits)]
+        assert [p for run in runs for p in run] == list(range(M))
+        assert all(runs) or M == 0
+        assert sp * ps <= max(tpa.SPLIT_KEYS, ps)
+        assert all(tpa.attention_splits(m, ps, head_dim)[0] == ks
+                   for m in range(1, 90))
+        assert [[p for p, _, _ in run] for run in _runs(M, ps, head_dim)] \
+            == (runs if M else [[]])
+
+
+def _old_splits(M: int, page_size: int) -> tuple[int, int]:
+    """The split geometry before pages could be cut (pages per split,
+    splits): kept where it ran, every page size that fits a split."""
+    sp = max(1, tpa.SPLIT_KEYS // page_size)
+    return sp, max(1, -(-M // sp))
+
+
+@pytest.mark.parametrize("head_dim", [16, 32, 64, 80, 96, 128, 160, 192,
+                                      224, 256])
+def test_attention_splits_cut_large_pages(head_dim):
+    """For every page size that divides 1024 (the engine's FLASH_CHUNK):
+    the splits tile the span in order, none holds more than MAX_SPLIT_KEYS
+    keys, its K and V rows fit a block's shared memory (a mirror of
+    `smem_bytes`), a page that fits a split keeps the old whole-page
+    geometry, and a larger page is cut into equal pieces of
+    `split_key_cap(head_dim)` keys."""
+    cap = tpa.split_key_cap(head_dim)
+    assert cap & (cap - 1) == 0 and cap <= tpa.MAX_SPLIT_KEYS
+    assert tpa.split_smem_bytes(cap, head_dim) <= tpa.BLOCK_SMEM
+    for ps in (1 << k for k in range(11)):
+        for M in (1, 3, 8):
+            ks, n = tpa.attention_splits(M, ps, head_dim)
+            assert ks <= tpa.MAX_SPLIT_KEYS
+            assert tpa.split_smem_bytes(ks, head_dim) <= tpa.BLOCK_SMEM
+            keys = [k for run in _runs(M, ps, head_dim)
+                    for _, lo, hi in run for k in range(lo, hi)]
+            assert keys == list(range(M * ps))
+            whole = tpa.split_smem_bytes(ps, head_dim) <= tpa.BLOCK_SMEM \
+                and ps <= tpa.MAX_SPLIT_KEYS
+            if whole:
+                sp, n_old = _old_splits(M, ps)
+                assert (ks, n) == (sp * ps, n_old)
+            else:
+                assert (ks, n) == (cap, M * ps // cap)
+                assert all(len(run) == 1 for run in _runs(M, ps, head_dim))
+    # a page size that is not a power of two: pieces straddle pages
+    assert _runs(2, 200, 128)[1] == [(0, 128, 200), (1, 200, 256)]
 
 
 def _row_pages(length: int, M: int, page_size: int, window: int,
@@ -195,28 +253,38 @@ def _row_pages(length: int, M: int, page_size: int, window: int,
             and (ok_row is None or ok_row[p])]
 
 
+def _visits(length: int, piece: tuple, M: int, window: int, ok_row) -> bool:
+    """K3's rule for a piece (page, first key, end key): it starts before
+    the row's position + 1, ends inside its window, page_ok set."""
+    p, lo, hi = piece
+    return (p < M and lo < length and hi - 1 > length - 1 - window
+            and (ok_row is None or bool(ok_row[p])))
+
+
 def _split_schedule(lengths, T: int, t_block: int, M: int, page_size: int,
-                   window: int, page_ok=None) -> dict:
-    """The pages each row of a call visits, by split, as the kernels'
-    grid (`csrc/paged_attention.cu`) takes them: blocks (split s, slot b, token tile) load the split's
-    pages any of their rows visits; a row attends the loaded pages it
-    visits itself.  Returns {(b, t): [(s, [pages...]), ...]} over the
-    splits in order (T = 1, t_block = 1 is K3)."""
-    sp, n_splits = tpa.attention_splits(M, page_size)
+                   window: int, page_ok=None, head_dim: int = 8) -> dict:
+    """The pieces of pages each row of a call visits, by split, as the
+    kernels' grid (`csrc/paged_attention.cu`) takes them: blocks (split s,
+    slot b, token tile) load the split's pieces any of their rows visits;
+    a row attends the loaded pieces it visits itself.  Returns {(b, t):
+    [(s, [pieces...]), ...]} over the splits in order (T = 1, t_block = 1
+    is K3)."""
+    runs = _runs(M, page_size, head_dim)
     out = {}
     for b, length in enumerate(lengths):
         ok_row = None if page_ok is None else page_ok[b]
         for z in range(T // t_block):
-            rows = {t: _row_pages(length - T + t + 1, M, page_size, window,
-                                 ok_row)
-                    for t in range(z * t_block, (z + 1) * t_block)}
-            for s in range(n_splits):
-                split = range(s * sp, min(M, (s + 1) * sp))
-                loaded = {p for pages in rows.values() for p in pages
-                          if p in split}
-                for t, pages in rows.items():
+            rows = range(z * t_block, (z + 1) * t_block)
+            for s, run in enumerate(runs):
+                mine = {t: [pc for pc in run
+                            if _visits(length - T + t + 1, pc, M, window,
+                                       ok_row)]
+                        for t in rows}
+                loaded = {pc for pieces in mine.values() for pc in pieces}
+                for t in rows:
                     out.setdefault((b, t), []).append(
-                        (s, [p for p in split if p in loaded and p in pages]))
+                        (s, [pc for pc in run
+                             if pc in loaded and pc in mine[t]]))
     return out
 
 
@@ -229,6 +297,39 @@ SCHEDULES = {
 }
 
 
+def _check_schedule(name, T, t_block, M, ps, head_dim, scale=1):
+    """Every row visits each of its pieces exactly once, in ascending
+    order and in the split that holds it; the keys it visits hold every
+    key it attends and lie on the pages K3's page rule gives; a K7 row
+    meets the same splits and pieces as a K3 row of the same length."""
+    lengths, window, ok = SCHEDULES[name]
+    lengths = [n * scale for n in lengths]
+    window = window if window > 1 << 20 else window * scale
+    if ok is not None:   # the pattern repeated over the table's M pages
+        ok = [[row[p % len(row)] for p in range(M)] for row in ok]
+    mq = _split_schedule(lengths, T, t_block, M, ps, window, ok, head_dim)
+    whole = tpa.attention_splits(M, ps, head_dim)[0] % ps == 0
+    for (b, t), splits in mq.items():
+        length = lengths[b] - T + t + 1
+        ok_row = None if ok is None else ok[b]
+        k3 = _split_schedule([length], 1, 1, M, ps, window,
+                             None if ok is None else [ok[b]],
+                             head_dim)[(0, 0)]
+        assert splits == k3
+        assert [s for s, _ in splits] == list(range(len(splits)))
+        pieces = [pc for _, run in splits for pc in run]
+        assert pieces == sorted(set(pieces))
+        pages = _row_pages(length, M, ps, window, ok_row)
+        keys = {k for _, lo, hi in pieces for k in range(lo, hi)}
+        attended = {k for k in range(min(length, M * ps))
+                    if length - 1 - k < window
+                    and (ok_row is None or ok_row[k // ps])}
+        assert attended <= keys
+        assert {k // ps for k in keys} <= set(pages)
+        if whole:
+            assert [p for p, _, _ in pieces] == pages
+
+
 @pytest.mark.parametrize("name", sorted(SCHEDULES))
 @pytest.mark.parametrize("T,t_block", [(4, 1), (4, 2), (4, 4), (3, 3),
                                        (8, 8), (8, 2)])
@@ -237,16 +338,16 @@ def test_split_schedule_rows_match_k3(name, T, t_block):
     any of their rows visits), every row visits each of its pages exactly
     once, in ascending order and in the split that holds it, and a K7 row
     meets the same splits and pages as a K3 row of the same length."""
-    lengths, window, ok = SCHEDULES[name]
-    M, ps = 6, 16
-    mq = _split_schedule(lengths, T, t_block, M, ps, window, ok)
-    for (b, t), splits in mq.items():
-        length = lengths[b] - T + t + 1
-        k3 = _split_schedule([length], 1, 1, M, ps, window,
-                                None if ok is None else [ok[b]])[(0, 0)]
-        assert splits == k3
-        assert [s for s, _ in splits] == list(range(len(splits)))
-        pages = [p for _, run in splits for p in run]
-        assert pages == _row_pages(length, M, ps, window,
-                                      None if ok is None else ok[b])
-        assert pages == sorted(set(pages))
+    _check_schedule(name, T, t_block, 6, 16, 8)
+
+
+@pytest.mark.parametrize("name", sorted(SCHEDULES))
+@pytest.mark.parametrize("ps,head_dim", [(256, 128), (128, 256),
+                                         (1024, 256), (200, 128)])
+def test_split_schedule_cut_pages_match_k3(name, ps, head_dim):
+    """The same over pages cut into several splits (lengths and windows
+    scaled by 16 so that rows end inside pages and across pieces): a row
+    skips the pieces past its position or before its window."""
+    for T, t_block in ((4, 2), (8, 8), (3, 1)):
+        _check_schedule(name, T, t_block, 6 * 16 * 16 // ps or 1, ps,
+                        head_dim, scale=16)

@@ -293,3 +293,65 @@ def test_ssd_layer_gaps_on_the_cpu(monkeypatch):
         assert len(readings) == 2
         assert all(bitwise and gap <= chip_smoke.MAMBA_RECURRENCE_TOL
                    for bitwise, gap in readings.values())
+
+
+def _leaf_case(seed, n=2, L=3001):
+    """n pods' gradients (magnitudes 1e-9 to 10, some exact zeros) and
+    residuals of one leaf, reduced by `compress.compressed_psum_leaf`."""
+    import numpy as np
+    from repro_torch.optim import compress
+    rng = np.random.default_rng(seed)
+    g = rng.normal(0, 1, (n, L)) * 10.0 ** rng.uniform(-9, 1, (n, L))
+    g[:, ::13] = 0.0
+    gs = [torch.from_numpy(x.astype(np.float32)) for x in g]
+    errs = [torch.from_numpy(rng.normal(0, 1e-3, L).astype(np.float32))
+            for _ in range(n)]
+    red, new = compress.compressed_psum_leaf(gs, errs)
+    return gs, errs, red, new
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_compress_checks_hold_the_reduction(n):
+    """Phase 16b's checks of a leaf's reduction on the CPU: the reduced
+    gradient within P(8,2)'s rounding bound of the f32 mean and error
+    feedback conserving the sum, both at most 1, on every element and on a
+    leading cut of the elements."""
+    from repro_torch.core.formats import P8_2
+    gs, errs, red, new = _leaf_case(n, n)
+    for limit in (None, 1000):
+        a, b = chip_smoke._compress_checks(gs, errs, red, new, P8_2, limit)
+        assert a <= 1.0 and b <= 1.0, (a, b)
+
+
+@pytest.mark.parametrize("fault", ["stage1_residual_dropped",
+                                   "stage2_residual_dropped",
+                                   "pod_left_out", "one_code_off"])
+def test_compress_checks_reject_planted_faults(fault):
+    """A reduction with a residual left out (either stage's), one pod's
+    gradient left out of the sum, or every reduced value one P(8,2) code
+    off must fail one of the two checks."""
+    from repro_torch.core.formats import P8_2
+    from repro_torch.kernels import posit_codec as pc
+    from repro_torch.optim import compress
+    gs, errs, red, new = _leaf_case(7)
+    n, L = len(gs), gs[0].numel()
+    gf = [g + e for g, e in zip(gs, errs)]
+    dec = [pc.decode_plain(pc.encode_plain(x, P8_2), P8_2) for x in gf]
+    if fault == "stage1_residual_dropped":
+        new = [e - (x - d) for e, x, d in zip(new, gf, dec)]
+    elif fault == "stage2_residual_dropped":
+        s = dec[0] + dec[1]
+        seg = s - pc.decode_plain(pc.encode_plain(s, P8_2), P8_2)
+        Ls = -(-L // n)
+        new = [e.clone() for e in new]
+        for i in range(n):
+            new[i][i * Ls:(i + 1) * Ls] -= seg[i * Ls:(i + 1) * Ls]
+    elif fault == "pod_left_out":
+        red, _ = compress.compressed_psum_leaf(
+            [gs[0], torch.zeros_like(gs[1])], errs)
+    else:
+        codes = pc.encode_plain(red[0] * n, P8_2).to(torch.int32)
+        nxt = torch.where(codes >= 0, codes + 1, codes - 1)
+        red = [pc.decode_plain(nxt.to(torch.int8), P8_2) / n] * n
+    a, b = chip_smoke._compress_checks(gs, errs, red, new, P8_2)
+    assert a > 1.0 or b > 1.0, (fault, a, b)
