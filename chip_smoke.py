@@ -325,12 +325,28 @@ Phases (any failure exits non-zero; no phase is caught):
      verify's serving shape (each candidate's time printed), the cache
      written to a temporary path, and a launch through it: the tuned tile
      counted, the output bitwise the untuned launch's.
+ 17. the dry run (`launch/dryrun.py`) against the card: three cells at full
+     width, each reckoned on a one-position mesh of the meta device
+     (`build_cell`, `analyze`), then run for real on cuda:0:
+     17a train, minitron-8b (4 of 32 layers), phase 9's 8 x 128 tokens in
+     2 microbatches, AdamW, paper_mixed fused; 17b prefill, mamba2-1.3b
+     (all 48 layers, packed P(16,2)), one 2048-token prompt through
+     `api.prefill`; 17c decode, qwen3-moe-235b (4 of 94 layers, packed),
+     `api.decode_step` over the dense cache at 4 rows.  Each must meet
+     two exact gates: the reckoned `memory.port` bytes equal the bytes of
+     the params, optimizer state, batch and cache the run holds on the
+     card, and the reckoned launches equal `ops.launch_counts()` over one
+     step, kernel by kernel and variant by variant.  Printed beside them,
+     ungated: the reckoned peak of live bytes beside
+     `torch.cuda.max_memory_allocated()` over that step, and the roofline
+     terms beside the median of 3 more steps.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -338,19 +354,39 @@ import subprocess
 import sys
 import time
 
-HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
-F32_FLOP_PER_S = 67e12          # H100 SXM, f32 outside the tensor cores
-BF16_FLOP_PER_S = 989e12        # H100 SXM, dense bf16 on the tensor cores
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 
-def _bound(bytes_moved: float, flops: float,
-           flop_per_s: float = F32_FLOP_PER_S):
-    """The least time for the work: bytes over the HBM rate or operations
-    over the peak rate of the operands' type, whichever is larger."""
-    t_b = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_f = flops / flop_per_s * 1e3
-    return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
+def _hw(key: str):
+    """The card's data-sheet figure `key` (`launch/mesh.py`'s `HW`)."""
+    from repro_torch.launch.mesh import HW
+    return HW[key]
+
+
+def _bound(w):
+    """(ms, "bytes" or "operations"): the least time for a kernel's work
+    `w`, a `kernels/work.py` `Work` (the formulas the dry run adds up):
+    its bytes over the HBM rate or its operations over the peak rate of
+    their class, whichever is larger."""
+    from repro_torch.launch.mesh import HW
+    s, by = w.bound_s(HW)
+    return s * 1e3, by
+
+
+def _f32_form(w):
+    """`w` with its math flops run as f32 FMA (the SIMT yardstick beside a
+    tensor-core variant's exact form)."""
+    return dataclasses.replace(w, ops=w.flops, rate="f32")
+
+
+def _bytes_ms(w) -> float:
+    """`w`'s bytes alone over the HBM rate, ms."""
+    return _bound(dataclasses.replace(w, ops=0.0))[0]
+
+
+def _ops_ms(w) -> float:
+    """`w`'s operations alone over their peak rate, ms."""
+    return _bound(dataclasses.replace(w, read=0.0, written=0.0))[0]
 
 
 def _time_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -481,6 +517,7 @@ def _k1_decode(dev):
     import torch
     from repro_torch.core import formats, posit
     from repro_torch.kernels import ops, posit_codec
+    from repro_torch.kernels import work
     for name in ("P16_2", "P13_2", "P8_2", "P16_1"):
         fmt = getattr(formats, name)
         dtype = posit.storage_dtype(fmt)
@@ -512,7 +549,7 @@ def _k1_decode(dev):
         label = _K1_RECORDS.get((name, shape))
         plain_ms = (_time_once_ms(lambda: posit_codec.decode_plain(codes, fmt))
                     if label else None)
-        bound, by = _bound(codes.numel() * (codes.element_size() + 4), 0)
+        bound, by = _bound(work.decode(codes.numel(), codes.element_size()))
         variant = posit_codec.decode_variant(fmt, codes.dtype)
         print(f"K1 {name} {list(shape)} ({variant}): ms {ms:.4f}, call_ms "
               f"{call_ms:.4f}, plain_ms "
@@ -571,6 +608,7 @@ def _gemv_f(dev):
     from repro_torch.core import formats
     from repro_torch.kernels import ops, posit_codec
     from repro_torch.kernels import posit_matmul as pm
+    from repro_torch.kernels import work
     fmt, M = formats.P16_2, 4
     g = torch.Generator(device=dev).manual_seed(7)
     xs = {K: torch.randn(M, K, generator=g, device=dev).to(torch.bfloat16)
@@ -615,8 +653,8 @@ def _gemv_f(dev):
         mm = _device_ms(lambda: torch.matmul(xf, W), launches=5)
         del W
         torch.cuda.empty_cache()
-        bound_ms, by = _bound(K * N * 2 + M * K * 2 + M * N * 4,
-                              2.0 * M * K * N)
+        bound_ms, by = _bound(work.gemv_f(M, K, N, x.element_size(),
+                                          w.element_size()))
         per[(K, N)] = (ms, k1_mm, mm, bound_ms, by)
         print(f"float GEMV M={M} K={K} N={N} ({variant}, bf16 activations): "
               f"largest err in u sqrt(K) ||x w|| so far {ratio:.4g} (limit "
@@ -635,9 +673,8 @@ def _gemv_f(dev):
         xs[K], weights[(K, N)], fmt) for K, N in _LAYER_KN])
     k1_mm = sum(per[kn][1] for kn in _LAYER_KN)
     mm = sum(per[kn][2] for kn in _LAYER_KN)
-    bound, by = _bound(sum(K * N * 2 + M * K * 2 + M * N * 4
-                           for K, N in _LAYER_KN),
-                       sum(2.0 * M * K * N for K, N in _LAYER_KN))
+    bound, by = _bound(work.total(work.gemv_f(M, K, N, 2, 2)
+                                  for K, N in _LAYER_KN))
     print(f"kernel posit_gemv_f (float GEMV, M={M}, one command-r layer's 7 "
           f"projections): ms {layer_ms:.4f}, K1 + torch.matmul {k1_mm:.4f} "
           f"(sum of the projections), torch.matmul on decoded f32 {mm:.4f}, "
@@ -675,6 +712,7 @@ def _k2_encode(dev):
     import torch
     from repro_torch.core import formats
     from repro_torch.kernels import ops, posit_codec
+    from repro_torch.kernels import work
     g = torch.Generator(device=dev).manual_seed(2)
     emb = torch.randn(256000, 8192, generator=g, device=dev)
     flat = emb.view(-1)
@@ -716,7 +754,7 @@ def _k2_encode(dev):
     fmt = formats.P16_2
     call_ms = _time_ms(lambda: posit_codec.encode(emb, fmt), reps=5)
     plain_ms = _time_once_ms(lambda: posit_codec.encode_plain(emb, fmt))
-    bound, by = _bound(emb.numel() * (4 + 2), 0)
+    bound, by = _bound(work.encode(emb.numel(), 2))
     del emb, flat
     return dict(name="posit_encode", source="src/repro_torch/csrc/posit_codec.cu",
                 replaces="src/repro/kernels/posit_codec.py:78",
@@ -791,6 +829,7 @@ def _k3_attention(dev):
     import torch.nn.functional as F
     from repro_torch.core import formats, posit
     from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import work
     fmt = formats.P8_2
     B, Hq, Hkv, Dh, ps, M = 4, 64, 8, 128, 16, 16
     P = B * M + 1
@@ -843,12 +882,10 @@ def _k3_attention(dev):
     q4 = q[:, :, None, :]
     library_ms = _device_ms(
         lambda: F.scaled_dot_product_attention(q4, kd, vd), launches=50)
-    n_tok = int(lengths.sum())
     pages = sum(-(-int(n) // ps) for n in lengths.tolist())
-    bytes_moved = (q.numel() * 4 + 2 * pages * ps * Hkv * Dh * 1
-                   + bt.numel() * 4 + lengths.numel() * 4 + q.numel() * 4)
-    flops = 4.0 * Hq * Dh * n_tok
-    bound, by = _bound(bytes_moved, flops)
+    bound, by = _bound(work.paged_attention(
+        B, 1, Hq, Hkv, Dh, pages * ps, kp.element_size(), bt.shape[1],
+        int(lengths.sum())))
     return dict(name="paged_attention",
                 source="src/repro_torch/csrc/paged_attention.cu",
                 replaces="src/repro/kernels/paged_attention.py:266",
@@ -864,6 +901,7 @@ def _k7_attention_mq(dev):
     import torch.nn.functional as F
     from repro_torch.core import formats, posit
     from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import work
     fmt = formats.P8_2
     B, T, Hq, Hkv, Dh, ps, M = 4, 4, 64, 8, 128, 16, 16
     P = B * M + 1
@@ -940,10 +978,9 @@ def _k7_attention_mq(dev):
     rows = [[max(int(n) - T + i + 1, 0) for i in range(T)]
             for n in lengths.tolist()]
     pages = sum(-(-max(r) // ps) for r in rows)
-    bytes_moved = (2 * q.numel() * 4 + 2 * pages * ps * Hkv * Dh * 1
-                   + bt.numel() * 4 + lengths.numel() * 4)
-    flops = 4.0 * Hq * Dh * sum(sum(r) for r in rows)
-    bound, by = _bound(bytes_moved, flops)
+    bound, by = _bound(work.paged_attention(
+        B, T, Hq, Hkv, Dh, pages * ps, kp.element_size(), bt.shape[1],
+        sum(sum(r) for r in rows)))
     return dict(name="paged_attention_mq",
                 source="src/repro_torch/csrc/paged_attention.cu",
                 replaces="src/repro/kernels/paged_attention.py:195",
@@ -976,6 +1013,7 @@ def _k4_times(label, x, w, noise, transpose):
     bound (weights, activations, noise and tokens once)."""
     from repro_torch.core import formats
     from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import work
     V, D = (w.shape if transpose else w.shape[::-1])
     for B in (4, 16):
         xb, nb = x[:B].contiguous(), noise[:B].contiguous()
@@ -989,8 +1027,8 @@ def _k4_times(label, x, w, noise, transpose):
                 passes["pass 1"] += t
             elif "ds_select" in key:
                 passes["pass 2"] += t
-        bound, by = _bound(w.numel() * w.element_size() + xb.numel() * 4
-                           + nb.numel() * 4 + B * 4, 2.0 * B * V * D)
+        bound, by = _bound(work.decode_sample(B, D, V, w.element_size(),
+                                              xb.element_size(), False))
         print(f"K4 {label} (V {V}, D {D}) B={B}: ms {ms:.4f} (pass 1 "
               f"{passes['pass 1']:.4f}, pass 2 {passes['pass 2']:.4f}, "
               f"torch.profiler), bound_ms {bound:.4f} ({by}), "
@@ -1002,6 +1040,7 @@ def _k4_decode_sample(dev):
     from repro_torch.core import formats, posit
     from repro_torch.kernels import ops
     from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import work
     fmt = formats.P16_2
     B, D, V = 4, 8192, 256000
     g = torch.Generator(device=dev).manual_seed(4)
@@ -1071,8 +1110,8 @@ def _k4_decode_sample(dev):
     ms = _device_ms(run, launches=3)
     plain_ms = _time_once_ms(lambda: pa.decode_sample_plain(
         x, w, noise, 0.8, greedy=False, top_k=40, **kw))
-    bytes_moved = w.numel() * 2 + x.numel() * 4 + noise.numel() * 4 + B * 4
-    bound, by = _bound(bytes_moved, 2.0 * B * V * D)
+    bound, by = _bound(work.decode_sample(B, D, V, w.element_size(),
+                                          x.element_size(), False))
     _k4_times("[V, D] command-r head", x16, w, n16, True)
     del w, logits
     # qwen3-moe's untied [D, V] head
@@ -1123,6 +1162,7 @@ def _k5_case(dev, act, M, starts, reps, Hkv=8, paged_fmt="P8_2", Hq=64,
     from repro_torch.core import formats, posit
     from repro_torch.kernels import ops
     from repro_torch.kernels import prefill_attention as pf
+    from repro_torch.kernels import work
     fmt = getattr(formats, paged_fmt) if paged_fmt else None
     B, C, ps = 4, 64, 16
     P = B * M + 1
@@ -1190,34 +1230,24 @@ def _k5_case(dev, act, M, starts, reps, Hkv=8, paged_fmt="P8_2", Hq=64,
     qt = q.permute(0, 2, 1, 3)
     library_ms = _device_ms(lambda: F.scaled_dot_product_attention(
         qt, keys, vals, attn_mask=mask[:, None]), launches=reps)
-    # bytes: q, k, v and the output once, the history rows the window
-    # reaches once (slot 1 reads slot 0's shared pages), the chunk's codes
-    # written (slot 3's not); operations: q.k and p.v over the (query, key)
-    # pairs this data attends (causal, within the window), at the peak rate
-    # of the activations' type (bf16 tensor cores for bf16).  The SIMT
-    # variant keeps f32 FMA; the bound at the f32 rate is printed beside it.
-    # The exact form counts the bf16 products the tensor-core variants run:
-    # three a p.v multiply-add, and three a q.k one (one on tc256 when
-    # 1 / sqrt(Dh) is a power of two, as at 256).
-    ab, pb = q.element_size(), kp.element_size()
+    # work.prefill: the history rows the window reaches read once (slot 1
+    # reads slot 0's shared pages), the chunk's codes written (slot 3's
+    # not), q.k and p.v over the (query, key) pairs this data attends
+    # (causal, within the window): the exact bf16 products on the
+    # tensor-core variants, f32 FMA on the SIMT one; the f32 FMA form is
+    # printed beside
     table = bt.tolist()
     hist_rows = {(table[b][r // ps], r % ps) for b, s in enumerate(starts)
                  for r in range(max(0, s - window + 1), s)}
-    bytes_moved = (B * C * (2 * Hq + 2 * Hkv) * Dh * ab
-                   + (2 * len(hist_rows) + 2 * (B - 1) * C) * Hkv * Dh * pb)
     pairs = sum(min(s + j + 1, window) for s in starts for j in range(C))
-    flops = 4.0 * pairs * Hq * Dh
-    rate = BF16_FLOP_PER_S if act == torch.bfloat16 else F32_FLOP_PER_S
-    bound, by = _bound(bytes_moved, flops, rate)
-    q_terms = 1 if variant == "tc256" and math.frexp(Dh ** -0.5)[0] == 0.5 \
-        else 3
-    exact_ms, exact_by = _bound(bytes_moved, 2.0 * pairs * Hq * Dh
-                                * (q_terms + 3), BF16_FLOP_PER_S)
+    kernel_work = work.prefill(B, C, Hq, Hkv, Dh, q.element_size(),
+                               kp.element_size(), len(hist_rows),
+                               (B - 1) * C, pairs, variant)
+    bound, by = _bound(kernel_work)
     return dict(err=err, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
                 bound=bound, by=by, library_ms=library_ms,
-                f32_fma_ms=_bound(bytes_moved, flops)[0],
-                bytes_ms=bytes_moved / HBM_BYTES_PER_S * 1e3,
-                exact_ms=exact_ms, exact_by=exact_by)
+                f32_fma_ms=_bound(_f32_form(kernel_work))[0],
+                bytes_ms=_bytes_ms(kernel_work))
 
 
 def _k5_prefill(dev):
@@ -1274,6 +1304,7 @@ def _k6_matmul(dev):
     from repro_torch.core import formats, posit
     from repro_torch.kernels import ops, posit_codec
     from repro_torch.kernels import posit_matmul as pm
+    from repro_torch.kernels import work
     fa, fb = formats.P13_2, formats.P16_2
     g = torch.Generator(device=dev).manual_seed(6)
     weights = {}
@@ -1324,7 +1355,7 @@ def _k6_matmul(dev):
         del faults
         ms = _device_ms(lambda: pm.posit_matmul(a, b, fa, fb), launches=5)
         lib = _device_ms(lambda: torch.matmul(A, B), launches=5)
-        pb, pby = _bound(M * K * 2 + K * N * 2 + M * N * 4, 2.0 * M * K * N)
+        pb, pby = _bound(work.matmul(M, K, N, 2, 2, 4, variant))
         del A, B
         print(f"K6 M={M} K={K} N={N} fmt_out={fo} ({variant}): max |err| "
               f"{float(gap.max()):.3g}, largest err in u sqrt(K) ||ab|| "
@@ -1352,18 +1383,17 @@ def _k6_matmul(dev):
             lambda: [torch.matmul(a, b) for a, b in decoded],
             launches=3 if reps > 1 else 1)
         del decoded
-        bytes_moved = sum(M * K * 2 + K * N * 2 + M * N * 4
-                          for K, N in _LAYER_KN)
-        flops = sum(2.0 * M * K * N for K, N in _LAYER_KN)
-        bound, by = _bound(bytes_moved, flops)
-        return ms, call_ms, plain_ms, library_ms, bound, by
+        variant = pm.matmul_variant(M, fa, fb, torch.int16)
+        w = work.total(work.matmul(M, K, N, 2, 2, 4, variant)
+                       for K, N in _LAYER_KN)
+        return ms, call_ms, plain_ms, library_ms, w
 
-    ms, call_ms, plain_ms, library_ms, bound, by = layer_record(4)
+    ms, call_ms, plain_ms, library_ms, w4 = layer_record(4)
+    bound, by = _bound(w4)
     m256 = layer_record(256)
     # the exact tensor-core form does four bf16 products per multiply-add
-    tc_bound, tc_by = _bound(
-        sum(256 * K * 2 + K * N * 2 + 256 * N * 4 for K, N in _LAYER_KN),
-        sum(4 * 2.0 * 256 * K * N for K, N in _LAYER_KN), BF16_FLOP_PER_S)
+    tc_bound, tc_by = _bound(m256[4])
+    m256 = m256[:4] + _bound(_f32_form(m256[4]))
     print(f"kernel posit_matmul M=256 (a13 prefill, "
           f"{pm.matmul_variant(256, fa, fb, torch.int16)} variant), one "
           f"layer's 7 projections: ms {m256[0]:.4f}, plain_ms {m256[2]:.3f}, "
@@ -1385,20 +1415,6 @@ def _k6_matmul(dev):
 # phase 3, slice 4: the chunked-PDPU GEMM (K8), the grouped posit GEMM (K9),
 # and attention at 16 query heads per KV head and over float pages
 # ---------------------------------------------------------------------------
-
-INT32_OP_PER_S = 16.7e12   # H100 SXM: 64 INT32 lanes x 132 SMs x 1.98 GHz
-
-
-def pdpu_step_ops(N: int) -> int:
-    """Integer operations of one chunk step of one output as the run-time
-    variant runs it, counted from core/pdpu.py's datapath: S1 the
-    accumulator's decode (45), S2 per product a multiply, a sign xor, a
-    zero test, an exponent add and a select (5 N), the comparator tree
-    (N + 1), S3 per aligned term a shift amount, a clamp, a shift, the
-    sticky mask and OR, a negation (12 per term, N + 1 terms), S4-S5 the
-    sum, abs and leading-one count (25), S6 the rounding (45)."""
-    return 45 + 5 * N + (N + 1) + 12 * (N + 1) + 25 + 45
-
 
 def k8_sass_ops() -> dict:
     """The compile-time variant's integer operations a chunk step and a
@@ -1423,12 +1439,6 @@ K8_STEP_SHAPES = (("wq / wo", 8192, 8192, 4), ("wk / wv", 8192, 1024, 4),
                   ("head", 8192, 256000, 1))
 
 
-def _k8_bound(M, K, N, step_ops, decode_ops):
-    """(bound ms, by): every code decoded once, every chunk step once."""
-    ops = M * N * (K // 4) * step_ops + (M * K + K * N) * decode_ops
-    return _bound((M * K + K * N) * 2 + M * N * 4, ops, INT32_OP_PER_S)
-
-
 def _k8_pdpu(dev):
     """K8 under bit_exact (P(13,2) codes in, P(16,2) out, N 4, W_m 14): the
     compile-time variant bitwise against its plain version at M 4, K 8192,
@@ -1443,6 +1453,7 @@ def _k8_pdpu(dev):
     from repro_torch.core import formats, posit
     from repro_torch.core.quant import policy_by_name
     from repro_torch.kernels import ops, pdpu_dot
+    from repro_torch.kernels import work
     cfg = policy_by_name("validate_bit_exact").pdpu_config()
     _check(pdpu_dot.pdpu_variant(cfg) == "p13_16_n4",
            "the bit_exact PDPU takes the compile-time variant")
@@ -1491,12 +1502,10 @@ def _k8_pdpu(dev):
     ar = codes((M, K), fmt=c10.fmt_in)
     br = codes((K, N), 1 / math.sqrt(K), fmt=c10.fmt_in)
     rt_ms = _device_ms(lambda: pdpu_dot.pdpu_matmul(ar, br, c10), launches=3)
-    rt_bound, rt_by = _bound((M * K + K * N) * 2 + M * N * 4,
-                             M * N * (K // c10.N) * pdpu_step_ops(c10.N),
-                             INT32_OP_PER_S)
+    rt_bound, rt_by = _bound(work.pdpu(M, K, N, c10.N))
     print(f"K8 run-time variant (posit), P(10/16,2) N 8, M {M}, K {K}, N "
           f"{N}: ms {rt_ms:.4f}, bound {rt_bound:.4f} ({rt_by}, "
-          f"{pdpu_step_ops(c10.N)} integer operations a chunk step)")
+          f"{work.pdpu_step_ops(c10.N)} integer operations a chunk step)")
     del ar, br
     out = posit.decode(got.to(torch.int16), cfg.fmt_out)
     ref = torch.matmul(posit.decode(a, cfg.fmt_in), posit.decode(b, cfg.fmt_in))
@@ -1528,7 +1537,8 @@ def _k8_pdpu(dev):
         w = head.T if name == "head" else codes((kk, nn), 1 / math.sqrt(kk))
         ms = _device_ms(lambda: pdpu_dot.pdpu_matmul(x, w, cfg),
                         launches=1 if name == "head" else 3)
-        bound, by = _k8_bound(M, kk, nn, step_ops, decode_ops)
+        bound, by = _bound(work.pdpu(M, kk, nn, cfg.N, step_ops,
+                                     decode_ops))
         step_ms += per_step * ms
         step_bound += per_step * bound
         print(f"K8 {name} (M {M}, K {kk}, N_out {nn}{', B transposed' if name == 'head' else ''}): "
@@ -1540,18 +1550,19 @@ def _k8_pdpu(dev):
           f"{step_ms:.4f} ms, bound {step_bound:.4f} ms")
     del head
     ms64 = _device_ms(lambda: pdpu_dot.pdpu_matmul(a64, b, cfg), launches=2)
-    bound64, by64 = _k8_bound(64, K, N, step_ops, decode_ops)
+    bound64, by64 = _bound(work.pdpu(64, K, N, cfg.N, step_ops, decode_ops))
     print(f"K8 M 64, K {K}, N_out {N} (prefill): ms {ms64:.4f}, bound "
           f"{bound64:.4f} ({by64})")
     call_ms = _time_ms(lambda: pdpu_dot.pdpu_matmul(a, b, cfg), reps=10)
     ms = _device_ms(lambda: pdpu_dot.pdpu_matmul(a, b, cfg), launches=5)
-    bound, by = _k8_bound(M, K, N, step_ops, decode_ops)
+    bound, by = _bound(work.pdpu(M, K, N, cfg.N, step_ops, decode_ops))
     print(f"K8: {M * N * (K // cfg.N)} chunk steps x {step_ops:.1f} integer "
           f"operations + {M * K + K * N} operand decodes x {decode_ops:.1f} "
-          f"(SASS): bound {bound:.4f} ms ({by}) at {INT32_OP_PER_S:.3g} "
+          f"(SASS): bound {bound:.4f} ms ({by}) at "
+          f"{_hw('peak_int32_ops'):.3g} "
           f"INT32 op/s; {M * N * (K // cfg.N) / ms / 1e6:.4g} G chunk "
           f"steps/s; the run-time variant's count would be "
-          f"{pdpu_step_ops(cfg.N)} a step")
+          f"{work.pdpu_step_ops(cfg.N)} a step")
     return dict(name="pdpu_matmul", source="src/repro_torch/csrc/pdpu_dot.cu",
                 replaces="src/repro/kernels/pdpu_dot.py:47",
                 max_abs_err=0.0, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
@@ -1576,6 +1587,7 @@ def _k9_routed(dev, weights, g) -> float:
     from repro_torch.core import formats, posit
     from repro_torch.kernels import ops
     from repro_torch.kernels import posit_matmul as pm
+    from repro_torch.kernels import work
     fb = formats.P16_2
     E, M, T, k = 128, 8, 4, 8
     choice = torch.stack([torch.randperm(E, generator=g, device=dev)[:k]
@@ -1629,9 +1641,9 @@ def _k9_routed(dev, weights, g) -> float:
                             launches=3)
     del dec_all, dec_routed
     code_bytes = sum(len(routed) * K * N * 2 for K, N in _EXPERT_KN)
-    bytes_moved = code_bytes + sum(E * M * (K + N) * 4 for K, N in _EXPERT_KN)
-    bound, by = _bound(bytes_moved, sum(2.0 * len(routed) * M * K * N
-                                        for K, N in _EXPERT_KN))
+    bound, by = _bound(work.total(
+        work.grouped(E, M, K, N, 4, 2, 4, "p16_2", experts=len(routed))
+        for K, N in _EXPERT_KN))
     print(f"K9 decode routing ({T} tokens top-{k}: {len(routed)} of {E} "
           f"experts, {sum(fill)} rows): one layer's 3 GEMMs ms {ms:.4f}, "
           f"bound_ms {bound:.4f} ({by}; the routed experts' codes "
@@ -1649,6 +1661,7 @@ def _k9_grouped(dev):
     from repro_torch.core import formats, posit
     from repro_torch.kernels import posit_codec
     from repro_torch.kernels import posit_matmul as pm
+    from repro_torch.kernels import work
     fb, fa = formats.P16_2, formats.P13_2
     E, M = 128, 8
     g = torch.Generator(device=dev).manual_seed(9)
@@ -1699,10 +1712,10 @@ def _k9_grouped(dev):
     library_ms = _device_ms(lambda: [torch.bmm(a, b) for a, b in decoded],
                             launches=3)
     del decoded
-    bytes_moved = sum(E * (M * K * 4 + K * N * 2 + M * N * 4)
-                      for K, N in _EXPERT_KN)
-    flops = sum(2.0 * E * M * K * N for K, N in _EXPERT_KN)
-    bound, by = _bound(bytes_moved, flops)
+    layer_work = work.total(work.grouped(E, M, K, N, 4, 2, 4, "p16_2")
+                            for K, N in _EXPERT_KN)
+    bound, by = _bound(layer_work)
+    bytes_moved = int(layer_work.bytes)
     print(f"K9: largest |err| in u sqrt(K) ||ab|| over the checks "
           f"{ratio:.4g} (limit {pm.SUM_TOL}); one layer's expert GEMMs move "
           f"{bytes_moved} B: {bytes_moved / ms / 1e6:.4g} GB/s")
@@ -1724,6 +1737,7 @@ def _attention_g16_float_pages(dev):
     import torch.nn.functional as F
     from repro_torch.core import formats, posit
     from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import work
     B, Hq, Hkv, Dh, ps, M, T = 4, 64, 4, 128, 16, 16, 4
     P = B * M + 1
     g = torch.Generator(device=dev).manual_seed(16)
@@ -1764,9 +1778,9 @@ def _attention_g16_float_pages(dev):
         library_ms = _device_ms(lambda: F.scaled_dot_product_attention(
             q[:, :, None, :], kd, vd), launches=50)
         pages = sum(-(-int(n) // ps) for n in lengths.tolist())
-        bytes_moved = (2 * q.numel() * 4 + 2 * pages * ps * Hkv * Dh
-                       * kp.element_size() + bt.numel() * 4 + B * 4)
-        bound, by = _bound(bytes_moved, 4.0 * Hq * Dh * int(lengths.sum()))
+        bound, by = _bound(work.paged_attention(
+            B, 1, Hq, Hkv, Dh, pages * ps, kp.element_size(), bt.shape[1],
+            int(lengths.sum())))
         _attention_splits_check(dev, Hq, Hkv, "int8" if fmt else "bf16")
         print(f"attention at {what}: K3 ms {ms3:.4f} (B 4, L <= 256), "
               f"bound_ms {bound:.4f} ({by}), library_ms {library_ms:.4f}: "
@@ -2928,6 +2942,7 @@ def _train_kernels(dev, label: str, arch: str, M: int = TRAIN_M):
     from repro_torch.core.formats import P13_2
     from repro_torch.kernels import posit_codec
     from repro_torch.kernels import posit_matmul as pm
+    from repro_torch.kernels import work
     cfg = configs.get(arch)
     g = torch.Generator(device=dev).manual_seed(29)
     layer = []
@@ -2950,15 +2965,15 @@ def _train_kernels(dev, label: str, arch: str, M: int = TRAIN_M):
         ms = _device_ms(lambda: pm.posit_matmul(a, b, P13_2, P13_2),
                         launches=3)
         lib = _device_ms(lambda: torch.matmul(A, B), launches=3)
-        io = M * K * 2 + K * N * 2 + M * N * 4
-        f32_bound, f32_by = _bound(io, 2.0 * M * K * N)
-        tc_bound, tc_by = _bound(io, 4 * 2.0 * M * K * N, BF16_FLOP_PER_S)
+        mm_work = work.matmul(M, K, N, 2, 2, 4, "tc")
+        f32_bound, f32_by = _bound(_f32_form(mm_work))
+        tc_bound, tc_by = _bound(mm_work)
         print(f"{what}: largest err in u sqrt(K) ||ab|| "
               f"{_units(gap, bound):.4g} (planted: {planted}); ms {ms:.4f}, "
               f"bound_ms {tc_bound:.4f} ({tc_by}, the exact split-bf16 form: "
               f"4 bf16 products a multiply-add), f32 bound {f32_bound:.4f} "
               f"({f32_by}), library_ms (torch.matmul, decoded f32) {lib:.4f}")
-        layer.append((a, b, A, B, io, M * K * N))
+        layer.append((a, b, A, B, mm_work))
         del got, want, bound, gap
 
     def run():
@@ -2970,10 +2985,9 @@ def _train_kernels(dev, label: str, arch: str, M: int = TRAIN_M):
                                       for a, b, *_ in layer])
     library_ms = _device_ms(lambda: [torch.matmul(A, B)
                                      for _, _, A, B, *_ in layer], launches=1)
-    bound, by = _bound(sum(r[4] for r in layer),
-                       sum(8.0 * r[5] for r in layer), BF16_FLOP_PER_S)
-    f32_bound, _ = _bound(sum(r[4] for r in layer),
-                          sum(2.0 * r[5] for r in layer))
+    layer_work = work.total(r[4] for r in layer)
+    bound, by = _bound(layer_work)
+    f32_bound, _ = _bound(_f32_form(layer_work))
     n = len(layer)
     print(f"K6 {label} layer ({n} projections at M {M}): ms {ms:.4f}, "
           f"bound_ms {bound:.4f} ({by}; f32 {f32_bound:.4f}), plain_ms "
@@ -3001,7 +3015,7 @@ def _train_kernels(dev, label: str, arch: str, M: int = TRAIN_M):
     del plain_codes
     enc_ms = _device_ms(lambda: posit_codec.encode(x, P13_2), launches=3)
     n = x.numel()
-    enc_bound, enc_by = _bound(n * 6, 0.0)
+    enc_bound, enc_by = _bound(work.encode(n, codes.element_size()))
     del x
     vals = posit_codec.decode(codes, P13_2)
     t0 = time.perf_counter()
@@ -3012,7 +3026,7 @@ def _train_kernels(dev, label: str, arch: str, M: int = TRAIN_M):
            f"K1 P(13,2) at {arch}'s head {head} bitwise its plain version")
     del plain_vals, vals
     dec_ms = _device_ms(lambda: posit_codec.decode(codes, P13_2), launches=3)
-    dec_bound, dec_by = _bound(n * 6, 0.0)
+    dec_bound, dec_by = _bound(work.decode(n, codes.element_size()))
     del codes
     print(f"K2 {label} head {head} f32 -> P(13,2) (p13_2): ms {enc_ms:.4f}, "
           f"bound_ms {enc_bound:.4f} ({enc_by}), plain_ms {enc_plain_ms:.3f}; "
@@ -3239,6 +3253,7 @@ def _k9_train(dev, arch: str, train_label: str):
     from repro_torch.core.formats import P13_2
     from repro_torch.kernels import ops, posit_codec
     from repro_torch.kernels import posit_matmul as pm
+    from repro_torch.kernels import work
     from repro_torch.models import moe
     cfg = configs.get(arch)
     E, layer_kn = cfg.n_experts, _expert_kn(cfg)
@@ -3313,18 +3328,17 @@ def _k9_train(dev, arch: str, train_label: str):
                             launches=1)
     del decoded, layer, acts
     torch.cuda.empty_cache()
-    bytes_moved = sum(E * (M * K * 2 + K * N * 2 + M * N * 4)
-                      for K, N in layer_kn)
-    flops = sum(2.0 * E * M * K * N for K, N in layer_kn)
     # the exact form: 4 bf16 products a multiply-add on the tensor cores
-    bound, by = _bound(bytes_moved, 4 * flops, BF16_FLOP_PER_S)
-    f32_bound, _ = _bound(bytes_moved, flops)
+    layer_work = work.total(work.grouped(E, M, K, N, 2, 2, 4, "tc_p13_2")
+                            for K, N in layer_kn)
+    bound, by = _bound(layer_work)
+    f32_bound, _ = _bound(_f32_form(layer_work))
     print(f"11c K9 training {arch} (E {E}, M {M}, the layer's 3 expert "
           f"GEMMs, P(13,2) x P(13,2), tc_p13_2): ms {ms:.4f}, call_ms "
           f"{call_ms:.4f}, plain_ms {plain_ms:.3f}, bound_ms {bound:.4f} "
-          f"({by}; {flops / 1e9:.2f} GFLOP, x 4 bf16 products "
-          f"{4 * flops / BF16_FLOP_PER_S * 1e3:.4f} ms, {bytes_moved} B "
-          f"{bytes_moved / HBM_BYTES_PER_S * 1e3:.4f} ms; f32 FMA "
+          f"({by}; {layer_work.flops / 1e9:.2f} GFLOP, x 4 bf16 products "
+          f"{_ops_ms(layer_work):.4f} ms, {int(layer_work.bytes)} B "
+          f"{_bytes_ms(layer_work):.4f} ms; f32 FMA "
           f"{f32_bound:.4f} ms), torch.bmm on the decoded f32 stacks "
           f"{library_ms:.4f} ({ms / library_ms:.3f}x); largest err in u "
           f"sqrt(K) ||ab|| {ratio:.4g}")
@@ -3487,6 +3501,7 @@ def _k3_case(dev, label, Hq, Hkv, Dh, lengths, window, M, seed, ps=16,
     from repro_torch.core import formats, posit
     from repro_torch.kernels import ops
     from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import work
     fmt = formats.P8_2
     B = len(lengths)
     P = B * M + 1
@@ -3530,8 +3545,8 @@ def _k3_case(dev, label, Hq, Hkv, Dh, lengths, window, M, seed, ps=16,
         qt, kd, vd, attn_mask=mask[:, None]), launches=20)
     keys = int(mask.sum())
     read = int(mask.any(1).sum())      # distinct keys a slot's rows read
-    bound, by = _bound(2 * q.numel() * 4 + 2 * read * Hkv * Dh
-                       + bt.numel() * 4 + B * 4, 4.0 * Hq * Dh * keys)
+    bound, by = _bound(work.paged_attention(
+        B, rows, Hq, Hkv, Dh, read, kp.element_size(), bt.shape[1], keys))
     print(f"K3 {label} ({kernel}, B {B}{f', T {T}' if T else ''}, {Hq} / "
           f"{Hkv} heads x {Dh}, pages of {ps}, lengths {tuple(lengths)}, "
           f"window {window}, {pa.attention_splits(M, ps, Dh)[1]} splits): "
@@ -3547,17 +3562,14 @@ def _k3_case(dev, label, Hq, Hkv, Dh, lengths, window, M, seed, ps=16,
                 bound_ms=bound, bound_by=by, library_ms=library_ms)
 
 
-def _k5_record(dev, label, counter, act=None, exact=False, **kw):
-    """One K5 case of `_k5_case` (bf16 unless `act`) as a kernel record;
-    with `exact` its bound is the exact form (the tensor-core variants'
-    bf16 products) or the bytes, the larger."""
+def _k5_record(dev, label, counter, act=None, **kw):
+    """One K5 case of `_k5_case` (bf16 unless `act`) as a kernel record."""
     import torch
     r = _k5_case(dev, act or torch.bfloat16, reps=10, **kw)
-    bound, by = ((r["exact_ms"], r["exact_by"]) if exact
-                 else (r["bound"], r["by"]))
+    bound, by = r["bound"], r["by"]
     print(f"10 K5 {label}: ms {r['ms']:.4f}, call_ms {r['call_ms']:.4f}, "
           f"plain_ms {r['plain_ms']:.3f}, bound_ms {bound:.4f} ({by}; "
-          f"bytes {r['bytes_ms']:.4f}, exact form {r['exact_ms']:.4f}, at "
+          f"bytes {r['bytes_ms']:.4f}, at "
           f"the f32 FMA rate {r['f32_fma_ms']:.4f}), library_ms (SDPA, "
           f"masked) {r['library_ms']:.4f} ({r['ms'] / r['library_ms']:.2f}x), "
           f"max_abs_err {r['err']:.3g}")
@@ -3579,6 +3591,7 @@ def _k4_record(dev, label, D, V, w=None, seed=41):
     from repro_torch.core import formats, posit
     from repro_torch.kernels import ops
     from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import work
     fmt = formats.P16_2
     B = 4
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -3615,8 +3628,8 @@ def _k4_record(dev, label, D, V, w=None, seed=41):
     call_ms = _time_ms(run, reps=5)
     plain_ms = _time_once_ms(lambda: pa.decode_sample_plain(
         x, w, noise, 0.8, greedy=False, top_k=40, **kw))
-    bound, by = _bound(w.numel() * 2 + x.numel() * 2 + noise.numel() * 4
-                       + B * 4, 2.0 * B * V * D)
+    bound, by = _bound(work.decode_sample(B, D, V, w.element_size(),
+                                          x.element_size(), False))
     print(f"10 K4 {label} (B 4, D {D}, V {V}, T 0.8, top-k 40): ms "
           f"{ms:.4f}, call_ms {call_ms:.4f}, plain_ms {plain_ms:.3f}, "
           f"bound_ms {bound:.4f} ({by}), {bound / ms:.3f} of the bound, "
@@ -3690,7 +3703,7 @@ def _gemma3_phase(dev):
                            cfg.sliding_window), ("global", 1 << 30)):
         records.append(_k5_record(
             dev, f"gemma3-4b: tc256, head_dim {cfg.head_dim}, {label}",
-            "prefill_attention:tc256", exact=True, window=window, **k5))
+            "prefill_attention:tc256", window=window, **k5))
     _k5_record(dev, f"gemma3-4b: SIMT, f32, head_dim {cfg.head_dim}, window "
                     f"{cfg.sliding_window}", "prefill_attention:simt",
                act=torch.float32, window=cfg.sliding_window, **k5)
@@ -3752,6 +3765,7 @@ def _command_r_plus_phase(dev):
     from repro_torch.core import formats
     from repro_torch.core.quant import policy_by_name
     from repro_torch.kernels import ops, posit_codec
+    from repro_torch.kernels import work
     from repro_torch.models import packing
     full = configs.get("command_r_plus_104b")
     cfg = full.replace(n_layers=CRP_LAYERS,
@@ -3775,7 +3789,7 @@ def _command_r_plus_phase(dev):
     ms = _device_ms(lambda: posit_codec.decode(codes, fmt), launches=10)
     call_ms = _time_ms(lambda: posit_codec.decode(codes, fmt), reps=10)
     plain_ms = _time_once_ms(lambda: posit_codec.decode_plain(codes, fmt))
-    bound, by = _bound(codes.numel() * (2 + 4), 0)
+    bound, by = _bound(work.decode(codes.numel(), codes.element_size()))
     print(f"10b K1 [{K}, {N}] int16 -> f32: ms {ms:.4f}, call_ms "
           f"{call_ms:.4f}, plain_ms {plain_ms:.3f}, bound_ms {bound:.4f} "
           f"({by}), {bound / ms:.3f} of the bound")
@@ -3942,6 +3956,7 @@ def _mamba_kernels(dev):
     from repro_torch.core import formats
     from repro_torch.kernels import ops, posit_codec
     from repro_torch.kernels import posit_matmul as pm
+    from repro_torch.kernels import work
     cfg = _mamba_cfg()
     fmt, M = formats.P16_2, 4
     D, Di, V = cfg.d_model, cfg.ssm_d_inner, cfg.vocab_size
@@ -3973,7 +3988,8 @@ def _mamba_kernels(dev):
         ms = _device_ms(lambda: pm.posit_gemv_f(x, w, fmt), launches=5)
         mm = _device_ms(lambda: torch.matmul(xf, W), launches=5)
         plain = _time_once_ms(lambda: pm.posit_gemv_f_plain(x, w, fmt))
-        bound = _bound(K * N * 2 + M * K * 2 + M * N * 4, 2.0 * M * K * N)
+        bound = _bound(work.gemv_f(M, K, N, x.element_size(),
+                                   w.element_size()))
         per[(K, N)] = (ms, mm, plain, bound)
         print(f"13 float GEMV M={M} K={K} N={N} ({variant}): ms {ms:.4f}, "
               f"torch.matmul on decoded f32 {mm:.4f}, plain {plain:.3f}, "
@@ -3981,22 +3997,21 @@ def _mamba_kernels(dev):
         del got, want, gap, W
     layer_ms = _device_ms(lambda: [pm.posit_gemv_f(xs[K], weights[(K, N)], fmt)
                                    for K, N in layer], launches=3)
-    layer_bound = _bound(sum(K * N * 2 + M * K * 2 + M * N * 4
-                             for K, N in layer),
-                         sum(2.0 * M * K * N for K, N in layer))
+    layer_bound = _bound(work.total(work.gemv_f(M, K, N, 2, 2)
+                                    for K, N in layer))
     codes = weights[layer[0]]
     _check(_bits_equal(posit_codec.decode(codes, fmt),
                        posit_codec.decode_plain(codes, fmt)),
            f"13: K1 p16_2 at {list(layer[0])}")
     k1 = (_device_ms(lambda: posit_codec.decode(codes, fmt), launches=5),
           _time_once_ms(lambda: posit_codec.decode_plain(codes, fmt)),
-          _bound(codes.numel() * (2 + 4), 0))
+          _bound(work.decode(codes.numel(), codes.element_size())))
     _check(_bits_equal(posit_codec.encode(head_f, fmt),
                        posit_codec.encode_plain(head_f, fmt)),
            f"13: K2 p16_2 at [{V}, {D}]")
     k2 = (_device_ms(lambda: posit_codec.encode(head_f, fmt), launches=3),
           _time_once_ms(lambda: posit_codec.encode_plain(head_f, fmt)),
-          _bound(head_f.numel() * (4 + 2), 0))
+          _bound(work.encode(head_f.numel(), 2)))
     print(f"13 K1 p16_2 {list(layer[0])}: ms {k1[0]:.4f}, plain {k1[1]:.3f}, "
           f"bound_ms {k1[2][0]:.4f}; K2 p16_2 [{V}, {D}]: ms {k2[0]:.4f}, "
           f"plain {k2[1]:.3f}, bound_ms {k2[2][0]:.4f}")
@@ -4360,9 +4375,10 @@ def _capture_calls(device_type: str = "cuda", names=None, key=None):
 
 def _replay_codec(a, decode):
     """K1 (decode) or K2 (encode) on captured arguments: bitwise its plain
-    version.  Returns (max |err|, ms, plain ms, bytes, ops, rate, library
-    ms, detail)."""
+    version.  Returns (max |err|, ms, plain ms, its `kernels/work.py`
+    work, library ms, detail)."""
     from repro_torch.kernels import posit_codec as pc
+    from repro_torch.kernels import work
     x, fmt = (a["codes"], a["fmt"]) if decode else (a["values"], a["fmt"])
     fn, plain = ((pc.decode, pc.decode_plain) if decode
                  else (pc.encode, pc.encode_plain))
@@ -4372,8 +4388,9 @@ def _replay_codec(a, decode):
            f"{list(x.shape)} {fmt}")
     ms = _device_ms(lambda: fn(x, fmt), launches=5)
     plain_ms = _time_once_ms(lambda: plain(x, fmt))
-    nbytes = x.numel() * (x.element_size() + got.element_size())
-    return 0.0, ms, plain_ms, nbytes, 0.0, F32_FLOP_PER_S, None, "bitwise"
+    w = (work.decode(x.numel(), x.element_size()) if decode
+         else work.encode(x.numel(), got.element_size()))
+    return 0.0, ms, plain_ms, w, None, "bitwise"
 
 
 def _replay_gemv(a):
@@ -4384,6 +4401,7 @@ def _replay_gemv(a):
     import torch
     from repro_torch.kernels import posit_codec as pc
     from repro_torch.kernels import posit_matmul as pm
+    from repro_torch.kernels import work
     x, w, fmt = a["x"], a["w_codes"], a["fmt_w"]
     (M, K), N = x.shape, w.shape[1]
     variant = pm.gemv_f_variant(M, fmt, w)
@@ -4405,9 +4423,8 @@ def _replay_gemv(a):
     ms = _device_ms(lambda: pm.posit_gemv_f(x, w, fmt), launches=5)
     plain_ms = _time_once_ms(lambda: pm.posit_gemv_f_plain(x, w, fmt))
     lib = _device_ms(lambda: torch.matmul(xf, W), launches=5)
-    nbytes = K * N * w.element_size() + M * K * x.element_size() + M * N * 4
-    return (float(gap.max()), ms, plain_ms, nbytes, 2.0 * M * K * N,
-            F32_FLOP_PER_S, lib,
+    return (float(gap.max()), ms, plain_ms,
+            work.gemv_f(M, K, N, x.element_size(), w.element_size()), lib,
             f"{_units(gap, bound):.4g} units of sum_bound; planted: {faults}")
 
 
@@ -4419,6 +4436,7 @@ def _replay_grouped(a):
     import torch
     from repro_torch.kernels import posit_codec as pc
     from repro_torch.kernels import posit_matmul as pm
+    from repro_torch.kernels import work
     x, w, fa, fb = a["a"], a["b_codes"], a["fmt_a"], a["fmt_b"]
     _check(a["fmt_out"] is None, "K9 replay: float output")
     E, M, K = x.shape
@@ -4439,10 +4457,11 @@ def _replay_grouped(a):
         x, w, fa, fb))
     lib = _device_ms(lambda: torch.bmm(A, W), launches=5)
     rows = pm.occupied_rows_plain(x, fa)
-    nbytes = (int((rows > 0).sum()) * K * N * w.element_size()
-              + E * M * K * x.element_size() + E * M * N * 4)
-    return (float(gap.max()), ms, plain_ms, nbytes,
-            2.0 * int(rows.sum()) * K * N, F32_FLOP_PER_S, lib,
+    kernel_work = work.grouped(
+        E, M, K, N, x.element_size(), w.element_size(), 4,
+        pm.grouped_variant(M, fa, fb, w.dtype),
+        experts=int((rows > 0).sum()), rows=int(rows.sum()))
+    return (float(gap.max()), ms, plain_ms, kernel_work, lib,
             f"{int(rows.sum())} occupied rows; {_units(gap, bound):.4g} "
             f"units of sum_bound; planted: {faults}")
 
@@ -4488,6 +4507,7 @@ def _replay_paged(a):
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import work
     q, kp, vp, bt = a["q"], a["k_pages"], a["v_pages"], a["block_tables"]
     ln, win, fmt = a["lengths"], a["window"], a["fmt_kv"]
     partials, page_ok = a["partials"], a["page_ok"]
@@ -4542,14 +4562,10 @@ def _replay_paged(a):
         q[:, :, None].float(), kd, vd, attn_mask=mask[:, None, None]),
         launches=20)
     keys = int(mask.sum())
-    # the partials' m and l written beside o
-    nbytes = (2 * q.numel() * 4 + 2 * keys * Hkv * Dh * kp.element_size()
-              + bt.numel() * 4 + B * 4
-              + (2 * B * Hq * 4 if partials else 0)
-              + (0 if page_ok is None else page_ok.numel() * 4))
     return (float((final(got) - final(want)).abs().max()), ms, plain_ms,
-            nbytes,
-            4.0 * Hq * Dh * keys, F32_FLOP_PER_S, lib,
+            work.paged_attention(B, 1, Hq, Hkv, Dh, keys, kp.element_size(),
+                                 M, keys, partials, page_ok is not None),
+            lib,
             f"{keys} keys attended; planted faults rejected")
 
 
@@ -4559,6 +4575,7 @@ def _replay_sample(a):
     token must fail that limit in some row."""
     import torch
     from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import work
     x, w, noise = a["x"], a["w"], a["noise"]
     greedy, top_k, T = a["greedy"], a["top_k"], a["temperature"]
     T = 1.0 if T is None else T
@@ -4583,10 +4600,10 @@ def _replay_sample(a):
            "K4: the limit rejects the planted fault 'the runner-up token'")
     ms = _device_ms(lambda: pa.decode_sample(**a), launches=5)
     plain_ms = _time_once_ms(lambda: pa.decode_sample_plain(**a))
-    nbytes = (w.numel() * w.element_size() + x.numel() * x.element_size()
-              + (0 if greedy else noise.numel() * 4) + B * 4)
-    return (float(gap.max()), ms, plain_ms, nbytes, 2.0 * B * V * D,
-            F32_FLOP_PER_S, None, "tokens equal; planted fault rejected")
+    return (float(gap.max()), ms, plain_ms,
+            work.decode_sample(B, D, V, w.element_size(), x.element_size(),
+                               greedy),
+            None, "tokens equal; planted fault rejected")
 
 
 def _replay_prefill(a):
@@ -4600,6 +4617,7 @@ def _replay_prefill(a):
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import prefill_attention as pf
+    from repro_torch.kernels import work
     q, k, v, bt = a["q"], a["k"], a["v"], a["block_tables"]
     kp0, vp0, st, fmt = a["k_pages"], a["v_pages"], a["starts"], a["fmt_kv"]
     window, page_ok, act = int(a["window"][0]), a["page_ok"], q.dtype
@@ -4654,12 +4672,12 @@ def _replay_prefill(a):
             for r in range(max(0, s - window + 1), s)}
     written = sum(1 for b, s in enumerate(starts) for j in range(C)
                   if (s + j) // ps < M and ok[b][(s + j) // ps])
-    nbytes = (B * C * (2 * Hq + 2 * Hkv) * Dh * q.element_size()
-              + (2 * len(hist) + 2 * written) * Hkv * Dh * kp0.element_size())
     pairs = sum(min(s + j + 1, window) for s in starts for j in range(C))
-    rate = BF16_FLOP_PER_S if act == torch.bfloat16 else F32_FLOP_PER_S
+    kernel_work = work.prefill(B, C, Hq, Hkv, Dh, q.element_size(),
+                               kp0.element_size(), len(hist), written, pairs,
+                               pf.prefill_variant(act, Dh))
     return (float((got.float() - want.float()).abs().max()), ms, plain_ms,
-            nbytes, 4.0 * pairs * Hq * Dh, rate, lib,
+            kernel_work, lib,
             f"starts {starts}; planted faults rejected")
 
 
@@ -4712,15 +4730,15 @@ def _replay_smoke_calls(label, calls, counts, tag="13b", paths=None):
         _check(bool(mine) and replayed == launched,
                f"{tag} {label}: {kernel} replayed at every variant the run "
                f"launched ({sorted(launched)}; replayed {sorted(replayed)})")
-        bounds = [_bound(r[3], r[4], r[5]) for r in rows]
-        libs = [r[6] for r in rows]
+        bounds = [_bound(r[3]) for r in rows]
+        libs = [r[4] for r in rows]
         for a, r, b in zip(mine, rows, bounds):
             shapes = ", ".join(f"{k} {list(v.shape)}" for k, v in a.items()
                                if hasattr(v, "shape") and v.dim())
             print(f"{tag} {label} {kernel} ({shapes}): ms {r[1]:.4f}, plain_ms "
                   f"{r[2]:.3f}, bound_ms {b[0]:.4f} ({b[1]}), library_ms "
-                  f"{'none' if r[6] is None else f'{r[6]:.4f}'}, max_abs_err "
-                  f"{r[0]:.3g}; {r[7]}")
+                  f"{'none' if r[4] is None else f'{r[4]:.4f}'}, max_abs_err "
+                  f"{r[0]:.3g}; {r[5]}")
         records.append(dict(
             name=f"{kernel} ({label}: {len(rows)} call signatures)",
             counter=kernel, paths=paths or (label,), source=source,
@@ -5368,7 +5386,7 @@ def _replay_prefill_global(a):
            f"15 K5 with global history bitwise the unsharded launch at "
            f"{list(a['q'].shape)}")
     r = _replay_prefill(a)
-    return r[:7] + (r[7] + "; bitwise the unsharded launch",)
+    return r[:5] + (r[5] + "; bitwise the unsharded launch",)
 
 
 def _merge_replay(dev, a, n_shards):
@@ -5382,6 +5400,7 @@ def _merge_replay(dev, a, n_shards):
     detail)."""
     import torch
     from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import work
     q, ln, win, fmt = a["q"], a["lengths"], a["window"], a["fmt_kv"]
     B, M = a["block_tables"].shape
     pps, ps, F = a["k_pages"].shape
@@ -5415,12 +5434,8 @@ def _merge_replay(dev, a, n_shards):
            "version")
     ms = _device_ms(lambda: pa.merge_attn_partials(o, m, l), launches=20)
     plain_ms = _time_once_ms(lambda: pa.merge_attn_partials_plain(o, m, l))
-    # the partials read once, the output written once; per element of o an
-    # exp, two multiplies and two adds a shard, and one division
-    nbytes = (o.numel() + m.numel() + l.numel() + got.numel()) * 4
-    flops = o.numel() * 4.0 + got.numel()
-    return (float((got - full).abs().max()), ms, plain_ms, nbytes, flops,
-            F32_FLOP_PER_S, None,
+    return (float((got - full).abs().max()), ms, plain_ms,
+            work.merge(n_shards, m.numel() // n_shards, o.shape[-1]), None,
             f"{n_shards} shards, rows {list(got.shape)}; slot 0 bitwise the "
             f"unsharded K3")
 
@@ -5429,13 +5444,13 @@ def _sharded_record(name, counter, rows, source, replaces, label):
     """A kernels-line record over replayed signatures (sums, as
     `_replay_smoke_calls` builds them), counting the launches of the run
     `label`, whose signatures they are."""
-    bounds = [_bound(r[3], r[4], r[5]) for r in rows]
-    libs = [r[6] for r in rows]
+    bounds = [_bound(r[3]) for r in rows]
+    libs = [r[4] for r in rows]
     for r, b in zip(rows, bounds):
         print(f"15 {name}: ms {r[1]:.4f}, plain_ms {r[2]:.3f}, bound_ms "
               f"{b[0]:.4f} ({b[1]}), library_ms "
-              f"{'none' if r[6] is None else f'{r[6]:.4f}'}, max_abs_err "
-              f"{r[0]:.3g}; {r[7]}")
+              f"{'none' if r[4] is None else f'{r[4]:.4f}'}, max_abs_err "
+              f"{r[0]:.3g}; {r[5]}")
     return dict(name=f"{name} ({label}: {len(rows)} call signatures)",
                 counter=counter, paths=(label,), source=source,
                 replaces=replaces, max_abs_err=max(r[0] for r in rows),
@@ -5867,6 +5882,7 @@ def _compressed_phase(dev):
     from repro_torch.core.quant import policy_by_name
     from repro_torch.data import Pipeline
     from repro_torch.kernels import ops, posit_codec
+    from repro_torch.kernels import work
     from repro_torch.launch.mesh import make_train_mesh
     from repro_torch.models.module import tree_leaves
     from repro_torch.optim import adamw, compress, constant_schedule
@@ -6001,16 +6017,16 @@ def _compressed_phase(dev):
     big = torch.randn(shape_big, device=dev) * float(gf.std())
     big_codes = ops.encode(big, P8_2)
     n_big = big.numel()
-    for name, fn, plain, counter, nbytes, src in (
+    for name, fn, plain, counter, kernel_work, src in (
             ("posit_encode (p8_2, gradient)",
              lambda: ops.encode(big, P8_2),
              lambda: posit_codec.encode_plain(big, P8_2),
-             "posit_encode:p8_2", 5 * n_big,
+             "posit_encode:p8_2", work.encode(n_big, 1),
              "src/repro/kernels/posit_codec.py:78"),
             ("posit_decode (p8_2, gradient)",
              lambda: ops.decode(big_codes, P8_2),
              lambda: posit_codec.decode_plain(big_codes, P8_2),
-             "posit_decode:p8_2", 5 * n_big,
+             "posit_decode:p8_2", work.decode(n_big, 1),
              "src/repro/kernels/posit_codec.py:55")):
         got, want = fn(), plain()
         _check(_bits_equal(got, want), f"16b: {name} bitwise its plain "
@@ -6019,7 +6035,7 @@ def _compressed_phase(dev):
         ms = _device_ms(fn, launches=5)
         call_ms = _time_ms(fn, reps=5)
         plain_ms = _time_once_ms(plain)
-        bound, by = _bound(nbytes, 0.0)
+        bound, by = _bound(kernel_work)
         print(f"kernel {name} ({shape_big}): ms {ms:.4f}, call_ms "
               f"{call_ms:.4f}, plain_ms {plain_ms:.3f}, bound_ms {bound:.4f} "
               f"({by})")
@@ -6101,6 +6117,182 @@ def _autotune_phase(dev):
             else:
                 os.environ[k] = v
         autotune.reset_cache(None)
+
+
+# ---------------------------------------------------------------------------
+# phase 17: the dry run's reckoning against the card
+# ---------------------------------------------------------------------------
+
+DRYRUN_TIMED_STEPS = 3
+DRYRUN_PREFILL = 2048       # 17b's prompt
+DRYRUN_DECODE_SEQ = 1024    # 17c's dense cache rows a slot
+
+
+def _device_bytes(trees, dev) -> int:
+    """Bytes of the tensors on `dev` in trees of dicts, tuples and
+    tensors (a host scalar, such as an optimizer's step, is not the
+    card's)."""
+    from repro_torch.launch.dryrun import flat
+
+    def on_dev(t):
+        return t.device.type == dev.type and dev.index in (None,
+                                                           t.device.index)
+    return sum(t.numel() * t.element_size() for tree in trees
+               for t in flat(tree) if on_dev(t))
+
+
+def _dryrun_mismatches(rec, held: int, counts: dict) -> list:
+    """The exact gates of phase 17 on a dry-run record `rec`: the
+    reckoned state bytes (`memory.port`) against `held`, the bytes the
+    run holds on the card, and the reckoned launches against
+    `ops.launch_counts()` of one step (`counts`), key by key.  Returns
+    what differs (empty: both hold)."""
+    out = []
+    want = rec["memory"]["port"]["total"]
+    if want != held:
+        out.append(f"state bytes reckoned {want} != held {held} "
+                   f"({rec['memory']['port']})")
+    got = {k: v for k, v in counts.items() if v}
+    reckoned = rec["work"]["launches"]
+    for k in sorted(set(got) | set(reckoned)):
+        if got.get(k, 0) != reckoned.get(k, 0):
+            out.append(f"launches {k}: reckoned {reckoned.get(k, 0)}, "
+                       f"counted {got.get(k, 0)}")
+    return out
+
+
+def _dryrun_cell(label, cfg, shape, state, run, dev, accum=None,
+                 packed=False):
+    """Reckon `cfg` x `shape` on a one-position meta mesh, then run one
+    step on the card (`run()`, which returns what the step allocates
+    that the state counts: the prefill's cache) from the reset counters:
+    the exact gates (`_dryrun_mismatches` over `state` and what `run`
+    returned), the peak beside the reckoned one, then the median of
+    DRYRUN_TIMED_STEPS more steps beside the roofline terms."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+    t0 = time.perf_counter()
+    rec = dryrun.analyze(dryrun.build_cell(cfg, shape, make_host_mesh(),
+                                           accum=accum, packed=packed))
+    reckon_s = time.perf_counter() - t0
+    _release()
+    torch.cuda.synchronize()
+    # what earlier phases still hold on the card beside the cell's state
+    others = torch.cuda.memory_allocated() - _device_bytes(state, dev)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    made = run()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    counts = ops.launch_counts()
+    held = _device_bytes(tuple(state) + (made,), dev)
+    del made
+    bad = _dryrun_mismatches(rec, held, counts)
+    _check(not bad, f"17 {label}: the dry run's reckoning equals the run: "
+           + "; ".join(bad))
+    times = []
+    for _ in range(DRYRUN_TIMED_STEPS):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t1) * 1e3)
+    step_ms = sorted(times)[len(times) // 2]
+    r = rec["roofline"]
+    print(f"17 {label}: reckoned in {reckon_s:.2f} s; state {held} B "
+          f"(params {rec['memory']['port'].get('params')}, opt_state "
+          f"{rec['memory']['port'].get('opt_state')}, batch "
+          f"{rec['memory']['port'].get('batch')}, cache "
+          f"{rec['memory']['port'].get('cache')}) = reckoned; launches = "
+          f"reckoned {json.dumps(rec['work']['launches'])}")
+    print(f"17 {label}: peak_live_bytes reckoned {rec['peak_live_bytes']}, "
+          f"torch.cuda.max_memory_allocated {peak}, {others} B of it held "
+          f"before the step outside the cell's state; less those "
+          f"{(peak - others) / max(rec['peak_live_bytes'], 1):.4f} of the "
+          f"reckoned")
+    print(f"17 {label}: roofline compute_s {r['compute_s'] * 1e3:.3f} ms, "
+          f"memory_s {r['memory_s'] * 1e3:.3f} ms, collective_s "
+          f"{r['collective_s'] * 1e3:.3f} ms (dominant {r['dominant']}; "
+          f"{rec['work']['device_ops']} device launches, flops "
+          f"{rec['work']['flops']:.6g}, hbm_bytes "
+          f"{rec['work']['hbm_bytes']:.6g}); measured median step "
+          f"{step_ms:.3f} ms (steps {[round(t, 3) for t in times]} ms)")
+    return {f"17 {label}": counts}
+
+
+def _dryrun_phase(dev):
+    """17a train, 17b prefill, 17c decode (see the module docstring);
+    returns each cell's launch counts."""
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.core.quant import policy_by_name
+    from repro_torch.launch import dryrun
+    from repro_torch.models import api, packing
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.train import step as step_lib
+    out = {}
+    rng = np.random.default_rng(17)
+
+    def tokens(shape, vocab):
+        return torch.as_tensor(rng.integers(0, vocab, shape)
+                               .astype(np.int32)).to(dev)
+
+    # 17a: minitron-8b, 4 of 32 layers, QAT
+    cfg = configs.get("minitron_8b").replace(
+        n_layers=TRAIN_LAYERS,
+        quant=policy_by_name("paper_mixed").with_execution("fused"))
+    shape = ShapeConfig("phase17a", 128, 8, "train")
+    opt = dryrun._opt_for(cfg)
+    params = api.init(torch.Generator(device=dev).manual_seed(17), cfg,
+                      device=dev)
+    ts = step_lib.TrainState(params, opt.init(params),
+                             torch.zeros((), dtype=torch.int32))
+    batch = {k: tokens((8, 128), cfg.vocab_size)
+             for k in ("tokens", "labels")}
+    step = step_lib.make_train_step(cfg, opt, accum=TRAIN_ACCUM)
+
+    def train_once():
+        step(ts, batch)     # params and moments update in place
+
+    out.update(_dryrun_cell("train minitron-8b", cfg, shape,
+                            (params, ts.opt_state, batch), train_once, dev,
+                            accum=TRAIN_ACCUM))
+    del params, ts, batch, step
+    _release()
+    # 17b: mamba2-1.3b, 48 layers, packed, one 2048-token prompt
+    cfg = _mamba_cfg()
+    shape = ShapeConfig("phase17b", DRYRUN_PREFILL, 1, "prefill")
+    params = api.init(torch.Generator(device=dev).manual_seed(17), cfg,
+                      device=dev)
+    params = packing.pack_params(params, cfg)
+    _release()
+    batch = {"tokens": tokens((1, DRYRUN_PREFILL), cfg.vocab_size)}
+    out.update(_dryrun_cell(
+        "prefill mamba2-1.3b", cfg, shape, (params, batch),
+        lambda: api.prefill(params, batch, cfg, max_seq=DRYRUN_PREFILL,
+                            device=dev)[1], dev, packed=True))
+    del params, batch
+    _release()
+    # 17c: qwen3-moe-235b, 4 of 94 layers, packed, a decode step at 4 rows
+    cfg = configs.get("qwen3_moe_235b").replace(
+        n_layers=4, quant=policy_by_name("serve_fused_p16"))
+    shape = ShapeConfig("phase17c", DRYRUN_DECODE_SEQ, 4, "decode")
+    params = _init_moe_packed(cfg, 17, dev)
+    cache = api.init_cache(cfg, 4, DRYRUN_DECODE_SEQ, device=dev)
+    tok = tokens((4,), cfg.vocab_size)
+
+    def decode_once():
+        api.decode_step(params, tok, cache, cfg)
+
+    out.update(_dryrun_cell("decode qwen3-moe-235b", cfg, shape,
+                            (params, tok, cache), decode_once, dev,
+                            packed=True))
+    del params, cache, tok
+    _release()
+    return out
 
 
 def _attribute_launches(kernels, runs):
@@ -6316,6 +6508,9 @@ def main() -> int:
     kernels.extend(recs)
     _release()
     _autotune_phase(dev)
+    _release()
+    # ---- phase 17: the dry run's reckoning against three cells on the card
+    _dryrun_phase(dev)
     _release()
     # K3 splits every main path's key spans (tables of more than 2 pages)
     # and merges the partials: each launch ran the merge kernel

@@ -44,10 +44,10 @@ sys.path.insert(0, root)
 import torch  # noqa: E402
 from repro_torch import set_float32_parity  # noqa: E402
 from repro_torch.core import formats  # noqa: E402
-from repro_torch.kernels import ops, posit_codec  # noqa: E402
+from repro_torch.kernels import ops, posit_codec, work  # noqa: E402
 from repro_torch.kernels import posit_matmul as pm  # noqa: E402
+from repro_torch.launch.mesh import HW  # noqa: E402
 
-HBM = 3.35e12
 LAYER_KN = {"wq": (8192, 8192), "wk": (8192, 1024), "wv": (8192, 1024),
             "wo": (8192, 8192), "gate": (8192, 22528), "up": (8192, 22528),
             "down": (22528, 8192)}
@@ -104,7 +104,8 @@ def k1_records(dev):
             codes, fmt).view(torch.int32)))
         del got
         ms = device_ms(lambda: posit_codec.decode(codes, fmt))
-        bound = codes.numel() * (codes.element_size() + 4) / HBM * 1e3
+        bound = work.decode(codes.numel(),
+                            codes.element_size()).bound_s(HW)[0] * 1e3
         out[f"k1/{name}{list(shape)}"] = dict(
             ms=ms, bound_ms=bound, share=bound / ms, variants=var,
             bitwise=exact)
@@ -145,7 +146,7 @@ def path_records(dev):
         xf = x.to(torch.float32)
         rec["matmul_ms"] = device_ms(lambda: torch.matmul(xf, wf))
         del wf
-        rec["bound_ms"] = (K * N * 2 + M * K * 2 + M * N * 4) / HBM * 1e3
+        rec["bound_ms"] = work.gemv_f(M, K, N, 2, 2).bound_s(HW)[0] * 1e3
         out[f"path/{n}"] = rec
         if n != "head":
             for k in totals:

@@ -45,8 +45,9 @@ from torch.autograd import DeviceType  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 from repro_torch import set_float32_parity  # noqa: E402
 from repro_torch.core import formats  # noqa: E402
-from repro_torch.kernels import ops, posit_codec  # noqa: E402
+from repro_torch.kernels import ops, posit_codec, work  # noqa: E402
 from repro_torch.kernels import posit_matmul as pm  # noqa: E402
+from repro_torch.launch.mesh import HW  # noqa: E402
 
 
 def device_ms(fn, launches=1, replays=5):
@@ -129,11 +130,11 @@ def training_shape(E, M, KN, seed):
     rec["bmm_ms"] = device_ms(lambda: [torch.bmm(a, b) for a, b in decoded])
     del decoded, layer, acts
     torch.cuda.empty_cache()
-    flops = sum(2.0 * E * M * K * N for K, N in KN)
-    nbytes = sum(E * (M * K * 2 + K * N * 2 + M * N * 4) for K, N in KN)
-    rec["bound_bytes_ms"] = nbytes / 3.35e12 * 1e3
-    rec["bound_exact_ms"] = 4 * flops / 989e12 * 1e3
-    rec["bound_f32_ms"] = flops / 67e12 * 1e3
+    w = work.total(work.grouped(E, M, K, N, 2, 2, 4, "tc_p13_2")
+                   for K, N in KN)
+    rec["bound_bytes_ms"] = w.bytes / HW["hbm_bw"] * 1e3
+    rec["bound_exact_ms"] = w.ops / HW["peak_flops_bf16"] * 1e3
+    rec["bound_f32_ms"] = w.flops / HW["peak_flops_f32"] * 1e3
     return rec
 
 

@@ -13,14 +13,17 @@ import torch
 
 
 def resolve_device(device) -> torch.device:
-    """torch.device for an entry point; a CUDA device must exist."""
+    """torch.device for an entry point; a CUDA device must exist.  The meta
+    device (shapes, no data) takes the CUDA route and counts the kernel
+    launches it would make: the dry run (launch/dryrun.py) runs steps
+    there."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "repro_torch entry points run on a CUDA device by default and "
             "none is available; pass device='cpu' to run the plain PyTorch "
             "versions of the kernels")
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"unsupported device {dev}")
     return dev
 

@@ -138,10 +138,11 @@ def stream_of(t: torch.Tensor) -> int:
 
 
 def require_cuda(what: str, *tensors):
-    """Every tensor must be a contiguous CUDA tensor on one device."""
+    """Every tensor must be a contiguous CUDA tensor on one device (or a
+    meta tensor, which a launch on meta counts instead: kernels/work.py)."""
     dev = tensors[0].device
     for t in tensors:
-        if t.device != dev or t.device.type != "cuda":
+        if t.device != dev or t.device.type not in ("cuda", "meta"):
             raise ValueError(f"{what}: tensors must share one CUDA device, "
                              f"got {[str(x.device) for x in tensors]}")
         if not t.is_contiguous():

@@ -3,7 +3,9 @@
 
 Each entry point takes tensors on one device: on a CUDA device it launches
 the hand-written Hopper kernel, on the CPU it runs the kernel's plain
-PyTorch version (the analogue of the reference's interpret mode).  A launch knob the
+PyTorch version (the analogue of the reference's interpret mode), on the
+meta device it takes the CUDA route and counts the launch it would make
+(`kernels/work.py`, read by `launch/step_analysis.py`).  A launch knob the
 caller does not pass is resolved through the autotune cache
 (`kernels/autotune.py`, `_resolve`): only knobs that change no value bit
 are tunable, so far K7's `t_block`; every other launch geometry is fixed
@@ -207,7 +209,7 @@ def matmul_posit_weights(x, w_codes, fmt_w: PositFormat):
     `torch.matmul`, as the reference leaves its dot to XLA.  On the CPU
     always the latter (the GEMV's plain version), bitwise the reference."""
     K = x.shape[-1]
-    if x.device.type == "cuda" and \
+    if x.device.type in ("cuda", "meta") and \
             x.numel() // max(K, 1) <= posit_matmul.GEMV_MAX_M:
         if torch.is_grad_enabled() and x.requires_grad:
             return _FloatGemv.apply(x, w_codes, fmt_w)

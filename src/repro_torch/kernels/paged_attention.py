@@ -11,7 +11,8 @@ verify; `decode_sample` (K4, `csrc/decode_sample.cu`) replaces
 `repro/kernels/ops.py:merge_attn_partials`, the log-sum-exp merge of a
 sharded pool's per-shard K3 / K7 partials.  On a CUDA tensor each
 wrapper launches its kernel; on a CPU tensor it runs the plain PyTorch
-version beside it, which states the same function densely.
+version beside it, which states the same function densely; on a meta
+tensor it counts the launch it would make (`kernels/work.py`).
 """
 from __future__ import annotations
 
@@ -20,7 +21,7 @@ import math
 import torch
 
 from repro_torch.core.formats import PositFormat
-from . import _build
+from . import _build, work
 from .posit_codec import decode_plain
 
 _NEG = -2.0e38
@@ -245,6 +246,14 @@ def paged_attention(q, k_pages, v_pages, block_tables, lengths, window,
                                  dtype=torch.float32, device=q.device)
             part_ml = torch.empty((B * T * Hq, n_splits, 2),
                                   dtype=torch.float32, device=q.device)
+        keys = [kernel] + ([f"{kernel}:merge"] if n_splits > 1 else []) \
+            + ([f"{kernel}:t{t_block}"] if mq else [])
+        if work.is_meta(q):
+            # shapes only: every row attends the table's whole span
+            work.record(keys, work.paged_attention(
+                B, T, Hq, Hkv, Dh, B * M * ps, k_pages.element_size(), M,
+                B * T * M * ps, partials, page_ok is not None))
+            return (out, m, l) if partials else out
         lib = _build.library("paged_attention")
         ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
         head = (q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
@@ -260,12 +269,7 @@ def paged_attention(q, k_pages, v_pages, block_tables, lengths, window,
         else:
             err = lib.paged_attention_launch(*head, *tail)
         _build.check(err, kernel)
-        LAUNCHES[kernel] += 1
-        if n_splits > 1:
-            LAUNCHES[f"{kernel}:merge"] += 1
-        if mq:
-            tile = f"{kernel}:t{t_block}"
-            LAUNCHES[tile] = LAUNCHES.get(tile, 0) + 1
+        work.count(LAUNCHES, keys)
     return (out, m, l) if partials else out
 
 
@@ -315,10 +319,14 @@ def merge_attn_partials(o, m, l):
     S, Dh = o.shape[0], o.shape[-1]
     rows = m[0].numel()
     if rows:
+        keys = ("merge_attn_partials",)
+        if work.is_meta(o):
+            work.record(keys, work.merge(S, rows, Dh))
+            return out
         _build.check(_build.library("paged_attention").attn_shard_merge_launch(
             o.data_ptr(), m.data_ptr(), l.data_ptr(), out.data_ptr(), S, rows,
             Dh, _build.stream_of(o)), "merge_attn_partials")
-        LAUNCHES["merge_attn_partials"] += 1
+        work.count(LAUNCHES, keys)
     return out
 
 
@@ -446,6 +454,13 @@ def decode_sample(x, w, noise=None, temperature=None, *, plan: str = "fused",
     _build.require_cuda("decode_sample", *tensors)
     tok = torch.empty((B,), dtype=torch.int32, device=x.device)
     if B:
+        keys = ("decode_sample", f"decode_sample:{variant}")
+        if work.is_meta(x):
+            # the kernel's [B, V] logits scratch, live during the launch
+            torch.empty((B, V), dtype=torch.float32, device=x.device)
+            work.record(keys, work.decode_sample(
+                B, D, V, w.element_size(), 4, greedy))
+            return tok
         lib = _build.library("decode_sample")
         n_tiles = lib.decode_sample_tiles(V, int(transpose))
         logits = torch.empty((B, V), dtype=torch.float32, device=x.device)
@@ -464,6 +479,5 @@ def decode_sample(x, w, noise=None, temperature=None, *, plan: str = "fused",
             float(softcap_val), 1.0 if temperature is None else float(temperature),
             int(greedy), k, _build.stream_of(x)),
             "decode_sample")
-        LAUNCHES["decode_sample"] += 1
-        LAUNCHES[f"decode_sample:{variant}"] += 1
+        work.count(LAUNCHES, keys)
     return tok

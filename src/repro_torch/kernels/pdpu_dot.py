@@ -7,7 +7,8 @@ W_m alignment truncation and the accumulator rounded to `cfg.fmt_out`
 after every chunk.  Every output code is what a silicon PDPU array with
 that chunk size and alignment width produces.  On a CUDA tensor the
 wrapper launches the kernel; on a CPU tensor it runs the plain version,
-`core/pdpu.pdpu_matmul_exact`.  K must hold whole chunks; M and N_out
+`core/pdpu.pdpu_matmul_exact`; on a meta tensor it counts the launch
+it would make (`kernels/work.py`).  K must hold whole chunks; M and N_out
 need not divide any tile.
 
 The kernel has two variants (`pdpu_variant`): `p13_16_n4`, the bit_exact
@@ -22,7 +23,7 @@ import torch
 
 from repro_torch.core import pdpu, posit
 from repro_torch.core.formats import P13_2, P16_2, PDPUConfig
-from . import _build
+from . import _build, work
 from .posit_codec import round_abs_plain
 
 # launches of the kernel since the last reset (kernels/ops.reset_launches);
@@ -187,12 +188,16 @@ def pdpu_matmul(a_codes, b_codes, cfg: PDPUConfig):
     if not (b16.stride(1) == 1 or b16.stride(0) == 1):
         b16 = b16.contiguous()
     dev = a16.device
-    if a16.device != b16.device or dev.type != "cuda":
+    if a16.device != b16.device or dev.type not in ("cuda", "meta"):
         raise ValueError(f"pdpu_matmul: tensors must share one CUDA device, "
                          f"got {a16.device} and {b16.device}")
     out = torch.empty((M, N_out), dtype=torch.int32, device=dev)
     if M and N_out:
         variant = pdpu_variant(cfg)
+        keys = ("pdpu_matmul", f"pdpu_matmul:{variant}")
+        if work.is_meta(a16):
+            work.record(keys, work.pdpu(M, K, N_out, cfg.N))
+            return out
         lib = _build.library("pdpu_dot")
         fi, fo = cfg.fmt_in, cfg.fmt_out
         _build.check(lib.pdpu_matmul_launch(
@@ -201,6 +206,5 @@ def pdpu_matmul(a_codes, b_codes, cfg: PDPUConfig):
             fi.n, fi.es, fo.n, fo.es, cfg.N, cfg.w_m, cfg.guard_bits,
             int(cfg.sticky), _VARIANTS[variant], _build.stream_of(a16)),
             "pdpu_matmul")
-        LAUNCHES["pdpu_matmul"] += 1
-        LAUNCHES[f"pdpu_matmul:{variant}"] += 1
+        work.count(LAUNCHES, keys)
     return out

@@ -11,7 +11,8 @@ versions bit for bit.  Each picks its variant by format and container
 and P(13,2) in int16 and P(8,2) in int8 (every format the port's paths
 decode and encode), the run-time kernel ("posit") otherwise;
 `encode_fast_plain` states the 32-bit encoder's arithmetic in plain
-PyTorch.
+PyTorch.  On a meta tensor the wrappers count the launch they would make
+(`kernels/work.py`).
 """
 from __future__ import annotations
 
@@ -19,7 +20,7 @@ import torch
 
 from repro_torch.core import posit
 from repro_torch.core.formats import PositFormat
-from . import _build
+from . import _build, work
 
 # launches of each kernel since the last reset (kernels/ops.reset_launches);
 # "posit_decode:<variant>" / "posit_encode:<variant>" count K1's / K2's
@@ -141,13 +142,17 @@ def decode(codes, fmt: PositFormat):
     out = torch.empty(codes.shape, dtype=torch.float32, device=codes.device)
     if codes.numel():
         variant, vid = _variant(fmt, codes.dtype)
+        keys = ("posit_decode", f"posit_decode:{variant}")
+        if work.is_meta(codes):
+            work.record(keys, work.decode(codes.numel(),
+                                          codes.element_size()))
+            return out
         lib = _build.library("posit_codec")
         _build.check(lib.posit_decode_launch(
             codes.data_ptr(), out.data_ptr(), codes.numel(),
             codes.element_size(), fmt.n, fmt.es, vid,
             _build.stream_of(codes)), "posit_decode")
-        LAUNCHES["posit_decode"] += 1
-        LAUNCHES[f"posit_decode:{variant}"] += 1
+        work.count(LAUNCHES, keys)
     return out
 
 
@@ -165,11 +170,14 @@ def encode(values, fmt: PositFormat):
     out = torch.empty(values.shape, dtype=dtype, device=values.device)
     if values.numel():
         variant, vid = _variant(fmt, dtype)
+        keys = ("posit_encode", f"posit_encode:{variant}")
+        if work.is_meta(values):
+            work.record(keys, work.encode(values.numel(), out.element_size()))
+            return out
         lib = _build.library("posit_codec")
         _build.check(lib.posit_encode_launch(
             values.data_ptr(), out.data_ptr(), values.numel(),
             out.element_size(), fmt.n, fmt.es, vid,
             _build.stream_of(values)), "posit_encode")
-        LAUNCHES["posit_encode"] += 1
-        LAUNCHES[f"posit_encode:{variant}"] += 1
+        work.count(LAUNCHES, keys)
     return out

@@ -16,7 +16,8 @@ expert-stack form [E, M, K] x [E, K, N] with float or coded activations
 training rows: `grouped_variant`).
 On a CUDA tensor a wrapper launches its kernel; on a CPU tensor it runs
 the plain version (decode the coded operands, an f32 matmul, optional
-encode).  M, N and K need not divide any tile.
+encode); on a meta tensor it counts the launch it would make
+(`kernels/work.py`).  M, N and K need not divide any tile.
 """
 from __future__ import annotations
 
@@ -26,7 +27,7 @@ import torch
 
 from repro_torch.core.formats import P13_2, PositFormat
 from repro_torch.core.posit import storage_dtype, to_container
-from . import _build
+from . import _build, work
 from .posit_codec import decode_plain, encode_plain
 
 # launches of each kernel since the last reset (kernels/ops.reset_launches);
@@ -242,6 +243,12 @@ def posit_matmul(a_codes, b_codes, fmt_a: PositFormat, fmt_b: PositFormat,
         direct = variant.startswith("tc") and splits == 1 and fmt_out is None
         partial = (torch.empty((splits, M, N), dtype=torch.float32,
                                device=dev) if splits and not direct else None)
+        keys = ("posit_matmul", f"posit_matmul:{variant}")
+        if work.is_meta(a_codes):
+            work.record(keys, work.matmul(
+                M, K, N, a_codes.element_size(), b_codes.element_size(),
+                out.element_size(), variant))
+            return out
         ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
         lib = _build.library("posit_matmul")
         _build.check(lib.posit_matmul_launch(
@@ -255,8 +262,7 @@ def posit_matmul(a_codes, b_codes, fmt_a: PositFormat, fmt_b: PositFormat,
             fmt_out.n if fmt_out else 0, fmt_out.es if fmt_out else 0,
             _VARIANTS[variant], ks, splits, _build.stream_of(a_codes)),
             "posit_matmul")
-        LAUNCHES["posit_matmul"] += 1
-        LAUNCHES[f"posit_matmul:{variant}"] += 1
+        work.count(LAUNCHES, keys)
     return out
 
 
@@ -340,6 +346,11 @@ def posit_gemv_f(x, w_codes, fmt_w: PositFormat):
         ks, splits = split_k_t(N, K) if transposed else split_k(N, K)
         partial = torch.empty((splits, M, N), dtype=torch.float32,
                               device=x.device) if splits > 1 else None
+        keys = ("posit_gemv_f", f"posit_gemv_f:{variant}")
+        if work.is_meta(x):
+            work.record(keys, work.gemv_f(M, K, N, x.element_size(),
+                                          b.element_size()))
+            return out
         lib = _build.library("posit_gemv_f")
         err = lib.posit_gemv_f_launch(
             x.data_ptr(), b.data_ptr(), out.data_ptr(),
@@ -352,8 +363,7 @@ def posit_gemv_f(x, w_codes, fmt_w: PositFormat):
             raise ValueError(f"posit_gemv_f: the {variant} kernel does not "
                              f"take {x.dtype} x {b.dtype} at M={M}")
         _build.check(err, "posit_gemv_f")
-        LAUNCHES["posit_gemv_f"] += 1
-        LAUNCHES[f"posit_gemv_f:{variant}"] += 1
+        work.count(LAUNCHES, keys)
     return out
 
 
@@ -509,6 +519,13 @@ def posit_matmul_grouped(a, b_codes, fmt_a: PositFormat | None,
         direct = tc and splits == 1 and fmt_out is None
         partial = None if direct else torch.empty(
             (splits, E, M, N), dtype=torch.float32, device=dev)
+        keys = ("posit_matmul_grouped", f"posit_matmul_grouped:{variant}")
+        if work.is_meta(a):
+            # shapes only: every expert's rows occupied
+            work.record(keys, work.grouped(
+                E, M, K, N, a.element_size(), b_codes.element_size(),
+                out.element_size(), variant))
+            return out
         ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
         lib = _build.library("posit_matmul_grouped")
         err = lib.posit_matmul_grouped_launch(
@@ -527,6 +544,5 @@ def posit_matmul_grouped(a, b_codes, fmt_a: PositFormat | None,
                 f"{a.dtype} activations x {b_codes.dtype} weights, or needs "
                 f"more shared memory than this card gives a block")
         _build.check(err, "posit_matmul_grouped")
-        LAUNCHES["posit_matmul_grouped"] += 1
-        LAUNCHES[f"posit_matmul_grouped:{variant}"] += 1
+        work.count(LAUNCHES, keys)
     return out

@@ -13,6 +13,7 @@ on a CPU tensor it runs the plain version, the decomposed stages
 (gather -> encode -> insert -> decode -> flash attention) of
 `decomposed_prefill`, which the model's decomposed branch also runs, so on
 the CPU the fused and decomposed branches of the model are bitwise equal.
+On a meta tensor it counts the launch it would make (`kernels/work.py`).
 
 Sharded pools (`hist_pool_k/v` + `hist_bt`, models/paged.py): the caller
 passes the gathered global pool and the global block tables, from which
@@ -28,7 +29,7 @@ import math
 import torch
 
 from repro_torch.core.formats import PositFormat
-from . import _build
+from . import _build, work
 from .paged_attention import _KINDS
 from .posit_codec import decode_plain, encode_plain
 
@@ -280,6 +281,16 @@ def prefill_attention_paged(q, k, v, k_pages, v_pages, block_tables, starts,
                             torch.empty((B * C * Hq, splits, 2),
                                         dtype=torch.float32, device=q.device))
                            if splits > 1 else (None, None))
+        keys = ["prefill_attention", f"prefill_attention:{variant}"] + (
+            ["prefill_attention:global_hist"] if global_hist else [])
+        if work.is_meta(q):
+            # shapes only: every query attends the table's whole span
+            # (within the window unknown here) and its own chunk
+            hist = M * ps
+            work.record(keys, work.prefill(
+                B, C, Hq, Hkv, Dh, q.element_size(), k_pages.element_size(),
+                B * hist, B * C, B * C * (hist + C), variant))
+            return out, k_pages, v_pages
         lib = _build.library("prefill_attention")
         err = lib.prefill_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), k_pages.data_ptr(),
@@ -298,8 +309,5 @@ def prefill_attention_paged(q, k, v, k_pages, v_pages, block_tables, starts,
             raise ValueError(f"prefill_attention: the {variant} kernel does "
                              f"not take head_dim {Dh}")
         _build.check(err, "prefill_attention")
-        LAUNCHES["prefill_attention"] += 1
-        LAUNCHES[f"prefill_attention:{variant}"] += 1
-        if global_hist:
-            LAUNCHES["prefill_attention:global_hist"] += 1
+        work.count(LAUNCHES, keys)
     return out, k_pages, v_pages

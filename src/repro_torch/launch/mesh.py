@@ -1,9 +1,13 @@
-"""Serving and training mesh construction (PyTorch port of
+"""Mesh construction and the card's figures (PyTorch port of
 `repro.launch.mesh`).
 
-`make_production_mesh` / `make_host_mesh` (the reference's TPU pod
-meshes) and `HW` (a TPU's peak figures) are not ported: the port runs on
-one card or a few, and `chip_smoke.py` carries the H100's figures.
+`make_serving_mesh` / `make_train_mesh` place their positions on cards
+(or on the devices passed).  `make_production_mesh` / `make_host_mesh`
+are the reference's pod meshes as shapes only: every position is the meta
+device, so the dry run (launch/dryrun.py) reckons a cell on them without
+touching a device.  `HW` holds the figures of the card the port runs on,
+an NVIDIA H100 80GB HBM3 at 700 W, from its data sheet: the dry run's
+roofline terms and PERF.md's bounds divide by them.
 """
 from __future__ import annotations
 
@@ -67,3 +71,40 @@ def placement(mesh: Mesh) -> str:
     name = mesh.axis_names[0] if len(mesh.axis_names) == 1 else "device"
     return " ".join(f"{name}[{i}]={d}" for i, d in enumerate(mesh.devices))
 
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """The reference's production mesh, shape only: 16 x 16 ("data",
+    "model"), or 2 x 16 x 16 with "pod" in front, every position on the
+    meta device."""
+    if multi_pod:
+        return make_host_mesh(16, 16, 2)
+    return make_host_mesh(16, 16)
+
+
+def make_host_mesh(data: int = 1, model: int = 1, pod: int = 1) -> Mesh:
+    """A ("data", "model") mesh, ("pod", "data", "model") when pod > 1,
+    every position on the meta device (shapes only)."""
+    if pod > 1:
+        axes, sizes = ("pod", "data", "model"), (pod, data, model)
+    else:
+        axes, sizes = ("data", "model"), (data, model)
+    n = 1
+    for s in sizes:
+        n *= s
+    return Mesh(axes, sizes, (torch.device("meta"),) * n)
+
+
+# NVIDIA H100 80GB HBM3 (SXM), 700 W, data sheet: the rates PERF.md §6's
+# bounds use.  No figure here was measured.
+HW = {
+    "name": "NVIDIA H100 80GB HBM3, 700 W (data sheet)",
+    "peak_flops_bf16": 989e12,     # dense bf16 on the tensor cores, FLOP/s
+    "peak_flops_f32": 67e12,       # f32 FMA outside the tensor cores
+    "peak_int32_ops": 16.7e12,     # 64 INT32 lanes x 132 SMs x 1.98 GHz
+    "hbm_bw": 3.35e12,             # HBM3, B/s
+    "hbm_bytes": 80e9,
+    # NVLink 4's data-sheet figure, 900 GB/s a card both ways: 450 GB/s
+    # for the bytes a position sends.  Not measured (one card).
+    "interconnect_bw": 450e9,
+    "interconnect": "NVLink 4, data sheet (900 GB/s both ways), not measured",
+}

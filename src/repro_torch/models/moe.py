@@ -66,10 +66,15 @@ def _route(x, router, cfg: ModelConfig):
 
 
 def _aux_loss(probs, ids, E: int):
-    """Switch-style load-balance loss E * sum_e(f_e * p_e)."""
+    """Switch-style load-balance loss E * sum_e(f_e * p_e).  The choices
+    per expert are counted into E bins, as the reference's fixed-length
+    scatter-add counts them (`torch.bincount` would read the largest id
+    on the host to size its output)."""
     me = probs.reshape(-1, E).mean(0)
     flat = ids.reshape(-1)
-    ce = torch.bincount(flat, minlength=E).to(torch.float32) / flat.numel()
+    counts = torch.zeros(E, dtype=torch.int64, device=flat.device)
+    counts.scatter_add_(0, flat, torch.ones_like(flat))
+    ce = counts.to(torch.float32) / flat.numel()
     return E * torch.sum(me * ce)
 
 

@@ -51,6 +51,8 @@ import dataclasses
 
 import torch
 
+from repro_torch.kernels import work
+
 # flash_attention's default key-chunk length (models/common.py).
 FLASH_CHUNK = 1024
 
@@ -279,6 +281,14 @@ def global_pool(pages, device):
     as `api.init_cache` lays them out), else their concatenation."""
     first, want = pages[0], torch.device(device)
     size = first.numel() * first.element_size()
+    if len(pages) > 1 and any(
+            p.device.type == "meta" or p.device.type != want.type
+            or want.index not in (None, p.device.index) for p in pages):
+        # a shard off `device` hands its sub-pool to the gather: the bytes
+        # one position sends, whatever the number of shards.  On meta (the
+        # dry run) this is what a placement of the shards on separate
+        # cards would send; sub-pools on `device` itself move no byte
+        work.exchange("paged:history", size)
     storage = first.untyped_storage().data_ptr()
     if first.device.type == want.type and want.index in (
             None, first.device.index) and all(

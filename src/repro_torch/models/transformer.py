@@ -48,7 +48,7 @@ from typing import Optional
 import torch
 import torch.utils.checkpoint
 
-from repro_torch.kernels import dispatch, ops
+from repro_torch.kernels import dispatch, ops, work
 from repro_torch.kernels.prefill_attention import decomposed_prefill
 from . import common, paged
 from .config import ModelConfig
@@ -283,6 +283,10 @@ def _paged_attn_token(p, x, cfg: ModelConfig, k_l, v_l, bt, length, is_global,
                 q.to(dev), k_s, v_s, lbt, (length + 1).to(dev),
                 window.to(dev), page_ok=owned.to(torch.int32), partials=True,
                 **kw))
+        if len(parts) > 1:
+            # each shard but the home one hands its (o, m, l) to the merge
+            work.exchange("paged:partials", sum(
+                t.numel() * t.element_size() for t in parts[-1]))
         attn = ops.merge_attn_partials(*([part[j] for part in parts]
                                          for j in range(3)))
     return common.qdot(attn.reshape(B, 1, Hq * Dh).to(x.dtype), p["wo"],

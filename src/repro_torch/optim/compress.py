@@ -35,7 +35,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.formats import P8_2, PositFormat
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, work
 from repro_torch.models.module import tree_leaves, tree_map, tree_unflatten
 
 # int8 bytes the exchanges handed from one pod to another since the last
@@ -88,6 +88,8 @@ def compressed_psum_leaf(gs, errs, fmt: PositFormat = P8_2):
         dev = gs[i].device
         shards = [codes[j][i * Ls:(i + 1) * Ls].to(dev) for j in range(n)]
         BYTES_HANDED["int8"] += (n - 1) * Ls
+        if i:   # pod 0's segment i, handed to its owner
+            work.exchange("compressed_psum:all_to_all", Ls)
         local_sum = _sum_in_order([ops.decode(s, fmt) for s in shards])
         out_codes = ops.encode(local_sum, fmt)           # second rounding
         # stage-2 residual: the owner folds the sum's rounding error into
@@ -104,6 +106,8 @@ def compressed_psum_leaf(gs, errs, fmt: PositFormat = P8_2):
         dev = gs[i].device
         full = torch.cat([s.to(dev) for s in sums])[:L]
         BYTES_HANDED["int8"] += (n - 1) * Ls
+        if i:   # pod 0's summed segment, handed to pod i
+            work.exchange("compressed_psum:all_gather", Ls)
         total = ops.decode(full, fmt)
         reduced.append((total / torch.tensor(n, dtype=torch.float32,
                                              device=dev)).reshape(shape))

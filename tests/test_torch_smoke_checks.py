@@ -355,3 +355,55 @@ def test_compress_checks_reject_planted_faults(fault):
         red = [pc.decode_plain(nxt.to(torch.int8), P8_2) / n] * n
     a, b = chip_smoke._compress_checks(gs, errs, red, new, P8_2)
     assert a > 1.0 or b > 1.0, (fault, a, b)
+
+
+def _dryrun_case():
+    """Phase 17's gates at smoke size on the CPU: qwen3-moe's smoke
+    config, packed, a decode step over the dense cache at 2 rows,
+    reckoned on meta (`record`), and the same state allocated on the CPU
+    (`held` its bytes) with the launches the card would count (`counts`,
+    here the reckoned ones, every key of `ops.launch_counts()`)."""
+    from repro_torch.core.quant import policy_by_name
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import packing
+    from repro_torch.models.config import ShapeConfig
+    cfg = configs.get_smoke("qwen3_moe_235b").replace(
+        quant=policy_by_name("serve_fused_p16"))
+    shape = ShapeConfig("s", 32, 2, "decode")
+    cell = dryrun.build_cell(cfg, shape, make_host_mesh(), packed=True)
+    record = dryrun.analyze(cell)
+    params = packing.pack_params(
+        api.init(torch.Generator().manual_seed(0), cfg, device=CPU), cfg)
+    state = (params, torch.zeros(2, dtype=torch.int32),
+             api.init_cache(cfg, 2, 32, device=CPU))
+    counts = {k: 0 for k in ops.launch_counts()}
+    counts.update(record["work"]["launches"])
+    return cell, record, chip_smoke._device_bytes(state, CPU), counts
+
+
+def test_dryrun_gates_hold_on_an_exact_reckoning():
+    _, record, held, counts = _dryrun_case()
+    assert record["work"]["launches"]["posit_matmul_grouped:p16_2"] > 0
+    assert chip_smoke._dryrun_mismatches(record, held, counts) == []
+
+
+@pytest.mark.parametrize("fault", ["launch_off_by_one", "leaf_dtype"])
+def test_dryrun_gates_reject_planted_faults(fault):
+    """A card that launched one more K9 `p16_2` than reckoned, or a
+    reckoning that takes one state leaf (the packed wq codes) in the wrong
+    dtype, must fail phase 17's exact gates."""
+    from repro_torch.launch import dryrun
+    cell, record, held, counts = _dryrun_case()
+    if fault == "launch_off_by_one":
+        counts["posit_matmul_grouped:p16_2"] += 1
+        want = "posit_matmul_grouped:p16_2"
+    else:
+        wq = cell.state["params"]["layers"]["wq"]
+        cell.state["params"]["layers"]["wq"] = torch.empty(
+            wq.shape, dtype=torch.float32, device="meta")
+        record = dict(record, memory=dryrun.memory(cell))
+        want = "state bytes"
+    bad = chip_smoke._dryrun_mismatches(record, held, counts)
+    assert len(bad) == 1 and want in bad[0], bad
