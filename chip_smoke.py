@@ -590,25 +590,120 @@ def _gemv_f_faults(what: str, x, W, want, bound, ks: int) -> str:
     return ", ".join(seen)
 
 
+def _gemv_f_ks(variant: str, N: int, K: int) -> int:
+    """The codes of the float GEMV's first K split."""
+    from repro_torch.kernels import posit_matmul as pm
+    return (pm.split_k_t(N, K) if variant.endswith("_t")
+            else pm.gemv_f_split_k(N, K))[0]
+
+
+def _gemv_f_rows_check(gemv, x, w, fmt, what: str):
+    """Row m of `gemv` at M 1 .. len(x) must be bitwise row m of the call
+    over all of x's rows: the float GEMV's sums do not depend on M."""
+    full = gemv(x, w, fmt)
+    differ = [M for M in range(1, x.shape[0] + 1)
+              if not _bits_equal(gemv(x[:M], w, fmt), full[:M])]
+    _check(not differ, f"{what}: rows at M 1-{x.shape[0]} bitwise the rows "
+                       f"of the M {x.shape[0]} call (they differ at M "
+                       f"{differ})")
+
+
+def _device_kernels(fn) -> list:
+    """The names of the device kernels one call of `fn` runs (after one
+    untimed call), by torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def _check_one_launch(names, kernel: str, what: str):
+    """`names` (`_device_kernels`) must be one kernel, named `kernel`."""
+    _check(len(names) == 1 and kernel in names[0],
+           f"{what}: one launch a call (the device ran {names})")
+
+
+def gemv_f_sass_ops() -> dict:
+    """The float GEMV's instructions a code in its hot loops, by pipe,
+    counted from the SASS of the library just built
+    (scripts/time_gemv_decode.py's `count`), at M 4 with bf16 activations
+    and the P(16,2) table decode: the [K, N] kernel's ring loop (32 codes
+    a lane a slot) and register loop (64), the transposed kernel's (32)."""
+    from repro_torch.kernels import _build
+    sys.path.insert(0, os.path.join(HERE, "scripts"))
+    import time_gemv_decode
+    text = time_gemv_decode.sass(str(_build.build_all()["posit_gemv_f"]))
+    return {label: time_gemv_decode.count(
+        text, (kernel, "ILi4E", "ActBf16", "DecodeP16_2Table"), 4, 1,
+        codes=codes)
+        for label, kernel, codes in (
+            ("kn", "posit_gemv_f_kernel", 32),
+            ("kn_registers", "posit_gemv_f_kernel", 64),
+            ("t", "posit_gemv_f_t_kernel", 32))}
+
+
 # command-r-35b's tied head: [vocab, d_model] codes read as [d_model, vocab]
 _HEAD_VD = (256000, 8192)
+# the other layers the float GEMV is timed at, M 4: (label, arch)
+_GEMV_F_LAYERS = (("mamba2-1.3b", "mamba2_1_3b"),
+                  ("paligemma-3b", "paligemma_3b"))
+
+
+def _gemv_f_case(x, x8, w, fmt, what: str):
+    """The float GEMV's gates on one weight: each launch on its variant,
+    bitwise equal on a second call, rows independent of M (x8: 8 rows),
+    one launch a call, within `sum_bound(x, w, None, fmt)` of the plain
+    version.  Returns (|got - plain|, the bound, plain, variant)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import posit_matmul as pm
+    M = x.shape[0]
+    variant = pm.gemv_f_variant(M, fmt, w)
+    before = ops.launch_counts()[f"posit_gemv_f:{variant}"]
+    got = pm.posit_gemv_f(x, w, fmt)
+    _check(ops.launch_counts()[f"posit_gemv_f:{variant}"] == before + 1,
+           f"{what}: the float GEMV takes its {variant} variant")
+    _check(_bits_equal(pm.posit_gemv_f(x, w, fmt), got),
+           f"{what}: the float GEMV bitwise deterministic")
+    _gemv_f_rows_check(pm.posit_gemv_f, x8, w, fmt, f"{what}: float GEMV")
+    _check_one_launch(_device_kernels(lambda: pm.posit_gemv_f(x, w, fmt)),
+                      "posit_gemv_f", f"{what}: float GEMV")
+    want = torch.matmul(x.to(torch.float32), ops.decode(w, fmt))
+    bound = pm.sum_bound(x, w, None, fmt)
+    gap = (got - want).abs()
+    _check(bool((gap <= bound).all()),
+           f"{what}: the float GEMV within {pm.SUM_TOL} u sqrt(K) ||x w|| "
+           f"({variant})")
+    return gap, bound, want, variant
 
 
 def _gemv_f(dev):
     """The float GEMV (the float weight path at decode rows) at every
-    command-r-35b projection shape and over the tied head's transpose, at
-    M 4 with bf16 activations (the serving path's): within `sum_bound(x,
-    w, None, fmt)` of its plain version, a limit two planted faults must
-    fail, bitwise equal on a second call, each launch on its variant;
-    timed beside K1 + torch.matmul (the path it replaces), torch.matmul on
-    pre-decoded f32 weights, its plain version and its bytes bound.
-    Returns the records of the layer ([K, N], `p16_2`) and of the head
-    (transposed, `p16_2_t`)."""
+    command-r-35b projection shape, over the tied head's transpose, and at
+    mamba2-1.3b's and paligemma-3b's layers, at M 4 with bf16 activations
+    (the serving path's): within `sum_bound(x, w, None, fmt)` of its plain
+    version, a limit two planted faults must fail, bitwise equal on a
+    second call, each launch on its variant, rows at M 1-8 bitwise the M 8
+    call's, one device kernel a call (torch.profiler); timed beside K1 +
+    torch.matmul (the path it replaces), torch.matmul on pre-decoded f32
+    weights, its plain version and its bytes bound; its instructions a
+    code from the SASS.  Returns the records of the command-r layer
+    ([K, N], `p16_2`), the head (transposed, `p16_2_t`) and the other two
+    layers."""
     import torch
+    from repro_torch import configs
     from repro_torch.core import formats
     from repro_torch.kernels import ops, posit_codec
     from repro_torch.kernels import posit_matmul as pm
     from repro_torch.kernels import work
+    sass = gemv_f_sass_ops()
+    print(f"float GEMV SASS a code (scripts/time_gemv_decode.py; alu the "
+          f"integer pipe): {json.dumps(sass)}")
     fmt, M = formats.P16_2, 4
     g = torch.Generator(device=dev).manual_seed(7)
     xs = {K: torch.randn(M, K, generator=g, device=dev).to(torch.bfloat16)
@@ -625,28 +720,17 @@ def _gemv_f(dev):
     per = {}
     for (K, N), w in cases:
         x = xs[K]
-        variant = pm.gemv_f_variant(M, fmt, w)
-        before = ops.launch_counts()[f"posit_gemv_f:{variant}"]
-        got = pm.posit_gemv_f(x, w, fmt)
-        _check(ops.launch_counts()[f"posit_gemv_f:{variant}"] == before + 1,
-               f"the float GEMV takes its {variant} variant at K={K} N={N}")
-        _check(_bits_equal(pm.posit_gemv_f(x, w, fmt), got),
-               f"the float GEMV bitwise deterministic at K={K} N={N}")
-        xf = x.to(torch.float32)
-        W = ops.decode(w, fmt)
-        want = torch.matmul(xf, W)
-        bound = pm.sum_bound(x, w, None, fmt)
-        gap = (got - want).abs()
-        _check(bool((gap <= bound).all()),
-               f"the float GEMV within {pm.SUM_TOL} u sqrt(K) ||x w|| at "
-               f"K={K} N={N} ({variant})")
+        x8 = torch.cat([x, torch.randn(4, K, generator=g, device=dev)
+                        .to(torch.bfloat16)])
+        gap, bound, want, variant = _gemv_f_case(x, x8, w, fmt,
+                                                 f"K={K} N={N}")
         err = max(err, float(gap.max()))
         ratio = max(ratio, _units(gap, bound))
-        ks = (pm.split_k_t(N, K) if variant.endswith("_t")
-              else pm.split_k(N, K))[0]
+        xf = x.to(torch.float32)
+        W = ops.decode(w, fmt)
         faults = _gemv_f_faults(f"float GEMV K={K} N={N}", xf, W, want,
-                                bound, ks)
-        del got, want, gap, bound
+                                bound, _gemv_f_ks(variant, N, K))
+        del want, gap, bound, x8
         ms = _device_ms(lambda: pm.posit_gemv_f(x, w, fmt), launches=5)
         k1_mm = _device_ms(lambda: torch.matmul(
             x.to(torch.float32), ops.decode(w, fmt)), launches=3)
@@ -659,9 +743,10 @@ def _gemv_f(dev):
         print(f"float GEMV M={M} K={K} N={N} ({variant}, bf16 activations): "
               f"largest err in u sqrt(K) ||x w|| so far {ratio:.4g} (limit "
               f"{pm.SUM_TOL}; planted: {faults}), bitwise equal on a second "
+              f"call, rows at M 1-8 bitwise the M 8 call's, one launch a "
               f"call, ms {ms:.4f}, K1 + torch.matmul {k1_mm:.4f}, "
               f"torch.matmul on decoded f32 {mm:.4f}, bound_ms "
-              f"{bound_ms:.4f} ({by})")
+              f"{bound_ms:.4f} ({by}), {bound_ms / ms:.3f} of the bound")
 
     def layer_run():
         for K, N in _LAYER_KN:
@@ -689,18 +774,72 @@ def _gemv_f(dev):
     common = dict(source="src/repro_torch/csrc/posit_gemv_f.cu",
                   replaces="src/repro/kernels/posit_codec.py:55",
                   max_abs_err=err)
-    return [dict(common, name="posit_gemv_f:p16_2 (float weight path, M 4, "
-                              "a command-r layer's 7 projections)",
-                 counter="posit_gemv_f:p16_2", ms=layer_ms, call_ms=call_ms,
-                 plain_ms=plain_ms, bound_ms=bound, bound_by=by,
-                 library_ms=mm, k1_matmul_ms=k1_mm,
-                 shape="M=4 bf16 x [K, N] int16 P(16,2), 7 launches"),
-            dict(common, name="posit_gemv_f:p16_2_t (float weight path, M 4, "
-                              "the tied head's transpose)",
-                 counter="posit_gemv_f:p16_2_t", ms=hms, call_ms=head_call,
-                 plain_ms=head_plain, bound_ms=hbound, bound_by=hby,
-                 library_ms=hmm, k1_matmul_ms=hk1,
-                 shape=f"M=4 bf16 x [{V}, {D}]^T int16 P(16,2)")]
+    records = [dict(common, name="posit_gemv_f:p16_2 (float weight path, "
+                                 "M 4, a command-r layer's 7 projections)",
+                    counter="posit_gemv_f:p16_2", ms=layer_ms,
+                    call_ms=call_ms, plain_ms=plain_ms, bound_ms=bound,
+                    bound_by=by, library_ms=mm, k1_matmul_ms=k1_mm,
+                    sass_ops_a_code=sass["kn"],
+                    shape="M=4 bf16 x [K, N] int16 P(16,2), 7 launches"),
+               dict(common, name="posit_gemv_f:p16_2_t (float weight path, "
+                                 "M 4, the tied head's transpose)",
+                    counter="posit_gemv_f:p16_2_t", ms=hms,
+                    call_ms=head_call, plain_ms=head_plain, bound_ms=hbound,
+                    bound_by=hby, library_ms=hmm, k1_matmul_ms=hk1,
+                    sass_ops_a_code=sass["t"],
+                    shape=f"M=4 bf16 x [{V}, {D}]^T int16 P(16,2)")]
+    for label, arch in _GEMV_F_LAYERS:
+        kns = [(K, N) for _, K, N in _dense_kn(configs.get(arch))]
+        ws = {kn: posit_codec.encode(torch.randn(*kn, generator=g,
+                                                 device=dev)
+                                     / math.sqrt(kn[0]), fmt)
+              for kn in sorted(set(kns))}
+        lx = {K: torch.randn(8, K, generator=g, device=dev)
+              .to(torch.bfloat16) for K, _ in kns}
+        lerr, lmm, lper = 0.0, 0.0, []
+        for K, N in sorted(set(kns)):
+            x, w = lx[K][:M], ws[(K, N)]
+            gap, bound_kn, want, variant = _gemv_f_case(
+                x, lx[K], w, fmt, f"{label} K={K} N={N}")
+            xf, W = x.to(torch.float32), ops.decode(w, fmt)
+            faults = _gemv_f_faults(f"{label} float GEMV K={K} N={N}", xf,
+                                    W, want, bound_kn,
+                                    _gemv_f_ks(variant, N, K))
+            lerr = max(lerr, float(gap.max()))
+            ms = _device_ms(lambda: pm.posit_gemv_f(x, w, fmt), launches=5)
+            lib = _device_ms(lambda: torch.matmul(xf, W), launches=5)
+            b_ms, b_by = _bound(work.gemv_f(M, K, N, 2, 2))
+            lmm += lib * kns.count((K, N))
+            lper.append(f"{K}x{N} {ms:.4f} ({b_ms / ms:.3f} of {b_ms:.4f})")
+            print(f"float GEMV {label} M={M} K={K} N={N} ({variant}): ms "
+                  f"{ms:.4f}, torch.matmul on decoded f32 {lib:.4f}, "
+                  f"bound_ms {b_ms:.4f} ({b_by}), {b_ms / ms:.3f} of the "
+                  f"bound; planted: {faults}")
+            del gap, bound_kn, want, W
+        run = lambda: [pm.posit_gemv_f(lx[K][:M], ws[(K, N)], fmt)  # noqa: E731
+                       for K, N in kns]
+        lms = _device_ms(run, launches=3)
+        lcall = _time_ms(run, reps=5)
+        lplain = _time_once_ms(lambda: [pm.posit_gemv_f_plain(
+            lx[K][:M], ws[(K, N)], fmt) for K, N in kns])
+        lbound, lby = _bound(work.total(work.gemv_f(M, K, N, 2, 2)
+                                        for K, N in kns))
+        print(f"kernel posit_gemv_f (float GEMV, M={M}, one {label} layer's "
+              f"{len(kns)} projections): ms {lms:.4f}, bound_ms {lbound:.4f} "
+              f"({lby}), {lbound / lms:.3f} of the bound; "
+              f"{', '.join(lper)}")
+        records.append(dict(common, max_abs_err=lerr,
+                            name=f"posit_gemv_f:p16_2 (float weight path, "
+                                 f"M 4, a {label} layer's {len(kns)} "
+                                 f"projections)",
+                            counter="posit_gemv_f:p16_2", ms=lms,
+                            call_ms=lcall, plain_ms=lplain, bound_ms=lbound,
+                            bound_by=lby, library_ms=lmm,
+                            shape=f"M=4 bf16 x [K, N] int16 P(16,2), "
+                                  f"{len(kns)} launches"))
+        del ws, lx
+        torch.cuda.empty_cache()
+    return records
 
 
 def _k2_encode(dev):
@@ -4416,10 +4555,8 @@ def _replay_gemv(a):
            f"the float GEMV ({variant}) within sum_bound at M={M} K={K} "
            f"N={N}")
     xf, W = x.to(torch.float32), pc.decode_plain(w, fmt)
-    ks = (pm.split_k_t(N, K) if variant.endswith("_t")
-          else pm.split_k(N, K))[0]
     faults = _gemv_f_faults(f"float GEMV M={M} K={K} N={N}", xf, W, want,
-                            bound, ks)
+                            bound, _gemv_f_ks(variant, N, K))
     ms = _device_ms(lambda: pm.posit_gemv_f(x, w, fmt), launches=5)
     plain_ms = _time_once_ms(lambda: pm.posit_gemv_f_plain(x, w, fmt))
     lib = _device_ms(lambda: torch.matmul(xf, W), launches=5)

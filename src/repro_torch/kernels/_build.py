@@ -50,7 +50,7 @@ _SIGNATURES = {
         "posit_matmul_launch": [_P] * 6 + [_I] * 15 + [_P],
     },
     "posit_gemv_f": {
-        "posit_gemv_f_launch": [_P] * 4 + [_I] * 11 + [_P],
+        "posit_gemv_f_launch": [_P] * 6 + [_I] * 11 + [_P],
     },
     "posit_matmul_grouped": {
         "posit_matmul_grouped_launch": [_P] * 8 + [_I] * 16 + [_P],

@@ -25,7 +25,7 @@ import functools
 
 import torch
 
-from repro_torch.core.formats import P13_2, PositFormat
+from repro_torch.core.formats import P13_2, P16_2, PositFormat
 from repro_torch.core.posit import storage_dtype, to_container
 from . import _build, work
 from .posit_codec import decode_plain, encode_plain
@@ -61,15 +61,19 @@ TC_BN = 128
 TC_BK = 64
 TC_BLOCKS = 132
 _VARIANTS = {"tiled": 0, "gemv": 1, "gemv_p16_2": 2, "tc": 3, "tc_p16_2": 4}
-# The float GEMV over the transpose of [N, K] codes: a block owns
-# GEMV_T_ROWS output rows (8 warps x 16) and one K split of whole
-# GEMV_T_SPAN-code steps (a warp-load of 32 lanes x 8 codes), at most
-# GEMV_T_MAX_STEPS of them (its f32 activations live in shared memory);
-# splits are added where the row tiles alone leave the card's
-# GEMV_BLOCKS short.
-GEMV_T_ROWS = 128
-GEMV_T_SPAN = 256
-GEMV_T_MAX_STEPS = 8
+# The float GEMV (`posit_gemv_f`): a block owns GEMV_F_TILE columns of
+# [K, N] codes and one K split of a multiple of GEMV_F_ROWS rows (8 warps
+# x 4 rows a warp-load x 8 loads: one iteration of the register loop, two
+# ring slots), at most GEMV_F_MAX_K (its f32 activations live in shared
+# memory); the splits aim at GEMV_F_BLOCK_CODES codes a block and at most
+# GEMV_BLOCKS blocks.  Over the transpose of [N, K] codes a block owns
+# GEMV_F_TILE output rows and one K split of GEMV_T_SPLIT codes (8 warps x
+# 256, each lane's 8 activations in registers).  From (N, K) alone.
+GEMV_F_TILE = 64
+GEMV_F_ROWS = 256
+GEMV_F_MAX_K = 2048
+GEMV_F_BLOCK_CODES = 1 << 15
+GEMV_T_SPLIT = 2048
 # K9's grouped GEMV: a block owns one expert's GROUPED_BM-row tile,
 # GEMV_BN columns and one K split (rows a multiple of GEMV_ROWS, at most
 # GEMV_MAX_ROWS); the splits aim at GROUPED_EXPERT_BLOCKS blocks an
@@ -291,17 +295,107 @@ def gemv_f_variant(M: int, fmt_w: PositFormat, w_codes) -> str:
         "_t" if _gemv_f_layout(w_codes) == "t" else "")
 
 
-def split_k_t(N: int, K: int) -> tuple[int, int]:
-    """(codes per split KS, number of splits S) of the float GEMV over the
-    transpose of [N, K] codes: KS a multiple of GEMV_T_SPAN of at most
-    GEMV_T_MAX_STEPS steps, split s covers [s * KS, min(K, (s + 1) * KS))
-    in split order, none empty, S >= 1 (K = 0: one empty split); row
-    tiles times splits come near GEMV_BLOCKS where K allows."""
-    tiles = -(-N // GEMV_T_ROWS)
-    want = max(1, -(-GEMV_BLOCKS // max(tiles, 1)))
-    steps = max(1, -(-K // GEMV_T_SPAN))
-    ks = min(GEMV_T_MAX_STEPS, -(-steps // want)) * GEMV_T_SPAN
+def gemv_f_split_k(N: int, K: int) -> tuple[int, int]:
+    """(rows per split KS, number of splits S) of the float GEMV over
+    [K, N] codes: split s covers K rows [s * KS, min(K, (s + 1) * KS)) in
+    split order, none empty, S >= 1 (K = 0: one empty split); KS a
+    multiple of GEMV_F_ROWS of at most GEMV_F_MAX_K; blocks come near
+    GEMV_F_BLOCK_CODES codes each, at most GEMV_BLOCKS of them, where K
+    allows.  From (N, K) alone, so a row's sums never depend on M."""
+    tiles = -(-N // GEMV_F_TILE)
+    blocks = min(GEMV_BLOCKS, max(1, -(-K * N // GEMV_F_BLOCK_CODES)))
+    want = max(1, -(-blocks // max(tiles, 1)))
+    rows = -(-K // want)
+    ks = min(max(-(-rows // GEMV_F_ROWS) * GEMV_F_ROWS, GEMV_F_ROWS),
+             GEMV_F_MAX_K)
     return ks, max(1, -(-K // ks))
+
+
+def split_k_t(N: int, K: int) -> tuple[int, int]:
+    """(codes per split KS, number of splits S) of the float GEMV over
+    the transpose of [N, K] codes: KS = GEMV_T_SPLIT, split s covers
+    [s * KS, min(K, (s + 1) * KS)) in split order, none empty, S >= 1
+    (K = 0: one empty split).  The tiles alone fill the card at a head's
+    N (vocab / GEMV_F_TILE blocks)."""
+    return GEMV_T_SPLIT, max(1, -(-K // GEMV_T_SPLIT))
+
+
+# The P(16,2) decode of the float GEMV (csrc/p16_2_table.cuh): a code u
+# (16 bits) splits into idx = u >> 7 and its low byte; where the regime
+# run is at most 5 the value is fma(m, T, B) of idx's entry, m the f32 of
+# bits 0x3F000000 | (u & 0xFF) << 16.  GEMV_F_TABLE_SLOW: the idx whose
+# run is longer (zero, NaR, the magnitudes beyond 2^-20 and 2^20): B nan,
+# the kernel decodes those codes in full.
+GEMV_F_TABLE_SLOW = tuple(i for i in range(512) if (i + 4) & 0xFF < 8)
+
+
+def _bf16_bits(x):
+    return x.to(torch.bfloat16).view(torch.int16).to(torch.int64) & 0xFFFF
+
+
+@functools.lru_cache(maxsize=None)
+def gemv_f_p16_2_table() -> torch.Tensor:
+    """[512] int32 by idx = u >> 7 of a P(16,2) code u: the bf16 bits of
+    B = V0 - 128 step in the high half and of T = 128 step / 2^(b - 1) in
+    the low half (V0 the value at u = idx * 128, step its increment a unit
+    of u's 7 low bits, b = idx & 1); both exact in bf16.  Built from the
+    port's decode (two codes an entry); the entries of GEMV_F_TABLE_SLOW
+    hold B = nan and T's bits 0x0001 (bit 0 set on them alone).  On the
+    CPU."""
+    idx = torch.arange(512, dtype=torch.int64)
+    v = decode_plain(to_container(torch.stack([idx * 128, idx * 128 + 1]),
+                                  P16_2), P16_2).double()
+    step = v[1] - v[0]
+    base = v[0] - 128.0 * step
+    scale = 128.0 * step * 2.0 ** (1 - (idx & 1)).double()
+    slow = torch.tensor(GEMV_F_TABLE_SLOW)
+    base[slow], scale[slow] = float("nan"), 0.0
+    for t in (base, scale):
+        if not torch.equal(t.to(torch.bfloat16).double().nan_to_num(),
+                           t.nan_to_num()):
+            raise AssertionError("gemv_f_p16_2_table: an entry is not "
+                                 "exact in bf16")
+    entry = _bf16_bits(base) << 16 | _bf16_bits(scale)
+    entry[slow] = 0x7FC00001  # bit 0: the kernel's cue for the full decode
+    return (entry - ((entry >> 31) << 32)).to(torch.int32)
+
+
+def gemv_f_p16_2_decode_plain(codes):
+    """The float GEMV's P(16,2) decode of int16 codes, stated in plain
+    PyTorch: the table's fma where it holds (exact: computed in f64, one
+    rounding to f32), the full decode for GEMV_F_TABLE_SLOW's codes."""
+    u = codes.to(torch.int64) & 0xFFFF
+    entry = gemv_f_p16_2_table().to(torch.int64)[u >> 7] & 0xFFFFFFFF
+
+    def f32(bits):
+        return (bits - ((bits >> 31) << 32)).to(torch.int32).view(
+            torch.float32).double()
+
+    base, scale = f32(entry & 0xFFFF0000), f32((entry << 16) & 0xFFFFFFFF)
+    m = f32(0x3F000000 | (u & 0xFF) << 16)
+    return torch.where(torch.isnan(base), decode_plain(codes, P16_2),
+                       (m * scale + base).float())
+
+
+@functools.lru_cache(maxsize=None)
+def _gemv_f_device_table(dev) -> torch.Tensor:
+    """`gemv_f_p16_2_table()` on `dev`, uploaded once."""
+    return gemv_f_p16_2_table().to(dev)
+
+
+# the float GEMV's tile tickets by device: zero between calls (the last
+# block of a tile sets its ticket back), so created once; a larger array
+# is added when a call needs one, and the smaller ones stay alive (a
+# captured CUDA graph may still point at them)
+_GEMV_F_TICKETS: dict = {}
+
+
+def _gemv_f_tickets(dev, tiles: int) -> torch.Tensor:
+    kept = _GEMV_F_TICKETS.setdefault(dev, [])
+    if not kept or kept[-1].numel() < tiles:
+        kept.append(torch.zeros(max(tiles, 4096), dtype=torch.int32,
+                                device=dev))
+    return kept[-1]
 
 
 def posit_gemv_f_plain(x, w_codes, fmt_w: PositFormat):
@@ -311,12 +405,19 @@ def posit_gemv_f_plain(x, w_codes, fmt_w: PositFormat):
 
 def posit_gemv_f(x, w_codes, fmt_w: PositFormat):
     """[M, K] float activations x [K, N] posit codes -> [M, N] f32, M <=
-    GEMV_MAX_M on the card.  x in f32 or bf16 is read as it lies (other
-    floats are cast to f32 first); w_codes contiguous [K, N], or the
-    transpose of contiguous [N, K] codes, read in place.  `gemv_f_variant`
-    names the kernel; the K splits are `split_k`'s ([K, N]) or
-    `split_k_t`'s (transposed).  Within `sum_bound(x, w_codes, None,
-    fmt_w)` of the plain version; bitwise equal across calls."""
+    GEMV_MAX_M on the card, in one launch.  x in f32 or bf16 is read as
+    it lies (other floats are cast to f32 first); w_codes contiguous
+    [K, N], or the transpose of contiguous [N, K] codes, read in place.
+    `gemv_f_variant` names the kernel ("p16_2*": the table decode of
+    `gemv_f_p16_2_table`); the K splits are `gemv_f_split_k`'s ([K, N])
+    or `split_k_t`'s (transposed), from (N, K) alone, and the last block
+    of each tile adds them (a ticket a tile, `_gemv_f_tickets`, set back
+    to 0 by that block: no memset).  Within `sum_bound(x, w_codes, None,
+    fmt_w)` of the plain version; bitwise equal across calls, and a row's
+    result does not depend on M or on the other rows.  Bound by HBM bytes
+    (2 a code) on an H100.  Besides the per-call scratch, the first call
+    on a device keeps the table (2 KB) and the tickets there; calls on one
+    device must not overlap on two streams (they share the tickets)."""
     if x.ndim != 2 or w_codes.ndim != 2:
         raise ValueError(f"posit_gemv_f takes 2-D operands, got "
                          f"{tuple(x.shape)} x {tuple(w_codes.shape)}")
@@ -343,7 +444,9 @@ def posit_gemv_f(x, w_codes, fmt_w: PositFormat):
     _build.require_cuda("posit_gemv_f", x, b)
     out = torch.empty((M, N), dtype=torch.float32, device=x.device)
     if M and N:
-        ks, splits = split_k_t(N, K) if transposed else split_k(N, K)
+        ks, splits = split_k_t(N, K) if transposed else gemv_f_split_k(N, K)
+        # per-split partial sums, added in split order by each tile's last
+        # block (one split writes `out` directly)
         partial = torch.empty((splits, M, N), dtype=torch.float32,
                               device=x.device) if splits > 1 else None
         keys = ("posit_gemv_f", f"posit_gemv_f:{variant}")
@@ -351,13 +454,17 @@ def posit_gemv_f(x, w_codes, fmt_w: PositFormat):
             work.record(keys, work.gemv_f(M, K, N, x.element_size(),
                                           b.element_size()))
             return out
+        p16_2 = variant.startswith("p16_2")
+        tickets = (_gemv_f_tickets(x.device, -(-N // GEMV_F_TILE))
+                   if splits > 1 else None)
+        table = _gemv_f_device_table(x.device) if p16_2 else None
+        ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
         lib = _build.library("posit_gemv_f")
         err = lib.posit_gemv_f_launch(
-            x.data_ptr(), b.data_ptr(), out.data_ptr(),
-            None if partial is None else partial.data_ptr(), M, N, K,
+            x.data_ptr(), b.data_ptr(), out.data_ptr(), ptr(partial),
+            ptr(tickets), ptr(table), M, N, K,
             0 if x.dtype == torch.float32 else 1, b.element_size(),
-            fmt_w.n, fmt_w.es, int(transposed),
-            1 if variant.startswith("p16_2") else 0, ks, splits,
+            fmt_w.n, fmt_w.es, int(transposed), int(p16_2), ks, splits,
             _build.stream_of(x))
         if err == _REFUSED:
             raise ValueError(f"posit_gemv_f: the {variant} kernel does not "

@@ -226,3 +226,39 @@ def test_encode_fast_plain_bitwise(n, es):
     np.testing.assert_array_equal(got.numpy(), tposit.encode(v, tf).numpy())
     np.testing.assert_array_equal(
         got.numpy(), np.asarray(jposit.encode(jnp.asarray(v.numpy()), jf)))
+
+
+def test_gemv_f_p16_2_table_decodes_every_code():
+    """The float GEMV's P(16,2) decode (`gemv_f_p16_2_decode_plain`: the
+    fma of each code's low byte with its table entry's two bf16 halves,
+    the entry chosen by the code's top 9 bits; the full decode for the
+    table's long-run entries) on every one of the 2^16 codes, bitwise the
+    reference decode (NaR as its nan); the long-run entries cover exactly
+    the 2048 codes of zero, NaR and the magnitudes beyond the table's (at
+    or below 2^-20, at or above 2^20), whose entries alone have bit 0 set
+    (the kernel's cue for the full decode); every other code is the
+    table's fma alone."""
+    import jax
+    from repro_torch.kernels import posit_matmul as tpm
+    jf, tf = _fmts(16, 2)
+    codes = np.arange(1 << 16, dtype=np.int64)
+    want = np.asarray(jax.jit(lambda c: jposit.decode(c, jf))(
+        jnp.asarray(codes, jnp.int32)))
+    c16 = tposit.to_container(torch.from_numpy(codes), tf)
+    got = tpm.gemv_f_p16_2_decode_plain(c16).numpy()
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    entry = tpm.gemv_f_p16_2_table().numpy().view(np.uint32)[codes >> 7]
+    base = (entry & 0xFFFF0000).view(np.float32).astype(np.float64)
+    scale = (entry << 16).astype(np.uint32).view(np.float32)
+    slow = np.isnan(base)
+    assert slow.sum() == 2048
+    np.testing.assert_array_equal(entry & 1, slow)  # the kernel's cue
+    assert sorted(set((codes[slow] >> 7).tolist())) == \
+        list(tpm.GEMV_F_TABLE_SLOW)
+    v = want[slow]
+    assert np.all((v == 0) | np.isnan(v) | (np.abs(v) <= 2.0 ** -20)
+                  | (np.abs(v) >= 2.0 ** 20))
+    m = (0x3F000000 | (codes & 0xFF) << 16).astype(np.uint32).view(np.float32)
+    fast = (m.astype(np.float64) * scale + base).astype(np.float32)
+    np.testing.assert_array_equal(fast[~slow].view(np.int32),
+                                  want[~slow].view(np.int32))

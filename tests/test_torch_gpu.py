@@ -1884,7 +1884,8 @@ def test_gemv_f_bound_rejects_planted_faults(cuda, K, N, M, layout):
     plain = pm.posit_gemv_f_plain(x, w, fmt)
     assert bool(((pm.posit_gemv_f(x, w, fmt) - plain).abs() <= bound).all())
     W = posit_codec.decode_plain(w, fmt)
-    ks = (pm.split_k_t(N, K) if layout == "t" else pm.split_k(N, K))[0]
+    ks = (pm.split_k_t(N, K) if layout == "t"
+          else pm.gemv_f_split_k(N, K))[0]
     for bad in (torch.matmul(x, W.to(torch.bfloat16).float()),
                 plain - torch.matmul(x[:, :ks], W[:ks])):
         assert bool(((bad - plain).abs() > bound).any())
@@ -1893,7 +1894,10 @@ def test_gemv_f_bound_rejects_planted_faults(cuda, K, N, M, layout):
 def test_gemv_f_decodes_every_weight_code(cuda):
     """Every int16 code times 1.0 through the GEMV (P(16,2) and the
     run-time decode of P(16,1), both layouts) is the plain decode bitwise
-    (NaR as nan)."""
+    (NaR as nan); and the P(16,2) table's long-run codes (zero and the
+    magnitudes beyond 2^-20 and 2^20; NaR is among the first part's),
+    scattered one by one among short-run codes, take the full decode
+    bitwise inside warps whose other lanes read the table."""
     codes = torch.arange(-(1 << 15), 1 << 15, dtype=torch.int64)
     for fmt in (formats.P16_2, formats.P16_1):
         b = codes.to(torch.int16).reshape(1, -1).to(cuda)
@@ -1903,6 +1907,62 @@ def test_gemv_f_decodes_every_weight_code(cuda):
             nan = torch.isnan(want)
             assert torch.equal(torch.isnan(got), nan)
             assert _bits_equal(got[~nan], want[~nan])
+    fmt = formats.P16_2
+    g = torch.Generator(device=cuda).manual_seed(30)
+    K, N = 48, 4096
+    w = posit_codec.encode(torch.randn(N, K, generator=g, device=cuda)
+                           * 0.05, fmt)
+    # (NaR left out here: 0 x nan would spoil its whole column)
+    long_run = torch.tensor([0, 1, -1, 300, -300, 511, -512, 32767, -32767,
+                             32300], dtype=torch.int16, device=cuda)
+    pos = torch.randperm(N * K, generator=g, device=cuda)[:300]
+    w.view(-1)[pos] = long_run[torch.arange(300, device=cuda) % 10]
+    eye = torch.eye(K, device=cuda)
+    for layout in ("kn", "t"):
+        wk = w.T if layout == "t" else w.T.contiguous()
+        want = posit_codec.decode_plain(wk, fmt)
+        nan = torch.isnan(want)
+        for r0 in range(0, K, 8):
+            got = pm.posit_gemv_f(eye[r0:r0 + 8], wk, fmt)
+            assert torch.equal(torch.isnan(got), nan[r0:r0 + 8])
+            assert _bits_equal(got[~nan[r0:r0 + 8]],
+                               want[r0:r0 + 8][~nan[r0:r0 + 8]])
+
+
+@pytest.mark.parametrize("act", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("layout", ["kn", "t"])
+def test_gemv_f_rows_independent_of_m(cuda, layout, act):
+    """Row m of a float GEMV call at M 1-8 is bitwise row m of the call at
+    M 8 (the geometry and every sum order come from (N, K) alone), over
+    [K, N] codes and the transpose of [N, K] codes."""
+    fmt = formats.P16_2
+    for K, N in ((8192, 1024), (2048, 256), (517, 130), (22528, 512)):
+        x, w = _gemv_f_inputs(cuda, 8, K, N, fmt, act, layout, K - N)
+        full = pm.posit_gemv_f(x, w, fmt)
+        for M in range(1, 9):
+            assert _bits_equal(pm.posit_gemv_f(x[:M], w, fmt), full[:M]), \
+                (K, N, M)
+
+
+@pytest.mark.parametrize("layout", ["kn", "t"])
+def test_gemv_f_one_launch_a_call(cuda, layout):
+    """A float GEMV call is one CUDA kernel on the device (torch.profiler),
+    K splits included: the last block of each tile adds the splits."""
+    from torch.profiler import ProfilerActivity, profile
+    fmt = formats.P16_2
+    x, w = _gemv_f_inputs(cuda, 4, 8192, 1024, fmt, torch.bfloat16, layout,
+                          11)
+    assert (pm.split_k_t(1024, 8192) if layout == "t"
+            else pm.gemv_f_split_k(1024, 8192))[1] > 1
+    want = pm.posit_gemv_f(x, w, fmt)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        got = pm.posit_gemv_f(x, w, fmt)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(kernels) == 1 and "posit_gemv_f" in kernels[0], kernels
+    assert _bits_equal(got, want)
 
 
 def test_matmul_posit_weights_routes_by_rows(cuda):

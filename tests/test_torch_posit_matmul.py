@@ -213,14 +213,37 @@ SPLIT_SHAPES = [(8192, 8192), (1024, 8192), (22528, 8192), (8192, 22528),
                 (300, 0)]
 
 
+def _check_float_gemv_split(N, K, ks, splits):
+    """The float GEMV's [K, N] split (`gemv_f_split_k`): splits cover
+    [0, K) once, in order, none empty (K = 0: one empty split), KS a
+    multiple of GEMV_F_ROWS of at most GEMV_F_MAX_K; the blocks
+    (GEMV_F_TILE-wide tiles times splits) reach at least half of their
+    aim, about GEMV_F_BLOCK_CODES codes a block and at most GEMV_BLOCKS,
+    wherever K has the rows and the cap allows."""
+    ranges = _split_ranges(K, ks)
+    assert len(ranges) == splits >= 1
+    assert ks % tpm.GEMV_F_ROWS == 0 and ks <= tpm.GEMV_F_MAX_K
+    assert ranges[0][0] == 0 and ranges[-1][1] == K
+    for (a0, a1), (b0, _) in zip(ranges, ranges[1:]):
+        assert a1 == b0 and a1 - a0 == ks
+    assert all(k1 > k0 for k0, k1 in ranges) or K == 0
+    tiles = -(-N // tpm.GEMV_F_TILE)
+    aim = min(tpm.GEMV_BLOCKS, max(1, -(-K * N // tpm.GEMV_F_BLOCK_CODES)))
+    steps = max(1, -(-K // tpm.GEMV_F_ROWS))
+    if ks < tpm.GEMV_F_MAX_K:
+        assert splits >= min(-(-aim // max(tiles, 1)), steps) // 2
+        assert tiles * splits <= 2 * aim + tiles
+
+
 @pytest.mark.parametrize("N,K", SPLIT_SHAPES)
 def test_gemv_splits_cover_k_once_in_order(N, K):
-    """The split-K GEMV's splits cover [0, K) exactly once, in increasing
-    order, none empty (K = 0: one empty split); each split's rows are a
-    multiple of the row step (the last one excepted) within the shared-
-    memory cap; and wherever K has enough row steps the grid holds at least
-    3 blocks per SM of an H100 (the aim is GEMV_BLOCKS, 4 per SM; whole
-    row steps per split can cost up to one)."""
+    """K6's split-K GEMV (`split_k`): its splits cover [0, K) exactly once,
+    in increasing order, none empty (K = 0: one empty split); each split's
+    rows are a multiple of the row step (the last one excepted) within the
+    shared-memory cap; and wherever K has enough row steps the grid holds
+    at least 3 blocks per SM of an H100 (the aim is GEMV_BLOCKS, 4 per SM;
+    whole row steps per split can cost up to one).  The float GEMV over
+    [K, N] codes (`gemv_f_split_k`): `_check_float_gemv_split`."""
     ks, splits = tpm.split_k(N, K)
     ranges = _split_ranges(K, ks)
     assert len(ranges) == splits >= 1
@@ -232,6 +255,7 @@ def test_gemv_splits_cover_k_once_in_order(N, K):
     tiles = -(-N // tpm.GEMV_BN)
     steps = -(-K // tpm.GEMV_ROWS)
     assert tiles * splits >= min(3 * 132, tiles * max(steps, 1))
+    _check_float_gemv_split(N, K, *tpm.gemv_f_split_k(N, K))
 
 
 @pytest.mark.parametrize("M,fmt_a,fmt_b,dtype,want", [
@@ -295,22 +319,28 @@ SPLIT_T_SHAPES = [(256000, 8192), (262144, 2560), (256000, 12288),
 
 @pytest.mark.parametrize("N,K", SPLIT_T_SHAPES)
 def test_gemv_f_t_splits_cover_k_once_in_order(N, K):
-    """The transposed float GEMV's splits cover [0, K) once, in order, none
-    empty (K = 0: one empty split), in whole GEMV_T_SPAN-code steps, at
-    most GEMV_T_MAX_STEPS of them; row tiles times splits reach 3 blocks
-    per SM of an H100 wherever K has the steps (the aim is GEMV_BLOCKS)."""
+    """The transposed float GEMV's splits (`split_k_t`): GEMV_T_SPLIT codes
+    of each output row (8 warps x 256), covering [0, K) once, in order,
+    none empty (K = 0: one empty split); at a tied head's N the row tiles
+    alone give every SM of an H100 many blocks."""
     ks, splits = tpm.split_k_t(N, K)
     ranges = _split_ranges(K, ks)
-    assert len(ranges) == splits >= 1
-    assert ks % tpm.GEMV_T_SPAN == 0
-    assert ks <= tpm.GEMV_T_MAX_STEPS * tpm.GEMV_T_SPAN
+    assert ks == tpm.GEMV_T_SPLIT and len(ranges) == splits >= 1
     assert ranges[0][0] == 0 and ranges[-1][1] == K
     for (a0, a1), (b0, _) in zip(ranges, ranges[1:]):
         assert a1 == b0 and a1 - a0 == ks
     assert all(k1 > k0 for k0, k1 in ranges) or K == 0
-    tiles = -(-N // tpm.GEMV_T_ROWS)
-    steps = -(-K // tpm.GEMV_T_SPAN)
-    assert tiles * splits >= min(3 * 132, tiles * max(steps, 1))
+    if N >= 50000:
+        assert -(-N // tpm.GEMV_F_TILE) * splits >= 4 * 132
+
+
+@pytest.mark.parametrize("N,K,ks,splits", [
+    (1024, 8192, 512, 16), (8192, 8192, 1792, 5), (22528, 8192, 2048, 4),
+    (8192, 22528, 2048, 11), (256, 2048, 512, 4), (8512, 2048, 512, 4)])
+def test_gemv_f_split_k_at_serving_shapes(N, K, ks, splits):
+    """The float GEMV's [K, N] geometry at command-r-35b's, paligemma-3b's
+    and mamba2-1.3b's projections: no 128-way splits at N 1024."""
+    assert tpm.gemv_f_split_k(N, K) == (ks, splits)
 
 
 # every format of the port, and two whose split products overflow f32

@@ -169,7 +169,7 @@ def test_planted_faults_fail_the_float_gemv_bound(layout):
     from repro_torch.kernels import posit_codec
     from repro_torch.kernels import posit_matmul as pm
     g = torch.Generator().manual_seed(6)
-    M, K, N = 4, 1024, 96
+    M, K, N = 4, 4096, 96
     x = torch.randn(M, K, generator=g).to(torch.bfloat16)
     w = posit_codec.encode(torch.randn(N, K, generator=g) / K ** 0.5, P16_2)
     w = w.T if layout == "t" else w.T.contiguous()
@@ -177,12 +177,63 @@ def test_planted_faults_fail_the_float_gemv_bound(layout):
     want = pm.posit_gemv_f(x, w, P16_2)
     bound = pm.sum_bound(x, w, None, P16_2)
     assert bool(((want - torch.matmul(xf, W)).abs() <= bound).all())
-    ks = (pm.split_k_t(N, K) if layout == "t" else pm.split_k(N, K))[0]
+    ks = (pm.split_k_t(N, K) if layout == "t"
+          else pm.gemv_f_split_k(N, K))[0]
     assert ks < K
     chip_smoke._gemv_f_faults("test", xf, W, want, bound, ks)
     with pytest.raises(SystemExit):
         chip_smoke._gemv_f_faults("test", xf, W, want,
                                   torch.full_like(bound, float("inf")), ks)
+
+
+@pytest.mark.parametrize("layout", ["kn", "t"])
+def test_float_gemv_rows_check_rejects_an_m_dependence(layout):
+    """Phase 3's row check (`_gemv_f_rows_check`): a GEMV computed row by
+    row passes at M 1-8, over [K, N] codes and the transpose of [N, K]
+    codes; one whose row 0 moves by one ulp at a single M (a sum order
+    that depends on M) fails it."""
+    from repro_torch.core.formats import P16_2
+    from repro_torch.kernels import posit_codec
+    from repro_torch.kernels import posit_matmul as pm
+    g = torch.Generator().manual_seed(30)
+    K, N = 256, 40
+    x = torch.randn(8, K, generator=g).to(torch.bfloat16)
+    w = posit_codec.encode(torch.randn(N, K, generator=g) / K ** 0.5, P16_2)
+    w = w.T if layout == "t" else w.T.contiguous()
+
+    def by_rows(xm, wm, fmt):
+        return torch.cat([pm.posit_gemv_f(xm[i:i + 1], wm, fmt)
+                          for i in range(xm.shape[0])])
+
+    def m_dependent(xm, wm, fmt):
+        out = by_rows(xm, wm, fmt)
+        if xm.shape[0] == 3:
+            out[0] = torch.nextafter(out[0], torch.full_like(out[0], 1e30))
+        return out
+
+    chip_smoke._gemv_f_rows_check(by_rows, x, w, P16_2, "test")
+    with pytest.raises(SystemExit, match=r"differ at M \[3\]"):
+        chip_smoke._gemv_f_rows_check(m_dependent, x, w, P16_2, "test")
+
+
+@pytest.mark.parametrize("names,ok", [
+    (["void (anonymous namespace)::posit_gemv_f_kernel<4, ActBf16, short, "
+      "DecodeP16_2Table>(...)"], True),
+    (["void (anonymous namespace)::posit_gemv_f_kernel<4, ActBf16, short, "
+      "DecodeP16_2Table>(...)",
+      "(anonymous namespace)::posit_gemv_f_reduce_kernel(...)"], False),
+    (["void at::native::vectorized_elementwise_kernel<4, FillFunctor>",
+      "void (anonymous namespace)::posit_gemv_f_kernel<...>"], False),
+    ([], False)])
+def test_float_gemv_one_launch_check(names, ok):
+    """Phase 3's one-launch check (`_check_one_launch`) passes one
+    posit_gemv_f kernel a call and fails a second launch (a separate
+    reduce, a fill ahead of the GEMV) or none."""
+    if ok:
+        chip_smoke._check_one_launch(names, "posit_gemv_f", "test")
+    else:
+        with pytest.raises(SystemExit, match="one launch a call"):
+            chip_smoke._check_one_launch(names, "posit_gemv_f", "test")
 
 
 def _smoke_engine_calls(arch):
