@@ -17,7 +17,8 @@ hubert-xlarge (all 48 layers: a forward and QAT) at full width, and QAT
 of mamba2-1.3b at full width and depth; then K3 / K7 and command-r's
 engine on pages of 256-1024 tokens, mamba2-1.3b's posit-compressed
 cross-pod training step on a (2, 2, 1) mesh of the card, and a sweep of
-the autotune cache.
+the autotune cache; and each serving configuration's decode steps as CUDA
+graph replays against eager dispatch.
 
     python3 chip_smoke.py
 
@@ -99,7 +100,10 @@ Phases (any failure exits non-zero; no phase is caught):
      flips (shown with the gap and the verify-vs-sequential logit
      difference); 5d. the async front end over a speculative engine: batch
      work fills the slots, an interactive request preempts one, streamed
-     tokens equal final tokens equal plain decode, the pool ends clean.
+     tokens equal final tokens equal plain decode, the pool ends clean;
+     then the front end over a plain engine, whose decode steps, driven
+     from the front end's event loop, capture the decode graph once and
+     replay it every later step, streams equal plain decode.
      Each main-path run (defaults greedy and sampled, long prompt, a13,
      speculative greedy and sampled, front end) counts its launches from
      0, and its kernels must launch in it; every page must come back;
@@ -340,6 +344,24 @@ Phases (any failure exits non-zero; no phase is caught):
      ungated: the reckoned peak of live bytes beside
      `torch.cuda.max_memory_allocated()` over that step, and the roofline
      terms beside the median of 3 more steps.
+ 18. the compiled decode step.  Every single-pool engine above already
+     decodes by replaying CUDA graphs (runtime/step_graph.py: the first
+     decode step a warm-up, the second captured, every later one a
+     replay), so every earlier phase's gates hold over replays.  Phase 18
+     serves each configuration's queue once more graphed and once inside
+     `disable_graphs()`, each run counted from 0, where its weights live:
+     defaults greedy and sampled, a13 and the dense cache (after phase 6,
+     on phase 5's weights), bit_exact (after phase 7), MoE (after phase 8),
+     gemma3 (in 10a), mamba2-1.3b (after 13a: 4 requests, 16 decode steps
+     of 48 layers) and paligemma-3b (in 14a).  Each must show the streams
+     bitwise equal, the launches equal kernel by kernel and variant by
+     variant, 1 decode program a step fused (2 unfused: the decode and the
+     sampler) and every step after the first replaying them
+     (`_graph_mismatches`); printed beside each other: the mean and median
+     decode step on the host clock, the device-busy share of 4 steps under
+     the profiler (`_profile`) and the peak allocated memory.  Last, an
+     `.item()` planted in a smoke engine's decode body must make its
+     capture raise, the graph left uncaptured.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -2470,6 +2492,7 @@ def _serve(dev):
                  "paged_attention_mq", "decode_sample", "prefill_attention"):
         _check(counts[label][name] > 0,
                f"kernel {name} launched in the '{label}' run")
+    _frontend_graph_check(cfg, params, prompts, greedy, base)
     return counts, cfg, cfg13, params, prompts, greedy
 
 
@@ -2612,6 +2635,35 @@ def _frontend_phase(cfg, params, prompts, plain, rng, base):
     _check(eng.pages_in_use == 0 and not eng._held and not eng.queue,
            "front end: the pool ends clean")
     return counts
+
+
+def _frontend_graph_check(cfg, params, prompts, plain, base):
+    """The front end over a plain engine: its decode steps, driven from
+    the front end's event loop, capture the decode graph once and replay
+    it every later step, and the streams equal plain decode."""
+    import asyncio
+    from repro_torch.serve import AsyncServingFrontend, ServingEngine
+    eng = ServingEngine(cfg, params, batch_slots=4, greedy=True, **base)
+    fe = AsyncServingFrontend(eng)
+
+    async def main():
+        ts = [fe.submit(p, max_new_tokens=16, slo="batch", rid=i)
+              for i, p in enumerate(prompts)]
+        runner = asyncio.ensure_future(fe.run())
+        out = {t.rid: list(map(int, await t.wait())) for t in ts}
+        await runner
+        return out
+
+    got = asyncio.run(main())
+    s = eng.execution_summary()
+    steps = s["decode_steps"]
+    print(f"front end (graphed): {steps} decode steps, step graphs "
+          f"{json.dumps(s['step_graphs'])}")
+    _check(got == plain, "front end (graphed): streams equal plain decode")
+    _check(steps > 2 and s["step_graphs"]["decode"]["captured"]
+           and s["decode_graph_replays"] == steps - 1,
+           "front end (graphed): every decode step after the first "
+           "replayed the graph captured on the front end's loop")
 
 
 # ---------------------------------------------------------------------------
@@ -2781,14 +2833,17 @@ def _profile(cfg, params, prompts, label: str, steps: int = 4,
     with speculate_k) with 4 slots busy: device time per step by layer,
     and the device's busy share of the window of as many steps run just
     before without the profiler (host clock, ending in a synchronize).  `kw` overrides the engine's max_seq 256 and page size
-    16, or serves the dense cache (paged=False)."""
+    16, or serves the dense cache (paged=False), or samples (greedy=False
+    and its knobs).  Returns {"step_ms": unprofiled ms a step, "busy_ms":
+    device ms a step (None when the profiler recorded none)}."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serve import Request, ServingEngine
-    engine = ServingEngine(cfg, params, batch_slots=4, greedy=True,
+    engine = ServingEngine(cfg, params, batch_slots=4,
                            speculate_k=speculate_k,
-                           **dict(dict(max_seq=256, page_size=16), **kw))
+                           **dict(dict(greedy=True, max_seq=256,
+                                       page_size=16), **kw))
     for rid, p in enumerate(prompts[:4]):
         engine.submit(Request(rid=rid, prompt=p, max_new_tokens=16))
     engine.step()   # prefill of all four, then their first decode step
@@ -2833,6 +2888,8 @@ def _profile(cfg, params, prompts, label: str, steps: int = 4,
     for group, us in sorted(groups.items(), key=lambda kv: -kv[1]):
         print(f"profile {label}: {group}: {us / steps / 1e3:.3f} ms/step "
               f"({100 * us / busy:.1f}% of device time)")
+    return {"step_ms": plain_us / steps / 1e3,
+            "busy_ms": busy / steps / 1e3 if busy else None}
 
 
 # ---------------------------------------------------------------------------
@@ -3888,6 +3945,7 @@ def _gemma3_phase(dev):
           f"1024-token window {gap:.4g} (max |logit| "
           f"{float(windowed.abs().max()):.4g}; K3's tolerance 2e-5)")
     _profile(cfg, params, prompts, "gemma3", steps=2, max_seq=GEMMA_MAX_SEQ)
+    _graph_phase("gemma3 greedy", cfg, params, prompts, greedy=True, **base)
     del params
     _release()
     return counts, records
@@ -5225,6 +5283,8 @@ def _paligemma_phase(dev):
             del eng
     recorded = ops.launch_counts()
     _profile(cfg, params, prompts, "paligemma", steps=1)
+    _graph_phase("paligemma greedy", cfg, params, prompts, greedy=True,
+                 **base)
     del params
     _release()
     records += _replay_smoke_calls(label, calls, recorded, tag="14a",
@@ -6432,6 +6492,226 @@ def _dryrun_phase(dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the compiled decode step, graphed against eager
+# ---------------------------------------------------------------------------
+
+# phase 18's configurations, in the order main() runs them, and their
+# records
+GRAPH_CONFIGS = ("defaults greedy", "defaults sampled", "a13 greedy",
+                 "dense cache greedy", "bit_exact greedy", "MoE greedy",
+                 "gemma3 greedy", "mamba2 greedy", "paligemma greedy")
+GRAPH_RUNS: list = []
+
+
+def _graph_run(cfg, params, prompts, label: str, graphed: bool,
+               new_tokens: int, **kw):
+    """`prompts` (`new_tokens` each) on a fresh 4-slot engine, counted from
+    0, its decode steps replaying their graphs (`graphed`) or inside
+    `disable_graphs()`: the record phase 18's gates read (streams, launches,
+    decode steps, decode programs, graph replays, whether every graph was
+    captured), the host-clock time of each step without prefill
+    (synchronized; `replay_ms` those whose graphs were captured before the
+    step), the graphs' replays alone timed by CUDA events after the run
+    (`replay_device_ms`) and the peak of allocated memory over the run."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.runtime.step_graph import disable_graphs
+    from repro_torch.serve import Request, ServingEngine
+    engine = ServingEngine(cfg, params, batch_slots=4, **kw)
+    for rid, p in enumerate(prompts):
+        engine.submit(Request(rid=rid, prompt=p, max_new_tokens=new_tokens))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    step_ms, replay_ms = [], []
+    with contextlib.nullcontext() if graphed else disable_graphs():
+        while engine.queue or (engine.slot_phase != 0).any():
+            chunks = engine.stats["prefill_chunks"]
+            captured = (engine._steps is not None
+                        and engine._steps["decode"].captured)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if not engine.step():
+                break
+            torch.cuda.synchronize()
+            if engine.stats["prefill_chunks"] == chunks:
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+                if captured:
+                    replay_ms.append(step_ms[-1])
+    launches = ops.launch_counts()
+    summary = engine.execution_summary()
+    done = sorted(engine.done, key=lambda r: r.rid)
+    _check(len(done) == len(prompts)
+           and all(len(r.out_tokens) == new_tokens for r in done),
+           f"{label}: every request served {new_tokens} tokens")
+    replay_device_ms = None
+    if graphed and engine.device.type == "cuda":
+        # the step's graphs replayed alone over the last step's buffers
+        # (the engine is drained): a step's device time with the gaps
+        # between the graph's kernels, without the host's work
+        graphs = [g._graph for g in engine._steps.values()
+                  if getattr(g, "captured", False)]
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(10):
+            for g in graphs:
+                g.replay()
+        stop.record()
+        torch.cuda.synchronize()
+        replay_device_ms = start.elapsed_time(stop) / 10
+    rec = {"streams": {r.rid: list(map(int, r.out_tokens)) for r in done},
+           "launches": launches, "steps": engine.stats["decode_steps"],
+           "programs": engine.stats["decode_device_programs"],
+           "replays": summary["decode_graph_replays"],
+           "captured": bool(summary["step_graphs"]) and all(
+               g["captured"] for g in summary["step_graphs"].values()),
+           "fused": engine.fused_decode, "step_ms": step_ms,
+           "replay_ms": replay_ms, "replay_device_ms": replay_device_ms,
+           "peak": torch.cuda.max_memory_allocated()}
+    print(f"{label}: decode steps {rec['steps']}, programs "
+          f"{rec['programs']}, graph replays {rec['replays']}, step graphs "
+          f"{json.dumps(summary['step_graphs'])}, eager steps "
+          f"{summary['eager_steps']}, peak memory {rec['peak']} B")
+    return rec
+
+
+def _graph_mismatches(label: str, graphed: dict, eager: dict,
+                      per_step: int) -> list:
+    """Phase 18's exact gates on a graphed and an eager run of one
+    configuration (`_graph_run`'s records): the streams bitwise equal, the
+    launches equal kernel by kernel and variant by variant (each run
+    counted from 0), as many decode steps, `per_step` decode programs a
+    step in both (1 fused, 2 unfused: the decode and the sampler), and in
+    the graphed run every graph captured and every decode step after the
+    first (the warm-up) `per_step` replays; none in the eager run.
+    Returns the failures."""
+    bad = []
+    g_s, e_s = graphed["streams"], eager["streams"]
+    differ = sorted(r for r in set(g_s) | set(e_s) if g_s.get(r) != e_s.get(r))
+    if differ:
+        bad.append(f"{label}: streams of requests {differ} differ")
+    g_l, e_l = graphed["launches"], eager["launches"]
+    off = {k: (g_l.get(k, 0), e_l.get(k, 0)) for k in sorted(set(g_l) | set(e_l))
+           if g_l.get(k, 0) != e_l.get(k, 0)}
+    if off:
+        bad.append(f"{label}: launches (graphed, eager) differ: {off}")
+    if graphed["steps"] != eager["steps"]:
+        bad.append(f"{label}: decode steps {graphed['steps']} graphed, "
+                   f"{eager['steps']} eager")
+    for name, run in (("graphed", graphed), ("eager", eager)):
+        if run["programs"] != per_step * run["steps"]:
+            bad.append(f"{label}: {name} decode programs {run['programs']} "
+                       f"for {run['steps']} steps, not {per_step} a step")
+    want = per_step * (graphed["steps"] - 1)
+    if not graphed["captured"] or graphed["replays"] != want:
+        bad.append(f"{label}: graphed run replayed {graphed['replays']} "
+                   f"times (captured {graphed['captured']}), not {want}")
+    if eager["replays"]:
+        bad.append(f"{label}: the eager run replayed {eager['replays']} "
+                   f"graphs")
+    return bad
+
+
+def _graph_phase(label: str, cfg, params, prompts, new_tokens: int = 16,
+                 **kw):
+    """Phase 18 for one configuration on weights an earlier phase built:
+    `prompts` served graphed and inside `disable_graphs()` (engine knobs
+    `kw`), held to `_graph_mismatches`; the mean and median decode step on
+    the host clock, the peak memory and the device-busy share of 4
+    replayed (and 4 eager) steps under the profiler (`_profile`) beside
+    each other.  Appends the record to GRAPH_RUNS."""
+    import numpy as np
+    from repro_torch.runtime.step_graph import disable_graphs
+    runs = {}
+    for graphed in (True, False):
+        runs[graphed] = _graph_run(
+            cfg, params, prompts,
+            f"18 {label} {'graphed' if graphed else 'eager'}", graphed,
+            new_tokens, **kw)
+        _release()
+    per_step = 1 if runs[True]["fused"] else 2
+    bad = _graph_mismatches(f"18 {label}", runs[True], runs[False], per_step)
+    for b in bad:
+        print(f"18 FAILED: {b}")
+    _check(not bad, f"18 {label}: graphed decode steps equal eager ones "
+                    f"(streams, launches by variant, programs a step)")
+    prof = {k: v for k, v in kw.items()
+            if k in ("greedy", "temperature", "top_k", "max_seq",
+                     "page_size", "paged")}
+    busy = {True: _profile(cfg, params, prompts, f"18 {label} graphed",
+                           **prof)}
+    _release()
+    with disable_graphs():
+        busy[False] = _profile(cfg, params, prompts, f"18 {label} eager",
+                               **prof)
+    _release()
+    rec = {"config": label, "programs_a_step": per_step,
+           "decode_steps": runs[True]["steps"]}
+    for graphed, name in ((True, "graphed"), (False, "eager")):
+        r, b = runs[graphed], busy[graphed]
+        rec[name] = {
+            "mean_ms": float(np.mean(r["step_ms"])),
+            "median_ms": float(np.median(r["step_ms"])),
+            "replayed_mean_ms": (float(np.mean(r["replay_ms"]))
+                                 if r["replay_ms"] else None),
+            "replay_device_ms": r["replay_device_ms"],
+            "profile_step_ms": b["step_ms"], "busy_ms": b["busy_ms"],
+            "busy_share": (b["busy_ms"] / b["step_ms"] if b["busy_ms"]
+                           else None),
+            "peak_bytes": r["peak"]}
+    print(f"18 {label}: " + json.dumps(rec))
+    GRAPH_RUNS.append(rec)
+
+
+def _planted_host_read():
+    """Phase 18's last check: an `.item()` planted in the decode body of a
+    command-r smoke engine on the card must make its capture raise at the
+    second decode step, the graph left uncaptured (a step never falls back
+    to eager dispatch).  Run last, on a small engine of its own."""
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.core.quant import policy_by_name
+    from repro_torch.models import api, packing
+    from repro_torch.serve import Request, ServingEngine
+    cfg = configs.get_smoke("command_r_35b").replace(
+        quant=policy_by_name("serve_fused_p16"))
+    params = packing.pack_params(api.init(
+        torch.Generator(device="cuda").manual_seed(3), cfg, device="cuda"),
+        cfg)
+    engine = ServingEngine(cfg, params, batch_slots=2, max_seq=64)
+    body = engine._decode_body
+
+    def planted(**kw):
+        out = body(**kw)
+        kw["length"].sum().item()
+        return out
+
+    engine._decode_body = planted
+    rng = np.random.default_rng(3)
+    for rid in range(2):
+        engine.submit(Request(rid=rid, prompt=rng.integers(
+            0, cfg.vocab_size, 12).astype(np.int32), max_new_tokens=8))
+    raised = None
+    try:
+        for _ in range(8):
+            engine.step()
+    except RuntimeError as e:  # torch.AcceleratorError from the capture
+        raised = e
+    graph = engine._steps["decode"]
+    print(f"18 planted host read: the capture raised "
+          f"{type(raised).__name__ if raised else None}: "
+          f"{str(raised).splitlines()[0] if raised else ''}; eager calls "
+          f"{graph.eager_calls}, captured {graph.captured}, replays "
+          f"{graph.replays}")
+    _check(raised is not None and not graph.captured and graph.replays == 0
+           and graph.eager_calls == 1,
+           "18: a host read planted in the decode body fails the capture")
+    torch.cuda.synchronize()
+
+
 def _attribute_launches(kernels, runs):
     """Fill each kernel record's launches from the main-path runs' own
     counts (each from 0): launches_by_path, each run's count of the
@@ -6544,6 +6824,16 @@ def main() -> int:
     _profile(cfg13, params, prompts, "a13")
     _profile(cfg, params, prompts, "speculative round", steps=1,
              speculate_k=SPEC_K)
+    # ---- phase 18 on phase 5's weights: the decode step's graphs against
+    # eager dispatch (the later configurations where their weights live)
+    base = dict(max_seq=256, page_size=16, base_seed=1)
+    _graph_phase("defaults greedy", cfg, params, prompts, greedy=True,
+                 **base)
+    _graph_phase("defaults sampled", cfg, params, prompts, greedy=False,
+                 temperature=0.8, top_k=40, **base)
+    _graph_phase("a13 greedy", cfg13, params, prompts, greedy=True, **base)
+    _graph_phase("dense cache greedy", cfg, params, prompts, greedy=True,
+                 paged=False, max_seq=256, base_seed=1)
     # ---- phase 10c: the dense cache on phase 5's weights and requests
     counts10 = {"dense cache greedy": _dense_cache_phase(
         cfg, params, prompts, greedy, dev)}
@@ -6564,12 +6854,17 @@ def main() -> int:
     counts[label], bx_cfg, bx_params, bx_prompts = _bit_exact_phase(dev)
     print(f"{label}: launches {json.dumps(counts[label])}")
     _profile(bx_cfg, bx_params, bx_prompts, "bit_exact", steps=1)
+    _graph_phase("bit_exact greedy", bx_cfg, bx_params, bx_prompts,
+                 new_tokens=8, greedy=True, max_seq=64, page_size=16,
+                 base_seed=1)
     del bx_params
     _release()
     label = "MoE greedy"
     counts[label], moe_cfg, moe_params, moe_prompts = _moe_phase(dev)
     print(f"{label}: launches {json.dumps(counts[label])}")
     _profile(moe_cfg, moe_params, moe_prompts, "MoE", steps=2)
+    _graph_phase("MoE greedy", moe_cfg, moe_params, moe_prompts,
+                 greedy=True, max_seq=256, page_size=16, base_seed=1)
     del moe_params
     _release()
     # ---- phase 9: QAT training of minitron-8b at full width, its STE
@@ -6623,6 +6918,9 @@ def main() -> int:
     _release()
     counts13, m_cfg, m_params, m_prompts = _mamba_phase(dev)
     _profile(m_cfg, m_params, m_prompts, "mamba2", steps=1)
+    # phase 18: 4 requests of 16 tokens, 16 decode steps of all 48 layers
+    _graph_phase("mamba2 greedy", m_cfg, m_params, m_prompts[:4],
+                 greedy=True, max_seq=256, base_seed=1)
     del m_params
     _release()
     c, recs = _recurrent_smoke_on_card(dev)
@@ -6649,6 +6947,21 @@ def main() -> int:
     # ---- phase 17: the dry run's reckoning against three cells on the card
     _dryrun_phase(dev)
     _release()
+    # ---- phase 18's summary (each configuration ran where its weights
+    # lived), then its planted host read
+    names = [r["config"] for r in GRAPH_RUNS]
+    _check(names == list(GRAPH_CONFIGS),
+           f"18: every configuration graphed against eager ({names})")
+    for r in GRAPH_RUNS:
+        g, e = r["graphed"], r["eager"]
+        print(f"18 summary {r['config']}: decode step mean / median "
+              f"{g['mean_ms']:.3f} / {g['median_ms']:.3f} ms graphed "
+              f"(replayed steps {g['replayed_mean_ms']}; the graphs "
+              f"alone {g['replay_device_ms']} ms on the device), "
+              f"{e['mean_ms']:.3f} / {e['median_ms']:.3f} ms eager; busy "
+              f"share {g['busy_share']} graphed, {e['busy_share']} eager; "
+              f"peak {g['peak_bytes']} B graphed, {e['peak_bytes']} B eager")
+    _planted_host_read()
     # K3 splits every main path's key spans (tables of more than 2 pages)
     # and merges the partials: each launch ran the merge kernel
     for label, c in counts.items():

@@ -10,7 +10,11 @@ caller does not pass is resolved through the autotune cache
 (`kernels/autotune.py`, `_resolve`): only knobs that change no value bit
 are tunable, so far K7's `t_block`; every other launch geometry is fixed
 per kernel.  `launch_counts` / `reset_launches` read and clear the
-per-kernel launch counters.
+per-kernel launch counters.  The wrappers count in Python as they launch,
+so a CUDA graph's replay would count nothing: `captured_launches` takes
+the launches recorded while a graph captures back out of the counters as
+the graph's delta, and `add_launches` adds that delta at each replay
+(`runtime/step_graph.py`).
 
 The raw entry points take and return codes and are forward-only; the STE
 entry points (`fused_matmul_ste`, `matmul_posit_weights_ste` and the
@@ -19,6 +23,8 @@ straight-through backward (`torch.autograd.Function`), so QAT trains on
 the serving datapath.
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -42,6 +48,31 @@ def reset_launches():
     for table in _COUNTERS:
         for name in table:
             table[name] = 0
+
+
+@contextlib.contextmanager
+def captured_launches():
+    """Launches counted inside leave the counters as they were and are
+    handed back as a delta {key: launches} (filled when the block exits,
+    also by an exception): what one replay of a graph captured inside
+    launches."""
+    before = [dict(table) for table in _COUNTERS]
+    delta: dict = {}
+    try:
+        yield delta
+    finally:
+        for table, old in zip(_COUNTERS, before):
+            for name, n in table.items():
+                if n != old.get(name, 0):
+                    delta[name] = n - old.get(name, 0)
+                    table[name] = old.get(name, 0)
+
+
+def add_launches(delta: dict):
+    """Count a graph replay's launches, a `captured_launches` delta."""
+    for name, n in delta.items():
+        table = next(t for t in _COUNTERS if name in t)
+        table[name] += n
 
 
 def _resolve(kernel: str, shape, fmts, kw: dict, names) -> dict:

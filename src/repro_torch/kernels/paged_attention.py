@@ -338,7 +338,11 @@ def scale_logits(l, temperature):
     """l / max(T, 1e-6) in f32, as the reference's `logits /
     jnp.maximum(temperature, 1e-6)`: the divisor is a 0-dim f32 tensor on
     l's device.  (PyTorch divides a CUDA tensor by a Python or CPU scalar
-    as a multiply by its reciprocal, which can be one ulp off.)"""
+    as a multiply by its reciprocal, which can be one ulp off.)  A 0-dim
+    f32 tensor on l's device is taken as the divisor itself (a captured
+    step cannot copy a host scalar to the card)."""
+    if isinstance(temperature, torch.Tensor):
+        return l / temperature
     t = torch.tensor(max(float(temperature), 1e-6), dtype=torch.float32,
                      device=l.device)
     return l / t

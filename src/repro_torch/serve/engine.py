@@ -12,7 +12,15 @@ The engine is a host-side slot scheduler over the model entry points:
   * `decode_step` — one token for every decoding slot per iteration; with
     `fused_decode` (the default) the head GEMM and the sampler run in the
     fused decode-sample kernel, else the decode pass returns logits and
-    the host-side sampler draws.
+    the sampler draws.  On a card the single pool's decode step is one
+    device program, as the reference's `jax.jit` makes it: the first step
+    runs eagerly, the second captures the step as a CUDA graph over
+    static buffers (tokens, lengths, block tables, the `active` mask, the
+    gumbel noise) and every later step replays it, one replay a fused
+    step and two unfused (the decode and the sampler graph)
+    (`runtime/step_graph.py`; `disable_graphs()` runs it op by op).
+    Prefill, speculative rounds, copy-on-write forks and sharded pools
+    dispatch eagerly.
 
 The KV cache is a pool of posit-coded pages `[L, n_pages, page_size,
 Hkv*Dh]` updated in place, with a block table per slot; pages come from a
@@ -109,6 +117,7 @@ from repro_torch.models import paged as paged_mod
 from repro_torch.models.paged import PagedLayout, PageShard, fork_page, \
     fused_prefill_applies, fused_prefill_span_ok
 from repro_torch.parallel import sharding
+from repro_torch.runtime import step_graph
 
 
 @dataclasses.dataclass
@@ -405,7 +414,12 @@ class ServingEngine:
         # logits head and the host-side sampler; so does the dense cache
         self.fused_decode = (self.paged and bool(q.fused_decode)
                              and q.execution != "bit_exact")
-        self.noise_fn = noise_fn or self._default_noise
+        # None: the default per-(seed, draw) generators (`_default_noise`);
+        # a bound method here would make the engine a reference cycle,
+        # which keeps a dropped engine's graph pool alive until a collection
+        self.noise_fn = noise_fn
+        # the decode step's static buffers and graphs (`_step_graphs`)
+        self._steps = None
 
         # host-owned scheduler state (device copies are refreshed per call)
         self.lengths = np.zeros(batch_slots, np.int32)
@@ -656,6 +670,7 @@ class ServingEngine:
             "prefill_device_programs": self.stats["prefill_device_programs"],
             "decode_steps": self.stats["decode_steps"],
             "decode_device_programs": self.stats["decode_device_programs"],
+            **self._graph_summary(),
             "pages_shared_mapped": self.pages_shared_mapped,
             "cow_forks": self.stats["cow_forks"],
             "preemptions": self.stats["preemptions"],
@@ -669,6 +684,31 @@ class ServingEngine:
                 / self.stats["spec_draft_tokens"]
                 if self.stats["spec_draft_tokens"] else None),
         }
+
+    def _graph_summary(self) -> dict:
+        """Which steps run as device programs of their own: on a card the
+        single pool's decode step replays its graphs (`decode_graphed`;
+        `step_graphs`: each graph's captured flag, replays and eager calls
+        so far, `decode_graph_replays` their sum); the steps in
+        `eager_steps` dispatch op by op."""
+        g = self._steps or {}
+        graphs = {name: {"captured": sg.captured, "replays": sg.replays,
+                         "eager_calls": sg.eager_calls}
+                  for name in ("decode", "sample")
+                  if (sg := g.get(name)) is not None}
+        eager = ["prefill chunk groups"]
+        if self.speculate_k:
+            eager.append("speculative rounds")
+        if self.prefix_sharing:
+            eager.append("copy-on-write forks")
+        if self._page_shard is not None:
+            eager.append("decode steps (sharded pool)")
+        return {"decode_graphed": (self.device.type == "cuda"
+                                   and self._page_shard is None),
+                "step_graphs": graphs,
+                "decode_graph_replays": sum(v["replays"]
+                                            for v in graphs.values()),
+                "eager_steps": eager}
 
     # ------------------------------------------------------------------
     # scheduling
@@ -755,8 +795,10 @@ class ServingEngine:
 
     def _meta(self, mask=None, lengths=None):
         """The cache with host-owned lengths / block tables pushed to the
-        device; `mask` zeroes rows of slots that must not touch real state
-        (free / mid-prefill slots in decode, non-group slots in prefill).
+        device (prefill and speculative rounds; the decode step stages its
+        own, `_decode`); `mask` zeroes rows of slots that must not touch
+        real state (free / mid-prefill slots in decode, non-group slots in
+        prefill).
         `lengths` overrides the host lengths (the speculative draft loop
         advances a transient position without committing it)."""
         lengths = (self.lengths if lengths is None else lengths).copy()
@@ -782,10 +824,11 @@ class ServingEngine:
                        + draw) & 0x7FFF_FFFF_FFFF_FFFF)
         return api.sample_noise(g, 1, vocab, self.device)[0]
 
-    def _noise_rows(self, draws):
+    def _noise_rows(self, draws, out=None):
         """[len(draws), V] gumbel rows for (slot, draw index) pairs, zeros
-        for None entries (discarded draws); None when greedy.  Advances no
-        counter."""
+        for None entries (discarded draws); None when greedy.  With `out`
+        (a [len(draws), V] f32 tensor) the rows are written into it.
+        Advances no counter."""
         if self.greedy:
             return None
         V = self.cfg.vocab_size
@@ -795,21 +838,22 @@ class ServingEngine:
                 rows.append(torch.zeros(V, dtype=torch.float32,
                                         device=self.device))
                 continue
-            row = self.noise_fn(self._slot_seed[d[0]], int(d[1]), V)
+            row = (self.noise_fn or self._default_noise)(
+                self._slot_seed[d[0]], int(d[1]), V)
             if not isinstance(row, torch.Tensor):
                 row = torch.from_numpy(np.array(row, np.float32))
             rows.append(row.to(self.device, torch.float32).reshape(V))
-        return torch.stack(rows)
+        return torch.stack(rows, out=out)
 
-    def _sample_noise(self, slots, live=None):
+    def _sample_noise(self, slots, live=None, out=None):
         """[len(slots), V] gumbel rows (None when greedy), advancing each
         live slot's draw counter; rows of non-live slots are zeros and
-        their draws are discarded."""
+        their draws are discarded.  `out` as `_noise_rows`'."""
         if self.greedy:
             return None
         draws = [(s, self._slot_sampled[s]) if live is None or live[s]
                  else None for s in slots]
-        noise = self._noise_rows(draws)
+        noise = self._noise_rows(draws, out=out)
         for d in draws:
             if d is not None:
                 self._slot_sampled[d[0]] += 1
@@ -1323,26 +1367,8 @@ class ServingEngine:
             for s in np.nonzero(decode_mask)[0]:
                 pos = int(self.lengths[s])
                 self._ensure_writable(int(s), pos, pos + 1)
-        cache_in = self._meta(decode_mask)
-        tokens_in = torch.from_numpy(self.next_token.copy()).to(self.device)
         slots = [s for s in range(self.B) if decode_mask[s]]
-        # dense KV rows and recurrent state rows of free or mid-prefill
-        # slots stay unwritten, as the reference reverts them
-        active = (torch.from_numpy(decode_mask).to(self.device)
-                  if not self.paged or self._recurrent else None)
-        if self.fused_decode:
-            noise = self._sample_noise(list(range(self.B)), live=decode_mask)
-            toks_all, _ = api.decode_and_sample(
-                self.params, tokens_in, cache_in, self.cfg, noise,
-                self.temperature, greedy=self.greedy, top_k=self.top_k,
-                active=active, shard=self._page_shard)
-            toks = toks_all.cpu().numpy().astype(np.int32)[slots]
-        else:
-            logits, _ = api.decode_step(self.params, tokens_in, cache_in,
-                                        self.cfg, active=active,
-                                        shard=self._page_shard)
-            toks = self._sample(logits, list(range(self.B)),
-                                live=decode_mask)[slots]
+        toks = self._decode(decode_mask)[slots]
         self.stats["decode_steps"] += 1
         self.stats["decode_device_programs"] += 1 if self.fused_decode else 2
         for tok, slot in zip(toks, slots):
@@ -1355,6 +1381,113 @@ class ServingEngine:
                     req.eos_id is not None and int(tok) == req.eos_id):
                 self._retire(slot)
         return True
+
+    def _step_graphs(self) -> dict:
+        """The decode step's static buffers, their pinned host twins, the
+        decode graph and (unfused) the sampler graph, made at the first
+        decode step.  The buffers hold the step's tokens, lengths, block
+        tables (paged), `active` mask (dense cache, recurrent state: the
+        rows of free or mid-prefill slots stay unwritten, as the reference
+        reverts them) and gumbel noise (sampled); temperature, top_k and
+        greedy are the engine's constants, so a capture fixes them.  A
+        sharded pool's step runs eagerly over the same buffers (no graph
+        backend)."""
+        if self._steps is None:
+            dev, B = self.device, self.B
+            bufs = {"tokens": torch.zeros(B, dtype=torch.int32, device=dev),
+                    "length": torch.zeros(B, dtype=torch.int32, device=dev)}
+            if self.paged:
+                bufs["block_table"] = torch.zeros(
+                    self.block_tables.shape, dtype=torch.int32, device=dev)
+            if not self.paged or self._recurrent:
+                bufs["active"] = torch.zeros(B, dtype=torch.bool, device=dev)
+            if not self.greedy:
+                bufs["noise"] = torch.zeros((B, self.cfg.vocab_size),
+                                            dtype=torch.float32, device=dev)
+            pin = dev.type == "cuda"
+            backend = (step_graph._backend(dev) if self._page_shard is None
+                       else None)
+            self._steps = {
+                "buffers": bufs,
+                "host": {name: torch.empty(b.shape, dtype=b.dtype,
+                                           pin_memory=pin)
+                         for name, b in bufs.items() if name != "noise"},
+                "decode": step_graph.StepGraph("decode", backend),
+                "sample": (None if self.fused_decode else
+                           step_graph.StepGraph("sample", backend)),
+                "temperature": torch.tensor(max(self.temperature, 1e-6),
+                                            dtype=torch.float32, device=dev)}
+        return self._steps
+
+    def _step_inputs(self):
+        """[(name, body, static inputs)] of the decode step's programs: the
+        decode body, and unfused the sampler over the decode's logits."""
+        g = self._step_graphs()
+        bufs = g["buffers"]
+        noise = {"noise": bufs["noise"]} if "noise" in bufs else {}
+        decode_in = {k: v for k, v in bufs.items() if k != "noise"}
+        if self.fused_decode:
+            return [("decode", self._decode_body, dict(decode_in, **noise))]
+        logits = torch.zeros((self.B, self.cfg.vocab_size),
+                             dtype=torch.float32, device=self.device)
+        return [("decode", self._decode_body, decode_in),
+                ("sample", self._sample_body, dict(logits=logits, **noise))]
+
+    def _decode_body(self, tokens, length, block_table=None, active=None,
+                     noise=None):
+        """The decode step's device work, read from the static buffers: [B]
+        int32 tokens from the fused head + sampler, or the [B, V] f32
+        logits; the KV pages or rows and recurrent states written in
+        place."""
+        cache = {name: leaf for name, leaf in self.cache.items()
+                 if name not in ("length", "block_table")}
+        cache["length"] = length
+        if block_table is not None:
+            cache["block_table"] = block_table
+        if self.fused_decode:
+            return api.decode_and_sample(
+                self.params, tokens, cache, self.cfg, noise,
+                self.temperature, greedy=self.greedy, top_k=self.top_k,
+                active=active, shard=self._page_shard)[0]
+        return api.decode_step(self.params, tokens, cache, self.cfg,
+                               active=active, shard=self._page_shard)[0]
+
+    def _sample_body(self, logits, noise=None):
+        """The sampler over the decode step's [B, V] logits."""
+        return sample_logits(logits.to(torch.float32), noise,
+                             self._steps["temperature"], greedy=self.greedy,
+                             top_k=self.top_k)
+
+    def _decode(self, decode_mask):
+        """One decode step: the host's tokens, lengths, block tables and
+        mask (rows of slots not decoding zeroed) and the live slots' noise
+        staged into the static buffers, the decode program run (on a card
+        a graph replay for the single pool: `_step_graphs`), unfused then
+        the sampler program, and the [B] int32 tokens read back."""
+        g = self._step_graphs()
+        bufs = g["buffers"]
+        staged = {"tokens": self.next_token,
+                  "length": np.where(decode_mask, self.lengths, 0)}
+        if self.paged:
+            staged["block_table"] = np.where(decode_mask[:, None],
+                                             self.block_tables, 0)
+        if "active" in bufs:
+            staged["active"] = decode_mask
+        for name, arr in staged.items():
+            host = g["host"][name]
+            host.numpy()[...] = arr
+            bufs[name].copy_(host, non_blocking=True)
+        noise = {}
+        if "noise" in bufs:
+            noise["noise"] = self._sample_noise(range(self.B), live=decode_mask,
+                                                out=bufs["noise"])
+        decode_in = {k: v for k, v in bufs.items() if k != "noise"}
+        if self.fused_decode:
+            toks = g["decode"](self._decode_body, **decode_in, **noise)
+        else:
+            logits = g["decode"](self._decode_body, **decode_in)
+            toks = g["sample"](self._sample_body, logits=logits, **noise)
+        return toks.cpu().numpy().astype(np.int32)
 
     # ------------------------------------------------------------------
     # speculative decoding

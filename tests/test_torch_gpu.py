@@ -2178,3 +2178,86 @@ def test_compressed_psum_leaf_on_card_equals_cpu(cuda, n):
     assert c["posit_decode:p8_2"] == c["posit_decode"] == n * n + 3 * n
     for a, b in zip(got_r + got_e, want_r + want_e):
         assert _bits_equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# the compiled decode step: graph replays against eager dispatch
+# ---------------------------------------------------------------------------
+
+def _graph_engine_run(cuda, arch, greedy, graphed):
+    """A smoke engine's streams, launch counts (from 0) and summary over
+    5 requests on 3 slots (prefill interleaved), its decode steps replayed
+    (`graphed`) or inside disable_graphs()."""
+    import contextlib
+
+    import numpy as np
+    from repro_torch import configs
+    from repro_torch.core.quant import policy_by_name
+    from repro_torch.models import api, packing
+    from repro_torch.runtime.step_graph import disable_graphs
+    from repro_torch.serve import Request, ServingEngine
+    cfg = configs.get_smoke(arch).replace(
+        quant=policy_by_name("serve_fused_p16"))
+    params = packing.pack_params(api.init(
+        torch.Generator(device=cuda).manual_seed(4), cfg, device=cuda), cfg)
+    eng = ServingEngine(cfg, params, batch_slots=3, max_seq=64,
+                        greedy=greedy, temperature=0.8, top_k=5,
+                        prefill_chunks_per_step=1, device=cuda)
+    rng = np.random.default_rng(4)
+    for rid, (n, new) in enumerate(((5, 7), (19, 5), (11, 9), (3, 6),
+                                    (26, 4))):
+        eng.submit(Request(rid=rid, prompt=rng.integers(
+            0, cfg.vocab_size, n).astype(np.int32), max_new_tokens=new))
+    ops.reset_launches()
+    with contextlib.nullcontext() if graphed else disable_graphs():
+        done = eng.run()
+    return ({r.rid: list(r.out_tokens) for r in done}, ops.launch_counts(),
+            eng.execution_summary())
+
+
+@pytest.mark.parametrize("arch", ["command_r_35b", "mamba2_1_3b"])
+@pytest.mark.parametrize("greedy", [True, False])
+def test_graphed_decode_equals_eager(cuda, arch, greedy):
+    g_streams, g_counts, g = _graph_engine_run(cuda, arch, greedy, True)
+    e_streams, e_counts, e = _graph_engine_run(cuda, arch, greedy, False)
+    assert g_streams == e_streams
+    assert g_counts == e_counts
+    per_step = 1 if g["fused_decode"] else 2
+    assert g["decode_graphed"] and g["decode_steps"] > 2
+    assert g["decode_graph_replays"] == per_step * (g["decode_steps"] - 1)
+    assert e["decode_graph_replays"] == 0
+    assert g["decode_device_programs"] == per_step * g["decode_steps"]
+
+
+def test_graph_capture_raises_on_a_host_read(cuda):
+    """An `.item()` in the decode body: the warm-up runs, the capture
+    raises, nothing falls back to eager, the stream is the caller's."""
+    import numpy as np
+    from repro_torch import configs
+    from repro_torch.core.quant import policy_by_name
+    from repro_torch.models import api, packing
+    from repro_torch.serve import Request, ServingEngine
+    cfg = configs.get_smoke("command_r_35b").replace(
+        quant=policy_by_name("serve_fused_p16"))
+    params = packing.pack_params(api.init(
+        torch.Generator(device=cuda).manual_seed(4), cfg, device=cuda), cfg)
+    eng = ServingEngine(cfg, params, batch_slots=2, max_seq=64, device=cuda)
+    body = eng._decode_body
+
+    def planted(**kw):
+        out = body(**kw)
+        kw["length"].sum().item()
+        return out
+
+    eng._decode_body = planted
+    eng.submit(Request(rid=0, prompt=np.arange(9, dtype=np.int32),
+                       max_new_tokens=8))
+    stream = torch.cuda.current_stream()
+    eng.step()
+    with pytest.raises(RuntimeError):
+        eng.step()
+    graph = eng._steps["decode"]
+    assert not graph.captured and graph.replays == 0
+    assert graph.eager_calls == 1
+    assert torch.cuda.current_stream() == stream
+    torch.cuda.synchronize()

@@ -458,3 +458,45 @@ def test_dryrun_gates_reject_planted_faults(fault):
         want = "state bytes"
     bad = chip_smoke._dryrun_mismatches(record, held, counts)
     assert len(bad) == 1 and want in bad[0], bad
+
+
+def _graph_runs():
+    """Phase 18's records of a graphed and an eager run that agree: 5
+    decode steps, the first the warm-up, one program a step."""
+    graphed = dict(streams={0: [5, 9, 9, 2, 7], 1: [3, 3, 8, 1, 4]},
+                   launches={"posit_gemv_f": 140, "posit_gemv_f:p16_2": 140,
+                             "decode_sample": 5, "decode_sample:p16_2": 5},
+                   steps=5, programs=5, replays=4, captured=True)
+    eager = dict(graphed, streams={r: list(t) for r, t in
+                                   graphed["streams"].items()},
+                 launches=dict(graphed["launches"]), replays=0,
+                 captured=False)
+    return graphed, eager
+
+
+def test_graph_gates_hold_on_equal_runs():
+    assert chip_smoke._graph_mismatches("18 t", *_graph_runs(), 1) == []
+
+
+@pytest.mark.parametrize("fault", ["token", "launches", "variant",
+                                   "replays", "programs", "steps"])
+def test_graph_gates_reject_planted_faults(fault):
+    """A differing token, a launch count off by one (a kernel's total or a
+    variant's alone), a replay missing, the programs a step wrong, or a
+    step more must each fail phase 18's gates."""
+    graphed, eager = _graph_runs()
+    if fault == "token":
+        graphed["streams"][1][3] += 1
+    elif fault == "launches":
+        eager["launches"]["posit_gemv_f"] += 1
+    elif fault == "variant":
+        graphed["launches"]["posit_gemv_f:p16_2_t"] = 1
+    elif fault == "replays":
+        graphed["replays"] -= 1
+    elif fault == "programs":
+        graphed["programs"] = 10
+    else:
+        eager["steps"] += 1
+        eager["programs"] += 1
+    bad = chip_smoke._graph_mismatches("18 t", graphed, eager, 1)
+    assert len(bad) == 1, bad
