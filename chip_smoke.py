@@ -49,10 +49,15 @@ Phases (any failure exits non-zero; no phase is caught):
      sampler's temperature division bitwise the host's; the same over
      qwen3's [D, V] head at 16 rows; both heads timed at 4 and 16 rows
      with the two passes apart, every launch on the p16_2 variant; K5 pages
-     bitwise and attention within 2e-5 (f32, the SIMT variant) or one bf16
-     ulp (bf16, the tensor-core variant) at both span branches and at 64 /
-     4 heads (G = 16) over P(8,2) and bf16 pages, each case on the variant
-     its dtype picks; K6 within 16 u sqrt(K) ||a_i . b_j||_2 at every
+     bitwise and attention within 2e-5 (f32, `tc_f32`) or one bf16 ulp
+     (bf16, `tc`) at both span branches and at 64 / 4 heads (G = 16) over
+     P(8,2) and bf16 pages, each case on the variant its dtype picks;
+     `tc_f32` at the serving shape, the long span and gemma3-4b's chunk
+     (head_dim 256, window 1024 and global), each A/B against the SIMT
+     kernel in the same call and beside masked SDPA in f32 and the exact
+     form's bound, and an exactness probe whose rows hang on one bf16
+     term of q * scale, k, v or p (chunk and f32-pool history); K6
+     within 16 u sqrt(K) ||a_i . b_j||_2 at every
      projection shape of a layer at M 4 (split-K GEMV) and M 256 (split-bf16
      tensor cores), a limit two planted
      faults must fail, bitwise equal on a second call, timed per shape
@@ -63,9 +68,15 @@ Phases (any failure exits non-zero; no phase is caught):
      bitwise equal; K8's compile-time variant bitwise at M 4, K 8192, N
      1024, B also transposed, ragged with special codes, at M 64, and over
      the tied head (N_out 256000, B a transposed view, 256 columns
-     checked), its run-time variant on P(10/16,2) N 8, every step shape
-     timed beside its operations bound (integer operations counted from
-     the built kernel's SASS, scripts/count_k8_sass.py) and latency floor;
+     checked), every step shape timed beside its operations bound
+     (integer operations counted from the built kernel's SASS,
+     scripts/count_k8_sass.py) and latency floor; K8 at every Table I
+     configuration of formats.py on its compile-time variant and at two
+     off the table (N 2 without guard bits or sticky, N 16) on the
+     run-time one, bitwise at M 4, K 1024, N 256, each timed at M 4 and
+     M 64 (K 8192, N 1024) beside its SASS-counted bound and a lone
+     chain's latency floor (the W_m 256 quire refused, as the reference
+     refuses it);
      K9 within the sum bound at qwen3's expert
      shapes with float and coded activations and a fmt_out encode, a limit
      the two planted faults must fail, and at a decode step's routing (4
@@ -115,12 +126,19 @@ Phases (any failure exits non-zero; no phase is caught):
      prefill launches the split-bf16 tensor-core GEMM;
   6. profile: torch.profiler over a few decode steps with four slots busy,
      at the defaults and under a13, and over one speculative round, device
-     time per step by kernel and the device's busy share;
+     time per step by kernel and the device's busy share; then phase 5's
+     queue greedy with f32 activations on its weights (`_f32_serving`:
+     every K5 launch on `tc_f32`, each K5 call replayed against its plain
+     version, the same queue with K5 on SIMT for the tokens/s and prefill
+     share beside it);
   7. bit_exact: command-r-35b at full width, 2 layers, validate_bit_exact
      (every projection and the tied head through K8, bf16 float pages, no
      fused head): 4 requests of 16-32 tokens, 8 new tokens each, greedy;
      every K8 launch on the compile-time variant p13_16_n4, every K2
-     launch on p13_2;
+     launch on p13_2; then the same weights and queue at
+     PDPU_P13_16_N8_W10 (pdpu_n 8, pdpu_w_m 10), counted from 0, every K8
+     launch on p13_16_n8_w10 and each K8 call replayed bitwise against
+     the plain version on 64 of its columns (W_m + 1 rejected);
   8. MoE: qwen3-moe-235b at full width (4 of 94 layers; weights drawn and
      packed layer by layer), serve_fused_p16 defaults: 8 requests sharing a
      64-token system prompt, 16 new tokens each, greedy, every expert GEMM
@@ -164,12 +182,14 @@ Phases (any failure exits non-zero; no phase is caught):
      tc256 variant (bf16, head_dim 256, a 64-token chunk at starts >= 1024,
      window 1024 and 2^30) within one bf16 ulp, pages bitwise, timed beside
      masked SDPA and its bound (the exact form: one bf16 product a q.k
-     multiply-add and three a p.v one, or the bytes); the SIMT variant at
-     the same shape in f32 within 2e-5; K4 over the tied
+     multiply-add and three a p.v one, or the bytes); K4 over the tied
      [262144, 2560] head; then 8 requests (a shared 64-token system prompt
      plus 1040-1240 of their own, so every span passes the window) at
      max_seq 1536, 16 new tokens, greedy and sampled, every K5 launch on
-     `tc256`; and the window bites: the first decode step's logits with and
+     `tc256`; greedy again with f32 activations (every K5 launch on
+     `tc_f32` at head_dim 256, each K5 call replayed against its plain
+     version; the same queue with K5 on SIMT for the tokens/s beside it);
+     and the window bites: the first decode step's logits with and
      without the window differ by more than 1e-3;
      10b command-r-plus-104b at full width (d_model 12288, 96 / 8 heads of
      128, d_ff 33792, vocab 256000; 2 of 64 layers): K1 at [12288, 33792],
@@ -240,7 +260,7 @@ Phases (any failure exits non-zero; no phase is caught):
      chunk form); one decode step profiled.
      13b the jamba and mamba2 smoke engines (f32 activations) with the same
      packed weights on the card and the CPU, greedy, 6 requests sharing a
-     prefix: equal streams; jamba's K5 (`simt`), K3, K4, K9 and GEMV
+     prefix: equal streams; jamba's K5 (`tc_f32`), K3, K4, K9 and GEMV
      launches, mamba2's GEMV / K1 / K2 only, printed by variant; every
      kernel the card run launched replayed at each signature the run
      called it with, on copies of that call's inputs, against its plain
@@ -1310,20 +1330,29 @@ def _k4_decode_sample(dev):
 
 
 def _k5_case(dev, act, M, starts, reps, Hkv=8, paged_fmt="P8_2", Hq=64,
-             Dh=128, window=1 << 30):
+             Dh=128, window=1 << 30, force=None):
     """K5 against its plain version at the serving geometry (4 slots, a
     64-token chunk, Hq query heads of Dh over Hkv KV heads, 16-token pages,
     M pages per slot, a sliding window), P(8,2) pages or (paged_fmt None)
-    bf16 float pages.  Slots 0 and 1 share their history pages; slot 3 has
-    page_ok all 0.  Checks the variant the wrapper took
-    (`prefill_variant`).  Returns a dict: max |err|, times, bounds and the
-    library time."""
+    float pages in act.  Slots 0 and 1 share their history pages; slot 3
+    has page_ok all 0.  Checks the variant the wrapper took
+    (`prefill_variant`; `force` names another one to run instead, for an
+    A/B on one card).  Returns a dict: the variant, max |err|, times,
+    bounds and the library time."""
     import torch
     import torch.nn.functional as F
     from repro_torch.core import formats, posit
     from repro_torch.kernels import ops
     from repro_torch.kernels import prefill_attention as pf
     from repro_torch.kernels import work
+    if force is not None:
+        chosen = pf.prefill_variant
+        pf.prefill_variant = lambda dtype, head_dim: force
+        try:
+            return _k5_case(dev, act, M, starts, reps, Hkv, paged_fmt, Hq,
+                            Dh, window)
+        finally:
+            pf.prefill_variant = chosen
     fmt = getattr(formats, paged_fmt) if paged_fmt else None
     B, C, ps = 4, 64, 16
     P = B * M + 1
@@ -1401,14 +1430,167 @@ def _k5_case(dev, act, M, starts, reps, Hkv=8, paged_fmt="P8_2", Hq=64,
     hist_rows = {(table[b][r // ps], r % ps) for b, s in enumerate(starts)
                  for r in range(max(0, s - window + 1), s)}
     pairs = sum(min(s + j + 1, window) for s in starts for j in range(C))
-    kernel_work = work.prefill(B, C, Hq, Hkv, Dh, q.element_size(),
-                               kp.element_size(), len(hist_rows),
-                               (B - 1) * C, pairs, variant)
+    kernel_work = work.prefill(
+        B, C, Hq, Hkv, Dh, q.element_size(), kp.element_size(),
+        len(hist_rows), (B - 1) * C, pairs, variant,
+        chunk_pairs=B * sum(min(j + 1, window) for j in range(C)),
+        kv_terms=pf.prefill_kv_terms(kp.dtype, fmt, act == torch.bfloat16))
     bound, by = _bound(kernel_work)
-    return dict(err=err, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
-                bound=bound, by=by, library_ms=library_ms,
+    return dict(variant=variant, err=err, ms=ms, call_ms=call_ms,
+                plain_ms=plain_ms, bound=bound, by=by, library_ms=library_ms,
                 f32_fma_ms=_bound(_f32_form(kernel_work))[0],
                 bytes_ms=_bytes_ms(kernel_work))
+
+
+# K5's f32 shapes (PERF.md §6): the serving shape, the long span (two
+# flash chunks of history before the tail) and gemma3-4b's chunk (head_dim
+# 256, G 2) with its local layers' window and its global layers'
+K5_F32_SHAPES = (
+    ("serving shape", dict(M=16, starts=[64, 64, 130, 190])),
+    ("long span", dict(M=128, starts=[1024, 1024, 1500, 1984])),
+    ("gemma3-4b head_dim 256, window 1024",
+     dict(M=128, starts=[1024, 1100, 1500, 1960], Hkv=4, Hq=8, Dh=256,
+          window=1024)),
+    ("gemma3-4b head_dim 256, global",
+     dict(M=128, starts=[1024, 1100, 1500, 1960], Hkv=4, Hq=8, Dh=256)))
+# the runs whose K5 launches the tc_f32 records count, and the bit_exact
+# run at PDPU_P13_16_N8_W10 (phase 7) whose K8 launches the Table I
+# records count
+F32_RUNS = ("command-r f32 greedy", "gemma3 f32 greedy")
+BIT_EXACT_W10 = "bit_exact w10 greedy"
+
+
+def _k5_f32(dev):
+    """tc_f32 at K5_F32_SHAPES against its plain version, and A/B against
+    the SIMT kernel (the parent's f32 path) in the same call; the exactness
+    probe (`_k5_probe`).  Returns one kernel record a shape."""
+    import torch
+    records = []
+    for label, kw in K5_F32_SHAPES:
+        new = _k5_case(dev, torch.float32, reps=10, **kw)
+        _check(new["variant"] == "tc_f32", f"K5 f32 {label}: tc_f32")
+        old = _k5_case(dev, torch.float32, reps=3, force="simt", **kw)
+        print(f"kernel prefill_attention tc_f32 {label}: ms {new['ms']:.4f} "
+              f"(A/B: simt {old['ms']:.4f}, {old['ms'] / new['ms']:.2f}x), "
+              f"plain_ms {new['plain_ms']:.3f}, bound_ms {new['bound']:.4f} "
+              f"({new['by']}, the exact form; f32 FMA "
+              f"{new['f32_fma_ms']:.4f}), library_ms (SDPA f32, masked) "
+              f"{new['library_ms']:.4f} ({new['ms'] / new['library_ms']:.2f}x"
+              f": target "
+              f"{'met' if new['ms'] <= new['library_ms'] else 'not met'}"
+              f"), max_abs_err {new['err']:.3g} (simt {old['err']:.3g})")
+        records.append(dict(
+            name=f"prefill_attention (tc_f32, {label})",
+            counter="prefill_attention:tc_f32", paths=F32_RUNS,
+            source="src/repro_torch/csrc/prefill_attention.cu",
+            replaces="src/repro/kernels/prefill_attention.py:251",
+            max_abs_err=new["err"], ms=new["ms"], call_ms=new["call_ms"],
+            plain_ms=new["plain_ms"], bound_ms=new["bound"],
+            bound_by=new["by"], library_ms=new["library_ms"],
+            simt_ms=old["ms"], shape=label))
+    gaps = _k5_probe(dev)
+    print("K5 tc_f32 exactness probe (rows whose outputs hang on one bf16 "
+          "term of a chunk / history key or value, of q * scale or of p): "
+          "max |gap| to the plain version " + json.dumps(gaps))
+    return records
+
+
+def _k5_probe_inputs(dev):
+    """K5's exactness probe at tc_f32: two slots of f32 activations over an
+    f32 pool (every key and value three bf16 terms), head_dim 64 (scale
+    1/8: q * scale exact), one KV head.  Four probes, a query row each in
+    slot 0's chunk (rows 1, 3, 5, 7) and in slot 1's (rows 0-3, over
+    slot 1's history page, which holds slot 0's 8 chunk rows): each row
+    sees exactly two keys of its probe (a -1000 score on its sentinel dim
+    hides every other key), tied in exact arithmetic only when every term
+    of the probed operand counts:
+      0  keys 1 + 2^-9 + 2^-18 and (1, 2^-9, 2^-18) in three dims: k's
+         terms; values +-256, the output 0;
+      1  equal keys, values 1024 (1 + 2^-9 + 2^-18) and -1024 (1 + 2^-9):
+         v's terms, the output 2^-9;
+      2  q * scale 1 + 2^-9 + 2^-18 on one key, (1, 2^-9, 2^-18) on the
+         other: q's terms; the output 0;
+      3  scores 1 and 30/64 (p = exp(-34/64), whose lo term is 2^-18 of
+         it), values 64 and -37.625: p's terms.
+    Every probe's sums are exact in f32.  Returns the wrapper's kwargs."""
+    import torch
+    B, C, Dh, ps, M = 2, 8, 64, 16, 4
+    lo3 = 1 + 2.0 ** -9 + 2.0 ** -18
+    keys = torch.zeros(8, Dh)
+    vals = torch.zeros(8, Dh)
+    qs = torch.zeros(4, Dh)
+    keys[:, 60:64] = -1000.0
+    for i in range(8):
+        keys[i, 60 + i // 2] = 0.0
+    qs[torch.arange(4), 60 + torch.arange(4)] = 1.0
+    keys[0, 0] = lo3
+    keys[1, :3] = torch.tensor([1, 2.0 ** -9, 2.0 ** -18])
+    qs[0, :3] = 1.0
+    vals[0], vals[1] = 256.0, -256.0
+    keys[2, 3] = keys[3, 3] = 1.0
+    qs[1, 3] = 1.0
+    vals[2], vals[3] = 1024.0 * lo3, -1024.0 * (1 + 2.0 ** -9)
+    keys[4, 4] = 1.0
+    keys[5, 5:8] = torch.tensor([1, 2.0 ** -9, 2.0 ** -18])
+    qs[2, 4], qs[2, 5:8] = lo3, 1.0
+    vals[4], vals[5] = 256.0, -256.0
+    keys[6, 8], keys[7, 8] = 30 / 64, 1.0
+    qs[3, 8] = 1.0
+    vals[6], vals[7] = 64.0, -37.625
+    junk = torch.zeros(Dh)
+    junk[60:64] = -1000.0
+    q = torch.zeros(B, C, 1, Dh)
+    k = junk.expand(B, C, 1, Dh).clone()
+    v = torch.zeros(B, C, 1, Dh)
+    k[0, :, 0], v[0, :, 0] = keys, vals
+    q[0, 1::2, 0] = qs * 8.0           # q * scale = qs
+    q[1, :4, 0] = qs * 8.0
+    kp = junk.expand(1 + B * M, ps, Dh).clone()
+    vp = torch.zeros(1 + B * M, ps, Dh)
+    bt = (torch.arange(B * M, dtype=torch.int32) + 1).reshape(B, M)
+    kp[int(bt[1, 0]), :8], vp[int(bt[1, 0]), :8] = keys, vals
+    f = dict(device=dev)
+    return dict(q=q.to(**f), k=k.to(**f), v=v.to(**f), k_pages=kp.to(**f),
+                v_pages=vp.to(**f), block_tables=bt.to(**f),
+                starts=torch.tensor([0, 16], dtype=torch.int32, **f),
+                window=torch.tensor([1 << 30], dtype=torch.int32, **f),
+                fmt_kv=None, compute_dtype=torch.float32)
+
+
+# the probe's rows (slot, chunk row), one each of probes 0-3, in slot 0's
+# chunk and over slot 1's history
+K5_PROBE_ROWS = {"chunk": [(0, 1), (0, 3), (0, 5), (0, 7)],
+                 "history": [(1, 0), (1, 1), (1, 2), (1, 3)]}
+
+
+def _k5_probe_gaps(got, want) -> dict:
+    """Each probe row's largest |got - want| (its 64 dims), by where its
+    keys lie; `_attention_close` holds the whole output."""
+    return {where: [float((got[b, j] - want[b, j]).abs().max())
+                    for b, j in rows] for where, rows in K5_PROBE_ROWS.items()}
+
+
+def _k5_probe(dev, run=None) -> dict:
+    """The exactness probe through `run` (K5's wrapper by default) against
+    the plain version: within K5's f32 limit, which drops every probe row
+    that loses a term (the planted faults of tests/test_torch_smoke_checks
+    .py drop each of q's, k's, v's and p's lo terms).  Returns the gaps."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import prefill_attention as pf
+    a = _k5_probe_inputs(dev)
+    before = ops.launch_counts()["prefill_attention:tc_f32"]
+    got = (run or pf.prefill_attention_paged)(
+        **dict(a, k_pages=a["k_pages"].clone(),
+               v_pages=a["v_pages"].clone()))[0]
+    _check(run is not None or ops.launch_counts()["prefill_attention:tc_f32"]
+           == before + 1, "K5 probe: launched on tc_f32")
+    want = pf.prefill_attention_paged_plain(
+        **dict(a, k_pages=a["k_pages"].clone(),
+               v_pages=a["v_pages"].clone()))[0]
+    gaps = _k5_probe_gaps(got, want)
+    _check(_attention_close(got, want),
+           f"K5 exactness probe within 2e-5 of the plain version: {gaps}")
+    return gaps
 
 
 def _k5_prefill(dev):
@@ -1418,7 +1600,6 @@ def _k5_prefill(dev):
     # history stream before the tail); qwen3's G = 16 over P(8,2) and bf16
     # pages
     serving = _k5_case(dev, torch.bfloat16, 16, [64, 64, 130, 190], reps=50)
-    f32 = _k5_case(dev, torch.float32, 16, [64, 64, 130, 190], reps=5)
     long = _k5_case(dev, torch.bfloat16, 128, [1024, 1024, 1500, 1984],
                     reps=10)
     print(f"kernel prefill_attention serving shape: bound_ms at the f32 FMA "
@@ -1429,10 +1610,6 @@ def _k5_prefill(dev):
           f"({long['by']}), bound_ms at the f32 FMA rate "
           f"{long['f32_fma_ms']:.4f}, library_ms {long['library_ms']:.4f}, "
           f"max_abs_err {long['err']:.3g}")
-    print(f"kernel prefill_attention f32 activations (serving shape, SIMT "
-          f"variant): ms {f32['ms']:.4f}, bound_ms {f32['bound']:.4f} "
-          f"({f32['by']}), library_ms {f32['library_ms']:.4f}, max_abs_err "
-          f"{f32['err']:.3g}")
     errs = [serving["err"], long["err"]]
     for paged_fmt in ("P8_2", None):
         g16 = _k5_case(dev, torch.bfloat16, 16, [64, 64, 130, 190], reps=20,
@@ -1443,15 +1620,15 @@ def _k5_prefill(dev):
               f"{g16['plain_ms']:.3f}, bound_ms {g16['bound']:.4f} "
               f"({g16['by']}), library_ms {g16['library_ms']:.4f}, "
               f"max_abs_err {g16['err']:.3g}")
-    return dict(name="prefill_attention",
-                source="src/repro_torch/csrc/prefill_attention.cu",
-                replaces="src/repro/kernels/prefill_attention.py:251",
-                max_abs_err=max(errs), ms=serving["ms"],
-                call_ms=serving["call_ms"], plain_ms=serving["plain_ms"],
-                bound_ms=serving["bound"], bound_by=serving["by"],
-                library_ms=serving["library_ms"],
-                shape="B=4 C=64 Hq=64 Hkv=8 Dh=128 ps=16 M=16 bf16, int8 "
-                      "P(8,2) pages")
+    return [dict(name="prefill_attention",
+                 source="src/repro_torch/csrc/prefill_attention.cu",
+                 replaces="src/repro/kernels/prefill_attention.py:251",
+                 max_abs_err=max(errs), ms=serving["ms"],
+                 call_ms=serving["call_ms"], plain_ms=serving["plain_ms"],
+                 bound_ms=serving["bound"], bound_by=serving["by"],
+                 library_ms=serving["library_ms"],
+                 shape="B=4 C=64 Hq=64 Hkv=8 Dh=128 ps=16 M=16 bf16, int8 "
+                       "P(8,2) pages")] + _k5_f32(dev)
 
 
 # one layer's projections of command-r-35b, (K, N): wq, wk, wv, wo, gate,
@@ -1577,19 +1754,35 @@ def _k6_matmul(dev):
 # and attention at 16 query heads per KV head and over float pages
 # ---------------------------------------------------------------------------
 
-def k8_sass_ops() -> dict:
-    """The compile-time variant's integer operations a chunk step and a
-    decoded code, counted from the SASS of the library just built
+# K8's kernels in the built library's SASS: each variant's instantiation
+# of pdpu_fields_kernel (its mangled template argument), and the chunk
+# steps a slab unrolls; the run-time kernel counted at N 8, S6 in 32 bits
+K8_SASS_KERNELS = {
+    "p13_16_n4": ("PdpuFixedILi13ELi16ELi2ELi4ELi14ELi2ELb1EE", 8),
+    "p16_16_n4": ("PdpuFixedILi16ELi16ELi2ELi4ELi14ELi2ELb1EE", 8),
+    "p13_16_n8": ("PdpuFixedILi13ELi16ELi2ELi8ELi14ELi2ELb1EE", 4),
+    "p10_16_n8": ("PdpuFixedILi10ELi16ELi2ELi8ELi14ELi2ELb1EE", 4),
+    "p13_16_n8_w10": ("PdpuFixedILi13ELi16ELi2ELi8ELi10ELi2ELb1EE", 4),
+    "posit": ("PdpuRTILi8ELb0EE", 4)}
+_K8_SASS: dict = {}
+
+
+def k8_sass_ops(variant: str = "p13_16_n4") -> dict:
+    """A K8 variant's integer operations a chunk step and a decoded code,
+    counted from the SASS of the library just built
     (scripts/count_k8_sass.py): its bound uses these, the least count of
     its datapath as compiled."""
     from repro_torch.kernels import _build
     sys.path.insert(0, os.path.join(HERE, "scripts"))
     import count_k8_sass
-    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
-    text = subprocess.run([cuobjdump, "-sass",
-                           str(_build.build_all()["pdpu_dot"])], check=True,
-                          capture_output=True, text=True, timeout=120).stdout
-    return count_k8_sass.count(text)
+    if "text" not in _K8_SASS:
+        cuobjdump = os.path.join(os.path.dirname(_build._nvcc()),
+                                 "cuobjdump")
+        _K8_SASS["text"] = subprocess.run(
+            [cuobjdump, "-sass", str(_build.build_all()["pdpu_dot"])],
+            check=True, capture_output=True, text=True, timeout=120).stdout
+    kernel, steps = K8_SASS_KERNELS[variant]
+    return count_k8_sass.count(_K8_SASS["text"], kernel, steps)
 
 
 # command-r's projections under bit_exact at a decode step (2 layers):
@@ -1653,21 +1846,6 @@ def _k8_pdpu(dev):
     # a prefill M
     a64 = codes((64, K))
     bitwise(a64, b, cfg, "M=64 (prefill)")
-    # the run-time variant on a second configuration
-    c10 = formats.PDPU_P10_16_N8_W14
-    bitwise(codes((4, 1024), fmt=c10.fmt_in),
-            codes((1024, 256), 1 / 32, fmt=c10.fmt_in), c10,
-            "run-time variant, P(10/16,2) N 8")
-    # ... timed at the wk / wv step shape, beside its operations bound
-    # (pdpu_step_ops counts its datapath a chunk step)
-    ar = codes((M, K), fmt=c10.fmt_in)
-    br = codes((K, N), 1 / math.sqrt(K), fmt=c10.fmt_in)
-    rt_ms = _device_ms(lambda: pdpu_dot.pdpu_matmul(ar, br, c10), launches=3)
-    rt_bound, rt_by = _bound(work.pdpu(M, K, N, c10.N))
-    print(f"K8 run-time variant (posit), P(10/16,2) N 8, M {M}, K {K}, N "
-          f"{N}: ms {rt_ms:.4f}, bound {rt_bound:.4f} ({rt_by}, "
-          f"{work.pdpu_step_ops(c10.N)} integer operations a chunk step)")
-    del ar, br
     out = posit.decode(got.to(torch.int16), cfg.fmt_out)
     ref = torch.matmul(posit.decode(a, cfg.fmt_in), posit.decode(b, cfg.fmt_in))
     print(f"K8: fmt_out values vs the f32 matmul of the same codes: max |diff| "
@@ -1722,7 +1900,7 @@ def _k8_pdpu(dev):
           f"(SASS): bound {bound:.4f} ms ({by}) at "
           f"{_hw('peak_int32_ops'):.3g} "
           f"INT32 op/s; {M * N * (K // cfg.N) / ms / 1e6:.4g} G chunk "
-          f"steps/s; the run-time variant's count would be "
+          f"steps/s; the source count (work.pdpu_step_ops) "
           f"{work.pdpu_step_ops(cfg.N)} a step")
     return dict(name="pdpu_matmul", source="src/repro_torch/csrc/pdpu_dot.cu",
                 replaces="src/repro/kernels/pdpu_dot.py:47",
@@ -1730,6 +1908,124 @@ def _k8_pdpu(dev):
                 bound_ms=bound, bound_by=by, library_ms=None,
                 shape=f"M={M} K={K} N={N}, int16 P(13,2) codes -> int32 "
                       f"P(16,2), N=4 W_m=14, p13_16_n4")
+
+
+# the K8 configurations phase 3 checks and times beside the bit_exact
+# policy's: the other Table I configurations the reference names, and two
+# off the table (the run-time variant)
+def k8_table1_configs():
+    """{label: PDPUConfig}: formats.py's PDPU_* (the W_m 256 quire among
+    them, which pdpu._validate refuses), N 2 with no guard bits or sticky,
+    N 16."""
+    import dataclasses
+    from repro_torch.core import formats
+    base = formats.PDPU_P13_16_N4_W14
+    out = {n: getattr(formats, n) for n in sorted(dir(formats))
+           if n.startswith("PDPU_")}
+    out["N 2, no guard bits, no sticky"] = dataclasses.replace(
+        base, N=2, guard_bits=0, sticky=False)
+    out["N 16"] = dataclasses.replace(base, N=16)
+    return out
+
+
+def _k8_table1(dev):
+    """K8 at every configuration of `k8_table1_configs`: bitwise its plain
+    version at M 4, K 1024, N 256 on the variant `pdpu_variant` picks (the
+    quire refused before any launch); each timed at M 4 and M 64, K 8192,
+    N 1024 beside its operations bound from its own SASS count and, at
+    M 4, the latency floor of a lone chain (one row, 32 columns, the same
+    K): the target is half of the larger of the two or better.  Returns a
+    kernel record a named configuration."""
+    import torch
+    from repro_torch.core import pdpu, posit
+    from repro_torch.kernels import ops, pdpu_dot
+    from repro_torch.kernels import work
+    g = torch.Generator(device=dev).manual_seed(88)
+    records = []
+    M, K, N = 4, 8192, 1024
+    for label, cfg in k8_table1_configs().items():
+        def codes(shape, scale=1.0):
+            return posit.pack(torch.randn(*shape, generator=g, device=dev)
+                              * scale, cfg.fmt_in)
+        a, b = codes((4, 1024)), codes((1024, 256), 1 / 32)
+        try:
+            pdpu._validate(cfg)
+        except ValueError as e:
+            raised = False
+            try:
+                pdpu_dot.pdpu_matmul(a, b, cfg)
+            except ValueError:
+                raised = True
+            _check(raised, f"K8 {label}: refused by pdpu._validate")
+            print(f"K8 {label}: refused before any launch ({e})")
+            continue
+        variant = pdpu_dot.pdpu_variant(cfg)
+        _check((variant == "posit") == label.startswith("N "),
+               f"K8 {label}: its variant ({variant})")
+        key = f"pdpu_matmul:{variant}"
+        before = ops.launch_counts()[key]
+        got = pdpu_dot.pdpu_matmul(a, b, cfg)
+        _check(ops.launch_counts()[key] == before + 1,
+               f"K8 {label}: launched on {variant}")
+        t0 = time.perf_counter()
+        want = pdpu_dot.pdpu_matmul_plain(a, b, cfg)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        _check(_bits_equal(got, want), f"K8 {label} ({variant}) bitwise its "
+                                       f"plain version at K 1024, N 256")
+        a4, bk = codes((M, K)), codes((K, N), 1 / math.sqrt(K))
+        a64 = codes((64, K))
+        ms4 = _device_ms(lambda: pdpu_dot.pdpu_matmul(a4, bk, cfg),
+                         launches=3)
+        call_ms = _time_ms(lambda: pdpu_dot.pdpu_matmul(a4, bk, cfg), reps=3)
+        ms64 = _device_ms(lambda: pdpu_dot.pdpu_matmul(a64, bk, cfg),
+                          launches=2)
+        x1, w1 = codes((1, K)), codes((K, 32), 1 / math.sqrt(K))
+        floor = _device_ms(lambda: pdpu_dot.pdpu_matmul(x1, w1, cfg),
+                           launches=3)
+        step, dec, counted = _k8_ops(cfg)
+        b4, by4 = _bound(work.pdpu(M, K, N, cfg.N, step, dec))
+        b64, by64 = _bound(work.pdpu(64, K, N, cfg.N, step, dec))
+        target = max(b4, floor)
+        print(f"K8 {label} ({variant}): M 4: ms {ms4:.4f}, bound {b4:.4f} "
+              f"({by4}; {step:.1f} integer operations a chunk step, "
+              f"{dec:.1f} a decode, {counted}), latency floor "
+              f"{floor:.4f} (a lone chain, {K // cfg.N} steps: "
+              f"{floor / (K // cfg.N) * 1e6:.2f} ns a step; at the down "
+              f"projection's K 22528 "
+              f"{work.pdpu_floor_s(22528, cfg.N, floor / (K // cfg.N)):.4f}), "
+              f"{target / ms4:.2f} of max(bound, floor): target "
+              f"{'met' if ms4 <= 2 * target else 'not met'}; M 64: ms "
+              f"{ms64:.4f}, bound {b64:.4f} ({by64}); plain_ms at K 1024, "
+              f"N 256 {plain_ms:.1f}")
+        if variant == "posit":
+            continue
+        records.append(dict(
+            name=f"pdpu_matmul ({variant}: {label})",
+            counter=key, paths=(BIT_EXACT_W10,),
+            source="src/repro_torch/csrc/pdpu_dot.cu",
+            replaces="src/repro/kernels/pdpu_dot.py:47", max_abs_err=0.0,
+            ms=ms4, call_ms=call_ms, plain_ms=plain_ms, bound_ms=b4,
+            bound_by=by4, library_ms=None, floor_ms=floor, ms_m64=ms64,
+            shape=f"M={M} K={K} N={N}, {cfg.name} (plain_ms at K 1024, "
+                  f"N 256)"))
+        del a4, bk, a64, x1, w1
+    return records
+
+
+def _k8_ops(cfg):
+    """(operations a chunk step, a decode, "SASS" or "source count") of
+    K8 at `cfg`: its variant's SASS count where K8_SASS_KERNELS has its
+    instantiation (the run-time kernel's at N 8), else work.py's source
+    count."""
+    from repro_torch.kernels import pdpu_dot
+    from repro_torch.kernels import work
+    variant = pdpu_dot.pdpu_variant(cfg)
+    if variant in K8_SASS_KERNELS and (variant != "posit" or cfg.N == 8):
+        sass = k8_sass_ops(variant)
+        return sass["step_ops"], sass["decode_ops"], "SASS"
+    return (work.pdpu_step_ops(cfg.N, cfg.sticky), work.PDPU_DECODE_OPS,
+            "source count")
 
 
 # qwen3-moe-235b's expert stacks, (K, N) per GEMM: gate, up, down
@@ -2189,6 +2485,11 @@ def _small_reference(dev, policy: str, arch: str = "command_r_35b",
 # phase 5: serving the main path
 # ---------------------------------------------------------------------------
 
+# label -> (tokens/s, prefill ms, prefill share of the wall) of each
+# `_run_engine` run
+RUN_TIMES: dict = {}
+
+
 def _run_engine(cfg, params, prompts, label: str, new_tokens: int = 16,
                 **kw):
     """Serve `prompts` (`new_tokens` each) on a fresh 4-slot engine, one
@@ -2238,6 +2539,8 @@ def _run_engine(cfg, params, prompts, label: str, new_tokens: int = 16,
     _check(not engine.paged or engine.pages_free == engine.allocator.capacity,
            f"{label}: every page reclaimed")
     n_steps = max(len(decode_ms), 1)
+    RUN_TIMES[label] = (n_tok / wall, sum(prefill_ms),
+                        sum(prefill_ms) / 1e3 / wall)
     print(f"{label}: tokens {n_tok}, wall {wall:.3f} s, "
           f"{n_tok / wall:.2f} tok/s, mean decode step "
           f"{float(np.mean(decode_ms)):.3f} ms over {len(decode_ms)} "
@@ -2675,8 +2978,9 @@ def _bit_exact_phase(dev):
     projection and the tied head through the chunked-PDPU GEMM (K8), float
     bf16 KV pages (the policy has no KV format), decode_step + logits head
     + host sampler (no fused head).  4 requests of 16-32-token prompts, 8
-    new tokens each, greedy.  Returns (the run's launch counts (from 0),
-    cfg, params, prompts)."""
+    new tokens each, greedy; then the same at PDPU_P13_16_N8_W10.  Returns
+    (the run's launch counts (from 0), cfg, params, prompts, the W_m 10
+    run's counts, its K8 replay records)."""
     import numpy as np
     import torch
     from repro_torch import configs
@@ -2719,7 +3023,36 @@ def _bit_exact_phase(dev):
     _check(per_step.get("pdpu_matmul", 0) == per_token * n_steps,
            f"K8 launched {per_token} times per decode step (7 projections "
            f"per layer and the head)")
-    return counts, cfg, params, prompts
+    # the same weights and queue at PDPU_P13_16_N8_W10 (pdpu_n 8, pdpu_w_m
+    # 10): every K8 launch on its compile-time variant, each K8 call
+    # replayed bitwise against the plain version
+    import dataclasses
+    from repro_torch.core import formats
+    from repro_torch.kernels import pdpu_dot
+    cfg10 = cfg.replace(quant=dataclasses.replace(cfg.quant, pdpu_n=8,
+                                                  pdpu_w_m=10))
+    _check(cfg10.quant.pdpu_config() == formats.PDPU_P13_16_N8_W10
+           and pdpu_dot.pdpu_variant(cfg10.quant.pdpu_config())
+           == "p13_16_n8_w10", "bit_exact at W_m 10: p13_16_n8_w10")
+    ops.reset_launches()
+    with _capture_calls(names=("pdpu_matmul",)) as calls:
+        _, eng, per_step10, n10 = _run_engine(
+            cfg10, params, prompts, BIT_EXACT_W10, new_tokens=8,
+            greedy=True, max_seq=64, page_size=16, base_seed=1)
+    c10 = ops.launch_counts()
+    print(f"{BIT_EXACT_W10}: launches {json.dumps(c10)}")
+    _check(c10["pdpu_matmul"] > 0
+           and c10["pdpu_matmul:p13_16_n8_w10"] == c10["pdpu_matmul"],
+           f"every {BIT_EXACT_W10} K8 launch took p13_16_n8_w10")
+    _check(per_step10.get("pdpu_matmul", 0) == per_token * n10,
+           f"{BIT_EXACT_W10}: K8 launched {per_token} times a decode step")
+    del eng
+    _release()
+    records = _replay_smoke_calls(BIT_EXACT_W10, calls, c10, tag="7",
+                                  only=("pdpu_matmul",))
+    del calls
+    _release()
+    return counts, cfg, params, prompts, c10, records
 
 
 # ---------------------------------------------------------------------------
@@ -3856,12 +4189,62 @@ def _path_checks(label, c, k5_variant):
            f"'{label}': every K5 launch took the {k5_variant} variant")
 
 
+def _f32_serving(label, cfg, params, prompts, **kw):
+    """`cfg` served with f32 activations (its dtype float32; the same
+    packed weights and P(8,2) pages) on `prompts`, counted from 0: every
+    kernel of the paged path launched and every K5 launch on tc_f32, each
+    K5 call replayed against its plain version (`_replay_smoke_calls`);
+    then the same queue four more times, K5 on the SIMT kernel (the f32
+    path before tc_f32), on tc_f32, on tc_f32, on SIMT, for tokens/s and
+    the prefill share of each beside the other (the counted run pays for
+    the capture's copies, and a first run for its allocations).  Returns
+    (the run's launch counts, its K5 replay records)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import prefill_attention as pf
+    cfg32 = cfg.replace(dtype="float32")
+    ops.reset_launches()
+    with _capture_calls(names=("prefill_attention_paged",)) as calls:
+        _, eng, _, _ = _run_engine(cfg32, params, prompts, label, **kw)
+    counts = ops.launch_counts()
+    print(f"{label}: launches {json.dumps(counts)}")
+    _path_checks(label, counts, "tc_f32")
+    del eng
+    _release()
+    records = _replay_smoke_calls(label, calls, counts, tag="f32",
+                                  only=("prefill_attention",))
+    del calls
+    _release()
+    chosen = pf.prefill_variant
+    ab = {"simt": [], "tc_f32": []}
+    for n, variant in enumerate(("simt", "tc_f32", "tc_f32", "simt")):
+        run = f"{label} (K5 on {variant}, A/B {n + 1})"
+        pf.prefill_variant = (chosen if variant == "tc_f32" else
+                              lambda dtype, head_dim: "simt")
+        try:
+            _run_engine(cfg32, params, prompts, run, **kw)
+        finally:
+            pf.prefill_variant = chosen
+        ab[variant].append(RUN_TIMES[run])
+        _release()
+    tok = {v: sum(r[0] for r in rs) / 2 for v, rs in ab.items()}
+    pre = {v: sum(r[1] for r in rs) / 2 for v, rs in ab.items()}
+    print(f"{label}: A/B (simt, tc_f32, tc_f32, simt): tok/s tc_f32 "
+          f"{tok['tc_f32']:.2f} against simt {tok['simt']:.2f} "
+          f"({tok['tc_f32'] / tok['simt']:.3f}x); prefill {pre['tc_f32']:.1f}"
+          f" ms against {pre['simt']:.1f}; prefill share "
+          f"{100 * sum(r[2] for r in ab['tc_f32']) / 2:.1f}% against "
+          f"{100 * sum(r[2] for r in ab['simt']) / 2:.1f}%")
+    return counts, records
+
+
 def _gemma3_phase(dev):
     """10a: gemma3-4b at full width (12 of 34 layers: layers 5 and 11
-    global, the rest a 1024-token window) at serve_fused_p16: K3, K5 (tc256;
-    SIMT in f32) and K4 at its shapes, 8 requests of 1104-1304 tokens (a shared
+    global, the rest a 1024-token window) at serve_fused_p16: K3, K5 (tc256)
+    and K4 at its shapes, 8 requests of 1104-1304 tokens (a shared
     64-token system prompt) at max_seq 1536, 16 new tokens, greedy and
-    sampled; the window bites.  Returns (launch counts by run, records)."""
+    sampled, and greedy with f32 activations (`_f32_serving`: K5 on
+    tc_f32 at head_dim 256); the window bites.  Returns (launch counts by
+    run, records)."""
     import numpy as np
     import torch
     from repro_torch import configs
@@ -3891,8 +4274,7 @@ def _gemma3_phase(dev):
             (f"window {cfg.sliding_window}", cfg.sliding_window),
             ("global", 1 << 30))]
     # K5 at its chunk shape: tc256 with the local layers' window and the
-    # global layers' 2^30; the SIMT kernel held there in f32 (printed; no
-    # main path runs it)
+    # global layers' 2^30 (tc_f32 there: phase 3's K5_F32_SHAPES)
     k5 = dict(M=128, starts=[1024, 1100, 1500, 1960], Hkv=cfg.n_kv_heads,
               Hq=cfg.n_heads, Dh=cfg.head_dim)
     for label, window in ((f"window {cfg.sliding_window}",
@@ -3900,9 +4282,6 @@ def _gemma3_phase(dev):
         records.append(_k5_record(
             dev, f"gemma3-4b: tc256, head_dim {cfg.head_dim}, {label}",
             "prefill_attention:tc256", window=window, **k5))
-    _k5_record(dev, f"gemma3-4b: SIMT, f32, head_dim {cfg.head_dim}, window "
-                    f"{cfg.sliding_window}", "prefill_attention:simt",
-               act=torch.float32, window=cfg.sliding_window, **k5)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = _dense_params(cfg, 20, dev)
@@ -3931,6 +4310,9 @@ def _gemma3_phase(dev):
                and eng.stats["shared_admissions"] > 0,
                f"{label}: fused prefill and shared admissions")
         _path_checks(label, counts[label], "tc256")
+    counts[F32_RUNS[1]], recs = _f32_serving(F32_RUNS[1], cfg, params,
+                                             prompts, greedy=True, **base)
+    records.extend(recs)
     # the window bites: the first decode step of request 0 (1100+ tokens)
     # with gemma3's windows against the same weights without them
     windowed = _prefill_then_decode(cfg, params, prompts[0], dev,
@@ -4514,7 +4896,8 @@ _WRAPPERS = (("posit_codec", "decode"), ("posit_codec", "encode"),
              ("paged_attention", "decode_sample"),
              ("prefill_attention", "prefill_attention_paged"),
              ("posit_matmul", "posit_gemv_f"),
-             ("posit_matmul", "posit_matmul_grouped"))
+             ("posit_matmul", "posit_matmul_grouped"),
+             ("pdpu_dot", "pdpu_matmul"))
 
 
 @contextlib.contextmanager
@@ -4868,12 +5251,91 @@ def _replay_prefill(a):
     written = sum(1 for b, s in enumerate(starts) for j in range(C)
                   if (s + j) // ps < M and ok[b][(s + j) // ps])
     pairs = sum(min(s + j + 1, window) for s in starts for j in range(C))
-    kernel_work = work.prefill(B, C, Hq, Hkv, Dh, q.element_size(),
-                               kp0.element_size(), len(hist), written, pairs,
-                               pf.prefill_variant(act, Dh))
+    hist_bf16 = act == torch.bfloat16 or (
+        fmt is not None and a["compute_dtype"] == torch.bfloat16)
+    kernel_work = work.prefill(
+        B, C, Hq, Hkv, Dh, q.element_size(), kp0.element_size(), len(hist),
+        written, pairs, pf.prefill_variant(act, Dh),
+        chunk_pairs=B * sum(min(j + 1, window) for j in range(C)),
+        kv_terms=pf.prefill_kv_terms(kp0.dtype, fmt, hist_bf16))
     return (float((got.float() - want.float()).abs().max()), ms, plain_ms,
             kernel_work, lib,
             f"starts {starts}; planted faults rejected")
+
+
+# columns of a K8 call the replay holds against the plain version: the
+# first and the last K8_REPLAY_COLS / 2
+K8_REPLAY_COLS = 64
+
+
+def _replay_pdpu_calls(calls):
+    """K8 on a run's captured calls: each call's output bitwise its plain
+    version on the first and last K8_REPLAY_COLS / 2 columns (B a
+    transposed view stays one: the head's layout).  The plain datapath
+    runs one chunk step after another over all its outputs at once, so its
+    time goes with K / N and not with the outputs: the calls of one K and
+    configuration share one plain call over all their rows and checked
+    columns, of which each call's block is read.  The first such group's
+    check must reject the planted fault W_m + 1.  The bound of each call
+    from its variant's SASS count.  Returns the rows `_replay_smoke_calls`
+    takes, in the calls' order."""
+    import collections
+    import dataclasses
+    import torch
+    from repro_torch.kernels import pdpu_dot
+    from repro_torch.kernels import work
+
+    def checked(N, dev):
+        half = K8_REPLAY_COLS // 2
+        return (torch.arange(N, device=dev) if N <= K8_REPLAY_COLS else
+                torch.cat([torch.arange(half, device=dev),
+                           torch.arange(N - half, N, device=dev)]))
+
+    groups = collections.defaultdict(list)
+    for i, a in enumerate(calls):
+        groups[(a["a_codes"].shape[1], a["cfg"])].append(i)
+    rows = [None] * len(calls)
+    for n_group, ((K, cfg), idx) in enumerate(groups.items()):
+        xs = [calls[i]["a_codes"] for i in idx]
+        dev = xs[0].device
+        cols = [calls[i]["b_codes"][:, checked(calls[i]["b_codes"].shape[1],
+                                               dev)] for i in idx]
+        t0 = time.perf_counter()
+        want = pdpu_dot.pdpu_matmul_plain(torch.cat(xs), torch.cat(cols, 1),
+                                          cfg)
+        if want.is_cuda:
+            torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        if n_group == 0:
+            bad = pdpu_dot.pdpu_matmul_plain(
+                torch.cat(xs), torch.cat(cols, 1),
+                dataclasses.replace(cfg, w_m=cfg.w_m + 1))
+            _check(not _bits_equal(bad, want),
+                   "K8: the check rejects the planted fault 'W_m + 1'")
+        variant = pdpu_dot.pdpu_variant(cfg)
+        step, dec, _ = _k8_ops(cfg)
+        r0 = c0 = 0
+        for i, x, c in zip(idx, xs, cols):
+            w = calls[i]["b_codes"]
+            M, N = x.shape[0], w.shape[1]
+            got = pdpu_dot.pdpu_matmul(x, w, cfg)
+            block = want[r0:r0 + M, c0:c0 + c.shape[1]]
+            _check(_bits_equal(got[:, checked(N, dev)], block),
+                   f"K8 ({variant}) bitwise its plain version at M={M} "
+                   f"K={K} N={N} ({c.shape[1]} columns)")
+            r0, c0 = r0 + M, c0 + c.shape[1]
+            ms = _device_ms(lambda: pdpu_dot.pdpu_matmul(x, w, cfg),
+                            launches=3)
+            rows[i] = (0.0, ms, plain_ms / len(idx),
+                       work.pdpu(M, K, N, cfg.N, step, dec), None,
+                       f"{c.shape[1]} of {N} columns bitwise (one plain call "
+                       f"for the {len(idx)} calls at K {K}: {plain_ms:.1f} "
+                       f"ms, shared out); planted fault W_m + 1 rejected")
+    return rows
+
+
+# the replays that take a run's whole list of calls
+_BATCH_REPLAYS = (_replay_pdpu_calls,)
 
 
 # kernel counter -> (captured function, replay, source, the TPU kernel)
@@ -4899,25 +5361,31 @@ _REPLAYS = {
     "prefill_attention": ("prefill_attention_paged", _replay_prefill,
                           "src/repro_torch/csrc/prefill_attention.cu",
                           "src/repro/kernels/prefill_attention.py:251"),
+    "pdpu_matmul": ("pdpu_matmul", _replay_pdpu_calls,
+                    "src/repro_torch/csrc/pdpu_dot.cu",
+                    "src/repro/kernels/pdpu_dot.py:47"),
 }
 
 
-def _replay_smoke_calls(label, calls, counts, tag="13b", paths=None):
-    """Every kernel a run launched, held against its plain version at each
-    signature the run called it with (`_capture_calls`), each variant the
-    run launched among the replayed ones.  Returns one kernel record a
-    kernel, counting the launches of `paths` (`label`'s unless given;
-    messages start with `tag`): ms, plain_ms,
-    bound_ms and library_ms the sums over the signatures (one call each),
-    bound_by the larger side of the bound's largest call."""
+def _replay_smoke_calls(label, calls, counts, tag="13b", paths=None,
+                        only=None):
+    """Every kernel a run launched (of `only` when given), held against
+    its plain version at each signature the run called it with
+    (`_capture_calls`), each variant the run launched among the replayed
+    ones.  Returns one kernel record a kernel, counting the launches of
+    `paths` (`label`'s unless given; messages start with `tag`): ms,
+    plain_ms, bound_ms and library_ms the sums over the signatures (one
+    call each), bound_by the larger side of the bound's largest call."""
     from repro_torch.kernels import ops
     records = []
     for kernel, (fn_name, replay, source, replaces) in _REPLAYS.items():
-        if not counts.get(kernel, 0):
+        if not counts.get(kernel, 0) or (only is not None
+                                         and kernel not in only):
             continue
         mine = [a for name, a in calls if name == fn_name]
         before = ops.launch_counts()
-        rows = [replay(a) for a in mine]
+        rows = (replay(mine) if replay in _BATCH_REPLAYS
+                else [replay(a) for a in mine])
         after = ops.launch_counts()
         launched = {k for k, n in counts.items()
                     if k.startswith(kernel + ":") and n}
@@ -4950,8 +5418,9 @@ def _recurrent_smoke_on_card(dev):
     """13b: the jamba and mamba2 smoke engines (serve_fused_p16, f32
     activations) with the same packed weights on the card and on the CPU,
     greedy, 6 requests sharing a 32-token prefix, 4 slots, 8 new tokens:
-    equal streams; the card run's launches by variant (jamba: K5 (SIMT,
-    f32), K3, K4, K9 and the GEMV; mamba2: the GEMV, K1 and K2, no
+    equal streams; the card run's launches by variant (jamba: K5 (tc_f32,
+    f32 at head_dim 16), K3, K4, K9 and the GEMV; mamba2: the GEMV, K1 and
+    K2, no
     attention or fused head); every kernel the card run launched held
     against its plain version at each signature the run called it with
     (`_capture_calls`, `_replay_smoke_calls`).  Returns the card runs'
@@ -5002,7 +5471,7 @@ def _recurrent_smoke_on_card(dev):
             _check(eng.paged and eng.fused_decode
                    and eng.stats["shared_admissions"] > 0,
                    f"13b {label}: paged, fused decode, shared admissions")
-            for name, variant in (("prefill_attention", "simt"),
+            for name, variant in (("prefill_attention", "tc_f32"),
                                   ("decode_sample", "p16_2"),
                                   ("posit_matmul_grouped", "p16_2"),
                                   ("posit_gemv_f", "p16_2")):
@@ -6789,7 +7258,7 @@ def main() -> int:
     kernels = []
     for fn in (_k1_decode, _gemv_f, _k2_encode, _k3_attention,
                _k4_decode_sample, _k5_prefill, _k6_matmul, _k7_attention_mq,
-               _k8_pdpu, _k9_grouped):
+               _k8_pdpu, _k8_table1, _k9_grouped):
         recs = fn(dev)
         torch.cuda.empty_cache()
         for rec in recs if isinstance(recs, list) else [recs]:
@@ -6824,6 +7293,13 @@ def main() -> int:
     _profile(cfg13, params, prompts, "a13")
     _profile(cfg, params, prompts, "speculative round", steps=1,
              speculate_k=SPEC_K)
+    # ---- the f32 activation path on phase 5's weights and queue: K5 on
+    # tc_f32 (A/B against SIMT's prefill)
+    counts_f32 = {}
+    counts_f32[F32_RUNS[0]], recs = _f32_serving(
+        F32_RUNS[0], cfg, params, prompts, greedy=True, max_seq=256,
+        page_size=16, base_seed=1)
+    kernels.extend(recs)
     # ---- phase 18 on phase 5's weights: the decode step's graphs against
     # eager dispatch (the later configurations where their weights live)
     base = dict(max_seq=256, page_size=16, base_seed=1)
@@ -6851,7 +7327,9 @@ def main() -> int:
     _release()
     # ---- phase 7: bit_exact at full width; phase 8: MoE at full width
     label = "bit_exact greedy"
-    counts[label], bx_cfg, bx_params, bx_prompts = _bit_exact_phase(dev)
+    (counts[label], bx_cfg, bx_params, bx_prompts, counts[BIT_EXACT_W10],
+     recs) = _bit_exact_phase(dev)
+    kernels.extend(recs)
     print(f"{label}: launches {json.dumps(counts[label])}")
     _profile(bx_cfg, bx_params, bx_prompts, "bit_exact", steps=1)
     _graph_phase("bit_exact greedy", bx_cfg, bx_params, bx_prompts,
@@ -6887,7 +7365,7 @@ def main() -> int:
         c, recs = phase(dev)
         counts10.update(c)
         for rec in recs:
-            rec["paths"] = tuple(c)
+            rec.setdefault("paths", tuple(c))
         kernels.extend(recs)
         _release()
     _serve_example()
@@ -6980,7 +7458,7 @@ def main() -> int:
                and c["prefill_attention:tc"] == c["prefill_attention"],
                f"'{label}': every K5 launch took the tensor-core variant")
     runs = dict(counts, **counts10, **train_runs, **counts13, **counts14,
-                **counts15, **counts16)
+                **counts15, **counts16, **counts_f32)
     _attribute_launches(kernels, runs)
     keys = ("name", "route", "source", "replaces", "launches",
             "launches_by_path", "launches_by_variant", "max_abs_err", "ms",

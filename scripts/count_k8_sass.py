@@ -1,16 +1,19 @@
-"""Integer operations of K8's compile-time variant, counted from its SASS:
+"""Integer operations of a K8 variant, counted from its SASS:
 
-    python scripts/count_k8_sass.py LIBRARY_OR_LISTING
+    python scripts/count_k8_sass.py LIBRARY_OR_LISTING [KERNEL [STEPS]]
 
 LIBRARY_OR_LISTING is the built libpdpu_dot.so (disassembled with the CUDA
-toolkit's cuobjdump -sass) or a saved listing of it.  In
-pdpu_matmul_fixed_kernel the consumer's chunk loop is unrolled over a
-slab, with one FLO (the leading-one count of S5) a chunk step, and the
-producer decodes 8 codes at a time, with one FLO (the regime's run) a
-code.  A step's (a code's) operations are the instructions between the
-first and the last FLO of such a run, divided by the number of gaps, less
-the memory, barrier and control instructions.  Prints one line "SASS
-{json}": step_ops, decode_ops and the runs they came from."""
+toolkit's cuobjdump -sass) or a saved listing of it; KERNEL a substring of
+the instantiation's mangled name (the bit_exact policy's p13_16_n4,
+`PdpuFixedILi13ELi16ELi2ELi4ELi14ELi2ELb1EE`, by default); STEPS the chunk
+steps a 32-deep slab unrolls (32 / N, at most 8; 8 by default).  In
+pdpu_fields_kernel the consumer's chunk loop is unrolled over a slab,
+with one FLO (the leading-one count of S5) a chunk step, and the producer
+decodes 8 codes at a time, with one FLO (the regime's run) a code.  A
+step's (a code's) operations are the instructions between the first and
+the last FLO of such a run, divided by the number of gaps, less the
+memory, barrier and control instructions.  Prints one line "SASS {json}":
+step_ops, decode_ops and the runs they came from."""
 import json
 import re
 import statistics
@@ -23,7 +26,10 @@ _SKIP = ("LDS", "STS", "LDG", "STG", "BAR", "NOP", "BRA", "BSSY", "BSYNC",
 _STEP_GAP = 50   # FLOs at least this far apart belong to the chain's steps
 
 
-def instructions(text: str, kernel: str = "pdpu_matmul_fixed_kernel"):
+FIXED = "PdpuFixedILi13ELi16ELi2ELi4ELi14ELi2ELb1EE"
+
+
+def instructions(text: str, kernel: str = FIXED):
     """Opcodes of the kernel's listing, in order."""
     parts = re.split(r"\n\s*Function : ", text)
     body = next(p for p in parts[1:] if kernel in p.split("\n", 1)[0])
@@ -32,25 +38,26 @@ def instructions(text: str, kernel: str = "pdpu_matmul_fixed_kernel"):
             for o in ops]
 
 
-def _runs(flo, steps: bool):
-    """Runs of 8 FLOs with gaps all >= _STEP_GAP (steps) or all below."""
+def _runs(flo, steps: bool, n: int = 8):
+    """Runs of n FLOs with gaps all >= _STEP_GAP (steps) or all below."""
     out = []
-    for i in range(len(flo) - 7):
-        gaps = [flo[j + 1] - flo[j] for j in range(i, i + 7)]
+    for i in range(len(flo) - n + 1):
+        gaps = [flo[j + 1] - flo[j] for j in range(i, i + n - 1)]
         if all((g >= _STEP_GAP) == steps for g in gaps):
-            out.append((flo[i], flo[i + 7]))
+            out.append((flo[i], flo[i + n - 1]))
     return out
 
 
-def _per_gap(ops, run):
+def _per_gap(ops, run, n: int = 8):
     lo, hi = run
-    return sum(1 for o in ops[lo:hi] if o not in _SKIP) / 7
+    return sum(1 for o in ops[lo:hi] if o not in _SKIP) / (n - 1)
 
 
-def count(text: str) -> dict:
-    ops = instructions(text)
+def count(text: str, kernel: str = FIXED, steps_per_slab: int = 8) -> dict:
+    ops = instructions(text, kernel)
     flo = [i for i, o in enumerate(ops) if o == "FLO"]
-    steps = [_per_gap(ops, r) for r in _runs(flo, True)]
+    n = steps_per_slab
+    steps = [_per_gap(ops, r, n) for r in _runs(flo, True, n)]
     codes = [_per_gap(ops, r) for r in _runs(flo, False)]
     if not steps or not codes:
         raise ValueError("no unrolled chunk steps / decodes found")
@@ -67,7 +74,9 @@ def main() -> int:
                               capture_output=True, text=True).stdout
     else:
         text = open(path).read()
-    print("SASS " + json.dumps(count(text)))
+    args = sys.argv[2:4]
+    print("SASS " + json.dumps(count(text, *(args[:1]),
+                                     *map(int, args[1:2]))))
     return 0
 
 

@@ -1,7 +1,7 @@
 """Device times of K8 (command-r's bit_exact step shapes at M 4, the tied
 head with B transposed, and a prefill M), K2 (the tied head's re-encode,
-[256000, 8192] f32 into P(16,2) and P(13,2)) and the SIMT K5 (f32
-prefill attention, whose encode is the shared run-time one) with the
+[256000, 8192] f32 into P(16,2) and P(13,2)) and K5 with f32 activations
+(the tree's f32 variant: the SIMT kernel before tc_f32) with the
 repro_torch under ROOT/src:
 
     python scripts/time_k2_k8.py ROOT LABEL
@@ -81,7 +81,7 @@ for fmt in (formats.P16_2, formats.P13_2):
         lambda: posit_codec.encode(emb, fmt), launches=2)
 del emb
 torch.cuda.empty_cache()
-# the SIMT K5: chip_smoke.py's f32 case (4 slots, a 64-token chunk, 64 / 8
+# K5 in f32: chip_smoke.py's f32 serving case (4 slots, a 64-token chunk, 64 / 8
 # heads of 128, 16 pages of 16 a slot over P(8,2), slots 0 and 1 sharing
 # their history, slot 3's pages not written)
 B, C, Hq, Hkv, Dh, ps, Mp = 4, 64, 64, 8, 128, 16, 16

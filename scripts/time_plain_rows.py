@@ -2,7 +2,7 @@
 PERF.md section 6's rows that `chip_smoke.py` does not time it at: K1's
 run-time decode (P(16,1)), the float GEMV and K6 per projection (M 4,
 M 256, the training M 512), K2 into P(13,2), K3 at G 16, K4 over 16 rows
-and over an untied [D, V] head, K5's SIMT variant in f32, K9 at a decode
+and over an untied [D, V] head, K5 in f32, K9 at a decode
 step's routing, and K8's run-time variant; with `--k8` also K8's plain
 PDPU at each bit_exact step shape and at a prefill M (10–30 s each).
 Inputs are built as `chip_smoke.py` builds them, with `core.posit.pack`
@@ -91,7 +91,7 @@ def attention_rows():
         report(f"K3 G 16 {'P(8,2)' if fmt else 'bf16'} pages",
                lambda: pa.paged_attention_plain(q, kv[0], kv[1], bt, lengths,
                                                 full, fmt_kv=fmt))
-    # K5's SIMT variant: the serving geometry with f32 activations
+    # K5's plain version: the serving geometry with f32 activations
     Hkv, C, starts = 8, 64, [64, 64, 130, 190]
     kp, vp = (posit.pack(randn(P, ps, Hkv * Dh), formats.P8_2)
               for _ in range(2))
@@ -100,7 +100,7 @@ def attention_rows():
     st = torch.tensor(starts, dtype=torch.int32, device=DEV)
     ok = torch.ones(B, M, dtype=torch.int32, device=DEV)
     ok[3] = 0
-    report("K5 SIMT f32, serving shape (B 4, C 64, 64 / 8 heads, M 16)",
+    report("K5 f32, serving shape (B 4, C 64, 64 / 8 heads, M 16)",
            lambda: pf.prefill_attention_paged_plain(
                q, k, v, kp, vp, bt, st, full, fmt_kv=formats.P8_2,
                compute_dtype=torch.float32, flash_chunk=1024, page_ok=ok))

@@ -137,6 +137,24 @@ __device__ __forceinline__ uint32_t posit_round_abs(int S, uint32_t L) {
   return base + (g & (st | base));
 }
 
+// posit_round_abs with the format at run time (n <= 16, es <= 4; es = 0
+// too): the same pattern, the shifts that would reach 32 clamped.
+__device__ __forceinline__ uint32_t posit_round_abs_rt(int n, int es, int S,
+                                                       uint32_t L) {
+  const int smax = ((n - 1) << es) - 1;
+  const int Sc = min(max(S, -smax), smax);
+  const int k = Sc >> es;  // arithmetic shift = floor division
+  const int m = k ^ (k >> 31);
+  const uint32_t w = (k >= 0 ? 0x80000000u : 0x40000000u) |
+                     (__funnelshift_lc(0u, (uint32_t)Sc, 32 - es) >> 2) |
+                     ((L << 1) >> (es + 2));
+  const uint32_t pat = (uint32_t)((int32_t)w >> m);
+  const uint32_t base = pat >> (33 - n);
+  const uint32_t g = (pat >> (32 - n)) & 1u;
+  const uint32_t st = (w << (n - m)) != 0u;
+  return base + (g & (st | base));
+}
+
 // posit_encode for a format fixed at compile time in 32-bit integers
 // (K2's variants): bit for bit posit_encode(f, N, ES) on every f32.  f32
 // subnormals (exp8 0, scale -127) saturate to minpos as the clamp gives.

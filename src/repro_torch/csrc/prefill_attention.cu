@@ -88,14 +88,16 @@
 //     1024): 4.3 GFLOP of exact bf16 products (one a q.k multiply-add,
 //     three a p.v one), 4.3 us on the tensor cores, about 3 us of HBM
 //     bytes.
-// The SIMT variant (f32 activations -- an exact split of f32 chunk k / v
-// would take nine MMAs -- and head dims that are not a multiple of 16) is
-// prefill_attention_simt_kernel: one block per (slot, KV head, 4 chunk
+// The tc_f32 variant (f32 activations, head_dim a multiple of 16 up to
+// 256) runs the same tiles on tensor cores with every f32 operand split
+// exactly into bf16 terms (below, before the launchers).
+// The SIMT variant (head dims that are not a multiple of 16, or above 256)
+// is prefill_attention_simt_kernel: one block per (slot, KV head, 4 chunk
 // queries), every score of a flash chunk of ck keys in shared memory
 // before its row max (the reference's per-flash-chunk softmax), f32 FMA
 // throughout, and its own page writes of its query tile's rows.  Its key
-// skip (tile_live) does not know the window: a slow spot for f32 and odd
-// head dims only.  The wrapper picks the variant by dtype and head_dim
+// skip (tile_live) does not know the window: a slow spot for odd head
+// dims only.  The wrapper picks the variant by dtype and head_dim
 // (kernels/prefill_attention.py:prefill_variant).
 //
 // kv_pages-sharded pools (the reference's hist_pool_k / hist_pool_v /
@@ -1061,10 +1063,12 @@ __global__ void __launch_bounds__(kTcThreads, 2)
 }
 
 // A row's S partials combined in split order (those with l = 0 hold no
-// key and are skipped), normalized to bf16.  One thread per (row, dim).
+// key and are skipped), normalized to the output type (bf16 for tc256,
+// f32 for tc_f32).  One thread per (row, dim).
+template <typename OT>
 __global__ void prefill_attention_merge_kernel(
     const float* __restrict__ part_o, const float* __restrict__ part_ml,
-    bf16* __restrict__ out, int rows, int S, int Dh) {
+    OT* __restrict__ out, int rows, int S, int Dh) {
   const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= (size_t)rows * Dh) return;
   const size_t row = i / Dh;
@@ -1080,7 +1084,7 @@ __global__ void prefill_attention_merge_kernel(
     o = fmaf(o, ca, po[(size_t)s * Dh] * cb);
     m = mn;
   }
-  out[i] = __float2bfloat16_rn(o / fmaxf(l, 1e-30f));
+  act_store(out + i, o / fmaxf(l, 1e-30f));
 }
 
 size_t tc_smem_bytes(int Dh) {
@@ -1174,10 +1178,442 @@ int launch_tc256(const void* q, const void* k, const void* v, void* k_pages,
   if (e != cudaSuccess || S == 1) return (int)e;
   const int rows = B * C * Hq;
   const size_t total = (size_t)rows * Dh;
-  prefill_attention_merge_kernel<<<(unsigned)((total + 255) / 256), 256, 0,
-                                   s>>>((const float*)part_o,
+  prefill_attention_merge_kernel<bf16>
+      <<<(unsigned)((total + 255) / 256), 256, 0, s>>>((const float*)part_o,
                                         (const float*)part_ml, (bf16*)out,
                                         rows, S, Dh);
+  return (int)cudaGetLastError();
+}
+
+// ---- tensor-core variant for f32 activations (tc_f32) --------------------
+//
+// f32 q / k / v exactly on bf16 tensor cores.  Every f32 x is three bf16
+// terms, x = hi + mid + lo exactly (split3), and every product of two
+// terms is exact in f32, so S = sum over term pairs and P V likewise give
+// the exact products, summed in another order than the plain version.
+// How many terms a key or value needs depends on where it comes from:
+//   * the chunk's own rows are raw f32: three terms;
+//   * history decodes from its pages: one term when the decoded value is
+//     rounded to bf16 (hist_bf16, the kv_decode dtype chain) or the pool
+//     holds bf16, or the code's significand has at most 8 bits (P(8,x),
+//     P(10,2)); two up to 16 bits (P(13,x), P(16,x)); an f32 pool three
+//     (prefill_hist_terms, mirrored by kernels/prefill_attention.py).
+// A key tile takes three terms when it holds a chunk row, else the
+// history's count (the tile is the unit of work; the bound counts keys).
+//   * prefill_attention_span_f32_kernel decodes, splits and writes the
+//     span once per (slot, KV head): [2 (K, V)][3 terms][B][Hkv][L][Dh]
+//     bf16, only the planes a tile takes; and encodes the chunk rows into
+//     their pages from the f32 values (the same page writes as SIMT).
+//   * prefill_attention_tcf32_kernel<kD>: the tc / tc256 block (64
+//     query rows of one KV head, 4 warps of 16 rows, mma.sync m16n8k16)
+//     with the span streamed as units, one unit a (tile, K or V, term
+//     plane), through a ring of kRing unit buffers by cp.async, kRing - 1
+//     units ahead: a tile of one-term history costs what it costs tc (a K
+//     and a V unit, three MMAs a fragment each), the chunk's tile three
+//     of each.  A tile's K planes come lo first and hi last, and the hi
+//     plane's products of hi q run after its others: the f32 accumulator
+//     holds the small terms' sum (about 2^-8 of the score) until the 8 k
+//     steps of the largest products, so few of its steps round at the
+//     score's own magnitude.  q * scale is split into three terms: held in
+//     registers as A fragments up to head_dim 128 (kD 128: 4 units in
+//     the ring, 70 KB, two blocks an SM), above it kept as f32 in shared
+//     memory and split at every k step (kD 256: 68 KB of q and 3 units,
+//     169 KB, one block an SM), the key span split across blocks and the
+//     partials merged as tc256 does (same splits).
+// Bound at the serving shape (B 4, C 64, 64 / 8 heads x 128, P(8,2)
+// pages, spans of up to 320 keys): the exact form's products, three a q.k
+// multiply-add of history and nine of the chunk (and as many for p.v), at
+// the bf16 tensor-core rate (kernels/work.py:prefill, variant tc_f32).
+
+// bf16 terms of decoded history: the kv_decode chain's bf16 rounding and
+// bf16 pools give one, an f32 pool three, posit codes by their widest
+// significand (n - 2 - es bits, the hidden bit included)
+int prefill_hist_terms(int pool_kind, int n, int es, int hist_bf16) {
+  if (hist_bf16 || pool_kind == 3) return 1;
+  if (pool_kind == 2) return 3;
+  const int bits = n - 2 - es;
+  return bits <= 8 ? 1 : bits <= 16 ? 2 : 3;
+}
+
+// Terms of key tile `tile`: three when it holds a chunk row (at S_h and
+// above), else the history's.
+__device__ __forceinline__ int tcf32_tile_terms(int tile, int S_h,
+                                                int hist_terms) {
+  return (tile + 1) * kTcKeys > S_h ? 3 : hist_terms;
+}
+
+// The f32 span: as prefill_attention_span_kernel (the same rows, tiles
+// and page writes), each value split into the planes its tile takes.
+template <typename PT>
+__global__ void __launch_bounds__(256) prefill_attention_span_f32_kernel(
+    const float* __restrict__ k, const float* __restrict__ v,
+    PT* __restrict__ k_pages, PT* __restrict__ v_pages,
+    const int* __restrict__ bt, const int* __restrict__ starts,
+    const int* __restrict__ window, const int* __restrict__ page_ok,
+    const PT* __restrict__ hist_k, const PT* __restrict__ hist_v,
+    const int* __restrict__ hbt, bf16* __restrict__ span, int B, int C,
+    int M, int ps, int Hkv, int Dh, int L, int n, int es, int hist_bf16,
+    int hist_terms) {
+  constexpr bool kTable = std::is_same<PT, int8_t>::value;
+  __shared__ float table[kTable ? 256 : 1];
+  if (kTable) {
+    table[threadIdx.x] = posit_decode(threadIdx.x, n, es);
+    __syncthreads();
+  }
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int is_v = threadIdx.x >= 128, tid = threadIdx.x & 127;
+  const int vecs = Dh / 8, rows = 128 / vecs;
+  const int t = blockIdx.x * rows + tid / vecs;
+  const int d0 = (tid % vecs) * 8;
+  if (tid >= rows * vecs || t >= L) return;
+  const int F = Hkv * Dh, S_h = M * ps, start = starts[b];
+  if (!tc_tile_live(t / kTcKeys * kTcKeys, S_h, C, start, start,
+                    start + C - 1, window[0]))
+    return;
+  PT* pages = is_v ? v_pages : k_pages;
+  float x[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) x[e] = 0.0f;
+  if (t < S_h) {
+    if (t < start) {
+      const PT* src = (is_v ? hist_v : hist_k) +
+                      ((size_t)hbt[b * M + t / ps] * ps + t % ps) * F +
+                      h * Dh + d0;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        x[e] = table_or_decode(table, src[e], n, es);
+        if (hist_bf16) x[e] = round_bf16(x[e]);
+      }
+    }
+  } else if (t - S_h < C) {
+    const int j = t - S_h;
+    const float4* src = reinterpret_cast<const float4*>(
+        (is_v ? v : k) + (((size_t)b * C + j) * Hkv + h) * Dh + d0);
+    const float4 lo = src[0], hi = src[1];
+    x[0] = lo.x; x[1] = lo.y; x[2] = lo.z; x[3] = lo.w;
+    x[4] = hi.x; x[5] = hi.y; x[6] = hi.z; x[7] = hi.w;
+    const int pos = start + j;
+    const int idx = min(max(pos / ps, 0), M - 1);
+    const int page = bt[b * M + idx];
+    if (page != 0 && (page_ok == nullptr || page_ok[b * M + idx] != 0)) {
+      PT* dst = pages + ((size_t)page * ps + pos % ps) * F + h * Dh + d0;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) pool_store(dst + e, x[e], n, es);
+    }
+  }
+  const int terms = tcf32_tile_terms(t / kTcKeys, S_h, hist_terms);
+  const size_t plane = (size_t)B * Hkv * L * Dh;
+  bf16* dst = span + (size_t)is_v * 3 * plane +
+              (((size_t)b * Hkv + h) * L + t) * Dh + d0;
+  for (int i = 0; i < terms; ++i) {
+    uint32_t w[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const __nv_bfloat162 p2 = __floats2bfloat162_rn(x[2 * e], x[2 * e + 1]);
+      w[e] = *reinterpret_cast<const uint32_t*>(&p2);
+      x[2 * e] -= __low2float(p2);
+      x[2 * e + 1] -= __high2float(p2);
+    }
+    *reinterpret_cast<uint4*>(dst + i * plane) =
+        make_uint4(w[0], w[1], w[2], w[3]);
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait_n() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// S += (q term i) K^T over one unit (64 keys of one K term plane) for
+// the terms i in [I0, I1), the highest first; B fragments as in
+// prefill_attention_tc_kernel.  QA(ks, a) writes q's three A fragments of
+// k step ks into a.
+template <int kD, int I0, int I1, typename QA>
+__device__ __forceinline__ void tcf32_scores(float (&s)[kTcKeys / 8][4],
+                                             const bf16* U, int DS, int nks,
+                                             int lane, QA qa) {
+  const bf16* kl =
+      U + ((lane >> 4) * 8 + (lane & 7)) * DS + ((lane >> 3) & 1) * 8;
+#pragma unroll
+  for (int ks = 0; ks < kD / 16; ++ks) {
+    if (ks >= nks) break;
+    uint32_t bk[kTcKeys / 16][4], a[3][4];
+#pragma unroll
+    for (int np = 0; np < kTcKeys / 16; ++np)
+      ldmatrix_x4(bk[np], kl + np * 16 * DS + ks * 16);
+    qa(ks, a);
+#pragma unroll
+    for (int i = I1 - 1; i >= I0; --i)
+#pragma unroll
+      for (int np = 0; np < kTcKeys / 16; ++np) {
+        mma_bf16(s[2 * np], a[i], bk[np][0], bk[np][1]);
+        mma_bf16(s[2 * np + 1], a[i], bk[np][2], bk[np][3]);
+      }
+  }
+}
+
+// The block's rows (as prefill_attention_tc_kernel's) over the live key
+// tiles of split blockIdx.x, tiles [split TS, (split + 1) TS), from the
+// f32 span's term planes; with S splits the rows' (o, m, l) go to part_o
+// [rows, S, Dh] and part_ml [rows, S, 2], with one the normalized f32
+// output to out.
+template <int kD>
+__global__ void __launch_bounds__(kTcThreads, kD <= kDMax ? 2 : 1)
+    prefill_attention_tcf32_kernel(
+        const float* __restrict__ q, const bf16* __restrict__ span,
+        const int* __restrict__ starts, const int* __restrict__ window,
+        float* __restrict__ out, float* __restrict__ part_o,
+        float* __restrict__ part_ml, int B, int C, int M, int ps, int Hq,
+        int Hkv, int Dh, int L, int TS, int S, int hist_terms, float scale,
+        float softcap) {
+  constexpr bool kQRegs = kD <= kDMax;
+  constexpr int kRing = kQRegs ? 4 : 3;
+  const int split = blockIdx.x, qt = blockIdx.y;
+  const int h = blockIdx.z % Hkv, b = blockIdx.z / Hkv;
+  const int G = Hq / Hkv, R = G * C, S_h = M * ps;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tig = lane & 3;
+  const int start = starts[b];
+  const long long win = window[0];
+  const int DS = Dh + kPad, QS = Dh + 8;
+  const int nks = Dh / 16, ndn = Dh / 8, per_row = Dh / 8;
+
+  extern __shared__ float4 tc_smem4[];
+  float* Qf = reinterpret_cast<float*>(tc_smem4);  // [kTcRows][QS] (smem q)
+  bf16* ring = reinterpret_cast<bf16*>(kQRegs ? Qf : Qf + kTcRows * QS);
+  const size_t plane = (size_t)B * Hkv * L * Dh;
+  const bf16* kv0 = span + ((size_t)b * Hkv + h) * L * Dh;
+
+  // this thread's rows: r_base + g and r_base + g + 8
+  const int r_base = qt * kTcRows + warp * 16;
+  int qpos[2];
+  bool rvalid[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = r_base + g + 8 * i;
+    rvalid[i] = r < R;
+    qpos[i] = start + r / G;
+  }
+  const int r_lo = qt * kTcRows, r_hi = min(R, r_lo + kTcRows) - 1;
+  const int qlo = start + r_lo / G, qhi = start + r_hi / G;
+
+  float o[kD / 8][4];
+#pragma unroll
+  for (int dn = 0; dn < kD / 8; ++dn)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[dn][e] = 0.0f;
+  float m_r[2] = {kNeg, kNeg}, l_r[2] = {0.0f, 0.0f};
+
+  const int t_end = min(L / kTcKeys, (split + 1) * TS);
+  auto next_live = [&](int t) {
+    while (t < t_end &&
+           !tc_tile_live(t * kTcKeys, S_h, C, start, qlo, qhi, win))
+      ++t;
+    return t;
+  };
+  // the unit stream: per live tile, its K planes lo to hi, then its V
+  // planes lo to hi; (it, iu) the next unit to issue
+  int it = next_live(split * TS), iu = 0;
+  int iT = it < t_end ? tcf32_tile_terms(it, S_h, hist_terms) : 0;
+  int issued = 0;
+  auto issue = [&]() {
+    if (it < t_end) {
+      const int kv = iu < iT ? 0 : 1;
+      const int term = kv == 0 ? iT - 1 - iu : 2 * iT - 1 - iu;
+      const bf16* src = kv0 + (size_t)(kv * 3 + term) * plane +
+                        (size_t)it * kTcKeys * Dh;
+      bf16* dst = ring + (size_t)(issued % kRing) * kTcKeys * DS;
+      for (int c = threadIdx.x; c < kTcKeys * per_row; c += kTcThreads) {
+        const int key = c / per_row, d8 = (c % per_row) * 8;
+        cp_async16(dst + key * DS + d8, src + (size_t)key * Dh + d8);
+      }
+      if (++iu == 2 * iT) {
+        it = next_live(it + 1);
+        iu = 0;
+        iT = it < t_end ? tcf32_tile_terms(it, S_h, hist_terms) : 0;
+      }
+    }
+    cp_async_commit();  // empty past the last unit: completes at once
+    ++issued;
+  };
+
+  // q * scale: A fragments in registers (three terms), or f32 rows in
+  // shared memory that the loop's first barrier publishes
+  uint32_t qf[kQRegs ? 3 : 1][kQRegs ? kD / 16 : 1][4];
+  auto q_row = [&](int r) {
+    return q + (((size_t)b * C + r / G) * Hq + h * G + r % G) * Dh;
+  };
+  if constexpr (kQRegs) {
+#pragma unroll
+    for (int ks = 0; ks < kD / 16; ++ks) {
+      if (ks >= nks) break;
+#pragma unroll
+      for (int reg = 0; reg < 4; ++reg) {
+        // a[reg]: row g + 8 (reg & 1), cols ks 16 + 2 tig + 8 (reg >> 1)
+        const int r = r_base + g + 8 * (reg & 1);
+        float2 x = make_float2(0.0f, 0.0f);
+        if (r < R)
+          x = *reinterpret_cast<const float2*>(q_row(r) + ks * 16 + 2 * tig +
+                                               8 * (reg >> 1));
+        uint32_t t3[3];
+        split3(x.x * scale, x.y * scale, t3);
+#pragma unroll
+        for (int i = 0; i < 3; ++i) qf[i][ks][reg] = t3[i];
+      }
+    }
+  } else {
+    if (it < t_end) {
+      for (int c = threadIdx.x; c < kTcRows * (Dh / 4); c += kTcThreads) {
+        const int row = c / (Dh / 4), d4 = (c % (Dh / 4)) * 4;
+        const int r = qt * kTcRows + row;
+        float4 x = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        if (r < R) x = *reinterpret_cast<const float4*>(q_row(r) + d4);
+        *reinterpret_cast<float4*>(Qf + row * QS + d4) =
+            make_float4(x.x * scale, x.y * scale, x.z * scale, x.w * scale);
+      }
+    }
+  }
+  const float* qs_l = Qf + (warp * 16 + g) * QS + 2 * tig;
+  auto qa = [&](int ks, uint32_t (&a)[3][4]) {
+    if constexpr (kQRegs) {
+#pragma unroll
+      for (int i = 0; i < 3; ++i)
+#pragma unroll
+        for (int reg = 0; reg < 4; ++reg) a[i][reg] = qf[i][ks][reg];
+    } else {
+#pragma unroll
+      for (int reg = 0; reg < 4; ++reg) {
+        const float2 x = *reinterpret_cast<const float2*>(
+            qs_l + 8 * (reg & 1) * QS + ks * 16 + 8 * (reg >> 1));
+        uint32_t t3[3];
+        split3(x.x, x.y, t3);
+#pragma unroll
+        for (int i = 0; i < 3; ++i) a[i][reg] = t3[i];
+      }
+    }
+  };
+
+#pragma unroll 1
+  for (int u = 0; u < kRing - 1; ++u) issue();
+  int n = 0;  // units consumed
+#pragma unroll 1
+  for (int t = next_live(split * TS); t < t_end; t = next_live(t + 1)) {
+    const int T = tcf32_tile_terms(t, S_h, hist_terms);
+    float s[kTcKeys / 8][4];
+#pragma unroll
+    for (int nt = 0; nt < kTcKeys / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nt][e] = 0.0f;
+#pragma unroll 1
+    for (int u = 0; u < 2 * T; ++u, ++n) {
+      cp_async_wait_n<kRing - 2>();
+      __syncthreads();  // unit n landed; every warp is done with unit n - 1
+      issue();          // into unit n - 1's buffer
+      const bf16* U = ring + (size_t)(n % kRing) * kTcKeys * DS;
+      if (u < T) {
+        if (u < T - 1) {  // a lower plane: every q term
+          tcf32_scores<kD, 0, 3>(s, U, DS, nks, lane, qa);
+        } else {  // the hi plane: q's lower terms, then its hi term
+          tcf32_scores<kD, 1, 3>(s, U, DS, nks, lane, qa);
+          tcf32_scores<kD, 0, 1>(s, U, DS, nks, lane, qa);
+          const bool whole = t * kTcKeys + kTcKeys <= min(start, S_h) &&
+                             (long long)qhi - t * kTcKeys < win;
+          tile_softmax(s, o, m_r, l_r, t * kTcKeys, whole, rvalid, qpos,
+                       S_h, C, start, win, softcap, tig);
+        }
+      } else {
+        tile_pv(o, s, U, DS, ndn, lane);
+      }
+    }
+  }
+  cp_async_wait_n<0>();
+
+  // element (dn, e) is row g + 8 * (e >> 1), dims dn * 8 + tig * 2 + (e & 1)
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (!rvalid[i]) continue;
+    const int r = r_base + g + 8 * i;
+    const size_t row = ((size_t)b * C + r / G) * Hq + h * G + r % G;
+    if (S == 1) {
+      float* dst = out + row * Dh + tig * 2;
+      const float l = fmaxf(l_r[i], 1e-30f);
+#pragma unroll
+      for (int dn = 0; dn < kD / 8; ++dn) {
+        if (dn >= ndn) break;
+        *reinterpret_cast<float2*>(dst + dn * 8) =
+            make_float2(o[dn][2 * i] / l, o[dn][2 * i + 1] / l);
+      }
+      continue;
+    }
+    const size_t part = row * S + split;
+    if (tig == 0) {
+      part_ml[2 * part] = m_r[i];
+      part_ml[2 * part + 1] = l_r[i];
+    }
+    if (l_r[i] == 0.0f) continue;  // the merge skips this partial
+    float* dst = part_o + part * Dh + tig * 2;
+#pragma unroll
+    for (int dn = 0; dn < kD / 8; ++dn) {
+      if (dn >= ndn) break;
+      *reinterpret_cast<float2*>(dst + dn * 8) =
+          make_float2(o[dn][2 * i], o[dn][2 * i + 1]);
+    }
+  }
+}
+
+// Shared memory of a tc_f32 block (kernels/prefill_attention.py mirrors
+// it): kRing bf16 units of 64 keys, and above head_dim 128 the block's 64
+// q rows in f32.
+size_t tcf32_smem_bytes(int Dh) {
+  const size_t unit = sizeof(bf16) * kTcKeys * (size_t)(Dh + kPad);
+  return Dh <= kDMax ? 4 * unit
+                     : 3 * unit + sizeof(float) * kTcRows * (size_t)(Dh + 8);
+}
+
+template <typename PT>
+int launch_tcf32(const void* q, const void* k, const void* v, void* k_pages,
+                 void* v_pages, const int* bt, const int* starts,
+                 const int* window, const int* page_ok, const void* hist_k,
+                 const void* hist_v, const int* hbt, void* out, void* span,
+                 void* part_o, void* part_ml, int B, int C, int M, int ps,
+                 int Hq, int Hkv, int Dh, int n, int es, int hist_bf16,
+                 int pool_kind, int splits, float scale, float softcap,
+                 cudaStream_t s) {
+  const size_t smem = tcf32_smem_bytes(Dh);
+  if (Dh % 16 != 0 || Dh <= 0 || Dh > kTc256DMax || smem > kBlockSmem)
+    return kRefused;
+  const int L = (M * ps + C + kTcKeys - 1) / kTcKeys * kTcKeys;
+  const int n_tiles = L / kTcKeys;
+  const int TS = Dh <= kDMax ? n_tiles : tc256_split_tiles(n_tiles);
+  const int S = (n_tiles + TS - 1) / TS;
+  if (splits != S || (S > 1 && (part_o == nullptr || part_ml == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  const int hist_terms = prefill_hist_terms(pool_kind, n, es, hist_bf16);
+  const int rows = 128 / (Dh / 8);
+  prefill_attention_span_f32_kernel<PT>
+      <<<dim3((L + rows - 1) / rows, Hkv, B), 256, 0, s>>>(
+      (const float*)k, (const float*)v, (PT*)k_pages, (PT*)v_pages, bt,
+      starts, window, page_ok, (const PT*)hist_k, (const PT*)hist_v, hbt,
+      (bf16*)span, B, C, M, ps, Hkv, Dh, L, n, es, hist_bf16, hist_terms);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  auto kernel = Dh <= kDMax ? prefill_attention_tcf32_kernel<kDMax>
+                            : prefill_attention_tcf32_kernel<kTc256DMax>;
+  e = allow_smem(kernel, smem);
+  if (e != cudaSuccess) return (int)e;
+  const int G = Hq / Hkv;
+  dim3 grid(S, (G * C + kTcRows - 1) / kTcRows, Hkv * B);
+  kernel<<<grid, kTcThreads, smem, s>>>(
+      (const float*)q, (const bf16*)span, starts, window, (float*)out,
+      (float*)part_o, (float*)part_ml, B, C, M, ps, Hq, Hkv, Dh, L, TS, S,
+      hist_terms, scale, softcap);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || S == 1) return (int)e;
+  const size_t total = (size_t)B * C * Hq * Dh;
+  prefill_attention_merge_kernel<float>
+      <<<(unsigned)((total + 255) / 256), 256, 0, s>>>(
+          (const float*)part_o, (const float*)part_ml, (float*)out,
+          B * C * Hq, S, Dh);
   return (int)cudaGetLastError();
 }
 
@@ -1204,6 +1640,12 @@ int launch_pool(int variant, int pool_kind, const void* q, const void* k,
                                     Hkv, Dh, n, es, splits, scale, softcap,  \
                                     s)                                       \
                  : (int)cudaErrorInvalidValue;                               \
+  if (variant == 3)                                                          \
+    return kBf16 ? (int)cudaErrorInvalidValue                                \
+                 : launch_tcf32<PT>(q, k, v, kp, vp, bt, st, win, ok, hk,   \
+                                    hv, hbt, out, span, part_o, part_ml, B,  \
+                                    C, M, ps, Hq, Hkv, Dh, n, es, hist_bf16, \
+                                    pool_kind, splits, scale, softcap, s);   \
   return launch_simt<AT, PT>(q, k, v, kp, vp, bt, st, win, ok, hk, hv, hbt,  \
                              out, B, C, M, ps, Hq, Hkv, Dh, n, es,           \
                              hist_bf16, ck, scale, softcap, s)
@@ -1231,7 +1673,10 @@ int launch_pool(int variant, int pool_kind, const void* q, const void* k,
 // (both bf16 activations and Dh a multiple of 16; `span` is their bf16
 // [2, B, Hkv, L, Dh] scratch, L = M * ps + C rounded up to 64; variant 2
 // takes `splits` = tc256_splits and, with more than one, its f32
-// partials part_o [B * C * Hq, splits, Dh] and part_ml [.., splits, 2]).
+// partials part_o [B * C * Hq, splits, Dh] and part_ml [.., splits, 2]),
+// 3 = tensor cores for f32 activations with Dh a multiple of 16 up to 256
+// (`span` its bf16 term planes [2, 3, B, Hkv, L, Dh]; above 128 the key
+// span split as variant 2's, `splits` and the partials likewise).
 // hist_bf16: round decoded history to bf16 (the kv_decode dtype chain;
 // always so on the tensor-core variants).  page_ok may be null (every page
 // writable).  hist_k / hist_v / hist_bt (all three or none): the pools and
@@ -1239,7 +1684,7 @@ int launch_pool(int variant, int pool_kind, const void* q, const void* k,
 // global pool and global ids); null reads history from k_pages / v_pages
 // through bt.  Writes always go to k_pages / v_pages through bt and
 // page_ok.  Returns 0, a CUDA error code, or -1 (kRefused) when variant
-// 2 does not take Dh.
+// 2 or 3 does not take Dh.
 extern "C" int prefill_attention_launch(
     const void* q, const void* k, const void* v, void* k_pages, void* v_pages,
     const void* bt, const void* starts, const void* window,
@@ -1253,7 +1698,7 @@ extern "C" int prefill_attention_launch(
   const int* st_i = (const int*)starts;
   const int* win_i = (const int*)window;
   const int* ok_i = (const int*)page_ok;
-  if (variant < 0 || variant > 2) return (int)cudaErrorInvalidValue;
+  if (variant < 0 || variant > 3) return (int)cudaErrorInvalidValue;
   if ((hist_k == nullptr) != (hist_v == nullptr) ||
       (hist_k == nullptr) != (hist_bt == nullptr))
     return (int)cudaErrorInvalidValue;

@@ -11,40 +11,52 @@ wrapper launches the kernel; on a CPU tensor it runs the plain version,
 it would make (`kernels/work.py`).  K must hold whole chunks; M and N_out
 need not divide any tile.
 
-The kernel has two variants (`pdpu_variant`): `p13_16_n4`, the bit_exact
-policy's PDPU fixed at compile time, which carries each accumulator as
-decoded fields from one chunk step to the next, and `posit`, every other
-configuration at run time.  `pdpu_matmul_fields` states the first one's
-rearranged chain in plain PyTorch (for any valid configuration).
+The kernel has one datapath in two kinds of variant (`pdpu_variant`): the
+paper's Table I configurations that the reference names
+(`core/formats.py`'s PDPU_*) fixed at compile time -- `p13_16_n4` (the
+bit_exact policy's), `p16_16_n4`, `p13_16_n8`, `p10_16_n8`,
+`p13_16_n8_w10` -- and `posit`, every other configuration with its
+fields and shifts at run time.  Both carry each accumulator as decoded
+fields from one chunk step to the next; `pdpu_matmul_fields` states that
+rearranged chain in plain PyTorch (for any valid configuration).  The
+W_m 256 quire of Table I is refused by `pdpu._validate`, as the reference
+refuses it: its accumulator does not fit the int32 datapath.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core import pdpu, posit
+from repro_torch.core import formats, pdpu, posit
 from repro_torch.core.formats import P13_2, P16_2, PDPUConfig
 from . import _build, work
 from .posit_codec import round_abs_plain
 
-# launches of the kernel since the last reset (kernels/ops.reset_launches);
-# "pdpu_matmul:<variant>" counts them by `pdpu_variant`
-LAUNCHES = {"pdpu_matmul": 0, "pdpu_matmul:p13_16_n4": 0,
-            "pdpu_matmul:posit": 0}
 _CHUNKS = (1, 2, 4, 8, 16)
 _CODE_DTYPES = (torch.int8, torch.int16, torch.int32)
-# the compile-time variant's configuration: validate_bit_exact's PDPU
+# the compile-time variants (csrc/pdpu_dot.cu), by configuration: the
+# bit_exact policy's PDPU and the other Table I configurations the
+# reference names, each at its defaults (2 guard bits, sticky)
 FIXED = PDPUConfig(P13_2, P16_2, N=4, w_m=14, guard_bits=2, sticky=True)
-_VARIANTS = {"posit": 0, "p13_16_n4": 1}
+NAMED = {FIXED: "p13_16_n4",
+         formats.PDPU_P16_16_N4_W14: "p16_16_n4",
+         formats.PDPU_P13_16_N8_W14: "p13_16_n8",
+         formats.PDPU_P10_16_N8_W14: "p10_16_n8",
+         formats.PDPU_P13_16_N8_W10: "p13_16_n8_w10"}
+_VARIANTS = {"posit": 0, "p13_16_n4": 1, "p16_16_n4": 2, "p13_16_n8": 3,
+             "p10_16_n8": 4, "p13_16_n8_w10": 5}
+# launches of the kernel since the last reset (kernels/ops.reset_launches);
+# "pdpu_matmul:<variant>" counts them by `pdpu_variant`
+LAUNCHES = {"pdpu_matmul": 0} | {f"pdpu_matmul:{v}": 0 for v in _VARIANTS}
 _SENT = -(1 << 20)   # the exponent field of a zero operand / accumulator
 _FW = 20             # fraction bits of S6's log-domain word
 _M32 = 0xFFFFFFFF
 
 
 def pdpu_variant(cfg: PDPUConfig) -> str:
-    """K8's kernel for a configuration: the compile-time `p13_16_n4` for
-    `FIXED` (P(13,2) in, P(16,2) out, N 4, W_m 14, 2 guard bits, sticky),
-    the run-time `posit` kernel for every other one."""
-    return "p13_16_n4" if cfg == FIXED else "posit"
+    """K8's kernel for a configuration: its compile-time variant for a
+    Table I configuration of `NAMED` (formats, N, W_m, guard bits and
+    sticky all equal), the run-time `posit` kernel for every other one."""
+    return NAMED.get(cfg, "posit")
 
 
 def _shift_terms(cfg: PDPUConfig):
@@ -66,9 +78,10 @@ def _term(v, r, m, sticky: bool):
 
 
 def round_fields(mag, e_max, cfg: PDPUConfig):
-    """S6 of the compile-time variant, giving the next step's accumulator:
-    the rounding of mag * 2**(e_max + 2 - W_m - G) into fmt_out, in the
-    log domain.  The posit pattern's round to nearest even is the round of
+    """S6 of the fields chain (every variant), giving the next step's
+    accumulator: the rounding of mag * 2**(e_max + 2 - W_m - G) into
+    fmt_out, in the log domain.  The posit pattern's round to nearest
+    even is the round of
     Y = S 2**FW + fraction (S the scale) at bit D = es + FW - n_avail,
     n_avail = n - 1 - rlen the exponent and fraction bits the regime
     leaves: Y's bits above es + FW are the regime's k, so a carry out of
@@ -97,7 +110,7 @@ def round_fields(mag, e_max, cfg: PDPUConfig):
 
 
 def pdpu_matmul_fields(a_codes, b_codes, cfg: PDPUConfig):
-    """The compile-time variant's chain in plain PyTorch: [M, K] x [K,
+    """K8's fields chain (every variant) in plain PyTorch: [M, K] x [K,
     N_out] fmt_in codes -> int32 fmt_out codes, bit for bit
     `pdpu_matmul_plain`.  Operands as fields (significand, exponent field
     d, sign mask; a zero has significand 0 and d = `_SENT`), every S3 term
@@ -196,7 +209,9 @@ def pdpu_matmul(a_codes, b_codes, cfg: PDPUConfig):
         variant = pdpu_variant(cfg)
         keys = ("pdpu_matmul", f"pdpu_matmul:{variant}")
         if work.is_meta(a16):
-            work.record(keys, work.pdpu(M, K, N_out, cfg.N))
+            work.record(keys, work.pdpu(M, K, N_out, cfg.N,
+                                        work.pdpu_step_ops(cfg.N,
+                                                           cfg.sticky)))
             return out
         lib = _build.library("pdpu_dot")
         fi, fo = cfg.fmt_in, cfg.fmt_out

@@ -6,9 +6,10 @@ its plain version.
 chunk of every slot as one call -- flash attention over [decoded history
 pages | raw chunk | pad], the posit encode of the chunk's K/V and their
 in-place page writes.  On a CUDA tensor the wrapper launches the variant
-`prefill_variant` picks (tensor cores for bf16 activations with head_dim a
-multiple of 16 up to 256, SIMT f32 for the rest), and raises if the
-launcher refuses it;
+`prefill_variant` picks (tensor cores for head_dim a multiple of 16 up to
+256: `tc` / `tc256` for bf16 activations, `tc_f32` for f32 with every
+operand split exactly into bf16 terms; SIMT f32 for the rest), and raises
+if the launcher refuses it;
 on a CPU tensor it runs the plain version, the decomposed stages
 (gather -> encode -> insert -> decode -> flash attention) of
 `decomposed_prefill`, which the model's decomposed branch also runs, so on
@@ -35,11 +36,10 @@ from .posit_codec import decode_plain, encode_plain
 
 # launches of the kernel since the last reset (kernels/ops.reset_launches);
 # "prefill_attention:<variant>" counts them by `prefill_variant`
-LAUNCHES = {"prefill_attention": 0, "prefill_attention:tc": 0,
-            "prefill_attention:tc256": 0, "prefill_attention:simt": 0,
-            "prefill_attention:global_hist": 0}
+_VARIANTS = {"simt": 0, "tc": 1, "tc256": 2, "tc_f32": 3}
+LAUNCHES = {"prefill_attention": 0, "prefill_attention:global_hist": 0} | {
+    f"prefill_attention:{v}": 0 for v in _VARIANTS}
 _ACT_KINDS = {torch.float32: 0, torch.bfloat16: 1}
-_VARIANTS = {"simt": 0, "tc": 1, "tc256": 2}
 # the tensor-core variants' key tile and largest head dims
 TC_KEYS = 64
 TC_MAX_HEAD_DIM = 128
@@ -55,19 +55,37 @@ _REFUSED = -1
 
 
 def prefill_variant(dtype, head_dim: int) -> str:
-    """K5's kernel for q/k/v of `dtype`: for bf16 activations with a
-    head_dim that is a multiple of 16, "tc" (tensor cores, exact bf16
-    splits of q * scale and p) up to TC_MAX_HEAD_DIM (command-r,
-    command-r-plus, qwen3, deepseek) and "tc256" (the same with q in
-    shared memory and the key span split across blocks) up to
-    TC256_MAX_HEAD_DIM (gemma3-4b); else "simt" (f32 FMA: f32 chunk k / v
-    would need nine MMAs for an exact split)."""
-    if dtype == torch.bfloat16 and head_dim % 16 == 0 and head_dim > 0:
-        if head_dim <= TC_MAX_HEAD_DIM:
-            return "tc"
-        if head_dim <= TC256_MAX_HEAD_DIM:
-            return "tc256"
+    """K5's kernel for q/k/v of `dtype`, by head_dim: a multiple of 16 up
+    to TC256_MAX_HEAD_DIM runs on tensor cores with exact bf16 splits of
+    its f32 operands -- for bf16 activations "tc" up to TC_MAX_HEAD_DIM
+    (command-r, command-r-plus, qwen3, deepseek) and "tc256" (q in shared
+    memory, the key span split across blocks) above it (gemma3-4b), for f32
+    activations "tc_f32" (every f32 q, k, v and p in three terms, history
+    in as many as its page format needs: `prefill_kv_terms`); any other
+    head_dim "simt" (f32 FMA)."""
+    if head_dim % 16 or not 0 < head_dim <= TC256_MAX_HEAD_DIM:
+        return "simt"
+    if dtype == torch.float32:
+        return "tc_f32"
+    if dtype == torch.bfloat16:
+        return "tc" if head_dim <= TC_MAX_HEAD_DIM else "tc256"
     return "simt"
+
+
+def prefill_kv_terms(pages_dtype, fmt_kv: PositFormat | None,
+                     hist_bf16: bool) -> int:
+    """bf16 terms `tc_f32` takes for a history key or value (the chunk's
+    own f32 rows take three): one when history is rounded to bf16 (the
+    kv_decode dtype chain) or the pool holds bf16, three for an f32 pool,
+    and for posit codes as many bytes as the widest significand has bits
+    (n - 2 - es, the hidden bit included: one for P(8,x) and P(10,2), two
+    for P(13,x) and P(16,x)); csrc/prefill_attention.cu's
+    prefill_hist_terms."""
+    if hist_bf16 or pages_dtype == torch.bfloat16:
+        return 1
+    if fmt_kv is None:
+        return 3
+    return -(-max(fmt_kv.n - 2 - fmt_kv.es, 1) // 8)
 
 
 def tc_span_rows(M: int, page_size: int, C: int) -> int:
@@ -90,6 +108,23 @@ def tc256_smem_bytes(head_dim: int) -> int:
     """Shared memory of a tc256 block: 64 q rows, 64 keys and 64 values,
     bf16 rows padded by 8 (two blocks share an SM at head_dim 256)."""
     return 2 * 3 * TC_KEYS * (head_dim + 8)
+
+
+def tc_f32_splits(M: int, page_size: int, C: int, head_dim: int) -> int:
+    """Splits of the tc_f32 kernel's key span: one up to TC_MAX_HEAD_DIM
+    (q in registers), tc256's above it (q in shared memory)."""
+    return (1 if head_dim <= TC_MAX_HEAD_DIM
+            else tc256_splits(M, page_size, C))
+
+
+def tc_f32_smem_bytes(head_dim: int) -> int:
+    """Shared memory of a tc_f32 block: a ring of 64-key bf16 term-plane
+    units (rows padded by 8), four up to TC_MAX_HEAD_DIM, three above it
+    beside the block's 64 q rows in f32 (padded by 8)."""
+    unit = 2 * TC_KEYS * (head_dim + 8)
+    if head_dim <= TC_MAX_HEAD_DIM:
+        return 4 * unit
+    return 3 * unit + 4 * TC_KEYS * (head_dim + 8)
 
 
 def decomposed_prefill(q, k, v, k_pages, v_pages, block_tables, starts,
@@ -269,13 +304,16 @@ def prefill_attention_paged(q, k, v, k_pages, v_pages, block_tables, starts,
     hist_bf16 = q.dtype == bf16 or (fmt_kv is not None and compute_dtype == bf16)
     if B and C:
         variant = prefill_variant(q.dtype, Dh)
-        tc = variant in ("tc", "tc256")
-        # the tensor-core variants' decoded [history | chunk] span, K and V,
-        # and tc256's split partials (o, then m and l) of every output row
-        span = (torch.empty((2, B, Hkv, tc_span_rows(M, ps, C), Dh),
+        # the tensor-core variants' decoded [history | chunk] span, K and V
+        # (tc_f32: each in three bf16 term planes), and the split variants'
+        # partials (o, then m and l) of every output row
+        planes = {"tc": (), "tc256": (), "tc_f32": (3,)}.get(variant)
+        span = (torch.empty((2, *planes, B, Hkv, tc_span_rows(M, ps, C), Dh),
                             dtype=torch.bfloat16, device=q.device)
-                if tc else None)
-        splits = tc256_splits(M, ps, C) if variant == "tc256" else 1
+                if planes is not None else None)
+        splits = (tc256_splits(M, ps, C) if variant == "tc256"
+                  else tc_f32_splits(M, ps, C, Dh) if variant == "tc_f32"
+                  else 1)
         part_o, part_ml = ((torch.empty((B * C * Hq, splits, Dh),
                                         dtype=torch.float32, device=q.device),
                             torch.empty((B * C * Hq, splits, 2),
@@ -289,7 +327,9 @@ def prefill_attention_paged(q, k, v, k_pages, v_pages, block_tables, starts,
             hist = M * ps
             work.record(keys, work.prefill(
                 B, C, Hq, Hkv, Dh, q.element_size(), k_pages.element_size(),
-                B * hist, B * C, B * C * (hist + C), variant))
+                B * hist, B * C, B * C * (hist + C), variant,
+                chunk_pairs=B * C * C,
+                kv_terms=prefill_kv_terms(k_pages.dtype, fmt_kv, hist_bf16)))
             return out, k_pages, v_pages
         lib = _build.library("prefill_attention")
         err = lib.prefill_attention_launch(

@@ -182,39 +182,70 @@ def prefill_q_terms(variant: str, Dh: int) -> int:
 
 def prefill(B: int, C: int, Hq: int, Hkv: int, Dh: int, act_bytes: int,
             page_bytes: int, hist_rows: int, written_rows: int, pairs: int,
-            variant: str) -> Work:
+            variant: str, chunk_pairs: int = 0, kv_terms: int = 1) -> Work:
     """K5: q, k, v [B, C, ...] read and the output written, the K and V
     of `hist_rows` history rows read, `written_rows` chunk rows encoded
     into the pages; q.k and p.v over `pairs` (query, key) pairs: f32 FMA
     on the SIMT variant, the exact bf16 products on the tensor-core ones
-    (`prefill_q_terms` a q.k multiply-add, three a p.v one)."""
+    (`prefill_q_terms` a q.k multiply-add, three a p.v one, each against
+    one bf16 term of k / v).  tc_f32 splits k and v too: the
+    `chunk_pairs` of the pairs whose key is a chunk row take three terms
+    of it, the others (history) `kv_terms` (`prefill_kv_terms`), so a
+    multiply-add is 3 x terms bf16 products, q.k and p.v alike."""
     f = 4.0 * pairs * Hq * Dh
-    tc = variant != "simt"
-    ops = (2.0 * pairs * Hq * Dh * (prefill_q_terms(variant, Dh) + 3)
-           if tc else f)
-    return Work(flops=f, ops=ops, rate="bf16" if tc else "f32",
+    if variant == "simt":
+        ops, rate = f, "f32"
+    elif variant == "tc_f32":
+        ops = 2.0 * Hq * Dh * 2 * 3 * (3 * chunk_pairs
+                                       + kv_terms * (pairs - chunk_pairs))
+        rate = "bf16"
+    else:
+        ops = 2.0 * pairs * Hq * Dh * (prefill_q_terms(variant, Dh) + 3)
+        rate = "bf16"
+    return Work(flops=f, ops=ops, rate=rate,
                 read=B * C * (Hq + 2 * Hkv) * Dh * act_bytes
                 + 2 * hist_rows * Hkv * Dh * page_bytes,
                 written=B * C * Hq * Dh * act_bytes
                 + 2 * written_rows * Hkv * Dh * page_bytes)
 
 
-def pdpu_step_ops(N: int) -> int:
-    """Integer operations of one chunk step of one output as K8's
-    run-time variant runs it, counted from core/pdpu.py's datapath: S1 the
-    accumulator's decode (45), S2 per product a multiply, a sign xor, a
-    zero test, an exponent add and a select (5 N), the comparator tree
-    (N + 1), S3 per aligned term a shift amount, a clamp, a shift, the
-    sticky mask and OR, a negation (12 per term, N + 1 terms), S4-S5 the
-    sum, abs and leading-one count (25), S6 the rounding (45)."""
-    return 45 + 5 * N + (N + 1) + 12 * (N + 1) + 25 + 45
+def pdpu_step_ops(N: int, sticky: bool = True) -> int:
+    """Integer operations of one chunk step of one output on K8's fields
+    chain (csrc/pdpu_step.cuh, every variant), counted from its source:
+    per product a multiply, an exponent add, a sign xor, the exponent max
+    and the negative count (5 N); per aligned term (N + 1: the products and
+    the accumulator) the shift amount, the kept bits, the sign xor and the
+    add (4), and with sticky the dropped bits, their min and the OR (7);
+    the exponent max and the sum's start (2); S5 the magnitude, its leading
+    one, the left-aligned word and the scale (5); S6's rounding in the log
+    domain (24; the run-time variant's 64-bit word, where 32 bits do not
+    hold it, takes more) and the accumulator's next fields (4).  The card's
+    bound uses the count of the built kernel's SASS
+    (scripts/count_k8_sass.py), which the compiler's three-operand adds
+    make smaller."""
+    return 5 * N + (7 if sticky else 4) * (N + 1) + 2 + 5 + 24 + 4
 
 
-def pdpu(M: int, K: int, N: int, chunk: int, step_ops: int | None = None,
-         decode_ops: int = 0) -> Work:
+# operations of one operand decode into fields (csrc/pdpu_step.cuh
+# pdpu_operand), counted from its source
+PDPU_DECODE_OPS = 20
+
+
+def pdpu_floor_s(K: int, N: int, step_s: float) -> float:
+    """K8's latency floor: one output's K / N chunk steps run one after
+    another (each rounds the accumulator the next one reads), so no call
+    at that K takes less than the chain of K / N steps of `step_s` each,
+    the time of one step on the chain (a lone chain's call over its steps,
+    measured on the card)."""
+    return (K // N) * step_s
+
+
+def pdpu(M: int, K: int, N: int, chunk: int, step_ops: float | None = None,
+         decode_ops: float = PDPU_DECODE_OPS) -> Work:
     """K8: [M, K] x [K, N] int16 codes -> int32 codes; every chunk step
     of every output `step_ops` integer operations (`pdpu_step_ops(chunk)`
-    by default) and every code decoded `decode_ops`."""
+    by default) and every code decoded once (`decode_ops`: the producers
+    decode each slab's codes once a block)."""
     step_ops = pdpu_step_ops(chunk) if step_ops is None else step_ops
     return Work(flops=2.0 * M * K * N,
                 ops=M * N * (K // chunk) * step_ops

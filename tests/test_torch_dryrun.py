@@ -287,8 +287,10 @@ BOUND_ROWS = {
     "K9 training": (work.total(work.grouped(128, 40, k, n, 2, 2, 4,
                                             "tc_p13_2")
                                for k, n in _QWEN3_EXPERTS), 1.5159, "bytes"),
-    # row 9: K8's run-time variant, P(10/16,2) N 8, M 4, K 8192, N 1024
-    "K8 posit": (work.pdpu(4, 8192, 1024, 8), 0.0683, "operations"),
+    # row 9: K8's fields chain by its source count (pdpu_step_ops: 138
+    # a step at N 8, sticky; every code decoded once), P(10/16,2) N 8, M 4,
+    # K 8192, N 1024
+    "K8 posit": (work.pdpu(4, 8192, 1024, 8), 0.0447, "operations"),
     # the merge: 2 / 4 shards' partials of [4, 64] rows x 128
     "merge 2 shards": (work.merge(2, 256, 128), 0.0001, "bytes"),
     "merge 4 shards": (work.merge(4, 256, 128), 0.0002, "bytes"),

@@ -303,6 +303,46 @@ PREFILL = {
                       [0, 0], 1 << 30, 0.0, 1024),
     "tc256_past_flash_chunk": ("P8_2", torch.bfloat16, 2, 64, 8, 4, 256, 16,
                                80, [1030, 1200], 1 << 30, 0.0, 512),
+    # tc_f32 (f32 activations on tensor cores, exact bf16 term splits):
+    # the f32 cases of tests/test_torch_prefill.py (4 / 2 heads, pages of
+    # 4, 8 of them a slot, C 8) at head_dim 16; the serving shape over
+    # P(8,2) (one history term) and P(16,2) (two) pages; f32 pools (three
+    # terms, streaming past flash_chunk 64); head_dim 256 at gemma3's chunk
+    # with the window and globally, softcap, ragged rows and head_dim 144
+    # (q in shared memory, the key span split)
+    "tc_f32_coded_start0": ("P16_1", torch.float32, 1, 8, 4, 2, 16, 4, 8,
+                            [0], 1 << 30, 0.0, 1024),
+    "tc_f32_coded_mixed_midpage_starts": ("P16_1", torch.float32, 3, 8, 4,
+                                          2, 16, 4, 8, [0, 5, 13], 1 << 30,
+                                          0.0, 1024),
+    "tc_f32_window_plus_softcap": ("P16_1", torch.float32, 2, 8, 4, 2, 16,
+                                   4, 8, [4, 9], 7, 30.0, 1024),
+    "tc_f32_f32_pool": (None, torch.float32, 2, 8, 4, 2, 16, 4, 8, [3, 0],
+                        1 << 30, 0.0, 1024),
+    "tc_f32_p8_kv": ("P8_2", torch.float32, 2, 8, 4, 2, 16, 4, 8, [1, 6],
+                     1 << 30, 0.0, 1024),
+    "tc_f32_single_token_chunk": ("P16_1", torch.float32, 2, 1, 4, 2, 16, 4,
+                                  8, [7, 0], 1 << 30, 0.0, 1024),
+    "tc_f32_streaming_p16": ("P16_1", torch.float32, 2, 8, 4, 2, 16, 4, 8,
+                             [9, 17], 1 << 30, 0.0, 16),
+    "tc_f32_serving_p8": ("P8_2", torch.float32, 4, 64, 64, 8, 128, 16, 16,
+                          [0, 64, 130, 17], 1 << 30, 0.0, 1024),
+    "tc_f32_p16_2_g16": ("P16_2", torch.float32, 2, 24, 32, 2, 128, 16, 12,
+                         [33, 100], 1 << 30, 0.0, 1024),
+    "tc_f32_f32_pool_streaming": (None, torch.float32, 3, 32, 16, 2, 128,
+                                  16, 12, [70, 130, 5], 1 << 30, 0.0, 64),
+    "tc_f32_gemma3_window": ("P8_2", torch.float32, 4, 64, 8, 4, 256, 16,
+                             128, [1024, 1100, 1500, 1960], 1024, 0.0, 1024),
+    "tc_f32_gemma3_global": ("P8_2", torch.float32, 4, 64, 8, 4, 256, 16,
+                             128, [1024, 1100, 1500, 1960], 1 << 30, 0.0,
+                             1024),
+    "tc_f32_f32_pool_head_dim_256": (None, torch.float32, 2, 32, 8, 4, 256,
+                                     16, 24, [100, 300], 1 << 30, 50.0,
+                                     1024),
+    "tc_f32_ragged_rows_256": ("P16_1", torch.float32, 3, 7, 4, 2, 256, 16,
+                               40, [9, 400, 0], 20, 0.0, 1024),
+    "tc_f32_head_dim_144": ("P8_2", torch.float32, 2, 24, 4, 2, 144, 16, 24,
+                            [100, 350], 200, 0.0, 1024),
 }
 
 
@@ -342,6 +382,7 @@ def test_prefill_attention_matches_plain(cuda, case):
     variant = pf.prefill_variant(act, Dh)
     assert ops.launch_counts()[f"prefill_attention:{variant}"] == 1
     assert variant == ("tc256" if case.startswith("tc256_") else
+                       "tc_f32" if act == torch.float32 else
                        "tc" if case.startswith(("serving", "streaming",
                                                 "tc_")) else "simt")
     want, _, _ = pf.prefill_attention_paged_plain(*args, kp2, vp2,
@@ -926,6 +967,16 @@ PDPU_CASES = {
     "p16_n4_truncate": (formats.PDPU_P16_16_N4_W14, 0, False, 9, 64, 40),
     "p10_n8": (formats.PDPU_P10_16_N8_W14, 3, True, 3, 128, 70),
     "p13_n8_w10": (formats.PDPU_P13_16_N8_W10, 1, False, 4, 96, 64),
+    # the run-time variant's 64-bit S6 word (W_m + G 29 at N 1), es 0 and
+    # es 3 formats, 8-bit codes
+    "p13_n1_w27_wide": (formats.PDPUConfig(formats.P13_2, formats.P16_2,
+                                           N=1, w_m=27), 2, True, 3, 40, 37),
+    "p8_0_n4": (formats.PDPUConfig(formats.PositFormat(8, 0),
+                                   formats.PositFormat(16, 0), N=4), 2, True,
+                4, 64, 40),
+    "p12_3_n8": (formats.PDPUConfig(formats.PositFormat(12, 3),
+                                    formats.PositFormat(16, 3), N=8), 1,
+                 True, 4, 64, 40),
 }
 
 
@@ -950,6 +1001,43 @@ def test_pdpu_matmul_bitwise_plain(cuda, case):
     assert _bits_equal(pdpu_dot.pdpu_matmul(a, bt, cfg), want)
     # the CPU's plain version agrees with the card's
     assert _bits_equal(pdpu_dot.pdpu_matmul(a.cpu(), b.cpu(), cfg), want)
+
+
+@pytest.mark.parametrize("name", sorted(
+    n for n in dir(formats) if n.startswith("PDPU_")) + ["n2_truncate",
+                                                           "n16"])
+def test_pdpu_matmul_every_table1_config_bitwise(cuda, name):
+    """K8 at every Table I configuration of formats.py on its compile-time
+    variant, and at two configurations off the table on the run-time one
+    (N 2 with no guard bits or sticky; N 16), bitwise the plain version at
+    M 4, K 1024, N 256 (B also transposed), values and special codes; the
+    W_m 256 quire is refused before any launch, as in the reference."""
+    import dataclasses
+    from repro_torch.kernels import pdpu_dot
+    base = formats.PDPU_P13_16_N4_W14
+    cfg = {"n2_truncate": dataclasses.replace(base, N=2, guard_bits=0,
+                                              sticky=False),
+           "n16": dataclasses.replace(base, N=16)}.get(name) or getattr(
+        formats, name)
+    M, K, N = 4, 1024, 256
+    g = torch.Generator().manual_seed(len(name))
+    a = posit.pack(torch.randn(M, K, generator=g), cfg.fmt_in).to(cuda)
+    b = posit.pack(torch.randn(K, N, generator=g) / K ** 0.5,
+                   cfg.fmt_in).to(cuda)
+    a[1] = _codes(g, cfg.fmt_in, (K,)).to(cuda)
+    b[:, 3] = _codes(g, cfg.fmt_in, (K,)).to(cuda)
+    if "QUIRE" in name:
+        with pytest.raises(ValueError, match="int32"):
+            pdpu_dot.pdpu_matmul(a, b, cfg)
+        return
+    variant = pdpu_dot.pdpu_variant(cfg)
+    assert (variant == "posit") == (name in ("n2_truncate", "n16"))
+    ops.reset_launches()
+    got = pdpu_dot.pdpu_matmul(a, b, cfg)
+    assert ops.launch_counts()[f"pdpu_matmul:{variant}"] == 1
+    want = pdpu_dot.pdpu_matmul_plain(a, b, cfg)
+    assert got.dtype == torch.int32 and _bits_equal(got, want)
+    assert _bits_equal(pdpu_dot.pdpu_matmul(a, b.T.contiguous().T, cfg), want)
 
 
 FIXED_CASES = {
@@ -1666,14 +1754,15 @@ def _prefill_case(cuda, act, B, C, Hq, Hkv, Dh, ps, M, starts, window, seed):
     return variant
 
 
-@pytest.mark.parametrize("act,variant", [(torch.float32, "simt"),
+@pytest.mark.parametrize("act,variant", [(torch.float32, "tc_f32"),
                                          (torch.bfloat16, "tc256")])
 @pytest.mark.parametrize("window", [1024, 1 << 30])
 def test_prefill_attention_simt_head_dim_256_window(cuda, window, act,
                                                     variant):
-    """K5 at gemma3's heads (8 / 4 of 256): f32 activations keep the SIMT
-    kernel there, bf16 take tc256; a 64-token chunk at starts past 1024,
-    so the window cuts into the first flash chunk of history."""
+    """K5 at gemma3's heads (8 / 4 of 256): f32 activations take tc_f32
+    there (the SIMT kernel's former case), bf16 take tc256; a 64-token
+    chunk at starts past 1024, so the window cuts into the first flash
+    chunk of history."""
     assert _prefill_case(cuda, act, 4, 64, 8, 4, 256, 16, 128,
                          [1024, 1100, 1500, 1960], window, 7) == variant
 
@@ -1716,6 +1805,33 @@ def test_prefill_attention_tc256_refused_raises(cuda, monkeypatch):
     torch.cuda.synchronize()
     assert ops.launch_counts()["prefill_attention"] == 0
     assert _bits_equal(kp, kp0)
+
+
+@pytest.mark.parametrize("compute", [torch.bfloat16, torch.float32])
+def test_prefill_attention_tc_f32_history_terms(cuda, compute):
+    """tc_f32 with P(16,1) codes: history decoded to f32 takes two bf16
+    terms, to a bf16 compute dtype one (the kv_decode chain rounds it);
+    the chunk's f32 rows three either way."""
+    g = torch.Generator().manual_seed(23)
+    B, C, Hq, Hkv, Dh, ps, M = 2, 64, 16, 2, 128, 16, 12
+    fmt = formats.P16_1
+    kv = posit.pack(torch.randn(2, B * M + 1, ps, Hkv * Dh, generator=g), fmt)
+    bt = (torch.arange(B * M, dtype=torch.int32) + 1).reshape(B, M)
+    q, k, v = (torch.randn(B, C, h, Dh, generator=g).to(cuda)
+               for h in (Hq, Hkv, Hkv))
+    st = torch.tensor([90, 120], dtype=torch.int32, device=cuda)
+    win = torch.tensor([1 << 30], dtype=torch.int32, device=cuda)
+    kw = dict(fmt_kv=fmt, compute_dtype=compute, flash_chunk=1024)
+    kp, vp = kv[0].to(cuda), kv[1].to(cuda)
+    kp2, vp2 = kp.clone(), vp.clone()
+    ops.reset_launches()
+    got = pf.prefill_attention_paged(q, k, v, kp, vp, bt.to(cuda), st, win,
+                                     **kw)[0]
+    assert ops.launch_counts()["prefill_attention:tc_f32"] == 1
+    want = pf.prefill_attention_paged_plain(q, k, v, kp2, vp2, bt.to(cuda),
+                                            st, win, **kw)[0]
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+    assert _bits_equal(kp[1:], kp2[1:]) and _bits_equal(vp[1:], vp2[1:])
 
 
 def test_prefill_attention_tc_group_of_12(cuda):
@@ -2043,7 +2159,8 @@ def _sharded_pool_case(cuda, act, fmt, Dh, n_shards=2, B=3, C=16, M=6,
 @pytest.mark.parametrize("variant,act,fmt,Dh", [
     ("tc", torch.bfloat16, formats.P8_2, 64),
     ("tc256", torch.bfloat16, formats.P8_2, 256),
-    ("simt", torch.float32, formats.P16_1, 32),
+    ("tc_f32", torch.float32, formats.P16_1, 32),
+    ("simt", torch.float32, formats.P16_1, 40),
     ("tc", torch.bfloat16, None, 128)])
 def test_prefill_global_history_bitwise_unsharded(cuda, variant, act, fmt,
                                                   Dh):

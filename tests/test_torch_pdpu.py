@@ -171,17 +171,109 @@ def test_pdpu_matmul_plain_matches_reference_kernel(M, N_out):
     ("PDPU_P13_16_N4_W14", 2, True, "p13_16_n4"),
     ("PDPU_P13_16_N4_W14", 3, True, "posit"),
     ("PDPU_P13_16_N4_W14", 2, False, "posit"),
-    ("PDPU_P13_16_N8_W14", 2, True, "posit"),
-    ("PDPU_P16_16_N4_W14", 2, True, "posit"),
-    ("PDPU_P10_16_N8_W14", 2, True, "posit")])
+    ("PDPU_P13_16_N8_W14", 2, True, "p13_16_n8"),
+    ("PDPU_P16_16_N4_W14", 2, True, "p16_16_n4"),
+    ("PDPU_P10_16_N8_W14", 2, True, "p10_16_n8"),
+    ("PDPU_P13_16_N8_W10", 2, True, "p13_16_n8_w10"),
+    ("PDPU_P13_16_N8_W10", 0, False, "posit")])
 def test_pdpu_variant_by_config(name, gb, st, variant):
-    """The bit_exact policy's PDPU takes the compile-time variant, every
-    other configuration the run-time kernel."""
+    """The Table I configurations the reference names take their
+    compile-time variants (formats, N, W_m, guard bits and sticky all
+    equal), every other configuration the run-time kernel; the bit_exact
+    policy's PDPU is p13_16_n4, and with pdpu_n 8 / pdpu_w_m 10
+    p13_16_n8_w10."""
     cfg = dataclasses.replace(getattr(tformats, name), guard_bits=gb,
                               sticky=st)
     assert tpdpu_dot.pdpu_variant(cfg) == variant
-    assert tpdpu_dot.pdpu_variant(
-        tpolicy("validate_bit_exact").pdpu_config()) == "p13_16_n4"
+    policy = tpolicy("validate_bit_exact")
+    assert tpdpu_dot.pdpu_variant(policy.pdpu_config()) == "p13_16_n4"
+    assert tpdpu_dot.pdpu_variant(dataclasses.replace(
+        policy, pdpu_n=8, pdpu_w_m=10).pdpu_config()) == "p13_16_n8_w10"
+
+
+def test_named_configs_each_have_a_variant():
+    """Every PDPU_* configuration of formats.py that pdpu._validate takes
+    has its own compile-time variant (one each, with a launch counter);
+    the W_m 256 quire is refused before any launch, by the reference's
+    rule, in both packages."""
+    names = [n for n in CONFIGS if _valid(getattr(jformats, n))]
+    assert sorted(names) == sorted(n for n in CONFIGS if "QUIRE" not in n)
+    variants = [tpdpu_dot.pdpu_variant(getattr(tformats, n)) for n in names]
+    assert "posit" not in variants and len(set(variants)) == len(names)
+    assert set(variants) | {"posit"} == set(tpdpu_dot._VARIANTS)
+    assert all(f"pdpu_matmul:{v}" in tpdpu_dot.LAUNCHES for v in variants)
+    quire = tformats.PDPU_QUIRE_P13_16_N4
+    a = torch.zeros(2, 8, dtype=torch.int16)
+    with pytest.raises(ValueError, match="int32"):
+        tops.pdpu_matmul(a, a.T.contiguous(), quire)
+    with pytest.raises(ValueError, match="int32"):
+        jpdpu._validate(jformats.PDPU_QUIRE_P13_16_N4)
+
+
+def _meta_pdpu(cfg, M=4, K=64, N=96):
+    from repro_torch.launch.step_analysis import analyze_step
+    a = torch.empty(M, K, dtype=torch.int16, device="meta")
+    b = torch.empty(K, N, dtype=torch.int16, device="meta")
+    return analyze_step(lambda x, y: tpdpu_dot.pdpu_matmul(x, y, cfg), a, b)
+
+
+@pytest.mark.parametrize("cfg", [
+    tformats.PDPU_P13_16_N4_W14, tformats.PDPU_P16_16_N4_W14,
+    tformats.PDPU_P13_16_N8_W14, tformats.PDPU_P10_16_N8_W14,
+    tformats.PDPU_P13_16_N8_W10,
+    tformats.PDPUConfig(tformats.P13_2, tformats.P16_2, N=2, w_m=14,
+                        guard_bits=0, sticky=False),
+    tformats.PDPUConfig(tformats.P13_2, tformats.P16_2, N=16, w_m=14)],
+    ids=lambda c: f"{c.fmt_in.n}_{c.N}_{c.w_m}_{c.guard_bits}")
+def test_meta_route_counts_each_variant_and_its_work(cfg):
+    """On meta tensors K8's wrapper records one launch under its variant's
+    key, and the fields chain's integer operations: M N K / N chunk steps
+    of `pdpu_step_ops(N, sticky)` and every operand code decoded once."""
+    from repro_torch.kernels import work
+    M, K, N = 4, 64, 96
+    rec = _meta_pdpu(cfg, M, K, N)
+    variant = tpdpu_dot.pdpu_variant(cfg)
+    assert rec["launches"] == {"pdpu_matmul": 1,
+                               f"pdpu_matmul:{variant}": 1}
+    step = work.pdpu_step_ops(cfg.N, cfg.sticky)
+    assert step == 5 * cfg.N + (7 if cfg.sticky else 4) * (cfg.N + 1) + 35
+    assert rec["ops_by_rate"] == {
+        "int32": M * N * (K // cfg.N) * step
+        + (M * K + K * N) * work.PDPU_DECODE_OPS}
+    assert work.pdpu_floor_s(8192, cfg.N, 1e-7) == 8192 // cfg.N * 1e-7
+
+
+class _FailingLib:
+    def __init__(self, err):
+        self.err = err
+
+    def __getattr__(self, name):
+        return lambda *a: self.err
+
+
+@pytest.mark.parametrize("failure", ["build", "launch"])
+@pytest.mark.parametrize("named", [True, False])
+def test_wrapper_raises_on_a_failed_build_or_launch(monkeypatch, failure,
+                                                    named):
+    """No fallback to the plain version: a failed build or a launcher's
+    CUDA error raises from K8's wrapper and counts no launch (meta tensors
+    with the meta route switched off, a stand-in library)."""
+    from repro_torch.kernels import _build, work
+
+    def no_build(name):
+        raise RuntimeError("nvcc failed for pdpu_dot")
+
+    monkeypatch.setattr(work, "is_meta", lambda t: False)
+    monkeypatch.setattr(_build, "stream_of", lambda t: 0)
+    monkeypatch.setattr(_build, "library", no_build if failure == "build"
+                        else lambda name: _FailingLib(1))
+    cfg = tformats.PDPU_P13_16_N8_W10 if named else dataclasses.replace(
+        tformats.PDPU_P13_16_N8_W10, guard_bits=1)
+    tops.reset_launches()
+    with pytest.raises(RuntimeError, match="nvcc failed" if failure ==
+                       "build" else "CUDA error 1"):
+        _meta_pdpu(cfg)
+    assert tops.launch_counts()["pdpu_matmul"] == 0
 
 
 def _long_operands(rng, fmt, M, K, N):

@@ -312,13 +312,15 @@ def test_model_fused_prefill_matches_reference_fused(monkeypatch):
     (torch.bfloat16, 16, "tc"), (torch.bfloat16, 72, "simt"),
     (torch.bfloat16, 256, "tc256"), (torch.bfloat16, 144, "tc256"),
     (torch.bfloat16, 136, "simt"), (torch.bfloat16, 272, "simt"),
-    (torch.float32, 256, "simt"), (torch.float32, 128, "simt"),
-    (torch.float32, 32, "simt"),
+    (torch.float32, 256, "tc_f32"), (torch.float32, 128, "tc_f32"),
+    (torch.float32, 32, "tc_f32"), (torch.float32, 16, "tc_f32"),
+    (torch.float32, 72, "simt"), (torch.float32, 40, "simt"),
+    (torch.float32, 80, "tc_f32"), (torch.float32, 272, "simt"),
 ])
 def test_prefill_variant_by_dtype_and_head_dim(dtype, head_dim, want):
     """K5's wrapper picks its kernel by the activations' dtype and the head
-    dim alone: tensor cores for bf16 with head_dim a multiple of 16 (`tc`
-    up to 128, `tc256` up to 256), the SIMT kernel for f32 activations and
+    dim alone: tensor cores for head_dim a multiple of 16 up to 256 (bf16:
+    `tc` up to 128, `tc256` above; f32: `tc_f32`), the SIMT kernel for
     other head dims."""
     from repro_torch.kernels import prefill_attention as tpf
     assert tpf.prefill_variant(dtype, head_dim) == want
@@ -332,11 +334,14 @@ def test_prefill_variant_by_dtype_and_head_dim(dtype, head_dim, want):
 def test_serving_configs_take_tensor_core_prefill(name, want):
     """Every serving config of the port at full width (bf16 activations)
     prefills on a tensor-core K5 variant: `tc` at head_dim 128, `tc256` at
-    gemma3's 256; the f32 smoke configs take the SIMT one."""
+    gemma3's 256; the f32 smoke configs (head_dim 16) and each config run
+    with f32 activations take `tc_f32`."""
     from repro_torch.kernels import prefill_attention as tpf
     cfg, smoke = tconfigs.get(name), tconfigs.get_smoke(name)
     assert tpf.prefill_variant(cfg.compute_dtype, cfg.head_dim) == want
-    assert tpf.prefill_variant(smoke.compute_dtype, smoke.head_dim) == "simt"
+    assert tpf.prefill_variant(smoke.compute_dtype, smoke.head_dim) == \
+        "tc_f32"
+    assert tpf.prefill_variant(torch.float32, cfg.head_dim) == "tc_f32"
 
 
 def test_tc_span_rows_cover_history_and_chunk():
@@ -380,30 +385,174 @@ def _bf16_round(x):
     return x.to(torch.bfloat16).to(torch.float32)
 
 
-@pytest.mark.parametrize("what", ["q_scaled", "p"])
+@pytest.mark.parametrize("what", ["q_scaled", "p", "f32"])
 def test_three_term_bf16_split_is_exact(what):
-    """The tensor-core K5 variant's argument: an f32 x (q * scale from bf16
-    q, or p = exp(s - m) in (0, 1]) splits into hi = bf16(x), mid =
-    bf16(x - hi), lo = bf16(x - hi - mid) with x = hi + mid + lo exactly,
-    and each term times a bf16 value is exact in f32, so three bf16 MMAs
-    sum the same exact products as the f32 plain version.  Below 2^-110,
-    where lo (or a product) would be an f32 subnormal, the split and the
-    products lose at most 2^-126."""
+    """The tensor-core K5 variants' argument: an f32 x (q * scale from bf16
+    q, p = exp(s - m) in (0, 1], or any f32 value: tc_f32's q, k and v)
+    splits into hi = bf16(x), mid = bf16(x - hi), lo = bf16(x - hi - mid)
+    with x = hi + mid + lo exactly, and each term times a bf16 value is
+    exact in f32, so three bf16 MMAs sum the same exact products as the f32
+    plain version.  Below 2^-110, where lo (or a product) would be an f32
+    subnormal, the split and the products lose at most 2^-126."""
     g = torch.Generator().manual_seed(11)
     if what == "q_scaled":
         x = _bf16_round(torch.randn(1 << 16, generator=g) * 3) \
             * (1.0 / math.sqrt(128))
-    else:
+    elif what == "p":
         x = torch.exp(-torch.rand(1 << 16, generator=g) * 100)
+    else:
+        x = torch.randn(1 << 16, generator=g) * 2.0 ** torch.randint(
+            -60, 60, (1 << 16,), generator=g)
     hi = _bf16_round(x)
     mid = _bf16_round(x - hi)
     lo = _bf16_round(x - hi - mid)
     gap = (hi.double() + mid.double() + lo.double() - x.double()).abs()
-    assert bool((gap[x >= 2.0 ** -110] == 0).all())
+    assert bool((gap[x.abs() >= 2.0 ** -110] == 0).all())
     assert bool((gap <= 2.0 ** -126).all())
     k = _bf16_round(torch.randn(1 << 16, generator=g))
-    normal = x >= 2.0 ** -110
+    normal = x.abs() >= 2.0 ** -110
     for t in (hi, mid, lo):
         prod_gap = ((t * k).double() - t.double() * k.double()).abs()
         assert bool((prod_gap[normal] == 0).all())
         assert bool((prod_gap <= 2.0 ** -126).all())
+
+
+# ---------------------------------------------------------------------------
+# tc_f32: the f32 variant's term counts, geometry, launch keys and work
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("pages,fmt,hist_bf16,want", [
+    (torch.int8, "P8_2", False, 1), (torch.int8, "P8_0", False, 1),
+    (torch.int16, "P10_2", False, 1), (torch.int16, "P13_2", False, 2),
+    (torch.int16, "P16_1", False, 2), (torch.int16, "P16_2", False, 2),
+    (torch.int16, "P16_2", True, 1), (torch.float32, None, False, 3),
+    (torch.bfloat16, None, False, 1)])
+def test_prefill_kv_terms_by_page_format(pages, fmt, hist_bf16, want):
+    """tc_f32 runs a history tile against as many bf16 terms of its keys
+    and values as the page format needs: the decoded value of every code
+    of the format is exactly the sum of that many terms, and not of fewer
+    (the widest significand needs them all)."""
+    from repro_torch.core import formats as tformats
+    from repro_torch.core import posit as tposit
+    from repro_torch.kernels import prefill_attention as tpf
+    f = getattr(tformats, fmt) if fmt else None
+    assert tpf.prefill_kv_terms(pages, f, hist_bf16) == want
+    if f is None or hist_bf16:
+        return
+    codes = torch.arange(1 << f.n, dtype=torch.int64)
+    x = tposit.decode(codes, f)
+    x = x[torch.isfinite(x)]
+    rest, terms = x.clone(), []
+    for _ in range(want):
+        terms.append(_bf16_round(rest))
+        rest = rest - terms[-1]
+    assert bool((rest == 0).all())
+    assert want == 1 or bool((x - _bf16_round(x) - _bf16_round(
+        x - _bf16_round(x)) * (want > 2) != 0).any())
+
+
+def test_tc_f32_geometry_from_shapes():
+    """tc_f32 keeps tc's one pass over the span up to head_dim 128 and
+    takes tc256's key splits above it; its blocks fit 227 KB (two an SM at
+    head_dim 128)."""
+    from repro_torch.kernels import prefill_attention as tpf
+    assert tpf.tc_f32_splits(128, 16, 64, 128) == 1
+    assert tpf.tc_f32_splits(128, 16, 64, 256) == tpf.tc256_splits(
+        128, 16, 64) == 9
+    dims = [d for d in range(8, 513, 8)
+            if tpf.prefill_variant(torch.float32, d) == "tc_f32"]
+    assert dims == list(range(16, 257, 16))
+    assert all(tpf.tc_f32_smem_bytes(d) <= tpf.BLOCK_SMEM for d in dims)
+    assert tpf.tc_f32_smem_bytes(128) == 69632
+    assert 2 * (tpf.tc_f32_smem_bytes(128) + 1024) <= 228 * 1024
+    assert tpf.tc_f32_smem_bytes(256) == 168960
+
+
+def _meta_prefill(act, Dh, pages, fmt, compute, M=8, C=64, B=2, Hq=8,
+                  Hkv=2, ps=16):
+    from repro_torch.launch.step_analysis import analyze_step
+    from repro_torch.kernels import prefill_attention as tpf
+    meta = torch.device("meta")
+    q = torch.empty(B, C, Hq, Dh, dtype=act, device=meta)
+    k = torch.empty(B, C, Hkv, Dh, dtype=act, device=meta)
+    kp = torch.empty(B * M + 1, ps, Hkv * Dh, dtype=pages, device=meta)
+    bt = torch.empty(B, M, dtype=torch.int32, device=meta)
+    st = torch.empty(B, dtype=torch.int32, device=meta)
+    win = torch.empty(1, dtype=torch.int32, device=meta)
+    return analyze_step(lambda *a: tpf.prefill_attention_paged(
+        *a, fmt_kv=fmt, compute_dtype=compute), q, k, k.clone(), kp,
+        kp.clone(), bt, st, win)
+
+
+@pytest.mark.parametrize("act,Dh,pages,fmt,want", [
+    (torch.float32, 128, torch.int8, "P8_2", "tc_f32"),
+    (torch.float32, 256, torch.int16, "P16_2", "tc_f32"),
+    (torch.float32, 64, torch.float32, None, "tc_f32"),
+    (torch.float32, 72, torch.int8, "P8_2", "simt"),
+    (torch.bfloat16, 128, torch.int8, "P8_2", "tc")])
+def test_meta_route_counts_the_variant_and_its_work(act, Dh, pages, fmt,
+                                                    want):
+    """On meta tensors the wrapper records the launch it would make under
+    its variant's key and the exact form's operations: tc_f32 3 x 3 bf16
+    products a multiply-add of a chunk key and 3 x `prefill_kv_terms` of a
+    history key, q.k and p.v alike; SIMT f32 FMA."""
+    from repro_torch.core import formats as tformats
+    from repro_torch.kernels import prefill_attention as tpf
+    from repro_torch.kernels import work
+    f = getattr(tformats, fmt) if fmt else None
+    compute = act if fmt is None else torch.float32
+    rec = _meta_prefill(act, Dh, pages, f, compute)
+    assert rec["launches"] == {"prefill_attention": 1,
+                               f"prefill_attention:{want}": 1}
+    B, C, Hq, M, ps = 2, 64, 8, 8, 16
+    pairs, chunk = B * C * (M * ps + C), B * C * C
+    terms = tpf.prefill_kv_terms(pages, f, act == torch.bfloat16)
+    if want == "tc_f32":
+        ops = 2.0 * Hq * Dh * 2 * 3 * (3 * chunk + terms * (pairs - chunk))
+        assert rec["ops_by_rate"] == {"bf16": ops}
+        # a history key of one term costs what tc's q.k + p.v cost (3 + 3)
+        assert work.prefill(B, C, Hq, 2, Dh, 4, 1, 0, 0, pairs, "tc_f32",
+                            chunk_pairs=0, kv_terms=1).ops == work.prefill(
+            B, C, Hq, 2, Dh, 2, 1, 0, 0, pairs, "tc").ops
+    elif want == "simt":
+        assert rec["ops_by_rate"] == {"f32": 4.0 * pairs * Hq * Dh}
+
+
+class _FailingLib:
+    def __init__(self, err):
+        self.err = err
+
+    def __getattr__(self, name):
+        return lambda *a: self.err
+
+
+@pytest.mark.parametrize("act,Dh", [(torch.float32, 128),
+                                    (torch.float32, 256),
+                                    (torch.float32, 72),
+                                    (torch.bfloat16, 128)])
+@pytest.mark.parametrize("failure", ["build", "launch", "refused"])
+def test_wrapper_raises_on_a_failed_build_or_launch(monkeypatch, act, Dh,
+                                                    failure):
+    """No fallback: where the build fails, the launcher returns a CUDA
+    error or refuses the head dim, the wrapper raises and counts no launch
+    (driven on meta tensors with the meta route switched off, a stand-in
+    library in place of the built one)."""
+    from repro_torch.kernels import _build, ops, work
+    from repro_torch.kernels import prefill_attention as tpf
+
+    def no_build(name):
+        raise RuntimeError("nvcc failed for prefill_attention")
+
+    monkeypatch.setattr(work, "is_meta", lambda t: False)
+    monkeypatch.setattr(_build, "stream_of", lambda t: 0)
+    monkeypatch.setattr(_build, "library", no_build if failure == "build"
+                        else lambda name: _FailingLib(
+                            700 if failure == "launch" else -1))
+    ops.reset_launches()
+    want = {"build": (RuntimeError, "nvcc failed"),
+            "launch": (RuntimeError, "CUDA error 700"),
+            "refused": (ValueError, f"head_dim {Dh}")}[failure]
+    with pytest.raises(want[0], match=want[1]):
+        _meta_prefill(act, Dh, torch.int8, TP8_2, torch.float32)
+    assert ops.launch_counts()["prefill_attention"] == 0

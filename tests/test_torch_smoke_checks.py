@@ -500,3 +500,140 @@ def test_graph_gates_reject_planted_faults(fault):
         eager["programs"] += 1
     bad = chip_smoke._graph_mismatches("18 t", graphed, eager, 1)
     assert len(bad) == 1, bad
+
+
+# ---------------------------------------------------------------------------
+# K5's tc_f32 exactness probe and K8's replay (phases 3 and 7)
+# ---------------------------------------------------------------------------
+
+
+def _lo_dropped(x):
+    """x (f32) as its first two bf16 terms: the lo term left out."""
+    hi = x.to(torch.bfloat16).float()
+    return hi + (x - hi).to(torch.bfloat16).float()
+
+
+def _split_attention(a, drop=None):
+    """The probe's attention from the f32 operands (sums in float64, p in
+    f32 as the kernel forms it), with the lo bf16 term of `drop` left out:
+    "q" (q * scale), "k_chunk", "k_history", "v" (chunk and history) or
+    "p"; a tc_f32 kernel that lost that term."""
+    import math
+    q, k, v = a["q"], a["k"], a["v"]
+    B, C, Hq, Dh = q.shape
+    kp, vp, bt = a["k_pages"], a["v_pages"], a["block_tables"].long()
+    qs = q * (1.0 / math.sqrt(Dh))
+    if drop == "q":
+        qs = _lo_dropped(qs)
+    out = torch.zeros(B, C, Hq, Dh)
+    for b in range(B):
+        start = int(a["starts"][b])
+        hk = kp[bt[b]].reshape(-1, Dh)[:start]
+        hv = vp[bt[b]].reshape(-1, Dh)[:start]
+        ck, cv = k[b, :, 0], v[b, :, 0]
+        if drop == "k_history":
+            hk = _lo_dropped(hk)
+        if drop == "k_chunk":
+            ck = _lo_dropped(ck)
+        if drop == "v":
+            hv, cv = _lo_dropped(hv), _lo_dropped(cv)
+        keys, vals = torch.cat([hk, ck]), torch.cat([hv, cv])
+        for j in range(C):
+            n = start + j + 1
+            s = qs[b, j, 0].double() @ keys[:n].double().T
+            pr = torch.exp(s - s.max()).float()
+            if drop == "p":
+                pr = _lo_dropped(pr)
+            out[b, j, 0] = ((pr.double() @ vals[:n].double())
+                            / pr.double().sum()).float()
+    return out, kp, vp
+
+
+def test_k5_probe_holds_an_exact_kernel():
+    """Every operand of the probe splits into three nonzero bf16 terms
+    somewhere; an attention that keeps every term is within K5's f32 limit
+    of the plain version at every row: exactly at the probes whose sums are
+    exact, within exp's rounding at p's probe (the last of each four)."""
+    gaps = chip_smoke._k5_probe(CPU, run=lambda **a: _split_attention(a))
+    for side in gaps.values():
+        assert max(side[:3]) == 0.0 and side[3] < 1e-5
+
+
+@pytest.mark.parametrize("drop,where", [
+    ("q", "both"), ("k_chunk", "chunk"), ("k_history", "history"),
+    ("v", "both"), ("p", "both")])
+def test_k5_probe_rejects_a_dropped_term(drop, where):
+    """A tc_f32 split with one term dropped (the lo term of q * scale, of
+    the chunk's keys, of the history's keys, of the values, of p) fails
+    the probe at K5's contract limit (2e-5): each probe row's output hangs
+    on that term."""
+    with pytest.raises(SystemExit, match="exactness probe"):
+        chip_smoke._k5_probe(CPU, run=lambda **a: _split_attention(a, drop))
+    a = chip_smoke._k5_probe_inputs(CPU)
+    from repro_torch.kernels import prefill_attention as tpf
+    want = tpf.prefill_attention_paged_plain(
+        **dict(a, k_pages=a["k_pages"].clone(),
+               v_pages=a["v_pages"].clone()))[0]
+    gaps = chip_smoke._k5_probe_gaps(_split_attention(a, drop)[0], want)
+    for side in ("chunk", "history"):
+        assert (max(gaps[side]) > 4e-5) == (where in (side, "both"))
+
+
+@pytest.fixture(scope="module")
+def w10_calls():
+    """K8's captured calls of a CPU bit_exact engine run of command-r's
+    smoke config at PDPU_P13_16_N8_W10 (read only by the tests)."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.core.quant import policy_by_name
+    from repro_torch.models import packing
+    from repro_torch.serve import Request, ServingEngine
+    quant = dataclasses.replace(policy_by_name("validate_bit_exact"),
+                                pdpu_n=8, pdpu_w_m=10)
+    cfg = configs.get_smoke("command_r_35b").replace(quant=quant)
+    params = packing.pack_params(api.init(torch.Generator().manual_seed(3),
+                                          cfg, device="cpu"), cfg)
+    rng = np.random.default_rng(3)
+    eng = ServingEngine(cfg, params, batch_slots=2, max_seq=32, greedy=True,
+                        device="cpu")
+    for rid, n in enumerate((5, 9)):
+        eng.submit(Request(rid=rid, prompt=rng.integers(
+            0, cfg.vocab_size, n).astype(np.int32), max_new_tokens=2))
+    with chip_smoke._capture_calls("cpu", names=("pdpu_matmul",)) as calls:
+        eng.run()
+    return calls
+
+
+def test_k8_replay_holds_the_w10_run(monkeypatch, w10_calls):
+    """Phase 7's W_m 10 run's K8 calls, replayed on the CPU (the wrapper's
+    plain version on both sides): bitwise on the checked columns, the
+    planted W_m + 1 rejected; one record for K8 counting the run alone."""
+    _untimed(monkeypatch)
+    monkeypatch.setattr(chip_smoke, "k8_sass_ops", lambda variant: dict(
+        step_ops=100.0, decode_ops=20.0))
+    calls = w10_calls
+    assert calls and all(a["cfg"].w_m == 10 and a["cfg"].N == 8
+                         for _, a in calls)
+    recs = chip_smoke._replay_smoke_calls(chip_smoke.BIT_EXACT_W10, calls,
+                                          {"pdpu_matmul": 1},
+                                          only=("pdpu_matmul",))
+    assert [r["counter"] for r in recs] == ["pdpu_matmul"]
+    assert recs[0]["paths"] == (chip_smoke.BIT_EXACT_W10,)
+
+
+def test_k8_replay_rejects_a_variant_with_w_m_off_by_one(monkeypatch,
+                                                        w10_calls):
+    """A K8 variant that runs W_m + 1 (or W_m - 1) fails the replay."""
+    import dataclasses
+    from repro_torch.kernels import pdpu_dot
+    _untimed(monkeypatch)
+    monkeypatch.setattr(chip_smoke, "k8_sass_ops", lambda variant: dict(
+        step_ops=100.0, decode_ops=20.0))
+    calls = w10_calls
+    right = pdpu_dot.pdpu_matmul
+    for delta in (1, -1):
+        monkeypatch.setattr(pdpu_dot, "pdpu_matmul", lambda a, b, cfg: right(
+            a, b, dataclasses.replace(cfg, w_m=cfg.w_m + delta)))
+        with pytest.raises(SystemExit, match="bitwise"):
+            chip_smoke._replay_smoke_calls("w10", calls, {"pdpu_matmul": 1},
+                                           only=("pdpu_matmul",))
